@@ -1,0 +1,436 @@
+"""Assembler: residuals and Jacobians over batched elements.
+
+The port of `mrhyde_tpu/assembly/assembler.py`:
+
+- gather:    u_elem = u_global[lids] (slices on structured grids)
+- seed:      u_eval = alpha_u*u_stage + beta_u,
+             u_dot  = alpha_t*u_stage + beta_t
+- residual:  pure per-element function, torch.func.vmap'd
+- Jacobian:  torch.func.vmap(torch.func.jacfwd(...)) on the general
+             path; the fused provider (ops/fused_p1.py) on the hot path
+- scatter:   fixed-fan-in gather + sum through the incidence table
+             (deterministic; no atomics, no index_add_)
+
+Dirichlet rows use symmetric elimination: residual rows masked, unit
+diagonal in operators. Boundary integrals (Neumann, Robin, weak
+Dirichlet) and oriented vector bases are not ported yet (ROADMAP A4,
+A11): the Problem rejects decks that need them.
+"""
+
+from __future__ import annotations
+
+from dataclasses import dataclass
+
+import numpy as np
+import torch
+
+from mrhyde_tpu_torch.assembly.discretization import Discretization
+from mrhyde_tpu_torch.assembly.workset import Workset
+
+__all__ = ["Assembler", "TimeCoeffs", "BlockJacobian", "PointContext",
+           "build_incidence"]
+
+
+@dataclass
+class TimeCoeffs:
+    """Stage-solution seeding coefficients.
+
+    u_eval = alpha_u * u_stage + beta_u (vector)
+    u_dot  = alpha_t * u_stage + beta_t (vector)
+    """
+    alpha_u: float
+    beta_u: torch.Tensor
+    alpha_t: float
+    beta_t: torch.Tensor
+    time: float
+    deltat: float
+    is_steady: bool = False
+
+    @staticmethod
+    def steady(n_dof, time=0.0, dtype=torch.float64, device="cpu"):
+        z = torch.zeros(n_dof, dtype=dtype, device=device)
+        return TimeCoeffs(1.0, z, 0.0, z, float(time), 1.0, is_steady=True)
+
+
+@dataclass
+class BlockJacobian:
+    """Element-block Jacobian consumed matrix-free (or densified).
+
+    Never a global sparse matrix: per-element dense blocks + index
+    arrays. Assembly sums go through the dof -> (element, local dof)
+    incidence table as a fixed-fan-in gather + sum.
+    """
+    vol: torch.Tensor | None          # (E, nd, nd) AoS (or None)
+    vol_lids: torch.Tensor            # (E, nd)
+    fixed: torch.Tensor               # (n_dof,) bool
+    inc: torch.Tensor                 # (n_dof, max_deg) into E*nd (+pad)
+    # Row layout straight off the fused kernel: a LIST of nd*nd entries,
+    # each None (structural zero), a 0-d tensor (element-independent) or
+    # an (E,) tensor. apply/diag consume it without the AoS transpose.
+    vol_soa: list | None = None
+
+    @property
+    def n_dof(self):
+        return self.fixed.shape[0]
+
+    @property
+    def _soa_only(self):
+        return self.vol is None and self.vol_soa is not None
+
+    @property
+    def _n_elem(self):
+        return self.vol_lids.shape[0]
+
+    def _soa_dtype(self):
+        for r in self.vol_soa:
+            if r is not None:
+                return r.dtype
+        raise ValueError("SoA Jacobian without any row")
+
+    def aos(self):
+        """(E, nd, nd) volume blocks, materializing constant/zero rows
+        from SoA if needed (cold paths only: dense)."""
+        if self.vol is not None:
+            return self.vol
+        nd = self.vol_lids.shape[1]
+        E = self._n_elem
+        dt = self._soa_dtype()
+        dev = self.vol_lids.device
+        rows = torch.stack([
+            torch.zeros(E, dtype=dt, device=dev) if r is None
+            else torch.broadcast_to(r, (E,)) for r in self.vol_soa])
+        return rows.T.reshape(-1, nd, nd)
+
+    def _soa_mv(self, vm):
+        """(E, nd) element products sum_j J[e,i,j]*vm[lids[e,j]] from
+        the SoA rows."""
+        nd = self.vol_lids.shape[1]
+        return self.soa_products([vm[self.vol_lids[:, j]]
+                                  for j in range(nd)])
+
+    def soa_products(self, xg):
+        """(E, nd) products of the SoA rows with the gathered element
+        columns xg[j] (E,); None rows skip their chain, scalar rows fold
+        into the multiply."""
+        nd = len(xg)
+        out = []
+        for i in range(nd):
+            terms = [self.vol_soa[i * nd + j] * xg[j]
+                     for j in range(nd)
+                     if self.vol_soa[i * nd + j] is not None]
+            out.append(sum(terms) if terms else torch.zeros_like(xg[0]))
+        return torch.stack(out, dim=1)
+
+    def _vol_mv(self, vm):
+        if self._soa_only:
+            return self._soa_mv(vm)
+        return torch.einsum("eij,ej->ei", self.vol, vm[self.vol_lids])
+
+    def _gather_sum(self, vals):
+        """Assemble flattened per-element values -> (n_dof,)."""
+        flat = torch.cat([vals.reshape(-1), vals.new_zeros(1)])
+        return flat[self.inc].sum(dim=1)
+
+    def apply(self, v):
+        """J @ v with Dirichlet identity rows."""
+        vm = torch.where(self.fixed, 0.0, v)
+        out = self._gather_sum(self._vol_mv(vm))
+        return torch.where(self.fixed, v, out)
+
+    def diag(self):
+        if self._soa_only:
+            nd = self.vol_lids.shape[1]
+            E = self._n_elem
+            dt = self._soa_dtype()
+            dev = self.vol_lids.device
+            dblk = torch.stack([
+                torch.zeros(E, dtype=dt, device=dev)
+                if self.vol_soa[i * nd + i] is None
+                else torch.broadcast_to(self.vol_soa[i * nd + i], (E,))
+                for i in range(nd)], dim=1)
+        else:
+            dblk = torch.diagonal(self.vol, dim1=1, dim2=2)
+        d = self._gather_sum(dblk)
+        return torch.where(self.fixed, 1.0, d)
+
+    def dense(self):
+        n = self.n_dof
+        vol = self.aos()
+        nd = self.vol_lids.shape[1]
+        rows = self.vol_lids[:, :, None].expand(-1, nd, nd)
+        cols = self.vol_lids[:, None, :].expand(-1, nd, nd)
+        # coalesce sums duplicate (row, col) entries by sorting, not by
+        # atomics, so the dense matrix is the same on every run
+        with torch.sparse.check_sparse_tensor_invariants(True):
+            A = torch.sparse_coo_tensor(
+                torch.stack([rows.reshape(-1), cols.reshape(-1)]),
+                vol.reshape(-1), (n, n)).coalesce().to_dense()
+        mask = self.fixed[:, None] | self.fixed[None, :]
+        A = torch.where(mask, 0.0, A)
+        A = A + torch.diag(self.fixed.to(A.dtype))
+        # patch EMPTY ROWS (dofs no module touches)
+        empty = torch.abs(A).sum(dim=1) == 0
+        return A + torch.diag(empty.to(A.dtype))
+
+
+def build_incidence(lids: np.ndarray, n_dof: int) -> np.ndarray:
+    """dof -> positions in lids.ravel() (padded with E*nd = zero slot).
+
+    Turns assembly scatter into a fixed-fan-in gather + sum."""
+    flat = np.asarray(lids).ravel()
+    order = np.argsort(flat, kind="stable")
+    sorted_ids = flat[order]
+    counts = np.bincount(sorted_ids, minlength=n_dof)
+    max_deg = int(counts.max()) if counts.size else 1
+    inc = np.full((n_dof, max_deg), flat.size, dtype=np.int64)
+    starts = np.zeros(n_dof + 1, dtype=np.int64)
+    np.cumsum(counts, out=starts[1:])
+    for k in range(max_deg):
+        has = counts > k
+        inc[has, k] = order[starts[:-1][has] + k]
+    return inc
+
+
+class PointContext:
+    """Expression-leaf resolver at bare points (no solution fields).
+
+    Used for true solutions and Dirichlet data.
+    """
+
+    def __init__(self, pts, time=0.0, params=None):
+        self.pts = pts
+        self.time = time
+        self.params = params or {}
+
+    def resolve(self, leaf):
+        ax = {"x": 0, "y": 1, "z": 2}.get(leaf)
+        if ax is not None and ax < self.pts.shape[-1]:
+            return self.pts[..., ax]
+        if leaf == "t":
+            return self.time
+        if leaf in self.params:
+            return self.params[leaf]
+        raise KeyError(f"cannot resolve leaf {leaf!r} at points")
+
+
+class Assembler:
+    """Owns the volume element kernels for one block."""
+
+    def __init__(self, disc: Discretization, modules, fm, params=None,
+                 fixed_dofs=None, dtype=torch.float64, device="cpu"):
+        self.disc = disc
+        self.modules = modules
+        self.fm = fm
+        self.params = params or {}
+        self.dtype = dtype
+        self.device = torch.device(device)
+        dt, dev = dtype, self.device
+        if any(k[0] != "HGRAD" for k in disc.basis_keys.values()):
+            raise NotImplementedError(
+                "only HGRAD variables are ported to mrhyde_tpu_torch "
+                "(ROADMAP A11 brings vector and trace bases)")
+        if np.any(disc.dofmap.signs != 1.0) \
+                or disc.dofmap.mix_pair is not None:
+            raise NotImplementedError(
+                "oriented dofs are not ported yet (ROADMAP A11)")
+
+        self.lids = torch.as_tensor(disc.lids, device=dev)
+        self.n_dof = disc.n_dof
+        self.inc = torch.as_tensor(build_incidence(disc.lids, disc.n_dof),
+                                   device=dev)
+        self._structured = self._build_structured_index(disc)
+
+        fixed = np.zeros(disc.n_dof, dtype=bool)
+        if fixed_dofs is not None and len(fixed_dofs):
+            fixed[np.asarray(fixed_dofs)] = True
+        self.fixed = torch.as_tensor(fixed, device=dev)
+
+        # Basis-database compression: on affine-uniform meshes every
+        # element shares ONE geometry, so quadrature weights and physical
+        # basis gradients are stored once and broadcast (vmap in_dims
+        # None). rtol 1e-9: linspace node rounding accumulates ~1e-13
+        # relative deviations at NX=512.
+        wts0 = disc.wts[0]
+        self.uniform = bool(
+            np.allclose(disc.wts, wts0[None, :], rtol=1e-9, atol=1e-12)
+            and all(np.allclose(v, v[0][None], rtol=1e-9, atol=1e-9)
+                    for v in disc.basis_grads.values()))
+        if self.uniform:
+            self.g_wts = torch.as_tensor(wts0, dtype=dt, device=dev)
+            self.g_bg = {k: torch.as_tensor(v[0], dtype=dt, device=dev)
+                         for k, v in disc.basis_grads.items()}
+            self._geo_ax = None
+        else:
+            self.g_wts = torch.as_tensor(disc.wts, dtype=dt, device=dev)
+            self.g_bg = {k: torch.as_tensor(v, dtype=dt, device=dev)
+                         for k, v in disc.basis_grads.items()}
+            self._geo_ax = 0
+        self.g_ip = torch.as_tensor(disc.ip, dtype=dt, device=dev)
+        self.g_bv = {k: torch.as_tensor(v, dtype=dt, device=dev)
+                     for k, v in disc.basis_vals.items()}
+        self._fused = None
+        self._fused_built = False
+
+    # ------------------------------------------------------------------
+    # structured-mesh fast path: on uniform box meshes with nodal p1
+    # variables, gather and scatter are pure slice/pad ops
+    # ------------------------------------------------------------------
+
+    def _build_structured_index(self, disc):
+        mesh = disc.mesh
+        info = getattr(mesh, "box_info", None)
+        if info is None or mesh.cell_type not in ("quad", "hex", "line") \
+                or getattr(mesh, "periodic", False):
+            return None
+        dims = [b[2] for b in info["bounds"]]
+        corners = {
+            "line": [(0,), (1,)],
+            "quad": [(0, 0), (1, 0), (1, 1), (0, 1)],
+            "hex": [(0, 0, 0), (1, 0, 0), (1, 1, 0), (0, 1, 0),
+                    (0, 0, 1), (1, 0, 1), (1, 1, 1), (0, 1, 1)],
+        }[mesh.cell_type]
+        plan = []
+        for i, (name, _s, _o) in enumerate(disc.variables):
+            if disc.basis_keys[name] != ("HGRAD", 1):
+                return None
+            plan.append(("p1", name, int(disc.dofmap.var_start[i])))
+        return {"dims": dims, "corners": corners, "plan": plan,
+                "grid": [d + 1 for d in dims]}
+
+    def _gather_structured(self, u):
+        s = self._structured
+        dims, grid, corners = s["dims"], s["grid"], s["corners"]
+        E = int(np.prod(dims))
+        cols = []
+        for _kind, _name, start in s["plan"]:
+            g = u[start:start + int(np.prod(grid))].reshape(grid)
+            for c in corners:
+                sl = tuple(slice(c[d], c[d] + dims[d])
+                           for d in range(len(dims)))
+                cols.append(g[sl].reshape(E))
+        return torch.stack(cols, dim=1)
+
+    def _scatter_structured(self, vals):
+        s = self._structured
+        dims, grid, corners = s["dims"], s["grid"], s["corners"]
+        parts = []
+        col = 0
+        for _kind, _name, _start in s["plan"]:
+            # pad+sum: one padded add per corner
+            acc = None
+            for c in corners:
+                part = pad_to(vals[:, col].reshape(dims), c, grid)
+                acc = part if acc is None else acc + part
+                col += 1
+            parts.append(acc.reshape(-1))
+        return torch.cat(parts)
+
+    # ------------------------------------------------------------------
+    # element kernels
+    # ------------------------------------------------------------------
+
+    def _elem_residual(self, u_st, beta_u, beta_t, wts, ip, bg, *,
+                       alpha_u, alpha_t, time, params):
+        u_eval = alpha_u * u_st + beta_u
+        u_dot = alpha_t * u_st + beta_t
+        wk = Workset(
+            dim=self.disc.mesh.dim, wts=wts, ip=ip, basis_vals=self.g_bv,
+            basis_grads=bg, offsets=self.disc.offsets,
+            var_keys=self.disc.basis_keys, u_eval=u_eval, u_dot=u_dot,
+            time=time, fm=self.fm, params=params)
+        for m in self.modules:
+            m.volume_residual(wk)
+        return wk.res
+
+    def _elem_fn(self, tc: TimeCoeffs, pvec):
+        params = dict(self.params)
+        params.update(pvec or {})
+
+        def fn(u_st, beta_u, beta_t, wts, ip, bg):
+            return self._elem_residual(
+                u_st, beta_u, beta_t, wts, ip, bg, alpha_u=tc.alpha_u,
+                alpha_t=tc.alpha_t, time=tc.time, params=params)
+        return fn
+
+    def _in_dims(self):
+        return (0, 0, 0, self._geo_ax, 0, self._geo_ax)
+
+    def _gathered(self, u_st, tc: TimeCoeffs):
+        if self._structured is not None:
+            return (self._gather_structured(u_st),
+                    self._gather_structured(tc.beta_u),
+                    self._gather_structured(tc.beta_t))
+        return u_st[self.lids], tc.beta_u[self.lids], tc.beta_t[self.lids]
+
+    def residual(self, u_st, tc: TimeCoeffs, pvec=None):
+        """Global residual (n_dof,) with Dirichlet rows zeroed."""
+        u_e, bu_e, bt_e = self._gathered(u_st, tc)
+        res_e = torch.func.vmap(self._elem_fn(tc, pvec),
+                                in_dims=self._in_dims())(
+            u_e, bu_e, bt_e, self.g_wts, self.g_ip, self.g_bg)
+        if self._structured is not None:
+            r = self._scatter_structured(res_e)
+        else:
+            flat = torch.cat([res_e.reshape(-1), res_e.new_zeros(1)])
+            r = flat[self.inc].sum(dim=1)
+        return torch.where(self.fixed, 0.0, r)
+
+    def jacobian(self, u_st, tc: TimeCoeffs, pvec=None) -> BlockJacobian:
+        """Element-block Jacobian d(residual)/d(u_stage), general path."""
+        u_e, bu_e, bt_e = self._gathered(u_st, tc)
+        jac_e = torch.func.vmap(
+            torch.func.jacfwd(self._elem_fn(tc, pvec), argnums=0),
+            in_dims=self._in_dims())(
+            u_e, bu_e, bt_e, self.g_wts, self.g_ip, self.g_bg)
+        return BlockJacobian(vol=jac_e, vol_lids=self.lids,
+                             fixed=self.fixed, inc=self.inc)
+
+    def fused_provider(self):
+        """The fused node-scatter provider (ops/fused_p1.py), built on
+        first use, or None when the problem does not qualify. It engages
+        on every device: on the CPU its wrappers run the plain versions
+        of the kernels, on the card the CUDA kernels."""
+        if not self._fused_built:
+            from mrhyde_tpu_torch.ops.fused_p1 import FusedP1Assembly
+            self._fused = FusedP1Assembly.build(self)
+            self._fused_built = True
+        return self._fused
+
+    def res_and_jac(self, u_st, tc: TimeCoeffs, pvec=None):
+        """(residual, BlockJacobian) in one pass — the Newton-loop entry
+        point. Uses the fused provider when the problem qualifies
+        (uniform structured 2D p1 quads, thermal) and the call is steady
+        with scalar-only params, else the general vmapped path."""
+        fused = self.fused_provider()
+        if fused is not None and tc.is_steady and all(
+                not isinstance(v, torch.Tensor) or v.dim() == 0
+                for v in (pvec or {}).values()):
+            return fused.jacobian(u_st, tc, pvec)
+        return (self.residual(u_st, tc, pvec),
+                self.jacobian(u_st, tc, pvec))
+
+    def matfree_apply_fn(self, J):
+        """v -> J v through the structured slice gather/scatter (a
+        drop-in replacement for BlockJacobian.apply)."""
+        if self._structured is None:
+            return J.apply
+
+        def apply(v):
+            vm = torch.where(J.fixed, 0.0, v)
+            ve = self._gather_structured(vm)
+            if J._soa_only:
+                prods = J.soa_products([ve[:, j]
+                                        for j in range(ve.shape[1])])
+            else:
+                prods = torch.einsum("eij,ej->ei", J.vol, ve)
+            out = self._scatter_structured(prods)
+            return torch.where(J.fixed, v, out)
+        return apply
+
+
+def pad_to(a, offset, shape):
+    """Zero-pad `a` so that it sits at `offset` inside `shape`."""
+    pad = []
+    for o, d, g in reversed(list(zip(offset, a.shape, shape))):
+        pad += [o, g - d - o]
+    return torch.nn.functional.pad(a, pad)

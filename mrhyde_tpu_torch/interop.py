@@ -1,0 +1,38 @@
+"""Hand state across between the JAX package and this port.
+
+Both packages build their DOF maps from identical copies of the host
+modules, so `lids`, `fixed`, `var_start` and the node-grid order agree
+index by index: a solution vector crosses as a plain numpy array.
+"""
+
+from __future__ import annotations
+
+import numpy as np
+import torch
+
+__all__ = ["state_from_numpy", "state_to_numpy", "params_from_numpy"]
+
+
+def state_from_numpy(u, problem):
+    """numpy (n_dof,) -> tensor on `problem.device` in `problem.dtype`."""
+    u = np.asarray(u)
+    if u.shape != (problem.n_dof,):
+        raise ValueError(f"state of shape {u.shape}, expected "
+                         f"({problem.n_dof},)")
+    return torch.tensor(u, dtype=problem.dtype, device=problem.device)
+
+
+def state_to_numpy(u):
+    """Tensor -> float numpy array on the host."""
+    return u.detach().cpu().numpy()
+
+
+def params_from_numpy(params, device="cpu", dtype=torch.float64):
+    """{name: scalar} -> {name: 0-d tensor} (scalar Parameters only)."""
+    out = {}
+    for k, v in params.items():
+        a = np.asarray(v)
+        if a.ndim != 0:
+            raise ValueError(f"parameter {k!r} is not a scalar")
+        out[k] = torch.as_tensor(float(a), dtype=dtype, device=device)
+    return out

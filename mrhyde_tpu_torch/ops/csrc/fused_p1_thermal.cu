@@ -1,0 +1,266 @@
+// Node-scatter assembly of steady 2D thermal on uniform p1 quads, for
+// Hopper (sm_90a).
+//
+// Replaces: the TPU node-scatter kernel of the JAX package,
+// mrhyde_tpu/ops/fused_p1.py `run_node_call` (the pallas_call body is
+// `FusedP1Assembly._kernel(node=True)`), in its two launched modes:
+//   thermal_node_state  <- mode "state" (affine split: the residual's
+//                          state part, reading only the u node grid)
+//   thermal_node_full   <- mode "full"  (residual + the 16 SoA Jacobian
+//                          rows off one read of the element data)
+//
+// Weak form (mrhyde_tpu/physics/thermal.py qp_density): S = rho cp u_t
+// - f, flux F = kappa grad u; steady, so u_t = 0.
+//   state:  r_n = sum_{e ni n} sum_q w_q kappa_eq grad phi_c . grad u_h
+//   full:   r_n = sum_{e ni n} sum_q w_q (phi_c S_eq
+//                                        + kappa_eq grad phi_c . grad u_h)
+//           J_e[c][c'] = sum_q w_q (kappa grad phi_c . grad phi_c'
+//                                   + dkappa/de phi_c' grad phi_c . grad u_h
+//                                   + dS/de phi_c phi_c')
+// with c the local corner of node n in element e. Corners are
+// (0,0),(1,0),(1,1),(0,1) on (axis 0, axis 1); element e = i*N1 + j;
+// node (i, j) is entry i*(N1+1) + j of the node grid. Jacobian row
+// k = c*4 + c' is stored as jac[k*E + e].
+//
+// Design. The TPU kernel walks element tiles on a grid that runs in
+// order and carries each tile's spills (right, bottom, corner) to the
+// next step in VMEM. CUDA blocks run in no order, so nothing is carried:
+// one thread owns one node, gathers the 3x3 node patch around it, and
+// sums the contributions of its (up to) four adjacent elements to
+// itself. Each element's quadrature is recomputed by the four threads
+// of its corners — a little arithmetic for no atomics and a sum in a
+// fixed order (corner 0..3, then q = 0..Q-1, as the plain pad+sum
+// version sums), so results are deterministic. Mesh edges are masked by
+// index; any N0, N1 works (no tiles, no padding). In "full" the thread
+// of node (i, j) with i < N0, j < N1 also writes element (i, j)'s 16
+// Jacobian rows; consecutive threads write consecutive elements.
+//
+// What bounds it on the H100: bytes, not flops. "state" reads about one
+// value per node (the 3x3 patch is shared through L1/L2 by neighbouring
+// threads) and writes one, plus Q kappa values per element when kappa
+// varies. "full" reads the four per-qp tensors S, dS/de, kappa,
+// dkappa/de (4*Q values per element) and writes 16 rows per element.
+// The TPU kernel traced the coefficient expressions into its body; here
+// a torch pre-pass evaluates them, which costs those ~4*Q extra values
+// per element of traffic in "full". Generating the DSL expression into
+// the kernel over a dual-number type is a ROADMAP item. No shared
+// memory, tiling, TMA or wgmma yet: this version is the simple, right
+// one; making it fast is later work.
+
+#include <cuda_runtime.h>
+
+namespace {
+
+constexpr int kThreads = 256;
+
+// local corner c -> offset on axis 0 / axis 1
+__device__ __forceinline__ int corner_i(int c) { return (c == 1 || c == 2); }
+__device__ __forceinline__ int corner_j(int c) { return (c >= 2); }
+
+// 3x3 node patch P[di][dj] = u(i-1+di, j-1+dj), zero outside the grid
+template <typename T>
+__device__ __forceinline__ void load_patch(const T* __restrict__ u, int i,
+                                           int j, int N0, int N1,
+                                           T P[3][3]) {
+#pragma unroll
+  for (int di = 0; di < 3; ++di) {
+#pragma unroll
+    for (int dj = 0; dj < 3; ++dj) {
+      const int ii = i - 1 + di, jj = j - 1 + dj;
+      P[di][dj] = (ii >= 0 && ii <= N0 && jj >= 0 && jj <= N1)
+                      ? u[(long long)ii * (N1 + 1) + jj]
+                      : T(0);
+    }
+  }
+}
+
+// corner values of the element whose corner (0,0) sits at patch (pi, pj)
+template <typename T>
+__device__ __forceinline__ void element_corners(const T P[3][3], int pi,
+                                                int pj, T uc[4]) {
+#pragma unroll
+  for (int c = 0; c < 4; ++c) uc[c] = P[pi + corner_i(c)][pj + corner_j(c)];
+}
+
+// grad u_h at quadrature point q of an element with corner values uc
+template <typename T>
+__device__ __forceinline__ void qp_grad(const T* __restrict__ grad, int Q,
+                                        int q, const T uc[4], T& g0, T& g1) {
+  g0 = T(0);
+  g1 = T(0);
+#pragma unroll
+  for (int c = 0; c < 4; ++c) {
+    g0 += grad[(c * Q + q) * 2 + 0] * uc[c];
+    g1 += grad[(c * Q + q) * 2 + 1] * uc[c];
+  }
+}
+
+template <typename T>
+__global__ void __launch_bounds__(kThreads)
+    node_state_kernel(const T* __restrict__ u, const T* __restrict__ kappa,
+                      T kappa0, int kappa_is_scalar,
+                      const T* __restrict__ grad, const T* __restrict__ wts,
+                      int Q, int N0, int N1, T* __restrict__ out) {
+  const long long n = (long long)blockIdx.x * blockDim.x + threadIdx.x;
+  if (n >= (long long)(N0 + 1) * (N1 + 1)) return;
+  const int i = (int)(n / (N1 + 1)), j = (int)(n % (N1 + 1));
+  T P[3][3];
+  load_patch(u, i, j, N0, N1, P);
+  T acc = T(0);
+#pragma unroll
+  for (int c = 0; c < 4; ++c) {
+    // node (i, j) is corner c of element (a, b)
+    const int a = i - corner_i(c), b = j - corner_j(c);
+    if (a < 0 || a >= N0 || b < 0 || b >= N1) continue;
+    T uc[4];
+    element_corners(P, 1 - corner_i(c), 1 - corner_j(c), uc);
+    const long long e = (long long)a * N1 + b;
+    T r = T(0);
+    for (int q = 0; q < Q; ++q) {
+      T g0, g1;
+      qp_grad(grad, Q, q, uc, g0, g1);
+      const T k = kappa_is_scalar ? kappa0 : kappa[e * Q + q];
+      r += wts[q] * (grad[(c * Q + q) * 2 + 0] * (k * g0) +
+                     grad[(c * Q + q) * 2 + 1] * (k * g1));
+    }
+    acc += r;
+  }
+  out[n] = acc;
+}
+
+template <typename T>
+__global__ void __launch_bounds__(kThreads)
+    node_full_kernel(const T* __restrict__ u, const T* __restrict__ S,
+                     const T* __restrict__ dS, const T* __restrict__ K,
+                     const T* __restrict__ dK, const T* __restrict__ phi,
+                     const T* __restrict__ grad, const T* __restrict__ wts,
+                     int Q, int N0, int N1, T* __restrict__ out,
+                     T* __restrict__ jac) {
+  const long long n = (long long)blockIdx.x * blockDim.x + threadIdx.x;
+  if (n >= (long long)(N0 + 1) * (N1 + 1)) return;
+  const int i = (int)(n / (N1 + 1)), j = (int)(n % (N1 + 1));
+  T P[3][3];
+  load_patch(u, i, j, N0, N1, P);
+  T acc = T(0);
+#pragma unroll
+  for (int c = 0; c < 4; ++c) {
+    const int a = i - corner_i(c), b = j - corner_j(c);
+    if (a < 0 || a >= N0 || b < 0 || b >= N1) continue;
+    T uc[4];
+    element_corners(P, 1 - corner_i(c), 1 - corner_j(c), uc);
+    const long long e = (long long)a * N1 + b;
+    T r = T(0);
+    for (int q = 0; q < Q; ++q) {
+      T g0, g1;
+      qp_grad(grad, Q, q, uc, g0, g1);
+      const T k = K[e * Q + q];
+      r += wts[q] * (phi[c * Q + q] * S[e * Q + q] +
+                     grad[(c * Q + q) * 2 + 0] * (k * g0) +
+                     grad[(c * Q + q) * 2 + 1] * (k * g1));
+    }
+    acc += r;
+  }
+  out[n] = acc;
+
+  if (i >= N0 || j >= N1) return;
+  // element (i, j): node (i, j) is its corner 0, patch offset (1, 1)
+  T uc[4];
+  element_corners(P, 1, 1, uc);
+  const long long E = (long long)N0 * N1;
+  const long long e = (long long)i * N1 + j;
+  T J[16];
+#pragma unroll
+  for (int k = 0; k < 16; ++k) J[k] = T(0);
+  for (int q = 0; q < Q; ++q) {
+    T g0, g1;
+    qp_grad(grad, Q, q, uc, g0, g1);
+    const T kq = K[e * Q + q], dkq = dK[e * Q + q], dsq = dS[e * Q + q];
+    const T w = wts[q];
+#pragma unroll
+    for (int c = 0; c < 4; ++c) {
+      const T pc = phi[c * Q + q];
+      const T gc0 = grad[(c * Q + q) * 2 + 0];
+      const T gc1 = grad[(c * Q + q) * 2 + 1];
+#pragma unroll
+      for (int cp = 0; cp < 4; ++cp) {
+        const T pcp = phi[cp * Q + q];
+        // column (c'): tangent of S and of F_d along phi_c'
+        const T ts = pcp * dsq;
+        const T tf0 = pcp * (dkq * g0) + grad[(cp * Q + q) * 2 + 0] * kq;
+        const T tf1 = pcp * (dkq * g1) + grad[(cp * Q + q) * 2 + 1] * kq;
+        J[c * 4 + cp] += w * (pc * ts + gc0 * tf0 + gc1 * tf1);
+      }
+    }
+  }
+#pragma unroll
+  for (int k = 0; k < 16; ++k) jac[k * E + e] = J[k];
+}
+
+int blocks_for(int N0, int N1) {
+  const long long nodes = (long long)(N0 + 1) * (N1 + 1);
+  return (int)((nodes + kThreads - 1) / kThreads);
+}
+
+template <typename T>
+int launch_state(const void* u, const void* kappa, double kappa0,
+                 int kappa_is_scalar, const void* grad, const void* wts,
+                 int Q, int N0, int N1, void* out, void* stream) {
+  node_state_kernel<T><<<blocks_for(N0, N1), kThreads, 0,
+                         (cudaStream_t)stream>>>(
+      (const T*)u, (const T*)kappa, (T)kappa0, kappa_is_scalar,
+      (const T*)grad, (const T*)wts, Q, N0, N1, (T*)out);
+  return (int)cudaGetLastError();
+}
+
+template <typename T>
+int launch_full(const void* u, const void* S, const void* dS, const void* K,
+                const void* dK, const void* phi, const void* grad,
+                const void* wts, int Q, int N0, int N1, void* out, void* jac,
+                void* stream) {
+  node_full_kernel<T><<<blocks_for(N0, N1), kThreads, 0,
+                        (cudaStream_t)stream>>>(
+      (const T*)u, (const T*)S, (const T*)dS, (const T*)K, (const T*)dK,
+      (const T*)phi, (const T*)grad, (const T*)wts, Q, N0, N1, (T*)out,
+      (T*)jac);
+  return (int)cudaGetLastError();
+}
+
+}  // namespace
+
+// Plain C entry points, bound with ctypes (see ops/_build.py). Each
+// returns the cudaGetLastError() of its launch.
+extern "C" {
+
+int thermal_node_state_f64(const void* u, const void* kappa, double kappa0,
+                           int kappa_is_scalar, const void* grad,
+                           const void* wts, int Q, int N0, int N1, void* out,
+                           void* stream) {
+  return launch_state<double>(u, kappa, kappa0, kappa_is_scalar, grad, wts,
+                              Q, N0, N1, out, stream);
+}
+
+int thermal_node_state_f32(const void* u, const void* kappa, double kappa0,
+                           int kappa_is_scalar, const void* grad,
+                           const void* wts, int Q, int N0, int N1, void* out,
+                           void* stream) {
+  return launch_state<float>(u, kappa, kappa0, kappa_is_scalar, grad, wts,
+                             Q, N0, N1, out, stream);
+}
+
+int thermal_node_full_f64(const void* u, const void* S, const void* dS,
+                          const void* K, const void* dK, const void* phi,
+                          const void* grad, const void* wts, int Q, int N0,
+                          int N1, void* out, void* jac, void* stream) {
+  return launch_full<double>(u, S, dS, K, dK, phi, grad, wts, Q, N0, N1, out,
+                             jac, stream);
+}
+
+int thermal_node_full_f32(const void* u, const void* S, const void* dS,
+                          const void* K, const void* dK, const void* phi,
+                          const void* grad, const void* wts, int Q, int N0,
+                          int N1, void* out, void* jac, void* stream) {
+  return launch_full<float>(u, S, dS, K, dK, phi, grad, wts, Q, N0, N1, out,
+                            jac, stream);
+}
+
+}  // extern "C"

@@ -1,0 +1,480 @@
+"""Fused node-scatter assembly for steady 2D thermal on uniform p1 quads.
+
+The port of the JAX package's `FusedP1Assembly` (mrhyde_tpu/ops/
+fused_p1.py) for the case its node-scatter TPU kernel (B2,
+`run_node_call`) carries on the main path: 2D p1 quads. The TPU kernel
+traced any physics' `qp_density` and differentiated it by sparse
+forward AD; here the weak form is thermal's, written out, and the two
+launched modes of B2 are hand-written CUDA kernels
+(`csrc/fused_p1_thermal.cu`):
+
+- `thermal_node_state` (mode "state"): under the AFFINE split (kappa
+  and the source read no `e`), the residual's state part
+  sum_q w kappa grad phi_c . grad u_h, node-scattered in the kernel. The
+  state-independent coord part (source residual, and the Jacobian,
+  which is then state-independent too) is plain torch, as `_coord_eval`
+  is plain XLA in JAX, and is cached for the solve.
+- `thermal_node_full` (mode "full"): otherwise, the residual and all 16
+  SoA Jacobian rows from one pass, fed per-qp S, dS/de, kappa and
+  dkappa/de tensors that a torch pre-pass evaluates (DSL value and its
+  forward derivative in `e`).
+
+Row classification follows from which leaves the coefficient
+expressions read, not from a traced probe: a row is element-varying iff
+its expression reads `x`/`y` (or the state), and the split holds iff no
+coefficient reads `e`. For the thermal weak form this reproduces the
+JAX package's `_probe`/`_detect_affine` split, row indices and constant
+values; an expression linear in `e` is affine in JAX but takes the
+"full" path here, which computes the same numbers.
+
+Every wrapper runs its plain-torch version on CPU tensors (the CPU
+tests exercise the same structure that runs on the card) and the CUDA
+kernel on CUDA tensors; it counts its launches in LAUNCHES.
+"""
+
+from __future__ import annotations
+
+import ctypes
+
+import numpy as np
+import torch
+
+from mrhyde_tpu_torch.assembly.assembler import BlockJacobian, pad_to
+
+__all__ = ["FusedP1Assembly", "QuadTables", "LAUNCHES",
+           "thermal_node_state", "thermal_node_full",
+           "thermal_node_state_plain", "thermal_node_full_plain"]
+
+# kernel launches per mode; reset by whoever wants to count a run
+LAUNCHES = {"state": 0, "full": 0}
+
+# local corners of the quad on (axis 0, axis 1), the assembler's order
+CORNERS = ((0, 0), (1, 0), (1, 1), (0, 1))
+_COORD = {"x", "y"}
+
+
+class QuadTables:
+    """Reference-quad tables phi (4, Q), grad (4, Q, 2), wts (Q,): as
+    Python floats for the plain versions (the JAX package's arithmetic
+    on host scalars) and as device tensors for the kernels."""
+
+    def __init__(self, phi, grad, wts, device, dtype):
+        phi = np.asarray(phi, dtype=np.float64)
+        grad = np.asarray(grad, dtype=np.float64)
+        wts = np.asarray(wts, dtype=np.float64)
+        if phi.shape[0] != 4 or grad.shape != phi.shape + (2,) \
+                or wts.shape != phi.shape[1:]:
+            raise ValueError("QuadTables wants phi (4,Q), grad (4,Q,2), "
+                             "wts (Q,)")
+        self.Q = int(wts.shape[0])
+        self.phi, self.grad, self.wts = (phi.tolist(), grad.tolist(),
+                                         wts.tolist())
+
+        def dev(a):
+            return torch.as_tensor(a, dtype=dtype, device=device).contiguous()
+        self.t_phi, self.t_grad, self.t_wts = dev(phi), dev(grad), dev(wts)
+
+
+# ----------------------------------------------------------------------
+# plain versions: torch slice sums over the node grid (the pad+sum form)
+# ----------------------------------------------------------------------
+
+def _node_sum(rows, grid_shape, like):
+    """Scatter per-corner element rows (N0, N1) (or Python scalars) to
+    the node grid: one zero-padded add per corner, corners in order."""
+    dims = (grid_shape[0] - 1, grid_shape[1] - 1)
+    acc = None
+    for row, off in zip(rows, CORNERS):
+        if not isinstance(row, torch.Tensor):
+            row = torch.full(dims, float(row), dtype=like.dtype,
+                             device=like.device)
+        part = pad_to(torch.broadcast_to(row, dims), off, grid_shape)
+        acc = part if acc is None else acc + part
+    return acc
+
+
+def _corner_views(u_grid):
+    N0, N1 = u_grid.shape[0] - 1, u_grid.shape[1] - 1
+    return [u_grid[oi:oi + N0, oj:oj + N1] for oi, oj in CORNERS]
+
+
+def _qp_grads(tab, uc):
+    """[(g0, g1) per q]: grad u_h at every quadrature point, (N0, N1)."""
+    return [tuple(sum(tab.grad[c][q][d] * uc[c] for c in range(4))
+                  for d in range(2)) for q in range(tab.Q)]
+
+
+def _at_q(v, q, dims):
+    """Quadrature point q of a per-qp (E, Q) tensor, or a scalar."""
+    if isinstance(v, torch.Tensor):
+        return v.view(dims[0], dims[1], -1)[:, :, q]
+    return v
+
+
+def thermal_node_state_plain(u_grid, kappa, tab):
+    """Node residual of the state part, sum_q w kappa grad phi_c .
+    grad u_h scattered to the (N0+1, N1+1) node grid. kappa: Python
+    float or an (E, Q) tensor."""
+    dims = (u_grid.shape[0] - 1, u_grid.shape[1] - 1)
+    G = _qp_grads(tab, _corner_views(u_grid))
+    rows = []
+    for c in range(4):
+        acc = None
+        for q in range(tab.Q):
+            k = _at_q(kappa, q, dims)
+            g0, g1 = G[q]
+            a = tab.grad[c][q][0] * (k * g0) + tab.grad[c][q][1] * (k * g1)
+            acc = tab.wts[q] * a if acc is None else acc + tab.wts[q] * a
+        rows.append(acc)
+    return _node_sum(rows, u_grid.shape, u_grid)
+
+
+def thermal_node_full_plain(u_grid, S, dS, K, dK, tab):
+    """(node residual (N0+1, N1+1), Jacobian rows (16, E)) of the full
+    weak form from the per-qp (E, Q) tensors S, dS/de, kappa, dkappa/de."""
+    dims = (u_grid.shape[0] - 1, u_grid.shape[1] - 1)
+    G = _qp_grads(tab, _corner_views(u_grid))
+    rows = []
+    for c in range(4):
+        acc = None
+        for q in range(tab.Q):
+            g0, g1 = G[q]
+            k = _at_q(K, q, dims)
+            a = (tab.phi[c][q] * _at_q(S, q, dims)
+                 + tab.grad[c][q][0] * (k * g0)
+                 + tab.grad[c][q][1] * (k * g1))
+            acc = tab.wts[q] * a if acc is None else acc + tab.wts[q] * a
+        rows.append(acc)
+    jac = []
+    for c in range(4):
+        for cp in range(4):
+            acc = None
+            for q in range(tab.Q):
+                g0, g1 = G[q]
+                kq, dkq, dsq = (_at_q(K, q, dims), _at_q(dK, q, dims),
+                                _at_q(dS, q, dims))
+                pcp = tab.phi[cp][q]
+                ts = pcp * dsq
+                tf0 = pcp * (dkq * g0) + tab.grad[cp][q][0] * kq
+                tf1 = pcp * (dkq * g1) + tab.grad[cp][q][1] * kq
+                a = (tab.phi[c][q] * ts + tab.grad[c][q][0] * tf0
+                     + tab.grad[c][q][1] * tf1)
+                acc = tab.wts[q] * a if acc is None \
+                    else acc + tab.wts[q] * a
+            jac.append(acc.reshape(-1))
+    return _node_sum(rows, u_grid.shape, u_grid), torch.stack(jac)
+
+
+# ----------------------------------------------------------------------
+# kernel wrappers
+# ----------------------------------------------------------------------
+
+def _ptr(t):
+    return ctypes.c_void_p(t.data_ptr())
+
+
+def _check_grid(u_grid, tab):
+    if u_grid.device.type != "cuda":
+        raise ValueError(f"thermal kernels take cpu or cuda tensors, not "
+                         f"{u_grid.device}")
+    if u_grid.dtype not in (torch.float32, torch.float64):
+        raise TypeError(f"thermal kernels take f32/f64, not {u_grid.dtype}")
+    if u_grid.dim() != 2 or min(u_grid.shape) < 2 \
+            or not u_grid.is_contiguous():
+        raise ValueError("u_grid must be a contiguous (N0+1, N1+1) grid "
+                         "with N0, N1 >= 1")
+    if max(u_grid.shape) > 2 ** 31 - 2:
+        raise ValueError("node grid axis too long for int indexing")
+    for t in (tab.t_phi, tab.t_grad, tab.t_wts):
+        if t.device != u_grid.device or t.dtype != u_grid.dtype:
+            raise ValueError("QuadTables live on another device/dtype "
+                             "than u_grid")
+
+
+def _check_qp(t, u_grid, tab, name):
+    E = (u_grid.shape[0] - 1) * (u_grid.shape[1] - 1)
+    if not isinstance(t, torch.Tensor) or t.shape != (E, tab.Q) \
+            or t.device != u_grid.device or t.dtype != u_grid.dtype \
+            or not t.is_contiguous():
+        raise ValueError(f"{name} must be a contiguous ({E}, {tab.Q}) "
+                         f"{u_grid.dtype} tensor on {u_grid.device}")
+
+
+def _stream(t):
+    return ctypes.c_void_p(torch.cuda.current_stream(t.device).cuda_stream)
+
+
+def thermal_node_state(u_grid, kappa, tab):
+    """The state-part node residual: CUDA kernel on a CUDA tensor, the
+    plain version on a CPU tensor. kappa: Python float or (E, Q)."""
+    if u_grid.device.type == "cpu":
+        return thermal_node_state_plain(u_grid, kappa, tab)
+    _check_grid(u_grid, tab)
+    scalar = not isinstance(kappa, torch.Tensor)
+    if not scalar:
+        _check_qp(kappa, u_grid, tab, "kappa")
+    from mrhyde_tpu_torch.ops._build import load_library
+    lib = load_library()
+    fn = (lib.thermal_node_state_f64 if u_grid.dtype == torch.float64
+          else lib.thermal_node_state_f32)
+    out = torch.empty_like(u_grid)
+    N0, N1 = u_grid.shape[0] - 1, u_grid.shape[1] - 1
+    err = fn(_ptr(u_grid), None if scalar else _ptr(kappa),
+             float(kappa) if scalar else 0.0, int(scalar),
+             _ptr(tab.t_grad), _ptr(tab.t_wts), tab.Q, N0, N1, _ptr(out),
+             _stream(u_grid))
+    if err != 0:
+        raise RuntimeError(f"thermal_node_state launch failed: CUDA error "
+                           f"{err}")
+    LAUNCHES["state"] += 1
+    return out
+
+
+def thermal_node_full(u_grid, S, dS, K, dK, tab):
+    """(node residual, Jacobian rows (16, E)) of the full weak form: CUDA
+    kernel on CUDA tensors, the plain version on CPU tensors."""
+    if u_grid.device.type == "cpu":
+        return thermal_node_full_plain(u_grid, S, dS, K, dK, tab)
+    _check_grid(u_grid, tab)
+    for name, t in (("S", S), ("dS", dS), ("K", K), ("dK", dK)):
+        _check_qp(t, u_grid, tab, name)
+    from mrhyde_tpu_torch.ops._build import load_library
+    lib = load_library()
+    fn = (lib.thermal_node_full_f64 if u_grid.dtype == torch.float64
+          else lib.thermal_node_full_f32)
+    N0, N1 = u_grid.shape[0] - 1, u_grid.shape[1] - 1
+    out = torch.empty_like(u_grid)
+    jac = torch.empty((16, N0 * N1), dtype=u_grid.dtype,
+                      device=u_grid.device)
+    err = fn(_ptr(u_grid), _ptr(S), _ptr(dS), _ptr(K), _ptr(dK),
+             _ptr(tab.t_phi), _ptr(tab.t_grad), _ptr(tab.t_wts), tab.Q,
+             N0, N1, _ptr(out), _ptr(jac), _stream(u_grid))
+    if err != 0:
+        raise RuntimeError(f"thermal_node_full launch failed: CUDA error "
+                           f"{err}")
+    LAUNCHES["full"] += 1
+    return out, jac
+
+
+# ----------------------------------------------------------------------
+# the provider
+# ----------------------------------------------------------------------
+
+class QpCtx:
+    """Per-qp context for the coefficient expressions on (N0, N1, Q)
+    tensors: steady, so u_t = 0; `e` resolves to u at the qps."""
+
+    def __init__(self, uq, coords, t, params, fm):
+        self._u = uq
+        self.coords = coords
+        self.t = t
+        self.params = params
+        self.fm = fm
+
+    def sol_dot(self, v):
+        return 0.0
+
+    def f(self, name):
+        return self.fm.evaluate(name, self)
+
+    def resolve(self, leaf):
+        if leaf == "x":
+            return self.coords[0]
+        if leaf == "y":
+            return self.coords[1]
+        if leaf == "t":
+            return self.t
+        if leaf in self.params:
+            return self.params[leaf]
+        if leaf == "e":
+            return self._u
+        raise KeyError(f"fused thermal assembly cannot resolve {leaf!r}")
+
+
+_COEFFS = ("thermal diffusion", "thermal source", "density",
+           "specific heat")
+
+
+class FusedP1Assembly:
+    """Fused residual+Jacobian provider for qualifying problems: uniform
+    structured 2D p1 quads, one steady thermal module, no advection,
+    scalar params. `FusedP1Assembly.build(asm)` -> instance or None."""
+
+    def __init__(self, asm, leaves):
+        self.asm = asm
+        s = asm._structured
+        self.dims = tuple(int(d) for d in s["dims"])
+        _kind, self.var, self.start = s["plan"][0]
+        disc = asm.disc
+        bounds = disc.mesh.box_info["bounds"]
+        self.origin = [float(b[0]) for b in bounds]
+        self.h_axes = [(float(b[1]) - float(b[0])) / int(b[2])
+                       for b in bounds]
+        ip0 = np.asarray(disc.ip[0])
+        self.q_off = ip0 - np.asarray(self.origin)[None, :]
+        key = disc.basis_keys[self.var]
+        self.tables = QuadTables(disc.basis_vals[key],
+                                 disc.basis_grads[key][0], disc.wts[0],
+                                 asm.device, asm.dtype)
+        self.fm = asm.fm
+        self.module = asm.modules[0]
+        kap = leaves["thermal diffusion"]
+        src = set().union(*(leaves[n] for n in _COEFFS[1:]))
+        # affine split iff no coefficient reads the state
+        self.split = "e" not in kap | src
+        if self.split:
+            self.stats = {"steady": True, "split": True,
+                          "n_res_rows": 4, "n_jac_rows": 0,
+                          "coord_res_rows": 4 if (kap | src) & _COORD
+                          else 0,
+                          "coord_jac_rows": 16 if kap & _COORD else 0,
+                          "node_scatter": True}
+        else:
+            self.stats = {"steady": True, "split": False,
+                          "n_res_rows": 4, "n_jac_rows": 16,
+                          "node_scatter": True}
+        self._coords = None
+        self._coord_cache = None
+
+    @staticmethod
+    def build(asm):
+        from mrhyde_tpu_torch.physics.thermal import Thermal
+        s = asm._structured
+        if s is None or len(s["dims"]) != 2 \
+                or asm.disc.mesh.cell_type != "quad":
+            return None
+        if len(s["plan"]) != 1 or s["plan"][0][0] != "p1":
+            return None
+        if not asm.uniform:
+            return None
+        if len(asm.modules) != 1 or not isinstance(asm.modules[0], Thermal):
+            return None
+        leaves = {n: asm.fm.terminal_leaves(n) for n in _COEFFS}
+        for ls in leaves.values():
+            # state derivatives and z are beyond the pointwise context
+            if any(lf == "z" or lf.startswith("grad(") or lf.endswith("_t")
+                   for lf in ls):
+                return None
+        return FusedP1Assembly(asm, leaves)
+
+    # ------------------------------------------------------------------
+
+    def _qp_coords(self):
+        """(x, y) at the quadrature points as (N0, N1, Q) tensors, from
+        element indices as the JAX kernel synthesizes them."""
+        if self._coords is None:
+            dt, dev = self.asm.dtype, self.asm.device
+            N0, N1 = self.dims
+            idx = [torch.arange(N0, dtype=dt, device=dev)[:, None]
+                   .expand(N0, N1),
+                   torch.arange(N1, dtype=dt, device=dev)[None, :]
+                   .expand(N0, N1)]
+            self._coords = [
+                torch.stack([self.origin[a] + idx[a] * self.h_axes[a]
+                             + float(self.q_off[q, a])
+                             for q in range(self.tables.Q)], dim=-1)
+                for a in range(2)]
+        return self._coords
+
+    def _coord_part(self, tc, params):
+        """The state-independent part of the affine split, cached per
+        (time, params): (coord node residual, 16 Jacobian rows, kappa
+        for the state kernel)."""
+        key = (tc.time, tuple(sorted((k, float(v))
+                                     for k, v in params.items())))
+        if self._coord_cache is not None and self._coord_cache[0] == key:
+            return self._coord_cache[1]
+        tab, dims = self.tables, self.dims
+        E = dims[0] * dims[1]
+        ctx = QpCtx(0.0, self._qp_coords(), tc.time, params, self.fm)
+        S0, kap = self.module.qp_coefficients(ctx)
+        if isinstance(kap, torch.Tensor) and kap.dim() == 0:
+            kap = float(kap)
+        F0 = kap * 0.0
+        rows = []
+        for c in range(4):
+            acc = None
+            for q in range(tab.Q):
+                a = (tab.phi[c][q] * _qslice(S0, q)
+                     + tab.grad[c][q][0] * _qslice(F0, q)
+                     + tab.grad[c][q][1] * _qslice(F0, q))
+                acc = tab.wts[q] * a if acc is None \
+                    else acc + tab.wts[q] * a
+            rows.append(acc)
+        like = ctx.coords[0]
+        res0 = _node_sum(rows, (dims[0] + 1, dims[1] + 1), like)
+        jac = []
+        for c in range(4):
+            for cp in range(4):
+                acc = None
+                for q in range(tab.Q):
+                    kq = _qslice(kap, q)
+                    a = (tab.grad[c][q][0] * (tab.grad[cp][q][0] * kq)
+                         + tab.grad[c][q][1] * (tab.grad[cp][q][1] * kq))
+                    acc = tab.wts[q] * a if acc is None \
+                        else acc + tab.wts[q] * a
+                jac.append(acc.reshape(E) if isinstance(acc, torch.Tensor)
+                           else torch.tensor(acc, dtype=like.dtype,
+                                             device=like.device))
+        if isinstance(kap, torch.Tensor):
+            kap = torch.broadcast_to(kap, dims + (tab.Q,)) \
+                .reshape(E, tab.Q).contiguous()
+        self._coord_cache = (key, (res0, jac, kap))
+        return self._coord_cache[1]
+
+    def _qp_coefficients(self, u_grid, tc, params):
+        """Per-qp (E, Q) tensors S, dS/de, kappa, dkappa/de at the state:
+        u at the qps by a plain gather, then the DSL value and its
+        forward derivative in e."""
+        tab, dims = self.tables, self.dims
+        E = dims[0] * dims[1]
+        uc = _corner_views(u_grid)
+        uq = torch.stack([sum(tab.phi[c][q] * uc[c] for c in range(4))
+                          for q in range(tab.Q)], dim=-1)
+        coords = self._qp_coords()
+        shape = uq.shape
+
+        def coeffs(uq_):
+            ctx = QpCtx(uq_, coords, tc.time, params, self.fm)
+            return tuple(torch.broadcast_to(
+                torch.as_tensor(v, dtype=uq_.dtype, device=uq_.device),
+                shape) for v in self.module.qp_coefficients(ctx))
+
+        (S, K), (dS, dK) = torch.func.jvp(coeffs, (uq,),
+                                          (torch.ones_like(uq),))
+        return [t.reshape(E, tab.Q).contiguous() for t in (S, dS, K, dK)]
+
+    def res_jac(self, u, tc, pvec=None):
+        """(residual (n_dof,), Jacobian rows: list of 16 entries, each
+        None, a 0-d tensor or an (E,) tensor)."""
+        asm = self.asm
+        params = dict(asm.params)
+        params.update(pvec or {})
+        N0, N1 = self.dims
+        ng = (N0 + 1) * (N1 + 1)
+        u_grid = u[self.start:self.start + ng].reshape(N0 + 1, N1 + 1)
+        if self.split:
+            res0, rows, kappa = self._coord_part(tc, params)
+            node = res0 + thermal_node_state(u_grid, kappa, self.tables)
+        else:
+            S, dS, K, dK = self._qp_coefficients(u_grid, tc, params)
+            node, jac = thermal_node_full(u_grid, S, dS, K, dK,
+                                          self.tables)
+            rows = list(jac.unbind(0))
+        r = torch.zeros(asm.n_dof, dtype=u.dtype, device=u.device)
+        r[self.start:self.start + ng] = node.reshape(-1)
+        return torch.where(asm.fixed, 0.0, r), rows
+
+    def jacobian(self, u, tc, pvec=None):
+        """(residual, BlockJacobian) with the kernel's SoA row layout."""
+        r, rows = self.res_jac(u, tc, pvec)
+        return r, BlockJacobian(vol=None, vol_lids=self.asm.lids,
+                                fixed=self.asm.fixed, inc=self.asm.inc,
+                                vol_soa=rows)
+
+
+def _qslice(v, q):
+    """Quadrature point q of an (N0, N1, Q) tensor, or a scalar."""
+    if isinstance(v, torch.Tensor) and v.dim() == 3:
+        return v[:, :, q]
+    return v

@@ -1,0 +1,265 @@
+"""Problem: wires config -> mesh -> physics -> assembly -> solve -> report.
+
+The steady forward path of the JAX package's `mrhyde_tpu/problem.py`
+(reference driver.cpp:62-212, SolverManager::steadySolver). The config
+is the same nested dict as the reference input deck. Sublists and keys
+this port does not cover yet raise NotImplementedError naming the
+ROADMAP item that brings them.
+"""
+
+from __future__ import annotations
+
+from dataclasses import dataclass, field
+
+import torch
+
+from mrhyde_tpu_torch.assembly.assembler import Assembler, TimeCoeffs
+from mrhyde_tpu_torch.assembly.discretization import Discretization
+from mrhyde_tpu_torch.functions.manager import FunctionManager
+from mrhyde_tpu_torch.mesh.structured import box_mesh
+from mrhyde_tpu_torch.physics.registry import import_physics
+from mrhyde_tpu_torch.postprocess.errors import ErrorCalculator
+from mrhyde_tpu_torch.runtime import resolve_device, resolve_dtype
+from mrhyde_tpu_torch.solvers.bcs import BoundaryConditions
+from mrhyde_tpu_torch.solvers.nonlinear import newton_solve
+
+__all__ = ["Problem", "ForwardResult"]
+
+
+@dataclass
+class ForwardResult:
+    u: object
+    time: float
+    error_history: list = field(default_factory=list)
+    newton: object = None           # NewtonResult of the solve
+
+    @property
+    def errors(self):
+        """Errors at the final recorded time."""
+        return self.error_history[-1][1] if self.error_history else {}
+
+    def report(self) -> str:
+        return ErrorCalculator.format_report(self.error_history)
+
+
+def _not_ported(what, item):
+    raise NotImplementedError(
+        f"{what} is not ported to mrhyde_tpu_torch yet (ROADMAP {item})")
+
+
+def _reject_unported(cfg):
+    """Raise on the deck features this port does not run yet."""
+    if cfg.get("Parameters"):
+        _not_ported("the Parameters sublist", "A12")
+    analysis = (cfg.get("Analysis", {}) or {}).get("analysis type",
+                                                   "forward")
+    if analysis != "forward":
+        _not_ported(f"analysis type {analysis!r}", "A12")
+    if cfg.get("Subgrid"):
+        _not_ported("the Subgrid (multiscale) sublist", "A13")
+    phys = cfg.get("Physics", {}) or {}
+    if "physics set names" in phys:
+        _not_ported("multi-set decks", "A12")
+    solver = cfg.get("Solver", {}) or {}
+    if solver.get("solver", "steady-state") == "transient":
+        _not_ported("the transient solver", "A8")
+    if solver.get("shards"):
+        _not_ported("DOF sharding (Solver: shards)", "A14")
+    mesh = cfg.get("Mesh", {}) or {}
+    if str(mesh.get("source", mesh.get("Source", "Internal"))).lower() \
+            == "exodus":
+        _not_ported("Exodus meshes", "A10")
+    if mesh.get("Periodic BCs") or str(mesh.get("data file",
+                                                "none")) != "none":
+        _not_ported("periodic meshes and mesh data files", "A10")
+    pp = cfg.get("Postprocess", {}) or {}
+    for key, item in (("write solution", "A12"),
+                      ("compute objective", "A12"),
+                      ("Objective functions", "A12"),
+                      ("compute integrated quantities", "A12")):
+        if pp.get(key):
+            _not_ported(f"Postprocess {key!r} (writer/objectives)", item)
+
+
+class Problem:
+    def __init__(self, cfg: dict, device=None, dtype=None):
+        self.cfg = cfg
+        self.device = resolve_device(device)
+        self.dtype = resolve_dtype(dtype)
+        _reject_unported(cfg)
+        mesh_cfg = cfg.get("Mesh", {}) or {}
+        dim = int(mesh_cfg.get("dimension", 2))
+        cell = mesh_cfg.get("element type", mesh_cfg.get("shape", "quad"))
+        cell = {"interval": "line", "quadrilateral": "quad",
+                "triangle": "tri", "hexahedron": "hex",
+                "tetrahedron": "tet"}.get(cell, cell)
+        if dim == 1:
+            cell = "line"
+        self.mesh = self._internal_mesh(mesh_cfg, cell)
+
+        phys_cfg = _unwrap_block(cfg.get("Physics", {}) or {}, "modules")
+        self.phys_cfg = phys_cfg
+        if phys_cfg.get("Initial conditions"):
+            _not_ported("Initial conditions", "A8")
+        if phys_cfg.get("Extra variables") or phys_cfg.get(
+                "Active variables"):
+            _not_ported("'Extra variables'/'Active variables'", "A11")
+        self.modules = import_physics(phys_cfg.get("modules", ""),
+                                      phys_cfg, dim)
+
+        disc_cfg = _unwrap_block(cfg.get("Discretization", {}), "order")
+        orders = disc_cfg.get("order", {}) or {}
+        variables = []
+        seen = set()
+        for m in self.modules:
+            for (name, space, default_order) in m.variables():
+                if name in seen:
+                    continue
+                seen.add(name)
+                order = int(orders.get(name, default_order))
+                variables.append((name, space, max(order, 1)))
+        if not variables:
+            raise ValueError("no variables: the Physics sublist needs "
+                             "'modules'")
+        self.variables = variables
+
+        # functions; per-block sublists flatten, later blocks overriding
+        self.fm = FunctionManager()
+        fs = {}
+        for name, expr in (cfg.get("Functions", {}) or {}).items():
+            if isinstance(expr, dict):
+                for k, v in expr.items():
+                    if k in fs and str(fs[k]) != str(v):
+                        raise NotImplementedError(
+                            f"per-block Functions define {k!r} "
+                            f"differently across blocks ({fs[k]!r} vs "
+                            f"{v!r})")
+                fs.update(expr)
+            else:
+                fs[name] = expr
+        for name, expr in fs.items():
+            self.fm.add_function(name, expr, "ip")
+            self.fm.add_function(name, expr, "side ip")
+        for m in self.modules:
+            m.define_functions(self.fm, fs)
+        self.params = {}
+
+        qdeg = disc_cfg.get("quadrature")
+        sqdeg = disc_cfg.get("side quadrature")
+        self.disc = Discretization(self.mesh, variables,
+                                   None if qdeg is None else int(qdeg),
+                                   None if sqdeg is None else int(sqdeg))
+        self.bcs = BoundaryConditions.from_config(self.disc, self.fm,
+                                                  phys_cfg, self.params)
+        self.assembler = Assembler(self.disc, self.modules, self.fm,
+                                   self.params,
+                                   fixed_dofs=self.bcs.fixed_dofs,
+                                   dtype=self.dtype, device=self.device)
+
+        pp_cfg = _unwrap_block(cfg.get("Postprocess", {}) or {},
+                               "True solutions")
+        self.compute_errors = bool(pp_cfg.get("compute errors", False))
+        self.error_calc = ErrorCalculator(
+            self.disc, self.fm, pp_cfg.get("True solutions", {}) or {},
+            self.params, device=self.device, dtype=self.dtype)
+        self.solver_cfg = cfg.get("Solver", {}) or {}
+
+    @staticmethod
+    def _internal_mesh(mesh_cfg, cell):
+        # NX is elements per block in each direction (Panzer inline-mesh
+        # convention)
+        xb = int(mesh_cfg.get("Xblocks", 1))
+        yb = int(mesh_cfg.get("Yblocks", 1))
+        zb = int(mesh_cfg.get("Zblocks", 1))
+        if xb * yb * zb > 1:
+            _not_ported("multi-block internal meshes", "A10")
+        return box_mesh(
+            cell,
+            nx=int(mesh_cfg.get("NX", 1)), ny=int(mesh_cfg.get("NY", 1)),
+            nz=int(mesh_cfg.get("NZ", 1)),
+            xmin=float(mesh_cfg.get("xmin", 0.0)),
+            xmax=float(mesh_cfg.get("xmax", 1.0)),
+            ymin=float(mesh_cfg.get("ymin", 0.0)),
+            ymax=float(mesh_cfg.get("ymax", 1.0)),
+            zmin=float(mesh_cfg.get("zmin", 0.0)),
+            zmax=float(mesh_cfg.get("zmax", 1.0)))
+
+    @property
+    def n_dof(self):
+        return self.disc.n_dof
+
+    def initial_state(self, time=0.0):
+        """Zero state with the strong Dirichlet values written in."""
+        u = torch.zeros(self.n_dof, dtype=self.dtype, device=self.device)
+        return self.bcs.apply(u, time)
+
+    def _linear_method(self):
+        if bool(self.solver_cfg.get("use direct solver", False)):
+            return "direct"
+        belos = str(self.solver_cfg.get("Belos solver", "")).lower()
+        if belos:
+            # the reference's Belos catalog onto the native Krylov set
+            if "bicgstab" in belos or "tfqmr" in belos:
+                return "bicgstab"
+            if belos.endswith("cg") or "pcpg" in belos:
+                return "cg"
+            return "gmres"
+        if self.n_dof <= 4000 and "preconditioner variant" \
+                not in self.solver_cfg:
+            return "direct"
+        return "gmres"
+
+    def _precond_variant(self):
+        if not bool(self.solver_cfg.get("use preconditioner", True)):
+            return "none"
+        if "preconditioner variant" in self.solver_cfg:
+            return str(self.solver_cfg["preconditioner variant"])
+        ps = self.solver_cfg.get("Preconditioner Settings", {}) or {}
+        sm = str(ps.get("smoother: type", "")).upper()
+        if sm.startswith("ILU"):
+            return "multigrid"
+        if sm == "CHEBYSHEV":
+            return "chebyshev"
+        if sm == "SCHWARZ":
+            return "schwarz"
+        return "jacobi"
+
+    def solve_steady(self, record=True, pvec=None, u0=None) -> ForwardResult:
+        u0 = self.initial_state() if u0 is None else u0
+        tc = TimeCoeffs.steady(self.n_dof, dtype=self.dtype,
+                               device=self.device)
+        sc = self.solver_cfg
+        result = newton_solve(
+            self.assembler, u0, tc, pvec,
+            tol=float(sc.get("nonlinear TOL", 1e-6)),
+            abstol=float(sc.get("absolute nonlinear TOL", 1e-100)),
+            maxiter=int(sc.get("max nonlinear iters", 10)),
+            linear_method=self._linear_method(),
+            linear_tol=float(sc.get("linear TOL", 1e-12)),
+            precond_variant=self._precond_variant(),
+            backtracking=bool(sc.get("allow backtracking", True)))
+        out = ForwardResult(u=result.u, time=0.0, newton=result)
+        if record and self.compute_errors:
+            out.error_history.append(
+                (0.0, self.error_calc.compute(result.u, 0.0)))
+        return out
+
+    def forward(self, pvec=None, u0=None) -> ForwardResult:
+        return self.solve_steady(pvec=pvec, u0=u0)
+
+    def run(self):
+        return self.forward()
+
+
+def _unwrap_block(cfg: dict, marker: str) -> dict:
+    """Flatten a per-block sublist ({'eblock-0_0': {...}}) if present."""
+    cfg = cfg or {}
+    if marker in cfg:
+        return cfg
+    for v in cfg.values():
+        if isinstance(v, dict) and marker in v:
+            merged = {k: val for k, val in cfg.items()
+                      if not isinstance(val, dict) or marker not in val}
+            merged.update(v)
+            return merged
+    return cfg

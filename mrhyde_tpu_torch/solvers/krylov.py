@@ -1,0 +1,128 @@
+"""Restarted GMRES(m) with Givens rotations, and the PCG of the JAX
+package's `cg` solve.
+
+`gmres` ports `mrhyde_tpu/solvers/krylov.py` (`_gmres_cycle`, `gmres`):
+right-preconditioned, so the Givens-rotated rhs gives the true residual
+norm each Arnoldi step and the cycle exits as soon as it meets the
+target. The vectors stay on the device; the (m+1)-long Hessenberg
+column and its rotations are host scalars, which costs one device sync
+per Arnoldi step and keeps the loop free of data-dependent device
+control flow.
+
+`pcg` is `jax.scipy.sparse.linalg.cg`'s algorithm (which the JAX
+package's `solve_cg` calls), with its stopping rule
+||r|| <= max(tol*||b||, atol) and x0 = 0.
+"""
+
+from __future__ import annotations
+
+import math
+from typing import NamedTuple
+
+import torch
+
+__all__ = ["gmres", "pcg", "KrylovInfo"]
+
+
+class KrylovInfo(NamedTuple):
+    """Solver report (host values)."""
+    iters: int             # matvecs in the Krylov iteration
+    resnorm: float         # final (estimated) residual norm
+    converged: bool        # resnorm <= max(tol*||b||, atol)
+
+
+def _identity(v):
+    return v
+
+
+def _gmres_cycle(matvec, M, x0, r0, target, m):
+    """One GMRES(m) Arnoldi cycle: runs until the rotated-rhs residual
+    estimate drops below `target` or m steps elapse.
+    Returns (x1, resnorm, steps)."""
+    n = r0.shape[0]
+    beta = float(torch.linalg.norm(r0))
+    scale = beta if beta > 0 else 1.0
+    V = torch.empty((m + 1, n), dtype=r0.dtype, device=r0.device)
+    V[0] = r0 / scale
+    R = [[0.0] * m for _ in range(m)]
+    cs, sn = [0.0] * m, [0.0] * m
+    g = [0.0] * (m + 1)
+    g[0] = beta
+    j, res = 0, beta
+    while j < m and res > target:
+        w = matvec(M(V[j]))
+        # classical Gram-Schmidt against the j+1 basis vectors so far
+        h = V[:j + 1] @ w
+        w = w - h @ V[:j + 1]
+        nrm = torch.linalg.norm(w)
+        hcol = torch.cat([h, nrm[None]]).tolist()
+        V[j + 1] = w / (hcol[j + 1] if hcol[j + 1] > 0 else 1.0)
+        # apply the j previous rotations to the new column
+        for i in range(j):
+            a = cs[i] * hcol[i] + sn[i] * hcol[i + 1]
+            hcol[i + 1] = -sn[i] * hcol[i] + cs[i] * hcol[i + 1]
+            hcol[i] = a
+        # new rotation annihilating hcol[j+1]
+        hj, hj1 = hcol[j], hcol[j + 1]
+        denom = math.sqrt(hj * hj + hj1 * hj1)
+        c = hj / denom if denom > 0 else 1.0
+        s = hj1 / denom if denom > 0 else 0.0
+        hcol[j] = c * hj + s * hj1
+        gj = g[j]
+        g[j], g[j + 1] = c * gj, -s * gj
+        cs[j], sn[j] = c, s
+        for i in range(j + 1):
+            R[i][j] = hcol[i]
+        res = abs(g[j + 1])
+        j += 1
+    if j == 0:
+        return x0, res, 0
+    Rk = torch.tensor([row[:j] for row in R[:j]], dtype=torch.float64)
+    gk = torch.tensor(g[:j], dtype=torch.float64)[:, None]
+    y = torch.linalg.solve_triangular(Rk, gk, upper=True)[:, 0]
+    upd = y.to(dtype=V.dtype, device=V.device) @ V[:j]
+    return x0 + M(upd), res, j
+
+
+def gmres(matvec, b, *, m=40, tol=1e-8, atol=0.0, max_restarts=5,
+          precond=None, x0=None):
+    """Restarted, right-preconditioned GMRES(m) with convergence check.
+    Returns (x, KrylovInfo)."""
+    M = precond if precond is not None else _identity
+    x = torch.zeros_like(b) if x0 is None else x0
+    bnorm = float(torch.linalg.norm(b))
+    target = max(tol * (bnorm if bnorm > 0 else 1.0), atol)
+    res = float(torch.linalg.norm(b - matvec(x)))
+    cyc = steps = 0
+    while res > target and cyc < max_restarts:
+        r = b - matvec(x)
+        x, res, k = _gmres_cycle(matvec, M, x, r, target, m)
+        cyc += 1
+        steps += k
+    return x, KrylovInfo(steps, res, res <= target)
+
+
+def pcg(matvec, b, *, tol=1e-5, atol=0.0, maxiter=None, M=None):
+    """Preconditioned CG from x0 = 0, stopping when ||r|| <=
+    max(tol*||b||, atol) or after maxiter steps (jax.scipy's cg).
+    Returns (x, steps)."""
+    M = M if M is not None else _identity
+    maxiter = 10 * b.shape[0] if maxiter is None else maxiter
+    atol2 = max(tol * tol * float(torch.dot(b, b)), atol * atol)
+    x = torch.zeros_like(b)
+    r = b - matvec(x)
+    z = M(r)
+    p = z
+    gamma = torch.dot(r, z)
+    k = 0
+    while k < maxiter and float(torch.dot(r, r)) > atol2:
+        Ap = matvec(p)
+        alpha = gamma / torch.dot(p, Ap)
+        x = x + alpha * p
+        r = r - alpha * Ap
+        z = M(r)
+        gamma_new = torch.dot(r, z)
+        p = z + (gamma_new / gamma) * p
+        gamma = gamma_new
+        k += 1
+    return x, k

@@ -1,0 +1,110 @@
+"""The port's CUDA kernels on the card (marked `cuda`; they skip on a
+machine without one, since a CUDA kernel has no CPU mode). This file
+imports no jax, so the card's machine runs it without the JAX package:
+
+    python -m pytest --noconftest -q -m cuda tests/test_torch_kernels_cuda.py
+
+Tolerances: 1e-12 (f64) and 1e-5 (f32) relative to max |plain|; kernel
+and plain version sum the same terms in the same order, differing only
+by fused multiply-adds."""
+
+import numpy as np
+import pytest
+import torch
+
+from torch_port_utils import KAPPAS, SOURCE_NL, seeded, thermal_cfg
+
+torch.set_num_threads(1)
+
+RTOL = {torch.float64: 1e-12, torch.float32: 1e-5}
+
+
+def _card():
+    if not torch.cuda.is_available():
+        pytest.skip("needs a CUDA card: the kernels have no CPU mode")
+    return torch.device("cuda")
+
+
+def _close(got, ref, dtype):
+    torch.cuda.synchronize()
+    scale = float(ref.abs().max())
+    return float((got - ref).abs().max()) <= RTOL[dtype] * scale
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("dtype", [torch.float64, torch.float32])
+@pytest.mark.parametrize("shape", [(37, 29), (64, 128)])
+def test_kernels_match_plain(shape, dtype):
+    from mrhyde_tpu_torch.ops import fused_p1 as fp
+    from mrhyde_tpu_torch.problem import Problem
+    dev = _card()
+    t0 = Problem(thermal_cfg(*shape), device="cpu").assembler \
+        .fused_provider().tables
+    tab = fp.QuadTables(np.asarray(t0.phi), np.asarray(t0.grad),
+                        np.asarray(t0.wts), dev, dtype)
+    gen = torch.Generator(device=dev).manual_seed(5)
+    N0, N1 = shape
+    u = torch.rand((N0 + 1, N1 + 1), generator=gen, device=dev, dtype=dtype)
+    qp = [torch.rand((N0 * N1, tab.Q), generator=gen, device=dev,
+                     dtype=dtype) for _ in range(4)]
+    before = dict(fp.LAUNCHES)
+    assert _close(fp.thermal_node_state(u, 1.25, tab),
+                  fp.thermal_node_state_plain(u, 1.25, tab), dtype)
+    assert _close(fp.thermal_node_state(u, qp[2], tab),
+                  fp.thermal_node_state_plain(u, qp[2], tab), dtype)
+    out, jac = fp.thermal_node_full(u, *qp, tab)
+    ref, jref = fp.thermal_node_full_plain(u, *qp, tab)
+    assert _close(out, ref, dtype) and _close(jac, jref, dtype)
+    assert fp.LAUNCHES["state"] == before["state"] + 2
+    assert fp.LAUNCHES["full"] == before["full"] + 1
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("kappa", KAPPAS)
+def test_fused_provider_on_card_matches_cpu(kappa):
+    """The provider on CUDA (kernels) against the same provider on the
+    CPU (plain versions): residual and every Jacobian row, f64."""
+    from mrhyde_tpu_torch.assembly.assembler import TimeCoeffs
+    from mrhyde_tpu_torch.interop import state_from_numpy, state_to_numpy
+    from mrhyde_tpu_torch.problem import Problem
+    dev = _card()
+    cfg = thermal_cfg(23, 17, kappa=kappa)
+    if kappa == "1.0 + e*e":
+        cfg["Functions"]["thermal source"] = SOURCE_NL
+    out = {}
+    for d in ("cpu", dev):
+        p = Problem(cfg, device=d)
+        u = state_from_numpy(seeded(p.n_dof, seed=9), p)
+        r, rows = p.assembler.fused_provider().res_jac(
+            u, TimeCoeffs.steady(p.n_dof, device=d))
+        out[str(d)] = (state_to_numpy(r),
+                       [None if x is None else state_to_numpy(x)
+                        for x in rows])
+    (rc, jc), (rg, jg) = out["cpu"], out[str(dev)]
+    assert np.max(np.abs(rg - rc)) <= 1e-12 * max(1.0, np.max(np.abs(rc)))
+    for a, b in zip(jg, jc):
+        assert (a is None) == (b is None)
+        if a is not None:
+            assert np.max(np.abs(a - b)) <= 1e-12 * max(1.0,
+                                                        np.max(np.abs(b)))
+
+
+@pytest.mark.cuda
+def test_wrapper_checks_inputs_on_card():
+    from mrhyde_tpu_torch.ops import fused_p1 as fp
+    from mrhyde_tpu_torch.problem import Problem
+    dev = _card()
+    t0 = Problem(thermal_cfg(4), device="cpu").assembler \
+        .fused_provider().tables
+    tab = fp.QuadTables(np.asarray(t0.phi), np.asarray(t0.grad),
+                        np.asarray(t0.wts), dev, torch.float64)
+    u = torch.zeros((5, 5), device=dev, dtype=torch.float64)
+    with pytest.raises(ValueError):          # kappa of the wrong shape
+        fp.thermal_node_state(u, torch.zeros((3, tab.Q), device=dev,
+                                             dtype=torch.float64), tab)
+    with pytest.raises(ValueError):          # tables in another dtype
+        fp.thermal_node_state(u.float(), 1.0, tab)
+    with pytest.raises(ValueError):          # not contiguous
+        fp.thermal_node_state(torch.zeros((5, 10), device=dev,
+                                          dtype=torch.float64)[:, ::2],
+                              1.0, tab)

@@ -1,0 +1,133 @@
+"""The port end to end on the CPU: decks through `Problem(cfg).run()`
+and the CLI, against the reference gold and the JAX package's live
+numbers, and the port's independence from jax.
+
+Tolerances: rtol 2e-5 against the printed 6-digit gold (the repo's gold
+default); rtol 1e-9 against JAX's live f64 number (same discretization
+and solver, different summation order); the CLI lines are compared as
+printed (6 significant digits)."""
+
+import os
+import subprocess
+import sys
+
+import jax.numpy as jnp
+import numpy as np
+import pytest
+import torch
+import yaml
+
+from mrhyde_tpu_torch.interop import (params_from_numpy, state_from_numpy,
+                                      state_to_numpy)
+from torch_port_utils import SOURCE_NL, both_problems, thermal_cfg
+
+torch.set_num_threads(1)
+
+ROOT = os.path.dirname(os.path.dirname(os.path.abspath(__file__)))
+
+DECKS = {
+    # thermal/2D_verification: NX=NY=40 p1, gold L2(e) = 0.00102776
+    "kappa1": (thermal_cfg(40), 0.00102776),
+    # kappa = 1 + e^2 with its manufactured source (JAX f64 reference)
+    "kappa_nl": (thermal_cfg(40, kappa="1.0 + e*e", source=SOURCE_NL,
+                             solver={"nonlinear TOL": 1e-10}), 0.00102798),
+}
+
+
+def _env():
+    env = dict(os.environ)
+    env["PYTHONPATH"] = ROOT + os.pathsep + env.get("PYTHONPATH", "")
+    env["JAX_PLATFORMS"] = "cpu"
+    env["OMP_NUM_THREADS"] = "1"
+    return env
+
+
+@pytest.mark.parametrize("name", sorted(DECKS))
+def test_deck_matches_gold_and_jax(name):
+    cfg, gold = DECKS[name]
+    pj, pt = both_problems(cfg)
+    rt = pt.run()
+    l2 = rt.errors[("L2", "e")]
+    assert l2 == pytest.approx(gold, rel=2e-5)
+    assert rt.newton.converged
+    rj = pj.run()
+    assert l2 == pytest.approx(rj.errors[("L2", "e")], rel=1e-9)
+    assert np.max(np.abs(state_to_numpy(rt.u) - np.asarray(rj.u))) < 1e-10
+
+
+def test_state_and_params_cross_between_packages():
+    """A JAX solution handed across is a solution of the port's system,
+    and scalar Parameters reach both packages' expressions alike."""
+    from mrhyde_tpu.assembly.assembler import TimeCoeffs as JaxTC
+    from mrhyde_tpu_torch.assembly.assembler import TimeCoeffs
+    cfg = thermal_cfg(8, 6, kappa="1.0 + kp*x*y")
+    pj, pt = both_problems(cfg)
+    pv = {"kp": 0.5}
+    rj = pj.solve_steady(pvec={"kp": jnp.asarray(0.5)})
+    u = state_from_numpy(np.asarray(rj.u), pt)
+    assert u.dtype == pt.dtype and u.device == pt.device
+    tc = TimeCoeffs.steady(pt.n_dof)
+    pvec = params_from_numpy(pv)
+    r = pt.assembler.residual(u, tc, pvec)
+    assert float(torch.linalg.norm(r)) < 1e-12
+    rf, _J = pt.assembler.res_and_jac(u, tc, pvec)
+    rjax = pj.assembler.residual(rj.u, JaxTC.steady(pj.n_dof), {"kp": 0.5})
+    assert np.max(np.abs(state_to_numpy(rf) - np.asarray(rjax))) < 1e-12
+    rt = pt.solve_steady(pvec=pvec)
+    assert np.max(np.abs(state_to_numpy(rt.u) - np.asarray(rj.u))) < 1e-10
+    with pytest.raises(ValueError):
+        params_from_numpy({"kp": [1.0, 2.0]})
+
+
+def test_cli_prints_the_jax_l2_line(tmp_path):
+    deck = tmp_path / "input.yaml"
+    deck.write_text(yaml.safe_dump(DECKS["kappa1"][0]))
+
+    def l2_line(cmd):
+        out = subprocess.run(cmd, capture_output=True, text=True,
+                             env=_env(), cwd=tmp_path, timeout=600)
+        assert out.returncode == 0, out.stderr
+        lines = [ln for ln in out.stdout.splitlines()
+                 if "L2 norm of the error for e" in ln]
+        assert len(lines) == 1, out.stdout
+        return lines[0]
+
+    port = l2_line([sys.executable, "-m", "mrhyde_tpu_torch.driver",
+                    str(deck), "--device", "cpu"])
+    ref = l2_line([sys.executable, "-m", "mrhyde_tpu.driver", str(deck),
+                   "--cpu", "--fp64"])
+    assert port == ref
+    assert "0.00102776" in port
+
+
+def test_port_runs_without_importing_jax():
+    code = ("import sys\n"
+            "from mrhyde_tpu_torch.problem import Problem\n"
+            "sys.path.insert(0, 'tests')\n"
+            "from torch_port_utils import thermal_cfg\n"
+            "r = Problem(thermal_cfg(8), device='cpu').run()\n"
+            "assert r.errors\n"
+            "bad = [m for m in sys.modules if m == 'jax' or "
+            "m.startswith(('jax.', 'mrhyde_tpu.')) or m == 'mrhyde_tpu']\n"
+            "assert not bad, bad\n"
+            "print('ok')\n")
+    out = subprocess.run([sys.executable, "-c", code], capture_output=True,
+                         text=True, env=_env(), cwd=ROOT, timeout=600)
+    assert out.returncode == 0, out.stderr
+    assert out.stdout.strip().endswith("ok")
+
+
+@pytest.mark.parametrize("cfg_patch", [
+    {"Solver": {"solver": "transient"}},
+    {"Parameters": {"kp": {"type": "scalar", "value": 1.0}}},
+    {"Analysis": {"analysis type": "ROL"}},
+    {"Physics": {"modules": "navier stokes"}},
+    {"Physics": {"modules": "thermal", "include advection": True}},
+])
+def test_unported_deck_features_raise(cfg_patch):
+    from mrhyde_tpu_torch.problem import Problem
+    cfg = thermal_cfg(4)
+    for k, v in cfg_patch.items():
+        cfg[k] = dict(cfg.get(k, {}), **v)
+    with pytest.raises(NotImplementedError):
+        Problem(cfg, device="cpu")

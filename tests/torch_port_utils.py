@@ -1,0 +1,54 @@
+"""Shared decks and helpers for the PyTorch port's parity tests
+(tests/test_torch_*.py): one config dict goes through the JAX package
+and through mrhyde_tpu_torch, inputs made from a seed with numpy."""
+
+import numpy as np
+import torch
+
+S_TRUE = "sin(2*pi*x)*sin(2*pi*y)"
+SOURCE = "8*(pi*pi)*sin(2*pi*x)*sin(2*pi*y)"
+# the source of kappa = 1 + e^2 for the same true solution
+SOURCE_NL = (f"8*(pi*pi)*{S_TRUE}*(1+({S_TRUE})^2) - 8*(pi*pi)*{S_TRUE}*"
+             "((cos(2*pi*x)*sin(2*pi*y))^2+(sin(2*pi*x)*cos(2*pi*y))^2)")
+# constant (every Jacobian row a scalar), coordinate-dependent (affine,
+# 16 varying rows from the coord part), state-dependent (not affine)
+KAPPAS = ("1.0", "1.0 + 0.5*x*y", "1.0 + e*e")
+
+
+def thermal_cfg(nx, ny=None, kappa="1.0", source=SOURCE, solver=None):
+    return {
+        "Mesh": {"dimension": 2, "element type": "quad", "NX": nx,
+                 "NY": nx if ny is None else ny},
+        "Functions": {"thermal source": source, "thermal diffusion": kappa},
+        "Physics": {"modules": "thermal",
+                    "Dirichlet conditions": {"e": {"all boundaries": 0.0}}},
+        "Discretization": {"order": {"e": 1}, "quadrature": 2},
+        "Solver": dict({"solver": "steady-state"}, **(solver or {})),
+        "Postprocess": {"compute errors": True,
+                        "True solutions": {"e": S_TRUE}},
+    }
+
+
+def both_problems(cfg):
+    """(JAX Problem, torch Problem on the CPU in f64) of one config."""
+    from mrhyde_tpu.problem import Problem as JaxProblem
+    from mrhyde_tpu_torch.problem import Problem as TorchProblem
+    return (JaxProblem(cfg),
+            TorchProblem(cfg, device="cpu", dtype=torch.float64))
+
+
+def steady_coeffs(pj, pt):
+    """Steady TimeCoeffs of both packages."""
+    import jax.numpy as jnp
+    from mrhyde_tpu.assembly.assembler import TimeCoeffs as JaxTC
+    from mrhyde_tpu_torch.assembly.assembler import TimeCoeffs as TorchTC
+    return (JaxTC.steady(pj.n_dof, dtype=jnp.float64),
+            TorchTC.steady(pt.n_dof, dtype=torch.float64))
+
+
+def seeded(n, seed=0, scale=0.3):
+    return np.random.RandomState(seed).randn(n) * scale
+
+
+def max_diff(a, b):
+    return float(np.max(np.abs(np.asarray(a) - np.asarray(b))))
