@@ -12,9 +12,11 @@ The port of `mrhyde_tpu/assembly/assembler.py`:
              (deterministic; no atomics, no index_add_)
 
 Dirichlet rows use symmetric elimination: residual rows masked, unit
-diagonal in operators. Boundary integrals (Neumann, Robin, weak
-Dirichlet) and oriented vector bases are not ported yet (ROADMAP A4,
-A11): the Problem rejects decks that need them.
+diagonal in operators. Scalar variables (HGRAD, HVOL) are ported, with
+the mass and L2-projection helpers the transient path needs. Boundary
+integrals (Neumann, Robin, weak Dirichlet) and oriented vector bases are
+not ported yet (ROADMAP A4, A11): the Problem rejects decks that need
+them.
 """
 
 from __future__ import annotations
@@ -29,6 +31,8 @@ from mrhyde_tpu_torch.assembly.workset import Workset
 
 __all__ = ["Assembler", "TimeCoeffs", "BlockJacobian", "PointContext",
            "build_incidence"]
+
+_SCALAR_SPACES = ("HGRAD", "HVOL")
 
 
 @dataclass
@@ -225,10 +229,12 @@ class Assembler:
         self.dtype = dtype
         self.device = torch.device(device)
         dt, dev = dtype, self.device
-        if any(k[0] != "HGRAD" for k in disc.basis_keys.values()):
+        if any(k[0] not in _SCALAR_SPACES
+               for k in disc.basis_keys.values()):
             raise NotImplementedError(
-                "only HGRAD variables are ported to mrhyde_tpu_torch "
-                "(ROADMAP A11 brings vector and trace bases)")
+                "only scalar (HGRAD, HVOL) variables are ported to "
+                "mrhyde_tpu_torch (ROADMAP A11 brings vector and trace "
+                "bases)")
         if np.any(disc.dofmap.signs != 1.0) \
                 or disc.dofmap.mix_pair is not None:
             raise NotImplementedError(
@@ -270,6 +276,8 @@ class Assembler:
                      for k, v in disc.basis_vals.items()}
         self._fused = None
         self._fused_built = False
+        # set by the Problem for 'solver: transient' decks
+        self.is_transient = False
 
     # ------------------------------------------------------------------
     # structured-mesh fast path: on uniform box meshes with nodal p1
@@ -331,8 +339,11 @@ class Assembler:
 
     def _elem_residual(self, u_st, beta_u, beta_t, wts, ip, bg, *,
                        alpha_u, alpha_t, time, params):
-        u_eval = alpha_u * u_st + beta_u
-        u_dot = alpha_t * u_st + beta_t
+        return self._elem_residual_uv(alpha_u * u_st + beta_u,
+                                      alpha_t * u_st + beta_t, wts, ip, bg,
+                                      time, params)
+
+    def _elem_residual_uv(self, u_eval, u_dot, wts, ip, bg, time, params):
         wk = Workset(
             dim=self.disc.mesh.dim, wts=wts, ip=ip, basis_vals=self.g_bv,
             basis_grads=bg, offsets=self.disc.offsets,
@@ -342,9 +353,13 @@ class Assembler:
             m.volume_residual(wk)
         return wk.res
 
-    def _elem_fn(self, tc: TimeCoeffs, pvec):
+    def _params(self, pvec):
         params = dict(self.params)
         params.update(pvec or {})
+        return params
+
+    def _elem_fn(self, tc: TimeCoeffs, pvec):
+        params = self._params(pvec)
 
         def fn(u_st, beta_u, beta_t, wts, ip, bg):
             return self._elem_residual(
@@ -399,10 +414,11 @@ class Assembler:
     def res_and_jac(self, u_st, tc: TimeCoeffs, pvec=None):
         """(residual, BlockJacobian) in one pass — the Newton-loop entry
         point. Uses the fused provider when the problem qualifies
-        (uniform structured 2D p1 quads, thermal) and the call is steady
-        with scalar-only params, else the general vmapped path."""
+        (uniform structured 2D p1 quads, thermal) and the params are
+        scalars, steady or transient alike, else the general vmapped
+        path."""
         fused = self.fused_provider()
-        if fused is not None and tc.is_steady and all(
+        if fused is not None and all(
                 not isinstance(v, torch.Tensor) or v.dim() == 0
                 for v in (pvec or {}).values()):
             return fused.jacobian(u_st, tc, pvec)
@@ -426,6 +442,70 @@ class Assembler:
             out = self._scatter_structured(prods)
             return torch.where(J.fixed, v, out)
         return apply
+
+    # ------------------------------------------------------------------
+    # mass / projections
+    # ------------------------------------------------------------------
+
+    def mass_jacobian(self) -> BlockJacobian:
+        """Block mass matrix of all variables as a BlockJacobian (no
+        Dirichlet rows)."""
+        M = torch.as_tensor(self.disc.mass_blocks(), dtype=self.dtype,
+                            device=self.device)
+        return BlockJacobian(vol=M, vol_lids=self.lids, inc=self.inc,
+                             fixed=torch.zeros(self.n_dof, dtype=torch.bool,
+                                               device=self.device))
+
+    def weighted_mass_blocks(self, u_st, tc: TimeCoeffs, pvec=None):
+        """Physics-weighted mass blocks M = d(residual)/d(u_dot), (E, nd,
+        nd): the jacfwd of the element residual in its time-derivative
+        argument, so rho*cp-style weights come along."""
+        u_e, bu_e, bt_e = self._gathered(u_st, tc)
+        params = self._params(pvec)
+
+        def fn(udot_e, ueval_e, wts, ip, bg):
+            return self._elem_residual_uv(ueval_e, udot_e, wts, ip, bg,
+                                          tc.time, params)
+
+        return torch.func.vmap(
+            torch.func.jacfwd(fn, argnums=0),
+            in_dims=(0, 0, self._geo_ax, 0, self._geo_ax))(
+            tc.alpha_t * u_e + bt_e, tc.alpha_u * u_e + bu_e, self.g_wts,
+            self.g_ip, self.g_bg)
+
+    def lumped_mass(self, u_st, tc: TimeCoeffs, pvec=None):
+        """Row-sum lumped weighted mass vector (n_dof,)."""
+        rows = self.weighted_mass_blocks(u_st, tc, pvec).sum(dim=2)
+        flat = torch.cat([rows.reshape(-1), rows.new_zeros(1)])
+        d = flat[self.inc].sum(dim=1)
+        return torch.where(self.fixed, 1.0, torch.where(d == 0, 1.0, d))
+
+    def l2_rhs(self, exprs: dict, time=0.0):
+        """RHS of the global L2 projection, b_i = sum_q f(x_q) phi_i w_q,
+        for scalar variables. exprs: var -> expression (missing vars
+        get 0)."""
+        disc = self.disc
+        ctx = PointContext(self.g_ip, time=time, params=self.params)
+        wtsE = torch.as_tensor(disc.wts, dtype=self.dtype,
+                               device=self.device)                # (E, Q)
+        contrib = torch.zeros(self.lids.shape, dtype=self.dtype,
+                              device=self.device)
+        for var in disc.var_names:
+            key = disc.basis_keys[var]
+            if key[0] not in _SCALAR_SPACES:
+                raise NotImplementedError(
+                    f"L2 projection onto {key[0]} is not ported to "
+                    "mrhyde_tpu_torch yet (ROADMAP A11)")
+            if var not in exprs:
+                continue
+            st, nd = disc.offsets[var]
+            vals = torch.broadcast_to(torch.as_tensor(
+                self.fm.evaluate_expr(exprs[var], ctx), dtype=self.dtype,
+                device=self.device), wtsE.shape)
+            contrib[:, st:st + nd] += torch.einsum(
+                "iq,eq->ei", self.g_bv[key], vals * wtsE)
+        flat = torch.cat([contrib.reshape(-1), contrib.new_zeros(1)])
+        return flat[self.inc].sum(dim=1)
 
 
 def pad_to(a, offset, shape):

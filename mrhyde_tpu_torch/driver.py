@@ -3,7 +3,8 @@ mrhyde_tpu_torch.driver input.yaml`).
 
 Parse the input deck (the JAX package's YAML schema and split-deck
 `<Sublist> input file` convention), build the problem on the chosen
-device, run it and print the error report.
+device, run it and print the error report: the JAX CLI's lines, one per
+norm and recorded time (every step of a transient deck).
 
   --device {cuda,cpu}   where to run (default: cuda when a card is
                         present, else cpu)

@@ -61,21 +61,20 @@ class DofMap:
         """Gather-side orientation fold of element coefficient arrays
         g (..., n_elem, nd_slice): u_loc = signs * g + mix_w * g[pair].
         st/nd select a within-element dof slice (one variable); pairs
-        never cross variables. Works on numpy or jax arrays (the dof
-        axis is last, the element axis second-to-last)."""
+        never cross variables. Numpy arrays (the dof axis is last, the
+        element axis second-to-last)."""
         sl = slice(st, (st + nd) if nd is not None else None)
         s = self.signs[:, sl]
         if self.mix_pair is None:
             return g * s
         pr = self.mix_pair[:, sl] - st
         w = self.mix_w[:, sl]
-        if isinstance(g, np.ndarray):
-            gp = np.take_along_axis(
-                g, np.broadcast_to(pr, g.shape), axis=-1)
-        else:
-            import jax.numpy as jnp
-            gp = jnp.take_along_axis(
-                g, jnp.broadcast_to(pr, g.shape), axis=-1)
+        if not isinstance(g, np.ndarray):
+            raise NotImplementedError(
+                "the orientation fold of device arrays (HDIV/HCURL on "
+                "simplices) is not ported to mrhyde_tpu_torch yet "
+                "(ROADMAP A11)")
+        gp = np.take_along_axis(g, np.broadcast_to(pr, g.shape), axis=-1)
         return g * s + w * gp
 
     def var(self, name: str) -> VarDofMap:

@@ -10,7 +10,8 @@ from __future__ import annotations
 import numpy as np
 import torch
 
-__all__ = ["state_from_numpy", "state_to_numpy", "params_from_numpy"]
+__all__ = ["state_from_numpy", "state_to_numpy", "params_from_numpy",
+           "time_coeffs_from_numpy"]
 
 
 def state_from_numpy(u, problem):
@@ -20,6 +21,16 @@ def state_from_numpy(u, problem):
         raise ValueError(f"state of shape {u.shape}, expected "
                          f"({problem.n_dof},)")
     return torch.tensor(u, dtype=problem.dtype, device=problem.device)
+
+
+def time_coeffs_from_numpy(alpha_u, beta_u, alpha_t, beta_t, time, deltat,
+                           problem):
+    """One stage's TimeCoeffs from numpy: the betas as (n_dof,) states on
+    `problem.device` in `problem.dtype`, the scalars as floats."""
+    from mrhyde_tpu_torch.assembly.assembler import TimeCoeffs
+    return TimeCoeffs(float(alpha_u), state_from_numpy(beta_u, problem),
+                      float(alpha_t), state_from_numpy(beta_t, problem),
+                      float(time), float(deltat))
 
 
 def state_to_numpy(u):

@@ -32,18 +32,19 @@ _state = {"lib": None, "log": ""}
 
 _P, _I, _D = ctypes.c_void_p, ctypes.c_int, ctypes.c_double
 # entry point -> argtypes (see csrc/fused_p1_thermal.cu)
+# the stage: mass, mass0, mass_is_scalar, alpha_u, alpha_t, transient
+_STAGE = [_P, _D, _I, _D, _D, _I]
+# tables and sizes: phi, grad, wts, Q, N0, N1
+_TABLES = [_P, _P, _P, _I, _I, _I]
 _SIGNATURES = {
-    # u, kappa, kappa0, kappa_is_scalar, grad, wts, Q, N0, N1, out,
-    # stream
-    "thermal_node_state_f64": [_P, _P, _D, _I, _P, _P, _I, _I, _I, _P,
-                               _P],
-    "thermal_node_state_f32": [_P, _P, _D, _I, _P, _P, _I, _I, _I, _P,
-                               _P],
-    # u, S, dS, K, dK, phi, grad, wts, Q, N0, N1, out, jac, stream
-    "thermal_node_full_f64": [_P, _P, _P, _P, _P, _P, _P, _P, _I, _I, _I,
-                              _P, _P, _P],
-    "thermal_node_full_f32": [_P, _P, _P, _P, _P, _P, _P, _P, _I, _I, _I,
-                              _P, _P, _P],
+    # u, kappa, kappa0, kappa_is_scalar, stage, tables, out, stream
+    "thermal_node_state_f64": [_P, _P, _D, _I, *_STAGE, *_TABLES, _P, _P],
+    "thermal_node_state_f32": [_P, _P, _D, _I, *_STAGE, *_TABLES, _P, _P],
+    # u, S, dS, K, dK, stage, tables, out, jac, stream
+    "thermal_node_full_f64": [_P, _P, _P, _P, _P, *_STAGE, *_TABLES, _P, _P,
+                              _P],
+    "thermal_node_full_f32": [_P, _P, _P, _P, _P, *_STAGE, *_TABLES, _P, _P,
+                              _P],
 }
 
 

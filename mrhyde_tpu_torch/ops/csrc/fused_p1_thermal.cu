@@ -1,5 +1,5 @@
-// Node-scatter assembly of steady 2D thermal on uniform p1 quads, for
-// Hopper (sm_90a).
+// Node-scatter assembly of 2D thermal on uniform p1 quads, steady or a
+// transient stage, for Hopper (sm_90a).
 //
 // Replaces: the TPU node-scatter kernel of the JAX package,
 // mrhyde_tpu/ops/fused_p1.py `run_node_call` (the pallas_call body is
@@ -10,14 +10,24 @@
 //                          rows off one read of the element data)
 //
 // Weak form (mrhyde_tpu/physics/thermal.py qp_density): S = rho cp u_t
-// - f, flux F = kappa grad u; steady, so u_t = 0.
-//   state:  r_n = sum_{e ni n} sum_q w_q kappa_eq grad phi_c . grad u_h
-//   full:   r_n = sum_{e ni n} sum_q w_q (phi_c S_eq
-//                                        + kappa_eq grad phi_c . grad u_h)
-//           J_e[c][c'] = sum_q w_q (kappa grad phi_c . grad phi_c'
-//                                   + dkappa/de phi_c' grad phi_c . grad u_h
-//                                   + dS/de phi_c phi_c')
-// with c the local corner of node n in element e. Corners are
+// - f, flux F = kappa grad u, at u_eval = alpha_u u + beta_u and u_dot =
+// alpha_t u + beta_t (the stage seeding of the time integrator; steady:
+// alpha_u = 1, alpha_t = 0, no betas). m = rho cp.
+//   state (affine split, the part linear in u; betas go to the
+//   coordinate part, which the caller adds):
+//     steady:    r_n = sum_{e ni n} sum_q w_q kappa grad phi_c . grad u_h
+//     transient: r_n = sum_{e ni n} sum_q w_q (m alpha_t u_h phi_c
+//                                  + kappa alpha_u grad phi_c . grad u_h)
+//   full (u is the u_eval grid; S carries its m u_dot term):
+//     r_n = sum_{e ni n} sum_q w_q (phi_c S + kappa grad phi_c . grad u_h)
+//     J_e[c][c'] = sum_q w_q (phi_c (alpha_u dS/de phi_c'
+//                                    + alpha_t m phi_c')
+//                  + alpha_u grad phi_c . (dkappa/de phi_c' grad u_h
+//                                          + kappa grad phi_c'))
+// with c the local corner of node n in element e. kappa and m are each a
+// scalar or one value per (element, qp). A template flag selects the
+// transient variant; the steady instantiation is the arithmetic of the
+// steady-only kernels (no mass lane, no alpha). Corners are
 // (0,0),(1,0),(1,1),(0,1) on (axis 0, axis 1); element e = i*N1 + j;
 // node (i, j) is entry i*(N1+1) + j of the node grid. Jacobian row
 // k = c*4 + c' is stored as jac[k*E + e].
@@ -37,9 +47,13 @@
 //
 // What bounds it on the H100: bytes, not flops. "state" reads about one
 // value per node (the 3x3 patch is shared through L1/L2 by neighbouring
-// threads) and writes one, plus Q kappa values per element when kappa
-// varies. "full" reads the four per-qp tensors S, dS/de, kappa,
-// dkappa/de (4*Q values per element) and writes 16 rows per element.
+// threads) and writes one, plus Q values per element for each of kappa
+// and m that varies. "full" reads the u_eval grid and the per-qp tensors
+// S, dS/de, kappa, dkappa/de (4*Q values per element; Q more when m
+// varies) and writes 16 rows per element. The transient "full" reads the
+// u_eval grid the caller forms (alpha_u u + beta_u, which the torch
+// coefficient pre-pass needs anyway) rather than u and beta_u: one grid
+// instead of two.
 // The TPU kernel traced the coefficient expressions into its body; here
 // a torch pre-pass evaluates them, which costs those ~4*Q extra values
 // per element of traffic in "full". Generating the DSL expression into
@@ -82,6 +96,16 @@ __device__ __forceinline__ void element_corners(const T P[3][3], int pi,
   for (int c = 0; c < 4; ++c) uc[c] = P[pi + corner_i(c)][pj + corner_j(c)];
 }
 
+// u_h at quadrature point q of an element with corner values uc
+template <typename T>
+__device__ __forceinline__ T qp_val(const T* __restrict__ phi, int Q, int q,
+                                    const T uc[4]) {
+  T v = T(0);
+#pragma unroll
+  for (int c = 0; c < 4; ++c) v += phi[c * Q + q] * uc[c];
+  return v;
+}
+
 // grad u_h at quadrature point q of an element with corner values uc
 template <typename T>
 __device__ __forceinline__ void qp_grad(const T* __restrict__ grad, int Q,
@@ -95,12 +119,15 @@ __device__ __forceinline__ void qp_grad(const T* __restrict__ grad, int Q,
   }
 }
 
-template <typename T>
+template <typename T, bool TRANSIENT>
 __global__ void __launch_bounds__(kThreads)
     node_state_kernel(const T* __restrict__ u, const T* __restrict__ kappa,
                       T kappa0, int kappa_is_scalar,
-                      const T* __restrict__ grad, const T* __restrict__ wts,
-                      int Q, int N0, int N1, T* __restrict__ out) {
+                      const T* __restrict__ mass, T mass0,
+                      int mass_is_scalar, T alpha_u, T alpha_t,
+                      const T* __restrict__ phi, const T* __restrict__ grad,
+                      const T* __restrict__ wts, int Q, int N0, int N1,
+                      T* __restrict__ out) {
   const long long n = (long long)blockIdx.x * blockDim.x + threadIdx.x;
   if (n >= (long long)(N0 + 1) * (N1 + 1)) return;
   const int i = (int)(n / (N1 + 1)), j = (int)(n % (N1 + 1));
@@ -120,19 +147,29 @@ __global__ void __launch_bounds__(kThreads)
       T g0, g1;
       qp_grad(grad, Q, q, uc, g0, g1);
       const T k = kappa_is_scalar ? kappa0 : kappa[e * Q + q];
-      r += wts[q] * (grad[(c * Q + q) * 2 + 0] * (k * g0) +
-                     grad[(c * Q + q) * 2 + 1] * (k * g1));
+      if constexpr (TRANSIENT) {
+        const T m = mass_is_scalar ? mass0 : mass[e * Q + q];
+        const T uh = qp_val(phi, Q, q, uc);
+        r += wts[q] * (phi[c * Q + q] * (m * (alpha_t * uh)) +
+                       grad[(c * Q + q) * 2 + 0] * (k * (alpha_u * g0)) +
+                       grad[(c * Q + q) * 2 + 1] * (k * (alpha_u * g1)));
+      } else {
+        r += wts[q] * (grad[(c * Q + q) * 2 + 0] * (k * g0) +
+                       grad[(c * Q + q) * 2 + 1] * (k * g1));
+      }
     }
     acc += r;
   }
   out[n] = acc;
 }
 
-template <typename T>
+template <typename T, bool TRANSIENT>
 __global__ void __launch_bounds__(kThreads)
     node_full_kernel(const T* __restrict__ u, const T* __restrict__ S,
                      const T* __restrict__ dS, const T* __restrict__ K,
-                     const T* __restrict__ dK, const T* __restrict__ phi,
+                     const T* __restrict__ dK, const T* __restrict__ mass,
+                     T mass0, int mass_is_scalar, T alpha_u, T alpha_t,
+                     const T* __restrict__ phi,
                      const T* __restrict__ grad, const T* __restrict__ wts,
                      int Q, int N0, int N1, T* __restrict__ out,
                      T* __restrict__ jac) {
@@ -175,6 +212,8 @@ __global__ void __launch_bounds__(kThreads)
     T g0, g1;
     qp_grad(grad, Q, q, uc, g0, g1);
     const T kq = K[e * Q + q], dkq = dK[e * Q + q], dsq = dS[e * Q + q];
+    [[maybe_unused]] T mq = T(0);
+    if constexpr (TRANSIENT) mq = mass_is_scalar ? mass0 : mass[e * Q + q];
     const T w = wts[q];
 #pragma unroll
     for (int c = 0; c < 4; ++c) {
@@ -185,9 +224,18 @@ __global__ void __launch_bounds__(kThreads)
       for (int cp = 0; cp < 4; ++cp) {
         const T pcp = phi[cp * Q + q];
         // column (c'): tangent of S and of F_d along phi_c'
-        const T ts = pcp * dsq;
-        const T tf0 = pcp * (dkq * g0) + grad[(cp * Q + q) * 2 + 0] * kq;
-        const T tf1 = pcp * (dkq * g1) + grad[(cp * Q + q) * 2 + 1] * kq;
+        T ts, tf0, tf1;
+        if constexpr (TRANSIENT) {
+          ts = alpha_u * (pcp * dsq) + alpha_t * (pcp * mq);
+          tf0 = alpha_u *
+                (pcp * (dkq * g0) + grad[(cp * Q + q) * 2 + 0] * kq);
+          tf1 = alpha_u *
+                (pcp * (dkq * g1) + grad[(cp * Q + q) * 2 + 1] * kq);
+        } else {
+          ts = pcp * dsq;
+          tf0 = pcp * (dkq * g0) + grad[(cp * Q + q) * 2 + 0] * kq;
+          tf1 = pcp * (dkq * g1) + grad[(cp * Q + q) * 2 + 1] * kq;
+        }
         J[c * 4 + cp] += w * (pc * ts + gc0 * tf0 + gc1 * tf1);
       }
     }
@@ -203,23 +251,32 @@ int blocks_for(int N0, int N1) {
 
 template <typename T>
 int launch_state(const void* u, const void* kappa, double kappa0,
-                 int kappa_is_scalar, const void* grad, const void* wts,
-                 int Q, int N0, int N1, void* out, void* stream) {
-  node_state_kernel<T><<<blocks_for(N0, N1), kThreads, 0,
-                         (cudaStream_t)stream>>>(
+                 int kappa_is_scalar, const void* mass, double mass0,
+                 int mass_is_scalar, double alpha_u, double alpha_t,
+                 int transient, const void* phi, const void* grad,
+                 const void* wts, int Q, int N0, int N1, void* out,
+                 void* stream) {
+  auto kernel = transient ? node_state_kernel<T, true>
+                          : node_state_kernel<T, false>;
+  kernel<<<blocks_for(N0, N1), kThreads, 0, (cudaStream_t)stream>>>(
       (const T*)u, (const T*)kappa, (T)kappa0, kappa_is_scalar,
-      (const T*)grad, (const T*)wts, Q, N0, N1, (T*)out);
+      (const T*)mass, (T)mass0, mass_is_scalar, (T)alpha_u, (T)alpha_t,
+      (const T*)phi, (const T*)grad, (const T*)wts, Q, N0, N1, (T*)out);
   return (int)cudaGetLastError();
 }
 
 template <typename T>
 int launch_full(const void* u, const void* S, const void* dS, const void* K,
-                const void* dK, const void* phi, const void* grad,
+                const void* dK, const void* mass, double mass0,
+                int mass_is_scalar, double alpha_u, double alpha_t,
+                int transient, const void* phi, const void* grad,
                 const void* wts, int Q, int N0, int N1, void* out, void* jac,
                 void* stream) {
-  node_full_kernel<T><<<blocks_for(N0, N1), kThreads, 0,
-                        (cudaStream_t)stream>>>(
+  auto kernel = transient ? node_full_kernel<T, true>
+                          : node_full_kernel<T, false>;
+  kernel<<<blocks_for(N0, N1), kThreads, 0, (cudaStream_t)stream>>>(
       (const T*)u, (const T*)S, (const T*)dS, (const T*)K, (const T*)dK,
+      (const T*)mass, (T)mass0, mass_is_scalar, (T)alpha_u, (T)alpha_t,
       (const T*)phi, (const T*)grad, (const T*)wts, Q, N0, N1, (T*)out,
       (T*)jac);
   return (int)cudaGetLastError();
@@ -228,39 +285,38 @@ int launch_full(const void* u, const void* S, const void* dS, const void* K,
 }  // namespace
 
 // Plain C entry points, bound with ctypes (see ops/_build.py). Each
-// returns the cudaGetLastError() of its launch.
+// returns the cudaGetLastError() of its launch. transient = 0 selects the
+// steady kernels, which read neither mass nor the alphas.
 extern "C" {
 
-int thermal_node_state_f64(const void* u, const void* kappa, double kappa0,
-                           int kappa_is_scalar, const void* grad,
-                           const void* wts, int Q, int N0, int N1, void* out,
-                           void* stream) {
-  return launch_state<double>(u, kappa, kappa0, kappa_is_scalar, grad, wts,
-                              Q, N0, N1, out, stream);
+#define STATE_ARGS                                                          \
+  const void *u, const void *kappa, double kappa0, int kappa_is_scalar,     \
+      const void *mass, double mass0, int mass_is_scalar, double alpha_u,   \
+      double alpha_t, int transient, const void *phi, const void *grad,     \
+      const void *wts, int Q, int N0, int N1, void *out, void *stream
+#define STATE_PASS                                                          \
+  u, kappa, kappa0, kappa_is_scalar, mass, mass0, mass_is_scalar, alpha_u,  \
+      alpha_t, transient, phi, grad, wts, Q, N0, N1, out, stream
+#define FULL_ARGS                                                           \
+  const void *u, const void *S, const void *dS, const void *K,              \
+      const void *dK, const void *mass, double mass0, int mass_is_scalar,   \
+      double alpha_u, double alpha_t, int transient, const void *phi,       \
+      const void *grad, const void *wts, int Q, int N0, int N1, void *out,  \
+      void *jac, void *stream
+#define FULL_PASS                                                           \
+  u, S, dS, K, dK, mass, mass0, mass_is_scalar, alpha_u, alpha_t,           \
+      transient, phi, grad, wts, Q, N0, N1, out, jac, stream
+
+int thermal_node_state_f64(STATE_ARGS) {
+  return launch_state<double>(STATE_PASS);
 }
 
-int thermal_node_state_f32(const void* u, const void* kappa, double kappa0,
-                           int kappa_is_scalar, const void* grad,
-                           const void* wts, int Q, int N0, int N1, void* out,
-                           void* stream) {
-  return launch_state<float>(u, kappa, kappa0, kappa_is_scalar, grad, wts,
-                             Q, N0, N1, out, stream);
+int thermal_node_state_f32(STATE_ARGS) {
+  return launch_state<float>(STATE_PASS);
 }
 
-int thermal_node_full_f64(const void* u, const void* S, const void* dS,
-                          const void* K, const void* dK, const void* phi,
-                          const void* grad, const void* wts, int Q, int N0,
-                          int N1, void* out, void* jac, void* stream) {
-  return launch_full<double>(u, S, dS, K, dK, phi, grad, wts, Q, N0, N1, out,
-                             jac, stream);
-}
+int thermal_node_full_f64(FULL_ARGS) { return launch_full<double>(FULL_PASS); }
 
-int thermal_node_full_f32(const void* u, const void* S, const void* dS,
-                          const void* K, const void* dK, const void* phi,
-                          const void* grad, const void* wts, int Q, int N0,
-                          int N1, void* out, void* jac, void* stream) {
-  return launch_full<float>(u, S, dS, K, dK, phi, grad, wts, Q, N0, N1, out,
-                            jac, stream);
-}
+int thermal_node_full_f32(FULL_ARGS) { return launch_full<float>(FULL_PASS); }
 
 }  // extern "C"

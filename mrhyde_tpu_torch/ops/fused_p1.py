@@ -1,23 +1,36 @@
-"""Fused node-scatter assembly for steady 2D thermal on uniform p1 quads.
+"""Fused node-scatter assembly for 2D thermal on uniform p1 quads.
 
 The port of the JAX package's `FusedP1Assembly` (mrhyde_tpu/ops/
 fused_p1.py) for the case its node-scatter TPU kernel (B2,
-`run_node_call`) carries on the main path: 2D p1 quads. The TPU kernel
-traced any physics' `qp_density` and differentiated it by sparse
-forward AD; here the weak form is thermal's, written out, and the two
-launched modes of B2 are hand-written CUDA kernels
-(`csrc/fused_p1_thermal.cu`):
+`run_node_call`) carries on the main path: 2D p1 quads, steady or a
+stage of a transient solve. The TPU kernel traced any physics'
+`qp_density` and differentiated it by sparse forward AD; here the weak
+form is thermal's, written out,
 
-- `thermal_node_state` (mode "state"): under the AFFINE split (kappa
-  and the source read no `e`), the residual's state part
-  sum_q w kappa grad phi_c . grad u_h, node-scattered in the kernel. The
-  state-independent coord part (source residual, and the Jacobian,
-  which is then state-independent too) is plain torch, as `_coord_eval`
-  is plain XLA in JAX, and is cached for the solve.
+    r_c = sum_q w [phi_c (rho cp u_dot - f) + kappa grad phi_c . grad u_eval]
+
+with u_eval = alpha_u u + beta_u and u_dot = alpha_t u + beta_t (steady:
+alpha_u = 1, alpha_t = 0, no betas), and the two launched modes of B2
+are hand-written CUDA kernels (`csrc/fused_p1_thermal.cu`):
+
+- `thermal_node_state` (mode "state"): under the AFFINE split (kappa,
+  the source, the density and the specific heat read no `e`), the
+  residual's state part sum_q w [m alpha_t u_h phi_c + kappa alpha_u
+  grad phi_c . grad u_h] (m = rho cp; the mass lane only in a transient
+  stage), node-scattered in the kernel. The state-independent coord part
+  is computed once per stage and cached for its Newton solve: the
+  residual at u = 0 (u_eval = beta_u, u_dot = beta_t) as the plain-torch
+  source term plus the state kernel on the beta_u and beta_t grids, and
+  the Jacobian alpha_u K_kappa + alpha_t M_m (state-independent too) in
+  plain torch, as `_coord_eval` is plain XLA in JAX.
 - `thermal_node_full` (mode "full"): otherwise, the residual and all 16
-  SoA Jacobian rows from one pass, fed per-qp S, dS/de, kappa and
-  dkappa/de tensors that a torch pre-pass evaluates (DSL value and its
-  forward derivative in `e`).
+  SoA Jacobian rows from one pass over the u_eval grid, fed per-qp S
+  (with its rho cp u_dot term), dS/de, kappa, dkappa/de and m tensors
+  that a torch pre-pass evaluates (DSL value and its forward derivative
+  in `e`).
+
+A steady call keeps its specialization, as the JAX package's
+`_steady_check` does: no beta is read and there is no mass lane.
 
 Row classification follows from which leaves the coefficient
 expressions read, not from a traced probe: a row is element-varying iff
@@ -35,13 +48,14 @@ kernel on CUDA tensors; it counts its launches in LAUNCHES.
 from __future__ import annotations
 
 import ctypes
+from typing import NamedTuple
 
 import numpy as np
 import torch
 
 from mrhyde_tpu_torch.assembly.assembler import BlockJacobian, pad_to
 
-__all__ = ["FusedP1Assembly", "QuadTables", "LAUNCHES",
+__all__ = ["FusedP1Assembly", "QuadTables", "Stage", "LAUNCHES",
            "thermal_node_state", "thermal_node_full",
            "thermal_node_state_plain", "thermal_node_full_plain"]
 
@@ -75,6 +89,15 @@ class QuadTables:
         self.t_phi, self.t_grad, self.t_wts = dev(phi), dev(grad), dev(wts)
 
 
+class Stage(NamedTuple):
+    """What a transient stage adds to the kernels: u_eval = alpha_u u +
+    beta_u, u_dot = alpha_t u + beta_t, and the mass coefficient m = rho
+    cp (a Python float or an (E, Q) tensor). Steady calls pass None."""
+    alpha_u: float
+    alpha_t: float
+    mass: object
+
+
 # ----------------------------------------------------------------------
 # plain versions: torch slice sums over the node grid (the pad+sum form)
 # ----------------------------------------------------------------------
@@ -104,6 +127,12 @@ def _qp_grads(tab, uc):
                   for d in range(2)) for q in range(tab.Q)]
 
 
+def _qp_vals(tab, uc):
+    """[u_h per q]: u_h at every quadrature point, (N0, N1)."""
+    return [sum(tab.phi[c][q] * uc[c] for c in range(4))
+            for q in range(tab.Q)]
+
+
 def _at_q(v, q, dims):
     """Quadrature point q of a per-qp (E, Q) tensor, or a scalar."""
     if isinstance(v, torch.Tensor):
@@ -111,27 +140,40 @@ def _at_q(v, q, dims):
     return v
 
 
-def thermal_node_state_plain(u_grid, kappa, tab):
-    """Node residual of the state part, sum_q w kappa grad phi_c .
-    grad u_h scattered to the (N0+1, N1+1) node grid. kappa: Python
-    float or an (E, Q) tensor."""
+def thermal_node_state_plain(u_grid, kappa, tab, stage=None):
+    """Node residual of the state part scattered to the (N0+1, N1+1)
+    node grid: sum_q w kappa grad phi_c . grad u_h (steady), or with a
+    Stage sum_q w [m alpha_t u_h phi_c + kappa alpha_u grad phi_c .
+    grad u_h]. kappa, stage.mass: Python float or an (E, Q) tensor."""
     dims = (u_grid.shape[0] - 1, u_grid.shape[1] - 1)
-    G = _qp_grads(tab, _corner_views(u_grid))
+    uc = _corner_views(u_grid)
+    G = _qp_grads(tab, uc)
+    U = _qp_vals(tab, uc) if stage is not None else None
     rows = []
     for c in range(4):
         acc = None
         for q in range(tab.Q):
             k = _at_q(kappa, q, dims)
             g0, g1 = G[q]
-            a = tab.grad[c][q][0] * (k * g0) + tab.grad[c][q][1] * (k * g1)
+            if stage is None:
+                a = (tab.grad[c][q][0] * (k * g0)
+                     + tab.grad[c][q][1] * (k * g1))
+            else:
+                au = stage.alpha_u
+                a = (tab.phi[c][q] * (_at_q(stage.mass, q, dims)
+                                      * (stage.alpha_t * U[q]))
+                     + tab.grad[c][q][0] * (k * (au * g0))
+                     + tab.grad[c][q][1] * (k * (au * g1)))
             acc = tab.wts[q] * a if acc is None else acc + tab.wts[q] * a
         rows.append(acc)
     return _node_sum(rows, u_grid.shape, u_grid)
 
 
-def thermal_node_full_plain(u_grid, S, dS, K, dK, tab):
+def thermal_node_full_plain(u_grid, S, dS, K, dK, tab, stage=None):
     """(node residual (N0+1, N1+1), Jacobian rows (16, E)) of the full
-    weak form from the per-qp (E, Q) tensors S, dS/de, kappa, dkappa/de."""
+    weak form at the u_eval grid `u_grid`, from the per-qp (E, Q)
+    tensors S, dS/de, kappa, dkappa/de. With a Stage the columns carry
+    alpha_u on the u_eval tangents and alpha_t m on the u_dot one."""
     dims = (u_grid.shape[0] - 1, u_grid.shape[1] - 1)
     G = _qp_grads(tab, _corner_views(u_grid))
     rows = []
@@ -154,9 +196,18 @@ def thermal_node_full_plain(u_grid, S, dS, K, dK, tab):
                 kq, dkq, dsq = (_at_q(K, q, dims), _at_q(dK, q, dims),
                                 _at_q(dS, q, dims))
                 pcp = tab.phi[cp][q]
-                ts = pcp * dsq
-                tf0 = pcp * (dkq * g0) + tab.grad[cp][q][0] * kq
-                tf1 = pcp * (dkq * g1) + tab.grad[cp][q][1] * kq
+                if stage is None:
+                    ts = pcp * dsq
+                    tf0 = pcp * (dkq * g0) + tab.grad[cp][q][0] * kq
+                    tf1 = pcp * (dkq * g1) + tab.grad[cp][q][1] * kq
+                else:
+                    au = stage.alpha_u
+                    ts = (au * (pcp * dsq) + stage.alpha_t
+                          * (pcp * _at_q(stage.mass, q, dims)))
+                    tf0 = au * (pcp * (dkq * g0)
+                                + tab.grad[cp][q][0] * kq)
+                    tf1 = au * (pcp * (dkq * g1)
+                                + tab.grad[cp][q][1] * kq)
                 a = (tab.phi[c][q] * ts + tab.grad[c][q][0] * tf0
                      + tab.grad[c][q][1] * tf1)
                 acc = tab.wts[q] * a if acc is None \
@@ -204,25 +255,41 @@ def _stream(t):
     return ctypes.c_void_p(torch.cuda.current_stream(t.device).cuda_stream)
 
 
-def thermal_node_state(u_grid, kappa, tab):
+def _coeff_args(v, u_grid, tab, name):
+    """A scalar-or-(E, Q) coefficient as the kernels take it: (pointer
+    or None, scalar value, is_scalar)."""
+    if not isinstance(v, torch.Tensor):
+        return None, float(v), 1
+    _check_qp(v, u_grid, tab, name)
+    return _ptr(v), 0.0, 0
+
+
+def _stage_args(stage, u_grid, tab):
+    """(mass pointer, mass scalar, mass_is_scalar, alpha_u, alpha_t,
+    transient) for the C entry points; steady is (None, 0, 1, 1, 0, 0)."""
+    if stage is None:
+        return (None, 0.0, 1, 1.0, 0.0, 0)
+    return (*_coeff_args(stage.mass, u_grid, tab, "mass"),
+            float(stage.alpha_u), float(stage.alpha_t), 1)
+
+
+def thermal_node_state(u_grid, kappa, tab, stage=None):
     """The state-part node residual: CUDA kernel on a CUDA tensor, the
-    plain version on a CPU tensor. kappa: Python float or (E, Q)."""
+    plain version on a CPU tensor. kappa: Python float or (E, Q); stage:
+    None (steady) or a Stage."""
     if u_grid.device.type == "cpu":
-        return thermal_node_state_plain(u_grid, kappa, tab)
+        return thermal_node_state_plain(u_grid, kappa, tab, stage)
     _check_grid(u_grid, tab)
-    scalar = not isinstance(kappa, torch.Tensor)
-    if not scalar:
-        _check_qp(kappa, u_grid, tab, "kappa")
+    kap = _coeff_args(kappa, u_grid, tab, "kappa")
+    st = _stage_args(stage, u_grid, tab)
     from mrhyde_tpu_torch.ops._build import load_library
     lib = load_library()
     fn = (lib.thermal_node_state_f64 if u_grid.dtype == torch.float64
           else lib.thermal_node_state_f32)
     out = torch.empty_like(u_grid)
     N0, N1 = u_grid.shape[0] - 1, u_grid.shape[1] - 1
-    err = fn(_ptr(u_grid), None if scalar else _ptr(kappa),
-             float(kappa) if scalar else 0.0, int(scalar),
-             _ptr(tab.t_grad), _ptr(tab.t_wts), tab.Q, N0, N1, _ptr(out),
-             _stream(u_grid))
+    err = fn(_ptr(u_grid), *kap, *st, _ptr(tab.t_phi), _ptr(tab.t_grad),
+             _ptr(tab.t_wts), tab.Q, N0, N1, _ptr(out), _stream(u_grid))
     if err != 0:
         raise RuntimeError(f"thermal_node_state launch failed: CUDA error "
                            f"{err}")
@@ -230,14 +297,16 @@ def thermal_node_state(u_grid, kappa, tab):
     return out
 
 
-def thermal_node_full(u_grid, S, dS, K, dK, tab):
-    """(node residual, Jacobian rows (16, E)) of the full weak form: CUDA
-    kernel on CUDA tensors, the plain version on CPU tensors."""
+def thermal_node_full(u_grid, S, dS, K, dK, tab, stage=None):
+    """(node residual, Jacobian rows (16, E)) of the full weak form at
+    the u_eval grid: CUDA kernel on CUDA tensors, the plain version on
+    CPU tensors. stage: None (steady) or a Stage."""
     if u_grid.device.type == "cpu":
-        return thermal_node_full_plain(u_grid, S, dS, K, dK, tab)
+        return thermal_node_full_plain(u_grid, S, dS, K, dK, tab, stage)
     _check_grid(u_grid, tab)
     for name, t in (("S", S), ("dS", dS), ("K", K), ("dK", dK)):
         _check_qp(t, u_grid, tab, name)
+    st = _stage_args(stage, u_grid, tab)
     from mrhyde_tpu_torch.ops._build import load_library
     lib = load_library()
     fn = (lib.thermal_node_full_f64 if u_grid.dtype == torch.float64
@@ -246,7 +315,7 @@ def thermal_node_full(u_grid, S, dS, K, dK, tab):
     out = torch.empty_like(u_grid)
     jac = torch.empty((16, N0 * N1), dtype=u_grid.dtype,
                       device=u_grid.device)
-    err = fn(_ptr(u_grid), _ptr(S), _ptr(dS), _ptr(K), _ptr(dK),
+    err = fn(_ptr(u_grid), _ptr(S), _ptr(dS), _ptr(K), _ptr(dK), *st,
              _ptr(tab.t_phi), _ptr(tab.t_grad), _ptr(tab.t_wts), tab.Q,
              N0, N1, _ptr(out), _ptr(jac), _stream(u_grid))
     if err != 0:
@@ -262,17 +331,19 @@ def thermal_node_full(u_grid, S, dS, K, dK, tab):
 
 class QpCtx:
     """Per-qp context for the coefficient expressions on (N0, N1, Q)
-    tensors: steady, so u_t = 0; `e` resolves to u at the qps."""
+    tensors: `e` resolves to u_eval at the qps and sol_dot to u_dot
+    (0.0 in a steady call)."""
 
-    def __init__(self, uq, coords, t, params, fm):
+    def __init__(self, uq, coords, t, params, fm, udq=0.0):
         self._u = uq
+        self._ud = udq
         self.coords = coords
         self.t = t
         self.params = params
         self.fm = fm
 
     def sol_dot(self, v):
-        return 0.0
+        return self._ud
 
     def f(self, name):
         return self.fm.evaluate(name, self)
@@ -297,8 +368,9 @@ _COEFFS = ("thermal diffusion", "thermal source", "density",
 
 class FusedP1Assembly:
     """Fused residual+Jacobian provider for qualifying problems: uniform
-    structured 2D p1 quads, one steady thermal module, no advection,
-    scalar params. `FusedP1Assembly.build(asm)` -> instance or None."""
+    structured 2D p1 quads, one thermal module, no advection, scalar
+    params; steady calls and transient stages alike.
+    `FusedP1Assembly.build(asm)` -> instance or None."""
 
     def __init__(self, asm, leaves):
         self.asm = asm
@@ -320,21 +392,34 @@ class FusedP1Assembly:
         self.module = asm.modules[0]
         kap = leaves["thermal diffusion"]
         src = set().union(*(leaves[n] for n in _COEFFS[1:]))
+        mass = leaves["density"] | leaves["specific heat"]
         # affine split iff no coefficient reads the state
         self.split = "e" not in kap | src
-        if self.split:
-            self.stats = {"steady": True, "split": True,
-                          "n_res_rows": 4, "n_jac_rows": 0,
-                          "coord_res_rows": 4 if (kap | src) & _COORD
-                          else 0,
-                          "coord_jac_rows": 16 if kap & _COORD else 0,
-                          "node_scatter": True}
-        else:
-            self.stats = {"steady": True, "split": False,
-                          "n_res_rows": 4, "n_jac_rows": 16,
-                          "node_scatter": True}
+        self._varying = {"kappa": bool(kap & _COORD),
+                         "mass": bool(mass & _COORD),
+                         "coeffs": bool((kap | src) & _COORD)}
+        self.stats = self._stats(True)
         self._coords = None
-        self._coord_cache = None
+        self._stage_cache = None
+
+    def _stats(self, steady):
+        """The JAX package's `stats` of a call: the split, and the rows
+        each part writes per element (the coord rows once per stage)."""
+        if not self.split:
+            return {"steady": steady, "split": False, "n_res_rows": 4,
+                    "n_jac_rows": 16, "node_scatter": True}
+        v = self._varying
+        if steady:
+            res0 = 4 if v["coeffs"] else 0
+            jac0 = 16 if v["kappa"] else 0
+        else:
+            # the beta grids make the coord residual vary; the Jacobian
+            # alpha_u K_kappa + alpha_t M_m varies with kappa or m
+            res0 = 4
+            jac0 = 16 if v["kappa"] or v["mass"] else 0
+        return {"steady": steady, "split": True, "n_res_rows": 4,
+                "n_jac_rows": 0, "coord_res_rows": res0,
+                "coord_jac_rows": jac0, "node_scatter": True}
 
     @staticmethod
     def build(asm):
@@ -359,6 +444,17 @@ class FusedP1Assembly:
 
     # ------------------------------------------------------------------
 
+    def _grid(self, v):
+        """The (N0+1, N1+1) node grid of this variable in a dof vector."""
+        N0, N1 = self.dims
+        return v[self.start:self.start + (N0 + 1) * (N1 + 1)] \
+            .reshape(N0 + 1, N1 + 1)
+
+    def _at_qps(self, grid):
+        """u_h at the quadrature points of a node grid, (N0, N1, Q)."""
+        return torch.stack(_qp_vals(self.tables, _corner_views(grid)),
+                           dim=-1)
+
     def _qp_coords(self):
         """(x, y) at the quadrature points as (N0, N1, Q) tensors, from
         element indices as the JAX kernel synthesizes them."""
@@ -376,73 +472,133 @@ class FusedP1Assembly:
                 for a in range(2)]
         return self._coords
 
-    def _coord_part(self, tc, params):
-        """The state-independent part of the affine split, cached per
-        (time, params): (coord node residual, 16 Jacobian rows, kappa
-        for the state kernel)."""
-        key = (tc.time, tuple(sorted((k, float(v))
-                                     for k, v in params.items())))
-        if self._coord_cache is not None and self._coord_cache[0] == key:
-            return self._coord_cache[1]
+    def _kernel_coeff(self, v):
+        """A coefficient as the kernels take it: a Python float, or a
+        contiguous (E, Q) tensor."""
+        v = _scalar(v)
+        if isinstance(v, torch.Tensor):
+            return torch.broadcast_to(v, self.dims + (self.tables.Q,)) \
+                .reshape(-1, self.tables.Q).contiguous()
+        return v
+
+    def _stage(self, tc, params):
+        """(steady, coord part or None) of a call, cached per stage. A
+        stage is its TimeCoeffs' beta tensors (by identity and version,
+        and held here, so their ids stay theirs), alphas, time, time step
+        and params: the cache holds across one stage's Newton iterations,
+        and two stages at the same time (Crank-Nicolson's stage 1 and
+        the next step's stage 0, a retried step) never share it. A
+        steady call reads no beta."""
+        pkey = tuple(sorted((k, float(v)) for k, v in params.items()))
+        if tc.is_steady:
+            key, held = ("steady", float(tc.time), pkey), ()
+        else:
+            held = (tc.beta_u, tc.beta_t)
+            key = (id(tc.beta_u), tc.beta_u._version, id(tc.beta_t),
+                   tc.beta_t._version, float(tc.alpha_u),
+                   float(tc.alpha_t), float(tc.time), float(tc.deltat),
+                   pkey)
+        if self._stage_cache is not None and self._stage_cache[0] == key:
+            return self._stage_cache[2]
+        # the JAX package's _steady_check: steady coefficients specialize
+        steady = bool(tc.is_steady or (
+            float(tc.alpha_t) == 0.0 and float(tc.alpha_u) == 1.0
+            and not bool(tc.beta_u.any()) and not bool(tc.beta_t.any())))
+        coord = self._coord_eval(tc, params, steady) if self.split \
+            else None
+        self._stage_cache = (key, held, (steady, coord))
+        return steady, coord
+
+    def _coord_eval(self, tc, params, steady):
+        """The state-independent part of the affine split: (coord node
+        residual, 16 Jacobian rows, kappa and m for the state kernel).
+        Steady: the residual at u = 0, -sum_q w f phi_c (plain torch), and
+        the Jacobian K_kappa. A transient stage adds the residual of the
+        beta grids, sum_q w [m beta_t,h phi_c + kappa grad beta_u,h . grad
+        phi_c], as two launches of the state kernel (on beta_u with alpha
+        = (1, 0), on beta_t with alpha = (0, 1)), and its Jacobian is
+        alpha_u K_kappa + alpha_t M_m."""
         tab, dims = self.tables, self.dims
         E = dims[0] * dims[1]
-        ctx = QpCtx(0.0, self._qp_coords(), tc.time, params, self.fm)
+        coords = self._qp_coords()
+        like = coords[0]
+        ctx = QpCtx(0.0, coords, tc.time, params, self.fm)
         S0, kap = self.module.qp_coefficients(ctx)
-        if isinstance(kap, torch.Tensor) and kap.dim() == 0:
-            kap = float(kap)
-        F0 = kap * 0.0
+        kap = _scalar(kap)
         rows = []
         for c in range(4):
             acc = None
             for q in range(tab.Q):
-                a = (tab.phi[c][q] * _qslice(S0, q)
-                     + tab.grad[c][q][0] * _qslice(F0, q)
-                     + tab.grad[c][q][1] * _qslice(F0, q))
-                acc = tab.wts[q] * a if acc is None \
-                    else acc + tab.wts[q] * a
+                a = tab.wts[q] * (tab.phi[c][q] * _qslice(S0, q))
+                acc = a if acc is None else acc + a
             rows.append(acc)
-        like = ctx.coords[0]
         res0 = _node_sum(rows, (dims[0] + 1, dims[1] + 1), like)
+        kk = self._kernel_coeff(kap)
+        mass = mk = None
+        if not steady:
+            mass = _scalar(self.module.qp_mass(ctx))
+            mk = self._kernel_coeff(mass)
+            res0 = (res0
+                    + thermal_node_state(self._grid(tc.beta_u), kk, tab,
+                                         Stage(1.0, 0.0, mk))
+                    + thermal_node_state(self._grid(tc.beta_t), kk, tab,
+                                         Stage(0.0, 1.0, mk)))
         jac = []
         for c in range(4):
             for cp in range(4):
                 acc = None
                 for q in range(tab.Q):
                     kq = _qslice(kap, q)
-                    a = (tab.grad[c][q][0] * (tab.grad[cp][q][0] * kq)
-                         + tab.grad[c][q][1] * (tab.grad[cp][q][1] * kq))
+                    if steady:
+                        a = (tab.grad[c][q][0] * (tab.grad[cp][q][0] * kq)
+                             + tab.grad[c][q][1] * (tab.grad[cp][q][1]
+                                                    * kq))
+                    else:
+                        # the JAX package's column tangents: alpha_t phi_c'
+                        # on u_dot, alpha_u grad phi_c' on grad u_eval
+                        au = tc.alpha_u
+                        a = (tab.phi[c][q] * ((tc.alpha_t * tab.phi[cp][q])
+                                              * _qslice(mass, q))
+                             + tab.grad[c][q][0] * ((au * tab.grad[cp][q][0])
+                                                    * kq)
+                             + tab.grad[c][q][1] * ((au * tab.grad[cp][q][1])
+                                                    * kq))
                     acc = tab.wts[q] * a if acc is None \
                         else acc + tab.wts[q] * a
                 jac.append(acc.reshape(E) if isinstance(acc, torch.Tensor)
-                           else torch.tensor(acc, dtype=like.dtype,
-                                             device=like.device))
-        if isinstance(kap, torch.Tensor):
-            kap = torch.broadcast_to(kap, dims + (tab.Q,)) \
-                .reshape(E, tab.Q).contiguous()
-        self._coord_cache = (key, (res0, jac, kap))
-        return self._coord_cache[1]
+                           else acc)
+        if not any(isinstance(j, torch.Tensor) for j in jac):
+            # constant rows: one host-to-device copy, not sixteen
+            jac = list(torch.tensor(jac, dtype=like.dtype,
+                                    device=like.device).unbind(0))
+        return res0, jac, kk, mk
 
-    def _qp_coefficients(self, u_grid, tc, params):
-        """Per-qp (E, Q) tensors S, dS/de, kappa, dkappa/de at the state:
-        u at the qps by a plain gather, then the DSL value and its
-        forward derivative in e."""
+    def _qp_coefficients(self, ue_grid, ud_grid, tc, params):
+        """Per-qp (E, Q) tensors S, dS/de, kappa, dkappa/de at the state,
+        and m (None when steady): u_eval (and u_dot) at the qps by a
+        plain gather, then the DSL value and its forward derivative in
+        e."""
         tab, dims = self.tables, self.dims
         E = dims[0] * dims[1]
-        uc = _corner_views(u_grid)
-        uq = torch.stack([sum(tab.phi[c][q] * uc[c] for c in range(4))
-                          for q in range(tab.Q)], dim=-1)
+        uq = self._at_qps(ue_grid)
+        udq = 0.0 if ud_grid is None else self._at_qps(ud_grid)
         coords = self._qp_coords()
         shape = uq.shape
 
         def coeffs(uq_):
-            ctx = QpCtx(uq_, coords, tc.time, params, self.fm)
+            ctx = QpCtx(uq_, coords, tc.time, params, self.fm, udq)
             return tuple(torch.broadcast_to(
                 torch.as_tensor(v, dtype=uq_.dtype, device=uq_.device),
                 shape) for v in self.module.qp_coefficients(ctx))
 
         (S, K), (dS, dK) = torch.func.jvp(coeffs, (uq,),
                                           (torch.ones_like(uq),))
-        return [t.reshape(E, tab.Q).contiguous() for t in (S, dS, K, dK)]
+        mass = None
+        if ud_grid is not None:
+            mass = self._kernel_coeff(self.module.qp_mass(
+                QpCtx(uq, coords, tc.time, params, self.fm, udq)))
+        return [t.reshape(E, tab.Q).contiguous()
+                for t in (S, dS, K, dK)], mass
 
     def res_jac(self, u, tc, pvec=None):
         """(residual (n_dof,), Jacobian rows: list of 16 entries, each
@@ -450,17 +606,25 @@ class FusedP1Assembly:
         asm = self.asm
         params = dict(asm.params)
         params.update(pvec or {})
-        N0, N1 = self.dims
-        ng = (N0 + 1) * (N1 + 1)
-        u_grid = u[self.start:self.start + ng].reshape(N0 + 1, N1 + 1)
+        steady, coord = self._stage(tc, params)
+        self.stats = self._stats(steady)
+        u_grid = self._grid(u)
         if self.split:
-            res0, rows, kappa = self._coord_part(tc, params)
-            node = res0 + thermal_node_state(u_grid, kappa, self.tables)
+            res0, rows, kappa, mass = coord
+            stage = None if steady else Stage(tc.alpha_u, tc.alpha_t, mass)
+            node = res0 + thermal_node_state(u_grid, kappa, self.tables,
+                                             stage)
         else:
-            S, dS, K, dK = self._qp_coefficients(u_grid, tc, params)
-            node, jac = thermal_node_full(u_grid, S, dS, K, dK,
-                                          self.tables)
+            ue, ud = u_grid, None
+            if not steady:
+                ue = tc.alpha_u * u_grid + self._grid(tc.beta_u)
+                ud = tc.alpha_t * u_grid + self._grid(tc.beta_t)
+            (S, dS, K, dK), mass = self._qp_coefficients(ue, ud, tc, params)
+            stage = None if steady else Stage(tc.alpha_u, tc.alpha_t, mass)
+            node, jac = thermal_node_full(ue, S, dS, K, dK, self.tables,
+                                          stage)
             rows = list(jac.unbind(0))
+        ng = node.numel()
         r = torch.zeros(asm.n_dof, dtype=u.dtype, device=u.device)
         r[self.start:self.start + ng] = node.reshape(-1)
         return torch.where(asm.fixed, 0.0, r), rows
@@ -471,6 +635,13 @@ class FusedP1Assembly:
         return r, BlockJacobian(vol=None, vol_lids=self.asm.lids,
                                 fixed=self.asm.fixed, inc=self.asm.inc,
                                 vol_soa=rows)
+
+
+def _scalar(v):
+    """A per-qp coefficient with its constants as Python floats."""
+    if isinstance(v, torch.Tensor) and v.dim() > 0:
+        return v
+    return float(v)
 
 
 def _qslice(v, q):

@@ -54,6 +54,11 @@ class Thermal(PhysicsModule):
             - q.f("thermal source")
         return sval, q.f("thermal diffusion")
 
+    def qp_mass(self, q):
+        """The mass coefficient rho cp at quadrature points: d S / d u_t,
+        what the fused thermal kernels weight u_dot's lane with."""
+        return q.f("density") * q.f("specific heat")
+
     def qp_density(self, q):
         """Per-qp (source, flux) densities — the same weak form as
         volume_residual, in the JAX package's qp_density form."""

@@ -1,7 +1,8 @@
 """Verification error norms against manufactured ("True") solutions.
 
-The HGRAD part of the JAX package's `mrhyde_tpu/postprocess/errors.py`
-(reference PostprocessManager::computeError):
+The scalar-basis (HGRAD, HVOL) part of the JAX package's
+`mrhyde_tpu/postprocess/errors.py` (reference
+PostprocessManager::computeError):
 
 - 'var':           L2 volume norm of (u_h - true)
 - 'grad(var)[d]':  combined L2 norm over the given gradient components

@@ -2,16 +2,25 @@
 
     python3 profile_port.py [--out DIR] [--n-state 1024] [--n-full 512]
                             [--cg-iters 200] [--device cuda]
+    python3 profile_port.py --split [--n-full 512] [--device cuda]
 
-Runs torch.profiler over four pieces of the steady thermal main path and
-prints one JSON line each, with the wall time (host clock, ending in a
-synchronize), the device busy time (sum of the device events' spans) and
-their ratio, and the number of device events:
+Runs torch.profiler over pieces of the thermal main path, steady and
+transient, and prints one JSON line each, with the wall time (host
+clock, ending in a synchronize), the device busy time (sum of the device
+events' spans) and their ratio, and the number of device events:
 
   assembly_state  5 x Assembler.res_and_jac, kappa = 1, n_state^2
                   (thermal_node_state)
+  assembly_state_transient  the same at one transient stage (DIRK-2,2
+                  stage-1 alphas, betas from a seeded state): what each
+                  Newton iteration of a stage pays (coord part cached)
+  stage_state_transient  5 x a new stage's first res_and_jac: the coord
+                  part recomputed each time (plain-torch source term and
+                  Jacobian rows, two state-kernel launches on the beta
+                  grids)
   assembly_full   5 x res_and_jac, kappa = 1 + e*e, n_full^2
                   (thermal_node_full and its coefficient pre-pass)
+  assembly_full_transient  the same at one transient stage
   apply           20 x BlockJacobian.apply of that Jacobian, and the
                   CUDA-event median of 20 of it and of
                   Assembler.matfree_apply_fn
@@ -20,6 +29,14 @@ their ratio, and the number of device events:
 With --out, each piece's key_averages table goes to DIR/<piece>.txt.
 The decks are chip_smoke.py's, with the state at the deck's initial
 guess (assembly_state) or at a seeded random interior state.
+
+--split runs no profiler. It builds the kernels, then solves
+chip_smoke.py's two n_full^2 kappa = 1 + e*e decks (steady nonlinear,
+transient BDF2) twice each in one process, and prints one `split` line
+per solve: its wall time and the host time (each call ending in a
+synchronize) spent in the Krylov solves, in the fused res_and_jac calls
+and in the general residuals of Newton's line search. The first solve
+of the first deck carries the process's first-use costs.
 """
 
 import argparse
@@ -30,7 +47,7 @@ import time
 
 import torch
 
-from chip_smoke import SOURCE_NL, deck
+from chip_smoke import bdf2_nonlinear_deck, deck, nonlinear_deck
 
 
 def sync(device):
@@ -83,6 +100,60 @@ def event_ms(fn, reps=20):
     return statistics.median(times)
 
 
+def timed(fn, device, acc):
+    """fn wrapped to add its calls and host seconds (ending in a
+    synchronize) to acc = [calls, seconds]."""
+    def run(*a, **k):
+        sync(device)
+        t0 = time.perf_counter()
+        out = fn(*a, **k)
+        sync(device)
+        acc[0] += 1
+        acc[1] += time.perf_counter() - t0
+        return out
+    return run
+
+
+def split_solves(device, n):
+    """Where the time of the two kappa = 1 + e*e solves goes (--split)."""
+    from mrhyde_tpu_torch.ops import _build
+    from mrhyde_tpu_torch.problem import Problem
+    from mrhyde_tpu_torch.solvers import nonlinear
+    if device.type == "cuda":
+        t0 = time.perf_counter()
+        _build.load_library()
+        print(json.dumps({"piece": "build",
+                          "seconds": time.perf_counter() - t0}), flush=True)
+    solve_linear_info = nonlinear.solve_linear_info
+    for name, cfg in (("nonlinear", nonlinear_deck(n)),
+                      ("bdf2_nonlinear", bdf2_nonlinear_deck(n))):
+        for run in (1, 2):
+            p = Problem(cfg, device=device)
+            asm = p.assembler
+            acc = {k: [0, 0.0] for k in ("krylov", "res_and_jac",
+                                          "residual")}
+            nonlinear.solve_linear_info = timed(solve_linear_info, device,
+                                                acc["krylov"])
+            asm.res_and_jac = timed(asm.res_and_jac, device,
+                                    acc["res_and_jac"])
+            asm.residual = timed(asm.residual, device, acc["residual"])
+            sync(device)
+            t0 = time.perf_counter()
+            result = p.run()
+            sync(device)
+            wall = time.perf_counter() - t0
+            nonlinear.solve_linear_info = solve_linear_info
+            rec = {"piece": "split", "deck": f"{name}_nx{n}", "run": run,
+                   "n_dof": p.n_dof, **result.counts, "solve_s": wall}
+            for k, (calls, secs) in acc.items():
+                rec[f"{k}_calls"], rec[f"{k}_s"] = calls, secs
+            rec["other_s"] = wall - sum(v[1] for v in acc.values())
+            rec["krylov_ms_per_iter"] = (1e3 * acc["krylov"][1]
+                                         / max(result.counts["linear_iters"],
+                                               1))
+            print(json.dumps(rec), flush=True)
+
+
 def main():
     ap = argparse.ArgumentParser(description=__doc__.splitlines()[0])
     ap.add_argument("--out", default=None)
@@ -90,8 +161,12 @@ def main():
     ap.add_argument("--n-full", type=int, default=512)
     ap.add_argument("--cg-iters", type=int, default=200)
     ap.add_argument("--device", default="cuda", choices=["cuda", "cpu"])
+    ap.add_argument("--split", action="store_true")
     args = ap.parse_args()
     device = torch.device(args.device)
+    if args.split:
+        split_solves(device, args.n_full)
+        return
     if args.out:
         os.makedirs(args.out, exist_ok=True)
 
@@ -104,23 +179,40 @@ def main():
         p = Problem(cfg, device=device)
         return p, TimeCoeffs.steady(p.n_dof, dtype=p.dtype, device=device)
 
+    gen = torch.Generator(device=device).manual_seed(1234)
+
+    def seeded_state(p):
+        return p.bcs.apply(torch.rand(p.n_dof, generator=gen, device=device,
+                                      dtype=p.dtype), 0.0)
+
+    def stage(u):
+        # DIRK-2,2 stage 1 at dt = 0.05, betas from the state
+        return TimeCoeffs(0.5, 0.5 * u, 40.0, -40.0 * u, 0.3, 0.05)
+
+    def repeat(p, u, tc_fn):
+        def run():
+            for _ in range(5):
+                p.assembler.res_and_jac(u, tc_fn())
+        return run
+
     p, tc = setup(deck(args.n_state))
     u = p.initial_state()
+    profiled("assembly_state", repeat(p, u, lambda: tc), device, args.out,
+             per=5)
+    u = seeded_state(p)
+    tcs = stage(u)
+    profiled("assembly_state_transient", repeat(p, u, lambda: tcs), device,
+             args.out, per=5)
+    profiled("stage_state_transient", repeat(p, u, lambda: stage(u)),
+             device, args.out, per=5)
 
-    def assemble_state():
-        for _ in range(5):
-            p.assembler.res_and_jac(u, tc)
-    profiled("assembly_state", assemble_state, device, args.out, per=5)
-
-    p, tc = setup(deck(args.n_full, "1.0 + e*e", SOURCE_NL))
-    gen = torch.Generator(device=device).manual_seed(1234)
-    u = p.bcs.apply(torch.rand(p.n_dof, generator=gen, device=device,
-                               dtype=p.dtype), 0.0)
-
-    def assemble_full():
-        for _ in range(5):
-            p.assembler.res_and_jac(u, tc)
-    profiled("assembly_full", assemble_full, device, args.out, per=5)
+    p, tc = setup(nonlinear_deck(args.n_full))
+    u = seeded_state(p)
+    tcs = stage(u)
+    profiled("assembly_full_transient", repeat(p, u, lambda: tcs), device,
+             args.out, per=5)
+    profiled("assembly_full", repeat(p, u, lambda: tc), device, args.out,
+             per=5)
 
     r, J = p.assembler.res_and_jac(u, tc)
 

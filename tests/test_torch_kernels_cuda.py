@@ -12,7 +12,8 @@ import numpy as np
 import pytest
 import torch
 
-from torch_port_utils import KAPPAS, SOURCE_NL, seeded, thermal_cfg
+from torch_port_utils import (DIRK22_STAGE1, KAPPAS, MASSES, SOURCE_NL,
+                              seeded, thermal_cfg, transient_cfg)
 
 torch.set_num_threads(1)
 
@@ -57,6 +58,66 @@ def test_kernels_match_plain(shape, dtype):
     assert _close(out, ref, dtype) and _close(jac, jref, dtype)
     assert fp.LAUNCHES["state"] == before["state"] + 2
     assert fp.LAUNCHES["full"] == before["full"] + 1
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("dtype", [torch.float64, torch.float32])
+@pytest.mark.parametrize("shape", [(37, 29), (64, 128)])
+def test_transient_kernels_match_plain(shape, dtype):
+    """The transient variants (a Stage: alpha_u, alpha_t and the mass
+    coefficient, scalar or per qp) against their plain versions."""
+    from mrhyde_tpu_torch.ops import fused_p1 as fp
+    from mrhyde_tpu_torch.problem import Problem
+    dev = _card()
+    t0 = Problem(thermal_cfg(*shape), device="cpu").assembler \
+        .fused_provider().tables
+    tab = fp.QuadTables(np.asarray(t0.phi), np.asarray(t0.grad),
+                        np.asarray(t0.wts), dev, dtype)
+    gen = torch.Generator(device=dev).manual_seed(7)
+    N0, N1 = shape
+    u = torch.rand((N0 + 1, N1 + 1), generator=gen, device=dev, dtype=dtype)
+    qp = [torch.rand((N0 * N1, tab.Q), generator=gen, device=dev,
+                     dtype=dtype) for _ in range(5)]
+    before = dict(fp.LAUNCHES)
+    for stage in (fp.Stage(*DIRK22_STAGE1, 1.5), fp.Stage(0.0, 20.0, qp[4])):
+        for kappa in (1.25, qp[2]):
+            assert _close(fp.thermal_node_state(u, kappa, tab, stage),
+                          fp.thermal_node_state_plain(u, kappa, tab, stage),
+                          dtype)
+        out, jac = fp.thermal_node_full(u, *qp[:4], tab, stage)
+        ref, jref = fp.thermal_node_full_plain(u, *qp[:4], tab, stage)
+        assert _close(out, ref, dtype) and _close(jac, jref, dtype)
+    assert fp.LAUNCHES["state"] == before["state"] + 4
+    assert fp.LAUNCHES["full"] == before["full"] + 2
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("mass", MASSES, ids=["m1", "m2x"])
+@pytest.mark.parametrize("kappa", KAPPAS)
+def test_transient_provider_on_card_matches_cpu(kappa, mass):
+    """One DIRK-2,2 stage-1 call of the provider on CUDA (kernels)
+    against the same call on the CPU (plain versions), f64."""
+    from mrhyde_tpu_torch.interop import (state_from_numpy, state_to_numpy,
+                                          time_coeffs_from_numpy)
+    from mrhyde_tpu_torch.problem import Problem
+    dev = _card()
+    cfg = transient_cfg(23, 17, kappa=kappa, mass=mass)
+    if kappa == "1.0 + e*e":
+        cfg["Functions"]["thermal source"] = SOURCE_NL
+    out = {}
+    for d in ("cpu", dev):
+        p = Problem(cfg, device=d)
+        n = p.n_dof
+        tc = time_coeffs_from_numpy(
+            DIRK22_STAGE1[0], seeded(n, seed=11), DIRK22_STAGE1[1],
+            seeded(n, seed=12, scale=5.0), 0.3, 0.05, p)
+        r, rows = p.assembler.fused_provider().res_jac(
+            state_from_numpy(seeded(n, seed=9), p), tc)
+        out[str(d)] = (state_to_numpy(r), [state_to_numpy(x) for x in rows])
+    (rc, jc), (rg, jg) = out["cpu"], out[str(dev)]
+    assert np.max(np.abs(rg - rc)) <= 1e-12 * max(1.0, np.max(np.abs(rc)))
+    for a, b in zip(jg, jc):
+        assert np.max(np.abs(a - b)) <= 1e-12 * max(1.0, np.max(np.abs(b)))
 
 
 @pytest.mark.cuda

@@ -19,7 +19,8 @@ import yaml
 
 from mrhyde_tpu_torch.interop import (params_from_numpy, state_from_numpy,
                                       state_to_numpy)
-from torch_port_utils import SOURCE_NL, both_problems, thermal_cfg
+from torch_port_utils import (SOURCE_NL, both_problems, thermal_cfg,
+                              transient_cfg)
 
 torch.set_num_threads(1)
 
@@ -100,13 +101,55 @@ def test_cli_prints_the_jax_l2_line(tmp_path):
     assert "0.00102776" in port
 
 
+@pytest.mark.parametrize("ic_type,nx,time", [
+    ("L2-projection", 8, 0.0), ("L2-projection", 80, 0.3),
+    ("interpolation", 8, 0.3)])
+def test_initial_state_matches_jax(ic_type, nx, time):
+    """Initial conditions: L2 projection (direct solve up to 6000 DOFs,
+    CG above) and nodal interpolation, with the Dirichlet values written
+    in, against JAX (1e-11)."""
+    cfg = transient_cfg(nx, ic="x*(1-x)*y + 0.5*t + 0.25",
+                        solver={"initial type": ic_type})
+    pj, pt = both_problems(cfg)
+    assert pt._proj_method() == ("direct" if nx == 8 else "cg")
+    uj = np.asarray(pj.initial_state(time=time))
+    ut = state_to_numpy(pt.initial_state(time=time))
+    assert np.max(np.abs(ut - uj)) < 1e-11
+    assert np.max(np.abs(ut)) > 0.25
+
+
+def test_cli_prints_the_jax_transient_report(tmp_path):
+    """A transient deck's report: one L2 line per recorded time, as the
+    JAX CLI prints them."""
+    deck = tmp_path / "input.yaml"
+    deck.write_text(yaml.safe_dump(transient_cfg(
+        8, solver={"transient Butcher tableau": "DIRK-2,2"})))
+
+    def l2_lines(cmd):
+        out = subprocess.run(cmd, capture_output=True, text=True,
+                             env=_env(), cwd=tmp_path, timeout=600)
+        assert out.returncode == 0, out.stderr
+        return [ln for ln in out.stdout.splitlines()
+                if "L2 norm of the error for e" in ln]
+
+    port = l2_lines([sys.executable, "-m", "mrhyde_tpu_torch.driver",
+                     str(deck), "--device", "cpu"])
+    ref = l2_lines([sys.executable, "-m", "mrhyde_tpu.driver", str(deck),
+                    "--cpu", "--fp64"])
+    assert len(port) == 5 and port == ref
+    assert port[-1].endswith("(time = 0.2)")
+
+
 def test_port_runs_without_importing_jax():
     code = ("import sys\n"
             "from mrhyde_tpu_torch.problem import Problem\n"
             "sys.path.insert(0, 'tests')\n"
-            "from torch_port_utils import thermal_cfg\n"
+            "from torch_port_utils import thermal_cfg, transient_cfg\n"
             "r = Problem(thermal_cfg(8), device='cpu').run()\n"
             "assert r.errors\n"
+            "r = Problem(transient_cfg(6, solver={'transient Butcher "
+            "tableau': 'DIRK-2,2'}), device='cpu').run()\n"
+            "assert len(r.error_history) == 5 and r.time > 0.19\n"
             "bad = [m for m in sys.modules if m == 'jax' or "
             "m.startswith(('jax.', 'mrhyde_tpu.')) or m == 'mrhyde_tpu']\n"
             "assert not bad, bad\n"
@@ -118,7 +161,7 @@ def test_port_runs_without_importing_jax():
 
 
 @pytest.mark.parametrize("cfg_patch", [
-    {"Solver": {"solver": "transient"}},
+    {"Solver": {"shards": 2}},
     {"Parameters": {"kp": {"type": "scalar", "value": 1.0}}},
     {"Analysis": {"analysis type": "ROL"}},
     {"Physics": {"modules": "navier stokes"}},

@@ -13,6 +13,15 @@ SOURCE_NL = (f"8*(pi*pi)*{S_TRUE}*(1+({S_TRUE})^2) - 8*(pi*pi)*{S_TRUE}*"
 # constant (every Jacobian row a scalar), coordinate-dependent (affine,
 # 16 varying rows from the coord part), state-dependent (not affine)
 KAPPAS = ("1.0", "1.0 + 0.5*x*y", "1.0 + e*e")
+# (density, specific heat): the mass coefficient rho cp constant, and
+# coordinate-dependent (16 varying coord Jacobian rows in a stage)
+MASSES = (("1.0", "1.0"), ("2.0", "1.0 + 0.5*x"))
+# the reference's 2D transient thermal deck: u = sin(2 pi t) S_TRUE
+T_TRUE = f"sin(2*pi*t)*{S_TRUE}"
+SOURCE_T = ("(8*(pi*pi)*sin(2*pi*t)+2*pi*cos(2*pi*t))"
+            "*sin(2*pi*x)*sin(2*pi*y)")
+# DIRK-2,2 stage 1 at dt = 0.05: alpha_u = A11/b1, alpha_t = 1/(dt b1)
+DIRK22_STAGE1 = (0.5, 40.0)
 
 
 def thermal_cfg(nx, ny=None, kappa="1.0", source=SOURCE, solver=None):
@@ -27,6 +36,33 @@ def thermal_cfg(nx, ny=None, kappa="1.0", source=SOURCE, solver=None):
         "Postprocess": {"compute errors": True,
                         "True solutions": {"e": S_TRUE}},
     }
+
+
+def transient_cfg(nx, ny=None, kappa="1.0", mass=("1.0", "1.0"),
+                  source=SOURCE_T, ic="0.0", solver=None):
+    """The transient deck: thermal_cfg with a density, a specific heat,
+    an initial condition and a transient Solver sublist (BWE, 4 steps
+    to t=0.2 unless `solver` says otherwise)."""
+    cfg = thermal_cfg(nx, ny, kappa=kappa, source=source)
+    cfg["Functions"].update({"density": mass[0], "specific heat": mass[1]})
+    cfg["Physics"]["Initial conditions"] = {"e": ic}
+    cfg["Solver"] = dict({"solver": "transient", "final time": 0.2,
+                          "number of steps": 4}, **(solver or {}))
+    cfg["Postprocess"]["True solutions"] = {"e": T_TRUE}
+    return cfg
+
+
+def stage_coeffs(pj, pt, alpha_u, alpha_t, seed, time=0.3, deltat=0.05):
+    """(JAX, torch) TimeCoeffs of one stage with seeded beta_u, beta_t."""
+    import jax.numpy as jnp
+    from mrhyde_tpu.assembly.assembler import TimeCoeffs as JaxTC
+    from mrhyde_tpu_torch.interop import time_coeffs_from_numpy
+    bu = seeded(pj.n_dof, seed=seed)
+    bt = seeded(pj.n_dof, seed=seed + 1, scale=5.0)
+    tj = JaxTC(jnp.asarray(alpha_u), jnp.asarray(bu), jnp.asarray(alpha_t),
+               jnp.asarray(bt), jnp.asarray(time), jnp.asarray(deltat))
+    return tj, time_coeffs_from_numpy(alpha_u, bu, alpha_t, bt, time,
+                                      deltat, pt)
 
 
 def both_problems(cfg):
