@@ -2,10 +2,11 @@
 
     python3 chip_smoke.py
 
-Drives mrhyde_tpu_torch's thermal main path, steady and transient,
-through `Problem(cfg).run()` on the card, after building its CUDA
-kernels from the sources in this checkout and holding each against its
-plain torch version. Phases (one JSON line each):
+Drives mrhyde_tpu_torch's thermal and Navier-Stokes main paths, steady
+and transient, through `Problem(cfg).run()` on the card, after building
+its CUDA kernels from the sources in this checkout (one nvcc per source,
+in parallel) and holding each against its plain torch version. Phases
+(one JSON line each):
 
   1 device   card name and power limit; exits non-zero without CUDA
   2 build    nvcc build of mrhyde_tpu_torch/ops/csrc/*.cu, in seconds
@@ -35,6 +36,23 @@ plain torch version. Phases (one JSON line each):
              L2(e) at t=0.2 (rtol 1e-4)
  10 ode_bdf2 the ODE BDF2 deck of tests/test_ode_integrators.py (general
              path, HVOL): L2(q) = 0.00106624 at t=1.0 (rtol 2e-5)
+ 3b kernels  ns_node_full against its plain version at 1024x256 and
+             1000x243 on the channel [0,5]x[0,1], f64 and f32 (the same
+             bounds), residual and rows each: PSPG steady with viscosity 1
+             and 0.1 + 0.01 x, PSPG+SUPG at DIRK-2,2 stage-1 alphas (0.5,
+             200) with seeded u_dot; CUDA-event medians of 20 (plain: 5)
+ 11 ns_channel_gold_nx50   the reference's NS channel, 50x10, PSPG,
+             direct: L2 ux/pr/uy = 0.00198075 / 0.0148536 / 0.000169464
+             (rtol 2e-5; the reference's gold)
+ 12 ns_channel_direct_nx128   the same at 128x32, nonlinear TOL 1e-8,
+             direct (12,771 DOFs): the JAX package's L2 (rtol 1e-4)
+ 13 ns_startup_dirk22_nx128, _nx256, _nx512   the channel started from
+             rest at 128x32 (12,771 DOFs), 256x64 (50,115) and 512x128
+             (198,531), PSPG+SUPG, DIRK-2,2, 4 steps of 0.01, nonlinear
+             TOL 1e-8, default solver (GMRES + Jacobi): the JAX package's
+             L2 ux/pr/uy at t=0.02 and 0.04 (rtol 1e-6 at 128x32 and
+             256x64, where every stage's Newton solve converges; 1e-5 at
+             512x128, where three stall in both packages: see NS_STARTUP)
 
 The reference L2 values are the JAX package's, computed in f64 on the
 CPU, or the reference's golds. Each deck runs one assembly before its
@@ -45,8 +63,11 @@ fused deck must launch its kernel exactly once per fused res_and_jac
 call (each Newton iteration and each stage's converged check), plus,
 for the state kernel in a transient deck, twice per stage (the coord
 part on the beta_u and beta_t grids), and the other kernel never: phases
-4, 5, 7 and 8 run thermal_node_state, 6 and 9 thermal_node_full. The
-`kernels` line reports the sums over the decks.
+4, 5, 7 and 8 run thermal_node_state, 6 and 9 thermal_node_full, 11-13
+ns_node_full (once per fused res_and_jac call, no thermal kernel). The
+`kernels` line reports the sums over the decks, each kernel's error,
+times and bound (bytes or operations, whichever is larger; see `bound`)
+at its quoted case.
 Any failure raises; the last line of a passing run is {"ok": true,
 "device": {...}}.
 """
@@ -155,15 +176,15 @@ def ode_bdf2_deck():
     }
 
 
-def quad_tables(N0, N1, device, dtype):
-    """Reference-quad tables of a uniform N0 x N1 grid on the unit
-    square, and the quadrature-point offsets inside an element."""
+def quad_tables(N0, N1, device, dtype, lx=1.0, ly=1.0):
+    """Reference-quad tables of a uniform N0 x N1 grid on the box [0, lx]
+    x [0, ly], and the quadrature-point offsets inside an element."""
     import numpy as np
     from mrhyde_tpu_torch.assembly.discretization import Discretization
     from mrhyde_tpu_torch.mesh.structured import box_mesh
     from mrhyde_tpu_torch.ops.fused_p1 import QuadTables
-    disc = Discretization(box_mesh("quad", nx=1, ny=1, xmax=1.0 / N0,
-                                   ymax=1.0 / N1), [("e", "HGRAD", 1)], 2)
+    disc = Discretization(box_mesh("quad", nx=1, ny=1, xmax=lx / N0,
+                                   ymax=ly / N1), [("e", "HGRAD", 1)], 2)
     key = ("HGRAD", 1)
     tab = QuadTables(disc.basis_vals[key], disc.basis_grads[key][0],
                      disc.wts[0], device, dtype)
@@ -254,27 +275,34 @@ def phase_kernels(device):
             st2 = fp.Stage(*DIRK22_STAGE1, 2.0)
             stx = fp.Stage(*DIRK22_STAGE1, mx)
             st1 = fp.Stage(*DIRK22_STAGE1, 1.0)
+            work = (N0, N1, tab.Q, dtype)
             cases = [
                 ("thermal_node_state", "kappa=1.0",
                  lambda: fp.thermal_node_state(u, 1.0, tab),
-                 lambda: fp.thermal_node_state_plain(u, 1.0, tab)),
+                 lambda: fp.thermal_node_state_plain(u, 1.0, tab),
+                 thermal_work("state", *work, 1.0, None)),
                 ("thermal_node_state", "kappa=1+0.5xy",
                  lambda: fp.thermal_node_state(u, kxy, tab),
-                 lambda: fp.thermal_node_state_plain(u, kxy, tab)),
+                 lambda: fp.thermal_node_state_plain(u, kxy, tab),
+                 thermal_work("state", *work, kxy, None)),
                 ("thermal_node_state", "dirk22 kappa=1.0 m=2.0",
                  lambda: fp.thermal_node_state(u, 1.0, tab, st2),
-                 lambda: fp.thermal_node_state_plain(u, 1.0, tab, st2)),
+                 lambda: fp.thermal_node_state_plain(u, 1.0, tab, st2),
+                 thermal_work("state", *work, 1.0, st2)),
                 ("thermal_node_state", "dirk22 kappa=1+0.5xy m=1+0.5x",
                  lambda: fp.thermal_node_state(u, kxy, tab, stx),
-                 lambda: fp.thermal_node_state_plain(u, kxy, tab, stx)),
+                 lambda: fp.thermal_node_state_plain(u, kxy, tab, stx),
+                 thermal_work("state", *work, kxy, stx)),
                 ("thermal_node_full", "kappa=1+e*e",
                  lambda: fp.thermal_node_full(u, S, dS, K, dK, tab),
-                 lambda: fp.thermal_node_full_plain(u, S, dS, K, dK, tab)),
+                 lambda: fp.thermal_node_full_plain(u, S, dS, K, dK, tab),
+                 thermal_work("full", *work, None, None, (S, dS, K, dK))),
                 ("thermal_node_full", "dirk22 kappa=1+e*e m=1.0",
                  lambda: fp.thermal_node_full(ue, *tr, tab, st1),
-                 lambda: fp.thermal_node_full_plain(ue, *tr, tab, st1)),
+                 lambda: fp.thermal_node_full_plain(ue, *tr, tab, st1),
+                 thermal_work("full", *work, None, st1, tr)),
             ]
-            for name, label, kern, plain in cases:
+            for name, label, kern, plain, (nbytes, nflops) in cases:
                 out, ref = kern(), plain()
                 torch.cuda.synchronize()
                 err, scale = max_err(out, ref)
@@ -283,7 +311,8 @@ def phase_kernels(device):
                        "dtype": str(dtype).replace("torch.", ""),
                        "shape": [N0, N1], "max_abs_err": err,
                        "max_abs_plain": scale, "rtol": rtol, "ok": ok,
-                       "ms": cuda_ms(kern), "plain_ms": cuda_ms(plain)}
+                       "ms": cuda_ms(kern), "plain_ms": cuda_ms(plain),
+                       **bound(nbytes, nflops, dtype)}
                 emit(rec)
                 if not ok:
                     raise SystemExit(f"{name} {label} disagrees with its "
@@ -295,6 +324,249 @@ def phase_kernels(device):
                                       "dirk22 kappa=1+e*e m=1.0"):
                     summary[name] = rec
     return summary
+
+
+# ----------------------------------------------------------------------
+# Navier-Stokes
+# ----------------------------------------------------------------------
+
+# the reference's NS channel (navierstokes/channel, 50x10; bench.py:49-62
+# sizes it NY = NX/4): [0,5]x[0,1], Poiseuille flow ux = 0.5 y (1-y)
+# driven by source ux = 1
+NS_TRUE = {"ux": "0.5*y*(1.0-y)", "uy": "0.0", "pr": "0.0"}
+# the JAX package's f64 CPU L2 (ux, pr, uy) of the 128x32 direct deck
+NS_DIRECT_128 = (1.88440e-4, 2.86955e-3, 1.22447e-5)
+# the start-up deck at n x n/4: (rtol, the JAX package's f64 CPU L2 (ux,
+# pr, uy) at t = 0.02 and 0.04). At 128x32 every GMRES solve converges
+# (1,500 iterations each); at 256x64 every one stops at its 2,000-iteration
+# cap, but each stage's Newton solve still converges in two steps
+# (||r||/||r0|| <= 2e-11), so at both sizes the two packages agree to
+# rounding. At 512x128 in stages 6-8 Newton stalls above its tolerance
+# (||r||/||r0|| 2e-8 to 3e-7 for all 10 steps), in both packages alike:
+# two runs agree there as far as the stalled states do, 1.7e-6 in L2(pr)
+# on the H100 (the reference is a 23-minute JAX CPU run).
+NS_STARTUP = {
+    128: (1e-6, {0.02: (0.167438940563, 1.85237941387e-3,
+                        2.16197800775e-5),
+                 0.04: (0.137443725666, 2.99319670322e-3,
+                        2.31845902790e-5)}),
+    256: (1e-6, {0.02: (0.16743666533719045, 0.00041739961509650926,
+                        4.619296516076629e-06),
+                 0.04: (0.13743625171698778, 0.0005461661778793412,
+                        4.919212602818986e-06)}),
+    512: (1e-5, {0.02: (0.16743609948022103, 0.00013872687980716613,
+                        1.006348158262323e-06),
+                 0.04: (0.13743439102491917, 0.0001744396038940666,
+                        1.0696988861612578e-06)}),
+}
+# DIRK-2,2 stage 1 at dt = 0.01: alpha_u = A11/b1, alpha_t = 1/(dt b1)
+NS_STAGE1 = (0.5, 200.0)
+
+
+def ns_deck(nx, ny, solver, supg=False):
+    """The NS channel deck with PSPG (and SUPG), at rest initially."""
+    return {
+        "Mesh": {"dimension": 2, "element type": "quad", "xmin": 0.0,
+                 "xmax": 5.0, "ymin": 0.0, "ymax": 1.0, "NX": nx,
+                 "NY": ny},
+        "Physics": {"modules": "navier stokes", "usePSPG": True,
+                    "useSUPG": supg,
+                    "Dirichlet conditions": {
+                        "scalar data": True,
+                        "ux": {"bottom": 0.0, "top": 0.0},
+                        "uy": {"bottom": 0.0, "top": 0.0}},
+                    "Initial conditions": {"scalar data": True, "ux": 0.0,
+                                           "uy": 0.0, "pr": 0.0}},
+        "Discretization": {"order": {"ux": 1, "uy": 1, "pr": 1},
+                           "quadrature": 2},
+        "Solver": dict({"solver": "steady-state"}, **solver),
+        "Postprocess": {"compute errors": True,
+                        "True solutions": dict(NS_TRUE)},
+        "Functions": {"source ux": "1.0"},
+    }
+
+
+def ns_startup_deck(nx):
+    """The channel started from rest: PSPG+SUPG, DIRK-2,2, 4 steps of
+    0.01, nonlinear TOL 1e-8, default linear solver (GMRES + Jacobi)."""
+    return ns_deck(nx, nx // 4, {"solver": "transient",
+                        "transient Butcher tableau": "DIRK-2,2",
+                        "final time": 0.04, "number of steps": 4,
+                        "nonlinear TOL": 1e-8}, supg=True)
+
+
+def ns_rows(pspg, supg, transient, visc_varies):
+    """The provider's row classification (jac_idx) of a channel call with
+    these switches, from a small deck's probe on the CPU."""
+    from mrhyde_tpu_torch.ops.fused_ns import NSForm
+    from mrhyde_tpu_torch.problem import Problem
+    cfg = ns_deck(4, 1, {"solver": "transient"} if transient else {}, supg)
+    cfg["Physics"]["usePSPG"] = pspg
+    if visc_varies:
+        cfg["Functions"]["viscosity"] = "0.1 + 0.01*x"
+    fused = Problem(cfg, device="cpu", dtype=torch.float64) \
+        .assembler.fused_provider()
+    coeffs = (1.0, torch.zeros((1, 1)) if visc_varies else 1.0, 1.0, 0.0)
+    form = NSForm(pspg, supg, 1.0, 0.01 if transient else 1.0, transient)
+    au, at = NS_STAGE1 if transient else (1.0, 0.0)
+    return fused._classify(coeffs, form, au, at, not transient)[0]
+
+
+def ns_inputs(N0, N1, tab, q_off, device, dtype, gen):
+    """Seeded u_eval and u_dot grids (3, N0+1, N1+1) of the channel, and
+    the viscosity 0.1 + 0.01 x at the quadrature points, (E, Q)."""
+    ue, ud = ((torch.rand((3, N0 + 1, N1 + 1), generator=gen, device=device,
+                          dtype=dtype) - 0.5) for _ in range(2))
+    ii = torch.arange(N0, device=device, dtype=dtype)[:, None, None]
+    qx = torch.as_tensor(q_off[:, 0], device=device, dtype=dtype)
+    x = (ii * (5.0 / N0) + qx).expand(N0, N1, tab.Q)
+    visc = (0.1 + 0.01 * x).reshape(-1, tab.Q).contiguous()
+    return ue.contiguous(), (200.0 * ud).contiguous(), visc
+
+
+NS_SHAPES = ((1024, 256), (1000, 243))
+
+
+def phase_ns_kernels(device):
+    """ns_node_full against its plain version (residual and rows each
+    within rtol of its max |plain|), with CUDA-event medians of 20
+    (kernel) and 5 (plain) and the bound of each case."""
+    import math
+    from mrhyde_tpu_torch.ops import fused_ns as fn
+    from mrhyde_tpu_torch.ops.fused_p1 import Stage
+    rows = {"steady": ns_rows(True, False, False, False),
+            "steady_x": ns_rows(True, False, False, True),
+            "stage": ns_rows(True, True, True, False)}
+    summary = None
+    for dtype, rtol in ((torch.float64, 1e-12), (torch.float32, 1e-5)):
+        for N0, N1 in NS_SHAPES:
+            gen = torch.Generator(device=device).manual_seed(4321)
+            tab, ip0 = quad_tables(N0, N1, device, dtype, 5.0, 1.0)
+            h = math.sqrt(sum(tab.wts))
+            ue, ud, visc = ns_inputs(N0, N1, tab, ip0, device, dtype, gen)
+            steady = fn.NSForm(True, False, h, 1.0, False)
+            stage = fn.NSForm(True, True, h, 0.01, True)
+            st1 = Stage(*NS_STAGE1, None)
+            cases = [
+                ("pspg steady nu=1.0", (ue, None, (1.0, 1.0, 1.0, 0.0), tab,
+                                        steady, rows["steady"])),
+                ("pspg steady nu=0.1+0.01x",
+                 (ue, None, (1.0, visc, 1.0, 0.0), tab, steady,
+                  rows["steady_x"])),
+                ("pspg+supg dirk22 stage 1",
+                 (ue, ud, (1.0, 1.0, 1.0, 0.0), tab, stage, rows["stage"],
+                  st1)),
+            ]
+            for label, args in cases:
+                out = fn.ns_node_full(*args)
+                ref = fn.ns_node_full_plain(*args)
+                torch.cuda.synchronize()
+                errs = [max_err(o, r) for o, r in zip(out, ref)]
+                err = max(e for e, _ in errs)
+                ok = all(e <= rtol * sc for e, sc in errs)
+                nbytes, nflops = ns_work(N0, N1, tab.Q, dtype, args)
+                rec = {"phase": "kernels", "kernel": "ns_node_full",
+                       "case": label, "dtype": str(dtype).replace(
+                           "torch.", ""), "shape": [N0, N1],
+                       "jac_rows": len(args[5]), "max_abs_err": err,
+                       "max_abs_err_res": errs[0][0],
+                       "max_abs_plain_res": errs[0][1],
+                       "max_abs_err_jac": errs[1][0],
+                       "max_abs_plain_jac": errs[1][1], "rtol": rtol,
+                       "ok": ok, "ms": cuda_ms(lambda: fn.ns_node_full(*args)),
+                       "plain_ms": cuda_ms(
+                           lambda: fn.ns_node_full_plain(*args), reps=5),
+                       **bound(nbytes, nflops, dtype)}
+                emit(rec)
+                if not ok:
+                    raise SystemExit(f"ns_node_full {label} disagrees with "
+                                     f"its plain version: {rec}")
+                if dtype == torch.float64 and (N0, N1) == NS_SHAPES[0] \
+                        and label == "pspg+supg dirk22 stage 1":
+                    summary = rec
+    return summary
+
+
+# ----------------------------------------------------------------------
+# bounds: bytes (each input read once, each output written once) over
+# 3.35 TB/s, and the operations counted from each kernel's source (an
+# FMA is 2, a divide or a square root 1) over the card's peak for their
+# type: 34 TFLOP/s in f64 and 67 TFLOP/s in f32 outside the tensor cores
+# (NVIDIA's H100 SXM data sheet)
+# ----------------------------------------------------------------------
+
+HBM_BPS = 3.35e12
+PEAK_FLOPS = {torch.float64: 34e12, torch.float32: 67e12}
+
+
+def bound(nbytes, nflops, dtype):
+    t_bytes = nbytes / HBM_BPS * 1e3
+    t_ops = nflops / PEAK_FLOPS[dtype] * 1e3
+    return {"bytes": nbytes, "flops": nflops,
+            "bound_ms": max(t_bytes, t_ops),
+            "bound_by": "bytes" if t_bytes >= t_ops else "operations"}
+
+
+def _qp_len(v):
+    return v.numel() if isinstance(v, torch.Tensor) else 0
+
+
+# The operations are those the function needs: each element's quadrature
+# once. The kernels recompute an element's quadrature in each of its four
+# node threads (and ns_node_full its values and primal density in each of
+# three column threads); that is their design's cost, not the function's.
+
+
+def thermal_work(kernel, N0, N1, Q, dtype, kappa, stage, full_inputs=()):
+    """(bytes, flops) of one thermal_node_state / thermal_node_full call
+    (csrc/fused_p1_thermal.cu)."""
+    nodes, E = (N0 + 1) * (N1 + 1), N0 * N1
+    it = torch.finfo(dtype).bits // 8
+    tr = stage is not None
+    mass = _qp_len(stage.mass) if tr else 0
+    if kernel == "state":
+        nbytes = it * (2 * nodes + _qp_len(kappa) + mass)
+        # per element and qp: grad u_h 16, the flux 2, four rows of 5; a
+        # stage adds u_h 8, the alphas and the mass lane 4, and 2 per row
+        per_q = 16 + 2 + 4 * 5 + (8 + 4 + 4 * 2 if tr else 0)
+        return nbytes, E * Q * per_q
+    nbytes = it * (2 * nodes + sum(t.numel() for t in full_inputs) + mass
+                   + 16 * E)
+    # per element and qp: grad u_h 16, the flux 2, four residual rows of
+    # 7, the Jacobian's 16 (c, c') pairs of 16 (20 in a stage)
+    return nbytes, E * Q * (16 + 2 + 4 * 7 + 16 * (20 if tr else 16))
+
+
+def ns_density_flops(n, tr, pspg, supg):
+    """Operations of csrc/fused_p1_ns.cu's ns_density on a dual with n
+    tangents (n = 0: the primal), by op: Dual*Dual 1+3n, Dual*T and
+    Dual+-Dual 1+n, Dual+-T 1, T/Dual 3+n, sqrt 2+n."""
+    f = 17 + 23 * n + (2 + 2 * n if tr else 0)     # conv, S, F, div u
+    if pspg or supg:
+        f += 27 + 19 * n + (4 + 4 * n if tr else 0)   # tau, stabres
+    if supg:
+        f += 10 + 22 * n
+    if pspg:
+        f += 4 + 8 * n
+    return f
+
+
+def ns_work(N0, N1, Q, dtype, args):
+    """(bytes, flops) of one ns_node_full call with these arguments."""
+    ue, ud, coeffs, _tab, form, jac_idx = args[:6]
+    nodes, E = (N0 + 1) * (N1 + 1), N0 * N1
+    it = torch.finfo(dtype).bits // 8
+    tr = ud is not None
+    nbytes = it * (3 * nodes * (3 if tr else 2)
+                   + sum(_qp_len(c) for c in coeffs) + len(jac_idx) * E)
+    # per element and qp: values and gradients 72 (u_dot's values 24),
+    # the density on a dual of all 9 tangents (12 in a stage; its primal
+    # serves the residual), 12 residual rows of 7, 12 columns x 9 outputs
+    # of 8 (11) for the column tangents, 144 accumulations of 7
+    per_q = (72 + (24 if tr else 0)
+             + ns_density_flops(12 if tr else 9, tr, form.pspg, form.supg)
+             + 12 * 7 + 108 * (11 if tr else 8) + 144 * 7)
+    return nbytes, E * Q * per_q
 
 
 def assembly_tc(problem, u, time):
@@ -321,7 +593,9 @@ def run_deck(name, cfg, device, checks, mode):
     (`mode` "state" or "full") must launch that kernel once per fused
     res_and_jac call, the state kernel twice more per stage of a
     transient deck (the beta grids of the coord part), and the other
-    kernel never; mode None: no fused provider, no launch."""
+    kernel never; mode None: no fused provider, no launch. An NS deck
+    (mode "ns_full") launches ns_node_full once per fused res_and_jac
+    call and no thermal kernel."""
     from mrhyde_tpu_torch.ops import fused_p1 as fp
     from mrhyde_tpu_torch.problem import Problem
     torch.cuda.synchronize()
@@ -333,7 +607,7 @@ def run_deck(name, cfg, device, checks, mode):
     u0 = torch.zeros(problem.n_dof, dtype=problem.dtype, device=device)
     asm.res_and_jac(u0, assembly_tc(problem, u0, 0.0))
     torch.cuda.synchronize()
-    if fused is not None:
+    if hasattr(fused, "_stage_cache"):
         fused._stage_cache = None   # the warm-up leaves no coord part
     t2 = time.perf_counter()
     calls = [0]
@@ -414,9 +688,11 @@ def main():
     _build.load_library()
     emit({"phase": "build", "seconds": time.perf_counter() - t0,
           "ptxas": [ln for ln in _build.build_log().splitlines()
-                    if "registers" in ln or "spill" in ln]})
+                    if "registers" in ln or "spill" in ln
+                    or "Compiling entry" in ln]})
 
     summary = phase_kernels(device)
+    summary["ns_node_full"] = phase_ns_kernels(device)
 
     per_deck = [
         run_deck("gold_nx40", deck(40), device,
@@ -444,24 +720,44 @@ def main():
                  device, [(0.2, "e", BDF2_NL_L2, 1e-4)], "full"),
         run_deck("ode_bdf2", ode_bdf2_deck(), device,
                  [(1.0, "q", 0.00106624, 2e-5)], None),
-    ]
+        run_deck("ns_channel_gold_nx50",
+                 ns_deck(50, 10, {"use direct solver": True}), device,
+                 [(0.0, v, g, 2e-5) for v, g in
+                  (("ux", 0.00198075), ("pr", 0.0148536),
+                   ("uy", 0.000169464))], "ns_full"),
+        run_deck("ns_channel_direct_nx128",
+                 ns_deck(128, 32, {"use direct solver": True,
+                               "nonlinear TOL": 1e-8}), device,
+                 [(0.0, v, g, 1e-4) for v, g in
+                  zip(("ux", "pr", "uy"), NS_DIRECT_128)], "ns_full"),
+    ] + [run_deck(f"ns_startup_dirk22_nx{n}", ns_startup_deck(n), device,
+                  [(t, v, g, rtol) for t, ref in refs.items()
+                   for v, g in zip(("ux", "pr", "uy"), ref)], "ns_full")
+         for n, (rtol, refs) in NS_STARTUP.items()]
     launches = {k: sum(d[k] for d in per_deck) for k in fp.LAUNCHES}
     emit({"phase": "launches", **launches})
     if min(launches.values()) <= 0:
         raise SystemExit(f"a kernel of the main path never launched: "
                          f"{launches}")
 
-    src = "mrhyde_tpu_torch/ops/csrc/fused_p1_thermal.cu"
+    csrc = "mrhyde_tpu_torch/ops/csrc/"
     kernels = []
-    for name, mode in (("thermal_node_state", "state"),
-                       ("thermal_node_full", "full")):
+    # no single PyTorch call computes a node-scatter assembly: library_ms
+    # is null for all three
+    for name, mode, src in (
+            ("thermal_node_state", "state", "fused_p1_thermal.cu"),
+            ("thermal_node_full", "full", "fused_p1_thermal.cu"),
+            ("ns_node_full", "ns_full", "fused_p1_ns.cu")):
         rec = summary[name]
-        kernels.append({"name": name, "route": "cuda", "source": src,
+        kernels.append({"name": name, "route": "cuda", "source": csrc + src,
                         "replaces": "mrhyde_tpu/ops/fused_p1.py:1350",
                         "launches": launches[mode],
                         "max_abs_err": rec["max_abs_err"], "ms": rec["ms"],
-                        "plain_ms": rec["plain_ms"]})
+                        "plain_ms": rec["plain_ms"],
+                        "bound_ms": rec["bound_ms"],
+                        "bound_by": rec["bound_by"], "library_ms": None})
     emit({"kernels": kernels})
+    print(smi, flush=True)
     emit({"ok": True, "device": {"platform": "gpu",
                                  "kind": torch.cuda.get_device_name(0),
                                  "count": torch.cuda.device_count()}})

@@ -21,7 +21,7 @@ them.
 
 from __future__ import annotations
 
-from dataclasses import dataclass
+from dataclasses import dataclass, field
 
 import numpy as np
 import torch
@@ -70,8 +70,18 @@ class BlockJacobian:
     inc: torch.Tensor                 # (n_dof, max_deg) into E*nd (+pad)
     # Row layout straight off the fused kernel: a LIST of nd*nd entries,
     # each None (structural zero), a 0-d tensor (element-independent) or
-    # an (E,) tensor. apply/diag consume it without the AoS transpose.
+    # an (E,) tensor. diag reads it as it is; apply too while no row
+    # varies by element, and through AoS blocks built on the first
+    # product otherwise (see _vol_mv).
     vol_soa: list | None = None
+    # whether some SoA row holds one value per element: fixed when the
+    # Jacobian is built, so the Krylov products do not rescan the rows
+    soa_varies: bool = field(init=False, default=False)
+    _aos_cache: torch.Tensor | None = field(default=None, repr=False)
+
+    def __post_init__(self):
+        self.soa_varies = self.vol_soa is not None and any(
+            r is not None and r.dim() > 0 for r in self.vol_soa)
 
     @property
     def n_dof(self):
@@ -126,8 +136,18 @@ class BlockJacobian:
         return torch.stack(out, dim=1)
 
     def _vol_mv(self, vm):
+        # Eager torch launches one op per SoA term: where a row holds one
+        # value per element the AoS einsum reads the same bytes in a few
+        # launches (2x faster at nd = 4, 9x at nd = 12 on the H100);
+        # constant rows read no per-element data, and the SoA product
+        # stays 2x faster (PERF.md).
         if self._soa_only:
-            return self._soa_mv(vm)
+            if not self.soa_varies:
+                return self._soa_mv(vm)
+            if self._aos_cache is None:
+                self._aos_cache = self.aos()
+            return torch.einsum("eij,ej->ei", self._aos_cache,
+                                vm[self.vol_lids])
         return torch.einsum("eij,ej->ei", self.vol, vm[self.vol_lids])
 
     def _gather_sum(self, vals):
@@ -338,17 +358,19 @@ class Assembler:
     # ------------------------------------------------------------------
 
     def _elem_residual(self, u_st, beta_u, beta_t, wts, ip, bg, *,
-                       alpha_u, alpha_t, time, params):
+                       alpha_u, alpha_t, time, params, deltat=1.0):
         return self._elem_residual_uv(alpha_u * u_st + beta_u,
                                       alpha_t * u_st + beta_t, wts, ip, bg,
-                                      time, params)
+                                      time, params, deltat)
 
-    def _elem_residual_uv(self, u_eval, u_dot, wts, ip, bg, time, params):
+    def _elem_residual_uv(self, u_eval, u_dot, wts, ip, bg, time, params,
+                          deltat=1.0):
         wk = Workset(
             dim=self.disc.mesh.dim, wts=wts, ip=ip, basis_vals=self.g_bv,
             basis_grads=bg, offsets=self.disc.offsets,
             var_keys=self.disc.basis_keys, u_eval=u_eval, u_dot=u_dot,
-            time=time, fm=self.fm, params=params)
+            time=time, fm=self.fm, params=params, deltat=deltat,
+            is_transient=self.is_transient)
         for m in self.modules:
             m.volume_residual(wk)
         return wk.res
@@ -364,7 +386,8 @@ class Assembler:
         def fn(u_st, beta_u, beta_t, wts, ip, bg):
             return self._elem_residual(
                 u_st, beta_u, beta_t, wts, ip, bg, alpha_u=tc.alpha_u,
-                alpha_t=tc.alpha_t, time=tc.time, params=params)
+                alpha_t=tc.alpha_t, time=tc.time, params=params,
+                deltat=tc.deltat)
         return fn
 
     def _in_dims(self):
@@ -414,9 +437,9 @@ class Assembler:
     def res_and_jac(self, u_st, tc: TimeCoeffs, pvec=None):
         """(residual, BlockJacobian) in one pass — the Newton-loop entry
         point. Uses the fused provider when the problem qualifies
-        (uniform structured 2D p1 quads, thermal) and the params are
-        scalars, steady or transient alike, else the general vmapped
-        path."""
+        (uniform structured 2D p1 quads, thermal or Navier-Stokes) and
+        the params are scalars, steady or transient alike, else the
+        general vmapped path."""
         fused = self.fused_provider()
         if fused is not None and all(
                 not isinstance(v, torch.Tensor) or v.dim() == 0
@@ -465,7 +488,7 @@ class Assembler:
 
         def fn(udot_e, ueval_e, wts, ip, bg):
             return self._elem_residual_uv(ueval_e, udot_e, wts, ip, bg,
-                                          tc.time, params)
+                                          tc.time, params, tc.deltat)
 
         return torch.func.vmap(
             torch.func.jacfwd(fn, argnums=0),

@@ -8,7 +8,9 @@ jacfwd require.
 
 Field-name resolution matches the reference's labels: "e",
 "grad(e)[x]", "e_t", "x", "y", "z", "t", plus parameter and
-user-function names via the FunctionManager.
+user-function names via the FunctionManager. The stabilisation scalars
+the flow modules read are `h` (element size), `deltat` (the stage's
+time step) and `is_transient` (the deck is transient).
 """
 
 from __future__ import annotations
@@ -23,7 +25,7 @@ _AXES = {"x": 0, "y": 1, "z": 2}
 class Workset:
     def __init__(self, *, dim, wts, ip, basis_vals, basis_grads, offsets,
                  var_keys, u_eval, u_dot=None, time=0.0, fm=None,
-                 params=None):
+                 params=None, deltat=1.0, is_transient=False):
         self.dim = dim
         self.wts = wts                      # (Q,)
         self.ip = ip                        # (Q, dim)
@@ -36,6 +38,8 @@ class Workset:
         self.time = time
         self.fm = fm
         self.params = params or {}
+        self.deltat = deltat
+        self.is_transient = is_transient
         self._res = {}                      # var -> (ndof,) contribution
         self._sol_cache = {}
 
@@ -104,6 +108,12 @@ class Workset:
             return torch.broadcast_to(v.to(self.u.dtype), self.wts.shape)
         return torch.full(self.wts.shape, float(v), dtype=self.u.dtype,
                           device=self.wts.device)
+
+    @property
+    def h(self):
+        """Element size h = volume^(1/dim) (reference workset.cpp:2666
+        getElementSize); one scalar per element."""
+        return torch.sum(self.wts) ** (1.0 / self.dim)
 
     # ---- residual accumulation (used by physics) ----
 

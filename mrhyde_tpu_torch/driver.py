@@ -6,8 +6,8 @@ Parse the input deck (the JAX package's YAML schema and split-deck
 device, run it and print the error report: the JAX CLI's lines, one per
 norm and recorded time (every step of a transient deck).
 
-  --device {cuda,cpu}   where to run (default: cuda when a card is
-                        present, else cpu)
+  --device {cuda,cpu}   where to run (default: cuda; without a usable
+                        card that raises, so a CPU run asks for cpu)
   --fp32                single precision (default: double)
 """
 
@@ -103,7 +103,7 @@ def load_input_deck(path: str) -> dict:
 def main(argv=None):
     ap = argparse.ArgumentParser(prog="mrhyde-tpu-torch")
     ap.add_argument("deck")
-    ap.add_argument("--device", choices=("cuda", "cpu"), default=None)
+    ap.add_argument("--device", choices=("cuda", "cpu"), default="cuda")
     ap.add_argument("--fp32", action="store_true")
     args = ap.parse_args(argv)
 

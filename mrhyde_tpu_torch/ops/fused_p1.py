@@ -1,5 +1,8 @@
 """Fused node-scatter assembly for 2D thermal on uniform p1 quads.
 
+(The Navier-Stokes provider, on the same kernel B2 with three variables,
+is ops/fused_ns.py; `FusedP1Assembly.build` hands NS decks to it.)
+
 The port of the JAX package's `FusedP1Assembly` (mrhyde_tpu/ops/
 fused_p1.py) for the case its node-scatter TPU kernel (B2,
 `run_node_call`) carries on the main path: 2D p1 quads, steady or a
@@ -57,10 +60,13 @@ from mrhyde_tpu_torch.assembly.assembler import BlockJacobian, pad_to
 
 __all__ = ["FusedP1Assembly", "QuadTables", "Stage", "LAUNCHES",
            "thermal_node_state", "thermal_node_full",
-           "thermal_node_state_plain", "thermal_node_full_plain"]
+           "thermal_node_state_plain", "thermal_node_full_plain",
+           "structured_geometry", "qp_coords", "steady_check"]
 
-# kernel launches per mode; reset by whoever wants to count a run
-LAUNCHES = {"state": 0, "full": 0}
+# kernel launches per kernel: thermal "state" and "full", and the
+# Navier-Stokes "full" kernel (ops/fused_ns.py); reset by whoever wants
+# to count a run
+LAUNCHES = {"state": 0, "full": 0, "ns_full": 0}
 
 # local corners of the quad on (axis 0, axis 1), the assembler's order
 CORNERS = ((0, 0), (1, 0), (1, 1), (0, 1))
@@ -89,10 +95,51 @@ class QuadTables:
         self.t_phi, self.t_grad, self.t_wts = dev(phi), dev(grad), dev(wts)
 
 
+def structured_geometry(asm):
+    """(dims, origin, h_axes, q_off, QuadTables) of a uniform structured
+    2D p1 problem: the element grid, the box origin and spacing, the
+    quadrature points' offsets inside an element, and the reference
+    tables of its first variable (all variables share them)."""
+    s = asm._structured
+    disc = asm.disc
+    dims = tuple(int(d) for d in s["dims"])
+    bounds = disc.mesh.box_info["bounds"]
+    origin = [float(b[0]) for b in bounds]
+    h_axes = [(float(b[1]) - float(b[0])) / int(b[2]) for b in bounds]
+    q_off = np.asarray(disc.ip[0]) - np.asarray(origin)[None, :]
+    key = disc.basis_keys[s["plan"][0][1]]
+    tables = QuadTables(disc.basis_vals[key], disc.basis_grads[key][0],
+                        disc.wts[0], asm.device, asm.dtype)
+    return dims, origin, h_axes, q_off, tables
+
+
+def qp_coords(dims, origin, h_axes, q_off, Q, dtype, device):
+    """(x, y) at the quadrature points as (N0, N1, Q) tensors, from
+    element indices as the JAX kernel synthesizes them."""
+    N0, N1 = dims
+    idx = [torch.arange(N0, dtype=dtype, device=device)[:, None]
+           .expand(N0, N1),
+           torch.arange(N1, dtype=dtype, device=device)[None, :]
+           .expand(N0, N1)]
+    return [torch.stack([origin[a] + idx[a] * h_axes[a] + float(q_off[q, a])
+                         for q in range(Q)], dim=-1) for a in range(2)]
+
+
+def steady_check(tc):
+    """The JAX package's _steady_check: TimeCoeffs equal to the steady
+    ones (alpha_u = 1, alpha_t = 0, no betas) specialize to the steady
+    kernels. Reads the betas on the host: callers cache it per stage."""
+    return bool(tc.is_steady or (
+        float(tc.alpha_t) == 0.0 and float(tc.alpha_u) == 1.0
+        and not bool(tc.beta_u.any()) and not bool(tc.beta_t.any())))
+
+
 class Stage(NamedTuple):
     """What a transient stage adds to the kernels: u_eval = alpha_u u +
-    beta_u, u_dot = alpha_t u + beta_t, and the mass coefficient m = rho
-    cp (a Python float or an (E, Q) tensor). Steady calls pass None."""
+    beta_u, u_dot = alpha_t u + beta_t, and the thermal mass coefficient
+    m = rho cp (a Python float or an (E, Q) tensor; None for the NS
+    kernel, whose density carries its own u_dot terms). Steady calls
+    pass None."""
     alpha_u: float
     alpha_t: float
     mass: object
@@ -374,20 +421,9 @@ class FusedP1Assembly:
 
     def __init__(self, asm, leaves):
         self.asm = asm
-        s = asm._structured
-        self.dims = tuple(int(d) for d in s["dims"])
-        _kind, self.var, self.start = s["plan"][0]
-        disc = asm.disc
-        bounds = disc.mesh.box_info["bounds"]
-        self.origin = [float(b[0]) for b in bounds]
-        self.h_axes = [(float(b[1]) - float(b[0])) / int(b[2])
-                       for b in bounds]
-        ip0 = np.asarray(disc.ip[0])
-        self.q_off = ip0 - np.asarray(self.origin)[None, :]
-        key = disc.basis_keys[self.var]
-        self.tables = QuadTables(disc.basis_vals[key],
-                                 disc.basis_grads[key][0], disc.wts[0],
-                                 asm.device, asm.dtype)
+        _kind, self.var, self.start = asm._structured["plan"][0]
+        (self.dims, self.origin, self.h_axes, self.q_off,
+         self.tables) = structured_geometry(asm)
         self.fm = asm.fm
         self.module = asm.modules[0]
         kap = leaves["thermal diffusion"]
@@ -423,7 +459,14 @@ class FusedP1Assembly:
 
     @staticmethod
     def build(asm):
+        """The fused provider of a qualifying problem: this thermal
+        provider, or the Navier-Stokes one (ops/fused_ns.py) for an NS
+        deck; None where the problem takes the general path."""
+        from mrhyde_tpu_torch.physics.navierstokes import NavierStokes
         from mrhyde_tpu_torch.physics.thermal import Thermal
+        if any(isinstance(m, NavierStokes) for m in asm.modules):
+            from mrhyde_tpu_torch.ops.fused_ns import FusedNSAssembly
+            return FusedNSAssembly.build(asm)
         s = asm._structured
         if s is None or len(s["dims"]) != 2 \
                 or asm.disc.mesh.cell_type != "quad":
@@ -459,17 +502,9 @@ class FusedP1Assembly:
         """(x, y) at the quadrature points as (N0, N1, Q) tensors, from
         element indices as the JAX kernel synthesizes them."""
         if self._coords is None:
-            dt, dev = self.asm.dtype, self.asm.device
-            N0, N1 = self.dims
-            idx = [torch.arange(N0, dtype=dt, device=dev)[:, None]
-                   .expand(N0, N1),
-                   torch.arange(N1, dtype=dt, device=dev)[None, :]
-                   .expand(N0, N1)]
-            self._coords = [
-                torch.stack([self.origin[a] + idx[a] * self.h_axes[a]
-                             + float(self.q_off[q, a])
-                             for q in range(self.tables.Q)], dim=-1)
-                for a in range(2)]
+            self._coords = qp_coords(self.dims, self.origin, self.h_axes,
+                                     self.q_off, self.tables.Q,
+                                     self.asm.dtype, self.asm.device)
         return self._coords
 
     def _kernel_coeff(self, v):
@@ -500,10 +535,7 @@ class FusedP1Assembly:
                    pkey)
         if self._stage_cache is not None and self._stage_cache[0] == key:
             return self._stage_cache[2]
-        # the JAX package's _steady_check: steady coefficients specialize
-        steady = bool(tc.is_steady or (
-            float(tc.alpha_t) == 0.0 and float(tc.alpha_u) == 1.0
-            and not bool(tc.beta_u.any()) and not bool(tc.beta_t.any())))
+        steady = steady_check(tc)
         coord = self._coord_eval(tc, params, steady) if self.split \
             else None
         self._stage_cache = (key, held, (steady, coord))

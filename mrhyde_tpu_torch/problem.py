@@ -166,6 +166,9 @@ class Problem:
                                    dtype=self.dtype, device=self.device)
         self.assembler.is_transient = (
             (cfg.get("Solver", {}) or {}).get("solver") == "transient")
+        # build the fused provider now: a deck it would have to refuse
+        # (a coupling or coefficient not ported yet) raises here
+        self.assembler.fused_provider()
 
         pp_cfg = _unwrap_block(cfg.get("Postprocess", {}) or {},
                                "True solutions")

@@ -1,9 +1,10 @@
 """Device and dtype selection.
 
-Every entry point of the port takes an explicit `device` and `dtype`.
-The reference decks are double precision, so f64 is the default; f32 is
-an option. Asking for "cuda" on a machine without a usable card raises:
-nothing falls back to the CPU silently.
+Every entry point of the port runs on the card unless the caller asks
+for the CPU: `device=None` means "cuda", and asking for "cuda" on a
+machine without a usable card raises. Nothing falls back to the CPU
+silently; the tests and the CPU tools pass `device="cpu"`. The reference
+decks are double precision, so f64 is the default; f32 is an option.
 """
 
 from __future__ import annotations
@@ -12,12 +13,11 @@ import torch
 
 __all__ = ["resolve_device", "resolve_dtype"]
 
+
 def resolve_device(device=None) -> torch.device:
-    """torch.device for `device` (None: "cuda" when a card is present,
-    else "cpu"). Raises if "cuda" is asked for and unavailable."""
-    if device is None:
-        device = "cuda" if torch.cuda.is_available() else "cpu"
-    dev = torch.device(device)
+    """torch.device for `device` (None: "cuda"). Raises if "cuda" is
+    asked for, or implied, and no card is usable."""
+    dev = torch.device("cuda" if device is None else device)
     if dev.type == "cuda" and not torch.cuda.is_available():
         raise RuntimeError("device 'cuda' requested but "
                            "torch.cuda.is_available() is False")

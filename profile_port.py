@@ -3,6 +3,7 @@
     python3 profile_port.py [--out DIR] [--n-state 1024] [--n-full 512]
                             [--cg-iters 200] [--device cuda]
     python3 profile_port.py --split [--n-full 512] [--device cuda]
+    python3 profile_port.py --ns [--n-ns 512] [--out DIR] [--device cuda]
 
 Runs torch.profiler over pieces of the thermal main path, steady and
 transient, and prints one JSON line each, with the wall time (host
@@ -21,9 +22,12 @@ events' spans) and their ratio, and the number of device events:
   assembly_full   5 x res_and_jac, kappa = 1 + e*e, n_full^2
                   (thermal_node_full and its coefficient pre-pass)
   assembly_full_transient  the same at one transient stage
-  apply           20 x BlockJacobian.apply of that Jacobian, and the
-                  CUDA-event median of 20 of it and of
-                  Assembler.matfree_apply_fn
+  apply_state, apply_full  one Jacobian product of the n_state^2
+                  kappa = 1 Jacobian (constant rows) and of the n_full^2
+                  kappa = 1 + e*e one (16 varying rows) three ways:
+                  CUDA-event medians of 20 of the SoA rows, the AoS
+                  einsum and Assembler.matfree_apply_fn
+  apply           20 x BlockJacobian.apply of the n_full^2 Jacobian
   cg              cg_iters iterations of Jacobi-preconditioned CG on it
 
 With --out, each piece's key_averages table goes to DIR/<piece>.txt.
@@ -37,6 +41,21 @@ per solve: its wall time and the host time (each call ending in a
 synchronize) spent in the Krylov solves, in the fused res_and_jac calls
 and in the general residuals of Newton's line search. The first solve
 of the first deck carries the process's first-use costs.
+
+--ns profiles the Navier-Stokes path (chip_smoke.py's channel decks):
+
+  ns_apply        at a seeded DIRK-2,2 stage of the n_ns x n_ns/4
+                  start-up deck, the CUDA-event medians of 20 of one
+                  Jacobian product three ways: the SoA rows
+                  (BlockJacobian.soa_products, ~300 eager ops at nd = 12),
+                  the AoS einsum the solvers use (BlockJacobian.apply),
+                  and Assembler.matfree_apply_fn; and the one-time AoS
+                  build
+  ns_assembly_stage  5 x res_and_jac at that stage (ns_node_full)
+  ns_gmres_cycle  one GMRES(40) cycle with Jacobi on that Jacobian
+  split           the 128x32 direct deck and the start-up deck, each
+                  solve split as --split does (linear solves, fused
+                  res_and_jac calls, line-search residuals, the rest)
 """
 
 import argparse
@@ -47,7 +66,8 @@ import time
 
 import torch
 
-from chip_smoke import bdf2_nonlinear_deck, deck, nonlinear_deck
+from chip_smoke import (bdf2_nonlinear_deck, deck, nonlinear_deck, ns_deck,
+                        ns_startup_deck)
 
 
 def sync(device):
@@ -100,6 +120,41 @@ def event_ms(fn, reps=20):
     return statistics.median(times)
 
 
+def apply_timings(name, asm, J, v, device):
+    """One line with the CUDA-event medians of 20 of one Jacobian product
+    three ways: the SoA rows (BlockJacobian.soa_products), the AoS
+    einsum and Assembler.matfree_apply_fn, which one BlockJacobian.apply
+    takes, and the one-time AoS build."""
+    from mrhyde_tpu_torch.assembly.assembler import BlockJacobian
+
+    def soa_apply(x):
+        xm = torch.where(J.fixed, 0.0, x)
+        return torch.where(J.fixed, x, J._gather_sum(J._soa_mv(xm)))
+    matfree = asm.matfree_apply_fn(J)
+    sync(device)
+    t0 = time.perf_counter()
+    aos = J.aos()
+    sync(device)
+    build_ms = (time.perf_counter() - t0) * 1e3
+    Ja = BlockJacobian(vol=aos, vol_lids=J.vol_lids, fixed=J.fixed,
+                       inc=J.inc)
+    ref = Ja.apply(v)
+    rec = {"piece": name, "n_dof": int(v.shape[0]),
+           "nd": int(J.vol_lids.shape[1]),
+           "n_elem": int(J.vol_lids.shape[0]),
+           "varying_rows": sum(r is not None and r.dim() > 0
+                               for r in J.vol_soa),
+           "apply_takes": "aos" if J.soa_varies else "soa",
+           "aos_build_ms": build_ms,
+           "max_abs_diff_soa": float((soa_apply(v) - ref).abs().max()),
+           "max_abs_diff_matfree": float((matfree(v) - ref).abs().max())}
+    if device.type == "cuda":
+        rec.update(soa_ms=event_ms(lambda: soa_apply(v)),
+                   aos_ms=event_ms(lambda: Ja.apply(v)),
+                   matfree_ms=event_ms(lambda: matfree(v)))
+    print(json.dumps(rec), flush=True)
+
+
 def timed(fn, device, acc):
     """fn wrapped to add its calls and host seconds (ending in a
     synchronize) to acc = [calls, seconds]."""
@@ -114,8 +169,9 @@ def timed(fn, device, acc):
     return run
 
 
-def split_solves(device, n):
-    """Where the time of the two kappa = 1 + e*e solves goes (--split)."""
+def split_solves(device, decks, runs=(1, 2)):
+    """Where the time of each deck's solve goes (--split, --ns): decks is
+    a list of (name, cfg), each solved once per run."""
     from mrhyde_tpu_torch.ops import _build
     from mrhyde_tpu_torch.problem import Problem
     from mrhyde_tpu_torch.solvers import nonlinear
@@ -125,9 +181,8 @@ def split_solves(device, n):
         print(json.dumps({"piece": "build",
                           "seconds": time.perf_counter() - t0}), flush=True)
     solve_linear_info = nonlinear.solve_linear_info
-    for name, cfg in (("nonlinear", nonlinear_deck(n)),
-                      ("bdf2_nonlinear", bdf2_nonlinear_deck(n))):
-        for run in (1, 2):
+    for name, cfg in decks:
+        for run in runs:
             p = Problem(cfg, device=device)
             asm = p.assembler
             acc = {k: [0, 0.0] for k in ("krylov", "res_and_jac",
@@ -143,7 +198,7 @@ def split_solves(device, n):
             sync(device)
             wall = time.perf_counter() - t0
             nonlinear.solve_linear_info = solve_linear_info
-            rec = {"piece": "split", "deck": f"{name}_nx{n}", "run": run,
+            rec = {"piece": "split", "deck": name, "run": run,
                    "n_dof": p.n_dof, **result.counts, "solve_s": wall}
             for k, (calls, secs) in acc.items():
                 rec[f"{k}_calls"], rec[f"{k}_s"] = calls, secs
@@ -154,6 +209,35 @@ def split_solves(device, n):
             print(json.dumps(rec), flush=True)
 
 
+def ns_pieces(device, n, out_dir):
+    """--ns: the NS Jacobian product three ways, a stage's assembly and a
+    GMRES cycle under the profiler, then the split of the NS solves."""
+    from mrhyde_tpu_torch.assembly.assembler import TimeCoeffs
+    from mrhyde_tpu_torch.problem import Problem
+    from mrhyde_tpu_torch.solvers.krylov import gmres
+    from mrhyde_tpu_torch.solvers.precond import build_preconditioner
+    p = Problem(ns_startup_deck(n), device=device)
+    asm = p.assembler
+    gen = torch.Generator(device=device).manual_seed(1234)
+    u = p.bcs.apply(torch.rand(p.n_dof, generator=gen, device=device,
+                               dtype=p.dtype) - 0.5, 0.0)
+    # DIRK-2,2 stage 1 at dt = 0.01, betas from the state
+    tc = TimeCoeffs(0.5, 0.5 * u, 200.0, -200.0 * u, 0.01, 0.01)
+    r, J = asm.res_and_jac(u, tc)
+    apply_timings("ns_apply", asm, J, r, device)
+    profiled("ns_assembly_stage",
+             lambda: [asm.res_and_jac(u, tc) for _ in range(5)], device,
+             out_dir, per=5)
+    M = build_preconditioner(J, "jacobi")
+    profiled("ns_gmres_cycle",
+             lambda: gmres(J.apply, r, m=40, tol=0.0, max_restarts=1,
+                           precond=M), device, out_dir, per=40)
+    split_solves(device, [
+        ("ns_channel_direct_nx128", ns_deck(128, 32, {
+            "use direct solver": True, "nonlinear TOL": 1e-8})),
+        (f"ns_startup_dirk22_nx{n}", ns_startup_deck(n))], runs=(1,))
+
+
 def main():
     ap = argparse.ArgumentParser(description=__doc__.splitlines()[0])
     ap.add_argument("--out", default=None)
@@ -162,13 +246,21 @@ def main():
     ap.add_argument("--cg-iters", type=int, default=200)
     ap.add_argument("--device", default="cuda", choices=["cuda", "cpu"])
     ap.add_argument("--split", action="store_true")
+    ap.add_argument("--ns", action="store_true")
+    ap.add_argument("--n-ns", type=int, default=512)
     args = ap.parse_args()
     device = torch.device(args.device)
-    if args.split:
-        split_solves(device, args.n_full)
-        return
     if args.out:
         os.makedirs(args.out, exist_ok=True)
+    if args.split:
+        n = args.n_full
+        split_solves(device, [(f"nonlinear_nx{n}", nonlinear_deck(n)),
+                              (f"bdf2_nonlinear_nx{n}",
+                               bdf2_nonlinear_deck(n))])
+        return
+    if args.ns:
+        ns_pieces(device, args.n_ns, args.out)
+        return
 
     from mrhyde_tpu_torch.assembly.assembler import TimeCoeffs
     from mrhyde_tpu_torch.problem import Problem
@@ -197,6 +289,8 @@ def main():
 
     p, tc = setup(deck(args.n_state))
     u = p.initial_state()
+    apply_timings("apply_state", p.assembler,
+                  p.assembler.res_and_jac(u, tc)[1], u, device)
     profiled("assembly_state", repeat(p, u, lambda: tc), device, args.out,
              per=5)
     u = seeded_state(p)
@@ -220,14 +314,7 @@ def main():
         for _ in range(20):
             J.apply(r)
     profiled("apply", apply20, device, args.out, per=20)
-    if device.type == "cuda":
-        matfree = p.assembler.matfree_apply_fn(J)
-        err = float((matfree(r) - J.apply(r)).abs().max())
-        print(json.dumps({
-            "piece": "apply_vs_matfree", "n_dof": p.n_dof,
-            "apply_ms": event_ms(lambda: J.apply(r)),
-            "matfree_apply_ms": event_ms(lambda: matfree(r)),
-            "max_abs_diff": err}), flush=True)
+    apply_timings("apply_full", p.assembler, J, r, device)
 
     M = build_preconditioner(J, "jacobi")
     profiled("cg", lambda: pcg(J.apply, r, M=M, tol=0.0,

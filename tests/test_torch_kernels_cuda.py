@@ -12,8 +12,9 @@ import numpy as np
 import pytest
 import torch
 
-from torch_port_utils import (DIRK22_STAGE1, KAPPAS, MASSES, SOURCE_NL,
-                              seeded, thermal_cfg, transient_cfg)
+from torch_port_utils import (DIRK22_STAGE1, KAPPAS, MASSES, NS_STAGE1,
+                              SOURCE_NL, channel_cfg, seeded, thermal_cfg,
+                              transient_cfg)
 
 torch.set_num_threads(1)
 
@@ -169,3 +170,76 @@ def test_wrapper_checks_inputs_on_card():
         fp.thermal_node_state(torch.zeros((5, 10), device=dev,
                                           dtype=torch.float64)[:, ::2],
                               1.0, tab)
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("transient", [False, True])
+@pytest.mark.parametrize("dtype", [torch.float64, torch.float32])
+@pytest.mark.parametrize("shape", [(37, 29), (64, 16)])
+def test_ns_kernel_matches_plain(shape, dtype, transient):
+    """ns_node_full (steady PSPG with a per-qp viscosity; a PSPG+SUPG
+    stage) against its plain version: residual and rows each within the
+    tolerance of its own max |plain|."""
+    from mrhyde_tpu_torch.ops import fused_ns as fn
+    from mrhyde_tpu_torch.ops import fused_p1 as fp
+    from mrhyde_tpu_torch.problem import Problem
+    dev = _card()
+    N0, N1 = shape
+    t0 = Problem(channel_cfg(N0, N1), device="cpu").assembler \
+        .fused_provider().tables
+    tab = fp.QuadTables(np.asarray(t0.phi), np.asarray(t0.grad),
+                        np.asarray(t0.wts), dev, dtype)
+    gen = torch.Generator(device=dev).manual_seed(11)
+    ue, ud = (torch.rand((3, N0 + 1, N1 + 1), generator=gen, device=dev,
+                         dtype=dtype) - 0.5 for _ in range(2))
+    visc = 0.1 + 0.01 * torch.rand((N0 * N1, tab.Q), generator=gen,
+                                   device=dev, dtype=dtype)
+    h = float(np.sqrt(np.sum(t0.wts)))
+    form = fn.NSForm(True, transient, h, 0.01, transient)
+    stage = fp.Stage(*NS_STAGE1, None) if transient else None
+    block = {r * 12 + 8 + cp for r in range(8) for cp in range(4)}
+    jac_idx = tuple(k for k in range(144) if transient or k not in block)
+    args = (ue, 200.0 * ud if transient else None, (1.0, visc, 1.0, 0.0),
+            tab, form, jac_idx, stage)
+    before = fp.LAUNCHES["ns_full"]
+    out, jac = fn.ns_node_full(*args)
+    ref, jref = fn.ns_node_full_plain(*args)
+    assert _close(out, ref, dtype) and _close(jac, jref, dtype)
+    assert jac.shape == (len(jac_idx), N0 * N1)
+    assert fp.LAUNCHES["ns_full"] == before + 1
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("case", ["pspg_steady_visc_x", "supg_stage"])
+def test_ns_provider_on_card_matches_cpu(case):
+    """The NS provider on CUDA (kernel) against the same call on the CPU
+    (plain version): residual and every Jacobian row, f64."""
+    from mrhyde_tpu_torch.assembly.assembler import TimeCoeffs
+    from mrhyde_tpu_torch.interop import (state_from_numpy, state_to_numpy,
+                                          time_coeffs_from_numpy)
+    from mrhyde_tpu_torch.problem import Problem
+    dev = _card()
+    stage = case == "supg_stage"
+    cfg = channel_cfg(23, 17, supg=stage,
+                      visc=None if stage else "0.1 + 0.01*x",
+                      solver={"solver": "transient"} if stage else None)
+    out = {}
+    for d in ("cpu", dev):
+        p = Problem(cfg, device=d)
+        n = p.n_dof
+        tc = (time_coeffs_from_numpy(NS_STAGE1[0], seeded(n, seed=11),
+                                     NS_STAGE1[1], seeded(n, seed=12), 0.3,
+                                     0.01, p)
+              if stage else TimeCoeffs.steady(n, device=d))
+        r, rows = p.assembler.fused_provider().res_jac(
+            state_from_numpy(seeded(n, seed=9), p), tc)
+        out[str(d)] = (state_to_numpy(r),
+                       [None if x is None else state_to_numpy(x)
+                        for x in rows])
+    (rc, jc), (rg, jg) = out["cpu"], out[str(dev)]
+    assert np.max(np.abs(rg - rc)) <= 1e-12 * max(1.0, np.max(np.abs(rc)))
+    for a, b in zip(jg, jc):
+        assert (a is None) == (b is None)
+        if a is not None:
+            assert np.max(np.abs(a - b)) <= 1e-12 * max(1.0,
+                                                        np.max(np.abs(b)))

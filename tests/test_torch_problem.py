@@ -19,8 +19,8 @@ import yaml
 
 from mrhyde_tpu_torch.interop import (params_from_numpy, state_from_numpy,
                                       state_to_numpy)
-from torch_port_utils import (SOURCE_NL, both_problems, thermal_cfg,
-                              transient_cfg)
+from torch_port_utils import (SOURCE_NL, both_problems, channel_cfg,
+                              thermal_cfg, transient_cfg)
 
 torch.set_num_threads(1)
 
@@ -150,6 +150,13 @@ def test_port_runs_without_importing_jax():
             "r = Problem(transient_cfg(6, solver={'transient Butcher "
             "tableau': 'DIRK-2,2'}), device='cpu').run()\n"
             "assert len(r.error_history) == 5 and r.time > 0.19\n"
+            "from torch_port_utils import channel_cfg\n"
+            "p = Problem(channel_cfg(10, 2, solver={'use direct solver': "
+            "True}), device='cpu')\n"
+            "assert type(p.assembler.fused_provider()).__name__ == "
+            "'FusedNSAssembly'\n"
+            "r = p.run()\n"
+            "assert r.newton.converged and ('L2', 'pr') in r.errors\n"
             "bad = [m for m in sys.modules if m == 'jax' or "
             "m.startswith(('jax.', 'mrhyde_tpu.')) or m == 'mrhyde_tpu']\n"
             "assert not bad, bad\n"
@@ -164,8 +171,13 @@ def test_port_runs_without_importing_jax():
     {"Solver": {"shards": 2}},
     {"Parameters": {"kp": {"type": "scalar", "value": 1.0}}},
     {"Analysis": {"analysis type": "ROL"}},
-    {"Physics": {"modules": "navier stokes"}},
+    {"Physics": {"modules": "cdr"}},
     {"Physics": {"modules": "thermal", "include advection": True}},
+    # the Boussinesq coupling of an NS + thermal set
+    {"Physics": {"modules": "navier stokes,thermal"}},
+    # a state-dependent NS coefficient
+    {"Physics": {"modules": "navier stokes"},
+     "Functions": {"viscosity": "1.0 + ux*ux"}},
 ])
 def test_unported_deck_features_raise(cfg_patch):
     from mrhyde_tpu_torch.problem import Problem
@@ -174,3 +186,21 @@ def test_unported_deck_features_raise(cfg_patch):
         cfg[k] = dict(cfg.get(k, {}), **v)
     with pytest.raises(NotImplementedError):
         Problem(cfg, device="cpu")
+
+
+def test_default_device_is_the_card(monkeypatch, tmp_path):
+    """With no device named, the entry points take the card; without
+    one they raise rather than fall back to the CPU."""
+    from mrhyde_tpu_torch import driver
+    from mrhyde_tpu_torch.problem import Problem
+    from mrhyde_tpu_torch.runtime import resolve_device
+    monkeypatch.setattr(torch.cuda, "is_available", lambda: False)
+    with pytest.raises(RuntimeError):
+        resolve_device(None)
+    with pytest.raises(RuntimeError):
+        Problem(thermal_cfg(4))
+    deck = tmp_path / "input.yaml"
+    deck.write_text(yaml.safe_dump(channel_cfg(4, 2)))
+    with pytest.raises(RuntimeError):
+        driver.main([str(deck)])
+    assert resolve_device("cpu") == torch.device("cpu")

@@ -88,3 +88,46 @@ def seeded(n, seed=0, scale=0.3):
 
 def max_diff(a, b):
     return float(np.max(np.abs(np.asarray(a) - np.asarray(b))))
+
+
+# Navier-Stokes / Stokes: the reference's channel [0,5]x[0,1] driven by
+# source ux = 1, Poiseuille ux = 0.5 y (1-y) (navierstokes/channel), and
+# its 4x4 Stokes PSPG deck on the unit square (stokes/2D_verification_pspg)
+FLOW_TRUE = {"ux": "0.5*y*(1.0-y)", "uy": "0.0", "pr": "0.0"}
+# DIRK-2,2 stage 1 at dt = 0.01
+NS_STAGE1 = (0.5, 200.0)
+
+
+def channel_cfg(nx, ny, module="navier stokes", supg=False, visc=None,
+                solver=None, box=(5.0, 1.0)):
+    """The channel deck (PSPG; SUPG optional), at rest initially, with
+    the given Solver keys (steady-state unless they say otherwise)."""
+    cfg = {
+        "Mesh": {"dimension": 2, "element type": "quad", "xmin": 0.0,
+                 "xmax": box[0], "ymin": 0.0, "ymax": box[1], "NX": nx,
+                 "NY": ny},
+        "Physics": {"modules": module, "usePSPG": True, "useSUPG": supg,
+                    "Dirichlet conditions": {
+                        "scalar data": True,
+                        "ux": {"bottom": 0.0, "top": 0.0},
+                        "uy": {"bottom": 0.0, "top": 0.0}},
+                    "Initial conditions": {"scalar data": True, "ux": 0.0,
+                                           "uy": 0.0, "pr": 0.0}},
+        "Discretization": {"order": {"ux": 1, "uy": 1, "pr": 1},
+                           "quadrature": 2},
+        "Solver": dict({"solver": "steady-state"}, **(solver or {})),
+        "Postprocess": {"compute errors": True,
+                        "True solutions": dict(FLOW_TRUE)},
+        "Functions": {"source ux": "1.0"},
+    }
+    if visc is not None:
+        cfg["Functions"]["viscosity"] = visc
+    return cfg
+
+
+def startup_cfg(nx, ny):
+    """The channel started from rest: PSPG+SUPG, DIRK-2,2, 4 steps of
+    0.01, nonlinear TOL 1e-8, the default linear solver."""
+    return channel_cfg(nx, ny, supg=True, solver={
+        "solver": "transient", "transient Butcher tableau": "DIRK-2,2",
+        "final time": 0.04, "number of steps": 4, "nonlinear TOL": 1e-8})
