@@ -2,8 +2,9 @@
 
     python3 chip_smoke.py
 
-Drives mrhyde_tpu_torch's thermal and Navier-Stokes main paths, steady
-and transient, through `Problem(cfg).run()` on the card, after building
+Drives mrhyde_tpu_torch's thermal (2D p1 quads, 3D hex, 2D p2 quads)
+and Navier-Stokes main paths, steady and transient, through
+`Problem(cfg).run()` on the card, after building
 its CUDA kernels from the sources in this checkout (one nvcc per source,
 in parallel) and holding each against its plain torch version. Phases
 (one JSON line each):
@@ -53,6 +54,27 @@ in parallel) and holding each against its plain torch version. Phases
              L2 ux/pr/uy at t=0.02 and 0.04 (rtol 1e-6 at 128x32 and
              256x64, where every stage's Newton solve converges; 1e-5 at
              512x128, where three stall in both packages: see NS_STARTUP)
+ 3c kernels  thermal_elem_state and thermal_elem_full (the element
+             kernels) against their plain versions on hex at 128^3 and
+             127x100x77 and on p2 quads at 1024^2 and 1000x777, f64 and
+             f32 (the same bounds): steady with kappa = 1 and kappa = 1 +
+             0.5 x y (z), and at DIRK-2,2 stage-1 alphas with m = 1 +
+             0.5 x; "full" with kappa = 1 + e*e steady and at that stage
+             (seeded u, beta_u, beta_t); CUDA-event medians of 20 (plain: 5)
+ 14 hex_gold_nx10   the reference's thermal/3D_verification, 10^3 hex,
+             direct: L2(e) = 0.0116656 (rtol 2e-5; the reference's gold)
+ 15 hex_default_nx96   the same at 96^3 (912,673 DOFs), nonlinear TOL
+             1e-10, GMRES + Jacobi
+ 16 hex_nonlinear_nx64   kappa = 1 + e*e with its manufactured source,
+             64^3, CG, TOL 1e-10
+ 17 hex_transient_dirk22_nx64   u = sin(2 pi t) S3, IC 0, DIRK-2,2, 8
+             steps to t=0.4, TOL 1e-10, GMRES + Jacobi
+ 18 hex_transient_nonlinear_bdf2_nx48   kappa = 1 + e*e, BDF2 after one
+             BWE/BDF1 startup step, 4 steps to t=0.2, CG
+ 19 p2_default_nx256   p2 quads (quadrature 4), kappa = 1, 256^2
+             (263,169 DOFs), TOL 1e-10, GMRES + Jacobi
+ 20 p2_nonlinear_nx128   p2, kappa = 1 + e*e, 128^2, CG
+             (15-20: the JAX package's L2 at rtol 1e-4; see HEX_DEFAULT_L2)
 
 The reference L2 values are the JAX package's, computed in f64 on the
 CPU, or the reference's golds. Each deck runs one assembly before its
@@ -62,9 +84,10 @@ assembly timing; so are the calls of the assembler's fused provider. A
 fused deck must launch its kernel exactly once per fused res_and_jac
 call (each Newton iteration and each stage's converged check), plus,
 for the state kernel in a transient deck, twice per stage (the coord
-part on the beta_u and beta_t grids), and the other kernel never: phases
+part on the beta_u and beta_t grids), and the other kernels never: phases
 4, 5, 7 and 8 run thermal_node_state, 6 and 9 thermal_node_full, 11-13
-ns_node_full (once per fused res_and_jac call, no thermal kernel). The
+ns_node_full (once per fused res_and_jac call, no thermal kernel), 14,
+15, 17 and 19 thermal_elem_state, 16, 18 and 20 thermal_elem_full. The
 `kernels` line reports the sums over the decks, each kernel's error,
 times and bound (bytes or operations, whichever is larger; see `bound`)
 at its quoted case.
@@ -198,7 +221,8 @@ DIRK22_STAGE1 = (0.5, 40.0)
 def qp_inputs(N0, N1, tab, q_off, device, dtype, gen):
     """Seeded random node grids u, beta_u, beta_t, and per-qp (E, Q)
     tensors: kappa = 1 + 0.5 x y, m = 1 + 0.5 x; for kappa = 1 + e*e
-    with source SOURCE_NL the tensors S, dS/de, K, dK/de at u (steady),
+    with source SOURCE_NL the tensors S, a seeded dS/de, K, dK/de at u
+    (steady),
     and at u_eval = alpha_u u + beta_u, u_dot = alpha_t u + beta_t with
     m = 1 (S = u_dot - f; DIRK-2,2 stage-1 alphas) for the transient
     full kernel. Returns (u, kxy, mx, steady full inputs, (u_eval,
@@ -227,8 +251,11 @@ def qp_inputs(N0, N1, tab, q_off, device, dtype, gen):
         gx * gx + gy * gy)
 
     def full_inputs(uq, S):
+        # dS/de is 0 for this source; a seeded one checks its column term
+        dS = torch.rand(uq.shape, generator=gen, device=device,
+                        dtype=dtype) - 0.5
         return [t.reshape(-1, tab.Q).contiguous()
-                for t in (S, torch.zeros_like(uq), 1.0 + uq * uq, 2.0 * uq)]
+                for t in (S, dS, 1.0 + uq * uq, 2.0 * uq)]
     au, at = DIRK22_STAGE1
     ue = (au * u + bu).contiguous()
     ueq, udq = at_qps(ue), at_qps(at * u + bt)
@@ -488,6 +515,199 @@ def phase_ns_kernels(device):
 
 
 # ----------------------------------------------------------------------
+# 3D hex (p1) and 2D p2 quads: the element kernels (B1)
+# ----------------------------------------------------------------------
+
+# the reference's thermal/3D_verification: u = S3 on the unit cube
+S3_TRUE = "sin(2*pi*x)*sin(2*pi*y)*sin(2*pi*z)"
+SOURCE3 = f"12*(pi*pi)*{S3_TRUE}"
+GRAD3_SQ = ("(cos(2*pi*x)*sin(2*pi*y)*sin(2*pi*z))^2"
+            "+(sin(2*pi*x)*cos(2*pi*y)*sin(2*pi*z))^2"
+            "+(sin(2*pi*x)*sin(2*pi*y)*cos(2*pi*z))^2")
+# -div((1 + u^2) grad u) for u = S3
+SOURCE3_NL = (f"12*(pi*pi)*{S3_TRUE}*(1+({S3_TRUE})^2) - 8*(pi*pi)*"
+              f"{S3_TRUE}*({GRAD3_SQ})")
+SOURCE3_T = f"(12*(pi*pi)*sin(2*pi*t)+2*pi*cos(2*pi*t))*{S3_TRUE}"
+# u_t - div((1 + u^2) grad u) for u = T S3, substituted as text
+SOURCE3_T_NL = (
+    "2*pi*cos(2*pi*t)*S + 12*(pi*pi)*T*S*(1+(T*S)^2) - 8*(pi*pi)*T*T*T*S*"
+    "(G)").replace("G", GRAD3_SQ).replace("S", S3_TRUE).replace("T", T_TIME)
+# the JAX package's f64 CPU L2(e) of the B1 decks (ROADMAP's reference
+# tables): hex at 96^3, 64^3 and 48^3; p2 at 256^2 and 128^2 (their error
+# falls 8.0x per halving of h from 64^2, so it is no solver noise)
+HEX_DEFAULT_L2 = 0.00012621221964007027
+HEX_NL_L2 = 0.0002840068798427259
+HEX_DIRK22_L2 = 0.0004936068749104585
+HEX_BDF2_NL_L2 = 0.0007306455172806904
+P2_DEFAULT_L2 = 5.029830565509573e-08
+P2_NL_L2 = 4.023729085365165e-07
+BDF2_SOLVER = {"transient Butcher tableau": "BWE", "transient BDF order": 2,
+               "transient startup Butcher tableau": "BWE",
+               "transient startup BDF order": 1,
+               "transient startup steps": 1, "final time": 0.2,
+               "number of steps": 4, "nonlinear TOL": 1e-10,
+               "Belos solver": "CG"}
+
+
+def hex_deck(n, kappa="1.0", source=SOURCE3, solver=None):
+    """thermal/3D_verification on an n^3 hex mesh (Dirichlet 0)."""
+    cfg = deck(n, kappa, source, solver)
+    cfg["Mesh"].update({"dimension": 3, "element type": "hex", "NZ": n})
+    cfg["Postprocess"]["True solutions"] = {"e": S3_TRUE}
+    return cfg
+
+
+def hex_transient_deck(n, solver, kappa="1.0", source=SOURCE3_T):
+    """The 3D analogue of the 2D transient deck: IC 0, u = T S3."""
+    cfg = hex_deck(n, kappa, source, dict({"solver": "transient"}, **solver))
+    cfg["Physics"]["Initial conditions"] = {"e": "0.0"}
+    cfg["Postprocess"]["True solutions"] = {"e": f"{T_TIME}*{S3_TRUE}"}
+    return cfg
+
+
+def p2_deck(n, kappa="1.0", source=SOURCE, solver=None):
+    """The 2D deck with p2 variables, quadrature 4."""
+    cfg = deck(n, kappa, source, solver)
+    cfg["Discretization"] = {"order": {"e": 2}, "quadrature": 4}
+    return cfg
+
+
+ELEM_SHAPES = (("hex", (128, 128, 128)), ("hex", (127, 100, 77)),
+               ("p2", (1024, 1024)), ("p2", (1000, 777)))
+
+
+def elem_tables(mesh, dims, device, dtype):
+    """(QuadTables, Lattice, qp offsets) of a uniform hex (p1, quadrature
+    2) or quad (p2, quadrature 4) grid of `dims` elements on the unit
+    box."""
+    import numpy as np
+    from mrhyde_tpu_torch.assembly.discretization import Discretization
+    from mrhyde_tpu_torch.mesh.structured import box_mesh
+    from mrhyde_tpu_torch.ops.fused_elem import basis_lattice
+    from mrhyde_tpu_torch.ops.fused_p1 import QuadTables
+    cell, order, quad = ("hex", 1, 2) if mesh == "hex" else ("quad", 2, 4)
+    size = dict(zip(("xmax", "ymax", "zmax"), (1.0 / n for n in dims)))
+    disc = Discretization(box_mesh(cell, **size), [("e", "HGRAD", order)],
+                          quad)
+    key = ("HGRAD", order)
+    tab = QuadTables(disc.basis_vals[key], disc.basis_grads[key][0],
+                     disc.wts[0], device, dtype)
+    return tab, basis_lattice(cell, order), np.asarray(disc.ip[0])
+
+
+def elem_inputs(dims, tab, lat, q_off, device, dtype, gen):
+    """Seeded random grids u, beta_u, beta_t; per-qp (E, Q) kappa = 1 +
+    0.5 x y (z) and m = 1 + 0.5 x; for kappa = 1 + e*e with its
+    manufactured source f the tensors S, a seeded dS/de, K, dK/de at u
+    (steady)
+    and at u_eval = alpha_u u + beta_u, u_dot = alpha_t u + beta_t with m
+    (S = m u_dot - f; DIRK-2,2 stage-1 alphas). Returns (u, kxy, m,
+    steady full inputs, (u_eval, transient full inputs))."""
+    import math
+    from mrhyde_tpu_torch.ops.fused_elem import corner_values
+    shape = tuple(lat.stride * n + 1 for n in dims)
+    u, bu, bt = (torch.rand(shape, generator=gen, device=device,
+                            dtype=dtype) - 0.5 for _ in range(3))
+    dim, E = len(dims), math.prod(dims)
+    xs = []
+    for a in range(dim):
+        view = [1] * dim + [tab.Q]
+        view[a] = dims[a]
+        idx = torch.arange(dims[a], device=device, dtype=dtype)
+        off = torch.as_tensor(q_off[:, a], device=device, dtype=dtype)
+        xs.append((idx.reshape(view[:dim] + [1]) / dims[a]
+                   + off.reshape([1] * dim + [tab.Q]))
+                  .expand(*dims, tab.Q).reshape(E, tab.Q))
+    kxy = (1.0 + 0.5 * math.prod(xs)).contiguous()
+    mx = (1.0 + 0.5 * xs[0]).contiguous()
+    sins = [torch.sin(2 * math.pi * x) for x in xs]
+    s = math.prod(sins)
+    g2 = sum((torch.cos(2 * math.pi * xs[a])
+              * math.prod(sins[b] for b in range(dim) if b != a)) ** 2
+             for a in range(dim))
+    f = 4 * math.pi ** 2 * dim * s * (1 + s * s) - 8 * math.pi ** 2 * s * g2
+
+    def at_qps(g):
+        uc = corner_values(g, lat)
+        return torch.stack([sum(tab.phi[c][q] * uc[c]
+                                for c in range(tab.nc))
+                            for q in range(tab.Q)], dim=-1)
+
+    def full_inputs(uq, S):
+        # dS/de is 0 for this source; a seeded one checks its column term
+        dS = torch.rand(uq.shape, generator=gen, device=device,
+                        dtype=dtype) - 0.5
+        return [t.contiguous() for t in (S, dS, 1.0 + uq * uq, 2.0 * uq)]
+    au, at = DIRK22_STAGE1
+    ue = (au * u + bu).contiguous()
+    ueq, udq = at_qps(ue), at_qps(at * u + bt)
+    return (u, kxy, mx, full_inputs(at_qps(u), -f),
+            (ue, full_inputs(ueq, mx * udq - f)))
+
+
+def phase_elem_kernels(device):
+    """thermal_elem_state and thermal_elem_full against their plain
+    versions (within rtol of max |plain|, rows and Jacobian rows each),
+    hex and p2, f64 and f32, with CUDA-event medians of 20 (plain: 5)
+    and the bound of each case."""
+    from mrhyde_tpu_torch.ops import fused_elem as fe
+    from mrhyde_tpu_torch.ops.fused_p1 import Stage
+    summary = {}
+    for dtype, rtol in ((torch.float64, 1e-12), (torch.float32, 1e-5)):
+        for mesh, dims in ELEM_SHAPES:
+            gen = torch.Generator(device=device).manual_seed(2468)
+            tab, lat, q_off = elem_tables(mesh, dims, device, dtype)
+            u, kxy, mx, full, (ue, tr) = elem_inputs(
+                dims, tab, lat, q_off, device, dtype, gen)
+            stx = Stage(*DIRK22_STAGE1, mx)
+            xy = "xyz" if mesh == "hex" else "xy"
+            work = (u, dims, tab, dtype)
+            cases = [
+                ("thermal_elem_state", "kappa=1.0", (u, 1.0, tab, lat),
+                 elem_work("state", *work, 1.0, None)),
+                ("thermal_elem_state", f"kappa=1+0.5{xy}",
+                 (u, kxy, tab, lat), elem_work("state", *work, kxy, None)),
+                ("thermal_elem_state", f"dirk22 kappa=1+0.5{xy} m=1+0.5x",
+                 (u, kxy, tab, lat, stx), elem_work("state", *work, kxy,
+                                                    stx)),
+                ("thermal_elem_full", "kappa=1+e*e", (u, *full, tab, lat),
+                 elem_work("full", *work, None, None, full)),
+                ("thermal_elem_full", "dirk22 kappa=1+e*e m=1+0.5x",
+                 (ue, *tr, tab, lat, stx), elem_work("full", *work, None,
+                                                     stx, tr)),
+            ]
+            for name, label, args, (nbytes, nflops) in cases:
+                kern = getattr(fe, name)
+                plain = getattr(fe, name + "_plain")
+                out, ref = kern(*args), plain(*args)
+                torch.cuda.synchronize()
+                pairs = [max_err(o, r) for o, r in
+                         (zip(out, ref) if isinstance(ref, tuple)
+                          else [(out, ref)])]
+                err = max(e for e, _ in pairs)
+                ok = all(e <= rtol * sc for e, sc in pairs)
+                rec = {"phase": "kernels", "kernel": name, "case": label,
+                       "mesh": mesh, "dtype": str(dtype).replace(
+                           "torch.", ""), "shape": list(dims),
+                       "max_abs_err": err,
+                       "max_abs_plain": max(sc for _, sc in pairs),
+                       "rtol": rtol, "ok": ok,
+                       "ms": cuda_ms(lambda: kern(*args)),
+                       "plain_ms": cuda_ms(lambda: plain(*args), reps=5),
+                       **bound(nbytes, nflops, dtype)}
+                emit(rec)
+                if not ok:
+                    raise SystemExit(f"{name} {label} disagrees with its "
+                                     f"plain version: {rec}")
+                # the summary line quotes the f64 128^3 hex transient
+                # cases
+                if dtype == torch.float64 and (mesh, dims) \
+                        == ELEM_SHAPES[0] and label.startswith("dirk22"):
+                    summary[name] = rec
+    return summary
+
+
+# ----------------------------------------------------------------------
 # bounds: bytes (each input read once, each output written once) over
 # 3.35 TB/s, and the operations counted from each kernel's source (an
 # FMA is 2, a divide or a square root 1) over the card's peak for their
@@ -515,6 +735,14 @@ def _qp_len(v):
 # once. The kernels recompute an element's quadrature in each of its four
 # node threads (and ns_node_full its values and primal density in each of
 # three column threads); that is their design's cost, not the function's.
+# With kappa (and a stage's m) scalar, the state part on a uniform mesh is
+# one constant nc x nc element matrix times the element's values: nc^2 FMA
+# per element.
+
+
+def _constant_matrix(kappa, stage):
+    return not isinstance(kappa, torch.Tensor) and (
+        stage is None or not isinstance(stage.mass, torch.Tensor))
 
 
 def thermal_work(kernel, N0, N1, Q, dtype, kappa, stage, full_inputs=()):
@@ -526,6 +754,8 @@ def thermal_work(kernel, N0, N1, Q, dtype, kappa, stage, full_inputs=()):
     mass = _qp_len(stage.mass) if tr else 0
     if kernel == "state":
         nbytes = it * (2 * nodes + _qp_len(kappa) + mass)
+        if _constant_matrix(kappa, stage):
+            return nbytes, E * 2 * 4 * 4
         # per element and qp: grad u_h 16, the flux 2, four rows of 5; a
         # stage adds u_h 8, the alphas and the mass lane 4, and 2 per row
         per_q = 16 + 2 + 4 * 5 + (8 + 4 + 4 * 2 if tr else 0)
@@ -535,6 +765,39 @@ def thermal_work(kernel, N0, N1, Q, dtype, kappa, stage, full_inputs=()):
     # per element and qp: grad u_h 16, the flux 2, four residual rows of
     # 7, the Jacobian's 16 (c, c') pairs of 16 (20 in a stage)
     return nbytes, E * Q * (16 + 2 + 4 * 7 + 16 * (20 if tr else 16))
+
+
+def elem_work(kernel, grid, dims, tab, dtype, kappa, stage,
+              full_inputs=()):
+    """(bytes, flops) of one thermal_elem_state / thermal_elem_full call
+    (csrc/fused_elem_thermal.cu) on the element grid `dims`: the grid,
+    the coefficient tensors and the rows once; each element's quadrature
+    once (not the full kernel's per-column recomputation of grad u_h)."""
+    import math
+    E, nc, dim, Q = math.prod(dims), tab.nc, tab.dim, tab.Q
+    nodes = grid.numel()
+    it = torch.finfo(dtype).bits // 8
+    tr = stage is not None
+    mass = _qp_len(stage.mass) if tr else 0
+    grad_uh = 2 * nc * dim
+    if kernel == "state":
+        nbytes = it * (nodes + _qp_len(kappa) + mass + nc * E)
+        if _constant_matrix(kappa, stage):
+            return nbytes, E * 2 * nc * nc
+        # per element and qp: grad u_h, the flux dim, nc rows of 2 dim +
+        # 2; a stage adds u_h 2 nc, its alphas dim + 2, and 2 per row
+        per_q = (grad_uh + dim + nc * (2 * dim + 2)
+                 + (2 * nc + dim + 2 + 2 * nc if tr else 0))
+        return nbytes, E * Q * per_q
+    nbytes = it * (nodes + sum(t.numel() for t in full_inputs) + mass
+                   + (nc + nc * nc) * E)
+    # per element and qp: grad u_h, the flux dim, nc residual rows of 2
+    # dim + 3, nc column tangents of 4 dim + 1 (a stage: dim + 3 more),
+    # nc * nc Jacobian entries of 2 dim + 3
+    per_q = (grad_uh + dim + nc * (2 * dim + 3)
+             + nc * (4 * dim + 1 + (dim + 3 if tr else 0))
+             + nc * nc * (2 * dim + 3))
+    return nbytes, E * Q * per_q
 
 
 def ns_density_flops(n, tr, pspg, supg):
@@ -595,7 +858,9 @@ def run_deck(name, cfg, device, checks, mode):
     transient deck (the beta grids of the coord part), and the other
     kernel never; mode None: no fused provider, no launch. An NS deck
     (mode "ns_full") launches ns_node_full once per fused res_and_jac
-    call and no thermal kernel."""
+    call and no thermal kernel. A 3D hex or p2 deck ("elem_state",
+    "elem_full") follows the thermal rule with the element kernels (B1)
+    and launches no node kernel (B2); a 2D p1 deck no element kernel."""
     from mrhyde_tpu_torch.ops import fused_p1 as fp
     from mrhyde_tpu_torch.problem import Problem
     torch.cuda.synchronize()
@@ -658,8 +923,8 @@ def run_deck(name, cfg, device, checks, mode):
             raise SystemExit(f"phase {name}: expected no fused provider")
     else:
         per_stage = 2 * result.counts["stages"] \
-            if mode == "state" and problem.solver_cfg.get("solver") \
-            == "transient" else 0
+            if mode in ("state", "elem_state") \
+            and problem.solver_cfg.get("solver") == "transient" else 0
         want = {k: fused_calls + per_stage if k == mode else 0
                 for k in launches}
     if launches != want or (mode is not None and fused_calls <= 0):
@@ -693,6 +958,7 @@ def main():
 
     summary = phase_kernels(device)
     summary["ns_node_full"] = phase_ns_kernels(device)
+    summary.update(phase_elem_kernels(device))
 
     per_deck = [
         run_deck("gold_nx40", deck(40), device,
@@ -733,7 +999,34 @@ def main():
     ] + [run_deck(f"ns_startup_dirk22_nx{n}", ns_startup_deck(n), device,
                   [(t, v, g, rtol) for t, ref in refs.items()
                    for v, g in zip(("ux", "pr", "uy"), ref)], "ns_full")
-         for n, (rtol, refs) in NS_STARTUP.items()]
+         for n, (rtol, refs) in NS_STARTUP.items()] + [
+        run_deck("hex_gold_nx10", hex_deck(10), device,
+                 [(0.0, "e", 0.0116656, 2e-5)], "elem_state"),
+        run_deck("hex_default_nx96",
+                 hex_deck(96, solver={"nonlinear TOL": 1e-10}), device,
+                 [(0.0, "e", HEX_DEFAULT_L2, 1e-4)], "elem_state"),
+        run_deck("hex_nonlinear_nx64",
+                 hex_deck(64, "1.0 + e*e", SOURCE3_NL,
+                          {"nonlinear TOL": 1e-10, "Belos solver": "CG"}),
+                 device, [(0.0, "e", HEX_NL_L2, 1e-4)], "elem_full"),
+        run_deck("hex_transient_dirk22_nx64",
+                 hex_transient_deck(64, {
+                     "transient Butcher tableau": "DIRK-2,2",
+                     "final time": 0.4, "number of steps": 8,
+                     "nonlinear TOL": 1e-10}),
+                 device, [(0.4, "e", HEX_DIRK22_L2, 1e-4)], "elem_state"),
+        run_deck("hex_transient_nonlinear_bdf2_nx48",
+                 hex_transient_deck(48, BDF2_SOLVER, "1.0 + e*e",
+                                    SOURCE3_T_NL),
+                 device, [(0.2, "e", HEX_BDF2_NL_L2, 1e-4)], "elem_full"),
+        run_deck("p2_default_nx256",
+                 p2_deck(256, solver={"nonlinear TOL": 1e-10}), device,
+                 [(0.0, "e", P2_DEFAULT_L2, 1e-4)], "elem_state"),
+        run_deck("p2_nonlinear_nx128",
+                 p2_deck(128, "1.0 + e*e", SOURCE_NL,
+                         {"nonlinear TOL": 1e-10, "Belos solver": "CG"}),
+                 device, [(0.0, "e", P2_NL_L2, 1e-4)], "elem_full"),
+    ]
     launches = {k: sum(d[k] for d in per_deck) for k in fp.LAUNCHES}
     emit({"phase": "launches", **launches})
     if min(launches.values()) <= 0:
@@ -742,15 +1035,19 @@ def main():
 
     csrc = "mrhyde_tpu_torch/ops/csrc/"
     kernels = []
-    # no single PyTorch call computes a node-scatter assembly: library_ms
-    # is null for all three
-    for name, mode, src in (
-            ("thermal_node_state", "state", "fused_p1_thermal.cu"),
-            ("thermal_node_full", "full", "fused_p1_thermal.cu"),
-            ("ns_node_full", "ns_full", "fused_p1_ns.cu")):
+    # no single PyTorch call computes a node-scatter or an element-tile
+    # assembly: library_ms is null for all five
+    for name, mode, src, line in (
+            ("thermal_node_state", "state", "fused_p1_thermal.cu", 1350),
+            ("thermal_node_full", "full", "fused_p1_thermal.cu", 1350),
+            ("ns_node_full", "ns_full", "fused_p1_ns.cu", 1350),
+            ("thermal_elem_state", "elem_state", "fused_elem_thermal.cu",
+             1303),
+            ("thermal_elem_full", "elem_full", "fused_elem_thermal.cu",
+             1303)):
         rec = summary[name]
         kernels.append({"name": name, "route": "cuda", "source": csrc + src,
-                        "replaces": "mrhyde_tpu/ops/fused_p1.py:1350",
+                        "replaces": f"mrhyde_tpu/ops/fused_p1.py:{line}",
                         "launches": launches[mode],
                         "max_abs_err": rec["max_abs_err"], "ms": rec["ms"],
                         "plain_ms": rec["plain_ms"],

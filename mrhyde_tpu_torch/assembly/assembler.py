@@ -319,11 +319,26 @@ class Assembler:
         }[mesh.cell_type]
         plan = []
         for i, (name, _s, _o) in enumerate(disc.variables):
-            if disc.basis_keys[name] != ("HGRAD", 1):
+            key = disc.basis_keys[name]
+            start = int(disc.dofmap.var_start[i])
+            if key == ("HGRAD", 1):
+                plan.append(("p1", name, start))
+            elif key == ("HGRAD", 2) and mesh.cell_type == "quad":
+                # the p2 fine lattice: read only by the fused provider
+                # (ops/fused_p1.py); the general gather/scatter below
+                # stays p1 (see "general")
+                plan.append(("p2", name, start))
+            else:
                 return None
-            plan.append(("p1", name, int(disc.dofmap.var_start[i])))
         return {"dims": dims, "corners": corners, "plan": plan,
-                "grid": [d + 1 for d in dims]}
+                "grid": [d + 1 for d in dims],
+                "general": all(k == "p1" for (k, _n, _st) in plan)}
+
+    @property
+    def _slices(self):
+        """Whether the general path gathers and scatters by grid slices
+        (an all-p1 structured plan) rather than through lids."""
+        return self._structured is not None and self._structured["general"]
 
     def _gather_structured(self, u):
         s = self._structured
@@ -394,7 +409,7 @@ class Assembler:
         return (0, 0, 0, self._geo_ax, 0, self._geo_ax)
 
     def _gathered(self, u_st, tc: TimeCoeffs):
-        if self._structured is not None:
+        if self._slices:
             return (self._gather_structured(u_st),
                     self._gather_structured(tc.beta_u),
                     self._gather_structured(tc.beta_t))
@@ -406,7 +421,7 @@ class Assembler:
         res_e = torch.func.vmap(self._elem_fn(tc, pvec),
                                 in_dims=self._in_dims())(
             u_e, bu_e, bt_e, self.g_wts, self.g_ip, self.g_bg)
-        if self._structured is not None:
+        if self._slices:
             r = self._scatter_structured(res_e)
         else:
             flat = torch.cat([res_e.reshape(-1), res_e.new_zeros(1)])
@@ -424,7 +439,7 @@ class Assembler:
                              fixed=self.fixed, inc=self.inc)
 
     def fused_provider(self):
-        """The fused node-scatter provider (ops/fused_p1.py), built on
+        """The fused provider (ops/fused_p1.py), built on
         first use, or None when the problem does not qualify. It engages
         on every device: on the CPU its wrappers run the plain versions
         of the kernels, on the card the CUDA kernels."""
@@ -437,7 +452,8 @@ class Assembler:
     def res_and_jac(self, u_st, tc: TimeCoeffs, pvec=None):
         """(residual, BlockJacobian) in one pass — the Newton-loop entry
         point. Uses the fused provider when the problem qualifies
-        (uniform structured 2D p1 quads, thermal or Navier-Stokes) and
+        (uniform structured meshes: thermal on 2D p1 quads, 3D p1 hex
+        and 2D p2 quads; Navier-Stokes on 2D p1 quads) and
         the params are scalars, steady or transient alike, else the
         general vmapped path."""
         fused = self.fused_provider()
@@ -451,7 +467,7 @@ class Assembler:
     def matfree_apply_fn(self, J):
         """v -> J v through the structured slice gather/scatter (a
         drop-in replacement for BlockJacobian.apply)."""
-        if self._structured is None:
+        if not self._slices:
             return J.apply
 
         def apply(v):

@@ -34,9 +34,11 @@ import numpy as np
 import torch
 
 from mrhyde_tpu_torch.assembly.assembler import BlockJacobian
+from mrhyde_tpu_torch.ops._launch import LAUNCHES, stream
+from mrhyde_tpu_torch.ops.fused_elem import scatter_rows
 from mrhyde_tpu_torch.ops.fused_p1 import (
-    LAUNCHES, QpCtx, Stage, _check_grid, _node_sum, _scalar, _stream,
-    qp_coords, steady_check, structured_geometry)
+    QUAD_P1, QpCtx, Stage, _check_grid, _scalar, qp_coords, steady_check,
+    structured_geometry)
 from mrhyde_tpu_torch.ops.sparse_dual import sparse_jacfwd
 from mrhyde_tpu_torch.physics.navierstokes import (NS_REMAINDER,
                                                    NavierStokes, ns_density)
@@ -191,8 +193,8 @@ def ns_node_full_plain(ue, ud, coeffs, tab, form, jac_idx, stage=None):
     for k, v in enumerate(jac):
         if k not in wanted and _is_varying(v):
             raise AssertionError(f"jac[{k}] probe/kernel class mismatch")
-    node = torch.stack([_node_sum(res[vi * NC:(vi + 1) * NC],
-                                  ue.shape[1:], ue) for vi in range(NV)])
+    node = torch.stack([scatter_rows(res[vi * NC:(vi + 1) * NC], QUAD_P1,
+                                     (N0, N1), ue) for vi in range(NV)])
     E = N0 * N1
     rows = [torch.broadcast_to(torch.as_tensor(jac[k], dtype=ue.dtype,
                                                device=ue.device), (N0, N1))
@@ -283,7 +285,7 @@ def ns_node_full(ue, ud, coeffs, tab, form, jac_idx, stage=None):
     lib = load_library()
     fn = (lib.ns_node_full_f64 if ue.dtype == torch.float64
           else lib.ns_node_full_f32)
-    err = fn(ctypes.c_void_p(ctypes.addressof(args)), _stream(ue))
+    err = fn(ctypes.c_void_p(ctypes.addressof(args)), stream(ue))
     if err != 0:
         raise RuntimeError(f"ns_node_full launch failed: CUDA error {err}")
     LAUNCHES["ns_full"] += 1
@@ -347,10 +349,11 @@ class FusedNSAssembly:
                 and (mesh.cell_type == "hex" or keys == {("HGRAD", 2)}):
             raise NotImplementedError(
                 "the fused Navier-Stokes assembly of 3D hex or p2 quad "
-                "meshes is the element-tile kernel B1, not ported to "
-                "mrhyde_tpu_torch yet (ROADMAP B1)")
+                "meshes is B1 for Navier-Stokes (the element-tile kernel), "
+                "not ported to mrhyde_tpu_torch yet (ROADMAP B1; order "
+                "item 2)")
         if asm._structured is None or mesh.cell_type != "quad" \
-                or not asm.uniform:
+                or not asm._structured["general"] or not asm.uniform:
             return None             # the JAX package's general path too
         for name in COEFFS:
             for leaf in asm.fm.terminal_leaves(name):

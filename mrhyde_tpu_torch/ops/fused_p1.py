@@ -1,7 +1,12 @@
-"""Fused node-scatter assembly for 2D thermal on uniform p1 quads.
+"""Fused assembly of thermal on uniform structured meshes: the node-
+scatter kernels for 2D p1 quads, and the dispatch to the element kernels
+for 3D hex and 2D p2 quads.
 
 (The Navier-Stokes provider, on the same kernel B2 with three variables,
-is ops/fused_ns.py; `FusedP1Assembly.build` hands NS decks to it.)
+is ops/fused_ns.py; `FusedP1Assembly.build` hands NS decks to it. The
+element kernels, the port of the JAX package's element-tile TPU kernel
+B1, are ops/fused_elem.py; the provider below picks B2 for 2D p1 and B1
+otherwise, as the JAX package's `use_node` does.)
 
 The port of the JAX package's `FusedP1Assembly` (mrhyde_tpu/ops/
 fused_p1.py) for the case its node-scatter TPU kernel (B2,
@@ -35,9 +40,13 @@ are hand-written CUDA kernels (`csrc/fused_p1_thermal.cu`):
 A steady call keeps its specialization, as the JAX package's
 `_steady_check` does: no beta is read and there is no mass lane.
 
+On 3D hex and p2 quads the same split and the same two modes run on the
+element kernels (B1) instead, whose per-element rows the provider
+scatters; the coord part is computed the same way.
+
 Row classification follows from which leaves the coefficient
 expressions read, not from a traced probe: a row is element-varying iff
-its expression reads `x`/`y` (or the state), and the split holds iff no
+its expression reads `x`/`y`/`z` (or the state), and the split holds iff no
 coefficient reads `e`. For the thermal weak form this reproduces the
 JAX package's `_probe`/`_detect_affine` split, row indices and constant
 values; an expression linear in `e` is affine in JAX but takes the
@@ -50,43 +59,44 @@ kernel on CUDA tensors; it counts its launches in LAUNCHES.
 
 from __future__ import annotations
 
-import ctypes
+import math
 from typing import NamedTuple
 
 import numpy as np
 import torch
 
-from mrhyde_tpu_torch.assembly.assembler import BlockJacobian, pad_to
+from mrhyde_tpu_torch.assembly.assembler import BlockJacobian
+from mrhyde_tpu_torch.ops import fused_elem as fe
+from mrhyde_tpu_torch.ops._launch import (LAUNCHES, check_qp, coeff_args,
+                                          ptr, stage_args, stream)
 
 __all__ = ["FusedP1Assembly", "QuadTables", "Stage", "LAUNCHES",
            "thermal_node_state", "thermal_node_full",
            "thermal_node_state_plain", "thermal_node_full_plain",
            "structured_geometry", "qp_coords", "steady_check"]
 
-# kernel launches per kernel: thermal "state" and "full", and the
-# Navier-Stokes "full" kernel (ops/fused_ns.py); reset by whoever wants
-# to count a run
-LAUNCHES = {"state": 0, "full": 0, "ns_full": 0}
-
 # local corners of the quad on (axis 0, axis 1), the assembler's order
 CORNERS = ((0, 0), (1, 0), (1, 1), (0, 1))
-_COORD = {"x", "y"}
+QUAD_P1 = fe.Lattice(CORNERS, 1)
+_COORD = {"x", "y", "z"}
 
 
 class QuadTables:
-    """Reference-quad tables phi (4, Q), grad (4, Q, 2), wts (Q,): as
-    Python floats for the plain versions (the JAX package's arithmetic
-    on host scalars) and as device tensors for the kernels."""
+    """The reference element's quadrature tables phi (nc, Q), grad (nc,
+    Q, dim), wts (Q,): as Python floats for the plain versions (the JAX
+    package's arithmetic on host scalars) and as device tensors for the
+    kernels."""
 
     def __init__(self, phi, grad, wts, device, dtype):
         phi = np.asarray(phi, dtype=np.float64)
         grad = np.asarray(grad, dtype=np.float64)
         wts = np.asarray(wts, dtype=np.float64)
-        if phi.shape[0] != 4 or grad.shape != phi.shape + (2,) \
+        if phi.ndim != 2 or grad.ndim != 3 or grad.shape[:2] != phi.shape \
                 or wts.shape != phi.shape[1:]:
-            raise ValueError("QuadTables wants phi (4,Q), grad (4,Q,2), "
+            raise ValueError("QuadTables wants phi (nc,Q), grad (nc,Q,dim), "
                              "wts (Q,)")
-        self.Q = int(wts.shape[0])
+        self.nc, self.Q = phi.shape
+        self.dim = int(grad.shape[2])
         self.phi, self.grad, self.wts = (phi.tolist(), grad.tolist(),
                                          wts.tolist())
 
@@ -97,8 +107,8 @@ class QuadTables:
 
 def structured_geometry(asm):
     """(dims, origin, h_axes, q_off, QuadTables) of a uniform structured
-    2D p1 problem: the element grid, the box origin and spacing, the
-    quadrature points' offsets inside an element, and the reference
+    problem (2D or 3D): the element grid, the box origin and spacing,
+    the quadrature points' offsets inside an element, and the reference
     tables of its first variable (all variables share them)."""
     s = asm._structured
     disc = asm.disc
@@ -114,15 +124,19 @@ def structured_geometry(asm):
 
 
 def qp_coords(dims, origin, h_axes, q_off, Q, dtype, device):
-    """(x, y) at the quadrature points as (N0, N1, Q) tensors, from
+    """(x, y[, z]) at the quadrature points as (*dims, Q) tensors, from
     element indices as the JAX kernel synthesizes them."""
-    N0, N1 = dims
-    idx = [torch.arange(N0, dtype=dtype, device=device)[:, None]
-           .expand(N0, N1),
-           torch.arange(N1, dtype=dtype, device=device)[None, :]
-           .expand(N0, N1)]
-    return [torch.stack([origin[a] + idx[a] * h_axes[a] + float(q_off[q, a])
-                         for q in range(Q)], dim=-1) for a in range(2)]
+    dims = tuple(dims)
+    out = []
+    for a in range(len(dims)):
+        shape = [1] * len(dims)
+        shape[a] = dims[a]
+        idx = torch.arange(dims[a], dtype=dtype, device=device) \
+            .reshape(shape).expand(dims)
+        out.append(torch.stack([origin[a] + idx * h_axes[a]
+                                + float(q_off[q, a]) for q in range(Q)],
+                               dim=-1))
+    return out
 
 
 def steady_check(tc):
@@ -146,46 +160,10 @@ class Stage(NamedTuple):
 
 
 # ----------------------------------------------------------------------
-# plain versions: torch slice sums over the node grid (the pad+sum form)
+# plain versions: the element rows of the quad's four corners
+# (fused_elem's plain versions on the p1 lattice), summed to the node
+# grid in the pad+sum order
 # ----------------------------------------------------------------------
-
-def _node_sum(rows, grid_shape, like):
-    """Scatter per-corner element rows (N0, N1) (or Python scalars) to
-    the node grid: one zero-padded add per corner, corners in order."""
-    dims = (grid_shape[0] - 1, grid_shape[1] - 1)
-    acc = None
-    for row, off in zip(rows, CORNERS):
-        if not isinstance(row, torch.Tensor):
-            row = torch.full(dims, float(row), dtype=like.dtype,
-                             device=like.device)
-        part = pad_to(torch.broadcast_to(row, dims), off, grid_shape)
-        acc = part if acc is None else acc + part
-    return acc
-
-
-def _corner_views(u_grid):
-    N0, N1 = u_grid.shape[0] - 1, u_grid.shape[1] - 1
-    return [u_grid[oi:oi + N0, oj:oj + N1] for oi, oj in CORNERS]
-
-
-def _qp_grads(tab, uc):
-    """[(g0, g1) per q]: grad u_h at every quadrature point, (N0, N1)."""
-    return [tuple(sum(tab.grad[c][q][d] * uc[c] for c in range(4))
-                  for d in range(2)) for q in range(tab.Q)]
-
-
-def _qp_vals(tab, uc):
-    """[u_h per q]: u_h at every quadrature point, (N0, N1)."""
-    return [sum(tab.phi[c][q] * uc[c] for c in range(4))
-            for q in range(tab.Q)]
-
-
-def _at_q(v, q, dims):
-    """Quadrature point q of a per-qp (E, Q) tensor, or a scalar."""
-    if isinstance(v, torch.Tensor):
-        return v.view(dims[0], dims[1], -1)[:, :, q]
-    return v
-
 
 def thermal_node_state_plain(u_grid, kappa, tab, stage=None):
     """Node residual of the state part scattered to the (N0+1, N1+1)
@@ -193,27 +171,8 @@ def thermal_node_state_plain(u_grid, kappa, tab, stage=None):
     Stage sum_q w [m alpha_t u_h phi_c + kappa alpha_u grad phi_c .
     grad u_h]. kappa, stage.mass: Python float or an (E, Q) tensor."""
     dims = (u_grid.shape[0] - 1, u_grid.shape[1] - 1)
-    uc = _corner_views(u_grid)
-    G = _qp_grads(tab, uc)
-    U = _qp_vals(tab, uc) if stage is not None else None
-    rows = []
-    for c in range(4):
-        acc = None
-        for q in range(tab.Q):
-            k = _at_q(kappa, q, dims)
-            g0, g1 = G[q]
-            if stage is None:
-                a = (tab.grad[c][q][0] * (k * g0)
-                     + tab.grad[c][q][1] * (k * g1))
-            else:
-                au = stage.alpha_u
-                a = (tab.phi[c][q] * (_at_q(stage.mass, q, dims)
-                                      * (stage.alpha_t * U[q]))
-                     + tab.grad[c][q][0] * (k * (au * g0))
-                     + tab.grad[c][q][1] * (k * (au * g1)))
-            acc = tab.wts[q] * a if acc is None else acc + tab.wts[q] * a
-        rows.append(acc)
-    return _node_sum(rows, u_grid.shape, u_grid)
+    rows = fe.thermal_elem_state_plain(u_grid, kappa, tab, QUAD_P1, stage)
+    return fe.scatter_rows(rows, QUAD_P1, dims, u_grid)
 
 
 def thermal_node_full_plain(u_grid, S, dS, K, dK, tab, stage=None):
@@ -222,54 +181,14 @@ def thermal_node_full_plain(u_grid, S, dS, K, dK, tab, stage=None):
     tensors S, dS/de, kappa, dkappa/de. With a Stage the columns carry
     alpha_u on the u_eval tangents and alpha_t m on the u_dot one."""
     dims = (u_grid.shape[0] - 1, u_grid.shape[1] - 1)
-    G = _qp_grads(tab, _corner_views(u_grid))
-    rows = []
-    for c in range(4):
-        acc = None
-        for q in range(tab.Q):
-            g0, g1 = G[q]
-            k = _at_q(K, q, dims)
-            a = (tab.phi[c][q] * _at_q(S, q, dims)
-                 + tab.grad[c][q][0] * (k * g0)
-                 + tab.grad[c][q][1] * (k * g1))
-            acc = tab.wts[q] * a if acc is None else acc + tab.wts[q] * a
-        rows.append(acc)
-    jac = []
-    for c in range(4):
-        for cp in range(4):
-            acc = None
-            for q in range(tab.Q):
-                g0, g1 = G[q]
-                kq, dkq, dsq = (_at_q(K, q, dims), _at_q(dK, q, dims),
-                                _at_q(dS, q, dims))
-                pcp = tab.phi[cp][q]
-                if stage is None:
-                    ts = pcp * dsq
-                    tf0 = pcp * (dkq * g0) + tab.grad[cp][q][0] * kq
-                    tf1 = pcp * (dkq * g1) + tab.grad[cp][q][1] * kq
-                else:
-                    au = stage.alpha_u
-                    ts = (au * (pcp * dsq) + stage.alpha_t
-                          * (pcp * _at_q(stage.mass, q, dims)))
-                    tf0 = au * (pcp * (dkq * g0)
-                                + tab.grad[cp][q][0] * kq)
-                    tf1 = au * (pcp * (dkq * g1)
-                                + tab.grad[cp][q][1] * kq)
-                a = (tab.phi[c][q] * ts + tab.grad[c][q][0] * tf0
-                     + tab.grad[c][q][1] * tf1)
-                acc = tab.wts[q] * a if acc is None \
-                    else acc + tab.wts[q] * a
-            jac.append(acc.reshape(-1))
-    return _node_sum(rows, u_grid.shape, u_grid), torch.stack(jac)
+    rows, jac = fe.thermal_elem_full_plain(u_grid, S, dS, K, dK, tab,
+                                           QUAD_P1, stage)
+    return fe.scatter_rows(rows, QUAD_P1, dims, u_grid), jac
 
 
 # ----------------------------------------------------------------------
 # kernel wrappers
 # ----------------------------------------------------------------------
-
-def _ptr(t):
-    return ctypes.c_void_p(t.data_ptr())
-
 
 def _check_grid(u_grid, tab):
     if u_grid.device.type != "cuda":
@@ -277,6 +196,9 @@ def _check_grid(u_grid, tab):
                          f"{u_grid.device}")
     if u_grid.dtype not in (torch.float32, torch.float64):
         raise TypeError(f"thermal kernels take f32/f64, not {u_grid.dtype}")
+    if (tab.nc, tab.dim) != (4, 2):
+        raise ValueError(f"the node kernels take p1 quad tables, not "
+                         f"nc = {tab.nc}, dim = {tab.dim}")
     if u_grid.dim() != 2 or min(u_grid.shape) < 2 \
             or not u_grid.is_contiguous():
         raise ValueError("u_grid must be a contiguous (N0+1, N1+1) grid "
@@ -289,37 +211,6 @@ def _check_grid(u_grid, tab):
                              "than u_grid")
 
 
-def _check_qp(t, u_grid, tab, name):
-    E = (u_grid.shape[0] - 1) * (u_grid.shape[1] - 1)
-    if not isinstance(t, torch.Tensor) or t.shape != (E, tab.Q) \
-            or t.device != u_grid.device or t.dtype != u_grid.dtype \
-            or not t.is_contiguous():
-        raise ValueError(f"{name} must be a contiguous ({E}, {tab.Q}) "
-                         f"{u_grid.dtype} tensor on {u_grid.device}")
-
-
-def _stream(t):
-    return ctypes.c_void_p(torch.cuda.current_stream(t.device).cuda_stream)
-
-
-def _coeff_args(v, u_grid, tab, name):
-    """A scalar-or-(E, Q) coefficient as the kernels take it: (pointer
-    or None, scalar value, is_scalar)."""
-    if not isinstance(v, torch.Tensor):
-        return None, float(v), 1
-    _check_qp(v, u_grid, tab, name)
-    return _ptr(v), 0.0, 0
-
-
-def _stage_args(stage, u_grid, tab):
-    """(mass pointer, mass scalar, mass_is_scalar, alpha_u, alpha_t,
-    transient) for the C entry points; steady is (None, 0, 1, 1, 0, 0)."""
-    if stage is None:
-        return (None, 0.0, 1, 1.0, 0.0, 0)
-    return (*_coeff_args(stage.mass, u_grid, tab, "mass"),
-            float(stage.alpha_u), float(stage.alpha_t), 1)
-
-
 def thermal_node_state(u_grid, kappa, tab, stage=None):
     """The state-part node residual: CUDA kernel on a CUDA tensor, the
     plain version on a CPU tensor. kappa: Python float or (E, Q); stage:
@@ -327,16 +218,17 @@ def thermal_node_state(u_grid, kappa, tab, stage=None):
     if u_grid.device.type == "cpu":
         return thermal_node_state_plain(u_grid, kappa, tab, stage)
     _check_grid(u_grid, tab)
-    kap = _coeff_args(kappa, u_grid, tab, "kappa")
-    st = _stage_args(stage, u_grid, tab)
+    E = (u_grid.shape[0] - 1) * (u_grid.shape[1] - 1)
+    kap = coeff_args(kappa, E, u_grid, tab, "kappa")
+    st = stage_args(stage, E, u_grid, tab)
     from mrhyde_tpu_torch.ops._build import load_library
     lib = load_library()
     fn = (lib.thermal_node_state_f64 if u_grid.dtype == torch.float64
           else lib.thermal_node_state_f32)
     out = torch.empty_like(u_grid)
     N0, N1 = u_grid.shape[0] - 1, u_grid.shape[1] - 1
-    err = fn(_ptr(u_grid), *kap, *st, _ptr(tab.t_phi), _ptr(tab.t_grad),
-             _ptr(tab.t_wts), tab.Q, N0, N1, _ptr(out), _stream(u_grid))
+    err = fn(ptr(u_grid), *kap, *st, ptr(tab.t_phi), ptr(tab.t_grad),
+             ptr(tab.t_wts), tab.Q, N0, N1, ptr(out), stream(u_grid))
     if err != 0:
         raise RuntimeError(f"thermal_node_state launch failed: CUDA error "
                            f"{err}")
@@ -351,9 +243,10 @@ def thermal_node_full(u_grid, S, dS, K, dK, tab, stage=None):
     if u_grid.device.type == "cpu":
         return thermal_node_full_plain(u_grid, S, dS, K, dK, tab, stage)
     _check_grid(u_grid, tab)
+    E = (u_grid.shape[0] - 1) * (u_grid.shape[1] - 1)
     for name, t in (("S", S), ("dS", dS), ("K", K), ("dK", dK)):
-        _check_qp(t, u_grid, tab, name)
-    st = _stage_args(stage, u_grid, tab)
+        check_qp(t, E, u_grid, tab, name)
+    st = stage_args(stage, E, u_grid, tab)
     from mrhyde_tpu_torch.ops._build import load_library
     lib = load_library()
     fn = (lib.thermal_node_full_f64 if u_grid.dtype == torch.float64
@@ -362,9 +255,9 @@ def thermal_node_full(u_grid, S, dS, K, dK, tab, stage=None):
     out = torch.empty_like(u_grid)
     jac = torch.empty((16, N0 * N1), dtype=u_grid.dtype,
                       device=u_grid.device)
-    err = fn(_ptr(u_grid), _ptr(S), _ptr(dS), _ptr(K), _ptr(dK), *st,
-             _ptr(tab.t_phi), _ptr(tab.t_grad), _ptr(tab.t_wts), tab.Q,
-             N0, N1, _ptr(out), _ptr(jac), _stream(u_grid))
+    err = fn(ptr(u_grid), ptr(S), ptr(dS), ptr(K), ptr(dK), *st,
+             ptr(tab.t_phi), ptr(tab.t_grad), ptr(tab.t_wts), tab.Q,
+             N0, N1, ptr(out), ptr(jac), stream(u_grid))
     if err != 0:
         raise RuntimeError(f"thermal_node_full launch failed: CUDA error "
                            f"{err}")
@@ -377,7 +270,7 @@ def thermal_node_full(u_grid, S, dS, K, dK, tab, stage=None):
 # ----------------------------------------------------------------------
 
 class QpCtx:
-    """Per-qp context for the coefficient expressions on (N0, N1, Q)
+    """Per-qp context for the coefficient expressions on (*dims, Q)
     tensors: `e` resolves to u_eval at the qps and sol_dot to u_dot
     (0.0 in a steady call)."""
 
@@ -400,6 +293,8 @@ class QpCtx:
             return self.coords[0]
         if leaf == "y":
             return self.coords[1]
+        if leaf == "z" and len(self.coords) > 2:
+            return self.coords[2]
         if leaf == "t":
             return self.t
         if leaf in self.params:
@@ -415,15 +310,30 @@ _COEFFS = ("thermal diffusion", "thermal source", "density",
 
 class FusedP1Assembly:
     """Fused residual+Jacobian provider for qualifying problems: uniform
-    structured 2D p1 quads, one thermal module, no advection, scalar
-    params; steady calls and transient stages alike.
-    `FusedP1Assembly.build(asm)` -> instance or None."""
+    structured 2D p1 quads (the node-scatter kernels, B2), 3D p1 hex and
+    2D p2 quads (the element kernels of ops/fused_elem.py, B1); one
+    thermal module, no advection, scalar params; steady calls and
+    transient stages alike. `FusedP1Assembly.build(asm)` -> instance or
+    None."""
 
     def __init__(self, asm, leaves):
         self.asm = asm
-        _kind, self.var, self.start = asm._structured["plan"][0]
+        s = asm._structured
+        kind, self.var, self.start = s["plan"][0]
         (self.dims, self.origin, self.h_axes, self.q_off,
          self.tables) = structured_geometry(asm)
+        self.dim = len(self.dims)
+        # the JAX package's use_node: 2D p1 takes B2, the rest B1
+        self.node = self.dim == 2 and kind == "p1"
+        self.fine_idx = self.dof2fine = None
+        if kind == "p1":
+            self.lattice = fe.Lattice(tuple(tuple(c) for c in s["corners"]),
+                                      1)
+            self.grid_shape = tuple(d + 1 for d in self.dims)
+        else:
+            self.lattice = fe.basis_lattice(asm.disc.mesh.cell_type, 2)
+            self._build_fine_maps()
+        self.nc = len(self.lattice.offsets)
         self.fm = asm.fm
         self.module = asm.modules[0]
         kap = leaves["thermal diffusion"]
@@ -438,24 +348,51 @@ class FusedP1Assembly:
         self._coords = None
         self._stage_cache = None
 
+    def _build_fine_maps(self):
+        """The p2 fine lattice (2 N0 + 1, 2 N1 + 1) of the variable, as
+        the JAX package's `_build_fine_maps`: fine_idx holds the global
+        dof of each lattice point (element (I, J)'s local dof with offset
+        (a, b) sits at (2 I + a, 2 J + b)), dof2fine the lattice point
+        of each of the variable's dofs."""
+        p = self.lattice.stride
+        N0, N1 = self.dims
+        fshape = (p * N0 + 1, p * N1 + 1)
+        lids = np.asarray(self.asm.disc.lids)
+        eI, eJ = np.meshgrid(np.arange(N0), np.arange(N1), indexing="ij")
+        fine = np.full(fshape, -1, dtype=np.int64)
+        for c, (a, b) in enumerate(self.lattice.offsets):
+            fine[p * eI + a, p * eJ + b] = lids[:, c].reshape(N0, N1)
+        nvd = fine.size
+        if not np.array_equal(np.sort(fine.ravel()),
+                              np.arange(self.start, self.start + nvd)):
+            raise AssertionError("the p2 fine lattice does not cover the "
+                                 "variable's dofs once each")
+        d2f = np.empty(nvd, dtype=np.int64)
+        d2f[fine.ravel() - self.start] = np.arange(nvd)
+        dev = self.asm.device
+        self.grid_shape = fshape
+        self.fine_idx = torch.as_tensor(fine, device=dev)
+        self.dof2fine = torch.as_tensor(d2f, device=dev)
+
     def _stats(self, steady):
         """The JAX package's `stats` of a call: the split, and the rows
         each part writes per element (the coord rows once per stage)."""
+        nc = self.nc
         if not self.split:
-            return {"steady": steady, "split": False, "n_res_rows": 4,
-                    "n_jac_rows": 16, "node_scatter": True}
+            return {"steady": steady, "split": False, "n_res_rows": nc,
+                    "n_jac_rows": nc * nc, "node_scatter": self.node}
         v = self._varying
         if steady:
-            res0 = 4 if v["coeffs"] else 0
-            jac0 = 16 if v["kappa"] else 0
+            res0 = nc if v["coeffs"] else 0
+            jac0 = nc * nc if v["kappa"] else 0
         else:
             # the beta grids make the coord residual vary; the Jacobian
             # alpha_u K_kappa + alpha_t M_m varies with kappa or m
-            res0 = 4
-            jac0 = 16 if v["kappa"] or v["mass"] else 0
-        return {"steady": steady, "split": True, "n_res_rows": 4,
+            res0 = nc
+            jac0 = nc * nc if v["kappa"] or v["mass"] else 0
+        return {"steady": steady, "split": True, "n_res_rows": nc,
                 "n_jac_rows": 0, "coord_res_rows": res0,
-                "coord_jac_rows": jac0, "node_scatter": True}
+                "coord_jac_rows": jac0, "node_scatter": self.node}
 
     @staticmethod
     def build(asm):
@@ -468,10 +405,12 @@ class FusedP1Assembly:
             from mrhyde_tpu_torch.ops.fused_ns import FusedNSAssembly
             return FusedNSAssembly.build(asm)
         s = asm._structured
-        if s is None or len(s["dims"]) != 2 \
-                or asm.disc.mesh.cell_type != "quad":
+        cell = asm.disc.mesh.cell_type
+        if s is None or (len(s["dims"]), cell) not in ((2, "quad"),
+                                                      (3, "hex")):
             return None
-        if len(s["plan"]) != 1 or s["plan"][0][0] != "p1":
+        # one variable, p1 (2D, 3D) or p2 (the plan has p2 on quads only)
+        if len(s["plan"]) != 1:
             return None
         if not asm.uniform:
             return None
@@ -479,28 +418,53 @@ class FusedP1Assembly:
             return None
         leaves = {n: asm.fm.terminal_leaves(n) for n in _COEFFS}
         for ls in leaves.values():
-            # state derivatives and z are beyond the pointwise context
-            if any(lf == "z" or lf.startswith("grad(") or lf.endswith("_t")
-                   for lf in ls):
+            # state derivatives (and z in 2D) are beyond the pointwise
+            # context
+            if any((lf == "z" and cell == "quad") or lf.startswith("grad(")
+                   or lf.endswith("_t") for lf in ls):
                 return None
         return FusedP1Assembly(asm, leaves)
 
     # ------------------------------------------------------------------
 
     def _grid(self, v):
-        """The (N0+1, N1+1) node grid of this variable in a dof vector."""
-        N0, N1 = self.dims
-        return v[self.start:self.start + (N0 + 1) * (N1 + 1)] \
-            .reshape(N0 + 1, N1 + 1)
+        """The variable's grid in a dof vector: its node grid (p1) or its
+        fine lattice (p2, a gather)."""
+        if self.fine_idx is not None:
+            return v[self.fine_idx]
+        n = math.prod(self.grid_shape)
+        return v[self.start:self.start + n].reshape(self.grid_shape)
+
+    def _scatter(self, rows, like):
+        """Per-element rows (nc entries, each (E,) or a scalar) summed to
+        the variable's dofs, flat (the p2 fine lattice in dof order)."""
+        grid = fe.scatter_rows(rows, self.lattice, self.dims, like)
+        if self.fine_idx is None:
+            return grid.reshape(-1)
+        return grid.reshape(-1)[self.dof2fine]
+
+    def _state_part(self, grid, kappa, stage):
+        """The residual of the split's state part on the variable's dofs
+        (flat): B2 scatters in its kernel, B1's rows are scattered
+        here."""
+        if self.node:
+            return thermal_node_state(grid, kappa, self.tables,
+                                      stage).reshape(-1)
+        return self._scatter(fe.thermal_elem_state(
+            grid, kappa, self.tables, self.lattice, stage), grid)
 
     def _at_qps(self, grid):
-        """u_h at the quadrature points of a node grid, (N0, N1, Q)."""
-        return torch.stack(_qp_vals(self.tables, _corner_views(grid)),
-                           dim=-1)
+        """u_h at the quadrature points of a grid, (*dims, Q)."""
+        tab = self.tables
+        uc = [v.reshape(self.dims)
+              for v in fe.corner_values(grid, self.lattice)]
+        return torch.stack([sum(tab.phi[c][q] * uc[c]
+                                for c in range(self.nc))
+                            for q in range(tab.Q)], dim=-1)
 
     def _qp_coords(self):
-        """(x, y) at the quadrature points as (N0, N1, Q) tensors, from
-        element indices as the JAX kernel synthesizes them."""
+        """(x, y[, z]) at the quadrature points as (*dims, Q) tensors,
+        from element indices as the JAX kernel synthesizes them."""
         if self._coords is None:
             self._coords = qp_coords(self.dims, self.origin, self.h_axes,
                                      self.q_off, self.tables.Q,
@@ -542,65 +506,63 @@ class FusedP1Assembly:
         return steady, coord
 
     def _coord_eval(self, tc, params, steady):
-        """The state-independent part of the affine split: (coord node
-        residual, 16 Jacobian rows, kappa and m for the state kernel).
-        Steady: the residual at u = 0, -sum_q w f phi_c (plain torch), and
-        the Jacobian K_kappa. A transient stage adds the residual of the
-        beta grids, sum_q w [m beta_t,h phi_c + kappa grad beta_u,h . grad
-        phi_c], as two launches of the state kernel (on beta_u with alpha
-        = (1, 0), on beta_t with alpha = (0, 1)), and its Jacobian is
-        alpha_u K_kappa + alpha_t M_m."""
-        tab, dims = self.tables, self.dims
-        E = dims[0] * dims[1]
+        """The state-independent part of the affine split: (coord
+        residual on the variable's dofs, nc*nc Jacobian rows, kappa and m
+        for the state kernel). Steady: the residual at u = 0, -sum_q w f
+        phi_c (plain torch), and the Jacobian K_kappa. A transient stage
+        adds the residual of the beta grids, sum_q w [m beta_t,h phi_c +
+        kappa grad beta_u,h . grad phi_c], as two launches of the state
+        kernel (on beta_u with alpha = (1, 0), on beta_t with alpha = (0,
+        1)), and its Jacobian is alpha_u K_kappa + alpha_t M_m."""
+        tab, nc, dim = self.tables, self.nc, self.dim
+        E = math.prod(self.dims)
         coords = self._qp_coords()
         like = coords[0]
         ctx = QpCtx(0.0, coords, tc.time, params, self.fm)
         S0, kap = self.module.qp_coefficients(ctx)
         kap = _scalar(kap)
         rows = []
-        for c in range(4):
+        for c in range(nc):
             acc = None
             for q in range(tab.Q):
                 a = tab.wts[q] * (tab.phi[c][q] * _qslice(S0, q))
                 acc = a if acc is None else acc + a
-            rows.append(acc)
-        res0 = _node_sum(rows, (dims[0] + 1, dims[1] + 1), like)
+            rows.append(acc.reshape(E) if isinstance(acc, torch.Tensor)
+                        and acc.dim() > 0 else acc)
+        res0 = self._scatter(rows, like)
         kk = self._kernel_coeff(kap)
         mass = mk = None
         if not steady:
             mass = _scalar(self.module.qp_mass(ctx))
             mk = self._kernel_coeff(mass)
             res0 = (res0
-                    + thermal_node_state(self._grid(tc.beta_u), kk, tab,
-                                         Stage(1.0, 0.0, mk))
-                    + thermal_node_state(self._grid(tc.beta_t), kk, tab,
-                                         Stage(0.0, 1.0, mk)))
+                    + self._state_part(self._grid(tc.beta_u), kk,
+                                       Stage(1.0, 0.0, mk))
+                    + self._state_part(self._grid(tc.beta_t), kk,
+                                       Stage(0.0, 1.0, mk)))
         jac = []
-        for c in range(4):
-            for cp in range(4):
+        for c in range(nc):
+            for cp in range(nc):
                 acc = None
                 for q in range(tab.Q):
                     kq = _qslice(kap, q)
+                    gc, gp = tab.grad[c][q], tab.grad[cp][q]
                     if steady:
-                        a = (tab.grad[c][q][0] * (tab.grad[cp][q][0] * kq)
-                             + tab.grad[c][q][1] * (tab.grad[cp][q][1]
-                                                    * kq))
+                        a = sum(gc[d] * (gp[d] * kq) for d in range(dim))
                     else:
                         # the JAX package's column tangents: alpha_t phi_c'
                         # on u_dot, alpha_u grad phi_c' on grad u_eval
                         au = tc.alpha_u
                         a = (tab.phi[c][q] * ((tc.alpha_t * tab.phi[cp][q])
                                               * _qslice(mass, q))
-                             + tab.grad[c][q][0] * ((au * tab.grad[cp][q][0])
-                                                    * kq)
-                             + tab.grad[c][q][1] * ((au * tab.grad[cp][q][1])
-                                                    * kq))
+                             + sum(gc[d] * ((au * gp[d]) * kq)
+                                   for d in range(dim)))
                     acc = tab.wts[q] * a if acc is None \
                         else acc + tab.wts[q] * a
                 jac.append(acc.reshape(E) if isinstance(acc, torch.Tensor)
                            else acc)
         if not any(isinstance(j, torch.Tensor) for j in jac):
-            # constant rows: one host-to-device copy, not sixteen
+            # constant rows: one host-to-device copy, not nc*nc
             jac = list(torch.tensor(jac, dtype=like.dtype,
                                     device=like.device).unbind(0))
         return res0, jac, kk, mk
@@ -610,8 +572,8 @@ class FusedP1Assembly:
         and m (None when steady): u_eval (and u_dot) at the qps by a
         plain gather, then the DSL value and its forward derivative in
         e."""
-        tab, dims = self.tables, self.dims
-        E = dims[0] * dims[1]
+        tab = self.tables
+        E = math.prod(self.dims)
         uq = self._at_qps(ue_grid)
         udq = 0.0 if ud_grid is None else self._at_qps(ud_grid)
         coords = self._qp_coords()
@@ -633,7 +595,7 @@ class FusedP1Assembly:
                 for t in (S, dS, K, dK)], mass
 
     def res_jac(self, u, tc, pvec=None):
-        """(residual (n_dof,), Jacobian rows: list of 16 entries, each
+        """(residual (n_dof,), Jacobian rows: list of nc*nc entries, each
         None, a 0-d tensor or an (E,) tensor)."""
         asm = self.asm
         params = dict(asm.params)
@@ -644,8 +606,7 @@ class FusedP1Assembly:
         if self.split:
             res0, rows, kappa, mass = coord
             stage = None if steady else Stage(tc.alpha_u, tc.alpha_t, mass)
-            node = res0 + thermal_node_state(u_grid, kappa, self.tables,
-                                             stage)
+            node = res0 + self._state_part(u_grid, kappa, stage)
         else:
             ue, ud = u_grid, None
             if not steady:
@@ -653,12 +614,18 @@ class FusedP1Assembly:
                 ud = tc.alpha_t * u_grid + self._grid(tc.beta_t)
             (S, dS, K, dK), mass = self._qp_coefficients(ue, ud, tc, params)
             stage = None if steady else Stage(tc.alpha_u, tc.alpha_t, mass)
-            node, jac = thermal_node_full(ue, S, dS, K, dK, self.tables,
-                                          stage)
+            if self.node:
+                node, jac = thermal_node_full(ue, S, dS, K, dK, self.tables,
+                                              stage)
+                node = node.reshape(-1)
+            else:
+                res, jac = fe.thermal_elem_full(ue, S, dS, K, dK,
+                                                self.tables, self.lattice,
+                                                stage)
+                node = self._scatter(res, ue)
             rows = list(jac.unbind(0))
-        ng = node.numel()
         r = torch.zeros(asm.n_dof, dtype=u.dtype, device=u.device)
-        r[self.start:self.start + ng] = node.reshape(-1)
+        r[self.start:self.start + node.numel()] = node
         return torch.where(asm.fixed, 0.0, r), rows
 
     def jacobian(self, u, tc, pvec=None):
@@ -677,7 +644,7 @@ def _scalar(v):
 
 
 def _qslice(v, q):
-    """Quadrature point q of an (N0, N1, Q) tensor, or a scalar."""
-    if isinstance(v, torch.Tensor) and v.dim() == 3:
-        return v[:, :, q]
+    """Quadrature point q of a (*dims, Q) tensor, or a scalar."""
+    if isinstance(v, torch.Tensor) and v.dim() > 0:
+        return v[..., q]
     return v

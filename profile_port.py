@@ -4,6 +4,7 @@
                             [--cg-iters 200] [--device cuda]
     python3 profile_port.py --split [--n-full 512] [--device cuda]
     python3 profile_port.py --ns [--n-ns 512] [--out DIR] [--device cuda]
+    python3 profile_port.py --hex [--out DIR] [--device cuda]
 
 Runs torch.profiler over pieces of the thermal main path, steady and
 transient, and prints one JSON line each, with the wall time (host
@@ -56,6 +57,22 @@ of the first deck carries the process's first-use costs.
   split           the 128x32 direct deck and the start-up deck, each
                   solve split as --split does (linear solves, fused
                   res_and_jac calls, line-search residuals, the rest)
+
+--hex profiles the element-kernel (B1) path at chip_smoke.py's hex and
+p2 deck sizes, each at a seeded random state:
+
+  hex_state_nx96_apply  one Jacobian product of the 96^3 kappa = 1 hex
+                  Jacobian (64 constant rows) three ways, as apply_state
+  hex_state_nx96_assembly  5 x res_and_jac of that deck
+                  (thermal_elem_state and the pad+sum of its 8 rows)
+  hex_state_nx96_gmres_cycle  one GMRES(40) cycle with Jacobi on that
+                  Jacobian
+  hex_full_nx64_apply, hex_full_nx64_assembly  the same for the 64^3
+                  kappa = 1 + e*e deck (thermal_elem_full and its
+                  coefficient pre-pass; 64 varying rows)
+  p2_state_nx256_apply, p2_state_nx256_assembly  the same for the 256^2
+                  p2 deck (81 constant rows; the scatter on the fine
+                  lattice)
 """
 
 import argparse
@@ -66,8 +83,8 @@ import time
 
 import torch
 
-from chip_smoke import (bdf2_nonlinear_deck, deck, nonlinear_deck, ns_deck,
-                        ns_startup_deck)
+from chip_smoke import (SOURCE3_NL, bdf2_nonlinear_deck, deck, hex_deck,
+                        nonlinear_deck, ns_deck, ns_startup_deck, p2_deck)
 
 
 def sync(device):
@@ -238,6 +255,37 @@ def ns_pieces(device, n, out_dir):
         (f"ns_startup_dirk22_nx{n}", ns_startup_deck(n))], runs=(1,))
 
 
+def hex_pieces(device, out_dir):
+    """--hex: the B1 decks' Jacobian products three ways, assembly and a
+    GMRES cycle under the profiler."""
+    from mrhyde_tpu_torch.assembly.assembler import TimeCoeffs
+    from mrhyde_tpu_torch.problem import Problem
+    from mrhyde_tpu_torch.solvers.krylov import gmres
+    from mrhyde_tpu_torch.solvers.precond import build_preconditioner
+    gen = torch.Generator(device=device).manual_seed(1234)
+
+    def pieces(tag, cfg, gmres_cycle=False):
+        p = Problem(cfg, device=device)
+        asm = p.assembler
+        tc = TimeCoeffs.steady(p.n_dof, dtype=p.dtype, device=device)
+        u = p.bcs.apply(torch.rand(p.n_dof, generator=gen, device=device,
+                                   dtype=p.dtype) - 0.5, 0.0)
+        r, J = asm.res_and_jac(u, tc)
+        apply_timings(f"{tag}_apply", asm, J, r, device)
+        profiled(f"{tag}_assembly",
+                 lambda: [asm.res_and_jac(u, tc) for _ in range(5)],
+                 device, out_dir, per=5)
+        if gmres_cycle:
+            M = build_preconditioner(J, "jacobi")
+            profiled(f"{tag}_gmres_cycle",
+                     lambda: gmres(J.apply, r, m=40, tol=0.0,
+                                   max_restarts=1, precond=M),
+                     device, out_dir, per=40)
+    pieces("hex_state_nx96", hex_deck(96), gmres_cycle=True)
+    pieces("hex_full_nx64", hex_deck(64, "1.0 + e*e", SOURCE3_NL))
+    pieces("p2_state_nx256", p2_deck(256))
+
+
 def main():
     ap = argparse.ArgumentParser(description=__doc__.splitlines()[0])
     ap.add_argument("--out", default=None)
@@ -248,6 +296,7 @@ def main():
     ap.add_argument("--split", action="store_true")
     ap.add_argument("--ns", action="store_true")
     ap.add_argument("--n-ns", type=int, default=512)
+    ap.add_argument("--hex", action="store_true")
     args = ap.parse_args()
     device = torch.device(args.device)
     if args.out:
@@ -260,6 +309,9 @@ def main():
         return
     if args.ns:
         ns_pieces(device, args.n_ns, args.out)
+        return
+    if args.hex:
+        hex_pieces(device, args.out)
         return
 
     from mrhyde_tpu_torch.assembly.assembler import TimeCoeffs

@@ -15,23 +15,17 @@ import numpy as np
 import pytest
 import torch
 
-from mrhyde_tpu.assembly.assembler import BlockJacobian as JaxBJ
 from mrhyde_tpu.ops.fused_p1 import FusedP1Assembly as JaxFused
 from mrhyde_tpu_torch.interop import state_from_numpy
 from mrhyde_tpu_torch.ops import fused_p1 as fp
 from torch_port_utils import (DIRK22_STAGE1, KAPPAS, MASSES, SOURCE_NL,
-                              both_problems, max_diff, seeded, stage_coeffs,
-                              steady_coeffs, thermal_cfg, transient_cfg)
+                              both_problems, check_fused_against_jax,
+                              max_diff, seeded, stage_coeffs, steady_coeffs,
+                              thermal_cfg, transient_cfg)
 
 torch.set_num_threads(1)
 
 TOL = 1e-11
-
-
-def _kind(row):
-    if row is None:
-        return "none"
-    return "array" if np.ndim(row) >= 1 else "scalar"
 
 
 @pytest.mark.parametrize("nx,ny", [(4, 4), (6, 5)])
@@ -42,22 +36,9 @@ def test_fused_provider_matches_jax_node_kernel(kappa, nx, ny):
         cfg["Functions"]["thermal source"] = SOURCE_NL
     pj, pt = both_problems(cfg)
     tj, tt = steady_coeffs(pj, pt)
-    u = seeded(pj.n_dof, seed=21)
-    fk = JaxFused.build(pj.assembler)
-    r_j, rows_j = fk.res_jac(jnp.asarray(u), tj, None, interpret=True)
-    ft = pt.assembler.fused_provider()
-    assert ft is not None
-    r_t, rows_t = ft.res_jac(state_from_numpy(u, pt), tt)
-
-    assert max_diff(r_t, r_j) < TOL
-    assert len(rows_t) == len(rows_j) == 16
-    for k, (rj, rt) in enumerate(zip(rows_j, rows_t)):
-        assert _kind(rt) == _kind(rj), f"row {k}"
-        if rj is not None:
-            assert max_diff(rt, rj) < TOL, f"row {k}"
-    for key in ("steady", "split", "n_res_rows", "n_jac_rows",
-                "coord_res_rows", "coord_jac_rows", "node_scatter"):
-        assert ft.stats.get(key) == fk.stats.get(key), key
+    ft = check_fused_against_jax(pj, pt, tj, tt, seeded(pj.n_dof, seed=21),
+                                 TOL)
+    assert ft.node and ft.nc == 4
 
 
 @pytest.mark.parametrize("kappa", KAPPAS)
@@ -91,29 +72,11 @@ def _check_stage(pj, pt, tj, tt, u):
     the port's general path: residual, rows and their kinds, stats,
     BlockJacobian apply/diag; and the general residual at another point
     (Newton's backtracking residual) against the fused one there."""
-    fk = JaxFused.build(pj.assembler)
-    r_j, rows_j = fk.res_jac(jnp.asarray(u), tj, None, interpret=True)
+    check_fused_against_jax(pj, pt, tj, tt, u, TOL)
     asm = pt.assembler
     ut = state_from_numpy(u, pt)
     r_t, J = asm.res_and_jac(ut, tt)
-    ft = asm.fused_provider()
-    assert J.vol is None and J.vol_soa is not None
-    assert max_diff(r_t, r_j) < TOL
-    assert len(J.vol_soa) == len(rows_j) == 16
-    for k, (rj, rt) in enumerate(zip(rows_j, J.vol_soa)):
-        assert _kind(rt) == _kind(rj), f"row {k}"
-        if rj is not None:
-            assert max_diff(rt, rj) < TOL, f"row {k}"
-    for key in ("steady", "split", "n_res_rows", "n_jac_rows",
-                "coord_res_rows", "coord_jac_rows", "node_scatter"):
-        assert ft.stats.get(key) == fk.stats.get(key), key
-    Jj = JaxBJ(vol=None, vol_lids=pj.assembler.lids, bnd=[], bnd_lids=[],
-               fixed=pj.assembler.fixed, inc=pj.assembler.inc,
-               vol_soa=rows_j)
     v = seeded(pt.n_dof, seed=23, scale=1.0)
-    assert max_diff(J.apply(state_from_numpy(v, pt)),
-                    Jj.apply(jnp.asarray(v))) < TOL
-    assert max_diff(J.diag(), Jj.diag()) < TOL
     # the general path: residual, Jacobian, and the residual Newton's
     # line search evaluates at u + alpha du
     assert max_diff(r_t, asm.residual(ut, tt)) < TOL

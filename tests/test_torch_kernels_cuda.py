@@ -13,8 +13,9 @@ import pytest
 import torch
 
 from torch_port_utils import (DIRK22_STAGE1, KAPPAS, MASSES, NS_STAGE1,
-                              SOURCE_NL, channel_cfg, seeded, thermal_cfg,
-                              transient_cfg)
+                              SOURCE, SOURCE3, SOURCE3_NL, SOURCE_NL,
+                              as_transient, channel_cfg, hex_cfg, p2_cfg,
+                              seeded, thermal_cfg, transient_cfg)
 
 torch.set_num_threads(1)
 
@@ -243,3 +244,123 @@ def test_ns_provider_on_card_matches_cpu(case):
         if a is not None:
             assert np.max(np.abs(a - b)) <= 1e-12 * max(1.0,
                                                         np.max(np.abs(b)))
+
+
+# ----------------------------------------------------------------------
+# the element kernels (B1): 3D hex p1 and 2D p2 quads
+# ----------------------------------------------------------------------
+
+def _elem_case(mesh, dev, dtype):
+    """(tables on the card, lattice) of a hex or p2 deck."""
+    from mrhyde_tpu_torch.ops import fused_p1 as fp
+    from mrhyde_tpu_torch.problem import Problem
+    cfg = hex_cfg(2, 2, 2) if mesh == "hex" else p2_cfg(2, 2)
+    f = Problem(cfg, device="cpu").assembler.fused_provider()
+    t0 = f.tables
+    return (fp.QuadTables(np.asarray(t0.phi), np.asarray(t0.grad),
+                          np.asarray(t0.wts), dev, dtype), f.lattice)
+
+
+ELEM_SHAPES = {"hex": [(8, 8, 8), (7, 5, 3)], "p2": [(32, 16), (13, 7)]}
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("dtype", [torch.float64, torch.float32])
+@pytest.mark.parametrize("mesh,shape", [(m, s) for m, ss in
+                                        ELEM_SHAPES.items() for s in ss])
+def test_elem_kernels_match_plain(mesh, shape, dtype):
+    """thermal_elem_state and thermal_elem_full, steady and at a stage
+    (scalar and per-qp kappa and m), against their plain versions."""
+    from mrhyde_tpu_torch.ops import fused_elem as fe
+    from mrhyde_tpu_torch.ops import fused_p1 as fp
+    dev = _card()
+    tab, lat = _elem_case(mesh, dev, dtype)
+    p = lat.stride
+    gen = torch.Generator(device=dev).manual_seed(13)
+    grid = torch.rand(tuple(p * n + 1 for n in shape), generator=gen,
+                      device=dev, dtype=dtype) - 0.5
+    E = int(np.prod(shape))
+    qp = [torch.rand((E, tab.Q), generator=gen, device=dev, dtype=dtype)
+          for _ in range(5)]
+    before = dict(fp.LAUNCHES)
+    stages = (None, fp.Stage(*DIRK22_STAGE1, 1.5), fp.Stage(0.0, 20.0, qp[4]))
+    for stage in stages:
+        for kappa in (1.25, qp[2]):
+            assert _close(fe.thermal_elem_state(grid, kappa, tab, lat, stage),
+                          fe.thermal_elem_state_plain(grid, kappa, tab, lat,
+                                                      stage), dtype)
+        res, jac = fe.thermal_elem_full(grid, *qp[:4], tab, lat, stage)
+        ref, jref = fe.thermal_elem_full_plain(grid, *qp[:4], tab, lat, stage)
+        assert _close(res, ref, dtype) and _close(jac, jref, dtype)
+        assert jac.shape == (tab.nc ** 2, E)
+    assert fp.LAUNCHES["elem_state"] == before["elem_state"] + 6
+    assert fp.LAUNCHES["elem_full"] == before["elem_full"] + 3
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("stage", [False, True])
+@pytest.mark.parametrize("kappa", ["1.0", "1.0 + 0.5*x*y", "1.0 + e*e"])
+@pytest.mark.parametrize("mesh", ["hex", "p2"])
+def test_elem_provider_on_card_matches_cpu(mesh, kappa, stage):
+    """The hex / p2 provider on CUDA (the element kernels) against the
+    same call on the CPU (plain versions): residual and every Jacobian
+    row, f64, steady and at a DIRK-2,2 stage-1 call."""
+    from mrhyde_tpu_torch.assembly.assembler import TimeCoeffs
+    from mrhyde_tpu_torch.interop import (state_from_numpy, state_to_numpy,
+                                          time_coeffs_from_numpy)
+    from mrhyde_tpu_torch.problem import Problem
+    dev = _card()
+    if mesh == "hex":
+        cfg = hex_cfg(9, 7, 5, kappa=kappa.replace("x*y", "x*y*z"),
+                      source=SOURCE3_NL if "e" in kappa else SOURCE3)
+    else:
+        cfg = p2_cfg(13, 9, kappa=kappa,
+                     source=SOURCE_NL if "e" in kappa else SOURCE)
+    if stage:
+        cfg = as_transient(cfg, MASSES[1])
+    out = {}
+    for d in ("cpu", dev):
+        p = Problem(cfg, device=d)
+        n = p.n_dof
+        tc = (time_coeffs_from_numpy(
+            DIRK22_STAGE1[0], seeded(n, seed=11), DIRK22_STAGE1[1],
+            seeded(n, seed=12, scale=5.0), 0.3, 0.05, p) if stage
+            else TimeCoeffs.steady(n, device=d))
+        f = p.assembler.fused_provider()
+        assert f is not None and not f.node
+        r, rows = f.res_jac(state_from_numpy(seeded(n, seed=9), p), tc)
+        out[str(d)] = (state_to_numpy(r),
+                       [None if x is None else state_to_numpy(x)
+                        for x in rows])
+    (rc, jc), (rg, jg) = out["cpu"], out[str(dev)]
+    assert np.max(np.abs(rg - rc)) <= 1e-12 * max(1.0, np.max(np.abs(rc)))
+    for a, b in zip(jg, jc):
+        assert (a is None) == (b is None)
+        if a is not None:
+            assert np.max(np.abs(a - b)) <= 1e-12 * max(1.0,
+                                                        np.max(np.abs(b)))
+
+
+@pytest.mark.cuda
+def test_elem_wrapper_checks_inputs_on_card():
+    from mrhyde_tpu_torch.ops import fused_elem as fe
+    dev = _card()
+    tab, lat = _elem_case("hex", dev, torch.float64)
+    grid = torch.zeros((5, 4, 3), device=dev, dtype=torch.float64)
+    with pytest.raises(ValueError):          # kappa of the wrong shape
+        fe.thermal_elem_state(grid, torch.zeros((3, tab.Q), device=dev,
+                                                dtype=torch.float64),
+                              tab, lat)
+    with pytest.raises(ValueError):          # tables in another dtype
+        fe.thermal_elem_state(grid.float(), 1.0, tab, lat)
+    with pytest.raises(ValueError):          # not contiguous
+        fe.thermal_elem_state(torch.zeros((5, 4, 6), device=dev,
+                                          dtype=torch.float64)[:, :, ::2],
+                              1.0, tab, lat)
+    with pytest.raises(ValueError):          # a 2D grid for hex tables
+        fe.thermal_elem_state(grid[0].contiguous(), 1.0, tab, lat)
+    p2_tab, p2_lat = _elem_case("p2", dev, torch.float64)
+    with pytest.raises(ValueError):          # p2 axes must be 2 N + 1
+        fe.thermal_elem_state(torch.zeros((6, 5), device=dev,
+                                          dtype=torch.float64),
+                              1.0, p2_tab, p2_lat)

@@ -131,3 +131,102 @@ def startup_cfg(nx, ny):
     return channel_cfg(nx, ny, supg=True, solver={
         "solver": "transient", "transient Butcher tableau": "DIRK-2,2",
         "final time": 0.04, "number of steps": 4, "nonlinear TOL": 1e-8})
+
+
+# 3D hex and 2D p2 thermal (the element-tile kernel B1): the reference's
+# thermal/3D_verification, u = sin(2 pi x) sin(2 pi y) sin(2 pi z) on the
+# unit cube; p2 quads with the 2D source at order 2, quadrature 4
+S3_TRUE = "sin(2*pi*x)*sin(2*pi*y)*sin(2*pi*z)"
+SOURCE3 = f"12*(pi*pi)*{S3_TRUE}"
+# grad S3 squared, for the source of kappa = 1 + e^2
+GRAD3_SQ = ("(cos(2*pi*x)*sin(2*pi*y)*sin(2*pi*z))^2"
+            "+(sin(2*pi*x)*cos(2*pi*y)*sin(2*pi*z))^2"
+            "+(sin(2*pi*x)*sin(2*pi*y)*cos(2*pi*z))^2")
+SOURCE3_NL = (f"12*(pi*pi)*{S3_TRUE}*(1+({S3_TRUE})^2) - 8*(pi*pi)*"
+              f"{S3_TRUE}*({GRAD3_SQ})")
+# constant, coordinate-dependent (affine split, varying coord rows) and
+# state-dependent (mode "full") conductivities in 3D
+KAPPAS3 = ("1.0", "1.0 + 0.5*x*y*z", "1.0 + e*e")
+
+
+def hex_cfg(nx, ny, nz, kappa="1.0", source=SOURCE3, solver=None):
+    """thermal/3D_verification on an nx x ny x nz hex mesh."""
+    cfg = thermal_cfg(nx, ny, kappa=kappa, source=source, solver=solver)
+    cfg["Mesh"].update({"dimension": 3, "element type": "hex", "NZ": nz})
+    cfg["Postprocess"]["True solutions"] = {"e": S3_TRUE}
+    return cfg
+
+
+def p2_cfg(nx, ny=None, kappa="1.0", source=SOURCE, solver=None):
+    """The 2D deck with p2 variables, quadrature 4."""
+    cfg = thermal_cfg(nx, ny, kappa=kappa, source=source, solver=solver)
+    cfg["Discretization"] = {"order": {"e": 2}, "quadrature": 4}
+    return cfg
+
+
+def as_transient(cfg, mass=("1.0", "1.0")):
+    """A steady deck made transient (density, specific heat, IC 0)."""
+    cfg["Functions"].update({"density": mass[0], "specific heat": mass[1]})
+    cfg["Physics"]["Initial conditions"] = {"e": "0.0"}
+    cfg["Solver"] = {"solver": "transient", "final time": 0.2,
+                     "number of steps": 4}
+    return cfg
+
+
+def _kind(row):
+    if row is None:
+        return "none"
+    return "array" if np.ndim(row) >= 1 else "scalar"
+
+
+STATS_KEYS = ("steady", "split", "n_res_rows", "n_jac_rows",
+              "coord_res_rows", "coord_jac_rows", "node_scatter")
+
+
+def check_fused_against_jax(pj, pt, tj, tt, u, tol):
+    """The port's fused provider (through Assembler.res_and_jac) against
+    the JAX package's FusedP1Assembly.res_jac in Pallas interpret mode at
+    state u: residual, each Jacobian row's kind and value, `stats`, and
+    BlockJacobian apply/diag against JAX's."""
+    import jax.numpy as jnp
+    from mrhyde_tpu.assembly.assembler import BlockJacobian as JaxBJ
+    from mrhyde_tpu.ops.fused_p1 import FusedP1Assembly as JaxFused
+    from mrhyde_tpu_torch.interop import state_from_numpy
+    fk = JaxFused.build(pj.assembler)
+    r_j, rows_j = fk.res_jac(jnp.asarray(u), tj, None, interpret=True)
+    asm = pt.assembler
+    r_t, J = asm.res_and_jac(state_from_numpy(u, pt), tt)
+    ft = asm.fused_provider()
+    assert ft is not None and J.vol is None
+    assert max_diff(r_t, r_j) < tol
+    assert len(J.vol_soa) == len(rows_j)
+    for k, (rj, rt) in enumerate(zip(rows_j, J.vol_soa)):
+        assert _kind(rt) == _kind(rj), f"row {k}"
+        if rj is not None:
+            assert max_diff(rt, rj) < tol, f"row {k}"
+    for key in STATS_KEYS:
+        assert ft.stats.get(key) == fk.stats.get(key), key
+    Jj = JaxBJ(vol=None, vol_lids=pj.assembler.lids, bnd=[], bnd_lids=[],
+               fixed=pj.assembler.fixed, inc=pj.assembler.inc,
+               vol_soa=rows_j)
+    v = seeded(pt.n_dof, seed=23, scale=1.0)
+    assert max_diff(J.apply(state_from_numpy(v, pt)),
+                    Jj.apply(jnp.asarray(v))) < tol
+    assert max_diff(J.diag(), Jj.diag()) < tol
+    return ft
+
+
+def check_fused_against_general(pt, tt, u, tol):
+    """Assembler.res_and_jac through the fused provider against the
+    port's general path: residual, aos(), apply and diag."""
+    import torch
+    asm = pt.assembler
+    r, J = asm.res_and_jac(u, tt)
+    assert asm.fused_provider() is not None
+    assert J.vol is None and J.vol_soa is not None
+    Jg = asm.jacobian(u, tt)
+    assert max_diff(r, asm.residual(u, tt)) < tol
+    assert max_diff(J.aos(), Jg.vol) < tol
+    v = torch.as_tensor(seeded(pt.n_dof, seed=23, scale=1.0))
+    assert max_diff(J.apply(v), Jg.apply(v)) < tol
+    assert max_diff(J.diag(), Jg.diag()) < tol
