@@ -2,8 +2,9 @@
 
     python3 chip_smoke.py
 
-Drives mrhyde_tpu_torch's thermal (2D p1 quads, 3D hex, 2D p2 quads)
-and Navier-Stokes main paths, steady and transient, through
+Drives mrhyde_tpu_torch's thermal, cdr and thermal-advection (2D p1
+quads, 3D hex, 2D p2 quads) and Navier-Stokes main paths, steady and
+transient, through
 `Problem(cfg).run()` on the card, after building
 its CUDA kernels from the sources in this checkout (one nvcc per source,
 in parallel) and holding each against its plain torch version. Phases
@@ -63,8 +64,8 @@ in parallel) and holding each against its plain torch version. Phases
              (seeded u, beta_u, beta_t); CUDA-event medians of 20 (plain: 5)
  14 hex_gold_nx10   the reference's thermal/3D_verification, 10^3 hex,
              direct: L2(e) = 0.0116656 (rtol 2e-5; the reference's gold)
- 15 hex_default_nx96   the same at 96^3 (912,673 DOFs), nonlinear TOL
-             1e-10, GMRES + Jacobi
+ 15 hex_default_nx80   the same at 80^3 (531,441 DOFs), nonlinear TOL
+             1e-10, GMRES + Jacobi (HEX_DEFAULT)
  16 hex_nonlinear_nx64   kappa = 1 + e*e with its manufactured source,
              64^3, CG, TOL 1e-10
  17 hex_transient_dirk22_nx64   u = sin(2 pi t) S3, IC 0, DIRK-2,2, 8
@@ -74,7 +75,21 @@ in parallel) and holding each against its plain torch version. Phases
  19 p2_default_nx256   p2 quads (quadrature 4), kappa = 1, 256^2
              (263,169 DOFs), TOL 1e-10, GMRES + Jacobi
  20 p2_nonlinear_nx128   p2, kappa = 1 + e*e, 128^2, CG
-             (15-20: the JAX package's L2 at rtol 1e-4; see HEX_DEFAULT_L2)
+             (15-20: the JAX package's L2 at rtol 1e-4)
+ 3d kernels_advect   the four thermal kernels' advection (ADVECT) cases
+             against their plain versions at phases 3 and 3c's shapes,
+             f64 and f32 (the same bounds): "state" and "full", steady
+             and at DIRK-2,2 stage-1 alphas with m = 1, the velocity (2,
+             1[, 0.5]) scalar and the rotating field per qp; CUDA-event
+             medians of 20 (plain: 5)
+ 21 cdr_gold_nx40   the reference's cdr/2D_manufactured (v = (2, 1),
+             reaction 0.5 c^2), direct: L2(c) = 0.00101714 (rtol 2e-5)
+ 22-29 CDR_DECKS   cdr 512^2 (v = (2, 1), reaction 0), its nonlinear
+             twin (reaction 0.5 c^2), the rotating-field DIRK-2,2 deck
+             (density 2, 8 steps to t = 0.4), thermal 'include advection'
+             512^2, cdr hex 64^3 and nonlinear 48^3, cdr p2 256^2 and
+             nonlinear 128^2; GMRES + Jacobi, TOL 1e-10, the JAX
+             package's L2 at rtol 1e-4 (tools/jax_references.py)
 
 The reference L2 values are the JAX package's, computed in f64 on the
 CPU, or the reference's golds. Each deck runs one assembly before its
@@ -87,10 +102,12 @@ for the state kernel in a transient deck, twice per stage (the coord
 part on the beta_u and beta_t grids), and the other kernels never: phases
 4, 5, 7 and 8 run thermal_node_state, 6 and 9 thermal_node_full, 11-13
 ns_node_full (once per fused res_and_jac call, no thermal kernel), 14,
-15, 17 and 19 thermal_elem_state, 16, 18 and 20 thermal_elem_full. The
-`kernels` line reports the sums over the decks, each kernel's error,
-times and bound (bytes or operations, whichever is larger; see `bound`)
-at its quoted case.
+15, 17 and 19 thermal_elem_state, 16, 18 and 20 thermal_elem_full, and
+each of 21-29 the kernel its CDR_DECKS entry names. The `kernels` line
+reports the sums over the decks, each kernel's error, times and bound
+(bytes or operations, whichever is larger; see `bound`) at its quoted
+case, and for the four thermal kernels the same of their advection case
+with the launches of decks 21-29 ("advect").
 Any failure raises; the last line of a passing run is {"ok": true,
 "device": {...}}.
 """
@@ -533,9 +550,8 @@ SOURCE3_T_NL = (
     "2*pi*cos(2*pi*t)*S + 12*(pi*pi)*T*S*(1+(T*S)^2) - 8*(pi*pi)*T*T*T*S*"
     "(G)").replace("G", GRAD3_SQ).replace("S", S3_TRUE).replace("T", T_TIME)
 # the JAX package's f64 CPU L2(e) of the B1 decks (ROADMAP's reference
-# tables): hex at 96^3, 64^3 and 48^3; p2 at 256^2 and 128^2 (their error
+# tables): hex at 80^3, 64^3 and 48^3; p2 at 256^2 and 128^2 (their error
 # falls 8.0x per halving of h from 64^2, so it is no solver noise)
-HEX_DEFAULT_L2 = 0.00012621221964007027
 HEX_NL_L2 = 0.0002840068798427259
 HEX_DIRK22_L2 = 0.0004936068749104585
 HEX_BDF2_NL_L2 = 0.0007306455172806904
@@ -572,6 +588,137 @@ def p2_deck(n, kappa="1.0", source=SOURCE, solver=None):
     return cfg
 
 
+# ----------------------------------------------------------------------
+# convection-diffusion-reaction (cdr) and thermal with advection: the
+# scalar advection-diffusion-reaction weak form on B2 (2D p1) and B1 (hex,
+# p2), u = S (steady) or T S (transient), Dirichlet 0
+# ----------------------------------------------------------------------
+
+SX = "2*pi*cos(2*pi*x)*sin(2*pi*y)"
+SY = "2*pi*sin(2*pi*x)*cos(2*pi*y)"
+S3X = "2*pi*cos(2*pi*x)*sin(2*pi*y)*sin(2*pi*z)"
+S3Y = "2*pi*sin(2*pi*x)*cos(2*pi*y)*sin(2*pi*z)"
+S3Z = "2*pi*sin(2*pi*x)*sin(2*pi*y)*cos(2*pi*z)"
+# -div grad S + (2, 1) . grad S, and 0.5 S^2 for the reaction 0.5*c*c
+CDR_SOURCE = f"8*(pi*pi)*{S_TRUE} + 2.0*{SX} + 1.0*{SY}"
+CDR_SOURCE_NL = f"{CDR_SOURCE} + 0.5*{S_TRUE}*{S_TRUE}"
+CDR3_SOURCE = (f"12*(pi*pi)*{S3_TRUE} + 2.0*{S3X} + 1.0*{S3Y} "
+               f"+ 0.5*{S3Z}")
+CDR3_SOURCE_NL = f"{CDR3_SOURCE} + 0.5*{S3_TRUE}*{S3_TRUE}"
+# the rotating field about the square's centre, and c_t + b . grad c -
+# 0.5 div grad c for c = T S (density 2: kappa = D / (rho cp) = 0.5)
+ROT_V = ("-4.0*(y-0.5)", "4.0*(x-0.5)")
+CDR_ROT_SOURCE = (f"2*pi*cos(2*pi*t)*{S_TRUE} + {T_TIME}*(4*(pi*pi)*"
+                  f"{S_TRUE} + ({ROT_V[0]})*{SX} + ({ROT_V[1]})*{SY})")
+
+
+def cdr_gold_deck():
+    """The reference's cdr/2D_manufactured (tests/test_cdr_burgers.py:
+    14-32): 40^2, v = (2, 1), reaction 0.5 c^2, direct."""
+    return {
+        "Mesh": {"dimension": 2, "shape": "quad", "NX": 40, "NY": 40},
+        "Functions": {
+            "source": "(8*(pi*pi)+0.5*sin(2*pi*x)*sin(2*pi*y))"
+                      "*sin(2*pi*x)*sin(2*pi*y)"
+                      " + 2.0*2*pi*cos(2*pi*x)*sin(2*pi*y)"
+                      " + 1.0*2*pi*sin(2*pi*x)*cos(2*pi*y)",
+            "xvel": "2.0", "yvel": "1.0",
+            "reaction": "0.5*c*c", "SUPG tau": "0.0",
+        },
+        "Physics": {"modules": "cdr",
+                    "Dirichlet conditions": {"c": {"all boundaries": "0.0"}},
+                    "Initial conditions": {"c": "0.0"}},
+        "Discretization": {"order": {"c": 1}, "quadrature": 2},
+        "Solver": {"solver": "steady-state", "nonlinear TOL": 1e-7,
+                   "max nonlinear iters": 4},
+        "Postprocess": {"compute errors": True,
+                        "True solutions": {"c": S_TRUE}},
+    }
+
+
+def cdr_deck(n, source=CDR_SOURCE, reaction="0.0", vel=("2.0", "1.0"),
+             mesh="p1", solver=None):
+    """A steady cdr deck: n^2 p1 quads, n^3 hex (three velocity
+    components) or n^2 p2 quads (quadrature 4); nonlinear TOL 1e-10."""
+    dim = 3 if mesh == "hex" else 2
+    fs = {"source": source, "reaction": reaction}
+    fs.update(zip(("xvel", "yvel", "zvel"), vel))
+    cfg = {
+        "Mesh": {"dimension": dim, "element type": "hex" if dim == 3
+                 else "quad", "NX": n, "NY": n},
+        "Functions": fs,
+        "Physics": {"modules": "cdr",
+                    "Dirichlet conditions": {"c": {"all boundaries": 0.0}}},
+        "Discretization": {"order": {"c": 2 if mesh == "p2" else 1},
+                           "quadrature": 4 if mesh == "p2" else 2},
+        "Solver": dict({"solver": "steady-state", "nonlinear TOL": 1e-10},
+                       **(solver or {})),
+        "Postprocess": {"compute errors": True,
+                        "True solutions": {"c": S3_TRUE if dim == 3
+                                           else S_TRUE}},
+    }
+    if dim == 3:
+        cfg["Mesh"]["NZ"] = n
+    return cfg
+
+
+def cdr_rotating_deck(n):
+    """c = T S in the rotating field, density 2, IC 0, DIRK-2,2, 8 steps
+    of 0.05 to t = 0.4."""
+    cfg = cdr_deck(n, CDR_ROT_SOURCE, vel=ROT_V, solver={
+        "solver": "transient", "transient Butcher tableau": "DIRK-2,2",
+        "final time": 0.4, "number of steps": 8})
+    cfg["Functions"]["density"] = "2.0"
+    cfg["Physics"]["Initial conditions"] = {"c": "0.0"}
+    cfg["Postprocess"]["True solutions"] = {"c": f"{T_TIME}*{S_TRUE}"}
+    return cfg
+
+
+def thermal_advection_deck(n):
+    """Thermal with 'include advection', b = (2, 1), kappa = 1."""
+    cfg = deck(n, source=CDR_SOURCE, solver={"nonlinear TOL": 1e-10})
+    cfg["Physics"]["include advection"] = True
+    cfg["Functions"].update({"advection x": "2.0", "advection y": "1.0"})
+    return cfg
+
+
+# name -> (deck builder of the mesh size, size on the card, time of the
+# held L2, variable, kernel mode, the JAX package's f64 CPU L2 there).
+# tools/jax_references.py runs the same builders through the JAX package
+# for those references.
+CDR_DECKS = {
+    # cut from 1024^2: the JAX CPU reference ran over 20 minutes there
+    "cdr_nx512": (cdr_deck, 512, 0.0, "c", "state",
+                  6.2108675920617964e-06),
+    "cdr_nonlinear_nx512": (
+        lambda n: cdr_deck(n, CDR_SOURCE_NL, "0.5*c*c"), 512, 0.0, "c",
+        "full", 6.209504430940904e-06),
+    "cdr_transient_rotating_nx512": (cdr_rotating_deck, 512, 0.4, "c",
+                                     "state", 0.0010168969905621037),
+    "thermal_advection_nx512": (thermal_advection_deck, 512, 0.0, "e",
+                                "state", 6.21086759188614e-06),
+    "cdr_hex_nx64": (
+        lambda n: cdr_deck(n, CDR3_SOURCE, vel=("2.0", "1.0", "0.5"),
+                           mesh="hex"), 64, 0.0, "c", "elem_state",
+        0.0002823910949256673),
+    "cdr_hex_nonlinear_nx48": (
+        lambda n: cdr_deck(n, CDR3_SOURCE_NL, "0.5*c*c",
+                           ("2.0", "1.0", "0.5"), "hex"), 48, 0.0, "c",
+        "elem_full", 0.000502108028442206),
+    "cdr_p2_nx256": (lambda n: cdr_deck(n, mesh="p2"), 256, 0.0, "c",
+                     "elem_state", 5.029831744288961e-08),
+    "cdr_p2_nonlinear_nx128": (
+        lambda n: cdr_deck(n, CDR_SOURCE_NL, "0.5*c*c", mesh="p2"), 128,
+        0.0, "c", "elem_full", 4.023603034380792e-07),
+}
+
+
+# the hex kappa = 1 deck as CDR_DECKS holds its decks, at 80^3 (cut from
+# 96^3 for the script's time: its host set-up took 70-102 s there)
+HEX_DEFAULT = (lambda n: hex_deck(n, solver={"nonlinear TOL": 1e-10}), 80,
+               0.0, "e", "elem_state", 0.00018174751661635387)
+
+
 ELEM_SHAPES = (("hex", (128, 128, 128)), ("hex", (127, 100, 77)),
                ("p2", (1024, 1024)), ("p2", (1000, 777)))
 
@@ -595,6 +742,23 @@ def elem_tables(mesh, dims, device, dtype):
     return tab, basis_lattice(cell, order), np.asarray(disc.ip[0])
 
 
+def qp_xyz(dims, q_off, Q, device, dtype):
+    """x, y[, z] at the quadrature points of a uniform grid of `dims`
+    elements on the unit box, each (E, Q)."""
+    import math
+    dim, E = len(dims), math.prod(dims)
+    xs = []
+    for a in range(dim):
+        view = [1] * dim + [Q]
+        view[a] = dims[a]
+        idx = torch.arange(dims[a], device=device, dtype=dtype)
+        off = torch.as_tensor(q_off[:, a], device=device, dtype=dtype)
+        xs.append((idx.reshape(view[:dim] + [1]) / dims[a]
+                   + off.reshape([1] * dim + [Q]))
+                  .expand(*dims, Q).reshape(E, Q))
+    return xs
+
+
 def elem_inputs(dims, tab, lat, q_off, device, dtype, gen):
     """Seeded random grids u, beta_u, beta_t; per-qp (E, Q) kappa = 1 +
     0.5 x y (z) and m = 1 + 0.5 x; for kappa = 1 + e*e with its
@@ -608,16 +772,8 @@ def elem_inputs(dims, tab, lat, q_off, device, dtype, gen):
     shape = tuple(lat.stride * n + 1 for n in dims)
     u, bu, bt = (torch.rand(shape, generator=gen, device=device,
                             dtype=dtype) - 0.5 for _ in range(3))
-    dim, E = len(dims), math.prod(dims)
-    xs = []
-    for a in range(dim):
-        view = [1] * dim + [tab.Q]
-        view[a] = dims[a]
-        idx = torch.arange(dims[a], device=device, dtype=dtype)
-        off = torch.as_tensor(q_off[:, a], device=device, dtype=dtype)
-        xs.append((idx.reshape(view[:dim] + [1]) / dims[a]
-                   + off.reshape([1] * dim + [tab.Q]))
-                  .expand(*dims, tab.Q).reshape(E, tab.Q))
+    dim = len(dims)
+    xs = qp_xyz(dims, q_off, tab.Q, device, dtype)
     kxy = (1.0 + 0.5 * math.prod(xs)).contiguous()
     mx = (1.0 + 0.5 * xs[0]).contiguous()
     sins = [torch.sin(2 * math.pi * x) for x in xs]
@@ -707,6 +863,109 @@ def phase_elem_kernels(device):
     return summary
 
 
+ADVECT_SHAPES = (("p1", KERNEL_SHAPES[0]), ("p1", KERNEL_SHAPES[1]),
+                 *ELEM_SHAPES)
+
+
+def advect_call(mesh, kind, plain, head, tab, lat, stage, vel):
+    """One call of the thermal kernel of this mesh (node kernels on p1,
+    element kernels on hex and p2) and kind ("state", "full"), or of its
+    plain version: head is (grid, kappa) or (grid, S, dS, K, dK)."""
+    from mrhyde_tpu_torch.ops import fused_elem as fe
+    from mrhyde_tpu_torch.ops import fused_p1 as fp
+    suffix = "_plain" if plain else ""
+    if mesh == "p1":
+        return getattr(fp, f"thermal_node_{kind}{suffix}")(*head, tab, stage,
+                                                           vel)
+    return getattr(fe, f"thermal_elem_{kind}{suffix}")(*head, tab, lat,
+                                                       stage, vel)
+
+
+def phase_advect_kernels(device):
+    """The four thermal kernels with advection (their ADVECT
+    instantiations, which cdr and thermal's 'include advection' run)
+    against their plain versions, on phases 3 and 3c's shapes, f64 and
+    f32 (the same bounds): "state" with kappa 1 or 0.5 and "full" on the
+    kappa = 1 + e*e inputs, each steady and at DIRK-2,2 stage-1 alphas
+    with m = 1 (cdr), with the velocity (2, 1[, 0.5]) scalar and the
+    rotating field (-4 (y - 0.5), 4 (x - 0.5)[, 0.5 + 0.25 z]) per qp;
+    CUDA-event medians of 20 (plain: 5). Returns the quoted case of each
+    kernel: f64, the steady scalar velocity (the main path's case), B2
+    at 1024^2 and B1 on hex at 128^3."""
+    from mrhyde_tpu_torch.ops import fused_p1 as fp
+    summary = {}
+    for dtype, rtol in ((torch.float64, 1e-12), (torch.float32, 1e-5)):
+        for mesh, dims in ADVECT_SHAPES:
+            gen = torch.Generator(device=device).manual_seed(1357)
+            if mesh == "p1":
+                tab, q_off = quad_tables(*dims, device, dtype)
+                lat = fp.QUAD_P1
+            else:
+                tab, lat, q_off = elem_tables(mesh, dims, device, dtype)
+            u, _kxy, _mx, full, (ue, tr) = elem_inputs(
+                dims, tab, lat, q_off, device, dtype, gen)
+            xs = qp_xyz(dims, q_off, tab.Q, device, dtype)
+            rot = [(-4.0 * (xs[1] - 0.5)).contiguous(),
+                   (4.0 * (xs[0] - 0.5)).contiguous(),
+                   (0.5 + 0.25 * xs[-1]).contiguous()][:tab.dim]
+            const = [2.0, 1.0, 0.5][:tab.dim]
+            st1 = fp.Stage(*DIRK22_STAGE1, 1.0)
+            b3 = ",0.5" if tab.dim == 3 else ""
+            cases = []
+            for vname, vel in ((f"b=(2,1{b3})", const), ("b rotating", rot)):
+                cases += [
+                    ("state", f"{vname} kappa=1", (u, 1.0), None, vel),
+                    ("state", f"dirk22 {vname} kappa=0.5 m=1", (u, 0.5), st1,
+                     vel),
+                    ("full", f"{vname} kappa=1+e*e", (u, *full), None, vel),
+                    ("full", f"dirk22 {vname} kappa=1+e*e m=1", (ue, *tr),
+                     st1, vel)]
+            for kind, label, head, stage, vel in cases:
+                def kern():
+                    return advect_call(mesh, kind, False, head, tab, lat,
+                                       stage, vel)
+
+                def plain():
+                    return advect_call(mesh, kind, True, head, tab, lat,
+                                       stage, vel)
+                out, ref = kern(), plain()
+                torch.cuda.synchronize()
+                pairs = [max_err(o, r) for o, r in
+                         (zip(out, ref) if isinstance(ref, tuple)
+                          else [(out, ref)])]
+                err = max(e for e, _ in pairs)
+                ok = all(e <= rtol * sc for e, sc in pairs)
+                if mesh == "p1":
+                    nbytes, nflops = thermal_work(
+                        kind, *dims, tab.Q, dtype, head[1] if kind ==
+                        "state" else None, stage, head[1:] if kind == "full"
+                        else (), vel)
+                else:
+                    nbytes, nflops = elem_work(
+                        kind, u, dims, tab, dtype, head[1] if kind ==
+                        "state" else None, stage, head[1:] if kind == "full"
+                        else (), vel)
+                name = (f"thermal_node_{kind}" if mesh == "p1"
+                        else f"thermal_elem_{kind}")
+                rec = {"phase": "kernels_advect", "kernel": name,
+                       "case": label, "mesh": mesh,
+                       "dtype": str(dtype).replace("torch.", ""),
+                       "shape": list(dims), "max_abs_err": err,
+                       "max_abs_plain": max(sc for _, sc in pairs),
+                       "rtol": rtol, "ok": ok, "ms": cuda_ms(kern),
+                       "plain_ms": cuda_ms(plain, reps=5),
+                       **bound(nbytes, nflops, dtype)}
+                emit(rec)
+                if not ok:
+                    raise SystemExit(f"{name} {label} disagrees with its "
+                                     f"plain version: {rec}")
+                if dtype == torch.float64 and stage is None \
+                        and vel is const and (mesh, dims) in (
+                            ("p1", KERNEL_SHAPES[0]), ELEM_SHAPES[0]):
+                    summary[name] = rec
+    return summary
+
+
 # ----------------------------------------------------------------------
 # bounds: bytes (each input read once, each output written once) over
 # 3.35 TB/s, and the operations counted from each kernel's source (an
@@ -740,63 +999,83 @@ def _qp_len(v):
 # per element.
 
 
-def _constant_matrix(kappa, stage):
+def _constant_matrix(kappa, stage, vel):
     return not isinstance(kappa, torch.Tensor) and (
-        stage is None or not isinstance(stage.mass, torch.Tensor))
+        stage is None or not isinstance(stage.mass, torch.Tensor)) and \
+        not any(isinstance(b, torch.Tensor) for b in vel or ())
 
 
-def thermal_work(kernel, N0, N1, Q, dtype, kappa, stage, full_inputs=()):
+def _advect_flops(kernel, vel, tr, nc, dim):
+    """Operations the velocity adds per element and qp: b . grad u_h (2
+    dim), and in "state" a phi_c term in each of the nc rows (2 each; a
+    stage has it already), in "full" b . grad phi_c' in each of the nc
+    column tangents (2 dim each)."""
+    if vel is None:
+        return 0
+    if kernel == "state":
+        return 2 * dim + (0 if tr else 2 * nc)
+    return 2 * dim + nc * 2 * dim
+
+
+def thermal_work(kernel, N0, N1, Q, dtype, kappa, stage, full_inputs=(),
+                 vel=None):
     """(bytes, flops) of one thermal_node_state / thermal_node_full call
-    (csrc/fused_p1_thermal.cu)."""
+    (csrc/fused_p1_thermal.cu); vel: None or the velocity's
+    components."""
     nodes, E = (N0 + 1) * (N1 + 1), N0 * N1
     it = torch.finfo(dtype).bits // 8
     tr = stage is not None
     mass = _qp_len(stage.mass) if tr else 0
+    velb = sum(_qp_len(b) for b in vel or ())
+    adv = _advect_flops(kernel, vel, tr, 4, 2)
     if kernel == "state":
-        nbytes = it * (2 * nodes + _qp_len(kappa) + mass)
-        if _constant_matrix(kappa, stage):
+        nbytes = it * (2 * nodes + _qp_len(kappa) + mass + velb)
+        if _constant_matrix(kappa, stage, vel):
             return nbytes, E * 2 * 4 * 4
         # per element and qp: grad u_h 16, the flux 2, four rows of 5; a
         # stage adds u_h 8, the alphas and the mass lane 4, and 2 per row
-        per_q = 16 + 2 + 4 * 5 + (8 + 4 + 4 * 2 if tr else 0)
+        per_q = 16 + 2 + 4 * 5 + (8 + 4 + 4 * 2 if tr else 0) + adv
         return nbytes, E * Q * per_q
     nbytes = it * (2 * nodes + sum(t.numel() for t in full_inputs) + mass
-                   + 16 * E)
+                   + velb + 16 * E)
     # per element and qp: grad u_h 16, the flux 2, four residual rows of
     # 7, the Jacobian's 16 (c, c') pairs of 16 (20 in a stage)
-    return nbytes, E * Q * (16 + 2 + 4 * 7 + 16 * (20 if tr else 16))
+    return nbytes, E * Q * (16 + 2 + 4 * 7 + 16 * (20 if tr else 16) + adv)
 
 
 def elem_work(kernel, grid, dims, tab, dtype, kappa, stage,
-              full_inputs=()):
+              full_inputs=(), vel=None):
     """(bytes, flops) of one thermal_elem_state / thermal_elem_full call
     (csrc/fused_elem_thermal.cu) on the element grid `dims`: the grid,
     the coefficient tensors and the rows once; each element's quadrature
-    once (not the full kernel's per-column recomputation of grad u_h)."""
+    once (not the full kernel's per-column recomputation of grad u_h);
+    vel: None or the velocity's components."""
     import math
     E, nc, dim, Q = math.prod(dims), tab.nc, tab.dim, tab.Q
     nodes = grid.numel()
     it = torch.finfo(dtype).bits // 8
     tr = stage is not None
     mass = _qp_len(stage.mass) if tr else 0
+    velb = sum(_qp_len(b) for b in vel or ())
+    adv = _advect_flops(kernel, vel, tr, nc, dim)
     grad_uh = 2 * nc * dim
     if kernel == "state":
-        nbytes = it * (nodes + _qp_len(kappa) + mass + nc * E)
-        if _constant_matrix(kappa, stage):
+        nbytes = it * (nodes + _qp_len(kappa) + mass + velb + nc * E)
+        if _constant_matrix(kappa, stage, vel):
             return nbytes, E * 2 * nc * nc
         # per element and qp: grad u_h, the flux dim, nc rows of 2 dim +
         # 2; a stage adds u_h 2 nc, its alphas dim + 2, and 2 per row
         per_q = (grad_uh + dim + nc * (2 * dim + 2)
-                 + (2 * nc + dim + 2 + 2 * nc if tr else 0))
+                 + (2 * nc + dim + 2 + 2 * nc if tr else 0) + adv)
         return nbytes, E * Q * per_q
     nbytes = it * (nodes + sum(t.numel() for t in full_inputs) + mass
-                   + (nc + nc * nc) * E)
+                   + velb + (nc + nc * nc) * E)
     # per element and qp: grad u_h, the flux dim, nc residual rows of 2
     # dim + 3, nc column tangents of 4 dim + 1 (a stage: dim + 3 more),
     # nc * nc Jacobian entries of 2 dim + 3
     per_q = (grad_uh + dim + nc * (2 * dim + 3)
              + nc * (4 * dim + 1 + (dim + 3 if tr else 0))
-             + nc * nc * (2 * dim + 3))
+             + nc * nc * (2 * dim + 3) + adv)
     return nbytes, E * Q * per_q
 
 
@@ -959,6 +1238,7 @@ def main():
     summary = phase_kernels(device)
     summary["ns_node_full"] = phase_ns_kernels(device)
     summary.update(phase_elem_kernels(device))
+    advect = phase_advect_kernels(device)
 
     per_deck = [
         run_deck("gold_nx40", deck(40), device,
@@ -1002,9 +1282,9 @@ def main():
          for n, (rtol, refs) in NS_STARTUP.items()] + [
         run_deck("hex_gold_nx10", hex_deck(10), device,
                  [(0.0, "e", 0.0116656, 2e-5)], "elem_state"),
-        run_deck("hex_default_nx96",
-                 hex_deck(96, solver={"nonlinear TOL": 1e-10}), device,
-                 [(0.0, "e", HEX_DEFAULT_L2, 1e-4)], "elem_state"),
+        run_deck(f"hex_default_nx{HEX_DEFAULT[1]}",
+                 HEX_DEFAULT[0](HEX_DEFAULT[1]), device,
+                 [(0.0, "e", HEX_DEFAULT[5], 1e-4)], "elem_state"),
         run_deck("hex_nonlinear_nx64",
                  hex_deck(64, "1.0 + e*e", SOURCE3_NL,
                           {"nonlinear TOL": 1e-10, "Belos solver": "CG"}),
@@ -1027,16 +1307,32 @@ def main():
                          {"nonlinear TOL": 1e-10, "Belos solver": "CG"}),
                  device, [(0.0, "e", P2_NL_L2, 1e-4)], "elem_full"),
     ]
+    advect_decks = [
+        run_deck("cdr_gold_nx40", cdr_gold_deck(), device,
+                 [(0.0, "c", 0.00101714, 2e-5)], "full")] + [
+        run_deck(name, build(n), device, [(t, var, ref, 1e-4)], mode)
+        for name, (build, n, t, var, mode, ref) in CDR_DECKS.items()]
+    per_deck += advect_decks
     launches = {k: sum(d[k] for d in per_deck) for k in fp.LAUNCHES}
+    advect_launches = {k: sum(d[k] for d in advect_decks)
+                       for k in fp.LAUNCHES}
     emit({"phase": "launches", **launches})
+    emit({"phase": "launches_advect", **advect_launches})
     if min(launches.values()) <= 0:
         raise SystemExit(f"a kernel of the main path never launched: "
                          f"{launches}")
+    missing = [k for k in ("state", "full", "elem_state", "elem_full")
+               if advect_launches[k] <= 0]
+    if missing:
+        raise SystemExit(f"the advection decks never launched {missing}: "
+                         f"{advect_launches}")
 
     csrc = "mrhyde_tpu_torch/ops/csrc/"
     kernels = []
     # no single PyTorch call computes a node-scatter or an element-tile
-    # assembly: library_ms is null for all five
+    # assembly: library_ms is null for all five. The four thermal kernels
+    # report their advection (ADVECT) case and its launches beside: the
+    # cdr and thermal-advection decks' share of `launches`.
     for name, mode, src, line in (
             ("thermal_node_state", "state", "fused_p1_thermal.cu", 1350),
             ("thermal_node_full", "full", "fused_p1_thermal.cu", 1350),
@@ -1053,6 +1349,14 @@ def main():
                         "plain_ms": rec["plain_ms"],
                         "bound_ms": rec["bound_ms"],
                         "bound_by": rec["bound_by"], "library_ms": None})
+        if name in advect:
+            a = advect[name]
+            kernels[-1]["advect"] = {
+                "case": a["case"], "shape": a["shape"],
+                "launches": advect_launches[mode],
+                "max_abs_err": a["max_abs_err"], "ms": a["ms"],
+                "plain_ms": a["plain_ms"], "bound_ms": a["bound_ms"],
+                "bound_by": a["bound_by"], "library_ms": None}
     emit({"kernels": kernels})
     print(smi, flush=True)
     emit({"ok": True, "device": {"platform": "gpu",

@@ -452,10 +452,10 @@ class Assembler:
     def res_and_jac(self, u_st, tc: TimeCoeffs, pvec=None):
         """(residual, BlockJacobian) in one pass — the Newton-loop entry
         point. Uses the fused provider when the problem qualifies
-        (uniform structured meshes: thermal on 2D p1 quads, 3D p1 hex
-        and 2D p2 quads; Navier-Stokes on 2D p1 quads) and
-        the params are scalars, steady or transient alike, else the
-        general vmapped path."""
+        (uniform structured meshes: thermal, with or without advection,
+        and cdr on 2D p1 quads, 3D p1 hex and 2D p2 quads; Navier-Stokes
+        on 2D p1 quads) and the params are scalars, steady or transient
+        alike, else the general vmapped path."""
         fused = self.fused_provider()
         if fused is not None and all(
                 not isinstance(v, torch.Tensor) or v.dim() == 0

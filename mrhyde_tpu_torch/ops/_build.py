@@ -37,30 +37,37 @@ _P, _I, _D = ctypes.c_void_p, ctypes.c_int, ctypes.c_double
 # csrc/fused_p1_thermal.cu; the stage: mass, mass0, mass_is_scalar,
 # alpha_u, alpha_t, transient; tables and sizes: phi, grad, wts, Q, N0, N1
 _STAGE = [_P, _D, _I, _D, _D, _I]
+# the velocity: advect, then (pointer, scalar) of each of three components
+_VEL = [_I, _P, _D, _P, _D, _P, _D]
 _TABLES = [_P, _P, _P, _I, _I, _I]
 # the element kernels' tables and geometry: phi, grad, wts, Q, nc, dim,
 # lattice offsets (a host int array of nc*dim), stride, N0, N1, N2
 _ELEM = [_P, _P, _P, _I, _I, _I, _P, _I, _I, _I, _I]
 _SIGNATURES = {
-    # u, kappa, kappa0, kappa_is_scalar, stage, tables, out, stream
-    "thermal_node_state_f64": [_P, _P, _D, _I, *_STAGE, *_TABLES, _P, _P],
-    "thermal_node_state_f32": [_P, _P, _D, _I, *_STAGE, *_TABLES, _P, _P],
-    # u, S, dS, K, dK, stage, tables, out, jac, stream
-    "thermal_node_full_f64": [_P, _P, _P, _P, _P, *_STAGE, *_TABLES, _P, _P,
-                              _P],
-    "thermal_node_full_f32": [_P, _P, _P, _P, _P, *_STAGE, *_TABLES, _P, _P,
-                              _P],
+    # u, kappa, kappa0, kappa_is_scalar, stage, velocity, tables, out,
+    # stream
+    "thermal_node_state_f64": [_P, _P, _D, _I, *_STAGE, *_VEL, *_TABLES, _P,
+                               _P],
+    "thermal_node_state_f32": [_P, _P, _D, _I, *_STAGE, *_VEL, *_TABLES, _P,
+                               _P],
+    # u, S, dS, K, dK, stage, velocity, tables, out, jac, stream
+    "thermal_node_full_f64": [_P, _P, _P, _P, _P, *_STAGE, *_VEL, *_TABLES,
+                              _P, _P, _P],
+    "thermal_node_full_f32": [_P, _P, _P, _P, _P, *_STAGE, *_VEL, *_TABLES,
+                              _P, _P, _P],
     # csrc/fused_p1_ns.cu: the host address of an NsArgs, stream
     "ns_node_full_f64": [_P, _P],
     "ns_node_full_f32": [_P, _P],
     # csrc/fused_elem_thermal.cu: grid, kappa / S, dS, K, dK, stage,
-    # element geometry, rows (, jac), stream
-    "thermal_elem_state_f64": [_P, _P, _D, _I, *_STAGE, *_ELEM, _P, _P],
-    "thermal_elem_state_f32": [_P, _P, _D, _I, *_STAGE, *_ELEM, _P, _P],
-    "thermal_elem_full_f64": [_P, _P, _P, _P, _P, *_STAGE, *_ELEM, _P, _P,
-                              _P],
-    "thermal_elem_full_f32": [_P, _P, _P, _P, _P, *_STAGE, *_ELEM, _P, _P,
-                              _P],
+    # velocity, element geometry, rows (, jac), stream
+    "thermal_elem_state_f64": [_P, _P, _D, _I, *_STAGE, *_VEL, *_ELEM, _P,
+                               _P],
+    "thermal_elem_state_f32": [_P, _P, _D, _I, *_STAGE, *_VEL, *_ELEM, _P,
+                               _P],
+    "thermal_elem_full_f64": [_P, _P, _P, _P, _P, *_STAGE, *_VEL, *_ELEM,
+                              _P, _P, _P],
+    "thermal_elem_full_f32": [_P, _P, _P, _P, _P, *_STAGE, *_VEL, *_ELEM,
+                              _P, _P, _P],
 }
 
 

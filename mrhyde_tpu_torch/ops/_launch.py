@@ -1,7 +1,7 @@
 """Launch helpers shared by the kernel wrappers of ops/fused_p1.py,
 ops/fused_ns.py and ops/fused_elem.py: the launch counts, the pointer and
-stream arguments, and the scalar-or-(E, Q) coefficient and stage
-arguments of the C entry points (ops/_build.py)."""
+stream arguments, and the scalar-or-(E, Q) coefficient, stage and
+velocity arguments of the C entry points (ops/_build.py)."""
 
 from __future__ import annotations
 
@@ -10,7 +10,7 @@ import ctypes
 import torch
 
 __all__ = ["LAUNCHES", "ptr", "stream", "check_qp", "coeff_args",
-           "stage_args"]
+           "stage_args", "velocity_args"]
 
 # kernel launches per kernel: thermal "state" and "full" (B2,
 # ops/fused_p1.py), the Navier-Stokes "full" kernel (ops/fused_ns.py) and
@@ -54,3 +54,23 @@ def stage_args(stage, E, grid, tab):
         return (None, 0.0, 1, 1.0, 0.0, 0)
     return (*coeff_args(stage.mass, E, grid, tab, "mass"),
             float(stage.alpha_u), float(stage.alpha_t), 1)
+
+
+def velocity_args(vel, E, grid, tab):
+    """(advect, then pointer or None and scalar value of each of the
+    three velocity components) for the C entry points: `vel` is None (no
+    advection) or `dim` components, each a Python float or an (E, Q)
+    tensor; the components past `dim` are unused zeros."""
+    if vel is None:
+        return (0,) + (None, 0.0) * 3
+    if len(vel) != tab.dim:
+        raise ValueError(f"the velocity needs {tab.dim} components, not "
+                         f"{len(vel)}")
+    out = [1]
+    for d in range(3):
+        if d < len(vel):
+            p, s, _ = coeff_args(vel[d], E, grid, tab, f"velocity[{d}]")
+            out += [p, s]
+        else:
+            out += [None, 0.0]
+    return tuple(out)

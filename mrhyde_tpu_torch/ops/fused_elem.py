@@ -1,8 +1,10 @@
-"""Element-tile assembly of thermal on uniform 3D hex (p1) and 2D p2 quads.
+"""Element-tile assembly of the scalar advection-diffusion-reaction weak
+form (thermal, with or without advection, and cdr) on uniform 3D hex
+(p1) and 2D p2 quads.
 
 The port of the JAX package's element-tile TPU kernel B1 (`run_call` in
 mrhyde_tpu/ops/fused_p1.py, body `FusedP1Assembly._kernel(node=False)`)
-for the thermal weak form, in its two launched modes. Unlike the
+for that weak form, in its two launched modes. Unlike the
 node-scatter kernel B2 (ops/fused_p1.py, 2D p1), B1 writes per-element
 rows; the caller scatters them to the nodes (pad+sum on the p1 node
 grid, strided adds on the p2 fine lattice), as the JAX package does
@@ -11,11 +13,19 @@ outside its kernel.
 - `thermal_elem_state` (mode "state", the affine split): the (nc, E)
   residual rows of the state part, sum_q w kappa grad phi_c . grad u_h
   (steady) or sum_q w [m alpha_t u_h phi_c + kappa alpha_u grad phi_c .
-  grad u_h] (a transient Stage), from the variable's grid.
+  grad u_h] (a transient Stage), from the variable's grid; with a
+  velocity b, phi_c alpha_u b . grad u_h joins the sum.
 - `thermal_elem_full` (mode "full"): the (nc, E) residual rows and the
   (nc*nc, E) Jacobian rows at the u_eval grid, fed the per-qp (E, Q)
   tensors S, dS/de, kappa, dkappa/de (and m in a stage) of the torch
-  pre-pass.
+  pre-pass; with a velocity, S gains b . grad u_eval and column c' gains
+  alpha_u phi_c b . grad phi_c' (the one term that makes the Jacobian
+  nonsymmetric).
+
+The entry names keep `thermal_`: thermal and cdr share the weak form,
+cdr with m = 1 and kappa = diffusion / (rho cp). A velocity is None (no
+advection) or `dim` components, each a Python float or an (E, Q)
+tensor.
 
 A variable's grid is its p1 node grid (N0+1, N1+1, N2+1) or its p2 fine
 lattice (2 N0+1, 2 N1+1); a `Lattice` says where local dof c of element
@@ -36,7 +46,8 @@ from typing import NamedTuple
 import torch
 
 from mrhyde_tpu_torch.ops._launch import (LAUNCHES, check_qp, coeff_args,
-                                          ptr, stage_args, stream)
+                                          ptr, stage_args, stream,
+                                          velocity_args)
 
 __all__ = ["Lattice", "thermal_elem_state", "thermal_elem_full",
            "thermal_elem_state_plain", "thermal_elem_full_plain",
@@ -114,34 +125,47 @@ def _qp_state(tab, uc, q, values):
 # form, corners and quadrature points in its order (fused_p1.py:357-495)
 # ----------------------------------------------------------------------
 
-def thermal_elem_state_plain(grid, kappa, tab, lat, stage=None):
+def _advection(vel, q, g):
+    """b . g at quadrature point q, (E,)."""
+    return sum(_at_q(b, q) * gd for b, gd in zip(vel, g))
+
+
+def thermal_elem_state_plain(grid, kappa, tab, lat, stage=None, vel=None):
     """(nc, E) residual rows of the state part at the grid's values.
-    kappa, stage.mass: Python float or an (E, Q) tensor."""
+    kappa, stage.mass, each velocity component: Python float or an (E,
+    Q) tensor."""
     uc = corner_values(grid, lat)
     nc = len(uc)
     rows = [None] * nc
     for q in range(tab.Q):
         uh, g = _qp_state(tab, uc, q, stage is not None)
         k = _at_q(kappa, q)
+        s = None
         if stage is None:
             flux = [k * gd for gd in g]
         else:
-            flux = [k * (stage.alpha_u * gd) for gd in g]
-            mu = _at_q(stage.mass, q) * (stage.alpha_t * uh)
+            g = [stage.alpha_u * gd for gd in g]
+            flux = [k * gd for gd in g]
+            s = _at_q(stage.mass, q) * (stage.alpha_t * uh)
+        if vel is not None:
+            adv = _advection(vel, q, g)
+            s = adv if s is None else s + adv
         for c in range(nc):
             a = sum(tab.grad[c][q][d] * flux[d] for d in range(tab.dim))
-            if stage is not None:
-                a = tab.phi[c][q] * mu + a
+            if s is not None:
+                a = tab.phi[c][q] * s + a
             a = tab.wts[q] * a
             rows[c] = a if rows[c] is None else rows[c] + a
     return torch.stack(rows)
 
 
-def thermal_elem_full_plain(grid, S, dS, K, dK, tab, lat, stage=None):
+def thermal_elem_full_plain(grid, S, dS, K, dK, tab, lat, stage=None,
+                            vel=None):
     """((nc, E) residual rows, (nc*nc, E) Jacobian rows) of the full weak
     form at the u_eval grid, from the per-qp (E, Q) tensors S, dS/de,
     kappa, dkappa/de. With a Stage the columns carry alpha_u on the
-    u_eval tangents and alpha_t m on the u_dot one."""
+    u_eval tangents and alpha_t m on the u_dot one; with a velocity S
+    gains b . grad u_eval and column c' b . grad phi_c'."""
     uc = corner_values(grid, lat)
     nc, dim = len(uc), tab.dim
     rows = [None] * nc
@@ -149,6 +173,8 @@ def thermal_elem_full_plain(grid, S, dS, K, dK, tab, lat, stage=None):
     for q in range(tab.Q):
         _uh, g = _qp_state(tab, uc, q, False)
         sq, kq, dkq, dsq = (S[:, q], K[:, q], dK[:, q], dS[:, q])
+        if vel is not None:
+            sq = sq + _advection(vel, q, g)
         w = tab.wts[q]
         flux = [kq * gd for gd in g]
         for c in range(nc):
@@ -158,6 +184,8 @@ def thermal_elem_full_plain(grid, S, dS, K, dK, tab, lat, stage=None):
         for cp in range(nc):
             pcp = tab.phi[cp][q]
             ts = pcp * dsq
+            if vel is not None:
+                ts = ts + _advection(vel, q, tab.grad[cp][q])
             tf = [pcp * (dkq * g[d]) + tab.grad[cp][q][d] * kq
                   for d in range(dim)]
             if stage is not None:
@@ -222,21 +250,22 @@ def _entry(name, dtype):
                    f"{name}_{'f64' if dtype == torch.float64 else 'f32'}")
 
 
-def thermal_elem_state(grid, kappa, tab, lat, stage=None):
+def thermal_elem_state(grid, kappa, tab, lat, stage=None, vel=None):
     """The (nc, E) state-part residual rows: the CUDA kernel on a CUDA
     grid, the plain version on a CPU grid. kappa: Python float or (E,
-    Q); stage: None (steady) or a Stage."""
+    Q); stage: None (steady) or a Stage; vel: None or the velocity."""
     if grid.device.type == "cpu":
-        return thermal_elem_state_plain(grid, kappa, tab, lat, stage)
+        return thermal_elem_state_plain(grid, kappa, tab, lat, stage, vel)
     _check_grid(grid, tab, lat)
     E = math.prod(elem_dims(grid, lat))
     kap = coeff_args(kappa, E, grid, tab, "kappa")
     st = stage_args(stage, E, grid, tab)
+    va = velocity_args(vel, E, grid, tab)
     rows = torch.empty((len(lat.offsets), E), dtype=grid.dtype,
                        device=grid.device)
     err = _entry("thermal_elem_state", grid.dtype)(
-        ptr(grid), *kap, *st, *_geometry_args(grid, tab, lat), ptr(rows),
-        stream(grid))
+        ptr(grid), *kap, *st, *va, *_geometry_args(grid, tab, lat),
+        ptr(rows), stream(grid))
     if err != 0:
         raise RuntimeError(f"thermal_elem_state launch failed: CUDA error "
                            f"{err}")
@@ -244,22 +273,25 @@ def thermal_elem_state(grid, kappa, tab, lat, stage=None):
     return rows
 
 
-def thermal_elem_full(grid, S, dS, K, dK, tab, lat, stage=None):
+def thermal_elem_full(grid, S, dS, K, dK, tab, lat, stage=None, vel=None):
     """((nc, E) residual rows, (nc*nc, E) Jacobian rows) at the u_eval
     grid: the CUDA kernel on CUDA tensors, the plain version on CPU
-    tensors. stage: None (steady) or a Stage."""
+    tensors. stage: None (steady) or a Stage; vel: None or the
+    velocity."""
     if grid.device.type == "cpu":
-        return thermal_elem_full_plain(grid, S, dS, K, dK, tab, lat, stage)
+        return thermal_elem_full_plain(grid, S, dS, K, dK, tab, lat, stage,
+                                       vel)
     _check_grid(grid, tab, lat)
     E = math.prod(elem_dims(grid, lat))
     for name, t in (("S", S), ("dS", dS), ("K", K), ("dK", dK)):
         check_qp(t, E, grid, tab, name)
     st = stage_args(stage, E, grid, tab)
+    va = velocity_args(vel, E, grid, tab)
     nc = len(lat.offsets)
     rows = torch.empty((nc, E), dtype=grid.dtype, device=grid.device)
     jac = torch.empty((nc * nc, E), dtype=grid.dtype, device=grid.device)
     err = _entry("thermal_elem_full", grid.dtype)(
-        ptr(grid), ptr(S), ptr(dS), ptr(K), ptr(dK), *st,
+        ptr(grid), ptr(S), ptr(dS), ptr(K), ptr(dK), *st, *va,
         *_geometry_args(grid, tab, lat), ptr(rows), ptr(jac), stream(grid))
     if err != 0:
         raise RuntimeError(f"thermal_elem_full launch failed: CUDA error "

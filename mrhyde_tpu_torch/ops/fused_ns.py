@@ -411,13 +411,15 @@ class FusedNSAssembly:
                     coords = qp_coords(self.dims, self.origin, self.h_axes,
                                        self.q_off, self.tables.Q,
                                        self.asm.dtype, self.asm.device)
-                ctx = QpCtx(0.0, coords, float(time), params, self.asm.fm)
+                ctx = QpCtx(None, 0.0, coords, float(time), params,
+                            self.asm.fm)
                 v = torch.broadcast_to(torch.as_tensor(
                     ctx.f(name), dtype=self.asm.dtype,
                     device=self.asm.device), coords[0].shape)
                 out.append(v.reshape(-1, self.tables.Q).contiguous())
             else:
-                ctx = QpCtx(0.0, None, float(time), params, self.asm.fm)
+                ctx = QpCtx(None, 0.0, None, float(time), params,
+                            self.asm.fm)
                 out.append(_scalar(ctx.f(name)))
         self._coef_cache = (key, tuple(out))
         return self._coef_cache[1]

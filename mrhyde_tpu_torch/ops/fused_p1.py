@@ -1,6 +1,7 @@
-"""Fused assembly of thermal on uniform structured meshes: the node-
-scatter kernels for 2D p1 quads, and the dispatch to the element kernels
-for 3D hex and 2D p2 quads.
+"""Fused assembly of the scalar advection-diffusion-reaction weak form
+(thermal, with or without advection, and cdr) on uniform structured
+meshes: the node-scatter kernels for 2D p1 quads, and the dispatch to
+the element kernels for 3D hex and 2D p2 quads.
 
 (The Navier-Stokes provider, on the same kernel B2 with three variables,
 is ops/fused_ns.py; `FusedP1Assembly.build` hands NS decks to it. The
@@ -13,29 +14,40 @@ fused_p1.py) for the case its node-scatter TPU kernel (B2,
 `run_node_call`) carries on the main path: 2D p1 quads, steady or a
 stage of a transient solve. The TPU kernel traced any physics'
 `qp_density` and differentiated it by sparse forward AD; here the weak
-form is thermal's, written out,
+form that thermal and cdr share is written out,
 
-    r_c = sum_q w [phi_c (rho cp u_dot - f) + kappa grad phi_c . grad u_eval]
+    r_c = sum_q w [phi_c (m u_dot + b . grad u_eval + S_f)
+                   + kappa grad phi_c . grad u_eval]
 
 with u_eval = alpha_u u + beta_u and u_dot = alpha_t u + beta_t (steady:
-alpha_u = 1, alpha_t = 0, no betas), and the two launched modes of B2
-are hand-written CUDA kernels (`csrc/fused_p1_thermal.cu`):
+alpha_u = 1, alpha_t = 0, no betas). Thermal: m = rho cp, S_f = -f, b the
+'advection x|y|z' functions under 'include advection' (else none). Cdr:
+m = 1, S_f = reaction - source, kappa = diffusion / (rho cp), b = (xvel,
+yvel[, zvel]). The module names the functions behind kappa, S, m and b
+(`fused_names`) and evaluates them (`qp_coefficients`, `qp_mass`,
+`qp_velocity`). The two launched modes of B2 are hand-written CUDA
+kernels (`csrc/fused_p1_thermal.cu`), each with an ADVECT variant:
 
-- `thermal_node_state` (mode "state"): under the AFFINE split (kappa,
-  the source, the density and the specific heat read no `e`), the
-  residual's state part sum_q w [m alpha_t u_h phi_c + kappa alpha_u
-  grad phi_c . grad u_h] (m = rho cp; the mass lane only in a transient
-  stage), node-scattered in the kernel. The state-independent coord part
-  is computed once per stage and cached for its Newton solve: the
-  residual at u = 0 (u_eval = beta_u, u_dot = beta_t) as the plain-torch
-  source term plus the state kernel on the beta_u and beta_t grids, and
-  the Jacobian alpha_u K_kappa + alpha_t M_m (state-independent too) in
-  plain torch, as `_coord_eval` is plain XLA in JAX.
+- `thermal_node_state` (mode "state"): under the AFFINE split (no
+  coefficient reads the state), the residual's state part sum_q w
+  [phi_c (m alpha_t u_h + alpha_u b . grad u_h) + kappa alpha_u grad
+  phi_c . grad u_h] (the mass lane only in a transient stage),
+  node-scattered in the kernel. The state-independent coord part is
+  computed once per stage and cached for its Newton solve: the residual
+  at u = 0 (u_eval = beta_u, u_dot = beta_t) as the plain-torch source
+  term plus the state kernel on the beta_u and beta_t grids, and the
+  Jacobian alpha_u (K_kappa + A_b) + alpha_t M_m (state-independent too;
+  A_b[c][c'] = sum_q w phi_c b . grad phi_c') in plain torch, as
+  `_coord_eval` is plain XLA in JAX.
 - `thermal_node_full` (mode "full"): otherwise, the residual and all 16
   SoA Jacobian rows from one pass over the u_eval grid, fed per-qp S
-  (with its rho cp u_dot term), dS/de, kappa, dkappa/de and m tensors
-  that a torch pre-pass evaluates (DSL value and its forward derivative
-  in `e`).
+  (with its m u_dot term, without b), dS/de, kappa, dkappa/de and m
+  tensors that a torch pre-pass evaluates (DSL value and its forward
+  derivative in the variable), and the velocity.
+
+The velocity is evaluated once per stage, a Python float per component
+where it is constant, else an (E, Q) tensor. A velocity that reads the
+state is refused (NotImplementedError): the kernels take b as data.
 
 A steady call keeps its specialization, as the JAX package's
 `_steady_check` does: no beta is read and there is no mass lane.
@@ -47,10 +59,11 @@ scatters; the coord part is computed the same way.
 Row classification follows from which leaves the coefficient
 expressions read, not from a traced probe: a row is element-varying iff
 its expression reads `x`/`y`/`z` (or the state), and the split holds iff no
-coefficient reads `e`. For the thermal weak form this reproduces the
+coefficient reads the variable. For this weak form it reproduces the
 JAX package's `_probe`/`_detect_affine` split, row indices and constant
-values; an expression linear in `e` is affine in JAX but takes the
-"full" path here, which computes the same numbers.
+values; an expression linear in the variable (a cdr reaction `2*c`) is
+affine in JAX but takes the "full" path here, which computes the same
+numbers.
 
 Every wrapper runs its plain-torch version on CPU tensors (the CPU
 tests exercise the same structure that runs on the card) and the CUDA
@@ -68,7 +81,8 @@ import torch
 from mrhyde_tpu_torch.assembly.assembler import BlockJacobian
 from mrhyde_tpu_torch.ops import fused_elem as fe
 from mrhyde_tpu_torch.ops._launch import (LAUNCHES, check_qp, coeff_args,
-                                          ptr, stage_args, stream)
+                                          ptr, stage_args, stream,
+                                          velocity_args)
 
 __all__ = ["FusedP1Assembly", "QuadTables", "Stage", "LAUNCHES",
            "thermal_node_state", "thermal_node_full",
@@ -165,24 +179,29 @@ class Stage(NamedTuple):
 # grid in the pad+sum order
 # ----------------------------------------------------------------------
 
-def thermal_node_state_plain(u_grid, kappa, tab, stage=None):
+def thermal_node_state_plain(u_grid, kappa, tab, stage=None, vel=None):
     """Node residual of the state part scattered to the (N0+1, N1+1)
     node grid: sum_q w kappa grad phi_c . grad u_h (steady), or with a
     Stage sum_q w [m alpha_t u_h phi_c + kappa alpha_u grad phi_c .
-    grad u_h]. kappa, stage.mass: Python float or an (E, Q) tensor."""
+    grad u_h]; with a velocity b, phi_c alpha_u b . grad u_h joins the
+    sum. kappa, stage.mass, each velocity component: Python float or an
+    (E, Q) tensor."""
     dims = (u_grid.shape[0] - 1, u_grid.shape[1] - 1)
-    rows = fe.thermal_elem_state_plain(u_grid, kappa, tab, QUAD_P1, stage)
+    rows = fe.thermal_elem_state_plain(u_grid, kappa, tab, QUAD_P1, stage,
+                                       vel)
     return fe.scatter_rows(rows, QUAD_P1, dims, u_grid)
 
 
-def thermal_node_full_plain(u_grid, S, dS, K, dK, tab, stage=None):
+def thermal_node_full_plain(u_grid, S, dS, K, dK, tab, stage=None,
+                            vel=None):
     """(node residual (N0+1, N1+1), Jacobian rows (16, E)) of the full
     weak form at the u_eval grid `u_grid`, from the per-qp (E, Q)
     tensors S, dS/de, kappa, dkappa/de. With a Stage the columns carry
-    alpha_u on the u_eval tangents and alpha_t m on the u_dot one."""
+    alpha_u on the u_eval tangents and alpha_t m on the u_dot one; with
+    a velocity S gains b . grad u_eval and column c' b . grad phi_c'."""
     dims = (u_grid.shape[0] - 1, u_grid.shape[1] - 1)
     rows, jac = fe.thermal_elem_full_plain(u_grid, S, dS, K, dK, tab,
-                                           QUAD_P1, stage)
+                                           QUAD_P1, stage, vel)
     return fe.scatter_rows(rows, QUAD_P1, dims, u_grid), jac
 
 
@@ -211,23 +230,25 @@ def _check_grid(u_grid, tab):
                              "than u_grid")
 
 
-def thermal_node_state(u_grid, kappa, tab, stage=None):
+def thermal_node_state(u_grid, kappa, tab, stage=None, vel=None):
     """The state-part node residual: CUDA kernel on a CUDA tensor, the
     plain version on a CPU tensor. kappa: Python float or (E, Q); stage:
-    None (steady) or a Stage."""
+    None (steady) or a Stage; vel: None or the velocity's two
+    components."""
     if u_grid.device.type == "cpu":
-        return thermal_node_state_plain(u_grid, kappa, tab, stage)
+        return thermal_node_state_plain(u_grid, kappa, tab, stage, vel)
     _check_grid(u_grid, tab)
     E = (u_grid.shape[0] - 1) * (u_grid.shape[1] - 1)
     kap = coeff_args(kappa, E, u_grid, tab, "kappa")
     st = stage_args(stage, E, u_grid, tab)
+    va = velocity_args(vel, E, u_grid, tab)
     from mrhyde_tpu_torch.ops._build import load_library
     lib = load_library()
     fn = (lib.thermal_node_state_f64 if u_grid.dtype == torch.float64
           else lib.thermal_node_state_f32)
     out = torch.empty_like(u_grid)
     N0, N1 = u_grid.shape[0] - 1, u_grid.shape[1] - 1
-    err = fn(ptr(u_grid), *kap, *st, ptr(tab.t_phi), ptr(tab.t_grad),
+    err = fn(ptr(u_grid), *kap, *st, *va, ptr(tab.t_phi), ptr(tab.t_grad),
              ptr(tab.t_wts), tab.Q, N0, N1, ptr(out), stream(u_grid))
     if err != 0:
         raise RuntimeError(f"thermal_node_state launch failed: CUDA error "
@@ -236,17 +257,20 @@ def thermal_node_state(u_grid, kappa, tab, stage=None):
     return out
 
 
-def thermal_node_full(u_grid, S, dS, K, dK, tab, stage=None):
+def thermal_node_full(u_grid, S, dS, K, dK, tab, stage=None, vel=None):
     """(node residual, Jacobian rows (16, E)) of the full weak form at
     the u_eval grid: CUDA kernel on CUDA tensors, the plain version on
-    CPU tensors. stage: None (steady) or a Stage."""
+    CPU tensors. stage: None (steady) or a Stage; vel: None or the
+    velocity's two components."""
     if u_grid.device.type == "cpu":
-        return thermal_node_full_plain(u_grid, S, dS, K, dK, tab, stage)
+        return thermal_node_full_plain(u_grid, S, dS, K, dK, tab, stage,
+                                       vel)
     _check_grid(u_grid, tab)
     E = (u_grid.shape[0] - 1) * (u_grid.shape[1] - 1)
     for name, t in (("S", S), ("dS", dS), ("K", K), ("dK", dK)):
         check_qp(t, E, u_grid, tab, name)
     st = stage_args(stage, E, u_grid, tab)
+    va = velocity_args(vel, E, u_grid, tab)
     from mrhyde_tpu_torch.ops._build import load_library
     lib = load_library()
     fn = (lib.thermal_node_full_f64 if u_grid.dtype == torch.float64
@@ -255,7 +279,7 @@ def thermal_node_full(u_grid, S, dS, K, dK, tab, stage=None):
     out = torch.empty_like(u_grid)
     jac = torch.empty((16, N0 * N1), dtype=u_grid.dtype,
                       device=u_grid.device)
-    err = fn(ptr(u_grid), ptr(S), ptr(dS), ptr(K), ptr(dK), *st,
+    err = fn(ptr(u_grid), ptr(S), ptr(dS), ptr(K), ptr(dK), *st, *va,
              ptr(tab.t_phi), ptr(tab.t_grad), ptr(tab.t_wts), tab.Q,
              N0, N1, ptr(out), ptr(jac), stream(u_grid))
     if err != 0:
@@ -271,10 +295,11 @@ def thermal_node_full(u_grid, S, dS, K, dK, tab, stage=None):
 
 class QpCtx:
     """Per-qp context for the coefficient expressions on (*dims, Q)
-    tensors: `e` resolves to u_eval at the qps and sol_dot to u_dot
-    (0.0 in a steady call)."""
+    tensors: the variable (`e`, `c`) resolves to u_eval at the qps and
+    sol_dot to u_dot (0.0 in a steady call)."""
 
-    def __init__(self, uq, coords, t, params, fm, udq=0.0):
+    def __init__(self, var, uq, coords, t, params, fm, udq=0.0):
+        self.var = var
         self._u = uq
         self._ud = udq
         self.coords = coords
@@ -299,22 +324,22 @@ class QpCtx:
             return self.t
         if leaf in self.params:
             return self.params[leaf]
-        if leaf == "e":
+        if leaf == self.var:
             return self._u
-        raise KeyError(f"fused thermal assembly cannot resolve {leaf!r}")
-
-
-_COEFFS = ("thermal diffusion", "thermal source", "density",
-           "specific heat")
+        raise KeyError(f"fused assembly cannot resolve {leaf!r}")
 
 
 class FusedP1Assembly:
     """Fused residual+Jacobian provider for qualifying problems: uniform
     structured 2D p1 quads (the node-scatter kernels, B2), 3D p1 hex and
     2D p2 quads (the element kernels of ops/fused_elem.py, B1); one
-    thermal module, no advection, scalar params; steady calls and
-    transient stages alike. `FusedP1Assembly.build(asm)` -> instance or
-    None."""
+    scalar advection-diffusion-reaction module (thermal, with or without
+    advection, or cdr), scalar params; steady calls and transient stages
+    alike. `FusedP1Assembly.build(asm)` -> instance or None.
+
+    `leaves` holds the terminal leaves of the module's coefficients
+    (`fused_names`): kappa, the source S (without advection), the mass m
+    and the velocity."""
 
     def __init__(self, asm, leaves):
         self.asm = asm
@@ -336,14 +361,15 @@ class FusedP1Assembly:
         self.nc = len(self.lattice.offsets)
         self.fm = asm.fm
         self.module = asm.modules[0]
-        kap = leaves["thermal diffusion"]
-        src = set().union(*(leaves[n] for n in _COEFFS[1:]))
-        mass = leaves["density"] | leaves["specific heat"]
-        # affine split iff no coefficient reads the state
-        self.split = "e" not in kap | src
+        kap, src, mass, vel = (leaves[k] for k in ("kappa", "source",
+                                                   "mass", "velocity"))
+        # affine split iff no coefficient reads the state (a velocity
+        # that does is refused by `build`)
+        self.split = self.var not in kap | src
         self._varying = {"kappa": bool(kap & _COORD),
                          "mass": bool(mass & _COORD),
-                         "coeffs": bool((kap | src) & _COORD)}
+                         "velocity": bool(vel & _COORD),
+                         "coeffs": bool((kap | src | vel) & _COORD)}
         self.stats = self._stats(True)
         self._coords = None
         self._stage_cache = None
@@ -384,21 +410,25 @@ class FusedP1Assembly:
         v = self._varying
         if steady:
             res0 = nc if v["coeffs"] else 0
-            jac0 = nc * nc if v["kappa"] else 0
+            jac0 = nc * nc if v["kappa"] or v["velocity"] else 0
         else:
             # the beta grids make the coord residual vary; the Jacobian
-            # alpha_u K_kappa + alpha_t M_m varies with kappa or m
+            # alpha_u (K_kappa + A_b) + alpha_t M_m varies with kappa, b
+            # or m
             res0 = nc
-            jac0 = nc * nc if v["kappa"] or v["mass"] else 0
+            jac0 = nc * nc if v["kappa"] or v["mass"] or v["velocity"] \
+                else 0
         return {"steady": steady, "split": True, "n_res_rows": nc,
                 "n_jac_rows": 0, "coord_res_rows": res0,
                 "coord_jac_rows": jac0, "node_scatter": self.node}
 
     @staticmethod
     def build(asm):
-        """The fused provider of a qualifying problem: this thermal
-        provider, or the Navier-Stokes one (ops/fused_ns.py) for an NS
-        deck; None where the problem takes the general path."""
+        """The fused provider of a qualifying problem: this provider for
+        thermal or cdr, or the Navier-Stokes one (ops/fused_ns.py) for an
+        NS deck; None where the problem takes the general path. A
+        velocity that reads the state raises NotImplementedError."""
+        from mrhyde_tpu_torch.physics.cdr import CDR
         from mrhyde_tpu_torch.physics.navierstokes import NavierStokes
         from mrhyde_tpu_torch.physics.thermal import Thermal
         if any(isinstance(m, NavierStokes) for m in asm.modules):
@@ -414,9 +444,19 @@ class FusedP1Assembly:
             return None
         if not asm.uniform:
             return None
-        if len(asm.modules) != 1 or not isinstance(asm.modules[0], Thermal):
+        if len(asm.modules) != 1 \
+                or not isinstance(asm.modules[0], (Thermal, CDR)):
             return None
-        leaves = {n: asm.fm.terminal_leaves(n) for n in _COEFFS}
+        module = asm.modules[0]
+        var = module.variables()[0][0]
+        leaves = {k: set().union(*(asm.fm.terminal_leaves(n) for n in names))
+                  for k, names in module.fused_names().items()}
+        if any(lf == var or lf.startswith("grad(") or lf.endswith("_t")
+               for lf in leaves["velocity"]):
+            raise NotImplementedError(
+                f"an advection velocity that reads the state "
+                f"({sorted(leaves['velocity'])}) is not ported to "
+                f"mrhyde_tpu_torch yet (ROADMAP A10, CDR remainder)")
         for ls in leaves.values():
             # state derivatives (and z in 2D) are beyond the pointwise
             # context
@@ -443,15 +483,15 @@ class FusedP1Assembly:
             return grid.reshape(-1)
         return grid.reshape(-1)[self.dof2fine]
 
-    def _state_part(self, grid, kappa, stage):
+    def _state_part(self, grid, kappa, stage, vel):
         """The residual of the split's state part on the variable's dofs
         (flat): B2 scatters in its kernel, B1's rows are scattered
         here."""
         if self.node:
-            return thermal_node_state(grid, kappa, self.tables,
-                                      stage).reshape(-1)
+            return thermal_node_state(grid, kappa, self.tables, stage,
+                                      vel).reshape(-1)
         return self._scatter(fe.thermal_elem_state(
-            grid, kappa, self.tables, self.lattice, stage), grid)
+            grid, kappa, self.tables, self.lattice, stage, vel), grid)
 
     def _at_qps(self, grid):
         """u_h at the quadrature points of a grid, (*dims, Q)."""
@@ -480,14 +520,21 @@ class FusedP1Assembly:
                 .reshape(-1, self.tables.Q).contiguous()
         return v
 
+    def _velocity(self, t, params):
+        """The velocity as the kernels take it (`dim` Python floats or
+        (E, Q) tensors), or None without advection."""
+        vel = self.module.qp_velocity(QpCtx(
+            self.var, 0.0, self._qp_coords(), t, params, self.fm))
+        return None if vel is None else [self._kernel_coeff(b) for b in vel]
+
     def _stage(self, tc, params):
-        """(steady, coord part or None) of a call, cached per stage. A
-        stage is its TimeCoeffs' beta tensors (by identity and version,
-        and held here, so their ids stay theirs), alphas, time, time step
-        and params: the cache holds across one stage's Newton iterations,
-        and two stages at the same time (Crank-Nicolson's stage 1 and
-        the next step's stage 0, a retried step) never share it. A
-        steady call reads no beta."""
+        """(steady, coord part or None, velocity) of a call, cached per
+        stage. A stage is its TimeCoeffs' beta tensors (by identity and
+        version, and held here, so their ids stay theirs), alphas, time,
+        time step and params: the cache holds across one stage's Newton
+        iterations, and two stages at the same time (Crank-Nicolson's
+        stage 1 and the next step's stage 0, a retried step) never share
+        it. A steady call reads no beta."""
         pkey = tuple(sorted((k, float(v)) for k, v in params.items()))
         if tc.is_steady:
             key, held = ("steady", float(tc.time), pkey), ()
@@ -500,25 +547,28 @@ class FusedP1Assembly:
         if self._stage_cache is not None and self._stage_cache[0] == key:
             return self._stage_cache[2]
         steady = steady_check(tc)
-        coord = self._coord_eval(tc, params, steady) if self.split \
+        vel = self._velocity(tc.time, params)
+        coord = self._coord_eval(tc, params, steady, vel) if self.split \
             else None
-        self._stage_cache = (key, held, (steady, coord))
-        return steady, coord
+        self._stage_cache = (key, held, (steady, coord, vel))
+        return steady, coord, vel
 
-    def _coord_eval(self, tc, params, steady):
+    def _coord_eval(self, tc, params, steady, vel):
         """The state-independent part of the affine split: (coord
         residual on the variable's dofs, nc*nc Jacobian rows, kappa and m
-        for the state kernel). Steady: the residual at u = 0, -sum_q w f
-        phi_c (plain torch), and the Jacobian K_kappa. A transient stage
-        adds the residual of the beta grids, sum_q w [m beta_t,h phi_c +
-        kappa grad beta_u,h . grad phi_c], as two launches of the state
-        kernel (on beta_u with alpha = (1, 0), on beta_t with alpha = (0,
-        1)), and its Jacobian is alpha_u K_kappa + alpha_t M_m."""
+        for the state kernel). Steady: the residual at u = 0, sum_q w S0
+        phi_c (plain torch; S0 = -f for thermal), and the Jacobian K_kappa
+        + A_b, A_b[c][c'] = sum_q w phi_c b . grad phi_c'. A transient
+        stage adds the residual of the beta grids, sum_q w [m beta_t,h
+        phi_c + phi_c b . grad beta_u,h + kappa grad beta_u,h . grad
+        phi_c], as two launches of the state kernel (on beta_u with alpha
+        = (1, 0) and the velocity, on beta_t with alpha = (0, 1)), and its
+        Jacobian is alpha_u (K_kappa + A_b) + alpha_t M_m."""
         tab, nc, dim = self.tables, self.nc, self.dim
         E = math.prod(self.dims)
         coords = self._qp_coords()
         like = coords[0]
-        ctx = QpCtx(0.0, coords, tc.time, params, self.fm)
+        ctx = QpCtx(self.var, 0.0, coords, tc.time, params, self.fm)
         S0, kap = self.module.qp_coefficients(ctx)
         kap = _scalar(kap)
         rows = []
@@ -537,9 +587,13 @@ class FusedP1Assembly:
             mk = self._kernel_coeff(mass)
             res0 = (res0
                     + self._state_part(self._grid(tc.beta_u), kk,
-                                       Stage(1.0, 0.0, mk))
+                                       Stage(1.0, 0.0, mk), vel)
                     + self._state_part(self._grid(tc.beta_t), kk,
-                                       Stage(0.0, 1.0, mk)))
+                                       Stage(0.0, 1.0, mk), None))
+        # the velocity on the element grid, (*dims, Q) like kap
+        bq = None if vel is None else [
+            b.reshape(*self.dims, tab.Q) if isinstance(b, torch.Tensor)
+            else b for b in vel]
         jac = []
         for c in range(nc):
             for cp in range(nc):
@@ -547,16 +601,25 @@ class FusedP1Assembly:
                 for q in range(tab.Q):
                     kq = _qslice(kap, q)
                     gc, gp = tab.grad[c][q], tab.grad[cp][q]
+                    # the JAX package's column tangents: alpha_t phi_c' on
+                    # u_dot, alpha_u grad phi_c' on grad u_eval (steady:
+                    # alpha_u = 1, no u_dot); ts the one of S
+                    ts = None
                     if steady:
                         a = sum(gc[d] * (gp[d] * kq) for d in range(dim))
+                        tg = gp
                     else:
-                        # the JAX package's column tangents: alpha_t phi_c'
-                        # on u_dot, alpha_u grad phi_c' on grad u_eval
                         au = tc.alpha_u
-                        a = (tab.phi[c][q] * ((tc.alpha_t * tab.phi[cp][q])
-                                              * _qslice(mass, q))
-                             + sum(gc[d] * ((au * gp[d]) * kq)
-                                   for d in range(dim)))
+                        ts = (tc.alpha_t * tab.phi[cp][q]) * _qslice(mass, q)
+                        a = sum(gc[d] * ((au * gp[d]) * kq)
+                                for d in range(dim))
+                        tg = [au * g for g in gp]
+                    if bq is not None:
+                        adv = sum(tg[d] * _qslice(bq[d], q)
+                                  for d in range(dim))
+                        ts = adv if ts is None else ts + adv
+                    if ts is not None:
+                        a = tab.phi[c][q] * ts + a
                     acc = tab.wts[q] * a if acc is None \
                         else acc + tab.wts[q] * a
                 jac.append(acc.reshape(E) if isinstance(acc, torch.Tensor)
@@ -580,7 +643,8 @@ class FusedP1Assembly:
         shape = uq.shape
 
         def coeffs(uq_):
-            ctx = QpCtx(uq_, coords, tc.time, params, self.fm, udq)
+            ctx = QpCtx(self.var, uq_, coords, tc.time, params, self.fm,
+                        udq)
             return tuple(torch.broadcast_to(
                 torch.as_tensor(v, dtype=uq_.dtype, device=uq_.device),
                 shape) for v in self.module.qp_coefficients(ctx))
@@ -590,7 +654,7 @@ class FusedP1Assembly:
         mass = None
         if ud_grid is not None:
             mass = self._kernel_coeff(self.module.qp_mass(
-                QpCtx(uq, coords, tc.time, params, self.fm, udq)))
+                QpCtx(self.var, uq, coords, tc.time, params, self.fm, udq)))
         return [t.reshape(E, tab.Q).contiguous()
                 for t in (S, dS, K, dK)], mass
 
@@ -600,13 +664,13 @@ class FusedP1Assembly:
         asm = self.asm
         params = dict(asm.params)
         params.update(pvec or {})
-        steady, coord = self._stage(tc, params)
+        steady, coord, vel = self._stage(tc, params)
         self.stats = self._stats(steady)
         u_grid = self._grid(u)
         if self.split:
             res0, rows, kappa, mass = coord
             stage = None if steady else Stage(tc.alpha_u, tc.alpha_t, mass)
-            node = res0 + self._state_part(u_grid, kappa, stage)
+            node = res0 + self._state_part(u_grid, kappa, stage, vel)
         else:
             ue, ud = u_grid, None
             if not steady:
@@ -616,12 +680,12 @@ class FusedP1Assembly:
             stage = None if steady else Stage(tc.alpha_u, tc.alpha_t, mass)
             if self.node:
                 node, jac = thermal_node_full(ue, S, dS, K, dK, self.tables,
-                                              stage)
+                                              stage, vel)
                 node = node.reshape(-1)
             else:
                 res, jac = fe.thermal_elem_full(ue, S, dS, K, dK,
                                                 self.tables, self.lattice,
-                                                stage)
+                                                stage, vel)
                 node = self._scatter(res, ue)
             rows = list(jac.unbind(0))
         r = torch.zeros(asm.n_dof, dtype=u.dtype, device=u.device)

@@ -1,8 +1,8 @@
 """Physics module registry: input-deck name -> module class.
 
-`thermal`, `ODE`, `navier stokes` and `Stokes` are ported so far. Every
-other module name the JAX package registers raises NotImplementedError
-naming the ROADMAP item that ports it.
+`thermal`, `cdr`, `ODE`, `navier stokes` and `Stokes` are ported so
+far. Every other module name the JAX package registers raises
+NotImplementedError naming the ROADMAP item that ports it.
 """
 
 from __future__ import annotations
@@ -13,7 +13,7 @@ _REGISTRY: dict[str, type] = {}
 
 # deck name -> ROADMAP item of the port that brings it
 _NOT_PORTED = {
-    "cdr": "A10", "Burgers": "A10", "linearelasticity": "A10",
+    "Burgers": "A10", "linearelasticity": "A10",
     "crystal elasticity": "A10", "shallow water": "A10",
     "shallow ice": "A10", "helmholtz": "A10", "hartmann": "A10",
     "Kuramoto-Sivashinsky": "A10", "llamas": "A10",
@@ -59,6 +59,7 @@ def import_physics(names, settings=None, dim=2):
 
 def _ensure_imported():
     # import the module files so their @register decorators run
+    import mrhyde_tpu_torch.physics.cdr  # noqa: F401
     import mrhyde_tpu_torch.physics.navierstokes  # noqa: F401
     import mrhyde_tpu_torch.physics.ode  # noqa: F401
     import mrhyde_tpu_torch.physics.stokes  # noqa: F401

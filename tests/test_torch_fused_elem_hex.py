@@ -108,10 +108,10 @@ def test_transient_coord_part_runs_elem_state_on_betas(monkeypatch):
     seen = []
     state = fe.thermal_elem_state
 
-    def recorded(grid, kappa, tab, lat, stage=None):
+    def recorded(grid, kappa, tab, lat, stage=None, vel=None):
         seen.append((grid.clone(), None if stage is None
                      else (stage.alpha_u, stage.alpha_t)))
-        return state(grid, kappa, tab, lat, stage)
+        return state(grid, kappa, tab, lat, stage, vel)
     monkeypatch.setattr(fe, "thermal_elem_state", recorded)
     n = pt.n_dof
     tt = time_coeffs_from_numpy(DIRK22_STAGE1[0], seeded(n, seed=41),

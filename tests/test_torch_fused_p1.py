@@ -149,10 +149,10 @@ def test_transient_coord_part_runs_state_kernel_on_betas(monkeypatch):
     seen = []
     state = fp.thermal_node_state
 
-    def recorded(u_grid, kappa, tab, stage=None):
+    def recorded(u_grid, kappa, tab, stage=None, vel=None):
         seen.append((u_grid.clone(), None if stage is None
                      else (stage.alpha_u, stage.alpha_t)))
-        return state(u_grid, kappa, tab, stage)
+        return state(u_grid, kappa, tab, stage, vel)
     monkeypatch.setattr(fp, "thermal_node_state", recorded)
     ut = state_from_numpy(seeded(pt.n_dof, seed=25), pt)
     _tj, tt = stage_coeffs(_pj, pt, *DIRK22_STAGE1, seed=45)

@@ -364,3 +364,103 @@ def test_elem_wrapper_checks_inputs_on_card():
         fe.thermal_elem_state(torch.zeros((6, 5), device=dev,
                                           dtype=torch.float64),
                               1.0, p2_tab, p2_lat)
+
+
+# ----------------------------------------------------------------------
+# advection (cdr, thermal 'include advection'): the ADVECT instantiations
+# ----------------------------------------------------------------------
+
+ADVECT_SHAPES = {"p1": [(64, 128), (37, 29)], "hex": [(8, 8, 8), (7, 5, 3)],
+                 "p2": [(32, 16), (13, 7)]}
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("vel", ["scalar", "per_qp"])
+@pytest.mark.parametrize("dtype", [torch.float64, torch.float32])
+@pytest.mark.parametrize("mesh,shape", [(m, s) for m, ss in
+                                        ADVECT_SHAPES.items() for s in ss])
+def test_advect_kernels_match_plain(mesh, shape, dtype, vel):
+    """The four kernels with a velocity (every component scalar, or every
+    one an (E, Q) tensor), steady and at DIRK-2,2 stage-1 alphas, against
+    their plain versions, at a divisible and a non-divisible size."""
+    from mrhyde_tpu_torch.ops import fused_elem as fe
+    from mrhyde_tpu_torch.ops import fused_p1 as fp
+    dev = _card()
+    if mesh == "p1":
+        from mrhyde_tpu_torch.problem import Problem
+        t0 = Problem(thermal_cfg(4), device="cpu").assembler \
+            .fused_provider().tables
+        tab, lat = fp.QuadTables(np.asarray(t0.phi), np.asarray(t0.grad),
+                                 np.asarray(t0.wts), dev, dtype), fp.QUAD_P1
+    else:
+        tab, lat = _elem_case(mesh, dev, dtype)
+    gen = torch.Generator(device=dev).manual_seed(17)
+    grid = torch.rand(tuple(lat.stride * n + 1 for n in shape),
+                      generator=gen, device=dev, dtype=dtype) - 0.5
+    E = int(np.prod(shape))
+    qp = [torch.rand((E, tab.Q), generator=gen, device=dev, dtype=dtype)
+          - 0.5 for _ in range(5 + tab.dim)]
+    b = ([2.0, -1.0, 0.5][:tab.dim] if vel == "scalar"
+         else [4.0 * t for t in qp[5:]])
+    before = dict(fp.LAUNCHES)
+    for stage in (None, fp.Stage(*DIRK22_STAGE1, 1.5)):
+        if mesh == "p1":
+            pairs = [(fp.thermal_node_state(grid, qp[4], tab, stage, b),
+                      fp.thermal_node_state_plain(grid, qp[4], tab, stage,
+                                                  b)),
+                     *zip(fp.thermal_node_full(grid, *qp[:4], tab, stage, b),
+                          fp.thermal_node_full_plain(grid, *qp[:4], tab,
+                                                     stage, b))]
+        else:
+            pairs = [(fe.thermal_elem_state(grid, qp[4], tab, lat, stage, b),
+                      fe.thermal_elem_state_plain(grid, qp[4], tab, lat,
+                                                  stage, b)),
+                     *zip(fe.thermal_elem_full(grid, *qp[:4], tab, lat, stage,
+                                               b),
+                          fe.thermal_elem_full_plain(grid, *qp[:4], tab, lat,
+                                                     stage, b))]
+        for got, ref in pairs:
+            assert _close(got, ref, dtype)
+    state, full = ("state", "full") if mesh == "p1" else ("elem_state",
+                                                         "elem_full")
+    assert fp.LAUNCHES[state] == before[state] + 2
+    assert fp.LAUNCHES[full] == before[full] + 2
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("stage", [False, True])
+@pytest.mark.parametrize("reaction", ["1.0", "0.5*c*c"])
+@pytest.mark.parametrize("mesh", ["p1", "hex", "p2"])
+def test_cdr_provider_on_card_matches_cpu(mesh, reaction, stage):
+    """The cdr provider on CUDA (kernels with the rotating velocity)
+    against the same call on the CPU (plain versions): residual and every
+    Jacobian row, f64, steady and at a DIRK-2,2 stage-1 call."""
+    from mrhyde_tpu_torch.assembly.assembler import TimeCoeffs
+    from mrhyde_tpu_torch.interop import (state_from_numpy, state_to_numpy,
+                                          time_coeffs_from_numpy)
+    from mrhyde_tpu_torch.problem import Problem
+    from torch_port_utils import cdr_cfg
+    dev = _card()
+    sizes = {"p1": (23, 17, None), "hex": (9, 7, 5), "p2": (13, 9, None)}
+    cfg = cdr_cfg(*sizes[mesh], vel="rot", reaction=reaction,
+                  order=2 if mesh == "p2" else 1, transient=stage)
+    out = {}
+    for d in ("cpu", dev):
+        p = Problem(cfg, device=d)
+        n = p.n_dof
+        tc = (time_coeffs_from_numpy(
+            DIRK22_STAGE1[0], seeded(n, seed=11), DIRK22_STAGE1[1],
+            seeded(n, seed=12, scale=5.0), 0.3, 0.05, p) if stage
+            else TimeCoeffs.steady(n, device=d))
+        r, rows = p.assembler.fused_provider().res_jac(
+            state_from_numpy(seeded(n, seed=9), p), tc)
+        out[str(d)] = (state_to_numpy(r),
+                       [None if x is None else state_to_numpy(x)
+                        for x in rows])
+    (rc, jc), (rg, jg) = out["cpu"], out[str(dev)]
+    assert np.max(np.abs(rg - rc)) <= 1e-12 * max(1.0, np.max(np.abs(rc)))
+    for a, b in zip(jg, jc):
+        assert (a is None) == (b is None)
+        if a is not None:
+            assert np.max(np.abs(a - b)) <= 1e-12 * max(1.0,
+                                                        np.max(np.abs(b)))

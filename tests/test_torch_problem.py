@@ -157,6 +157,10 @@ def test_port_runs_without_importing_jax():
             "'FusedNSAssembly'\n"
             "r = p.run()\n"
             "assert r.newton.converged and ('L2', 'pr') in r.errors\n"
+            "from torch_port_utils import cdr_cfg\n"
+            "r = Problem(cdr_cfg(6, vel='rot', reaction='0.5*c*c'), "
+            "device='cpu').run()\n"
+            "assert r.newton.converged and ('L2', 'c') in r.errors\n"
             "bad = [m for m in sys.modules if m == 'jax' or "
             "m.startswith(('jax.', 'mrhyde_tpu.')) or m == 'mrhyde_tpu']\n"
             "assert not bad, bad\n"
@@ -171,8 +175,10 @@ def test_port_runs_without_importing_jax():
     {"Solver": {"shards": 2}},
     {"Parameters": {"kp": {"type": "scalar", "value": 1.0}}},
     {"Analysis": {"analysis type": "ROL"}},
-    {"Physics": {"modules": "cdr"}},
-    {"Physics": {"modules": "thermal", "include advection": True}},
+    {"Physics": {"modules": "Burgers"}},
+    # an advection velocity that reads the state
+    {"Physics": {"modules": "cdr", "Dirichlet conditions": {
+        "c": {"all boundaries": 0.0}}}, "Functions": {"xvel": "c"}},
     # the Boussinesq coupling of an NS + thermal set
     {"Physics": {"modules": "navier stokes,thermal"}},
     # a state-dependent NS coefficient

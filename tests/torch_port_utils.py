@@ -230,3 +230,95 @@ def check_fused_against_general(pt, tt, u, tol):
     v = torch.as_tensor(seeded(pt.n_dof, seed=23, scale=1.0))
     assert max_diff(J.apply(v), Jg.apply(v)) < tol
     assert max_diff(J.diag(), Jg.diag()) < tol
+
+
+# convection-diffusion-reaction (cdr) and thermal with advection: u = S
+# (2D) or S3 (hex) with b . grad u in the source; a constant velocity and
+# the rotating field about the square's centre (x-dependent rows, a
+# nonsymmetric Jacobian either way)
+SX = "2*pi*cos(2*pi*x)*sin(2*pi*y)"
+SY = "2*pi*sin(2*pi*x)*cos(2*pi*y)"
+CDR_SOURCE = f"8*(pi*pi)*{S_TRUE} + 2.0*{SX} + 1.0*{SY}"
+VELOCITIES = {"const": ("2.0", "1.0", "0.5"),
+              "rot": ("-4.0*(y-0.5)", "4.0*(x-0.5)", "0.5 + 0.25*z")}
+# the reference's cdr/2D_manufactured gold deck's reaction (nonlinear) and
+# the default constant reaction 1.0 (affine split)
+REACTIONS = ("1.0", "0.5*c*c")
+
+
+def cdr_cfg(nx, ny=None, nz=None, vel="const", reaction="1.0",
+            source=CDR_SOURCE, order=1, density="2.0", transient=False,
+            solver=None):
+    """A cdr deck on nx x ny p1 (order 1) or p2 (order 2, quadrature 4)
+    quads, or an nx x ny x nz hex mesh; Dirichlet 0; density 2 (kappa =
+    diffusion / (rho cp) = 0.5, and the c_t lane carries no rho cp
+    weight); transient: IC 0, BWE, 4 steps to t = 0.2."""
+    dim = 2 if nz is None else 3
+    fs = {"source": source, "reaction": reaction, "density": density}
+    fs.update(zip(("xvel", "yvel", "zvel"), VELOCITIES[vel][:dim]))
+    cfg = {
+        "Mesh": {"dimension": dim, "element type": "quad" if dim == 2
+                 else "hex", "NX": nx, "NY": nx if ny is None else ny},
+        "Functions": fs,
+        "Physics": {"modules": "cdr",
+                    "Dirichlet conditions": {"c": {"all boundaries": 0.0}}},
+        "Discretization": {"order": {"c": order},
+                           "quadrature": 4 if order == 2 else 2},
+        "Solver": dict({"solver": "steady-state"}, **(solver or {})),
+        "Postprocess": {"compute errors": True,
+                        "True solutions": {"c": S_TRUE if dim == 2
+                                           else S3_TRUE}},
+    }
+    if dim == 3:
+        cfg["Mesh"]["NZ"] = nz
+    if transient:
+        cfg["Physics"]["Initial conditions"] = {"c": "0.0"}
+        cfg["Solver"] = dict({"solver": "transient", "final time": 0.2,
+                              "number of steps": 4}, **(solver or {}))
+    return cfg
+
+
+def advection_cfg(nx, ny=None, nz=None, vel="const", order=1,
+                  transient=False):
+    """Thermal with 'include advection' (advection x|y|z = the velocity),
+    kappa = 1 + 0.5 x, density 2; as cdr_cfg otherwise."""
+    dim = 2 if nz is None else 3
+    cfg = thermal_cfg(nx, ny, kappa="1.0 + 0.5*x", source=CDR_SOURCE)
+    if dim == 3:
+        cfg["Mesh"].update({"dimension": 3, "element type": "hex", "NZ": nz})
+        cfg["Postprocess"]["True solutions"] = {"e": S3_TRUE}
+    if order == 2:
+        cfg["Discretization"] = {"order": {"e": 2}, "quadrature": 4}
+    cfg["Physics"]["include advection"] = True
+    cfg["Functions"].update(zip(("advection x", "advection y",
+                                 "advection z"), VELOCITIES[vel][:dim]))
+    cfg["Functions"]["density"] = "2.0"
+    if transient:
+        cfg["Physics"]["Initial conditions"] = {"e": "0.0"}
+        cfg["Solver"] = {"solver": "transient", "final time": 0.2,
+                         "number of steps": 4}
+    return cfg
+
+
+# mesh -> ((nx, ny, nz), p order) of the provider checks
+CDR_MESHES = {"p1": ((4, 4, None), 1), "hex": ((3, 2, 2), 1),
+              "hex3": ((3, 3, 3), 1), "p2": ((4, 4, None), 2)}
+
+
+def check_provider_case(physics, mesh, vel, reaction, stage, tol=1e-11):
+    """check_fused_against_jax on a cdr (reaction given) or thermal
+    advection (reaction None) deck of CDR_MESHES[mesh], steady or at a
+    DIRK-2,2 stage-1 call; the split holds iff the reaction is linear."""
+    (nx, ny, nz), order = CDR_MESHES[mesh]
+    if physics == "thermal":
+        cfg = advection_cfg(nx, ny, nz, vel, order, stage)
+    else:
+        cfg = cdr_cfg(nx, ny, nz, vel, reaction, order=order,
+                      transient=stage)
+    pj, pt = both_problems(cfg)
+    tj, tt = (stage_coeffs(pj, pt, *DIRK22_STAGE1, seed=31) if stage
+              else steady_coeffs(pj, pt))
+    ft = check_fused_against_jax(pj, pt, tj, tt, seeded(pj.n_dof, seed=21),
+                                 tol)
+    assert ft.split == (reaction != "0.5*c*c")
+    return ft
