@@ -2,8 +2,8 @@
 
     python3 chip_smoke.py
 
-Drives mrhyde_tpu_torch's thermal, cdr and thermal-advection (2D p1
-quads, 3D hex, 2D p2 quads) and Navier-Stokes main paths, steady and
+Drives mrhyde_tpu_torch's thermal, cdr, thermal-advection and
+Navier-Stokes main paths (2D p1 quads, 3D hex, 2D p2 quads), steady and
 transient, through
 `Problem(cfg).run()` on the card, after building
 its CUDA kernels from the sources in this checkout (one nvcc per source,
@@ -48,13 +48,11 @@ in parallel) and holding each against its plain torch version. Phases
              (rtol 2e-5; the reference's gold)
  12 ns_channel_direct_nx128   the same at 128x32, nonlinear TOL 1e-8,
              direct (12,771 DOFs): the JAX package's L2 (rtol 1e-4)
- 13 ns_startup_dirk22_nx128, _nx256, _nx512   the channel started from
-             rest at 128x32 (12,771 DOFs), 256x64 (50,115) and 512x128
-             (198,531), PSPG+SUPG, DIRK-2,2, 4 steps of 0.01, nonlinear
-             TOL 1e-8, default solver (GMRES + Jacobi): the JAX package's
-             L2 ux/pr/uy at t=0.02 and 0.04 (rtol 1e-6 at 128x32 and
-             256x64, where every stage's Newton solve converges; 1e-5 at
-             512x128, where three stall in both packages: see NS_STARTUP)
+ 13 ns_startup_dirk22_nx128, _nx256   the channel started from rest at
+             128x32 (12,771 DOFs) and 256x64 (50,115), PSPG+SUPG,
+             DIRK-2,2, 4 steps of 0.01, nonlinear TOL 1e-8, default solver
+             (GMRES + Jacobi): the JAX package's L2 ux/pr/uy at t=0.02 and
+             0.04 (rtol 1e-6: every stage's Newton solve converges)
  3c kernels  thermal_elem_state and thermal_elem_full (the element
              kernels) against their plain versions on hex at 128^3 and
              127x100x77 and on p2 quads at 1024^2 and 1000x777, f64 and
@@ -64,7 +62,7 @@ in parallel) and holding each against its plain torch version. Phases
              (seeded u, beta_u, beta_t); CUDA-event medians of 20 (plain: 5)
  14 hex_gold_nx10   the reference's thermal/3D_verification, 10^3 hex,
              direct: L2(e) = 0.0116656 (rtol 2e-5; the reference's gold)
- 15 hex_default_nx80   the same at 80^3 (531,441 DOFs), nonlinear TOL
+ 15 hex_default_nx64   the same at 64^3 (274,625 DOFs), nonlinear TOL
              1e-10, GMRES + Jacobi (HEX_DEFAULT)
  16 hex_nonlinear_nx64   kappa = 1 + e*e with its manufactured source,
              64^3, CG, TOL 1e-10
@@ -90,6 +88,19 @@ in parallel) and holding each against its plain torch version. Phases
              512^2, cdr hex 64^3 and nonlinear 48^3, cdr p2 256^2 and
              nonlinear 128^2; GMRES + Jacobi, TOL 1e-10, the JAX
              package's L2 at rtol 1e-4 (tools/jax_references.py)
+ 3e kernels_ns_elem   ns_elem_full (the B1 Navier-Stokes kernel) against
+             its plain version on the channel: hex 64^3 and 61x47x29 on
+             [0,5]x[0,1]x[0,1], p2 512x128 and 500x121 on [0,5]x[0,1],
+             f64 and f32 (the same bounds), residual and rows each, the
+             three cases of phase 3b; CUDA-event medians of 20 (plain: 5)
+ 30-33 NS_ELEM_DECKS   the channel on hex p1 (uz = 0 on the walls too)
+             and on p2 quads (quadrature 4): ns3d_channel_direct_nx20
+             (20x4x4, PSPG, steady, direct, TOL 1e-8, rtol 1e-4),
+             ns3d_startup_dirk22_nx64 (64x16x16, 75,140 DOFs, the start-up
+             of phase 13, rtol 1e-6), p2ns_channel_direct_nx64 (64x16,
+             12,771 DOFs, rtol 1e-4), p2ns_startup_dirk22_nx128 (128x32,
+             50,115 DOFs, rtol 1e-6): the JAX package's L2 of every
+             variable (tools/jax_references.py)
 
 The reference L2 values are the JAX package's, computed in f64 on the
 CPU, or the reference's golds. Each deck runs one assembly before its
@@ -102,8 +113,10 @@ for the state kernel in a transient deck, twice per stage (the coord
 part on the beta_u and beta_t grids), and the other kernels never: phases
 4, 5, 7 and 8 run thermal_node_state, 6 and 9 thermal_node_full, 11-13
 ns_node_full (once per fused res_and_jac call, no thermal kernel), 14,
-15, 17 and 19 thermal_elem_state, 16, 18 and 20 thermal_elem_full, and
-each of 21-29 the kernel its CDR_DECKS entry names. The `kernels` line
+15, 17 and 19 thermal_elem_state, 16, 18 and 20 thermal_elem_full,
+each of 21-29 the kernel its CDR_DECKS entry names, and 30-33
+ns_elem_full (once per fused res_and_jac call, no other kernel; the
+2D p1 NS decks 11-13 never launch it). The `kernels` line
 reports the sums over the decks, each kernel's error, times and bound
 (bytes or operations, whichever is larger; see `bound`) at its quoted
 case, and for the four thermal kernels the same of their advection case
@@ -119,6 +132,7 @@ import sys
 import time
 
 import torch
+from torch.utils._python_dispatch import TorchDispatchMode
 
 
 def emit(obj):
@@ -280,9 +294,11 @@ def qp_inputs(N0, N1, tab, q_off, device, dtype, gen):
             (ue, full_inputs(ueq, udq - f)))
 
 
-def cuda_ms(fn, reps=20):
-    """Median of `reps` CUDA-event timings of fn(), after a warm-up."""
-    fn()
+def cuda_ms(fn, reps=20, warm=True):
+    """Median of `reps` CUDA-event timings of fn(), after a warm-up call
+    (warm=False: the caller's last call of fn was one)."""
+    if warm:
+        fn()
     torch.cuda.synchronize()
     times = []
     for _ in range(reps):
@@ -385,10 +401,10 @@ NS_DIRECT_128 = (1.88440e-4, 2.86955e-3, 1.22447e-5)
 # (1,500 iterations each); at 256x64 every one stops at its 2,000-iteration
 # cap, but each stage's Newton solve still converges in two steps
 # (||r||/||r0|| <= 2e-11), so at both sizes the two packages agree to
-# rounding. At 512x128 in stages 6-8 Newton stalls above its tolerance
-# (||r||/||r0|| 2e-8 to 3e-7 for all 10 steps), in both packages alike:
-# two runs agree there as far as the stalled states do, 1.7e-6 in L2(pr)
-# on the H100 (the reference is a 23-minute JAX CPU run).
+# rounding. (The 512x128 deck, whose stages 6-8 stall above the tolerance
+# in both packages, left the script to make room for the B1
+# Navier-Stokes decks: it took 43.7 s of solve; its reference is in
+# ROADMAP.md.)
 NS_STARTUP = {
     128: (1e-6, {0.02: (0.167438940563, 1.85237941387e-3,
                         2.16197800775e-5),
@@ -398,10 +414,6 @@ NS_STARTUP = {
                         4.619296516076629e-06),
                  0.04: (0.13743625171698778, 0.0005461661778793412,
                         4.919212602818986e-06)}),
-    512: (1e-5, {0.02: (0.16743609948022103, 0.00013872687980716613,
-                        1.006348158262323e-06),
-                 0.04: (0.13743439102491917, 0.0001744396038940666,
-                        1.0696988861612578e-06)}),
 }
 # DIRK-2,2 stage 1 at dt = 0.01: alpha_u = A11/b1, alpha_t = 1/(dt b1)
 NS_STAGE1 = (0.5, 200.0)
@@ -430,27 +442,92 @@ def ns_deck(nx, ny, solver, supg=False):
     }
 
 
+# the start-up from rest: DIRK-2,2, 4 steps of 0.01, nonlinear TOL 1e-8,
+# the default linear solver (GMRES + Jacobi)
+NS_STARTUP_SOLVER = {"solver": "transient",
+                     "transient Butcher tableau": "DIRK-2,2",
+                     "final time": 0.04, "number of steps": 4,
+                     "nonlinear TOL": 1e-8}
+
+
 def ns_startup_deck(nx):
-    """The channel started from rest: PSPG+SUPG, DIRK-2,2, 4 steps of
-    0.01, nonlinear TOL 1e-8, default linear solver (GMRES + Jacobi)."""
-    return ns_deck(nx, nx // 4, {"solver": "transient",
-                        "transient Butcher tableau": "DIRK-2,2",
-                        "final time": 0.04, "number of steps": 4,
-                        "nonlinear TOL": 1e-8}, supg=True)
+    """The channel started from rest, PSPG+SUPG (NS_STARTUP_SOLVER)."""
+    return ns_deck(nx, nx // 4, NS_STARTUP_SOLVER, supg=True)
 
 
-def ns_rows(pspg, supg, transient, visc_varies):
+def ns_elem_deck(mesh, nx, solver, supg=False):
+    """The channel deck on hex p1 (nx x nx/4 x nx/4 on [0,5]x[0,1]x[0,1],
+    uz = 0 on the no-slip walls too) or on p2 quads (nx x nx/4,
+    quadrature 4): the B1 Navier-Stokes decks."""
+    cfg = ns_deck(nx, nx // 4, solver, supg)
+    phys = cfg["Physics"]
+    if mesh == "hex":
+        cfg["Mesh"].update({"dimension": 3, "element type": "hex",
+                            "zmin": 0.0, "zmax": 1.0, "NZ": nx // 4})
+        phys["Dirichlet conditions"]["uz"] = {"bottom": 0.0, "top": 0.0}
+        phys["Initial conditions"]["uz"] = 0.0
+        cfg["Discretization"]["order"]["uz"] = 1
+        cfg["Postprocess"]["True solutions"]["uz"] = "0.0"
+    else:
+        cfg["Discretization"] = {"order": {"ux": 2, "uy": 2, "pr": 2},
+                                 "quadrature": 4}
+    return cfg
+
+
+def ns_elem_startup_deck(mesh, nx):
+    """ns_startup_deck's start-up on hex or p2 (ns_elem_deck)."""
+    return ns_elem_deck(mesh, nx, NS_STARTUP_SOLVER, supg=True)
+
+
+NS_DIRECT = {"use direct solver": True, "nonlinear TOL": 1e-8}
+# name -> (deck function of nx, nx on the card, rtol, {held time: the JAX
+# package's f64 CPU L2 per variable}); tools/jax_references.py runs the
+# same deck functions through the JAX package for those references
+# (set-up / solve s there: 0.09 / 6.4, 3.2 / 162, 0.5 / 46, 0.8 / 376)
+NS_ELEM_DECKS = {
+    # 20x4x4 hex, 3,024 DOFs
+    "ns3d_channel_direct_nx20": (
+        lambda n: ns_elem_deck("hex", n, NS_DIRECT), 20, 1e-4,
+        {0.0: {"ux": 0.00793801228220015, "uy": 0.0007936004272299433,
+               "uz": 0.0029675811517704924, "pr": 0.042924342437798815}}),
+    # 64x16x16 hex, 75,140 DOFs, 16,384 elements
+    "ns3d_startup_dirk22_nx64": (
+        lambda n: ns_elem_startup_deck("hex", n), 64, 1e-6,
+        {0.02: {"ux": 0.16744823526484015, "uy": 8.381002276679228e-05,
+                "uz": 4.405179646999185e-05, "pr": 0.0068351997434308535},
+         0.04: {"ux": 0.13747407717425109, "uy": 9.245400548791375e-05,
+                "uz": 7.421650819321026e-05, "pr": 0.012396608629087216}}),
+    # 64x16 p2, 12,771 DOFs
+    "p2ns_channel_direct_nx64": (
+        lambda n: ns_elem_deck("p2", n, NS_DIRECT), 64, 1e-4,
+        {0.0: {"ux": 0.00023598676601114437, "uy": 5.4147272316409495e-05,
+               "pr": 0.007146123290226088}}),
+    # 128x32 p2, 50,115 DOFs
+    "p2ns_startup_dirk22_nx128": (
+        lambda n: ns_elem_startup_deck("p2", n), 128, 1e-6,
+        {0.02: {"ux": 0.16743590729451366, "uy": 1.9943851165782234e-05,
+                "pr": 0.001385678830385292},
+         0.04: {"ux": 0.13743376480842512, "uy": 2.150480520381376e-05,
+                "pr": 0.0019810571601949407}}),
+}
+
+
+def ns_rows(pspg, supg, transient, visc_varies, mesh="p1"):
     """The provider's row classification (jac_idx) of a channel call with
-    these switches, from a small deck's probe on the CPU."""
+    these switches on p1 quads, hex or p2 quads, from a small deck's
+    probe on the CPU."""
     from mrhyde_tpu_torch.ops.fused_ns import NSForm
     from mrhyde_tpu_torch.problem import Problem
-    cfg = ns_deck(4, 1, {"solver": "transient"} if transient else {}, supg)
+    solver = {"solver": "transient"} if transient else {}
+    cfg = ns_deck(4, 1, solver, supg) if mesh == "p1" \
+        else ns_elem_deck(mesh, 4, solver, supg)
     cfg["Physics"]["usePSPG"] = pspg
     if visc_varies:
         cfg["Functions"]["viscosity"] = "0.1 + 0.01*x"
     fused = Problem(cfg, device="cpu", dtype=torch.float64) \
         .assembler.fused_provider()
-    coeffs = (1.0, torch.zeros((1, 1)) if visc_varies else 1.0, 1.0, 0.0)
+    coeffs = (1.0, torch.zeros((1, 1)) if visc_varies else 1.0, 1.0) \
+        + (0.0,) * (fused.dim - 1)
     form = NSForm(pspg, supg, 1.0, 0.01 if transient else 1.0, transient)
     au, at = NS_STAGE1 if transient else (1.0, 0.0)
     return fused._classify(coeffs, form, au, at, not transient)[0]
@@ -713,27 +790,29 @@ CDR_DECKS = {
 }
 
 
-# the hex kappa = 1 deck as CDR_DECKS holds its decks, at 80^3 (cut from
-# 96^3 for the script's time: its host set-up took 70-102 s there)
-HEX_DEFAULT = (lambda n: hex_deck(n, solver={"nonlinear TOL": 1e-10}), 80,
-               0.0, "e", "elem_state", 0.00018174751661635387)
+# the hex kappa = 1 deck as CDR_DECKS holds its decks, at 64^3 (cut from
+# 96^3, then 80^3, for the script's time: its host set-up took 70-102 s at
+# 96^3 and 51 s at 80^3)
+HEX_DEFAULT = (lambda n: hex_deck(n, solver={"nonlinear TOL": 1e-10}), 64,
+               0.0, "e", "elem_state", 0.00028398604351215673)
 
 
 ELEM_SHAPES = (("hex", (128, 128, 128)), ("hex", (127, 100, 77)),
                ("p2", (1024, 1024)), ("p2", (1000, 777)))
 
 
-def elem_tables(mesh, dims, device, dtype):
+def elem_tables(mesh, dims, device, dtype, lengths=(1.0, 1.0, 1.0)):
     """(QuadTables, Lattice, qp offsets) of a uniform hex (p1, quadrature
-    2) or quad (p2, quadrature 4) grid of `dims` elements on the unit
-    box."""
+    2) or quad (p2, quadrature 4) grid of `dims` elements on the box
+    [0, lengths]."""
     import numpy as np
     from mrhyde_tpu_torch.assembly.discretization import Discretization
     from mrhyde_tpu_torch.mesh.structured import box_mesh
     from mrhyde_tpu_torch.ops.fused_elem import basis_lattice
     from mrhyde_tpu_torch.ops.fused_p1 import QuadTables
     cell, order, quad = ("hex", 1, 2) if mesh == "hex" else ("quad", 2, 4)
-    size = dict(zip(("xmax", "ymax", "zmax"), (1.0 / n for n in dims)))
+    size = dict(zip(("xmax", "ymax", "zmax"),
+                    (a / n for a, n in zip(lengths, dims))))
     disc = Discretization(box_mesh(cell, **size), [("e", "HGRAD", order)],
                           quad)
     key = ("HGRAD", order)
@@ -742,9 +821,9 @@ def elem_tables(mesh, dims, device, dtype):
     return tab, basis_lattice(cell, order), np.asarray(disc.ip[0])
 
 
-def qp_xyz(dims, q_off, Q, device, dtype):
+def qp_xyz(dims, q_off, Q, device, dtype, lengths=(1.0, 1.0, 1.0)):
     """x, y[, z] at the quadrature points of a uniform grid of `dims`
-    elements on the unit box, each (E, Q)."""
+    elements on the box [0, lengths], each (E, Q)."""
     import math
     dim, E = len(dims), math.prod(dims)
     xs = []
@@ -753,7 +832,7 @@ def qp_xyz(dims, q_off, Q, device, dtype):
         view[a] = dims[a]
         idx = torch.arange(dims[a], device=device, dtype=dtype)
         off = torch.as_tensor(q_off[:, a], device=device, dtype=dtype)
-        xs.append((idx.reshape(view[:dim] + [1]) / dims[a]
+        xs.append((idx.reshape(view[:dim] + [1]) * lengths[a] / dims[a]
                    + off.reshape([1] * dim + [Q]))
                   .expand(*dims, Q).reshape(E, Q))
     return xs
@@ -863,6 +942,95 @@ def phase_elem_kernels(device):
     return summary
 
 
+# the B1 Navier-Stokes kernel on the channel [0,5]x[0,1](x[0,1])
+NS_ELEM_SHAPES = (("hex", (64, 64, 64)), ("hex", (61, 47, 29)),
+                  ("p2", (512, 128)), ("p2", (500, 121)))
+CHANNEL = (5.0, 1.0, 1.0)
+
+
+def ns_elem_inputs(mesh, dims, device, dtype, gen):
+    """(tables, lattice, h, seeded u_eval and u_dot grid stacks (dim + 1,
+    *grid), the viscosity 0.1 + 0.01 x at the qps (E, Q)) of a hex or p2
+    element grid of the channel."""
+    import math
+    tab, lat, q_off = elem_tables(mesh, dims, device, dtype, CHANNEL)
+    shape = (tab.dim + 1,) + tuple(lat.stride * n + 1 for n in dims)
+    ue, ud = ((torch.rand(shape, generator=gen, device=device, dtype=dtype)
+               - 0.5) for _ in range(2))
+    x = qp_xyz(dims, q_off, tab.Q, device, dtype, CHANNEL)[0]
+    visc = (0.1 + 0.01 * x).contiguous()
+    h = math.fsum(tab.wts) ** (1.0 / tab.dim)
+    return tab, lat, h, ue.contiguous(), (200.0 * ud).contiguous(), visc
+
+
+def phase_ns_elem_kernels(device, shapes=NS_ELEM_SHAPES):
+    """ns_elem_full against its plain version (residual and rows each
+    within rtol of its max |plain|) on hex and p2, f64 and f32, with
+    CUDA-event medians of 20 (kernel) and 5 (plain) and the bound of each
+    case: PSPG steady with viscosity 1 and 0.1 + 0.01 x, PSPG+SUPG at
+    DIRK-2,2 stage-1 alphas (0.5, 200) with seeded u_dot; each record
+    gives the share of the bound the kernel reaches. Returns the quoted
+    case: f64, hex 64^3, the stage."""
+    from mrhyde_tpu_torch.ops import fused_ns as fn
+    from mrhyde_tpu_torch.ops.fused_p1 import Stage
+    rows = {(mesh, key): ns_rows(True, key == "stage", key == "stage",
+                                 key == "steady_x", mesh)
+            for mesh in ("hex", "p2")
+            for key in ("steady", "steady_x", "stage")}
+    summary = None
+    for dtype, rtol in ((torch.float64, 1e-12), (torch.float32, 1e-5)):
+        for mesh, dims in shapes:
+            gen = torch.Generator(device=device).manual_seed(8642)
+            tab, lat, h, ue, ud, visc = ns_elem_inputs(mesh, dims, device,
+                                                       dtype, gen)
+            src = (1.0,) + (0.0,) * (tab.dim - 1)
+            steady = fn.NSForm(True, False, h, 1.0, False)
+            stage = fn.NSForm(True, True, h, 0.01, True)
+            st1 = Stage(*NS_STAGE1, None)
+            cases = [
+                ("pspg steady nu=1.0", (ue, None, (1.0, 1.0, *src), tab,
+                                        lat, steady, rows[mesh, "steady"])),
+                ("pspg steady nu=0.1+0.01x",
+                 (ue, None, (1.0, visc, *src), tab, lat, steady,
+                  rows[mesh, "steady_x"])),
+                ("pspg+supg dirk22 stage 1",
+                 (ue, ud, (1.0, 1.0, *src), tab, lat, stage,
+                  rows[mesh, "stage"], st1)),
+            ]
+            for label, args in cases:
+                ref = fn.ns_elem_full_plain(*args)
+                out = fn.ns_elem_full(*args)
+                torch.cuda.synchronize()
+                errs = [max_err(o, r) for o, r in zip(out, ref)]
+                del out, ref
+                err = max(e for e, _ in errs)
+                ok = all(e <= rtol * sc for e, sc in errs)
+                nbytes, nflops = ns_elem_work(dims, dtype, args)
+                rec = {"phase": "kernels_ns_elem", "kernel": "ns_elem_full",
+                       "case": label, "mesh": mesh,
+                       "dtype": str(dtype).replace("torch.", ""),
+                       "shape": list(dims), "jac_rows": len(args[6]),
+                       "max_abs_err": err, "max_abs_err_res": errs[0][0],
+                       "max_abs_plain_res": errs[0][1],
+                       "max_abs_err_jac": errs[1][0],
+                       "max_abs_plain_jac": errs[1][1], "rtol": rtol,
+                       "ok": ok,
+                       "ms": cuda_ms(lambda: fn.ns_elem_full(*args)),
+                       "plain_ms": cuda_ms(
+                           lambda: fn.ns_elem_full_plain(*args), reps=5,
+                           warm=False),
+                       **bound(nbytes, nflops, dtype)}
+                rec["share"] = rec["bound_ms"] / rec["ms"]
+                emit(rec)
+                if not ok:
+                    raise SystemExit(f"ns_elem_full {label} disagrees with "
+                                     f"its plain version: {rec}")
+                if dtype == torch.float64 and (mesh, dims) == shapes[0] \
+                        and label == "pspg+supg dirk22 stage 1":
+                    summary = rec
+    return summary
+
+
 ADVECT_SHAPES = (("p1", KERNEL_SHAPES[0]), ("p1", KERNEL_SHAPES[1]),
                  *ELEM_SHAPES)
 
@@ -968,10 +1136,11 @@ def phase_advect_kernels(device):
 
 # ----------------------------------------------------------------------
 # bounds: bytes (each input read once, each output written once) over
-# 3.35 TB/s, and the operations counted from each kernel's source (an
-# FMA is 2, a divide or a square root 1) over the card's peak for their
-# type: 34 TFLOP/s in f64 and 67 TFLOP/s in f32 outside the tensor cores
-# (NVIDIA's H100 SXM data sheet)
+# 3.35 TB/s, and the operations the function needs (an FMA is 2, a
+# divide or a square root 1; the thermal ones counted by hand from the
+# weak form, the Navier-Stokes ones by ns_ops) over the card's peak for
+# their type: 34 TFLOP/s in f64 and 67 TFLOP/s in f32 outside the tensor
+# cores (NVIDIA's H100 SXM data sheet)
 # ----------------------------------------------------------------------
 
 HBM_BPS = 3.35e12
@@ -1079,36 +1248,149 @@ def elem_work(kernel, grid, dims, tab, dtype, kappa, stage,
     return nbytes, E * Q * per_q
 
 
-def ns_density_flops(n, tr, pspg, supg):
-    """Operations of csrc/fused_p1_ns.cu's ns_density on a dual with n
-    tangents (n = 0: the primal), by op: Dual*Dual 1+3n, Dual*T and
-    Dual+-Dual 1+n, Dual+-T 1, T/Dual 3+n, sqrt 2+n."""
-    f = 17 + 23 * n + (2 + 2 * n if tr else 0)     # conv, S, F, div u
-    if pspg or supg:
-        f += 27 + 19 * n + (4 + 4 * n if tr else 0)   # tau, stabres
-    if supg:
-        f += 10 + 22 * n
-    if pspg:
-        f += 4 + 8 * n
-    return f
+# The Navier-Stokes kernels' operations are counted, not derived by hand:
+# the weak form's accumulation (fused_ns.accumulate, the JAX package's
+# trace-time sparse forward AD) runs once on (2,)-shaped stand-ins for
+# one element's inputs, with this call's coefficients, switches and
+# alphas, under _OpCount. Arithmetic on Python floats (the tables, the
+# seeds alpha phi_c', the scalar coefficients) is element-independent and
+# free, structural zeros are never formed, the constant Jacobian rows
+# come back as floats, and the quadrature weights are folded into the
+# tables (weights of 1).
+
+class _OpCount(TorchDispatchMode):
+    """Counts the distinct arithmetic operations on tensors run under it,
+    one per element of a (2,)-shaped result: a multiply, an add, a
+    divide and a square root are one each (an FMA two); an operation on
+    tensors alone (b * b, sqrt(b)) counts once however often it recurs;
+    negating, multiplying or dividing by 1, -1 or 0 and adding 0 are
+    free, as are selects and copies."""
+    ARITH = {"add", "sub", "rsub", "mul", "div", "reciprocal", "sqrt",
+             "rsqrt", "pow"}
+
+    def __init__(self):
+        super().__init__()
+        self.ops = 0
+        self._floats = 0
+        self._num = {}     # id(tensor) -> value number
+        self._live = []    # the numbered tensors: no id is reused
+        self._seen = {}    # (operation, operands) -> value number
+
+    def _operand(self, a):
+        if isinstance(a, float):
+            # never shared: equal table entries are coincidences of the
+            # element's shape, not structure
+            self._floats += 1
+            return ("float", self._floats)
+        if not isinstance(a, torch.Tensor):
+            return ("scalar", repr(a))
+        if id(a) not in self._num:
+            self._num[id(a)] = ("input", len(self._num))
+            self._live.append(a)
+        return self._num[id(a)]
+
+    def __torch_dispatch__(self, func, types, args=(), kwargs=None):
+        out = func(*args, **(kwargs or {}))
+        name = func.overloadpacket.__name__
+        operands = [self._operand(a) for a in args]
+        if name in ("add", "mul"):
+            operands.sort(key=repr)
+        key = (name, tuple(operands), repr(kwargs))
+        if key not in self._seen:
+            self._seen[key] = ("op", len(self._seen))
+            scalars = [a for a in args if isinstance(a, (int, float))]
+            free = (name in ("mul", "div")
+                    and any(s in (1, -1, 0) for s in scalars)) or (
+                name in ("add", "sub", "rsub") and 0 in scalars)
+            if name in self.ARITH and not free:
+                if out.numel() != 2:
+                    raise ValueError(f"{func} on a {tuple(out.shape)} "
+                                     "operand: not an element's stand-in")
+                self.ops += 1
+        if isinstance(out, torch.Tensor):
+            self._num[id(out)] = self._seen[key]
+            self._live.append(out)
+        return out
+
+
+_NS_OPS = {}
+
+
+def ns_ops(tab, nc, coeffs, form, stage):
+    """Operations per element of one NS kernel call (all its qps): the
+    values and gradients at each qp, the density and its sparse
+    derivatives, the residual rows and the column tangents and sums of
+    every element-varying Jacobian row, as _OpCount counts them on
+    fused_ns.accumulate. Cached per (element, coefficients, switches,
+    alphas): the element's size changes no count (the check of h = 1
+    aside)."""
+    from types import SimpleNamespace
+    from mrhyde_tpu_torch.ops import fused_ns as fn
+    nv, Q = tab.dim + 1, tab.Q
+    key = (tab.dim, Q, nc, form.pspg, form.supg, form.transient,
+           form.h == 1.0, None if stage is None
+           else (stage.alpha_u, stage.alpha_t),
+           tuple(None if isinstance(c, torch.Tensor) else c for c in coeffs))
+    if key in _NS_OPS:
+        return _NS_OPS[key]
+    gen = torch.Generator().manual_seed(97)
+
+    def standin():
+        return torch.rand(2, generator=gen, dtype=torch.float64) + 0.5
+    steady = stage is None
+    ue = [[standin() for _ in range(nc)] for _ in range(nv)]
+    ud = [[0.0 if steady else standin() for _ in range(nc)]
+          for _ in range(nv)]
+    # a coefficient that reads x, y or z differs at every qp
+    per_q = [[standin() if isinstance(c, torch.Tensor) else c
+              for c in coeffs] for _ in range(Q)]
+
+    def coeff_at(q):
+        rho, visc, *src = per_q[q]
+        return rho, visc, src
+    folded = SimpleNamespace(Q=Q, dim=tab.dim, phi=tab.phi, grad=tab.grad,
+                             wts=[1.0] * Q)
+    with _OpCount() as count:
+        fn.accumulate(ue, ud, coeff_at, folded, form,
+                      1.0 if steady else stage.alpha_u,
+                      0.0 if steady else stage.alpha_t, steady)
+    _NS_OPS[key] = count.ops
+    return count.ops
 
 
 def ns_work(N0, N1, Q, dtype, args):
-    """(bytes, flops) of one ns_node_full call with these arguments."""
-    ue, ud, coeffs, _tab, form, jac_idx = args[:6]
+    """(bytes, flops) of one ns_node_full call with these arguments: the
+    grids and coefficient tensors read once, the node residual and the
+    varying Jacobian rows written once; ns_ops per element, and the adds
+    of the residual's scatter to the nodes."""
+    ue, ud, coeffs, tab, form, jac_idx = args[:6]
+    stage = args[6] if len(args) > 6 else None
     nodes, E = (N0 + 1) * (N1 + 1), N0 * N1
     it = torch.finfo(dtype).bits // 8
     tr = ud is not None
     nbytes = it * (3 * nodes * (3 if tr else 2)
                    + sum(_qp_len(c) for c in coeffs) + len(jac_idx) * E)
-    # per element and qp: values and gradients 72 (u_dot's values 24),
-    # the density on a dual of all 9 tangents (12 in a stage; its primal
-    # serves the residual), 12 residual rows of 7, 12 columns x 9 outputs
-    # of 8 (11) for the column tangents, 144 accumulations of 7
-    per_q = (72 + (24 if tr else 0)
-             + ns_density_flops(12 if tr else 9, tr, form.pspg, form.supg)
-             + 12 * 7 + 108 * (11 if tr else 8) + 144 * 7)
-    return nbytes, E * Q * per_q
+    return nbytes, E * ns_ops(tab, 4, coeffs, form, stage) \
+        + 3 * (4 * E - nodes)
+
+
+def ns_elem_work(dims, dtype, args):
+    """(bytes, flops) of one ns_elem_full call with these arguments: the
+    grids of all variables (and the u_dot ones) and the coefficient
+    tensors read once, the nd residual rows and the varying Jacobian rows
+    written once; ns_ops per element. (The kernel re-evaluates the
+    density on a dual of one tangent per column; that is its design's
+    cost, not the function's.)"""
+    import math
+    ue, ud, coeffs, tab, lat, form, jac_idx = args[:7]
+    stage = args[7] if len(args) > 7 else None
+    E, nc = math.prod(dims), len(lat.offsets)
+    nd = (tab.dim + 1) * nc
+    it = torch.finfo(dtype).bits // 8
+    nbytes = it * (ue.numel() * (1 if ud is None else 2)
+                   + sum(_qp_len(c) for c in coeffs)
+                   + (nd + len(jac_idx)) * E)
+    return nbytes, E * ns_ops(tab, nc, coeffs, form, stage)
 
 
 def assembly_tc(problem, u, time):
@@ -1139,7 +1421,9 @@ def run_deck(name, cfg, device, checks, mode):
     (mode "ns_full") launches ns_node_full once per fused res_and_jac
     call and no thermal kernel. A 3D hex or p2 deck ("elem_state",
     "elem_full") follows the thermal rule with the element kernels (B1)
-    and launches no node kernel (B2); a 2D p1 deck no element kernel."""
+    and launches no node kernel (B2); a 2D p1 deck no element kernel. A
+    hex or p2 NS deck ("ns_elem_full") launches ns_elem_full once per
+    fused res_and_jac call and no other kernel."""
     from mrhyde_tpu_torch.ops import fused_p1 as fp
     from mrhyde_tpu_torch.problem import Problem
     torch.cuda.synchronize()
@@ -1239,6 +1523,7 @@ def main():
     summary["ns_node_full"] = phase_ns_kernels(device)
     summary.update(phase_elem_kernels(device))
     advect = phase_advect_kernels(device)
+    summary["ns_elem_full"] = phase_ns_elem_kernels(device)
 
     per_deck = [
         run_deck("gold_nx40", deck(40), device,
@@ -1306,7 +1591,11 @@ def main():
                  p2_deck(128, "1.0 + e*e", SOURCE_NL,
                          {"nonlinear TOL": 1e-10, "Belos solver": "CG"}),
                  device, [(0.0, "e", P2_NL_L2, 1e-4)], "elem_full"),
-    ]
+    ] + [
+        run_deck(name, build(n), device,
+                 [(t, v, g, rtol) for t, ref in refs.items()
+                  for v, g in ref.items()], "ns_elem_full")
+        for name, (build, n, rtol, refs) in NS_ELEM_DECKS.items()]
     advect_decks = [
         run_deck("cdr_gold_nx40", cdr_gold_deck(), device,
                  [(0.0, "c", 0.00101714, 2e-5)], "full")] + [
@@ -1330,7 +1619,7 @@ def main():
     csrc = "mrhyde_tpu_torch/ops/csrc/"
     kernels = []
     # no single PyTorch call computes a node-scatter or an element-tile
-    # assembly: library_ms is null for all five. The four thermal kernels
+    # assembly: library_ms is null for all six. The four thermal kernels
     # report their advection (ADVECT) case and its launches beside: the
     # cdr and thermal-advection decks' share of `launches`.
     for name, mode, src, line in (
@@ -1340,7 +1629,8 @@ def main():
             ("thermal_elem_state", "elem_state", "fused_elem_thermal.cu",
              1303),
             ("thermal_elem_full", "elem_full", "fused_elem_thermal.cu",
-             1303)):
+             1303),
+            ("ns_elem_full", "ns_elem_full", "fused_elem_ns.cu", 1303)):
         rec = summary[name]
         kernels.append({"name": name, "route": "cuda", "source": csrc + src,
                         "replaces": f"mrhyde_tpu/ops/fused_p1.py:{line}",

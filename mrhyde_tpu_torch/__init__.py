@@ -3,14 +3,17 @@
 The JAX package `mrhyde_tpu` is the reference; this package runs the
 same decks through the same entry points (`Problem(cfg).run()`,
 `python -m mrhyde_tpu_torch.driver deck.yaml`) on PyTorch tensors, with
-the node-scatter assembly kernel written by hand in CUDA C++ for Hopper
-(`ops/csrc/fused_p1_thermal.cu`). It imports torch and numpy, never jax
-and never `mrhyde_tpu`; the numpy-only host modules (mesh, fem,
-discretization, native) are copies, so both packages number DOFs
-identically and state passes across index by index (`interop.py`).
+the JAX package's two Pallas assembly kernels (node-scatter B2 and
+element-tile B1) written by hand in CUDA C++ for Hopper (`ops/csrc/`).
+It imports torch and numpy, never jax and never `mrhyde_tpu`; the
+numpy-only host modules (mesh, fem, discretization, native) are copies,
+so both packages number DOFs identically and state passes across index
+by index (`interop.py`).
 
-The slice ported so far is the steady 2D thermal main path; everything
-else raises NotImplementedError naming its ROADMAP item.
+Ported so far: thermal (with or without advection), cdr and
+Navier-Stokes (PSPG/SUPG) on 2D p1 quads, 3D hex and 2D p2 quads,
+Stokes, and the ODE module, steady and transient; everything else
+raises NotImplementedError naming its ROADMAP item.
 """
 
 __version__ = "0.1.0"

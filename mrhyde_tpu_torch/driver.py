@@ -9,6 +9,8 @@ norm and recorded time (every step of a transient deck).
   --device {cuda,cpu}   where to run (default: cuda; without a usable
                         card that raises, so a CPU run asks for cpu)
   --fp32                single precision (default: double)
+  --profile             print the set-up and run timers and write them to
+                        mrhyde_tpu.profile (as the deck's `profile: true`)
 """
 
 from __future__ import annotations
@@ -105,17 +107,28 @@ def main(argv=None):
     ap.add_argument("deck")
     ap.add_argument("--device", choices=("cuda", "cpu"), default="cuda")
     ap.add_argument("--fp32", action="store_true")
+    ap.add_argument("--profile", action="store_true")
     args = ap.parse_args(argv)
 
     import torch
     from mrhyde_tpu_torch.problem import Problem
+    from mrhyde_tpu_torch.utils.profiling import timed, timer_report
 
     cfg = load_input_deck(args.deck)
-    problem = Problem(cfg, device=args.device,
-                      dtype=torch.float32 if args.fp32 else torch.float64)
-    result = problem.run()
+    with timed("driver::total"):
+        with timed("driver::setup"):
+            problem = Problem(cfg, device=args.device,
+                              dtype=torch.float32 if args.fp32
+                              else torch.float64)
+        with timed("driver::run"):
+            result = problem.run()
     if problem.compute_errors:
         print(result.report())
+    if args.profile or cfg.get("profile", False):
+        report = timer_report()
+        print(report)
+        with open("mrhyde_tpu.profile", "w") as f:
+            f.write(report)
     if int(cfg.get("verbosity", 0)) > 0:
         print(f"n_dof = {problem.n_dof}, final time = {result.time}")
     return 0

@@ -1,7 +1,8 @@
 """Build and bind the port's CUDA kernels.
 
-`nvcc` compiles each `csrc/*.cu` of the package into a shared library of
-its own with a plain C interface, at first use, into `ops/build/`
+`nvcc` compiles each `csrc/*.cu` of the package (with the headers of
+`csrc/` it includes) into a shared library of its own with a plain C
+interface, at first use, into `ops/build/`
 (listed in .gitignore): one `nvcc` per source, all started together, so
 the build takes the time of the slowest source. ctypes binds them.
 Pointers and the stream are passed as `c_void_p`, and every entry point
@@ -58,6 +59,9 @@ _SIGNATURES = {
     # csrc/fused_p1_ns.cu: the host address of an NsArgs, stream
     "ns_node_full_f64": [_P, _P],
     "ns_node_full_f32": [_P, _P],
+    # csrc/fused_elem_ns.cu: the host address of an ElemNsArgs, stream
+    "ns_elem_full_f64": [_P, _P],
+    "ns_elem_full_f32": [_P, _P],
     # csrc/fused_elem_thermal.cu: grid, kappa / S, dS, K, dK, stage,
     # velocity, element geometry, rows (, jac), stream
     "thermal_elem_state_f64": [_P, _P, _D, _I, *_STAGE, *_VEL, *_ELEM, _P,
@@ -92,9 +96,12 @@ def _lib_of(src):
 
 
 def _stale(src):
+    """A library is stale when older than its source or than a header of
+    csrc/ (the sources include them, e.g. dual.cuh)."""
     lib = _lib_of(src)
+    deps = [src, *glob.glob(os.path.join(_SRC_DIR, "*.cuh"))]
     return not os.path.exists(lib) or \
-        os.path.getmtime(src) > os.path.getmtime(lib)
+        max(os.path.getmtime(d) for d in deps) > os.path.getmtime(lib)
 
 
 def _build(srcs):

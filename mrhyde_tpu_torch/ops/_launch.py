@@ -13,11 +13,12 @@ __all__ = ["LAUNCHES", "ptr", "stream", "check_qp", "coeff_args",
            "stage_args", "velocity_args"]
 
 # kernel launches per kernel: thermal "state" and "full" (B2,
-# ops/fused_p1.py), the Navier-Stokes "full" kernel (ops/fused_ns.py) and
-# the thermal element kernels (B1, ops/fused_elem.py); each wrapper adds
-# one where it launches; reset by whoever wants to count a run
+# ops/fused_p1.py), the Navier-Stokes "full" kernels (B2 "ns_full" and B1
+# "ns_elem_full", ops/fused_ns.py) and the thermal element kernels (B1,
+# ops/fused_elem.py); each wrapper adds one where it launches; reset by
+# whoever wants to count a run
 LAUNCHES = {"state": 0, "full": 0, "ns_full": 0, "elem_state": 0,
-            "elem_full": 0}
+            "elem_full": 0, "ns_elem_full": 0}
 
 
 def ptr(t):

@@ -21,7 +21,8 @@
 // probe classified element-varying are stored, as jac[pos*E + e] with pos
 // = row_pos[k] >= 0; the constant rows are the probe's values.
 //
-// Design. The weak form is written once, `ns_density`, a template over its
+// Design. The weak form is written once, `ns_density` (ns_density.cuh,
+// shared with fused_elem_ns.cu, at DIM = 2 here), a template over its
 // scalar type: evaluated on T it gives the residual's densities; on the
 // forward-mode Dual<T, N> it gives the Jacobian's derivative tables (the
 // Sacado SFad analog the reference MrHyDE uses; the JAX kernel traced the
@@ -41,12 +42,14 @@
 // Mesh edges are masked by index; any N0, N1 >= 1 works.
 //
 // What bounds it on the H100: the writes of the Jacobian rows (112 or 144
-// per element) and the dual arithmetic, about 10^4 operations per element
-// at f64's 34 TFLOP/s; `chip_smoke.py` counts both from the shapes and the
-// code and reports the larger bound. No shared memory, tiling or TMA yet:
+// per element); `chip_smoke.py` counts them and the weak form's
+// operations (its sparse forward AD on one element's stand-ins) and
+// reports the larger bound. No shared memory, tiling or TMA yet:
 // this version is the simple, right one.
 
 #include <cuda_runtime.h>
+
+#include "ns_density.cuh"
 
 namespace {
 
@@ -71,200 +74,6 @@ struct NsArgs {
   double alpha_u, alpha_t, h, tau_dt2;  // tau_dt2 = (C3 / dt)^2
   int Q, N0, N1, pspg, supg, transient;
 };
-
-// ---------------------------------------------------------------------
-// forward-mode dual numbers
-// ---------------------------------------------------------------------
-
-template <typename T, int N>
-struct Dual {
-  using scalar = T;
-  T v;
-  T d[N];
-};
-
-template <typename T>
-struct Passive {
-  using type = T;
-};
-template <typename T, int N>
-struct Passive<Dual<T, N>> {
-  using type = T;
-};
-
-template <typename T>
-__device__ __forceinline__ T value(T x) {
-  return x;
-}
-template <typename T, int N>
-__device__ __forceinline__ T value(const Dual<T, N>& x) {
-  return x.v;
-}
-
-template <typename T>
-__device__ __forceinline__ T dsqrt(T x) {
-  return sqrt(x);
-}
-template <typename T, int N>
-__device__ __forceinline__ Dual<T, N> dsqrt(const Dual<T, N>& a) {
-  Dual<T, N> r;
-  r.v = sqrt(a.v);
-  const T c = T(0.5) / r.v;
-#pragma unroll
-  for (int i = 0; i < N; ++i) r.d[i] = c * a.d[i];
-  return r;
-}
-
-#define SCAL(T, N) typename Dual<T, N>::scalar
-
-template <typename T, int N>
-__device__ __forceinline__ Dual<T, N> operator+(const Dual<T, N>& a,
-                                                const Dual<T, N>& b) {
-  Dual<T, N> r;
-  r.v = a.v + b.v;
-#pragma unroll
-  for (int i = 0; i < N; ++i) r.d[i] = a.d[i] + b.d[i];
-  return r;
-}
-template <typename T, int N>
-__device__ __forceinline__ Dual<T, N> operator+(const Dual<T, N>& a,
-                                                SCAL(T, N) b) {
-  Dual<T, N> r = a;
-  r.v = a.v + b;
-  return r;
-}
-template <typename T, int N>
-__device__ __forceinline__ Dual<T, N> operator+(SCAL(T, N) a,
-                                                const Dual<T, N>& b) {
-  Dual<T, N> r = b;
-  r.v = a + b.v;
-  return r;
-}
-template <typename T, int N>
-__device__ __forceinline__ Dual<T, N> operator-(const Dual<T, N>& a,
-                                                const Dual<T, N>& b) {
-  Dual<T, N> r;
-  r.v = a.v - b.v;
-#pragma unroll
-  for (int i = 0; i < N; ++i) r.d[i] = a.d[i] - b.d[i];
-  return r;
-}
-template <typename T, int N>
-__device__ __forceinline__ Dual<T, N> operator-(const Dual<T, N>& a,
-                                                SCAL(T, N) b) {
-  Dual<T, N> r = a;
-  r.v = a.v - b;
-  return r;
-}
-template <typename T, int N>
-__device__ __forceinline__ Dual<T, N> operator*(const Dual<T, N>& a,
-                                                const Dual<T, N>& b) {
-  Dual<T, N> r;
-  r.v = a.v * b.v;
-#pragma unroll
-  for (int i = 0; i < N; ++i) r.d[i] = a.d[i] * b.v + a.v * b.d[i];
-  return r;
-}
-template <typename T, int N>
-__device__ __forceinline__ Dual<T, N> operator*(const Dual<T, N>& a,
-                                                SCAL(T, N) b) {
-  Dual<T, N> r;
-  r.v = a.v * b;
-#pragma unroll
-  for (int i = 0; i < N; ++i) r.d[i] = a.d[i] * b;
-  return r;
-}
-template <typename T, int N>
-__device__ __forceinline__ Dual<T, N> operator*(SCAL(T, N) a,
-                                                const Dual<T, N>& b) {
-  Dual<T, N> r;
-  r.v = a * b.v;
-#pragma unroll
-  for (int i = 0; i < N; ++i) r.d[i] = a * b.d[i];
-  return r;
-}
-template <typename T, int N>
-__device__ __forceinline__ Dual<T, N> operator/(const Dual<T, N>& a,
-                                                SCAL(T, N) b) {
-  Dual<T, N> r;
-  r.v = a.v / b;
-#pragma unroll
-  for (int i = 0; i < N; ++i) r.d[i] = a.d[i] / b;
-  return r;
-}
-template <typename T, int N>
-__device__ __forceinline__ Dual<T, N> operator/(SCAL(T, N) a,
-                                                const Dual<T, N>& b) {
-  Dual<T, N> r;
-  r.v = a / b.v;
-  const T c = -a / (b.v * b.v);
-#pragma unroll
-  for (int i = 0; i < N; ++i) r.d[i] = c * b.d[i];
-  return r;
-}
-
-// ---------------------------------------------------------------------
-// the weak form, once
-// ---------------------------------------------------------------------
-
-// Per-qp densities out = [S_ux, S_uy, S_pr, F_ux0, F_ux1, F_uy0, F_uy1,
-// F_pr0, F_pr1] of ns_density at the point: u, g (g[v][d] = d u_v / d x_d)
-// and, in a stage, ud for the three variables; rho, visc, src the
-// coefficients there. Steady: no u_dot terms (the JAX kernel's steady
-// specialization, u_dot = 0).
-template <bool TR, typename S>
-__device__ __forceinline__ void ns_density(
-    S u[kVars], S ud[kVars], S g[kVars][2],
-    typename Passive<S>::type rho, typename Passive<S>::type visc,
-    const typename Passive<S>::type src[2], typename Passive<S>::type h,
-    typename Passive<S>::type tau_dt2, bool pspg, bool supg,
-    S out[kOuts]) {
-  using T = typename Passive<S>::type;
-  S conv[2], F[2][2], stab[2];
-#pragma unroll
-  for (int i = 0; i < 2; ++i) {
-    conv[i] = u[0] * g[i][0] + u[1] * g[i][1];
-    S m = conv[i] - src[i];
-    if constexpr (TR) m = (ud[i] + conv[i]) - src[i];
-    out[i] = rho * m;
-    F[i][0] = visc * g[i][0];
-    F[i][1] = visc * g[i][1];
-    F[i][i] = F[i][i] - u[2];
-  }
-  out[2] = g[0][0] + g[1][1];
-  S fpr0 = u[2] * T(0), fpr1 = u[2] * T(0);
-  if (pspg || supg) {
-    const S u2 = u[0] * u[0] + u[1] * u[1];
-    const S nvel = value(u2) > T(1e-12) ? dsqrt(u2) : u2;
-    const T a = T(4) * visc / (h * h);
-    const S b = T(2) * nvel / h;
-    const S tau = T(1) / dsqrt((b * b + a * a) + tau_dt2);
-#pragma unroll
-    for (int i = 0; i < 2; ++i) {
-      S s = rho * conv[i] + g[2][i];
-      if constexpr (TR) s = (rho * ud[i] + rho * conv[i]) + g[2][i];
-      stab[i] = s - rho * src[i];
-    }
-    if (supg) {
-#pragma unroll
-      for (int i = 0; i < 2; ++i) {
-        const S ts = tau * stab[i];
-        F[i][0] = F[i][0] + ts * u[0];
-        F[i][1] = F[i][1] + ts * u[1];
-      }
-    }
-    if (pspg) {
-      fpr0 = tau * stab[0] / rho;
-      fpr1 = tau * stab[1] / rho;
-    }
-  }
-  out[3] = F[0][0];
-  out[4] = F[0][1];
-  out[5] = F[1][0];
-  out[6] = F[1][1];
-  out[7] = fpr0;
-  out[8] = fpr1;
-}
 
 // ---------------------------------------------------------------------
 // the kernel
@@ -355,7 +164,7 @@ __device__ __forceinline__ void residual_node(const NsArgs& a, long long n) {
       at_qp(phi, grad, Q, q, uc, u, g);
       if constexpr (TR) qp_vals(phi, Q, q, udc, ud);
       const T src[2] = {coef_at<T>(a, 2, e, q), coef_at<T>(a, 3, e, q)};
-      ns_density<TR, T>(u, ud, g, coef_at<T>(a, 0, e, q),
+      ns_density<TR, 2, T>(u, ud, g, coef_at<T>(a, 0, e, q),
                         coef_at<T>(a, 1, e, q), src, T(a.h), T(a.tau_dt2),
                         a.pspg, a.supg, out);
       const T pc = phi[c * Q + q];
@@ -419,7 +228,7 @@ __device__ __forceinline__ void jacobian_block(const NsArgs& a, int w,
       }
     }
     const T src[2] = {coef_at<T>(a, 2, e, q), coef_at<T>(a, 3, e, q)};
-    ns_density<TR, D>(u, ud, g, coef_at<T>(a, 0, e, q),
+    ns_density<TR, 2, D>(u, ud, g, coef_at<T>(a, 0, e, q),
                       coef_at<T>(a, 1, e, q), src, T(a.h), T(a.tau_dt2),
                       a.pspg, a.supg, out);
     const T wq = wts[q];

@@ -51,7 +51,8 @@ from mrhyde_tpu_torch.ops._launch import (LAUNCHES, check_qp, coeff_args,
 
 __all__ = ["Lattice", "thermal_elem_state", "thermal_elem_full",
            "thermal_elem_state_plain", "thermal_elem_full_plain",
-           "basis_lattice", "elem_dims", "corner_values", "scatter_rows"]
+           "basis_lattice", "elem_dims", "corner_values", "scatter_rows",
+           "fine_lattice_maps"]
 
 # (dim, nc) pairs the CUDA kernels are instantiated for: hex p1, quad p2
 KERNEL_CASES = ((3, 8), (2, 9))
@@ -104,6 +105,37 @@ def scatter_rows(rows, lat, dims, like):
         grid[tuple(slice(o, o + p * (n - 1) + 1, p)
                    for o, n in zip(off, dims))] += row
     return grid
+
+
+def fine_lattice_maps(lids, dims, lat, starts):
+    """The p2 fine lattices (stride dims + 1 points per axis) of the
+    variables whose dofs start at `starts`, as the JAX package's
+    `_build_fine_maps`: fine[vi] holds the global dof of each lattice
+    point (local dof c of element (I, J) sits at stride (I, J) +
+    offsets[c] and is column vi nc + c of the element's lids), d2f[vi]
+    the lattice point of each of variable vi's dofs. Returns (fine
+    (n_var, *lattice) int64 array, [d2f per variable])."""
+    import numpy as np
+    p, nc = lat.stride, len(lat.offsets)
+    fshape = tuple(p * n + 1 for n in dims)
+    lids = np.asarray(lids)
+    idx = np.meshgrid(*[np.arange(n) for n in dims], indexing="ij")
+    fines, d2fs = [], []
+    for vi, st in enumerate(starts):
+        fine = np.full(fshape, -1, dtype=np.int64)
+        for c, off in enumerate(lat.offsets):
+            fine[tuple(p * i + o for i, o in zip(idx, off))] = \
+                lids[:, vi * nc + c].reshape(dims)
+        nvd = fine.size
+        if not np.array_equal(np.sort(fine.ravel()),
+                              np.arange(st, st + nvd)):
+            raise AssertionError("the p2 fine lattice does not cover the "
+                                 "variable's dofs once each")
+        d2f = np.empty(nvd, dtype=np.int64)
+        d2f[fine.ravel() - st] = np.arange(nvd)
+        fines.append(fine)
+        d2fs.append(d2f)
+    return np.stack(fines), d2fs
 
 
 def _at_q(v, q):

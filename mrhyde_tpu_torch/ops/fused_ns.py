@@ -1,41 +1,49 @@
-"""Fused node-scatter assembly for 2D Navier-Stokes on uniform p1 quads.
+"""Fused assembly of Navier-Stokes on uniform structured meshes: the
+node-scatter kernel for 2D p1 quads, and the element-tile kernel for 3D
+hex (p1) and 2D p2 quads.
 
 The port of the JAX package's `FusedP1Assembly` (mrhyde_tpu/ops/
-fused_p1.py) for the Navier-Stokes module: three variables (ux, uy, pr),
-nd = 12 local dofs, steady calls and transient stages. Convection and
-tau(|u|) make the weak form non-affine, so, as in JAX, every assembly is
-ONE call of the node-scatter kernel B2 in mode "full": the
-node-scattered residual of all three variables and the element-varying
-Jacobian rows. Its CUDA kernel is `ns_node_full` (`csrc/
-fused_p1_ns.cu`); its plain version is the JAX package's `_accumulate`
-ported over the sparse dual numbers of `sparse_dual.py`, followed by the
-pad+sum node scatter.
+fused_p1.py) for the Navier-Stokes module: dim + 1 variables (ux, uy[,
+uz], pr), nd = (dim + 1) nc local dofs, steady calls and transient
+stages. Convection and tau(|u|) make the weak form non-affine, so, as in
+JAX, every assembly is ONE kernel call in mode "full": the residual of
+all variables and the element-varying Jacobian rows. As JAX's `use_node`
+does, 2D p1 (nd = 12) takes the node-scatter kernel B2, whose CUDA
+kernel `ns_node_full` (`csrc/fused_p1_ns.cu`) scatters the residual to
+the nodes itself; hex (nd = 32) and p2 quads (nd = 27) take the
+element-tile kernel B1, whose CUDA kernel `ns_elem_full`
+(`csrc/fused_elem_ns.cu`) writes per-element residual rows that the
+provider scatters (ops/fused_elem.py `scatter_rows`). The plain version
+of both is the JAX package's `_accumulate` ported over the sparse dual
+numbers of `sparse_dual.py`.
 
 Row classification is JAX's `_probe`: `accumulate` runs on (2,)-shaped
 stand-ins for every element-varying input (corner values, beta grids,
-coefficients that read x or y) and a Jacobian entry is element-varying
-iff it comes back as a tensor; the other entries' probe values are
-exact for every element. A second probe with shifted stand-ins must
-agree (JAX's double-probe cross-check), and the plain version checks
-that no row the probe called constant comes back varying (JAX's
-in-kernel assertion).
+coefficients that read x, y or z) and a Jacobian entry is
+element-varying iff it comes back as a tensor; the other entries' probe
+values are exact for every element. A second probe with shifted
+stand-ins must agree (JAX's double-probe cross-check), and the plain
+versions check that no row the probe called constant comes back varying
+(JAX's in-kernel assertion).
 
-The coefficients (density, viscosity, source ux, source uy) are Python
-floats when constant and (E, Q) tensors from a torch pre-pass when they
-read x or y, as the thermal kernels take theirs.
+The coefficients (density, viscosity, source ux, source uy[, source
+uz]) are Python floats when constant and (E, Q) tensors from a torch
+pre-pass when they read the coordinates, as the thermal kernels take
+theirs.
 """
 
 from __future__ import annotations
 
 import ctypes
+import math
 from typing import NamedTuple
 
 import numpy as np
 import torch
 
 from mrhyde_tpu_torch.assembly.assembler import BlockJacobian
+from mrhyde_tpu_torch.ops import fused_elem as fe
 from mrhyde_tpu_torch.ops._launch import LAUNCHES, stream
-from mrhyde_tpu_torch.ops.fused_elem import scatter_rows
 from mrhyde_tpu_torch.ops.fused_p1 import (
     QUAD_P1, QpCtx, Stage, _check_grid, _scalar, qp_coords, steady_check,
     structured_geometry)
@@ -44,13 +52,16 @@ from mrhyde_tpu_torch.physics.navierstokes import (NS_REMAINDER,
                                                    NavierStokes, ns_density)
 
 __all__ = ["FusedNSAssembly", "NSForm", "ns_node_full", "ns_node_full_plain",
-           "accumulate", "COEFFS"]
+           "ns_elem_full", "ns_elem_full_plain", "accumulate", "COEFFS"]
 
-NC, NV = 4, 3                  # corners, variables (ux, uy, pr)
+# the node-scatter kernel's element: 4 corners, 3 variables (ux, uy, pr)
+NC, NV = 4, 3
 ND = NC * NV                   # 12 local dofs
 CORNERS = ((0, 0), (1, 0), (1, 1), (0, 1))
-COEFFS = ("density", "viscosity", "source ux", "source uy")
-_COORD = {"x", "y"}
+VARS = ("ux", "uy", "uz")
+# the coefficients of a dim-D deck are the first 2 + dim
+COEFFS = ("density", "viscosity", "source ux", "source uy", "source uz")
+_COORD = {"x", "y", "z"}
 
 
 class NSForm(NamedTuple):
@@ -75,65 +86,69 @@ class NSForm(NamedTuple):
 # ----------------------------------------------------------------------
 
 def accumulate(ue, ud, coeff_at, tab, form, alpha_u, alpha_t, steady):
-    """(res, jac): flat lists of ND and ND*ND entries, each None
-    (structural zero), a Python float (element-independent) or a tensor
-    shaped like the inputs (element-varying). ue[v][c], ud[v][c]: corner
-    values of u_eval and u_dot per variable; coeff_at(q) -> (rho, visc,
-    [src_x, src_y]) at quadrature point q."""
-    Q, dim = tab.Q, 2
+    """(res, jac): flat lists of nd and nd*nd entries (nd = (dim + 1)
+    nc), each None (structural zero), a Python float
+    (element-independent) or a tensor shaped like the inputs
+    (element-varying). ue[v][c], ud[v][c]: values of local dof c of
+    u_eval and u_dot per variable (ux, uy[, uz], pr); coeff_at(q) ->
+    (rho, visc, [src per velocity]) at quadrature point q. Row k = row
+    nd + col, row = v nc + c, col = w nc + c'."""
+    Q, dim = tab.Q, tab.dim
+    nv, nc = len(ue), len(ue[0])
+    nd = nv * nc
+    names = VARS[:dim] + ("pr",)
     phi, grad, wts = tab.phi, tab.grad, tab.wts
-    n_in = NV * ((1 if steady else 2) + dim)
-    off_g = NV * (1 if steady else 2)
-    res = [None] * ND
-    jac = [None] * (ND * ND)
+    off_g = nv * (1 if steady else 2)
+    res = [None] * nd
+    jac = [None] * (nd * nd)
 
     def acc2(a, b):
         return b if a is None else a + b
 
     for q in range(Q):
-        uq = [sum(phi[c][q] * ue[v][c] for c in range(NC))
-              for v in range(NV)]
-        udq = [sum(phi[c][q] * ud[v][c] for c in range(NC))
-               for v in range(NV)]
-        gq = [[sum(grad[c][q][d] * ue[v][c] for c in range(NC))
-               for d in range(dim)] for v in range(NV)]
+        uq = [sum(phi[c][q] * ue[v][c] for c in range(nc))
+              for v in range(nv)]
+        udq = [sum(phi[c][q] * ud[v][c] for c in range(nc))
+               for v in range(nv)]
+        gq = [[sum(grad[c][q][d] * ue[v][c] for c in range(nc))
+               for d in range(dim)] for v in range(nv)]
         rho, visc, src = coeff_at(q)
         z0 = (uq + ([] if steady else udq)
-              + [gq[v][d] for v in range(NV) for d in range(dim)])
+              + [gq[v][d] for v in range(nv) for d in range(dim)])
 
         def f(z):
-            u_ = z[:NV]
-            ud_ = [0.0] * NV if steady else z[NV:2 * NV]
+            u_ = z[:nv]
+            ud_ = [0.0] * nv if steady else z[nv:2 * nv]
             g_ = [[z[off_g + v * dim + d] for d in range(dim)]
-                  for v in range(NV)]
-            out = ns_density(u_[:2], ud_[:2], g_[:2], u_[2], g_[2], rho,
-                             visc, src, form.h, form.deltat,
+                  for v in range(nv)]
+            out = ns_density(u_[:dim], ud_[:dim], g_[:dim], u_[dim],
+                             g_[dim], rho, visc, src, form.h, form.deltat,
                              form.transient, form.pspg, form.supg)
-            S = [out[v][0] for v in ("ux", "uy", "pr")]
-            F = [out[v][1] or [0.0, 0.0] for v in ("ux", "uy", "pr")]
-            return S + [F[v][d] for v in range(NV) for d in range(dim)]
+            S = [out[v][0] for v in names]
+            F = [out[v][1] or [0.0] * dim for v in names]
+            return S + [F[v][d] for v in range(nv) for d in range(dim)]
 
         out0, D = sparse_jacfwd(f, z0)
         w = float(wts[q])
-        for vi in range(NV):
+        for vi in range(nv):
             Sv = out0[vi]
-            Fv = [out0[NV + vi * dim + d] for d in range(dim)]
-            for c in range(NC):
+            Fv = [out0[nv + vi * dim + d] for d in range(dim)]
+            for c in range(nc):
                 a = phi[c][q] * Sv
                 for d in range(dim):
                     a = a + grad[c][q][d] * Fv[d]
-                res[vi * NC + c] = acc2(res[vi * NC + c], w * a)
-        for wi in range(NV):
-            for cp in range(NC):
-                Tcol = [None] * (NV * (1 + dim))
+                res[vi * nc + c] = acc2(res[vi * nc + c], w * a)
+        for wi in range(nv):
+            for cp in range(nc):
+                Tcol = [None] * (nv * (1 + dim))
                 pc = phi[cp][q]
-                for oi in range(NV * (1 + dim)):
+                for oi in range(nv * (1 + dim)):
                     a = None
                     d1 = D[wi][oi]
                     if d1 is not None:
                         a = acc2(a, alpha_u * pc * d1)
                     if not steady:
-                        d2 = D[NV + wi][oi]
+                        d2 = D[nv + wi][oi]
                         if d2 is not None:
                             a = acc2(a, alpha_t * pc * d2)
                     for d in range(dim):
@@ -141,18 +156,18 @@ def accumulate(ue, ud, coeff_at, tab, form, alpha_u, alpha_t, steady):
                         if d3 is not None:
                             a = acc2(a, alpha_u * grad[cp][q][d] * d3)
                     Tcol[oi] = a
-                for vi in range(NV):
-                    for c in range(NC):
+                for vi in range(nv):
+                    for c in range(nc):
                         a = None
                         if Tcol[vi] is not None:
                             a = acc2(a, phi[c][q] * Tcol[vi])
                         for d in range(dim):
-                            tg = Tcol[NV + vi * dim + d]
+                            tg = Tcol[nv + vi * dim + d]
                             if tg is not None:
                                 a = acc2(a, grad[c][q][d] * tg)
                         if a is None:
                             continue
-                        k = (vi * NC + c) * ND + wi * NC + cp
+                        k = (vi * nc + c) * nd + wi * nc + cp
                         jac[k] = acc2(jac[k], w * a)
     return res, jac
 
@@ -161,17 +176,36 @@ def _is_varying(v):
     return isinstance(v, torch.Tensor) and v.dim() >= 1
 
 
-def _coeff_fn(coeffs, dims):
-    """coeff_at(q) over scalar-or-(E, Q) coefficients."""
+def _coeff_fn(coeffs, shape):
+    """coeff_at(q) over scalar-or-(E, Q) coefficients, each tensor's qp
+    q viewed as `shape` (the shape of the corner values)."""
     def at(v, q):
         if isinstance(v, torch.Tensor):
-            return v.view(dims[0], dims[1], -1)[:, :, q]
+            return v.view(*shape, -1)[..., q]
         return v
 
     def coeff_at(q):
-        rho, visc, sx, sy = (at(v, q) for v in coeffs)
-        return rho, visc, [sx, sy]
+        rho, visc, *src = (at(v, q) for v in coeffs)
+        return rho, visc, src
     return coeff_at
+
+
+def _check_classes(jac, jac_idx):
+    """JAX's in-kernel assertion: no row the probe called constant (not
+    in jac_idx) may come back varying."""
+    wanted = set(jac_idx)
+    for k, v in enumerate(jac):
+        if k not in wanted and _is_varying(v):
+            raise AssertionError(f"jac[{k}] probe/kernel class mismatch")
+
+
+def _stack_rows(entries, idx, E, like):
+    """The entries at idx, each broadcast to (E,), stacked to (len(idx),
+    E)."""
+    rows = [torch.broadcast_to(torch.as_tensor(entries[k], dtype=like.dtype,
+                                               device=like.device), like.shape)
+            .reshape(E) for k in idx]
+    return torch.stack(rows) if rows else like.new_zeros((0, E))
 
 
 def ns_node_full_plain(ue, ud, coeffs, tab, form, jac_idx, stage=None):
@@ -189,18 +223,34 @@ def ns_node_full_plain(ue, ud, coeffs, tab, form, jac_idx, stage=None):
     res, jac = accumulate(views, dviews, _coeff_fn(coeffs, (N0, N1)), tab,
                           form, 1.0 if steady else stage.alpha_u,
                           0.0 if steady else stage.alpha_t, steady)
-    wanted = set(jac_idx)
-    for k, v in enumerate(jac):
-        if k not in wanted and _is_varying(v):
-            raise AssertionError(f"jac[{k}] probe/kernel class mismatch")
-    node = torch.stack([scatter_rows(res[vi * NC:(vi + 1) * NC], QUAD_P1,
-                                     (N0, N1), ue) for vi in range(NV)])
-    E = N0 * N1
-    rows = [torch.broadcast_to(torch.as_tensor(jac[k], dtype=ue.dtype,
-                                               device=ue.device), (N0, N1))
-            .reshape(E) for k in jac_idx]
-    jac_out = torch.stack(rows) if rows else ue.new_zeros((0, E))
-    return node, jac_out
+    _check_classes(jac, jac_idx)
+    node = torch.stack([fe.scatter_rows(res[vi * NC:(vi + 1) * NC], QUAD_P1,
+                                        (N0, N1), ue) for vi in range(NV)])
+    return node, _stack_rows(jac, jac_idx, N0 * N1, views[0][0])
+
+
+def ns_elem_full_plain(ue, ud, coeffs, tab, lat, form, jac_idx,
+                       stage=None):
+    """(residual rows (nd, E), Jacobian rows (len(jac_idx), E)): the
+    plain version of `ns_elem_full`. ue, ud: the (dim + 1, *grid) u_eval
+    and u_dot grids of ux, uy[, uz], pr (ud None when steady), each a p1
+    node grid or a p2 fine lattice that `lat` reads; coeffs: (density,
+    viscosity, source ux, source uy[, source uz]), each a float or an
+    (E, Q) tensor; jac_idx: the rows to return (row k = row*nd + col);
+    stage: None (steady) or a Stage (alpha_u, alpha_t; its mass is
+    unused)."""
+    steady = stage is None
+    views = [fe.corner_values(g, lat) for g in ue]
+    E = views[0][0].numel()
+    dviews = [[0.0] * len(lat.offsets) for _ in views] if steady else \
+        [fe.corner_values(g, lat) for g in ud]
+    res, jac = accumulate(views, dviews, _coeff_fn(coeffs, (E,)), tab, form,
+                          1.0 if steady else stage.alpha_u,
+                          0.0 if steady else stage.alpha_t, steady)
+    _check_classes(jac, jac_idx)
+    like = views[0][0]
+    return (_stack_rows(res, range(len(res)), E, like),
+            _stack_rows(jac, jac_idx, E, like))
 
 
 # ----------------------------------------------------------------------
@@ -221,17 +271,63 @@ class _NSArgs(ctypes.Structure):
                 ("supg", ctypes.c_int), ("transient", ctypes.c_int)]
 
 
+class _ElemNSArgs(ctypes.Structure):
+    """The C side's ElemNsArgs (csrc/fused_elem_ns.cu), field for
+    field."""
+    _fields_ = [("ue", ctypes.c_void_p), ("ud", ctypes.c_void_p),
+                ("coef", ctypes.c_void_p * 5), ("coef0", ctypes.c_double * 5),
+                ("phi", ctypes.c_void_p), ("grad", ctypes.c_void_p),
+                ("wts", ctypes.c_void_p), ("row_pos", ctypes.c_void_p),
+                ("res", ctypes.c_void_p), ("jac", ctypes.c_void_p),
+                ("alpha_u", ctypes.c_double), ("alpha_t", ctypes.c_double),
+                ("h", ctypes.c_double), ("tau_dt2", ctypes.c_double),
+                ("Q", ctypes.c_int), ("nc", ctypes.c_int),
+                ("dim", ctypes.c_int), ("stride", ctypes.c_int),
+                ("N0", ctypes.c_int), ("N1", ctypes.c_int),
+                ("N2", ctypes.c_int), ("pspg", ctypes.c_int),
+                ("supg", ctypes.c_int), ("transient", ctypes.c_int),
+                ("off", (ctypes.c_int * 3) * 9)]
+
+
 _ROW_POS = {}
 
 
-def _row_pos(jac_idx, device):
-    """(144,) int32 device map row k -> its position in jac, or -1."""
-    key = (tuple(jac_idx), str(device))
+def _row_pos(jac_idx, nd, device):
+    """(nd*nd,) int32 device map row k -> its position in jac, or -1."""
+    key = (tuple(jac_idx), nd, str(device))
     if key not in _ROW_POS:
-        pos = np.full(ND * ND, -1, dtype=np.int32)
+        pos = np.full(nd * nd, -1, dtype=np.int32)
         pos[list(jac_idx)] = np.arange(len(jac_idx), dtype=np.int32)
         _ROW_POS[key] = torch.as_tensor(pos, device=device)
     return _ROW_POS[key]
+
+
+def _check_grid_stacks(ue, ud, stage):
+    """A steady call takes no u_dot grids, a stage takes them shaped,
+    typed and placed like ue, and both contiguous."""
+    if (stage is None) != (ud is None):
+        raise ValueError("a stage takes the u_dot grids, a steady call none")
+    if not ue.is_contiguous():
+        raise ValueError("ue must be contiguous")
+    if ud is not None and (ud.shape != ue.shape or ud.dtype != ue.dtype
+                           or ud.device != ue.device
+                           or not ud.is_contiguous()):
+        raise ValueError("ud must be a contiguous grid stack like ue")
+
+
+def _coeff_args(args, coeffs, E, Q, like):
+    """Fill args.coef / args.coef0 from scalar-or-(E, Q) coefficients."""
+    for i, v in enumerate(coeffs):
+        if isinstance(v, torch.Tensor):
+            if v.shape != (E, Q) or v.dtype != like.dtype \
+                    or v.device != like.device or not v.is_contiguous():
+                raise ValueError(f"{COEFFS[i]} must be a contiguous "
+                                 f"({E}, {Q}) {like.dtype} tensor on "
+                                 f"{like.device}")
+            args.coef[i] = v.data_ptr()
+        else:
+            args.coef[i] = None
+            args.coef0[i] = float(v)
 
 
 def ns_node_full(ue, ud, coeffs, tab, form, jac_idx, stage=None):
@@ -243,35 +339,18 @@ def ns_node_full(ue, ud, coeffs, tab, form, jac_idx, stage=None):
     if ue.dim() != 3 or ue.shape[0] != NV:
         raise ValueError("ue must be a (3, N0+1, N1+1) grid stack")
     _check_grid(ue[0], tab)
-    if not ue.is_contiguous():
-        raise ValueError("ue must be contiguous")
+    _check_grid_stacks(ue, ud, stage)
     steady = stage is None
-    if steady != (ud is None):
-        raise ValueError("a stage takes the u_dot grids, a steady call none")
-    if ud is not None and (ud.shape != ue.shape or ud.dtype != ue.dtype
-                           or ud.device != ue.device
-                           or not ud.is_contiguous()):
-        raise ValueError("ud must be a contiguous grid stack like ue")
     N0, N1 = ue.shape[1] - 1, ue.shape[2] - 1
     E = N0 * N1
     args = _NSArgs()
     args.ue = ue.data_ptr()
     args.ud = None if ud is None else ud.data_ptr()
-    for i, v in enumerate(coeffs):
-        if isinstance(v, torch.Tensor):
-            if v.shape != (E, tab.Q) or v.dtype != ue.dtype \
-                    or v.device != ue.device or not v.is_contiguous():
-                raise ValueError(f"{COEFFS[i]} must be a contiguous "
-                                 f"({E}, {tab.Q}) {ue.dtype} tensor on "
-                                 f"{ue.device}")
-            args.coef[i] = v.data_ptr()
-        else:
-            args.coef[i] = None
-            args.coef0[i] = float(v)
+    _coeff_args(args, coeffs, E, tab.Q, ue)
     args.phi, args.grad, args.wts = (tab.t_phi.data_ptr(),
                                      tab.t_grad.data_ptr(),
                                      tab.t_wts.data_ptr())
-    args.row_pos = _row_pos(jac_idx, ue.device).data_ptr()
+    args.row_pos = _row_pos(jac_idx, ND, ue.device).data_ptr()
     out = torch.empty_like(ue)
     jac = torch.empty((len(jac_idx), E), dtype=ue.dtype, device=ue.device)
     args.res, args.jac = out.data_ptr(), jac.data_ptr()
@@ -292,6 +371,59 @@ def ns_node_full(ue, ud, coeffs, tab, form, jac_idx, stage=None):
     return out, jac
 
 
+def ns_elem_full(ue, ud, coeffs, tab, lat, form, jac_idx, stage=None):
+    """(residual rows (nd, E), Jacobian rows (len(jac_idx), E)) of the NS
+    weak form on hex p1 or p2 quads: the CUDA kernel on CUDA tensors, the
+    plain version on CPU tensors. Arguments as `ns_elem_full_plain`."""
+    if ue.device.type == "cpu":
+        return ns_elem_full_plain(ue, ud, coeffs, tab, lat, form, jac_idx,
+                                  stage)
+    nv = tab.dim + 1
+    if ue.dim() != tab.dim + 1 or ue.shape[0] != nv:
+        raise ValueError(f"ue must be a ({nv}, *grid) stack of the "
+                         f"variables' grids")
+    fe._check_grid(ue[0], tab, lat)
+    _check_grid_stacks(ue, ud, stage)
+    if len(coeffs) != 2 + tab.dim:
+        raise ValueError(f"a {tab.dim}-D call takes {2 + tab.dim} "
+                         f"coefficients, not {len(coeffs)}")
+    steady = stage is None
+    nc = len(lat.offsets)
+    nd = nv * nc
+    dims = list(fe.elem_dims(ue[0], lat)) + [1] * (3 - tab.dim)
+    E = math.prod(dims)
+    args = _ElemNSArgs()
+    args.ue = ue.data_ptr()
+    args.ud = None if ud is None else ud.data_ptr()
+    _coeff_args(args, coeffs, E, tab.Q, ue)
+    args.phi, args.grad, args.wts = (tab.t_phi.data_ptr(),
+                                     tab.t_grad.data_ptr(),
+                                     tab.t_wts.data_ptr())
+    args.row_pos = _row_pos(jac_idx, nd, ue.device).data_ptr()
+    res = torch.empty((nd, E), dtype=ue.dtype, device=ue.device)
+    jac = torch.empty((len(jac_idx), E), dtype=ue.dtype, device=ue.device)
+    args.res, args.jac = res.data_ptr(), jac.data_ptr()
+    args.alpha_u = 1.0 if steady else float(stage.alpha_u)
+    args.alpha_t = 0.0 if steady else float(stage.alpha_t)
+    args.h, args.tau_dt2 = float(form.h), float(form.tau_dt2)
+    args.Q, args.nc, args.dim, args.stride = tab.Q, nc, tab.dim, lat.stride
+    args.N0, args.N1, args.N2 = dims
+    args.pspg, args.supg = int(form.pspg), int(form.supg)
+    args.transient = int(not steady)
+    for c, off in enumerate(lat.offsets):
+        for a, o in enumerate(off):
+            args.off[c][a] = int(o)
+    from mrhyde_tpu_torch.ops._build import load_library
+    lib = load_library()
+    fn = (lib.ns_elem_full_f64 if ue.dtype == torch.float64
+          else lib.ns_elem_full_f32)
+    err = fn(ctypes.c_void_p(ctypes.addressof(args)), stream(ue))
+    if err != 0:
+        raise RuntimeError(f"ns_elem_full launch failed: CUDA error {err}")
+    LAUNCHES["ns_elem_full"] += 1
+    return res, jac
+
+
 # ----------------------------------------------------------------------
 # the provider
 # ----------------------------------------------------------------------
@@ -304,8 +436,10 @@ def _dummy(seed, s, dtype):
 
 
 class FusedNSAssembly:
-    """Fused residual+Jacobian provider for 2D Navier-Stokes on uniform
-    structured p1 quads, steady calls and transient stages alike.
+    """Fused residual+Jacobian provider for Navier-Stokes on uniform
+    structured meshes, steady calls and transient stages alike: 2D p1
+    quads through `ns_node_full` (B2), 3D p1 hex and 2D all-p2 quads
+    through `ns_elem_full` (B1), as the JAX package's `use_node` picks.
     `FusedNSAssembly.build(asm)` -> instance or None; decks the JAX
     package would fuse but this provider cannot raise."""
 
@@ -313,24 +447,50 @@ class FusedNSAssembly:
         self.asm = asm
         geo = structured_geometry(asm)
         self.dims, self.origin, self.h_axes, self.q_off, self.tables = geo
+        self.dim = len(self.dims)
         s = asm._structured
+        kind = s["plan"][0][0]
         self.vars = [name for (_k, name, _st) in s["plan"]]
         starts = [st for (_k, _n, st) in s["plan"]]
-        ng = (self.dims[0] + 1) * (self.dims[1] + 1)
-        if self.vars != ["ux", "uy", "pr"] or starts != [
-                starts[0] + i * ng for i in range(NV)]:
-            raise AssertionError("NS variables are not ux, uy, pr in "
-                                 "consecutive node-grid blocks")
+        self.nv = self.dim + 1
+        if self.vars != [*VARS[:self.dim], "pr"]:
+            raise AssertionError(f"NS variables are {self.vars}, not "
+                                 f"{[*VARS[:self.dim], 'pr']}")
+        # the JAX package's use_node: 2D p1 takes B2, the rest B1
+        self.node = self.dim == 2 and kind == "p1"
+        self.fine_idx = self.dof2fine = None
+        if kind == "p1":
+            self.lattice = fe.Lattice(tuple(tuple(c) for c in s["corners"]),
+                                      1)
+            self.grid_shape = tuple(d + 1 for d in self.dims)
+            ng = math.prod(self.grid_shape)
+            if starts != [starts[0] + i * ng for i in range(self.nv)]:
+                raise AssertionError("NS variables are not in consecutive "
+                                     "node-grid blocks")
+        else:
+            self.lattice = fe.basis_lattice(asm.disc.mesh.cell_type, 2)
+            fine, d2f = fe.fine_lattice_maps(asm.disc.lids, self.dims,
+                                             self.lattice, starts)
+            self.grid_shape = fine.shape[1:]
+            self.fine_idx = torch.as_tensor(fine, device=asm.device)
+            self.dof2fine = [torch.as_tensor(d, device=asm.device)
+                             for d in d2f]
+        self.starts = starts
         self.start = starts[0]
+        self.nc = len(self.lattice.offsets)
+        self.nd = self.nv * self.nc
         self.module = asm.modules[0]
-        self.h = float(np.sum(self.tables.wts) ** 0.5)
+        # the element size (sum of the weights)^(1/dim), as the JAX
+        # package's h_elem and the workset's h
+        self.h = float(np.sum(self.tables.wts) ** (1.0 / self.dim))
+        self.coeff_names = COEFFS[:2 + self.dim]
         self.varying = tuple(bool(asm.fm.terminal_leaves(n) & _COORD)
-                             for n in COEFFS)
+                             for n in self.coeff_names)
         self._probes = {}
         self._coef_cache = None
         self._steady_cache = None
-        self.stats = {"steady": True, "split": False, "n_res_rows": ND,
-                      "n_jac_rows": 0, "node_scatter": True}
+        self.stats = {"steady": True, "split": False, "n_res_rows": self.nd,
+                      "n_jac_rows": 0, "node_scatter": self.node}
 
     @staticmethod
     def build(asm):
@@ -342,39 +502,49 @@ class FusedNSAssembly:
                 f"navier stokes with other modules ({names}) is not ported "
                 f"to mrhyde_tpu_torch yet (ROADMAP {NS_REMAINDER})")
         disc = asm.disc
-        mesh = disc.mesh
-        keys = set(disc.basis_keys.values())
-        if getattr(mesh, "box_info", None) is not None \
-                and mesh.cell_type in ("quad", "hex") \
-                and (mesh.cell_type == "hex" or keys == {("HGRAD", 2)}):
-            raise NotImplementedError(
-                "the fused Navier-Stokes assembly of 3D hex or p2 quad "
-                "meshes is B1 for Navier-Stokes (the element-tile kernel), "
-                "not ported to mrhyde_tpu_torch yet (ROADMAP B1; order "
-                "item 2)")
-        if asm._structured is None or mesh.cell_type != "quad" \
-                or not asm._structured["general"] or not asm.uniform:
+        cell = disc.mesh.cell_type
+        s = asm._structured
+        if s is None or not asm.uniform:
             return None             # the JAX package's general path too
-        for name in COEFFS:
+        # all-p1 quads or hex, or all-p2 quads (the uniform row layout)
+        kinds = {k for (k, _n, _st) in s["plan"]}
+        if not (kinds == {"p1"} and cell in ("quad", "hex")
+                or kinds == {"p2"} and cell == "quad"):
+            return None
+        for name in COEFFS[:2 + len(s["dims"])]:
             for leaf in asm.fm.terminal_leaves(name):
                 state = (leaf in disc.var_names or leaf.startswith("grad(")
                          or (leaf.endswith("_t")
                              and leaf[:-2] in disc.var_names))
-                if state or leaf == "z":
+                if state or (leaf == "z" and cell == "quad"):
                     raise NotImplementedError(
                         f"the NS coefficient {name!r} reads {leaf!r}: "
-                        "state- and z-dependent NS coefficients are not "
-                        "ported to mrhyde_tpu_torch yet (ROADMAP "
+                        "state-dependent NS coefficients (and z in 2D) are "
+                        "not ported to mrhyde_tpu_torch yet (ROADMAP "
                         f"{NS_REMAINDER})")
         return FusedNSAssembly(asm)
 
     # ------------------------------------------------------------------
 
     def _grids(self, v):
-        """The (3, N0+1, N1+1) node grids of ux, uy, pr in a dof vector."""
-        N0, N1 = self.dims
-        ng = (N0 + 1) * (N1 + 1)
-        return v[self.start:self.start + NV * ng].reshape(NV, N0 + 1, N1 + 1)
+        """The (dim + 1, *grid) grids of ux, uy[, uz], pr in a dof vector:
+        consecutive node-grid blocks (p1), or one gather of the fine
+        lattices (p2)."""
+        if self.fine_idx is not None:
+            return v[self.fine_idx]
+        n = math.prod(self.grid_shape)
+        return v[self.start:self.start + self.nv * n].reshape(
+            self.nv, *self.grid_shape)
+
+    def _scatter(self, res, r, like):
+        """Adds the (nd, E) residual rows of the element kernel, summed to
+        each variable's grid, into the dof vector r."""
+        for vi, st in enumerate(self.starts):
+            grid = fe.scatter_rows(res[vi * self.nc:(vi + 1) * self.nc],
+                                   self.lattice, self.dims, like).reshape(-1)
+            if self.dof2fine is not None:
+                grid = grid[self.dof2fine[vi]]
+            r[st:st + grid.numel()] = grid
 
     def _form(self, tc):
         m = self.module
@@ -396,16 +566,16 @@ class FusedNSAssembly:
         return self._steady_cache[2]
 
     def _coefficients(self, time, params):
-        """(density, viscosity, source ux, source uy): Python floats, or
-        (E, Q) tensors for the ones that read x or y; cached per (time,
-        params)."""
+        """(density, viscosity, source ux, source uy[, source uz]): Python
+        floats, or (E, Q) tensors for the ones that read the coordinates;
+        cached per (time, params)."""
         key = (float(time), tuple(sorted((k, float(v))
                                          for k, v in params.items())))
         if self._coef_cache is not None and self._coef_cache[0] == key:
             return self._coef_cache[1]
         coords = None
         out = []
-        for name, var in zip(COEFFS, self.varying):
+        for name, var in zip(self.coeff_names, self.varying):
             if var:
                 if coords is None:
                     coords = qp_coords(self.dims, self.origin, self.h_axes,
@@ -424,16 +594,15 @@ class FusedNSAssembly:
         self._coef_cache = (key, tuple(out))
         return self._coef_cache[1]
 
-
     def _probe(self, coeffs, form, alpha_u, alpha_t, steady, salt):
         """JAX's _probe: accumulate on (2,)-shaped stand-ins, on the CPU."""
         dt = self.asm.dtype
         ue, ud = [], []
         k = 0
-        for _v in range(NV):
+        for _v in range(self.nv):
             ue.append([])
             ud.append([])
-            for _c in range(NC):
+            for _c in range(self.nc):
                 uc = _dummy(k, salt, dt)
                 if steady:
                     ue[-1].append(uc)
@@ -446,7 +615,7 @@ class FusedNSAssembly:
               for i, v in enumerate(coeffs)]
 
         def coeff_at(_q):
-            return cs[0], cs[1], [cs[2], cs[3]]
+            return cs[0], cs[1], cs[2:]
         return accumulate(ue, ud, coeff_at, self.tables, form, alpha_u,
                           alpha_t, steady)
 
@@ -478,7 +647,7 @@ class FusedNSAssembly:
         return self._probes[key]
 
     def res_jac(self, u, tc, pvec=None):
-        """(residual (n_dof,), Jacobian rows: list of 144 entries, each
+        """(residual (n_dof,), Jacobian rows: list of nd*nd entries, each
         None, a 0-d tensor or an (E,) tensor)."""
         asm = self.asm
         params = dict(asm.params)
@@ -491,23 +660,29 @@ class FusedNSAssembly:
         jac_idx, consts, n_res = self._classify(coeffs, form, alpha_u,
                                                 alpha_t, steady)
         self.stats = {"steady": steady, "split": False, "n_res_rows": n_res,
-                      "n_jac_rows": len(jac_idx), "node_scatter": True}
+                      "n_jac_rows": len(jac_idx), "node_scatter": self.node}
         if steady:
             ue, ud, stage = self._grids(u), None, None
         else:
             ue = self._grids(alpha_u * u + tc.beta_u)
             ud = self._grids(alpha_t * u + tc.beta_t)
             stage = Stage(alpha_u, alpha_t, None)
-        node, jac = ns_node_full(ue.contiguous(), ud if ud is None
-                                 else ud.contiguous(), coeffs, self.tables,
-                                 form, jac_idx, stage)
+        ue = ue.contiguous()
+        ud = ud if ud is None else ud.contiguous()
         r = torch.zeros(asm.n_dof, dtype=u.dtype, device=u.device)
-        r[self.start:self.start + node.numel()] = node.reshape(-1)
+        if self.node:
+            node, jac = ns_node_full(ue, ud, coeffs, self.tables, form,
+                                     jac_idx, stage)
+            r[self.start:self.start + node.numel()] = node.reshape(-1)
+        else:
+            res, jac = ns_elem_full(ue, ud, coeffs, self.tables,
+                                    self.lattice, form, jac_idx, stage)
+            self._scatter(res, r, ue[0])
         rows = self._rows(jac_idx, consts, jac)
         return torch.where(asm.fixed, 0.0, r), rows
 
     def _rows(self, jac_idx, consts, jac):
-        """The 144 row entries: the kernel's varying rows, the probe's
+        """The nd*nd row entries: the kernel's varying rows, the probe's
         constants (one host-to-device copy) and None."""
         asm = self.asm
         cvals = [c for c in consts if c is not None]
@@ -515,7 +690,7 @@ class FusedNSAssembly:
                   .unbind(0)) if cvals else iter(())
         pos = {k: i for i, k in enumerate(jac_idx)}
         rows = []
-        for k in range(ND * ND):
+        for k in range(self.nd * self.nd):
             if k in pos:
                 rows.append(jac[pos[k]])
             elif consts[k] is None:

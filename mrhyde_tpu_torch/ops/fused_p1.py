@@ -375,30 +375,15 @@ class FusedP1Assembly:
         self._stage_cache = None
 
     def _build_fine_maps(self):
-        """The p2 fine lattice (2 N0 + 1, 2 N1 + 1) of the variable, as
-        the JAX package's `_build_fine_maps`: fine_idx holds the global
-        dof of each lattice point (element (I, J)'s local dof with offset
-        (a, b) sits at (2 I + a, 2 J + b)), dof2fine the lattice point
-        of each of the variable's dofs."""
-        p = self.lattice.stride
-        N0, N1 = self.dims
-        fshape = (p * N0 + 1, p * N1 + 1)
-        lids = np.asarray(self.asm.disc.lids)
-        eI, eJ = np.meshgrid(np.arange(N0), np.arange(N1), indexing="ij")
-        fine = np.full(fshape, -1, dtype=np.int64)
-        for c, (a, b) in enumerate(self.lattice.offsets):
-            fine[p * eI + a, p * eJ + b] = lids[:, c].reshape(N0, N1)
-        nvd = fine.size
-        if not np.array_equal(np.sort(fine.ravel()),
-                              np.arange(self.start, self.start + nvd)):
-            raise AssertionError("the p2 fine lattice does not cover the "
-                                 "variable's dofs once each")
-        d2f = np.empty(nvd, dtype=np.int64)
-        d2f[fine.ravel() - self.start] = np.arange(nvd)
+        """The variable's p2 fine lattice (2 N0 + 1, 2 N1 + 1)
+        (`fused_elem.fine_lattice_maps`): fine_idx the global dof of each
+        lattice point, dof2fine the lattice point of each dof."""
+        fine, d2f = fe.fine_lattice_maps(self.asm.disc.lids, self.dims,
+                                         self.lattice, [self.start])
         dev = self.asm.device
-        self.grid_shape = fshape
-        self.fine_idx = torch.as_tensor(fine, device=dev)
-        self.dof2fine = torch.as_tensor(d2f, device=dev)
+        self.grid_shape = fine.shape[1:]
+        self.fine_idx = torch.as_tensor(fine[0], device=dev)
+        self.dof2fine = torch.as_tensor(d2f[0], device=dev)
 
     def _stats(self, steady):
         """The JAX package's `stats` of a call: the split, and the rows

@@ -5,6 +5,7 @@
     python3 profile_port.py --split [--n-full 512] [--device cuda]
     python3 profile_port.py --ns [--n-ns 512] [--out DIR] [--device cuda]
     python3 profile_port.py --hex [--out DIR] [--device cuda]
+    python3 profile_port.py --ns-elem [--out DIR] [--device cuda]
 
 Runs torch.profiler over pieces of the thermal main path, steady and
 transient, and prints one JSON line each, with the wall time (host
@@ -73,6 +74,15 @@ p2 deck sizes, each at a seeded random state:
   p2_state_nx256_apply, p2_state_nx256_assembly  the same for the 256^2
                   p2 deck (81 constant rows; the scatter on the fine
                   lattice)
+
+--ns-elem profiles the B1 Navier-Stokes path (chip_smoke.py's
+NS_ELEM_DECKS start-ups, hex 64x16x16 and p2 128x32), each at a seeded
+DIRK-2,2 stage:
+
+  *_apply         one Jacobian product three ways, as apply_state
+  *_assembly_stage  5 x res_and_jac (ns_elem_full, the scatter of its
+                  residual rows, the Jacobian's rows), with kernel_ms:
+                  ns_elem_full's device time per call
 """
 
 import argparse
@@ -84,7 +94,8 @@ import time
 import torch
 
 from chip_smoke import (SOURCE3_NL, bdf2_nonlinear_deck, deck, hex_deck,
-                        nonlinear_deck, ns_deck, ns_startup_deck, p2_deck)
+                        nonlinear_deck, ns_deck, ns_elem_startup_deck,
+                        ns_startup_deck, p2_deck)
 
 
 def sync(device):
@@ -92,9 +103,11 @@ def sync(device):
         torch.cuda.synchronize()
 
 
-def profiled(name, fn, device, out_dir, per=1):
+def profiled(name, fn, device, out_dir, per=1, kernel=None):
     """Runs fn() once to warm up, then once under torch.profiler, and
-    prints wall and device-busy times (per `per` repetitions)."""
+    prints wall and device-busy times (per `per` repetitions); with
+    `kernel`, also the device time and count of the events whose name
+    holds it."""
     from torch.autograd import DeviceType
     from torch.profiler import ProfilerActivity, profile
     fn()
@@ -109,11 +122,16 @@ def profiled(name, fn, device, out_dir, per=1):
         wall_ms = (time.perf_counter() - t0) * 1e3
     dev = [e for e in prof.events() if e.device_type == DeviceType.CUDA]
     busy_ms = sum(e.time_range.elapsed_us() for e in dev) / 1e3
-    print(json.dumps({
-        "piece": name, "per": per, "wall_ms": wall_ms / per,
-        "device_busy_ms": busy_ms / per,
-        "device_busy_share": busy_ms / wall_ms if wall_ms else 0.0,
-        "device_events": len(dev) / per}), flush=True)
+    rec = {"piece": name, "per": per, "wall_ms": wall_ms / per,
+           "device_busy_ms": busy_ms / per,
+           "device_busy_share": busy_ms / wall_ms if wall_ms else 0.0,
+           "device_events": len(dev) / per}
+    if kernel:
+        mine = [e for e in dev if kernel in e.name]
+        rec.update(kernel=kernel, kernel_events=len(mine) / per,
+                   kernel_ms=sum(e.time_range.elapsed_us()
+                                 for e in mine) / 1e3 / per)
+    print(json.dumps(rec), flush=True)
     if out_dir:
         sort = "self_cuda_time_total" if device.type == "cuda" \
             else "self_cpu_time_total"
@@ -286,6 +304,28 @@ def hex_pieces(device, out_dir):
     pieces("p2_state_nx256", p2_deck(256))
 
 
+def ns_elem_pieces(device, out_dir):
+    """--ns-elem: the B1 NS start-up decks at a seeded DIRK-2,2 stage:
+    the Jacobian product three ways, and the assembly under the profiler
+    with ns_elem_full's own device time."""
+    from mrhyde_tpu_torch.assembly.assembler import TimeCoeffs
+    from mrhyde_tpu_torch.problem import Problem
+    gen = torch.Generator(device=device).manual_seed(1234)
+    for tag, mesh, n in (("ns3d_startup_nx64", "hex", 64),
+                         ("p2ns_startup_nx128", "p2", 128)):
+        p = Problem(ns_elem_startup_deck(mesh, n), device=device)
+        asm = p.assembler
+        u = p.bcs.apply(torch.rand(p.n_dof, generator=gen, device=device,
+                                   dtype=p.dtype) - 0.5, 0.0)
+        # DIRK-2,2 stage 1 at dt = 0.01, betas from the state
+        tc = TimeCoeffs(0.5, 0.5 * u, 200.0, -200.0 * u, 0.01, 0.01)
+        r, J = asm.res_and_jac(u, tc)
+        apply_timings(f"{tag}_apply", asm, J, r, device)
+        profiled(f"{tag}_assembly_stage",
+                 lambda: [asm.res_and_jac(u, tc) for _ in range(5)],
+                 device, out_dir, per=5, kernel="ns_elem_full")
+
+
 def main():
     ap = argparse.ArgumentParser(description=__doc__.splitlines()[0])
     ap.add_argument("--out", default=None)
@@ -297,6 +337,7 @@ def main():
     ap.add_argument("--ns", action="store_true")
     ap.add_argument("--n-ns", type=int, default=512)
     ap.add_argument("--hex", action="store_true")
+    ap.add_argument("--ns-elem", action="store_true")
     args = ap.parse_args()
     device = torch.device(args.device)
     if args.out:
@@ -312,6 +353,9 @@ def main():
         return
     if args.hex:
         hex_pieces(device, args.out)
+        return
+    if args.ns_elem:
+        ns_elem_pieces(device, args.out)
         return
 
     from mrhyde_tpu_torch.assembly.assembler import TimeCoeffs

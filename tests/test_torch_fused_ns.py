@@ -206,12 +206,16 @@ def test_sparse_dual_matches_torch_jacfwd():
     {"element type": "hex", "order": 1, "dimension": 3}])
 def test_ns_decks_for_the_element_tile_kernel_raise(mesh):
     """3D hex and p2 quad NS decks run on the JAX package's element-tile
-    kernel B1, not ported yet: they raise rather than run the general
-    path on the card."""
+    kernel B1. They raised while it was not ported; now they build the
+    provider's B1 path (`ns_elem_full`, not the node kernel), and no
+    longer the general path either (test_torch_fused_ns_elem*.py hold it
+    to JAX)."""
     from mrhyde_tpu_torch.problem import Problem
     cfg = channel_cfg(2, 2)
     order = mesh.pop("order")
     cfg["Mesh"].update(mesh, NZ=2)
     cfg["Discretization"]["order"] = {v: order for v in ("ux", "uy", "pr")}
-    with pytest.raises(NotImplementedError, match="B1"):
-        Problem(cfg, device="cpu")
+    fused = Problem(cfg, device="cpu").assembler.fused_provider()
+    assert isinstance(fused, fn.FusedNSAssembly) and not fused.node
+    assert fused.nd == (27 if order == 2 else 32)
+    assert fused.stats["node_scatter"] is False

@@ -14,8 +14,9 @@ import torch
 
 from torch_port_utils import (DIRK22_STAGE1, KAPPAS, MASSES, NS_STAGE1,
                               SOURCE, SOURCE3, SOURCE3_NL, SOURCE_NL,
-                              as_transient, channel_cfg, hex_cfg, p2_cfg,
-                              seeded, thermal_cfg, transient_cfg)
+                              as_transient, channel_cfg, hex_cfg,
+                              ns_elem_cfg, p2_cfg, seeded, thermal_cfg,
+                              transient_cfg)
 
 torch.set_num_threads(1)
 
@@ -464,3 +465,125 @@ def test_cdr_provider_on_card_matches_cpu(mesh, reaction, stage):
         if a is not None:
             assert np.max(np.abs(a - b)) <= 1e-12 * max(1.0,
                                                         np.max(np.abs(b)))
+
+
+# ----------------------------------------------------------------------
+# Navier-Stokes on the element kernel (B1): hex p1 (nd = 32), p2 (nd = 27)
+# ----------------------------------------------------------------------
+
+def _ns_elem_case(mesh, dev, dtype):
+    """(tables on the card, lattice, nd) of a hex or p2 channel deck."""
+    from mrhyde_tpu_torch.ops import fused_p1 as fp
+    from mrhyde_tpu_torch.problem import Problem
+    f = Problem(ns_elem_cfg(mesh, (2, 2, 2) if mesh == "hex" else (2, 2)),
+                device="cpu").assembler.fused_provider()
+    t0 = f.tables
+    return (fp.QuadTables(np.asarray(t0.phi), np.asarray(t0.grad),
+                          np.asarray(t0.wts), dev, dtype), f.lattice, f.nd)
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("transient", [False, True])
+@pytest.mark.parametrize("dtype", [torch.float64, torch.float32])
+@pytest.mark.parametrize("mesh,shape", [(m, s) for m, ss in
+                                        ELEM_SHAPES.items() for s in ss])
+def test_ns_elem_kernel_matches_plain(mesh, shape, dtype, transient):
+    """ns_elem_full (steady PSPG with a per-qp viscosity; a PSPG+SUPG
+    stage) against its plain version at a divisible and a non-divisible
+    size: residual rows and Jacobian rows each within the tolerance of
+    its own max |plain|."""
+    from mrhyde_tpu_torch.ops import fused_ns as fn
+    from mrhyde_tpu_torch.ops import fused_p1 as fp
+    dev = _card()
+    tab, lat, nd = _ns_elem_case(mesh, dev, dtype)
+    gen = torch.Generator(device=dev).manual_seed(19)
+    grid = (tab.dim + 1,) + tuple(lat.stride * n + 1 for n in shape)
+    ue, ud = (torch.rand(grid, generator=gen, device=dev, dtype=dtype) - 0.5
+              for _ in range(2))
+    E = int(np.prod(shape))
+    visc = 0.1 + 0.01 * torch.rand((E, tab.Q), generator=gen, device=dev,
+                                   dtype=dtype)
+    h = float(np.sum(tab.wts) ** (1.0 / tab.dim))
+    form = fn.NSForm(True, transient, h, 0.01, transient)
+    stage = fp.Stage(*NS_STAGE1, None) if transient else None
+    nc = len(lat.offsets)
+    block = {r * nd + nd - nc + cp for r in range(nd - nc)
+             for cp in range(nc)}
+    jac_idx = tuple(k for k in range(nd * nd) if transient or k not in block)
+    src = (1.0,) + (0.0,) * (tab.dim - 1)
+    args = (ue, 200.0 * ud if transient else None, (1.0, visc, *src), tab,
+            lat, form, jac_idx, stage)
+    before = fp.LAUNCHES["ns_elem_full"]
+    res, jac = fn.ns_elem_full(*args)
+    rref, jref = fn.ns_elem_full_plain(*args)
+    assert _close(res, rref, dtype) and _close(jac, jref, dtype)
+    assert res.shape == (nd, E) and jac.shape == (len(jac_idx), E)
+    assert fp.LAUNCHES["ns_elem_full"] == before + 1
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("case", ["pspg_steady_visc_x", "supg_stage"])
+@pytest.mark.parametrize("mesh", ["hex", "p2"])
+def test_ns_elem_provider_on_card_matches_cpu(mesh, case):
+    """The hex / p2 NS provider on CUDA (ns_elem_full) against the same
+    call on the CPU (plain version): residual and every Jacobian row,
+    f64."""
+    from mrhyde_tpu_torch.assembly.assembler import TimeCoeffs
+    from mrhyde_tpu_torch.interop import (state_from_numpy, state_to_numpy,
+                                          time_coeffs_from_numpy)
+    from mrhyde_tpu_torch.ops import fused_p1 as fp
+    from mrhyde_tpu_torch.problem import Problem
+    dev = _card()
+    stage = case == "supg_stage"
+    cfg = ns_elem_cfg(mesh, (9, 7, 5) if mesh == "hex" else (13, 9),
+                      supg=stage, visc=None if stage else "0.1 + 0.01*x",
+                      solver={"solver": "transient"} if stage else None)
+    out = {}
+    for d in ("cpu", dev):
+        p = Problem(cfg, device=d)
+        n = p.n_dof
+        tc = (time_coeffs_from_numpy(NS_STAGE1[0], seeded(n, seed=11),
+                                     NS_STAGE1[1], seeded(n, seed=12), 0.3,
+                                     0.01, p)
+              if stage else TimeCoeffs.steady(n, device=d))
+        f = p.assembler.fused_provider()
+        before = dict(fp.LAUNCHES)
+        r, rows = f.res_jac(state_from_numpy(seeded(n, seed=9), p), tc)
+        launched = {k: v - before[k] for k, v in fp.LAUNCHES.items()}
+        assert launched == {k: int(d == dev and k == "ns_elem_full")
+                            for k in launched}
+        out[str(d)] = (state_to_numpy(r),
+                       [None if x is None else state_to_numpy(x)
+                        for x in rows])
+    (rc, jc), (rg, jg) = out["cpu"], out[str(dev)]
+    assert np.max(np.abs(rg - rc)) <= 1e-12 * max(1.0, np.max(np.abs(rc)))
+    for a, b in zip(jg, jc):
+        assert (a is None) == (b is None)
+        if a is not None:
+            assert np.max(np.abs(a - b)) <= 1e-12 * max(1.0,
+                                                        np.max(np.abs(b)))
+
+
+@pytest.mark.cuda
+def test_ns_elem_wrapper_checks_inputs_on_card():
+    from mrhyde_tpu_torch.ops import fused_ns as fn
+    dev = _card()
+    tab, lat, nd = _ns_elem_case("hex", dev, torch.float64)
+    ue = torch.zeros((4, 4, 3, 3), device=dev, dtype=torch.float64)
+    form = fn.NSForm(True, False, 1.0, 1.0, False)
+    coeffs = (1.0, 1.0, 1.0, 0.0, 0.0)
+    with pytest.raises(ValueError):          # three variables for hex
+        fn.ns_elem_full(ue[:3].contiguous(), None, coeffs, tab, lat, form,
+                        (0,))
+    with pytest.raises(ValueError):          # four coefficients in 3D
+        fn.ns_elem_full(ue, None, coeffs[:4], tab, lat, form, (0,))
+    with pytest.raises(ValueError):          # a viscosity of the wrong shape
+        fn.ns_elem_full(ue, None, (1.0, torch.zeros(
+            (3, tab.Q), device=dev, dtype=torch.float64), 1.0, 0.0, 0.0),
+            tab, lat, form, (0,))
+    with pytest.raises(ValueError):          # a stage without u_dot grids
+        from mrhyde_tpu_torch.ops.fused_p1 import Stage
+        fn.ns_elem_full(ue, None, coeffs, tab, lat, form, (0,),
+                        Stage(*NS_STAGE1, None))
+    with pytest.raises(ValueError):          # tables in another dtype
+        fn.ns_elem_full(ue.float(), None, coeffs, tab, lat, form, (0,))

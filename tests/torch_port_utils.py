@@ -133,6 +133,26 @@ def startup_cfg(nx, ny):
         "final time": 0.04, "number of steps": 4, "nonlinear TOL": 1e-8})
 
 
+def ns_elem_cfg(mesh, n, supg=False, visc=None, solver=None):
+    """The channel deck on hex p1 (n = (nx, ny, nz) on [0,5]x[0,1]x[0,1],
+    uz = 0 on the no-slip walls too) or on p2 quads (n = (nx, ny),
+    quadrature 4): the decks of the element-tile kernel B1 for
+    Navier-Stokes."""
+    cfg = channel_cfg(n[0], n[1], supg=supg, visc=visc, solver=solver)
+    if mesh == "hex":
+        cfg["Mesh"].update({"dimension": 3, "element type": "hex",
+                            "zmin": 0.0, "zmax": 1.0, "NZ": n[2]})
+        cfg["Physics"]["Dirichlet conditions"]["uz"] = {"bottom": 0.0,
+                                                        "top": 0.0}
+        cfg["Physics"]["Initial conditions"]["uz"] = 0.0
+        cfg["Discretization"]["order"]["uz"] = 1
+        cfg["Postprocess"]["True solutions"]["uz"] = "0.0"
+    else:
+        cfg["Discretization"] = {"order": {"ux": 2, "uy": 2, "pr": 2},
+                                 "quadrature": 4}
+    return cfg
+
+
 # 3D hex and 2D p2 thermal (the element-tile kernel B1): the reference's
 # thermal/3D_verification, u = sin(2 pi x) sin(2 pi y) sin(2 pi z) on the
 # unit cube; p2 quads with the 2D source at order 2, quadrature 4

@@ -1,15 +1,17 @@
-"""Reference L2 errors of chip_smoke.py's cdr / thermal-advection decks
-and its hex kappa = 1 deck from the JAX package, in f64 on the CPU.
+"""Reference L2 errors of chip_smoke.py's cdr / thermal-advection decks,
+its hex kappa = 1 deck and its B1 Navier-Stokes decks from the JAX
+package, in f64 on the CPU.
 
     python tools/jax_references.py DECK [N[:STEPS] ...]
 
-DECK is a key of chip_smoke.py's CDR_DECKS or `hex_default` (its
-HEX_DEFAULT); each N builds the deck at that mesh size (default: the
-size the card runs), and STEPS, for a transient deck, sets its number
-of steps (to refine h and dt together). Prints one JSON line per run:
-the L2 error of the deck's variable at its held time, the DOF count, and
+DECK is a key of chip_smoke.py's CDR_DECKS or NS_ELEM_DECKS, or
+`hex_default` (its HEX_DEFAULT); each N builds the deck at that mesh
+size (default: the size the card runs), and STEPS, for a transient deck,
+sets its number of steps (to refine h and dt together). Prints one JSON
+line per run: the L2 error of the deck's variable at its held time (an
+NS deck: of every variable at every recorded time), the DOF count, and
 the set-up and solve seconds. Run it from the repo root; it imports
-chip_smoke.py for the deck builders, so both packages see the same
+chip_smoke.py for the deck functions, so both packages see the same
 config.
 """
 
@@ -31,7 +33,10 @@ def main(argv):
     from mrhyde_tpu.problem import Problem
 
     name, sizes = argv[0], argv[1:]
-    decks = dict(chip_smoke.CDR_DECKS, hex_default=chip_smoke.HEX_DEFAULT)
+    decks = {k: (build, n, None, None)
+             for k, (build, n, _rtol, _refs) in
+             chip_smoke.NS_ELEM_DECKS.items()}
+    decks.update(chip_smoke.CDR_DECKS, hex_default=chip_smoke.HEX_DEFAULT)
     build, n_card, t_held, var = decks[name][:4]
     for size in sizes or [str(n_card)]:
         n, _, steps = size.partition(":")
@@ -45,7 +50,12 @@ def main(argv):
         t2 = time.perf_counter()
         hist = {round(float(t), 10): errs
                 for t, errs in result.error_history}
-        l2 = float(hist[round(t_held, 10)][("L2", var)])
+        if var is None:
+            names = cfg["Postprocess"]["True solutions"]
+            l2 = {t: {v: float(errs[("L2", v)]) for v in names}
+                  for t, errs in hist.items()}
+        else:
+            l2 = float(hist[round(t_held, 10)][("L2", var)])
         print(json.dumps({"deck": name, "n": int(n), "steps":
                           cfg["Solver"].get("number of steps"),
                           "time": t_held,

@@ -1,9 +1,10 @@
 """Kernel times of two trees of this repository on one card, in turns.
 
-    python tools/kernel_ab.py PARENT_DIR [--out DIR]
+    python tools/kernel_ab.py PARENT_DIR [--out DIR] [--phases P,...]
 
-Runs the kernel phases 3, 3b and 3c of each tree's own chip_smoke.py
-(`phase_kernels`, `phase_ns_kernels`, `phase_elem_kernels`) in a process
+Runs kernel phases of each tree's own chip_smoke.py (by default 3, 3b
+and 3c: `phase_kernels`, `phase_ns_kernels`, `phase_elem_kernels`;
+`--phases` names others, such as `phase_ns_elem_kernels`) in a process
 of its own, parent, change, change, parent, where the change is the tree
 this script lives in and PARENT_DIR holds the other (an unpacked `git
 archive` of the parent commit). Each tree builds its kernels into its
@@ -12,10 +13,12 @@ tree's chip_smoke.py times it (`ms`: one launch between two CUDA events,
 median of 20, so the wrapper's host time before the launch falls inside
 the window), and over 20 launches back to back between two events
 (`batched_ms`: median of 5 such batches, the wrapper's host time
-overlapped by the kernels before it). The plain versions of phases 3b
-and 3c are not timed.
+overlapped by the kernels before it). The plain versions of phases 3b,
+3c and 3e are not timed.
 Writes each run's JSON lines to DIR/ab_<side>_<n>.txt and prints, for
-every case, both sides' times and the change/parent ratio of the means.
+every case, both sides' times and the change/parent ratio of the means,
+and each run's max_abs_err against the plain version: equal on both
+sides when the two trees' kernels give the same bits.
 """
 
 import argparse
@@ -50,7 +53,7 @@ def batched_ms(fn, reps=20):
     return statistics.median(times)
 
 
-def both(fn, reps=20):
+def both(fn, reps=20, warm=True):
     # a record's kernel is timed first, then its plain version (reps 5,
     # not timed here; phase 3 times it with the default, and it is)
     if reps != 20:
@@ -71,9 +74,8 @@ both.calls = []
 
 cs.cuda_ms = both
 cs.emit = emit
-cs.phase_kernels(dev)
-cs.phase_ns_kernels(dev)
-cs.phase_elem_kernels(dev)
+for phase in sys.argv[1].split(","):
+    getattr(cs, phase)(dev)
 """
 
 
@@ -86,13 +88,15 @@ def main(argv):
     ap = argparse.ArgumentParser()
     ap.add_argument("parent")
     ap.add_argument("--out", default="kernel_ab_out")
+    ap.add_argument("--phases", default="phase_kernels,phase_ns_kernels,"
+                    "phase_elem_kernels")
     args = ap.parse_args(argv)
     change = os.path.dirname(os.path.dirname(os.path.abspath(__file__)))
     trees = {"parent": os.path.abspath(args.parent), "change": change}
     os.makedirs(args.out, exist_ok=True)
     runs = {"parent": [], "change": []}
     for n, side in enumerate(("parent", "change", "change", "parent")):
-        out = subprocess.run([sys.executable, "-c", _CHILD],
+        out = subprocess.run([sys.executable, "-c", _CHILD, args.phases],
                              cwd=trees[side], capture_output=True,
                              text=True, check=True)
         with open(os.path.join(args.out, f"ab_{side}_{n}.txt"), "w") as f:
@@ -106,6 +110,9 @@ def main(argv):
             c = [r[key][metric] for r in runs["change"]]
             row[metric] = {"parent": p, "change": c,
                            "ratio": statistics.mean(c) / statistics.mean(p)}
+        row["max_abs_err"] = {side: [r[key]["max_abs_err"]
+                                     for r in runs[side]]
+                              for side in ("parent", "change")}
         print(json.dumps(row), flush=True)
 
 
