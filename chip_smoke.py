@@ -3,15 +3,20 @@
     python3 chip_smoke.py
 
 Drives mrhyde_tpu_torch's thermal, cdr, thermal-advection and
-Navier-Stokes main paths (2D p1 quads, 3D hex, 2D p2 quads), steady and
-transient, through
+Navier-Stokes main paths (2D p1 quads, 3D hex, 2D p2 quads) and its
+module sets (NS + thermal with the Boussinesq term, NS + cdr,
+coefficients that read the state; 2D p1 quads), steady and transient,
+through
 `Problem(cfg).run()` on the card, after building
 its CUDA kernels from the sources in this checkout (one nvcc per source,
-in parallel) and holding each against its plain torch version. Phases
-(one JSON line each):
+the deck-generated module-set kernels among them, all in parallel) and
+holding each against its plain torch version. Phases (one JSON line
+each):
 
   1 device   card name and power limit; exits non-zero without CUDA
-  2 build    nvcc build of mrhyde_tpu_torch/ops/csrc/*.cu, in seconds
+  2 build    nvcc build of mrhyde_tpu_torch/ops/csrc/*.cu and of the
+             set_node_full sources generated for phase 3f and decks 34-37
+             (functions/codegen.py), in seconds, with ptxas's report
   3 kernels  against their plain versions at 1024x1024 and 1000x777, in
              f64 (max |diff| <= 1e-12 max|plain|) and f32 (<= 1e-5
              max|plain|), with the median of 20 CUDA-event timings each:
@@ -62,11 +67,11 @@ in parallel) and holding each against its plain torch version. Phases
              (seeded u, beta_u, beta_t); CUDA-event medians of 20 (plain: 5)
  14 hex_gold_nx10   the reference's thermal/3D_verification, 10^3 hex,
              direct: L2(e) = 0.0116656 (rtol 2e-5; the reference's gold)
- 15 hex_default_nx64   the same at 64^3 (274,625 DOFs), nonlinear TOL
-             1e-10, GMRES + Jacobi (HEX_DEFAULT)
- 16 hex_nonlinear_nx64   kappa = 1 + e*e with its manufactured source,
-             64^3, CG, TOL 1e-10
- 17 hex_transient_dirk22_nx64   u = sin(2 pi t) S3, IC 0, DIRK-2,2, 8
+ 15 hex_default_nx48   the same at 48^3 (117,649 DOFs; 64^3 until PR 7),
+             nonlinear TOL 1e-10, GMRES + Jacobi (HEX_DECKS)
+ 16 hex_nonlinear_nx48   kappa = 1 + e*e with its manufactured source,
+             48^3, CG, TOL 1e-10
+ 17 hex_transient_dirk22_nx48   u = sin(2 pi t) S3, IC 0, DIRK-2,2, 8
              steps to t=0.4, TOL 1e-10, GMRES + Jacobi
  18 hex_transient_nonlinear_bdf2_nx48   kappa = 1 + e*e, BDF2 after one
              BWE/BDF1 startup step, 4 steps to t=0.2, CG
@@ -85,14 +90,15 @@ in parallel) and holding each against its plain torch version. Phases
  22-29 CDR_DECKS   cdr 512^2 (v = (2, 1), reaction 0), its nonlinear
              twin (reaction 0.5 c^2), the rotating-field DIRK-2,2 deck
              (density 2, 8 steps to t = 0.4), thermal 'include advection'
-             512^2, cdr hex 64^3 and nonlinear 48^3, cdr p2 256^2 and
+             512^2, cdr hex 48^3 and nonlinear 48^3, cdr p2 256^2 and
              nonlinear 128^2; GMRES + Jacobi, TOL 1e-10, the JAX
              package's L2 at rtol 1e-4 (tools/jax_references.py)
  3e kernels_ns_elem   ns_elem_full (the B1 Navier-Stokes kernel) against
-             its plain version on the channel: hex 64^3 and 61x47x29 on
-             [0,5]x[0,1]x[0,1], p2 512x128 and 500x121 on [0,5]x[0,1],
+             its plain version on the channel: hex 64^3 and 31x23x15 on
+             [0,5]x[0,1]x[0,1], p2 512x128 and 250x61 on [0,5]x[0,1],
              f64 and f32 (the same bounds), residual and rows each, the
-             three cases of phase 3b; CUDA-event medians of 20 (plain: 5)
+             three cases of phase 3b; CUDA-event medians of 20 (plain:
+             its one call)
  30-33 NS_ELEM_DECKS   the channel on hex p1 (uz = 0 on the walls too)
              and on p2 quads (quadrature 4): ns3d_channel_direct_nx20
              (20x4x4, PSPG, steady, direct, TOL 1e-8, rtol 1e-4),
@@ -101,6 +107,26 @@ in parallel) and holding each against its plain torch version. Phases
              12,771 DOFs, rtol 1e-4), p2ns_startup_dirk22_nx128 (128x32,
              50,115 DOFs, rtol 1e-6): the JAX package's L2 of every
              variable (tools/jax_references.py)
+ 3f kernels_set   set_node_full (the module-set kernel, one source
+             generated per deck) against its plain version at 1024x256
+             and 1000x243, f64 and f32 (the same bounds), residual and
+             rows each: NS + thermal PSPG steady; NS + thermal advected
+             by (ux, uy), PSPG+SUPG at DIRK-2,2 stage-1 alphas with
+             seeded u_dot; NS + cdr (velocity (ux, uy), source ux 1 + 0.1
+             c^2) at that stage; thermal + cdr with kappa = 1 + e*c; cdr
+             with the velocity (c, 1); CUDA-event medians of 20 (plain: 5)
+ 34 boussinesq_gold_nx8_beta1, _beta0   the JAX package's Boussinesq deck
+             (tests/test_flow.py:63-98), direct: max |ux| equals JAX's to
+             rtol 1e-8 at beta = 1 and is below 1e-3 of it at beta = 0
+ 35-37 SET_DECKS   boussinesq_cavity_startup_nx128 (the differentially
+             heated cavity from rest, Ra = 1e3, Pr = 0.71, DIRK-2,2, 4
+             steps of 0.01, GMRES + Jacobi: L2 of ux, uy and e),
+             ns_cdr_startup_nx256 (the channel start-up with cdr
+             advected by (ux, uy) and source ux 1 + 0.1 c^2: ux, uy, pr,
+             c) and ns_channel_visc_nonlinear_direct_nx128 (viscosity 1 +
+             0.1 ux^2, direct): the JAX package's L2 at rtol 1e-6 (NS +
+             cdr: 1e-4, the agreement its capped GMRES solves leave in
+             L2(pr))
 
 The reference L2 values are the JAX package's, computed in f64 on the
 CPU, or the reference's golds. Each deck runs one assembly before its
@@ -114,9 +140,10 @@ part on the beta_u and beta_t grids), and the other kernels never: phases
 4, 5, 7 and 8 run thermal_node_state, 6 and 9 thermal_node_full, 11-13
 ns_node_full (once per fused res_and_jac call, no thermal kernel), 14,
 15, 17 and 19 thermal_elem_state, 16, 18 and 20 thermal_elem_full,
-each of 21-29 the kernel its CDR_DECKS entry names, and 30-33
+each of 21-29 the kernel its CDR_DECKS entry names, 30-33
 ns_elem_full (once per fused res_and_jac call, no other kernel; the
-2D p1 NS decks 11-13 never launch it). The `kernels` line
+2D p1 NS decks 11-13 never launch it), and 34-37 set_node_full (once
+per fused res_and_jac call, no other kernel). The `kernels` line
 reports the sums over the decks, each kernel's error, times and bound
 (bytes or operations, whichever is larger; see `bound`) at its quoted
 case, and for the four thermal kernels the same of their advection case
@@ -310,6 +337,17 @@ def cuda_ms(fn, reps=20, warm=True):
         b.synchronize()
         times.append(a.elapsed_time(b))
     return statistics.median(times)
+
+
+def timed(fn):
+    """(fn(), its CUDA-event time in ms): one call."""
+    a = torch.cuda.Event(enable_timing=True)
+    b = torch.cuda.Event(enable_timing=True)
+    a.record()
+    out = fn()
+    b.record()
+    b.synchronize()
+    return out, a.elapsed_time(b)
 
 
 def max_err(out, ref):
@@ -512,6 +550,248 @@ NS_ELEM_DECKS = {
 }
 
 
+def boussinesq_deck(n, beta=1.0):
+    """The JAX package's Boussinesq test (tests/test_flow.py:63-98):
+    navier stokes + thermal on n x n p1 quads, PSPG, steady, direct;
+    source uy -1 and rho beta (e - T_ambient) source_d in each momentum
+    equation, e = 1 on the left and 0 on the right."""
+    return {
+        "Mesh": {"dimension": 2, "element type": "quad", "NX": n, "NY": n},
+        "Physics": {"modules": "navier stokes,thermal",
+                    "usePSPG": True, "beta": beta, "T_ambient": 0.0,
+                    "Dirichlet conditions": {
+                        "scalar data": True,
+                        "ux": {"all boundaries": 0.0},
+                        "uy": {"all boundaries": 0.0},
+                        "e": {"left": 1.0, "right": 0.0}}},
+        "Functions": {"source uy": "-1.0", "source ux": "0.0",
+                      "thermal source": "0.0"},
+        "Discretization": {"order": {"ux": 1, "uy": 1, "pr": 1, "e": 1},
+                           "quadrature": 2},
+        "Solver": {"solver": "steady-state", "use direct solver": True,
+                   "max nonlinear iters": 8, "nonlinear TOL": 1e-10},
+        "Postprocess": {"compute errors": False},
+    }
+
+
+# the differentially heated cavity's Rayleigh and Prandtl numbers (de Vahl
+# Davis 1983): beta = Ra Pr multiplies the buoyancy of source uy = -1
+CAVITY_RA, CAVITY_PR = 1.0e3, 0.71
+
+
+def cavity_deck(n):
+    """The differentially heated square cavity started from rest: n x n p1
+    quads on the unit square, no-slip walls, e = 1 on the left and 0 on
+    the right, adiabatic top and bottom; thermal advected by (ux, uy),
+    viscosity Pr, thermal diffusion 1; PSPG+SUPG, DIRK-2,2, 4 steps of
+    0.01 (NS_STARTUP_SOLVER), the default solver. No true solution: the
+    L2 lines are the fields' norms."""
+    zero = {v: "0.0" for v in ("ux", "uy", "pr", "e")}
+    return {
+        "Mesh": {"dimension": 2, "element type": "quad", "NX": n, "NY": n},
+        "Physics": {"modules": "navier stokes,thermal", "usePSPG": True,
+                    "useSUPG": True, "include advection": True,
+                    "beta": CAVITY_RA * CAVITY_PR, "T_ambient": 0.0,
+                    "Dirichlet conditions": {
+                        "scalar data": True,
+                        "ux": {"all boundaries": 0.0},
+                        "uy": {"all boundaries": 0.0},
+                        "e": {"left": 1.0, "right": 0.0}},
+                    "Initial conditions": dict(
+                        {"scalar data": True},
+                        **{v: 0.0 for v in zero})},
+        "Functions": {"source uy": "-1.0", "viscosity": str(CAVITY_PR),
+                      "thermal diffusion": "1.0", "advection x": "ux",
+                      "advection y": "uy"},
+        "Discretization": {"order": {v: 1 for v in zero}, "quadrature": 2},
+        "Solver": dict(NS_STARTUP_SOLVER),
+        "Postprocess": {"compute errors": True, "True solutions": zero},
+    }
+
+
+def ns_cdr_deck(nx):
+    """The channel start-up (ns_startup_deck at nx x nx/4) with cdr in the
+    set: c = 1 on the left, diffusion 0.01, advected by (ux, uy),
+    reaction 0; NS forced by source ux 1 + 0.1 c^2 (the reference's
+    Multiphysics/NavierStokes-CDR/Fully-Coupled couplings)."""
+    cfg = ns_startup_deck(nx)
+    phys = cfg["Physics"]
+    phys["modules"] = "navier stokes,cdr"
+    phys["Dirichlet conditions"]["c"] = {"left": 1.0}
+    phys["Initial conditions"]["c"] = 0.0
+    cfg["Discretization"]["order"]["c"] = 1
+    cfg["Functions"].update({"source ux": "1.0 + 0.1*c^2",
+                             "diffusion": "0.01", "xvel": "ux",
+                             "yvel": "uy", "reaction": "0.0"})
+    cfg["Postprocess"]["True solutions"]["c"] = "0.0"
+    return cfg
+
+
+def ns_visc_deck(nx):
+    """The channel at nx x nx/4, PSPG, steady, direct, with the viscosity
+    1 + 0.1 ux^2 (an NS coefficient that reads the state)."""
+    cfg = ns_deck(nx, nx // 4, NS_DIRECT)
+    cfg["Functions"]["viscosity"] = "1.0 + 0.1*ux*ux"
+    return cfg
+
+
+# the Boussinesq deck's reference: the JAX package's max |ux| at beta = 1
+# (f64, CPU; tools/jax_references.py boussinesq_gold_nx8; 8.3e-18 at
+# beta = 0)
+BOUSSINESQ_MAXU = 0.0037584716736223547
+# name -> (deck function of n, n on the card, rtol, {held time: the JAX
+# package's f64 CPU L2 per variable}), as NS_ELEM_DECKS; every assembly
+# of these decks is one set_node_full launch. The cavity's pressure is
+# determined up to a constant (no-slip on every wall), which each
+# package's Krylov solves pick: its L2 is no check.
+SET_DECKS = {
+    # cut from 256^2 (264,196 DOFs): the JAX CPU reference ran over 30
+    # minutes there and was stopped; 66,564 DOFs, 822 s of JAX CPU solve.
+    # Its stages do not all converge (at Ra = 1e3, the lowest of the
+    # benchmark's range): Newton runs to its cap of 10 with every GMRES
+    # solve at its 2,000 cap, in both packages alike; they agree to 9e-10
+    "boussinesq_cavity_startup_nx128": (
+        cavity_deck, 128, 1e-6,
+        {0.02: {"ux": 0.4716255450389182, "uy": 0.639036151441178,
+                "e": 0.28996953159540934},
+         0.04: {"ux": 0.9475753202980064, "uy": 1.0984840325571963,
+                "e": 0.35512080450925404}}),
+    # 66,820 DOFs; 316 s of JAX CPU solve. Each stage's Newton solve
+    # meets its TOL in two steps, but every GMRES solve stops at its
+    # 2,000 cap, and L2(pr), the least determined field, agrees to 6e-5
+    # (ux, uy and c to 2e-9): rtol 1e-4
+    "ns_cdr_startup_nx256": (
+        ns_cdr_deck, 256, 1e-4,
+        {0.02: {"ux": 0.16742995154868626, "uy": 4.618762002178137e-06,
+                "pr": 0.0007769102912303964, "c": 0.10692664402300237},
+         0.04: {"ux": 0.13742098860500176, "uy": 4.950538437048563e-06,
+                "pr": 0.0012318709757935503, "c": 0.12248983317628381}}),
+    # 12,771 DOFs; 34 s of JAX CPU solve
+    "ns_channel_visc_nonlinear_direct_nx128": (
+        ns_visc_deck, 128, 1e-6,
+        {0.0: {"ux": 0.00025861804009831747, "uy": 1.2241599309508333e-05,
+               "pr": 0.0028695719608056725}}),
+}
+
+
+def thermal_cdr_deck(n):
+    """thermal + cdr on n x n p1 quads, steady: kappa = 1 + e c (the
+    set's density reads both variables), cdr advected by (2, 1)."""
+    cfg = deck(n, kappa="1.0 + e*c", solver={"nonlinear TOL": 1e-10})
+    cfg["Physics"]["modules"] = "thermal,cdr"
+    cfg["Physics"]["Dirichlet conditions"]["c"] = {"all boundaries": 0.0}
+    cfg["Discretization"]["order"]["c"] = 1
+    cfg["Functions"].update({"source": CDR_SOURCE, "xvel": "2.0",
+                             "yvel": "1.0", "reaction": "0.0"})
+    cfg["Postprocess"]["True solutions"]["c"] = S_TRUE
+    return cfg
+
+
+def cdr_state_velocity_deck(n):
+    """cdr on n x n p1 quads, steady, with the velocity (c, 1): a
+    coefficient that reads the state."""
+    return cdr_deck(n, vel=("c", "1.0"))
+
+
+# phase 3f: name -> (deck function of n, box, stage alphas or None, time
+# step); each case's weak form and row classes come from its deck at 4 x
+# 4, its element size from the shape
+SET_KERNEL_CASES = {
+    "ns+thermal pspg steady": (lambda n: boussinesq_deck(n), (1.0, 1.0),
+                               None, 1.0),
+    "ns+thermal advected pspg+supg dirk22 stage 1": (
+        cavity_deck, (1.0, 1.0), NS_STAGE1, 0.01),
+    "ns+cdr velocity (ux, uy), source 1 + 0.1 c^2, dirk22 stage 1": (
+        ns_cdr_deck, (5.0, 1.0), NS_STAGE1, 0.01),
+    "thermal+cdr kappa = 1 + e*c steady": (thermal_cdr_deck, (1.0, 1.0),
+                                           None, 1.0),
+    "cdr velocity (c, 1) steady": (cdr_state_velocity_deck, (1.0, 1.0),
+                                   None, 1.0),
+}
+SET_SHAPES = ((1024, 256), (1000, 243))
+
+
+def set_case(name, h):
+    """(SetForm at element size h, SetScalars, jac_idx, Stage or None) of
+    a phase 3f case, from its deck at 4 x 4 on the CPU."""
+    from mrhyde_tpu_torch.ops.fused_p1 import Stage
+    from mrhyde_tpu_torch.ops.fused_set import SetForm, SetScalars
+    from mrhyde_tpu_torch.problem import Problem
+    build, _box, alphas, dt = SET_KERNEL_CASES[name]
+    fused = Problem(build(4), device="cpu", dtype=torch.float64) \
+        .assembler.fused_provider()
+    f = fused.form
+    form = SetForm(f.modules, f.fm, f.variables, f.params, h, f.transient)
+    sc = SetScalars(0.0125, dt, ())
+    au, at = alphas or (1.0, 0.0)
+    jac_idx = fused._classify(sc, au, at, alphas is None)[0]
+    return form, sc, jac_idx, None if alphas is None else Stage(au, at,
+                                                                None)
+
+
+def set_inputs(nv, N0, N1, device, dtype, gen, stage):
+    """Seeded u_eval (and, at a stage, u_dot) grids of nv variables."""
+    ue = torch.rand((nv, N0 + 1, N1 + 1), generator=gen, device=device,
+                    dtype=dtype) - 0.5
+    if stage is None:
+        return ue.contiguous(), None
+    ud = torch.rand((nv, N0 + 1, N1 + 1), generator=gen, device=device,
+                    dtype=dtype) - 0.5
+    return ue.contiguous(), (200.0 * ud).contiguous()
+
+
+def phase_set_kernels(device, shapes=SET_SHAPES, plain_shapes=None):
+    """set_node_full (each case's generated kernel) against its plain
+    version (residual and rows each within rtol of its max |plain|),
+    with CUDA-event medians of 20 (kernel) and 5 (plain) and the bound
+    of each case; the plain version runs at plain_shapes[i] in place of
+    shapes[i] where given (the kernel's check there, its time at
+    shapes[i])."""
+    import math
+    from mrhyde_tpu_torch.ops import fused_set as fs
+    summary = None
+    for name, (_build, box, _alphas, _dt) in SET_KERNEL_CASES.items():
+        for dtype, rtol in ((torch.float64, 1e-12), (torch.float32, 1e-5)):
+            for i, (N0, N1) in enumerate(shapes):
+                gen = torch.Generator(device=device).manual_seed(4321)
+                tab, ip0 = quad_tables(N0, N1, device, dtype, *box)
+                form, sc, jac_idx, stage = set_case(
+                    name, math.sqrt(sum(tab.wts)))
+                geo = ((0.0, 0.0), (box[0] / N0, box[1] / N1), ip0)
+                ue, ud = set_inputs(len(form.variables), N0, N1, device,
+                                    dtype, gen, stage)
+                args = (form, ue, ud, sc, tab, geo, jac_idx, stage)
+                out = fs.set_node_full(*args)
+                ref = fs.set_node_full_plain(*args)
+                torch.cuda.synchronize()
+                errs = [max_err(o, r) for o, r in zip(out, ref)]
+                err = max(e for e, _ in errs)
+                ok = all(e <= rtol * sc_ for e, sc_ in errs)
+                nbytes, nflops = set_work(N0, N1, dtype, *args)
+                rec = {"phase": "kernels_set", "kernel": "set_node_full",
+                       "case": name, "dtype": str(dtype).replace(
+                           "torch.", ""), "shape": [N0, N1],
+                       "variables": list(form.variables),
+                       "jac_rows": len(jac_idx), "max_abs_err": err,
+                       "max_abs_err_res": errs[0][0],
+                       "max_abs_plain_res": errs[0][1],
+                       "max_abs_err_jac": errs[1][0],
+                       "max_abs_plain_jac": errs[1][1], "rtol": rtol,
+                       "ok": ok,
+                       "ms": cuda_ms(lambda: fs.set_node_full(*args)),
+                       "plain_ms": cuda_ms(
+                           lambda: fs.set_node_full_plain(*args), reps=5),
+                       **bound(nbytes, nflops, dtype)}
+                rec["share"] = rec["bound_ms"] / rec["ms"]
+                emit(rec)
+                if not ok:
+                    raise SystemExit(f"set_node_full {name} disagrees with "
+                                     f"its plain version: {rec}")
+                if dtype == torch.float64 and i == 0 and summary is None:
+                    summary = rec
+    return summary
+
+
 def ns_rows(pspg, supg, transient, visc_varies, mesh="p1"):
     """The provider's row classification (jac_idx) of a channel call with
     these switches on p1 quads, hex or p2 quads, from a small deck's
@@ -629,8 +909,6 @@ SOURCE3_T_NL = (
 # the JAX package's f64 CPU L2(e) of the B1 decks (ROADMAP's reference
 # tables): hex at 80^3, 64^3 and 48^3; p2 at 256^2 and 128^2 (their error
 # falls 8.0x per halving of h from 64^2, so it is no solver noise)
-HEX_NL_L2 = 0.0002840068798427259
-HEX_DIRK22_L2 = 0.0004936068749104585
 HEX_BDF2_NL_L2 = 0.0007306455172806904
 P2_DEFAULT_L2 = 5.029830565509573e-08
 P2_NL_L2 = 4.023729085365165e-07
@@ -774,10 +1052,12 @@ CDR_DECKS = {
                                      "state", 0.0010168969905621037),
     "thermal_advection_nx512": (thermal_advection_deck, 512, 0.0, "e",
                                 "state", 6.21086759188614e-06),
-    "cdr_hex_nx64": (
+    # cut from 64^3 for the script's time (its JAX CPU set-up / solve:
+    # 13 / 28 s at 48^3)
+    "cdr_hex_nx48": (
         lambda n: cdr_deck(n, CDR3_SOURCE, vel=("2.0", "1.0", "0.5"),
-                           mesh="hex"), 64, 0.0, "c", "elem_state",
-        0.0002823910949256673),
+                           mesh="hex"), 48, 0.0, "c", "elem_state",
+        0.0005020578959662423),
     "cdr_hex_nonlinear_nx48": (
         lambda n: cdr_deck(n, CDR3_SOURCE_NL, "0.5*c*c",
                            ("2.0", "1.0", "0.5"), "hex"), 48, 0.0, "c",
@@ -790,11 +1070,25 @@ CDR_DECKS = {
 }
 
 
-# the hex kappa = 1 deck as CDR_DECKS holds its decks, at 64^3 (cut from
-# 96^3, then 80^3, for the script's time: its host set-up took 70-102 s at
-# 96^3 and 51 s at 80^3)
-HEX_DEFAULT = (lambda n: hex_deck(n, solver={"nonlinear TOL": 1e-10}), 64,
-               0.0, "e", "elem_state", 0.00028398604351215673)
+# the hex decks of kappa = 1, kappa = 1 + e*e and DIRK-2,2 as CDR_DECKS
+# holds its decks, at 48^3: cut from 64^3 for the script's time (23-31 s
+# of host set-up each there; 96^3, then 80^3, before), with their JAX
+# references at 48^3 (set-up / solve s on the CPU: 14 / 12, 13 / 57,
+# 13 / 51)
+HEX_DECKS = {
+    "hex_default_nx48": (
+        lambda n: hex_deck(n, solver={"nonlinear TOL": 1e-10}), 48, 0.0,
+        "e", "elem_state", 0.0005048855889645018),
+    "hex_nonlinear_nx48": (
+        lambda n: hex_deck(n, "1.0 + e*e", SOURCE3_NL,
+                           {"nonlinear TOL": 1e-10, "Belos solver": "CG"}),
+        48, 0.0, "e", "elem_full", 0.0005049514178661428),
+    "hex_transient_dirk22_nx48": (
+        lambda n: hex_transient_deck(n, {
+            "transient Butcher tableau": "DIRK-2,2", "final time": 0.4,
+            "number of steps": 8, "nonlinear TOL": 1e-10}),
+        48, 0.4, "e", "elem_state", 0.0003546438045404958),
+}
 
 
 ELEM_SHAPES = (("hex", (128, 128, 128)), ("hex", (127, 100, 77)),
@@ -943,8 +1237,10 @@ def phase_elem_kernels(device):
 
 
 # the B1 Navier-Stokes kernel on the channel [0,5]x[0,1](x[0,1])
-NS_ELEM_SHAPES = (("hex", (64, 64, 64)), ("hex", (61, 47, 29)),
-                  ("p2", (512, 128)), ("p2", (500, 121)))
+# the non-divisible shapes are cut from 61x47x29 and 500x121 (PR 6) for
+# the script's time: the plain version takes 0.3-1.0 s a call there
+NS_ELEM_SHAPES = (("hex", (64, 64, 64)), ("hex", (31, 23, 15)),
+                  ("p2", (512, 128)), ("p2", (250, 61)))
 CHANNEL = (5.0, 1.0, 1.0)
 
 
@@ -969,8 +1265,9 @@ def phase_ns_elem_kernels(device, shapes=NS_ELEM_SHAPES):
     CUDA-event medians of 20 (kernel) and 5 (plain) and the bound of each
     case: PSPG steady with viscosity 1 and 0.1 + 0.01 x, PSPG+SUPG at
     DIRK-2,2 stage-1 alphas (0.5, 200) with seeded u_dot; each record
-    gives the share of the bound the kernel reaches. Returns the quoted
-    case: f64, hex 64^3, the stage."""
+    gives the share of the bound the kernel reaches. The plain version's
+    time is that of its one call, the check's (CUDA events). Returns the
+    quoted case: f64, hex 64^3, the stage."""
     from mrhyde_tpu_torch.ops import fused_ns as fn
     from mrhyde_tpu_torch.ops.fused_p1 import Stage
     rows = {(mesh, key): ns_rows(True, key == "stage", key == "stage",
@@ -998,7 +1295,7 @@ def phase_ns_elem_kernels(device, shapes=NS_ELEM_SHAPES):
                   rows[mesh, "stage"], st1)),
             ]
             for label, args in cases:
-                ref = fn.ns_elem_full_plain(*args)
+                ref, plain_ms = timed(lambda: fn.ns_elem_full_plain(*args))
                 out = fn.ns_elem_full(*args)
                 torch.cuda.synchronize()
                 errs = [max_err(o, r) for o, r in zip(out, ref)]
@@ -1016,9 +1313,7 @@ def phase_ns_elem_kernels(device, shapes=NS_ELEM_SHAPES):
                        "max_abs_plain_jac": errs[1][1], "rtol": rtol,
                        "ok": ok,
                        "ms": cuda_ms(lambda: fn.ns_elem_full(*args)),
-                       "plain_ms": cuda_ms(
-                           lambda: fn.ns_elem_full_plain(*args), reps=5,
-                           warm=False),
+                       "plain_ms": plain_ms,
                        **bound(nbytes, nflops, dtype)}
                 rec["share"] = rec["bound_ms"] / rec["ms"]
                 emit(rec)
@@ -1261,12 +1556,14 @@ def elem_work(kernel, grid, dims, tab, dtype, kappa, stage,
 class _OpCount(TorchDispatchMode):
     """Counts the distinct arithmetic operations on tensors run under it,
     one per element of a (2,)-shaped result: a multiply, an add, a
-    divide and a square root are one each (an FMA two); an operation on
+    divide, a square root and an elementary function (sin, exp, max,
+    ...) are one each (an FMA two); an operation on
     tensors alone (b * b, sqrt(b)) counts once however often it recurs;
     negating, multiplying or dividing by 1, -1 or 0 and adding 0 are
     free, as are selects and copies."""
     ARITH = {"add", "sub", "rsub", "mul", "div", "reciprocal", "sqrt",
-             "rsqrt", "pow"}
+             "rsqrt", "pow", "sin", "cos", "tan", "exp", "log", "sinh",
+             "cosh", "tanh", "atan2", "abs", "maximum", "minimum"}
 
     def __init__(self):
         super().__init__()
@@ -1393,6 +1690,56 @@ def ns_elem_work(dims, dtype, args):
     return nbytes, E * ns_ops(tab, nc, coeffs, form, stage)
 
 
+_SET_OPS = {}
+
+
+def set_ops(form, tab, sc, stage):
+    """Operations per element of one set_node_full call, as ns_ops
+    counts them: the set's accumulation (fused_set's plain version, the
+    JAX package's sparse forward AD) on one element's stand-ins, with
+    stand-ins for the coordinates of each qp (a coefficient that reads x
+    or y differs at every qp). Cached per (form, scalars, alphas)."""
+    from types import SimpleNamespace
+    from mrhyde_tpu_torch.ops import fused_set as fs
+    from mrhyde_tpu_torch.ops.fused_ns import accumulate_density
+    key = (form.source, form.h == 1.0, sc, None if stage is None
+           else (stage.alpha_u, stage.alpha_t))
+    if key in _SET_OPS:
+        return _SET_OPS[key]
+    gen = torch.Generator().manual_seed(97)
+
+    def standin():
+        return torch.rand(2, generator=gen, dtype=torch.float64) + 0.5
+    steady = stage is None
+    nv, Q = len(form.variables), tab.Q
+    ue = [[standin() for _ in range(4)] for _ in range(nv)]
+    ud = [[0.0 if steady else standin() for _ in range(4)]
+          for _ in range(nv)]
+    xy = [[standin(), standin()] for _ in range(Q)]
+    folded = SimpleNamespace(Q=Q, dim=2, phi=tab.phi, grad=tab.grad,
+                             wts=[1.0] * Q)
+    with _OpCount() as count:
+        accumulate_density(ue, ud, fs._density(form, lambda q: xy[q], sc),
+                           folded, 1.0 if steady else stage.alpha_u,
+                           0.0 if steady else stage.alpha_t, steady)
+    _SET_OPS[key] = count.ops
+    return count.ops
+
+
+def set_work(N0, N1, dtype, form, ue, ud, sc, tab, geo, jac_idx,
+             stage=None):
+    """(bytes, flops) of one set_node_full call: the grids of all
+    variables (and the u_dot ones) read once, the node residual and the
+    varying Jacobian rows written once; set_ops per element, and the
+    adds of the residual's scatter to the nodes."""
+    nv = len(form.variables)
+    nodes, E = (N0 + 1) * (N1 + 1), N0 * N1
+    it = torch.finfo(dtype).bits // 8
+    nbytes = it * (nv * nodes * (3 if ud is not None else 2)
+                   + len(jac_idx) * E)
+    return nbytes, E * set_ops(form, tab, sc, stage) + nv * (4 * E - nodes)
+
+
 def assembly_tc(problem, u, time):
     """The TimeCoeffs of one timed assembly at state u: a steady call, or
     for a transient deck a BWE stage of its step size seeded from u."""
@@ -1406,7 +1753,7 @@ def assembly_tc(problem, u, time):
                       float(time), dt)
 
 
-def run_deck(name, cfg, device, checks, mode):
+def run_deck(name, cfg, device, checks, mode, post=None):
     """Runs one deck through Problem(cfg).run() and checks its L2 errors:
     `checks` lists (time, var, reference, rtol). One assembly at the zero
     state runs before the timer (`warmup_s`, set-up: the first use of the
@@ -1423,7 +1770,10 @@ def run_deck(name, cfg, device, checks, mode):
     "elem_full") follows the thermal rule with the element kernels (B1)
     and launches no node kernel (B2); a 2D p1 deck no element kernel. A
     hex or p2 NS deck ("ns_elem_full") launches ns_elem_full once per
-    fused res_and_jac call and no other kernel."""
+    fused res_and_jac call and no other kernel, and so does a module-set
+    deck ("set_node_full") its generated kernel. post(problem, result),
+    where given, returns more of the record, its "ok" joining the
+    deck's."""
     from mrhyde_tpu_torch.ops import fused_p1 as fp
     from mrhyde_tpu_torch.problem import Problem
     torch.cuda.synchronize()
@@ -1467,11 +1817,12 @@ def run_deck(name, cfg, device, checks, mode):
         asm.res_and_jac(u, tc)
         torch.cuda.synchronize()
         asm_ms.append((time.perf_counter() - ta) * 1e3)
+    extra = post(problem, result) if post else {}
     ok = (all(abs(e["L2"] - e["L2_ref"]) <= e["rtol"] * abs(e["L2_ref"])
-              for e in errors)
+              for e in errors) and extra.pop("ok", True)
           and u.shape == (problem.n_dof,) and bool(torch.isfinite(u).all())
           and u.device.type == torch.device(device).type)
-    rec = {"phase": name, "n_dof": problem.n_dof,
+    rec = {"phase": name, "n_dof": problem.n_dof, **extra,
            "linear_method": problem._linear_method(), "errors": errors,
            "recorded_times": len(result.error_history), **result.counts,
            "setup_s": t1 - t0, "warmup_s": t2 - t1, "solve_s": t3 - t2,
@@ -1497,6 +1848,40 @@ def run_deck(name, cfg, device, checks, mode):
     return launches
 
 
+def run_boussinesq(device):
+    """The Boussinesq deck at beta = 1 and 0: max |ux| at beta = 1 equals
+    the JAX package's to rtol 1e-8, and at beta = 0 it is below 1e-3 of
+    that (no thermal forcing, as tests/test_flow.py:63-98 checks)."""
+    maxu = {}
+
+    def post(beta):
+        def check(problem, result):
+            dofs = torch.as_tensor(problem.disc.dofmap.all_dofs("ux"),
+                                   device=result.u.device)
+            m = maxu[beta] = float(result.u[dofs].abs().max())
+            ok = abs(m - BOUSSINESQ_MAXU) <= 1e-8 * BOUSSINESQ_MAXU \
+                if beta else m < 1e-3 * maxu[1.0]
+            return {"max_ux": m, "max_ux_ref": BOUSSINESQ_MAXU if beta
+                    else 1e-3 * maxu[1.0], "ok": ok}
+        return check
+    return [run_deck(f"boussinesq_gold_nx8_beta{b:g}", boussinesq_deck(8, b),
+                     device, [], "set_node_full", post(b))
+            for b in (1.0, 0.0)]
+
+
+def set_sources():
+    """The generated kernel sources of phase 3f's cases and the module-set
+    decks (each deck's weak form at 4 x 4 on the CPU: the source does not
+    depend on the mesh), to build before any of them runs."""
+    from mrhyde_tpu_torch.problem import Problem
+    texts = [set_case(name, 1.0)[0].source for name in SET_KERNEL_CASES]
+    for build in [boussinesq_deck] + [b for b, *_ in SET_DECKS.values()]:
+        fused = Problem(build(4), device="cpu", dtype=torch.float64) \
+            .assembler.fused_provider()
+        texts.append(fused.form.source)
+    return list(dict.fromkeys(texts))
+
+
 def main():
     if not torch.cuda.is_available():
         print("chip_smoke: torch.cuda.is_available() is False",
@@ -1510,20 +1895,32 @@ def main():
           "count": torch.cuda.device_count(), "torch": torch.__version__,
           "cuda": torch.version.cuda})
 
+    from concurrent.futures import ThreadPoolExecutor
     from mrhyde_tpu_torch.ops import _build
     from mrhyde_tpu_torch.ops import fused_p1 as fp
     t0 = time.perf_counter()
-    _build.load_library()
+    texts = set_sources()
+    t1 = time.perf_counter()
+    # every nvcc at once: the csrc/*.cu libraries and the generated ones
+    with ThreadPoolExecutor(1) as pool:
+        gen = pool.submit(_build.build_generated, texts)
+        _build.load_library()
+        gen_logs = gen.result()
+
+    def ptxas(log):
+        return [ln for ln in log.splitlines() if "registers" in ln
+                or "spill" in ln or "Compiling entry" in ln]
     emit({"phase": "build", "seconds": time.perf_counter() - t0,
-          "ptxas": [ln for ln in _build.build_log().splitlines()
-                    if "registers" in ln or "spill" in ln
-                    or "Compiling entry" in ln]})
+          "sources_s": t1 - t0, "generated": len(texts),
+          "ptxas": ptxas(_build.build_log()),
+          "ptxas_generated": {k: ptxas(v) for k, v in gen_logs.items()}})
 
     summary = phase_kernels(device)
     summary["ns_node_full"] = phase_ns_kernels(device)
     summary.update(phase_elem_kernels(device))
     advect = phase_advect_kernels(device)
     summary["ns_elem_full"] = phase_ns_elem_kernels(device)
+    summary["set_node_full"] = phase_set_kernels(device)
 
     per_deck = [
         run_deck("gold_nx40", deck(40), device,
@@ -1567,19 +1964,9 @@ def main():
          for n, (rtol, refs) in NS_STARTUP.items()] + [
         run_deck("hex_gold_nx10", hex_deck(10), device,
                  [(0.0, "e", 0.0116656, 2e-5)], "elem_state"),
-        run_deck(f"hex_default_nx{HEX_DEFAULT[1]}",
-                 HEX_DEFAULT[0](HEX_DEFAULT[1]), device,
-                 [(0.0, "e", HEX_DEFAULT[5], 1e-4)], "elem_state"),
-        run_deck("hex_nonlinear_nx64",
-                 hex_deck(64, "1.0 + e*e", SOURCE3_NL,
-                          {"nonlinear TOL": 1e-10, "Belos solver": "CG"}),
-                 device, [(0.0, "e", HEX_NL_L2, 1e-4)], "elem_full"),
-        run_deck("hex_transient_dirk22_nx64",
-                 hex_transient_deck(64, {
-                     "transient Butcher tableau": "DIRK-2,2",
-                     "final time": 0.4, "number of steps": 8,
-                     "nonlinear TOL": 1e-10}),
-                 device, [(0.4, "e", HEX_DIRK22_L2, 1e-4)], "elem_state"),
+    ] + [
+        run_deck(name, build(n), device, [(t, var, ref, 1e-4)], mode)
+        for name, (build, n, t, var, mode, ref) in HEX_DECKS.items()] + [
         run_deck("hex_transient_nonlinear_bdf2_nx48",
                  hex_transient_deck(48, BDF2_SOLVER, "1.0 + e*e",
                                     SOURCE3_T_NL),
@@ -1602,6 +1989,11 @@ def main():
         run_deck(name, build(n), device, [(t, var, ref, 1e-4)], mode)
         for name, (build, n, t, var, mode, ref) in CDR_DECKS.items()]
     per_deck += advect_decks
+    per_deck += run_boussinesq(device) + [
+        run_deck(name, build(n), device,
+                 [(t, v, g, rtol) for t, ref in refs.items()
+                  for v, g in ref.items()], "set_node_full")
+        for name, (build, n, rtol, refs) in SET_DECKS.items()]
     launches = {k: sum(d[k] for d in per_deck) for k in fp.LAUNCHES}
     advect_launches = {k: sum(d[k] for d in advect_decks)
                        for k in fp.LAUNCHES}
@@ -1619,7 +2011,7 @@ def main():
     csrc = "mrhyde_tpu_torch/ops/csrc/"
     kernels = []
     # no single PyTorch call computes a node-scatter or an element-tile
-    # assembly: library_ms is null for all six. The four thermal kernels
+    # assembly: library_ms is null for all seven. The four thermal kernels
     # report their advection (ADVECT) case and its launches beside: the
     # cdr and thermal-advection decks' share of `launches`.
     for name, mode, src, line in (
@@ -1630,7 +2022,8 @@ def main():
              1303),
             ("thermal_elem_full", "elem_full", "fused_elem_thermal.cu",
              1303),
-            ("ns_elem_full", "ns_elem_full", "fused_elem_ns.cu", 1303)):
+            ("ns_elem_full", "ns_elem_full", "fused_elem_ns.cu", 1303),
+            ("set_node_full", "set_node_full", "set_node.cuh", 1350)):
         rec = summary[name]
         kernels.append({"name": name, "route": "cuda", "source": csrc + src,
                         "replaces": f"mrhyde_tpu/ops/fused_p1.py:{line}",

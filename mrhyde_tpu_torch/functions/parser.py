@@ -7,7 +7,10 @@ variable names, grad(u)[x], u_t, parameter and function names). The AST
 is the same; only the evaluator differs: tensors go through torch ops,
 and an expression that reads no array leaf stays a Python float, as
 constant expressions stay Python scalars in JAX. The fused assembly
-classifies Jacobian and residual rows by exactly that.
+classifies Jacobian and residual rows by exactly that. The sparse dual
+numbers of ops/sparse_dual.py go through their own rules (the JAX
+package's sparse forward AD), so a module set's plain version
+differentiates a coefficient that reads the state as JAX's kernel does.
 """
 
 from __future__ import annotations
@@ -18,6 +21,8 @@ from dataclasses import dataclass
 
 import numpy as np
 import torch
+
+from mrhyde_tpu_torch.ops.sparse_dual import BINARY, UNARY, SDual, value
 
 __all__ = ["parse_expression", "Expr"]
 
@@ -38,8 +43,10 @@ def _scalar(v):
     return np.float64(v)
 
 
-def _unary(tfn, nfn):
+def _unary(tfn, nfn, name=None):
     def op(v):
+        if isinstance(v, SDual):
+            return UNARY[name](v)
         if isinstance(v, torch.Tensor):
             return tfn(v)
         with np.errstate(all="ignore"):
@@ -47,8 +54,10 @@ def _unary(tfn, nfn):
     return op
 
 
-def _binary(tfn, nfn):
+def _binary(tfn, nfn, name):
     def op(a, b):
+        if isinstance(a, SDual) or isinstance(b, SDual):
+            return BINARY[name](a, b)
         if isinstance(a, torch.Tensor) or isinstance(b, torch.Tensor):
             ref = a if isinstance(a, torch.Tensor) else b
             a = torch.as_tensor(a, dtype=ref.dtype, device=ref.device)
@@ -67,28 +76,27 @@ def _ereduce(tfn):
     return op
 
 
-_FUNCS = {
-    "sin": _unary(torch.sin, np.sin), "cos": _unary(torch.cos, np.cos),
-    "tan": _unary(torch.tan, np.tan), "exp": _unary(torch.exp, np.exp),
-    "log": _unary(torch.log, np.log), "sqrt": _unary(torch.sqrt, np.sqrt),
-    "abs": _unary(torch.abs, np.abs), "sinh": _unary(torch.sinh, np.sinh),
-    "cosh": _unary(torch.cosh, np.cosh),
-    "tanh": _unary(torch.tanh, np.tanh),
+_FUNCS = {name: _unary(getattr(torch, name), getattr(np, name), name)
+          for name in ("sin", "cos", "tan", "exp", "log", "sqrt", "abs",
+                       "sinh", "cosh", "tanh")}
+_FUNCS.update({
     "emax": _ereduce(torch.amax), "emin": _ereduce(torch.amin),
     "emean": _ereduce(torch.mean),
-}
+})
 _FUNCS2 = {
-    "min": _binary(torch.minimum, np.minimum),
-    "max": _binary(torch.maximum, np.maximum),
-    "pow": _binary(torch.pow, np.power),
-    "atan2": _binary(torch.atan2, np.arctan2),
+    "min": _binary(torch.minimum, np.minimum, "min"),
+    "max": _binary(torch.maximum, np.maximum, "max"),
+    "pow": _binary(torch.pow, np.power, "pow"),
+    "atan2": _binary(torch.atan2, np.arctan2, "atan2"),
     # binary average (reference op 'mean': data = 0.5 data + 0.5 arg)
     "mean": lambda a, b: 0.5 * (a + b),
 }
 
 
 def _compare(a, b, less):
-    """Reference lt/gt: 1.0 where the comparison holds, else 0.0."""
+    """Reference lt/gt: 1.0 where the comparison holds, else 0.0 (no
+    tangent, as jnp.where of two constants has none)."""
+    a, b = value(a), value(b)
     if not isinstance(a, torch.Tensor) and not isinstance(b, torch.Tensor):
         return 1.0 if (a < b if less else a > b) else 0.0
     ref = a if isinstance(a, torch.Tensor) else b

@@ -1,5 +1,5 @@
 """Launch helpers shared by the kernel wrappers of ops/fused_p1.py,
-ops/fused_ns.py and ops/fused_elem.py: the launch counts, the pointer and
+ops/fused_ns.py, ops/fused_elem.py and ops/fused_set.py: the launch counts, the pointer and
 stream arguments, and the scalar-or-(E, Q) coefficient, stage and
 velocity arguments of the C entry points (ops/_build.py)."""
 
@@ -14,11 +14,12 @@ __all__ = ["LAUNCHES", "ptr", "stream", "check_qp", "coeff_args",
 
 # kernel launches per kernel: thermal "state" and "full" (B2,
 # ops/fused_p1.py), the Navier-Stokes "full" kernels (B2 "ns_full" and B1
-# "ns_elem_full", ops/fused_ns.py) and the thermal element kernels (B1,
-# ops/fused_elem.py); each wrapper adds one where it launches; reset by
-# whoever wants to count a run
+# "ns_elem_full", ops/fused_ns.py), the thermal element kernels (B1,
+# ops/fused_elem.py) and the generated module-set kernel (B2
+# "set_node_full", ops/fused_set.py); each wrapper adds one where it
+# launches; reset by whoever wants to count a run
 LAUNCHES = {"state": 0, "full": 0, "ns_full": 0, "elem_state": 0,
-            "elem_full": 0, "ns_elem_full": 0}
+            "elem_full": 0, "ns_elem_full": 0, "set_node_full": 0}
 
 
 def ptr(t):

@@ -1,7 +1,13 @@
 // The Navier-Stokes qp weak form of the port's kernels (fused_p1_ns.cu in
-// 2D, fused_elem_ns.cu on hex and p2): ns_density of
-// mrhyde_tpu_torch/physics/navierstokes.py, written once over its scalar
-// type S, a plain T or a Dual<T, N> of dual.cuh.
+// 2D, fused_elem_ns.cu on hex and p2, set_node.cuh for module sets):
+// ns_density of mrhyde_tpu_torch/physics/navierstokes.py, written once
+// over its scalar type S, a plain T or a Dual<T, N> of dual.cuh. The
+// coefficients are of type C: T (the default) where they read no state,
+// S where one does (a module set's kernel, whose coefficients are
+// generated). BUOY adds the Boussinesq term buoy source_d of an NS +
+// thermal set to the momentum equations and their strong residuals
+// (buoy = rho beta (e - T_ambient)); the defaults compile to the code of
+// the NS kernels.
 
 #pragma once
 
@@ -14,13 +20,13 @@ namespace {
 // variables (ux, uy[, uz], pr: pressure last); rho, visc, src the
 // coefficients there. Steady: no u_dot terms (the JAX kernel's steady
 // specialization, u_dot = 0).
-template <bool TR, int DIM, typename S>
+template <bool TR, int DIM, typename S,
+          typename C = typename Passive<S>::type, bool BUOY = false>
 __device__ __forceinline__ void ns_density(
-    S u[DIM + 1], S ud[DIM + 1], S g[DIM + 1][DIM],
-    typename Passive<S>::type rho, typename Passive<S>::type visc,
-    const typename Passive<S>::type src[DIM], typename Passive<S>::type h,
+    S u[DIM + 1], S ud[DIM + 1], S g[DIM + 1][DIM], C rho, C visc,
+    const C src[DIM], typename Passive<S>::type h,
     typename Passive<S>::type tau_dt2, bool pspg, bool supg,
-    S out[(DIM + 1) * (DIM + 1)]) {
+    S out[(DIM + 1) * (DIM + 1)], S buoy = S()) {
   using T = typename Passive<S>::type;
   constexpr int NV = DIM + 1;
   S conv[DIM], F[DIM][DIM];
@@ -32,6 +38,7 @@ __device__ __forceinline__ void ns_density(
     S m = conv[i] - src[i];
     if constexpr (TR) m = (ud[i] + conv[i]) - src[i];
     out[i] = rho * m;
+    if constexpr (BUOY) out[i] = out[i] + buoy * src[i];
 #pragma unroll
     for (int k = 0; k < DIM; ++k) F[i][k] = visc * g[i][k];
     F[i][i] = F[i][i] - u[DIM];
@@ -49,7 +56,7 @@ __device__ __forceinline__ void ns_density(
     for (int d = 1; d < DIM; ++d) u2 = u2 + u[d] * u[d];
     // |u| takes the u2 branch at rest: sqrt is never differentiated at 0
     const S nvel = value(u2) > T(1e-12) ? dsqrt(u2) : u2;
-    const T a = T(4) * visc / (h * h);
+    const C a = T(4) * visc / (h * h);
     const S b = T(2) * nvel / h;
     const S tau = T(1) / dsqrt((b * b + a * a) + tau_dt2);
     S stab[DIM];
@@ -58,6 +65,7 @@ __device__ __forceinline__ void ns_density(
       S s = rho * conv[i] + g[DIM][i];
       if constexpr (TR) s = (rho * ud[i] + rho * conv[i]) + g[DIM][i];
       stab[i] = s - rho * src[i];
+      if constexpr (BUOY) stab[i] = stab[i] + buoy * src[i];
     }
     if (supg) {
 #pragma unroll

@@ -48,8 +48,7 @@ from mrhyde_tpu_torch.ops.fused_p1 import (
     QUAD_P1, QpCtx, Stage, _check_grid, _scalar, qp_coords, steady_check,
     structured_geometry)
 from mrhyde_tpu_torch.ops.sparse_dual import sparse_jacfwd
-from mrhyde_tpu_torch.physics.navierstokes import (NS_REMAINDER,
-                                                   NavierStokes, ns_density)
+from mrhyde_tpu_torch.physics.navierstokes import NS_REMAINDER, ns_density
 
 __all__ = ["FusedNSAssembly", "NSForm", "ns_node_full", "ns_node_full_plain",
            "ns_elem_full", "ns_elem_full_plain", "accumulate", "COEFFS"]
@@ -85,18 +84,18 @@ class NSForm(NamedTuple):
 # the weak form accumulation (JAX's FusedP1Assembly._accumulate, "full")
 # ----------------------------------------------------------------------
 
-def accumulate(ue, ud, coeff_at, tab, form, alpha_u, alpha_t, steady):
-    """(res, jac): flat lists of nd and nd*nd entries (nd = (dim + 1)
-    nc), each None (structural zero), a Python float
-    (element-independent) or a tensor shaped like the inputs
-    (element-varying). ue[v][c], ud[v][c]: values of local dof c of
-    u_eval and u_dot per variable (ux, uy[, uz], pr); coeff_at(q) ->
-    (rho, visc, [src per velocity]) at quadrature point q. Row k = row
-    nd + col, row = v nc + c, col = w nc + c'."""
+def accumulate_density(ue, ud, density, tab, alpha_u, alpha_t, steady):
+    """(res, jac) of any qp density (JAX's `_accumulate`, mode "full"):
+    flat lists of nd and nd*nd entries (nd = nv nc), each None
+    (structural zero), a Python float (element-independent) or a tensor
+    shaped like the inputs (element-varying). ue[v][c], ud[v][c]: values
+    of local dof c of u_eval and u_dot per variable; density(q, u, ud, g)
+    -> [S_v for v] + [F_v,d for v for d] at quadrature point q from the
+    per-variable value, u_dot and gradient list. Row k = row nd + col,
+    row = v nc + c, col = w nc + c'."""
     Q, dim = tab.Q, tab.dim
     nv, nc = len(ue), len(ue[0])
     nd = nv * nc
-    names = VARS[:dim] + ("pr",)
     phi, grad, wts = tab.phi, tab.grad, tab.wts
     off_g = nv * (1 if steady else 2)
     res = [None] * nd
@@ -112,7 +111,6 @@ def accumulate(ue, ud, coeff_at, tab, form, alpha_u, alpha_t, steady):
                for v in range(nv)]
         gq = [[sum(grad[c][q][d] * ue[v][c] for c in range(nc))
                for d in range(dim)] for v in range(nv)]
-        rho, visc, src = coeff_at(q)
         z0 = (uq + ([] if steady else udq)
               + [gq[v][d] for v in range(nv) for d in range(dim)])
 
@@ -121,12 +119,7 @@ def accumulate(ue, ud, coeff_at, tab, form, alpha_u, alpha_t, steady):
             ud_ = [0.0] * nv if steady else z[nv:2 * nv]
             g_ = [[z[off_g + v * dim + d] for d in range(dim)]
                   for v in range(nv)]
-            out = ns_density(u_[:dim], ud_[:dim], g_[:dim], u_[dim],
-                             g_[dim], rho, visc, src, form.h, form.deltat,
-                             form.transient, form.pspg, form.supg)
-            S = [out[v][0] for v in names]
-            F = [out[v][1] or [0.0] * dim for v in names]
-            return S + [F[v][d] for v in range(nv) for d in range(dim)]
+            return density(q, u_, ud_, g_)
 
         out0, D = sparse_jacfwd(f, z0)
         w = float(wts[q])
@@ -172,6 +165,27 @@ def accumulate(ue, ud, coeff_at, tab, form, alpha_u, alpha_t, steady):
     return res, jac
 
 
+def accumulate(ue, ud, coeff_at, tab, form, alpha_u, alpha_t, steady):
+    """(res, jac) of the NS weak form (`accumulate_density` on
+    `ns_density`). ue[v][c], ud[v][c]: values of local dof c of u_eval
+    and u_dot per variable (ux, uy[, uz], pr); coeff_at(q) -> (rho, visc,
+    [src per velocity]) at quadrature point q."""
+    dim = tab.dim
+    nv = len(ue)
+    names = VARS[:dim] + ("pr",)
+
+    def density(q, u_, ud_, g_):
+        rho, visc, src = coeff_at(q)
+        out = ns_density(u_[:dim], ud_[:dim], g_[:dim], u_[dim], g_[dim],
+                         rho, visc, src, form.h, form.deltat,
+                         form.transient, form.pspg, form.supg)
+        S = [out[v][0] for v in names]
+        F = [out[v][1] or [0.0] * dim for v in names]
+        return S + [F[v][d] for v in range(nv) for d in range(dim)]
+    return accumulate_density(ue, ud, density, tab, alpha_u, alpha_t,
+                              steady)
+
+
 def _is_varying(v):
     return isinstance(v, torch.Tensor) and v.dim() >= 1
 
@@ -197,6 +211,68 @@ def _check_classes(jac, jac_idx):
     for k, v in enumerate(jac):
         if k not in wanted and _is_varying(v):
             raise AssertionError(f"jac[{k}] probe/kernel class mismatch")
+
+
+def classify_probes(probe):
+    """(jac_idx, jac constants, n_res) from JAX's double probe:
+    probe(salt) -> (res, jac) of the accumulation on (2,)-shaped
+    stand-ins. An entry is element-varying iff it comes back as a
+    tensor; a second probe with shifted stand-ins must agree, and the
+    constants must not move with the stand-ins."""
+    res1, jac1 = probe(0.0)
+    res2, jac2 = probe(0.293)
+    idx = [tuple(k for k, v in enumerate(p) if _is_varying(v))
+           for p in (res1, jac1, res2, jac2)]
+    if idx[0] != idx[2] or idx[1] != idx[3]:
+        raise AssertionError(
+            "fused-path probe classification depends on dummy values "
+            f"(res {idx[0]} vs {idx[2]}; jac {idx[1]} vs {idx[3]})")
+    for k, (a, b) in enumerate(zip(jac1, jac2)):
+        if k not in idx[1] and a is not None and \
+                abs(float(a) - float(b)) > 1e-6 * (1.0 + abs(float(a))):
+            raise AssertionError(
+                f"jac[{k}] classified constant but its probe value "
+                "depends on element data")
+    consts = [None if (k in idx[1] or v is None) else float(v)
+              for k, v in enumerate(jac1)]
+    return idx[1], consts, len(idx[0])
+
+
+def rows_of(jac_idx, consts, jac, nd, dtype, device):
+    """The nd*nd row entries: the kernel's varying rows, the probe's
+    constants (one host-to-device copy) and None."""
+    cvals = [c for c in consts if c is not None]
+    ct = iter(torch.tensor(cvals, dtype=dtype, device=device).unbind(0)) \
+        if cvals else iter(())
+    pos = {k: i for i, k in enumerate(jac_idx)}
+    rows = []
+    for k in range(nd * nd):
+        if k in pos:
+            rows.append(jac[pos[k]])
+        elif consts[k] is None:
+            rows.append(None)
+        else:
+            rows.append(next(ct))
+    return rows
+
+
+class StageCache:
+    """The JAX package's _steady_check, once per stage: a stage is its
+    TimeCoeffs' beta tensors (identity and version, held here), alphas,
+    time and time step."""
+
+    def __init__(self):
+        self._entry = None
+
+    def is_steady(self, tc):
+        if tc.is_steady:
+            return True
+        key = (id(tc.beta_u), tc.beta_u._version, id(tc.beta_t),
+               tc.beta_t._version, float(tc.alpha_u), float(tc.alpha_t),
+               float(tc.time), float(tc.deltat))
+        if self._entry is None or self._entry[0] != key:
+            self._entry = (key, (tc.beta_u, tc.beta_t), steady_check(tc))
+        return self._entry[2]
 
 
 def _stack_rows(entries, idx, E, like):
@@ -488,19 +564,17 @@ class FusedNSAssembly:
                              for n in self.coeff_names)
         self._probes = {}
         self._coef_cache = None
-        self._steady_cache = None
+        self._stage = StageCache()
         self.stats = {"steady": True, "split": False, "n_res_rows": self.nd,
                       "n_jac_rows": 0, "node_scatter": self.node}
 
     @staticmethod
     def build(asm):
-        if len(asm.modules) != 1:
-            names = [m.name for m in asm.modules]
-            if "thermal" in names:
-                NavierStokes.reject_energy()
-            raise NotImplementedError(
-                f"navier stokes with other modules ({names}) is not ported "
-                f"to mrhyde_tpu_torch yet (ROADMAP {NS_REMAINDER})")
+        """The NS provider of a qualifying deck; on 2D p1 quads, the
+        module-set provider (ops/fused_set.py) for NS in a set or with a
+        coefficient that reads the state, which raise NotImplementedError
+        on hex and p2 quads; None where the deck takes the general
+        path."""
         disc = asm.disc
         cell = disc.mesh.cell_type
         s = asm._structured
@@ -511,18 +585,31 @@ class FusedNSAssembly:
         if not (kinds == {"p1"} and cell in ("quad", "hex")
                 or kinds == {"p2"} and cell == "quad"):
             return None
+        reads = []
         for name in COEFFS[:2 + len(s["dims"])]:
             for leaf in asm.fm.terminal_leaves(name):
-                state = (leaf in disc.var_names or leaf.startswith("grad(")
-                         or (leaf.endswith("_t")
-                             and leaf[:-2] in disc.var_names))
-                if state or (leaf == "z" and cell == "quad"):
+                if leaf.startswith("grad(") or (
+                        leaf.endswith("_t") and leaf[:-2] in disc.var_names) \
+                        or (leaf == "z" and cell == "quad"):
                     raise NotImplementedError(
                         f"the NS coefficient {name!r} reads {leaf!r}: "
-                        "state-dependent NS coefficients (and z in 2D) are "
-                        "not ported to mrhyde_tpu_torch yet (ROADMAP "
-                        f"{NS_REMAINDER})")
-        return FusedNSAssembly(asm)
+                        "NS coefficients that read the state's gradient or "
+                        "time derivative (and z in 2D) are not ported to "
+                        f"mrhyde_tpu_torch yet (ROADMAP {NS_REMAINDER})")
+                if leaf in disc.var_names:
+                    reads.append(f"the NS coefficient {name!r} reads "
+                                 f"{leaf!r}")
+        if len(asm.modules) != 1:
+            reads.append("navier stokes with other modules "
+                         f"({[m.name for m in asm.modules]})")
+        if not reads:
+            return FusedNSAssembly(asm)
+        if kinds == {"p1"} and cell == "quad":
+            from mrhyde_tpu_torch.ops.fused_set import FusedSetAssembly
+            return FusedSetAssembly.build(asm)
+        raise NotImplementedError(
+            f"{'; '.join(reads)}: on hex and p2 quads this is not ported "
+            "to mrhyde_tpu_torch yet (ROADMAP B-2/B-3 on B1)")
 
     # ------------------------------------------------------------------
 
@@ -550,20 +637,6 @@ class FusedNSAssembly:
         m = self.module
         return NSForm(m.use_pspg, m.use_supg, self.h, float(tc.deltat),
                       bool(self.asm.is_transient))
-
-    def _is_steady(self, tc):
-        """The JAX package's _steady_check, once per stage: a stage is its
-        TimeCoeffs' beta tensors (identity and version, held here),
-        alphas, time and time step."""
-        if tc.is_steady:
-            return True
-        key = (id(tc.beta_u), tc.beta_u._version, id(tc.beta_t),
-               tc.beta_t._version, float(tc.alpha_u), float(tc.alpha_t),
-               float(tc.time), float(tc.deltat))
-        if self._steady_cache is None or self._steady_cache[0] != key:
-            self._steady_cache = (key, (tc.beta_u, tc.beta_t),
-                                  steady_check(tc))
-        return self._steady_cache[2]
 
     def _coefficients(self, time, params):
         """(density, viscosity, source ux, source uy[, source uz]): Python
@@ -624,26 +697,10 @@ class FusedNSAssembly:
         key = (steady, alpha_u, alpha_t, form,
                tuple(None if isinstance(v, torch.Tensor) else v
                      for v in coeffs))
-        if key in self._probes:
-            return self._probes[key]
-        args = (coeffs, form, alpha_u, alpha_t, steady)
-        res1, jac1 = self._probe(*args, salt=0.0)
-        res2, jac2 = self._probe(*args, salt=0.293)
-        idx = [tuple(k for k, v in enumerate(p) if _is_varying(v))
-               for p in (res1, jac1, res2, jac2)]
-        if idx[0] != idx[2] or idx[1] != idx[3]:
-            raise AssertionError(
-                "fused-path probe classification depends on dummy values "
-                f"(res {idx[0]} vs {idx[2]}; jac {idx[1]} vs {idx[3]})")
-        for k, (a, b) in enumerate(zip(jac1, jac2)):
-            if k not in idx[1] and a is not None and \
-                    abs(float(a) - float(b)) > 1e-6 * (1.0 + abs(float(a))):
-                raise AssertionError(
-                    f"jac[{k}] classified constant but its probe value "
-                    "depends on element data")
-        consts = [None if (k in idx[1] or v is None) else float(v)
-                  for k, v in enumerate(jac1)]
-        self._probes[key] = (idx[1], consts, len(idx[0]))
+        if key not in self._probes:
+            self._probes[key] = classify_probes(
+                lambda salt: self._probe(coeffs, form, alpha_u, alpha_t,
+                                         steady, salt=salt))
         return self._probes[key]
 
     def res_jac(self, u, tc, pvec=None):
@@ -652,7 +709,7 @@ class FusedNSAssembly:
         asm = self.asm
         params = dict(asm.params)
         params.update({k: float(v) for k, v in (pvec or {}).items()})
-        steady = self._is_steady(tc)
+        steady = self._stage.is_steady(tc)
         alpha_u = 1.0 if steady else float(tc.alpha_u)
         alpha_t = 0.0 if steady else float(tc.alpha_t)
         form = self._form(tc)
@@ -678,26 +735,8 @@ class FusedNSAssembly:
             res, jac = ns_elem_full(ue, ud, coeffs, self.tables,
                                     self.lattice, form, jac_idx, stage)
             self._scatter(res, r, ue[0])
-        rows = self._rows(jac_idx, consts, jac)
+        rows = rows_of(jac_idx, consts, jac, self.nd, asm.dtype, asm.device)
         return torch.where(asm.fixed, 0.0, r), rows
-
-    def _rows(self, jac_idx, consts, jac):
-        """The nd*nd row entries: the kernel's varying rows, the probe's
-        constants (one host-to-device copy) and None."""
-        asm = self.asm
-        cvals = [c for c in consts if c is not None]
-        ct = iter(torch.tensor(cvals, dtype=asm.dtype, device=asm.device)
-                  .unbind(0)) if cvals else iter(())
-        pos = {k: i for i, k in enumerate(jac_idx)}
-        rows = []
-        for k in range(self.nd * self.nd):
-            if k in pos:
-                rows.append(jac[pos[k]])
-            elif consts[k] is None:
-                rows.append(None)
-            else:
-                rows.append(next(ct))
-        return rows
 
     def jacobian(self, u, tc, pvec=None):
         """(residual, BlockJacobian) with the kernel's SoA row layout."""

@@ -46,8 +46,9 @@ kernels (`csrc/fused_p1_thermal.cu`), each with an ADVECT variant:
   derivative in the variable), and the velocity.
 
 The velocity is evaluated once per stage, a Python float per component
-where it is constant, else an (E, Q) tensor. A velocity that reads the
-state is refused (NotImplementedError): the kernels take b as data.
+where it is constant, else an (E, Q) tensor: the kernels take b as data.
+A velocity that reads the state, and a set of thermal and cdr modules,
+take the module-set provider of ops/fused_set.py on 2D p1 quads.
 
 A steady call keeps its specialization, as the JAX package's
 `_steady_check` does: no beta is read and there is no mass lane.
@@ -410,38 +411,53 @@ class FusedP1Assembly:
     @staticmethod
     def build(asm):
         """The fused provider of a qualifying problem: this provider for
-        thermal or cdr, or the Navier-Stokes one (ops/fused_ns.py) for an
-        NS deck; None where the problem takes the general path. A
-        velocity that reads the state raises NotImplementedError."""
+        one thermal or cdr module, the Navier-Stokes one (ops/fused_ns.py)
+        for an NS deck, and on 2D p1 quads the module-set one
+        (ops/fused_set.py) for a set of thermal and cdr modules or a
+        velocity that reads the state; None where the problem takes the
+        general path. A velocity that reads the state raises
+        NotImplementedError on hex and p2 quads, and so does one that
+        reads a gradient or a time derivative."""
         from mrhyde_tpu_torch.physics.cdr import CDR
         from mrhyde_tpu_torch.physics.navierstokes import NavierStokes
         from mrhyde_tpu_torch.physics.thermal import Thermal
         if any(isinstance(m, NavierStokes) for m in asm.modules):
             from mrhyde_tpu_torch.ops.fused_ns import FusedNSAssembly
             return FusedNSAssembly.build(asm)
+        from mrhyde_tpu_torch.ops.fused_set import FusedSetAssembly
         s = asm._structured
         cell = asm.disc.mesh.cell_type
         if s is None or (len(s["dims"]), cell) not in ((2, "quad"),
                                                       (3, "hex")):
             return None
-        # one variable, p1 (2D, 3D) or p2 (the plan has p2 on quads only)
-        if len(s["plan"]) != 1:
+        if not asm.uniform or not all(isinstance(m, (Thermal, CDR))
+                                      for m in asm.modules):
             return None
-        if not asm.uniform:
-            return None
-        if len(asm.modules) != 1 \
-                or not isinstance(asm.modules[0], (Thermal, CDR)):
-            return None
+        # 2D p1 quads: the node-scatter kernels (B2)
+        node = cell == "quad" and {k for (k, _n, _st) in s["plan"]} \
+            == {"p1"}
+        if len(asm.modules) != 1 or len(s["plan"]) != 1:
+            # a set of thermal and cdr modules: B2's module-set kernel;
+            # the general path on hex and p2 quads
+            return FusedSetAssembly.build(asm) if node else None
         module = asm.modules[0]
         var = module.variables()[0][0]
         leaves = {k: set().union(*(asm.fm.terminal_leaves(n) for n in names))
                   for k, names in module.fused_names().items()}
-        if any(lf == var or lf.startswith("grad(") or lf.endswith("_t")
+        if any(lf.startswith("grad(") or lf.endswith("_t")
                for lf in leaves["velocity"]):
             raise NotImplementedError(
+                f"an advection velocity that reads the state's gradient or "
+                f"time derivative ({sorted(leaves['velocity'])}) is not "
+                f"ported to mrhyde_tpu_torch yet (ROADMAP A10, CDR "
+                f"remainder)")
+        if var in leaves["velocity"]:
+            if node:
+                return FusedSetAssembly.build(asm)
+            raise NotImplementedError(
                 f"an advection velocity that reads the state "
-                f"({sorted(leaves['velocity'])}) is not ported to "
-                f"mrhyde_tpu_torch yet (ROADMAP A10, CDR remainder)")
+                f"({sorted(leaves['velocity'])}) on hex and p2 quads is not "
+                f"ported to mrhyde_tpu_torch yet (ROADMAP B-2/B-3 on B1)")
         for ls in leaves.values():
             # state derivatives (and z in 2D) are beyond the pointwise
             # context

@@ -69,6 +69,14 @@ class CDR(PhysicsModule):
                 "source": ("reaction", "source"), "mass": (),
                 "velocity": _VELOCITY[:self.dim]}
 
+    def kernel_coefficients(self):
+        """The functions behind each coefficient of the generated
+        module-set kernel (functions/codegen.py, scalar_density.cuh
+        cdr_density)."""
+        return {"kind": "cdr", "diff": "diffusion", "rho": "density",
+                "cp": "specific heat", "reaction": "reaction",
+                "f": "source", "b": _VELOCITY[:self.dim]}
+
     def qp_coefficients(self, q):
         """(S, kappa) at quadrature points without the advection term: S
         = c_t + reaction - source, kappa = diffusion / (rho cp)."""
@@ -87,9 +95,10 @@ class CDR(PhysicsModule):
 
     def qp_density(self, q):
         """Per-qp (source, flux) densities — the same weak form as
-        volume_residual, in the JAX package's qp_density form."""
-        sval, kap = self.qp_coefficients(q)
+        volume_residual, in the JAX package's qp_density form and order
+        of operations (the module-set provider sums them)."""
         g = q.grad("c")
-        for d, b in enumerate(self.qp_velocity(q)):
-            sval = sval + b * g[d]
+        adv = sum(b * g[d] for d, b in enumerate(self.qp_velocity(q)))
+        sval = q.sol_dot("c") + adv + q.f("reaction") - q.f("source")
+        kap = q.f("diffusion") / (q.f("density") * q.f("specific heat"))
         return {"c": (sval, [kap * g[d] for d in range(self.dim)])}

@@ -66,6 +66,14 @@ class Thermal(PhysicsModule):
                 "velocity": _VELOCITY[:self.dim] if self.have_advection
                 else ()}
 
+    def kernel_coefficients(self):
+        """The functions behind each coefficient of the generated
+        module-set kernel (functions/codegen.py, scalar_density.cuh
+        thermal_density)."""
+        return {"kind": "thermal", "rho": "density", "cp": "specific heat",
+                "f": "thermal source", "kappa": "thermal diffusion",
+                "b": _VELOCITY[:self.dim] if self.have_advection else ()}
+
     def qp_coefficients(self, q):
         """(S, kappa) at quadrature points, with S = rho cp u_t - f (the
         advection term left out) and flux kappa grad u: what the fused

@@ -6,6 +6,7 @@
     python3 profile_port.py --ns [--n-ns 512] [--out DIR] [--device cuda]
     python3 profile_port.py --hex [--out DIR] [--device cuda]
     python3 profile_port.py --ns-elem [--out DIR] [--device cuda]
+    python3 profile_port.py --set [--out DIR] [--device cuda]
 
 Runs torch.profiler over pieces of the thermal main path, steady and
 transient, and prints one JSON line each, with the wall time (host
@@ -83,6 +84,15 @@ DIRK-2,2 stage:
   *_assembly_stage  5 x res_and_jac (ns_elem_full, the scatter of its
                   residual rows, the Jacobian's rows), with kernel_ms:
                   ns_elem_full's device time per call
+
+--set profiles the module-set path (chip_smoke.py's SET_DECKS start-ups,
+the heated cavity 128^2 and NS + cdr 256x64), each at a seeded DIRK-2,2
+stage:
+
+  *_apply         one Jacobian product three ways, as apply_state
+  *_assembly_stage  5 x res_and_jac (one set_node_full launch each), with
+                  kernel_ms: set_node_full's device time per call
+  *_gmres_cycle   one GMRES(40) cycle with Jacobi on that Jacobian
 """
 
 import argparse
@@ -93,9 +103,9 @@ import time
 
 import torch
 
-from chip_smoke import (SOURCE3_NL, bdf2_nonlinear_deck, deck, hex_deck,
-                        nonlinear_deck, ns_deck, ns_elem_startup_deck,
-                        ns_startup_deck, p2_deck)
+from chip_smoke import (SOURCE3_NL, bdf2_nonlinear_deck, cavity_deck, deck,
+                        hex_deck, nonlinear_deck, ns_cdr_deck, ns_deck,
+                        ns_elem_startup_deck, ns_startup_deck, p2_deck)
 
 
 def sync(device):
@@ -326,6 +336,35 @@ def ns_elem_pieces(device, out_dir):
                  device, out_dir, per=5, kernel="ns_elem_full")
 
 
+def set_pieces(device, out_dir):
+    """--set: the module-set start-up decks at a seeded DIRK-2,2 stage:
+    the Jacobian product three ways, the assembly under the profiler with
+    set_node_full's own device time, and a GMRES cycle."""
+    from mrhyde_tpu_torch.assembly.assembler import TimeCoeffs
+    from mrhyde_tpu_torch.problem import Problem
+    from mrhyde_tpu_torch.solvers.krylov import gmres
+    from mrhyde_tpu_torch.solvers.precond import build_preconditioner
+    gen = torch.Generator(device=device).manual_seed(1234)
+    for tag, cfg in (("cavity_nx128", cavity_deck(128)),
+                     ("ns_cdr_nx256", ns_cdr_deck(256))):
+        p = Problem(cfg, device=device)
+        asm = p.assembler
+        u = p.bcs.apply(torch.rand(p.n_dof, generator=gen, device=device,
+                                   dtype=p.dtype) - 0.5, 0.0)
+        # DIRK-2,2 stage 1 at dt = 0.01, betas from the state
+        tc = TimeCoeffs(0.5, 0.5 * u, 200.0, -200.0 * u, 0.01, 0.01)
+        r, J = asm.res_and_jac(u, tc)
+        apply_timings(f"{tag}_apply", asm, J, r, device)
+        profiled(f"{tag}_assembly_stage",
+                 lambda: [asm.res_and_jac(u, tc) for _ in range(5)],
+                 device, out_dir, per=5, kernel="set_node_full")
+        M = build_preconditioner(J, "jacobi")
+        profiled(f"{tag}_gmres_cycle",
+                 lambda: gmres(J.apply, r, m=40, tol=0.0, max_restarts=1,
+                               precond=M),
+                 device, out_dir, per=40)
+
+
 def main():
     ap = argparse.ArgumentParser(description=__doc__.splitlines()[0])
     ap.add_argument("--out", default=None)
@@ -338,6 +377,7 @@ def main():
     ap.add_argument("--n-ns", type=int, default=512)
     ap.add_argument("--hex", action="store_true")
     ap.add_argument("--ns-elem", action="store_true")
+    ap.add_argument("--set", action="store_true")
     args = ap.parse_args()
     device = torch.device(args.device)
     if args.out:
@@ -356,6 +396,9 @@ def main():
         return
     if args.ns_elem:
         ns_elem_pieces(device, args.out)
+        return
+    if args.set:
+        set_pieces(device, args.out)
         return
 
     from mrhyde_tpu_torch.assembly.assembler import TimeCoeffs

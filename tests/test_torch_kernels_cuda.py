@@ -587,3 +587,122 @@ def test_ns_elem_wrapper_checks_inputs_on_card():
                         Stage(*NS_STAGE1, None))
     with pytest.raises(ValueError):          # tables in another dtype
         fn.ns_elem_full(ue.float(), None, coeffs, tab, lat, form, (0,))
+
+
+# ----------------------------------------------------------------------
+# the module-set kernel set_node_full (generated per deck)
+# ----------------------------------------------------------------------
+
+def _set_cfg(name, nx, ny):
+    from torch_port_utils import (cdr_state_velocity_cfg, ns_cdr_cfg,
+                                  ns_thermal_cfg, thermal_cdr_cfg)
+    cfg = {"ns_thermal_pspg_steady": lambda: ns_thermal_cfg(),
+           "ns_thermal_advected_supg_stage": lambda: ns_thermal_cfg(
+               True, True, True),
+           "ns_cdr_supg_stage": ns_cdr_cfg,
+           "thermal_cdr_kappa_ec_steady": lambda: thermal_cdr_cfg(
+               "1.0 + e*c"),
+           "cdr_velocity_c_stage": cdr_state_velocity_cfg,
+           "ns_visc_ux2_pspg_steady": lambda: channel_cfg(
+               4, 4, visc="1.0 + ux*ux")}[name]()
+    cfg["Mesh"].update(NX=nx, NY=ny)
+    return cfg
+
+
+SET_CASES = ["ns_thermal_pspg_steady", "ns_thermal_advected_supg_stage",
+             "ns_cdr_supg_stage", "thermal_cdr_kappa_ec_steady",
+             "cdr_velocity_c_stage", "ns_visc_ux2_pspg_steady"]
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("dtype", [torch.float64, torch.float32])
+@pytest.mark.parametrize("shape", [(37, 29), (64, 32)])
+@pytest.mark.parametrize("name", SET_CASES)
+def test_set_kernel_matches_plain(name, shape, dtype):
+    """set_node_full (the deck's generated kernel) against its plain
+    version on the same seeded grids on the card: node residual and
+    rows, steady or at a DIRK-2,2 stage-1 call."""
+    from mrhyde_tpu_torch.ops import fused_set as fs
+    from mrhyde_tpu_torch.ops.fused_p1 import Stage
+    from mrhyde_tpu_torch.problem import Problem
+    dev = _card()
+    p = Problem(_set_cfg(name, *shape), device=dev, dtype=dtype)
+    f = p.assembler.fused_provider()
+    assert isinstance(f, fs.FusedSetAssembly)
+    stage = name.endswith("stage")
+    au, at = (NS_STAGE1 if name.startswith("ns") else DIRK22_STAGE1) \
+        if stage else (1.0, 0.0)
+    sc = fs.SetScalars(0.0125, 0.01 if stage else 1.0, ())
+    jac_idx = f._classify(sc, au, at, not stage)[0]
+    g = torch.Generator(device=dev).manual_seed(77)
+    grid = (f.nv, shape[0] + 1, shape[1] + 1)
+    ue = torch.rand(grid, generator=g, device=dev, dtype=dtype) - 0.5
+    ud = 20.0 * (torch.rand(grid, generator=g, device=dev, dtype=dtype)
+                 - 0.5) if stage else None
+    args = (f.form, ue, ud, sc, f.tables, (f.origin, f.h_axes, f.q_off),
+            jac_idx, Stage(au, at, None) if stage else None)
+    (r, j), (rp, jp) = fs.set_node_full(*args), fs.set_node_full_plain(*args)
+    assert r.shape == rp.shape and j.shape == jp.shape
+    assert _close(r, rp, dtype) and _close(j, jp, dtype)
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("name", ["ns_thermal_advected_supg_stage",
+                                  "ns_cdr_supg_stage",
+                                  "thermal_cdr_kappa_ec_steady"])
+def test_set_provider_on_card_matches_cpu(name):
+    """The module-set provider on CUDA (one set_node_full launch) against
+    the same call on the CPU (plain version): residual and every
+    Jacobian row, f64."""
+    from mrhyde_tpu_torch.assembly.assembler import TimeCoeffs
+    from mrhyde_tpu_torch.interop import (state_from_numpy, state_to_numpy,
+                                          time_coeffs_from_numpy)
+    from mrhyde_tpu_torch.ops import fused_p1 as fp
+    from mrhyde_tpu_torch.problem import Problem
+    dev = _card()
+    stage = name.endswith("stage")
+    out = {}
+    for d in ("cpu", dev):
+        p = Problem(_set_cfg(name, 9, 7), device=d)
+        n = p.n_dof
+        tc = (time_coeffs_from_numpy(NS_STAGE1[0], seeded(n, seed=11),
+                                     NS_STAGE1[1], seeded(n, seed=12), 0.3,
+                                     0.01, p)
+              if stage else TimeCoeffs.steady(n, device=d))
+        f = p.assembler.fused_provider()
+        before = dict(fp.LAUNCHES)
+        r, rows = f.res_jac(state_from_numpy(seeded(n, seed=9), p), tc)
+        launched = {k: v - before[k] for k, v in fp.LAUNCHES.items()}
+        assert launched == {k: int(d == dev and k == "set_node_full")
+                            for k in launched}
+        out[str(d)] = (state_to_numpy(r),
+                       [None if x is None else state_to_numpy(x)
+                        for x in rows])
+    (rc, jc), (rg, jg) = out["cpu"], out[str(dev)]
+    assert np.max(np.abs(rg - rc)) <= 1e-12 * max(1.0, np.max(np.abs(rc)))
+    for a, b in zip(jg, jc):
+        assert (a is None) == (b is None)
+        if a is not None:
+            assert np.max(np.abs(a - b)) <= 1e-12 * max(1.0,
+                                                        np.max(np.abs(b)))
+
+
+@pytest.mark.cuda
+def test_set_wrapper_checks_inputs_on_card():
+    from mrhyde_tpu_torch.ops import fused_set as fs
+    from mrhyde_tpu_torch.ops.fused_p1 import Stage
+    from mrhyde_tpu_torch.problem import Problem
+    dev = _card()
+    f = Problem(_set_cfg("ns_cdr_supg_stage", 4, 4), device=dev) \
+        .assembler.fused_provider()
+    sc = fs.SetScalars(0.0, 0.01, ())
+    geo = (f.origin, f.h_axes, f.q_off)
+    ue = torch.zeros((4, 5, 5), device=dev, dtype=torch.float64)
+    with pytest.raises(ValueError):          # three grids for four variables
+        fs.set_node_full(f.form, ue[:3].contiguous(), None, sc, f.tables,
+                         geo, (0,))
+    with pytest.raises(ValueError):          # a stage without u_dot grids
+        fs.set_node_full(f.form, ue, None, sc, f.tables, geo, (0,),
+                         Stage(*NS_STAGE1, None))
+    with pytest.raises(ValueError):          # tables in another dtype
+        fs.set_node_full(f.form, ue.float(), None, sc, f.tables, geo, (0,))

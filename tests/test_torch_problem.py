@@ -171,18 +171,23 @@ def test_port_runs_without_importing_jax():
     assert out.stdout.strip().endswith("ok")
 
 
+HEX = {"dimension": 3, "element type": "hex", "NX": 2, "NY": 2, "NZ": 2}
+
+
 @pytest.mark.parametrize("cfg_patch", [
     {"Solver": {"shards": 2}},
     {"Parameters": {"kp": {"type": "scalar", "value": 1.0}}},
     {"Analysis": {"analysis type": "ROL"}},
     {"Physics": {"modules": "Burgers"}},
-    # an advection velocity that reads the state
-    {"Physics": {"modules": "cdr", "Dirichlet conditions": {
+    # on hex (the element-tile kernel B1; 2D p1 quads run them on the
+    # module-set kernel, tests/test_torch_fused_set*.py): an advection
+    # velocity that reads the state
+    {"Mesh": HEX, "Physics": {"modules": "cdr", "Dirichlet conditions": {
         "c": {"all boundaries": 0.0}}}, "Functions": {"xvel": "c"}},
     # the Boussinesq coupling of an NS + thermal set
-    {"Physics": {"modules": "navier stokes,thermal"}},
+    {"Mesh": HEX, "Physics": {"modules": "navier stokes,thermal"}},
     # a state-dependent NS coefficient
-    {"Physics": {"modules": "navier stokes"},
+    {"Mesh": HEX, "Physics": {"modules": "navier stokes"},
      "Functions": {"viscosity": "1.0 + ux*ux"}},
 ])
 def test_unported_deck_features_raise(cfg_patch):

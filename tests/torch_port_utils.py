@@ -153,6 +153,48 @@ def ns_elem_cfg(mesh, n, supg=False, visc=None, solver=None):
     return cfg
 
 
+def ns_thermal_cfg(advect=False, supg=False, transient=False, beta=2.5,
+                   t_amb=0.25, src="-1.0 + 0.5*x", kappa="1.0 + 0.1*e*e"):
+    """NS + thermal on the 4 x 4 unit square (the JAX package's Boussinesq
+    test deck, tests/test_flow.py:63-98, at 4 x 4, with beta = 1,
+    T_ambient = 0, source uy -1 and thermal diffusion 1): by default beta
+    2.5, T_ambient 0.25, source uy -1 + 0.5 x, thermal diffusion 1 + 0.1
+    e^2; thermal advected by (ux, uy) when asked."""
+    cfg = channel_cfg(4, 4, supg=supg, box=(1.0, 1.0))
+    cfg["Physics"].update({"modules": "navier stokes,thermal", "beta": beta,
+                           "T_ambient": t_amb, "include advection": advect})
+    cfg["Physics"]["Dirichlet conditions"]["e"] = {"left": 1.0,
+                                                   "right": 0.0}
+    cfg["Discretization"]["order"]["e"] = 1
+    cfg["Functions"].update({"source uy": src, "source ux": "0.0",
+                             "thermal diffusion": kappa})
+    if advect:
+        cfg["Functions"].update({"advection x": "ux", "advection y": "uy"})
+    if transient:
+        cfg["Solver"] = {"solver": "transient", "final time": 0.04,
+                         "number of steps": 4}
+        cfg["Physics"]["Initial conditions"]["e"] = 0.0
+    cfg["Postprocess"]["True solutions"]["e"] = "0.0"
+    return cfg
+
+
+def ns_cdr_cfg():
+    """NS + cdr on the 4 x 4 channel, PSPG+SUPG, transient: cdr advected
+    by (ux, uy), diffusion 0.01, reaction 0.5 c^2; source ux 1 + 0.1
+    c^2."""
+    cfg = channel_cfg(4, 4, supg=True, solver={
+        "solver": "transient", "final time": 0.04, "number of steps": 4})
+    cfg["Physics"]["modules"] = "navier stokes,cdr"
+    cfg["Physics"]["Dirichlet conditions"]["c"] = {"left": 1.0}
+    cfg["Physics"]["Initial conditions"]["c"] = 0.0
+    cfg["Discretization"]["order"]["c"] = 1
+    cfg["Functions"].update({"source ux": "1.0 + 0.1*c^2", "xvel": "ux",
+                             "yvel": "uy", "diffusion": "0.01",
+                             "reaction": "0.5*c*c"})
+    cfg["Postprocess"]["True solutions"]["c"] = "0.0"
+    return cfg
+
+
 # 3D hex and 2D p2 thermal (the element-tile kernel B1): the reference's
 # thermal/3D_verification, u = sin(2 pi x) sin(2 pi y) sin(2 pi z) on the
 # unit cube; p2 quads with the 2D source at order 2, quadrature 4
@@ -317,6 +359,29 @@ def advection_cfg(nx, ny=None, nz=None, vel="const", order=1,
         cfg["Physics"]["Initial conditions"] = {"e": "0.0"}
         cfg["Solver"] = {"solver": "transient", "final time": 0.2,
                          "number of steps": 4}
+    return cfg
+
+
+def thermal_cdr_cfg(kappa, reaction="0.5*c*c", transient=False):
+    """thermal + cdr on 4 x 4 p1 quads: cdr advected by (2, 1)."""
+    cfg = thermal_cfg(4, kappa=kappa)
+    cfg["Physics"]["modules"] = "thermal,cdr"
+    cfg["Physics"]["Dirichlet conditions"]["c"] = {"all boundaries": 0.0}
+    cfg["Discretization"]["order"]["c"] = 1
+    cfg["Functions"].update({"source": "1.0 + x", "xvel": "2.0",
+                             "yvel": "1.0", "reaction": reaction,
+                             "density": "2.0"})
+    if transient:
+        cfg["Physics"]["Initial conditions"] = {"e": "0.0", "c": "0.0"}
+        cfg["Solver"] = {"solver": "transient", "final time": 0.2,
+                         "number of steps": 4}
+    return cfg
+
+
+def cdr_state_velocity_cfg():
+    """cdr on 4 x 4 p1 quads, transient, with the velocity (c, y)."""
+    cfg = cdr_cfg(4, reaction="0.5*c*c", transient=True)
+    cfg["Functions"].update({"xvel": "c", "yvel": "y"})
     return cfg
 
 

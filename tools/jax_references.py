@@ -4,8 +4,9 @@ package, in f64 on the CPU.
 
     python tools/jax_references.py DECK [N[:STEPS] ...]
 
-DECK is a key of chip_smoke.py's CDR_DECKS or NS_ELEM_DECKS, or
-`hex_default` (its HEX_DEFAULT); each N builds the deck at that mesh
+DECK is a key of chip_smoke.py's CDR_DECKS, HEX_DECKS, NS_ELEM_DECKS or
+SET_DECKS, or `boussinesq_gold_nx8` (max |ux| of its Boussinesq deck at
+beta = 1 and 0); each N builds the deck at that mesh
 size (default: the size the card runs), and STEPS, for a transient deck,
 sets its number of steps (to refine h and dt together). Prints one JSON
 line per run: the L2 error of the deck's variable at its held time (an
@@ -33,10 +34,12 @@ def main(argv):
     from mrhyde_tpu.problem import Problem
 
     name, sizes = argv[0], argv[1:]
+    if name == "boussinesq_gold_nx8":
+        return boussinesq(chip_smoke, Problem)
     decks = {k: (build, n, None, None)
              for k, (build, n, _rtol, _refs) in
-             chip_smoke.NS_ELEM_DECKS.items()}
-    decks.update(chip_smoke.CDR_DECKS, hex_default=chip_smoke.HEX_DEFAULT)
+             {**chip_smoke.NS_ELEM_DECKS, **chip_smoke.SET_DECKS}.items()}
+    decks.update(chip_smoke.CDR_DECKS, **chip_smoke.HEX_DECKS)
     build, n_card, t_held, var = decks[name][:4]
     for size in sizes or [str(n_card)]:
         n, _, steps = size.partition(":")
@@ -62,6 +65,20 @@ def main(argv):
                           "var": var, "L2": l2, "n_dof": problem.n_dof,
                           "setup_s": t1 - t0, "solve_s": t2 - t1}),
               flush=True)
+
+
+def boussinesq(chip_smoke, Problem):
+    """chip_smoke.py's boussinesq_gold_nx8: max |ux| at beta = 1 and 0."""
+    import numpy as np
+    out = {"deck": "boussinesq_gold_nx8"}
+    for beta in (1.0, 0.0):
+        t0 = time.perf_counter()
+        problem = Problem(chip_smoke.boussinesq_deck(8, beta))
+        u = np.asarray(problem.run().u)
+        gd = np.asarray(problem.disc.dofmap.all_dofs("ux"))
+        out[f"max_ux_beta{beta:g}"] = float(np.abs(u[gd]).max())
+        out[f"seconds_beta{beta:g}"] = time.perf_counter() - t0
+    print(json.dumps(out), flush=True)
 
 
 if __name__ == "__main__":

@@ -16,7 +16,8 @@ the window), and over 20 launches back to back between two events
 overlapped by the kernels before it). The plain versions of phases 3b,
 3c and 3e are not timed.
 Writes each run's JSON lines to DIR/ab_<side>_<n>.txt and prints, for
-every case, both sides' times and the change/parent ratio of the means,
+every case both trees run (the cases of one side only are listed last),
+both sides' times and the change/parent ratio of the means,
 and each run's max_abs_err against the plain version: equal on both
 sides when the two trees' kernels give the same bits.
 """
@@ -103,7 +104,8 @@ def main(argv):
             f.write(out.stdout)
         runs[side].append({_key(r): r for r in map(
             json.loads, out.stdout.splitlines()) if "ms" in r})
-    for key in runs["parent"][0]:
+    shared = [k for k in runs["parent"][0] if k in runs["change"][0]]
+    for key in shared:
         row = {"case": list(key)}
         for metric in ("ms", "batched_ms"):
             p = [r[key][metric] for r in runs["parent"]]
@@ -114,6 +116,9 @@ def main(argv):
                                      for r in runs[side]]
                               for side in ("parent", "change")}
         print(json.dumps(row), flush=True)
+    only = {side: [list(k) for k in runs[side][0] if k not in shared]
+            for side in ("parent", "change")}
+    print(json.dumps({"cases_on_one_side_only": only}), flush=True)
 
 
 if __name__ == "__main__":
