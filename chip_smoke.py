@@ -4,8 +4,9 @@
 
 Drives mrhyde_tpu_torch's thermal, cdr, thermal-advection and
 Navier-Stokes main paths (2D p1 quads, 3D hex, 2D p2 quads) and its
-module sets (NS + thermal with the Boussinesq term, NS + cdr,
-coefficients that read the state; 2D p1 quads), steady and transient,
+module sets (NS + thermal with the Boussinesq term, NS + cdr, thermal +
+cdr, coefficients that read the state; 2D p1 quads, 3D hex, 2D p2
+quads), steady and transient,
 through
 `Problem(cfg).run()` on the card, after building
 its CUDA kernels from the sources in this checkout (one nvcc per source,
@@ -15,8 +16,9 @@ each):
 
   1 device   card name and power limit; exits non-zero without CUDA
   2 build    nvcc build of mrhyde_tpu_torch/ops/csrc/*.cu and of the
-             set_node_full sources generated for phase 3f and decks 34-37
-             (functions/codegen.py), in seconds, with ptxas's report
+             set_node_full and set_elem_full sources generated for phases
+             3f and 3g and decks 34-43 (functions/codegen.py), in
+             seconds, with ptxas's report
   3 kernels  against their plain versions at 1024x1024 and 1000x777, in
              f64 (max |diff| <= 1e-12 max|plain|) and f32 (<= 1e-5
              max|plain|), with the median of 20 CUDA-event timings each:
@@ -47,7 +49,8 @@ each):
              1000x243 on the channel [0,5]x[0,1], f64 and f32 (the same
              bounds), residual and rows each: PSPG steady with viscosity 1
              and 0.1 + 0.01 x, PSPG+SUPG at DIRK-2,2 stage-1 alphas (0.5,
-             200) with seeded u_dot; CUDA-event medians of 20 (plain: 5)
+             200) with seeded u_dot; CUDA-event medians of 20 (plain: its
+             one check call)
  11 ns_channel_gold_nx50   the reference's NS channel, 50x10, PSPG,
              direct: L2 ux/pr/uy = 0.00198075 / 0.0148536 / 0.000169464
              (rtol 2e-5; the reference's gold)
@@ -64,16 +67,17 @@ each):
              f32 (the same bounds): steady with kappa = 1 and kappa = 1 +
              0.5 x y (z), and at DIRK-2,2 stage-1 alphas with m = 1 +
              0.5 x; "full" with kappa = 1 + e*e steady and at that stage
-             (seeded u, beta_u, beta_t); CUDA-event medians of 20 (plain: 5)
+             (seeded u, beta_u, beta_t); CUDA-event medians of 20 (plain:
+             its one check call)
  14 hex_gold_nx10   the reference's thermal/3D_verification, 10^3 hex,
              direct: L2(e) = 0.0116656 (rtol 2e-5; the reference's gold)
- 15 hex_default_nx48   the same at 48^3 (117,649 DOFs; 64^3 until PR 7),
-             nonlinear TOL 1e-10, GMRES + Jacobi (HEX_DECKS)
- 16 hex_nonlinear_nx48   kappa = 1 + e*e with its manufactured source,
-             48^3, CG, TOL 1e-10
- 17 hex_transient_dirk22_nx48   u = sin(2 pi t) S3, IC 0, DIRK-2,2, 8
+ 15 hex_default_nx40   the same at 40^3 (68,921 DOFs; cut from 64^3, then
+             48^3), nonlinear TOL 1e-10, GMRES + Jacobi (HEX_DECKS)
+ 16 hex_nonlinear_nx40   kappa = 1 + e*e with its manufactured source,
+             40^3, CG, TOL 1e-10
+ 17 hex_transient_dirk22_nx40   u = sin(2 pi t) S3, IC 0, DIRK-2,2, 8
              steps to t=0.4, TOL 1e-10, GMRES + Jacobi
- 18 hex_transient_nonlinear_bdf2_nx48   kappa = 1 + e*e, BDF2 after one
+ 18 hex_transient_nonlinear_bdf2_nx40   kappa = 1 + e*e, BDF2 after one
              BWE/BDF1 startup step, 4 steps to t=0.2, CG
  19 p2_default_nx256   p2 quads (quadrature 4), kappa = 1, 256^2
              (263,169 DOFs), TOL 1e-10, GMRES + Jacobi
@@ -84,13 +88,13 @@ each):
              f64 and f32 (the same bounds): "state" and "full", steady
              and at DIRK-2,2 stage-1 alphas with m = 1, the velocity (2,
              1[, 0.5]) scalar and the rotating field per qp; CUDA-event
-             medians of 20 (plain: 5)
+             medians of 20 (plain: its one check call)
  21 cdr_gold_nx40   the reference's cdr/2D_manufactured (v = (2, 1),
              reaction 0.5 c^2), direct: L2(c) = 0.00101714 (rtol 2e-5)
  22-29 CDR_DECKS   cdr 512^2 (v = (2, 1), reaction 0), its nonlinear
              twin (reaction 0.5 c^2), the rotating-field DIRK-2,2 deck
              (density 2, 8 steps to t = 0.4), thermal 'include advection'
-             512^2, cdr hex 48^3 and nonlinear 48^3, cdr p2 256^2 and
+             512^2, cdr hex 40^3 and nonlinear 40^3, cdr p2 128^2 and
              nonlinear 128^2; GMRES + Jacobi, TOL 1e-10, the JAX
              package's L2 at rtol 1e-4 (tools/jax_references.py)
  3e kernels_ns_elem   ns_elem_full (the B1 Navier-Stokes kernel) against
@@ -114,19 +118,40 @@ each):
              by (ux, uy), PSPG+SUPG at DIRK-2,2 stage-1 alphas with
              seeded u_dot; NS + cdr (velocity (ux, uy), source ux 1 + 0.1
              c^2) at that stage; thermal + cdr with kappa = 1 + e*c; cdr
-             with the velocity (c, 1); CUDA-event medians of 20 (plain: 5)
+             with the velocity (c, 1); CUDA-event medians of 20 (plain:
+             its one check call)
  34 boussinesq_gold_nx8_beta1, _beta0   the JAX package's Boussinesq deck
              (tests/test_flow.py:63-98), direct: max |ux| equals JAX's to
              rtol 1e-8 at beta = 1 and is below 1e-3 of it at beta = 0
  35-37 SET_DECKS   boussinesq_cavity_startup_nx128 (the differentially
-             heated cavity from rest, Ra = 1e3, Pr = 0.71, DIRK-2,2, 4
-             steps of 0.01, GMRES + Jacobi: L2 of ux, uy and e),
+             heated cavity from rest, Ra = 1e3, Pr = 0.71, DIRK-2,2, 2
+             steps of 0.01 (cut from 4), GMRES + Jacobi: L2 of ux, uy and
+             e),
              ns_cdr_startup_nx256 (the channel start-up with cdr
              advected by (ux, uy) and source ux 1 + 0.1 c^2: ux, uy, pr,
              c) and ns_channel_visc_nonlinear_direct_nx128 (viscosity 1 +
              0.1 ux^2, direct): the JAX package's L2 at rtol 1e-6 (NS +
              cdr: 1e-4, the agreement its capped GMRES solves leave in
              L2(pr))
+ 3g kernels_set_elem   set_elem_full (the element-tile module-set
+             kernel, one source generated per deck) against its plain
+             version at hex 64^3 and 31x23x15, p2 512x128 and 250x61, f64
+             and f32 (the same bounds), residual rows and Jacobian rows
+             each: NS + thermal PSPG steady (hex, nd 40), NS + cdr
+             PSPG+SUPG at DIRK-2,2 stage-1 alphas (hex, 40), NS + thermal
+             advected PSPG+SUPG at that stage (p2, 36), NS with viscosity
+             1 + 0.1 ux^2 (hex, 32), thermal + cdr with kappa = 1 + e*c
+             (p2, 18), cdr with the velocity (c, 1, 0.5) (hex, 8);
+             CUDA-event medians of 20 (plain: its one check call)
+ 38-43 SET_ELEM_DECKS   ns3d_cdr_startup_dirk22_nx64 (the hex start-up
+             of deck 31 with cdr in the set, 93,925 DOFs),
+             ns3d_thermal_channel_direct_nx20 and
+             p2ns_thermal_channel_direct_nx64 (mixed convection: NS +
+             thermal advected by the flow, e = 1 bottom / 0 top, direct),
+             ns3d_channel_visc_nonlinear_direct_nx20 (viscosity 1 + 0.1
+             ux^2), thermal_cdr_p2_nx128 (kappa = 1 + e*c, 132,098 DOFs)
+             and cdr_hex_state_velocity_nx48 (velocity (c, 1, 0.5)): the
+             JAX package's L2 of every variable at rtol 1e-6
 
 The reference L2 values are the JAX package's, computed in f64 on the
 CPU, or the reference's golds. Each deck runs one assembly before its
@@ -142,12 +167,14 @@ ns_node_full (once per fused res_and_jac call, no thermal kernel), 14,
 15, 17 and 19 thermal_elem_state, 16, 18 and 20 thermal_elem_full,
 each of 21-29 the kernel its CDR_DECKS entry names, 30-33
 ns_elem_full (once per fused res_and_jac call, no other kernel; the
-2D p1 NS decks 11-13 never launch it), and 34-37 set_node_full (once
-per fused res_and_jac call, no other kernel). The `kernels` line
+2D p1 NS decks 11-13 never launch it), 34-37 set_node_full and 38-43
+set_elem_full (once per fused res_and_jac call, no other kernel). The
+`kernels` line
 reports the sums over the decks, each kernel's error, times and bound
 (bytes or operations, whichever is larger; see `bound`) at its quoted
-case, and for the four thermal kernels the same of their advection case
-with the launches of decks 21-29 ("advect").
+case, for the four thermal kernels the same of their advection case
+with the launches of decks 21-29 ("advect"), and for set_elem_full each
+phase 3g case ("cases", f64 at the divisible shape).
 Any failure raises; the last line of a passing run is {"ok": true,
 "device": {...}}.
 """
@@ -401,7 +428,8 @@ def phase_kernels(device):
                  thermal_work("full", *work, None, st1, tr)),
             ]
             for name, label, kern, plain, (nbytes, nflops) in cases:
-                out, ref = kern(), plain()
+                ref, plain_ms = timed(plain)
+                out = kern()
                 torch.cuda.synchronize()
                 err, scale = max_err(out, ref)
                 ok = err <= rtol * scale
@@ -409,7 +437,7 @@ def phase_kernels(device):
                        "dtype": str(dtype).replace("torch.", ""),
                        "shape": [N0, N1], "max_abs_err": err,
                        "max_abs_plain": scale, "rtol": rtol, "ok": ok,
-                       "ms": cuda_ms(kern), "plain_ms": cuda_ms(plain),
+                       "ms": cuda_ms(kern), "plain_ms": plain_ms,
                        **bound(nbytes, nflops, dtype)}
                 emit(rec)
                 if not ok:
@@ -523,7 +551,7 @@ NS_DIRECT = {"use direct solver": True, "nonlinear TOL": 1e-8}
 # same deck functions through the JAX package for those references
 # (set-up / solve s there: 0.09 / 6.4, 3.2 / 162, 0.5 / 46, 0.8 / 376)
 NS_ELEM_DECKS = {
-    # 20x4x4 hex, 3,024 DOFs
+    # 20x5x5 hex, 3,024 DOFs
     "ns3d_channel_direct_nx20": (
         lambda n: ns_elem_deck("hex", n, NS_DIRECT), 20, 1e-4,
         {0.0: {"ux": 0.00793801228220015, "uy": 0.0007936004272299433,
@@ -577,15 +605,19 @@ def boussinesq_deck(n, beta=1.0):
 # the differentially heated cavity's Rayleigh and Prandtl numbers (de Vahl
 # Davis 1983): beta = Ra Pr multiplies the buoyancy of source uy = -1
 CAVITY_RA, CAVITY_PR = 1.0e3, 0.71
+# the start-up's first 2 of NS_STARTUP_SOLVER's 4 steps, for the script's
+# time: Newton runs to its cap in every stage (below)
+CAVITY_SOLVER = dict(NS_STARTUP_SOLVER, **{"final time": 0.02,
+                                           "number of steps": 2})
 
 
 def cavity_deck(n):
     """The differentially heated square cavity started from rest: n x n p1
     quads on the unit square, no-slip walls, e = 1 on the left and 0 on
     the right, adiabatic top and bottom; thermal advected by (ux, uy),
-    viscosity Pr, thermal diffusion 1; PSPG+SUPG, DIRK-2,2, 4 steps of
-    0.01 (NS_STARTUP_SOLVER), the default solver. No true solution: the
-    L2 lines are the fields' norms."""
+    viscosity Pr, thermal diffusion 1; PSPG+SUPG, DIRK-2,2, 2 steps of
+    0.01 (CAVITY_SOLVER), the default solver. No true solution: the L2
+    lines are the fields' norms."""
     zero = {v: "0.0" for v in ("ux", "uy", "pr", "e")}
     return {
         "Mesh": {"dimension": 2, "element type": "quad", "NX": n, "NY": n},
@@ -604,17 +636,16 @@ def cavity_deck(n):
                       "thermal diffusion": "1.0", "advection x": "ux",
                       "advection y": "uy"},
         "Discretization": {"order": {v: 1 for v in zero}, "quadrature": 2},
-        "Solver": dict(NS_STARTUP_SOLVER),
+        "Solver": dict(CAVITY_SOLVER),
         "Postprocess": {"compute errors": True, "True solutions": zero},
     }
 
 
-def ns_cdr_deck(nx):
-    """The channel start-up (ns_startup_deck at nx x nx/4) with cdr in the
-    set: c = 1 on the left, diffusion 0.01, advected by (ux, uy),
-    reaction 0; NS forced by source ux 1 + 0.1 c^2 (the reference's
+def add_cdr(cfg):
+    """A p1 channel deck with cdr in the set: c = 1 on the left, diffusion
+    0.01, advected by the flow (ux, uy[, uz]), reaction 0; NS forced by
+    source ux 1 + 0.1 c^2 (the reference's
     Multiphysics/NavierStokes-CDR/Fully-Coupled couplings)."""
-    cfg = ns_startup_deck(nx)
     phys = cfg["Physics"]
     phys["modules"] = "navier stokes,cdr"
     phys["Dirichlet conditions"]["c"] = {"left": 1.0}
@@ -623,8 +654,16 @@ def ns_cdr_deck(nx):
     cfg["Functions"].update({"source ux": "1.0 + 0.1*c^2",
                              "diffusion": "0.01", "xvel": "ux",
                              "yvel": "uy", "reaction": "0.0"})
+    if cfg["Mesh"]["dimension"] == 3:
+        cfg["Functions"]["zvel"] = "uz"
     cfg["Postprocess"]["True solutions"]["c"] = "0.0"
     return cfg
+
+
+def ns_cdr_deck(nx):
+    """The channel start-up (ns_startup_deck at nx x nx/4) with cdr in the
+    set (add_cdr)."""
+    return add_cdr(ns_startup_deck(nx))
 
 
 def ns_visc_deck(nx):
@@ -646,16 +685,18 @@ BOUSSINESQ_MAXU = 0.0037584716736223547
 # package's Krylov solves pick: its L2 is no check.
 SET_DECKS = {
     # cut from 256^2 (264,196 DOFs): the JAX CPU reference ran over 30
-    # minutes there and was stopped; 66,564 DOFs, 822 s of JAX CPU solve.
-    # Its stages do not all converge (at Ra = 1e3, the lowest of the
-    # benchmark's range): Newton runs to its cap of 10 with every GMRES
-    # solve at its 2,000 cap, in both packages alike; they agree to 9e-10
+    # minutes there and was stopped; 66,564 DOFs; 2 steps, cut from 4
+    # (CAVITY_SOLVER), 265 s of JAX CPU solve (822 s for 4 steps, whose
+    # t = 0.02 numbers are these). Its stages do not all converge (at Ra
+    # = 1e3, the lowest of the benchmark's range): Newton runs to its cap
+    # of 10 with every GMRES solve at its 2,000 cap, in both packages
+    # alike; they agree to 9e-10
     "boussinesq_cavity_startup_nx128": (
         cavity_deck, 128, 1e-6,
-        {0.02: {"ux": 0.4716255450389182, "uy": 0.639036151441178,
-                "e": 0.28996953159540934},
-         0.04: {"ux": 0.9475753202980064, "uy": 1.0984840325571963,
-                "e": 0.35512080450925404}}),
+        {0.01: {"ux": 0.2093494809197624, "uy": 0.3393436708148743,
+                "e": 0.2298320688295235},
+         0.02: {"ux": 0.4716255450389182, "uy": 0.639036151441178,
+                "e": 0.28996953159540934}}),
     # 66,820 DOFs; 316 s of JAX CPU solve. Each stage's Newton solve
     # meets its TOL in two steps, but every GMRES solve stops at its
     # 2,000 cap, and L2(pr), the least determined field, agrees to 6e-5
@@ -674,13 +715,16 @@ SET_DECKS = {
 }
 
 
-def thermal_cdr_deck(n):
-    """thermal + cdr on n x n p1 quads, steady: kappa = 1 + e c (the
-    set's density reads both variables), cdr advected by (2, 1)."""
+def thermal_cdr_deck(n, mesh="p1"):
+    """thermal + cdr on n x n p1 (or p2, quadrature 4) quads, steady:
+    kappa = 1 + e c (the set's density reads both variables), cdr
+    advected by (2, 1)."""
     cfg = deck(n, kappa="1.0 + e*c", solver={"nonlinear TOL": 1e-10})
     cfg["Physics"]["modules"] = "thermal,cdr"
     cfg["Physics"]["Dirichlet conditions"]["c"] = {"all boundaries": 0.0}
     cfg["Discretization"]["order"]["c"] = 1
+    if mesh == "p2":
+        cfg["Discretization"] = {"order": {"e": 2, "c": 2}, "quadrature": 4}
     cfg["Functions"].update({"source": CDR_SOURCE, "xvel": "2.0",
                              "yvel": "1.0", "reaction": "0.0"})
     cfg["Postprocess"]["True solutions"]["c"] = S_TRUE
@@ -729,26 +773,25 @@ def set_case(name, h):
                                                                 None)
 
 
-def set_inputs(nv, N0, N1, device, dtype, gen, stage):
-    """Seeded u_eval (and, at a stage, u_dot) grids of nv variables."""
-    ue = torch.rand((nv, N0 + 1, N1 + 1), generator=gen, device=device,
-                    dtype=dtype) - 0.5
+def set_inputs(nv, dims, lat, device, dtype, gen, stage):
+    """Seeded u_eval (and, at a stage, u_dot) grids of nv variables on an
+    element grid of `dims` read through lattice `lat`."""
+    shape = (nv,) + tuple(lat.stride * n + 1 for n in dims)
+    ue = torch.rand(shape, generator=gen, device=device, dtype=dtype) - 0.5
     if stage is None:
         return ue.contiguous(), None
-    ud = torch.rand((nv, N0 + 1, N1 + 1), generator=gen, device=device,
-                    dtype=dtype) - 0.5
+    ud = torch.rand(shape, generator=gen, device=device, dtype=dtype) - 0.5
     return ue.contiguous(), (200.0 * ud).contiguous()
 
 
-def phase_set_kernels(device, shapes=SET_SHAPES, plain_shapes=None):
+def phase_set_kernels(device, shapes=SET_SHAPES):
     """set_node_full (each case's generated kernel) against its plain
     version (residual and rows each within rtol of its max |plain|),
-    with CUDA-event medians of 20 (kernel) and 5 (plain) and the bound
-    of each case; the plain version runs at plain_shapes[i] in place of
-    shapes[i] where given (the kernel's check there, its time at
-    shapes[i])."""
+    with CUDA-event medians of 20 (kernel), the plain version's one check
+    call and the bound of each case."""
     import math
     from mrhyde_tpu_torch.ops import fused_set as fs
+    from mrhyde_tpu_torch.ops.fused_p1 import QUAD_P1
     summary = None
     for name, (_build, box, _alphas, _dt) in SET_KERNEL_CASES.items():
         for dtype, rtol in ((torch.float64, 1e-12), (torch.float32, 1e-5)):
@@ -758,11 +801,11 @@ def phase_set_kernels(device, shapes=SET_SHAPES, plain_shapes=None):
                 form, sc, jac_idx, stage = set_case(
                     name, math.sqrt(sum(tab.wts)))
                 geo = ((0.0, 0.0), (box[0] / N0, box[1] / N1), ip0)
-                ue, ud = set_inputs(len(form.variables), N0, N1, device,
-                                    dtype, gen, stage)
+                ue, ud = set_inputs(len(form.variables), (N0, N1),
+                                    QUAD_P1, device, dtype, gen, stage)
                 args = (form, ue, ud, sc, tab, geo, jac_idx, stage)
+                ref, plain_ms = timed(lambda: fs.set_node_full_plain(*args))
                 out = fs.set_node_full(*args)
-                ref = fs.set_node_full_plain(*args)
                 torch.cuda.synchronize()
                 errs = [max_err(o, r) for o, r in zip(out, ref)]
                 err = max(e for e, _ in errs)
@@ -779,8 +822,7 @@ def phase_set_kernels(device, shapes=SET_SHAPES, plain_shapes=None):
                        "max_abs_plain_jac": errs[1][1], "rtol": rtol,
                        "ok": ok,
                        "ms": cuda_ms(lambda: fs.set_node_full(*args)),
-                       "plain_ms": cuda_ms(
-                           lambda: fs.set_node_full_plain(*args), reps=5),
+                       "plain_ms": plain_ms,
                        **bound(nbytes, nflops, dtype)}
                 rec["share"] = rec["bound_ms"] / rec["ms"]
                 emit(rec)
@@ -831,7 +873,8 @@ NS_SHAPES = ((1024, 256), (1000, 243))
 def phase_ns_kernels(device):
     """ns_node_full against its plain version (residual and rows each
     within rtol of its max |plain|), with CUDA-event medians of 20
-    (kernel) and 5 (plain) and the bound of each case."""
+    (kernel), the plain version's one check call and the bound of each
+    case."""
     import math
     from mrhyde_tpu_torch.ops import fused_ns as fn
     from mrhyde_tpu_torch.ops.fused_p1 import Stage
@@ -859,8 +902,8 @@ def phase_ns_kernels(device):
                   st1)),
             ]
             for label, args in cases:
+                ref, plain_ms = timed(lambda: fn.ns_node_full_plain(*args))
                 out = fn.ns_node_full(*args)
-                ref = fn.ns_node_full_plain(*args)
                 torch.cuda.synchronize()
                 errs = [max_err(o, r) for o, r in zip(out, ref)]
                 err = max(e for e, _ in errs)
@@ -875,8 +918,7 @@ def phase_ns_kernels(device):
                        "max_abs_err_jac": errs[1][0],
                        "max_abs_plain_jac": errs[1][1], "rtol": rtol,
                        "ok": ok, "ms": cuda_ms(lambda: fn.ns_node_full(*args)),
-                       "plain_ms": cuda_ms(
-                           lambda: fn.ns_node_full_plain(*args), reps=5),
+                       "plain_ms": plain_ms,
                        **bound(nbytes, nflops, dtype)}
                 emit(rec)
                 if not ok:
@@ -906,10 +948,17 @@ SOURCE3_T = f"(12*(pi*pi)*sin(2*pi*t)+2*pi*cos(2*pi*t))*{S3_TRUE}"
 SOURCE3_T_NL = (
     "2*pi*cos(2*pi*t)*S + 12*(pi*pi)*T*S*(1+(T*S)^2) - 8*(pi*pi)*T*T*T*S*"
     "(G)").replace("G", GRAD3_SQ).replace("S", S3_TRUE).replace("T", T_TIME)
-# the JAX package's f64 CPU L2(e) of the B1 decks (ROADMAP's reference
-# tables): hex at 80^3, 64^3 and 48^3; p2 at 256^2 and 128^2 (their error
-# falls 8.0x per halving of h from 64^2, so it is no solver noise)
-HEX_BDF2_NL_L2 = 0.0007306455172806904
+# the JAX package's f64 CPU L2 of the B1 decks (ROADMAP's reference
+# tables): hex at 40^3 (68,921 DOFs; tools/jax_references.py, set-up /
+# solve s on the CPU: 7 / 7, 6 / 21, 6 / 16, 8 / 56, 6 / 14, 7 / 21); p2
+# at 256^2 and 128^2 (their error falls 8.0x per halving of h from 64^2,
+# so it is no solver noise)
+HEX_L2_40 = {"default": 0.0007270667974098038,
+             "nonlinear": 0.0007272032496075229,
+             "dirk22": 0.00021572480501614192,
+             "bdf2_nonlinear": 0.0009381955542444629,
+             "cdr": 0.0007230061638483525,
+             "cdr_nonlinear": 0.0007230781769732502}
 P2_DEFAULT_L2 = 5.029830565509573e-08
 P2_NL_L2 = 4.023729085365165e-07
 BDF2_SOLVER = {"transient Butcher tableau": "BWE", "transient BDF order": 2,
@@ -1052,42 +1101,46 @@ CDR_DECKS = {
                                      "state", 0.0010168969905621037),
     "thermal_advection_nx512": (thermal_advection_deck, 512, 0.0, "e",
                                 "state", 6.21086759188614e-06),
-    # cut from 64^3 for the script's time (its JAX CPU set-up / solve:
-    # 13 / 28 s at 48^3)
-    "cdr_hex_nx48": (
+    # cut from 64^3, then 48^3, for the script's time (HEX_L2_40)
+    "cdr_hex_nx40": (
         lambda n: cdr_deck(n, CDR3_SOURCE, vel=("2.0", "1.0", "0.5"),
-                           mesh="hex"), 48, 0.0, "c", "elem_state",
-        0.0005020578959662423),
-    "cdr_hex_nonlinear_nx48": (
+                           mesh="hex"), 40, 0.0, "c", "elem_state",
+        HEX_L2_40["cdr"]),
+    "cdr_hex_nonlinear_nx40": (
         lambda n: cdr_deck(n, CDR3_SOURCE_NL, "0.5*c*c",
-                           ("2.0", "1.0", "0.5"), "hex"), 48, 0.0, "c",
-        "elem_full", 0.000502108028442206),
-    "cdr_p2_nx256": (lambda n: cdr_deck(n, mesh="p2"), 256, 0.0, "c",
-                     "elem_state", 5.029831744288961e-08),
+                           ("2.0", "1.0", "0.5"), "hex"), 40, 0.0, "c",
+        "elem_full", HEX_L2_40["cdr_nonlinear"]),
+    # cut from 256^2 for the script's time (66,049 DOFs; its JAX CPU
+    # set-up / solve: 1.3 / 21 s)
+    "cdr_p2_nx128": (lambda n: cdr_deck(n, mesh="p2"), 128, 0.0, "c",
+                     "elem_state", 4.023602960516559e-07),
     "cdr_p2_nonlinear_nx128": (
         lambda n: cdr_deck(n, CDR_SOURCE_NL, "0.5*c*c", mesh="p2"), 128,
         0.0, "c", "elem_full", 4.023603034380792e-07),
 }
 
 
-# the hex decks of kappa = 1, kappa = 1 + e*e and DIRK-2,2 as CDR_DECKS
-# holds its decks, at 48^3: cut from 64^3 for the script's time (23-31 s
-# of host set-up each there; 96^3, then 80^3, before), with their JAX
-# references at 48^3 (set-up / solve s on the CPU: 14 / 12, 13 / 57,
-# 13 / 51)
+# the hex decks of kappa = 1, kappa = 1 + e*e, DIRK-2,2 and the nonlinear
+# BDF2 as CDR_DECKS holds its decks, at 40^3: cut for the script's time
+# (96^3, 80^3, 64^3 and 48^3 before; 7-11 s of host set-up each at 48^3),
+# with their JAX references at 40^3 (HEX_L2_40)
 HEX_DECKS = {
-    "hex_default_nx48": (
-        lambda n: hex_deck(n, solver={"nonlinear TOL": 1e-10}), 48, 0.0,
-        "e", "elem_state", 0.0005048855889645018),
-    "hex_nonlinear_nx48": (
+    "hex_default_nx40": (
+        lambda n: hex_deck(n, solver={"nonlinear TOL": 1e-10}), 40, 0.0,
+        "e", "elem_state", HEX_L2_40["default"]),
+    "hex_nonlinear_nx40": (
         lambda n: hex_deck(n, "1.0 + e*e", SOURCE3_NL,
                            {"nonlinear TOL": 1e-10, "Belos solver": "CG"}),
-        48, 0.0, "e", "elem_full", 0.0005049514178661428),
-    "hex_transient_dirk22_nx48": (
+        40, 0.0, "e", "elem_full", HEX_L2_40["nonlinear"]),
+    "hex_transient_dirk22_nx40": (
         lambda n: hex_transient_deck(n, {
             "transient Butcher tableau": "DIRK-2,2", "final time": 0.4,
             "number of steps": 8, "nonlinear TOL": 1e-10}),
-        48, 0.4, "e", "elem_state", 0.0003546438045404958),
+        40, 0.4, "e", "elem_state", HEX_L2_40["dirk22"]),
+    "hex_transient_nonlinear_bdf2_nx40": (
+        lambda n: hex_transient_deck(n, BDF2_SOLVER, "1.0 + e*e",
+                                     SOURCE3_T_NL),
+        40, 0.2, "e", "elem_full", HEX_L2_40["bdf2_nonlinear"]),
 }
 
 
@@ -1177,8 +1230,8 @@ def elem_inputs(dims, tab, lat, q_off, device, dtype, gen):
 def phase_elem_kernels(device):
     """thermal_elem_state and thermal_elem_full against their plain
     versions (within rtol of max |plain|, rows and Jacobian rows each),
-    hex and p2, f64 and f32, with CUDA-event medians of 20 (plain: 5)
-    and the bound of each case."""
+    hex and p2, f64 and f32, with CUDA-event medians of 20 (plain: its
+    one check call) and the bound of each case."""
     from mrhyde_tpu_torch.ops import fused_elem as fe
     from mrhyde_tpu_torch.ops.fused_p1 import Stage
     summary = {}
@@ -1208,7 +1261,8 @@ def phase_elem_kernels(device):
             for name, label, args, (nbytes, nflops) in cases:
                 kern = getattr(fe, name)
                 plain = getattr(fe, name + "_plain")
-                out, ref = kern(*args), plain(*args)
+                ref, plain_ms = timed(lambda: plain(*args))
+                out = kern(*args)
                 torch.cuda.synchronize()
                 pairs = [max_err(o, r) for o, r in
                          (zip(out, ref) if isinstance(ref, tuple)
@@ -1222,7 +1276,7 @@ def phase_elem_kernels(device):
                        "max_abs_plain": max(sc for _, sc in pairs),
                        "rtol": rtol, "ok": ok,
                        "ms": cuda_ms(lambda: kern(*args)),
-                       "plain_ms": cuda_ms(lambda: plain(*args), reps=5),
+                       "plain_ms": plain_ms,
                        **bound(nbytes, nflops, dtype)}
                 emit(rec)
                 if not ok:
@@ -1262,8 +1316,8 @@ def ns_elem_inputs(mesh, dims, device, dtype, gen):
 def phase_ns_elem_kernels(device, shapes=NS_ELEM_SHAPES):
     """ns_elem_full against its plain version (residual and rows each
     within rtol of its max |plain|) on hex and p2, f64 and f32, with
-    CUDA-event medians of 20 (kernel) and 5 (plain) and the bound of each
-    case: PSPG steady with viscosity 1 and 0.1 + 0.01 x, PSPG+SUPG at
+    CUDA-event medians of 20 (kernel) and the bound of each case: PSPG
+    steady with viscosity 1 and 0.1 + 0.01 x, PSPG+SUPG at
     DIRK-2,2 stage-1 alphas (0.5, 200) with seeded u_dot; each record
     gives the share of the bound the kernel reaches. The plain version's
     time is that of its one call, the check's (CUDA events). Returns the
@@ -1326,6 +1380,204 @@ def phase_ns_elem_kernels(device, shapes=NS_ELEM_SHAPES):
     return summary
 
 
+# ----------------------------------------------------------------------
+# module sets and state-reading coefficients on 3D hex and 2D p2 quads:
+# the element-tile kernel B1 through the generated set_elem_full
+# ----------------------------------------------------------------------
+
+def ns_thermal_channel_deck(mesh, nx):
+    """Mixed convection in the channel (ns_elem_deck: hex nx x nx/4 x
+    nx/4 or p2 nx x nx/4, PSPG, steady, direct): NS + thermal with the
+    Boussinesq term (beta 1, T_ambient 0, source uy -1) and the flow's
+    source ux 1; thermal advected by (ux, uy[, uz]), e = 1 on the bottom
+    and 0 on the top wall (true e = 1 - y)."""
+    cfg = ns_elem_deck(mesh, nx, NS_DIRECT)
+    phys = cfg["Physics"]
+    phys.update({"modules": "navier stokes,thermal", "beta": 1.0,
+                 "T_ambient": 0.0, "include advection": True})
+    phys["Dirichlet conditions"]["e"] = {"bottom": 1.0, "top": 0.0}
+    phys["Initial conditions"]["e"] = 0.0
+    cfg["Discretization"]["order"]["e"] = 2 if mesh == "p2" else 1
+    cfg["Functions"].update({"source ux": "1.0", "source uy": "-1.0",
+                             "advection x": "ux", "advection y": "uy"})
+    if mesh == "hex":
+        cfg["Functions"]["advection z"] = "uz"
+    cfg["Postprocess"]["True solutions"]["e"] = "1.0-y"
+    return cfg
+
+
+def ns_elem_visc_deck(nx):
+    """The hex channel (ns_elem_deck, PSPG, steady, direct) with the
+    viscosity 1 + 0.1 ux^2."""
+    cfg = ns_elem_deck("hex", nx, NS_DIRECT)
+    cfg["Functions"]["viscosity"] = "1.0 + 0.1*ux*ux"
+    return cfg
+
+
+# name -> (deck function of n, n on the card, rtol, {held time: the JAX
+# package's f64 CPU L2 per variable}), as SET_DECKS; every assembly of
+# these decks is one set_elem_full launch. tools/jax_references.py runs
+# the same deck functions through the JAX package for those references.
+SET_ELEM_DECKS = {
+    # the full-width deck: the hex start-up of NS_ELEM_DECKS with cdr in
+    # the set, 64x16x16 (93,925 DOFs, 16,384 elements, nd = 40); 165 s of
+    # JAX CPU solve
+    "ns3d_cdr_startup_dirk22_nx64": (
+        lambda n: add_cdr(ns_elem_startup_deck("hex", n)), 64, 1e-6,
+        {0.02: {"ux": 0.16742864601145643, "uy": 8.380799346010581e-05,
+                "pr": 0.006630702844891716, "uz": 4.2494223866583694e-05,
+                "c": 0.1657996392173004},
+         0.04: {"ux": 0.13743732259423974, "uy": 9.221388229134829e-05,
+                "pr": 0.012040041889444056, "uz": 6.827581594586298e-05,
+                "c": 0.1704585143860053}}),
+    # mixed convection, 20x5x5 hex (3,780 DOFs, nd = 40); 6.3 s
+    "ns3d_thermal_channel_direct_nx20": (
+        lambda n: ns_thermal_channel_deck("hex", n), 20, 1e-6,
+        {0.0: {"ux": 0.10599156192928649, "uy": 0.015255381043264049,
+               "pr": 0.29369837310744434, "uz": 0.012059791939267333,
+               "e": 0.0014663276774370387}}),
+    # the same on 64x16 p2 quads (17,028 DOFs, nd = 36); 115 s
+    "p2ns_thermal_channel_direct_nx64": (
+        lambda n: ns_thermal_channel_deck("p2", n), 64, 1e-6,
+        {0.0: {"ux": 0.1030206482202709, "uy": 0.006632863120563855,
+               "pr": 0.32817749457768447, "e": 0.0005212417638041555}}),
+    # viscosity 1 + 0.1 ux^2, 20x5x5 hex (3,024 DOFs, nd = 32); 5.0 s
+    "ns3d_channel_visc_nonlinear_direct_nx20": (
+        ns_elem_visc_deck, 20, 1e-6,
+        {0.0: {"ux": 0.007999975536123395, "uy": 0.000793521893887483,
+               "pr": 0.042929445662579405, "uz": 0.00296556133492944}}),
+    # thermal + cdr, kappa = 1 + e c, p2 128^2 (132,098 DOFs, nd = 18);
+    # 111 s
+    "thermal_cdr_p2_nx128": (
+        lambda n: thermal_cdr_deck(n, "p2"), 128, 1e-6,
+        {0.0: {"e": 0.0683409929255726, "c": 4.023602960223766e-07}}),
+    # cdr with the velocity (c, 1, 0.5), hex 48^3 (117,649 DOFs, nd = 8);
+    # 29 s
+    "cdr_hex_state_velocity_nx48": (
+        lambda n: cdr_deck(n, CDR3_SOURCE, vel=("c", "1.0", "0.5"),
+                           mesh="hex"), 48, 1e-6,
+        {0.0: {"c": 0.029795399604469273}}),
+}
+
+
+def _small(cfg, mesh):
+    """The deck on 4x2x2 hex or 4x4 p2 quads: where a phase 3g case takes
+    its weak form and row classes from."""
+    cfg["Mesh"].update({"NX": 4, "NY": 2, "NZ": 2} if mesh == "hex"
+                       else {"NX": 4, "NY": 4})
+    return cfg
+
+
+def ns_thermal_stage_deck(mesh):
+    """ns_thermal_channel_deck with SUPG, transient (a DIRK-2,2 stage)."""
+    cfg = ns_thermal_channel_deck(mesh, 4)
+    cfg["Physics"]["useSUPG"] = True
+    cfg["Solver"] = dict(NS_STARTUP_SOLVER)
+    return cfg
+
+
+# phase 3g: name -> (mesh, deck function, box, stage alphas or None, time
+# step); each case's weak form and row classes come from its deck at
+# 4x2x2 (hex) or 4x4 (p2), its element size from the shape; the six
+# generated sources are those of SET_ELEM_DECKS
+SET_ELEM_KERNEL_CASES = {
+    "ns+thermal pspg steady": (
+        "hex", lambda: ns_thermal_channel_deck("hex", 4), CHANNEL, None,
+        1.0),
+    "ns+cdr pspg+supg dirk22 stage 1": (
+        "hex", lambda: add_cdr(ns_elem_startup_deck("hex", 4)), CHANNEL,
+        NS_STAGE1, 0.01),
+    "ns+thermal advected pspg+supg dirk22 stage 1": (
+        "p2", lambda: ns_thermal_stage_deck("p2"), CHANNEL, NS_STAGE1,
+        0.01),
+    "ns viscosity 1 + 0.1 ux^2 pspg steady": (
+        "hex", lambda: ns_elem_visc_deck(4), CHANNEL, None, 1.0),
+    "thermal+cdr kappa = 1 + e*c steady": (
+        "p2", lambda: thermal_cdr_deck(4, "p2"), (1.0, 1.0), None, 1.0),
+    "cdr velocity (c, 1, 0.5) steady": (
+        "hex", lambda: cdr_deck(4, CDR3_SOURCE, vel=("c", "1.0", "0.5"),
+                                mesh="hex"), (1.0, 1.0, 1.0), None, 1.0),
+}
+SET_ELEM_SHAPES = {"hex": ((64, 64, 64), (31, 23, 15)),
+                   "p2": ((512, 128), (250, 61))}
+
+
+def set_elem_case(name, h):
+    """(SetForm at element size h, SetScalars, jac_idx, Stage or None) of
+    a phase 3g case, from its deck at 4x2x2 / 4x4 on the CPU."""
+    from mrhyde_tpu_torch.ops.fused_p1 import Stage
+    from mrhyde_tpu_torch.ops.fused_set import SetForm, SetScalars
+    from mrhyde_tpu_torch.problem import Problem
+    mesh, build, _box, alphas, dt = SET_ELEM_KERNEL_CASES[name]
+    fused = Problem(_small(build(), mesh), device="cpu",
+                    dtype=torch.float64).assembler.fused_provider()
+    f = fused.form
+    form = SetForm(f.modules, f.fm, f.variables, f.params, h, f.transient,
+                   f.dim, f.nc)
+    sc = SetScalars(0.0125, dt, ())
+    au, at = alphas or (1.0, 0.0)
+    jac_idx = fused._classify(sc, au, at, alphas is None)[0]
+    return form, sc, jac_idx, None if alphas is None else Stage(au, at,
+                                                                None)
+
+
+def phase_set_elem_kernels(device, shapes=SET_ELEM_SHAPES):
+    """set_elem_full (each case's generated kernel) against its plain
+    version (residual rows and Jacobian rows each within rtol of its max
+    |plain|) on hex and p2, f64 and f32, with CUDA-event medians of 20
+    (kernel), the plain version's one check call and the bound of each
+    case. Returns {case: its f64 record at the first (divisible) shape}."""
+    import math
+    from mrhyde_tpu_torch.ops import fused_set as fs
+    summary = {}
+    for name, (mesh, _build, box, _alphas, _dt) in \
+            SET_ELEM_KERNEL_CASES.items():
+        for dtype, rtol in ((torch.float64, 1e-12), (torch.float32, 1e-5)):
+            for i, dims in enumerate(shapes[mesh]):
+                gen = torch.Generator(device=device).manual_seed(2468)
+                tab, lat, q_off = elem_tables(mesh, dims, device, dtype,
+                                              box)
+                form, sc, jac_idx, stage = set_elem_case(
+                    name, math.fsum(tab.wts) ** (1.0 / tab.dim))
+                geo = ((0.0,) * tab.dim,
+                       tuple(b / n for b, n in zip(box, dims)), q_off)
+                ue, ud = set_inputs(len(form.variables), dims, lat, device,
+                                    dtype, gen, stage)
+                args = (form, ue, ud, sc, tab, lat, geo, jac_idx, stage)
+                ref, plain_ms = timed(lambda: fs.set_elem_full_plain(*args))
+                out = fs.set_elem_full(*args)
+                torch.cuda.synchronize()
+                errs = [max_err(o, r) for o, r in zip(out, ref)]
+                del out, ref
+                err = max(e for e, _ in errs)
+                ok = all(e <= rtol * sc_ for e, sc_ in errs)
+                nbytes, nflops = set_elem_work(dims, dtype, *args)
+                rec = {"phase": "kernels_set_elem",
+                       "kernel": "set_elem_full", "case": name,
+                       "mesh": mesh,
+                       "dtype": str(dtype).replace("torch.", ""),
+                       "shape": list(dims),
+                       "variables": list(form.variables),
+                       "nd": len(form.variables) * len(lat.offsets),
+                       "jac_rows": len(jac_idx), "max_abs_err": err,
+                       "max_abs_err_res": errs[0][0],
+                       "max_abs_plain_res": errs[0][1],
+                       "max_abs_err_jac": errs[1][0],
+                       "max_abs_plain_jac": errs[1][1], "rtol": rtol,
+                       "ok": ok,
+                       "ms": cuda_ms(lambda: fs.set_elem_full(*args)),
+                       "plain_ms": plain_ms,
+                       **bound(nbytes, nflops, dtype)}
+                rec["share"] = rec["bound_ms"] / rec["ms"]
+                emit(rec)
+                if not ok:
+                    raise SystemExit(f"set_elem_full {name} disagrees with "
+                                     f"its plain version: {rec}")
+                if dtype == torch.float64 and i == 0:
+                    summary[name] = rec
+    return summary
+
+
 ADVECT_SHAPES = (("p1", KERNEL_SHAPES[0]), ("p1", KERNEL_SHAPES[1]),
                  *ELEM_SHAPES)
 
@@ -1352,9 +1604,9 @@ def phase_advect_kernels(device):
     kappa = 1 + e*e inputs, each steady and at DIRK-2,2 stage-1 alphas
     with m = 1 (cdr), with the velocity (2, 1[, 0.5]) scalar and the
     rotating field (-4 (y - 0.5), 4 (x - 0.5)[, 0.5 + 0.25 z]) per qp;
-    CUDA-event medians of 20 (plain: 5). Returns the quoted case of each
-    kernel: f64, the steady scalar velocity (the main path's case), B2
-    at 1024^2 and B1 on hex at 128^3."""
+    CUDA-event medians of 20 (plain: its one check call). Returns the
+    quoted case of each kernel: f64, the steady scalar velocity (the main
+    path's case), B2 at 1024^2 and B1 on hex at 128^3."""
     from mrhyde_tpu_torch.ops import fused_p1 as fp
     summary = {}
     for dtype, rtol in ((torch.float64, 1e-12), (torch.float32, 1e-5)):
@@ -1391,7 +1643,8 @@ def phase_advect_kernels(device):
                 def plain():
                     return advect_call(mesh, kind, True, head, tab, lat,
                                        stage, vel)
-                out, ref = kern(), plain()
+                ref, plain_ms = timed(plain)
+                out = kern()
                 torch.cuda.synchronize()
                 pairs = [max_err(o, r) for o, r in
                          (zip(out, ref) if isinstance(ref, tuple)
@@ -1416,7 +1669,7 @@ def phase_advect_kernels(device):
                        "shape": list(dims), "max_abs_err": err,
                        "max_abs_plain": max(sc for _, sc in pairs),
                        "rtol": rtol, "ok": ok, "ms": cuda_ms(kern),
-                       "plain_ms": cuda_ms(plain, reps=5),
+                       "plain_ms": plain_ms,
                        **bound(nbytes, nflops, dtype)}
                 emit(rec)
                 if not ok:
@@ -1694,11 +1947,12 @@ _SET_OPS = {}
 
 
 def set_ops(form, tab, sc, stage):
-    """Operations per element of one set_node_full call, as ns_ops
-    counts them: the set's accumulation (fused_set's plain version, the
-    JAX package's sparse forward AD) on one element's stand-ins, with
-    stand-ins for the coordinates of each qp (a coefficient that reads x
-    or y differs at every qp). Cached per (form, scalars, alphas)."""
+    """Operations per element of one set_node_full or set_elem_full call,
+    as ns_ops counts them: the set's accumulation (fused_set's plain
+    version, the JAX package's sparse forward AD) on one element's
+    stand-ins (form.nc local dofs per variable), with stand-ins for the
+    coordinates of each qp (a coefficient that reads x, y or z differs
+    at every qp). Cached per (form, scalars, alphas)."""
     from types import SimpleNamespace
     from mrhyde_tpu_torch.ops import fused_set as fs
     from mrhyde_tpu_torch.ops.fused_ns import accumulate_density
@@ -1711,12 +1965,12 @@ def set_ops(form, tab, sc, stage):
     def standin():
         return torch.rand(2, generator=gen, dtype=torch.float64) + 0.5
     steady = stage is None
-    nv, Q = len(form.variables), tab.Q
-    ue = [[standin() for _ in range(4)] for _ in range(nv)]
-    ud = [[0.0 if steady else standin() for _ in range(4)]
+    nv, nc, Q = len(form.variables), form.nc, tab.Q
+    ue = [[standin() for _ in range(nc)] for _ in range(nv)]
+    ud = [[0.0 if steady else standin() for _ in range(nc)]
           for _ in range(nv)]
-    xy = [[standin(), standin()] for _ in range(Q)]
-    folded = SimpleNamespace(Q=Q, dim=2, phi=tab.phi, grad=tab.grad,
+    xy = [[standin() for _ in range(form.dim)] for _ in range(Q)]
+    folded = SimpleNamespace(Q=Q, dim=form.dim, phi=tab.phi, grad=tab.grad,
                              wts=[1.0] * Q)
     with _OpCount() as count:
         accumulate_density(ue, ud, fs._density(form, lambda q: xy[q], sc),
@@ -1738,6 +1992,19 @@ def set_work(N0, N1, dtype, form, ue, ud, sc, tab, geo, jac_idx,
     nbytes = it * (nv * nodes * (3 if ud is not None else 2)
                    + len(jac_idx) * E)
     return nbytes, E * set_ops(form, tab, sc, stage) + nv * (4 * E - nodes)
+
+
+def set_elem_work(dims, dtype, form, ue, ud, sc, tab, lat, geo, jac_idx,
+                  stage=None):
+    """(bytes, flops) of one set_elem_full call: the grids of all
+    variables (and the u_dot ones) read once, the nd residual rows and
+    the varying Jacobian rows written once; set_ops per element."""
+    import math
+    E, nd = math.prod(dims), len(form.variables) * len(lat.offsets)
+    it = torch.finfo(dtype).bits // 8
+    nbytes = it * (ue.numel() * (1 if ud is None else 2)
+                   + (nd + len(jac_idx)) * E)
+    return nbytes, E * set_ops(form, tab, sc, stage)
 
 
 def assembly_tc(problem, u, time):
@@ -1870,12 +2137,16 @@ def run_boussinesq(device):
 
 
 def set_sources():
-    """The generated kernel sources of phase 3f's cases and the module-set
-    decks (each deck's weak form at 4 x 4 on the CPU: the source does not
-    depend on the mesh), to build before any of them runs."""
+    """The generated kernel sources of phases 3f and 3g's cases and the
+    module-set decks (each deck's weak form at its size 4 on the CPU: the
+    source does not depend on the mesh size), to build before any of them
+    runs."""
     from mrhyde_tpu_torch.problem import Problem
     texts = [set_case(name, 1.0)[0].source for name in SET_KERNEL_CASES]
-    for build in [boussinesq_deck] + [b for b, *_ in SET_DECKS.values()]:
+    texts += [set_elem_case(name, 1.0)[0].source
+              for name in SET_ELEM_KERNEL_CASES]
+    for build in [boussinesq_deck] + [b for b, *_ in SET_DECKS.values()] \
+            + [b for b, *_ in SET_ELEM_DECKS.values()]:
         fused = Problem(build(4), device="cpu", dtype=torch.float64) \
             .assembler.fused_provider()
         texts.append(fused.form.source)
@@ -1921,6 +2192,8 @@ def main():
     advect = phase_advect_kernels(device)
     summary["ns_elem_full"] = phase_ns_elem_kernels(device)
     summary["set_node_full"] = phase_set_kernels(device)
+    set_elem = phase_set_elem_kernels(device)
+    summary["set_elem_full"] = set_elem["ns+cdr pspg+supg dirk22 stage 1"]
 
     per_deck = [
         run_deck("gold_nx40", deck(40), device,
@@ -1967,10 +2240,6 @@ def main():
     ] + [
         run_deck(name, build(n), device, [(t, var, ref, 1e-4)], mode)
         for name, (build, n, t, var, mode, ref) in HEX_DECKS.items()] + [
-        run_deck("hex_transient_nonlinear_bdf2_nx48",
-                 hex_transient_deck(48, BDF2_SOLVER, "1.0 + e*e",
-                                    SOURCE3_T_NL),
-                 device, [(0.2, "e", HEX_BDF2_NL_L2, 1e-4)], "elem_full"),
         run_deck("p2_default_nx256",
                  p2_deck(256, solver={"nonlinear TOL": 1e-10}), device,
                  [(0.0, "e", P2_DEFAULT_L2, 1e-4)], "elem_state"),
@@ -1993,7 +2262,11 @@ def main():
         run_deck(name, build(n), device,
                  [(t, v, g, rtol) for t, ref in refs.items()
                   for v, g in ref.items()], "set_node_full")
-        for name, (build, n, rtol, refs) in SET_DECKS.items()]
+        for name, (build, n, rtol, refs) in SET_DECKS.items()] + [
+        run_deck(name, build(n), device,
+                 [(t, v, g, rtol) for t, ref in refs.items()
+                  for v, g in ref.items()], "set_elem_full")
+        for name, (build, n, rtol, refs) in SET_ELEM_DECKS.items()]
     launches = {k: sum(d[k] for d in per_deck) for k in fp.LAUNCHES}
     advect_launches = {k: sum(d[k] for d in advect_decks)
                        for k in fp.LAUNCHES}
@@ -2011,9 +2284,10 @@ def main():
     csrc = "mrhyde_tpu_torch/ops/csrc/"
     kernels = []
     # no single PyTorch call computes a node-scatter or an element-tile
-    # assembly: library_ms is null for all seven. The four thermal kernels
+    # assembly: library_ms is null for all eight. The four thermal kernels
     # report their advection (ADVECT) case and its launches beside: the
-    # cdr and thermal-advection decks' share of `launches`.
+    # cdr and thermal-advection decks' share of `launches`; set_elem_full
+    # reports every phase 3g case (f64, the divisible shape) beside.
     for name, mode, src, line in (
             ("thermal_node_state", "state", "fused_p1_thermal.cu", 1350),
             ("thermal_node_full", "full", "fused_p1_thermal.cu", 1350),
@@ -2023,7 +2297,8 @@ def main():
             ("thermal_elem_full", "elem_full", "fused_elem_thermal.cu",
              1303),
             ("ns_elem_full", "ns_elem_full", "fused_elem_ns.cu", 1303),
-            ("set_node_full", "set_node_full", "set_node.cuh", 1350)):
+            ("set_node_full", "set_node_full", "set_node.cuh", 1350),
+            ("set_elem_full", "set_elem_full", "set_elem.cuh", 1303)):
         rec = summary[name]
         kernels.append({"name": name, "route": "cuda", "source": csrc + src,
                         "replaces": f"mrhyde_tpu/ops/fused_p1.py:{line}",
@@ -2040,6 +2315,12 @@ def main():
                 "max_abs_err": a["max_abs_err"], "ms": a["ms"],
                 "plain_ms": a["plain_ms"], "bound_ms": a["bound_ms"],
                 "bound_by": a["bound_by"], "library_ms": None}
+        if name == "set_elem_full":
+            kernels[-1]["cases"] = [
+                {k: c[k] for k in ("case", "mesh", "shape", "nd",
+                                   "jac_rows", "max_abs_err", "ms",
+                                   "plain_ms", "bound_ms", "bound_by")}
+                for c in set_elem.values()]
     emit({"kernels": kernels})
     print(smi, flush=True)
     emit({"ok": True, "device": {"platform": "gpu",

@@ -1,21 +1,22 @@
 """C++ code of the function DSL's expressions, for the generated kernels.
 
-The module-set kernel (ops/csrc/set_node.cuh) evaluates each deck's
+The module-set kernels (ops/csrc/set_node.cuh on 2D p1 quads,
+ops/csrc/set_elem.cuh on 3D hex and 2D p2 quads) evaluate each deck's
 coefficient expressions inside the kernel, as the JAX package's kernel
 traces them: `expr_code` turns an `Expr` AST (functions/parser.py), with
 the deck's named functions inlined through the FunctionManager, into a
 C++ expression over the kernel's scalar type `S` (a plain T or a
 Dual<T, 1> of csrc/dual.cuh), and `density_source` writes the whole
 generated translation unit of one deck: its coefficients, the modules'
-densities and the kernel's entry points.
+densities (in the deck's dimension) and the kernel's entry points.
 
 Node by node:
 - numbers: `T(...)` literals with 17 significant digits; `pi` and every
   constant subtree fold here, with the port's evaluator (Python floats,
   as JAX folds them at trace time);
-- `x`, `y`: the quadrature point's coordinates (kernel arguments of the
-  density); `t` and the deck's scalar parameters: kernel arguments, so a
-  new time or step size rebuilds nothing;
+- `x`, `y` (and `z` in 3D): the quadrature point's coordinates (kernel
+  arguments of the density); `t` and the deck's scalar parameters:
+  kernel arguments, so a new time or step size rebuilds nothing;
 - a variable name: the state at the point, of type S, so duals carry
   the derivative;
 - + - * / and unary minus: C++ operators; ^ and the DSL's functions:
@@ -123,15 +124,15 @@ def expr_code(expr, leaf_code):
     raise Unsupported(f"node {k!r} {expr.value!r}")
 
 
-def leaf_coder(variables, params):
-    """leaf_code for the kernel's density: coordinates, t, the scalar
-    parameters (sc[1 + 2 + i]: after t, beta, T_ambient) and the
-    variables' states u[i]."""
+def leaf_coder(variables, params, dim=2):
+    """leaf_code for the kernel's density in `dim` dimensions:
+    coordinates (x, y[, z]), t, the scalar parameters (sc[1 + 2 + i]:
+    after t, beta, T_ambient) and the variables' states u[i]."""
     var_idx = {v: i for i, v in enumerate(variables)}
     par_idx = {p: i for i, p in enumerate(params)}
 
     def code(leaf):
-        if leaf in ("x", "y"):
+        if leaf in ("x", "y", "z")[:dim]:
             return leaf
         if leaf == "t":
             return "t"
@@ -143,25 +144,30 @@ def leaf_coder(variables, params):
     return code
 
 
-def _module_code(mi, kind, names, coef, var_idx, nv, buoy_var):
+def _module_code(mi, kind, names, coef, var_idx, nv, buoy_var, dim):
     """The density call of module mi into `m{mi}` and the copies of its
     outputs into `out`: kind is "ns", "thermal" or "cdr", names the
     module's variables, coef its coefficient roles' generated values,
-    buoy_var the temperature of the Boussinesq term or None."""
+    buoy_var the temperature of the Boussinesq term or None, dim the
+    deck's dimension."""
     lines = []
     if kind == "ns":
-        i = [var_idx[v] for v in ("ux", "uy", "pr")]
-        lines.append(f"    S m{mi}[9];")
+        n = dim + 1
+        i = [var_idx[v] for v in ("ux", "uy", "uz")[:dim] + ("pr",)]
+
+        def row(name):
+            return ", ".join(f"{name}[{j}]" for j in i)
+        lines.append(f"    S m{mi}[{n * n}];")
         lines.append("    {")
-        lines.append(f"      S un[3] = {{u[{i[0]}], u[{i[1]}], u[{i[2]}]}};")
-        lines.append(f"      S udn[3] = {{ud[{i[0]}], ud[{i[1]}], "
-                     f"ud[{i[2]}]}};")
-        lines.append("      S gn[3][2] = {" + ", ".join(
-            f"{{g[{j}][0], g[{j}][1]}}" for j in i) + "};")
-        lines.append(f"      const C src[2] = {{lift<C>({coef['src'][0]}), "
-                     f"lift<C>({coef['src'][1]})}};")
+        lines.append(f"      S un[{n}] = {{{row('u')}}};")
+        lines.append(f"      S udn[{n}] = {{{row('ud')}}};")
+        lines.append(f"      S gn[{n}][{dim}] = {{" + ", ".join(
+            "{" + ", ".join(f"g[{j}][{d}]" for d in range(dim)) + "}"
+            for j in i) + "};")
+        lines.append(f"      const C src[{dim}] = {{" + ", ".join(
+            f"lift<C>({c})" for c in coef["src"]) + "};")
         if buoy_var is None:
-            lines.append(f"      ns_density<TR, 2, S, C>(un, udn, gn, "
+            lines.append(f"      ns_density<TR, {dim}, S, C>(un, udn, gn, "
                          f"lift<C>({coef['rho']}), lift<C>({coef['visc']}), "
                          f"src, T(a.h), T(a.tau_dt2), a.pspg, a.supg, "
                          f"m{mi});")
@@ -169,49 +175,54 @@ def _module_code(mi, kind, names, coef, var_idx, nv, buoy_var):
             lines.append(f"      const S buoy = lift<S>(({coef['rho']} * "
                          f"T(a.sc[1])) * (u[{var_idx[buoy_var]}] - "
                          f"T(a.sc[2])));")
-            lines.append(f"      ns_density<TR, 2, S, C, true>(un, udn, gn, "
-                         f"lift<C>({coef['rho']}), lift<C>({coef['visc']}), "
-                         f"src, T(a.h), T(a.tau_dt2), a.pspg, a.supg, "
-                         f"m{mi}, buoy);")
+            lines.append(f"      ns_density<TR, {dim}, S, C, true>(un, udn, "
+                         f"gn, lift<C>({coef['rho']}), "
+                         f"lift<C>({coef['visc']}), src, T(a.h), "
+                         f"T(a.tau_dt2), a.pspg, a.supg, m{mi}, buoy);")
         lines.append("    }")
-        outs = [(i[v], v) for v in range(3)]
-        fl = [(i[v], d, 3 + 2 * v + d) for v in range(3) for d in range(2)]
+        outs = [(i[v], v) for v in range(n)]
+        fl = [(i[v], d, n + dim * v + d) for v in range(n)
+              for d in range(dim)]
     else:
         (v,) = names
         j = var_idx[v]
-        lines.append(f"    S m{mi}[3];")
+        lines.append(f"    S m{mi}[{1 + dim}];")
         b = coef["b"]
         adv = "true" if b else "false"
-        b0, b1 = (b if b else ("T(0)", "T(0)"))
+        # 2D and 3D have functions of their own (scalar_density.cuh says
+        # why)
+        bs = ", ".join(tuple(b) if b else ("T(0)",) * dim)
+        fn = "" if dim == 2 else "_3d"
         if kind == "thermal":
-            lines.append(f"    thermal_density<{adv}, S>(u[{j}], ud[{j}], "
-                         f"g[{j}], {coef['rho']}, {coef['cp']}, "
-                         f"{coef['f']}, {coef['kappa']}, {b0}, {b1}, "
-                         f"m{mi});")
+            lines.append(f"    thermal_density{fn}<{adv}, S>(u[{j}], "
+                         f"ud[{j}], g[{j}], {coef['rho']}, {coef['cp']}, "
+                         f"{coef['f']}, {coef['kappa']}, {bs}, m{mi});")
         else:
-            lines.append(f"    cdr_density<S>(u[{j}], ud[{j}], g[{j}], "
+            lines.append(f"    cdr_density{fn}<S>(u[{j}], ud[{j}], g[{j}], "
                          f"{coef['diff']}, {coef['rho']}, {coef['cp']}, "
-                         f"{coef['reaction']}, {coef['f']}, {b0}, {b1}, "
+                         f"{coef['reaction']}, {coef['f']}, {bs}, "
                          f"m{mi});")
         outs = [(j, 0)]
-        fl = [(j, d, 1 + d) for d in range(2)]
+        fl = [(j, d, 1 + d) for d in range(dim)]
     assign = [f"    out[{vi}] = m{mi}[{k}];" for vi, k in outs]
-    assign += [f"    out[{nv} + {vi} * 2 + {d}] = m{mi}[{k}];"
+    assign += [f"    out[{nv} + {vi} * {dim} + {d}] = m{mi}[{k}];"
                for vi, d, k in fl]
     return lines + assign
 
 
-def density_struct(modules, variables, params, fm):
-    """The C++ struct `GenDensity` of one module set on 2D p1 quads: its
-    static `eval<TR, S>` evaluates the deck's coefficients and sums the
-    modules' densities (ns_density.cuh, scalar_density.cuh) into the
-    kernel's outputs [S_v for v] + [F_v,d for v for d]. `modules`: the
-    physics modules in the deck's order; `variables`: the variable names
-    in the kernel's order; `params`: the scalar parameter names in sc
-    order. Raises Unsupported where a coefficient has no C++ form."""
+def density_struct(modules, variables, params, fm, dim=2):
+    """The C++ struct `GenDensity` of one module set in `dim` dimensions:
+    its static `eval<TR, S>` takes the state, its time derivative and
+    gradient g[v][d] and the qp's dim coordinates, evaluates the deck's
+    coefficients and sums the modules' densities (ns_density.cuh,
+    scalar_density.cuh) into the kernel's outputs [S_v for v] + [F_v,d
+    for v for d]. `modules`: the physics modules in the deck's order;
+    `variables`: the variable names in the kernel's order; `params`: the
+    scalar parameter names in sc order. Raises Unsupported where a
+    coefficient has no C++ form."""
     nv = len(variables)
     var_idx = {v: i for i, v in enumerate(variables)}
-    code = leaf_coder(variables, params)
+    code = leaf_coder(variables, params, dim)
     body, decl = [], []
     # C, the NS coefficients' type: S where one reads the state
     coef_type = "T"
@@ -238,18 +249,21 @@ def density_struct(modules, variables, params, fm):
                 coef_type = "S"
         names = [v for v, _s, _o in m.variables()]
         buoy = "e" if kind == "ns" and "e" in var_idx else None
-        body += _module_code(mi, kind, names, out, var_idx, nv, buoy)
+        body += _module_code(mi, kind, names, out, var_idx, nv, buoy, dim)
+    xyz = ("x", "y", "z")[:dim]
     return "\n".join([
         "struct GenDensity {",
         "  template <bool TR, typename S>",
         "  __device__ __forceinline__ static void eval(",
-        f"      const S u[{nv}], const S ud[{nv}], const S g[{nv}][2],",
-        "      typename Passive<S>::type x, typename Passive<S>::type y,",
-        f"      const SetArgs& a, S out[{3 * nv}]) {{",
+        f"      const S u[{nv}], const S ud[{nv}], const S g[{nv}][{dim}],",
+        "      " + ", ".join(f"typename Passive<S>::type {c}"
+                             for c in xyz) + ",",
+        f"      const SetArgs& a, S out[{(1 + dim) * nv}]) {{",
         "    using T = typename Passive<S>::type;",
         f"    using C = {coef_type};",
         "    const T t = T(a.sc[0]);",
-        "    (void)x; (void)y; (void)t; (void)ud;",
+        "    " + " ".join(f"(void){c};" for c in xyz)
+        + " (void)t; (void)ud;",
         *decl,
         *body,
         "  }",
@@ -257,27 +271,42 @@ def density_struct(modules, variables, params, fm):
     ])
 
 
-def density_source(modules, variables, params, fm):
-    """The generated translation unit of one module set: the set_node.cuh
-    kernel template completed with the deck's `density_struct` and its
-    entry points."""
-    return "\n".join([
-        "// Generated by mrhyde_tpu_torch/functions/codegen.py: the qp",
-        "// density of one module set for the node-scatter kernel",
-        "// set_node_full (ops/csrc/set_node.cuh). Do not edit.",
+def density_source(modules, variables, params, fm, dim=2, nc=4):
+    """The generated translation unit of one module set: on 2D p1 quads
+    (dim 2, nc 4) the set_node.cuh kernel template (set_node_full), on 3D
+    hex (dim 3, nc 8) and 2D p2 quads (dim 2, nc 9) the set_elem.cuh one
+    (set_elem_full), completed with the deck's `density_struct` and
+    their entry points."""
+    node = (dim, nc) == (2, 4)
+    if not node and (dim, nc) not in ((3, 8), (2, 9)):
+        raise Unsupported(f"no module-set kernel for dim {dim}, nc {nc}")
+    head = ["// Generated by mrhyde_tpu_torch/functions/codegen.py: the qp"]
+    if node:
+        head += ["// density of one module set for the node-scatter kernel",
+                 "// set_node_full (ops/csrc/set_node.cuh). Do not edit."]
+        defs = [f"#define SET_NV {len(variables)}",
+                '#include "set_node.cuh"']
+        entry = "SET_NODE_ENTRY_POINTS(GenDensity)"
+    else:
+        head += ["// density of one module set for the element-tile kernel",
+                 "// set_elem_full (ops/csrc/set_elem.cuh). Do not edit."]
+        defs = [f"#define SET_NV {len(variables)}",
+                f"#define SET_DIM {dim}", f"#define SET_NC {nc}",
+                '#include "set_elem.cuh"']
+        entry = "SET_ELEM_ENTRY_POINTS(GenDensity)"
+    return "\n".join(head + [
         f"// modules: {', '.join(m.name for m in modules)}; variables: "
         f"{', '.join(variables)}; parameters: {', '.join(params) or '-'}",
         "",
-        f"#define SET_NV {len(variables)}",
-        '#include "set_node.cuh"',
+        *defs,
         "",
         "namespace {",
         "",
-        density_struct(modules, variables, params, fm),
+        density_struct(modules, variables, params, fm, dim),
         "",
         "}  // namespace",
         "",
-        "SET_NODE_ENTRY_POINTS(GenDensity)",
+        entry,
         "",
     ])
 

@@ -10,8 +10,9 @@ returns the `cudaGetLastError()` of its launch. A missing `nvcc` or a
 failed build raises: the card never runs anything but the kernels built
 here.
 
-The module-set kernel is generated per deck (functions/codegen.py): its
-source, which includes the kernel template `csrc/set_node.cuh`, goes to
+The module-set kernels are generated per deck (functions/codegen.py): a
+source, which includes the kernel template `csrc/set_node.cuh` (2D p1
+quads) or `csrc/set_elem.cuh` (hex and p2 quads), goes to
 `ops/build/gen/<sha of its text>.cu` and builds with the same flags into
 `ops/build/gen/lib<sha>.so` at the first use of that text (stale when a
 `csrc/*.cuh` header is newer); `load_generated` loads each such library
@@ -197,9 +198,9 @@ def build_generated(texts):
 
 
 def load_generated(text):
-    """The bound entry points (set_node_full_f64, set_node_full_f32) of
-    the library of one generated source, building it first if it is
-    missing or stale."""
+    """The bound entry points of the library of one generated source
+    (set_node_full_f64 and _f32, or set_elem_full_f64 and _f32: those it
+    defines), building it first if it is missing or stale."""
     src, lib = _gen_paths(text)
     with _lock:
         if lib in _state["gen"]:
@@ -209,7 +210,10 @@ def load_generated(text):
         if lib not in _state["gen"]:
             cdll = ctypes.CDLL(lib)
             fns = {}
-            for name in ("set_node_full_f64", "set_node_full_f32"):
+            for name in ("set_node_full_f64", "set_node_full_f32",
+                         "set_elem_full_f64", "set_elem_full_f32"):
+                if not hasattr(cdll, name):
+                    continue
                 fn = getattr(cdll, name)
                 fn.argtypes = [_P, _P]
                 fn.restype = ctypes.c_int

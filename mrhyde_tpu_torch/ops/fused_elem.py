@@ -52,7 +52,7 @@ from mrhyde_tpu_torch.ops._launch import (LAUNCHES, check_qp, coeff_args,
 __all__ = ["Lattice", "thermal_elem_state", "thermal_elem_full",
            "thermal_elem_state_plain", "thermal_elem_full_plain",
            "basis_lattice", "elem_dims", "corner_values", "scatter_rows",
-           "fine_lattice_maps"]
+           "fine_lattice_maps", "structured_lattice", "scatter_dofs"]
 
 # (dim, nc) pairs the CUDA kernels are instantiated for: hex p1, quad p2
 KERNEL_CASES = ((3, 8), (2, 9))
@@ -230,6 +230,36 @@ def thermal_elem_full_plain(grid, S, dS, K, dK, tab, lat, stage=None,
                 k = c * nc + cp
                 jac[k] = w * a if jac[k] is None else jac[k] + w * a
     return torch.stack(rows), torch.stack(jac)
+
+
+def structured_lattice(asm, dims, starts):
+    """(Lattice, grid shape, fine_idx, dof2fine) of a uniform structured
+    problem whose variables start at `starts`: a p1 plan reads each
+    variable's node grid (fine_idx and dof2fine None), a p2 plan its fine
+    lattice through one gather (fine_idx (n_var, *lattice) the global
+    dofs, dof2fine the lattice point of each variable's dofs; device
+    tensors)."""
+    s = asm._structured
+    if s["plan"][0][0] == "p1":
+        return (Lattice(tuple(tuple(c) for c in s["corners"]), 1),
+                tuple(d + 1 for d in dims), None, None)
+    lat = basis_lattice(asm.disc.mesh.cell_type, 2)
+    fine, d2f = fine_lattice_maps(asm.disc.lids, dims, lat, starts)
+    return (lat, fine.shape[1:], torch.as_tensor(fine, device=asm.device),
+            [torch.as_tensor(d, device=asm.device) for d in d2f])
+
+
+def scatter_dofs(res, r, starts, lat, dims, like, dof2fine=None):
+    """Adds the (n_var nc, E) residual rows of an element kernel, summed
+    to each variable's grid (and on a p2 fine lattice through dof2fine
+    to its dofs), into the dof vector r at each variable's start."""
+    nc = len(lat.offsets)
+    for vi, st in enumerate(starts):
+        grid = scatter_rows(res[vi * nc:(vi + 1) * nc], lat, dims,
+                            like).reshape(-1)
+        if dof2fine is not None:
+            grid = grid[dof2fine[vi]]
+        r[st:st + grid.numel()] = grid
 
 
 # ----------------------------------------------------------------------

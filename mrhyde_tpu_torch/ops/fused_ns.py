@@ -534,23 +534,13 @@ class FusedNSAssembly:
                                  f"{[*VARS[:self.dim], 'pr']}")
         # the JAX package's use_node: 2D p1 takes B2, the rest B1
         self.node = self.dim == 2 and kind == "p1"
-        self.fine_idx = self.dof2fine = None
-        if kind == "p1":
-            self.lattice = fe.Lattice(tuple(tuple(c) for c in s["corners"]),
-                                      1)
-            self.grid_shape = tuple(d + 1 for d in self.dims)
-            ng = math.prod(self.grid_shape)
-            if starts != [starts[0] + i * ng for i in range(self.nv)]:
-                raise AssertionError("NS variables are not in consecutive "
-                                     "node-grid blocks")
-        else:
-            self.lattice = fe.basis_lattice(asm.disc.mesh.cell_type, 2)
-            fine, d2f = fe.fine_lattice_maps(asm.disc.lids, self.dims,
-                                             self.lattice, starts)
-            self.grid_shape = fine.shape[1:]
-            self.fine_idx = torch.as_tensor(fine, device=asm.device)
-            self.dof2fine = [torch.as_tensor(d, device=asm.device)
-                             for d in d2f]
+        (self.lattice, self.grid_shape, self.fine_idx,
+         self.dof2fine) = fe.structured_lattice(asm, self.dims, starts)
+        ng = math.prod(self.grid_shape)
+        if kind == "p1" and starts != [starts[0] + i * ng
+                                       for i in range(self.nv)]:
+            raise AssertionError("NS variables are not in consecutive "
+                                 "node-grid blocks")
         self.starts = starts
         self.start = starts[0]
         self.nc = len(self.lattice.offsets)
@@ -570,11 +560,11 @@ class FusedNSAssembly:
 
     @staticmethod
     def build(asm):
-        """The NS provider of a qualifying deck; on 2D p1 quads, the
-        module-set provider (ops/fused_set.py) for NS in a set or with a
-        coefficient that reads the state, which raise NotImplementedError
-        on hex and p2 quads; None where the deck takes the general
-        path."""
+        """The NS provider of a qualifying deck; the module-set provider
+        (ops/fused_set.py) for NS in a set or with a coefficient that
+        reads the state; None where the deck takes the general path. An
+        NS coefficient that reads a gradient, a time derivative or z in
+        2D raises NotImplementedError."""
         disc = asm.disc
         cell = disc.mesh.cell_type
         s = asm._structured
@@ -585,7 +575,9 @@ class FusedNSAssembly:
         if not (kinds == {"p1"} and cell in ("quad", "hex")
                 or kinds == {"p2"} and cell == "quad"):
             return None
-        reads = []
+        # NS in a set, or a coefficient that reads the state: the
+        # module-set provider
+        in_set = len(asm.modules) != 1
         for name in COEFFS[:2 + len(s["dims"])]:
             for leaf in asm.fm.terminal_leaves(name):
                 if leaf.startswith("grad(") or (
@@ -596,20 +588,11 @@ class FusedNSAssembly:
                         "NS coefficients that read the state's gradient or "
                         "time derivative (and z in 2D) are not ported to "
                         f"mrhyde_tpu_torch yet (ROADMAP {NS_REMAINDER})")
-                if leaf in disc.var_names:
-                    reads.append(f"the NS coefficient {name!r} reads "
-                                 f"{leaf!r}")
-        if len(asm.modules) != 1:
-            reads.append("navier stokes with other modules "
-                         f"({[m.name for m in asm.modules]})")
-        if not reads:
+                in_set = in_set or leaf in disc.var_names
+        if not in_set:
             return FusedNSAssembly(asm)
-        if kinds == {"p1"} and cell == "quad":
-            from mrhyde_tpu_torch.ops.fused_set import FusedSetAssembly
-            return FusedSetAssembly.build(asm)
-        raise NotImplementedError(
-            f"{'; '.join(reads)}: on hex and p2 quads this is not ported "
-            "to mrhyde_tpu_torch yet (ROADMAP B-2/B-3 on B1)")
+        from mrhyde_tpu_torch.ops.fused_set import FusedSetAssembly
+        return FusedSetAssembly.build(asm)
 
     # ------------------------------------------------------------------
 
@@ -622,16 +605,6 @@ class FusedNSAssembly:
         n = math.prod(self.grid_shape)
         return v[self.start:self.start + self.nv * n].reshape(
             self.nv, *self.grid_shape)
-
-    def _scatter(self, res, r, like):
-        """Adds the (nd, E) residual rows of the element kernel, summed to
-        each variable's grid, into the dof vector r."""
-        for vi, st in enumerate(self.starts):
-            grid = fe.scatter_rows(res[vi * self.nc:(vi + 1) * self.nc],
-                                   self.lattice, self.dims, like).reshape(-1)
-            if self.dof2fine is not None:
-                grid = grid[self.dof2fine[vi]]
-            r[st:st + grid.numel()] = grid
 
     def _form(self, tc):
         m = self.module
@@ -734,7 +707,8 @@ class FusedNSAssembly:
         else:
             res, jac = ns_elem_full(ue, ud, coeffs, self.tables,
                                     self.lattice, form, jac_idx, stage)
-            self._scatter(res, r, ue[0])
+            fe.scatter_dofs(res, r, self.starts, self.lattice, self.dims,
+                            ue[0], self.dof2fine)
         rows = rows_of(jac_idx, consts, jac, self.nd, asm.dtype, asm.device)
         return torch.where(asm.fixed, 0.0, r), rows
 

@@ -48,7 +48,7 @@ kernels (`csrc/fused_p1_thermal.cu`), each with an ADVECT variant:
 The velocity is evaluated once per stage, a Python float per component
 where it is constant, else an (E, Q) tensor: the kernels take b as data.
 A velocity that reads the state, and a set of thermal and cdr modules,
-take the module-set provider of ops/fused_set.py on 2D p1 quads.
+take the module-set provider of ops/fused_set.py.
 
 A steady call keeps its specialization, as the JAX package's
 `_steady_check` does: no beta is read and there is no mass lane.
@@ -412,12 +412,11 @@ class FusedP1Assembly:
     def build(asm):
         """The fused provider of a qualifying problem: this provider for
         one thermal or cdr module, the Navier-Stokes one (ops/fused_ns.py)
-        for an NS deck, and on 2D p1 quads the module-set one
-        (ops/fused_set.py) for a set of thermal and cdr modules or a
-        velocity that reads the state; None where the problem takes the
-        general path. A velocity that reads the state raises
-        NotImplementedError on hex and p2 quads, and so does one that
-        reads a gradient or a time derivative."""
+        for an NS deck, and the module-set one (ops/fused_set.py) for a
+        set of thermal and cdr modules or a velocity that reads the
+        state; None where the problem takes the general path. A velocity
+        that reads a gradient or a time derivative raises
+        NotImplementedError."""
         from mrhyde_tpu_torch.physics.cdr import CDR
         from mrhyde_tpu_torch.physics.navierstokes import NavierStokes
         from mrhyde_tpu_torch.physics.thermal import Thermal
@@ -433,13 +432,9 @@ class FusedP1Assembly:
         if not asm.uniform or not all(isinstance(m, (Thermal, CDR))
                                       for m in asm.modules):
             return None
-        # 2D p1 quads: the node-scatter kernels (B2)
-        node = cell == "quad" and {k for (k, _n, _st) in s["plan"]} \
-            == {"p1"}
         if len(asm.modules) != 1 or len(s["plan"]) != 1:
-            # a set of thermal and cdr modules: B2's module-set kernel;
-            # the general path on hex and p2 quads
-            return FusedSetAssembly.build(asm) if node else None
+            # a set of thermal and cdr modules: the module-set kernels
+            return FusedSetAssembly.build(asm)
         module = asm.modules[0]
         var = module.variables()[0][0]
         leaves = {k: set().union(*(asm.fm.terminal_leaves(n) for n in names))
@@ -452,12 +447,7 @@ class FusedP1Assembly:
                 f"ported to mrhyde_tpu_torch yet (ROADMAP A10, CDR "
                 f"remainder)")
         if var in leaves["velocity"]:
-            if node:
-                return FusedSetAssembly.build(asm)
-            raise NotImplementedError(
-                f"an advection velocity that reads the state "
-                f"({sorted(leaves['velocity'])}) on hex and p2 quads is not "
-                f"ported to mrhyde_tpu_torch yet (ROADMAP B-2/B-3 on B1)")
+            return FusedSetAssembly.build(asm)
         for ls in leaves.values():
             # state derivatives (and z in 2D) are beyond the pointwise
             # context

@@ -93,6 +93,17 @@ stage:
   *_assembly_stage  5 x res_and_jac (one set_node_full launch each), with
                   kernel_ms: set_node_full's device time per call
   *_gmres_cycle   one GMRES(40) cycle with Jacobi on that Jacobian
+
+and then the B1 module-set decks (chip_smoke.py's SET_ELEM_DECKS), each
+at its own size and at a seeded state, in the call chip_smoke.py times
+as its `assembly_ms` (assembly_tc: a BWE stage of the deck's step for
+the start-up, a steady call for the others):
+
+  <deck>_assembly  5 x res_and_jac (one set_elem_full launch each), with
+                  kernel_ms: set_elem_full's device time per call, and
+                  unprofiled_wall_ms: the median host time of one call
+                  without the profiler (5 calls, each ending in a
+                  synchronize)
 """
 
 import argparse
@@ -103,8 +114,9 @@ import time
 
 import torch
 
-from chip_smoke import (SOURCE3_NL, bdf2_nonlinear_deck, cavity_deck, deck,
-                        hex_deck, nonlinear_deck, ns_cdr_deck, ns_deck,
+from chip_smoke import (SET_ELEM_DECKS, SOURCE3_NL, assembly_tc,
+                        bdf2_nonlinear_deck, cavity_deck, deck, hex_deck,
+                        nonlinear_deck, ns_cdr_deck, ns_deck,
                         ns_elem_startup_deck, ns_startup_deck, p2_deck)
 
 
@@ -113,11 +125,11 @@ def sync(device):
         torch.cuda.synchronize()
 
 
-def profiled(name, fn, device, out_dir, per=1, kernel=None):
+def profiled(name, fn, device, out_dir, per=1, kernel=None, extra=None):
     """Runs fn() once to warm up, then once under torch.profiler, and
     prints wall and device-busy times (per `per` repetitions); with
     `kernel`, also the device time and count of the events whose name
-    holds it."""
+    holds it; `extra` joins the record."""
     from torch.autograd import DeviceType
     from torch.profiler import ProfilerActivity, profile
     fn()
@@ -141,6 +153,7 @@ def profiled(name, fn, device, out_dir, per=1, kernel=None):
         rec.update(kernel=kernel, kernel_events=len(mine) / per,
                    kernel_ms=sum(e.time_range.elapsed_us()
                                  for e in mine) / 1e3 / per)
+    rec.update(extra or {})
     print(json.dumps(rec), flush=True)
     if out_dir:
         sort = "self_cuda_time_total" if device.type == "cuda" \
@@ -363,6 +376,25 @@ def set_pieces(device, out_dir):
                  lambda: gmres(J.apply, r, m=40, tol=0.0, max_restarts=1,
                                precond=M),
                  device, out_dir, per=40)
+    for name, (build, n, _rtol, _refs) in SET_ELEM_DECKS.items():
+        p = Problem(build(n), device=device)
+        asm = p.assembler
+        u = p.bcs.apply(torch.rand(p.n_dof, generator=gen, device=device,
+                                   dtype=p.dtype) - 0.5, 0.0)
+        tc = assembly_tc(p, u, 0.0)
+        asm.res_and_jac(u, tc)
+        walls = []
+        for _ in range(5):
+            sync(device)
+            t0 = time.perf_counter()
+            asm.res_and_jac(u, tc)
+            sync(device)
+            walls.append((time.perf_counter() - t0) * 1e3)
+        profiled(f"{name}_assembly",
+                 lambda: [asm.res_and_jac(u, tc) for _ in range(5)],
+                 device, out_dir, per=5, kernel="set_elem_full",
+                 extra={"unprofiled_wall_ms": statistics.median(walls),
+                        "n_dof": p.n_dof})
 
 
 def main():

@@ -212,20 +212,20 @@ def test_cdr_defaults_and_coefficients():
 @pytest.mark.parametrize("velocity", ["c", "1.0 + c*c", "grad(c)[x]",
                                       "c_t"])
 def test_velocity_reading_the_state_raises(velocity):
-    """On hex (B1) a velocity that reads the state raises; on 2D p1 quads
-    the module-set kernel takes it (tests/test_torch_fused_set_scalar.py),
-    and a gradient or time derivative still raises there."""
+    """A velocity that reads the state's gradient or time derivative
+    raises (A10, CDR remainder) on hex and on 2D p1 quads; one that reads
+    the state itself takes the module-set provider on both
+    (tests/test_torch_fused_set_scalar.py, _set_elem.py)."""
+    from mrhyde_tpu_torch.ops.fused_set import FusedSetAssembly
     from mrhyde_tpu_torch.problem import Problem
-    cfg = cdr_cfg(2, 2, 2)
-    cfg["Functions"]["xvel"] = velocity
-    with pytest.raises(NotImplementedError,
-                       match="B-2/B-3 on B1|CDR remainder"):
-        Problem(cfg, device="cpu")
-    if "grad" in velocity or "_t" in velocity:
-        cfg = cdr_cfg(4)
+    for cfg in (cdr_cfg(2, 2, 2), cdr_cfg(4)):
         cfg["Functions"]["xvel"] = velocity
-        with pytest.raises(NotImplementedError, match="CDR remainder"):
-            Problem(cfg, device="cpu")
+        if "grad" in velocity or "_t" in velocity:
+            with pytest.raises(NotImplementedError, match="CDR remainder"):
+                Problem(cfg, device="cpu")
+        else:
+            assert isinstance(Problem(cfg, device="cpu").assembler
+                              .fused_provider(), FusedSetAssembly)
 
 
 def _tables(mesh):

@@ -706,3 +706,141 @@ def test_set_wrapper_checks_inputs_on_card():
                          Stage(*NS_STAGE1, None))
     with pytest.raises(ValueError):          # tables in another dtype
         fs.set_node_full(f.form, ue.float(), None, sc, f.tables, geo, (0,))
+
+
+# ----------------------------------------------------------------------
+# the element-tile module-set kernel set_elem_full (generated per deck)
+# ----------------------------------------------------------------------
+
+def _set_elem_cfg(name, dims):
+    """The phase 3g cases of chip_smoke.py, and NS + thermal + cdr on hex
+    (nd = 48), on an element grid `dims`."""
+    from torch_port_utils import (cdr_state_velocity_hex_cfg,
+                                  ns_cdr_elem_cfg, ns_thermal_cdr_elem_cfg,
+                                  ns_thermal_elem_cfg, thermal_cdr_p2_cfg)
+    transient = {"solver": "transient"}
+    cfg = {"ns_thermal_hex_pspg_steady": lambda: ns_thermal_elem_cfg(
+               "hex", dims),
+           "ns_cdr_hex_supg_stage": lambda: ns_cdr_elem_cfg("hex", dims),
+           "ns_thermal_cdr_hex_supg_stage": lambda: ns_thermal_cdr_elem_cfg(
+               "hex", dims, solver=transient),
+           "ns_thermal_p2_supg_stage": lambda: ns_thermal_elem_cfg(
+               "p2", dims, supg=True, solver=transient),
+           "ns_visc_ux2_hex_pspg_steady": lambda: ns_elem_cfg(
+               "hex", dims, visc="1.0 + 0.1*ux*ux"),
+           "thermal_cdr_kappa_ec_p2_steady": lambda: thermal_cdr_p2_cfg(
+               dims[0]),
+           "cdr_velocity_c_hex_steady": lambda: cdr_state_velocity_hex_cfg(
+               dims[0])}[name]()
+    cfg["Mesh"].update(zip(("NX", "NY", "NZ"), dims))
+    return cfg
+
+
+SET_ELEM_SHAPES = {"hex": [(5, 3, 2), (9, 4, 3)], "p2": [(7, 3), (17, 5)]}
+SET_ELEM_CASES = ["ns_thermal_hex_pspg_steady", "ns_cdr_hex_supg_stage",
+                  "ns_thermal_cdr_hex_supg_stage",
+                  "ns_thermal_p2_supg_stage", "ns_visc_ux2_hex_pspg_steady",
+                  "thermal_cdr_kappa_ec_p2_steady",
+                  "cdr_velocity_c_hex_steady"]
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("dtype", [torch.float64, torch.float32])
+@pytest.mark.parametrize("which", [0, 1])
+@pytest.mark.parametrize("name", SET_ELEM_CASES)
+def test_set_elem_kernel_matches_plain(name, which, dtype):
+    """set_elem_full (the deck's generated kernel) against its plain
+    version on the same seeded grids on the card: residual rows and
+    Jacobian rows, steady or at a DIRK-2,2 stage-1 call, at small odd
+    element grids (one and several blocks of 16 elements)."""
+    from mrhyde_tpu_torch.ops import fused_set as fs
+    from mrhyde_tpu_torch.ops._launch import LAUNCHES
+    from mrhyde_tpu_torch.ops.fused_p1 import Stage
+    from mrhyde_tpu_torch.problem import Problem
+    dev = _card()
+    dims = SET_ELEM_SHAPES["p2" if "_p2_" in name else "hex"][which]
+    p = Problem(_set_elem_cfg(name, dims), device=dev, dtype=dtype)
+    f = p.assembler.fused_provider()
+    assert isinstance(f, fs.FusedSetAssembly) and not f.node
+    stage = name.endswith("stage")
+    au, at = NS_STAGE1 if stage else (1.0, 0.0)
+    sc = fs.SetScalars(0.0125, 0.01 if stage else 1.0, ())
+    jac_idx = f._classify(sc, au, at, not stage)[0]
+    g = torch.Generator(device=dev).manual_seed(78)
+    grid = (f.nv,) + tuple(f.grid_shape)
+    ue = torch.rand(grid, generator=g, device=dev, dtype=dtype) - 0.5
+    ud = 20.0 * (torch.rand(grid, generator=g, device=dev, dtype=dtype)
+                 - 0.5) if stage else None
+    args = (f.form, ue, ud, sc, f.tables, f.lattice,
+            (f.origin, f.h_axes, f.q_off), jac_idx,
+            Stage(au, at, None) if stage else None)
+    before = LAUNCHES["set_elem_full"]
+    (r, j), (rp, jp) = fs.set_elem_full(*args), fs.set_elem_full_plain(*args)
+    assert LAUNCHES["set_elem_full"] == before + 1
+    assert r.shape == rp.shape == (f.nd, int(np.prod(dims)))
+    assert j.shape == jp.shape
+    assert _close(r, rp, dtype) and _close(j, jp, dtype)
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("name", ["ns_cdr_hex_supg_stage",
+                                  "ns_thermal_p2_supg_stage",
+                                  "thermal_cdr_kappa_ec_p2_steady"])
+def test_set_elem_provider_on_card_matches_cpu(name):
+    """The module-set provider on hex and p2 on CUDA (one set_elem_full
+    launch, its rows scattered) against the same call on the CPU (plain
+    version): residual and every Jacobian row, f64."""
+    from mrhyde_tpu_torch.assembly.assembler import TimeCoeffs
+    from mrhyde_tpu_torch.interop import (state_from_numpy, state_to_numpy,
+                                          time_coeffs_from_numpy)
+    from mrhyde_tpu_torch.ops import fused_p1 as fp
+    from mrhyde_tpu_torch.problem import Problem
+    dev = _card()
+    stage = name.endswith("stage")
+    dims = (7, 3) if "_p2_" in name else (5, 3, 2)
+    out = {}
+    for d in ("cpu", dev):
+        p = Problem(_set_elem_cfg(name, dims), device=d)
+        n = p.n_dof
+        tc = (time_coeffs_from_numpy(NS_STAGE1[0], seeded(n, seed=11),
+                                     NS_STAGE1[1], seeded(n, seed=12), 0.3,
+                                     0.01, p)
+              if stage else TimeCoeffs.steady(n, device=d))
+        f = p.assembler.fused_provider()
+        before = dict(fp.LAUNCHES)
+        r, rows = f.res_jac(state_from_numpy(seeded(n, seed=9), p), tc)
+        launched = {k: v - before[k] for k, v in fp.LAUNCHES.items()}
+        assert launched == {k: int(d == dev and k == "set_elem_full")
+                            for k in launched}
+        out[str(d)] = (state_to_numpy(r),
+                       [None if x is None else state_to_numpy(x)
+                        for x in rows])
+    (rc, jc), (rg, jg) = out["cpu"], out[str(dev)]
+    assert np.max(np.abs(rg - rc)) <= 1e-12 * max(1.0, np.max(np.abs(rc)))
+    for a, b in zip(jg, jc):
+        assert (a is None) == (b is None)
+        if a is not None:
+            assert np.max(np.abs(a - b)) <= 1e-12 * max(1.0,
+                                                        np.max(np.abs(b)))
+
+
+@pytest.mark.cuda
+def test_set_elem_wrapper_checks_inputs_on_card():
+    from mrhyde_tpu_torch.ops import fused_set as fs
+    from mrhyde_tpu_torch.ops.fused_p1 import Stage
+    from mrhyde_tpu_torch.problem import Problem
+    dev = _card()
+    f = Problem(_set_elem_cfg("ns_cdr_hex_supg_stage", (4, 2, 2)),
+                device=dev).assembler.fused_provider()
+    sc = fs.SetScalars(0.0, 0.01, ())
+    geo = (f.origin, f.h_axes, f.q_off)
+    ue = torch.zeros((5, 5, 3, 3), device=dev, dtype=torch.float64)
+    with pytest.raises(ValueError):          # four grids for five variables
+        fs.set_elem_full(f.form, ue[:4].contiguous(), None, sc, f.tables,
+                         f.lattice, geo, (0,))
+    with pytest.raises(ValueError):          # a stage without u_dot grids
+        fs.set_elem_full(f.form, ue, None, sc, f.tables, f.lattice, geo,
+                         (0,), Stage(*NS_STAGE1, None))
+    with pytest.raises(ValueError):          # tables in another dtype
+        fs.set_elem_full(f.form, ue.float(), None, sc, f.tables, f.lattice,
+                         geo, (0,))

@@ -179,16 +179,18 @@ HEX = {"dimension": 3, "element type": "hex", "NX": 2, "NY": 2, "NZ": 2}
     {"Parameters": {"kp": {"type": "scalar", "value": 1.0}}},
     {"Analysis": {"analysis type": "ROL"}},
     {"Physics": {"modules": "Burgers"}},
-    # on hex (the element-tile kernel B1; 2D p1 quads run them on the
-    # module-set kernel, tests/test_torch_fused_set*.py): an advection
-    # velocity that reads the state
+    # on hex (the element-tile kernels B1; a velocity or NS coefficient
+    # that reads the state itself, and an NS + thermal set, run on the
+    # module-set kernels, tests/test_torch_fused_set*.py): an advection
+    # velocity that reads the state's gradient (A10, CDR remainder)
     {"Mesh": HEX, "Physics": {"modules": "cdr", "Dirichlet conditions": {
-        "c": {"all boundaries": 0.0}}}, "Functions": {"xvel": "c"}},
-    # the Boussinesq coupling of an NS + thermal set
-    {"Mesh": HEX, "Physics": {"modules": "navier stokes,thermal"}},
-    # a state-dependent NS coefficient
+        "c": {"all boundaries": 0.0}}}, "Functions": {"xvel": "grad(c)[x]"}},
+    # an NS + thermal set whose viscosity reads a gradient (A9, remainder)
+    {"Mesh": HEX, "Physics": {"modules": "navier stokes,thermal"},
+     "Functions": {"viscosity": "1.0 + grad(e)[x]"}},
+    # an NS coefficient that reads a time derivative (A9, remainder)
     {"Mesh": HEX, "Physics": {"modules": "navier stokes"},
-     "Functions": {"viscosity": "1.0 + ux*ux"}},
+     "Functions": {"viscosity": "1.0 + ux_t"}},
 ])
 def test_unported_deck_features_raise(cfg_patch):
     from mrhyde_tpu_torch.problem import Problem

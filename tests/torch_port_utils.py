@@ -407,3 +407,117 @@ def check_provider_case(physics, mesh, vel, reaction, stage, tol=1e-11):
                                  tol)
     assert ft.split == (reaction != "0.5*c*c")
     return ft
+
+
+# module sets and state-reading coefficients on hex and p2 quads (the
+# element-tile kernel B1 through the generated set_elem_full)
+
+def ns_thermal_elem_cfg(mesh, n, supg=False, solver=None,
+                        kappa="1.0 + 0.1*e*e", src="-1.0 + 0.5*x"):
+    """NS + thermal with the Boussinesq term on the hex or p2 channel
+    (ns_elem_cfg): beta 2.5, T_ambient 0.25, source uy `src`, thermal
+    diffusion `kappa`, thermal advected by the flow (ux, uy[, uz]); e = 1
+    on the bottom wall and 0 on the top one (true e = 1 - y)."""
+    cfg = ns_elem_cfg(mesh, n, supg=supg, solver=solver)
+    phys = cfg["Physics"]
+    phys.update({"modules": "navier stokes,thermal", "beta": 2.5,
+                 "T_ambient": 0.25, "include advection": True})
+    phys["Dirichlet conditions"]["e"] = {"bottom": 1.0, "top": 0.0}
+    phys["Initial conditions"]["e"] = 0.0
+    cfg["Discretization"]["order"]["e"] = 2 if mesh == "p2" else 1
+    cfg["Functions"].update({"source uy": src, "thermal diffusion": kappa,
+                             "advection x": "ux", "advection y": "uy"})
+    if mesh == "hex":
+        cfg["Functions"]["advection z"] = "uz"
+    cfg["Postprocess"]["True solutions"]["e"] = "1.0-y"
+    return cfg
+
+
+def ns_cdr_elem_cfg(mesh, n, supg=True, solver=None):
+    """NS + cdr on the hex or p2 channel (ns_elem_cfg), transient unless
+    `solver` says otherwise: c = 1 on the left, cdr advected by the flow,
+    diffusion 0.01, reaction 0.5 c^2; source ux 1 + 0.1 c^2."""
+    cfg = ns_elem_cfg(mesh, n, supg=supg, solver=solver or {
+        "solver": "transient", "final time": 0.04, "number of steps": 4})
+    phys = cfg["Physics"]
+    phys["modules"] = "navier stokes,cdr"
+    phys["Dirichlet conditions"]["c"] = {"left": 1.0}
+    phys["Initial conditions"]["c"] = 0.0
+    cfg["Discretization"]["order"]["c"] = 2 if mesh == "p2" else 1
+    cfg["Functions"].update({"source ux": "1.0 + 0.1*c^2", "xvel": "ux",
+                             "yvel": "uy", "diffusion": "0.01",
+                             "reaction": "0.5*c*c"})
+    if mesh == "hex":
+        cfg["Functions"]["zvel"] = "uz"
+    cfg["Postprocess"]["True solutions"]["c"] = "0.0"
+    return cfg
+
+
+def ns_thermal_cdr_elem_cfg(mesh, n, supg=True, solver=None):
+    """NS + thermal + cdr on the hex or p2 channel (ns_thermal_elem_cfg):
+    cdr advected by the flow, c = 1 on the left, source e c."""
+    cfg = ns_thermal_elem_cfg(mesh, n, supg=supg, solver=solver)
+    cfg["Physics"]["modules"] = "navier stokes,thermal,cdr"
+    cfg["Physics"]["Dirichlet conditions"]["c"] = {"left": 1.0}
+    cfg["Physics"]["Initial conditions"]["c"] = 0.0
+    cfg["Discretization"]["order"]["c"] = 2 if mesh == "p2" else 1
+    cfg["Functions"].update({"xvel": "ux", "yvel": "uy", "source": "e*c"})
+    if mesh == "hex":
+        cfg["Functions"]["zvel"] = "uz"
+    cfg["Postprocess"]["True solutions"]["c"] = "0.0"
+    return cfg
+
+
+def thermal_cdr_p2_cfg(n, kappa="1.0 + e*c"):
+    """thermal + cdr on n x n p2 quads (quadrature 4), steady: cdr
+    advected by (2, 1), reaction 0.5 c^2, density 2."""
+    cfg = thermal_cdr_cfg(kappa)
+    cfg["Mesh"].update({"NX": n, "NY": n})
+    cfg["Discretization"] = {"order": {"e": 2, "c": 2}, "quadrature": 4}
+    return cfg
+
+
+def cdr_state_velocity_hex_cfg(n):
+    """cdr on an n^3 hex mesh, steady, with the velocity (c, 1, 0.5)."""
+    cfg = cdr_cfg(n, n, n, reaction="0.5*c*c")
+    cfg["Functions"].update({"xvel": "c", "yvel": "1.0", "zvel": "0.5"})
+    return cfg
+
+
+def check_fused_against_jax_general(pj, pt, tj, tt, u, alphas, tol):
+    """The port's fused provider on hex or p2 against the JAX package's
+    general path (residual, Jacobian blocks, apply, diag) and JAX's probe
+    (each Jacobian row's kind, the constant rows' values, the counts of
+    varying rows in `stats`): how the JAX package's own tests hold its
+    element-tile kernel B1 where interpret mode is too slow. alphas: the
+    stage's (alpha_u, alpha_t), or None for a steady call."""
+    import jax.numpy as jnp
+    from mrhyde_tpu.ops.fused_p1 import FusedP1Assembly as JaxFused
+    from mrhyde_tpu_torch.interop import state_from_numpy
+    asm = pt.assembler
+    r, J = asm.res_and_jac(state_from_numpy(u, pt), tt)
+    ft = asm.fused_provider()
+    assert J.vol is None and J.vol_soa is not None
+    aj = pj.assembler
+    uj = jnp.asarray(u)
+    Jj = aj.jacobian(uj, tj)
+    assert max_diff(r, aj.residual(uj, tj)) < tol
+    assert max_diff(J.aos(), Jj.vol) < tol
+    v = seeded(pt.n_dof, seed=23, scale=1.0)
+    assert max_diff(J.apply(state_from_numpy(v, pt)),
+                    Jj.apply(jnp.asarray(v))) < tol
+    assert max_diff(J.diag(), Jj.diag()) < tol
+    fk = JaxFused.build(aj)
+    steady = alphas is None
+    au, at = alphas or (1.0, 0.0)
+    res_p, jac_p = fk._probe(au, at, float(tt.time), float(tt.deltat), {},
+                             steady, jnp.float64)
+    assert [_kind(x) for x in J.vol_soa] == [_kind(x) for x in jac_p]
+    for rt, rj in zip(J.vol_soa, jac_p):
+        if _kind(rj) == "scalar":
+            assert max_diff(rt, rj) < tol
+    assert ft.stats["n_jac_rows"] == sum(_kind(x) == "array" for x in jac_p)
+    assert ft.stats["n_res_rows"] == sum(_kind(x) == "array" for x in res_p)
+    assert ft.stats["steady"] is steady
+    assert ft.stats["split"] is False and ft.stats["node_scatter"] is False
+    return ft

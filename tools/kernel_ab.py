@@ -18,8 +18,10 @@ overlapped by the kernels before it). The plain versions of phases 3b,
 Writes each run's JSON lines to DIR/ab_<side>_<n>.txt and prints, for
 every case both trees run (the cases of one side only are listed last),
 both sides' times and the change/parent ratio of the means,
-and each run's max_abs_err against the plain version: equal on both
-sides when the two trees' kernels give the same bits.
+each run's max_abs_err against the plain version, and each run's sha256
+of the kernel's outputs (`out_sha`, the bytes of every tensor the
+timed call returns, on the phase's seeded inputs) with `same_bits`: true
+when all four runs' outputs are equal to the bit.
 """
 
 import argparse
@@ -30,7 +32,7 @@ import subprocess
 import sys
 
 _CHILD = r"""
-import json, statistics, sys, torch
+import hashlib, json, statistics, sys, torch
 import chip_smoke as cs
 from mrhyde_tpu_torch.ops import _build
 _build.load_library()
@@ -54,11 +56,20 @@ def batched_ms(fn, reps=20):
     return statistics.median(times)
 
 
+def digest(out):
+    h = hashlib.sha256()
+    for o in out if isinstance(out, (tuple, list)) else (out,):
+        if isinstance(o, torch.Tensor):
+            h.update(o.detach().contiguous().cpu().numpy().tobytes())
+    return h.hexdigest()
+
+
 def both(fn, reps=20, warm=True):
     # a record's kernel is timed first, then its plain version (reps 5,
     # not timed here; phase 3 times it with the default, and it is)
     if reps != 20:
         return 0.0
+    both.shas.append(digest(fn()))
     both.calls.append(batched_ms(fn))
     return single(fn)
 
@@ -66,11 +77,14 @@ def both(fn, reps=20, warm=True):
 def emit(rec):
     if "ms" in rec:
         rec["batched_ms"] = both.calls[0]
+        rec["out_sha"] = both.shas[0]
     both.calls.clear()
+    both.shas.clear()
     print(json.dumps(rec), flush=True)
 
 
 both.calls = []
+both.shas = []
 
 
 cs.cuda_ms = both
@@ -115,6 +129,10 @@ def main(argv):
         row["max_abs_err"] = {side: [r[key]["max_abs_err"]
                                      for r in runs[side]]
                               for side in ("parent", "change")}
+        shas = {side: [r[key]["out_sha"] for r in runs[side]]
+                for side in ("parent", "change")}
+        row["out_sha"] = shas
+        row["same_bits"] = len(set(shas["parent"] + shas["change"])) == 1
         print(json.dumps(row), flush=True)
     only = {side: [list(k) for k in runs[side][0] if k not in shared]
             for side in ("parent", "change")}

@@ -11,7 +11,9 @@ seeded state (steady, or at a DIRK-2,2 stage-1 call with seeded betas),
 f64, with the provider's class. The decks are those of the specialized
 kernels: thermal (kappa 1 and 1 + e^2), cdr, thermal advection, NS on 2D
 p1 (steady, viscosity reading x, PSPG+SUPG stage), hex thermal, p2
-thermal, NS on hex and p2. The second form prints the keys whose arrays
+thermal, NS on hex and p2; and those of the 2D p1 module-set kernel:
+NS + thermal, NS + cdr, thermal + cdr, cdr with velocity (c, y), NS
+with viscosity 1 + ux^2. The second form prints the keys whose arrays
 differ (none when the two trees compute the same bits).
 """
 
@@ -27,7 +29,9 @@ def save(tree, out):
         os.path.abspath(__file__))), "tests"))
     import torch
     from torch_port_utils import (advection_cfg, cdr_cfg, channel_cfg,
-                                  hex_cfg, ns_elem_cfg, p2_cfg, seeded,
+                                  cdr_state_velocity_cfg, hex_cfg,
+                                  ns_cdr_cfg, ns_elem_cfg, ns_thermal_cfg,
+                                  p2_cfg, seeded, thermal_cdr_cfg,
                                   thermal_cfg)
     from mrhyde_tpu_torch.assembly.assembler import TimeCoeffs
     from mrhyde_tpu_torch.interop import time_coeffs_from_numpy
@@ -48,6 +52,11 @@ def save(tree, out):
         "ns_hex_stage": (ns_elem_cfg("hex", (3, 2, 2), supg=True,
                                      solver=transient), True),
         "ns_p2": (ns_elem_cfg("p2", (3, 2)), False),
+        "set_ns_thermal_stage": (ns_thermal_cfg(True, True, True), True),
+        "set_ns_cdr_stage": (ns_cdr_cfg(), True),
+        "set_thermal_cdr": (thermal_cdr_cfg("1.0 + e*c"), False),
+        "set_cdr_velocity_c_stage": (cdr_state_velocity_cfg(), True),
+        "set_ns_visc_ux2": (channel_cfg(4, 4, visc="1.0 + ux*ux"), False),
     }
     res = {}
     for name, (cfg, stage) in decks.items():
