@@ -6,7 +6,9 @@ Drives mrhyde_tpu_torch's thermal, cdr, thermal-advection and
 Navier-Stokes main paths (2D p1 quads, 3D hex, 2D p2 quads) and its
 module sets (NS + thermal with the Boussinesq term, NS + cdr, thermal +
 cdr, coefficients that read the state; 2D p1 quads, 3D hex, 2D p2
-quads), steady and transient,
+quads; affine sets through mode "state"), with Neumann, Flux and
+weak-Dirichlet boundary terms and at quadratures up to 6 (hex) and 8
+(2D p1), steady and transient,
 through
 `Problem(cfg).run()` on the card, after building
 its CUDA kernels from the sources in this checkout (one nvcc per source,
@@ -16,8 +18,10 @@ each):
 
   1 device   card name and power limit; exits non-zero without CUDA
   2 build    nvcc build of mrhyde_tpu_torch/ops/csrc/*.cu and of the
-             set_node_full and set_elem_full sources generated for phases
-             3f and 3g and decks 34-43 (functions/codegen.py), in
+             set_node_* and set_elem_* sources generated for phases
+             3f, 3g and 3h and decks 34-43, 46-49, 51 and 52
+             (functions/codegen.py; each library holds mode "full" and
+             mode "state"), in
              seconds, with ptxas's report
   3 kernels  against their plain versions at 1024x1024 and 1000x777, in
              f64 (max |diff| <= 1e-12 max|plain|) and f32 (<= 1e-5
@@ -31,16 +35,18 @@ each):
              (rtol 2e-5; the reference deck's gold)
   5 default  kappa = 1, NX=NY=1024, nonlinear TOL 1e-10, default solver
              (GMRES + Jacobi): L2(e) = 1.56873e-06 (rtol 1e-4)
-  6 nonlin   kappa = 1 + e*e with its manufactured source, NX=NY=512,
-             CG, nonlinear TOL 1e-10: L2(e) = 6.27492e-06 (rtol 1e-4)
+  6 nonlin   kappa = 1 + e*e with its manufactured source, NX=NY=256
+             (512 before), CG, nonlinear TOL 1e-10: the JAX package's
+             L2(e) (rtol 1e-4)
   7 transient_gold_nx40   the reference's 2D transient deck: NX=NY=40,
              BWE, 20 steps to t=1, direct: L2(e) = 0.00509256 at t=0.9
              and 0.00118468 at t=1.0 (rtol 2e-5; the reference's gold)
   8 transient_dirk22      the same manufactured deck at NX=NY=DIRK_N (512),
              DIRK-2,2, 8 steps to t=0.4, nonlinear TOL 1e-10, default
              solver (GMRES + Jacobi): L2(e) at t=0.4 (rtol 1e-4)
-  9 transient_nonlinear_bdf2_nx512   kappa = 1 + e*e with its
-             manufactured transient source, CG, nonlinear TOL 1e-10,
+  9 transient_nonlinear_bdf2_nx256   kappa = 1 + e*e at 256^2 (512^2
+             before) with its manufactured transient source, CG,
+             nonlinear TOL 1e-10,
              BDF2 after one BWE/BDF1 startup step, 4 steps to t=0.2:
              L2(e) at t=0.2 (rtol 1e-4)
  10 ode_bdf2 the ODE BDF2 deck of tests/test_ode_integrators.py (general
@@ -58,9 +64,10 @@ each):
              direct (12,771 DOFs): the JAX package's L2 (rtol 1e-4)
  13 ns_startup_dirk22_nx128, _nx256   the channel started from rest at
              128x32 (12,771 DOFs) and 256x64 (50,115), PSPG+SUPG,
-             DIRK-2,2, 4 steps of 0.01, nonlinear TOL 1e-8, default solver
-             (GMRES + Jacobi): the JAX package's L2 ux/pr/uy at t=0.02 and
-             0.04 (rtol 1e-6: every stage's Newton solve converges)
+             DIRK-2,2, 2 steps of 0.01 (cut from 4), nonlinear TOL 1e-8,
+             default solver (GMRES + Jacobi): the JAX package's L2
+             ux/pr/uy at t=0.02 (rtol 1e-6: every stage's Newton solve
+             converges)
  3c kernels  thermal_elem_state and thermal_elem_full (the element
              kernels) against their plain versions on hex at 128^3 and
              127x100x77 and on p2 quads at 1024^2 and 1000x777, f64 and
@@ -71,13 +78,13 @@ each):
              its one check call)
  14 hex_gold_nx10   the reference's thermal/3D_verification, 10^3 hex,
              direct: L2(e) = 0.0116656 (rtol 2e-5; the reference's gold)
- 15 hex_default_nx40   the same at 40^3 (68,921 DOFs; cut from 64^3, then
-             48^3), nonlinear TOL 1e-10, GMRES + Jacobi (HEX_DECKS)
- 16 hex_nonlinear_nx40   kappa = 1 + e*e with its manufactured source,
-             40^3, CG, TOL 1e-10
- 17 hex_transient_dirk22_nx40   u = sin(2 pi t) S3, IC 0, DIRK-2,2, 8
+ 15 hex_default_nx32   the same at 32^3 (35,937 DOFs; cut from 64^3, then
+             48^3 and 40^3), nonlinear TOL 1e-10, GMRES + Jacobi (HEX_DECKS)
+ 16 hex_nonlinear_nx32   kappa = 1 + e*e with its manufactured source,
+             32^3, CG, TOL 1e-10
+ 17 hex_transient_dirk22_nx32   u = sin(2 pi t) S3, IC 0, DIRK-2,2, 8
              steps to t=0.4, TOL 1e-10, GMRES + Jacobi
- 18 hex_transient_nonlinear_bdf2_nx40   kappa = 1 + e*e, BDF2 after one
+ 18 hex_transient_nonlinear_bdf2_nx32   kappa = 1 + e*e, BDF2 after one
              BWE/BDF1 startup step, 4 steps to t=0.2, CG
  19 p2_default_nx256   p2 quads (quadrature 4), kappa = 1, 256^2
              (263,169 DOFs), TOL 1e-10, GMRES + Jacobi
@@ -91,10 +98,11 @@ each):
              medians of 20 (plain: its one check call)
  21 cdr_gold_nx40   the reference's cdr/2D_manufactured (v = (2, 1),
              reaction 0.5 c^2), direct: L2(c) = 0.00101714 (rtol 2e-5)
- 22-29 CDR_DECKS   cdr 512^2 (v = (2, 1), reaction 0), its nonlinear
-             twin (reaction 0.5 c^2), the rotating-field DIRK-2,2 deck
-             (density 2, 8 steps to t = 0.4), thermal 'include advection'
-             512^2, cdr hex 40^3 and nonlinear 40^3, cdr p2 128^2 and
+ 22-29 CDR_DECKS   cdr 256^2 (512^2 before; v = (2, 1), reaction 0),
+             its nonlinear twin (reaction 0.5 c^2), the rotating-field
+             DIRK-2,2 deck at 512^2 (density 2, 4 steps to t = 0.2; 8 to
+             0.4 before), thermal 'include advection' 256^2, cdr hex 32^3
+             and nonlinear 32^3 (40^3 before), cdr p2 128^2 and
              nonlinear 128^2; GMRES + Jacobi, TOL 1e-10, the JAX
              package's L2 at rtol 1e-4 (tools/jax_references.py)
  3e kernels_ns_elem   ns_elem_full (the B1 Navier-Stokes kernel) against
@@ -124,9 +132,9 @@ each):
              (tests/test_flow.py:63-98), direct: max |ux| equals JAX's to
              rtol 1e-8 at beta = 1 and is below 1e-3 of it at beta = 0
  35-37 SET_DECKS   boussinesq_cavity_startup_nx128 (the differentially
-             heated cavity from rest, Ra = 1e3, Pr = 0.71, DIRK-2,2, 2
-             steps of 0.01 (cut from 4), GMRES + Jacobi: L2 of ux, uy and
-             e),
+             heated cavity from rest, Ra = 1e3, Pr = 0.71, DIRK-2,2, 1
+             step of 0.01 (cut from 4, then 2), GMRES + Jacobi: L2 of ux,
+             uy and e),
              ns_cdr_startup_nx256 (the channel start-up with cdr
              advected by (ux, uy) and source ux 1 + 0.1 c^2: ux, uy, pr,
              c) and ns_channel_visc_nonlinear_direct_nx128 (viscosity 1 +
@@ -150,8 +158,34 @@ each):
              thermal advected by the flow, e = 1 bottom / 0 top, direct),
              ns3d_channel_visc_nonlinear_direct_nx20 (viscosity 1 + 0.1
              ux^2), thermal_cdr_p2_nx128 (kappa = 1 + e*c, 132,098 DOFs)
-             and cdr_hex_state_velocity_nx48 (velocity (c, 1, 0.5)): the
+             and cdr_hex_state_velocity_nx32 (velocity (c, 1, 0.5)): the
              JAX package's L2 of every variable at rtol 1e-6
+ 3h kernels_state   set_node_state and set_elem_state (mode "state" of
+             an affine set, from the u grid alone; each deck's generated
+             source) against their plain versions: thermal + cdr with
+             constant coefficients, steady and at DIRK-2,2 stage-1 alphas
+             (0.5, 40), on 2D p1 1024^2 and 1000x777, hex 64^3 and
+             31x23x15, p2 512^2 and 250x161, f64 and f32 (the same
+             bounds); CUDA-event medians of 20 (plain: its one check call)
+ 3i kernels_quadrature   ns_elem_full and set_elem_full (NS + thermal) on
+             hex 31x23x15 at quadrature 6 (Q = 64; 8 elements per block
+             in f64) and set_node_full (viscosity 1 + 0.1 ux^2) on 2D p1
+             1000x243 at quadrature 8 (Q = 25), steady, f64 and f32,
+             against their plain versions (the same bounds)
+ 44 thermal_mixed_neumann_gold_nx40   the JAX package's
+             test_mixed_dirichlet_neumann deck (e = 0 left and right, the
+             Neumann flux of the true solution top and bottom), direct:
+             its gold 0.00102733 (rtol 2e-5)
+ 45-47 BOUNDARY_DECKS   the same at 512^2 (CG), kappa = 1 + e*e with
+             `use weak Dirichlet` at 512^2 (GMRES), hex 40^3 with Neumann
+             on the top and bottom faces: the JAX package's L2 (rtol 1e-6)
+ 48-51 AFFINE_SET_DECKS   thermal + cdr with constant coefficients, a
+             Neumann flux on e and a Flux condition on c at the top:
+             512^2 steady, 256^2 DIRK-2,2 (4 steps of 0.05), hex 48^3, p2
+             128^2; the JAX package's L2 of both fields (rtol 1e-6)
+ 52-54 QUADRATURE_DECKS   the hex channel 20x5x5 and mixed convection on
+             it at quadrature 6, the 128x32 channel with viscosity 1 +
+             0.1 ux^2 at quadrature 8: the JAX package's L2 (rtol 1e-6)
 
 The reference L2 values are the JAX package's, computed in f64 on the
 CPU, or the reference's golds. Each deck runs one assembly before its
@@ -168,13 +202,24 @@ ns_node_full (once per fused res_and_jac call, no thermal kernel), 14,
 each of 21-29 the kernel its CDR_DECKS entry names, 30-33
 ns_elem_full (once per fused res_and_jac call, no other kernel; the
 2D p1 NS decks 11-13 never launch it), 34-37 set_node_full and 38-43
-set_elem_full (once per fused res_and_jac call, no other kernel). The
+set_elem_full (once per fused res_and_jac call, no other kernel); a
+boundary deck launches the kernel of its deck without boundary terms
+(44 and 45 thermal_node_state, 46 thermal_node_full, 47
+thermal_elem_state; the boundary terms are the general path's), each
+affine set deck its state kernel once per fused res_and_jac call and no
+"full" kernel (48 and 49 set_node_state, 50 and 51 set_elem_state; their
+coord part is plain torch, once per stage), and 52-54 ns_elem_full,
+set_elem_full and set_node_full at Q = 64, 64 and 25. The
 `kernels` line
-reports the sums over the decks, each kernel's error, times and bound
-(bytes or operations, whichever is larger; see `bound`) at its quoted
+reports the sums over the decks (ten kernels: the eight of the earlier
+phases and set_node_state, set_elem_state), each kernel's error, times
+and bound (bytes or operations, whichever is larger; see `bound`) at
+its quoted
 case, for the four thermal kernels the same of their advection case
-with the launches of decks 21-29 ("advect"), and for set_elem_full each
-phase 3g case ("cases", f64 at the divisible shape).
+with the launches of decks 21-29 ("advect"), for set_elem_full each
+phase 3g case ("cases", f64 at the divisible shape), for the two state
+kernels each of their phase 3h cases ("cases"), and for ns_elem_full,
+set_elem_full and set_node_full their phase 3i case ("quadrature").
 Any failure raises; the last line of a passing run is {"ok": true,
 "device": {...}}.
 """
@@ -219,10 +264,13 @@ SOURCE_T_NL = (
 # (512², not 1024²: the JAX CPU run that gives the reference takes 6.4
 # minutes at 512² and grows ~10x per halving of h)
 DIRK_N, DIRK_L2 = 512, 0.000966998
-# the JAX package's f64 CPU L2(e) at t=0.2 of the nonlinear BDF2 deck
-# (its error falls 4x per halving of h and dt: 2.01e-3, 4.80e-4, 1.17e-4
-# at 32², 64², 128² with 4, 8, 16 steps)
-BDF2_NL_L2 = 0.000532754
+# the JAX package's f64 CPU L2(e) of the nonlinear steady deck and at
+# t=0.2 of the nonlinear BDF2 deck, at 256² (512² until the boundary and
+# affine-set decks came in: 6.27492e-06 and 0.000532754; the BDF2 error
+# falls 4x per halving of h and dt: 2.01e-3, 4.80e-4, 1.17e-4 at 32², 64²,
+# 128² with 4, 8, 16 steps)
+NONLINEAR_L2 = 2.5099636346396307e-05
+BDF2_NL_L2 = 0.0005499555253604403
 
 
 def deck(n, kappa="1.0", source=SOURCE, solver=None):
@@ -284,15 +332,17 @@ def ode_bdf2_deck():
     }
 
 
-def quad_tables(N0, N1, device, dtype, lx=1.0, ly=1.0):
+def quad_tables(N0, N1, device, dtype, lx=1.0, ly=1.0, quadrature=2):
     """Reference-quad tables of a uniform N0 x N1 grid on the box [0, lx]
-    x [0, ly], and the quadrature-point offsets inside an element."""
+    x [0, ly] (p1, at the given quadrature), and the quadrature-point
+    offsets inside an element."""
     import numpy as np
     from mrhyde_tpu_torch.assembly.discretization import Discretization
     from mrhyde_tpu_torch.mesh.structured import box_mesh
     from mrhyde_tpu_torch.ops.fused_p1 import QuadTables
     disc = Discretization(box_mesh("quad", nx=1, ny=1, xmax=lx / N0,
-                                   ymax=ly / N1), [("e", "HGRAD", 1)], 2)
+                                   ymax=ly / N1), [("e", "HGRAD", 1)],
+                          quadrature)
     key = ("HGRAD", 1)
     tab = QuadTables(disc.basis_vals[key], disc.basis_grads[key][0],
                      disc.wts[0], device, dtype)
@@ -463,23 +513,19 @@ NS_TRUE = {"ux": "0.5*y*(1.0-y)", "uy": "0.0", "pr": "0.0"}
 # the JAX package's f64 CPU L2 (ux, pr, uy) of the 128x32 direct deck
 NS_DIRECT_128 = (1.88440e-4, 2.86955e-3, 1.22447e-5)
 # the start-up deck at n x n/4: (rtol, the JAX package's f64 CPU L2 (ux,
-# pr, uy) at t = 0.02 and 0.04). At 128x32 every GMRES solve converges
+# pr, uy) at t = 0.02). At 128x32 every GMRES solve converges
 # (1,500 iterations each); at 256x64 every one stops at its 2,000-iteration
 # cap, but each stage's Newton solve still converges in two steps
 # (||r||/||r0|| <= 2e-11), so at both sizes the two packages agree to
 # rounding. (The 512x128 deck, whose stages 6-8 stall above the tolerance
 # in both packages, left the script to make room for the B1
 # Navier-Stokes decks: it took 43.7 s of solve; its reference is in
-# ROADMAP.md.)
+# ROADMAP.md, with the t = 0.04 ones of these two.)
 NS_STARTUP = {
     128: (1e-6, {0.02: (0.167438940563, 1.85237941387e-3,
-                        2.16197800775e-5),
-                 0.04: (0.137443725666, 2.99319670322e-3,
-                        2.31845902790e-5)}),
+                        2.16197800775e-5)}),
     256: (1e-6, {0.02: (0.16743666533719045, 0.00041739961509650926,
-                        4.619296516076629e-06),
-                 0.04: (0.13743625171698778, 0.0005461661778793412,
-                        4.919212602818986e-06)}),
+                        4.619296516076629e-06)}),
 }
 # DIRK-2,2 stage 1 at dt = 0.01: alpha_u = A11/b1, alpha_t = 1/(dt b1)
 NS_STAGE1 = (0.5, 200.0)
@@ -508,11 +554,13 @@ def ns_deck(nx, ny, solver, supg=False):
     }
 
 
-# the start-up from rest: DIRK-2,2, 4 steps of 0.01, nonlinear TOL 1e-8,
-# the default linear solver (GMRES + Jacobi)
+# the start-up from rest: DIRK-2,2, 2 steps of 0.01 (4 until the
+# affine-set and boundary decks came in; the t = 0.02 references are the
+# 4-step runs'), nonlinear TOL 1e-8, the default linear solver (GMRES +
+# Jacobi)
 NS_STARTUP_SOLVER = {"solver": "transient",
                      "transient Butcher tableau": "DIRK-2,2",
-                     "final time": 0.04, "number of steps": 4,
+                     "final time": 0.02, "number of steps": 2,
                      "nonlinear TOL": 1e-8}
 
 
@@ -560,9 +608,7 @@ NS_ELEM_DECKS = {
     "ns3d_startup_dirk22_nx64": (
         lambda n: ns_elem_startup_deck("hex", n), 64, 1e-6,
         {0.02: {"ux": 0.16744823526484015, "uy": 8.381002276679228e-05,
-                "uz": 4.405179646999185e-05, "pr": 0.0068351997434308535},
-         0.04: {"ux": 0.13747407717425109, "uy": 9.245400548791375e-05,
-                "uz": 7.421650819321026e-05, "pr": 0.012396608629087216}}),
+                "uz": 4.405179646999185e-05, "pr": 0.0068351997434308535}}),
     # 64x16 p2, 12,771 DOFs
     "p2ns_channel_direct_nx64": (
         lambda n: ns_elem_deck("p2", n, NS_DIRECT), 64, 1e-4,
@@ -572,9 +618,7 @@ NS_ELEM_DECKS = {
     "p2ns_startup_dirk22_nx128": (
         lambda n: ns_elem_startup_deck("p2", n), 128, 1e-6,
         {0.02: {"ux": 0.16743590729451366, "uy": 1.9943851165782234e-05,
-                "pr": 0.001385678830385292},
-         0.04: {"ux": 0.13743376480842512, "uy": 2.150480520381376e-05,
-                "pr": 0.0019810571601949407}}),
+                "pr": 0.001385678830385292}}),
 }
 
 
@@ -605,17 +649,17 @@ def boussinesq_deck(n, beta=1.0):
 # the differentially heated cavity's Rayleigh and Prandtl numbers (de Vahl
 # Davis 1983): beta = Ra Pr multiplies the buoyancy of source uy = -1
 CAVITY_RA, CAVITY_PR = 1.0e3, 0.71
-# the start-up's first 2 of NS_STARTUP_SOLVER's 4 steps, for the script's
-# time: Newton runs to its cap in every stage (below)
-CAVITY_SOLVER = dict(NS_STARTUP_SOLVER, **{"final time": 0.02,
-                                           "number of steps": 2})
+# the start-up's first step of 0.01 (of 4, then 2 before), for the
+# script's time: Newton runs to its cap in every stage (below)
+CAVITY_SOLVER = dict(NS_STARTUP_SOLVER, **{"final time": 0.01,
+                                           "number of steps": 1})
 
 
 def cavity_deck(n):
     """The differentially heated square cavity started from rest: n x n p1
     quads on the unit square, no-slip walls, e = 1 on the left and 0 on
     the right, adiabatic top and bottom; thermal advected by (ux, uy),
-    viscosity Pr, thermal diffusion 1; PSPG+SUPG, DIRK-2,2, 2 steps of
+    viscosity Pr, thermal diffusion 1; PSPG+SUPG, DIRK-2,2, 1 step of
     0.01 (CAVITY_SOLVER), the default solver. No true solution: the L2
     lines are the fields' norms."""
     zero = {v: "0.0" for v in ("ux", "uy", "pr", "e")}
@@ -685,18 +729,16 @@ BOUSSINESQ_MAXU = 0.0037584716736223547
 # package's Krylov solves pick: its L2 is no check.
 SET_DECKS = {
     # cut from 256^2 (264,196 DOFs): the JAX CPU reference ran over 30
-    # minutes there and was stopped; 66,564 DOFs; 2 steps, cut from 4
-    # (CAVITY_SOLVER), 265 s of JAX CPU solve (822 s for 4 steps, whose
-    # t = 0.02 numbers are these). Its stages do not all converge (at Ra
+    # minutes there and was stopped; 66,564 DOFs; 1 step, cut from 4,
+    # then 2 (CAVITY_SOLVER; 822 s of JAX CPU solve for 4 steps, whose t =
+    # 0.01 numbers are these). Its stages do not all converge (at Ra
     # = 1e3, the lowest of the benchmark's range): Newton runs to its cap
     # of 10 with every GMRES solve at its 2,000 cap, in both packages
     # alike; they agree to 9e-10
     "boussinesq_cavity_startup_nx128": (
         cavity_deck, 128, 1e-6,
         {0.01: {"ux": 0.2093494809197624, "uy": 0.3393436708148743,
-                "e": 0.2298320688295235},
-         0.02: {"ux": 0.4716255450389182, "uy": 0.639036151441178,
-                "e": 0.28996953159540934}}),
+                "e": 0.2298320688295235}}),
     # 66,820 DOFs; 316 s of JAX CPU solve. Each stage's Newton solve
     # meets its TOL in two steps, but every GMRES solve stops at its
     # 2,000 cap, and L2(pr), the least determined field, agrees to 6e-5
@@ -704,9 +746,7 @@ SET_DECKS = {
     "ns_cdr_startup_nx256": (
         ns_cdr_deck, 256, 1e-4,
         {0.02: {"ux": 0.16742995154868626, "uy": 4.618762002178137e-06,
-                "pr": 0.0007769102912303964, "c": 0.10692664402300237},
-         0.04: {"ux": 0.13742098860500176, "uy": 4.950538437048563e-06,
-                "pr": 0.0012318709757935503, "c": 0.12248983317628381}}),
+                "pr": 0.0007769102912303964, "c": 0.10692664402300237}}),
     # 12,771 DOFs; 34 s of JAX CPU solve
     "ns_channel_visc_nonlinear_direct_nx128": (
         ns_visc_deck, 128, 1e-6,
@@ -834,15 +874,18 @@ def phase_set_kernels(device, shapes=SET_SHAPES):
     return summary
 
 
-def ns_rows(pspg, supg, transient, visc_varies, mesh="p1"):
+def ns_rows(pspg, supg, transient, visc_varies, mesh="p1",
+            quadrature=None):
     """The provider's row classification (jac_idx) of a channel call with
-    these switches on p1 quads, hex or p2 quads, from a small deck's
-    probe on the CPU."""
+    these switches on p1 quads, hex or p2 quads (at another quadrature
+    where given), from a small deck's probe on the CPU."""
     from mrhyde_tpu_torch.ops.fused_ns import NSForm
     from mrhyde_tpu_torch.problem import Problem
     solver = {"solver": "transient"} if transient else {}
     cfg = ns_deck(4, 1, solver, supg) if mesh == "p1" \
         else ns_elem_deck(mesh, 4, solver, supg)
+    if quadrature is not None:
+        cfg = with_quadrature(cfg, quadrature)
     cfg["Physics"]["usePSPG"] = pspg
     if visc_varies:
         cfg["Functions"]["viscosity"] = "0.1 + 0.01*x"
@@ -949,16 +992,16 @@ SOURCE3_T_NL = (
     "2*pi*cos(2*pi*t)*S + 12*(pi*pi)*T*S*(1+(T*S)^2) - 8*(pi*pi)*T*T*T*S*"
     "(G)").replace("G", GRAD3_SQ).replace("S", S3_TRUE).replace("T", T_TIME)
 # the JAX package's f64 CPU L2 of the B1 decks (ROADMAP's reference
-# tables): hex at 40^3 (68,921 DOFs; tools/jax_references.py, set-up /
-# solve s on the CPU: 7 / 7, 6 / 21, 6 / 16, 8 / 56, 6 / 14, 7 / 21); p2
-# at 256^2 and 128^2 (their error falls 8.0x per halving of h from 64^2,
-# so it is no solver noise)
-HEX_L2_40 = {"default": 0.0007270667974098038,
-             "nonlinear": 0.0007272032496075229,
-             "dirk22": 0.00021572480501614192,
-             "bdf2_nonlinear": 0.0009381955542444629,
-             "cdr": 0.0007230061638483525,
-             "cdr_nonlinear": 0.0007230781769732502}
+# tables): hex at 32^3 (35,937 DOFs; tools/jax_references.py, set-up /
+# solve s on the CPU: 4.5 / 5.0, 3.9 / 12.4, 4.7 / 11.4, 4.1 / 42.0, 4.5 /
+# 8.5, 4.6 / 12.0); p2 at 256^2 and 128^2 (their error falls 8.0x per
+# halving of h from 64^2, so it is no solver noise)
+HEX_L2_32 = {"default": 0.0011361342397550054,
+             "nonlinear": 0.0011364671465841482,
+             "dirk22": 6.107586383239649e-05,
+             "bdf2_nonlinear": 0.0013206434845336704,
+             "cdr": 0.001129821797273883,
+             "cdr_nonlinear": 0.0011299338099397037}
 P2_DEFAULT_L2 = 5.029830565509573e-08
 P2_NL_L2 = 4.023729085365165e-07
 BDF2_SOLVER = {"transient Butcher tableau": "BWE", "transient BDF order": 2,
@@ -1067,11 +1110,12 @@ def cdr_deck(n, source=CDR_SOURCE, reaction="0.0", vel=("2.0", "1.0"),
 
 
 def cdr_rotating_deck(n):
-    """c = T S in the rotating field, density 2, IC 0, DIRK-2,2, 8 steps
-    of 0.05 to t = 0.4."""
+    """c = T S in the rotating field, density 2, IC 0, DIRK-2,2, 4 steps
+    of 0.05 to t = 0.2 (8 to t = 0.4 before the boundary and affine-set
+    decks came in)."""
     cfg = cdr_deck(n, CDR_ROT_SOURCE, vel=ROT_V, solver={
         "solver": "transient", "transient Butcher tableau": "DIRK-2,2",
-        "final time": 0.4, "number of steps": 8})
+        "final time": 0.2, "number of steps": 4})
     cfg["Functions"]["density"] = "2.0"
     cfg["Physics"]["Initial conditions"] = {"c": "0.0"}
     cfg["Postprocess"]["True solutions"] = {"c": f"{T_TIME}*{S_TRUE}"}
@@ -1091,25 +1135,29 @@ def thermal_advection_deck(n):
 # tools/jax_references.py runs the same builders through the JAX package
 # for those references.
 CDR_DECKS = {
-    # cut from 1024^2: the JAX CPU reference ran over 20 minutes there
-    "cdr_nx512": (cdr_deck, 512, 0.0, "c", "state",
-                  6.2108675920617964e-06),
-    "cdr_nonlinear_nx512": (
-        lambda n: cdr_deck(n, CDR_SOURCE_NL, "0.5*c*c"), 512, 0.0, "c",
-        "full", 6.209504430940904e-06),
-    "cdr_transient_rotating_nx512": (cdr_rotating_deck, 512, 0.4, "c",
-                                     "state", 0.0010168969905621037),
-    "thermal_advection_nx512": (thermal_advection_deck, 512, 0.0, "e",
-                                "state", 6.21086759188614e-06),
-    # cut from 64^3, then 48^3, for the script's time (HEX_L2_40)
-    "cdr_hex_nx40": (
+    # cut from 1024^2 (the JAX CPU reference ran over 20 minutes there),
+    # then from 512^2 (with thermal_advection) when the boundary and
+    # affine-set decks came in; 23 / 31 / 23 s of JAX CPU solve at 256^2
+    "cdr_nx256": (cdr_deck, 256, 0.0, "c", "state",
+                  2.484336406366297e-05),
+    "cdr_nonlinear_nx256": (
+        lambda n: cdr_deck(n, CDR_SOURCE_NL, "0.5*c*c"), 256, 0.0, "c",
+        "full", 2.4837909950684728e-05),
+    # 4 steps to t = 0.2 since the affine-set and boundary decks came in
+    # (8 to t = 0.4 before); 348 s of JAX CPU solve
+    "cdr_transient_rotating_nx512": (cdr_rotating_deck, 512, 0.2, "c",
+                                     "state", 0.001394676944195696),
+    "thermal_advection_nx256": (thermal_advection_deck, 256, 0.0, "e",
+                                "state", 2.4843364063663086e-05),
+    # cut from 64^3, then 48^3 and 40^3, for the script's time (HEX_L2_32)
+    "cdr_hex_nx32": (
         lambda n: cdr_deck(n, CDR3_SOURCE, vel=("2.0", "1.0", "0.5"),
-                           mesh="hex"), 40, 0.0, "c", "elem_state",
-        HEX_L2_40["cdr"]),
-    "cdr_hex_nonlinear_nx40": (
+                           mesh="hex"), 32, 0.0, "c", "elem_state",
+        HEX_L2_32["cdr"]),
+    "cdr_hex_nonlinear_nx32": (
         lambda n: cdr_deck(n, CDR3_SOURCE_NL, "0.5*c*c",
-                           ("2.0", "1.0", "0.5"), "hex"), 40, 0.0, "c",
-        "elem_full", HEX_L2_40["cdr_nonlinear"]),
+                           ("2.0", "1.0", "0.5"), "hex"), 32, 0.0, "c",
+        "elem_full", HEX_L2_32["cdr_nonlinear"]),
     # cut from 256^2 for the script's time (66,049 DOFs; its JAX CPU
     # set-up / solve: 1.3 / 21 s)
     "cdr_p2_nx128": (lambda n: cdr_deck(n, mesh="p2"), 128, 0.0, "c",
@@ -1121,26 +1169,26 @@ CDR_DECKS = {
 
 
 # the hex decks of kappa = 1, kappa = 1 + e*e, DIRK-2,2 and the nonlinear
-# BDF2 as CDR_DECKS holds its decks, at 40^3: cut for the script's time
-# (96^3, 80^3, 64^3 and 48^3 before; 7-11 s of host set-up each at 48^3),
-# with their JAX references at 40^3 (HEX_L2_40)
+# BDF2 as CDR_DECKS holds its decks, at 32^3: cut for the script's time
+# (96^3, 80^3, 64^3, 48^3 and 40^3 before; 5-6 s of host set-up each at
+# 40^3), with their JAX references at 32^3 (HEX_L2_32)
 HEX_DECKS = {
-    "hex_default_nx40": (
-        lambda n: hex_deck(n, solver={"nonlinear TOL": 1e-10}), 40, 0.0,
-        "e", "elem_state", HEX_L2_40["default"]),
-    "hex_nonlinear_nx40": (
+    "hex_default_nx32": (
+        lambda n: hex_deck(n, solver={"nonlinear TOL": 1e-10}), 32, 0.0,
+        "e", "elem_state", HEX_L2_32["default"]),
+    "hex_nonlinear_nx32": (
         lambda n: hex_deck(n, "1.0 + e*e", SOURCE3_NL,
                            {"nonlinear TOL": 1e-10, "Belos solver": "CG"}),
-        40, 0.0, "e", "elem_full", HEX_L2_40["nonlinear"]),
-    "hex_transient_dirk22_nx40": (
+        32, 0.0, "e", "elem_full", HEX_L2_32["nonlinear"]),
+    "hex_transient_dirk22_nx32": (
         lambda n: hex_transient_deck(n, {
             "transient Butcher tableau": "DIRK-2,2", "final time": 0.4,
             "number of steps": 8, "nonlinear TOL": 1e-10}),
-        40, 0.4, "e", "elem_state", HEX_L2_40["dirk22"]),
-    "hex_transient_nonlinear_bdf2_nx40": (
+        32, 0.4, "e", "elem_state", HEX_L2_32["dirk22"]),
+    "hex_transient_nonlinear_bdf2_nx32": (
         lambda n: hex_transient_deck(n, BDF2_SOLVER, "1.0 + e*e",
                                      SOURCE3_T_NL),
-        40, 0.2, "e", "elem_full", HEX_L2_40["bdf2_nonlinear"]),
+        32, 0.2, "e", "elem_full", HEX_L2_32["bdf2_nonlinear"]),
 }
 
 
@@ -1148,16 +1196,18 @@ ELEM_SHAPES = (("hex", (128, 128, 128)), ("hex", (127, 100, 77)),
                ("p2", (1024, 1024)), ("p2", (1000, 777)))
 
 
-def elem_tables(mesh, dims, device, dtype, lengths=(1.0, 1.0, 1.0)):
+def elem_tables(mesh, dims, device, dtype, lengths=(1.0, 1.0, 1.0),
+                quadrature=None):
     """(QuadTables, Lattice, qp offsets) of a uniform hex (p1, quadrature
     2) or quad (p2, quadrature 4) grid of `dims` elements on the box
-    [0, lengths]."""
+    [0, lengths] (at another quadrature where given)."""
     import numpy as np
     from mrhyde_tpu_torch.assembly.discretization import Discretization
     from mrhyde_tpu_torch.mesh.structured import box_mesh
     from mrhyde_tpu_torch.ops.fused_elem import basis_lattice
     from mrhyde_tpu_torch.ops.fused_p1 import QuadTables
     cell, order, quad = ("hex", 1, 2) if mesh == "hex" else ("quad", 2, 4)
+    quad = quadrature or quad
     size = dict(zip(("xmax", "ymax", "zmax"),
                     (a / n for a, n in zip(lengths, dims))))
     disc = Discretization(box_mesh(cell, **size), [("e", "HGRAD", order)],
@@ -1298,12 +1348,13 @@ NS_ELEM_SHAPES = (("hex", (64, 64, 64)), ("hex", (31, 23, 15)),
 CHANNEL = (5.0, 1.0, 1.0)
 
 
-def ns_elem_inputs(mesh, dims, device, dtype, gen):
+def ns_elem_inputs(mesh, dims, device, dtype, gen, quadrature=None):
     """(tables, lattice, h, seeded u_eval and u_dot grid stacks (dim + 1,
     *grid), the viscosity 0.1 + 0.01 x at the qps (E, Q)) of a hex or p2
-    element grid of the channel."""
+    element grid of the channel (at another quadrature where given)."""
     import math
-    tab, lat, q_off = elem_tables(mesh, dims, device, dtype, CHANNEL)
+    tab, lat, q_off = elem_tables(mesh, dims, device, dtype, CHANNEL,
+                                  quadrature)
     shape = (tab.dim + 1,) + tuple(lat.stride * n + 1 for n in dims)
     ue, ud = ((torch.rand(shape, generator=gen, device=device, dtype=dtype)
                - 0.5) for _ in range(2))
@@ -1426,10 +1477,7 @@ SET_ELEM_DECKS = {
         lambda n: add_cdr(ns_elem_startup_deck("hex", n)), 64, 1e-6,
         {0.02: {"ux": 0.16742864601145643, "uy": 8.380799346010581e-05,
                 "pr": 0.006630702844891716, "uz": 4.2494223866583694e-05,
-                "c": 0.1657996392173004},
-         0.04: {"ux": 0.13743732259423974, "uy": 9.221388229134829e-05,
-                "pr": 0.012040041889444056, "uz": 6.827581594586298e-05,
-                "c": 0.1704585143860053}}),
+                "c": 0.1657996392173004}}),
     # mixed convection, 20x5x5 hex (3,780 DOFs, nd = 40); 6.3 s
     "ns3d_thermal_channel_direct_nx20": (
         lambda n: ns_thermal_channel_deck("hex", n), 20, 1e-6,
@@ -1451,12 +1499,187 @@ SET_ELEM_DECKS = {
     "thermal_cdr_p2_nx128": (
         lambda n: thermal_cdr_deck(n, "p2"), 128, 1e-6,
         {0.0: {"e": 0.0683409929255726, "c": 4.023602960223766e-07}}),
-    # cdr with the velocity (c, 1, 0.5), hex 48^3 (117,649 DOFs, nd = 8);
-    # 29 s
-    "cdr_hex_state_velocity_nx48": (
+    # cdr with the velocity (c, 1, 0.5), hex 32^3 (35,937 DOFs, nd = 8;
+    # 48^3 until the boundary and affine-set decks came in); 10 s
+    "cdr_hex_state_velocity_nx32": (
         lambda n: cdr_deck(n, CDR3_SOURCE, vel=("c", "1.0", "0.5"),
-                           mesh="hex"), 48, 1e-6,
-        {0.0: {"c": 0.029795399604469273}}),
+                           mesh="hex"), 32, 1e-6,
+        {0.0: {"c": 0.029737103155455098}}),
+}
+
+
+# ----------------------------------------------------------------------
+# boundary terms (Neumann, Flux, weak Dirichlet) on the fused kernels,
+# affine module sets through mode "state" (set_node_state,
+# set_elem_state), and the set and NS element kernels at any quadrature
+# ----------------------------------------------------------------------
+
+# d S / dy, the outward flux of S on the top wall (y = 1) and minus it on
+# the bottom (y = 0); the same of S3 in 3D
+NEUMANN_TOP = "2*pi*sin(2*pi*x)*cos(2*pi*y)"
+NEUMANN3_TOP = "2*pi*sin(2*pi*x)*cos(2*pi*y)*sin(2*pi*z)"
+
+
+def mixed_neumann_deck(n, solver=None):
+    """The JAX package's test_mixed_dirichlet_neumann deck
+    (tests/test_thermal_family.py:115-127) at n^2: thermal, e = 0 on the
+    left and right, the Neumann flux of S on the top and bottom, steady,
+    nonlinear TOL 1e-7, 4 Newton steps at most (the solver keys of
+    `solver` on top)."""
+    return {
+        "Mesh": {"dimension": 2, "element type": "quad", "NX": n, "NY": n},
+        "Functions": {"thermal source": "8*pi*pi*sin(2*pi*x)*sin(2*pi*y)"},
+        "Physics": {"modules": "thermal",
+                    "Dirichlet conditions": {"e": {"left": "0.0",
+                                                   "right": "0.0"}},
+                    "Neumann conditions": {
+                        "e": {"top": NEUMANN_TOP,
+                              "bottom": f"-{NEUMANN_TOP}"}},
+                    "Initial conditions": {"e": "0.0"}},
+        "Discretization": {"order": {"e": 1}, "quadrature": 2},
+        "Solver": dict({"solver": "steady-state", "nonlinear TOL": 1e-7,
+                        "max nonlinear iters": 4}, **(solver or {})),
+        "Postprocess": {"compute errors": True,
+                        "True solutions": {"e": S_TRUE}},
+    }
+
+
+def weak_dirichlet_deck(n):
+    """kappa = 1 + e*e with its manufactured source (nonlinear_deck),
+    Dirichlet 0 imposed weakly ('use weak Dirichlet': Nitsche's terms of
+    thermal's boundary residual), the default solver. Thermal's weak
+    Dirichlet term reads the data as the function 'Dirichlet e <side>',
+    in both packages, which the Functions list defines (the condition's
+    own value is registered as 'weak Dirichlet e <side>' and unread)."""
+    cfg = deck(n, "1.0 + e*e", SOURCE_NL, {"nonlinear TOL": 1e-10})
+    cfg["Physics"]["use weak Dirichlet"] = True
+    cfg["Functions"].update({f"Dirichlet e {s}": "0.0"
+                             for s in ("left", "right", "bottom", "top")})
+    return cfg
+
+
+def hex_neumann_deck(n):
+    """The 3D manufactured deck (hex_deck) with the Neumann flux of S3 on
+    the top and bottom faces (y = 1, 0) and e = 0 on the other four."""
+    cfg = hex_deck(n, solver={"nonlinear TOL": 1e-10})
+    cfg["Physics"]["Dirichlet conditions"] = {"e": {
+        s: 0.0 for s in ("left", "right", "front", "back")}}
+    cfg["Physics"]["Neumann conditions"] = {
+        "e": {"top": NEUMANN3_TOP, "bottom": f"-{NEUMANN3_TOP}"}}
+    return cfg
+
+
+def thermal_cdr_affine_deck(n, mesh="p1", transient=False):
+    """thermal + cdr with constant coefficients (an affine set: JAX's
+    split path, mode "state"), steady, on n^2 p1 quads, n^3 hex or n^2 p2
+    quads (quadrature 4): both fields have the true solution S (S3), cdr
+    is advected by (2, 1[, 0.5]) with reaction 0; each field is 0 on the
+    left, right and bottom (hex: front and back too), and its flux enters
+    on the top wall: a Neumann condition on e, a Flux condition on c.
+    `transient`: u = T S from IC 0, DIRK-2,2, 4 steps of 0.05 to t = 0.2,
+    the fluxes T times the steady ones."""
+    dim = 3 if mesh == "hex" else 2
+    true = S3_TRUE if dim == 3 else S_TRUE
+    flux = NEUMANN3_TOP if dim == 3 else NEUMANN_TOP
+    src_e = SOURCE3 if dim == 3 else SOURCE
+    src_c = CDR3_SOURCE if dim == 3 else CDR_SOURCE
+    if transient:
+        src_e = f"2*pi*cos(2*pi*t)*{true} + {T_TIME}*({src_e})"
+        src_c = f"2*pi*cos(2*pi*t)*{true} + {T_TIME}*({src_c})"
+        true, flux = f"{T_TIME}*{true}", f"{T_TIME}*{flux}"
+    walls = ["left", "right", "bottom"] + (["front", "back"] if dim == 3
+                                           else [])
+    order = 2 if mesh == "p2" else 1
+    solver = {"solver": "steady-state", "nonlinear TOL": 1e-10}
+    if transient:
+        solver.update({"solver": "transient",
+                       "transient Butcher tableau": "DIRK-2,2",
+                       "final time": 0.2, "number of steps": 4})
+    cfg = {
+        "Mesh": {"dimension": dim, "element type": "hex" if dim == 3
+                 else "quad", "NX": n, "NY": n},
+        "Functions": {"thermal source": src_e, "source": src_c,
+                      "xvel": "2.0", "yvel": "1.0", "reaction": "0.0"},
+        "Physics": {"modules": "thermal,cdr",
+                    "Dirichlet conditions": {
+                        "scalar data": True,
+                        "e": {s: 0.0 for s in walls},
+                        "c": {s: 0.0 for s in walls}},
+                    "Neumann conditions": {"e": {"top": flux}},
+                    "Flux conditions": {"c": {"top": flux}}},
+        "Discretization": {"order": {"e": order, "c": order},
+                           "quadrature": 4 if mesh == "p2" else 2},
+        "Solver": solver,
+        "Postprocess": {"compute errors": True,
+                        "True solutions": {"e": true, "c": true}},
+    }
+    if dim == 3:
+        cfg["Mesh"]["NZ"] = n
+        cfg["Functions"]["zvel"] = "0.5"
+    if transient:
+        cfg["Physics"]["Initial conditions"] = {"e": "0.0", "c": "0.0"}
+    return cfg
+
+
+def with_quadrature(cfg, degree):
+    """The deck at another quadrature degree."""
+    cfg["Discretization"]["quadrature"] = degree
+    return cfg
+
+
+# name -> (deck function of n, n on the card, rtol, {held time: the JAX
+# package's f64 CPU L2 per variable}, the kernel every fused res_and_jac
+# call launches), as SET_DECKS; tools/jax_references.py runs the same
+# deck functions through the JAX package (its general path) for those
+# references. Each boundary deck launches the kernel of its deck without
+# boundary terms; each affine set deck set_node_state or set_elem_state,
+# never a "full" kernel; the quadrature decks the kernels at Q = 64
+# (hex, quadrature 6) and Q = 25 (2D p1, quadrature 8).
+BOUNDARY_DECKS = {
+    "thermal_mixed_neumann_nx512": (
+        lambda n: mixed_neumann_deck(n, {"nonlinear TOL": 1e-10,
+                                         "Belos solver": "CG"}),
+        512, 1e-6, {0.0: {"e": 6.274898128026548e-06}}, "state"),
+    "thermal_weak_dirichlet_nx512": (
+        weak_dirichlet_deck, 512, 1e-6, {0.0: {"e": 6.2749174247023914e-06}},
+        "full"),
+    "hex_neumann_nx40": (hex_neumann_deck, 40, 1e-6,
+                         {0.0: {"e": 0.0007267746494363886}}, "elem_state"),
+}
+AFFINE_SET_DECKS = {
+    "thermal_cdr_affine_nx512": (
+        thermal_cdr_affine_deck, 512, 1e-6,
+        {0.0: {"e": 6.274905299571667e-06, "c": 6.278257489819945e-06}},
+        "set_node_state"),
+    "thermal_cdr_affine_dirk22_nx256": (
+        lambda n: thermal_cdr_affine_deck(n, transient=True), 256, 1e-6,
+        {0.1: {"e": 0.0008146885361382903, "c": 0.0008183940406640421},
+         0.2: {"e": 0.001409250662272966, "c": 0.0014120982037004425}},
+        "set_node_state"),
+    "thermal_cdr_affine_hex_nx48": (
+        lambda n: thermal_cdr_affine_deck(n, "hex"), 48, 1e-6,
+        {0.0: {"e": 0.0005048151779286237, "c": 0.0005042725895708673}},
+        "set_elem_state"),
+    "thermal_cdr_affine_p2_nx128": (
+        lambda n: thermal_cdr_affine_deck(n, "p2"), 128, 1e-6,
+        {0.0: {"e": 4.0235696167172063e-07, "c": 4.0235723029381124e-07}},
+        "set_elem_state"),
+}
+QUADRATURE_DECKS = {
+    "ns3d_channel_direct_nx20_q6": (
+        lambda n: with_quadrature(ns_elem_deck("hex", n, NS_DIRECT), 6), 20,
+        1e-6, {0.0: {"ux": 0.00860948024548221, "uy": 0.0007936004429378482,
+                     "pr": 0.042924342612873714,
+                     "uz": 0.0029675811510480325}}, "ns_elem_full"),
+    "ns3d_thermal_channel_direct_nx20_q6": (
+        lambda n: with_quadrature(ns_thermal_channel_deck("hex", n), 6), 20,
+        1e-6, {0.0: {"ux": 0.10604396404949179, "uy": 0.015255381037872575,
+                     "pr": 0.29369837311871627, "uz": 0.012059791940174794,
+                     "e": 0.0014663276769748103}}, "set_elem_full"),
+    "ns_channel_visc_nonlinear_direct_nx128_q8": (
+        lambda n: with_quadrature(ns_visc_deck(n), 8), 128, 1e-6,
+        {0.0: {"ux": 0.00027111995312320255, "uy": 1.2241600284096292e-05,
+               "pr": 0.002869571982169511}}, "set_node_full"),
 }
 
 
@@ -1575,6 +1798,243 @@ def phase_set_elem_kernels(device, shapes=SET_ELEM_SHAPES):
                                      f"its plain version: {rec}")
                 if dtype == torch.float64 and i == 0:
                     summary[name] = rec
+    return summary
+
+
+# ----------------------------------------------------------------------
+# phase 3h: mode "state" of affine module sets (set_node_state on 2D p1,
+# set_elem_state on hex and p2); phase 3i: the set and NS element kernels
+# past 27 qps and set_node_full past 16, which their layouts held at most
+# before they took any quadrature
+# ----------------------------------------------------------------------
+
+# name -> (mesh, deck function, box, stage alphas or None, time step); each
+# case's weak form comes from its deck at size 4 (hex 3) on the CPU, which
+# must find the set affine; the generated sources are those of
+# AFFINE_SET_DECKS
+STATE_KERNEL_CASES = {
+    "thermal+cdr affine steady": (
+        "p1", lambda: thermal_cdr_affine_deck(4), (1.0, 1.0), None, 1.0),
+    "thermal+cdr affine dirk22 stage 1": (
+        "p1", lambda: thermal_cdr_affine_deck(4, transient=True),
+        (1.0, 1.0), DIRK22_STAGE1, 0.05),
+    "thermal+cdr affine hex steady": (
+        "hex", lambda: thermal_cdr_affine_deck(3, "hex"), (1.0, 1.0, 1.0),
+        None, 1.0),
+    "thermal+cdr affine hex dirk22 stage 1": (
+        "hex", lambda: thermal_cdr_affine_deck(3, "hex", transient=True),
+        (1.0, 1.0, 1.0), DIRK22_STAGE1, 0.05),
+    "thermal+cdr affine p2 steady": (
+        "p2", lambda: thermal_cdr_affine_deck(4, "p2"), (1.0, 1.0), None,
+        1.0),
+    "thermal+cdr affine p2 dirk22 stage 1": (
+        "p2", lambda: thermal_cdr_affine_deck(4, "p2", transient=True),
+        (1.0, 1.0), DIRK22_STAGE1, 0.05),
+}
+STATE_SHAPES = {"p1": ((1024, 1024), (1000, 777)),
+                "hex": ((64, 64, 64), (31, 23, 15)),
+                "p2": ((512, 512), (250, 161))}
+
+
+_STATE_FORMS = {}
+
+
+def state_case(name, h):
+    """(SetForm at element size h, SetScalars, Stage or None) of a phase
+    3h case, from its deck on the CPU (which finds the set affine; one
+    Problem per case)."""
+    from mrhyde_tpu_torch.ops.fused_p1 import Stage
+    from mrhyde_tpu_torch.ops.fused_set import SetForm, SetScalars
+    from mrhyde_tpu_torch.problem import Problem
+    _mesh, build, _box, alphas, dt = STATE_KERNEL_CASES[name]
+    if name not in _STATE_FORMS:
+        fused = Problem(build(), device="cpu", dtype=torch.float64) \
+            .assembler.fused_provider()
+        if not fused._detect_affine(alphas is None):
+            raise SystemExit(f"phase 3h case {name}: the set is not affine")
+        _STATE_FORMS[name] = fused.form
+    f = _STATE_FORMS[name]
+    form = SetForm(f.modules, f.fm, f.variables, f.params, h, f.transient,
+                   f.dim, f.nc)
+    sc = SetScalars(0.0125, dt, ())
+    return form, sc, None if alphas is None else Stage(*alphas, None)
+
+
+def phase_state_kernels(device, shapes=STATE_SHAPES):
+    """set_node_state (2D p1) and set_elem_state (hex, p2) against their
+    plain versions (within rtol of max |plain|), f64 and f32, at a
+    divisible and a non-divisible shape, steady and at a DIRK-2,2 stage,
+    with CUDA-event medians of 20 (kernel), the plain version's one check
+    call and the bound of each case. Returns {kernel: its quoted record
+    (f64, the first shape, the stage; set_elem_state: hex), "cases":
+    every f64 record at the first shape}."""
+    import math
+    from mrhyde_tpu_torch.ops import fused_set as fs
+    from mrhyde_tpu_torch.ops.fused_p1 import QUAD_P1
+    summary = {"cases": []}
+    for name, (mesh, _build, box, alphas, _dt) in \
+            STATE_KERNEL_CASES.items():
+        node = mesh == "p1"
+        kernel = "set_node_state" if node else "set_elem_state"
+        for dtype, rtol in ((torch.float64, 1e-12), (torch.float32, 1e-5)):
+            for i, dims in enumerate(shapes[mesh]):
+                gen = torch.Generator(device=device).manual_seed(1357)
+                if node:
+                    tab, q_off = quad_tables(*dims, device, dtype, *box)
+                    lat = QUAD_P1
+                else:
+                    tab, lat, q_off = elem_tables(mesh, dims, device, dtype,
+                                                  box)
+                form, sc, stage = state_case(
+                    name, math.fsum(tab.wts) ** (1.0 / tab.dim))
+                geo = ((0.0,) * tab.dim,
+                       tuple(b / n for b, n in zip(box, dims)), q_off)
+                u, _ = set_inputs(len(form.variables), dims, lat, device,
+                                  dtype, gen, None)
+                if node:
+                    args = (form, u, sc, tab, geo, stage)
+                    plain, fn = fs.set_node_state_plain, fs.set_node_state
+                else:
+                    args = (form, u, sc, tab, lat, geo, stage)
+                    plain, fn = fs.set_elem_state_plain, fs.set_elem_state
+                ref, plain_ms = timed(lambda: plain(*args))
+                out = fn(*args)
+                torch.cuda.synchronize()
+                err, scale = max_err(out, ref)
+                del out, ref
+                ok = err <= rtol * scale
+                nbytes, nflops = state_work(dims, dtype, form, u, sc, tab,
+                                            lat, stage, node)
+                rec = {"phase": "kernels_state", "kernel": kernel,
+                       "case": name, "mesh": mesh,
+                       "dtype": str(dtype).replace("torch.", ""),
+                       "shape": list(dims),
+                       "variables": list(form.variables),
+                       "max_abs_err": err, "max_abs_plain": scale,
+                       "rtol": rtol, "ok": ok,
+                       "ms": cuda_ms(lambda: fn(*args)),
+                       "plain_ms": plain_ms, **bound(nbytes, nflops, dtype)}
+                rec["share"] = rec["bound_ms"] / rec["ms"]
+                emit(rec)
+                if not ok:
+                    raise SystemExit(f"{kernel} {name} disagrees with its "
+                                     f"plain version: {rec}")
+                if dtype == torch.float64 and i == 0:
+                    summary["cases"].append(rec)
+                    if alphas is not None and mesh != "p2":
+                        summary[kernel] = rec
+    return summary
+
+
+# phase 3i: kernel -> (deck function of its weak form and rows, mesh,
+# quadrature, box, shape); f64 and f32 at one non-divisible shape (the
+# last block partial), the plain version's time its one check call
+QUADRATURE_CASES = {
+    "ns_elem_full": (lambda: ns_elem_deck("hex", 4, NS_DIRECT), "hex", 6,
+                     CHANNEL, (31, 23, 15)),
+    "set_elem_full": (lambda: ns_thermal_channel_deck("hex", 4), "hex", 6,
+                      CHANNEL, (31, 23, 15)),
+    "set_node_full": (lambda: ns_visc_deck(8), "p1", 8, CHANNEL[:2],
+                      (1000, 243)),
+}
+
+
+def quadrature_case(kernel, h):
+    """(SetForm at element size h, or None for ns_elem_full; jac_idx) of
+    a phase 3i case, from its deck at small size on the CPU. The row
+    classes come from the deck at its own quadrature (which classes vary
+    does not depend on the qps; each plain version checks it), the
+    costlier probe at Q = 64 left out."""
+    from mrhyde_tpu_torch.ops.fused_set import SetForm, SetScalars
+    from mrhyde_tpu_torch.problem import Problem
+    build, mesh, _quad, _box, _dims = QUADRATURE_CASES[kernel]
+    if kernel == "ns_elem_full":
+        return None, ns_rows(True, False, False, False, mesh)
+    cfg = build()
+    if mesh == "hex":
+        cfg = _small(cfg, mesh)
+    fused = Problem(cfg, device="cpu", dtype=torch.float64) \
+        .assembler.fused_provider()
+    f = fused.form
+    form = SetForm(f.modules, f.fm, f.variables, f.params, h, f.transient,
+                   f.dim, f.nc)
+    return form, fused._classify(SetScalars(0.0, 1.0, ()), 1.0, 0.0,
+                                 True)[0]
+
+
+def phase_quadrature_kernels(device):
+    """ns_elem_full and set_elem_full on hex at quadrature 6 (Q = 64) and
+    set_node_full on 2D p1 at quadrature 8 (Q = 25), steady, against
+    their plain versions (f64 1e-12, f32 1e-5 of max |plain|), with
+    CUDA-event medians of 20 and the bound. Returns {kernel: its f64
+    record}."""
+    import math
+    from mrhyde_tpu_torch.ops import fused_ns as fn
+    from mrhyde_tpu_torch.ops import fused_set as fs
+    from mrhyde_tpu_torch.ops.fused_p1 import QUAD_P1
+    from mrhyde_tpu_torch.ops.fused_set import SetScalars
+    summary = {}
+    for kernel, (_build, mesh, quad, box, dims) in QUADRATURE_CASES.items():
+        case = None
+        for dtype, rtol in ((torch.float64, 1e-12), (torch.float32, 1e-5)):
+            gen = torch.Generator(device=device).manual_seed(9753)
+            if mesh == "p1":
+                tab, q_off = quad_tables(*dims, device, dtype, *box,
+                                         quadrature=quad)
+                lat = QUAD_P1
+            else:
+                tab, lat, q_off = elem_tables(mesh, dims, device, dtype,
+                                              box, quad)
+            h = math.fsum(tab.wts) ** (1.0 / tab.dim)
+            case = case or quadrature_case(kernel, h)
+            form, jac_idx = case
+            geo = ((0.0,) * tab.dim, tuple(b / n for b, n in zip(box, dims)),
+                   q_off)
+            sc = SetScalars(0.0, 1.0, ())
+            if kernel == "ns_elem_full":
+                ue = set_inputs(tab.dim + 1, dims, lat, device, dtype, gen,
+                                None)[0]
+                src = (1.0,) + (0.0,) * (tab.dim - 1)
+                args = (ue, None, (1.0, 1.0, *src), tab, lat,
+                        fn.NSForm(True, False, h, 1.0, False), jac_idx)
+                plain, call = fn.ns_elem_full_plain, fn.ns_elem_full
+                work = ns_elem_work(dims, dtype, args)
+            else:
+                ue = set_inputs(len(form.variables), dims, lat, device,
+                                dtype, gen, None)[0]
+                if mesh == "p1":
+                    args = (form, ue, None, sc, tab, geo, jac_idx, None)
+                    plain, call = fs.set_node_full_plain, fs.set_node_full
+                    work = set_work(*dims, dtype, *args)
+                else:
+                    args = (form, ue, None, sc, tab, lat, geo, jac_idx,
+                            None)
+                    plain, call = fs.set_elem_full_plain, fs.set_elem_full
+                    work = set_elem_work(dims, dtype, *args)
+            ref, plain_ms = timed(lambda: plain(*args))
+            out = call(*args)
+            torch.cuda.synchronize()
+            errs = [max_err(o, r) for o, r in zip(out, ref)]
+            del out, ref
+            err = max(e for e, _ in errs)
+            ok = all(e <= rtol * sc_ for e, sc_ in errs)
+            rec = {"phase": "kernels_quadrature", "kernel": kernel,
+                   "mesh": mesh, "quadrature": quad, "Q": tab.Q,
+                   "dtype": str(dtype).replace("torch.", ""),
+                   "shape": list(dims), "jac_rows": len(jac_idx),
+                   "max_abs_err": err, "max_abs_err_res": errs[0][0],
+                   "max_abs_plain_res": errs[0][1],
+                   "max_abs_err_jac": errs[1][0],
+                   "max_abs_plain_jac": errs[1][1], "rtol": rtol, "ok": ok,
+                   "ms": cuda_ms(lambda: call(*args)), "plain_ms": plain_ms,
+                   **bound(*work, dtype)}
+            rec["share"] = rec["bound_ms"] / rec["ms"]
+            emit(rec)
+            if not ok:
+                raise SystemExit(f"{kernel} at Q = {tab.Q} disagrees with "
+                                 f"its plain version: {rec}")
+            if dtype == torch.float64:
+                summary[kernel] = rec
     return summary
 
 
@@ -1866,6 +2326,31 @@ class _OpCount(TorchDispatchMode):
 _NS_OPS = {}
 
 
+def _first_qps(tab, n):
+    """The first n qps of a table, with unit weights (the counts fold the
+    weights into the kernels' multiplies)."""
+    from types import SimpleNamespace
+    return SimpleNamespace(Q=n, dim=tab.dim,
+                           phi=[row[:n] for row in tab.phi],
+                           grad=[row[:n] for row in tab.grad],
+                           wts=[1.0] * n)
+
+
+def _ops_of_qps(ops, Q, hex_):
+    """Operations of an accumulation over Q qps, ops(n) counting the
+    first n. On hex p1 (hex_), ops(1) + (Q - 1) (ops(2) - ops(1)): every
+    qp after the first runs the same operations (the first starts each
+    sum), since the trilinear basis takes no value 0 or 1 at a Gauss
+    point that would make a multiply free at one qp and not another
+    (tests/test_torch_op_count.py checks it against whole counts at 8
+    and 27 qps); elsewhere (p2's basis is 0 at some qps) the whole
+    count."""
+    if not hex_ or Q <= 2:
+        return ops(Q)
+    one, two = ops(1), ops(2)
+    return one + (Q - 1) * (two - one)
+
+
 def ns_ops(tab, nc, coeffs, form, stage):
     """Operations per element of one NS kernel call (all its qps): the
     values and gradients at each qp, the density and its sparse
@@ -1874,7 +2359,6 @@ def ns_ops(tab, nc, coeffs, form, stage):
     fused_ns.accumulate. Cached per (element, coefficients, switches,
     alphas): the element's size changes no count (the check of h = 1
     aside)."""
-    from types import SimpleNamespace
     from mrhyde_tpu_torch.ops import fused_ns as fn
     nv, Q = tab.dim + 1, tab.Q
     key = (tab.dim, Q, nc, form.pspg, form.supg, form.transient,
@@ -1898,14 +2382,15 @@ def ns_ops(tab, nc, coeffs, form, stage):
     def coeff_at(q):
         rho, visc, *src = per_q[q]
         return rho, visc, src
-    folded = SimpleNamespace(Q=Q, dim=tab.dim, phi=tab.phi, grad=tab.grad,
-                             wts=[1.0] * Q)
-    with _OpCount() as count:
-        fn.accumulate(ue, ud, coeff_at, folded, form,
-                      1.0 if steady else stage.alpha_u,
-                      0.0 if steady else stage.alpha_t, steady)
-    _NS_OPS[key] = count.ops
-    return count.ops
+
+    def ops(n):
+        with _OpCount() as count:
+            fn.accumulate(ue, ud, coeff_at, _first_qps(tab, n), form,
+                          1.0 if steady else stage.alpha_u,
+                          0.0 if steady else stage.alpha_t, steady)
+        return count.ops
+    _NS_OPS[key] = _ops_of_qps(ops, Q, tab.dim == 3)
+    return _NS_OPS[key]
 
 
 def ns_work(N0, N1, Q, dtype, args):
@@ -1946,17 +2431,17 @@ def ns_elem_work(dims, dtype, args):
 _SET_OPS = {}
 
 
-def set_ops(form, tab, sc, stage):
-    """Operations per element of one set_node_full or set_elem_full call,
-    as ns_ops counts them: the set's accumulation (fused_set's plain
-    version, the JAX package's sparse forward AD) on one element's
-    stand-ins (form.nc local dofs per variable), with stand-ins for the
-    coordinates of each qp (a coefficient that reads x, y or z differs
-    at every qp). Cached per (form, scalars, alphas)."""
-    from types import SimpleNamespace
+def set_ops(form, tab, sc, stage, mode="full"):
+    """Operations per element of one set_node_full or set_elem_full call
+    (mode "lin": set_node_state or set_elem_state), as ns_ops counts
+    them: the set's accumulation (fused_set's plain version, the JAX
+    package's sparse forward AD) on one element's stand-ins (form.nc
+    local dofs per variable), with stand-ins for the coordinates of each
+    qp (a coefficient that reads x, y or z differs at every qp). Cached
+    per (form, scalars, alphas, mode)."""
     from mrhyde_tpu_torch.ops import fused_set as fs
     from mrhyde_tpu_torch.ops.fused_ns import accumulate_density
-    key = (form.source, form.h == 1.0, sc, None if stage is None
+    key = (form.source, form.h == 1.0, sc, tab.Q, mode, None if stage is None
            else (stage.alpha_u, stage.alpha_t))
     if key in _SET_OPS:
         return _SET_OPS[key]
@@ -1970,14 +2455,17 @@ def set_ops(form, tab, sc, stage):
     ud = [[0.0 if steady else standin() for _ in range(nc)]
           for _ in range(nv)]
     xy = [[standin() for _ in range(form.dim)] for _ in range(Q)]
-    folded = SimpleNamespace(Q=Q, dim=form.dim, phi=tab.phi, grad=tab.grad,
-                             wts=[1.0] * Q)
-    with _OpCount() as count:
-        accumulate_density(ue, ud, fs._density(form, lambda q: xy[q], sc),
-                           folded, 1.0 if steady else stage.alpha_u,
-                           0.0 if steady else stage.alpha_t, steady)
-    _SET_OPS[key] = count.ops
-    return count.ops
+
+    def ops(n):
+        with _OpCount() as count:
+            accumulate_density(ue, ud, fs._density(form, lambda q: xy[q],
+                                                   sc),
+                               _first_qps(tab, n),
+                               1.0 if steady else stage.alpha_u,
+                               0.0 if steady else stage.alpha_t, steady, mode)
+        return count.ops
+    _SET_OPS[key] = _ops_of_qps(ops, Q, form.dim == 3)
+    return _SET_OPS[key]
 
 
 def set_work(N0, N1, dtype, form, ue, ud, sc, tab, geo, jac_idx,
@@ -2005,6 +2493,21 @@ def set_elem_work(dims, dtype, form, ue, ud, sc, tab, lat, geo, jac_idx,
     nbytes = it * (ue.numel() * (1 if ud is None else 2)
                    + (nd + len(jac_idx)) * E)
     return nbytes, E * set_ops(form, tab, sc, stage)
+
+
+def state_work(dims, dtype, form, u, sc, tab, lat, stage, node):
+    """(bytes, flops) of one set_node_state or set_elem_state call: the u
+    grids read once, the node residual (node) or the nd residual rows
+    written once; set_ops in mode "lin" per element (and the adds of the
+    node scatter)."""
+    import math
+    E, nv = math.prod(dims), len(form.variables)
+    it = torch.finfo(dtype).bits // 8
+    out = u.numel() if node else nv * len(lat.offsets) * E
+    flops = E * set_ops(form, tab, sc, stage, "lin")
+    if node:
+        flops += nv * (4 * E - u[0].numel())
+    return it * (u.numel() + out), flops
 
 
 def assembly_tc(problem, u, time):
@@ -2145,11 +2648,15 @@ def set_sources():
     texts = [set_case(name, 1.0)[0].source for name in SET_KERNEL_CASES]
     texts += [set_elem_case(name, 1.0)[0].source
               for name in SET_ELEM_KERNEL_CASES]
+    texts += [state_case(name, 1.0)[0].source for name in STATE_KERNEL_CASES]
     for build in [boussinesq_deck] + [b for b, *_ in SET_DECKS.values()] \
-            + [b for b, *_ in SET_ELEM_DECKS.values()]:
+            + [b for b, *_ in SET_ELEM_DECKS.values()] \
+            + [b for b, *_ in AFFINE_SET_DECKS.values()] \
+            + [b for b, *_ in QUADRATURE_DECKS.values()]:
         fused = Problem(build(4), device="cpu", dtype=torch.float64) \
             .assembler.fused_provider()
-        texts.append(fused.form.source)
+        if hasattr(fused, "form"):
+            texts.append(fused.form.source)
     return list(dict.fromkeys(texts))
 
 
@@ -2194,6 +2701,10 @@ def main():
     summary["set_node_full"] = phase_set_kernels(device)
     set_elem = phase_set_elem_kernels(device)
     summary["set_elem_full"] = set_elem["ns+cdr pspg+supg dirk22 stage 1"]
+    state = phase_state_kernels(device)
+    summary["set_node_state"] = state["set_node_state"]
+    summary["set_elem_state"] = state["set_elem_state"]
+    quadrature = phase_quadrature_kernels(device)
 
     per_deck = [
         run_deck("gold_nx40", deck(40), device,
@@ -2201,8 +2712,8 @@ def main():
         run_deck("default_nx1024",
                  deck(1024, solver={"nonlinear TOL": 1e-10}),
                  device, [(0.0, "e", 1.56873e-06, 1e-4)], "state"),
-        run_deck("nonlinear_nx512", nonlinear_deck(512),
-                 device, [(0.0, "e", 6.27492e-06, 1e-4)], "full"),
+        run_deck("nonlinear_nx256", nonlinear_deck(256),
+                 device, [(0.0, "e", NONLINEAR_L2, 1e-4)], "full"),
         run_deck("transient_gold_nx40",
                  transient_deck(40, {
                      "transient Butcher tableau": "BWE",
@@ -2217,7 +2728,7 @@ def main():
                      "final time": 0.4, "number of steps": 8,
                      "nonlinear TOL": 1e-10}),
                  device, [(0.4, "e", DIRK_L2, 1e-4)], "state"),
-        run_deck("transient_nonlinear_bdf2_nx512", bdf2_nonlinear_deck(512),
+        run_deck("transient_nonlinear_bdf2_nx256", bdf2_nonlinear_deck(256),
                  device, [(0.2, "e", BDF2_NL_L2, 1e-4)], "full"),
         run_deck("ode_bdf2", ode_bdf2_deck(), device,
                  [(1.0, "q", 0.00106624, 2e-5)], None),
@@ -2267,6 +2778,15 @@ def main():
                  [(t, v, g, rtol) for t, ref in refs.items()
                   for v, g in ref.items()], "set_elem_full")
         for name, (build, n, rtol, refs) in SET_ELEM_DECKS.items()]
+    per_deck += [
+        run_deck("thermal_mixed_neumann_gold_nx40", mixed_neumann_deck(40),
+                 device, [(0.0, "e", 0.00102733, 2e-5)], "state")] + [
+        run_deck(name, build(n), device,
+                 [(t, v, g, rtol) for t, ref in refs.items()
+                  for v, g in ref.items()], mode)
+        for name, (build, n, rtol, refs, mode) in {
+            **BOUNDARY_DECKS, **AFFINE_SET_DECKS,
+            **QUADRATURE_DECKS}.items()]
     launches = {k: sum(d[k] for d in per_deck) for k in fp.LAUNCHES}
     advect_launches = {k: sum(d[k] for d in advect_decks)
                        for k in fp.LAUNCHES}
@@ -2284,10 +2804,12 @@ def main():
     csrc = "mrhyde_tpu_torch/ops/csrc/"
     kernels = []
     # no single PyTorch call computes a node-scatter or an element-tile
-    # assembly: library_ms is null for all eight. The four thermal kernels
+    # assembly: library_ms is null for all ten. The four thermal kernels
     # report their advection (ADVECT) case and its launches beside: the
     # cdr and thermal-advection decks' share of `launches`; set_elem_full
-    # reports every phase 3g case (f64, the divisible shape) beside.
+    # reports every phase 3g case (f64, the divisible shape) beside, the
+    # state kernels every phase 3h case, and ns_elem_full, set_elem_full
+    # and set_node_full their phase 3i case ("quadrature", f64).
     for name, mode, src, line in (
             ("thermal_node_state", "state", "fused_p1_thermal.cu", 1350),
             ("thermal_node_full", "full", "fused_p1_thermal.cu", 1350),
@@ -2298,7 +2820,9 @@ def main():
              1303),
             ("ns_elem_full", "ns_elem_full", "fused_elem_ns.cu", 1303),
             ("set_node_full", "set_node_full", "set_node.cuh", 1350),
-            ("set_elem_full", "set_elem_full", "set_elem.cuh", 1303)):
+            ("set_elem_full", "set_elem_full", "set_elem.cuh", 1303),
+            ("set_node_state", "set_node_state", "set_node.cuh", 1350),
+            ("set_elem_state", "set_elem_state", "set_elem.cuh", 1303)):
         rec = summary[name]
         kernels.append({"name": name, "route": "cuda", "source": csrc + src,
                         "replaces": f"mrhyde_tpu/ops/fused_p1.py:{line}",
@@ -2321,6 +2845,17 @@ def main():
                                    "jac_rows", "max_abs_err", "ms",
                                    "plain_ms", "bound_ms", "bound_by")}
                 for c in set_elem.values()]
+        if name in ("set_node_state", "set_elem_state"):
+            kernels[-1]["cases"] = [
+                {k: c[k] for k in ("case", "mesh", "shape", "max_abs_err",
+                                   "ms", "plain_ms", "bound_ms", "bound_by")}
+                for c in state["cases"] if c["kernel"] == name]
+        if name in quadrature:
+            q = quadrature[name]
+            kernels[-1]["quadrature"] = {
+                k: q[k] for k in ("Q", "mesh", "shape", "jac_rows",
+                                  "max_abs_err", "ms", "plain_ms",
+                                  "bound_ms", "bound_by")}
     emit({"kernels": kernels})
     print(smi, flush=True)
     emit({"ok": True, "device": {"platform": "gpu",

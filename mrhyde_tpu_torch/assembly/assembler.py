@@ -14,14 +14,17 @@ The port of `mrhyde_tpu/assembly/assembler.py`:
 Dirichlet rows use symmetric elimination: residual rows masked, unit
 diagonal in operators. Scalar variables (HGRAD, HVOL) are ported, with
 the mass and L2-projection helpers the transient path needs. Boundary
-integrals (Neumann, Robin, weak Dirichlet) and oriented vector bases are
-not ported yet (ROADMAP A4, A11): the Problem rejects decks that need
-them.
+integrals (Neumann, Flux, weak Dirichlet, ...) run over the boundary
+groups, torch.func.vmap'd per side: the modules' `boundary_residual` and
+the physics-agnostic Flux term; they are additive, so `res_and_jac`
+attaches them to the fused providers' volume result as the JAX package
+does (`BlockJacobian.bnd`). Oriented vector bases are not ported yet
+(ROADMAP A11): the Assembler rejects decks that need them.
 """
 
 from __future__ import annotations
 
-from dataclasses import dataclass, field
+from dataclasses import dataclass, field, replace
 
 import numpy as np
 import torch
@@ -74,6 +77,11 @@ class BlockJacobian:
     # varies by element, and through AoS blocks built on the first
     # product otherwise (see _vol_mv).
     vol_soa: list | None = None
+    # additive boundary-group blocks: (B, nd, nd) per group, with the
+    # group's lids (B, nd) and its BoundaryScatter
+    bnd: list = field(default_factory=list)
+    bnd_lids: list = field(default_factory=list)
+    bnd_scatter: list = field(default_factory=list)
     # whether some SoA row holds one value per element: fixed when the
     # Jacobian is built, so the Krylov products do not rescan the rows
     soa_varies: bool = field(init=False, default=False)
@@ -139,10 +147,12 @@ class BlockJacobian:
         # Eager torch launches one op per SoA term: where a row holds one
         # value per element the AoS einsum reads the same bytes in a few
         # launches (2x faster at nd = 4, 9x at nd = 12 on the H100);
-        # constant rows read no per-element data, and the SoA product
-        # stays 2x faster (PERF.md).
+        # constant rows read no per-element data, and their SoA product
+        # stays 2x faster at nd = 4, but its nd^2 launches lose from nd =
+        # 8 on (AoS 1.26x faster at hex nd = 8, 6.2x at p2 nd = 9:
+        # PERF.md).
         if self._soa_only:
-            if not self.soa_varies:
+            if not self.soa_varies and self.vol_lids.shape[1] <= 4:
                 return self._soa_mv(vm)
             if self._aos_cache is None:
                 self._aos_cache = self.aos()
@@ -155,10 +165,15 @@ class BlockJacobian:
         flat = torch.cat([vals.reshape(-1), vals.new_zeros(1)])
         return flat[self.inc].sum(dim=1)
 
+    def _bnd_parts(self):
+        return zip(self.bnd, self.bnd_lids, self.bnd_scatter)
+
     def apply(self, v):
         """J @ v with Dirichlet identity rows."""
         vm = torch.where(self.fixed, 0.0, v)
         out = self._gather_sum(self._vol_mv(vm))
+        for blocks, lids, sc in self._bnd_parts():
+            out = sc.add(out, torch.einsum("eij,ej->ei", blocks, vm[lids]))
         return torch.where(self.fixed, v, out)
 
     def diag(self):
@@ -175,26 +190,55 @@ class BlockJacobian:
         else:
             dblk = torch.diagonal(self.vol, dim1=1, dim2=2)
         d = self._gather_sum(dblk)
+        for blocks, _lids, sc in self._bnd_parts():
+            d = sc.add(d, torch.diagonal(blocks, dim1=1, dim2=2))
         return torch.where(self.fixed, 1.0, d)
 
     def dense(self):
         n = self.n_dof
         vol = self.aos()
         nd = self.vol_lids.shape[1]
-        rows = self.vol_lids[:, :, None].expand(-1, nd, nd)
-        cols = self.vol_lids[:, None, :].expand(-1, nd, nd)
+        rows = [self.vol_lids[:, :, None].expand(-1, nd, nd).reshape(-1)]
+        cols = [self.vol_lids[:, None, :].expand(-1, nd, nd).reshape(-1)]
+        vals = [vol.reshape(-1)]
+        for blocks, lids, _sc in self._bnd_parts():
+            k = lids.shape[1]
+            rows.append(lids[:, :, None].expand(-1, k, k).reshape(-1))
+            cols.append(lids[:, None, :].expand(-1, k, k).reshape(-1))
+            vals.append(blocks.reshape(-1))
         # coalesce sums duplicate (row, col) entries by sorting, not by
         # atomics, so the dense matrix is the same on every run
         with torch.sparse.check_sparse_tensor_invariants(True):
             A = torch.sparse_coo_tensor(
-                torch.stack([rows.reshape(-1), cols.reshape(-1)]),
-                vol.reshape(-1), (n, n)).coalesce().to_dense()
+                torch.stack([torch.cat(rows), torch.cat(cols)]),
+                torch.cat(vals), (n, n)).coalesce().to_dense()
         mask = self.fixed[:, None] | self.fixed[None, :]
         A = torch.where(mask, 0.0, A)
         A = A + torch.diag(self.fixed.to(A.dtype))
         # patch EMPTY ROWS (dofs no module touches)
         empty = torch.abs(A).sum(dim=1) == 0
         return A + torch.diag(empty.to(A.dtype))
+
+
+class BoundaryScatter:
+    """Deterministic scatter-add of a boundary group's per-side values
+    (B, nd) onto the dofs: the group's distinct dofs and their incidence
+    table into the flattened values (no atomics, no index_add_)."""
+
+    def __init__(self, lids: np.ndarray, device):
+        lids = np.asarray(lids)
+        dofs, local = np.unique(lids.ravel(), return_inverse=True)
+        self.dofs = torch.as_tensor(dofs, device=device)
+        self.inc = torch.as_tensor(
+            build_incidence(local.reshape(lids.shape), dofs.size),
+            device=device)
+
+    def add(self, out, vals):
+        """out (n_dof,) with vals (B, nd) summed onto the group's dofs."""
+        flat = torch.cat([vals.reshape(-1), vals.new_zeros(1)])
+        out = out.clone()
+        out[self.dofs] += flat[self.inc].sum(dim=1)
+        return out
 
 
 def build_incidence(lids: np.ndarray, n_dof: int) -> np.ndarray:
@@ -294,10 +338,27 @@ class Assembler:
         self.g_ip = torch.as_tensor(disc.ip, dtype=dt, device=dev)
         self.g_bv = {k: torch.as_tensor(v, dtype=dt, device=dev)
                      for k, v in disc.basis_vals.items()}
+        self._bnd = [self._boundary_group(bg)
+                     for bg in disc.boundary_groups]
+        # var -> {sideset -> condition type}, set by the Problem
+        self.var_bcs: dict[str, dict[str, str]] = {}
         self._fused = None
         self._fused_built = False
         # set by the Problem for 'solver: transient' decks
         self.is_transient = False
+
+    def _boundary_group(self, bg):
+        """A boundary group's side data as tensors on the device."""
+        dt, dev = self.dtype, self.device
+
+        def t(a):
+            return torch.as_tensor(a, dtype=dt, device=dev)
+        return {"sideset": bg.sideset, "side": bg.side,
+                "lids": torch.as_tensor(bg.lids, device=dev),
+                "scatter": BoundaryScatter(bg.lids, dev),
+                "wts": t(bg.wts), "ip": t(bg.ip), "normals": t(bg.normals),
+                "bv": {k: t(v) for k, v in bg.basis_vals.items()},
+                "bg": {k: t(v) for k, v in bg.basis_grads.items()}}
 
     # ------------------------------------------------------------------
     # structured-mesh fast path: on uniform box meshes with nodal p1
@@ -426,6 +487,8 @@ class Assembler:
         else:
             flat = torch.cat([res_e.reshape(-1), res_e.new_zeros(1)])
             r = flat[self.inc].sum(dim=1)
+        if self._active_bnd_groups():
+            r = r + self._bnd_res_scatter(u_st, tc, pvec)
         return torch.where(self.fixed, 0.0, r)
 
     def jacobian(self, u_st, tc: TimeCoeffs, pvec=None) -> BlockJacobian:
@@ -436,7 +499,99 @@ class Assembler:
             in_dims=self._in_dims())(
             u_e, bu_e, bt_e, self.g_wts, self.g_ip, self.g_bg)
         return BlockJacobian(vol=jac_e, vol_lids=self.lids,
-                             fixed=self.fixed, inc=self.inc)
+                             fixed=self.fixed, inc=self.inc,
+                             **self._bnd_jac_parts(u_st, tc, pvec))
+
+    # ------------------------------------------------------------------
+    # boundary groups (JAX assembler.py `_belem_residual`,
+    # `_bnd_res_scatter`, `_bnd_jac_parts`, `_active_bnd_groups`)
+    # ------------------------------------------------------------------
+
+    def _active_bnd_groups(self):
+        """Boundary groups with at least one condition to integrate:
+        every type but strong Dirichlet, and the Dirichlet data of a
+        variable without trace dofs (a natural boundary integral)."""
+        from mrhyde_tpu_torch.solvers.bcs import broken_space
+        out = []
+        for g in self._bnd:
+            for v in self.disc.var_names:
+                bct = self.var_bcs.get(v, {}).get(g["sideset"])
+                if bct in ("Neumann", "weak Dirichlet", "Robin", "Far-field",
+                           "Slip", "Flux"):
+                    out.append(g)
+                    break
+                if bct == "Dirichlet":
+                    vdm = self.disc.dofmap.var(v)
+                    if broken_space(getattr(vdm.basis, "space", "")) \
+                            or not any(vdm.basis.side_dofs(s) for s in
+                                       range(self.disc.topo.n_side)):
+                        out.append(g)
+                        break
+        return out
+
+    def _belem_residual(self, group, u_st, beta_u, beta_t, wts, ip,
+                        normals, bg, *, alpha_u, alpha_t, time, params,
+                        deltat):
+        """One side's residual (ndof_total,): the modules'
+        boundary_residual and the physics-agnostic Flux conditions
+        (reference physicsInterface.cpp fluxConditions: res += -(g, v)
+        for any module)."""
+        ss = group["sideset"]
+        bcs = {v: self.var_bcs.get(v, {}).get(ss)
+               for v in self.disc.var_names}
+        wk = Workset(
+            dim=self.disc.mesh.dim, wts=wts, ip=ip, basis_vals=group["bv"],
+            basis_grads=bg, offsets=self.disc.offsets,
+            var_keys=self.disc.basis_keys,
+            u_eval=alpha_u * u_st + beta_u, u_dot=alpha_t * u_st + beta_t,
+            time=time, fm=self.fm, params=params, deltat=deltat,
+            is_transient=self.is_transient, normals=normals, side_name=ss,
+            bcs=bcs)
+        for m in self.modules:
+            m.boundary_residual(wk)
+        for v in self.disc.var_names:
+            if bcs.get(v) == "Flux":
+                g = wk.f(f"Flux {v} {ss}", "side ip")
+                wk.add_source(v, -wk.qp(g))
+        return wk.res
+
+    def _bnd_fn(self, group, tc: TimeCoeffs, pvec):
+        params = self._params(pvec)
+
+        def fn(u_st, beta_u, beta_t, wts, ip, normals, bg):
+            return self._belem_residual(
+                group, u_st, beta_u, beta_t, wts, ip, normals, bg,
+                alpha_u=tc.alpha_u, alpha_t=tc.alpha_t, time=tc.time,
+                params=params, deltat=tc.deltat)
+        return fn
+
+    def _bnd_args(self, group, u_st, tc: TimeCoeffs):
+        lids = group["lids"]
+        return (u_st[lids], tc.beta_u[lids], tc.beta_t[lids], group["wts"],
+                group["ip"], group["normals"], group["bg"])
+
+    def _bnd_res_scatter(self, u_st, tc: TimeCoeffs, pvec=None):
+        """The summed boundary-group residual (n_dof,): additive to the
+        volume residual, so the fused providers compose with it."""
+        r = torch.zeros(self.n_dof, dtype=u_st.dtype, device=u_st.device)
+        for group in self._active_bnd_groups():
+            res_b = torch.func.vmap(self._bnd_fn(group, tc, pvec))(
+                *self._bnd_args(group, u_st, tc))
+            r = group["scatter"].add(r, res_b)
+        return r
+
+    def _bnd_jac_parts(self, u_st, tc: TimeCoeffs, pvec=None):
+        """{bnd, bnd_lids, bnd_scatter} of the active boundary groups:
+        each group's (B, nd, nd) side Jacobians, additive to the volume
+        blocks."""
+        parts = {"bnd": [], "bnd_lids": [], "bnd_scatter": []}
+        for group in self._active_bnd_groups():
+            parts["bnd"].append(torch.func.vmap(torch.func.jacfwd(
+                self._bnd_fn(group, tc, pvec), argnums=0))(
+                *self._bnd_args(group, u_st, tc)))
+            parts["bnd_lids"].append(group["lids"])
+            parts["bnd_scatter"].append(group["scatter"])
+        return parts
 
     def fused_provider(self):
         """The fused provider (ops/fused_p1.py), built on
@@ -455,12 +610,20 @@ class Assembler:
         (uniform structured meshes: thermal, with or without advection,
         and cdr on 2D p1 quads, 3D p1 hex and 2D p2 quads; Navier-Stokes
         on 2D p1 quads) and the params are scalars, steady or transient
-        alike, else the general vmapped path."""
+        alike, else the general vmapped path. Active boundary groups
+        (Neumann, Flux, weak Dirichlet, ...) are additive: their residual
+        and blocks from the general path join the fused result, as the
+        JAX package attaches them."""
         fused = self.fused_provider()
         if fused is not None and all(
                 not isinstance(v, torch.Tensor) or v.dim() == 0
                 for v in (pvec or {}).values()):
-            return fused.jacobian(u_st, tc, pvec)
+            r, J = fused.jacobian(u_st, tc, pvec)
+            if self._active_bnd_groups():
+                r = torch.where(self.fixed, 0.0,
+                                r + self._bnd_res_scatter(u_st, tc, pvec))
+                J = replace(J, **self._bnd_jac_parts(u_st, tc, pvec))
+            return r, J
         return (self.residual(u_st, tc, pvec),
                 self.jacobian(u_st, tc, pvec))
 
@@ -479,6 +642,9 @@ class Assembler:
             else:
                 prods = torch.einsum("eij,ej->ei", J.vol, ve)
             out = self._scatter_structured(prods)
+            for blocks, lids, sc in J._bnd_parts():
+                out = sc.add(out, torch.einsum("eij,ej->ei", blocks,
+                                               vm[lids]))
             return torch.where(J.fixed, v, out)
         return apply
 

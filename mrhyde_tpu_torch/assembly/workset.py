@@ -25,7 +25,8 @@ _AXES = {"x": 0, "y": 1, "z": 2}
 class Workset:
     def __init__(self, *, dim, wts, ip, basis_vals, basis_grads, offsets,
                  var_keys, u_eval, u_dot=None, time=0.0, fm=None,
-                 params=None, deltat=1.0, is_transient=False):
+                 params=None, deltat=1.0, is_transient=False, normals=None,
+                 side_name=None, bcs=None):
         self.dim = dim
         self.wts = wts                      # (Q,)
         self.ip = ip                        # (Q, dim)
@@ -40,6 +41,9 @@ class Workset:
         self.params = params or {}
         self.deltat = deltat
         self.is_transient = is_transient
+        self.normals = normals              # (Q, dim) on side worksets
+        self.side_name = side_name
+        self.bcs = bcs or {}                # var -> condition type
         self._res = {}                      # var -> (ndof,) contribution
         self._sol_cache = {}
 
@@ -98,6 +102,10 @@ class Workset:
             return self.grad(var)[:, _AXES[leaf[-2]]]
         if leaf.endswith("_t") and leaf[:-2] in self.offsets:
             return self.sol_dot(leaf[:-2])
+        if leaf.startswith("n[") and self.normals is not None:
+            return self.normals[:, _AXES[leaf[2]]]
+        if leaf in ("nx", "ny", "nz") and self.normals is not None:
+            return self.normals[:, _AXES[leaf[1]]]
         if leaf in self.params:
             return self.params[leaf]
         raise KeyError(f"cannot resolve expression leaf {leaf!r}")
@@ -115,11 +123,23 @@ class Workset:
         getElementSize); one scalar per element."""
         return torch.sum(self.wts) ** (1.0 / self.dim)
 
+    @property
+    def side_h(self):
+        """Side size = measure^(1/(dim-1)) (reference workset.cpp
+        getSideElementSize); side worksets only."""
+        if self.dim == 1:
+            return 1.0
+        return torch.sum(self.wts) ** (1.0 / (self.dim - 1))
+
     # ---- residual accumulation (used by physics) ----
 
     def _accumulate(self, var, contrib):
         prev = self._res.get(var)
         self._res[var] = contrib if prev is None else prev + contrib
+
+    def add(self, var, contrib):
+        """res_i += contrib_i over the variable's local dofs."""
+        self._accumulate(var, contrib)
 
     def add_source(self, var, svals):
         """res_i += sum_q svals(q) * phi_i(q) * w(q)   (i.e. (s, v))."""

@@ -199,8 +199,9 @@ def build_generated(texts):
 
 def load_generated(text):
     """The bound entry points of the library of one generated source
-    (set_node_full_f64 and _f32, or set_elem_full_f64 and _f32: those it
-    defines), building it first if it is missing or stale."""
+    (set_node_full_*, set_node_state_* or set_elem_full_*,
+    set_elem_state_*, each _f64 and _f32: those it defines), building it
+    first if it is missing or stale."""
     src, lib = _gen_paths(text)
     with _lock:
         if lib in _state["gen"]:
@@ -210,8 +211,10 @@ def load_generated(text):
         if lib not in _state["gen"]:
             cdll = ctypes.CDLL(lib)
             fns = {}
-            for name in ("set_node_full_f64", "set_node_full_f32",
-                         "set_elem_full_f64", "set_elem_full_f32"):
+            for name in (f"set_{kind}_{mode}_{t}"
+                         for kind in ("node", "elem")
+                         for mode in ("full", "state")
+                         for t in ("f64", "f32")):
                 if not hasattr(cdll, name):
                     continue
                 fn = getattr(cdll, name)

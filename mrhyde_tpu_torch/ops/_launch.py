@@ -1,7 +1,9 @@
 """Launch helpers shared by the kernel wrappers of ops/fused_p1.py,
 ops/fused_ns.py, ops/fused_elem.py and ops/fused_set.py: the launch counts, the pointer and
-stream arguments, and the scalar-or-(E, Q) coefficient, stage and
-velocity arguments of the C entry points (ops/_build.py)."""
+stream arguments, the scalar-or-(E, Q) coefficient, stage and
+velocity arguments of the C entry points (ops/_build.py), and the
+shared-memory layouts of the element-tile kernels (`ns_elem_full`,
+`set_elem_*`) and of `set_node_full`'s Jacobian blocks."""
 
 from __future__ import annotations
 
@@ -10,17 +12,82 @@ import ctypes
 import torch
 
 __all__ = ["LAUNCHES", "ptr", "stream", "check_qp", "coeff_args",
-           "stage_args", "velocity_args"]
+           "stage_args", "velocity_args", "SMEM_OPTIN", "elem_smem_words",
+           "node_smem_words", "block_elems", "check_smem", "check_err"]
 
 # kernel launches per kernel: thermal "state" and "full" (B2,
 # ops/fused_p1.py), the Navier-Stokes "full" kernels (B2 "ns_full" and B1
 # "ns_elem_full", ops/fused_ns.py), the thermal element kernels (B1,
 # ops/fused_elem.py) and the generated module-set kernels (B2
-# "set_node_full" and B1 "set_elem_full", ops/fused_set.py); each wrapper
-# adds one where it launches; reset by whoever wants to count a run
+# "set_node_full", "set_node_state" and B1 "set_elem_full",
+# "set_elem_state", ops/fused_set.py); each wrapper adds one where it
+# launches; reset by whoever wants to count a run
 LAUNCHES = {"state": 0, "full": 0, "ns_full": 0, "elem_state": 0,
             "elem_full": 0, "ns_elem_full": 0, "set_node_full": 0,
-            "set_elem_full": 0}
+            "set_elem_full": 0, "set_node_state": 0, "set_elem_state": 0}
+
+# the H100's shared memory per block with opt-in
+# (cudaDevAttrMaxSharedMemoryPerBlockOptin, 227 KiB): the providers refuse
+# a quadrature whose layout of one element exceeds it; the kernels read
+# the card's own value at each launch
+SMEM_OPTIN = 232448
+# what the kernels' C entry points return where one element's layout
+# exceeds the card's limit (kErrSharedMemory)
+_ERR_SMEM = -1
+
+
+def elem_smem_words(dim, nc, nv, transient, Q, elems):
+    """Words of an element-tile block's shared memory (csrc/
+    fused_elem_ns.cu `Layout`, csrc/set_elem.cuh `SetElemLayout`): the
+    tables, `elems` elements' corner values, their qp state and their
+    densities."""
+    nd, no = nv * nc, nv * (1 + dim)
+    nq = no + (nv if transient else 0)
+    tables = nc * Q * (1 + dim) + Q
+    return tables + elems * (2 if transient else 1) * nd \
+        + elems * Q * (nq + no)
+
+
+def node_smem_words(nv, transient, Q, elems):
+    """Words of a set_node_full Jacobian block's shared memory
+    (csrc/set_node.cuh `SetLayout`)."""
+    nq = 3 * nv + (nv if transient else 0)
+    return 13 * Q + elems * (2 if transient else 1) * 4 * nv \
+        + elems * Q * nq
+
+
+def block_elems(words, itemsize, limit=SMEM_OPTIN):
+    """The elements per block the kernels take: the most of 16, 8, ...,
+    1 whose layout (`words(elems)` words of `itemsize` bytes) fits
+    `limit` bytes, or 0."""
+    elems = 16
+    while elems >= 1:
+        if words(elems) * itemsize <= limit:
+            return elems
+        elems //= 2
+    return 0
+
+
+def check_smem(name, words, itemsize, Q):
+    """Raises ValueError where one element's layout of quadrature Q
+    exceeds the H100's shared memory per block."""
+    if block_elems(words, itemsize) == 0:
+        raise ValueError(
+            f"{name} at {Q} quadrature points needs "
+            f"{words(1) * itemsize} bytes of shared memory for one "
+            f"element, above the card's {SMEM_OPTIN} bytes per block: "
+            "lower the deck's quadrature")
+
+
+def check_err(name, err, Q=None):
+    """Raises on a failed launch: a layout past the card's shared memory,
+    or a CUDA error."""
+    if err == _ERR_SMEM:
+        raise RuntimeError(
+            f"{name}: one element's qp state at {Q} quadrature points does "
+            "not fit the card's shared memory per block")
+    if err != 0:
+        raise RuntimeError(f"{name} launch failed: CUDA error {err}")
 
 
 def ptr(t):

@@ -34,19 +34,21 @@
 // differentiated by hand. A column's tangent is ONE direction, so the
 // Jacobian of column (w, c') is one forward pass on Dual<T, 1>: no 32 x 8
 // column-variable block of accumulators, and no tangent of a variable that
-// is not w (the seed of those is 0 at run time). A block owns kElems
-// elements and runs in phases through shared memory:
+// is not w (the seed of those is 0 at run time). A block owns `elems`
+// elements (16, or fewer where the layout of 16 would not fit the card's
+// shared memory: hex at quadrature 6, Q = 64, takes 8 in f64) and runs in
+// phases through shared memory:
 //   1. the reference tables and the elements' corner values (u_eval and,
 //      in a stage, u_dot) of all variables;
 //   2. one thread per (element, qp): the values, gradients (and u_dot) of
 //      all variables at the qp, and the primal density there;
 //   3. each thread (element, slot) sums the residual rows slot, slot +
-//      kSlots, ... from the stored densities, then walks the columns slot,
-//      slot + kSlots, ...: for each it re-evaluates the density on
+//      slots, ... from the stored densities, then walks the columns slot,
+//      slot + slots, ...: for each it re-evaluates the density on
 //      Dual<T, 1> at every qp from the stored qp state, keeps the nd sums
 //      of the column in registers and writes them.
 // Neighbouring threads of a warp own neighbouring elements, so each row
-// is written 16 elements (128 bytes in f64) at a time. The sums are
+// is written `elems` elements (128 bytes in f64 at 16) at a time. The sums are
 // deterministic (no atomics); any element grid works (the last block
 // masks its missing elements); element and row offsets are 64-bit.
 //
@@ -63,8 +65,7 @@
 namespace {
 
 constexpr int kThreads = 128;
-constexpr int kElems = 16;                  // elements per block
-constexpr int kSlots = kThreads / kElems;   // threads per element
+constexpr int kElems = 16;  // elements per block, at most
 constexpr int kMaxNc = 9;
 constexpr int kCoefs = 5;  // density, viscosity, source ux, uy, uz
 
@@ -126,24 +127,30 @@ __device__ __forceinline__ long long grid_index(const ElemNsArgs& a,
   return (i * g.G1 + j) * g.G2 + k;
 }
 
-// shared memory, in T: tables phi (NC*Q), grad (NC*Q*DIM), wts (Q); the
-// corner values (kElems x NS0 x ND); the qp state u, ud, g (kElems x Q x
-// NQ); the primal densities (kElems x Q x NO)
+// shared memory of a block of `elems` elements, in T: tables phi (NC*Q),
+// grad (NC*Q*DIM), wts (Q); the corner values (elems x NS0 x ND); the qp
+// state u, ud, g (elems x Q x NQ); the primal densities (elems x Q x NO).
+// ops/_launch.py `elem_smem_words` is the same formula.
 template <int DIM, int NC, bool TR>
 struct Layout {
   static constexpr int NV = DIM + 1, ND = NV * NC, NO = NV * (1 + DIM);
   static constexpr int NS0 = TR ? 2 : 1;            // u_eval [, u_dot]
   static constexpr int NQ = NV * (1 + DIM) + (TR ? NV : 0);
-  __host__ __device__ static int tables(int Q) { return NC * Q * (1 + DIM) + Q; }
-  __host__ __device__ static int corners() { return kElems * NS0 * ND; }
-  __host__ __device__ static int total(int Q) {
-    return tables(Q) + corners() + kElems * Q * (NQ + NO);
+  __host__ __device__ static long long tables(int Q) {
+    return (long long)NC * Q * (1 + DIM) + Q;
+  }
+  __host__ __device__ static long long corners(int elems) {
+    return (long long)elems * NS0 * ND;
+  }
+  __host__ __device__ static long long total(int Q, int elems) {
+    return tables(Q) + corners(elems) + (long long)elems * Q * (NQ + NO);
   }
 };
 
 template <typename T, int DIM, int NC, bool TR>
 __global__ void __launch_bounds__(kThreads)
-    ns_elem_full_kernel(const ElemNsArgs a, const Geometry geo) {
+    ns_elem_full_kernel(const ElemNsArgs a, const Geometry geo,
+                        const int elems) {
   using L = Layout<DIM, NC, TR>;
   constexpr int NV = L::NV, ND = L::ND, NO = L::NO, NQ = L::NQ;
   using D = Dual<T, 1>;
@@ -154,10 +161,10 @@ __global__ void __launch_bounds__(kThreads)
   T* grad = phi + NC * Q;
   T* wts = grad + NC * Q * DIM;
   T* corner = s + L::tables(Q);
-  T* qst = corner + L::corners();
-  T* qout = qst + kElems * Q * NQ;
-  const int tid = threadIdx.x;
-  const long long e0 = (long long)blockIdx.x * kElems;
+  T* qst = corner + L::corners(elems);
+  T* qout = qst + (long long)elems * Q * NQ;
+  const int tid = threadIdx.x, slots = kThreads / elems;
+  const long long e0 = (long long)blockIdx.x * elems;
 
   // phase 1: tables and corner values
   {
@@ -169,7 +176,7 @@ __global__ void __launch_bounds__(kThreads)
       s[i] = i < na ? phi_g[i]
                     : (i < na + nb ? grad_g[i - na] : wts_g[i - na - nb]);
   }
-  for (int i = tid; i < L::corners(); i += kThreads) {
+  for (int i = tid; i < L::corners(elems); i += kThreads) {
     const int le = i / (L::NS0 * ND), rest = i % (L::NS0 * ND);
     const int which = rest / ND, k = rest % ND;
     const long long e = e0 + le;
@@ -183,7 +190,7 @@ __global__ void __launch_bounds__(kThreads)
   __syncthreads();
 
   // phase 2: the qp state and the primal density per (element, qp)
-  for (int i = tid; i < kElems * Q; i += kThreads) {
+  for (int i = tid; i < elems * Q; i += kThreads) {
     const int le = i / Q, q = i % Q;
     const long long e = e0 + le;
     if (e >= geo.E) continue;
@@ -227,14 +234,14 @@ __global__ void __launch_bounds__(kThreads)
   }
   __syncthreads();
 
-  const int le = tid % kElems, slot = tid / kElems;
+  const int le = tid % elems, slot = tid / elems;
   const long long e = e0 + le;
   if (e >= geo.E) return;
 
-  // phase 3a: residual rows slot, slot + kSlots, ...
+  // phase 3a: residual rows slot, slot + slots, ...
   T* res = static_cast<T*>(a.res);
 #pragma unroll 1
-  for (int r = slot; r < ND; r += kSlots) {
+  for (int r = slot; r < ND; r += slots) {
     const int v = r / NC, c = r % NC;
     T acc = T(0);
     for (int q = 0; q < Q; ++q) {
@@ -248,11 +255,11 @@ __global__ void __launch_bounds__(kThreads)
     res[(long long)r * geo.E + e] = acc;
   }
 
-  // phase 3b: Jacobian columns slot, slot + kSlots, ...
+  // phase 3b: Jacobian columns slot, slot + slots, ...
   T* jac = static_cast<T*>(a.jac);
   const T au = T(a.alpha_u), at = T(a.alpha_t);
 #pragma unroll 1
-  for (int col = slot; col < ND; col += kSlots) {
+  for (int col = slot; col < ND; col += slots) {
     const int w = col / NC, cp = col % NC;
     T J[ND];
 #pragma unroll
@@ -302,20 +309,44 @@ __global__ void __launch_bounds__(kThreads)
   }
 }
 
-template <typename T, int DIM, int NC>
+// The elements per block: the most (16, 8, ..., 1) whose layout fits the
+// card's opt-in shared memory per block, and that layout's bytes; 0 where
+// one element does not fit.
+template <typename T, int DIM, int NC, bool TR>
+int block_elems(int Q, long long optin, size_t* smem) {
+  for (int elems = kElems; elems >= 1; elems /= 2) {
+    const long long bytes =
+        (long long)sizeof(T) * Layout<DIM, NC, TR>::total(Q, elems);
+    if (bytes <= optin) {
+      *smem = (size_t)bytes;
+      return elems;
+    }
+  }
+  return 0;
+}
+
+// what a launch returns where the qp state of one element does not fit
+// the card's shared memory (ops/fused_ns.py raises on it)
+constexpr int kErrSharedMemory = -1;
+
+template <typename T, int DIM, int NC, bool TR>
 int launch_case(const ElemNsArgs& a, const Geometry& geo, void* stream) {
-  auto kernel = a.transient ? ns_elem_full_kernel<T, DIM, NC, true>
-                            : ns_elem_full_kernel<T, DIM, NC, false>;
-  const int words = a.transient ? Layout<DIM, NC, true>::total(a.Q)
-                                : Layout<DIM, NC, false>::total(a.Q);
-  const size_t smem = sizeof(T) * (size_t)words;
+  auto kernel = ns_elem_full_kernel<T, DIM, NC, TR>;
+  int dev = 0, optin = 0;
+  cudaGetDevice(&dev);
+  cudaDeviceGetAttribute(&optin, cudaDevAttrMaxSharedMemoryPerBlockOptin,
+                         dev);
+  size_t smem = 0;
+  const int elems = block_elems<T, DIM, NC, TR>(a.Q, optin, &smem);
+  if (elems == 0) return kErrSharedMemory;
   if (smem > 48 * 1024) {
     const cudaError_t err = cudaFuncSetAttribute(
         kernel, cudaFuncAttributeMaxDynamicSharedMemorySize, (int)smem);
     if (err != cudaSuccess) return (int)err;
   }
-  const long long blocks = (geo.E + kElems - 1) / kElems;
-  kernel<<<(unsigned)blocks, kThreads, smem, (cudaStream_t)stream>>>(a, geo);
+  const long long blocks = (geo.E + elems - 1) / elems;
+  kernel<<<(unsigned)blocks, kThreads, smem, (cudaStream_t)stream>>>(a, geo,
+                                                                    elems);
   return (int)cudaGetLastError();
 }
 
@@ -331,8 +362,12 @@ int launch(const ElemNsArgs* a, void* stream) {
   geo.G2 = a->dim == 3 ? a->stride * a->N2 + 1 : 1;
   geo.G = (long long)(a->stride * a->N0 + 1) * geo.G1 * geo.G2;
   geo.E = (long long)a->N0 * a->N1 * geo.N2;
-  if (a->dim == 3 && a->nc == 8) return launch_case<T, 3, 8>(*a, geo, stream);
-  if (a->dim == 2 && a->nc == 9) return launch_case<T, 2, 9>(*a, geo, stream);
+  if (a->dim == 3 && a->nc == 8)
+    return a->transient ? launch_case<T, 3, 8, true>(*a, geo, stream)
+                        : launch_case<T, 3, 8, false>(*a, geo, stream);
+  if (a->dim == 2 && a->nc == 9)
+    return a->transient ? launch_case<T, 2, 9, true>(*a, geo, stream)
+                        : launch_case<T, 2, 9, false>(*a, geo, stream);
   return (int)cudaErrorInvalidValue;
 }
 
@@ -341,7 +376,8 @@ int launch(const ElemNsArgs* a, void* stream) {
 // Plain C entry points, bound with ctypes (see ops/_build.py). Each takes
 // the host address of an ElemNsArgs and the stream, and returns the
 // cudaGetLastError() of its launch (cudaErrorInvalidValue for a (dim, nc)
-// with no instantiation).
+// with no instantiation, kErrSharedMemory where one element's qp state
+// does not fit the card's shared memory).
 extern "C" {
 
 int ns_elem_full_f64(const void* args, void* stream) {

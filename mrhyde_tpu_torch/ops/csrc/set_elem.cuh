@@ -1,19 +1,24 @@
 // Element-tile assembly of a module set (navier stokes, thermal, cdr in
 // any combination, with coefficients that may read the state) on uniform
 // 3D hex (p1, nc = 8) and 2D p2 quads (nc = 9), steady or a transient
-// stage, for Hopper (sm_90a): the kernel template `set_elem_full`, which
-// functions/codegen.py completes per deck with the deck's density (a
-// struct with a static `eval`) and instantiates through
+// stage, for Hopper (sm_90a): the kernel templates `set_elem_full` and
+// `set_elem_state`, which functions/codegen.py completes per deck with the
+// deck's density (a struct with a static `eval`) and instantiates through
 // SET_ELEM_ENTRY_POINTS. The generated source defines SET_NV (the number
 // of variables), SET_DIM and SET_NC before including this header.
 //
 // Replaces: the TPU element-tile kernel of the JAX package,
 // mrhyde_tpu/ops/fused_p1.py `run_call` (:1283-1318, pallas_call at
-// :1303; body `FusedP1Assembly._kernel(node=False)`), in mode "full"
-// (:1417) for module sets (`_density`, :293-314, sums the set's qp
-// densities) and for coefficients that read the state (`QpCtx.resolve`,
-// :94-106): the nd residual rows and the element-varying Jacobian rows
-// of every element. The caller scatters the residual rows to the grids
+// :1303; body `FusedP1Assembly._kernel(node=False)`) for module sets
+// (`_density`, :293-314, sums the set's qp densities) and for
+// coefficients that read the state (`QpCtx.resolve`, :94-106): in mode
+// "full" (:1417, set_elem_full) the nd residual rows and the
+// element-varying Jacobian rows of every element; in mode "state"
+// (:1402, set_elem_state) the nd residual rows of an AFFINE set's state
+// part (JAX's split path; as set_node.cuh's set_node_state: the
+// densities' derivative along the state, from the u grid alone, u_eval =
+// alpha_u u, u_dot = alpha_t u), and no Jacobian. The caller scatters the
+// residual rows to the grids
 // (pad+sum on the p1 node grid, strided adds on the p2 fine lattice), as
 // the JAX package does after its kernel.
 //
@@ -35,15 +40,18 @@
 // element-varying are stored, as jac[pos*E + e] with pos = row_pos[k] >=
 // 0 (the constant rows are the probe's values).
 //
-// Design: ns_elem_full's scheme (fused_elem_ns.cu). A block owns kElems
-// elements and runs in phases through shared memory:
+// Design: ns_elem_full's scheme (fused_elem_ns.cu). A block owns `elems`
+// elements (16, or fewer where the layout of 16 would not fit the card's
+// shared memory: any quadrature works) and runs in phases through shared
+// memory:
 //   1. the reference tables and the elements' corner values (u_eval and,
 //      in a stage, u_dot) of all variables;
 //   2. one thread per (element, qp): the values, gradients (and u_dot) of
-//      all variables at the qp, and the primal density there;
+//      all variables at the qp, and the primal density there (in mode
+//      "state" its derivative along the state, one Dual<T, 1> pass);
 //   3. each thread (element, slot) sums the residual rows slot, slot +
-//      kSlots, ... from the stored densities, then walks the columns
-//      slot, slot + kSlots, ...: a column is one forward pass of the
+//      slots, ... from the stored densities, then (mode "full") walks the
+//      columns slot, slot + slots, ...: a column is one forward pass of the
 //      density on Dual<T, 1> at every qp, read from the stored qp state,
 //      its nd sums kept in registers and written where the probe says the
 //      row varies.
@@ -69,9 +77,7 @@
 namespace {
 
 constexpr int kThreads = 128;
-constexpr int kElems = 16;                  // elements per block
-constexpr int kSlots = kThreads / kElems;   // threads per element
-constexpr int kMaxQ = 27;
+constexpr int kElems = 16;  // elements per block, at most
 constexpr int kMaxNc = 9;
 constexpr int kMaxScalars = 32;
 
@@ -88,7 +94,8 @@ struct SetArgs {
   void* jac;            // (n_rows, E) Jacobian rows
   double alpha_u, alpha_t, h, tau_dt2;  // tau_dt2 = (C3 / dt)^2
   double origin[3], hax[3];             // the box's origin and spacing
-  double qoff[kMaxQ][3];                // the qps' offsets in an element
+  const double* qoff;                   // (Q, dim) the qps' offsets in an
+                                        // element, on the device
   double sc[kMaxScalars];  // t, beta, T_ambient, the deck's parameters
   int Q, stride, N0, N1, N2, n_rows, pspg, supg, transient;
   int off[kMaxNc][3];      // lattice offset of local dof c (axis 2: 0 in
@@ -123,26 +130,31 @@ __device__ __forceinline__ void eval_density(
     Dens::template eval<TR, S>(u, ud, g, xq[0], xq[1], a, out);
 }
 
-// shared memory, in T: tables phi (NC*Q), grad (NC*Q*DIM), wts (Q); the
-// corner values (kElems x NS0 x ND); the qp state u, g[, ud] (kElems x Q
-// x NQ); the primal densities (kElems x Q x NO)
+// shared memory of a block of `elems` elements, in T: tables phi (NC*Q),
+// grad (NC*Q*DIM), wts (Q); the corner values (elems x NS0 x ND); the qp
+// state u, g[, ud] (elems x Q x NQ); the primal densities (elems x Q x
+// NO). ops/_launch.py `elem_smem_words` is the same formula.
 template <int DIM, int NC, int NV, bool TR>
 struct SetElemLayout {
   static constexpr int ND = NV * NC, NO = NV * (1 + DIM);
   static constexpr int NS0 = TR ? 2 : 1;            // u_eval [, u_dot]
   static constexpr int NQ = NV * (1 + DIM) + (TR ? NV : 0);
-  __host__ __device__ static int tables(int Q) {
-    return NC * Q * (1 + DIM) + Q;
+  __host__ __device__ static long long tables(int Q) {
+    return (long long)NC * Q * (1 + DIM) + Q;
   }
-  __host__ __device__ static int corners() { return kElems * NS0 * ND; }
-  __host__ __device__ static int total(int Q) {
-    return tables(Q) + corners() + kElems * Q * (NQ + NO);
+  __host__ __device__ static long long corners(int elems) {
+    return (long long)elems * NS0 * ND;
+  }
+  __host__ __device__ static long long total(int Q, int elems) {
+    return tables(Q) + corners(elems) + (long long)elems * Q * (NQ + NO);
   }
 };
 
-template <typename T, bool TR, int DIM, int NC, int NV, class Dens>
+template <typename T, bool TR, int DIM, int NC, int NV, class Dens,
+          bool LIN>
 __global__ void __launch_bounds__(kThreads)
-    set_elem_full_kernel(const SetArgs a, const ElemGeometry geo) {
+    set_elem_full_kernel(const SetArgs a, const ElemGeometry geo,
+                         const int elems) {
   using L = SetElemLayout<DIM, NC, NV, TR>;
   constexpr int ND = L::ND, NO = L::NO, NQ = L::NQ;
   using D = Dual<T, 1>;
@@ -153,10 +165,10 @@ __global__ void __launch_bounds__(kThreads)
   T* grad = phi + NC * Q;
   T* wts = grad + NC * Q * DIM;
   T* corner = s + L::tables(Q);
-  T* qst = corner + L::corners();
-  T* qout = qst + kElems * Q * NQ;
-  const int tid = threadIdx.x;
-  const long long e0 = (long long)blockIdx.x * kElems;
+  T* qst = corner + L::corners(elems);
+  T* qout = qst + (long long)elems * Q * NQ;
+  const int tid = threadIdx.x, slots = kThreads / elems;
+  const long long e0 = (long long)blockIdx.x * elems;
 
   // phase 1: tables and corner values
   {
@@ -168,13 +180,14 @@ __global__ void __launch_bounds__(kThreads)
       s[i] = i < na ? phi_g[i]
                     : (i < na + nb ? grad_g[i - na] : wts_g[i - na - nb]);
   }
-  for (int i = tid; i < L::corners(); i += kThreads) {
+  for (int i = tid; i < L::corners(elems); i += kThreads) {
     const int le = i / (L::NS0 * ND), rest = i % (L::NS0 * ND);
     const int which = rest / ND, k = rest % ND;
     const long long e = e0 + le;
     T val = T(0);
     if (e < geo.E) {
-      const T* grid = static_cast<const T*>(which ? a.ud : a.ue);
+      // mode "state" reads the u grid alone, as alpha_u u [, alpha_t u]
+      const T* grid = static_cast<const T*>(which && !LIN ? a.ud : a.ue);
       int idx[3];
       elem_index(geo, e, idx);
       const int c = k % NC, p = a.stride;
@@ -182,13 +195,15 @@ __global__ void __launch_bounds__(kThreads)
                            (p * idx[1] + a.off[c][1]);
       val = grid[(k / NC) * geo.G + gi * geo.G2 + p * idx[2] +
                  a.off[c][2]];
+      if constexpr (LIN) val = T(which ? a.alpha_t : a.alpha_u) * val;
     }
     corner[i] = val;
   }
   __syncthreads();
 
-  // phase 2: the qp state and the primal density per (element, qp)
-  for (int i = tid; i < kElems * Q; i += kThreads) {
+  // phase 2: the qp state and the primal density (mode "state": its
+  // derivative along the state) per (element, qp)
+  for (int i = tid; i < elems * Q; i += kThreads) {
     const int le = i / Q, q = i % Q;
     const long long e = e0 + le;
     if (e >= geo.E) continue;
@@ -225,22 +240,37 @@ __global__ void __launch_bounds__(kThreads)
     T xq[DIM];
 #pragma unroll
     for (int d = 0; d < DIM; ++d)
-      xq[d] = (T(a.origin[d]) + T(idx[d]) * T(a.hax[d])) + T(a.qoff[q][d]);
-    eval_density<TR, DIM, Dens>(u, ud, g, xq, a, out);
+      xq[d] = (T(a.origin[d]) + T(idx[d]) * T(a.hax[d])) +
+              T(a.qoff[DIM * q + d]);
+    if constexpr (LIN) {
+      D zu[NV], zud[NV], zg[NV][DIM], zo[NO];
+#pragma unroll
+      for (int v = 0; v < NV; ++v) {
+        zu[v].v = zu[v].d[0] = u[v];
+        zud[v].v = zud[v].d[0] = ud[v];
+#pragma unroll
+        for (int d = 0; d < DIM; ++d) zg[v][d].v = zg[v][d].d[0] = g[v][d];
+      }
+      eval_density<TR, DIM, Dens>(zu, zud, zg, xq, a, zo);
+#pragma unroll
+      for (int k = 0; k < NO; ++k) out[k] = zo[k].d[0];
+    } else {
+      eval_density<TR, DIM, Dens>(u, ud, g, xq, a, out);
+    }
     T* o = qout + (le * Q + q) * NO;
 #pragma unroll
     for (int k = 0; k < NO; ++k) o[k] = out[k];
   }
   __syncthreads();
 
-  const int le = tid % kElems, slot = tid / kElems;
+  const int le = tid % elems, slot = tid / elems;
   const long long e = e0 + le;
   if (e >= geo.E) return;
 
-  // phase 3a: residual rows slot, slot + kSlots, ...
+  // phase 3a: residual rows slot, slot + slots, ...
   T* res = static_cast<T*>(a.res);
 #pragma unroll 1
-  for (int r = slot; r < ND; r += kSlots) {
+  for (int r = slot; r < ND; r += slots) {
     const int v = r / NC, c = r % NC;
     T acc = T(0);
     for (int q = 0; q < Q; ++q) {
@@ -253,15 +283,15 @@ __global__ void __launch_bounds__(kThreads)
     }
     res[(long long)r * geo.E + e] = acc;
   }
-  if (a.n_rows == 0) return;
+  if (LIN || a.n_rows == 0) return;
 
-  // phase 3b: Jacobian columns slot, slot + kSlots, ...
+  // phase 3b: Jacobian columns slot, slot + slots, ...
   int idx[3];
   elem_index(geo, e, idx);
   T* jac = static_cast<T*>(a.jac);
   const T au = T(a.alpha_u), at = T(a.alpha_t);
 #pragma unroll 1
-  for (int col = slot; col < ND; col += kSlots) {
+  for (int col = slot; col < ND; col += slots) {
     const int w = col / NC, cp = col % NC;
     T J[ND];
 #pragma unroll
@@ -286,7 +316,8 @@ __global__ void __launch_bounds__(kThreads)
       T xq[DIM];
 #pragma unroll
       for (int d = 0; d < DIM; ++d)
-        xq[d] = (T(a.origin[d]) + T(idx[d]) * T(a.hax[d])) + T(a.qoff[q][d]);
+        xq[d] = (T(a.origin[d]) + T(idx[d]) * T(a.hax[d])) +
+                T(a.qoff[DIM * q + d]);
       eval_density<TR, DIM, Dens>(u, ud, g, xq, a, out);
       const T wq = wts[q];
 #pragma unroll
@@ -308,25 +339,51 @@ __global__ void __launch_bounds__(kThreads)
   }
 }
 
-template <typename T, bool TR, int DIM, int NC, int NV, class Dens>
+// The elements per block: the most (16, 8, ..., 1) whose layout fits the
+// card's opt-in shared memory per block, and that layout's bytes; 0 where
+// one element does not fit.
+template <typename T, int DIM, int NC, int NV, bool TR>
+int set_elem_elems(int Q, long long optin, size_t* smem) {
+  for (int elems = kElems; elems >= 1; elems /= 2) {
+    const long long bytes =
+        (long long)sizeof(T) * SetElemLayout<DIM, NC, NV, TR>::total(Q, elems);
+    if (bytes <= optin) {
+      *smem = (size_t)bytes;
+      return elems;
+    }
+  }
+  return 0;
+}
+
+// what a launch returns where the qp state of one element does not fit
+// the card's shared memory (ops/fused_set.py raises on it)
+constexpr int kErrSharedMemory = -1;
+
+template <typename T, bool TR, int DIM, int NC, int NV, class Dens, bool LIN>
 int set_elem_launch_case(const SetArgs& a, const ElemGeometry& geo,
                          void* stream) {
-  auto kernel = set_elem_full_kernel<T, TR, DIM, NC, NV, Dens>;
-  const size_t smem =
-      sizeof(T) * (size_t)SetElemLayout<DIM, NC, NV, TR>::total(a.Q);
+  auto kernel = set_elem_full_kernel<T, TR, DIM, NC, NV, Dens, LIN>;
+  int dev = 0, optin = 0;
+  cudaGetDevice(&dev);
+  cudaDeviceGetAttribute(&optin, cudaDevAttrMaxSharedMemoryPerBlockOptin,
+                         dev);
+  size_t smem = 0;
+  const int elems = set_elem_elems<T, DIM, NC, NV, TR>(a.Q, optin, &smem);
+  if (elems == 0) return kErrSharedMemory;
   if (smem > 48 * 1024) {
     const cudaError_t err = cudaFuncSetAttribute(
         kernel, cudaFuncAttributeMaxDynamicSharedMemorySize, (int)smem);
     if (err != cudaSuccess) return (int)err;
   }
-  const long long blocks = (geo.E + kElems - 1) / kElems;
-  kernel<<<(unsigned)blocks, kThreads, smem, (cudaStream_t)stream>>>(a, geo);
+  const long long blocks = (geo.E + elems - 1) / elems;
+  kernel<<<(unsigned)blocks, kThreads, smem, (cudaStream_t)stream>>>(a, geo,
+                                                                    elems);
   return (int)cudaGetLastError();
 }
 
-template <typename T, int DIM, int NC, int NV, class Dens>
+template <typename T, int DIM, int NC, int NV, class Dens, bool LIN>
 int set_elem_launch(const SetArgs* a, void* stream) {
-  if (a->Q < 1 || a->Q > kMaxQ || a->N0 < 1 || a->N1 < 1 || a->N2 < 1 ||
+  if (a->Q < 1 || a->N0 < 1 || a->N1 < 1 || a->N2 < 1 ||
       (DIM == 2 && a->N2 != 1) || a->stride < 1)
     return (int)cudaErrorInvalidValue;
   ElemGeometry geo;
@@ -337,23 +394,33 @@ int set_elem_launch(const SetArgs* a, void* stream) {
   geo.G = (long long)(a->stride * a->N0 + 1) * geo.G1 * geo.G2;
   geo.E = (long long)a->N0 * a->N1 * geo.N2;
   return a->transient
-             ? set_elem_launch_case<T, true, DIM, NC, NV, Dens>(*a, geo,
-                                                                stream)
-             : set_elem_launch_case<T, false, DIM, NC, NV, Dens>(*a, geo,
-                                                                 stream);
+             ? set_elem_launch_case<T, true, DIM, NC, NV, Dens, LIN>(*a, geo,
+                                                                     stream)
+             : set_elem_launch_case<T, false, DIM, NC, NV, Dens, LIN>(
+                   *a, geo, stream);
 }
 
 }  // namespace
 
 // Plain C entry points of a generated library, bound with ctypes (see
 // ops/_build.py load_generated): each takes the host address of a SetArgs
-// and the stream, and returns the cudaGetLastError() of its launch.
+// and the stream, and returns the cudaGetLastError() of its launch, or
+// kErrSharedMemory. set_elem_state reads a.ue (the u grid) and writes
+// a.res only.
 #define SET_ELEM_ENTRY_POINTS(DENS)                                      \
   extern "C" int set_elem_full_f64(const void* args, void* stream) {     \
-    return set_elem_launch<double, SET_DIM, SET_NC, SET_NV, DENS>(       \
+    return set_elem_launch<double, SET_DIM, SET_NC, SET_NV, DENS, false>( \
         static_cast<const SetArgs*>(args), stream);                      \
   }                                                                      \
   extern "C" int set_elem_full_f32(const void* args, void* stream) {     \
-    return set_elem_launch<float, SET_DIM, SET_NC, SET_NV, DENS>(        \
+    return set_elem_launch<float, SET_DIM, SET_NC, SET_NV, DENS, false>(  \
+        static_cast<const SetArgs*>(args), stream);                      \
+  }                                                                      \
+  extern "C" int set_elem_state_f64(const void* args, void* stream) {    \
+    return set_elem_launch<double, SET_DIM, SET_NC, SET_NV, DENS, true>(  \
+        static_cast<const SetArgs*>(args), stream);                      \
+  }                                                                      \
+  extern "C" int set_elem_state_f32(const void* args, void* stream) {    \
+    return set_elem_launch<float, SET_DIM, SET_NC, SET_NV, DENS, true>(   \
         static_cast<const SetArgs*>(args), stream);                      \
   }

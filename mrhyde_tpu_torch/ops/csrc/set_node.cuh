@@ -1,17 +1,21 @@
 // Node-scatter assembly of a module set (navier stokes, thermal, cdr in
 // any combination, with coefficients that may read the state) on uniform
 // 2D p1 quads, steady or a transient stage, for Hopper (sm_90a): the
-// kernel template `set_node_full`, which functions/codegen.py completes
-// per deck with the deck's density (a struct with a static `eval`) and
-// instantiates through SET_NODE_ENTRY_POINTS. The generated source
-// defines SET_NV, the number of variables, before including this header.
+// kernel templates `set_node_full` and `set_node_state`, which
+// functions/codegen.py completes per deck with the deck's density (a
+// struct with a static `eval`) and instantiates through
+// SET_NODE_ENTRY_POINTS. The generated source defines SET_NV, the number
+// of variables, before including this header.
 //
 // Replaces: the TPU node-scatter kernel of the JAX package,
 // mrhyde_tpu/ops/fused_p1.py `run_node_call` (:1320-1379, pallas_call at
-// :1350; body `FusedP1Assembly._kernel(node=True)`), in mode "full" for
-// module sets (`_density`, :293-314, sums the set's qp densities) and for
-// coefficients that read the state (`QpCtx.resolve`, :94-106): the
-// node-scattered residual and the element-varying Jacobian rows.
+// :1350; body `FusedP1Assembly._kernel(node=True)`) for module sets
+// (`_density`, :293-314, sums the set's qp densities) and for
+// coefficients that read the state (`QpCtx.resolve`, :94-106): in mode
+// "full" (:1414, set_node_full) the node-scattered residual and the
+// element-varying Jacobian rows; in mode "state" (:1400, set_node_state)
+// the state part of an AFFINE set's residual (JAX's split path), node-
+// scattered, and no Jacobian.
 //
 // Weak form, per element e and quadrature point q, at u_eval = alpha_u u
 // + beta_u and u_dot = alpha_t u + beta_t (steady: alpha_u = 1, no
@@ -29,15 +33,26 @@
 // element-varying are stored, as jac[pos*E + e] with pos = row_pos[k] >=
 // 0; the constant rows are the probe's values.
 //
+// Mode "state" (JAX's `_accumulate` mode "lin", :330-345): the kernel
+// reads the u grid alone, u_eval = alpha_u u and u_dot = alpha_t u (no
+// betas; steady: u, no u_dot), and replaces each density output o by its
+// directional derivative along the state, sum_k (d o / d z_k) z_k over
+// the qp state z = (u, u_dot, grad u): one Dual<T, 1> pass whose value
+// and tangent are both z. For an affine density that is the state part;
+// the state-independent rest (the density at the betas and the Jacobian)
+// is the provider's plain-torch coord part.
+//
 // Design. One launch holds two roles, split by block index:
 //   residual blocks: one thread per node, as fused_p1_ns.cu's: it gathers
 //     the corner values of its (up to) four elements, evaluates the
 //     primal density at their quadrature points and sums their
 //     contributions to itself in a fixed order: no atomics.
 //   Jacobian blocks: ns_elem_full's scheme (fused_elem_ns.cu). A block
-//     owns kElems elements; the tables, the corner values and the qp
-//     state of all variables go to shared memory; then each thread
-//     (element, slot) walks the columns slot, slot + kSlots, ...: a
+//     owns `elems` elements (16, or fewer where the layout of 16 would
+//     not fit the card's shared memory: any quadrature works); the
+//     tables, the corner values and the qp state of all variables go to
+//     shared memory; then each thread
+//     (element, slot) walks the columns slot, slot + slots, ...: a
 //     column is one forward pass of the density on Dual<T, 1> at every
 //     qp, its nd sums kept in registers and written where the probe says
 //     the row varies. One tangent per pass keeps the registers of nd =
@@ -62,9 +77,7 @@
 namespace {
 
 constexpr int kThreads = 128;
-constexpr int kElems = 16;                  // elements per Jacobian block
-constexpr int kSlots = kThreads / kElems;   // threads per element
-constexpr int kMaxQ = 16;
+constexpr int kElems = 16;  // elements per Jacobian block, at most
 constexpr int kMaxScalars = 32;
 
 // The C interface's arguments, filled by ctypes (ops/fused_set.py
@@ -80,7 +93,8 @@ struct SetArgs {
   void* jac;            // (n_rows, E) Jacobian rows
   double alpha_u, alpha_t, h, tau_dt2;  // tau_dt2 = (C3 / dt)^2
   double origin[2], hax[2];             // the box's origin and spacing
-  double qoff[kMaxQ][2];                // the qps' offsets in an element
+  const double* qoff;                   // (Q, 2) the qps' offsets in an
+                                        // element, on the device
   double sc[kMaxScalars];  // t, beta, T_ambient, the deck's parameters
   int Q, N0, N1, n_rows, pspg, supg, transient;
 };
@@ -88,8 +102,10 @@ struct SetArgs {
 __device__ __forceinline__ int corner_i(int c) { return (c == 1 || c == 2); }
 __device__ __forceinline__ int corner_j(int c) { return (c >= 2); }
 
-// residual role: node n = (i, j) sums the rows of its corners
-template <typename T, bool TR, int NV, class Dens>
+// residual role: node n = (i, j) sums the rows of its corners; LIN: the
+// state part of mode "state" (the densities' derivative along the state,
+// from the u grid alone)
+template <typename T, bool TR, int NV, class Dens, bool LIN>
 __device__ __forceinline__ void set_residual_node(const SetArgs& a,
                                                   long long n) {
   const int N0 = a.N0, N1 = a.N1, Q = a.Q;
@@ -117,8 +133,13 @@ __device__ __forceinline__ void set_residual_node(const SetArgs& a,
         const long long p = v * nodes +
                             (long long)(ea + corner_i(k)) * (N1 + 1) + eb +
                             corner_j(k);
-        uc[v][k] = ue[p];
-        udc[v][k] = TR ? udg[p] : T(0);
+        if constexpr (LIN) {
+          uc[v][k] = T(a.alpha_u) * ue[p];
+          udc[v][k] = T(a.alpha_t) * ue[p];
+        } else {
+          uc[v][k] = ue[p];
+          udc[v][k] = TR ? udg[p] : T(0);
+        }
       }
     T r[NV];
 #pragma unroll
@@ -140,9 +161,26 @@ __device__ __forceinline__ void set_residual_node(const SetArgs& a,
         g[v][0] = g0;
         g[v][1] = g1;
       }
-      const T x = (T(a.origin[0]) + T(ea) * T(a.hax[0])) + T(a.qoff[q][0]);
-      const T y = (T(a.origin[1]) + T(eb) * T(a.hax[1])) + T(a.qoff[q][1]);
-      Dens::template eval<TR, T>(u, ud, g, x, y, a, out);
+      const T x =
+          (T(a.origin[0]) + T(ea) * T(a.hax[0])) + T(a.qoff[2 * q + 0]);
+      const T y =
+          (T(a.origin[1]) + T(eb) * T(a.hax[1])) + T(a.qoff[2 * q + 1]);
+      if constexpr (LIN) {
+        using D = Dual<T, 1>;
+        D zu[NV], zud[NV], zg[NV][2], zo[3 * NV];
+#pragma unroll
+        for (int v = 0; v < NV; ++v) {
+          zu[v].v = zu[v].d[0] = u[v];
+          zud[v].v = zud[v].d[0] = ud[v];
+#pragma unroll
+          for (int d = 0; d < 2; ++d) zg[v][d].v = zg[v][d].d[0] = g[v][d];
+        }
+        Dens::template eval<TR, D>(zu, zud, zg, x, y, a, zo);
+#pragma unroll
+        for (int k = 0; k < 3 * NV; ++k) out[k] = zo[k].d[0];
+      } else {
+        Dens::template eval<TR, T>(u, ud, g, x, y, a, out);
+      }
       const T pc = phi[c * Q + q];
       const T g0 = grad[(c * Q + q) * 2 + 0], g1 = grad[(c * Q + q) * 2 + 1];
 #pragma unroll
@@ -158,38 +196,42 @@ __device__ __forceinline__ void set_residual_node(const SetArgs& a,
   for (int v = 0; v < NV; ++v) res[v * nodes + n] = acc[v];
 }
 
-// shared memory of a Jacobian block, in T: tables phi (4Q), grad (8Q),
-// wts (Q); the corner values (kElems x NS0 x ND); the qp state u, g[, ud]
-// (kElems x Q x NQ)
+// shared memory of a Jacobian block of `elems` elements, in T: tables phi
+// (4Q), grad (8Q), wts (Q); the corner values (elems x NS0 x ND); the qp
+// state u, g[, ud] (elems x Q x NQ). ops/_launch.py `node_smem_words`
+// is the same formula.
 template <int NV, bool TR>
 struct SetLayout {
   static constexpr int ND = 4 * NV;
   static constexpr int NS0 = TR ? 2 : 1;             // u_eval [, u_dot]
   static constexpr int NQ = 3 * NV + (TR ? NV : 0);
-  __host__ __device__ static int tables(int Q) { return 13 * Q; }
-  __host__ __device__ static int corners() { return kElems * NS0 * ND; }
-  __host__ __device__ static int total(int Q) {
-    return tables(Q) + corners() + kElems * Q * NQ;
+  __host__ __device__ static long long tables(int Q) { return 13LL * Q; }
+  __host__ __device__ static long long corners(int elems) {
+    return (long long)elems * NS0 * ND;
+  }
+  __host__ __device__ static long long total(int Q, int elems) {
+    return tables(Q) + corners(elems) + (long long)elems * Q * NQ;
   }
 };
 
-// Jacobian role: the columns of kElems elements
+// Jacobian role: the columns of `elems` elements
 template <typename T, bool TR, int NV, class Dens>
 __device__ __forceinline__ void set_jacobian_tile(const SetArgs& a,
-                                                  long long tile, T* s) {
+                                                  long long tile, T* s,
+                                                  const int elems) {
   using L = SetLayout<NV, TR>;
   constexpr int ND = L::ND, NQ = L::NQ;
   using D = Dual<T, 1>;
-  const int Q = a.Q, N1 = a.N1;
+  const int Q = a.Q, N1 = a.N1, slots = kThreads / elems;
   const long long E = (long long)a.N0 * N1;
   const long long nodes = (long long)(a.N0 + 1) * (N1 + 1);
   T* phi = s;
   T* grad = phi + 4 * Q;
   T* wts = grad + 8 * Q;
   T* corner = s + L::tables(Q);
-  T* qst = corner + L::corners();
+  T* qst = corner + L::corners(elems);
   const int tid = threadIdx.x;
-  const long long e0 = tile * kElems;
+  const long long e0 = tile * elems;
 
   // phase 1: tables and corner values
   {
@@ -200,7 +242,7 @@ __device__ __forceinline__ void set_jacobian_tile(const SetArgs& a,
       s[i] = i < 4 * Q ? phi_g[i]
                        : (i < 12 * Q ? grad_g[i - 4 * Q] : wts_g[i - 12 * Q]);
   }
-  for (int i = tid; i < L::corners(); i += kThreads) {
+  for (int i = tid; i < L::corners(elems); i += kThreads) {
     const int le = i / (L::NS0 * ND), rest = i % (L::NS0 * ND);
     const int which = rest / ND, k = rest % ND;
     const long long e = e0 + le;
@@ -216,7 +258,7 @@ __device__ __forceinline__ void set_jacobian_tile(const SetArgs& a,
   __syncthreads();
 
   // phase 2: the qp state per (element, qp)
-  for (int i = tid; i < kElems * Q; i += kThreads) {
+  for (int i = tid; i < elems * Q; i += kThreads) {
     const int le = i / Q, q = i % Q;
     const T* uc = corner + le * L::NS0 * ND;
     T* st = qst + (le * Q + q) * NQ;
@@ -239,14 +281,14 @@ __device__ __forceinline__ void set_jacobian_tile(const SetArgs& a,
   }
   __syncthreads();
 
-  const int le = tid % kElems, slot = tid / kElems;
+  const int le = tid % elems, slot = tid / elems;
   const long long e = e0 + le;
   if (e >= E) return;
   const int ea = (int)(e / N1), eb = (int)(e % N1);
   T* jac = static_cast<T*>(a.jac);
   const T au = T(a.alpha_u), at = T(a.alpha_t);
 #pragma unroll 1
-  for (int col = slot; col < ND; col += kSlots) {
+  for (int col = slot; col < ND; col += slots) {
     const int w = col / 4, cp = col % 4;
     T J[ND];
 #pragma unroll
@@ -268,8 +310,10 @@ __device__ __forceinline__ void set_jacobian_tile(const SetArgs& a,
         ud[v].v = TR ? st[3 * NV + v] : T(0);
         ud[v].d[0] = (TR && on) ? at * pcp : T(0);
       }
-      const T x = (T(a.origin[0]) + T(ea) * T(a.hax[0])) + T(a.qoff[q][0]);
-      const T y = (T(a.origin[1]) + T(eb) * T(a.hax[1])) + T(a.qoff[q][1]);
+      const T x =
+          (T(a.origin[0]) + T(ea) * T(a.hax[0])) + T(a.qoff[2 * q + 0]);
+      const T y =
+          (T(a.origin[1]) + T(eb) * T(a.hax[1])) + T(a.qoff[2 * q + 1]);
       Dens::template eval<TR, D>(u, ud, g, x, y, a, out);
       const T wq = wts[q];
 #pragma unroll
@@ -290,56 +334,98 @@ __device__ __forceinline__ void set_jacobian_tile(const SetArgs& a,
   }
 }
 
-template <typename T, bool TR, int NV, class Dens>
+template <typename T, bool TR, int NV, class Dens, bool LIN>
 __global__ void __launch_bounds__(kThreads)
-    set_node_full_kernel(const SetArgs a, const long long res_blocks) {
+    set_node_full_kernel(const SetArgs a, const long long res_blocks,
+                         const int elems) {
   extern __shared__ __align__(16) unsigned char smem_raw[];
   if (blockIdx.x < res_blocks) {
-    set_residual_node<T, TR, NV, Dens>(
+    set_residual_node<T, TR, NV, Dens, LIN>(
         a, (long long)blockIdx.x * kThreads + threadIdx.x);
     return;
   }
-  set_jacobian_tile<T, TR, NV, Dens>(a, (long long)blockIdx.x - res_blocks,
-                                     reinterpret_cast<T*>(smem_raw));
+  if constexpr (!LIN)
+    set_jacobian_tile<T, TR, NV, Dens>(a, (long long)blockIdx.x - res_blocks,
+                                       reinterpret_cast<T*>(smem_raw), elems);
 }
 
-template <typename T, bool TR, int NV, class Dens>
-int set_launch_case(const SetArgs& a, void* stream) {
-  auto kernel = set_node_full_kernel<T, TR, NV, Dens>;
-  const size_t smem = sizeof(T) * (size_t)SetLayout<NV, TR>::total(a.Q);
-  if (smem > 48 * 1024) {
-    const cudaError_t err = cudaFuncSetAttribute(
-        kernel, cudaFuncAttributeMaxDynamicSharedMemorySize, (int)smem);
-    if (err != cudaSuccess) return (int)err;
+// The elements per Jacobian block: the most (16, 8, ..., 1) whose layout
+// fits the card's opt-in shared memory per block, and that layout's
+// bytes; 0 where one element does not fit.
+template <typename T, int NV, bool TR>
+int set_node_elems(int Q, long long optin, size_t* smem) {
+  for (int elems = kElems; elems >= 1; elems /= 2) {
+    const long long bytes =
+        (long long)sizeof(T) * SetLayout<NV, TR>::total(Q, elems);
+    if (bytes <= optin) {
+      *smem = (size_t)bytes;
+      return elems;
+    }
   }
+  return 0;
+}
+
+// what a launch returns where the qp state of one element does not fit
+// the card's shared memory (ops/fused_set.py raises on it)
+constexpr int kErrSharedMemory = -1;
+
+template <typename T, bool TR, int NV, class Dens, bool LIN>
+int set_launch_case(const SetArgs& a, void* stream) {
+  auto kernel = set_node_full_kernel<T, TR, NV, Dens, LIN>;
   const long long nodes = (long long)(a.N0 + 1) * (a.N1 + 1);
   const long long E = (long long)a.N0 * a.N1;
   const long long res_blocks = (nodes + kThreads - 1) / kThreads;
-  const long long jac_blocks = a.n_rows > 0 ? (E + kElems - 1) / kElems : 0;
+  size_t smem = 0;
+  int elems = kElems;
+  long long jac_blocks = 0;
+  if (!LIN && a.n_rows > 0) {
+    int dev = 0, optin = 0;
+    cudaGetDevice(&dev);
+    cudaDeviceGetAttribute(&optin, cudaDevAttrMaxSharedMemoryPerBlockOptin,
+                           dev);
+    elems = set_node_elems<T, NV, TR>(a.Q, optin, &smem);
+    if (elems == 0) return kErrSharedMemory;
+    if (smem > 48 * 1024) {
+      const cudaError_t err = cudaFuncSetAttribute(
+          kernel, cudaFuncAttributeMaxDynamicSharedMemorySize, (int)smem);
+      if (err != cudaSuccess) return (int)err;
+    }
+    jac_blocks = (E + elems - 1) / elems;
+  }
   kernel<<<(unsigned)(res_blocks + jac_blocks), kThreads, smem,
-           (cudaStream_t)stream>>>(a, res_blocks);
+           (cudaStream_t)stream>>>(a, res_blocks, elems);
   return (int)cudaGetLastError();
 }
 
-template <typename T, int NV, class Dens>
+template <typename T, int NV, class Dens, bool LIN>
 int set_launch(const SetArgs* a, void* stream) {
-  if (a->Q < 1 || a->Q > kMaxQ || a->N0 < 1 || a->N1 < 1)
-    return (int)cudaErrorInvalidValue;
-  return a->transient ? set_launch_case<T, true, NV, Dens>(*a, stream)
-                      : set_launch_case<T, false, NV, Dens>(*a, stream);
+  if (a->Q < 1 || a->N0 < 1 || a->N1 < 1) return (int)cudaErrorInvalidValue;
+  return a->transient
+             ? set_launch_case<T, true, NV, Dens, LIN>(*a, stream)
+             : set_launch_case<T, false, NV, Dens, LIN>(*a, stream);
 }
 
 }  // namespace
 
 // Plain C entry points of a generated library, bound with ctypes (see
 // ops/_build.py load_generated): each takes the host address of a SetArgs
-// and the stream, and returns the cudaGetLastError() of its launch.
+// and the stream, and returns the cudaGetLastError() of its launch, or
+// kErrSharedMemory. set_node_state reads a.ue (the u grid) and writes
+// a.res only.
 #define SET_NODE_ENTRY_POINTS(DENS)                                     \
   extern "C" int set_node_full_f64(const void* args, void* stream) {    \
-    return set_launch<double, SET_NV, DENS>(                            \
+    return set_launch<double, SET_NV, DENS, false>(                     \
         static_cast<const SetArgs*>(args), stream);                     \
   }                                                                     \
   extern "C" int set_node_full_f32(const void* args, void* stream) {    \
-    return set_launch<float, SET_NV, DENS>(                             \
+    return set_launch<float, SET_NV, DENS, false>(                      \
+        static_cast<const SetArgs*>(args), stream);                     \
+  }                                                                     \
+  extern "C" int set_node_state_f64(const void* args, void* stream) {   \
+    return set_launch<double, SET_NV, DENS, true>(                      \
+        static_cast<const SetArgs*>(args), stream);                     \
+  }                                                                     \
+  extern "C" int set_node_state_f32(const void* args, void* stream) {   \
+    return set_launch<float, SET_NV, DENS, true>(                       \
         static_cast<const SetArgs*>(args), stream);                     \
   }

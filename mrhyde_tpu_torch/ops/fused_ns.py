@@ -13,7 +13,11 @@ kernel `ns_node_full` (`csrc/fused_p1_ns.cu`) scatters the residual to
 the nodes itself; hex (nd = 32) and p2 quads (nd = 27) take the
 element-tile kernel B1, whose CUDA kernel `ns_elem_full`
 (`csrc/fused_elem_ns.cu`) writes per-element residual rows that the
-provider scatters (ops/fused_elem.py `scatter_rows`). The plain version
+provider scatters (ops/fused_elem.py `scatter_rows`). Both take any
+quadrature: `ns_elem_full` holds fewer elements per block where 16 would
+not fit the card's shared memory (hex at quadrature 6, Q = 64: 8 in
+f64), and the provider refuses, with a clear error, a quadrature whose
+one element would not fit either. The plain version
 of both is the JAX package's `_accumulate` ported over the sparse dual
 numbers of `sparse_dual.py`.
 
@@ -43,7 +47,8 @@ import torch
 
 from mrhyde_tpu_torch.assembly.assembler import BlockJacobian
 from mrhyde_tpu_torch.ops import fused_elem as fe
-from mrhyde_tpu_torch.ops._launch import LAUNCHES, stream
+from mrhyde_tpu_torch.ops._launch import (
+    LAUNCHES, check_err, check_smem, elem_smem_words, stream)
 from mrhyde_tpu_torch.ops.fused_p1 import (
     QUAD_P1, QpCtx, Stage, _check_grid, _scalar, qp_coords, steady_check,
     structured_geometry)
@@ -84,15 +89,19 @@ class NSForm(NamedTuple):
 # the weak form accumulation (JAX's FusedP1Assembly._accumulate, "full")
 # ----------------------------------------------------------------------
 
-def accumulate_density(ue, ud, density, tab, alpha_u, alpha_t, steady):
-    """(res, jac) of any qp density (JAX's `_accumulate`, mode "full"):
-    flat lists of nd and nd*nd entries (nd = nv nc), each None
-    (structural zero), a Python float (element-independent) or a tensor
-    shaped like the inputs (element-varying). ue[v][c], ud[v][c]: values
-    of local dof c of u_eval and u_dot per variable; density(q, u, ud, g)
-    -> [S_v for v] + [F_v,d for v for d] at quadrature point q from the
-    per-variable value, u_dot and gradient list. Row k = row nd + col,
-    row = v nc + c, col = w nc + c'."""
+def accumulate_density(ue, ud, density, tab, alpha_u, alpha_t, steady,
+                       mode="full"):
+    """(res, jac) of any qp density (JAX's `_accumulate`): flat lists of
+    nd and nd*nd entries (nd = nv nc), each None (structural zero), a
+    Python float (element-independent) or a tensor shaped like the inputs
+    (element-varying). ue[v][c], ud[v][c]: values of local dof c of
+    u_eval and u_dot per variable; density(q, u, ud, g) -> [S_v for v] +
+    [F_v,d for v for d] at quadrature point q from the per-variable
+    value, u_dot and gradient list. Row k = row nd + col, row = v nc + c,
+    col = w nc + c'. mode "full": the residual and the Jacobian; "lin"
+    (the affine split's state part, given the pure state alpha_u u,
+    alpha_t u in ue, ud): the residual of the densities' directional
+    derivative along the state, sum_k D_k z_k, and jac None."""
     Q, dim = tab.Q, tab.dim
     nv, nc = len(ue), len(ue[0])
     nd = nv * nc
@@ -123,6 +132,24 @@ def accumulate_density(ue, ud, density, tab, alpha_u, alpha_t, steady):
 
         out0, D = sparse_jacfwd(f, z0)
         w = float(wts[q])
+        if mode == "lin":
+            out = [None] * len(out0)
+            for k, zk in enumerate(z0):
+                for oi, dk in enumerate(D[k]):
+                    if dk is not None:
+                        out[oi] = acc2(out[oi], dk * zk)
+            for vi in range(nv):
+                for c in range(nc):
+                    a = None
+                    if out[vi] is not None:
+                        a = acc2(a, phi[c][q] * out[vi])
+                    for d in range(dim):
+                        fd = out[nv + vi * dim + d]
+                        if fd is not None:
+                            a = acc2(a, grad[c][q][d] * fd)
+                    if a is not None:
+                        res[vi * nc + c] = acc2(res[vi * nc + c], w * a)
+            continue
         for vi in range(nv):
             Sv = out0[vi]
             Fv = [out0[nv + vi * dim + d] for d in range(dim)]
@@ -162,7 +189,7 @@ def accumulate_density(ue, ud, density, tab, alpha_u, alpha_t, steady):
                             continue
                         k = (vi * nc + c) * nd + wi * nc + cp
                         jac[k] = acc2(jac[k], w * a)
-    return res, jac
+    return res, (None if mode == "lin" else jac)
 
 
 def accumulate(ue, ud, coeff_at, tab, form, alpha_u, alpha_t, steady):
@@ -494,8 +521,7 @@ def ns_elem_full(ue, ud, coeffs, tab, lat, form, jac_idx, stage=None):
     fn = (lib.ns_elem_full_f64 if ue.dtype == torch.float64
           else lib.ns_elem_full_f32)
     err = fn(ctypes.c_void_p(ctypes.addressof(args)), stream(ue))
-    if err != 0:
-        raise RuntimeError(f"ns_elem_full launch failed: CUDA error {err}")
+    check_err("ns_elem_full", err, tab.Q)
     LAUNCHES["ns_elem_full"] += 1
     return res, jac
 
@@ -545,6 +571,13 @@ class FusedNSAssembly:
         self.start = starts[0]
         self.nc = len(self.lattice.offsets)
         self.nd = self.nv * self.nc
+        if not self.node:
+            # ns_elem_full's layout at this quadrature (the larger, a
+            # stage's, where the deck is transient)
+            tr, Q = asm.is_transient, self.tables.Q
+            check_smem("ns_elem_full", lambda el: elem_smem_words(
+                self.dim, self.nc, self.nv, tr, Q, el),
+                asm.dtype.itemsize, Q)
         self.module = asm.modules[0]
         # the element size (sum of the weights)^(1/dim), as the JAX
         # package's h_elem and the workset's h

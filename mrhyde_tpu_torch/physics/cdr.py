@@ -7,7 +7,8 @@ cdr.cpp:63-145):
 The reaction function may reference the solution (e.g. '0.5*c*c'),
 making the problem nonlinear. `c_t` carries no rho cp weight. The
 velocity components default to 1.0; `SUPG tau` is defined but unused, as
-in the JAX package. Boundary terms are not ported yet.
+in the JAX package. cdr has no boundary terms of its own, as in JAX: a
+Flux condition on c is the assembler's physics-agnostic term.
 """
 
 from __future__ import annotations

@@ -3,8 +3,10 @@
 Weak form (the JAX package's `mrhyde_tpu/physics/thermal.py`, reference
 thermal.cpp:71-166):  (rho cp dT/dt - f, v) + (kappa grad T, grad v),
 plus (b . grad T, v) with 'include advection' (b = the functions bx, by,
-bz: deck keys 'advection x|y|z', default 0). The boundary terms
-(Neumann, weak Dirichlet, multiscale interface) are not ported yet.
+bz: deck keys 'advection x|y|z', default 0). Boundary terms
+(`boundary_residual`, reference thermal.cpp boundaryResidual): Neumann
+-(g, v)_Gamma and the Nitsche-type weak Dirichlet terms; the multiscale
+interface term comes with ROADMAP A13.
 """
 
 from __future__ import annotations
@@ -25,6 +27,7 @@ class Thermal(PhysicsModule):
         super().__init__(settings, dim)
         self.have_advection = bool(self.settings.get("include advection",
                                                      False))
+        self.form_param = float(self.settings.get("form_param", 1.0))
 
     def variables(self):
         return [("e", "HGRAD", 1)]
@@ -37,6 +40,10 @@ class Thermal(PhysicsModule):
         fm.add_function("specific heat", self._f(fs, "specific heat", 1.0),
                         "ip")
         fm.add_function("density", self._f(fs, "density", 1.0), "ip")
+        fm.add_function("thermal diffusion",
+                        self._f(fs, "thermal diffusion", 1.0), "side ip")
+        fm.add_function("robin alpha", self._f(fs, "robin alpha", 0.0),
+                        "side ip")
         if self.have_advection:
             fm.add_function("bx", self._f(fs, "advection x", 0.0), "ip")
             fm.add_function("by", self._f(fs, "advection y", 0.0), "ip")
@@ -54,6 +61,32 @@ class Thermal(PhysicsModule):
                 sval = sval + wk.f(bn) * grad[:, d]
         wk.add_source("e", sval)
         wk.add_flux("e", wk.qp(kappa)[:, None] * grad)
+
+    def boundary_residual(self, wk):
+        """The side terms of e's condition on this sideset: Neumann
+        -(g, v); weak Dirichlet (Nitsche, as the JAX package and the
+        reference): -(kappa grad e . n, v) - sf (e - g, kappa grad v . n)
+        + (10/h_side kappa (e - g), v), with g the function 'Dirichlet e
+        <sideset>' and sf the module's form_param."""
+        bctype = wk.bcs.get("e")
+        if bctype == "Neumann":
+            g = wk.f(f"Neumann e {wk.side_name}", "side ip")
+            wk.add_source("e", -wk.qp(g))
+        elif bctype == "interface":
+            raise NotImplementedError(
+                "the multiscale interface term is not ported to "
+                "mrhyde_tpu_torch yet (ROADMAP A13)")
+        elif bctype == "weak Dirichlet":
+            kappa = wk.f("thermal diffusion", "side ip")
+            g = wk.f(f"Dirichlet e {wk.side_name}", "side ip")
+            T = wk.sol("e")
+            n = wk.normals
+            fluxn = kappa * (wk.grad("e") * n).sum(dim=1)
+            wk.add_source("e", -fluxn)
+            dgn = (wk.basis_grad("e") * n[None, :, :]).sum(dim=2)
+            wk.add("e", -self.form_param
+                   * (dgn * (kappa * (T - g) * wk.wts)[None, :]).sum(dim=1))
+            wk.add_source("e", 10.0 / wk.side_h * wk.qp(kappa) * (T - g))
 
     # -- the fused provider's hooks (ops/fused_p1.py) ---------------------
 

@@ -142,7 +142,9 @@ class Problem:
                         raise NotImplementedError(
                             f"per-block Functions define {k!r} "
                             f"differently across blocks ({fs[k]!r} vs "
-                            f"{v!r})")
+                            f"{v!r}): per-block functions are not ported "
+                            "to mrhyde_tpu_torch yet (ROADMAP A10, "
+                            "meshes)")
                 fs.update(expr)
             else:
                 fs[name] = expr
@@ -158,12 +160,15 @@ class Problem:
         self.disc = Discretization(self.mesh, variables,
                                    None if qdeg is None else int(qdeg),
                                    None if sqdeg is None else int(sqdeg))
-        self.bcs = BoundaryConditions.from_config(self.disc, self.fm,
-                                                  phys_cfg, self.params)
+        self.bcs = BoundaryConditions.from_config(
+            self.disc, self.fm, phys_cfg, self.params,
+            use_weak_dirichlet=bool(phys_cfg.get("use weak Dirichlet",
+                                                 False)))
         self.assembler = Assembler(self.disc, self.modules, self.fm,
                                    self.params,
                                    fixed_dofs=self.bcs.fixed_dofs,
                                    dtype=self.dtype, device=self.device)
+        self.assembler.var_bcs = self.bcs.var_bcs
         self.assembler.is_transient = (
             (cfg.get("Solver", {}) or {}).get("solver") == "transient")
         # build the fused provider now: a deck it would have to refuse

@@ -1,11 +1,17 @@
-"""Boundary-condition setup: strong Dirichlet.
+"""Boundary-condition setup: strong and weak Dirichlet, Neumann,
+Far-field, Slip and Flux conditions.
 
-The strong-Dirichlet part of the JAX package's `mrhyde_tpu/solvers/
-bcs.py`: the `fixed` dof mask, and the values written there — scalar
-data directly, expression data by an L2 projection on the boundary
-(the reference's projectDirichlet). Neumann, Robin, weak Dirichlet,
-far-field, slip, flux and point conditions are not ported yet (ROADMAP
-A4) and raise.
+The port of the JAX package's `mrhyde_tpu/solvers/bcs.py`. Per
+(variable, sideset) the deck names a condition type (reference:
+discretizationInterface.cpp setBCData): a strong Dirichlet condition
+fixes the variable's dofs on the sideset, with the values written there
+(scalar data directly, expression data by an L2 projection on the
+boundary, the reference's projectDirichlet); every other type registers
+its data as the function '<type> <var> <sideset>' at "side ip", which
+the modules' `boundary_residual` (and the assembler's physics-agnostic
+Flux term) read on the boundary groups. `use weak Dirichlet` turns each
+Dirichlet entry into a 'weak Dirichlet' one. Point Dirichlet conditions
+live on Exodus nodesets and raise (ROADMAP A10).
 """
 
 from __future__ import annotations
@@ -19,8 +25,11 @@ from mrhyde_tpu_torch.assembly.assembler import PointContext
 
 __all__ = ["BoundaryConditions"]
 
-_UNPORTED_KINDS = ("Neumann conditions", "Far-field conditions",
-                   "Slip conditions", "Flux conditions")
+_KINDS = (("Dirichlet conditions", "Dirichlet"),
+          ("Neumann conditions", "Neumann"),
+          ("Far-field conditions", "Far-field"),
+          ("Slip conditions", "Slip"),
+          ("Flux conditions", "Flux"))
 
 
 def _is_number(x):
@@ -29,6 +38,12 @@ def _is_number(x):
         return True
     except (TypeError, ValueError):
         return False
+
+
+def broken_space(space):
+    """Whether a basis space has no trace continuity (HVOL, *-DG): its
+    Dirichlet data enters as a boundary integral, not a row fix."""
+    return space.endswith("-DG") or space == "HVOL"
 
 
 @dataclass
@@ -41,54 +56,67 @@ class _DirichletEntry:
 
 @dataclass
 class BoundaryConditions:
-    """Parsed strong-Dirichlet config for one physics set."""
+    """Parsed boundary conditions of one physics set: the strong
+    Dirichlet entries, and var -> {sideset -> condition type}."""
 
     disc: object
     fm: object
     params: dict = field(default_factory=dict)
     strong: list = field(default_factory=list)       # _DirichletEntry
+    var_bcs: dict = field(default_factory=dict)      # var->{sideset->type}
 
     @classmethod
-    def from_config(cls, disc, fm, physics_cfg: dict, params=None):
+    def from_config(cls, disc, fm, physics_cfg: dict, params=None,
+                    use_weak_dirichlet=False):
         """physics_cfg: the 'Physics' sublist of the input deck."""
-        for kind in _UNPORTED_KINDS:
-            sub = {k: v for k, v in (physics_cfg.get(kind) or {}).items()
-                   if k not in ("scalar data", "static data")}
-            if sub:
-                raise NotImplementedError(
-                    f"{kind!r} are not ported to mrhyde_tpu_torch yet "
-                    "(ROADMAP A4)")
-        if bool(physics_cfg.get("use weak Dirichlet", False)):
-            raise NotImplementedError(
-                "weak Dirichlet conditions are not ported yet (ROADMAP A4)")
         if any(isinstance(k, str) and k.endswith("_point_DBCs")
                for k in physics_cfg):
             raise NotImplementedError(
-                "point Dirichlet conditions are not ported yet "
-                "(ROADMAP A4)")
+                "point Dirichlet conditions (on Exodus nodesets) are not "
+                "ported to mrhyde_tpu_torch yet (ROADMAP A10, Exodus "
+                "input)")
         self = cls(disc=disc, fm=fm, params=params or {})
         dofmap = disc.dofmap
         mesh = dofmap.mesh
         all_sidesets = list(mesh.sidesets)
-        sub = physics_cfg.get("Dirichlet conditions", {}) or {}
-        for var, sides in sub.items():
-            if var in ("scalar data", "static data") \
-                    or var not in disc.var_names:
-                # deck-wide flags, or names that are not variables (the
-                # reference ignores unknown keys)
-                continue
-            if not isinstance(sides, dict):
-                sides = {"all boundaries": sides}
-            for sidename, expr in sides.items():
-                names = (all_sidesets if sidename == "all boundaries"
-                         else [sidename])
-                for ss in names:
-                    if ss not in mesh.sidesets:
-                        continue
-                    self.strong.append(_DirichletEntry(
-                        var, ss, expr,
-                        dofmap.sideset_dofs(var, mesh.sidesets[ss])))
+        for kind, bctype in _KINDS:
+            sub = physics_cfg.get(kind, {}) or {}
+            for var, sides in sub.items():
+                if var in ("scalar data", "static data") \
+                        or var not in disc.var_names:
+                    # deck-wide flags, or names that are not variables
+                    # (the reference ignores unknown keys)
+                    continue
+                if not isinstance(sides, dict):
+                    sides = {"all boundaries": sides}
+                for sidename, expr in sides.items():
+                    names = (all_sidesets if sidename == "all boundaries"
+                             else [sidename])
+                    for ss in names:
+                        if ss not in mesh.sidesets:
+                            continue
+                        self._add(var, ss, expr, bctype, use_weak_dirichlet)
         return self
+
+    def _add(self, var, ss, expr, bctype, use_weak_dirichlet):
+        """One (variable, sideset) condition, as the JAX package files
+        it: the later of two entries for the same pair names its type."""
+        dofmap = self.disc.dofmap
+        eff = "weak Dirichlet" if bctype == "Dirichlet" \
+            and use_weak_dirichlet else bctype
+        self.var_bcs.setdefault(var, {})[ss] = eff
+        if eff != "Dirichlet":
+            self.fm.add_function(f"{eff} {var} {ss}", expr, "side ip")
+            return
+        broken = broken_space(getattr(dofmap.var(var).basis, "space", ""))
+        dofs = np.zeros(0, dtype=np.int64) if broken else \
+            dofmap.sideset_dofs(var, dofmap.mesh.sidesets[ss])
+        if dofs.size == 0:
+            # no trace dofs: the Dirichlet data enters as a natural
+            # boundary integral
+            self.fm.add_function(f"Dirichlet {var} {ss}", expr, "side ip")
+        else:
+            self.strong.append(_DirichletEntry(var, ss, expr, dofs))
 
     @property
     def fixed_dofs(self) -> np.ndarray:

@@ -202,7 +202,8 @@ def apply_timings(name, asm, J, v, device):
            "n_elem": int(J.vol_lids.shape[0]),
            "varying_rows": sum(r is not None and r.dim() > 0
                                for r in J.vol_soa),
-           "apply_takes": "aos" if J.soa_varies else "soa",
+           "apply_takes": "aos" if J.soa_varies
+           or J.vol_lids.shape[1] > 4 else "soa",
            "aos_build_ms": build_ms,
            "max_abs_diff_soa": float((soa_apply(v) - ref).abs().max()),
            "max_abs_diff_matfree": float((matfree(v) - ref).abs().max())}

@@ -13,6 +13,7 @@ seeded states. The tests skip where there is no host C++ compiler."""
 
 import ctypes
 import os
+import re
 import shutil
 import subprocess
 
@@ -480,11 +481,13 @@ def test_2d_and_3d_sources_call_their_own_scalar_densities(mesh):
 
 
 # ----------------------------------------------------------------------
-# set_elem.cuh's kernel template run on the host: one std::thread per
-# CUDA thread of a block, a barrier for __syncthreads, the block's shared
-# memory a host buffer (filled with NaN bytes, so a read of a slot no
-# thread wrote shows); the launch line and the shared-memory declaration
-# are the two lines rewritten for the host
+# set_node.cuh's and set_elem.cuh's kernel templates run on the host: one
+# std::thread per CUDA thread of a block, a barrier for __syncthreads, the
+# block's shared memory a host buffer (filled with NaN bytes, so a read of
+# a slot no thread wrote shows); the launch and the shared-memory
+# declaration are the lines rewritten for the host, and the card's
+# opt-in shared memory per block is HOST_OPTIN (the H100's unless a test
+# sets a smaller one, to make the kernels hold fewer elements per block)
 # ----------------------------------------------------------------------
 
 HOST_CUDA = """
@@ -494,6 +497,9 @@ HOST_CUDA = """
 #include <cstring>
 #include <thread>
 #include <vector>
+#ifndef HOST_OPTIN
+#define HOST_OPTIN 232448
+#endif
 #define __global__
 #define __device__
 #define __host__
@@ -510,13 +516,19 @@ typedef int cudaError_t;
 enum { cudaSuccess = 0, cudaErrorInvalidValue = 1 };
 typedef void* cudaStream_t;
 enum cudaFuncAttribute { cudaFuncAttributeMaxDynamicSharedMemorySize };
+enum cudaDeviceAttr { cudaDevAttrMaxSharedMemoryPerBlockOptin };
+inline cudaError_t cudaGetDevice(int* d) { *d = 0; return 0; }
+inline cudaError_t cudaDeviceGetAttribute(int* v, cudaDeviceAttr, int) {
+  *v = HOST_OPTIN;
+  return 0;
+}
 template <class F>
 cudaError_t cudaFuncSetAttribute(F, cudaFuncAttribute, int) { return 0; }
 inline int cudaGetLastError() { return 0; }
 template <class K, class... A>
 void host_launch(K kernel, unsigned blocks, int threads, size_t smem,
                  A... args) {
-  std::vector<unsigned char> buf(smem);
+  std::vector<unsigned char> buf(smem + 1);
   for (unsigned b = 0; b < blocks; ++b) {
     std::memset(buf.data(), 0xff, smem);
     host_smem = buf.data();
@@ -533,37 +545,57 @@ void host_launch(K kernel, unsigned blocks, int threads, size_t smem,
   }
 }
 """
-HOST_REWRITES = (
-    ("extern __shared__ __align__(16) unsigned char smem_raw[];",
-     "unsigned char* smem_raw = host_smem;"),
-    ("kernel<<<(unsigned)blocks, kThreads, smem, (cudaStream_t)stream>>>"
-     "(a, geo);", "host_launch(kernel, (unsigned)blocks, kThreads, smem, "
-     "a, geo);"),
-)
+HOST_SMEM = ("extern __shared__ __align__(16) unsigned char smem_raw[];",
+             "unsigned char* smem_raw = host_smem;")
+HOST_LAUNCH = re.compile(r"kernel<<<(.*?), kThreads, smem,\s*"
+                         r"\(cudaStream_t\)stream>>>\((.*?)\);", re.S)
 
 
-def _host_kernel(form, tmp_path):
-    """The deck's generated set_elem_full source built for the host."""
-    text = open(os.path.join(CSRC, "set_elem.cuh")).read()
-    for old, new in HOST_REWRITES:
-        assert text.count(old) == 1, old
-        text = text.replace(old, new)
-    (tmp_path / "set_elem.cuh").write_text(text)
+def _host_header(name, tmp_path):
+    """csrc/<name> rewritten for the host into tmp_path."""
+    text = open(os.path.join(CSRC, name)).read()
+    assert text.count(HOST_SMEM[0]) == 1
+    text = text.replace(*HOST_SMEM)
+    text, n = HOST_LAUNCH.subn(
+        r"host_launch(kernel, \1, kThreads, smem, \2);", text)
+    assert n == 1, name
+    (tmp_path / name).write_text(text)
+
+
+def _host_build(source, tmp_path, optin=None):
+    """A translation unit that includes the kernel headers, built for the
+    host into a shared library (HOST_OPTIN = optin where given)."""
+    for name in ("set_node.cuh", "set_elem.cuh", "fused_elem_ns.cu"):
+        _host_header(name, tmp_path)
     (tmp_path / "cuda_runtime.h").write_text(HOST_CUDA)
     cxx = shutil.which("g++") or shutil.which("c++")
     if cxx is None:
         pytest.skip("no host C++ compiler (g++) to build the kernel on the "
                     "CPU")
     src, lib = tmp_path / "gen.cpp", tmp_path / "libgen.so"
-    src.write_text(form.source)
+    src.write_text(source)
+    flags = [] if optin is None else [f"-DHOST_OPTIN={optin}"]
     out = subprocess.run([cxx, "-std=c++20", "-O1", "-shared", "-fPIC",
-                          "-pthread", "-Wno-unknown-pragmas", "-I",
+                          "-pthread", "-Wno-unknown-pragmas", *flags, "-I",
                           str(tmp_path), "-I", CSRC, "-o", str(lib),
                           str(src)], capture_output=True, text=True)
     if out.returncode != 0 and "barrier" in out.stderr:
         pytest.skip("the host C++ library has no std::barrier (C++20)")
     assert out.returncode == 0, out.stderr[-4000:]
     return ctypes.CDLL(str(lib))
+
+
+def _entry(lib, name, dtype):
+    fn = getattr(lib, f"{name}_f64" if dtype == torch.float64
+                 else f"{name}_f32")
+    fn.argtypes = [ctypes.c_void_p, ctypes.c_void_p]
+    return fn
+
+
+def _assert_close(got, want, dtype):
+    rtol = 1e-12 if dtype == torch.float64 else 1e-5
+    assert float((got - want).abs().max()) <= \
+        rtol * float(want.abs().max())
 
 
 @pytest.mark.parametrize("name", ["ns_thermal_hex", "ns_cdr_hex",
@@ -599,13 +631,244 @@ def test_set_elem_kernel_template_on_the_host(name, dtype, tmp_path):
             (f.origin, f.h_axes, f.q_off), jac_idx,
             Stage(au, at, None) if stage else None)
     ref = fs.set_elem_full_plain(*args)
-    a, res, jac = fs._elem_args(*args)
-    lib = _host_kernel(f.form, tmp_path)
-    fn = getattr(lib, "set_elem_full_f64" if dtype == torch.float64
-                 else "set_elem_full_f32")
-    fn.argtypes = [ctypes.c_void_p, ctypes.c_void_p]
-    assert fn(ctypes.addressof(a), None) == 0
-    rtol = 1e-12 if dtype == torch.float64 else 1e-5
+    a, res, jac, _keep = fs._elem_args(*args)
+    lib = _host_build(f.form.source, tmp_path)
+    assert _entry(lib, "set_elem_full", dtype)(ctypes.addressof(a),
+                                                None) == 0
     for got, want in zip((res, jac), ref):
-        assert float((got - want).abs().max()) <= \
-            rtol * float(want.abs().max())
+        _assert_close(got, want, dtype)
+
+
+def _host_provider(cfg, quadrature=None, transient=False):
+    from mrhyde_tpu_torch.problem import Problem
+    if quadrature is not None:
+        cfg["Discretization"]["quadrature"] = quadrature
+    if transient:
+        cfg["Solver"] = {"solver": "transient", "final time": 0.04,
+                         "number of steps": 4}
+    return Problem(cfg, device="cpu", dtype=torch.float64).assembler \
+        .fused_provider()
+
+
+def _host_grids(f, dtype, stage, seed=17):
+    rng = np.random.RandomState(seed)
+    shape = (f.nv,) + tuple(f.grid_shape)
+    ue = torch.as_tensor(rng.rand(*shape) - 0.5, dtype=dtype)
+    ud = torch.as_tensor(20 * (rng.rand(*shape) - 0.5), dtype=dtype) \
+        if stage else None
+    return ue, ud
+
+
+def _host_tables(f, dtype):
+    from mrhyde_tpu_torch.ops.fused_p1 import QuadTables
+    t = f.tables
+    return QuadTables(t.phi, t.grad, t.wts, "cpu", dtype)
+
+
+@pytest.mark.parametrize("dtype", [torch.float64, torch.float32])
+def test_set_node_kernel_at_quadrature_8_in_blocks_of_fewer_elements(
+        dtype, tmp_path):
+    """set_node_full at Q = 25 (2D p1, quadrature 8), where a set_node
+    Jacobian block held 16 qps at most before: the NS channel with
+    viscosity 1 + 0.1 ux^2 (a state-reading coefficient) on the host,
+    with a card whose shared memory holds 4 elements per block (8 in
+    f32), against its plain version: f64 to 1e-12, f32 to 1e-5 of max
+    |plain|."""
+    from mrhyde_tpu_torch.ops import fused_set as fs
+    from mrhyde_tpu_torch.ops._launch import block_elems, node_smem_words
+    from torch_port_utils import channel_cfg
+    f = _host_provider(channel_cfg(7, 5, visc="1.0 + 0.1*ux*ux"), 8)
+    assert isinstance(f, fs.FusedSetAssembly) and f.tables.Q == 25
+    optin = 12000
+    words = lambda el: node_smem_words(3, False, 25, el)  # noqa: E731
+    assert block_elems(words, dtype.itemsize, optin) == \
+        (4 if dtype == torch.float64 else 8)
+    sc = fs.SetScalars(0.0, 1.0, ())
+    jac_idx = f._classify(sc, 1.0, 0.0, True)[0]
+    ue, _ = _host_grids(f, dtype, False)
+    args = (f.form, ue, None, sc, _host_tables(f, dtype),
+            (f.origin, f.h_axes, f.q_off), jac_idx, None)
+    ref = fs.set_node_full_plain(*args)
+    a, out, jac, _keep = fs._node_args(*args, False)
+    lib = _host_build(f.form.source, tmp_path, optin)
+    assert _entry(lib, "set_node_full", dtype)(ctypes.addressof(a),
+                                                None) == 0
+    for got, want in zip((out, jac), ref):
+        _assert_close(got, want, dtype)
+
+
+@pytest.mark.parametrize("stage", [False, True])
+def test_set_elem_kernel_at_quadrature_6_in_blocks_of_fewer_elements(
+        stage, tmp_path):
+    """set_elem_full at Q = 64 (hex, quadrature 6), past the 27 qps its
+    layout held before: NS + thermal on the hex channel, steady and at a
+    DIRK-2,2 stage, on the host with the H100's shared memory (8 elements
+    per block in f64), against its plain version to 1e-12."""
+    from mrhyde_tpu_torch.ops import fused_set as fs
+    from mrhyde_tpu_torch.ops._launch import (SMEM_OPTIN, block_elems,
+                                              elem_smem_words)
+    from mrhyde_tpu_torch.ops.fused_p1 import Stage
+    from torch_port_utils import ns_thermal_elem_cfg
+    cfg = ns_thermal_elem_cfg("hex", (3, 2, 2), supg=stage)
+    f = _host_provider(cfg, 6, stage)
+    assert isinstance(f, fs.FusedSetAssembly) and f.tables.Q == 64
+    assert block_elems(lambda el: elem_smem_words(3, 8, 5, stage, 64, el),
+                       8, SMEM_OPTIN) == 8
+    dtype = torch.float64
+    au, at = (0.5, 200.0) if stage else (1.0, 0.0)
+    sc = fs.SetScalars(0.0125, 0.01, ())
+    jac_idx = f._classify(sc, au, at, not stage)[0]
+    ue, ud = _host_grids(f, dtype, stage)
+    args = (f.form, ue, ud, sc, _host_tables(f, dtype), f.lattice,
+            (f.origin, f.h_axes, f.q_off), jac_idx,
+            Stage(au, at, None) if stage else None)
+    ref = fs.set_elem_full_plain(*args)
+    a, res, jac, _keep = fs._elem_args(*args)
+    lib = _host_build(f.form.source, tmp_path)
+    assert _entry(lib, "set_elem_full", dtype)(ctypes.addressof(a),
+                                                None) == 0
+    for got, want in zip((res, jac), ref):
+        _assert_close(got, want, dtype)
+
+
+@pytest.mark.parametrize("mesh", ["p1", "hex", "p2"])
+@pytest.mark.parametrize("stage", [False, True])
+@pytest.mark.parametrize("dtype", [torch.float64, torch.float32])
+def test_state_kernels_on_the_host(mesh, stage, dtype, tmp_path):
+    """set_node_state (2D p1) and set_elem_state (hex, p2), mode "state"
+    of an affine thermal + cdr set (the densities' derivative along the
+    state, from the u grid alone), on the host against their plain
+    versions, steady and at a DIRK-2,2 stage: f64 to 1e-12, f32 to 1e-5
+    of max |plain|."""
+    from mrhyde_tpu_torch.ops import fused_set as fs
+    from mrhyde_tpu_torch.ops.fused_p1 import Stage
+    from torch_port_utils import thermal_cdr_affine_cfg
+    f = _host_provider(thermal_cdr_affine_cfg(mesh, stage))
+    assert f._detect_affine(not stage)
+    st = Stage(0.5, 20.0, None) if stage else None
+    sc = fs.SetScalars(0.1, 0.05, ())
+    u, _ = _host_grids(f, dtype, False)
+    tab = _host_tables(f, dtype)
+    geo = (f.origin, f.h_axes, f.q_off)
+    lib = _host_build(f.form.source, tmp_path)
+    if mesh == "p1":
+        want = fs.set_node_state_plain(f.form, u, sc, tab, geo, st)
+        a, got, _jac, _keep = fs._node_args(f.form, u, None, sc, tab, geo,
+                                            (), st, True)
+        name = "set_node_state"
+    else:
+        want = fs.set_elem_state_plain(f.form, u, sc, tab, f.lattice, geo,
+                                       st)
+        a, got, _jac, _keep = fs._elem_args(f.form, u, None, sc, tab,
+                                            f.lattice, geo, (), st,
+                                            lin=True)
+        name = "set_elem_state"
+    assert _entry(lib, name, dtype)(ctypes.addressof(a), None) == 0
+    _assert_close(got, want, dtype)
+
+
+LAYOUT_TU = {
+    "set_node.cuh": """
+#include "set_node.cuh"
+template <int NV> long long w(int tr, int Q, int el) {
+  return tr ? SetLayout<NV, true>::total(Q, el)
+            : SetLayout<NV, false>::total(Q, el);
+}
+extern "C" long long words(int dim, int nc, int nv, int tr, int Q, int el) {
+  switch (nv) {
+    case 1: return w<1>(tr, Q, el);
+    case 2: return w<2>(tr, Q, el);
+    case 3: return w<3>(tr, Q, el);
+    case 4: return w<4>(tr, Q, el);
+    default: return w<5>(tr, Q, el);
+  }
+}
+""",
+    "set_elem.cuh": """
+#include "set_elem.cuh"
+template <int D, int C, int NV> long long w(int tr, int Q, int el) {
+  return tr ? SetElemLayout<D, C, NV, true>::total(Q, el)
+            : SetElemLayout<D, C, NV, false>::total(Q, el);
+}
+template <int D, int C> long long wn(int nv, int tr, int Q, int el) {
+  switch (nv) {
+    case 1: return w<D, C, 1>(tr, Q, el);
+    case 2: return w<D, C, 2>(tr, Q, el);
+    case 4: return w<D, C, 4>(tr, Q, el);
+    case 5: return w<D, C, 5>(tr, Q, el);
+    default: return w<D, C, 6>(tr, Q, el);
+  }
+}
+extern "C" long long words(int dim, int nc, int nv, int tr, int Q, int el) {
+  return dim == 3 ? wn<3, 8>(nv, tr, Q, el) : wn<2, 9>(nv, tr, Q, el);
+}
+""",
+    "fused_elem_ns.cu": """
+#include "fused_elem_ns.cu"
+extern "C" long long words(int dim, int nc, int nv, int tr, int Q, int el) {
+  if (dim == 3) return tr ? Layout<3, 8, true>::total(Q, el)
+                          : Layout<3, 8, false>::total(Q, el);
+  return tr ? Layout<2, 9, true>::total(Q, el)
+            : Layout<2, 9, false>::total(Q, el);
+}
+""",
+}
+
+
+@pytest.mark.parametrize("header", list(LAYOUT_TU))
+def test_layout_formulas_are_the_kernels(header, tmp_path):
+    """ops/_launch.py's shared-memory formulas, which the providers check
+    a deck's quadrature against, equal the kernels' own layouts (the
+    headers built on the host) at every element count, quadrature and
+    set size."""
+    from mrhyde_tpu_torch.ops._launch import (elem_smem_words,
+                                              node_smem_words)
+    lib = _host_build(LAYOUT_TU[header], tmp_path)
+    lib.words.restype = ctypes.c_longlong
+    cases = {"set_node.cuh": [(2, 4, nv) for nv in (1, 2, 3, 4, 5)],
+             "set_elem.cuh": [(d, c, nv) for d, c in ((3, 8), (2, 9))
+                              for nv in (1, 2, 4, 5, 6)],
+             "fused_elem_ns.cu": [(3, 8, 4), (2, 9, 3)]}[header]
+    for dim, nc, nv in cases:
+        for tr in (0, 1):
+            for Q in (1, 4, 8, 9, 25, 27, 64, 125):
+                for el in (1, 2, 4, 8, 16):
+                    want = node_smem_words(nv, tr, Q, el) if nc == 4 \
+                        else elem_smem_words(dim, nc, nv, tr, Q, el)
+                    assert lib.words(dim, nc, nv, tr, Q, el) == want
+
+
+@pytest.mark.parametrize("kind", ["ns_hex", "ns_p2", "set_node",
+                                  "set_hex"])
+def test_every_accepted_quadrature_fits_the_card(kind):
+    """The NS and set providers accept a deck's quadrature only where one
+    element's layout fits the H100's shared memory per block, so the
+    kernels never fail to launch for it; past that they raise a clear
+    ValueError, never taking the general path in silence."""
+    from mrhyde_tpu_torch.ops._launch import (SMEM_OPTIN, block_elems,
+                                              elem_smem_words,
+                                              node_smem_words)
+    from torch_port_utils import channel_cfg, ns_elem_cfg, \
+        ns_thermal_elem_cfg
+    build = {"ns_hex": lambda: ns_elem_cfg("hex", (2, 1, 1)),
+             "ns_p2": lambda: ns_elem_cfg("p2", (2, 1)),
+             "set_node": lambda: channel_cfg(2, 1, visc="1.0 + ux*ux"),
+             "set_hex": lambda: ns_thermal_elem_cfg("hex", (2, 1, 1))}[kind]
+    accepted = 0
+    for degree in (2, 4, 6, 8, 10, 14, 20, 28, 40, 60, 90):
+        for transient in (False, True):
+            try:
+                f = _host_provider(build(), degree, transient)
+            except ValueError as e:
+                assert "shared memory" in str(e)
+                continue
+            accepted += 1
+            Q, tr = f.tables.Q, transient
+            if kind == "set_node":
+                words = lambda el: node_smem_words(  # noqa: E731
+                    f.nv, tr, Q, el)
+            else:
+                words = lambda el: elem_smem_words(  # noqa: E731
+                    len(f.dims), f.nc, f.nv, tr, Q, el)
+            assert block_elems(words, 8, SMEM_OPTIN) >= 1
+    assert 4 <= accepted < 22

@@ -95,8 +95,9 @@ def test_specialized_kernels_keep_their_decks(deck, monkeypatch):
 def test_sets_on_hex_and_p2(monkeypatch):
     """Sets with NS, NS coefficients that read the state, a thermal + cdr
     set and a velocity that reads the state, on hex and p2, reach the
-    element-tile set kernel set_elem_full (one call per assembly, no
-    other kernel)."""
+    element-tile set kernels (one call per assembly, no other kernel):
+    set_elem_full, and set_elem_state for the thermal + cdr set, whose
+    coefficients read no state (an affine set: JAX's split path)."""
     from mrhyde_tpu_torch.assembly.assembler import TimeCoeffs
     from mrhyde_tpu_torch.ops import fused_elem, fused_ns, fused_p1, \
         fused_set
@@ -113,7 +114,9 @@ def test_sets_on_hex_and_p2(monkeypatch):
                       (fused_ns, "ns_elem_full"),
                       (fused_elem, "thermal_elem_full"),
                       (fused_set, "set_node_full"),
-                      (fused_set, "set_elem_full")):
+                      (fused_set, "set_elem_full"),
+                      (fused_set, "set_node_state"),
+                      (fused_set, "set_elem_state")):
         orig = getattr(mod, name)
 
         def spy(*a, _orig=orig, _name=name, **k):
@@ -127,7 +130,8 @@ def test_sets_on_hex_and_p2(monkeypatch):
         n = fused.asm.n_dof
         fused.res_jac(torch.as_tensor(seeded(n, seed=2)),
                       TimeCoeffs.steady(n))
-    assert calls == ["set_elem_full"] * len(decks)
+    assert calls == ["set_elem_full", "set_elem_full", "set_elem_state",
+                     "set_elem_full"]
 
 
 @pytest.mark.parametrize("mesh", ["hex", "p2"])
@@ -156,14 +160,15 @@ def test_b1_decks_without_a_generated_form(mesh):
 
 
 @pytest.mark.parametrize("mesh,quad,n_qp,fused", [
-    ("p1", 6, 16, True), ("p1", 8, 25, False),
-    ("hex", 4, 27, True), ("hex", 6, 64, False)])
+    ("p1", 6, 16, True), ("p1", 8, 25, True),
+    ("hex", 4, 27, True), ("hex", 6, 64, True)])
 def test_set_decks_past_the_kernels_qp_limit_take_the_general_path(
         mesh, quad, n_qp, fused):
-    """set_node_full holds at most 16 qps and set_elem_full 27 (the
-    tables and the qp state sit in the kernels' shared memory): an NS +
-    thermal deck with more qps takes the port's general path, where JAX's
-    kernel runs it (ROADMAP C, deliberate divergences)."""
+    """The set kernels take any quadrature the card's shared memory
+    holds: an NS + thermal deck past the 16 qps (2D p1) and 27 (hex) the
+    kernels' layouts held before takes the set provider, as JAX's kernel
+    runs it, at every count of qps (the kernels hold fewer elements per
+    block: tests/test_torch_codegen.py), no longer the general path."""
     import numpy as np
     from mrhyde_tpu_torch.ops.fused_set import FusedSetAssembly
     from mrhyde_tpu_torch.problem import Problem
@@ -172,10 +177,9 @@ def test_set_decks_past_the_kernels_qp_limit_take_the_general_path(
     cfg["Discretization"]["quadrature"] = quad
     asm = Problem(cfg, device="cpu", dtype=torch.float64).assembler
     assert np.asarray(asm.disc.wts[0]).size == n_qp
-    if fused:
-        assert isinstance(asm.fused_provider(), FusedSetAssembly)
-    else:
-        assert asm.fused_provider() is None
+    assert fused
+    f = asm.fused_provider()
+    assert isinstance(f, FusedSetAssembly) and f.tables.Q == n_qp
 
 
 def test_coefficients_without_a_generated_form_take_the_general_path():

@@ -2,9 +2,9 @@
 + cdr and on a cdr velocity that reads the state, against the JAX
 package's node-scatter kernel B2 in Pallas interpret mode (1e-10, its
 `stats`) and the port's general path (1e-11). A thermal + cdr set whose
-density is affine takes JAX's split path there and the same kernel here:
-the same residual and rows, other `stats` (ROADMAP §C). And the wrapper:
-the plain version on CPU tensors, raising on other devices."""
+density is affine takes JAX's split path in both packages: the same
+residual, rows and `stats`. And the wrapper: the plain version on CPU
+tensors, raising on other devices."""
 
 import jax
 import jax.numpy as jnp
@@ -47,8 +47,8 @@ def test_provider_matches_jax_node_kernel(name):
 
 def test_affine_set_same_numbers_as_jax_split():
     """thermal + cdr with coefficients that read no state: JAX's affine
-    split (its `stats` say so) and the port's one kernel give the same
-    residual and Jacobian rows."""
+    split and the port's (set_node_state plus the coord part; both
+    `stats` say so) give the same residual and Jacobian rows."""
     from mrhyde_tpu.ops.fused_p1 import FusedP1Assembly as JaxFused
     from mrhyde_tpu_torch.interop import state_from_numpy
     pj, pt = both_problems(thermal_cdr_cfg("1.0 + 0.5*x", reaction="1.0"))
@@ -59,7 +59,7 @@ def test_affine_set_same_numbers_as_jax_split():
     assert fk.stats["split"] is True
     ft = pt.assembler.fused_provider()
     r_t, rows_t = ft.res_jac(state_from_numpy(u, pt), tt)
-    assert ft.stats["split"] is False
+    assert ft.stats["split"] is True
     assert max_diff(torch.where(pt.assembler.fixed, 0.0, r_t), r_j) < 1e-10
     for k, (rj, rt) in enumerate(zip(rows_j, rows_t)):
         assert (rj is None) == (rt is None), k

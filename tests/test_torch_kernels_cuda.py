@@ -844,3 +844,95 @@ def test_set_elem_wrapper_checks_inputs_on_card():
     with pytest.raises(ValueError):          # tables in another dtype
         fs.set_elem_full(f.form, ue.float(), None, sc, f.tables, f.lattice,
                          geo, (0,))
+
+
+# ----------------------------------------------------------------------
+# mode "state" of affine module sets, and the kernels at any quadrature
+# ----------------------------------------------------------------------
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("dtype", [torch.float64, torch.float32])
+@pytest.mark.parametrize("stage", [False, True])
+@pytest.mark.parametrize("mesh", ["p1", "hex", "p2"])
+def test_state_kernel_matches_plain(mesh, stage, dtype):
+    """set_node_state (2D p1) and set_elem_state (hex, p2) of an affine
+    thermal + cdr set against their plain versions on the card, steady
+    and at a DIRK-2,2 stage, at odd grids (a partial last block)."""
+    from mrhyde_tpu_torch.ops import fused_set as fs
+    from mrhyde_tpu_torch.ops._launch import LAUNCHES
+    from mrhyde_tpu_torch.ops.fused_p1 import Stage
+    from mrhyde_tpu_torch.problem import Problem
+    from torch_port_utils import AFFINE_MESHES, thermal_cdr_affine_cfg
+    dev = _card()
+    cfg = thermal_cdr_affine_cfg(mesh, stage)
+    nx, ny, nz = AFFINE_MESHES[mesh]
+    cfg["Mesh"].update({"NX": 5 * nx + 2, "NY": 3 * ny + 1})
+    if nz:
+        cfg["Mesh"]["NZ"] = 3 * nz + 1
+    f = Problem(cfg, device=dev, dtype=dtype).assembler.fused_provider()
+    assert f._detect_affine(not stage)
+    g = torch.Generator(device=dev).manual_seed(91)
+    u = torch.rand((f.nv,) + tuple(f.grid_shape), generator=g, device=dev,
+                   dtype=dtype) - 0.5
+    sc = fs.SetScalars(0.1, 0.05, ())
+    geo = (f.origin, f.h_axes, f.q_off)
+    st = Stage(*DIRK22_STAGE1, None) if stage else None
+    if mesh == "p1":
+        args = (f.form, u, sc, f.tables, geo, st)
+        fn, plain, key = fs.set_node_state, fs.set_node_state_plain, \
+            "set_node_state"
+    else:
+        args = (f.form, u, sc, f.tables, f.lattice, geo, st)
+        fn, plain, key = fs.set_elem_state, fs.set_elem_state_plain, \
+            "set_elem_state"
+    before = LAUNCHES[key]
+    out, ref = fn(*args), plain(*args)
+    assert LAUNCHES[key] == before + 1
+    assert out.shape == ref.shape and _close(out, ref, dtype)
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("dtype", [torch.float64, torch.float32])
+@pytest.mark.parametrize("kernel", ["ns_elem_full", "set_elem_full",
+                                    "set_node_full"])
+def test_kernels_at_lifted_quadratures_match_plain(kernel, dtype):
+    """ns_elem_full and set_elem_full on hex at quadrature 6 (Q = 64,
+    fewer than 16 elements per block) and set_node_full on 2D p1 at
+    quadrature 8 (Q = 25) against their plain versions on the card,
+    through their providers' own grids."""
+    from types import SimpleNamespace
+    from mrhyde_tpu_torch.ops import fused_ns as fn
+    from mrhyde_tpu_torch.ops import fused_set as fs
+    from mrhyde_tpu_torch.problem import Problem
+    from torch_port_utils import ns_thermal_elem_cfg
+    dev = _card()
+    if kernel == "ns_elem_full":
+        cfg, quad = ns_elem_cfg("hex", (5, 3, 2)), 6
+    elif kernel == "set_elem_full":
+        cfg, quad = ns_thermal_elem_cfg("hex", (5, 3, 2)), 6
+    else:
+        cfg, quad = channel_cfg(9, 5, visc="1.0 + 0.1*ux*ux"), 8
+    cfg["Discretization"]["quadrature"] = quad
+    f = Problem(cfg, device=dev, dtype=dtype).assembler.fused_provider()
+    assert f.tables.Q == (64 if quad == 6 else 25)
+    g = torch.Generator(device=dev).manual_seed(17)
+    grid = (f.nv,) + tuple(f.grid_shape)
+    ue = torch.rand(grid, generator=g, device=dev, dtype=dtype) - 0.5
+    geo = (f.origin, f.h_axes, f.q_off)
+    if kernel == "ns_elem_full":
+        coeffs = f._coefficients(0.0, dict(f.asm.params))
+        form = f._form(SimpleNamespace(deltat=1.0))
+        jac_idx = f._classify(coeffs, form, 1.0, 0.0, True)[0]
+        args = (ue, None, coeffs, f.tables, f.lattice, form, jac_idx)
+        out, ref = fn.ns_elem_full(*args), fn.ns_elem_full_plain(*args)
+    else:
+        sc = fs.SetScalars(0.0, 1.0, ())
+        jac_idx = f._classify(sc, 1.0, 0.0, True)[0]
+        if kernel == "set_elem_full":
+            args = (f.form, ue, None, sc, f.tables, f.lattice, geo, jac_idx)
+            out, ref = fs.set_elem_full(*args), fs.set_elem_full_plain(*args)
+        else:
+            args = (f.form, ue, None, sc, f.tables, geo, jac_idx)
+            out, ref = fs.set_node_full(*args), fs.set_node_full_plain(*args)
+    for o, r in zip(out, ref):
+        assert o.shape == r.shape and _close(o, r, dtype)

@@ -51,3 +51,46 @@ def test_p1_counts(n0, n1):
     assert _p1_ops(n0, n1, 1.0, stage) == 4952
     # a viscosity that reads x costs its products at every qp
     assert _p1_ops(n0, n1, torch.zeros(1, 4), None) > 2736
+
+
+@pytest.mark.parametrize("stage", [False, True])
+def test_hex_counts_extrapolate_exactly_from_two_qps(stage, monkeypatch):
+    """On hex p1 the counts extrapolate from one and two qps
+    (`_ops_of_qps`): the basis takes no value 0 or 1 at a Gauss point
+    (so no multiply is free at one qp and paid at another), and the
+    extrapolation equals the whole count at 8 and 27 qps."""
+    st = Stage(*cs.NS_STAGE1, None) if stage else None
+    form = fn.NSForm(True, stage, 1.0, 0.01 if stage else 1.0, stage)
+    whole_count = cs._ops_of_qps
+    for quad in (2, 4):
+        tab = cs.elem_tables("hex", (2, 2, 2), "cpu", torch.float64,
+                             quadrature=quad)[0]
+        counts = []
+        for rule in (lambda ops, Q, _hex: ops(Q),
+                     lambda ops, Q, _hex: ops(1) + (Q - 1) * (ops(2)
+                                                             - ops(1))):
+            monkeypatch.setattr(cs, "_ops_of_qps", rule)
+            cs._NS_OPS.clear()
+            counts.append(cs.ns_ops(tab, 8, (1.0, 1.0, 1.0, 0.0, 0.0), form,
+                                    st))
+        assert counts[0] == counts[1]
+        monkeypatch.setattr(cs, "_ops_of_qps", whole_count)
+        cs._NS_OPS.clear()
+        assert cs.ns_ops(tab, 8, (1.0, 1.0, 1.0, 0.0, 0.0), form, st) \
+            == counts[0]
+
+
+def test_hex_set_counts_extrapolate_exactly_from_two_qps(monkeypatch):
+    """The same of a module set's generated weak form (NS + cdr on hex
+    at a PSPG+SUPG stage, set_ops) at 8 qps."""
+    name = "ns+cdr pspg+supg dirk22 stage 1"
+    tab = cs.elem_tables("hex", (4, 4, 4), "cpu", torch.float64,
+                         cs.CHANNEL)[0]
+    form, sc, _jac_idx, stage = cs.set_elem_case(name, 0.25)
+    counts = []
+    for rule in (lambda ops, Q, _hex: ops(Q),
+                 lambda ops, Q, _hex: ops(1) + (Q - 1) * (ops(2) - ops(1))):
+        monkeypatch.setattr(cs, "_ops_of_qps", rule)
+        cs._SET_OPS.clear()
+        counts.append(cs.set_ops(form, tab, sc, stage))
+    assert counts[0] == counts[1] > 0

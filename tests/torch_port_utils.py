@@ -521,3 +521,36 @@ def check_fused_against_jax_general(pj, pt, tj, tt, u, alphas, tol):
     assert ft.stats["steady"] is steady
     assert ft.stats["split"] is False and ft.stats["node_scatter"] is False
     return ft
+
+
+# mesh -> (nx, ny, nz) of the affine-set decks
+AFFINE_MESHES = {"p1": (4, 4, None), "hex": (3, 2, 2), "p2": (3, 3, None)}
+
+
+def thermal_cdr_affine_cfg(mesh="p1", transient=False, flux=True):
+    """thermal + cdr whose coefficients read no state (an affine set:
+    JAX's split path): thermal diffusion 1 + 0.5 x and source sin(pi x) y,
+    cdr advected by (2, 1[, 0.5]) with reaction 1 and density 2, on
+    AFFINE_MESHES[mesh]; each field 0 on the left, right and bottom (hex:
+    front and back too) and, with `flux`, a Neumann flux 2 + y + t on e
+    and a Flux condition x - 0.5 t on c at the top; transient: IC 0, BWE,
+    4 steps to t = 0.2."""
+    nx, ny, nz = AFFINE_MESHES[mesh]
+    cfg = cdr_cfg(nx, ny, nz, reaction="1.0",
+                  order=2 if mesh == "p2" else 1, transient=transient)
+    walls = ["left", "right", "bottom"] + (["front", "back"] if nz else [])
+    phys = cfg["Physics"]
+    phys["modules"] = "thermal,cdr"
+    phys["Dirichlet conditions"] = {"scalar data": True,
+                                    "e": {s: 0.0 for s in walls},
+                                    "c": {s: 0.0 for s in walls}}
+    if flux:
+        phys["Neumann conditions"] = {"e": {"top": "2.0 + y + t"}}
+        phys["Flux conditions"] = {"c": {"top": "x - 0.5*t"}}
+    if transient:
+        phys["Initial conditions"] = {"e": "0.0", "c": "0.0"}
+    cfg["Discretization"]["order"]["e"] = cfg["Discretization"]["order"]["c"]
+    cfg["Functions"].update({"thermal diffusion": "1.0 + 0.5*x",
+                             "thermal source": "sin(pi*x)*y"})
+    cfg["Postprocess"]["True solutions"]["e"] = "0.0"
+    return cfg
