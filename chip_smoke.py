@@ -2413,9 +2413,9 @@ def ns_elem_work(dims, dtype, args):
     """(bytes, flops) of one ns_elem_full call with these arguments: the
     grids of all variables (and the u_dot ones) and the coefficient
     tensors read once, the nd residual rows and the varying Jacobian rows
-    written once; ns_ops per element. (The kernel re-evaluates the
-    density on a dual of one tangent per column; that is its design's
-    cost, not the function's.)"""
+    written once; ns_ops per element, the operations of the scheme the
+    kernel runs: the density linearized once per qp, each column built
+    from that linearization and the basis tables."""
     import math
     ue, ud, coeffs, tab, lat, form, jac_idx = args[:7]
     stage = args[7] if len(args) > 7 else None
@@ -2818,11 +2818,11 @@ def main():
              1303),
             ("thermal_elem_full", "elem_full", "fused_elem_thermal.cu",
              1303),
-            ("ns_elem_full", "ns_elem_full", "fused_elem_ns.cu", 1303),
+            ("ns_elem_full", "ns_elem_full", "elem_engine.cuh", 1303),
             ("set_node_full", "set_node_full", "set_node.cuh", 1350),
-            ("set_elem_full", "set_elem_full", "set_elem.cuh", 1303),
+            ("set_elem_full", "set_elem_full", "elem_engine.cuh", 1303),
             ("set_node_state", "set_node_state", "set_node.cuh", 1350),
-            ("set_elem_state", "set_elem_state", "set_elem.cuh", 1303)):
+            ("set_elem_state", "set_elem_state", "elem_engine.cuh", 1303)):
         rec = summary[name]
         kernels.append({"name": name, "route": "cuda", "source": csrc + src,
                         "replaces": f"mrhyde_tpu/ops/fused_p1.py:{line}",

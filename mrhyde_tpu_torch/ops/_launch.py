@@ -1,19 +1,22 @@
 """Launch helpers shared by the kernel wrappers of ops/fused_p1.py,
 ops/fused_ns.py, ops/fused_elem.py and ops/fused_set.py: the launch counts, the pointer and
 stream arguments, the scalar-or-(E, Q) coefficient, stage and
-velocity arguments of the C entry points (ops/_build.py), and the
-shared-memory layouts of the element-tile kernels (`ns_elem_full`,
-`set_elem_*`) and of `set_node_full`'s Jacobian blocks."""
+velocity arguments of the C entry points (ops/_build.py), the argument
+struct and tile list of the element-tile engine (csrc/elem_engine.cuh:
+`ns_elem_full`, `set_elem_*`), and the shared-memory layouts of the
+element-tile kernels and of `set_node_full`'s Jacobian blocks."""
 
 from __future__ import annotations
 
 import ctypes
 
+import numpy as np
 import torch
 
 __all__ = ["LAUNCHES", "ptr", "stream", "check_qp", "coeff_args",
            "stage_args", "velocity_args", "SMEM_OPTIN", "elem_smem_words",
-           "node_smem_words", "block_elems", "check_smem", "check_err"]
+           "node_smem_words", "block_elems", "check_smem", "check_err",
+           "ElemArgs", "ELEM_MAX_SCALARS", "elem_tiles"]
 
 # kernel launches per kernel: thermal "state" and "full" (B2,
 # ops/fused_p1.py), the Navier-Stokes "full" kernels (B2 "ns_full" and B1
@@ -36,16 +39,29 @@ SMEM_OPTIN = 232448
 _ERR_SMEM = -1
 
 
+# the element-tile engine's qps linearized in one chunk, at most, and per
+# chunk where they take several (elem_engine.cuh kQc, kQcMulti), and the
+# scalars its argument struct carries (kMaxScalars)
+ELEM_QC = 9
+ELEM_QC_MULTI = 5
+ELEM_MAX_SCALARS = 32
+
+
 def elem_smem_words(dim, nc, nv, transient, Q, elems):
-    """Words of an element-tile block's shared memory (csrc/
-    fused_elem_ns.cu `Layout`, csrc/set_elem.cuh `SetElemLayout`): the
-    tables, `elems` elements' corner values, their qp state and their
-    densities."""
+    """Words of an element-tile block's shared memory in mode "full"
+    (csrc/elem_engine.cuh `ElemLayout::total`): the tables, `elems`
+    elements' qp state and corner coordinates, then the larger of what the
+    residual phases hold (the corner values and primal densities) and what
+    the Jacobian phase holds over them (a chunk of the linearization, and
+    the tiles' sums between chunks where the qps take several)."""
     nd, no = nv * nc, nv * (1 + dim)
     nq = no + (nv if transient else 0)
     tables = nc * Q * (1 + dim) + Q
-    return tables + elems * (2 if transient else 1) * nd \
-        + elems * Q * (nq + no)
+    residual = elems * (2 if transient else 1) * nd + elems * Q * no
+    chunks = 1 if Q <= ELEM_QC else -(-Q // ELEM_QC_MULTI)
+    jacobian = elems * (-(-Q // chunks) * (no * nq + 1) + 1) \
+        + (elems * nd * nd if Q > ELEM_QC else 0)
+    return tables + elems * (Q * nq + dim) + max(residual, jacobian)
 
 
 def node_smem_words(nv, transient, Q, elems):
@@ -144,3 +160,50 @@ def velocity_args(vel, E, grid, tab):
         else:
             out += [None, 0.0]
     return tuple(out)
+
+
+class ElemArgs(ctypes.Structure):
+    """The C side's ElemArgs (csrc/elem_engine.cuh), field for field: the
+    arguments of every element-tile entry point (ns_elem_full_*,
+    set_elem_full_*, set_elem_state_*)."""
+    _fields_ = [("ue", ctypes.c_void_p), ("ud", ctypes.c_void_p),
+                ("coef", ctypes.c_void_p * 5), ("coef0", ctypes.c_double * 5),
+                ("phi", ctypes.c_void_p), ("grad", ctypes.c_void_p),
+                ("wts", ctypes.c_void_p), ("row_pos", ctypes.c_void_p),
+                ("tiles", ctypes.c_void_p),
+                ("res", ctypes.c_void_p), ("jac", ctypes.c_void_p),
+                ("alpha_u", ctypes.c_double), ("alpha_t", ctypes.c_double),
+                ("h", ctypes.c_double), ("tau_dt2", ctypes.c_double),
+                ("origin", ctypes.c_double * 3),
+                ("hax", ctypes.c_double * 3),
+                ("qoff", ctypes.c_void_p),
+                ("sc", ctypes.c_double * ELEM_MAX_SCALARS),
+                ("Q", ctypes.c_int), ("nc", ctypes.c_int),
+                ("dim", ctypes.c_int), ("stride", ctypes.c_int),
+                ("N0", ctypes.c_int), ("N1", ctypes.c_int),
+                ("N2", ctypes.c_int), ("n_tiles", ctypes.c_int),
+                ("pspg", ctypes.c_int),
+                ("supg", ctypes.c_int), ("transient", ctypes.c_int),
+                ("off", (ctypes.c_int * 3) * 9)]
+
+
+_TILES = {}
+
+
+def elem_tiles(jac_idx, nv, nc, device):
+    """(n_tiles,) int32 device list of the tiles (v, w, g), coded (v nv +
+    w) ng + g, that hold at least one element-varying row (row k = row nd
+    + col, row = v nc + c, col = w nc + g S + j): the engine computes
+    those alone."""
+    key = (tuple(jac_idx), nv, nc, str(device))
+    if key not in _TILES:
+        # columns c' per tile (ElemLayout::S)
+        nd, s = nv * nc, 1 if nv == 1 else (4 if nc == 8 else 3)
+        ng = nc // s
+        codes = set()
+        for k in jac_idx:
+            row, col = divmod(int(k), nd)
+            codes.add((row // nc * nv + col // nc) * ng + col % nc // s)
+        _TILES[key] = torch.as_tensor(np.array(sorted(codes), dtype=np.int32),
+                                      device=device)
+    return _TILES[key]

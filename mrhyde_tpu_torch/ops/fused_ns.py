@@ -48,7 +48,8 @@ import torch
 from mrhyde_tpu_torch.assembly.assembler import BlockJacobian
 from mrhyde_tpu_torch.ops import fused_elem as fe
 from mrhyde_tpu_torch.ops._launch import (
-    LAUNCHES, check_err, check_smem, elem_smem_words, stream)
+    LAUNCHES, ElemArgs, check_err, check_smem, elem_smem_words, elem_tiles,
+    stream)
 from mrhyde_tpu_torch.ops.fused_p1 import (
     QUAD_P1, QpCtx, Stage, _check_grid, _scalar, qp_coords, steady_check,
     structured_geometry)
@@ -374,24 +375,6 @@ class _NSArgs(ctypes.Structure):
                 ("supg", ctypes.c_int), ("transient", ctypes.c_int)]
 
 
-class _ElemNSArgs(ctypes.Structure):
-    """The C side's ElemNsArgs (csrc/fused_elem_ns.cu), field for
-    field."""
-    _fields_ = [("ue", ctypes.c_void_p), ("ud", ctypes.c_void_p),
-                ("coef", ctypes.c_void_p * 5), ("coef0", ctypes.c_double * 5),
-                ("phi", ctypes.c_void_p), ("grad", ctypes.c_void_p),
-                ("wts", ctypes.c_void_p), ("row_pos", ctypes.c_void_p),
-                ("res", ctypes.c_void_p), ("jac", ctypes.c_void_p),
-                ("alpha_u", ctypes.c_double), ("alpha_t", ctypes.c_double),
-                ("h", ctypes.c_double), ("tau_dt2", ctypes.c_double),
-                ("Q", ctypes.c_int), ("nc", ctypes.c_int),
-                ("dim", ctypes.c_int), ("stride", ctypes.c_int),
-                ("N0", ctypes.c_int), ("N1", ctypes.c_int),
-                ("N2", ctypes.c_int), ("pspg", ctypes.c_int),
-                ("supg", ctypes.c_int), ("transient", ctypes.c_int),
-                ("off", (ctypes.c_int * 3) * 9)]
-
-
 _ROW_POS = {}
 
 
@@ -474,18 +457,14 @@ def ns_node_full(ue, ud, coeffs, tab, form, jac_idx, stage=None):
     return out, jac
 
 
-def ns_elem_full(ue, ud, coeffs, tab, lat, form, jac_idx, stage=None):
-    """(residual rows (nd, E), Jacobian rows (len(jac_idx), E)) of the NS
-    weak form on hex p1 or p2 quads: the CUDA kernel on CUDA tensors, the
-    plain version on CPU tensors. Arguments as `ns_elem_full_plain`."""
-    if ue.device.type == "cpu":
-        return ns_elem_full_plain(ue, ud, coeffs, tab, lat, form, jac_idx,
-                                  stage)
+def _ns_elem_args(ue, ud, coeffs, tab, lat, form, jac_idx, stage):
+    """(ElemArgs, residual rows, Jacobian rows, keep-alive) of one
+    ns_elem_full call: the C struct filled from the arguments, and the
+    outputs it points to, allocated on ue's device."""
     nv = tab.dim + 1
     if ue.dim() != tab.dim + 1 or ue.shape[0] != nv:
         raise ValueError(f"ue must be a ({nv}, *grid) stack of the "
                          f"variables' grids")
-    fe._check_grid(ue[0], tab, lat)
     _check_grid_stacks(ue, ud, stage)
     if len(coeffs) != 2 + tab.dim:
         raise ValueError(f"a {tab.dim}-D call takes {2 + tab.dim} "
@@ -495,14 +474,17 @@ def ns_elem_full(ue, ud, coeffs, tab, lat, form, jac_idx, stage=None):
     nd = nv * nc
     dims = list(fe.elem_dims(ue[0], lat)) + [1] * (3 - tab.dim)
     E = math.prod(dims)
-    args = _ElemNSArgs()
+    args = ElemArgs()
     args.ue = ue.data_ptr()
     args.ud = None if ud is None else ud.data_ptr()
     _coeff_args(args, coeffs, E, tab.Q, ue)
     args.phi, args.grad, args.wts = (tab.t_phi.data_ptr(),
                                      tab.t_grad.data_ptr(),
                                      tab.t_wts.data_ptr())
-    args.row_pos = _row_pos(jac_idx, nd, ue.device).data_ptr()
+    pos = _row_pos(jac_idx, nd, ue.device)
+    tiles = elem_tiles(jac_idx, nv, nc, ue.device)
+    args.row_pos = pos.data_ptr()
+    args.tiles, args.n_tiles = tiles.data_ptr(), tiles.numel()
     res = torch.empty((nd, E), dtype=ue.dtype, device=ue.device)
     jac = torch.empty((len(jac_idx), E), dtype=ue.dtype, device=ue.device)
     args.res, args.jac = res.data_ptr(), jac.data_ptr()
@@ -516,6 +498,19 @@ def ns_elem_full(ue, ud, coeffs, tab, lat, form, jac_idx, stage=None):
     for c, off in enumerate(lat.offsets):
         for a, o in enumerate(off):
             args.off[c][a] = int(o)
+    return args, res, jac, (pos, tiles)
+
+
+def ns_elem_full(ue, ud, coeffs, tab, lat, form, jac_idx, stage=None):
+    """(residual rows (nd, E), Jacobian rows (len(jac_idx), E)) of the NS
+    weak form on hex p1 or p2 quads: the CUDA kernel on CUDA tensors, the
+    plain version on CPU tensors. Arguments as `ns_elem_full_plain`."""
+    if ue.device.type == "cpu":
+        return ns_elem_full_plain(ue, ud, coeffs, tab, lat, form, jac_idx,
+                                  stage)
+    fe._check_grid(ue[0], tab, lat)
+    args, res, jac, _keep = _ns_elem_args(ue, ud, coeffs, tab, lat, form,
+                                          jac_idx, stage)
     from mrhyde_tpu_torch.ops._build import load_library
     lib = load_library()
     fn = (lib.ns_elem_full_f64 if ue.dtype == torch.float64

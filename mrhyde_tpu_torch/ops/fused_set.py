@@ -74,8 +74,8 @@ from mrhyde_tpu_torch.assembly.assembler import BlockJacobian
 from mrhyde_tpu_torch.functions import codegen
 from mrhyde_tpu_torch.ops import fused_elem as fe
 from mrhyde_tpu_torch.ops._launch import (
-    LAUNCHES, check_err, check_smem, elem_smem_words, node_smem_words,
-    stream)
+    ELEM_MAX_SCALARS, LAUNCHES, ElemArgs, check_err, check_smem,
+    elem_smem_words, elem_tiles, node_smem_words, stream)
 from mrhyde_tpu_torch.ops.fused_ns import (
     StageCache, _check_classes, _check_grid_stacks, _dummy, _row_pos,
     _stack_rows, accumulate_density, classify_probes, rows_of)
@@ -87,8 +87,9 @@ __all__ = ["FusedSetAssembly", "SetForm", "SetScalars", "SetCtx",
            "set_elem_full_plain", "set_node_state", "set_node_state_plain",
            "set_elem_state", "set_elem_state_plain", "MAX_SCALARS"]
 
-# the kernels' SetArgs limit (csrc/set_node.cuh, csrc/set_elem.cuh)
-MAX_SCALARS = 32
+# the kernels' scalar limit (csrc/set_node.cuh SetArgs, csrc/
+# elem_engine.cuh ElemArgs)
+MAX_SCALARS = ELEM_MAX_SCALARS
 _KINDS = {"navierstokes", "thermal", "cdr"}
 
 
@@ -428,29 +429,9 @@ def set_node_state(form, u, sc, tab, geo, stage=None):
     return out
 
 
-class _SetElemArgs(ctypes.Structure):
-    """The C side's SetArgs of csrc/set_elem.cuh, field for field."""
-    _fields_ = [("ue", ctypes.c_void_p), ("ud", ctypes.c_void_p),
-                ("phi", ctypes.c_void_p), ("grad", ctypes.c_void_p),
-                ("wts", ctypes.c_void_p), ("row_pos", ctypes.c_void_p),
-                ("res", ctypes.c_void_p), ("jac", ctypes.c_void_p),
-                ("alpha_u", ctypes.c_double), ("alpha_t", ctypes.c_double),
-                ("h", ctypes.c_double), ("tau_dt2", ctypes.c_double),
-                ("origin", ctypes.c_double * 3),
-                ("hax", ctypes.c_double * 3),
-                ("qoff", ctypes.c_void_p),
-                ("sc", ctypes.c_double * MAX_SCALARS),
-                ("Q", ctypes.c_int), ("stride", ctypes.c_int),
-                ("N0", ctypes.c_int), ("N1", ctypes.c_int),
-                ("N2", ctypes.c_int), ("n_rows", ctypes.c_int),
-                ("pspg", ctypes.c_int), ("supg", ctypes.c_int),
-                ("transient", ctypes.c_int),
-                ("off", (ctypes.c_int * 3) * 9)]
-
-
 def _elem_args(form, ue, ud, sc, tab, lat, geo, jac_idx, stage,
                lin=False):
-    """(_SetElemArgs, residual rows, Jacobian rows, keep-alive) of one
+    """(ElemArgs, residual rows, Jacobian rows, keep-alive) of one
     set_elem_* call: the C struct filled from the arguments, and the
     outputs it points to, allocated on ue's device (`lin`: mode "state",
     ue the u grid, no Jacobian)."""
@@ -473,13 +454,15 @@ def _elem_args(form, ue, ud, sc, tab, lat, geo, jac_idx, stage,
     dims = list(fe.elem_dims(ue[0], lat)) + [1] * (3 - dim)
     E = math.prod(dims)
     origin, h_axes, q_off = geo
-    a = _SetElemArgs()
+    a = ElemArgs()
     a.ue = ue.data_ptr()
     a.ud = None if ud is None else ud.data_ptr()
     a.phi, a.grad, a.wts = (tab.t_phi.data_ptr(), tab.t_grad.data_ptr(),
                             tab.t_wts.data_ptr())
     pos = _row_pos(jac_idx, nd, ue.device)
     a.row_pos = pos.data_ptr()
+    tiles = elem_tiles(jac_idx, nv, nc, ue.device)
+    a.tiles, a.n_tiles = tiles.data_ptr(), tiles.numel()
     res = torch.empty((nd, E), dtype=ue.dtype, device=ue.device)
     jac = torch.empty((len(jac_idx), E), dtype=ue.dtype, device=ue.device)
     a.res, a.jac = res.data_ptr(), jac.data_ptr()
@@ -492,7 +475,7 @@ def _elem_args(form, ue, ud, sc, tab, lat, geo, jac_idx, stage,
     a.qoff = qoff.data_ptr()
     for i, v in enumerate(form.scalars(sc)):
         a.sc[i] = v
-    a.Q, a.stride, a.n_rows = tab.Q, lat.stride, len(jac_idx)
+    a.Q, a.nc, a.dim, a.stride = tab.Q, nc, dim, lat.stride
     a.N0, a.N1, a.N2 = dims
     for c, off in enumerate(lat.offsets):
         for ax, o in enumerate(off):
@@ -501,7 +484,7 @@ def _elem_args(form, ue, ud, sc, tab, lat, geo, jac_idx, stage,
     a.pspg = int(bool(ns and ns.use_pspg))
     a.supg = int(bool(ns and ns.use_supg))
     a.transient = int(not steady)
-    return a, res, jac, (pos, qoff)
+    return a, res, jac, (pos, tiles, qoff)
 
 
 def set_elem_full(form, ue, ud, sc, tab, lat, geo, jac_idx, stage=None):

@@ -12,6 +12,7 @@ kernel) is held to the plain version's density, value and tangent, at
 seeded states. The tests skip where there is no host C++ compiler."""
 
 import ctypes
+import math
 import os
 import re
 import shutil
@@ -481,7 +482,9 @@ def test_2d_and_3d_sources_call_their_own_scalar_densities(mesh):
 
 
 # ----------------------------------------------------------------------
-# set_node.cuh's and set_elem.cuh's kernel templates run on the host: one
+# set_node.cuh's kernel template and the element-tile engine
+# (elem_engine.cuh, instanced by set_elem.cuh and fused_elem_ns.cu) run on
+# the host: one
 # std::thread per CUDA thread of a block, a barrier for __syncthreads, the
 # block's shared memory a host buffer (filled with NaN bytes, so a read of
 # a slot no thread wrote shows); the launch and the shared-memory
@@ -504,7 +507,7 @@ HOST_CUDA = """
 #define __device__
 #define __host__
 #define __forceinline__ inline
-#define __launch_bounds__(x)
+#define __launch_bounds__(...)
 #define __align__(x)
 struct HostIdx { unsigned x; };
 inline thread_local HostIdx threadIdx, blockIdx;
@@ -524,6 +527,13 @@ inline cudaError_t cudaDeviceGetAttribute(int* v, cudaDeviceAttr, int) {
 }
 template <class F>
 cudaError_t cudaFuncSetAttribute(F, cudaFuncAttribute, int) { return 0; }
+// one block per SM: the kernels then take the most elements that fit
+template <class F>
+cudaError_t cudaOccupancyMaxActiveBlocksPerMultiprocessor(int* n, F, int,
+                                                          size_t) {
+  *n = 1;
+  return 0;
+}
 inline int cudaGetLastError() { return 0; }
 template <class K, class... A>
 void host_launch(K kernel, unsigned blocks, int threads, size_t smem,
@@ -551,21 +561,29 @@ HOST_LAUNCH = re.compile(r"kernel<<<(.*?), kThreads, smem,\s*"
                          r"\(cudaStream_t\)stream>>>\((.*?)\);", re.S)
 
 
+# the kernel files the host builds, each with its count of launch sites
+# and shared-memory declarations: the element-tile engine holds the one
+# kernel of set_elem.cuh and fused_elem_ns.cu, which instantiate it
+HOST_FILES = {"set_node.cuh": 1, "elem_engine.cuh": 1, "set_elem.cuh": 0,
+              "fused_elem_ns.cu": 0}
+
+
 def _host_header(name, tmp_path):
     """csrc/<name> rewritten for the host into tmp_path."""
     text = open(os.path.join(CSRC, name)).read()
-    assert text.count(HOST_SMEM[0]) == 1
+    want = HOST_FILES[name]
+    assert text.count(HOST_SMEM[0]) == want, name
     text = text.replace(*HOST_SMEM)
     text, n = HOST_LAUNCH.subn(
         r"host_launch(kernel, \1, kThreads, smem, \2);", text)
-    assert n == 1, name
+    assert n == want, name
     (tmp_path / name).write_text(text)
 
 
 def _host_build(source, tmp_path, optin=None):
     """A translation unit that includes the kernel headers, built for the
     host into a shared library (HOST_OPTIN = optin where given)."""
-    for name in ("set_node.cuh", "set_elem.cuh", "fused_elem_ns.cu"):
+    for name in HOST_FILES:
         _host_header(name, tmp_path)
     (tmp_path / "cuda_runtime.h").write_text(HOST_CUDA)
     cxx = shutil.which("g++") or shutil.which("c++")
@@ -702,8 +720,9 @@ def test_set_elem_kernel_at_quadrature_6_in_blocks_of_fewer_elements(
         stage, tmp_path):
     """set_elem_full at Q = 64 (hex, quadrature 6), past the 27 qps its
     layout held before: NS + thermal on the hex channel, steady and at a
-    DIRK-2,2 stage, on the host with the H100's shared memory (8 elements
-    per block in f64), against its plain version to 1e-12."""
+    DIRK-2,2 stage, on the host with the H100's shared memory (a layout of
+    4 elements per block fits in f64; the qps take 13 linearization
+    chunks), against its plain version to 1e-12."""
     from mrhyde_tpu_torch.ops import fused_set as fs
     from mrhyde_tpu_torch.ops._launch import (SMEM_OPTIN, block_elems,
                                               elem_smem_words)
@@ -713,7 +732,7 @@ def test_set_elem_kernel_at_quadrature_6_in_blocks_of_fewer_elements(
     f = _host_provider(cfg, 6, stage)
     assert isinstance(f, fs.FusedSetAssembly) and f.tables.Q == 64
     assert block_elems(lambda el: elem_smem_words(3, 8, 5, stage, 64, el),
-                       8, SMEM_OPTIN) == 8
+                       8, SMEM_OPTIN) == 4
     dtype = torch.float64
     au, at = (0.5, 200.0) if stage else (1.0, 0.0)
     sc = fs.SetScalars(0.0125, 0.01, ())
@@ -767,6 +786,111 @@ def test_state_kernels_on_the_host(mesh, stage, dtype, tmp_path):
     _assert_close(got, want, dtype)
 
 
+# (mesh, quadrature, stage, dtype): Q = 8 / 9 in both precisions, Q = 64
+# in f64
+NS_HOST_CASES = [(m, None, s, d) for m in ("hex", "p2") for s in (False, True)
+                 for d in (torch.float64, torch.float32)] \
+    + [("hex", 6, s, torch.float64) for s in (False, True)]
+
+
+@pytest.mark.parametrize("mesh,quadrature,stage,dtype", NS_HOST_CASES)
+def test_ns_elem_kernel_on_the_host(mesh, quadrature, stage, dtype,
+                                    tmp_path):
+    """ns_elem_full's kernel (fused_elem_ns.cu on the element-tile engine:
+    its linearization once per (element, qp) and its contraction with
+    the basis tables) against its plain version on the hex (Q = 8, and Q
+    = 64 at quadrature 6, whose qps take several linearization chunks)
+    and p2 (Q = 9) channel, steady with PSPG and at a DIRK-2,2 stage with
+    PSPG + SUPG, with an (E, Q) viscosity, on element grids whose last
+    block is partial: f64 to 1e-12, f32 to 1e-5 of max |plain|."""
+    from mrhyde_tpu_torch.ops import fused_ns as fn
+    from mrhyde_tpu_torch.ops._launch import SMEM_OPTIN, elem_smem_words
+    from mrhyde_tpu_torch.ops.fused_p1 import Stage
+    from torch_port_utils import ns_elem_cfg
+    dims = (5, 3, 2) if mesh == "hex" else (7, 5)
+    f = _host_provider(ns_elem_cfg(mesh, dims, supg=stage), quadrature,
+                       stage)
+    assert isinstance(f, fn.FusedNSAssembly) and not f.node
+    assert f.tables.Q == {"hex": 64 if quadrature else 8, "p2": 9}[mesh]
+    E, Q = math.prod(dims), f.tables.Q
+    rng = np.random.RandomState(23)
+    visc = torch.as_tensor(0.1 + 0.05 * rng.rand(E, Q), dtype=dtype)
+    coeffs = (1.0, visc, 1.0) + (0.0,) * (f.dim - 1)
+    form = fn.NSForm(True, stage, f.h, 0.01 if stage else 1.0, stage)
+    au, at = (0.5, 200.0) if stage else (1.0, 0.0)
+    jac_idx = f._classify(coeffs, form, au, at, not stage)[0]
+    ue, ud = _host_grids(f, dtype, stage)
+    args = (ue, ud, coeffs, _host_tables(f, dtype), f.lattice, form,
+            jac_idx, Stage(au, at, None) if stage else None)
+    ref = fn.ns_elem_full_plain(*args)
+    a, res, jac, _keep = fn._ns_elem_args(*args)
+    # the last block holds fewer elements than the others: the engine
+    # takes as many as the tiles fill 128 threads, and the layout fits
+    el = min(16, 128 // a.n_tiles)
+    while elem_smem_words(f.dim, f.nc, f.nv, stage, Q, el) \
+            * dtype.itemsize > SMEM_OPTIN:
+        el -= 1
+    assert E % el != 0, (E, el)
+    lib = _host_build('#include "fused_elem_ns.cu"\n', tmp_path)
+    assert _entry(lib, "ns_elem_full", dtype)(ctypes.addressof(a),
+                                               None) == 0
+    for got, want in zip((res, jac), ref):
+        _assert_close(got, want, dtype)
+
+
+def _kink_cfg(mesh):
+    """thermal + cdr with reaction sqrt(c) (an infinite derivative at c =
+    0) and a thermal diffusion 1 + e^2 + abs(c) + max(c, 0) (abs at 0, max
+    at a tie), on hex 3x2x2 or p2 3x2."""
+    cfg = cdr_cfg(3, 2, 2, reaction="sqrt(c)") if mesh == "hex" \
+        else cdr_cfg(3, 2, order=2, reaction="sqrt(c)")
+    cfg["Physics"]["modules"] = "thermal,cdr"
+    cfg["Discretization"]["order"]["e"] = 2 if mesh == "p2" else 1
+    cfg["Functions"]["thermal diffusion"] = "1.0 + e*e + abs(c) + max(c, 0)"
+    return cfg
+
+
+@pytest.mark.parametrize("mesh", ["hex", "p2"])
+def test_infinite_derivative_reaches_only_its_columns(mesh, tmp_path):
+    """The engine's qp-input tangents keep JAX's sparse-AD conventions:
+    at c = 0 everywhere, sqrt(c)'s infinite derivative reaches the
+    columns of c alone, as infinities (and NaNs where a basis function is
+    0 at a qp, as in JAX's column tangent alpha_u phi_c'(q) D), never the
+    columns of e, so the contraction forms no NaN from a structural zero
+    of D times an infinity; abs(c) at 0 and max(c, 0) at the tie follow
+    JAX. set_elem_full on the host against its plain version: the same
+    non-finite entries, and the finite ones to 1e-12 of max |plain|."""
+    from mrhyde_tpu_torch.ops import fused_set as fs
+    f = _host_provider(_kink_cfg(mesh))
+    assert isinstance(f, fs.FusedSetAssembly)
+    assert tuple(f.form.variables) == ("e", "c")
+    sc = fs.SetScalars(0.0, 1.0, ())
+    jac_idx = f._classify(sc, 1.0, 0.0, True)[0]
+    ue, _ = _host_grids(f, torch.float64, False)
+    ue[1] = 0.0
+    args = (f.form, ue, None, sc, _host_tables(f, torch.float64), f.lattice,
+            (f.origin, f.h_axes, f.q_off), jac_idx, None)
+    ref = fs.set_elem_full_plain(*args)
+    a, res, jac, _keep = fs._elem_args(*args)
+    lib = _host_build(f.form.source, tmp_path)
+    assert _entry(lib, "set_elem_full", torch.float64)(
+        ctypes.addressof(a), None) == 0
+    nd, nc = f.nd, f.nc
+    cols = torch.tensor([int(k) % nd // nc for k in jac_idx])
+    for got, want in zip((res, jac), ref):
+        assert torch.equal(torch.isnan(got), torch.isnan(want))
+        assert torch.equal(torch.isposinf(got), torch.isposinf(want))
+        assert torch.equal(torch.isneginf(got), torch.isneginf(want))
+        fin = torch.isfinite(want)
+        assert float((got[fin] - want[fin]).abs().max()) <= \
+            1e-12 * float(want[fin].abs().max())
+    # every column of e is finite, and sqrt's derivative reached c's
+    assert bool(torch.isfinite(jac[cols == 0]).all())
+    assert not bool(torch.isfinite(jac[cols == 1]).all())
+    if mesh == "p2":
+        assert bool(torch.isnan(jac).any())
+
+
 LAYOUT_TU = {
     "set_node.cuh": """
 #include "set_node.cuh"
@@ -787,8 +911,8 @@ extern "C" long long words(int dim, int nc, int nv, int tr, int Q, int el) {
     "set_elem.cuh": """
 #include "set_elem.cuh"
 template <int D, int C, int NV> long long w(int tr, int Q, int el) {
-  return tr ? SetElemLayout<D, C, NV, true>::total(Q, el)
-            : SetElemLayout<D, C, NV, false>::total(Q, el);
+  return tr ? ElemLayout<D, C, NV, true>::total(Q, el)
+            : ElemLayout<D, C, NV, false>::total(Q, el);
 }
 template <int D, int C> long long wn(int nv, int tr, int Q, int el) {
   switch (nv) {
@@ -806,10 +930,10 @@ extern "C" long long words(int dim, int nc, int nv, int tr, int Q, int el) {
     "fused_elem_ns.cu": """
 #include "fused_elem_ns.cu"
 extern "C" long long words(int dim, int nc, int nv, int tr, int Q, int el) {
-  if (dim == 3) return tr ? Layout<3, 8, true>::total(Q, el)
-                          : Layout<3, 8, false>::total(Q, el);
-  return tr ? Layout<2, 9, true>::total(Q, el)
-            : Layout<2, 9, false>::total(Q, el);
+  if (dim == 3) return tr ? ElemLayout<3, 8, 4, true>::total(Q, el)
+                          : ElemLayout<3, 8, 4, false>::total(Q, el);
+  return tr ? ElemLayout<2, 9, 3, true>::total(Q, el)
+            : ElemLayout<2, 9, 3, false>::total(Q, el);
 }
 """,
 }

@@ -95,8 +95,9 @@ for phase in sys.argv[1].split(","):
 
 
 def _key(rec):
-    return (rec["kernel"], rec["case"], rec.get("mesh", "p1"), rec["dtype"],
-            tuple(rec["shape"]))
+    # phase 3i's records name their quadrature (Q), not a case
+    return (rec["kernel"], rec.get("case", f"Q = {rec.get('Q')}"),
+            rec.get("mesh", "p1"), rec["dtype"], tuple(rec["shape"]))
 
 
 def main(argv):
