@@ -213,7 +213,9 @@ def _module_code(mi, kind, names, coef, var_idx, nv, buoy_var, dim):
 def density_struct(modules, variables, params, fm, dim=2):
     """The C++ struct `GenDensity` of one module set in `dim` dimensions:
     its static `eval<TR, S>` takes the state, its time derivative and
-    gradient g[v][d] and the qp's dim coordinates, evaluates the deck's
+    gradient g[v][d], the qp's dim coordinates and the kernel's argument
+    struct (any type with the deck's scalars sc, h, tau_dt2, pspg, supg:
+    set_node.cuh's SetArgs or the engine's ElemArgs), evaluates the deck's
     coefficients and sums the modules' densities (ns_density.cuh,
     scalar_density.cuh) into the kernel's outputs [S_v for v] + [F_v,d
     for v for d]. `modules`: the physics modules in the deck's order;
@@ -253,12 +255,12 @@ def density_struct(modules, variables, params, fm, dim=2):
     xyz = ("x", "y", "z")[:dim]
     return "\n".join([
         "struct GenDensity {",
-        "  template <bool TR, typename S>",
+        "  template <bool TR, typename S, typename A>",
         "  __device__ __forceinline__ static void eval(",
         f"      const S u[{nv}], const S ud[{nv}], const S g[{nv}][{dim}],",
         "      " + ", ".join(f"typename Passive<S>::type {c}"
                              for c in xyz) + ",",
-        f"      const SetArgs& a, S out[{(1 + dim) * nv}]) {{",
+        f"      const A& a, S out[{(1 + dim) * nv}]) {{",
         "    using T = typename Passive<S>::type;",
         f"    using C = {coef_type};",
         "    const T t = T(a.sc[0]);",

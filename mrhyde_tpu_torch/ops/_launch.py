@@ -66,7 +66,11 @@ def elem_smem_words(dim, nc, nv, transient, Q, elems):
 
 def node_smem_words(nv, transient, Q, elems):
     """Words of a set_node_full Jacobian block's shared memory
-    (csrc/set_node.cuh `SetLayout`)."""
+    (csrc/set_node.cuh `SetLayout`): the engine's layout at nc = 4, or
+    for one variable and past ELEM_QC qps the per-column one (the
+    tables, the corner values, the qp state)."""
+    if nv > 1 and Q <= ELEM_QC:
+        return elem_smem_words(2, 4, nv, transient, Q, elems)
     nq = 3 * nv + (nv if transient else 0)
     return 13 * Q + elems * (2 if transient else 1) * 4 * nv \
         + elems * Q * nq
@@ -198,7 +202,8 @@ def elem_tiles(jac_idx, nv, nc, device):
     key = (tuple(jac_idx), nv, nc, str(device))
     if key not in _TILES:
         # columns c' per tile (ElemLayout::S)
-        nd, s = nv * nc, 1 if nv == 1 else (4 if nc == 8 else 3)
+        nd, s = nv * nc, 4 if nc == 4 else (1 if nv == 1 else
+                                            (4 if nc == 8 else 3))
         ng = nc // s
         codes = set()
         for k in jac_idx:

@@ -1,10 +1,12 @@
 // The element-tile engine for Hopper (sm_90a): assembly of a weak form's
 // residual rows and element-varying Jacobian rows on uniform 3D hex (p1,
 // nc = 8) and 2D p2 quads (nc = 9), steady or a transient stage, for any
-// qp density. Two files instantiate it: fused_elem_ns.cu (Navier-Stokes,
-// whose coefficients are scalars or (E, Q) tensors: ns_elem_full) and
+// qp density. Three files instantiate it: fused_elem_ns.cu (Navier-Stokes,
+// whose coefficients are scalars or (E, Q) tensors: ns_elem_full),
 // set_elem.cuh (the module sets that functions/codegen.py generates per
-// deck: set_elem_full, and mode "state", set_elem_state). The density is
+// deck: set_elem_full, and mode "state", set_elem_state) and, at nc = 4
+// on 2D p1 quads, set_node.cuh (the Jacobian role of set_node_full, whose
+// residual is node-scattered by a role of its own). The density is
 // the template parameter `Dens`, a struct with a static
 //   template <bool TR, typename S, typename P>
 //   at(S (&u)[NV], S (&ud)[NV], S (&g)[NV][DIM], const QpAt<P, DIM>& pt,
@@ -104,6 +106,10 @@ constexpr int kCoefs = 5;  // NS: density, viscosity, source ux, uy, uz
 constexpr int kQc = 9;       // qps linearized in one chunk, at most
 constexpr int kQcMulti = 5;  // qps per chunk where they take several
 constexpr int kTan = 2;    // qp inputs per linearization pass
+// nc = 4 (set_node.cuh's Jacobian role): the qp inputs per pass, 0 for
+// all inputs of one variable (NB: one pass per variable and qp, faster
+// there than 2, 3 or 4, PERF.md)
+constexpr int kTanNode = 0;
 
 // The C interface's arguments of every element-tile entry point, filled
 // by ctypes (ops/_launch.py ElemArgs): one struct for both densities, each
@@ -172,8 +178,9 @@ struct ElemLayout {
   static constexpr int NQ = NV * NB;
   static constexpr int NS0 = TR ? 2 : 1;  // u_eval [, u_dot]
   static constexpr int DQ = NO * NQ + 1;  // a qp's linearization, padded
-  // columns c' per tile, and tiles per (v, w) block
-  static constexpr int S = NV == 1 ? 1 : (NC == 8 ? 4 : 3);
+  // columns c' per tile, and tiles per (v, w) block (nc = 4: the 2D p1
+  // quads of set_node.cuh, one tile of all 4 columns)
+  static constexpr int S = NC == 4 ? 4 : (NV == 1 ? 1 : (NC == 8 ? 4 : 3));
   static constexpr int NG = NC / S;
   static constexpr int NT = NV * NV * NG;
   static_assert(NC % S == 0, "a tile's columns divide nc");
@@ -223,8 +230,9 @@ __device__ __forceinline__ void elem_linearize(
     const int nq) {
   using L = ElemLayout<DIM, NC, NV, TR>;
   constexpr int NO = L::NO, NQ = L::NQ, NB = L::NB;
-  using DK = Dual<T, kTan>;
-  constexpr int NK = (NQ + kTan - 1) / kTan;  // passes per qp
+  constexpr int KT = NC != 4 ? kTan : (kTanNode > 0 ? kTanNode : NB);
+  using DK = Dual<T, KT>;
+  constexpr int NK = (NQ + KT - 1) / KT;  // passes per qp
   const int Q = a.Q;
   const long long e0 = (long long)blockIdx.x * elems, dstr = L::dstride(Q);
   const T au = T(a.alpha_u), at = T(a.alpha_t);
@@ -233,7 +241,7 @@ __device__ __forceinline__ void elem_linearize(
     const int pass = i % NK, r = i / NK, qq = r % nq, le = r / nq;
     const long long e = e0 + le;
     if (e >= geo.E) continue;
-    const int q = q0 + qq, k0 = pass * kTan;
+    const int q = q0 + qq, k0 = pass * KT;
     const T* st = qst + (le * Q + q) * NQ;
     DK u[NV], ud[NV], g[NV][DIM], out[NO];
 #pragma unroll
@@ -243,7 +251,7 @@ __device__ __forceinline__ void elem_linearize(
 #pragma unroll
       for (int d = 0; d < DIM; ++d) g[v][d].v = st[NV + v * DIM + d];
 #pragma unroll
-      for (int j = 0; j < kTan; ++j) {
+      for (int j = 0; j < KT; ++j) {
         const int k = k0 + j - v * NB;  // the input's slot in v, if any
         u[v].d[j] = k == 0 ? T(1) : T(0);
 #pragma unroll
@@ -260,7 +268,7 @@ __device__ __forceinline__ void elem_linearize(
     Dens::template at<TR>(u, ud, g, pt, a, out);
     T* dq = dm + le * dstr + (long long)qq * L::DQ;
 #pragma unroll
-    for (int j = 0; j < kTan; ++j) {
+    for (int j = 0; j < KT; ++j) {
       const int k = k0 + j;
       if (k >= NQ) break;
       const T sc = wts[q] * (TR && k % NB == NB - 1 ? at : au);
@@ -470,6 +478,9 @@ __device__ __forceinline__ void elem_body(const ElemArgs& a,
       for (int d = 0; d < DIM; ++d) st[NV + v * DIM + d] = g[v][d];
       if constexpr (TR) st[NV * (1 + DIM) + v] = ud[v];
     }
+    // nc = 4 (set_node.cuh): the residual is its node role's, so the
+    // Jacobian role needs no primal density and no residual rows
+    if constexpr (NC == 4) continue;
     int idx[3];
     elem_index(geo, e, idx);
     QpAt<T, DIM> pt;
@@ -501,7 +512,7 @@ __device__ __forceinline__ void elem_body(const ElemArgs& a,
   __syncthreads();
 
   // phase 3: residual rows slot, slot + slots, ... of element tid % elems
-  {
+  if constexpr (NC != 4) {
     const int le = tid % elems, slots = kThreads / elems;
     const int slot = tid / elems;
     const long long e = e0 + le;

@@ -42,46 +42,53 @@
 // the state-independent rest (the density at the betas and the Jacobian)
 // is the provider's plain-torch coord part.
 //
-// Design. One launch holds two roles, split by block index:
+// Design. Mode "full" is one launch of two roles, split by block index:
+//   Jacobian blocks (the first ones): the element-tile engine
+//     (elem_engine.cuh) at nc = 4, DIM = 2, stride 1, its lattice the
+//     corners (0,0), (1,0), (1,1), (0,1) of the node grid: per block of
+//     `elems` elements (as many as the varying (v, w) tiles of 4 columns
+//     fill 128 threads, or fewer where the card's shared memory keeps
+//     more resident) the tables, corner values and qp state go to shared
+//     memory; each (element, qp) is LINEARIZED once per variable w, on
+//     Dual<T, NB> seeded along w's NB qp inputs (u_w, grad u_w[, u_dot_w]:
+//     NV passes per qp, where the previous design took one Dual<T, 1> pass
+//     per column, nd = 4 NV), then CONTRACTED with the basis tables per
+//     (element, tile) in registers, varying tiles only (the host's list
+//     `tiles`, ops/_launch.py elem_tiles). The generated density reaches
+//     the engine through SetNodeDensity. The engine skips its primal
+//     densities and residual rows at nc = 4. For one variable, and past
+//     kQc qps (where the chunked linearization would leave 2 blocks per
+//     SM), the engine's phases do not pay for themselves, and the role
+//     is the previous per-column design (set_jacobian_tile, node_columns).
 //   residual blocks: one thread per node, as fused_p1_ns.cu's: it gathers
 //     the corner values of its (up to) four elements, evaluates the
 //     primal density at their quadrature points and sums their
 //     contributions to itself in a fixed order: no atomics.
-//   Jacobian blocks: ns_elem_full's scheme (fused_elem_ns.cu). A block
-//     owns `elems` elements (16, or fewer where the layout of 16 would
-//     not fit the card's shared memory: any quadrature works); the
-//     tables, the corner values and the qp state of all variables go to
-//     shared memory; then each thread
-//     (element, slot) walks the columns slot, slot + slots, ...: a
-//     column is one forward pass of the density on Dual<T, 1> at every
-//     qp, its nd sums kept in registers and written where the probe says
-//     the row varies. One tangent per pass keeps the registers of nd =
-//     16-20 columns in bounds, where ns_node_full's Dual<T, 4> per
-//     column variable would spill.
-// Mesh edges are masked by index; any N0, N1 >= 1 works; offsets are
-// 64-bit.
+// Both roles of the engine's kernel take its register bound (3 blocks of
+// 128 threads per SM; 4 at a stage, whose longer linearization gains
+// more from them than it loses to spills); the per-column kernel and mode
+// "state", the residual role alone in a kernel of its own, take the
+// plain launch bound. Mesh edges are masked by index; any N0, N1 >= 1
+// works (N0 N1 < 2^31); offsets are 64-bit.
 //
 // What bounds it on the H100: the writes of the Jacobian rows (up to nd^2
-// = 400 per element) against the density's operations, which chip_smoke.py
-// counts on the plain version (its sparse forward AD) and reports as the
-// bound. No tiling over rows, TMA or wgmma yet: this version is the
-// simple, right one.
+// = 400 per element) against the operations of the engine's scheme, which
+// chip_smoke.py counts on the plain version (its sparse forward AD) and
+// reports as the bound.
 
 #pragma once
 
 #include <cuda_runtime.h>
 
+#include "elem_engine.cuh"
 #include "ns_density.cuh"
 #include "scalar_density.cuh"
 
 namespace {
 
-constexpr int kThreads = 128;
-constexpr int kElems = 16;  // elements per Jacobian block, at most
-constexpr int kMaxScalars = 32;
-
 // The C interface's arguments, filled by ctypes (ops/fused_set.py
-// _SetArgs).
+// _SetArgs). kThreads, kElems and kMaxScalars are the engine's
+// (elem_engine.cuh).
 struct SetArgs {
   const void* ue;       // (SET_NV, N0+1, N1+1) u_eval grids
   const void* ud;       // the u_dot grids, or null (steady)
@@ -97,6 +104,8 @@ struct SetArgs {
                                         // element, on the device
   double sc[kMaxScalars];  // t, beta, T_ambient, the deck's parameters
   int Q, N0, N1, n_rows, pspg, supg, transient;
+  const int* tiles;  // (n_tiles,) the engine's tiles holding a varying row
+  int n_tiles;
 };
 
 __device__ __forceinline__ int corner_i(int c) { return (c == 1 || c == 2); }
@@ -196,12 +205,41 @@ __device__ __forceinline__ void set_residual_node(const SetArgs& a,
   for (int v = 0; v < NV; ++v) res[v * nodes + n] = acc[v];
 }
 
-// shared memory of a Jacobian block of `elems` elements, in T: tables phi
-// (4Q), grad (8Q), wts (Q); the corner values (elems x NS0 x ND); the qp
-// state u, g[, ud] (elems x Q x NQ). ops/_launch.py `node_smem_words`
-// is the same formula.
+// the Jacobian role's elements per block, at most (as many as its tiles
+// fill kThreads), and the blocks per SM its registers allow (both roles)
+constexpr int kNodeElems = 32;
+constexpr int node_min_blocks(bool transient) {
+  return transient ? 4 : kMinBlocks;
+}
+
+// the engine's density of a generated set on 2D p1 quads: Gen::eval at
+// the qp's coordinates, reading the deck's scalars from the engine's
+// argument struct
+template <class Gen, int NV>
+struct SetNodeDensity {
+  template <bool TR, typename S, typename P>
+  __device__ __forceinline__ static void at(S (&u)[NV], S (&ud)[NV],
+                                            S (&g)[NV][2],
+                                            const QpAt<P, 2>& pt,
+                                            const ElemArgs& a,
+                                            S (&out)[3 * NV]) {
+    Gen::template eval<TR, S>(u, ud, g, pt.x[0], pt.x[1], a, out);
+  }
+};
+
+// The per-column Jacobian role (node_columns: one variable, or past kQc
+// qps, where the engine's linearization chunks would hold fewer elements
+// per SM): a block owns `elems` elements (16, or fewer where the layout
+// of 16 would not fit the card's shared memory); the tables, the corner
+// values and the qp state of all variables go to shared memory; then
+// each thread (element, slot) walks the columns slot, slot + slots, ...:
+// a column is one forward pass of the density on Dual<T, 1> at every qp,
+// its nd sums kept in registers and written where the probe says the row
+// varies. Its shared memory, in T: tables phi (4Q), grad (8Q), wts (Q);
+// the corner values (elems x NS0 x ND); the qp state u, g[, ud] (elems x
+// Q x NQ).
 template <int NV, bool TR>
-struct SetLayout {
+struct ColumnLayout {
   static constexpr int ND = 4 * NV;
   static constexpr int NS0 = TR ? 2 : 1;             // u_eval [, u_dot]
   static constexpr int NQ = 3 * NV + (TR ? NV : 0);
@@ -214,12 +252,11 @@ struct SetLayout {
   }
 };
 
-// Jacobian role: the columns of `elems` elements
 template <typename T, bool TR, int NV, class Dens>
 __device__ __forceinline__ void set_jacobian_tile(const SetArgs& a,
                                                   long long tile, T* s,
                                                   const int elems) {
-  using L = SetLayout<NV, TR>;
+  using L = ColumnLayout<NV, TR>;
   constexpr int ND = L::ND, NQ = L::NQ;
   using D = Dual<T, 1>;
   const int Q = a.Q, N1 = a.N1, slots = kThreads / elems;
@@ -334,29 +371,131 @@ __device__ __forceinline__ void set_jacobian_tile(const SetArgs& a,
   }
 }
 
-template <typename T, bool TR, int NV, class Dens, bool LIN>
+// whether the Jacobian role takes the per-column design: past kQc qps,
+// and for one variable, whose 4 columns the engine's phases do not pay
+// for (PERF.md)
+template <int NV>
+__host__ __device__ inline bool node_columns(int Q) {
+  return NV == 1 || Q > kQc;
+}
+
+// shared memory of a Jacobian block of `elems` elements, in T: the
+// engine's layout at nc = 4, or the per-column one (node_columns)
+// (ops/_launch.py `node_smem_words`)
+template <int NV, bool TR>
+struct SetLayout {
+  __host__ __device__ static long long total(int Q, int elems) {
+    return node_columns<NV>(Q) ? ColumnLayout<NV, TR>::total(Q, elems)
+                               : ElemLayout<2, 4, NV, TR>::total(Q, elems);
+  }
+};
+
+// mode "state": the residual role alone
+template <typename T, bool TR, int NV, class Dens>
 __global__ void __launch_bounds__(kThreads)
-    set_node_full_kernel(const SetArgs a, const long long res_blocks,
-                         const int elems) {
+    set_node_state_kernel(const SetArgs a, const long long res_blocks,
+                          const int elems) {
   extern __shared__ __align__(16) unsigned char smem_raw[];
   if (blockIdx.x < res_blocks) {
-    set_residual_node<T, TR, NV, Dens, LIN>(
+    set_residual_node<T, TR, NV, Dens, true>(
         a, (long long)blockIdx.x * kThreads + threadIdx.x);
     return;
   }
-  if constexpr (!LIN)
-    set_jacobian_tile<T, TR, NV, Dens>(a, (long long)blockIdx.x - res_blocks,
-                                       reinterpret_cast<T*>(smem_raw), elems);
 }
 
-// The elements per Jacobian block: the most (16, 8, ..., 1) whose layout
-// fits the card's opt-in shared memory per block, and that layout's
-// bytes; 0 where one element does not fit.
+// mode "full": the Jacobian role on blocks 0 .. jac_blocks - 1 (the
+// engine's phases 1, 2 and 4 on `elems` elements each), then the
+// residual role; the engine's register bound for both
+template <typename T, bool TR, int NV, class Dens>
+__global__ void __launch_bounds__(kThreads, node_min_blocks(TR))
+    set_node_full_kernel(const SetArgs a, const ElemArgs ea,
+                         const ElemGeometry geo, const long long jac_blocks,
+                         const int elems) {
+  if (blockIdx.x >= jac_blocks) {
+    set_residual_node<T, TR, NV, Dens, false>(
+        a, (long long)(blockIdx.x - jac_blocks) * kThreads + threadIdx.x);
+    return;
+  }
+  elem_body<T, TR, 2, 4, NV, SetNodeDensity<Dens, NV>, false>(ea, geo,
+                                                              elems);
+}
+
+// the same with the Jacobian role per column (node_columns)
+template <typename T, bool TR, int NV, class Dens>
+__global__ void __launch_bounds__(kThreads)
+    set_node_column_kernel(const SetArgs a, const ElemArgs ea,
+                           const ElemGeometry geo,
+                           const long long jac_blocks, const int elems) {
+  extern __shared__ __align__(16) unsigned char smem_raw[];
+  if (blockIdx.x >= jac_blocks) {
+    set_residual_node<T, TR, NV, Dens, false>(
+        a, (long long)(blockIdx.x - jac_blocks) * kThreads + threadIdx.x);
+    return;
+  }
+  set_jacobian_tile<T, TR, NV, Dens>(a, blockIdx.x,
+                                     reinterpret_cast<T*>(smem_raw), elems);
+}
+
+// the engine's arguments of the Jacobian role: the corners (0,0), (1,0),
+// (1,1), (0,1) of a p1 node grid
+inline ElemArgs node_elem_args(const SetArgs& a) {
+  ElemArgs e = {};
+  e.ue = a.ue;
+  e.ud = a.ud;
+  e.phi = a.phi;
+  e.grad = a.grad;
+  e.wts = a.wts;
+  e.row_pos = a.row_pos;
+  e.tiles = a.tiles;
+  e.jac = a.jac;
+  e.alpha_u = a.alpha_u;
+  e.alpha_t = a.alpha_t;
+  e.h = a.h;
+  e.tau_dt2 = a.tau_dt2;
+  for (int d = 0; d < 2; ++d) {
+    e.origin[d] = a.origin[d];
+    e.hax[d] = a.hax[d];
+  }
+  e.qoff = a.qoff;
+  for (int i = 0; i < kMaxScalars; ++i) e.sc[i] = a.sc[i];
+  e.Q = a.Q;
+  e.nc = 4;
+  e.dim = 2;
+  e.stride = 1;
+  e.N0 = a.N0;
+  e.N1 = a.N1;
+  e.N2 = 1;
+  e.n_tiles = a.n_tiles;
+  e.pspg = a.pspg;
+  e.supg = a.supg;
+  e.transient = a.transient;
+  const int corners[4][2] = {{0, 0}, {1, 0}, {1, 1}, {0, 1}};
+  for (int c = 0; c < 4; ++c) {
+    e.off[c][0] = corners[c][0];
+    e.off[c][1] = corners[c][1];
+  }
+  return e;
+}
+
+template <typename T, bool TR, int NV, class Dens>
+int set_state_launch(const SetArgs& a, void* stream) {
+  auto kernel = set_node_state_kernel<T, TR, NV, Dens>;
+  const long long nodes = (long long)(a.N0 + 1) * (a.N1 + 1);
+  const long long res_blocks = (nodes + kThreads - 1) / kThreads;
+  const size_t smem = 0;
+  kernel<<<(unsigned)res_blocks, kThreads, smem, (cudaStream_t)stream>>>(
+      a, res_blocks, kElems);
+  return (int)cudaGetLastError();
+}
+
+// the per-column role's elements per block: the most (16, 8, ..., 1)
+// whose layout fits the card's opt-in shared memory per block, and that
+// layout's bytes; 0 where one element does not fit
 template <typename T, int NV, bool TR>
-int set_node_elems(int Q, long long optin, size_t* smem) {
+int column_elems(int Q, long long optin, size_t* smem) {
   for (int elems = kElems; elems >= 1; elems /= 2) {
     const long long bytes =
-        (long long)sizeof(T) * SetLayout<NV, TR>::total(Q, elems);
+        (long long)sizeof(T) * ColumnLayout<NV, TR>::total(Q, elems);
     if (bytes <= optin) {
       *smem = (size_t)bytes;
       return elems;
@@ -365,44 +504,77 @@ int set_node_elems(int Q, long long optin, size_t* smem) {
   return 0;
 }
 
-// what a launch returns where the qp state of one element does not fit
-// the card's shared memory (ops/fused_set.py raises on it)
-constexpr int kErrSharedMemory = -1;
-
-template <typename T, bool TR, int NV, class Dens, bool LIN>
-int set_launch_case(const SetArgs& a, void* stream) {
-  auto kernel = set_node_full_kernel<T, TR, NV, Dens, LIN>;
+template <typename T, bool TR, int NV, class Dens>
+int set_full_launch(const SetArgs& a, void* stream) {
+  using L = ElemLayout<2, 4, NV, TR>;
+  const bool columns = node_columns<NV>(a.Q);
+  auto kernel = columns ? set_node_column_kernel<T, TR, NV, Dens>
+                        : set_node_full_kernel<T, TR, NV, Dens>;
+  if (a.n_tiles < 0 || a.n_tiles > L::NT ||
+      (a.n_tiles > 0 && a.tiles == nullptr))
+    return (int)cudaErrorInvalidValue;
   const long long nodes = (long long)(a.N0 + 1) * (a.N1 + 1);
   const long long E = (long long)a.N0 * a.N1;
   const long long res_blocks = (nodes + kThreads - 1) / kThreads;
+  const ElemArgs ea = node_elem_args(a);
+  ElemGeometry geo;
+  geo.N1 = a.N1;
+  geo.N2 = 1;
+  geo.G1 = a.N1 + 1;
+  geo.G2 = 1;
+  geo.G = nodes;
+  geo.E = E;
   size_t smem = 0;
-  int elems = kElems;
+  int elems = 1;
   long long jac_blocks = 0;
-  if (!LIN && a.n_rows > 0) {
-    int dev = 0, optin = 0;
-    cudaGetDevice(&dev);
-    cudaDeviceGetAttribute(&optin, cudaDevAttrMaxSharedMemoryPerBlockOptin,
-                           dev);
-    elems = set_node_elems<T, NV, TR>(a.Q, optin, &smem);
-    if (elems == 0) return kErrSharedMemory;
-    if (smem > 48 * 1024) {
-      const cudaError_t err = cudaFuncSetAttribute(
-          kernel, cudaFuncAttributeMaxDynamicSharedMemorySize, (int)smem);
+  if (a.n_tiles > 0) {
+    // at most as many elements as the tiles fill the block's threads; the
+    // last choice of this kernel, reused while Q and want repeat
+    int want = kThreads / a.n_tiles;
+    want = want < 1 ? 1 : (want > kNodeElems ? kNodeElems : want);
+    static int last_q = 0, last_want = 0, last_elems = 0;
+    static size_t last_smem = 0;
+    if (a.Q != last_q || want != last_want) {
+      int dev = 0, optin = 0;
+      cudaGetDevice(&dev);
+      cudaDeviceGetAttribute(&optin, cudaDevAttrMaxSharedMemoryPerBlockOptin,
+                             dev);
+      if (columns) {
+        last_elems = column_elems<T, NV, TR>(a.Q, optin, &last_smem);
+        if (last_smem > 48 * 1024)
+          cudaFuncSetAttribute(kernel,
+                               cudaFuncAttributeMaxDynamicSharedMemorySize,
+                               (int)last_smem);
+      } else {
+        last_elems = elem_block_elems<T, 2, 4, NV, TR, false>(
+            kernel, a.Q, want, optin, &last_smem);
+      }
+      const cudaError_t err = cudaGetLastError();
       if (err != cudaSuccess) return (int)err;
+      last_q = a.Q;
+      last_want = want;
     }
+    if (last_elems == 0) return kErrSharedMemory;
+    elems = last_elems;
+    smem = last_smem;
     jac_blocks = (E + elems - 1) / elems;
   }
-  kernel<<<(unsigned)(res_blocks + jac_blocks), kThreads, smem,
-           (cudaStream_t)stream>>>(a, res_blocks, elems);
+  kernel<<<(unsigned)(jac_blocks + res_blocks), kThreads, smem,
+           (cudaStream_t)stream>>>(a, ea, geo, jac_blocks, elems);
   return (int)cudaGetLastError();
 }
 
 template <typename T, int NV, class Dens, bool LIN>
 int set_launch(const SetArgs* a, void* stream) {
-  if (a->Q < 1 || a->N0 < 1 || a->N1 < 1) return (int)cudaErrorInvalidValue;
-  return a->transient
-             ? set_launch_case<T, true, NV, Dens, LIN>(*a, stream)
-             : set_launch_case<T, false, NV, Dens, LIN>(*a, stream);
+  if (a->Q < 1 || a->N0 < 1 || a->N1 < 1 ||
+      (long long)a->N0 * a->N1 >= (1LL << 31))
+    return (int)cudaErrorInvalidValue;
+  if constexpr (LIN)
+    return a->transient ? set_state_launch<T, true, NV, Dens>(*a, stream)
+                        : set_state_launch<T, false, NV, Dens>(*a, stream);
+  else
+    return a->transient ? set_full_launch<T, true, NV, Dens>(*a, stream)
+                        : set_full_launch<T, false, NV, Dens>(*a, stream);
 }
 
 }  // namespace

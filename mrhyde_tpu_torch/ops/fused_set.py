@@ -294,7 +294,8 @@ class _SetArgs(ctypes.Structure):
                 ("Q", ctypes.c_int), ("N0", ctypes.c_int),
                 ("N1", ctypes.c_int), ("n_rows", ctypes.c_int),
                 ("pspg", ctypes.c_int), ("supg", ctypes.c_int),
-                ("transient", ctypes.c_int)]
+                ("transient", ctypes.c_int), ("tiles", ctypes.c_void_p),
+                ("n_tiles", ctypes.c_int)]
 
 
 _QOFF = {}
@@ -336,6 +337,8 @@ def _node_args(form, ue, ud, sc, tab, geo, jac_idx, stage, lin):
                             tab.t_wts.data_ptr())
     pos = _row_pos(jac_idx, 4 * nv, ue.device)
     a.row_pos = pos.data_ptr()
+    tiles = elem_tiles(jac_idx, nv, 4, ue.device)
+    a.tiles, a.n_tiles = tiles.data_ptr(), tiles.numel()
     out = torch.empty_like(ue)
     jac = torch.empty((len(jac_idx), E), dtype=ue.dtype, device=ue.device)
     a.res, a.jac = out.data_ptr(), jac.data_ptr()
@@ -353,7 +356,7 @@ def _node_args(form, ue, ud, sc, tab, geo, jac_idx, stage, lin):
     a.pspg = int(bool(ns and ns.use_pspg))
     a.supg = int(bool(ns and ns.use_supg))
     a.transient = int(not steady)
-    return a, out, jac, (pos, qoff)
+    return a, out, jac, (pos, tiles, qoff)
 
 
 def _launch(name, form, a, like):

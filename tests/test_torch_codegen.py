@@ -482,15 +482,19 @@ def test_2d_and_3d_sources_call_their_own_scalar_densities(mesh):
 
 
 # ----------------------------------------------------------------------
-# set_node.cuh's kernel template and the element-tile engine
-# (elem_engine.cuh, instanced by set_elem.cuh and fused_elem_ns.cu) run on
-# the host: one
-# std::thread per CUDA thread of a block, a barrier for __syncthreads, the
-# block's shared memory a host buffer (filled with NaN bytes, so a read of
-# a slot no thread wrote shows); the launch and the shared-memory
-# declaration are the lines rewritten for the host, and the card's
-# opt-in shared memory per block is HOST_OPTIN (the H100's unless a test
-# sets a smaller one, to make the kernels hold fewer elements per block)
+# set_node.cuh's kernel templates, the element-tile engine
+# (elem_engine.cuh, instanced by set_elem.cuh, set_node.cuh and
+# fused_elem_ns.cu) and fused_elem_thermal.cu's kernels run on the host:
+# one std::thread per CUDA thread of a block, a barrier for __syncthreads
+# and around a warp shuffle (every thread of the block shuffles at the
+# same points), the block's shared memory a host buffer (filled with NaN
+# bytes, so a read of a slot no thread wrote shows); the launches and the
+# shared-memory declarations are the lines rewritten for the host, the
+# card's opt-in shared memory per block is HOST_OPTIN (the H100's unless
+# a test sets a smaller one, to make the kernels hold fewer elements per
+# block) and its SMs HOST_SMS (2: a persistent grid walks several tiles
+# per block). The host build has no __CUDA_ARCH__, so f64's tensor-core
+# steps take their FMA form.
 # ----------------------------------------------------------------------
 
 HOST_CUDA = """
@@ -503,6 +507,9 @@ HOST_CUDA = """
 #ifndef HOST_OPTIN
 #define HOST_OPTIN 232448
 #endif
+#ifndef HOST_SMS
+#define HOST_SMS 2
+#endif
 #define __global__
 #define __device__
 #define __host__
@@ -510,19 +517,28 @@ HOST_CUDA = """
 #define __launch_bounds__(...)
 #define __align__(x)
 struct HostIdx { unsigned x; };
-inline thread_local HostIdx threadIdx, blockIdx;
+inline thread_local HostIdx threadIdx, blockIdx, blockDim, gridDim;
 inline std::barrier<>* host_barrier = nullptr;
 inline unsigned char* host_smem = nullptr;
+inline double* host_xchg = nullptr;
 inline void __syncthreads() { host_barrier->arrive_and_wait(); }
+template <class T> T __shfl_sync(unsigned, T v, int src) {
+  host_xchg[threadIdx.x] = (double)v;
+  __syncthreads();
+  const T r = (T)host_xchg[(threadIdx.x & ~31u) + (unsigned)src];
+  __syncthreads();
+  return r;
+}
 template <class T> inline T __ldg(const T* p) { return *p; }
 typedef int cudaError_t;
 enum { cudaSuccess = 0, cudaErrorInvalidValue = 1 };
 typedef void* cudaStream_t;
 enum cudaFuncAttribute { cudaFuncAttributeMaxDynamicSharedMemorySize };
-enum cudaDeviceAttr { cudaDevAttrMaxSharedMemoryPerBlockOptin };
+enum cudaDeviceAttr { cudaDevAttrMaxSharedMemoryPerBlockOptin,
+                      cudaDevAttrMultiProcessorCount };
 inline cudaError_t cudaGetDevice(int* d) { *d = 0; return 0; }
-inline cudaError_t cudaDeviceGetAttribute(int* v, cudaDeviceAttr, int) {
-  *v = HOST_OPTIN;
+inline cudaError_t cudaDeviceGetAttribute(int* v, cudaDeviceAttr a, int) {
+  *v = a == cudaDevAttrMultiProcessorCount ? HOST_SMS : HOST_OPTIN;
   return 0;
 }
 template <class F>
@@ -539,6 +555,8 @@ template <class K, class... A>
 void host_launch(K kernel, unsigned blocks, int threads, size_t smem,
                  A... args) {
   std::vector<unsigned char> buf(smem + 1);
+  std::vector<double> xchg(threads);
+  host_xchg = xchg.data();
   for (unsigned b = 0; b < blocks; ++b) {
     std::memset(buf.data(), 0xff, smem);
     host_smem = buf.data();
@@ -549,34 +567,39 @@ void host_launch(K kernel, unsigned blocks, int threads, size_t smem,
       ts.emplace_back([=]() {
         threadIdx.x = t;
         blockIdx.x = b;
+        blockDim.x = threads;
+        gridDim.x = blocks;
         kernel(args...);
       });
     for (auto& th : ts) th.join();
   }
 }
 """
-HOST_SMEM = ("extern __shared__ __align__(16) unsigned char smem_raw[];",
+HOST_SMEM = (re.compile(r"extern __shared__ (?:__align__\(16\) )?"
+                        r"unsigned char smem_raw\[\];"),
              "unsigned char* smem_raw = host_smem;")
-HOST_LAUNCH = re.compile(r"kernel<<<(.*?), kThreads, smem,\s*"
+HOST_LAUNCH = re.compile(r"kernel<<<(.*?), kThreads, (.*?),\s*"
                          r"\(cudaStream_t\)stream>>>\((.*?)\);", re.S)
 
 
-# the kernel files the host builds, each with its count of launch sites
-# and shared-memory declarations: the element-tile engine holds the one
-# kernel of set_elem.cuh and fused_elem_ns.cu, which instantiate it
-HOST_FILES = {"set_node.cuh": 1, "elem_engine.cuh": 1, "set_elem.cuh": 0,
-              "fused_elem_ns.cu": 0}
+# the kernel files the host builds, each with its counts of shared-memory
+# declarations and of launch sites: the element-tile engine holds the
+# kernel body of set_elem.cuh and fused_elem_ns.cu, which instantiate it,
+# and of set_node.cuh's Jacobian role
+HOST_FILES = {"set_node.cuh": (2, 2), "elem_engine.cuh": (1, 1),
+              "set_elem.cuh": (0, 0), "fused_elem_ns.cu": (0, 0),
+              "fused_elem_thermal.cu": (2, 2)}
 
 
 def _host_header(name, tmp_path):
     """csrc/<name> rewritten for the host into tmp_path."""
     text = open(os.path.join(CSRC, name)).read()
-    want = HOST_FILES[name]
-    assert text.count(HOST_SMEM[0]) == want, name
-    text = text.replace(*HOST_SMEM)
+    smem, launches = HOST_FILES[name]
+    text, n = HOST_SMEM[0].subn(HOST_SMEM[1], text)
+    assert n == smem, name
     text, n = HOST_LAUNCH.subn(
-        r"host_launch(kernel, \1, kThreads, smem, \2);", text)
-    assert n == want, name
+        r"host_launch(kernel, \1, kThreads, \2, \3);", text)
+    assert n == launches, name
     (tmp_path / name).write_text(text)
 
 
@@ -681,6 +704,39 @@ def _host_tables(f, dtype):
     from mrhyde_tpu_torch.ops.fused_p1 import QuadTables
     t = f.tables
     return QuadTables(t.phi, t.grad, t.wts, "cpu", dtype)
+
+
+@pytest.mark.parametrize("name", ["ns_thermal", "ns_cdr", "thermal_cdr",
+                                  "cdr_state", "ns_visc"])
+@pytest.mark.parametrize("stage", [False, True])
+@pytest.mark.parametrize("dtype", [torch.float64, torch.float32])
+def test_set_node_kernel_on_the_host(name, stage, dtype, tmp_path):
+    """set_node_full (its residual role, node-scattered, and its Jacobian
+    role on the element-tile engine at nc = 4: one linearization per
+    (element, qp) contracted with the basis tables) on the host against
+    its plain version at Q = 4: each module set of the provider tests on
+    a 7x5 grid (several Jacobian blocks, the last one partial), steady
+    and at a DIRK-2,2 stage; f64 to 1e-12, f32 to 1e-5 of max |plain|."""
+    from mrhyde_tpu_torch.ops import fused_set as fs
+    from mrhyde_tpu_torch.ops.fused_p1 import Stage
+    cfg = _set_cfgs()[name]
+    cfg["Mesh"].update({"NX": 7, "NY": 5})
+    f = _host_provider(cfg, transient=stage)
+    assert isinstance(f, fs.FusedSetAssembly) and f.tables.Q == 4
+    au, at = (0.5, 200.0) if stage else (1.0, 0.0)
+    sc = fs.SetScalars(0.0125, 0.01, ())
+    jac_idx = f._classify(sc, au, at, not stage)[0]
+    ue, ud = _host_grids(f, dtype, stage)
+    args = (f.form, ue, ud, sc, _host_tables(f, dtype),
+            (f.origin, f.h_axes, f.q_off), jac_idx,
+            Stage(au, at, None) if stage else None)
+    ref = fs.set_node_full_plain(*args)
+    a, out, jac, _keep = fs._node_args(*args, False)
+    lib = _host_build(f.form.source, tmp_path)
+    assert _entry(lib, "set_node_full", dtype)(ctypes.addressof(a),
+                                                None) == 0
+    for got, want in zip((out, jac), ref):
+        _assert_close(got, want, dtype)
 
 
 @pytest.mark.parametrize("dtype", [torch.float64, torch.float32])
@@ -889,6 +945,99 @@ def test_infinite_derivative_reaches_only_its_columns(mesh, tmp_path):
     assert not bool(torch.isfinite(jac[cols == 1]).all())
     if mesh == "p2":
         assert bool(torch.isnan(jac).any())
+
+
+THERMAL_FULL_TU = """
+#include "fused_elem_thermal.cu"
+"""
+
+
+def _thermal_tables(mesh, dims, quadrature=None):
+    """(QuadTables f64 on the CPU, Lattice) of a uniform hex (p1) or quad
+    (p2) grid of `dims` elements."""
+    from mrhyde_tpu_torch.assembly.discretization import Discretization
+    from mrhyde_tpu_torch.mesh.structured import box_mesh
+    from mrhyde_tpu_torch.ops.fused_elem import basis_lattice
+    cell, order, quad = ("hex", 1, 2) if mesh == "hex" else ("quad", 2, 4)
+    size = dict(zip(("xmax", "ymax", "zmax"), (1.0 / n for n in dims)))
+    disc = Discretization(box_mesh(cell, **size), [("e", "HGRAD", order)],
+                          quadrature or quad)
+    key = ("HGRAD", order)
+    return (disc.basis_vals[key], disc.basis_grads[key][0], disc.wts[0]), \
+        basis_lattice(cell, order)
+
+
+def _thermal_full_host(lib, dtype, grid, qp, tab, lat, stage, vel):
+    """thermal_elem_full's C entry point of a host build on CPU tensors,
+    its arguments filled as the wrapper fills them."""
+    from mrhyde_tpu_torch.ops import _build
+    from mrhyde_tpu_torch.ops import fused_elem as fe
+    from mrhyde_tpu_torch.ops._launch import (ptr, stage_args,
+                                              velocity_args)
+    fn = getattr(lib, "thermal_elem_full_f64" if dtype == torch.float64
+                 else "thermal_elem_full_f32")
+    fn.argtypes = _build._SIGNATURES["thermal_elem_full_f64"]
+    fn.restype = ctypes.c_int
+    E = math.prod(fe.elem_dims(grid, lat))
+    nc = len(lat.offsets)
+    rows = torch.full((nc, E), float("nan"), dtype=dtype)
+    jac = torch.full((nc * nc, E), float("nan"), dtype=dtype)
+    err = fn(ptr(grid), *(ptr(t) for t in qp),
+             *stage_args(stage, E, grid, tab),
+             *velocity_args(vel, E, grid, tab),
+             *fe._geometry_args(grid, tab, lat), ptr(rows), ptr(jac), None)
+    assert err == 0
+    return rows, jac
+
+
+THERMAL_FULL_CASES = ("steady", "stage", "advect", "advect rotating stage")
+
+
+@pytest.mark.parametrize("mesh", ["hex", "p2"])
+@pytest.mark.parametrize("case", THERMAL_FULL_CASES)
+@pytest.mark.parametrize("dtype", [torch.float64, torch.float32])
+@pytest.mark.parametrize("chunks", [False, True])
+def test_thermal_elem_full_on_the_host(mesh, case, dtype, chunks,
+                                       tmp_path):
+    """thermal_elem_full (the qp scalars of a warp's 8 elements contracted
+    with the weighted basis products in m8n8k4 fragments, each lane's FMA
+    form of the step) on the host against its plain version: hex 5x4x7
+    and p2 9x8 (several tiles of 64 elements on a persistent grid of 2
+    blocks, the last tile partial), steady, a DIRK-2,2 stage with an (E,
+    Q) mass, the velocity (2, 1[, 0.5]) and a per-qp one at a stage with
+    m = 1; the fragments in one chunk, or (`chunks`) rebuilt per qp group
+    under a small budget. f64 to 1e-12, f32 to 1e-5 of max |plain|."""
+    from mrhyde_tpu_torch.ops import fused_elem as fe
+    from mrhyde_tpu_torch.ops.fused_p1 import QuadTables, Stage
+    dims = (5, 4, 7) if mesh == "hex" else (9, 8)
+    (phi, grad, wts), lat = _thermal_tables(mesh, dims)
+    tab = QuadTables(phi, grad, wts, "cpu", dtype)
+    E, Q = math.prod(dims), tab.Q
+    rng = np.random.RandomState(31)
+    shape = tuple(lat.stride * n + 1 for n in dims)
+    grid = torch.as_tensor(rng.rand(*shape) - 0.5, dtype=dtype)
+    S, dS, dK = (torch.as_tensor(rng.rand(E, Q) - 0.5, dtype=dtype)
+                 for _ in range(3))
+    K = torch.as_tensor(1.0 + rng.rand(E, Q), dtype=dtype)
+    mass = torch.as_tensor(1.0 + rng.rand(E, Q), dtype=dtype)
+    stage = None
+    if "stage" in case:
+        stage = Stage(0.29, 170.0, 1.0 if "advect" in case else mass)
+    vel = None
+    if case == "advect":
+        vel = [2.0, 1.0, 0.5][:tab.dim]
+    elif "advect" in case:
+        vel = [torch.as_tensor(rng.rand(E, Q) - 0.5, dtype=dtype)
+               for _ in range(tab.dim)]
+    qp = (S, dS, K, dK)
+    ref = fe.thermal_elem_full_plain(grid, *qp, tab, lat, stage, vel)
+    source = ("#define THERMAL_FULL_FRAG_BYTES 4096\n" if chunks else "") \
+        + THERMAL_FULL_TU
+    lib = _host_build(source, tmp_path)
+    got = _thermal_full_host(lib, dtype, grid, qp, tab, lat, stage, vel)
+    for g, w in zip(got, ref):
+        assert bool(torch.isfinite(g).all())
+        _assert_close(g, w, dtype)
 
 
 LAYOUT_TU = {

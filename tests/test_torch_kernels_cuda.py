@@ -299,6 +299,71 @@ def test_elem_kernels_match_plain(mesh, shape, dtype):
 
 
 @pytest.mark.cuda
+@pytest.mark.parametrize("dtype", [torch.float64, torch.float32])
+@pytest.mark.parametrize("mesh,quadrature", [("hex", 6), ("hex", 8),
+                                             ("p2", 8)])
+def test_elem_full_kernel_at_high_quadrature_matches_plain(mesh, quadrature,
+                                                           dtype):
+    """thermal_elem_full where its weighted basis products pass one
+    chunk of shared memory (hex Q = 64 in f64, Q = 125 in both) and at p2
+    Q = 25, steady and at a stage with advection, against its plain
+    version on a grid whose last tile is partial."""
+    from mrhyde_tpu_torch.ops import fused_elem as fe
+    from mrhyde_tpu_torch.ops import fused_p1 as fp
+    from mrhyde_tpu_torch.problem import Problem
+    dev = _card()
+    cfg = hex_cfg(2, 2, 2) if mesh == "hex" else p2_cfg(2, 2)
+    cfg["Discretization"]["quadrature"] = quadrature
+    f = Problem(cfg, device="cpu").assembler.fused_provider()
+    t0, lat = f.tables, f.lattice
+    tab = fp.QuadTables(np.asarray(t0.phi), np.asarray(t0.grad),
+                        np.asarray(t0.wts), dev, dtype)
+    shape = (7, 5, 3) if mesh == "hex" else (13, 7)
+    p = lat.stride
+    gen = torch.Generator(device=dev).manual_seed(29)
+    grid = torch.rand(tuple(p * n + 1 for n in shape), generator=gen,
+                      device=dev, dtype=dtype) - 0.5
+    E = int(np.prod(shape))
+    qp = [torch.rand((E, tab.Q), generator=gen, device=dev, dtype=dtype)
+          for _ in range(5)]
+    vel = [qp[4]] + [0.5] * (tab.dim - 1)
+    for stage, v in ((None, None), (fp.Stage(*DIRK22_STAGE1, 1.5), vel)):
+        res, jac = fe.thermal_elem_full(grid, *qp[:4], tab, lat, stage, v)
+        ref, jref = fe.thermal_elem_full_plain(grid, *qp[:4], tab, lat,
+                                               stage, v)
+        assert _close(res, ref, dtype) and _close(jac, jref, dtype)
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("mesh", ["hex", "p2"])
+def test_elem_full_kernel_infinite_derivative_as_plain(mesh):
+    """An infinite dS at one qp reaches the Jacobian entries the plain
+    version's reaches, as the same infinities and NaNs (a NaN where a
+    basis function is 0 there), and no other entry."""
+    from mrhyde_tpu_torch.ops import fused_elem as fe
+    dev = _card()
+    tab, lat = _elem_case(mesh, dev, torch.float64)
+    shape = ELEM_SHAPES[mesh][1]
+    p = lat.stride
+    gen = torch.Generator(device=dev).manual_seed(31)
+    grid = torch.rand(tuple(p * n + 1 for n in shape), generator=gen,
+                      device=dev, dtype=torch.float64) - 0.5
+    E = int(np.prod(shape))
+    qp = [torch.rand((E, tab.Q), generator=gen, device=dev,
+                     dtype=torch.float64) for _ in range(4)]
+    qp[1][E // 2, tab.Q // 2] = float("inf")
+    _res, jac = fe.thermal_elem_full(grid, *qp, tab, lat)
+    _ref, jref = fe.thermal_elem_full_plain(grid, *qp, tab, lat)
+    torch.cuda.synchronize()
+    assert torch.equal(torch.isnan(jac), torch.isnan(jref))
+    assert torch.equal(torch.isposinf(jac), torch.isposinf(jref))
+    assert torch.equal(torch.isneginf(jac), torch.isneginf(jref))
+    fin = torch.isfinite(jref)
+    assert float((jac[fin] - jref[fin]).abs().max()) <= \
+        RTOL[torch.float64] * float(jref[fin].abs().max())
+
+
+@pytest.mark.cuda
 @pytest.mark.parametrize("stage", [False, True])
 @pytest.mark.parametrize("kappa", ["1.0", "1.0 + 0.5*x*y", "1.0 + e*e"])
 @pytest.mark.parametrize("mesh", ["hex", "p2"])

@@ -1,0 +1,374 @@
+"""Where the time of the scalar element kernel `thermal_elem_full`
+(csrc/fused_elem_thermal.cu) and of the module-set node kernel
+`set_node_full` (csrc/set_node.cuh) goes, on one card: builds patched
+copies of a tree's csrc/, each with a part of a kernel cut, and times
+each on the cases of chip_smoke.py's phases 3c, 3d, 3f and 3i (f64, the
+divisible shapes).
+
+    python tools/full_ablate.py [--csrc DIR] [--design NAME] [--out DIR]
+                                [VARIANT ...]
+
+`--csrc` (default: this tree's) is the csrc/ directory to patch, such as
+that of an unpacked `git archive` of an earlier commit; `--design` names
+the variant table that matches it: `current` (this tree's kernels) or
+`column` (the per-column designs they replaced: one thread per element
+walking the Jacobian a column c' per pass in thermal_elem_full, one
+Dual<T, 1> density pass per column in set_node_full's Jacobian blocks).
+The C interfaces of both designs are the same, so this tree's wrappers
+fill the arguments. Variants (default: all of the design's) are listed in
+VARIANTS; `base` is the kernel as it is. Each variant builds into
+DIR/<design>/<variant> (default tree_copies/ablate, listed in
+.gitignore) with the flags of ops/_build.py, all nvcc at once; ptxas's
+report goes to DIR/<design>/ptxas.txt. Prints one JSON line per (case,
+variant): the median of 3 batches of 10 back-to-back launches (CUDA
+events), and the largest difference of its outputs from `base`'s
+relative to max |base| (the cut variants change them). First it prints
+the cuBLAS time of the contraction alone (torch.matmul of the same GEMM
+shapes, f64), a yardstick that no path of the port calls."""
+
+import argparse
+import ctypes
+import json
+import math
+import os
+import shutil
+import subprocess
+import sys
+
+REPO = os.path.dirname(os.path.dirname(os.path.abspath(__file__)))
+sys.path.insert(0, REPO)
+sys.path.insert(0, os.path.dirname(os.path.abspath(__file__)))
+
+import torch  # noqa: E402
+
+import chip_smoke as cs  # noqa: E402
+import engine_ablate  # noqa: E402
+from mrhyde_tpu_torch.ops import _build  # noqa: E402
+from mrhyde_tpu_torch.ops import fused_elem as fe  # noqa: E402
+from mrhyde_tpu_torch.ops import fused_set as fs  # noqa: E402
+from mrhyde_tpu_torch.ops.fused_p1 import QUAD_P1, Stage  # noqa: E402
+
+THERMAL, SET_NODE = "fused_elem_thermal.cu", "set_node.cuh"
+ENGINE = engine_ablate.ENGINE
+_NEVER = "T(1.2345e30)"
+# design -> variant -> [(file, text of the file, its replacement)]
+VARIANTS = {
+    "current": {
+        "base": [],
+        # thermal_elem_full: f64 on FMA (each lane's form of the m8n8k4
+        # step, as f32) instead of DMMA
+        "thermal_fma": [(THERMAL, "#define THERMAL_FULL_DMMA 1",
+                         "#define THERMAL_FULL_DMMA 0")],
+        # no Jacobian contraction (its rows stored as zeros)
+        "thermal_no_jac_contract": [(
+            THERMAL, "        for (int k = 0; k < NKJ; ++k) {\n",
+            "        for (int k = 0; k < 0; ++k) {\n")],
+        # no Jacobian stores
+        "thermal_no_jac_store": [(
+            THERMAL,
+            "          if (k < NC * NC) a.jac[(long long)k * geo.E + e] = "
+            "cj[n][i];",
+            f"          if (k < NC * NC && cj[n][i] == {_NEVER})\n"
+            "            a.jac[(long long)k * geo.E + e] = cj[n][i];")],
+        # set_node_full: no Jacobian blocks launched
+        "set_residual_blocks": [(
+            SET_NODE, "    jac_blocks = (E + elems - 1) / elems;",
+            "    jac_blocks = 0;")],
+        # the residual blocks return at once
+        "set_jacobian_blocks": [(
+            SET_NODE, "  if (blockIdx.x >= jac_blocks) {\n",
+            "  if (blockIdx.x >= jac_blocks) {\n    if (a.Q > 0) return;\n")],
+        # the Jacobian role's pass width (kTanNode: 0 is one pass per
+        # variable), element cap and blocks per SM at a stage
+        "set_tan2": [(ENGINE, "constexpr int kTanNode = 0;",
+                      "constexpr int kTanNode = 2;")],
+        "set_tan3": [(ENGINE, "constexpr int kTanNode = 0;",
+                      "constexpr int kTanNode = 3;")],
+        "set_tan4": [(ENGINE, "constexpr int kTanNode = 0;",
+                      "constexpr int kTanNode = 4;")],
+        "set_elems16": [(SET_NODE, "constexpr int kNodeElems = 32;",
+                         "constexpr int kNodeElems = 16;")],
+        "set_blocks3": [(SET_NODE, "return transient ? 4 : kMinBlocks;",
+                         "return transient ? 3 : kMinBlocks;")],
+        # the per-column Jacobian role at every Q, or the engine at every Q
+        "set_columns": [(SET_NODE, "return NV == 1 || Q > kQc;",
+                         "return Q > 0;")],
+        "set_engine": [(SET_NODE, "return NV == 1 || Q > kQc;",
+                        "return Q < 0;")],
+        # the engine's linearization with its density replaced by a copy
+        # of its inputs, or without the contraction and its stores
+        # (tools/engine_ablate.py's `nodensity`, `nocontract`)
+        "set_no_density": [(ENGINE, *engine_ablate.VARIANTS["nodensity"][0])],
+        "set_no_contract": [(ENGINE,
+                             *engine_ablate.VARIANTS["nocontract"][0])],
+    },
+    "column": {
+        "base": [],
+        # thermal_elem_full: return after the residual rows
+        "thermal_residual": [(
+            THERMAL, "  // Jacobian, one column c' per pass\n",
+            "  if (Q > 0) return;\n")],
+        # one column pass instead of nc (its column stored)
+        "thermal_one_column": [(
+            THERMAL, "  for (int cp = 0; cp < NC; ++cp) {",
+            "  for (int cp = 0; cp < 1; ++cp) {")],
+        # every pass, no Jacobian stores
+        "thermal_no_jac_store": [(
+            THERMAL, "      jac[(long long)(c * NC + cp) * geo.E + e] = J[c];",
+            f"      if (J[c] == {_NEVER})\n"
+            "        jac[(long long)(c * NC + cp) * geo.E + e] = J[c];")],
+        # the column passes read no (E, Q) input: K, dK, dS from the
+        # weights in shared memory (each input read once, by the
+        # residual rows)
+        "thermal_inputs_once": [(
+            THERMAL,
+            "      const T kq = K[e * Q + q], dkq = dK[e * Q + q], "
+            "dsq = dS[e * Q + q];",
+            "      const T kq = T(1) + wts[q], dkq = T(0.5) * wts[q], "
+            "dsq = wts[q];")],
+        # set_node_full: no Jacobian blocks launched
+        "set_residual_blocks": [(
+            SET_NODE, "    jac_blocks = (E + elems - 1) / elems;",
+            "    jac_blocks = 0;")],
+        # the residual blocks return at once
+        "set_jacobian_blocks": [(
+            SET_NODE, "  if (blockIdx.x < res_blocks) {\n",
+            "  if (blockIdx.x < res_blocks) {\n    if (a.Q > 0) return;\n")],
+    },
+}
+THERMAL_CASES = (("hex", 0), ("p2", 2))  # chip_smoke.ELEM_SHAPES index
+SET_CASES = tuple(cs.SET_KERNEL_CASES)
+
+
+def _runs(variant, key):
+    """Whether a variant runs on a case of this kind ('thermal' or a
+    generated source): `base` on all, the others on their kernel's."""
+    return variant == "base" or variant.startswith(
+        "thermal_" if key == "thermal" else "set_")
+
+
+def patched(csrc, out, name, patches):
+    """A copy of csrc with the variant's patches, in out/name."""
+    d = os.path.join(out, name)
+    shutil.rmtree(d, ignore_errors=True)
+    shutil.copytree(csrc, d)
+    for fname, old, new in patches:
+        path = os.path.join(d, fname)
+        text = open(path).read()
+        if old not in text:
+            raise SystemExit(f"{name}: {fname} no longer holds {old!r}")
+        open(path, "w").write(text.replace(old, new))
+    return d
+
+
+def _captured(call):
+    """The C arguments of one thermal_elem_full wrapper call, and the
+    outputs they point to: the wrapper's entry point replaced by a
+    recorder."""
+    got = {}
+    entry = fe._entry
+
+    def record(name, dtype):
+        def fn(*args):
+            got["args"] = args
+            return 0
+        return fn
+    fe._entry = record
+    try:
+        outs = call()
+    finally:
+        fe._entry = entry
+    return got["args"], outs
+
+
+def thermal_cases(dev):
+    """[(label, 'thermal', C arguments, outputs)]: thermal_elem_full at
+    phase 3c's and 3d's divisible shapes, f64: steady and DIRK-2,2 stage 1
+    on the kappa = 1 + e*e inputs, and with the velocity (2, 1[, 0.5])
+    steady and the rotating one at the stage (m = 1)."""
+    f64 = torch.float64
+    out = []
+    for mesh, i in THERMAL_CASES:
+        dims = cs.ELEM_SHAPES[i][1]
+        gen = torch.Generator(device=dev).manual_seed(2468)
+        tab, lat, q_off = cs.elem_tables(mesh, dims, dev, f64)
+        u, _kxy, mx, full, (ue, tr) = cs.elem_inputs(dims, tab, lat, q_off,
+                                                     dev, f64, gen)
+        xs = cs.qp_xyz(dims, q_off, tab.Q, dev, f64)
+        rot = [(-4.0 * (xs[1] - 0.5)).contiguous(),
+               (4.0 * (xs[0] - 0.5)).contiguous(),
+               (0.5 + 0.25 * xs[-1]).contiguous()][:tab.dim]
+        const = [2.0, 1.0, 0.5][:tab.dim]
+        todo = (("steady", (u, *full), None, None),
+                ("stage", (ue, *tr), Stage(*cs.DIRK22_STAGE1, mx), None),
+                ("advect b scalar", (u, *full), None, const),
+                ("advect b rotating stage", (ue, *tr),
+                 Stage(*cs.DIRK22_STAGE1, 1.0), rot))
+        for label, head, stage, vel in todo:
+            args, outs = _captured(lambda: fe.thermal_elem_full(
+                *head, tab, lat, stage, vel))
+            # the arguments point into these tensors: keep them alive
+            out.append((f"thermal_elem_full {mesh} {label}", "thermal",
+                        args + ((head, tab, stage, vel),), outs))
+    return out
+
+
+def set_cases(dev):
+    """[(label, generated source, C arguments, outputs)]: set_node_full on
+    phase 3f's five cases at 1024x256 and phase 3i's Q = 25 case, f64."""
+    f64 = torch.float64
+    out = []
+    N0, N1 = cs.SET_SHAPES[0]
+    for name in SET_CASES:
+        _b, box, _al, _dt = cs.SET_KERNEL_CASES[name]
+        gen = torch.Generator(device=dev).manual_seed(4321)
+        tab, ip0 = cs.quad_tables(N0, N1, dev, f64, *box)
+        form, sc, jac_idx, stage = cs.set_case(name, math.sqrt(sum(tab.wts)))
+        geo = ((0.0, 0.0), (box[0] / N0, box[1] / N1), ip0)
+        ue, ud = cs.set_inputs(len(form.variables), (N0, N1), QUAD_P1, dev,
+                               f64, gen, stage)
+        a, res, jac, keep = fs._node_args(form, ue, ud, sc, tab, geo,
+                                          jac_idx, stage, False)
+        out.append((f"set_node_full {name}", form.source,
+                    (a, keep, ue, ud, tab), (res, jac)))
+    _b, _mesh, quad, box, dims = cs.QUADRATURE_CASES["set_node_full"]
+    gen = torch.Generator(device=dev).manual_seed(9753)
+    tab, q_off = cs.quad_tables(*dims, dev, f64, *box, quadrature=quad)
+    h = math.fsum(tab.wts) ** 0.5
+    form, jac_idx = cs.quadrature_case("set_node_full", h)
+    geo = ((0.0, 0.0), tuple(b / n for b, n in zip(box, dims)), q_off)
+    ue = cs.set_inputs(len(form.variables), dims, QUAD_P1, dev, f64, gen,
+                       None)[0]
+    a, res, jac, keep = fs._node_args(form, ue, None, fs.SetScalars(
+        0.0, 1.0, ()), tab, geo, jac_idx, None, False)
+    out.append((f"set_node_full Q = {tab.Q}", form.source,
+                (a, keep, ue, tab), (res, jac)))
+    return out
+
+
+def matmul_yardstick(dev):
+    """The cuBLAS time (torch.matmul, f64, CUDA events, median of 3
+    batches of 10) of the contraction alone at phase 3c's and 3d's
+    divisible shapes: (E x Q kinds) @ (Q kinds x nc^2), the GEMM of
+    thermal_elem_full's Jacobian rows without their linearization. A
+    yardstick only: no path of the port calls it."""
+    out = []
+    for mesh, i in THERMAL_CASES:
+        dims = cs.ELEM_SHAPES[i][1]
+        E = math.prod(dims)
+        dim, nc, Q = (3, 8, 8) if mesh == "hex" else (2, 9, 9)
+        for label, kinds in (("steady", 2 + dim), ("advect", 2 + 2 * dim)):
+            a = torch.rand(E, Q * kinds, device=dev, dtype=torch.float64)
+            b = torch.rand(Q * kinds, nc * nc, device=dev,
+                           dtype=torch.float64)
+            c = torch.empty(E, nc * nc, device=dev, dtype=torch.float64)
+            torch.matmul(a, b, out=c)
+            torch.cuda.synchronize()
+            times = []
+            for _ in range(3):
+                t0 = torch.cuda.Event(enable_timing=True)
+                t1 = torch.cuda.Event(enable_timing=True)
+                t0.record()
+                for _ in range(10):
+                    torch.matmul(a, b, out=c)
+                t1.record()
+                t1.synchronize()
+                times.append(t0.elapsed_time(t1) / 10)
+            out.append({"yardstick": "torch.matmul", "mesh": mesh,
+                        "shape": list(dims), "case": label,
+                        "gemm": [E, Q * kinds, nc * nc],
+                        "ms": sorted(times)[1]})
+            del a, b, c
+    return out
+
+
+def main():
+    p = argparse.ArgumentParser(description=__doc__.splitlines()[0])
+    p.add_argument("--csrc", default=os.path.join(
+        REPO, "mrhyde_tpu_torch", "ops", "csrc"))
+    p.add_argument("--design", default="current", choices=list(VARIANTS))
+    p.add_argument("--out", default=os.path.join(REPO, "tree_copies",
+                                                 "ablate"))
+    p.add_argument("variants", nargs="*")
+    opts = p.parse_args()
+    table = VARIANTS[opts.design]
+    names = ["base"] + [v for v in (opts.variants or table) if v != "base"]
+    out_dir = os.path.join(opts.out, opts.design)
+    os.makedirs(out_dir, exist_ok=True)
+    print(cs.nvidia_smi(), flush=True)
+    dev = torch.device("cuda", 0)
+    for rec in matmul_yardstick(dev):
+        print(json.dumps(rec), flush=True)
+    todo = thermal_cases(dev) + set_cases(dev)
+    nvcc = _build._nvcc()
+    texts = sorted({key for _l, key, _a, _o in todo if key != "thermal"})
+    jobs = {}
+    for name in names:
+        d = patched(opts.csrc, out_dir, name, table[name])
+        srcs = {"thermal": os.path.join(d, THERMAL)}
+        for i, text in enumerate(texts):
+            srcs[text] = os.path.join(d, f"gen{i}.cu")
+            open(srcs[text], "w").write(text)
+        for key, src in srcs.items():
+            if not _runs(name, key):
+                continue
+            lib = src[:-3] + ".so"
+            cmd = [nvcc, *_build.NVCC_FLAGS, "-I", d, "-o", lib, src]
+            jobs[name, key] = (lib, subprocess.Popen(
+                cmd, stdout=subprocess.PIPE, stderr=subprocess.STDOUT,
+                text=True))
+    libs = {}
+    with open(os.path.join(out_dir, "ptxas.txt"), "w") as log:
+        for (name, key), (lib, proc) in jobs.items():
+            text, _ = proc.communicate()
+            if proc.returncode:
+                raise SystemExit(f"nvcc failed on {name}:\n{text[-3000:]}")
+            log.write(f"==== {name} {key if key == 'thermal' else key[:60]}"
+                      f"\n{text}\n")
+            libs[name, key] = ctypes.CDLL(lib)
+    stream = ctypes.c_void_p(torch.cuda.current_stream(dev).cuda_stream)
+    for label, key, args, outs in todo:
+        base = None
+        for name in names:
+            if not _runs(name, key):
+                continue
+            if key == "thermal":
+                fnc = libs[name, key].thermal_elem_full_f64
+                fnc.argtypes = _build._SIGNATURES["thermal_elem_full_f64"]
+                cargs = args[:-2] + (stream,)
+            else:
+                fnc = libs[name, key].set_node_full_f64
+                fnc.argtypes = [ctypes.c_void_p, ctypes.c_void_p]
+                cargs = (ctypes.addressof(args[0]), stream)
+            fnc.restype = ctypes.c_int
+
+            def call():
+                err = fnc(*cargs)
+                if err:
+                    raise SystemExit(f"{name} {label}: launch error {err}")
+            for o in outs:
+                o.zero_()
+            call()
+            torch.cuda.synchronize()
+            got = tuple(o.clone() for o in outs)
+            base = base or got
+            diff = max(float((o - b).abs().max()) /
+                       max(float(b.abs().max()), 1e-300)
+                       for o, b in zip(got, base))
+            times = []
+            for _ in range(3):
+                t0 = torch.cuda.Event(enable_timing=True)
+                t1 = torch.cuda.Event(enable_timing=True)
+                t0.record()
+                for _ in range(10):
+                    call()
+                t1.record()
+                t1.synchronize()
+                times.append(t0.elapsed_time(t1) / 10)
+            print(json.dumps({"case": label, "variant": name,
+                              "ms": sorted(times)[1],
+                              "rel_diff_from_base": diff}), flush=True)
+
+
+if __name__ == "__main__":
+    main()
