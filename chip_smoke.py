@@ -169,9 +169,11 @@ each):
              bounds); CUDA-event medians of 20 (plain: its one check call)
  3i kernels_quadrature   ns_elem_full and set_elem_full (NS + thermal) on
              hex 31x23x15 at quadrature 6 (Q = 64; 8 elements per block
-             in f64) and set_node_full (viscosity 1 + 0.1 ux^2) on 2D p1
-             1000x243 at quadrature 8 (Q = 25), steady, f64 and f32,
-             against their plain versions (the same bounds)
+             in f64), set_node_full (viscosity 1 + 0.1 ux^2) and
+             ns_node_full (PSPG) on 2D p1 1000x243 at quadrature 8 (Q =
+             25), and thermal_node_state (kappa = 1 + 0.5 x y) on 1000x777
+             at quadrature 4 (Q = 9, its runtime-Q instance), steady, f64
+             and f32, against their plain versions (the same bounds)
  44 thermal_mixed_neumann_gold_nx40   the JAX package's
              test_mixed_dirichlet_neumann deck (e = 0 left and right, the
              Neumann flux of the true solution top and bottom), direct:
@@ -219,7 +221,8 @@ case, for the four thermal kernels the same of their advection case
 with the launches of decks 21-29 ("advect"), for set_elem_full each
 phase 3g case ("cases", f64 at the divisible shape), for the two state
 kernels each of their phase 3h cases ("cases"), and for ns_elem_full,
-set_elem_full and set_node_full their phase 3i case ("quadrature").
+set_elem_full, set_node_full, ns_node_full and thermal_node_state their
+phase 3i case ("quadrature").
 Any failure raises; the last line of a passing run is {"ok": true,
 "device": {...}}.
 """
@@ -1936,20 +1939,28 @@ QUADRATURE_CASES = {
                       CHANNEL, (31, 23, 15)),
     "set_node_full": (lambda: ns_visc_deck(8), "p1", 8, CHANNEL[:2],
                       (1000, 243)),
+    "ns_node_full": (lambda: ns_deck(4, 1, NS_DIRECT), "p1", 8, CHANNEL[:2],
+                     (1000, 243)),
+    # quadrature 4 (Q = 9): thermal_node_state's runtime-Q instance
+    "thermal_node_state": (lambda: deck(4), "p1", 4, (1.0, 1.0),
+                           (1000, 777)),
 }
 
 
 def quadrature_case(kernel, h):
-    """(SetForm at element size h, or None for ns_elem_full; jac_idx) of
-    a phase 3i case, from its deck at small size on the CPU. The row
-    classes come from the deck at its own quadrature (which classes vary
-    does not depend on the qps; each plain version checks it), the
-    costlier probe at Q = 64 left out."""
+    """(SetForm at element size h, or None for the kernels of one module;
+    jac_idx, None for thermal_node_state) of a phase 3i case, from its
+    deck at small size on the CPU. The row classes come from the deck at
+    its own quadrature (which classes vary does not depend on the qps;
+    each plain version checks it), the costlier probe at Q = 64 left
+    out."""
     from mrhyde_tpu_torch.ops.fused_set import SetForm, SetScalars
     from mrhyde_tpu_torch.problem import Problem
     build, mesh, _quad, _box, _dims = QUADRATURE_CASES[kernel]
-    if kernel == "ns_elem_full":
+    if kernel in ("ns_elem_full", "ns_node_full"):
         return None, ns_rows(True, False, False, False, mesh)
+    if kernel == "thermal_node_state":
+        return None, None
     cfg = build()
     if mesh == "hex":
         cfg = _small(cfg, mesh)
@@ -1963,13 +1974,15 @@ def quadrature_case(kernel, h):
 
 
 def phase_quadrature_kernels(device):
-    """ns_elem_full and set_elem_full on hex at quadrature 6 (Q = 64) and
-    set_node_full on 2D p1 at quadrature 8 (Q = 25), steady, against
-    their plain versions (f64 1e-12, f32 1e-5 of max |plain|), with
-    CUDA-event medians of 20 and the bound. Returns {kernel: its f64
-    record}."""
+    """ns_elem_full and set_elem_full on hex at quadrature 6 (Q = 64),
+    set_node_full and ns_node_full (PSPG) on 2D p1 at quadrature 8 (Q =
+    25) and thermal_node_state (kappa = 1 + 0.5 x y) at quadrature 4 (Q =
+    9, its runtime-Q instance), steady, against their plain versions (f64
+    1e-12, f32 1e-5 of max |plain|), with CUDA-event medians of 20 and
+    the bound. Returns {kernel: its f64 record}."""
     import math
     from mrhyde_tpu_torch.ops import fused_ns as fn
+    from mrhyde_tpu_torch.ops import fused_p1 as fp
     from mrhyde_tpu_torch.ops import fused_set as fs
     from mrhyde_tpu_torch.ops.fused_p1 import QUAD_P1
     from mrhyde_tpu_torch.ops.fused_set import SetScalars
@@ -1991,7 +2004,20 @@ def phase_quadrature_kernels(device):
             geo = ((0.0,) * tab.dim, tuple(b / n for b, n in zip(box, dims)),
                    q_off)
             sc = SetScalars(0.0, 1.0, ())
-            if kernel == "ns_elem_full":
+            if kernel == "thermal_node_state":
+                u, kxy = qp_inputs(*dims, tab, q_off, device, dtype,
+                                   gen)[:2]
+                args = (u, kxy, tab)
+                plain, call = fp.thermal_node_state_plain, \
+                    fp.thermal_node_state
+                work = thermal_work("state", *dims, tab.Q, dtype, kxy, None)
+            elif kernel == "ns_node_full":
+                ue = ns_inputs(*dims, tab, q_off, device, dtype, gen)[0]
+                args = (ue, None, (1.0, 1.0, 1.0, 0.0), tab,
+                        fn.NSForm(True, False, h, 1.0, False), jac_idx)
+                plain, call = fn.ns_node_full_plain, fn.ns_node_full
+                work = ns_work(*dims, tab.Q, dtype, args)
+            elif kernel == "ns_elem_full":
                 ue = set_inputs(tab.dim + 1, dims, lat, device, dtype, gen,
                                 None)[0]
                 src = (1.0,) + (0.0,) * (tab.dim - 1)
@@ -2014,14 +2040,17 @@ def phase_quadrature_kernels(device):
             ref, plain_ms = timed(lambda: plain(*args))
             out = call(*args)
             torch.cuda.synchronize()
-            errs = [max_err(o, r) for o, r in zip(out, ref)]
+            # thermal_node_state: the node residual alone, no rows
+            errs = [max_err(out, ref), (0.0, 0.0)] if jac_idx is None \
+                else [max_err(o, r) for o, r in zip(out, ref)]
             del out, ref
             err = max(e for e, _ in errs)
             ok = all(e <= rtol * sc_ for e, sc_ in errs)
             rec = {"phase": "kernels_quadrature", "kernel": kernel,
                    "mesh": mesh, "quadrature": quad, "Q": tab.Q,
                    "dtype": str(dtype).replace("torch.", ""),
-                   "shape": list(dims), "jac_rows": len(jac_idx),
+                   "shape": list(dims),
+                   "jac_rows": len(jac_idx) if jac_idx else 0,
                    "max_abs_err": err, "max_abs_err_res": errs[0][0],
                    "max_abs_plain_res": errs[0][1],
                    "max_abs_err_jac": errs[1][0],
@@ -2808,8 +2837,9 @@ def main():
     # report their advection (ADVECT) case and its launches beside: the
     # cdr and thermal-advection decks' share of `launches`; set_elem_full
     # reports every phase 3g case (f64, the divisible shape) beside, the
-    # state kernels every phase 3h case, and ns_elem_full, set_elem_full
-    # and set_node_full their phase 3i case ("quadrature", f64).
+    # state kernels every phase 3h case, and ns_elem_full, set_elem_full,
+    # set_node_full, ns_node_full and thermal_node_state their phase 3i
+    # case ("quadrature", f64).
     for name, mode, src, line in (
             ("thermal_node_state", "state", "fused_p1_thermal.cu", 1350),
             ("thermal_node_full", "full", "fused_p1_thermal.cu", 1350),

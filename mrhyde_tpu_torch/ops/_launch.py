@@ -4,7 +4,8 @@ stream arguments, the scalar-or-(E, Q) coefficient, stage and
 velocity arguments of the C entry points (ops/_build.py), the argument
 struct and tile list of the element-tile engine (csrc/elem_engine.cuh:
 `ns_elem_full`, `set_elem_*`), and the shared-memory layouts of the
-element-tile kernels and of `set_node_full`'s Jacobian blocks."""
+element-tile kernels, of `set_node_full`'s Jacobian blocks and of the
+node kernels `thermal_node_state` and `ns_node_full`."""
 
 from __future__ import annotations
 
@@ -15,7 +16,8 @@ import torch
 
 __all__ = ["LAUNCHES", "ptr", "stream", "check_qp", "coeff_args",
            "stage_args", "velocity_args", "SMEM_OPTIN", "elem_smem_words",
-           "node_smem_words", "block_elems", "check_smem", "check_err",
+           "node_smem_words", "state_smem_words", "ns_node_smem_words",
+           "block_elems", "check_smem", "check_err",
            "ElemArgs", "ELEM_MAX_SCALARS", "elem_tiles"]
 
 # kernel launches per kernel: thermal "state" and "full" (B2,
@@ -76,6 +78,22 @@ def node_smem_words(nv, transient, Q, elems):
         + elems * Q * nq
 
 
+def state_smem_words(Q):
+    """Words of a thermal_node_state block's shared memory
+    (csrc/fused_p1_thermal.cu `state_smem_words`): the tables (13 Q), and
+    twice (a tile's and the next one's) the 17 x 33 node patch of a 16 x
+    32 element tile and the four corner rows of its elements."""
+    return 13 * Q + 2 * (17 * 33 + 4 * 512)
+
+
+def ns_node_smem_words(Q):
+    """Words of an ns_node_full block's shared memory
+    (csrc/fused_p1_ns.cu `ns_smem_words`): the 12 residual rows of the 8
+    x 16 elements its tile owns, and the primal densities (9 per qp) of
+    the 25 halo elements its nodes also touch."""
+    return 128 * 12 + 25 * Q * 9
+
+
 def block_elems(words, itemsize, limit=SMEM_OPTIN):
     """The elements per block the kernels take: the most of 16, 8, ...,
     1 whose layout (`words(elems)` words of `itemsize` bytes) fits
@@ -89,13 +107,14 @@ def block_elems(words, itemsize, limit=SMEM_OPTIN):
 
 
 def check_smem(name, words, itemsize, Q):
-    """Raises ValueError where one element's layout of quadrature Q
-    exceeds the H100's shared memory per block."""
+    """Raises ValueError where the smallest block's layout of quadrature
+    Q (one element's; `words(1)` words) exceeds the H100's shared memory
+    per block."""
     if block_elems(words, itemsize) == 0:
         raise ValueError(
             f"{name} at {Q} quadrature points needs "
-            f"{words(1) * itemsize} bytes of shared memory for one "
-            f"element, above the card's {SMEM_OPTIN} bytes per block: "
+            f"{words(1) * itemsize} bytes of shared memory for its smallest "
+            f"block, above the card's {SMEM_OPTIN} bytes per block: "
             "lower the deck's quadrature")
 
 
@@ -104,8 +123,8 @@ def check_err(name, err, Q=None):
     or a CUDA error."""
     if err == _ERR_SMEM:
         raise RuntimeError(
-            f"{name}: one element's qp state at {Q} quadrature points does "
-            "not fit the card's shared memory per block")
+            f"{name}: its block's layout at {Q} quadrature points does not "
+            "fit the card's shared memory per block")
     if err != 0:
         raise RuntimeError(f"{name} launch failed: CUDA error {err}")
 
@@ -115,7 +134,9 @@ def ptr(t):
 
 
 def stream(t):
-    return ctypes.c_void_p(torch.cuda.current_stream(t.device).cuda_stream)
+    """The current CUDA stream of t's device, as the address the C entry
+    points take."""
+    return torch._C._cuda_getCurrentRawStream(t.device.index)
 
 
 def check_qp(t, E, grid, tab, name):
@@ -134,7 +155,7 @@ def coeff_args(v, E, grid, tab, name):
     if not isinstance(v, torch.Tensor):
         return None, float(v), 1
     check_qp(v, E, grid, tab, name)
-    return ptr(v), 0.0, 0
+    return v.data_ptr(), 0.0, 0
 
 
 def stage_args(stage, E, grid, tab):

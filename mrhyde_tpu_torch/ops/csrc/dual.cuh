@@ -4,8 +4,9 @@
 // operation, so a weak form written once over its scalar type gives on T
 // the residual's densities and on Dual<T, N> their directional
 // derivatives (the Sacado SFad analog the reference MrHyDE uses).
-// Passive<S>::type is the plain type under S; value() and dsqrt() take
-// either, and lift<S>() makes a plain value an S (no tangent).
+// Passive<S>::type is the plain type under S; value(), dsqrt() and
+// drsqrt() take either, and lift<S>() makes a plain value an S (no
+// tangent).
 //
 // The ad_* functions are the function DSL's (mrhyde_tpu_torch/functions/
 // parser.py) on T and on duals, for the coefficient expressions that
@@ -61,6 +62,16 @@ __device__ __forceinline__ Dual<T, N> dsqrt(const Dual<T, N>& a) {
 #pragma unroll
   for (int i = 0; i < N; ++i) r.d[i] = c * a.d[i];
   return r;
+}
+
+// 1 / sqrt(x): a square root and one division, where 1 / dsqrt(x) takes a
+// square root and three divisions on a dual (the dual form is below,
+// after tan_mul). Its derivative -r^3 / 2 is infinite at 0; as in the JAX
+// package's sparse forward AD it reaches only the tangents that move x (a
+// zero tangent stays 0).
+template <typename T>
+__device__ __forceinline__ T drsqrt(T x) {
+  return T(1) / sqrt(x);
 }
 
 #define SCAL(T, N) typename Dual<T, N>::scalar
@@ -209,6 +220,17 @@ __device__ __forceinline__ S lift(const X& x) {
 template <typename T>
 __device__ __forceinline__ T tan_mul(T c, T t) {
   return t == T(0) ? T(0) : c * t;
+}
+
+// drsqrt on a dual
+template <typename T, int N>
+__device__ __forceinline__ Dual<T, N> drsqrt(const Dual<T, N>& a) {
+  Dual<T, N> r;
+  r.v = T(1) / sqrt(a.v);
+  const T c = T(-0.5) * (r.v * r.v) * r.v;
+#pragma unroll
+  for (int i = 0; i < N; ++i) r.d[i] = tan_mul(c, a.d[i]);
+  return r;
 }
 
 template <typename T>

@@ -247,13 +247,9 @@ __global__ void __launch_bounds__(kThreads)
 
 // f64 contracts on the tensor cores (DMMA, mma.sync m8n8k4); f32, and the
 // host build of the tests, on FMA through the same fragments
-#ifndef THERMAL_FULL_DMMA
-#define THERMAL_FULL_DMMA 1
-#endif
-
 template <typename T>
 struct UseDmma {
-#if defined(__CUDA_ARCH__) && THERMAL_FULL_DMMA
+#if defined(__CUDA_ARCH__)
   static constexpr bool value = std::is_same<T, double>::value;
 #else
   static constexpr bool value = false;

@@ -43,33 +43,58 @@
 //
 // Design. The TPU kernel walks element tiles on a grid that runs in
 // order and carries each tile's spills (right, bottom, corner) to the
-// next step in VMEM. CUDA blocks run in no order, so nothing is carried:
-// one thread owns one node, gathers the 3x3 node patch around it, and
-// sums the contributions of its (up to) four adjacent elements to
-// itself. Each element's quadrature is recomputed by the four threads
-// of its corners — a little arithmetic for no atomics and a sum in a
-// fixed order (corner 0..3, then q = 0..Q-1, as the plain pad+sum
-// version sums), so results are deterministic. Mesh edges are masked by
-// index; any N0, N1 works (no tiles, no padding). In "full" the thread
-// of node (i, j) with i < N0, j < N1 also writes element (i, j)'s 16
-// Jacobian rows; consecutive threads write consecutive elements.
+// next step in VMEM. CUDA blocks run in no order, so nothing is carried
+// and there are no atomics; every sum runs in a fixed order (corner 0..3,
+// then q = 0..Q-1, as the plain pad+sum version sums), so results are
+// deterministic. Mesh edges are masked by index; any N0, N1 works.
+//   "state": a persistent grid (as many blocks as the card holds at once,
+//     block b walking tiles b, b + gridDim.x, ...: a 1D index, 32-bit tile
+//     math) whose blocks read the basis tables into shared memory once. A
+//     tile is 16 x 32 elements, two per thread, and the 15 x 31 nodes
+//     whose four elements it holds. The tile's 17 x 33 node patch (its
+//     nodes and a halo) is staged in shared memory; each thread computes
+//     its elements' qp terms and four corner rows once, into shared
+//     memory, while the next tile's patch is in flight into registers
+//     (then into the other buffer: patches and rows are double-buffered,
+//     so a tile takes one barrier); then each node thread sums its (up
+//     to) four rows, corner 0..3 in order. An element on a tile's border
+//     is computed by both tiles that touch it (10% more elements than
+//     the mesh holds).
+//     One design for every case: kappa, m and each velocity component a
+//     scalar (a kernel parameter) or one value per (element, qp), read in
+//     the qp loop; steady, a stage (TRANSIENT) and advection (ADVECT).
+//     Q = 4 (the decks' quadrature 2) has an instance of its own, its qp
+//     loop unrolled and an element's (E, Q) values read in 16-byte loads;
+//     any other Q takes the runtime-Q instance, as long as the tables fit
+//     the card's shared memory per block (the provider refuses a larger
+//     Q, ops/_launch.py state_smem_words). The advection instances take
+//     2 blocks per SM, the others 4 (64 registers).
+//   "full": one thread owns one node, gathers the 3x3 node patch around
+//     it and sums the contributions of its (up to) four adjacent
+//     elements, each element's quadrature recomputed by the four threads
+//     of its corners; the thread of node (i, j) with i < N0, j < N1 also
+//     writes element (i, j)'s 16 Jacobian rows; consecutive threads write
+//     consecutive elements.
 //
-// What bounds it on the H100: bytes, not flops. "state" reads about one
-// value per node (the 3x3 patch is shared through L1/L2 by neighbouring
-// threads) and writes one, plus Q values per element for each of kappa
-// and m that varies. "full" reads the u_eval grid and the per-qp tensors
-// S, dS/de, kappa, dkappa/de (4*Q values per element; Q more when m
-// varies) and writes 16 rows per element. The transient "full" reads the
-// u_eval grid the caller forms (alpha_u u + beta_u, which the torch
-// coefficient pre-pass needs anyway) rather than u and beta_u: one grid
-// instead of two. A velocity component adds Q values per element where it
-// varies (the rotating field: 2*Q) and nothing where it is a scalar.
-// The TPU kernel traced the coefficient expressions into its body; here
-// a torch pre-pass evaluates them, which costs those ~4*Q extra values
-// per element of traffic in "full". Generating the DSL expression into
-// the kernel over a dual-number type is a ROADMAP item. No shared
-// memory, tiling, TMA or wgmma yet: this version is the simple, right
-// one; making it fast is later work.
+// What bounds it on the H100: bytes, not flops. "state" reads the node
+// grid and writes one value per node (16.8 MB at 1024^2 f64, 5 us at
+// 3.35 TB/s), plus Q values per element for each of kappa, m and a
+// velocity component that varies. It reaches 60-66% of that bound where
+// a coefficient varies; with scalars its tile walk (a DRAM latency per
+// tile, ~5 tiles per block at 1024^2) and its launch take about as long
+// as its bytes; at the decks' sizes a call is mostly its launch and the
+// wrapper's host time (PERF.md). "full" reads the
+// u_eval grid and the per-qp tensors S, dS/de, kappa, dkappa/de (4*Q
+// values per element; Q more when m varies) and writes 16 rows per
+// element. The transient "full" reads the u_eval grid the caller forms
+// (alpha_u u + beta_u, which the torch coefficient pre-pass needs anyway)
+// rather than u and beta_u: one grid instead of two. A velocity component
+// adds Q values per element where it varies (the rotating field: 2*Q)
+// and nothing where it is a scalar. The TPU kernel traced the coefficient
+// expressions into its body; here a torch pre-pass evaluates them, which
+// costs those ~4*Q extra values per element of traffic in "full".
+// Generating the DSL expression into the kernel over a dual-number type
+// is a ROADMAP item.
 
 #include <cuda_runtime.h>
 
@@ -141,64 +166,199 @@ __device__ __forceinline__ void qp_grad(const T* __restrict__ grad, int Q,
   }
 }
 
-template <typename T, bool TRANSIENT, bool ADVECT>
-__global__ void __launch_bounds__(kThreads)
-    node_state_kernel(const T* __restrict__ u, const T* __restrict__ kappa,
-                      T kappa0, int kappa_is_scalar,
-                      const T* __restrict__ mass, T mass0,
-                      int mass_is_scalar, T alpha_u, T alpha_t,
-                      Velocity<T> vel, const T* __restrict__ phi,
-                      const T* __restrict__ grad,
-                      const T* __restrict__ wts, int Q, int N0, int N1,
-                      T* __restrict__ out) {
-  const long long n = (long long)blockIdx.x * blockDim.x + threadIdx.x;
-  if (n >= (long long)(N0 + 1) * (N1 + 1)) return;
-  const int i = (int)(n / (N1 + 1)), j = (int)(n % (N1 + 1));
-  T P[3][3];
-  load_patch(u, i, j, N0, N1, P);
-  T acc = T(0);
+// The state kernel's tile: kEi x kEj = 16 x 32 elements (axis 0 x axis
+// 1, axis 1 contiguous), kElemsPerThread per thread (rows la and la +
+// kEi / 2), the kTi x kTj = 15 x 31 nodes whose four elements they hold,
+// and the kPi x kPj node patch those elements read: the tile's nodes and
+// a halo of one node on each side
+constexpr int kEi = 16, kEj = 32;
+constexpr int kTileElems = kEi * kEj;
+constexpr int kElemsPerThread = kTileElems / kThreads;
+constexpr int kTi = kEi - 1, kTj = kEj - 1;
+constexpr int kPi = kEi + 1, kPj = kEj + 1;
+constexpr int kPatch = kPi * kPj;
+constexpr int kPre = (kPatch + kThreads - 1) / kThreads;
+static_assert(kElemsPerThread * kThreads == kTileElems, "whole rows");
+// state blocks per SM the registers must allow (__launch_bounds__): 4 (64
+// registers), but 2 with the velocity lane, whose Q = 4 instance holds
+// the element's velocity values and is faster with up to 128 (PERF.md)
+template <bool ADVECT>
+constexpr int state_min_blocks() {
+  return ADVECT ? 2 : 4;
+}
+
+// shared memory of a state block, in T: the tables phi (4Q), grad (8Q),
+// wts (Q); two node patches and two sets of the tile's elements' four
+// corner rows (a tile's and the next one's)
+__host__ __device__ inline long long state_smem_words(int Q) {
+  return 13LL * Q + 2 * (kPatch + 4 * kTileElems);
+}
+
+// an element's Q = 4 values of an (E, 4) coefficient at p + eq (16-byte
+// aligned: the launch checks) in 16-byte loads, or the scalar s where p is
+// null
+template <typename T>
+struct alignas(16) Pack16 {
+  T v[16 / sizeof(T)];
+};
+template <typename T>
+__device__ __forceinline__ void load_q4(const T* p, long long eq, T s,
+                                        T dst[4]) {
+  constexpr int kPer = 16 / sizeof(T);
+  if (p) {
+    const Pack16<T>* pp = reinterpret_cast<const Pack16<T>*>(p + eq);
 #pragma unroll
-  for (int c = 0; c < 4; ++c) {
-    // node (i, j) is corner c of element (a, b)
-    const int a = i - corner_i(c), b = j - corner_j(c);
-    if (a < 0 || a >= N0 || b < 0 || b >= N1) continue;
-    T uc[4];
-    element_corners(P, 1 - corner_i(c), 1 - corner_j(c), uc);
-    const long long e = (long long)a * N1 + b;
-    T r = T(0);
-    for (int q = 0; q < Q; ++q) {
-      T g0, g1;
-      qp_grad(grad, Q, q, uc, g0, g1);
-      const T k = kappa_is_scalar ? kappa0 : kappa[e * Q + q];
-      if constexpr (ADVECT) {
-        // the source lane: m alpha_t u_h in a stage, plus b . grad(alpha_u
-        // u_h)
-        if constexpr (TRANSIENT) {
-          g0 = alpha_u * g0;
-          g1 = alpha_u * g1;
-        }
-        T sl = vel.at(0, e * Q + q) * g0 + vel.at(1, e * Q + q) * g1;
-        if constexpr (TRANSIENT) {
-          const T m = mass_is_scalar ? mass0 : mass[e * Q + q];
-          sl = m * (alpha_t * qp_val(phi, Q, q, uc)) + sl;
-        }
-        r += wts[q] * (phi[c * Q + q] * sl +
-                       grad[(c * Q + q) * 2 + 0] * (k * g0) +
-                       grad[(c * Q + q) * 2 + 1] * (k * g1));
-      } else if constexpr (TRANSIENT) {
-        const T m = mass_is_scalar ? mass0 : mass[e * Q + q];
-        const T uh = qp_val(phi, Q, q, uc);
-        r += wts[q] * (phi[c * Q + q] * (m * (alpha_t * uh)) +
-                       grad[(c * Q + q) * 2 + 0] * (k * (alpha_u * g0)) +
-                       grad[(c * Q + q) * 2 + 1] * (k * (alpha_u * g1)));
-      } else {
-        r += wts[q] * (grad[(c * Q + q) * 2 + 0] * (k * g0) +
-                       grad[(c * Q + q) * 2 + 1] * (k * g1));
-      }
+    for (int h = 0; h < 4 / kPer; ++h) {
+      const Pack16<T> x = pp[h];
+#pragma unroll
+      for (int k = 0; k < kPer; ++k) dst[h * kPer + k] = x.v[k];
     }
-    acc += r;
+  } else {
+#pragma unroll
+    for (int q = 0; q < 4; ++q) dst[q] = s;
   }
-  out[n] = acc;
+}
+
+// patch entry k of the tile whose node (0, 0) is (i0, j0): node (i0 - 1 +
+// k / kPj, j0 - 1 + k % kPj), 0 outside the grid
+template <typename T>
+__device__ __forceinline__ T patch_node(const T* __restrict__ u, int i0,
+                                        int j0, int N0, int N1, int k) {
+  const int pi = k / kPj, pj = k - pi * kPj;
+  const int i = i0 - 1 + pi, j = j0 - 1 + pj;
+  return (i >= 0 && i <= N0 && j >= 0 && j <= N1)
+             ? __ldg(u + (long long)i * (N1 + 1) + j)
+             : T(0);
+}
+
+// Mode "state". Block b walks tiles b, b + gridDim.x, ... of the node
+// grid, tiles_j per tile row. Per tile: the next tile's patch is loaded
+// into registers; each thread computes its elements' four corner rows
+// from the staged patch; the next patch goes to the other buffer; one
+// barrier; each node thread sums its elements' rows. kappa, mass and each
+// velocity component: an (E, Q) array, or the scalar where the pointer is
+// null. QF > 0: Q = QF at compile time.
+template <typename T, bool TRANSIENT, bool ADVECT, int QF>
+__global__ void __launch_bounds__(kThreads, state_min_blocks<ADVECT>())
+    node_state_kernel(const T* __restrict__ u, const T* __restrict__ kappa,
+                      T kappa0, const T* __restrict__ mass, T mass0,
+                      T alpha_u, T alpha_t, Velocity<T> vel,
+                      const T* __restrict__ phi_g,
+                      const T* __restrict__ grad_g,
+                      const T* __restrict__ wts_g, const int Q_, const int N0,
+                      const int N1, const int tiles_j, const int tiles,
+                      T* __restrict__ out) {
+  extern __shared__ __align__(16) unsigned char smem_raw[];
+  const int Q = QF > 0 ? QF : Q_;
+  T* phi = reinterpret_cast<T*>(smem_raw);
+  T* grad = phi + 4 * Q;
+  T* wts = grad + 8 * Q;
+  T* patches = wts + Q;                 // 2 x kPatch
+  T* rows = patches + 2 * kPatch;       // 2 x 4 kTileElems
+  const int tid = threadIdx.x, G1 = N1 + 1;
+  for (int k = tid; k < 13 * Q; k += kThreads)
+    phi[k] = k < 4 * Q ? phi_g[k]
+                       : (k < 12 * Q ? grad_g[k - 4 * Q] : wts_g[k - 12 * Q]);
+  // this thread's elements (i0 - 1 + la, j0 - 1 + lb), la = la0 + r kEi /
+  // kElemsPerThread
+  const int la0 = tid / kEj, lb = tid - la0 * kEj;
+  int t = blockIdx.x, ti = t / tiles_j;
+  int i0 = ti * kTi, j0 = (t - ti * tiles_j) * kTj;
+  for (int k = tid; k < kPatch; k += kThreads)
+    patches[k] = patch_node(u, i0, j0, N0, N1, k);
+  __syncthreads();
+  for (int cur = 0; t < tiles; cur ^= 1) {
+    // the next tile's patch, in flight while this tile's elements compute
+    const int tn = t + gridDim.x, tin = tn / tiles_j;
+    const int i0n = tin * kTi, j0n = (tn - tin * tiles_j) * kTj;
+    T pre[kPre];
+    if (tn < tiles)
+#pragma unroll
+      for (int p = 0; p < kPre; ++p)
+        if (tid + p * kThreads < kPatch)
+          pre[p] = patch_node(u, i0n, j0n, N0, N1, tid + p * kThreads);
+    const T* patch = patches + cur * kPatch;
+    T* rw = rows + cur * 4 * kTileElems;
+#pragma unroll
+    for (int rr = 0; rr < kElemsPerThread; ++rr) {
+      const int la = la0 + rr * (kEi / kElemsPerThread);
+      const int a = i0 - 1 + la, b = j0 - 1 + lb;
+      T r[4] = {T(0), T(0), T(0), T(0)};
+      if (a >= 0 && a < N0 && b >= 0 && b < N1) {
+        const T* pe = patch + la * kPj + lb;
+        const T uc[4] = {pe[0], pe[kPj], pe[kPj + 1], pe[1]};
+        const long long eq = ((long long)a * N1 + b) * Q;
+        // Q = 4: the element's coefficients up front, in 16-byte loads
+        [[maybe_unused]] T k4[4], m4[4], b4[2][4];
+        if constexpr (QF == 4) {
+          load_q4(kappa, eq, kappa0, k4);
+          if constexpr (TRANSIENT) load_q4(mass, eq, mass0, m4);
+          if constexpr (ADVECT) {
+            load_q4(vel.p[0], eq, vel.s[0], b4[0]);
+            load_q4(vel.p[1], eq, vel.s[1], b4[1]);
+          }
+        }
+#pragma unroll(QF > 0 ? QF : 1)
+        for (int q = 0; q < Q; ++q) {
+          T g0, g1;
+          qp_grad(grad, Q, q, uc, g0, g1);
+          const T k =
+              QF == 4 ? k4[q] : (kappa ? __ldg(kappa + eq + q) : kappa0);
+          // the source lane: m alpha_t u_h in a stage, plus b .
+          // grad(alpha_u u_h) with advection
+          [[maybe_unused]] T sl = T(0);
+          if constexpr (TRANSIENT) {
+            g0 = alpha_u * g0;
+            g1 = alpha_u * g1;
+            const T m =
+                QF == 4 ? m4[q] : (mass ? __ldg(mass + eq + q) : mass0);
+            sl = m * (alpha_t * qp_val(phi, Q, q, uc));
+          }
+          if constexpr (ADVECT) {
+            if constexpr (QF == 4)
+              sl += b4[0][q] * g0 + b4[1][q] * g1;
+            else
+              sl += vel.at(0, eq + q) * g0 + vel.at(1, eq + q) * g1;
+          }
+          const T f0 = k * g0, f1 = k * g1;
+#pragma unroll
+          for (int c = 0; c < 4; ++c) {
+            T v = grad[(c * Q + q) * 2 + 0] * f0 +
+                  grad[(c * Q + q) * 2 + 1] * f1;
+            if constexpr (TRANSIENT || ADVECT) v += phi[c * Q + q] * sl;
+            r[c] += wts[q] * v;
+          }
+        }
+      }
+      // an element outside the mesh adds zeros
+#pragma unroll
+      for (int c = 0; c < 4; ++c)
+        rw[c * kTileElems + la * kEj + lb] = r[c];
+    }
+    // the other buffer's patch was last read before the last barrier
+    if (tn < tiles)
+#pragma unroll
+      for (int p = 0; p < kPre; ++p)
+        if (tid + p * kThreads < kPatch)
+          patches[(cur ^ 1) * kPatch + tid + p * kThreads] = pre[p];
+    __syncthreads();
+    // node (i, j) is corner c of element (i - ci, j - cj), local (li + 1 -
+    // ci, lj + 1 - cj): the sum corner 0..3, as the plain pad+sum sums
+    for (int k = tid; k < kTi * kTj; k += kThreads) {
+      const int li = k / kTj, lj = k - li * kTj;
+      const int i = i0 + li, j = j0 + lj;
+      if (i > N0 || j > N1) continue;
+      const T* pr = rw + (li + 1) * kEj + lj + 1;
+      T acc = pr[0];
+      acc += pr[kTileElems - kEj];
+      acc += pr[2 * kTileElems - kEj - 1];
+      acc += pr[3 * kTileElems - 1];
+      out[(long long)i * G1 + j] = acc;
+    }
+    t = tn;
+    i0 = i0n;
+    j0 = j0n;
+  }
 }
 
 template <typename T, bool TRANSIENT, bool ADVECT>
@@ -307,6 +467,61 @@ Velocity<T> make_velocity(const void* v0, double v0s, const void* v1,
   return b;
 }
 
+// what a launch returns where the tables of Q qps do not fit the card's
+// shared memory per block (the provider refuses such a Q first)
+constexpr int kErrSharedMemory = -1;
+
+template <typename T, bool TRANSIENT, bool ADVECT, int QF>
+int launch_state_case(const T* u, const T* kappa, T kappa0, const T* mass,
+                      T mass0, T alpha_u, T alpha_t, Velocity<T> vel,
+                      const T* phi, const T* grad, const T* wts, int Q,
+                      int N0, int N1, T* out, void* stream) {
+  auto kernel = node_state_kernel<T, TRANSIENT, ADVECT, QF>;
+  const size_t smem = sizeof(T) * state_smem_words(Q);
+  // the blocks of this instance the card holds at once at Q: queried once
+  // per (device, Q) and host thread
+  thread_local int last_dev = -1, last_q = 0, resident = 0;
+  int dev = 0;
+  cudaGetDevice(&dev);
+  if (dev != last_dev || Q != last_q) {
+    int optin = 0, sms = 0, per_sm = 0;
+    cudaDeviceGetAttribute(&optin, cudaDevAttrMaxSharedMemoryPerBlockOptin,
+                           dev);
+    if (smem > (size_t)optin) return kErrSharedMemory;
+    if (smem > 48 * 1024)
+      cudaFuncSetAttribute(kernel,
+                           cudaFuncAttributeMaxDynamicSharedMemorySize,
+                           (int)smem);
+    cudaDeviceGetAttribute(&sms, cudaDevAttrMultiProcessorCount, dev);
+    cudaOccupancyMaxActiveBlocksPerMultiprocessor(&per_sm, kernel, kThreads,
+                                                  smem);
+    const cudaError_t err = (cudaError_t)cudaGetLastError();
+    if (err != cudaSuccess) return (int)err;
+    resident = sms * (per_sm > 0 ? per_sm : 1);
+    last_dev = dev;
+    last_q = Q;
+  }
+  const int tiles_j = (N1 + kTj) / kTj;  // ceil((N1 + 1) / kTj)
+  const long long tiles = (long long)((N0 + kTi) / kTi) * tiles_j;
+  if (tiles >= (1LL << 31)) return (int)cudaErrorInvalidValue;
+  const int blocks = tiles < resident ? (int)tiles : resident;
+  kernel<<<blocks, kThreads, smem, (cudaStream_t)stream>>>(
+      u, kappa, kappa0, mass, mass0, alpha_u, alpha_t, vel, phi, grad, wts, Q,
+      N0, N1, tiles_j, (int)tiles, out);
+  return (int)cudaGetLastError();
+}
+
+template <typename T, bool TRANSIENT, bool ADVECT>
+int launch_state_q(const T* u, const T* kappa, T kappa0, const T* mass,
+                   T mass0, T alpha_u, T alpha_t, Velocity<T> vel,
+                   const T* phi, const T* grad, const T* wts, int Q, int N0,
+                   int N1, T* out, void* stream) {
+  auto launch = Q == 4 ? launch_state_case<T, TRANSIENT, ADVECT, 4>
+                       : launch_state_case<T, TRANSIENT, ADVECT, 0>;
+  return launch(u, kappa, kappa0, mass, mass0, alpha_u, alpha_t, vel, phi,
+                grad, wts, Q, N0, N1, out, stream);
+}
+
 template <typename T>
 int launch_state(const void* u, const void* kappa, double kappa0,
                  int kappa_is_scalar, const void* mass, double mass0,
@@ -315,16 +530,23 @@ int launch_state(const void* u, const void* kappa, double kappa0,
                  const void* v1, double v1s, const void* phi,
                  const void* grad, const void* wts, int Q, int N0, int N1,
                  void* out, void* stream) {
-  auto kernel = advect ? (transient ? node_state_kernel<T, true, true>
-                                    : node_state_kernel<T, false, true>)
-                       : (transient ? node_state_kernel<T, true, false>
-                                    : node_state_kernel<T, false, false>);
-  kernel<<<blocks_for(N0, N1), kThreads, 0, (cudaStream_t)stream>>>(
-      (const T*)u, (const T*)kappa, (T)kappa0, kappa_is_scalar,
-      (const T*)mass, (T)mass0, mass_is_scalar, (T)alpha_u, (T)alpha_t,
-      make_velocity<T>(v0, v0s, v1, v1s), (const T*)phi, (const T*)grad,
-      (const T*)wts, Q, N0, N1, (T*)out);
-  return (int)cudaGetLastError();
+  if (Q < 1 || N0 < 1 || N1 < 1) return (int)cudaErrorInvalidValue;
+  // Q = 4 reads an element's (E, Q) values in 16-byte loads
+  if (Q == 4)
+    for (const void* p : {kappa_is_scalar ? nullptr : kappa,
+                          mass_is_scalar ? nullptr : mass, v0, v1})
+      if ((size_t)p % 16) return (int)cudaErrorInvalidValue;
+  auto launch = advect ? (transient ? launch_state_q<T, true, true>
+                                    : launch_state_q<T, false, true>)
+                       : (transient ? launch_state_q<T, true, false>
+                                    : launch_state_q<T, false, false>);
+  // a scalar coefficient is a null pointer from here on; a steady call
+  // reads no mass
+  return launch((const T*)u, kappa_is_scalar ? nullptr : (const T*)kappa,
+                (T)kappa0, mass_is_scalar ? nullptr : (const T*)mass,
+                (T)mass0, (T)alpha_u, (T)alpha_t,
+                make_velocity<T>(v0, v0s, v1, v1s), (const T*)phi,
+                (const T*)grad, (const T*)wts, Q, N0, N1, (T*)out, stream);
 }
 
 template <typename T>

@@ -7,7 +7,10 @@
 // generated). BUOY adds the Boussinesq term buoy source_d of an NS +
 // thermal set to the momentum equations and their strong residuals
 // (buoy = rho beta (e - T_ambient)); the defaults compile to the code of
-// the NS kernels.
+// the NS kernels. RECIP takes the quotients by h and rho through their
+// reciprocals and tau through drsqrt: 3 divisions per dual pass where the
+// quotients as written take 17, each result within a few ulps of theirs
+// (ns_node_full instances it; the other kernels keep the default).
 
 #pragma once
 
@@ -21,7 +24,8 @@ namespace {
 // coefficients there. Steady: no u_dot terms (the JAX kernel's steady
 // specialization, u_dot = 0).
 template <bool TR, int DIM, typename S,
-          typename C = typename Passive<S>::type, bool BUOY = false>
+          typename C = typename Passive<S>::type, bool BUOY = false,
+          bool RECIP = false>
 __device__ __forceinline__ void ns_density(
     S u[DIM + 1], S ud[DIM + 1], S g[DIM + 1][DIM], C rho, C visc,
     const C src[DIM], typename Passive<S>::type h,
@@ -56,9 +60,17 @@ __device__ __forceinline__ void ns_density(
     for (int d = 1; d < DIM; ++d) u2 = u2 + u[d] * u[d];
     // |u| takes the u2 branch at rest: sqrt is never differentiated at 0
     const S nvel = value(u2) > T(1e-12) ? dsqrt(u2) : u2;
-    const C a = T(4) * visc / (h * h);
-    const S b = T(2) * nvel / h;
-    const S tau = T(1) / dsqrt((b * b + a * a) + tau_dt2);
+    C a;
+    S b, tau;
+    if constexpr (RECIP) {
+      a = visc * (T(4) / (h * h));
+      b = nvel * (T(2) / h);
+      tau = drsqrt((b * b + a * a) + tau_dt2);
+    } else {
+      a = T(4) * visc / (h * h);
+      b = T(2) * nvel / h;
+      tau = T(1) / dsqrt((b * b + a * a) + tau_dt2);
+    }
     S stab[DIM];
 #pragma unroll
     for (int i = 0; i < DIM; ++i) {
@@ -76,8 +88,14 @@ __device__ __forceinline__ void ns_density(
       }
     }
     if (pspg) {
+      if constexpr (RECIP) {
+        const C ir = T(1) / rho;
 #pragma unroll
-      for (int d = 0; d < DIM; ++d) fpr[d] = tau * stab[d] / rho;
+        for (int d = 0; d < DIM; ++d) fpr[d] = tau * stab[d] * ir;
+      } else {
+#pragma unroll
+        for (int d = 0; d < DIM; ++d) fpr[d] = tau * stab[d] / rho;
+      }
     }
   }
 #pragma unroll

@@ -49,7 +49,7 @@ from mrhyde_tpu_torch.assembly.assembler import BlockJacobian
 from mrhyde_tpu_torch.ops import fused_elem as fe
 from mrhyde_tpu_torch.ops._launch import (
     LAUNCHES, ElemArgs, check_err, check_smem, elem_smem_words, elem_tiles,
-    stream)
+    ns_node_smem_words, stream)
 from mrhyde_tpu_torch.ops.fused_p1 import (
     QUAD_P1, QpCtx, Stage, _check_grid, _scalar, qp_coords, steady_check,
     structured_geometry)
@@ -416,15 +416,12 @@ def _coeff_args(args, coeffs, E, Q, like):
             args.coef0[i] = float(v)
 
 
-def ns_node_full(ue, ud, coeffs, tab, form, jac_idx, stage=None):
-    """(node residual (3, N0+1, N1+1), Jacobian rows (len(jac_idx), E))
-    of the NS weak form: the CUDA kernel on CUDA tensors, the plain
-    version on CPU tensors. Arguments as `ns_node_full_plain`."""
-    if ue.device.type == "cpu":
-        return ns_node_full_plain(ue, ud, coeffs, tab, form, jac_idx, stage)
+def _ns_node_args(ue, ud, coeffs, tab, form, jac_idx, stage):
+    """(_NSArgs, node residual, Jacobian rows, keep-alive) of one
+    ns_node_full call: the checks of its inputs, the C struct filled from
+    them and the outputs it points to, allocated on ue's device."""
     if ue.dim() != 3 or ue.shape[0] != NV:
         raise ValueError("ue must be a (3, N0+1, N1+1) grid stack")
-    _check_grid(ue[0], tab)
     _check_grid_stacks(ue, ud, stage)
     steady = stage is None
     N0, N1 = ue.shape[1] - 1, ue.shape[2] - 1
@@ -436,7 +433,8 @@ def ns_node_full(ue, ud, coeffs, tab, form, jac_idx, stage=None):
     args.phi, args.grad, args.wts = (tab.t_phi.data_ptr(),
                                      tab.t_grad.data_ptr(),
                                      tab.t_wts.data_ptr())
-    args.row_pos = _row_pos(jac_idx, ND, ue.device).data_ptr()
+    pos = _row_pos(jac_idx, ND, ue.device)
+    args.row_pos = pos.data_ptr()
     out = torch.empty_like(ue)
     jac = torch.empty((len(jac_idx), E), dtype=ue.dtype, device=ue.device)
     args.res, args.jac = out.data_ptr(), jac.data_ptr()
@@ -446,13 +444,24 @@ def ns_node_full(ue, ud, coeffs, tab, form, jac_idx, stage=None):
     args.Q, args.N0, args.N1 = tab.Q, N0, N1
     args.pspg, args.supg = int(form.pspg), int(form.supg)
     args.transient = int(not steady)
+    return args, out, jac, pos
+
+
+def ns_node_full(ue, ud, coeffs, tab, form, jac_idx, stage=None):
+    """(node residual (3, N0+1, N1+1), Jacobian rows (len(jac_idx), E))
+    of the NS weak form: the CUDA kernel on CUDA tensors, the plain
+    version on CPU tensors. Arguments as `ns_node_full_plain`."""
+    if ue.device.type == "cpu":
+        return ns_node_full_plain(ue, ud, coeffs, tab, form, jac_idx, stage)
+    args, out, jac, _keep = _ns_node_args(ue, ud, coeffs, tab, form,
+                                          jac_idx, stage)
+    _check_grid(ue[0], tab)
     from mrhyde_tpu_torch.ops._build import load_library
     lib = load_library()
     fn = (lib.ns_node_full_f64 if ue.dtype == torch.float64
           else lib.ns_node_full_f32)
-    err = fn(ctypes.c_void_p(ctypes.addressof(args)), stream(ue))
-    if err != 0:
-        raise RuntimeError(f"ns_node_full launch failed: CUDA error {err}")
+    check_err("ns_node_full",
+              fn(ctypes.c_void_p(ctypes.addressof(args)), stream(ue)), tab.Q)
     LAUNCHES["ns_full"] += 1
     return out, jac
 
@@ -573,6 +582,11 @@ class FusedNSAssembly:
             check_smem("ns_elem_full", lambda el: elem_smem_words(
                 self.dim, self.nc, self.nv, tr, Q, el),
                 asm.dtype.itemsize, Q)
+        else:
+            # ns_node_full's block at this quadrature: its halo's densities
+            Q = self.tables.Q
+            check_smem("ns_node_full", lambda _el: ns_node_smem_words(Q),
+                       asm.dtype.itemsize, Q)
         self.module = asm.modules[0]
         # the element size (sum of the weights)^(1/dim), as the JAX
         # package's h_elem and the workset's h

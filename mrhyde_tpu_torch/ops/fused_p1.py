@@ -81,9 +81,10 @@ import torch
 
 from mrhyde_tpu_torch.assembly.assembler import BlockJacobian
 from mrhyde_tpu_torch.ops import fused_elem as fe
-from mrhyde_tpu_torch.ops._launch import (LAUNCHES, check_qp, coeff_args,
-                                          ptr, stage_args, stream,
-                                          velocity_args)
+from mrhyde_tpu_torch.ops._launch import (LAUNCHES, check_err, check_qp,
+                                          check_smem, coeff_args, ptr,
+                                          stage_args, state_smem_words,
+                                          stream, velocity_args)
 
 __all__ = ["FusedP1Assembly", "QuadTables", "Stage", "LAUNCHES",
            "thermal_node_state", "thermal_node_full",
@@ -118,6 +119,23 @@ class QuadTables:
         def dev(a):
             return torch.as_tensor(a, dtype=dtype, device=device).contiguous()
         self.t_phi, self.t_grad, self.t_wts = dev(phi), dev(grad), dev(wts)
+        self._ptrs = None
+
+    def ptrs(self, like):
+        """The device addresses of phi, grad, wts for a kernel whose grid
+        is `like`; raises where the tables live on another device or type
+        (checked once: the tables do not change)."""
+        if self._ptrs is None:
+            for t in (self.t_phi, self.t_grad, self.t_wts):
+                if t.device != like.device or t.dtype != like.dtype:
+                    raise ValueError("QuadTables live on another "
+                                     "device/dtype than u_grid")
+            self._ptrs = (like.device, like.dtype, self.t_phi.data_ptr(),
+                          self.t_grad.data_ptr(), self.t_wts.data_ptr())
+        elif self._ptrs[:2] != (like.device, like.dtype):
+            raise ValueError("QuadTables live on another device/dtype than "
+                             "u_grid")
+        return self._ptrs[2:]
 
 
 def structured_geometry(asm):
@@ -225,10 +243,11 @@ def _check_grid(u_grid, tab):
                          "with N0, N1 >= 1")
     if max(u_grid.shape) > 2 ** 31 - 2:
         raise ValueError("node grid axis too long for int indexing")
-    for t in (tab.t_phi, tab.t_grad, tab.t_wts):
-        if t.device != u_grid.device or t.dtype != u_grid.dtype:
-            raise ValueError("QuadTables live on another device/dtype "
-                             "than u_grid")
+    return tab.ptrs(u_grid)
+
+
+# thermal_node_state's C entry point per dtype, bound at its first call
+_STATE_ENTRY = {}
 
 
 def thermal_node_state(u_grid, kappa, tab, stage=None, vel=None):
@@ -238,22 +257,23 @@ def thermal_node_state(u_grid, kappa, tab, stage=None, vel=None):
     components."""
     if u_grid.device.type == "cpu":
         return thermal_node_state_plain(u_grid, kappa, tab, stage, vel)
-    _check_grid(u_grid, tab)
-    E = (u_grid.shape[0] - 1) * (u_grid.shape[1] - 1)
+    tables = _check_grid(u_grid, tab)
+    N0, N1 = u_grid.shape[0] - 1, u_grid.shape[1] - 1
+    E = N0 * N1
     kap = coeff_args(kappa, E, u_grid, tab, "kappa")
     st = stage_args(stage, E, u_grid, tab)
     va = velocity_args(vel, E, u_grid, tab)
-    from mrhyde_tpu_torch.ops._build import load_library
-    lib = load_library()
-    fn = (lib.thermal_node_state_f64 if u_grid.dtype == torch.float64
-          else lib.thermal_node_state_f32)
+    fn = _STATE_ENTRY.get(u_grid.dtype)
+    if fn is None:
+        from mrhyde_tpu_torch.ops._build import load_library
+        lib = load_library()
+        fn = _STATE_ENTRY[u_grid.dtype] = (
+            lib.thermal_node_state_f64 if u_grid.dtype == torch.float64
+            else lib.thermal_node_state_f32)
     out = torch.empty_like(u_grid)
-    N0, N1 = u_grid.shape[0] - 1, u_grid.shape[1] - 1
-    err = fn(ptr(u_grid), *kap, *st, *va, ptr(tab.t_phi), ptr(tab.t_grad),
-             ptr(tab.t_wts), tab.Q, N0, N1, ptr(out), stream(u_grid))
-    if err != 0:
-        raise RuntimeError(f"thermal_node_state launch failed: CUDA error "
-                           f"{err}")
+    check_err("thermal_node_state",
+              fn(u_grid.data_ptr(), *kap, *st, *va, *tables, tab.Q, N0, N1,
+                 out.data_ptr(), stream(u_grid)), tab.Q)
     LAUNCHES["state"] += 1
     return out
 
@@ -266,7 +286,7 @@ def thermal_node_full(u_grid, S, dS, K, dK, tab, stage=None, vel=None):
     if u_grid.device.type == "cpu":
         return thermal_node_full_plain(u_grid, S, dS, K, dK, tab, stage,
                                        vel)
-    _check_grid(u_grid, tab)
+    tables = _check_grid(u_grid, tab)
     E = (u_grid.shape[0] - 1) * (u_grid.shape[1] - 1)
     for name, t in (("S", S), ("dS", dS), ("K", K), ("dK", dK)):
         check_qp(t, E, u_grid, tab, name)
@@ -281,8 +301,7 @@ def thermal_node_full(u_grid, S, dS, K, dK, tab, stage=None, vel=None):
     jac = torch.empty((16, N0 * N1), dtype=u_grid.dtype,
                       device=u_grid.device)
     err = fn(ptr(u_grid), ptr(S), ptr(dS), ptr(K), ptr(dK), *st, *va,
-             ptr(tab.t_phi), ptr(tab.t_grad), ptr(tab.t_wts), tab.Q,
-             N0, N1, ptr(out), ptr(jac), stream(u_grid))
+             *tables, tab.Q, N0, N1, ptr(out), ptr(jac), stream(u_grid))
     if err != 0:
         raise RuntimeError(f"thermal_node_full launch failed: CUDA error "
                            f"{err}")
@@ -371,6 +390,11 @@ class FusedP1Assembly:
                          "mass": bool(mass & _COORD),
                          "velocity": bool(vel & _COORD),
                          "coeffs": bool((kap | src | vel) & _COORD)}
+        if self.node and self.split:
+            # thermal_node_state's block at this quadrature: its tables
+            Q = self.tables.Q
+            check_smem("thermal_node_state", lambda _el: state_smem_words(Q),
+                       asm.dtype.itemsize, Q)
         self.stats = self._stats(True)
         self._coords = None
         self._stage_cache = None

@@ -231,6 +231,51 @@ def test_kink_conventions_follow_jax(expr_lib, k):
     assert np.array_equal([tan], [jt], equal_nan=True), (tan, jt)
 
 
+DRSQRT_TU = """
+#include "cuda_runtime.h"
+#include "dual.cuh"
+extern "C" void drsqrt2(double x, double t0, double t1, double* out) {
+  Dual<double, 2> a;
+  a.v = x;
+  a.d[0] = t0;
+  a.d[1] = t1;
+  const Dual<double, 2> r = drsqrt(a);
+  out[0] = r.v;
+  out[1] = r.d[0];
+  out[2] = r.d[1];
+  out[3] = drsqrt(x);
+}
+"""
+
+
+def test_dual_rsqrt_follows_jax(tmp_path):
+    """dual.cuh's drsqrt (ns_node_full's tau) against the JAX package's
+    sparse forward AD of lax.rsqrt, column by column: the value and each
+    tangent times the derivative -r / (2 x), a zero tangent left out, so
+    at x = 0 the infinite derivative reaches only a column that moves x,
+    as -inf, and the others stay 0."""
+    import jax.numpy as jnp
+    from jax import lax
+    from mrhyde_tpu.ops.sparse_fwd import _eval_sparse
+    lib = _host_build(DRSQRT_TU, tmp_path)
+    lib.drsqrt2.argtypes = [ctypes.c_double] * 3 + [ctypes.c_void_p]
+    closed = jax.make_jaxpr(lambda z: [lax.rsqrt(z[0])])([jnp.ones(1)])
+    for x, tg in ((4.0, (1.0, 0.0)), (2.5, (0.5, -2.0)), (0.0, (1.0, 0.0)),
+                  (0.0, (0.0, -3.0))):
+        out = np.zeros(4)
+        lib.drsqrt2(x, *tg, out.ctypes.data)
+        ((jv, tdict),) = _eval_sparse(closed.jaxpr, closed.consts,
+                                      [jnp.asarray([x])],
+                                      [{0: jnp.ones(1)}])
+        d = float(np.asarray(tdict[0]).reshape(-1)[0])
+        want = [float(np.asarray(jv).reshape(-1)[0])] + \
+            [d * t if t != 0.0 else 0.0 for t in tg]
+        assert out[0] == out[3]
+        for got, ref in zip(out[:3], want):
+            assert got == ref or abs(got - ref) <= 1e-15 * abs(ref), \
+                (x, tg, out, want)
+
+
 def test_unsupported_leaves_raise():
     from mrhyde_tpu_torch.functions import codegen
     from mrhyde_tpu_torch.functions.parser import parse_expression
@@ -585,10 +630,13 @@ HOST_LAUNCH = re.compile(r"kernel<<<(.*?), kThreads, (.*?),\s*"
 # the kernel files the host builds, each with its counts of shared-memory
 # declarations and of launch sites: the element-tile engine holds the
 # kernel body of set_elem.cuh and fused_elem_ns.cu, which instantiate it,
-# and of set_node.cuh's Jacobian role
+# and of set_node.cuh's Jacobian role; the B2 node kernels
+# (fused_p1_thermal.cu: thermal_node_state's tiles and thermal_node_full;
+# fused_p1_ns.cu: ns_node_full's tiles)
 HOST_FILES = {"set_node.cuh": (2, 2), "elem_engine.cuh": (1, 1),
               "set_elem.cuh": (0, 0), "fused_elem_ns.cu": (0, 0),
-              "fused_elem_thermal.cu": (2, 2)}
+              "fused_elem_thermal.cu": (2, 2),
+              "fused_p1_thermal.cu": (1, 2), "fused_p1_ns.cu": (1, 1)}
 
 
 def _host_header(name, tmp_path):
@@ -1040,6 +1088,163 @@ def test_thermal_elem_full_on_the_host(mesh, case, dtype, chunks,
         _assert_close(g, w, dtype)
 
 
+@pytest.fixture(scope="module")
+def node_libs(tmp_path_factory):
+    """The two B2 node kernel files, fused_p1_thermal.cu and
+    fused_p1_ns.cu, each built once for the host."""
+    return {name: _host_build(f'#include "{name}"\n',
+                              tmp_path_factory.mktemp(name[:-3]))
+            for name in ("fused_p1_thermal.cu", "fused_p1_ns.cu")}
+
+
+def _p1_tables(dims, dtype, quadrature=2):
+    """QuadTables on the CPU of a uniform p1 quad grid of `dims` elements
+    on the unit square."""
+    from mrhyde_tpu_torch.assembly.discretization import Discretization
+    from mrhyde_tpu_torch.mesh.structured import box_mesh
+    from mrhyde_tpu_torch.ops.fused_p1 import QuadTables
+    disc = Discretization(box_mesh("quad", nx=1, ny=1, xmax=1.0 / dims[0],
+                                   ymax=1.0 / dims[1]),
+                          [("e", "HGRAD", 1)], quadrature)
+    key = ("HGRAD", 1)
+    return QuadTables(disc.basis_vals[key], disc.basis_grads[key][0],
+                      disc.wts[0], "cpu", dtype)
+
+
+# thermal_node_state's cases: steady, a stage and advection, with kappa
+# ("k"), m ("m") and the velocity ("b") each a scalar, or in capitals one
+# value per (element, qp)
+NODE_STATE_CASES = ("steady k", "steady K", "stage k m", "stage K m",
+                    "stage k M", "stage K M", "advect k b", "advect K b",
+                    "advect k B", "advect stage k m b",
+                    "advect stage K M B")
+NODE_STATE_HOST = [(c, g, d, 2) for c in NODE_STATE_CASES
+                   for g in ((37, 13), (13, 37), (1, 1))
+                   for d in (torch.float64, torch.float32)] \
+    + [(c, (37, 13), torch.float64, 4) for c in NODE_STATE_CASES]
+
+
+@pytest.mark.parametrize("case,dims,dtype,quadrature", NODE_STATE_HOST)
+def test_thermal_node_state_on_the_host(node_libs, case, dims, dtype,
+                                        quadrature):
+    """thermal_node_state (tiles of 16 x 32 elements and 15 x 31 nodes on a
+    persistent grid of 2 blocks: the node patch staged, each element's
+    quadrature once, each node the sum of its four elements' rows) on the
+    host against its plain version, steady, at a DIRK-2,2 stage and with
+    advection, kappa, m and b each a scalar or one value per (element,
+    qp), on 37 x 13 and 13 x 37 grids (several tiles along one axis, the
+    last ones partial) and a 1 x 1 grid, at Q = 4 (the compile-time
+    instance) and Q = 9: f64 to 1e-12, f32 to 1e-5 of max |plain|."""
+    from mrhyde_tpu_torch.ops import _build
+    from mrhyde_tpu_torch.ops import fused_p1 as fp
+    from mrhyde_tpu_torch.ops._launch import (coeff_args, stage_args,
+                                              velocity_args)
+    tab = _p1_tables(dims, dtype, quadrature)
+    E, Q = math.prod(dims), tab.Q
+    assert Q == {2: 4, 4: 9}[quadrature]
+    rng = np.random.RandomState(41)
+    u = torch.as_tensor(rng.rand(dims[0] + 1, dims[1] + 1) - 0.5,
+                        dtype=dtype)
+    words = case.split()
+
+    def per_qp(lo):
+        return torch.as_tensor(lo + rng.rand(E, Q), dtype=dtype)
+    kappa = per_qp(1.0) if "K" in words else 1.3
+    stage = None
+    if "stage" in words:
+        stage = fp.Stage(0.29, 170.0, per_qp(1.0) if "M" in words else 2.0)
+    vel = None
+    if "b" in words:
+        vel = [2.0, -1.0]
+    elif "B" in words:
+        vel = [per_qp(-0.5), per_qp(-0.5)]
+    want = fp.thermal_node_state_plain(u, kappa, tab, stage, vel)
+    name = "thermal_node_state_f64" if dtype == torch.float64 \
+        else "thermal_node_state_f32"
+    fnc = getattr(node_libs["fused_p1_thermal.cu"], name)
+    fnc.argtypes = _build._SIGNATURES[name]
+    fnc.restype = ctypes.c_int
+    got = torch.full_like(u, float("nan"))
+    assert fnc(u.data_ptr(), *coeff_args(kappa, E, u, tab, "kappa"),
+               *stage_args(stage, E, u, tab), *velocity_args(vel, E, u, tab),
+               tab.t_phi.data_ptr(), tab.t_grad.data_ptr(),
+               tab.t_wts.data_ptr(), Q, *dims, got.data_ptr(), None) == 0
+    assert bool(torch.isfinite(got).all())
+    _assert_close(got, want, dtype)
+
+
+# ns_node_full's cases: (case, quadrature, grid, dtype)
+NS_NODE_HOST = [(c, q, g, d) for c in ("steady", "steady visc", "stage")
+                for q in (2, 8) for g in ((37, 13), (32, 16), (1, 1))
+                for d in (torch.float64, torch.float32)]
+_NS_NODE_PROVIDERS = {}
+
+
+@pytest.mark.parametrize("case,quadrature,dims,dtype", NS_NODE_HOST)
+def test_ns_node_kernel_on_the_host(node_libs, case, quadrature, dims,
+                                    dtype):
+    """ns_node_full (8 x 16 node tiles, a thread per own element: one pass
+    of the density per (qp, column variable) contracted in registers, the
+    first pass's values summing the element's residual rows; the 25 halo
+    elements' primal densities; each node the sum of its four elements'
+    rows) on the host against its plain version on the channel: PSPG
+    steady with viscosity 1 and with one value per (element, qp), and
+    PSPG + SUPG at a DIRK-2,2 stage, at Q = 4 and Q = 25, on a 37 x 13
+    grid (its last tiles partial), a 32 x 16 one (its last tile row and
+    column hold nodes only) and a 1 x 1 grid: f64 to 1e-12, f32 to 1e-5
+    of max |plain|."""
+    from mrhyde_tpu_torch.ops import fused_ns as fn
+    from mrhyde_tpu_torch.ops.fused_p1 import Stage
+    stage = case == "stage"
+    key = (dims, quadrature, stage)
+    if key not in _NS_NODE_PROVIDERS:
+        _NS_NODE_PROVIDERS[key] = _host_provider(
+            channel_cfg(*dims, supg=stage), quadrature, stage)
+    f = _NS_NODE_PROVIDERS[key]
+    assert isinstance(f, fn.FusedNSAssembly) and f.node
+    assert f.tables.Q == {2: 4, 8: 25}[quadrature]
+    E, Q = math.prod(dims), f.tables.Q
+    rng = np.random.RandomState(29)
+    visc = torch.as_tensor(0.1 + 0.05 * rng.rand(E, Q), dtype=dtype) \
+        if case == "steady visc" else 1.0
+    coeffs = (1.0, visc, 1.0, 0.0)
+    form = fn.NSForm(True, stage, f.h, 0.01 if stage else 1.0, stage)
+    au, at = (0.5, 200.0) if stage else (1.0, 0.0)
+    jac_idx = f._classify(coeffs, form, au, at, not stage)[0]
+    ue, ud = _host_grids(f, dtype, stage)
+    args = (ue, ud, coeffs, _host_tables(f, dtype), form, jac_idx,
+            Stage(au, at, None) if stage else None)
+    want = fn.ns_node_full_plain(*args)
+    a, res, jac, _keep = fn._ns_node_args(*args)
+    assert _entry(node_libs["fused_p1_ns.cu"], "ns_node_full", dtype)(
+        ctypes.addressof(a), None) == 0
+    for got, ref in zip((res, jac), want):
+        assert bool(torch.isfinite(got).all())
+        _assert_close(got, ref, dtype)
+
+
+@pytest.mark.parametrize("kernel", ["thermal_node_state", "ns_node_full"])
+def test_node_kernels_refuse_a_quadrature_past_the_card(kernel):
+    """The providers of the B2 node kernels accept a 2D p1 deck's
+    quadrature only where the kernel's block fits the H100's shared
+    memory per block (ns_node_full: the halo's densities, f64 up to 122
+    qps; thermal_node_state: its tables, f64 up to 1,833 qps), and past
+    that raise a ValueError that names the limit."""
+    from mrhyde_tpu_torch.ops._launch import (SMEM_OPTIN,
+                                              ns_node_smem_words,
+                                              state_smem_words)
+    cfg, words, (fits, past) = {
+        "thermal_node_state": (lambda: thermal_cfg(2), state_smem_words,
+                               (83, 85)),
+        "ns_node_full": (lambda: channel_cfg(2, 1), ns_node_smem_words,
+                         (21, 23))}[kernel]
+    f = _host_provider(cfg(), fits)
+    assert words(f.tables.Q) * 8 <= SMEM_OPTIN < words(
+        (f.tables.Q ** 0.5 + 1) ** 2) * 8
+    with pytest.raises(ValueError, match=f"{kernel} at .* shared memory"):
+        _host_provider(cfg(), past)
+
+
 LAYOUT_TU = {
     "set_node.cuh": """
 #include "set_node.cuh"
@@ -1085,6 +1290,18 @@ extern "C" long long words(int dim, int nc, int nv, int tr, int Q, int el) {
             : ElemLayout<2, 9, 3, false>::total(Q, el);
 }
 """,
+    "fused_p1_thermal.cu": """
+#include "fused_p1_thermal.cu"
+extern "C" long long words(int dim, int nc, int nv, int tr, int Q, int el) {
+  return state_smem_words(Q);
+}
+""",
+    "fused_p1_ns.cu": """
+#include "fused_p1_ns.cu"
+extern "C" long long words(int dim, int nc, int nv, int tr, int Q, int el) {
+  return ns_smem_words(Q);
+}
+""",
 }
 
 
@@ -1095,19 +1312,30 @@ def test_layout_formulas_are_the_kernels(header, tmp_path):
     headers built on the host) at every element count, quadrature and
     set size."""
     from mrhyde_tpu_torch.ops._launch import (elem_smem_words,
-                                              node_smem_words)
+                                              node_smem_words,
+                                              ns_node_smem_words,
+                                              state_smem_words)
     lib = _host_build(LAYOUT_TU[header], tmp_path)
     lib.words.restype = ctypes.c_longlong
     cases = {"set_node.cuh": [(2, 4, nv) for nv in (1, 2, 3, 4, 5)],
              "set_elem.cuh": [(d, c, nv) for d, c in ((3, 8), (2, 9))
                               for nv in (1, 2, 4, 5, 6)],
-             "fused_elem_ns.cu": [(3, 8, 4), (2, 9, 3)]}[header]
+             "fused_elem_ns.cu": [(3, 8, 4), (2, 9, 3)],
+             "fused_p1_thermal.cu": [(2, 4, 1)],
+             "fused_p1_ns.cu": [(2, 4, 3)]}[header]
+    # the node kernels' layouts depend on Q alone
+    node = {"fused_p1_thermal.cu": state_smem_words,
+            "fused_p1_ns.cu": ns_node_smem_words}.get(header)
     for dim, nc, nv in cases:
         for tr in (0, 1):
             for Q in (1, 4, 8, 9, 25, 27, 64, 125):
                 for el in (1, 2, 4, 8, 16):
-                    want = node_smem_words(nv, tr, Q, el) if nc == 4 \
-                        else elem_smem_words(dim, nc, nv, tr, Q, el)
+                    if node:
+                        want = node(Q)
+                    elif nc == 4:
+                        want = node_smem_words(nv, tr, Q, el)
+                    else:
+                        want = elem_smem_words(dim, nc, nv, tr, Q, el)
                     assert lib.words(dim, nc, nv, tr, Q, el) == want
 
 

@@ -211,6 +211,109 @@ def test_ns_kernel_matches_plain(shape, dtype, transient):
     assert fp.LAUNCHES["ns_full"] == before + 1
 
 
+def _node_tables(cfg, dev, dtype, quadrature=None):
+    """The QuadTables of a 2D p1 deck's provider (at another quadrature
+    where given), on the card."""
+    from mrhyde_tpu_torch.ops import fused_p1 as fp
+    from mrhyde_tpu_torch.problem import Problem
+    if quadrature is not None:
+        cfg["Discretization"]["quadrature"] = quadrature
+    t0 = Problem(cfg, device="cpu").assembler.fused_provider().tables
+    return fp.QuadTables(np.asarray(t0.phi), np.asarray(t0.grad),
+                         np.asarray(t0.wts), dev, dtype), t0
+
+
+# node grids at thermal_node_state's tile edges (15 x 31 nodes a tile):
+# whole tiles, one node past them, and a single element
+STATE_EDGES = [(14, 30), (29, 61), (15, 31), (30, 62), (1, 1)]
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("quadrature", [2, 4])
+@pytest.mark.parametrize("dtype", [torch.float64, torch.float32])
+@pytest.mark.parametrize("shape", STATE_EDGES)
+def test_state_kernel_at_tile_edges_matches_plain(shape, dtype, quadrature):
+    """thermal_node_state on grids whose node tiles are whole, one node
+    past whole, or a single element, at Q = 4 (its compile-time instance)
+    and Q = 9: steady with kappa scalar and per qp, a stage with a per-qp
+    mass, and advection by a per-qp velocity at a stage, against its
+    plain version."""
+    from mrhyde_tpu_torch.ops import fused_p1 as fp
+    dev = _card()
+    tab, _ = _node_tables(thermal_cfg(*shape), dev, dtype, quadrature)
+    assert tab.Q == {2: 4, 4: 9}[quadrature]
+    gen = torch.Generator(device=dev).manual_seed(13)
+    N0, N1 = shape
+    u = torch.rand((N0 + 1, N1 + 1), generator=gen, device=dev,
+                   dtype=dtype) - 0.5
+    qp = [torch.rand((N0 * N1, tab.Q), generator=gen, device=dev,
+                     dtype=dtype) + 0.5 for _ in range(4)]
+    stage = fp.Stage(*DIRK22_STAGE1, qp[1])
+    before = fp.LAUNCHES["state"]
+    for args in ((1.25, tab), (qp[0], tab), (qp[0], tab, stage),
+                 (0.5, tab, fp.Stage(*DIRK22_STAGE1, 1.0), qp[2:])):
+        assert _close(fp.thermal_node_state(u, *args),
+                      fp.thermal_node_state_plain(u, *args), dtype)
+    assert fp.LAUNCHES["state"] == before + 4
+
+
+# node grids at ns_node_full's tile edges (8 x 16 nodes a tile)
+NS_EDGES = [(7, 15), (8, 16), (15, 31), (16, 32), (1, 1)]
+
+
+def _ns_case(shape, dev, dtype, transient, quadrature=None):
+    """ns_node_full's arguments on the channel: steady PSPG with a
+    per-qp viscosity, or a PSPG+SUPG stage."""
+    from mrhyde_tpu_torch.ops import fused_ns as fn
+    from mrhyde_tpu_torch.ops import fused_p1 as fp
+    N0, N1 = shape
+    tab, t0 = _node_tables(channel_cfg(N0, N1), dev, dtype, quadrature)
+    gen = torch.Generator(device=dev).manual_seed(11)
+    ue, ud = (torch.rand((3, N0 + 1, N1 + 1), generator=gen, device=dev,
+                         dtype=dtype) - 0.5 for _ in range(2))
+    visc = 0.1 + 0.01 * torch.rand((N0 * N1, tab.Q), generator=gen,
+                                   device=dev, dtype=dtype)
+    h = float(np.sqrt(np.sum(t0.wts)))
+    form = fn.NSForm(True, transient, h, 0.01, transient)
+    stage = fp.Stage(*NS_STAGE1, None) if transient else None
+    block = {r * 12 + 8 + cp for r in range(8) for cp in range(4)}
+    jac_idx = tuple(k for k in range(144) if transient or k not in block)
+    return (ue, 200.0 * ud if transient else None, (1.0, visc, 1.0, 0.0),
+            tab, form, jac_idx, stage)
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("transient", [False, True])
+@pytest.mark.parametrize("dtype", [torch.float64, torch.float32])
+@pytest.mark.parametrize("shape", NS_EDGES)
+def test_ns_kernel_at_tile_edges_matches_plain(shape, dtype, transient):
+    """ns_node_full on grids whose node tiles are whole, one node past
+    whole (a tile row and column of nodes only) or a single element,
+    against its plain version."""
+    from mrhyde_tpu_torch.ops import fused_ns as fn
+    from mrhyde_tpu_torch.ops import fused_p1 as fp
+    args = _ns_case(shape, _card(), dtype, transient)
+    before = fp.LAUNCHES["ns_full"]
+    out, jac = fn.ns_node_full(*args)
+    ref, jref = fn.ns_node_full_plain(*args)
+    assert _close(out, ref, dtype) and _close(jac, jref, dtype)
+    assert fp.LAUNCHES["ns_full"] == before + 1
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("transient", [False, True])
+@pytest.mark.parametrize("dtype", [torch.float64, torch.float32])
+def test_ns_kernel_at_quadrature_8_matches_plain(dtype, transient):
+    """ns_node_full at quadrature 8 (Q = 25: 25 x 25 halo densities per
+    block) on a 37 x 29 grid against its plain version."""
+    from mrhyde_tpu_torch.ops import fused_ns as fn
+    args = _ns_case((37, 29), _card(), dtype, transient, 8)
+    assert args[3].Q == 25
+    out, jac = fn.ns_node_full(*args)
+    ref, jref = fn.ns_node_full_plain(*args)
+    assert _close(out, ref, dtype) and _close(jac, jref, dtype)
+
+
 @pytest.mark.cuda
 @pytest.mark.parametrize("case", ["pspg_steady_visc_x", "supg_stage"])
 def test_ns_provider_on_card_matches_cpu(case):

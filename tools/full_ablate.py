@@ -57,8 +57,9 @@ VARIANTS = {
         "base": [],
         # thermal_elem_full: f64 on FMA (each lane's form of the m8n8k4
         # step, as f32) instead of DMMA
-        "thermal_fma": [(THERMAL, "#define THERMAL_FULL_DMMA 1",
-                         "#define THERMAL_FULL_DMMA 0")],
+        "thermal_fma": [(THERMAL, "  static constexpr bool value = "
+                         "std::is_same<T, double>::value;",
+                         "  static constexpr bool value = false;")],
         # no Jacobian contraction (its rows stored as zeros)
         "thermal_no_jac_contract": [(
             THERMAL, "        for (int k = 0; k < NKJ; ++k) {\n",
