@@ -72,10 +72,11 @@ each):
              kernels) against their plain versions on hex at 128^3 and
              127x100x77 and on p2 quads at 1024^2 and 1000x777, f64 and
              f32 (the same bounds): steady with kappa = 1 and kappa = 1 +
-             0.5 x y (z), and at DIRK-2,2 stage-1 alphas with m = 1 +
-             0.5 x; "full" with kappa = 1 + e*e steady and at that stage
-             (seeded u, beta_u, beta_t); CUDA-event medians of 20 (plain:
-             its one check call)
+             0.5 x y (z), and at DIRK-2,2 stage-1 alphas with kappa = m =
+             1 (the decks' stage) and with kappa = 1 + 0.5 x y (z), m =
+             1 + 0.5 x; "full" with kappa = 1 + e*e steady and at that
+             stage (seeded u, beta_u, beta_t); CUDA-event medians of 20
+             (plain: its one check call)
  14 hex_gold_nx10   the reference's thermal/3D_verification, 10^3 hex,
              direct: L2(e) = 0.0116656 (rtol 2e-5; the reference's gold)
  15 hex_default_nx32   the same at 32^3 (35,937 DOFs; cut from 64^3, then
@@ -219,8 +220,10 @@ and bound (bytes or operations, whichever is larger; see `bound`) at
 its quoted
 case, for the four thermal kernels the same of their advection case
 with the launches of decks 21-29 ("advect"), for set_elem_full each
-phase 3g case ("cases", f64 at the divisible shape), for the two state
-kernels each of their phase 3h cases ("cases"), and for ns_elem_full,
+phase 3g case ("cases", f64 at the divisible shape), for
+thermal_elem_state each of its phase 3c cases ("cases", f64 at hex 128^3
+and p2 1024^2), for the two state kernels each of their phase 3h cases
+("cases"), and for ns_elem_full,
 set_elem_full, set_node_full, ns_node_full and thermal_node_state their
 phase 3i case ("quadrature").
 Any failure raises; the last line of a passing run is {"ok": true,
@@ -1297,11 +1300,16 @@ def phase_elem_kernels(device):
             stx = Stage(*DIRK22_STAGE1, mx)
             xy = "xyz" if mesh == "hex" else "xy"
             work = (u, dims, tab, dtype)
+            st1 = Stage(*DIRK22_STAGE1, 1.0)
             cases = [
                 ("thermal_elem_state", "kappa=1.0", (u, 1.0, tab, lat),
                  elem_work("state", *work, 1.0, None)),
                 ("thermal_elem_state", f"kappa=1+0.5{xy}",
                  (u, kxy, tab, lat), elem_work("state", *work, kxy, None)),
+                # the decks' stage (hex_transient_dirk22_nx32)
+                ("thermal_elem_state", "dirk22 kappa=1.0 m=1.0",
+                 (u, 1.0, tab, lat, st1), elem_work("state", *work, 1.0,
+                                                    st1)),
                 ("thermal_elem_state", f"dirk22 kappa=1+0.5{xy} m=1+0.5x",
                  (u, kxy, tab, lat, stx), elem_work("state", *work, kxy,
                                                     stx)),
@@ -1336,10 +1344,16 @@ def phase_elem_kernels(device):
                     raise SystemExit(f"{name} {label} disagrees with its "
                                      f"plain version: {rec}")
                 # the summary line quotes the f64 128^3 hex transient
-                # cases
+                # cases with kappa and m per qp, and lists every f64 case
+                # of thermal_elem_state at the divisible shapes
                 if dtype == torch.float64 and (mesh, dims) \
-                        == ELEM_SHAPES[0] and label.startswith("dirk22"):
+                        == ELEM_SHAPES[0] and label.startswith("dirk22") \
+                        and "m=1+0.5x" in label:
                     summary[name] = rec
+                if dtype == torch.float64 and name == "thermal_elem_state" \
+                        and (mesh, dims) in (ELEM_SHAPES[0], ELEM_SHAPES[2]):
+                    summary.setdefault("thermal_elem_state cases",
+                                       []).append(rec)
     return summary
 
 
@@ -2725,6 +2739,7 @@ def main():
     summary = phase_kernels(device)
     summary["ns_node_full"] = phase_ns_kernels(device)
     summary.update(phase_elem_kernels(device))
+    elem_state_cases = summary.pop("thermal_elem_state cases")
     advect = phase_advect_kernels(device)
     summary["ns_elem_full"] = phase_ns_elem_kernels(device)
     summary["set_node_full"] = phase_set_kernels(device)
@@ -2875,6 +2890,11 @@ def main():
                                    "jac_rows", "max_abs_err", "ms",
                                    "plain_ms", "bound_ms", "bound_by")}
                 for c in set_elem.values()]
+        if name == "thermal_elem_state":
+            kernels[-1]["cases"] = [
+                {k: c[k] for k in ("case", "mesh", "shape", "max_abs_err",
+                                   "ms", "plain_ms", "bound_ms", "bound_by")}
+                for c in elem_state_cases]
         if name in ("set_node_state", "set_elem_state"):
             kernels[-1]["cases"] = [
                 {k: c[k] for k in ("case", "mesh", "shape", "max_abs_err",

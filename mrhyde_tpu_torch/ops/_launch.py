@@ -5,7 +5,8 @@ velocity arguments of the C entry points (ops/_build.py), the argument
 struct and tile list of the element-tile engine (csrc/elem_engine.cuh:
 `ns_elem_full`, `set_elem_*`), and the shared-memory layouts of the
 element-tile kernels, of `set_node_full`'s Jacobian blocks and of the
-node kernels `thermal_node_state` and `ns_node_full`."""
+node kernels `thermal_node_state`, `thermal_node_full` and
+`ns_node_full`."""
 
 from __future__ import annotations
 
@@ -16,7 +17,8 @@ import torch
 
 __all__ = ["LAUNCHES", "ptr", "stream", "check_qp", "coeff_args",
            "stage_args", "velocity_args", "SMEM_OPTIN", "elem_smem_words",
-           "node_smem_words", "state_smem_words", "ns_node_smem_words",
+           "node_smem_words", "state_smem_words", "full_smem_words",
+           "ns_node_smem_words",
            "block_elems", "check_smem", "check_err",
            "ElemArgs", "ELEM_MAX_SCALARS", "elem_tiles"]
 
@@ -84,6 +86,17 @@ def state_smem_words(Q):
     twice (a tile's and the next one's) the 17 x 33 node patch of a 16 x
     32 element tile and the four corner rows of its elements."""
     return 13 * Q + 2 * (17 * 33 + 4 * 512)
+
+
+def full_smem_words(Q, advect):
+    """Words of a thermal_node_full block's shared memory
+    (csrc/fused_p1_thermal.cu `full_smem_words`): the tables (13 Q, padded
+    to a multiple of 4), the weighted basis products of every qp (16
+    entries of each of the 4 Jacobian kinds, 6 with advection, and 4 rows
+    of each of the 3 residual kinds), and the state block's patches and
+    rows."""
+    per_q = (6 if advect else 4) * 16 + 3 * 4
+    return -(-13 * Q // 4) * 4 + Q * per_q + 2 * (17 * 33 + 4 * 512)
 
 
 def ns_node_smem_words(Q):

@@ -49,62 +49,83 @@
 // there are no constant rows to fold. Any element grid works (the last
 // tile masks its missing elements), and the sums are deterministic.
 //
-// "state": one thread owns one element: it gathers its nc grid values
-// (neighbouring threads read neighbouring addresses, and the values shared
-// between elements come from L1/L2), loops over the quadrature points with
-// the reference tables phi, grad, wts in shared memory, and writes its
-// rows SoA, so a warp writes 32 consecutive addresses per row. The sums
-// run in the plain version's order (q outer, corners inner). A scalar
-// velocity component is read from the kernel's parameters; an (E, Q) one
-// at each qp where it is used.
+// Both modes: linearize each qp once, then contract (thermal_form.cuh).
+// The weak form's linearization at a qp is 1 + DIM residual scalars and,
+// in "full", 2 + DIM Jacobian ones (2 + 2 DIM with advection); on a
+// uniform grid the basis products they multiply are the same in every
+// element, so the rows of a block of elements are one small GEMM,
+// (elements x Q kinds) times (Q kinds x entries). A persistent grid of
+// 256-thread blocks builds the weighted basis products once per block in
+// shared memory and walks tiles of elements; a thread steps its
+// element's grid position from tile to tile by the grid's stride (no
+// division per tile) and gathers its corner values at offsets fixed per
+// lattice.
+//   "full" (nc + nc^2 rows): the products in the B-fragment order of
+// mma.sync m8n8k4, tiles of 64 elements, 8 per warp (a warp's octet, M =
+// 8). Each lane owns one element and one qp of every group of 4 (K = 4):
+// it reads its qp's inputs once, a group ahead of their use, computes
+// grad u_h there and the qp scalars, and the warp steps its octet's sums
+// through the fragments, 8 entries at a time (N = 8): 2 f64 sums per
+// lane and fragment, 16 (hex) or 22 (p2) in all, where one thread per
+// element would hold 64-81. f64 steps on the tensor cores (DMMA); f32
+// (TF32 would not hold 1e-5) takes a thread per half of an element's
+// entries, summing from the per-qp products read as broadcasts; the host
+// build of the tests steps the fragments on FMA (each lane sums its two
+// entries from the group's A values, by warp shuffles, and the
+// fragments' B values). Rows are stored SoA from the fragments, 8
+// consecutive elements (64 bytes) per row and lane group.
+//   "state" (nc rows), one of two layouts by type and nc (StateRole):
+// - DMMA octets where the type has DMMA and one row fragment holds all nc
+//   rows (hex f64): "full"'s octets, each lane loading only the corners
+//   its A fragment holds; per group of 4 qps grad u_h (and u_h in a
+//   stage) is one more product on DMMA, corner values times the
+//   unweighted tables, whose C fragment hands each lane its own qp's
+//   kinds in the contraction's A layout; a warp takes 32 consecutive
+//   elements (4 octets) and stores its rows through shared memory, 256
+//   bytes a row. No FMA table reads, (E, Q) reads coalesced by qp.
+// - else a thread per element (p2: its 9 corners and rows would take a
+//   third corner step and a second row fragment for one value each;
+//   f32: no DMMA), one or two elements per thread (StateLayout). Per qp
+//   one block of shared memory holds the table values grad u_h needs
+//   and the weighted products of the residual kinds, read as 16-byte
+//   broadcasts, each value used by all of a thread's elements.
+// Both sum the source lane s and the flux f_d, then the rows; a steady
+// call without advection skips the source kind, which is 0. The layouts
+// were chosen on the card (PERF.md): the thread-per-element kernel this
+// replaces read a table value from shared memory for every FMA; octets
+// beat a thread per element in every hex f64 case (1.03-2.0x) but lost
+// on p2 with scalar coefficients (0.79-0.85x), and one element per
+// thread is the better f32 and f64-stage-with-advection choice.
+// Where the products of all qps would pass kFragBytes (a high
+// quadrature), they are rebuilt per chunk of qps.
 //
-// "full": linearize each qp once, then contract. The weak form's
-// linearization at a qp is 2 + DIM scalars (2 + 2 DIM with advection),
-// and on a uniform grid the basis products they multiply are the same in
-// every element, so the Jacobian rows of a block of elements are one
-// small GEMM, (elements x Q kinds) times (Q kinds x nc^2) (FullLayout).
-// A persistent grid of 256-thread blocks builds the weighted basis
-// products once per block in shared memory, in the B-fragment order of
-// mma.sync m8n8k4, and walks tiles of 64 elements, 8 per warp (a warp's
-// octet, M = 8). Each lane owns one element and one qp of every group of
-// 4 (K = 4): it reads its qp's S, dS, K, dK (m, b) once, a group ahead of
-// their use, computes grad u_h there and the qp scalars, and the warp
-// steps its octet's sums through the fragments, 8 entries at a time (N =
-// 8): 2 f64 sums per lane and fragment, 16 (hex) or 22 (p2) in all, where
-// one thread per element would hold 64-81. f64 steps on the tensor cores
-// (DMMA); f32 (TF32 would not hold 1e-5) and the host build of the tests
-// on FMA, each lane summing its two entries from the group's A values
-// (warp shuffles) and the fragments' B values. The residual rows are the
-// same GEMM with 1 + DIM kinds. Rows are stored SoA from the fragments, 8
-// consecutive elements (64 bytes) per row and lane group. Where the
-// fragments of all qps would pass kFragBytes (a high quadrature), they
-// are rebuilt per chunk of qp groups.
-//
-// What bounds it on the H100: "state" by bytes once a coefficient varies
-// per qp (the grid once, those (E, Q) tensors, nc rows written per
-// element); with scalar kappa and m the grid and the rows alone weigh
-// about as much as its operations (about 2 nc (1 + DIM) per qp and
-// corner), and the operations lead on hex. A velocity component adds Q
-// values per element where it varies. "full" writes nc + nc*nc rows and
-// reads 4-5 (E, Q) tensors once: bytes lead. Its GEMM (about 2.6 K FMA
-// per hex element, 4.1 K with advection) runs on DMMA in f64, under the
-// bytes; a thread per element walking the Jacobian a column c' per pass
-// (nc sums live) would repeat grad u_h and re-read the inputs nc times,
-// bound by its FMAs (PERF.md). The TPU kernel traced the coefficient
-// expressions into its body; here a torch pre-pass evaluates them
-// (ROADMAP: in-kernel coefficient codegen).
+// What bounds it on the H100: "state" by bytes where a coefficient varies
+// per qp (the grid once, the (E, Q) coefficient tensors, nc rows written
+// per element); with scalars its arithmetic (about nc (2 DIM + 1) FMA per
+// qp and element, 3 nc more in a stage, on DMMA in the octets) weighs
+// about as much as its bytes. A velocity component adds Q values per
+// element where it varies. "full"
+// writes nc + nc*nc rows and reads 4-5 (E, Q) tensors once: bytes lead.
+// Its GEMM (about 2.6 K FMA per hex element, 4.1 K with advection) runs
+// on DMMA in f64, under the bytes; a thread per element walking the
+// Jacobian a column c' per pass (nc sums live) would repeat grad u_h and
+// re-read the inputs nc times, bound by its FMAs (PERF.md). The TPU
+// kernel traced the coefficient expressions into its body; here a torch
+// pre-pass evaluates them (ROADMAP: in-kernel coefficient codegen).
 
 #include <cuda_runtime.h>
 
 #include <type_traits>
 
+#include "thermal_form.cuh"
+
 namespace {
 
-constexpr int kThreads = 256;
 constexpr int kMaxNc = 9;
 
 struct Lattice {
   int off[kMaxNc][3];  // local dof c -> offset on axes 0, 1, 2
+  int coff[kMaxNc];    // local dof c -> its offset on the flat grid
   int stride;
 };
 
@@ -149,140 +170,51 @@ __device__ __forceinline__ void load_tables(const T* __restrict__ phi,
   __syncthreads();
 }
 
+// an element's position (I, J, K) on the element grid (K = 0 in 2D)
+struct ElemPos {
+  int I, J, K;
+};
+
+__device__ __forceinline__ ElemPos elem_pos(const Geometry& g, long long e) {
+  ElemPos p;
+  p.K = (int)(e % g.N2);
+  const long long r = e / g.N2;
+  p.J = (int)(r % g.N1);
+  p.I = (int)(r / g.N1);
+  return p;
+}
+
+// the position of element e + s from that of e, where d = elem_pos(s)
+// (d.J < N1, d.K < N2: one carry per axis at most)
+__device__ __forceinline__ void elem_step(const Geometry& g, const ElemPos& d,
+                                          ElemPos& p) {
+  p.K += d.K;
+  const int ck = p.K >= g.N2;
+  if (ck) p.K -= g.N2;
+  p.J += d.J + ck;
+  const int cj = p.J >= g.N1;
+  if (cj) p.J -= g.N1;
+  p.I += d.I + cj;
+}
+
 // the element's nc grid values, local dofs in dofmap order
-template <typename T, int DIM, int NC>
+template <typename T, int NC>
 __device__ __forceinline__ void gather(const T* __restrict__ grid,
                                        const Lattice& lat,
-                                       const Geometry& g, long long e,
+                                       const Geometry& g, const ElemPos& p,
                                        T uc[NC]) {
-  int I, J, K = 0;
-  if (DIM == 3) {
-    K = (int)(e % g.N2);
-    const long long r = e / g.N2;
-    J = (int)(r % g.N1);
-    I = (int)(r / g.N1);
-  } else {
-    J = (int)(e % g.N1);
-    I = (int)(e / g.N1);
-  }
-  const int p = lat.stride;
+  const int s = lat.stride;
+  const int base = ((s * p.I) * g.G1 + s * p.J) * g.G2 + s * p.K;
 #pragma unroll
-  for (int c = 0; c < NC; ++c) {
-    const long long i = p * I + lat.off[c][0], j = p * J + lat.off[c][1],
-                    k = p * K + lat.off[c][2];
-    uc[c] = grid[(i * g.G1 + j) * g.G2 + k];
-  }
-}
-
-template <typename T, int DIM, int NC, bool TRANSIENT, bool ADVECT>
-__global__ void __launch_bounds__(kThreads)
-    elem_state_kernel(const T* __restrict__ grid, const T* __restrict__ kappa,
-                      T kappa0, int kappa_is_scalar,
-                      const T* __restrict__ mass, T mass0, int mass_is_scalar,
-                      T alpha_u, T alpha_t, Velocity<T> vel,
-                      const T* __restrict__ phi_g,
-                      const T* __restrict__ grad_g,
-                      const T* __restrict__ wts_g, int Q, Lattice lat,
-                      Geometry geo, T* __restrict__ rows) {
-  extern __shared__ unsigned char smem_raw[];
-  T* s = reinterpret_cast<T*>(smem_raw);
-  load_tables<T, DIM, NC>(phi_g, grad_g, wts_g, Q, s);
-  const T* phi = s;
-  const T* grad = s + NC * Q;
-  const T* wts = s + NC * Q * (1 + DIM);
-
-  const long long e = (long long)blockIdx.x * blockDim.x + threadIdx.x;
-  if (e >= geo.E) return;
-  T uc[NC];
-  gather<T, DIM, NC>(grid, lat, geo, e, uc);
-  T r[NC];
-#pragma unroll
-  for (int c = 0; c < NC; ++c) r[c] = T(0);
-  for (int q = 0; q < Q; ++q) {
-    T gq[DIM];
-#pragma unroll
-    for (int d = 0; d < DIM; ++d) {
-      T v = T(0);
-#pragma unroll
-      for (int c = 0; c < NC; ++c) v += grad[(c * Q + q) * DIM + d] * uc[c];
-      gq[d] = v;
-    }
-    const T k = kappa_is_scalar ? kappa0 : kappa[e * Q + q];
-    T flux[DIM];
-    // the source lane of the state part: m alpha_t u_h in a stage, plus
-    // b . grad(alpha_u u_h) with advection
-    [[maybe_unused]] T mu = T(0);
-    if constexpr (TRANSIENT) {
-#pragma unroll
-      for (int d = 0; d < DIM; ++d) gq[d] = alpha_u * gq[d];
-      T uh = T(0);
-#pragma unroll
-      for (int c = 0; c < NC; ++c) uh += phi[c * Q + q] * uc[c];
-      const T m = mass_is_scalar ? mass0 : mass[e * Q + q];
-      mu = m * (alpha_t * uh);
-    }
-#pragma unroll
-    for (int d = 0; d < DIM; ++d) flux[d] = k * gq[d];
-    if constexpr (ADVECT) {
-      const T adv = dot_b<T, DIM>(vel, e * Q + q, gq);
-      mu = TRANSIENT ? mu + adv : adv;
-    }
-    const T w = wts[q];
-#pragma unroll
-    for (int c = 0; c < NC; ++c) {
-      T a = T(0);
-#pragma unroll
-      for (int d = 0; d < DIM; ++d) a += grad[(c * Q + q) * DIM + d] * flux[d];
-      if constexpr (TRANSIENT || ADVECT) a = phi[c * Q + q] * mu + a;
-      r[c] += w * a;
-    }
-  }
-#pragma unroll
-  for (int c = 0; c < NC; ++c) rows[c * geo.E + e] = r[c];
+  for (int c = 0; c < NC; ++c) uc[c] = grid[base + lat.coff[c]];
 }
 
 // ---------------------------------------------------------------------
-// mode "full": linearize each qp once, then contract (the note above)
+// the tile kernel: linearize each qp once, then contract (the note
+// above); mode "full" is its JAC = true instance, mode "state" its JAC =
+// false one
 // ---------------------------------------------------------------------
 
-// f64 contracts on the tensor cores (DMMA, mma.sync m8n8k4); f32, and the
-// host build of the tests, on FMA through the same fragments
-template <typename T>
-struct UseDmma {
-#if defined(__CUDA_ARCH__)
-  static constexpr bool value = std::is_same<T, double>::value;
-#else
-  static constexpr bool value = false;
-#endif
-};
-
-// The GEMM of mode "full", per qp q and element e: the qp scalars A (E x
-// kinds) times the weighted basis products B (kinds x entries), summed
-// over the qps. Jacobian kinds: a = alpha_u dS + alpha_t m with phi_c
-// phi_c'; p_d = alpha_u dK d_d u_h with d_d phi_c phi_c'; kappa =
-// alpha_u K with grad phi_c . grad phi_c'; with advection beta_d =
-// alpha_u b_d with phi_c d_d phi_c'. Residual kinds: s = S + b . grad
-// u_h with phi_c; f_d = K d_d u_h with d_d phi_c. Each m8n8k4 step takes
-// 8 elements (a warp's octet) on M, 4 qps of one kind on K and 8 entries
-// (c nc + c', or c) on N; lane l = 4 g + t holds A[g][t] (element g, qp
-// 4 i + t), the B fragment B[t][g] and the sums C[g][2 t], C[g][2 t + 1].
-template <int DIM, int NC, bool ADVECT>
-struct FullLayout {
-  static constexpr int NKJ = 2 + DIM + (ADVECT ? DIM : 0);
-  static constexpr int NKR = 1 + DIM;
-  static constexpr int NTJ = (NC * NC + 7) / 8;  // fragments of entries
-  static constexpr int NTR = (NC + 7) / 8;
-  static constexpr int NF = NKJ * NTJ + NKR * NTR;  // fragments per 4 qps
-  static constexpr int kTile = kThreads / 4;  // elements: 8 per warp
-  // shared memory, in T: the tables phi, grad, wts (as load_tables), then
-  // from a 16-byte boundary the B fragments of `qic` groups of 4 qps
-  __host__ __device__ static long long fragments(int Q) {
-    return ((long long)NC * Q * (1 + DIM) + Q + 3) / 4 * 4;
-  }
-  __host__ __device__ static long long total(int Q, int qic) {
-    return fragments(Q) + (long long)qic * NF * 32;
-  }
-};
 // the B fragments a block keeps at once, in bytes; past them the qps
 // take several chunks, the fragments rebuilt per chunk
 #ifndef THERMAL_FULL_FRAG_BYTES
@@ -290,213 +222,8 @@ struct FullLayout {
 #endif
 constexpr long long kFragBytes = THERMAL_FULL_FRAG_BYTES;
 
-// the B fragments of qp groups qi0 .. qi0 + nqi - 1, 32 values each, in
-// order (group, Jacobian kind, entry fragment), then (group, residual
-// kind, entry fragment): value l of a fragment is B[l % 4][l / 4]
-// the weighted basis product of Jacobian kind `kind` at qp q, entry (c,
-// c'), and of residual kind `kind` at qp q, row c (FullLayout's kinds)
-template <typename T, int DIM, int NC>
-__device__ __forceinline__ T jac_table(const T* phi, const T* grad,
-                                       const T* wts, int Q, int kind, int q,
-                                       int c, int cp) {
-  const T w = wts[q];
-  const T* gc = grad + (c * Q + q) * DIM;
-  const T* gcp = grad + (cp * Q + q) * DIM;
-  if (kind == 0) return w * (phi[c * Q + q] * phi[cp * Q + q]);
-  if (kind <= DIM) return w * (gc[kind - 1] * phi[cp * Q + q]);
-  if (kind == DIM + 1) {
-    T x = gc[0] * gcp[0];
-    for (int d = 1; d < DIM; ++d) x += gc[d] * gcp[d];
-    return w * x;
-  }
-  return w * (phi[c * Q + q] * gcp[kind - DIM - 2]);
-}
-
-template <typename T, int DIM, int NC>
-__device__ __forceinline__ T res_table(const T* phi, const T* grad,
-                                       const T* wts, int Q, int kind, int q,
-                                       int c) {
-  return wts[q] * (kind == 0 ? phi[c * Q + q]
-                             : grad[(c * Q + q) * DIM + kind - 1]);
-}
-
-// the B fragments of qp groups qi0 .. qi0 + nqi - 1, 32 values each, in
-// order (group, Jacobian kind, entry fragment), then (group, residual
-// kind, entry fragment): value l of a fragment is B[l % 4][l / 4]
-template <typename T, int DIM, int NC, bool ADVECT>
-__device__ __forceinline__ void build_fragments(const T* phi, const T* grad,
-                                                const T* wts, int Q,
-                                                int qi0, int nqi, T* fr) {
-  using F = FullLayout<DIM, NC, ADVECT>;
-  const int n = nqi * F::NF * 32;
-  for (int i = threadIdx.x; i < n; i += kThreads) {
-    const int l = i % 32, f = (i / 32) % F::NF, qq = i / (32 * F::NF);
-    const int q = 4 * (qi0 + qq) + l % 4;
-    T v = T(0);
-    if (q < Q) {
-      if (f < F::NKJ * F::NTJ) {
-        const int k = 8 * (f % F::NTJ) + l / 4;
-        if (k < NC * NC)
-          v = jac_table<T, DIM, NC>(phi, grad, wts, Q, f / F::NTJ, q,
-                                    k / NC, k % NC);
-      } else {
-        const int r = f - F::NKJ * F::NTJ;
-        const int c = 8 * (r % F::NTR) + l / 4;
-        if (c < NC)
-          v = res_table<T, DIM, NC>(phi, grad, wts, Q, r / F::NTR, q, c);
-      }
-    }
-    fr[i] = v;
-  }
-}
-
-// f32's layout: a thread owns one element and half of its entries
-// (kThreads / 2 elements per tile; warp w holds half w % 2 of 32
-// consecutive elements, so its rows are stored 128 bytes at a time), and
-// sums them from the qp scalars and the weighted basis products per qp,
-// kind-major, the entries padded to NN: the same values as the fragments,
-// read as broadcasts. The first half also sums the residual rows.
-template <int DIM, int NC, bool ADVECT>
-struct RowLayout {
-  using F = FullLayout<DIM, NC, ADVECT>;
-  static constexpr int NN = (NC * NC + 7) / 8 * 8;
-  static constexpr int H = NN / 2;  // entries per thread
-  static constexpr int NR = (NC + 3) / 4 * 4;
-  static constexpr int PQ = F::NKJ * NN + F::NKR * NR;  // per qp
-  static constexpr int kTile = kThreads / 2;
-  __host__ __device__ static long long total(int Q, int qc) {
-    return F::fragments(Q) + (long long)qc * PQ;
-  }
-};
-
-// the per-qp products of qps q0 .. q0 + nq - 1 (RowLayout)
-template <typename T, int DIM, int NC, bool ADVECT>
-__device__ __forceinline__ void build_rows(const T* phi, const T* grad,
-                                           const T* wts, int Q, int q0,
-                                           int nq, T* tb) {
-  using R = RowLayout<DIM, NC, ADVECT>;
-  constexpr int NJ = R::F::NKJ * R::NN;
-  const int n = nq * R::PQ;
-  for (int i = threadIdx.x; i < n; i += kThreads) {
-    const int r = i % R::PQ, q = q0 + i / R::PQ;
-    T v = T(0);
-    if (r < NJ) {
-      const int k = r % R::NN;
-      if (k < NC * NC)
-        v = jac_table<T, DIM, NC>(phi, grad, wts, Q, r / R::NN, q, k / NC,
-                                  k % NC);
-    } else {
-      const int c = (r - NJ) % R::NR;
-      if (c < NC)
-        v = res_table<T, DIM, NC>(phi, grad, wts, Q, (r - NJ) / R::NR, q, c);
-    }
-    tb[i] = v;
-  }
-}
-
-// the A values of the 4 lanes of this lane's group (element), FMA path
-template <typename T>
-__device__ __forceinline__ void group_values(const T a, T (&ag)[4],
-                                             const int lane) {
-  if constexpr (!UseDmma<T>::value) {
-#pragma unroll
-    for (int k = 0; k < 4; ++k)
-      ag[k] = __shfl_sync(0xffffffffu, a, (lane & ~3) | k);
-  }
-}
-
-// four consecutive values of shared memory from a 16-byte boundary
-template <typename T>
-__device__ __forceinline__ void load4(const T* p, T (&v)[4]) {
-#if defined(__CUDA_ARCH__)
-  if constexpr (sizeof(T) == 4) {
-    const float4 x = *reinterpret_cast<const float4*>(p);
-    v[0] = x.x;
-    v[1] = x.y;
-    v[2] = x.z;
-    v[3] = x.w;
-  } else {
-    const double2 x = *reinterpret_cast<const double2*>(p);
-    const double2 y = *reinterpret_cast<const double2*>(p + 2);
-    v[0] = x.x;
-    v[1] = x.y;
-    v[2] = y.x;
-    v[3] = y.y;
-  }
-#else
-  for (int k = 0; k < 4; ++k) v[k] = p[k];
-#endif
-}
-
-// one m8n8k4 step, C += A B: on DMMA from this lane's a and fragment
-// value b[lane], else on FMA from the group's A values ag and the B
-// values of lanes 8 t + k (column 2 t) and 8 t + 4 + k (column 2 t + 1)
-template <typename T>
-__device__ __forceinline__ void frag_step(T& c0, T& c1, const T a,
-                                          const T (&ag)[4],
-                                          const T* __restrict__ b,
-                                          const int lane) {
-  if constexpr (UseDmma<T>::value) {
-#if defined(__CUDA_ARCH__)
-    asm("mma.sync.aligned.m8n8k4.row.col.f64.f64.f64.f64 {%0, %1}, {%2}, "
-        "{%3}, {%0, %1};"
-        : "+d"(c0), "+d"(c1)
-        : "d"(a), "d"(b[lane]));
-#endif
-  } else {
-    T b0[4], b1[4];
-    load4<T>(b + 8 * (lane & 3), b0);
-    load4<T>(b + 8 * (lane & 3) + 4, b1);
-#pragma unroll
-    for (int k = 0; k < 4; ++k) {
-      c0 += ag[k] * b0[k];
-      c1 += ag[k] * b1[k];
-    }
-  }
-}
-
-// one lane's inputs at a qp
-template <typename T, int DIM>
-struct QpIn {
-  T s, ds, k, dk, m, b[DIM];
-};
-
-// this lane's qp scalars at qp q from its inputs `in` and corner values
-// uc: the Jacobian kinds aj and the residual kinds ar (FullLayout)
-template <typename T, int DIM, int NC, bool TRANSIENT, bool ADVECT>
-__device__ __forceinline__ void qp_scalars(
-    const QpIn<T, DIM>& in, const T (&uc)[NC], const T* grad, int Q, int q,
-    T alpha_u, T alpha_t, T (&aj)[FullLayout<DIM, NC, ADVECT>::NKJ],
-    T (&ar)[FullLayout<DIM, NC, ADVECT>::NKR]) {
-  T gq[DIM];
-#pragma unroll
-  for (int d = 0; d < DIM; ++d) {
-    T v = T(0);
-#pragma unroll
-    for (int c = 0; c < NC; ++c) v += grad[(c * Q + q) * DIM + d] * uc[c];
-    gq[d] = v;
-  }
-  ar[0] = in.s;
-  if constexpr (ADVECT) {
-    T adv = in.b[0] * gq[0];
-#pragma unroll
-    for (int d = 1; d < DIM; ++d) adv += in.b[d] * gq[d];
-    ar[0] += adv;
-  }
-#pragma unroll
-  for (int d = 0; d < DIM; ++d) ar[1 + d] = in.k * gq[d];
-  const T au = TRANSIENT ? alpha_u : T(1);
-  aj[0] = TRANSIENT ? alpha_u * in.ds + alpha_t * in.m : in.ds;
-#pragma unroll
-  for (int d = 0; d < DIM; ++d) aj[1 + d] = au * (in.dk * gq[d]);
-  aj[1 + DIM] = au * in.k;
-  if constexpr (ADVECT) {
-#pragma unroll
-    for (int d = 0; d < DIM; ++d) aj[2 + DIM + d] = au * in.b[d];
-  }
-}
-
-// the arguments of mode "full"
+// the arguments of both modes ("state": K the kappa tensor, or null and
+// kappa0 its scalar; S, dS, dK and jac unused)
 template <typename T>
 struct FullArgs {
   const T* __restrict__ grid;
@@ -507,6 +234,7 @@ struct FullArgs {
   const T* __restrict__ mass;
   T mass0;
   int mass_is_scalar;
+  T kappa0;
   T alpha_u, alpha_t;
   Velocity<T> vel;
   int Q;
@@ -541,7 +269,7 @@ __device__ __forceinline__ QpIn<T, DIM> load_qp(const FullArgs<T>& a,
   return in;
 }
 
-// f64 (and the f64 FMA form): the fragments' GEMM (FullLayout)
+// "full", f64: the fragments' GEMM (FullLayout)
 template <typename T, int DIM, int NC, bool TRANSIENT, bool ADVECT>
 __device__ __forceinline__ void full_fragments(const FullArgs<T>& a,
                                                const T* phi, const T* grad,
@@ -553,16 +281,20 @@ __device__ __forceinline__ void full_fragments(const FullArgs<T>& a,
   const int lane = threadIdx.x & 31, t = lane & 3;
   const int qis = (Q + 3) / 4, nch = (qis + qic - 1) / qic;
   const long long tiles = (geo.E + F::kTile - 1) / F::kTile;
+  const long long step = (long long)gridDim.x * F::kTile;
+  long long e = (long long)blockIdx.x * F::kTile + (threadIdx.x >> 2);
+  ElemPos pos = elem_pos(geo, e);
+  const ElemPos dpos = elem_pos(geo, step);
   // every thread of the block walks the same tiles (the barriers below)
-  for (long long tile = blockIdx.x; tile < tiles; tile += gridDim.x) {
-    const long long e = tile * F::kTile + (threadIdx.x >> 2);
+  for (long long tile = blockIdx.x; tile < tiles;
+       tile += gridDim.x, e += step, elem_step(geo, dpos, pos)) {
     const bool valid = e < geo.E;
     // the first qp group's inputs, read beside the corner values
     QpIn<T, DIM> cur =
         load_qp<T, DIM, TRANSIENT, ADVECT>(a, valid && t < Q, e * Q + t);
     T uc[NC];
     if (valid) {
-      gather<T, DIM, NC>(a.grid, a.lat, geo, e, uc);
+      gather<T, NC>(a.grid, a.lat, geo, pos, uc);
     } else {
 #pragma unroll
       for (int c = 0; c < NC; ++c) uc[c] = T(0);
@@ -581,8 +313,7 @@ __device__ __forceinline__ void full_fragments(const FullArgs<T>& a,
             a, valid && 4 * qi0 + t < Q, e * Q + 4 * qi0 + t);
       if (nch > 1 || tile == blockIdx.x) {
         if (tile != blockIdx.x || ch > 0) __syncthreads();
-        build_fragments<T, DIM, NC, ADVECT>(phi, grad, wts, Q, qi0, nqi,
-                                            fr);
+        build_fragments<T, DIM, NC, ADVECT>(phi, grad, wts, Q, qi0, nqi, fr);
         __syncthreads();
       }
 #pragma unroll 1
@@ -642,11 +373,11 @@ __device__ __forceinline__ void full_fragments(const FullArgs<T>& a,
   }
 }
 
-// f32: a thread per (element, half of its entries) (RowLayout)
+// "full", f32: a thread per (element, half of its entries) (RowLayout)
 template <typename T, int DIM, int NC, bool TRANSIENT, bool ADVECT>
-__device__ __forceinline__ void full_rows(const FullArgs<T>& a,
-                                          const T* phi, const T* grad,
-                                          const T* wts, T* tb) {
+__device__ __forceinline__ void full_rows(const FullArgs<T>& a, const T* phi,
+                                          const T* grad, const T* wts,
+                                          T* tb) {
   using R = RowLayout<DIM, NC, ADVECT>;
   constexpr int NKJ = R::F::NKJ, NKR = R::F::NKR, NN = R::NN, H = R::H;
   constexpr int NR = R::NR;
@@ -654,13 +385,18 @@ __device__ __forceinline__ void full_rows(const FullArgs<T>& a,
   const Geometry& geo = a.geo;
   const int warp = threadIdx.x >> 5, half = warp & 1;
   const long long tiles = (geo.E + R::kTile - 1) / R::kTile;
-  for (long long tile = blockIdx.x; tile < tiles; tile += gridDim.x) {
-    const long long e = tile * R::kTile + (warp >> 1) * 32 + (threadIdx.x & 31);
+  const long long step = (long long)gridDim.x * R::kTile;
+  long long e = (long long)blockIdx.x * R::kTile + (warp >> 1) * 32 +
+                (threadIdx.x & 31);
+  ElemPos pos = elem_pos(geo, e);
+  const ElemPos dpos = elem_pos(geo, step);
+  for (long long tile = blockIdx.x; tile < tiles;
+       tile += gridDim.x, e += step, elem_step(geo, dpos, pos)) {
     const bool valid = e < geo.E;
     QpIn<T, DIM> cur = load_qp<T, DIM, TRANSIENT, ADVECT>(a, valid, e * Q);
     T uc[NC];
     if (valid) {
-      gather<T, DIM, NC>(a.grid, a.lat, geo, e, uc);
+      gather<T, NC>(a.grid, a.lat, geo, pos, uc);
     } else {
 #pragma unroll
       for (int c = 0; c < NC; ++c) uc[c] = T(0);
@@ -731,16 +467,420 @@ __device__ __forceinline__ void full_rows(const FullArgs<T>& a,
   }
 }
 
-// f64 steps the fragments on DMMA; f32 takes a thread per (element, half
-// of its entries), whose FMAs read the products as broadcasts
+// "state": a thread per element, kElems elements per thread (kThreads
+// apart), each qp's table values and weighted products in one block read
+// as broadcasts, 16 bytes at a time, by both elements: grad u_h (and u_h
+// in a stage) from the element's corner values, the state part's
+// residual kinds (the source lane s and the flux f_d), then the rows
+// contracted with the products w phi_c, w d_d phi_c
+template <typename T, int DIM, int NC, bool TRANSIENT = false,
+          bool ADVECT = false>
+struct StateLayout {
+  static constexpr int NKR = 1 + DIM;
+  static constexpr int NR = (NC + 3) / 4 * 4;
+  // per qp: grad (c, d) c-major, then phi (c), padded; then the products
+  // of the residual kinds, NR rows each
+  static constexpr int NL = (NC * (DIM + 1) + 3) / 4 * 4;
+  static constexpr int PQ = NL + NKR * NR;
+  // elements per thread: f64 two (each table value feeds both) but one
+  // at a stage with advection (two spill there), f32 one (4 blocks per
+  // SM; its (E, Q) reads stay in L1)
+  static constexpr int kElems =
+      sizeof(T) == 8 && !(TRANSIENT && ADVECT) ? 2 : 1;
+  static constexpr int kTile = kThreads * kElems;
+};
+
+// the per-qp blocks of qps q0 .. q0 + nq - 1 (StateLayout)
+template <typename T, int DIM, int NC>
+__device__ __forceinline__ void build_state_rows(const T* phi, const T* grad,
+                                                 const T* wts, int Q, int q0,
+                                                 int nq, T* tb) {
+  using L = StateLayout<T, DIM, NC>;
+  const int n = nq * L::PQ;
+  for (int i = threadIdx.x; i < n; i += kThreads) {
+    const int r = i % L::PQ, q = q0 + i / L::PQ;
+    T v = T(0);
+    if (r < NC * DIM) {
+      v = grad[((r / DIM) * Q + q) * DIM + r % DIM];
+    } else if (r < NC * (DIM + 1)) {
+      v = phi[(r - NC * DIM) * Q + q];
+    } else if (r >= L::NL) {
+      const int c = (r - L::NL) % L::NR;
+      if (c < NC)
+        v = res_table<T, DIM, NC>(phi, grad, wts, Q, (r - L::NL) / L::NR, q,
+                                  c);
+    }
+    tb[i] = v;
+  }
+}
+
+// the state part's inputs at a qp: kappa; m in a stage; b with advection
+template <typename T, int DIM>
+struct StateIn {
+  T k, m, b[DIM];
+};
+
+template <typename T, int DIM, bool TRANSIENT, bool ADVECT>
+__device__ __forceinline__ StateIn<T, DIM> load_state(const FullArgs<T>& a,
+                                                      const bool on,
+                                                      const long long eq) {
+  StateIn<T, DIM> in;
+  in.k = in.m = T(0);
+#pragma unroll
+  for (int d = 0; d < DIM; ++d) in.b[d] = T(0);
+  if (on) {
+    in.k = a.K ? a.K[eq] : a.kappa0;
+    if constexpr (TRANSIENT) in.m = a.mass_is_scalar ? a.mass0 : a.mass[eq];
+    if constexpr (ADVECT) {
+#pragma unroll
+      for (int d = 0; d < DIM; ++d) in.b[d] = a.vel.at(d, eq);
+    }
+  }
+  return in;
+}
+
+template <typename T, int DIM, int NC, bool TRANSIENT, bool ADVECT>
+__device__ __forceinline__ void state_rows(const FullArgs<T>& a,
+                                           const T* phi, const T* grad,
+                                           const T* wts, T* tb) {
+  using L = StateLayout<T, DIM, NC, TRANSIENT, ADVECT>;
+  constexpr int NR = L::NR, NL = L::NL, EL = L::kElems;
+  // the source lane is 0 in a steady call without advection
+  constexpr int K0 = TRANSIENT || ADVECT ? 0 : 1;
+  const int Q = a.Q, qc = a.qc, nch = (Q + qc - 1) / qc;
+  const Geometry& geo = a.geo;
+  const long long tiles = (geo.E + L::kTile - 1) / L::kTile;
+  const long long step = (long long)gridDim.x * L::kTile;
+  long long e0 = (long long)blockIdx.x * L::kTile + threadIdx.x;
+  ElemPos pos[EL];
+#pragma unroll
+  for (int j = 0; j < EL; ++j) pos[j] = elem_pos(geo, e0 + j * kThreads);
+  const ElemPos dpos = elem_pos(geo, step);
+  for (long long tile = blockIdx.x; tile < tiles; tile += gridDim.x) {
+    bool valid[EL];
+    T uc[EL][NC], res[EL][NC];
+    StateIn<T, DIM> cur[EL];
+#pragma unroll
+    for (int j = 0; j < EL; ++j) {
+      const long long e = e0 + j * kThreads;
+      valid[j] = e < geo.E;
+      cur[j] = load_state<T, DIM, TRANSIENT, ADVECT>(a, valid[j], e * Q);
+      if (valid[j]) {
+        gather<T, NC>(a.grid, a.lat, geo, pos[j], uc[j]);
+      } else {
+#pragma unroll
+        for (int c = 0; c < NC; ++c) uc[j][c] = T(0);
+      }
+#pragma unroll
+      for (int c = 0; c < NC; ++c) res[j][c] = T(0);
+    }
+#pragma unroll 1
+    for (int ch = 0; ch < nch; ++ch) {
+      const int q0 = ch * qc, nq = Q - q0 < qc ? Q - q0 : qc;
+      if (ch > 0) {
+#pragma unroll
+        for (int j = 0; j < EL; ++j)
+          cur[j] = load_state<T, DIM, TRANSIENT, ADVECT>(
+              a, valid[j], (e0 + j * kThreads) * Q + q0);
+      }
+      if (nch > 1 || tile == blockIdx.x) {
+        if (tile != blockIdx.x || ch > 0) __syncthreads();
+        build_state_rows<T, DIM, NC>(phi, grad, wts, Q, q0, nq, tb);
+        __syncthreads();
+      }
+#pragma unroll 1
+      for (int qq = 0; qq < nq; ++qq) {
+        const T* tq = tb + (long long)qq * L::PQ;
+        StateIn<T, DIM> in[EL];
+#pragma unroll
+        for (int j = 0; j < EL; ++j) {
+          in[j] = cur[j];
+          cur[j] = load_state<T, DIM, TRANSIENT, ADVECT>(
+              a, valid[j] && qq + 1 < nq,
+              (e0 + j * kThreads) * Q + q0 + qq + 1);
+        }
+        // linearize: grad u_h, c-major as the plain version sums it (and
+        // u_h), from the block's table values
+        T gq[EL][DIM], uh[EL];
+#pragma unroll
+        for (int j = 0; j < EL; ++j) {
+          uh[j] = T(0);
+#pragma unroll
+          for (int d = 0; d < DIM; ++d) gq[j][d] = T(0);
+        }
+#pragma unroll
+        for (int i4 = 0; i4 < NL / 4; ++i4) {
+          T v[4];
+          load4<T>(tq + 4 * i4, v);
+#pragma unroll
+          for (int i = 0; i < 4; ++i) {
+            const int r = 4 * i4 + i;
+#pragma unroll
+            for (int j = 0; j < EL; ++j) {
+              if (r < NC * DIM)
+                gq[j][r % DIM] += v[i] * uc[j][r / DIM];
+              else if (TRANSIENT && r < NC * (DIM + 1))
+                uh[j] += v[i] * uc[j][r - NC * DIM];
+            }
+          }
+        }
+        // the residual kinds, in the plain version's order
+        T ar[EL][1 + DIM];
+#pragma unroll
+        for (int j = 0; j < EL; ++j) {
+          T s = T(0);
+          if constexpr (TRANSIENT) {
+#pragma unroll
+            for (int d = 0; d < DIM; ++d) gq[j][d] = a.alpha_u * gq[j][d];
+            s = in[j].m * (a.alpha_t * uh[j]);
+          }
+#pragma unroll
+          for (int d = 0; d < DIM; ++d) ar[j][1 + d] = in[j].k * gq[j][d];
+          if constexpr (ADVECT) {
+            T adv = in[j].b[0] * gq[j][0];
+#pragma unroll
+            for (int d = 1; d < DIM; ++d) adv += in[j].b[d] * gq[j][d];
+            s = TRANSIENT ? s + adv : adv;
+          }
+          ar[j][0] = s;
+        }
+        // contract
+#pragma unroll
+        for (int k = K0; k < 1 + DIM; ++k)
+#pragma unroll
+          for (int i4 = 0; i4 < NR / 4; ++i4) {
+            T v[4];
+            load4<T>(tq + NL + k * NR + 4 * i4, v);
+#pragma unroll
+            for (int i = 0; i < 4; ++i)
+#pragma unroll
+              for (int j = 0; j < EL; ++j)
+                if (4 * i4 + i < NC) res[j][4 * i4 + i] += ar[j][k] * v[i];
+          }
+      }
+    }
+#pragma unroll
+    for (int j = 0; j < EL; ++j) {
+      if (valid[j]) {
+        const long long e = e0 + j * kThreads;
+#pragma unroll
+        for (int c = 0; c < NC; ++c) a.rows[c * geo.E + e] = res[j][c];
+      }
+      elem_step(geo, dpos, pos[j]);
+    }
+    e0 += step;
+  }
+}
+
+// "state", f64: the octet layout of "full" with the linearization on
+// DMMA too. Lane 4 g + t of a warp's octet loads only the corners its A
+// fragment holds (4 s + t of element g, s < KS); per group of 4 qps the
+// octet's grad u_h (and u_h in a stage) is one product, corner values (8
+// x NC) times the unweighted tables (NC x 8 columns per pair of kinds,
+// column 2 t + i kind 2 p + i at qp t), so the C fragment of pair p
+// hands each lane its own qp's two kinds in the A layout of the
+// contraction; then the residual kinds step the rows through the
+// weighted products as in "full". Fragments per group: NLP KS
+// linearization ones, then NKR NTR residual ones. The layout needs nc a
+// multiple of 8 (hex): p2's 9 corners and rows would take a third corner
+// step and a second row fragment for one value each (StateRole).
+template <int DIM, int NC, bool TRANSIENT>
+struct StateFrags {
+  static constexpr int NLK = DIM + (TRANSIENT ? 1 : 0);  // grad u_h, u_h
+  static constexpr int NLP = (NLK + 1) / 2;              // pairs of kinds
+  static constexpr int KS = NC / 4;  // corner steps
+  static constexpr int NKR = 1 + DIM;
+  static constexpr int NTR = NC / 8;  // row fragments
+  static constexpr int NLF = NLP * KS;
+  static constexpr int NF = NLF + NKR * NTR;
+  // a tile: 32 consecutive elements per warp, 4 octets; the warp's rows
+  // staged in shared memory (NC x 33 values a warp) for 256-byte stores
+  static constexpr int kWarpOctets = 4;
+  static constexpr int kTile = kThreads;
+  static constexpr int kStage = NC * 33;
+};
+
+// the fragments of qp groups qi0 .. qi0 + nqi - 1 (StateFrags): value l of
+// a fragment is B[l % 4][l / 4]
+template <typename T, int DIM, int NC, bool TRANSIENT>
+__device__ __forceinline__ void build_state_fragments(const T* phi,
+                                                      const T* grad,
+                                                      const T* wts, int Q,
+                                                      int qi0, int nqi,
+                                                      T* fr) {
+  using L = StateFrags<DIM, NC, TRANSIENT>;
+  const int n = nqi * L::NF * 32;
+  for (int i = threadIdx.x; i < n; i += kThreads) {
+    const int l = i % 32, f = (i / 32) % L::NF, qq = i / (32 * L::NF);
+    T v = T(0);
+    if (f < L::NLF) {
+      const int c = 4 * (f % L::KS) + l % 4, col = l / 4;
+      const int q = 4 * (qi0 + qq) + col / 2, kind = 2 * (f / L::KS) + col % 2;
+      if (c < NC && q < Q && kind < L::NLK)
+        v = kind < DIM ? grad[(c * Q + q) * DIM + kind] : phi[c * Q + q];
+    } else {
+      const int r = f - L::NLF;
+      const int c = 8 * (r % L::NTR) + l / 4, q = 4 * (qi0 + qq) + l % 4;
+      if (c < NC && q < Q)
+        v = res_table<T, DIM, NC>(phi, grad, wts, Q, r / L::NTR, q, c);
+    }
+    fr[i] = v;
+  }
+}
+
+template <typename T, int DIM, int NC, bool TRANSIENT, bool ADVECT>
+__device__ __forceinline__ void state_fragments(const FullArgs<T>& a,
+                                                const T* phi, const T* grad,
+                                                const T* wts, T* fr,
+                                                T* stage) {
+  using L = StateFrags<DIM, NC, TRANSIENT>;
+  constexpr int NLP = L::NLP, KS = L::KS, NTR = L::NTR, NLF = L::NLF;
+  // the source lane is 0 in a steady call without advection
+  constexpr int K0 = TRANSIENT || ADVECT ? 0 : 1;
+  const int Q = a.Q, qic = a.qc;
+  const Geometry& geo = a.geo;
+  const int lane = threadIdx.x & 31, t = lane & 3, g = lane >> 2;
+  const int warp = threadIdx.x >> 5;
+  T* st = stage + warp * L::kStage;  // this warp's rows, [c][33]
+  const int qis = (Q + 3) / 4, nch = (qis + qic - 1) / qic;
+  const long long tiles = (geo.E + L::kTile - 1) / L::kTile;
+  const long long step = (long long)gridDim.x * L::kTile;
+  // octet m's element of this lane: e0 + 8 m, e0 = the warp's first + g
+  long long e0 = (long long)blockIdx.x * L::kTile + 32 * warp + g;
+  ElemPos pos0 = elem_pos(geo, e0);
+  const ElemPos dpos = elem_pos(geo, step), d8 = elem_pos(geo, 8);
+  // every thread of the block walks the same tiles (the barriers below)
+  for (long long tile = blockIdx.x; tile < tiles;
+       tile += gridDim.x, e0 += step, elem_step(geo, dpos, pos0)) {
+    static_assert(NC % 8 == 0, "whole corner steps and row fragments");
+    ElemPos pos = pos0;
+#pragma unroll 1
+    for (int m = 0; m < L::kWarpOctets; ++m, elem_step(geo, d8, pos)) {
+      const long long e = e0 + 8 * m;
+      const bool valid = e < geo.E;
+      StateIn<T, DIM> cur = load_state<T, DIM, TRANSIENT, ADVECT>(
+          a, valid && t < Q, e * Q + t);
+      // this lane's corner values: the A fragments of the linearization
+      // (corner 4 s + t)
+      T ua[KS], ug[KS][4];
+      const int s0 = a.lat.stride;
+      const int base =
+          ((s0 * pos.I) * geo.G1 + s0 * pos.J) * geo.G2 + s0 * pos.K;
+#pragma unroll
+      for (int s = 0; s < KS; ++s) {
+        ua[s] = valid ? a.grid[base + a.lat.coff[4 * s + t]] : T(0);
+        group_values<T>(ua[s], ug[s], lane);
+      }
+      T cr[NTR][2];
+#pragma unroll
+      for (int n = 0; n < NTR; ++n) cr[n][0] = cr[n][1] = T(0);
+#pragma unroll 1
+      for (int ch = 0; ch < nch; ++ch) {
+        const int qi0 = ch * qic;
+        const int nqi = qis - qi0 < qic ? qis - qi0 : qic;
+        if (ch > 0)
+          cur = load_state<T, DIM, TRANSIENT, ADVECT>(
+              a, valid && 4 * qi0 + t < Q, e * Q + 4 * qi0 + t);
+        if (nch > 1 || (tile == blockIdx.x && m == 0)) {
+          if (tile != blockIdx.x || m > 0 || ch > 0) __syncthreads();
+          build_state_fragments<T, DIM, NC, TRANSIENT>(phi, grad, wts, Q,
+                                                       qi0, nqi, fr);
+          __syncthreads();
+        }
+#pragma unroll 1
+        for (int qq = 0; qq < nqi; ++qq) {
+          const int q = 4 * (qi0 + qq) + t;
+          const StateIn<T, DIM> nxt = load_state<T, DIM, TRANSIENT, ADVECT>(
+              a, valid && qq + 1 < nqi && q + 4 < Q, e * Q + q + 4);
+          const T* fq = fr + (long long)qq * L::NF * 32;
+          // linearize: pair p's C fragment holds kinds 2 p, 2 p + 1 at
+          // this lane's qp
+          T lc[NLP][2];
+#pragma unroll
+          for (int p = 0; p < NLP; ++p) {
+            lc[p][0] = lc[p][1] = T(0);
+#pragma unroll
+            for (int s = 0; s < KS; ++s)
+              frag_step<T>(lc[p][0], lc[p][1], ua[s], ug[s],
+                           fq + (p * KS + s) * 32, lane);
+          }
+          T gq[DIM];
+#pragma unroll
+          for (int d = 0; d < DIM; ++d) gq[d] = lc[d / 2][d % 2];
+          // the residual kinds, in the plain version's order
+          T ar[1 + DIM];
+          T sl = T(0);
+          if constexpr (TRANSIENT) {
+#pragma unroll
+            for (int d = 0; d < DIM; ++d) gq[d] = a.alpha_u * gq[d];
+            sl = cur.m * (a.alpha_t * lc[DIM / 2][DIM % 2]);
+          }
+#pragma unroll
+          for (int d = 0; d < DIM; ++d) ar[1 + d] = cur.k * gq[d];
+          if constexpr (ADVECT) {
+            T adv = cur.b[0] * gq[0];
+#pragma unroll
+            for (int d = 1; d < DIM; ++d) adv += cur.b[d] * gq[d];
+            sl = TRANSIENT ? sl + adv : adv;
+          }
+          ar[0] = sl;
+          cur = nxt;
+          // contract with the weighted products of these 4 qps
+#pragma unroll
+          for (int k = K0; k < 1 + DIM; ++k) {
+            T ag[4];
+            group_values<T>(ar[k], ag, lane);
+#pragma unroll
+            for (int n = 0; n < NTR; ++n)
+              frag_step<T>(cr[n][0], cr[n][1], ar[k], ag,
+                           fq + (NLF + k * NTR + n) * 32, lane);
+          }
+        }
+      }
+      // rows 8 n + 2 t + i of element g, to the warp's stage
+#pragma unroll
+      for (int n = 0; n < NTR; ++n)
+#pragma unroll
+        for (int i = 0; i < 2; ++i)
+          st[(8 * n + 2 * t + i) * 33 + 8 * m + g] = cr[n][i];
+    }
+    // the warp's 32 elements, a row at a time: 256 bytes per store
+    __syncwarp();
+    const long long ew = e0 - g + lane;
+    if (ew < geo.E) {
+#pragma unroll
+      for (int c = 0; c < NC; ++c) a.rows[c * geo.E + ew] = st[c * 33 + lane];
+    }
+    __syncwarp();
+  }
+}
+
+// "full" f64 steps the fragments on DMMA; f32 takes a thread per half of
+// an element's entries, whose FMAs read the products as broadcasts
 template <typename T>
 struct RowsPath {
   static constexpr bool value = std::is_same<T, float>::value;
 };
 
-template <typename T, int DIM, int NC, bool TRANSIENT, bool ADVECT>
-__global__ void __launch_bounds__(kThreads, 2)
-    elem_full_kernel(const FullArgs<T> a, const T* __restrict__ phi_g,
+// "state": octets on DMMA where the type has it and one row fragment
+// holds all nc rows (hex f64), else a thread per element; and the blocks
+// per SM its registers must allow (octets: a lane's few fragment values;
+// f32 one element a thread; f64 two)
+template <typename T, int NC>
+struct StateRole {
+  static constexpr bool kOctets = std::is_same<T, double>::value && NC == 8;
+  static constexpr int kMinBlocks = kOctets || sizeof(T) == 4 ? 4 : 2;
+};
+
+// "full": blocks per SM the registers must allow, 2 (128 registers: its
+// 16-22 sums per lane)
+constexpr int kFullMinBlocks = 2;
+
+template <typename T, int DIM, int NC, bool TRANSIENT, bool ADVECT, bool JAC>
+__global__ void __launch_bounds__(kThreads,
+                                  JAC ? kFullMinBlocks
+                                      : StateRole<T, NC>::kMinBlocks)
+    elem_tile_kernel(const FullArgs<T> a, const T* __restrict__ phi_g,
                      const T* __restrict__ grad_g,
                      const T* __restrict__ wts_g) {
   using F = FullLayout<DIM, NC, ADVECT>;
@@ -751,7 +891,13 @@ __global__ void __launch_bounds__(kThreads, 2)
   const T* grad = s + NC * a.Q;
   const T* wts = s + NC * a.Q * (1 + DIM);
   T* products = s + F::fragments(a.Q);
-  if constexpr (RowsPath<T>::value)
+  if constexpr (!JAC && !StateRole<T, NC>::kOctets)
+    state_rows<T, DIM, NC, TRANSIENT, ADVECT>(a, phi, grad, wts, products);
+  else if constexpr (!JAC)
+    state_fragments<T, DIM, NC, TRANSIENT, ADVECT>(
+        a, phi, grad, wts, products,
+        products + (long long)a.qc * StateFrags<DIM, NC, TRANSIENT>::NF * 32);
+  else if constexpr (RowsPath<T>::value)
     full_rows<T, DIM, NC, TRANSIENT, ADVECT>(a, phi, grad, wts, products);
   else
     full_fragments<T, DIM, NC, TRANSIENT, ADVECT>(a, phi, grad, wts,
@@ -771,14 +917,10 @@ bool make_geometry(const int* lattice, int nc, int dim, int stride, int N0,
   geo.G1 = stride * N1 + 1;
   geo.G2 = dim == 3 ? stride * N2 + 1 : 1;
   geo.E = (long long)N0 * N1 * geo.N2;
+  for (int c = 0; c < nc; ++c)
+    lat.coff[c] = (lat.off[c][0] * geo.G1 + lat.off[c][1]) * geo.G2 +
+                  lat.off[c][2];
   return true;
-}
-
-int blocks_for(long long E) { return (int)((E + kThreads - 1) / kThreads); }
-
-template <typename T, int DIM, int NC>
-size_t smem_bytes(int Q) {
-  return sizeof(T) * (size_t)(NC * Q * (1 + DIM) + Q);
 }
 
 template <typename T>
@@ -791,55 +933,38 @@ Velocity<T> make_velocity(const void* const v[3], const double s[3]) {
   return b;
 }
 
-template <typename T, int DIM, int NC>
-int launch_state_case(const void* grid, const void* kappa, double kappa0,
-                      int kappa_is_scalar, const void* mass, double mass0,
-                      int mass_is_scalar, double alpha_u, double alpha_t,
-                      int transient, int advect, const Velocity<T>& vel,
-                      const void* phi, const void* grad, const void* wts,
-                      int Q, const Lattice& lat, const Geometry& geo,
-                      void* rows, void* stream) {
-  auto kernel =
-      advect ? (transient ? elem_state_kernel<T, DIM, NC, true, true>
-                          : elem_state_kernel<T, DIM, NC, false, true>)
-             : (transient ? elem_state_kernel<T, DIM, NC, true, false>
-                          : elem_state_kernel<T, DIM, NC, false, false>);
-  kernel<<<blocks_for(geo.E), kThreads, smem_bytes<T, DIM, NC>(Q),
-           (cudaStream_t)stream>>>(
-      (const T*)grid, (const T*)kappa, (T)kappa0, kappa_is_scalar,
-      (const T*)mass, (T)mass0, mass_is_scalar, (T)alpha_u, (T)alpha_t, vel,
-      (const T*)phi, (const T*)grad, (const T*)wts, Q, lat, geo, (T*)rows);
-  return (int)cudaGetLastError();
-}
-
-
-// what a launch returns where one chunk of mode "full" does not fit the
-// card's shared memory per block (the wrapper raises on it)
+// what a launch returns where one chunk does not fit the card's shared
+// memory per block (the wrapper raises on it)
 constexpr int kErrSharedMemory = -1;
 
-template <typename T, int DIM, int NC, bool TRANSIENT, bool ADVECT>
-int launch_full_kernel(const void* grid, const void* S, const void* dS,
-                       const void* K, const void* dK, const void* mass,
-                       double mass0, int mass_is_scalar, double alpha_u,
-                       double alpha_t, const Velocity<T>& vel,
-                       const void* phi, const void* grad, const void* wts,
-                       int Q, const Lattice& lat, const Geometry& geo,
-                       void* rows, void* jac, void* stream) {
+template <typename T, int DIM, int NC, bool TRANSIENT, bool ADVECT, bool JAC>
+int launch_tile(const FullArgs<T>& args, const void* phi, const void* grad,
+                const void* wts, void* stream) {
   using F = FullLayout<DIM, NC, ADVECT>;
   using R = RowLayout<DIM, NC, ADVECT>;
-  constexpr bool kRows = RowsPath<T>::value;
-  auto kernel = elem_full_kernel<T, DIM, NC, TRANSIENT, ADVECT>;
+  using S = StateLayout<T, DIM, NC, TRANSIENT, ADVECT>;
+  using SF = StateFrags<DIM, NC, TRANSIENT>;
+  // fragments of qp groups of 4 ("full" f64, "state" octets), else per-qp
+  // blocks of qps
+  constexpr bool kFrag =
+      JAC ? !RowsPath<T>::value : StateRole<T, NC>::kOctets;
+  constexpr int kPer = kFrag ? (JAC ? F::NF : SF::NF) * 32
+                             : (JAC ? R::PQ : S::PQ);
+  constexpr long long kTile =
+      kFrag ? (JAC ? F::kTile : SF::kTile) : (JAC ? R::kTile : S::kTile);
+  auto kernel = elem_tile_kernel<T, DIM, NC, TRANSIENT, ADVECT, JAC>;
+  const int Q = args.Q;
   // the chunk, the shared memory and the resident blocks of the last Q
   // this kernel took, reused while it repeats
   static int last_q = 0, qc = 0, per_sm = 0, sms = 0;
   static size_t smem = 0;
   if (Q != last_q) {
-    // fragments: qp groups of 4; rows: qps
-    const int units = kRows ? Q : (Q + 3) / 4;
-    const long long fit =
-        kFragBytes / (long long)(sizeof(T) * (kRows ? R::PQ : F::NF * 32));
+    const int units = kFrag ? (Q + 3) / 4 : Q;
+    const long long fit = kFragBytes / (long long)(sizeof(T) * kPer);
     qc = fit < 1 ? 1 : (fit < units ? (int)fit : units);
-    smem = sizeof(T) * (size_t)(kRows ? R::total(Q, qc) : F::total(Q, qc));
+    smem = sizeof(T) * (size_t)(F::fragments(Q) + (long long)qc * kPer +
+                                (kFrag && !JAC ? (kThreads / 32) * SF::kStage
+                                               : 0));
     int dev = 0, optin = 0;
     cudaGetDevice(&dev);
     cudaDeviceGetAttribute(&optin, cudaDevAttrMaxSharedMemoryPerBlockOptin,
@@ -857,28 +982,11 @@ int launch_full_kernel(const void* grid, const void* S, const void* dS,
     if (err != cudaSuccess) return (int)err;
     last_q = Q;
   }
-  FullArgs<T> a;
-  a.grid = (const T*)grid;
-  a.S = (const T*)S;
-  a.dS = (const T*)dS;
-  a.K = (const T*)K;
-  a.dK = (const T*)dK;
-  a.mass = (const T*)mass;
-  a.mass0 = (T)mass0;
-  a.mass_is_scalar = mass_is_scalar;
-  a.alpha_u = (T)alpha_u;
-  a.alpha_t = (T)alpha_t;
-  a.vel = vel;
-  a.Q = Q;
+  FullArgs<T> a = args;
   a.qc = qc;
-  a.lat = lat;
-  a.geo = geo;
-  a.rows = (T*)rows;
-  a.jac = (T*)jac;
   // a persistent grid: each block builds the products once and walks
   // tiles blockIdx.x, blockIdx.x + gridDim.x, ...
-  const long long tile = kRows ? R::kTile : F::kTile;
-  const long long tiles = (geo.E + tile - 1) / tile;
+  const long long tiles = (a.geo.E + kTile - 1) / kTile;
   const long long fill = (long long)sms * (per_sm < 1 ? 1 : per_sm);
   const unsigned blocks = (unsigned)(tiles < fill ? tiles : fill);
   kernel<<<blocks, kThreads, smem, (cudaStream_t)stream>>>(
@@ -886,23 +994,52 @@ int launch_full_kernel(const void* grid, const void* S, const void* dS,
   return (int)cudaGetLastError();
 }
 
-template <typename T, int DIM, int NC>
-int launch_full_case(const void* grid, const void* S, const void* dS,
-                     const void* K, const void* dK, const void* mass,
-                     double mass0, int mass_is_scalar, double alpha_u,
-                     double alpha_t, int transient, int advect,
-                     const Velocity<T>& vel, const void* phi,
-                     const void* grad, const void* wts, int Q,
-                     const Lattice& lat, const Geometry& geo, void* rows,
-                     void* jac, void* stream) {
-  auto launch =
-      advect ? (transient ? launch_full_kernel<T, DIM, NC, true, true>
-                          : launch_full_kernel<T, DIM, NC, false, true>)
-             : (transient ? launch_full_kernel<T, DIM, NC, true, false>
-                          : launch_full_kernel<T, DIM, NC, false, false>);
-  return launch(grid, S, dS, K, dK, mass, mass0, mass_is_scalar, alpha_u,
-                alpha_t, vel, phi, grad, wts, Q, lat, geo, rows, jac,
-                stream);
+// the instance of (dim, nc) and the flags: the hex p1 (3, 8) and p2
+// quad (2, 9) kernels
+template <typename T, bool JAC>
+int launch_case(const FullArgs<T>& a, int transient, int advect, int nc,
+                int dim, const void* phi, const void* grad, const void* wts,
+                void* stream) {
+  using L = int (*)(const FullArgs<T>&, const void*, const void*,
+                    const void*, void*);
+  L launch = nullptr;
+  if (dim == 3 && nc == 8)
+    launch = advect ? (transient ? launch_tile<T, 3, 8, true, true, JAC>
+                                 : launch_tile<T, 3, 8, false, true, JAC>)
+                    : (transient ? launch_tile<T, 3, 8, true, false, JAC>
+                                 : launch_tile<T, 3, 8, false, false, JAC>);
+  if (dim == 2 && nc == 9)
+    launch = advect ? (transient ? launch_tile<T, 2, 9, true, true, JAC>
+                                 : launch_tile<T, 2, 9, false, true, JAC>)
+                    : (transient ? launch_tile<T, 2, 9, true, false, JAC>
+                                 : launch_tile<T, 2, 9, false, false, JAC>);
+  if (!launch) return (int)cudaErrorInvalidValue;
+  return launch(a, phi, grad, wts, stream);
+}
+
+// the arguments both modes share: the stage, the velocity, the geometry
+template <typename T>
+bool common_args(const void* grid, const void* mass, double mass0,
+                 int mass_is_scalar, double alpha_u, double alpha_t,
+                 const void* const v[3], const double vs[3], int Q, int nc,
+                 int dim, const int* lattice, int stride, int N0, int N1,
+                 int N2, void* rows, FullArgs<T>& a) {
+  if (!make_geometry(lattice, nc, dim, stride, N0, N1, N2, a.lat, a.geo))
+    return false;
+  a.grid = (const T*)grid;
+  a.S = a.dS = a.K = a.dK = nullptr;
+  a.mass = (const T*)mass;
+  a.mass0 = (T)mass0;
+  a.mass_is_scalar = mass_is_scalar;
+  a.kappa0 = T(0);
+  a.alpha_u = (T)alpha_u;
+  a.alpha_t = (T)alpha_t;
+  a.vel = make_velocity<T>(v, vs);
+  a.Q = Q;
+  a.qc = 0;
+  a.rows = (T*)rows;
+  a.jac = nullptr;
+  return true;
 }
 
 template <typename T>
@@ -914,22 +1051,15 @@ int launch_state(const void* grid, const void* kappa, double kappa0,
                  const void* wts, int Q, int nc, int dim, const int* lattice,
                  int stride, int N0, int N1, int N2, void* rows,
                  void* stream) {
-  Lattice lat;
-  Geometry geo;
-  if (!make_geometry(lattice, nc, dim, stride, N0, N1, N2, lat, geo))
+  FullArgs<T> a;
+  if (!common_args<T>(grid, mass, mass0, mass_is_scalar, alpha_u, alpha_t, v,
+                      vs, Q, nc, dim, lattice, stride, N0, N1, N2, rows, a))
     return (int)cudaErrorInvalidValue;
-  const Velocity<T> vel = make_velocity<T>(v, vs);
-  if (dim == 3 && nc == 8)
-    return launch_state_case<T, 3, 8>(
-        grid, kappa, kappa0, kappa_is_scalar, mass, mass0, mass_is_scalar,
-        alpha_u, alpha_t, transient, advect, vel, phi, grad, wts, Q, lat,
-        geo, rows, stream);
-  if (dim == 2 && nc == 9)
-    return launch_state_case<T, 2, 9>(
-        grid, kappa, kappa0, kappa_is_scalar, mass, mass0, mass_is_scalar,
-        alpha_u, alpha_t, transient, advect, vel, phi, grad, wts, Q, lat,
-        geo, rows, stream);
-  return (int)cudaErrorInvalidValue;
+  // a scalar kappa is a null pointer from here on
+  a.K = kappa_is_scalar ? nullptr : (const T*)kappa;
+  a.kappa0 = (T)kappa0;
+  return launch_case<T, false>(a, transient, advect, nc, dim, phi, grad, wts,
+                               stream);
 }
 
 template <typename T>
@@ -941,22 +1071,17 @@ int launch_full(const void* grid, const void* S, const void* dS,
                 const void* wts, int Q, int nc, int dim, const int* lattice,
                 int stride, int N0, int N1, int N2, void* rows, void* jac,
                 void* stream) {
-  Lattice lat;
-  Geometry geo;
-  if (!make_geometry(lattice, nc, dim, stride, N0, N1, N2, lat, geo))
+  FullArgs<T> a;
+  if (!common_args<T>(grid, mass, mass0, mass_is_scalar, alpha_u, alpha_t, v,
+                      vs, Q, nc, dim, lattice, stride, N0, N1, N2, rows, a))
     return (int)cudaErrorInvalidValue;
-  const Velocity<T> vel = make_velocity<T>(v, vs);
-  if (dim == 3 && nc == 8)
-    return launch_full_case<T, 3, 8>(
-        grid, S, dS, K, dK, mass, mass0, mass_is_scalar, alpha_u, alpha_t,
-        transient, advect, vel, phi, grad, wts, Q, lat, geo, rows, jac,
-        stream);
-  if (dim == 2 && nc == 9)
-    return launch_full_case<T, 2, 9>(
-        grid, S, dS, K, dK, mass, mass0, mass_is_scalar, alpha_u, alpha_t,
-        transient, advect, vel, phi, grad, wts, Q, lat, geo, rows, jac,
-        stream);
-  return (int)cudaErrorInvalidValue;
+  a.S = (const T*)S;
+  a.dS = (const T*)dS;
+  a.K = (const T*)K;
+  a.dK = (const T*)dK;
+  a.jac = (T*)jac;
+  return launch_case<T, true>(a, transient, advect, nc, dim, phi, grad, wts,
+                              stream);
 }
 
 }  // namespace

@@ -69,12 +69,22 @@
 //     the card's shared memory per block (the provider refuses a larger
 //     Q, ops/_launch.py state_smem_words). The advection instances take
 //     2 blocks per SM, the others 4 (64 registers).
-//   "full": one thread owns one node, gathers the 3x3 node patch around
-//     it and sums the contributions of its (up to) four adjacent
-//     elements, each element's quadrature recomputed by the four threads
-//     of its corners; the thread of node (i, j) with i < N0, j < N1 also
-//     writes element (i, j)'s 16 Jacobian rows; consecutive threads write
-//     consecutive elements.
+//   "full": two phases of one launch. The same tile walk with the
+//     residual's rows (from S, K and b: each element's quadrature once),
+//     node-scattered; then each block sweeps a contiguous range of
+//     elements, a thread per element, for the 16 Jacobian rows: each qp
+//     linearized once into the weak form's kinds (thermal_form.cuh: a,
+//     p_d, kappa and, with advection, beta_d) and contracted with the
+//     weighted basis products, which a block builds once in shared
+//     memory (per qp, kind-major, 16 entries per kind), read as
+//     broadcasts; consecutive threads at consecutive elements, so the
+//     reads are coalesced and each row is stored 256 bytes at a time, in
+//     runs as long as a block's range. Q = 4 reads an element's (E, Q)
+//     inputs in 16-byte loads up front in both phases. The walk's tiles
+//     would cut each Jacobian row into 248-byte pieces a block, and the
+//     card moved them slower (PERF.md: the Jacobian inside the walk, by
+//     DMMA octets or a thread per element, lost to the thread-per-node
+//     kernel this replaces in the steady and stage cases).
 //
 // What bounds it on the H100: bytes, not flops. "state" reads the node
 // grid and writes one value per node (16.8 MB at 1024^2 f64, 5 us at
@@ -83,7 +93,12 @@
 // a coefficient varies; with scalars its tile walk (a DRAM latency per
 // tile, ~5 tiles per block at 1024^2) and its launch take about as long
 // as its bytes; at the decks' sizes a call is mostly its launch and the
-// wrapper's host time (PERF.md). "full" reads the
+// wrapper's host time (PERF.md). "full" (285 MB at 1024^2 f64, 85 us)
+// was its access pattern in the thread-per-node design it replaces: each
+// node's thread read its four elements' inputs Q values apart across the
+// warp, and its loads and stores alone took as long as the kernel
+// (PERF.md); here each phase reads each element's inputs once (the
+// walk's border elements' S and K twice, the sweep's K again). "full" reads the
 // u_eval grid and the per-qp tensors S, dS/de, kappa, dkappa/de (4*Q
 // values per element; Q more when m varies) and writes 16 rows per
 // element. The transient "full" reads the u_eval grid the caller forms
@@ -98,30 +113,15 @@
 
 #include <cuda_runtime.h>
 
-namespace {
+#include <initializer_list>
 
-constexpr int kThreads = 256;
+#include "thermal_form.cuh"
+
+namespace {
 
 // local corner c -> offset on axis 0 / axis 1
 __device__ __forceinline__ int corner_i(int c) { return (c == 1 || c == 2); }
 __device__ __forceinline__ int corner_j(int c) { return (c >= 2); }
-
-// 3x3 node patch P[di][dj] = u(i-1+di, j-1+dj), zero outside the grid
-template <typename T>
-__device__ __forceinline__ void load_patch(const T* __restrict__ u, int i,
-                                           int j, int N0, int N1,
-                                           T P[3][3]) {
-#pragma unroll
-  for (int di = 0; di < 3; ++di) {
-#pragma unroll
-    for (int dj = 0; dj < 3; ++dj) {
-      const int ii = i - 1 + di, jj = j - 1 + dj;
-      P[di][dj] = (ii >= 0 && ii <= N0 && jj >= 0 && jj <= N1)
-                      ? u[(long long)ii * (N1 + 1) + jj]
-                      : T(0);
-    }
-  }
-}
 
 // the advection velocity: component d is p[d][e*Q + q] or, where p[d] is
 // null, the scalar s[d] (a kernel parameter); an (E, Q) component is read
@@ -134,14 +134,6 @@ struct Velocity {
     return p[d] ? p[d][eq] : s[d];
   }
 };
-
-// corner values of the element whose corner (0,0) sits at patch (pi, pj)
-template <typename T>
-__device__ __forceinline__ void element_corners(const T P[3][3], int pi,
-                                                int pj, T uc[4]) {
-#pragma unroll
-  for (int c = 0; c < 4; ++c) uc[c] = P[pi + corner_i(c)][pj + corner_j(c)];
-}
 
 // u_h at quadrature point q of an element with corner values uc
 template <typename T>
@@ -194,6 +186,22 @@ __host__ __device__ inline long long state_smem_words(int Q) {
   return 13LL * Q + 2 * (kPatch + 4 * kTileElems);
 }
 
+// the weak form's layout of "full" at nc = 4 (thermal_form.cuh): per qp
+// its NKJ Jacobian kinds' 16 entries (and NKR residual kinds' 4 rows)
+template <bool ADVECT>
+using NodeRows = RowLayout<2, 4, ADVECT>;
+
+// shared memory of a "full" block, in T: the tables, from a 16-byte
+// boundary the products of every qp (NodeRows), then the state block's
+// patches and rows
+__host__ __device__ inline long long full_products(int Q) {
+  return (13LL * Q + 3) / 4 * 4;
+}
+__host__ __device__ inline long long full_smem_words(int Q, bool advect) {
+  const long long pq = advect ? NodeRows<true>::PQ : NodeRows<false>::PQ;
+  return full_products(Q) + Q * pq + 2 * (kPatch + 4 * kTileElems);
+}
+
 // an element's Q = 4 values of an (E, 4) coefficient at p + eq (16-byte
 // aligned: the launch checks) in 16-byte loads, or the scalar s where p is
 // null
@@ -231,34 +239,25 @@ __device__ __forceinline__ T patch_node(const T* __restrict__ u, int i0,
              : T(0);
 }
 
-// Mode "state". Block b walks tiles b, b + gridDim.x, ... of the node
-// grid, tiles_j per tile row. Per tile: the next tile's patch is loaded
-// into registers; each thread computes its elements' four corner rows
-// from the staged patch; the next patch goes to the other buffer; one
-// barrier; each node thread sums its elements' rows. kappa, mass and each
-// velocity component: an (E, Q) array, or the scalar where the pointer is
-// null. QF > 0: Q = QF at compile time.
-template <typename T, bool TRANSIENT, bool ADVECT, int QF>
-__global__ void __launch_bounds__(kThreads, state_min_blocks<ADVECT>())
-    node_state_kernel(const T* __restrict__ u, const T* __restrict__ kappa,
-                      T kappa0, const T* __restrict__ mass, T mass0,
-                      T alpha_u, T alpha_t, Velocity<T> vel,
-                      const T* __restrict__ phi_g,
-                      const T* __restrict__ grad_g,
-                      const T* __restrict__ wts_g, const int Q_, const int N0,
-                      const int N1, const int tiles_j, const int tiles,
-                      T* __restrict__ out) {
-  extern __shared__ __align__(16) unsigned char smem_raw[];
-  const int Q = QF > 0 ? QF : Q_;
-  T* phi = reinterpret_cast<T*>(smem_raw);
-  T* grad = phi + 4 * Q;
-  T* wts = grad + 8 * Q;
-  T* patches = wts + Q;                 // 2 x kPatch
-  T* rows = patches + 2 * kPatch;       // 2 x 4 kTileElems
+// The tile walk of both modes. Block b walks tiles b, b + gridDim.x, ...
+// of the node grid, tiles_j per tile row. Per tile: the next tile's patch
+// is loaded into registers; the tile's elements write their four corner
+// rows (rw[c kTileElems + la kEj + lb] for element (i0 - 1 + la, j0 - 1 +
+// lb), zeros outside the mesh) from the staged patch; the next patch
+// goes to the other buffer; one barrier; each node thread sums its
+// elements' rows. Each thread hands each of its kElemsPerThread elements
+// inside the mesh to `element(la, lb, a, b, uc, r)` (its tile position,
+// its mesh position, its corner values from the patch; r its four corner
+// rows), UNROLL at once. The block's tables (and products) are in shared
+// memory before the walk's first barrier.
+template <typename T, int UNROLL, class Element>
+__device__ __forceinline__ void node_walk(const T* __restrict__ u,
+                                          const int N0, const int N1,
+                                          const int tiles_j, const int tiles,
+                                          T* patches, T* rows,
+                                          T* __restrict__ out,
+                                          Element&& element) {
   const int tid = threadIdx.x, G1 = N1 + 1;
-  for (int k = tid; k < 13 * Q; k += kThreads)
-    phi[k] = k < 4 * Q ? phi_g[k]
-                       : (k < 12 * Q ? grad_g[k - 4 * Q] : wts_g[k - 12 * Q]);
   // this thread's elements (i0 - 1 + la, j0 - 1 + lb), la = la0 + r kEi /
   // kElemsPerThread
   const int la0 = tid / kEj, lb = tid - la0 * kEj;
@@ -279,7 +278,7 @@ __global__ void __launch_bounds__(kThreads, state_min_blocks<ADVECT>())
           pre[p] = patch_node(u, i0n, j0n, N0, N1, tid + p * kThreads);
     const T* patch = patches + cur * kPatch;
     T* rw = rows + cur * 4 * kTileElems;
-#pragma unroll
+#pragma unroll(UNROLL)
     for (int rr = 0; rr < kElemsPerThread; ++rr) {
       const int la = la0 + rr * (kEi / kElemsPerThread);
       const int a = i0 - 1 + la, b = j0 - 1 + lb;
@@ -287,53 +286,11 @@ __global__ void __launch_bounds__(kThreads, state_min_blocks<ADVECT>())
       if (a >= 0 && a < N0 && b >= 0 && b < N1) {
         const T* pe = patch + la * kPj + lb;
         const T uc[4] = {pe[0], pe[kPj], pe[kPj + 1], pe[1]};
-        const long long eq = ((long long)a * N1 + b) * Q;
-        // Q = 4: the element's coefficients up front, in 16-byte loads
-        [[maybe_unused]] T k4[4], m4[4], b4[2][4];
-        if constexpr (QF == 4) {
-          load_q4(kappa, eq, kappa0, k4);
-          if constexpr (TRANSIENT) load_q4(mass, eq, mass0, m4);
-          if constexpr (ADVECT) {
-            load_q4(vel.p[0], eq, vel.s[0], b4[0]);
-            load_q4(vel.p[1], eq, vel.s[1], b4[1]);
-          }
-        }
-#pragma unroll(QF > 0 ? QF : 1)
-        for (int q = 0; q < Q; ++q) {
-          T g0, g1;
-          qp_grad(grad, Q, q, uc, g0, g1);
-          const T k =
-              QF == 4 ? k4[q] : (kappa ? __ldg(kappa + eq + q) : kappa0);
-          // the source lane: m alpha_t u_h in a stage, plus b .
-          // grad(alpha_u u_h) with advection
-          [[maybe_unused]] T sl = T(0);
-          if constexpr (TRANSIENT) {
-            g0 = alpha_u * g0;
-            g1 = alpha_u * g1;
-            const T m =
-                QF == 4 ? m4[q] : (mass ? __ldg(mass + eq + q) : mass0);
-            sl = m * (alpha_t * qp_val(phi, Q, q, uc));
-          }
-          if constexpr (ADVECT) {
-            if constexpr (QF == 4)
-              sl += b4[0][q] * g0 + b4[1][q] * g1;
-            else
-              sl += vel.at(0, eq + q) * g0 + vel.at(1, eq + q) * g1;
-          }
-          const T f0 = k * g0, f1 = k * g1;
-#pragma unroll
-          for (int c = 0; c < 4; ++c) {
-            T v = grad[(c * Q + q) * 2 + 0] * f0 +
-                  grad[(c * Q + q) * 2 + 1] * f1;
-            if constexpr (TRANSIENT || ADVECT) v += phi[c * Q + q] * sl;
-            r[c] += wts[q] * v;
-          }
-        }
+        element(la, lb, a, b, uc, r);
       }
       // an element outside the mesh adds zeros
 #pragma unroll
-      for (int c = 0; c < 4; ++c)
-        rw[c * kTileElems + la * kEj + lb] = r[c];
+      for (int c = 0; c < 4; ++c) rw[c * kTileElems + la * kEj + lb] = r[c];
     }
     // the other buffer's patch was last read before the last barrier
     if (tn < tiles)
@@ -361,99 +318,246 @@ __global__ void __launch_bounds__(kThreads, state_min_blocks<ADVECT>())
   }
 }
 
-template <typename T, bool TRANSIENT, bool ADVECT>
-__global__ void __launch_bounds__(kThreads)
-    node_full_kernel(const T* __restrict__ u, const T* __restrict__ S,
-                     const T* __restrict__ dS, const T* __restrict__ K,
-                     const T* __restrict__ dK, const T* __restrict__ mass,
-                     T mass0, int mass_is_scalar, T alpha_u, T alpha_t,
-                     Velocity<T> vel, const T* __restrict__ phi,
-                     const T* __restrict__ grad, const T* __restrict__ wts,
-                     int Q, int N0, int N1, T* __restrict__ out,
-                     T* __restrict__ jac) {
-  const long long n = (long long)blockIdx.x * blockDim.x + threadIdx.x;
-  if (n >= (long long)(N0 + 1) * (N1 + 1)) return;
-  const int i = (int)(n / (N1 + 1)), j = (int)(n % (N1 + 1));
-  T P[3][3];
-  load_patch(u, i, j, N0, N1, P);
-  T acc = T(0);
-#pragma unroll
-  for (int c = 0; c < 4; ++c) {
-    const int a = i - corner_i(c), b = j - corner_j(c);
-    if (a < 0 || a >= N0 || b < 0 || b >= N1) continue;
-    T uc[4];
-    element_corners(P, 1 - corner_i(c), 1 - corner_j(c), uc);
-    const long long e = (long long)a * N1 + b;
-    T r = T(0);
+// Mode "state": the walk, each element's four corner rows of the state
+// part. kappa, mass and each velocity component: an (E, Q) array, or the
+// scalar where the pointer is null. QF > 0: Q = QF at compile time.
+template <typename T, bool TRANSIENT, bool ADVECT, int QF>
+__global__ void __launch_bounds__(kThreads, state_min_blocks<ADVECT>())
+    node_state_kernel(const T* __restrict__ u, const T* __restrict__ kappa,
+                      T kappa0, const T* __restrict__ mass, T mass0,
+                      T alpha_u, T alpha_t, Velocity<T> vel,
+                      const T* __restrict__ phi_g,
+                      const T* __restrict__ grad_g,
+                      const T* __restrict__ wts_g, const int Q_, const int N0,
+                      const int N1, const int tiles_j, const int tiles,
+                      T* __restrict__ out) {
+  extern __shared__ __align__(16) unsigned char smem_raw[];
+  const int Q = QF > 0 ? QF : Q_;
+  T* phi = reinterpret_cast<T*>(smem_raw);
+  T* grad = phi + 4 * Q;
+  T* wts = grad + 8 * Q;
+  T* patches = wts + Q;                 // 2 x kPatch
+  T* rows = patches + 2 * kPatch;       // 2 x 4 kTileElems
+  for (int k = threadIdx.x; k < 13 * Q; k += kThreads)
+    phi[k] = k < 4 * Q ? phi_g[k]
+                       : (k < 12 * Q ? grad_g[k - 4 * Q] : wts_g[k - 12 * Q]);
+  auto element = [&](int, int, int a, int b, const T (&uc)[4],
+                     T (&r)[4]) {
+    const long long eq = ((long long)a * N1 + b) * Q;
+    // Q = 4: the element's coefficients up front, in 16-byte loads
+    [[maybe_unused]] T k4[4], m4[4], b4[2][4];
+    if constexpr (QF == 4) {
+      load_q4(kappa, eq, kappa0, k4);
+      if constexpr (TRANSIENT) load_q4(mass, eq, mass0, m4);
+      if constexpr (ADVECT) {
+        load_q4(vel.p[0], eq, vel.s[0], b4[0]);
+        load_q4(vel.p[1], eq, vel.s[1], b4[1]);
+      }
+    }
+#pragma unroll(QF > 0 ? QF : 1)
     for (int q = 0; q < Q; ++q) {
       T g0, g1;
       qp_grad(grad, Q, q, uc, g0, g1);
-      const T k = K[e * Q + q];
-      T sq = S[e * Q + q];
-      if constexpr (ADVECT)
-        sq += vel.at(0, e * Q + q) * g0 + vel.at(1, e * Q + q) * g1;
-      r += wts[q] * (phi[c * Q + q] * sq +
-                     grad[(c * Q + q) * 2 + 0] * (k * g0) +
-                     grad[(c * Q + q) * 2 + 1] * (k * g1));
-    }
-    acc += r;
-  }
-  out[n] = acc;
-
-  if (i >= N0 || j >= N1) return;
-  // element (i, j): node (i, j) is its corner 0, patch offset (1, 1)
-  T uc[4];
-  element_corners(P, 1, 1, uc);
-  const long long E = (long long)N0 * N1;
-  const long long e = (long long)i * N1 + j;
-  T J[16];
+      const T k =
+          QF == 4 ? k4[q] : (kappa ? __ldg(kappa + eq + q) : kappa0);
+      // the source lane: m alpha_t u_h in a stage, plus b .
+      // grad(alpha_u u_h) with advection
+      [[maybe_unused]] T sl = T(0);
+      if constexpr (TRANSIENT) {
+        g0 = alpha_u * g0;
+        g1 = alpha_u * g1;
+        const T m =
+            QF == 4 ? m4[q] : (mass ? __ldg(mass + eq + q) : mass0);
+        sl = m * (alpha_t * qp_val(phi, Q, q, uc));
+      }
+      if constexpr (ADVECT) {
+        if constexpr (QF == 4)
+          sl += b4[0][q] * g0 + b4[1][q] * g1;
+        else
+          sl += vel.at(0, eq + q) * g0 + vel.at(1, eq + q) * g1;
+      }
+      const T f0 = k * g0, f1 = k * g1;
 #pragma unroll
-  for (int k = 0; k < 16; ++k) J[k] = T(0);
-  for (int q = 0; q < Q; ++q) {
-    T g0, g1;
-    qp_grad(grad, Q, q, uc, g0, g1);
-    const T kq = K[e * Q + q], dkq = dK[e * Q + q], dsq = dS[e * Q + q];
-    [[maybe_unused]] T mq = T(0), b0 = T(0), b1 = T(0);
-    if constexpr (TRANSIENT) mq = mass_is_scalar ? mass0 : mass[e * Q + q];
-    if constexpr (ADVECT) {
-      b0 = vel.at(0, e * Q + q);
-      b1 = vel.at(1, e * Q + q);
-    }
-    const T w = wts[q];
-#pragma unroll
-    for (int c = 0; c < 4; ++c) {
-      const T pc = phi[c * Q + q];
-      const T gc0 = grad[(c * Q + q) * 2 + 0];
-      const T gc1 = grad[(c * Q + q) * 2 + 1];
-#pragma unroll
-      for (int cp = 0; cp < 4; ++cp) {
-        const T pcp = phi[cp * Q + q];
-        // column (c'): tangent of S and of F_d along phi_c'
-        T ts = pcp * dsq, tf0, tf1;
-        if constexpr (ADVECT)
-          ts += b0 * grad[(cp * Q + q) * 2 + 0] +
-                b1 * grad[(cp * Q + q) * 2 + 1];
-        if constexpr (TRANSIENT) {
-          ts = alpha_u * ts + alpha_t * (pcp * mq);
-          tf0 = alpha_u *
-                (pcp * (dkq * g0) + grad[(cp * Q + q) * 2 + 0] * kq);
-          tf1 = alpha_u *
-                (pcp * (dkq * g1) + grad[(cp * Q + q) * 2 + 1] * kq);
-        } else {
-          tf0 = pcp * (dkq * g0) + grad[(cp * Q + q) * 2 + 0] * kq;
-          tf1 = pcp * (dkq * g1) + grad[(cp * Q + q) * 2 + 1] * kq;
-        }
-        J[c * 4 + cp] += w * (pc * ts + gc0 * tf0 + gc1 * tf1);
+      for (int c = 0; c < 4; ++c) {
+        T v = grad[(c * Q + q) * 2 + 0] * f0 +
+              grad[(c * Q + q) * 2 + 1] * f1;
+        if constexpr (TRANSIENT || ADVECT) v += phi[c * Q + q] * sl;
+        r[c] += wts[q] * v;
       }
     }
-  }
-#pragma unroll
-  for (int k = 0; k < 16; ++k) jac[k * E + e] = J[k];
+  };
+  node_walk<T, kElemsPerThread>(u, N0, N1, tiles_j, tiles, patches, rows,
+                                out, element);
 }
 
-int blocks_for(int N0, int N1) {
-  const long long nodes = (long long)(N0 + 1) * (N1 + 1);
-  return (int)((nodes + kThreads - 1) / kThreads);
+// "full" blocks per SM the registers must allow: 2 (128 registers: an
+// element's 16 Jacobian sums and, at Q = 4, its inputs)
+constexpr int kFullMinBlocks = 2;
+
+// one thread's inputs of the Jacobian at qp entry eq: dS, K, dK; m in a
+// stage, b with advection (S, which the Jacobian does not read, 0)
+template <typename T, bool TRANSIENT, bool ADVECT>
+__device__ __forceinline__ QpIn<T, 2> jac_qp(
+    const T* __restrict__ dS, const T* __restrict__ K,
+    const T* __restrict__ dK, const T* __restrict__ mass, T mass0,
+    const Velocity<T>& vel, long long eq) {
+  QpIn<T, 2> in;
+  in.s = T(0);
+  in.ds = __ldg(dS + eq);
+  in.k = __ldg(K + eq);
+  in.dk = __ldg(dK + eq);
+  in.m = T(0);
+  if constexpr (TRANSIENT) in.m = mass ? __ldg(mass + eq) : mass0;
+  in.b[0] = in.b[1] = T(0);
+  if constexpr (ADVECT) {
+    in.b[0] = vel.at(0, eq);
+    in.b[1] = vel.at(1, eq);
+  }
+  return in;
+}
+
+// Mode "full" in two phases of one launch. The walk: each element's four
+// corner rows of the residual, from S, K (and b) and the tables, each
+// node the sum of its elements' rows. The sweep: block b takes the
+// elements [b per, (b + 1) per) in a row, a thread per element,
+// consecutive threads at consecutive elements, and writes each element's
+// 16 Jacobian rows from its qp kinds (qp_scalars) and the weighted basis
+// products (NodeRows, read as broadcasts): the Jacobian's reads and
+// 256-byte row stores move through device memory in long runs per block,
+// which the walk's tiles (15 x 31 nodes) would cut into 248-byte pieces.
+// S, dS, K, dK: (E, Q) arrays; mass and each velocity component an (E,
+// Q) array or the scalar where the pointer is null. QF > 0: Q = QF at
+// compile time.
+template <typename T, bool TRANSIENT, bool ADVECT, int QF>
+__global__ void __launch_bounds__(kThreads, kFullMinBlocks)
+    node_full_kernel(const T* __restrict__ u, const T* __restrict__ S,
+                     const T* __restrict__ dS, const T* __restrict__ K,
+                     const T* __restrict__ dK, const T* __restrict__ mass,
+                     T mass0, T alpha_u, T alpha_t, Velocity<T> vel,
+                     const T* __restrict__ phi_g,
+                     const T* __restrict__ grad_g,
+                     const T* __restrict__ wts_g, const int Q_, const int N0,
+                     const int N1, const int tiles_j, const int tiles,
+                     T* __restrict__ out, T* __restrict__ jac) {
+  using R = NodeRows<ADVECT>;
+  constexpr int NKJ = R::F::NKJ, NKR = R::F::NKR;
+  extern __shared__ __align__(16) unsigned char smem_raw[];
+  const int Q = QF > 0 ? QF : Q_;
+  T* phi = reinterpret_cast<T*>(smem_raw);
+  T* grad = phi + 4 * Q;
+  T* wts = grad + 8 * Q;
+  T* prod = phi + full_products(Q);   // Q x R::PQ
+  T* patches = prod + Q * R::PQ;      // 2 x kPatch
+  T* rows = patches + 2 * kPatch;     // 2 x 4 kTileElems
+  for (int k = threadIdx.x; k < 13 * Q; k += kThreads)
+    phi[k] = k < 4 * Q ? phi_g[k]
+                       : (k < 12 * Q ? grad_g[k - 4 * Q] : wts_g[k - 12 * Q]);
+  __syncthreads();
+  build_rows<T, 2, 4, ADVECT>(phi, grad, wts, Q, 0, Q, prod);
+  // the walk: the residual rows, r_c = sum_q w (phi_c (S + b . grad u_h)
+  // + K grad phi_c . grad u_h)
+  auto element = [&](int, int, int a, int b, const T (&uc)[4], T (&r)[4]) {
+    const long long eq = ((long long)a * N1 + b) * Q;
+    // Q = 4: the element's S, K (and b) up front, in 16-byte loads
+    [[maybe_unused]] T s4[4], k4[4], b4[2][4];
+    if constexpr (QF == 4) {
+      load_q4(S, eq, T(0), s4);
+      load_q4(K, eq, T(0), k4);
+      if constexpr (ADVECT) {
+        load_q4(vel.p[0], eq, vel.s[0], b4[0]);
+        load_q4(vel.p[1], eq, vel.s[1], b4[1]);
+      }
+    }
+#pragma unroll(QF > 0 ? QF : 1)
+    for (int q = 0; q < Q; ++q) {
+      T g0, g1;
+      qp_grad(grad, Q, q, uc, g0, g1);
+      const T k = QF == 4 ? k4[q] : __ldg(K + eq + q);
+      T sq = QF == 4 ? s4[q] : __ldg(S + eq + q);
+      if constexpr (ADVECT) {
+        if constexpr (QF == 4)
+          sq += b4[0][q] * g0 + b4[1][q] * g1;
+        else
+          sq += vel.at(0, eq + q) * g0 + vel.at(1, eq + q) * g1;
+      }
+#pragma unroll
+      for (int c = 0; c < 4; ++c)
+        r[c] += wts[q] * (phi[c * Q + q] * sq +
+                          grad[(c * Q + q) * 2 + 0] * (k * g0) +
+                          grad[(c * Q + q) * 2 + 1] * (k * g1));
+    }
+  };
+  node_walk<T, kElemsPerThread>(u, N0, N1, tiles_j, tiles, patches, rows,
+                                out, element);
+  // the sweep: the Jacobian rows of this block's elements; element e =
+  // (a, b) steps by kThreads elements, (da, db), with a carry
+  const long long E = (long long)N0 * N1;
+  const long long per = (E + gridDim.x - 1) / gridDim.x;
+  const long long e1 = (long long)(blockIdx.x + 1) * per < E
+                           ? (long long)(blockIdx.x + 1) * per
+                           : E;
+  long long e = (long long)blockIdx.x * per + threadIdx.x;
+  int a = (int)(e / N1), b = (int)(e - (long long)a * N1);
+  const int da = kThreads / N1, db = kThreads - da * N1;
+  const int G1 = N1 + 1;
+  for (; e < e1; e += kThreads) {
+    const long long eq = e * Q;
+    const T* pu = u + (long long)a * G1 + b;
+    const T uc[4] = {__ldg(pu), __ldg(pu + G1), __ldg(pu + G1 + 1),
+                     __ldg(pu + 1)};
+    // Q = 4: the element's inputs up front, in 16-byte loads
+    [[maybe_unused]] T ds4[4], k4[4], dk4[4], m4[4], b4[2][4];
+    if constexpr (QF == 4) {
+      load_q4(dS, eq, T(0), ds4);
+      load_q4(K, eq, T(0), k4);
+      load_q4(dK, eq, T(0), dk4);
+      if constexpr (TRANSIENT) load_q4(mass, eq, mass0, m4);
+      if constexpr (ADVECT) {
+        load_q4(vel.p[0], eq, vel.s[0], b4[0]);
+        load_q4(vel.p[1], eq, vel.s[1], b4[1]);
+      }
+    }
+    T J[16];
+#pragma unroll
+    for (int k = 0; k < 16; ++k) J[k] = T(0);
+#pragma unroll(QF > 0 ? QF : 1)
+    for (int q = 0; q < Q; ++q) {
+      QpIn<T, 2> in;
+      if constexpr (QF == 4) {
+        in.s = T(0);
+        in.ds = ds4[q];
+        in.k = k4[q];
+        in.dk = dk4[q];
+        in.m = TRANSIENT ? m4[q] : T(0);
+        in.b[0] = ADVECT ? b4[0][q] : T(0);
+        in.b[1] = ADVECT ? b4[1][q] : T(0);
+      } else {
+        in = jac_qp<T, TRANSIENT, ADVECT>(dS, K, dK, mass, mass0, vel,
+                                           eq + q);
+      }
+      T aj[NKJ], ar[NKR];
+      qp_scalars<T, 2, 4, TRANSIENT, ADVECT>(in, uc, grad, Q, q, alpha_u,
+                                             alpha_t, aj, ar);
+      const T* tq = prod + q * R::PQ;
+#pragma unroll
+      for (int k = 0; k < NKJ; ++k)
+#pragma unroll
+        for (int j = 0; j < 4; ++j) {
+          T bv[4];
+          load4<T>(tq + k * R::NN + 4 * j, bv);
+#pragma unroll
+          for (int i = 0; i < 4; ++i) J[4 * j + i] += aj[k] * bv[i];
+        }
+    }
+#pragma unroll
+    for (int k = 0; k < 16; ++k) jac[k * E + e] = J[k];
+    b += db;
+    a += da;
+    if (b >= N1) {
+      b -= N1;
+      ++a;
+    }
+  }
 }
 
 template <typename T>
@@ -471,6 +575,50 @@ Velocity<T> make_velocity(const void* v0, double v0s, const void* v1,
 // shared memory per block (the provider refuses such a Q first)
 constexpr int kErrSharedMemory = -1;
 
+// the blocks of one walk kernel the card holds at once, for a device and
+// a shared-memory size: each launch site keeps its own (per host thread)
+struct Resident {
+  int dev = -1;
+  long long smem = -1;
+  int blocks = 0;
+};
+
+template <class Kernel>
+int query_resident(Kernel kernel, size_t smem, Resident& r) {
+  int dev = 0;
+  cudaGetDevice(&dev);
+  if (dev == r.dev && (long long)smem == r.smem) return 0;
+  int optin = 0, sms = 0, per_sm = 0;
+  cudaDeviceGetAttribute(&optin, cudaDevAttrMaxSharedMemoryPerBlockOptin,
+                         dev);
+  if (smem > (size_t)optin) return kErrSharedMemory;
+  if (smem > 48 * 1024)
+    cudaFuncSetAttribute(kernel, cudaFuncAttributeMaxDynamicSharedMemorySize,
+                         (int)smem);
+  cudaDeviceGetAttribute(&sms, cudaDevAttrMultiProcessorCount, dev);
+  cudaOccupancyMaxActiveBlocksPerMultiprocessor(&per_sm, kernel, kThreads,
+                                                smem);
+  const cudaError_t err = (cudaError_t)cudaGetLastError();
+  if (err != cudaSuccess) return (int)err;
+  r.blocks = sms * (per_sm > 0 ? per_sm : 1);
+  r.dev = dev;
+  r.smem = (long long)smem;
+  return 0;
+}
+
+// the walk's tiles of an N0 x N1 element grid (tiles_j per tile row), and
+// its persistent grid: as many blocks as the card holds, at most one per
+// tile; false where the tile count passes 32-bit tile math
+inline bool walk_grid(int N0, int N1, int resident, int& tiles_j,
+                      int& tiles, int& blocks) {
+  tiles_j = (N1 + kTj) / kTj;  // ceil((N1 + 1) / kTj)
+  const long long n = (long long)((N0 + kTi) / kTi) * tiles_j;
+  if (n >= (1LL << 31)) return false;
+  tiles = (int)n;
+  blocks = tiles < resident ? tiles : resident;
+  return true;
+}
+
 template <typename T, bool TRANSIENT, bool ADVECT, int QF>
 int launch_state_case(const T* u, const T* kappa, T kappa0, const T* mass,
                       T mass0, T alpha_u, T alpha_t, Velocity<T> vel,
@@ -478,36 +626,15 @@ int launch_state_case(const T* u, const T* kappa, T kappa0, const T* mass,
                       int N0, int N1, T* out, void* stream) {
   auto kernel = node_state_kernel<T, TRANSIENT, ADVECT, QF>;
   const size_t smem = sizeof(T) * state_smem_words(Q);
-  // the blocks of this instance the card holds at once at Q: queried once
-  // per (device, Q) and host thread
-  thread_local int last_dev = -1, last_q = 0, resident = 0;
-  int dev = 0;
-  cudaGetDevice(&dev);
-  if (dev != last_dev || Q != last_q) {
-    int optin = 0, sms = 0, per_sm = 0;
-    cudaDeviceGetAttribute(&optin, cudaDevAttrMaxSharedMemoryPerBlockOptin,
-                           dev);
-    if (smem > (size_t)optin) return kErrSharedMemory;
-    if (smem > 48 * 1024)
-      cudaFuncSetAttribute(kernel,
-                           cudaFuncAttributeMaxDynamicSharedMemorySize,
-                           (int)smem);
-    cudaDeviceGetAttribute(&sms, cudaDevAttrMultiProcessorCount, dev);
-    cudaOccupancyMaxActiveBlocksPerMultiprocessor(&per_sm, kernel, kThreads,
-                                                  smem);
-    const cudaError_t err = (cudaError_t)cudaGetLastError();
-    if (err != cudaSuccess) return (int)err;
-    resident = sms * (per_sm > 0 ? per_sm : 1);
-    last_dev = dev;
-    last_q = Q;
-  }
-  const int tiles_j = (N1 + kTj) / kTj;  // ceil((N1 + 1) / kTj)
-  const long long tiles = (long long)((N0 + kTi) / kTi) * tiles_j;
-  if (tiles >= (1LL << 31)) return (int)cudaErrorInvalidValue;
-  const int blocks = tiles < resident ? (int)tiles : resident;
+  thread_local Resident resident;
+  const int err = query_resident(kernel, smem, resident);
+  if (err != 0) return err;
+  int tiles_j, tiles, blocks;
+  if (!walk_grid(N0, N1, resident.blocks, tiles_j, tiles, blocks))
+    return (int)cudaErrorInvalidValue;
   kernel<<<blocks, kThreads, smem, (cudaStream_t)stream>>>(
       u, kappa, kappa0, mass, mass0, alpha_u, alpha_t, vel, phi, grad, wts, Q,
-      N0, N1, tiles_j, (int)tiles, out);
+      N0, N1, tiles_j, tiles, out);
   return (int)cudaGetLastError();
 }
 
@@ -522,6 +649,13 @@ int launch_state_q(const T* u, const T* kappa, T kappa0, const T* mass,
                 grad, wts, Q, N0, N1, out, stream);
 }
 
+// Q = 4 reads an element's (E, Q) values in 16-byte loads
+inline bool aligned16(std::initializer_list<const void*> ps) {
+  for (const void* p : ps)
+    if ((size_t)p % 16) return false;
+  return true;
+}
+
 template <typename T>
 int launch_state(const void* u, const void* kappa, double kappa0,
                  int kappa_is_scalar, const void* mass, double mass0,
@@ -531,11 +665,9 @@ int launch_state(const void* u, const void* kappa, double kappa0,
                  const void* grad, const void* wts, int Q, int N0, int N1,
                  void* out, void* stream) {
   if (Q < 1 || N0 < 1 || N1 < 1) return (int)cudaErrorInvalidValue;
-  // Q = 4 reads an element's (E, Q) values in 16-byte loads
-  if (Q == 4)
-    for (const void* p : {kappa_is_scalar ? nullptr : kappa,
-                          mass_is_scalar ? nullptr : mass, v0, v1})
-      if ((size_t)p % 16) return (int)cudaErrorInvalidValue;
+  if (Q == 4 && !aligned16({kappa_is_scalar ? nullptr : kappa,
+                            mass_is_scalar ? nullptr : mass, v0, v1}))
+    return (int)cudaErrorInvalidValue;
   auto launch = advect ? (transient ? launch_state_q<T, true, true>
                                     : launch_state_q<T, false, true>)
                        : (transient ? launch_state_q<T, true, false>
@@ -549,6 +681,37 @@ int launch_state(const void* u, const void* kappa, double kappa0,
                 (const T*)grad, (const T*)wts, Q, N0, N1, (T*)out, stream);
 }
 
+template <typename T, bool TRANSIENT, bool ADVECT, int QF>
+int launch_full_case(const T* u, const T* S, const T* dS, const T* K,
+                     const T* dK, const T* mass, T mass0, T alpha_u,
+                     T alpha_t, Velocity<T> vel, const T* phi, const T* grad,
+                     const T* wts, int Q, int N0, int N1, T* out, T* jac,
+                     void* stream) {
+  auto kernel = node_full_kernel<T, TRANSIENT, ADVECT, QF>;
+  const size_t smem = sizeof(T) * full_smem_words(Q, ADVECT);
+  thread_local Resident resident;
+  const int err = query_resident(kernel, smem, resident);
+  if (err != 0) return err;
+  int tiles_j, tiles, blocks;
+  if (!walk_grid(N0, N1, resident.blocks, tiles_j, tiles, blocks))
+    return (int)cudaErrorInvalidValue;
+  kernel<<<blocks, kThreads, smem, (cudaStream_t)stream>>>(
+      u, S, dS, K, dK, mass, mass0, alpha_u, alpha_t, vel, phi, grad, wts, Q,
+      N0, N1, tiles_j, tiles, out, jac);
+  return (int)cudaGetLastError();
+}
+
+template <typename T, bool TRANSIENT, bool ADVECT>
+int launch_full_q(const T* u, const T* S, const T* dS, const T* K,
+                  const T* dK, const T* mass, T mass0, T alpha_u, T alpha_t,
+                  Velocity<T> vel, const T* phi, const T* grad, const T* wts,
+                  int Q, int N0, int N1, T* out, T* jac, void* stream) {
+  auto launch = Q == 4 ? launch_full_case<T, TRANSIENT, ADVECT, 4>
+                       : launch_full_case<T, TRANSIENT, ADVECT, 0>;
+  return launch(u, S, dS, K, dK, mass, mass0, alpha_u, alpha_t, vel, phi,
+                grad, wts, Q, N0, N1, out, jac, stream);
+}
+
 template <typename T>
 int launch_full(const void* u, const void* S, const void* dS, const void* K,
                 const void* dK, const void* mass, double mass0,
@@ -557,16 +720,22 @@ int launch_full(const void* u, const void* S, const void* dS, const void* K,
                 const void* v1, double v1s, const void* phi,
                 const void* grad, const void* wts, int Q, int N0, int N1,
                 void* out, void* jac, void* stream) {
-  auto kernel = advect ? (transient ? node_full_kernel<T, true, true>
-                                    : node_full_kernel<T, false, true>)
-                       : (transient ? node_full_kernel<T, true, false>
-                                    : node_full_kernel<T, false, false>);
-  kernel<<<blocks_for(N0, N1), kThreads, 0, (cudaStream_t)stream>>>(
-      (const T*)u, (const T*)S, (const T*)dS, (const T*)K, (const T*)dK,
-      (const T*)mass, (T)mass0, mass_is_scalar, (T)alpha_u, (T)alpha_t,
-      make_velocity<T>(v0, v0s, v1, v1s), (const T*)phi, (const T*)grad,
-      (const T*)wts, Q, N0, N1, (T*)out, (T*)jac);
-  return (int)cudaGetLastError();
+  if (Q < 1 || N0 < 1 || N1 < 1) return (int)cudaErrorInvalidValue;
+  if (Q == 4 && !aligned16({S, dS, K, dK, mass_is_scalar ? nullptr : mass,
+                            v0, v1}))
+    return (int)cudaErrorInvalidValue;
+  auto launch = advect ? (transient ? launch_full_q<T, true, true>
+                                    : launch_full_q<T, false, true>)
+                       : (transient ? launch_full_q<T, true, false>
+                                    : launch_full_q<T, false, false>);
+  // a scalar mass is a null pointer from here on; a steady call reads no
+  // mass
+  return launch((const T*)u, (const T*)S, (const T*)dS, (const T*)K,
+                (const T*)dK, mass_is_scalar ? nullptr : (const T*)mass,
+                (T)mass0, (T)alpha_u, (T)alpha_t,
+                make_velocity<T>(v0, v0s, v1, v1s), (const T*)phi,
+                (const T*)grad, (const T*)wts, Q, N0, N1, (T*)out, (T*)jac,
+                stream);
 }
 
 }  // namespace

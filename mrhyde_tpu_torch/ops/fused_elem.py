@@ -45,8 +45,8 @@ from typing import NamedTuple
 
 import torch
 
-from mrhyde_tpu_torch.ops._launch import (LAUNCHES, check_qp, coeff_args,
-                                          ptr, stage_args, stream,
+from mrhyde_tpu_torch.ops._launch import (LAUNCHES, check_err, check_qp,
+                                          coeff_args, stage_args, stream,
                                           velocity_args)
 
 __all__ = ["Lattice", "thermal_elem_state", "thermal_elem_full",
@@ -285,31 +285,50 @@ def _check_grid(grid, tab, lat):
         raise ValueError(f"the grid must be contiguous with every axis "
                          f"{lat.stride} * N + 1, N >= 1; got "
                          f"{tuple(grid.shape)}")
-    if any(not 0 <= o <= p for off in lat.offsets for o in off):
-        raise ValueError(f"lattice offsets must lie in [0, {p}]")
     if grid.numel() > 2 ** 31 - 1:
         raise ValueError("grid too large for int indexing")
-    for t in (tab.t_phi, tab.t_grad, tab.t_wts):
-        if t.device != grid.device or t.dtype != grid.dtype:
-            raise ValueError("tables live on another device/dtype than "
-                             "the grid")
+    tab.ptrs(grid)  # the tables' device and type (checked once)
+
+
+# each lattice's offsets as the host int array the C entry points take,
+# checked and built once per lattice
+_LATTICE = {}
+
+
+def _lattice_array(lat):
+    arr = _LATTICE.get(lat)
+    if arr is None:
+        p = lat.stride
+        if any(not 0 <= o <= p for off in lat.offsets for o in off):
+            raise ValueError(f"lattice offsets must lie in [0, {p}]")
+        flat = [int(o) for off in lat.offsets for o in off]
+        arr = _LATTICE[lat] = (ctypes.c_int * len(flat))(*flat)
+    return arr
 
 
 def _geometry_args(grid, tab, lat):
     """phi, grad, wts, Q, nc, dim, lattice (host int array), stride, N0,
-    N1, N2 (N2 = 1 in 2D) for the C entry points."""
-    nc = len(lat.offsets)
-    flat = [int(o) for off in lat.offsets for o in off]
-    offs = (ctypes.c_int * len(flat))(*flat)
+    N1, N2 (N2 = 1 in 2D) for the C entry points; raises where the tables
+    live on another device or type than the grid (checked once per
+    QuadTables)."""
     dims = list(elem_dims(grid, lat)) + [1] * (3 - tab.dim)
-    return (ptr(tab.t_phi), ptr(tab.t_grad), ptr(tab.t_wts), tab.Q, nc,
-            tab.dim, offs, lat.stride, *dims)
+    return (*tab.ptrs(grid), tab.Q, len(lat.offsets), tab.dim,
+            _lattice_array(lat), lat.stride, *dims)
+
+
+# the element kernels' C entry points per (name, dtype), bound at their
+# first call
+_ENTRY = {}
 
 
 def _entry(name, dtype):
-    from mrhyde_tpu_torch.ops._build import load_library
-    return getattr(load_library(),
-                   f"{name}_{'f64' if dtype == torch.float64 else 'f32'}")
+    fn = _ENTRY.get((name, dtype))
+    if fn is None:
+        from mrhyde_tpu_torch.ops._build import load_library
+        fn = _ENTRY[name, dtype] = getattr(
+            load_library(),
+            f"{name}_{'f64' if dtype == torch.float64 else 'f32'}")
+    return fn
 
 
 def thermal_elem_state(grid, kappa, tab, lat, stage=None, vel=None):
@@ -319,18 +338,17 @@ def thermal_elem_state(grid, kappa, tab, lat, stage=None, vel=None):
     if grid.device.type == "cpu":
         return thermal_elem_state_plain(grid, kappa, tab, lat, stage, vel)
     _check_grid(grid, tab, lat)
-    E = math.prod(elem_dims(grid, lat))
+    geo = _geometry_args(grid, tab, lat)
+    E = math.prod(geo[-3:])
     kap = coeff_args(kappa, E, grid, tab, "kappa")
     st = stage_args(stage, E, grid, tab)
     va = velocity_args(vel, E, grid, tab)
     rows = torch.empty((len(lat.offsets), E), dtype=grid.dtype,
                        device=grid.device)
-    err = _entry("thermal_elem_state", grid.dtype)(
-        ptr(grid), *kap, *st, *va, *_geometry_args(grid, tab, lat),
-        ptr(rows), stream(grid))
-    if err != 0:
-        raise RuntimeError(f"thermal_elem_state launch failed: CUDA error "
-                           f"{err}")
+    check_err("thermal_elem_state",
+              _entry("thermal_elem_state", grid.dtype)(
+                  grid.data_ptr(), *kap, *st, *va, *geo, rows.data_ptr(),
+                  stream(grid)), tab.Q)
     LAUNCHES["elem_state"] += 1
     return rows
 
@@ -344,7 +362,8 @@ def thermal_elem_full(grid, S, dS, K, dK, tab, lat, stage=None, vel=None):
         return thermal_elem_full_plain(grid, S, dS, K, dK, tab, lat, stage,
                                        vel)
     _check_grid(grid, tab, lat)
-    E = math.prod(elem_dims(grid, lat))
+    geo = _geometry_args(grid, tab, lat)
+    E = math.prod(geo[-3:])
     for name, t in (("S", S), ("dS", dS), ("K", K), ("dK", dK)):
         check_qp(t, E, grid, tab, name)
     st = stage_args(stage, E, grid, tab)
@@ -352,11 +371,10 @@ def thermal_elem_full(grid, S, dS, K, dK, tab, lat, stage=None, vel=None):
     nc = len(lat.offsets)
     rows = torch.empty((nc, E), dtype=grid.dtype, device=grid.device)
     jac = torch.empty((nc * nc, E), dtype=grid.dtype, device=grid.device)
-    err = _entry("thermal_elem_full", grid.dtype)(
-        ptr(grid), ptr(S), ptr(dS), ptr(K), ptr(dK), *st, *va,
-        *_geometry_args(grid, tab, lat), ptr(rows), ptr(jac), stream(grid))
-    if err != 0:
-        raise RuntimeError(f"thermal_elem_full launch failed: CUDA error "
-                           f"{err}")
+    check_err("thermal_elem_full",
+              _entry("thermal_elem_full", grid.dtype)(
+                  grid.data_ptr(), S.data_ptr(), dS.data_ptr(),
+                  K.data_ptr(), dK.data_ptr(), *st, *va, *geo,
+                  rows.data_ptr(), jac.data_ptr(), stream(grid)), tab.Q)
     LAUNCHES["elem_full"] += 1
     return rows, jac

@@ -82,9 +82,10 @@ import torch
 from mrhyde_tpu_torch.assembly.assembler import BlockJacobian
 from mrhyde_tpu_torch.ops import fused_elem as fe
 from mrhyde_tpu_torch.ops._launch import (LAUNCHES, check_err, check_qp,
-                                          check_smem, coeff_args, ptr,
-                                          stage_args, state_smem_words,
-                                          stream, velocity_args)
+                                          check_smem, coeff_args,
+                                          full_smem_words, stage_args,
+                                          state_smem_words, stream,
+                                          velocity_args)
 
 __all__ = ["FusedP1Assembly", "QuadTables", "Stage", "LAUNCHES",
            "thermal_node_state", "thermal_node_full",
@@ -246,8 +247,19 @@ def _check_grid(u_grid, tab):
     return tab.ptrs(u_grid)
 
 
-# thermal_node_state's C entry point per dtype, bound at its first call
-_STATE_ENTRY = {}
+# the node kernels' C entry points per (name, dtype), bound at their
+# first call
+_ENTRY = {}
+
+
+def _entry(name, dtype):
+    fn = _ENTRY.get((name, dtype))
+    if fn is None:
+        from mrhyde_tpu_torch.ops._build import load_library
+        fn = _ENTRY[name, dtype] = getattr(
+            load_library(),
+            f"{name}_{'f64' if dtype == torch.float64 else 'f32'}")
+    return fn
 
 
 def thermal_node_state(u_grid, kappa, tab, stage=None, vel=None):
@@ -263,13 +275,7 @@ def thermal_node_state(u_grid, kappa, tab, stage=None, vel=None):
     kap = coeff_args(kappa, E, u_grid, tab, "kappa")
     st = stage_args(stage, E, u_grid, tab)
     va = velocity_args(vel, E, u_grid, tab)
-    fn = _STATE_ENTRY.get(u_grid.dtype)
-    if fn is None:
-        from mrhyde_tpu_torch.ops._build import load_library
-        lib = load_library()
-        fn = _STATE_ENTRY[u_grid.dtype] = (
-            lib.thermal_node_state_f64 if u_grid.dtype == torch.float64
-            else lib.thermal_node_state_f32)
+    fn = _entry("thermal_node_state", u_grid.dtype)
     out = torch.empty_like(u_grid)
     check_err("thermal_node_state",
               fn(u_grid.data_ptr(), *kap, *st, *va, *tables, tab.Q, N0, N1,
@@ -287,24 +293,19 @@ def thermal_node_full(u_grid, S, dS, K, dK, tab, stage=None, vel=None):
         return thermal_node_full_plain(u_grid, S, dS, K, dK, tab, stage,
                                        vel)
     tables = _check_grid(u_grid, tab)
-    E = (u_grid.shape[0] - 1) * (u_grid.shape[1] - 1)
+    N0, N1 = u_grid.shape[0] - 1, u_grid.shape[1] - 1
+    E = N0 * N1
     for name, t in (("S", S), ("dS", dS), ("K", K), ("dK", dK)):
         check_qp(t, E, u_grid, tab, name)
     st = stage_args(stage, E, u_grid, tab)
     va = velocity_args(vel, E, u_grid, tab)
-    from mrhyde_tpu_torch.ops._build import load_library
-    lib = load_library()
-    fn = (lib.thermal_node_full_f64 if u_grid.dtype == torch.float64
-          else lib.thermal_node_full_f32)
-    N0, N1 = u_grid.shape[0] - 1, u_grid.shape[1] - 1
+    fn = _entry("thermal_node_full", u_grid.dtype)
     out = torch.empty_like(u_grid)
-    jac = torch.empty((16, N0 * N1), dtype=u_grid.dtype,
-                      device=u_grid.device)
-    err = fn(ptr(u_grid), ptr(S), ptr(dS), ptr(K), ptr(dK), *st, *va,
-             *tables, tab.Q, N0, N1, ptr(out), ptr(jac), stream(u_grid))
-    if err != 0:
-        raise RuntimeError(f"thermal_node_full launch failed: CUDA error "
-                           f"{err}")
+    jac = torch.empty((16, E), dtype=u_grid.dtype, device=u_grid.device)
+    check_err("thermal_node_full",
+              fn(u_grid.data_ptr(), S.data_ptr(), dS.data_ptr(),
+                 K.data_ptr(), dK.data_ptr(), *st, *va, *tables, tab.Q, N0,
+                 N1, out.data_ptr(), jac.data_ptr(), stream(u_grid)), tab.Q)
     LAUNCHES["full"] += 1
     return out, jac
 
@@ -390,10 +391,16 @@ class FusedP1Assembly:
                          "mass": bool(mass & _COORD),
                          "velocity": bool(vel & _COORD),
                          "coeffs": bool((kap | src | vel) & _COORD)}
+        Q = self.tables.Q
         if self.node and self.split:
             # thermal_node_state's block at this quadrature: its tables
-            Q = self.tables.Q
             check_smem("thermal_node_state", lambda _el: state_smem_words(Q),
+                       asm.dtype.itemsize, Q)
+        elif self.node:
+            # thermal_node_full's: its tables and products (with
+            # advection's, the larger)
+            check_smem("thermal_node_full",
+                       lambda _el: full_smem_words(Q, True),
                        asm.dtype.itemsize, Q)
         self.stats = self._stats(True)
         self._coords = None

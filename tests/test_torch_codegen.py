@@ -530,9 +530,9 @@ def test_2d_and_3d_sources_call_their_own_scalar_densities(mesh):
 # set_node.cuh's kernel templates, the element-tile engine
 # (elem_engine.cuh, instanced by set_elem.cuh, set_node.cuh and
 # fused_elem_ns.cu) and fused_elem_thermal.cu's kernels run on the host:
-# one std::thread per CUDA thread of a block, a barrier for __syncthreads
-# and around a warp shuffle (every thread of the block shuffles at the
-# same points), the block's shared memory a host buffer (filled with NaN
+# one std::thread per CUDA thread of a block, a barrier for __syncthreads,
+# for __syncwarp and around a warp shuffle (every thread of the block
+# shuffles and syncs its warp at the same points), the block's shared memory a host buffer (filled with NaN
 # bytes, so a read of a slot no thread wrote shows); the launches and the
 # shared-memory declarations are the lines rewritten for the host, the
 # card's opt-in shared memory per block is HOST_OPTIN (the H100's unless
@@ -567,6 +567,7 @@ inline std::barrier<>* host_barrier = nullptr;
 inline unsigned char* host_smem = nullptr;
 inline double* host_xchg = nullptr;
 inline void __syncthreads() { host_barrier->arrive_and_wait(); }
+inline void __syncwarp(unsigned = 0xffffffffu) { __syncthreads(); }
 template <class T> T __shfl_sync(unsigned, T v, int src) {
   host_xchg[threadIdx.x] = (double)v;
   __syncthreads();
@@ -630,13 +631,17 @@ HOST_LAUNCH = re.compile(r"kernel<<<(.*?), kThreads, (.*?),\s*"
 # the kernel files the host builds, each with its counts of shared-memory
 # declarations and of launch sites: the element-tile engine holds the
 # kernel body of set_elem.cuh and fused_elem_ns.cu, which instantiate it,
-# and of set_node.cuh's Jacobian role; the B2 node kernels
-# (fused_p1_thermal.cu: thermal_node_state's tiles and thermal_node_full;
-# fused_p1_ns.cu: ns_node_full's tiles)
+# and of set_node.cuh's Jacobian role; fused_elem_thermal.cu's one tile
+# kernel holds both thermal element modes; the B2 node kernels
+# (fused_p1_thermal.cu: thermal_node_state's and thermal_node_full's tile
+# walk; fused_p1_ns.cu: ns_node_full's tiles); thermal_form.cuh the
+# thermal weak form's qp scalars and products that both thermal files
+# include
 HOST_FILES = {"set_node.cuh": (2, 2), "elem_engine.cuh": (1, 1),
               "set_elem.cuh": (0, 0), "fused_elem_ns.cu": (0, 0),
-              "fused_elem_thermal.cu": (2, 2),
-              "fused_p1_thermal.cu": (1, 2), "fused_p1_ns.cu": (1, 1)}
+              "fused_elem_thermal.cu": (1, 1),
+              "fused_p1_thermal.cu": (2, 2), "fused_p1_ns.cu": (1, 1),
+              "thermal_form.cuh": (0, 0)}
 
 
 def _host_header(name, tmp_path):
@@ -1089,6 +1094,84 @@ def test_thermal_elem_full_on_the_host(mesh, case, dtype, chunks,
 
 
 @pytest.fixture(scope="module")
+def elem_thermal_lib(tmp_path_factory):
+    """fused_elem_thermal.cu built once for the host."""
+    return _host_build(THERMAL_FULL_TU,
+                       tmp_path_factory.mktemp("fused_elem_thermal"))
+
+
+# thermal_elem_state's cases: steady, a stage and advection, with kappa
+# ("k"), m ("m") and the velocity ("b") each a scalar, or in capitals one
+# value per (element, qp); (case, mesh, grid, dtype, quadrature): a grid
+# of several tiles of 64 elements whose last one is partial and a
+# 1-element grid in both precisions at the decks' quadrature, and in f64
+# at one more point per axis (hex Q = 27, p2 Q = 16)
+ELEM_STATE_CASES = ("steady k", "steady K", "stage k m", "stage K M",
+                    "stage k M", "advect k b", "advect K B",
+                    "advect stage k m b", "advect stage K M B")
+_ELEM_GRIDS = {"hex": ((5, 4, 7), (1, 1, 1)), "p2": ((9, 8), (1, 1))}
+_ELEM_QUAD = {"hex": (2, 4), "p2": (4, 6)}
+ELEM_STATE_HOST = [(c, m, g, d, _ELEM_QUAD[m][0]) for c in ELEM_STATE_CASES
+                   for m in ("hex", "p2") for g in _ELEM_GRIDS[m]
+                   for d in (torch.float64, torch.float32)] \
+    + [(c, m, _ELEM_GRIDS[m][0], torch.float64, _ELEM_QUAD[m][1])
+       for c in ELEM_STATE_CASES for m in ("hex", "p2")]
+
+
+@pytest.mark.parametrize("case,mesh,dims,dtype,quadrature", ELEM_STATE_HOST)
+def test_thermal_elem_state_on_the_host(elem_thermal_lib, case, mesh, dims,
+                                        dtype, quadrature):
+    """thermal_elem_state (the row role of the tile design: each lane's
+    element linearized at its qps once, the qp scalars of a warp's octet
+    contracted with the weighted basis products in m8n8k4 fragments, each
+    lane's FMA form of the step, on a persistent grid of 2 blocks; f32 a
+    thread per element over the per-qp products) on the host against its
+    plain version: hex 5x4x7 and p2 9x8 (several tiles, the last one
+    partial) and a 1-element grid, steady, at a DIRK-2,2 stage and with
+    advection, kappa, m and b each a scalar or one value per (element,
+    qp), at the decks' quadrature and one more point per axis: f64 to
+    1e-12, f32 to 1e-5 of max |plain|."""
+    from mrhyde_tpu_torch.ops import _build
+    from mrhyde_tpu_torch.ops import fused_elem as fe
+    from mrhyde_tpu_torch.ops._launch import (coeff_args, ptr, stage_args,
+                                              velocity_args)
+    from mrhyde_tpu_torch.ops.fused_p1 import QuadTables, Stage
+    (phi, grad, wts), lat = _thermal_tables(mesh, dims, quadrature)
+    tab = QuadTables(phi, grad, wts, "cpu", dtype)
+    E, Q = math.prod(dims), tab.Q
+    assert Q == {2: 8, 4: 27 if mesh == "hex" else 9, 6: 16}[quadrature]
+    rng = np.random.RandomState(37)
+    shape = tuple(lat.stride * n + 1 for n in dims)
+    grid = torch.as_tensor(rng.rand(*shape) - 0.5, dtype=dtype)
+    words = case.split()
+
+    def per_qp(lo):
+        return torch.as_tensor(lo + rng.rand(E, Q), dtype=dtype)
+    kappa = per_qp(1.0) if "K" in words else 1.3
+    stage = None
+    if "stage" in words:
+        stage = Stage(0.29, 170.0, per_qp(1.0) if "M" in words else 2.0)
+    vel = None
+    if "b" in words:
+        vel = [2.0, -1.0, 0.5][:tab.dim]
+    elif "B" in words:
+        vel = [per_qp(-0.5) for _ in range(tab.dim)]
+    want = fe.thermal_elem_state_plain(grid, kappa, tab, lat, stage, vel)
+    name = "thermal_elem_state_f64" if dtype == torch.float64 \
+        else "thermal_elem_state_f32"
+    fnc = getattr(elem_thermal_lib, name)
+    fnc.argtypes = _build._SIGNATURES[name]
+    fnc.restype = ctypes.c_int
+    got = torch.full((tab.nc, E), float("nan"), dtype=dtype)
+    assert fnc(ptr(grid), *coeff_args(kappa, E, grid, tab, "kappa"),
+               *stage_args(stage, E, grid, tab),
+               *velocity_args(vel, E, grid, tab),
+               *fe._geometry_args(grid, tab, lat), ptr(got), None) == 0
+    assert bool(torch.isfinite(got).all())
+    _assert_close(got, want, dtype)
+
+
+@pytest.fixture(scope="module")
 def node_libs(tmp_path_factory):
     """The two B2 node kernel files, fused_p1_thermal.cu and
     fused_p1_ns.cu, each built once for the host."""
@@ -1173,6 +1256,71 @@ def test_thermal_node_state_on_the_host(node_libs, case, dims, dtype,
     _assert_close(got, want, dtype)
 
 
+# thermal_node_full's cases: steady, a stage and advection, with m and the
+# velocity ("b") each a scalar, or in capitals one value per (element,
+# qp); S, dS, K, dK are always per qp
+NODE_FULL_CASES = ("steady", "stage m", "stage M", "advect b", "advect B",
+                   "advect stage m b", "advect stage M B")
+NODE_FULL_HOST = [(c, g, d, 2) for c in NODE_FULL_CASES
+                  for g in ((37, 13), (13, 37), (1, 1))
+                  for d in (torch.float64, torch.float32)] \
+    + [(c, (37, 13), torch.float64, 4) for c in NODE_FULL_CASES]
+
+
+@pytest.mark.parametrize("case,dims,dtype,quadrature", NODE_FULL_HOST)
+def test_thermal_node_full_on_the_host(node_libs, case, dims, dtype,
+                                       quadrature):
+    """thermal_node_full (thermal_node_state's tile walk with a Jacobian
+    role: each element's quadrature once, its qp scalars contracted with
+    the weighted basis products built once per block, each node the sum of
+    its four elements' rows, each element's 16 Jacobian rows written by
+    the tile that owns it) on the host against its plain version, steady,
+    at a DIRK-2,2 stage and with advection, m and b each a scalar or one
+    value per (element, qp), on 37 x 13 and 13 x 37 grids (several tiles
+    along one axis, the last ones partial) and a 1 x 1 grid, at Q = 4
+    (the compile-time instance) and Q = 9: f64 to 1e-12, f32 to 1e-5 of
+    max |plain|, the residual and every Jacobian row."""
+    from mrhyde_tpu_torch.ops import _build
+    from mrhyde_tpu_torch.ops import fused_p1 as fp
+    from mrhyde_tpu_torch.ops._launch import stage_args, velocity_args
+    tab = _p1_tables(dims, dtype, quadrature)
+    E, Q = math.prod(dims), tab.Q
+    assert Q == {2: 4, 4: 9}[quadrature]
+    rng = np.random.RandomState(43)
+    u = torch.as_tensor(rng.rand(dims[0] + 1, dims[1] + 1) - 0.5,
+                        dtype=dtype)
+    words = case.split()
+
+    def per_qp(lo):
+        return torch.as_tensor(lo + rng.rand(E, Q), dtype=dtype)
+    S, dS, dK = per_qp(-0.5), per_qp(-0.5), per_qp(-0.5)
+    K = per_qp(1.0)
+    stage = None
+    if "stage" in words:
+        stage = fp.Stage(0.29, 170.0, per_qp(1.0) if "M" in words else 2.0)
+    vel = None
+    if "b" in words:
+        vel = [2.0, -1.0]
+    elif "B" in words:
+        vel = [per_qp(-0.5), per_qp(-0.5)]
+    want = fp.thermal_node_full_plain(u, S, dS, K, dK, tab, stage, vel)
+    name = "thermal_node_full_f64" if dtype == torch.float64 \
+        else "thermal_node_full_f32"
+    fnc = getattr(node_libs["fused_p1_thermal.cu"], name)
+    fnc.argtypes = _build._SIGNATURES[name]
+    fnc.restype = ctypes.c_int
+    got = (torch.full_like(u, float("nan")),
+           torch.full((16, E), float("nan"), dtype=dtype))
+    assert fnc(u.data_ptr(), S.data_ptr(), dS.data_ptr(), K.data_ptr(),
+               dK.data_ptr(), *stage_args(stage, E, u, tab),
+               *velocity_args(vel, E, u, tab), tab.t_phi.data_ptr(),
+               tab.t_grad.data_ptr(), tab.t_wts.data_ptr(), Q, *dims,
+               got[0].data_ptr(), got[1].data_ptr(), None) == 0
+    for g, w in zip(got, want):
+        assert bool(torch.isfinite(g).all())
+        _assert_close(g, w, dtype)
+
+
 # ns_node_full's cases: (case, quadrature, grid, dtype)
 NS_NODE_HOST = [(c, q, g, d) for c in ("steady", "steady visc", "stage")
                 for q in (2, 8) for g in ((37, 13), (32, 16), (1, 1))
@@ -1223,19 +1371,25 @@ def test_ns_node_kernel_on_the_host(node_libs, case, quadrature, dims,
         _assert_close(got, ref, dtype)
 
 
-@pytest.mark.parametrize("kernel", ["thermal_node_state", "ns_node_full"])
+@pytest.mark.parametrize("kernel", ["thermal_node_state",
+                                    "thermal_node_full", "ns_node_full"])
 def test_node_kernels_refuse_a_quadrature_past_the_card(kernel):
     """The providers of the B2 node kernels accept a 2D p1 deck's
     quadrature only where the kernel's block fits the H100's shared
     memory per block (ns_node_full: the halo's densities, f64 up to 122
-    qps; thermal_node_state: its tables, f64 up to 1,833 qps), and past
-    that raise a ValueError that names the limit."""
-    from mrhyde_tpu_torch.ops._launch import (SMEM_OPTIN,
+    qps; thermal_node_state: its tables, f64 up to 1,833 qps;
+    thermal_node_full: its tables and products, with advection's layout,
+    f64 up to 196 qps), and past that raise a ValueError that names the
+    limit."""
+    from mrhyde_tpu_torch.ops._launch import (SMEM_OPTIN, full_smem_words,
                                               ns_node_smem_words,
                                               state_smem_words)
     cfg, words, (fits, past) = {
         "thermal_node_state": (lambda: thermal_cfg(2), state_smem_words,
                                (83, 85)),
+        "thermal_node_full": (lambda: thermal_cfg(2, kappa="1.0 + e*e"),
+                              lambda Q: full_smem_words(Q, True),
+                              (27, 29)),
         "ns_node_full": (lambda: channel_cfg(2, 1), ns_node_smem_words,
                          (21, 23))}[kernel]
     f = _host_provider(cfg(), fits)
@@ -1293,7 +1447,7 @@ extern "C" long long words(int dim, int nc, int nv, int tr, int Q, int el) {
     "fused_p1_thermal.cu": """
 #include "fused_p1_thermal.cu"
 extern "C" long long words(int dim, int nc, int nv, int tr, int Q, int el) {
-  return state_smem_words(Q);
+  return nv == 1 ? state_smem_words(Q) : full_smem_words(Q, nv == 3);
 }
 """,
     "fused_p1_ns.cu": """
@@ -1312,6 +1466,7 @@ def test_layout_formulas_are_the_kernels(header, tmp_path):
     headers built on the host) at every element count, quadrature and
     set size."""
     from mrhyde_tpu_torch.ops._launch import (elem_smem_words,
+                                              full_smem_words,
                                               node_smem_words,
                                               ns_node_smem_words,
                                               state_smem_words)
@@ -1321,17 +1476,20 @@ def test_layout_formulas_are_the_kernels(header, tmp_path):
              "set_elem.cuh": [(d, c, nv) for d, c in ((3, 8), (2, 9))
                               for nv in (1, 2, 4, 5, 6)],
              "fused_elem_ns.cu": [(3, 8, 4), (2, 9, 3)],
-             "fused_p1_thermal.cu": [(2, 4, 1)],
+             "fused_p1_thermal.cu": [(2, 4, 1), (2, 4, 2), (2, 4, 3)],
              "fused_p1_ns.cu": [(2, 4, 3)]}[header]
-    # the node kernels' layouts depend on Q alone
-    node = {"fused_p1_thermal.cu": state_smem_words,
-            "fused_p1_ns.cu": ns_node_smem_words}.get(header)
+    # the node kernels' layouts depend on Q alone (fused_p1_thermal.cu: nv
+    # 1 selects thermal_node_state's, 2 and 3 thermal_node_full's without
+    # and with advection)
+    node = {"fused_p1_thermal.cu": lambda Q, nv: state_smem_words(Q)
+            if nv == 1 else full_smem_words(Q, nv == 3),
+            "fused_p1_ns.cu": lambda Q, nv: ns_node_smem_words(Q)}.get(header)
     for dim, nc, nv in cases:
         for tr in (0, 1):
             for Q in (1, 4, 8, 9, 25, 27, 64, 125):
                 for el in (1, 2, 4, 8, 16):
                     if node:
-                        want = node(Q)
+                        want = node(Q, nv)
                     elif nc == 4:
                         want = node_smem_words(nv, tr, Q, el)
                     else:

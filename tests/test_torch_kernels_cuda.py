@@ -257,6 +257,40 @@ def test_state_kernel_at_tile_edges_matches_plain(shape, dtype, quadrature):
     assert fp.LAUNCHES["state"] == before + 4
 
 
+@pytest.mark.cuda
+@pytest.mark.parametrize("quadrature", [2, 4])
+@pytest.mark.parametrize("dtype", [torch.float64, torch.float32])
+@pytest.mark.parametrize("shape", STATE_EDGES)
+def test_full_kernel_at_tile_edges_matches_plain(shape, dtype, quadrature):
+    """thermal_node_full (thermal_node_state's tile walk with a Jacobian
+    role) on grids whose node tiles are whole, one node past whole, or a
+    single element, at Q = 4 (its compile-time instance) and Q = 9:
+    steady, a stage with a per-qp mass, the velocity (2, -1) and a per-qp
+    one at a stage, against its plain version (the node residual and
+    every Jacobian row)."""
+    from mrhyde_tpu_torch.ops import fused_p1 as fp
+    dev = _card()
+    tab, _ = _node_tables(thermal_cfg(*shape), dev, dtype, quadrature)
+    assert tab.Q == {2: 4, 4: 9}[quadrature]
+    gen = torch.Generator(device=dev).manual_seed(17)
+    N0, N1 = shape
+    u = torch.rand((N0 + 1, N1 + 1), generator=gen, device=dev,
+                   dtype=dtype) - 0.5
+    qp = [torch.rand((N0 * N1, tab.Q), generator=gen, device=dev,
+                     dtype=dtype) + 0.5 for _ in range(7)]
+    before = fp.LAUNCHES["full"]
+    for stage, vel in ((None, None),
+                       (fp.Stage(*DIRK22_STAGE1, qp[4]), None),
+                       (None, [2.0, -1.0]),
+                       (fp.Stage(*DIRK22_STAGE1, 1.0), qp[5:])):
+        args = (u, *qp[:4], tab, stage, vel)
+        out, jac = fp.thermal_node_full(*args)
+        ref, jref = fp.thermal_node_full_plain(*args)
+        assert _close(out, ref, dtype) and _close(jac, jref, dtype)
+        assert jac.shape == (16, N0 * N1)
+    assert fp.LAUNCHES["full"] == before + 4
+
+
 # node grids at ns_node_full's tile edges (8 x 16 nodes a tile)
 NS_EDGES = [(7, 15), (8, 16), (15, 31), (16, 32), (1, 1)]
 
@@ -399,6 +433,50 @@ def test_elem_kernels_match_plain(mesh, shape, dtype):
         assert jac.shape == (tab.nc ** 2, E)
     assert fp.LAUNCHES["elem_state"] == before["elem_state"] + 6
     assert fp.LAUNCHES["elem_full"] == before["elem_full"] + 3
+
+
+# element grids at thermal_elem_state's tile edges (64 elements a tile in
+# f64, 256 in f32): whole tiles, one element past them, and a single
+# element
+ELEM_STATE_EDGES = {"hex": [(4, 4, 4), (1, 1, 65), (4, 8, 8), (257, 1, 1),
+                            (1, 1, 1)],
+                    "p2": [(8, 8), (5, 13), (16, 16), (1, 257), (1, 1)]}
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("dtype", [torch.float64, torch.float32])
+@pytest.mark.parametrize("mesh,shape", [(m, s) for m, ss in
+                                        ELEM_STATE_EDGES.items()
+                                        for s in ss])
+def test_elem_state_kernel_at_tile_edges_matches_plain(mesh, shape, dtype):
+    """thermal_elem_state (the tile design's row role) on element grids
+    whose tiles are whole, one element past whole, or a single element:
+    steady with kappa scalar and per qp, the decks' stage (kappa and m
+    scalar), a stage with both per qp, the velocity (2, -1[, 0.5]) and a
+    per-qp one at a stage, against its plain version."""
+    from mrhyde_tpu_torch.ops import fused_elem as fe
+    from mrhyde_tpu_torch.ops import fused_p1 as fp
+    dev = _card()
+    tab, lat = _elem_case(mesh, dev, dtype)
+    p = lat.stride
+    gen = torch.Generator(device=dev).manual_seed(19)
+    grid = torch.rand(tuple(p * n + 1 for n in shape), generator=gen,
+                      device=dev, dtype=dtype) - 0.5
+    E = int(np.prod(shape))
+    qp = [torch.rand((E, tab.Q), generator=gen, device=dev, dtype=dtype)
+          + 0.5 for _ in range(2 + tab.dim)]
+    st1 = fp.Stage(*DIRK22_STAGE1, 1.0)
+    before = fp.LAUNCHES["elem_state"]
+    for kappa, stage, vel in ((1.25, None, None), (qp[0], None, None),
+                              (1.0, st1, None),
+                              (qp[0], fp.Stage(*DIRK22_STAGE1, qp[1]), None),
+                              (1.0, None, [2.0, -1.0, 0.5][:tab.dim]),
+                              (0.5, st1, qp[2:])):
+        args = (grid, kappa, tab, lat, stage, vel)
+        rows = fe.thermal_elem_state(*args)
+        assert _close(rows, fe.thermal_elem_state_plain(*args), dtype)
+        assert rows.shape == (tab.nc, E)
+    assert fp.LAUNCHES["elem_state"] == before + 6
 
 
 @pytest.mark.cuda

@@ -1,30 +1,38 @@
-"""Where the time of the scalar element kernel `thermal_elem_full`
-(csrc/fused_elem_thermal.cu) and of the module-set node kernel
-`set_node_full` (csrc/set_node.cuh) goes, on one card: builds patched
-copies of a tree's csrc/, each with a part of a kernel cut, and times
-each on the cases of chip_smoke.py's phases 3c, 3d, 3f and 3i (f64, the
-divisible shapes).
+"""Where the time of the scalar element kernels `thermal_elem_full` and
+`thermal_elem_state` (csrc/fused_elem_thermal.cu) and of the module-set
+node kernel `set_node_full` (csrc/set_node.cuh) goes, on one card:
+builds patched copies of a tree's csrc/, each with a part of a kernel
+cut, and times each on the cases of chip_smoke.py's phases 3c, 3d, 3f
+and 3i (f64, the divisible shapes; thermal_elem_state f64 and f32).
 
     python tools/full_ablate.py [--csrc DIR] [--design NAME] [--out DIR]
                                 [VARIANT ...]
 
 `--csrc` (default: this tree's) is the csrc/ directory to patch, such as
 that of an unpacked `git archive` of an earlier commit; `--design` names
-the variant table that matches it: `current` (this tree's kernels) or
+the variant table that matches it: `current` (this tree's kernels),
 `column` (the per-column designs they replaced: one thread per element
 walking the Jacobian a column c' per pass in thermal_elem_full, one
-Dual<T, 1> density pass per column in set_node_full's Jacobian blocks).
-The C interfaces of both designs are the same, so this tree's wrappers
-fill the arguments. Variants (default: all of the design's) are listed in
-VARIANTS; `base` is the kernel as it is. Each variant builds into
+Dual<T, 1> density pass per column in set_node_full's Jacobian blocks)
+or `thread` (the thread per element of thermal_elem_state before its
+tile design). The C interfaces of all designs are the same, so this
+tree's wrappers fill the arguments. Variants (default: all of the
+design's) are listed in VARIANTS; `base` is the kernel as it is, timed
+on the kernels that the chosen variants cut (on all where only `base`
+is named). Each variant builds into
 DIR/<design>/<variant> (default tree_copies/ablate, listed in
 .gitignore) with the flags of ops/_build.py, all nvcc at once; ptxas's
 report goes to DIR/<design>/ptxas.txt. Prints one JSON line per (case,
 variant): the median of 3 batches of 10 back-to-back launches (CUDA
-events), and the largest difference of its outputs from `base`'s
-relative to max |base| (the cut variants change them). First it prints
-the cuBLAS time of the contraction alone (torch.matmul of the same GEMM
-shapes, f64), a yardstick that no path of the port calls."""
+events; thermal_elem_state: `ms` the median of 5 batches of 20 and
+`single_ms` the median of 20 single launches, as tools/node_ablate.py
+times them, and with the default `--csrc` the Python wrapper's
+`wrapper_ms` and `wrapper_single_ms` beside `base`: its host time before
+the launch is `wrapper_single_ms - single_ms`), and the largest
+difference of its outputs from `base`'s relative to max |base| (the cut
+variants change them). First it prints the cuBLAS time of the
+contraction alone (torch.matmul of the same GEMM shapes, f64), a
+yardstick that no path of the port calls."""
 
 import argparse
 import ctypes
@@ -46,18 +54,22 @@ import engine_ablate  # noqa: E402
 from mrhyde_tpu_torch.ops import _build  # noqa: E402
 from mrhyde_tpu_torch.ops import fused_elem as fe  # noqa: E402
 from mrhyde_tpu_torch.ops import fused_set as fs  # noqa: E402
+from mrhyde_tpu_torch.ops._launch import (coeff_args, stage_args,  # noqa
+                                          velocity_args)
 from mrhyde_tpu_torch.ops.fused_p1 import QUAD_P1, Stage  # noqa: E402
 
 THERMAL, SET_NODE = "fused_elem_thermal.cu", "set_node.cuh"
+FORM = "thermal_form.cuh"
 ENGINE = engine_ablate.ENGINE
 _NEVER = "T(1.2345e30)"
+CSRC = os.path.join(REPO, "mrhyde_tpu_torch", "ops", "csrc")
 # design -> variant -> [(file, text of the file, its replacement)]
 VARIANTS = {
     "current": {
         "base": [],
         # thermal_elem_full: f64 on FMA (each lane's form of the m8n8k4
         # step, as f32) instead of DMMA
-        "thermal_fma": [(THERMAL, "  static constexpr bool value = "
+        "thermal_fma": [(FORM, "  static constexpr bool value = "
                          "std::is_same<T, double>::value;",
                          "  static constexpr bool value = false;")],
         # no Jacobian contraction (its rows stored as zeros)
@@ -71,6 +83,58 @@ VARIANTS = {
             "cj[n][i];",
             f"          if (k < NC * NC && cj[n][i] == {_NEVER})\n"
             "            a.jac[(long long)k * geo.E + e] = cj[n][i];")],
+        # thermal_elem_state (f64 octets, f32 a thread per element, two
+        # per thread): the gathers, the (E, Q) reads and the row stores
+        # only, no qp arithmetic
+        "state_loads_stores": [
+            (THERMAL, "        const T* tq = tb + (long long)qq * L::PQ;\n",
+             "        const T* tq = tb + (long long)qq * L::PQ;\n"
+             "        if (Q > 0) {\n#pragma unroll\n"
+             "          for (int j = 0; j < EL; ++j) {\n"
+             "            res[j][0] += cur[j].k + cur[j].m + cur[j].b[0] + "
+             "uc[j][0] + uc[j][NC - 1];\n"
+             "            cur[j] = load_state<T, DIM, TRANSIENT, ADVECT>(\n"
+             "                a, valid[j] && qq + 1 < nq,\n"
+             "                (e0 + j * kThreads) * Q + q0 + qq + 1);\n"
+             "          }\n          continue;\n        }\n"),
+            (THERMAL, "          const T* fq = fr + (long long)qq * L::NF * "
+             "32;\n          // linearize: pair p's C fragment",
+             "          const T* fq = fr + (long long)qq * L::NF * 32;\n"
+             "          if (Q > 0) {\n            cr[0][0] += cur.k + cur.m + "
+             "cur.b[0] + ua[0];\n            cur = nxt;\n            "
+             "continue;\n          }\n          // linearize: pair p's C "
+             "fragment")],
+        # f64 on FMA (each lane's form of the m8n8k4 step) instead of DMMA
+        "state_fma": [(FORM, "  static constexpr bool value = "
+                       "std::is_same<T, double>::value;",
+                       "  static constexpr bool value = false;")],
+        # hex f64 octets at 2 blocks per SM (128 registers) instead of 4
+        "state_octets_min2": [(
+            THERMAL, "  static constexpr int kMinBlocks = kOctets || sizeof(T) "
+            "== 4 ? 4 : 2;", "  static constexpr int kMinBlocks = kOctets ? 2"
+            " : (sizeof(T) == 4 ? 4 : 2);")],
+        # f64 by the thread per element everywhere (hex too), two per
+        # thread
+        "state_rows_f64": [(
+            THERMAL, "  static constexpr bool kOctets = std::is_same<T, "
+            "double>::value && NC == 8;", "  static constexpr bool kOctets = "
+            "false;")],
+        # the thread per element with one element per thread in f64 too
+        "state_one_element": [(
+            THERMAL, "  static constexpr int kElems =\n      sizeof(T) == 8 && "
+            "!(TRANSIENT && ADVECT) ? 2 : 1;",
+            "  static constexpr int kElems = 1;")],
+        # the largest L1 the card's shared memory leaves (the state
+        # kernels' per-qp loads are L1 hits)
+        "state_max_l1": [(
+            THERMAL, "    cudaOccupancyMaxActiveBlocksPerMultiprocessor(&per_sm,"
+            " kernel, kThreads,\n                                          "
+            "        smem);",
+            "    if (!JAC)\n      cudaFuncSetAttribute(kernel, "
+            "cudaFuncAttributePreferredSharedMemoryCarveout, 0);\n"
+            "    cudaOccupancyMaxActiveBlocksPerMultiprocessor(&per_sm, kernel,"
+            " kThreads,\n                                                  "
+            "smem);")],
         # set_node_full: no Jacobian blocks launched
         "set_residual_blocks": [(
             SET_NODE, "    jac_blocks = (E + elems - 1) / elems;",
@@ -136,16 +200,61 @@ VARIANTS = {
             SET_NODE, "  if (blockIdx.x < res_blocks) {\n",
             "  if (blockIdx.x < res_blocks) {\n    if (a.Q > 0) return;\n")],
     },
+    "thread": {
+        "base": [],
+        # thermal_elem_state: the corner gathers, the (E, Q) coefficient
+        # reads and the row stores only (no qp arithmetic)
+        "state_loads_stores": [
+            (THERMAL, "  for (int q = 0; q < Q; ++q) {\n    T gq[DIM];\n",
+             "  for (int q = 0; q < Q; ++q) {\n    if (Q > 0) {\n"
+             "      r[0] += kappa_is_scalar ? kappa0 : kappa[e * Q + q];\n"
+             "      if constexpr (TRANSIENT)\n"
+             "        r[1] += mass_is_scalar ? mass0 : mass[e * Q + q];\n"
+             "      if constexpr (ADVECT)\n"
+             "        for (int d = 0; d < DIM; ++d) r[2] += vel.at(d, e * Q"
+             " + q);\n      continue;\n    }\n    T gq[DIM];\n"),
+            (THERMAL, "  for (int c = 0; c < NC; ++c) rows[c * geo.E + e] = "
+             "r[c];", "  for (int c = 0; c < NC; ++c) rows[c * geo.E + e] = "
+             "r[c] + uc[c];")],
+        # no table reads: each entry of phi and grad the qp's index plus a
+        # constant of (c, d), each weight its index plus 1 (one add per
+        # entry and qp instead of a shared-memory read)
+        "state_no_tables": [
+            (THERMAL, "      for (int c = 0; c < NC; ++c) v += grad[(c * Q +"
+             " q) * DIM + d] * uc[c];",
+             "      for (int c = 0; c < NC; ++c) v += (T(q) + T(0.125 * (c *"
+             " DIM + d))) * uc[c];"),
+            (THERMAL, "      for (int c = 0; c < NC; ++c) uh += phi[c * Q + q]"
+             " * uc[c];", "      for (int c = 0; c < NC; ++c) uh += (T(q) + "
+             "T(0.125 * c)) * uc[c];"),
+            (THERMAL, "      for (int d = 0; d < DIM; ++d) a += grad[(c * Q +"
+             " q) * DIM + d] * flux[d];\n      if constexpr (TRANSIENT || "
+             "ADVECT) a = phi[c * Q + q] * mu + a;",
+             "      for (int d = 0; d < DIM; ++d) a += (T(q) + T(0.125 * (c * "
+             "DIM + d))) * flux[d];\n      if constexpr (TRANSIENT || ADVECT)"
+             " a = (T(q) + T(0.125 * c)) * mu + a;"),
+            (THERMAL, "    const T w = wts[q];\n#pragma unroll\n    for (int c"
+             " = 0; c < NC; ++c) {\n      T a = T(0);",
+             "    const T w = T(q + 1);\n#pragma unroll\n    for (int c = 0;"
+             " c < NC; ++c) {\n      T a = T(0);")],
+    },
 }
 THERMAL_CASES = (("hex", 0), ("p2", 2))  # chip_smoke.ELEM_SHAPES index
 SET_CASES = tuple(cs.SET_KERNEL_CASES)
 
 
-def _runs(variant, key):
-    """Whether a variant runs on a case of this kind ('thermal' or a
-    generated source): `base` on all, the others on their kernel's."""
-    return variant == "base" or variant.startswith(
-        "thermal_" if key == "thermal" else "set_")
+def _kind(key):
+    """The variant prefix of a case key: 'thermal' (thermal_elem_full),
+    'state' (thermal_elem_state) or a generated source (set_node_full)."""
+    return key if key in ("thermal", "state") else "set"
+
+
+def _runs(variant, key, kinds):
+    """Whether a variant runs on a case of this key: `base` on the kinds
+    the chosen variants cut, the others on their kernel's."""
+    if variant == "base":
+        return _kind(key) in kinds
+    return variant.startswith(_kind(key) + "_")
 
 
 def patched(csrc, out, name, patches):
@@ -160,26 +269,6 @@ def patched(csrc, out, name, patches):
             raise SystemExit(f"{name}: {fname} no longer holds {old!r}")
         open(path, "w").write(text.replace(old, new))
     return d
-
-
-def _captured(call):
-    """The C arguments of one thermal_elem_full wrapper call, and the
-    outputs they point to: the wrapper's entry point replaced by a
-    recorder."""
-    got = {}
-    entry = fe._entry
-
-    def record(name, dtype):
-        def fn(*args):
-            got["args"] = args
-            return 0
-        return fn
-    fe._entry = record
-    try:
-        outs = call()
-    finally:
-        fe._entry = entry
-    return got["args"], outs
 
 
 def thermal_cases(dev):
@@ -205,12 +294,60 @@ def thermal_cases(dev):
                 ("advect b scalar", (u, *full), None, const),
                 ("advect b rotating stage", (ue, *tr),
                  Stage(*cs.DIRK22_STAGE1, 1.0), rot))
+        E, nc = math.prod(dims), tab.nc
         for label, head, stage, vel in todo:
-            args, outs = _captured(lambda: fe.thermal_elem_full(
-                *head, tab, lat, stage, vel))
+            rows = torch.empty((nc, E), dtype=f64, device=dev)
+            jac = torch.empty((nc * nc, E), dtype=f64, device=dev)
+            args = (*(t.data_ptr() for t in head),
+                    *stage_args(stage, E, head[0], tab),
+                    *velocity_args(vel, E, head[0], tab),
+                    *fe._geometry_args(head[0], tab, lat), rows.data_ptr(),
+                    jac.data_ptr())
             # the arguments point into these tensors: keep them alive
             out.append((f"thermal_elem_full {mesh} {label}", "thermal",
-                        args + ((head, tab, stage, vel),), outs))
+                        args, (rows, jac), (head, tab, stage, vel)))
+    return out
+
+
+def state_cases(dev, dtype):
+    """[(label, 'state', C arguments without the stream, outputs, wrapper
+    call)]: thermal_elem_state at phase 3c's and 3d's divisible shapes
+    (hex 128^3, p2 1024^2): kappa = 1 and 1 + 0.5 x y (z) steady, the
+    decks' DIRK-2,2 stage with kappa and m scalar and phase 3c's with
+    both per qp, and phase 3d's four advection cases."""
+    out = []
+    for mesh, i in THERMAL_CASES:
+        dims = cs.ELEM_SHAPES[i][1]
+        gen = torch.Generator(device=dev).manual_seed(2468)
+        tab, lat, q_off = cs.elem_tables(mesh, dims, dev, dtype)
+        u, kxy, mx, _full, _tr = cs.elem_inputs(dims, tab, lat, q_off, dev,
+                                                dtype, gen)
+        xs = cs.qp_xyz(dims, q_off, tab.Q, dev, dtype)
+        rot = [(-4.0 * (xs[1] - 0.5)).contiguous(),
+               (4.0 * (xs[0] - 0.5)).contiguous(),
+               (0.5 + 0.25 * xs[-1]).contiguous()][:tab.dim]
+        const = [2.0, 1.0, 0.5][:tab.dim]
+        st1 = Stage(*cs.DIRK22_STAGE1, 1.0)
+        xy, b3 = ("xyz", ",0.5") if mesh == "hex" else ("xy", "")
+        todo = (("kappa=1.0", 1.0, None, None),
+                (f"kappa=1+0.5{xy}", kxy, None, None),
+                ("dirk22 kappa=1.0 m=1.0", 1.0, st1, None),
+                (f"dirk22 kappa=1+0.5{xy} m=1+0.5x", kxy,
+                 Stage(*cs.DIRK22_STAGE1, mx), None),
+                (f"b=(2,1{b3}) kappa=1", 1.0, None, const),
+                (f"dirk22 b=(2,1{b3}) kappa=0.5 m=1", 0.5, st1, const),
+                ("b rotating kappa=1", 1.0, None, rot),
+                ("dirk22 b rotating kappa=0.5 m=1", 0.5, st1, rot))
+        E = math.prod(dims)
+        for label, kappa, stage, vel in todo:
+            rows = torch.empty((tab.nc, E), dtype=dtype, device=dev)
+            args = (u.data_ptr(), *coeff_args(kappa, E, u, tab, "kappa"),
+                    *stage_args(stage, E, u, tab),
+                    *velocity_args(vel, E, u, tab),
+                    *fe._geometry_args(u, tab, lat), rows.data_ptr())
+            out.append((f"thermal_elem_state {mesh} {label}", "state", args,
+                        (rows,), lambda k=kappa, s=stage, v=vel, t=tab, g=u,
+                        la=lat: fe.thermal_elem_state(g, k, t, la, s, v)))
     return out
 
 
@@ -283,10 +420,26 @@ def matmul_yardstick(dev):
     return out
 
 
+def batched(call, reps=20, n=5):
+    """Median of n batches of `reps` back-to-back calls (CUDA events)."""
+    call()
+    torch.cuda.synchronize()
+    times = []
+    for _ in range(n):
+        t0 = torch.cuda.Event(enable_timing=True)
+        t1 = torch.cuda.Event(enable_timing=True)
+        t0.record()
+        for _ in range(reps):
+            call()
+        t1.record()
+        t1.synchronize()
+        times.append(t0.elapsed_time(t1) / reps)
+    return sorted(times)[n // 2]
+
+
 def main():
     p = argparse.ArgumentParser(description=__doc__.splitlines()[0])
-    p.add_argument("--csrc", default=os.path.join(
-        REPO, "mrhyde_tpu_torch", "ops", "csrc"))
+    p.add_argument("--csrc", default=CSRC)
     p.add_argument("--design", default="current", choices=list(VARIANTS))
     p.add_argument("--out", default=os.path.join(REPO, "tree_copies",
                                                  "ablate"))
@@ -294,15 +447,27 @@ def main():
     opts = p.parse_args()
     table = VARIANTS[opts.design]
     names = ["base"] + [v for v in (opts.variants or table) if v != "base"]
+    kinds = {v.split("_")[0] for v in names if v != "base"} or {
+        "thermal", "state", "set"}
+    own = os.path.abspath(opts.csrc) == CSRC
     out_dir = os.path.join(opts.out, opts.design)
     os.makedirs(out_dir, exist_ok=True)
     print(cs.nvidia_smi(), flush=True)
     dev = torch.device("cuda", 0)
-    for rec in matmul_yardstick(dev):
-        print(json.dumps(rec), flush=True)
-    todo = thermal_cases(dev) + set_cases(dev)
+    if "thermal" in kinds:
+        for rec in matmul_yardstick(dev):
+            print(json.dumps(rec), flush=True)
+    todo = []
+    if "thermal" in kinds:
+        todo += [(torch.float64, *c) for c in thermal_cases(dev)]
+    if "state" in kinds:
+        for dtype in (torch.float64, torch.float32):
+            todo += [(dtype, *c) for c in state_cases(dev, dtype)]
+    if "set" in kinds:
+        todo += [(torch.float64, *c, None) for c in set_cases(dev)]
     nvcc = _build._nvcc()
-    texts = sorted({key for _l, key, _a, _o in todo if key != "thermal"})
+    texts = sorted({key for _d, _l, key, _a, _o, _w in todo
+                    if _kind(key) == "set"})
     jobs = {}
     for name in names:
         d = patched(opts.csrc, out_dir, name, table[name])
@@ -311,13 +476,16 @@ def main():
             srcs[text] = os.path.join(d, f"gen{i}.cu")
             open(srcs[text], "w").write(text)
         for key, src in srcs.items():
-            if not _runs(name, key):
+            if not any(_runs(name, k, kinds) for k in
+                       (("thermal", "state") if key == "thermal" else (key,))):
                 continue
             lib = src[:-3] + ".so"
             cmd = [nvcc, *_build.NVCC_FLAGS, "-I", d, "-o", lib, src]
             jobs[name, key] = (lib, subprocess.Popen(
                 cmd, stdout=subprocess.PIPE, stderr=subprocess.STDOUT,
                 text=True))
+    if own and "state" in kinds:
+        _build.load_library()
     libs = {}
     with open(os.path.join(out_dir, "ptxas.txt"), "w") as log:
         for (name, key), (lib, proc) in jobs.items():
@@ -328,15 +496,21 @@ def main():
                       f"\n{text}\n")
             libs[name, key] = ctypes.CDLL(lib)
     stream = ctypes.c_void_p(torch.cuda.current_stream(dev).cuda_stream)
-    for label, key, args, outs in todo:
+    for dtype, label, key, args, outs, wrapper in todo:
         base = None
+        suffix = "f64" if dtype == torch.float64 else "f32"
         for name in names:
-            if not _runs(name, key):
+            if not _runs(name, key, kinds):
                 continue
             if key == "thermal":
                 fnc = libs[name, key].thermal_elem_full_f64
                 fnc.argtypes = _build._SIGNATURES["thermal_elem_full_f64"]
-                cargs = args[:-2] + (stream,)
+                cargs = args + (stream,)
+            elif key == "state":
+                entry = f"thermal_elem_state_{suffix}"
+                fnc = getattr(libs[name, "thermal"], entry)
+                fnc.argtypes = _build._SIGNATURES[entry]
+                cargs = args + (stream,)
             else:
                 fnc = libs[name, key].set_node_full_f64
                 fnc.argtypes = [ctypes.c_void_p, ctypes.c_void_p]
@@ -356,19 +530,16 @@ def main():
             diff = max(float((o - b).abs().max()) /
                        max(float(b.abs().max()), 1e-300)
                        for o, b in zip(got, base))
-            times = []
-            for _ in range(3):
-                t0 = torch.cuda.Event(enable_timing=True)
-                t1 = torch.cuda.Event(enable_timing=True)
-                t0.record()
-                for _ in range(10):
-                    call()
-                t1.record()
-                t1.synchronize()
-                times.append(t0.elapsed_time(t1) / 10)
-            print(json.dumps({"case": label, "variant": name,
-                              "ms": sorted(times)[1],
-                              "rel_diff_from_base": diff}), flush=True)
+            rec = {"case": label, "variant": name, "rel_diff_from_base": diff}
+            if key == "state":
+                rec.update(dtype=suffix, ms=batched(call),
+                           single_ms=cs.cuda_ms(call))
+                if name == "base" and own:
+                    rec["wrapper_ms"] = batched(wrapper)
+                    rec["wrapper_single_ms"] = cs.cuda_ms(wrapper)
+            else:
+                rec["ms"] = batched(call, 10, 3)
+            print(json.dumps(rec), flush=True)
 
 
 if __name__ == "__main__":

@@ -2,13 +2,16 @@
 
     python tools/kernel_ab.py PARENT_DIR [--out DIR] [--phases P,...]
 
-Runs kernel phases of each tree's own chip_smoke.py (by default 3, 3b
-and 3c: `phase_kernels`, `phase_ns_kernels`, `phase_elem_kernels`;
-`--phases` names others, such as `phase_ns_elem_kernels`) in a process
-of its own, parent, change, change, parent, where the change is the tree
-this script lives in and PARENT_DIR holds the other (an unpacked `git
-archive` of the parent commit). Each tree builds its kernels into its
-own `mrhyde_tpu_torch/ops/build/`. Each kernel is timed two ways: as the
+Runs kernel phases of chip_smoke.py (by default 3, 3b and 3c:
+`phase_kernels`, `phase_ns_kernels`, `phase_elem_kernels`; `--phases`
+names others, such as `phase_ns_elem_kernels`) on each tree's kernels in
+a process of its own, parent, change, change, parent, where the change
+is the tree this script lives in and PARENT_DIR holds the other (an
+unpacked `git archive` of the parent commit). Both trees' packages run
+the phases of the change's chip_smoke.py, so both sides run the same
+cases, a case the change adds included, as long as the parent's
+wrappers take the calls. Each tree builds its kernels into its own
+`mrhyde_tpu_torch/ops/build/`. Each kernel is timed two ways: as the
 tree's chip_smoke.py times it (`ms`: one launch between two CUDA events,
 median of 20, so the wrapper's host time before the launch falls inside
 the window), and over 20 launches back to back between two events
@@ -32,8 +35,14 @@ import subprocess
 import sys
 
 _CHILD = r"""
-import hashlib, json, statistics, sys, torch
-import chip_smoke as cs
+import hashlib, importlib.util, json, statistics, sys, torch
+# the package of the tree this process runs in (its working directory),
+# the phases of the chip_smoke.py named by argv[2]
+sys.path.insert(0, ".")
+spec = importlib.util.spec_from_file_location("chip_smoke", sys.argv[2])
+cs = importlib.util.module_from_spec(spec)
+sys.modules["chip_smoke"] = cs
+spec.loader.exec_module(cs)
 from mrhyde_tpu_torch.ops import _build
 _build.load_library()
 dev = torch.device("cuda", 0)
@@ -112,9 +121,10 @@ def main(argv):
     os.makedirs(args.out, exist_ok=True)
     runs = {"parent": [], "change": []}
     for n, side in enumerate(("parent", "change", "change", "parent")):
-        out = subprocess.run([sys.executable, "-c", _CHILD, args.phases],
-                             cwd=trees[side], capture_output=True,
-                             text=True, check=True)
+        out = subprocess.run([sys.executable, "-c", _CHILD, args.phases,
+                              os.path.join(change, "chip_smoke.py")],
+                             cwd=trees[side], capture_output=True, text=True,
+                             check=True)
         with open(os.path.join(args.out, f"ab_{side}_{n}.txt"), "w") as f:
             f.write(out.stdout)
         runs[side].append({_key(r): r for r in map(

@@ -1,10 +1,11 @@
-"""Where the time of the two B2 node kernels `thermal_node_state`
-(csrc/fused_p1_thermal.cu) and `ns_node_full` (csrc/fused_p1_ns.cu) goes,
-on one card: builds patched copies of a tree's csrc/, each with a part of
-a kernel cut, and times each through its C entry point on the cases of
-chip_smoke.py's phases 3, 3b, 3d and 3i (f64 and f32, the divisible
-shapes, or thermal_node_state at `--state-shape`; ns_node_full also at
-quadrature 8, Q = 25, on 1000x243).
+"""Where the time of the three B2 node kernels `thermal_node_state`,
+`thermal_node_full` (csrc/fused_p1_thermal.cu) and `ns_node_full`
+(csrc/fused_p1_ns.cu) goes, on one card: builds patched copies of a
+tree's csrc/, each with a part of a kernel cut, and times each through
+its C entry point on the cases of chip_smoke.py's phases 3, 3b, 3d and
+3i (f64 and f32, the divisible shapes, or the thermal kernels at
+`--state-shape`; ns_node_full also at quadrature 8, Q = 25, on
+1000x243).
 
     python tools/node_ablate.py [--csrc DIR] [--design NAME] [--out DIR]
                                 [--state-shape N0,N1] [VARIANT ...]
@@ -14,12 +15,15 @@ that of an unpacked `git archive` of an earlier commit; `--design` names
 the variant table that matches its kernels: `tile` (this tree's: node
 tiles whose elements compute their quadrature once) or `node` (the
 designs they replaced: a thread per node recomputing its four elements
-in thermal_node_state; a residual role of a thread per node beside a
-Jacobian role of a thread per (element, column variable) in
-ns_node_full). The C interfaces of both designs are the same, so this
-tree's argument code (`_launch.py`, `fused_ns._ns_node_args`) fills
-them. Variants (default: all of the
-design's) are listed in VARIANTS; `base` is the kernel as it is. Each
+in thermal_node_state and in thermal_node_full's residual, beside
+thermal_node_full's Jacobian role of the node's element; a residual
+role of a thread per node beside a Jacobian role of a thread per
+(element, column variable) in ns_node_full). The C interfaces of both
+designs are the same, so this tree's argument code (`_launch.py`,
+`fused_ns._ns_node_args`) fills them. Variants (default: all of the
+design's) are listed in VARIANTS; `base` is the kernel as it is, timed
+on the kernels that the chosen variants cut (on all where only `base`
+is named). Each
 variant builds into DIR/<design>/<variant> (default tree_copies/ablate,
 listed in .gitignore) with the flags of ops/_build.py, all nvcc at once;
 ptxas's report goes to DIR/<design>/ptxas.txt.
@@ -104,6 +108,66 @@ VARIANTS = {
             NS, "      if (pos >= 0) jac[pos * E + e] = J[r][cp];",
             f"      if (pos >= 0 && J[r][cp] == {_NEVER})\n"
             "        jac[pos * E + e] = J[r][cp];")],
+        # thermal_node_full (a thread per node): the node patch, the (E, Q)
+        # reads of both roles and the stores only, no qp arithmetic
+        "full_loads_stores": [
+            (THERMAL, "    for (int q = 0; q < Q; ++q) {\n      T g0, g1;\n"
+             "      qp_grad(grad, Q, q, uc, g0, g1);\n      const T k = "
+             "K[e * Q + q];\n",
+             "    for (int q = 0; q < Q; ++q) {\n      if (Q > 0) {\n"
+             "        r += S[e * Q + q] + K[e * Q + q] + uc[0];\n"
+             "        if constexpr (ADVECT)\n          r += vel.at(0, e * Q +"
+             " q) + vel.at(1, e * Q + q);\n        continue;\n      }\n"
+             "      T g0, g1;\n      qp_grad(grad, Q, q, uc, g0, g1);\n"
+             "      const T k = K[e * Q + q];\n"),
+            (THERMAL, "  for (int q = 0; q < Q; ++q) {\n    T g0, g1;\n"
+             "    qp_grad(grad, Q, q, uc, g0, g1);\n    const T kq = "
+             "K[e * Q + q], dkq = dK[e * Q + q], dsq = dS[e * Q + q];\n",
+             "  for (int q = 0; q < Q; ++q) {\n    if (Q > 0) {\n"
+             "      J[0] += dS[e * Q + q] + dK[e * Q + q] + K[e * Q + q] + "
+             "uc[0];\n      if constexpr (TRANSIENT)\n        J[1] += "
+             "mass_is_scalar ? mass0 : mass[e * Q + q];\n"
+             "      if constexpr (ADVECT)\n        J[2] += vel.at(0, e * Q +"
+             " q) + vel.at(1, e * Q + q);\n      continue;\n    }\n"
+             "    T g0, g1;\n    qp_grad(grad, Q, q, uc, g0, g1);\n"
+             "    const T kq = K[e * Q + q], dkq = dK[e * Q + q], dsq = "
+             "dS[e * Q + q];\n")],
+        # no table reads: each entry of phi and grad the qp's index plus a
+        # constant of (c, d), each weight its index plus 1 (one add per
+        # entry and qp instead of a read)
+        "full_no_tables": [
+            (THERMAL, "    g0 += grad[(c * Q + q) * 2 + 0] * uc[c];\n"
+             "    g1 += grad[(c * Q + q) * 2 + 1] * uc[c];",
+             "    g0 += (T(q) + T(0.5 * c)) * uc[c];\n"
+             "    g1 += (T(q) + T(0.5 * c + 0.25)) * uc[c];"),
+            (THERMAL, "      r += wts[q] * (phi[c * Q + q] * sq +\n"
+             "                     grad[(c * Q + q) * 2 + 0] * (k * g0) +\n"
+             "                     grad[(c * Q + q) * 2 + 1] * (k * g1));",
+             "      r += T(q + 1) * ((T(q) + T(0.25 * c)) * sq +\n"
+             "                       (T(q) + T(0.5 * c)) * (k * g0) +\n"
+             "                       (T(q) + T(0.5 * c + 0.25)) * (k * g1));"),
+            (THERMAL, "    const T w = wts[q];\n#pragma unroll\n    for (int c"
+             " = 0; c < 4; ++c) {\n      const T pc = phi[c * Q + q];\n"
+             "      const T gc0 = grad[(c * Q + q) * 2 + 0];\n"
+             "      const T gc1 = grad[(c * Q + q) * 2 + 1];",
+             "    const T w = T(q + 1);\n#pragma unroll\n    for (int c = 0;"
+             " c < 4; ++c) {\n      const T pc = T(q) + T(0.25 * c);\n"
+             "      const T gc0 = T(q) + T(0.5 * c);\n"
+             "      const T gc1 = T(q) + T(0.5 * c + 0.25);"),
+            (THERMAL, "phi[cp * Q + q]", "(T(q) + T(0.25 * cp))"),
+            (THERMAL, "grad[(cp * Q + q) * 2 + 0]", "(T(q) + T(0.5 * cp))"),
+            (THERMAL, "grad[(cp * Q + q) * 2 + 1]",
+             "(T(q) + T(0.5 * cp + 0.25))")],
+        # one element per node instead of four (the residual role)
+        "full_one_element": [(
+            THERMAL, "  for (int c = 0; c < 4; ++c) {\n    const int a = i - "
+            "corner_i(c), b = j - corner_j(c);",
+            "  for (int c = 0; c < 1; ++c) {\n    const int a = i - "
+            "corner_i(c), b = j - corner_j(c);")],
+        # no Jacobian role
+        "full_no_jacobian": [(
+            THERMAL, "  if (i >= N0 || j >= N1) return;\n",
+            "  if (Q > 0) return;\n")],
     },
     "tile": {
         "base": [],
@@ -112,7 +176,7 @@ VARIANTS = {
         "state_loads_stores": [(
             THERMAL, "      if (a >= 0 && a < N0 && b >= 0 && b < N1) {\n"
             "        const T* pe = patch",
-            "      if (Q < 0 && a >= 0 && a < N0 && b >= 0 && b < N1) {\n"
+            "      if (N0 < 0 && a >= 0 && a < N0 && b >= 0 && b < N1) {\n"
             "        const T* pe = patch")],
         # the runtime-Q instance at Q = 4 (its loop rolled, the (E, Q)
         # coefficients in 8- or 4-byte loads at each qp)
@@ -124,6 +188,32 @@ VARIANTS = {
                         "return ADVECT ? 4 : 4;")],
         "state_min2": [(THERMAL, "return ADVECT ? 2 : 4;",
                         "return ADVECT ? 2 : 2;")],
+        # thermal_node_full (the walk's residual, then the Jacobian
+        # sweep): the sweep's reads and stores only, no qp arithmetic
+        "full_loads_stores": [(
+            THERMAL, "      T aj[NKJ], ar[NKR];\n      qp_scalars<T, 2, 4, "
+            "TRANSIENT, ADVECT>(in, uc, grad, Q, q, alpha_u,",
+            "      if (Q > 0) {\n        J[0] += in.ds + in.k + in.dk + in.m +"
+            " in.b[0] + in.b[1] + uc[0];\n        continue;\n      }\n"
+            "      T aj[NKJ], ar[NKR];\n      qp_scalars<T, 2, 4, TRANSIENT, "
+            "ADVECT>(in, uc, grad, Q, q, alpha_u,")],
+        # no Jacobian sweep (the walk's residual alone)
+        "full_no_jacobian": [(THERMAL, "  for (; e < e1; e += kThreads) {",
+                              "  for (; Q < 0 && e < e1; e += kThreads) {")],
+        # the Jacobian rows written with streaming stores
+        "full_stream": [(THERMAL, "    for (int k = 0; k < 16; ++k) jac[k * E "
+                         "+ e] = J[k];", "    for (int k = 0; k < 16; ++k) "
+                         "__stcs(&jac[k * E + e], J[k]);")],
+        # tiles of 8 x 64 elements (7 x 63 nodes) instead of 16 x 32
+        # (thermal_node_state takes the same tiles in this build, and is
+        # not timed)
+        "full_tile8x64": [(THERMAL, "constexpr int kEi = 16, kEj = 32;",
+                           "constexpr int kEi = 8, kEj = 64;")],
+        # blocks per SM for the registers: 1 (255 registers) or 3 (85)
+        "full_min1": [(THERMAL, "constexpr int kFullMinBlocks = 2;",
+                       "constexpr int kFullMinBlocks = 1;")],
+        "full_min3": [(THERMAL, "constexpr int kFullMinBlocks = 2;",
+                       "constexpr int kFullMinBlocks = 3;")],
         # ns_node_full: no halo densities (the first row and column of a
         # tile's nodes miss them)
         "ns_no_halo": [(NS, "for (int k = tid; k < kHalo * Q; k += kThreads)",
@@ -194,6 +284,43 @@ def state_cases(dev, dtype, shape=cs.KERNEL_SHAPES[0]):
     return out
 
 
+def full_cases(dev, dtype, shape=cs.KERNEL_SHAPES[0]):
+    """[(label, kind, C arguments without the stream, outputs, wrapper
+    call)] of thermal_node_full: phase 3's two cases (kappa = 1 + e*e,
+    steady and at the DIRK-2,2 stage with m = 1) and phase 3d's four
+    (the velocity (2, 1) and the rotating one, each steady and at that
+    stage) at `shape` (1024^2 by default), on phase 3's inputs."""
+    N0, N1 = shape
+    gen = torch.Generator(device=dev).manual_seed(1234)
+    tab, ip0 = cs.quad_tables(N0, N1, dev, dtype)
+    u, _kxy, _mx, full, (ue, tr) = cs.qp_inputs(N0, N1, tab, ip0, dev,
+                                                dtype, gen)
+    xs = cs.qp_xyz((N0, N1), ip0, tab.Q, dev, dtype)
+    rot = [(-4.0 * (xs[1] - 0.5)).contiguous(),
+           (4.0 * (xs[0] - 0.5)).contiguous()]
+    st1 = fp.Stage(*cs.DIRK22_STAGE1, 1.0)
+    todo = (("kappa=1+e*e", (u, *full), None, None),
+            ("dirk22 kappa=1+e*e m=1.0", (ue, *tr), st1, None),
+            ("b=(2,1) kappa=1+e*e", (u, *full), None, [2.0, 1.0]),
+            ("dirk22 b=(2,1) kappa=1+e*e m=1", (ue, *tr), st1, [2.0, 1.0]),
+            ("b rotating kappa=1+e*e", (u, *full), None, rot),
+            ("dirk22 b rotating kappa=1+e*e m=1", (ue, *tr), st1, rot))
+    E = N0 * N1
+    out = []
+    for label, head, stage, vel in todo:
+        res = torch.empty_like(u)
+        jac = torch.empty((16, E), dtype=dtype, device=dev)
+        args = (*(t.data_ptr() for t in head),
+                *stage_args(stage, E, u, tab),
+                *velocity_args(vel, E, u, tab), tab.t_phi.data_ptr(),
+                tab.t_grad.data_ptr(), tab.t_wts.data_ptr(), tab.Q, N0, N1,
+                res.data_ptr(), jac.data_ptr())
+        out.append((f"thermal_node_full {label}", "full", args, (res, jac),
+                    lambda h=head, s=stage, v=vel: fp.thermal_node_full(
+                        *h, tab, s, v)))
+    return out
+
+
 def ns_cases(dev, dtype):
     """[(label, kind, NsArgs, outputs, wrapper call)] of ns_node_full:
     phase 3b's three cases at 1024x256 and the PSPG steady one at
@@ -249,10 +376,13 @@ def batched(call, reps=20):
     return statistics.median(times)
 
 
-def _runs(variant, kind):
-    """Whether a variant runs on a case of this kind ('state' or 'ns'):
-    `base` on all, the others on their kernel's."""
-    return variant == "base" or variant.startswith(kind + "_")
+def _runs(variant, kind, kinds):
+    """Whether a variant runs on a case of this kind ('state', 'full' or
+    'ns'): `base` on the kinds the chosen variants cut, the others on
+    their kernel's."""
+    if variant == "base":
+        return kind in kinds
+    return variant.startswith(kind + "_")
 
 
 def main():
@@ -262,12 +392,14 @@ def main():
     p.add_argument("--out", default=os.path.join(REPO, "tree_copies",
                                                  "ablate"))
     p.add_argument("--state-shape", default="1024,1024",
-                   help="thermal_node_state's element grid N0,N1")
+                   help="the thermal kernels' element grid N0,N1")
     p.add_argument("variants", nargs="*")
     opts = p.parse_args()
     shape = tuple(int(n) for n in opts.state_shape.split(","))
     table = VARIANTS[opts.design]
     names = ["base"] + [v for v in (opts.variants or table) if v != "base"]
+    kinds = {v.split("_")[0] for v in names if v != "base"} or {
+        "state", "full", "ns"}
     own = os.path.abspath(opts.csrc) == CSRC
     out_dir = os.path.join(opts.out, opts.design)
     os.makedirs(out_dir, exist_ok=True)
@@ -277,9 +409,10 @@ def main():
     jobs = {}
     for name in names:
         d = patched(opts.csrc, out_dir, name, table[name])
-        for kind, src in (("state", THERMAL), ("ns", NS)):
-            if not _runs(name, kind):
+        for kinds_of, src in ((("state", "full"), THERMAL), (("ns",), NS)):
+            if not any(_runs(name, k, kinds) for k in kinds_of):
                 continue
+            kind = kinds_of[0]
             lib = os.path.join(d, src[:-3] + ".so")
             cmd = [nvcc, *_build.NVCC_FLAGS, "-I", d, "-o", lib,
                    os.path.join(d, src)]
@@ -290,8 +423,12 @@ def main():
         _build.load_library()
     todo = []
     for dtype in (torch.float64, torch.float32):
-        todo += [(dtype, *c) for c in state_cases(dev, dtype, shape)]
-        todo += [(dtype, *c) for c in ns_cases(dev, dtype)]
+        if "state" in kinds:
+            todo += [(dtype, *c) for c in state_cases(dev, dtype, shape)]
+        if "full" in kinds:
+            todo += [(dtype, *c) for c in full_cases(dev, dtype, shape)]
+        if "ns" in kinds:
+            todo += [(dtype, *c) for c in ns_cases(dev, dtype)]
     libs = {}
     with open(os.path.join(out_dir, "ptxas.txt"), "w") as log:
         for (name, kind), (lib, proc) in jobs.items():
@@ -305,15 +442,17 @@ def main():
         suffix = "f64" if dtype == torch.float64 else "f32"
         base = None
         for name in names:
-            if not _runs(name, kind):
+            if not _runs(name, kind, kinds):
                 continue
-            entry = ("thermal_node_state_" if kind == "state"
-                     else "ns_node_full_") + suffix
-            fnc = getattr(libs[name, kind], entry)
+            entry = {"state": "thermal_node_state_",
+                     "full": "thermal_node_full_",
+                     "ns": "ns_node_full_"}[kind] + suffix
+            fnc = getattr(libs[name, "ns" if kind == "ns" else "state"],
+                          entry)
             fnc.argtypes = _build._SIGNATURES[entry]
             fnc.restype = ctypes.c_int
-            cargs = (args + (stream,) if kind == "state"
-                     else (ctypes.addressof(args), stream))
+            cargs = ((ctypes.addressof(args), stream) if kind == "ns"
+                     else args + (stream,))
 
             def call():
                 err = fnc(*cargs)
