@@ -165,9 +165,10 @@ each):
              an affine set, from the u grid alone; each deck's generated
              source) against their plain versions: thermal + cdr with
              constant coefficients, steady and at DIRK-2,2 stage-1 alphas
-             (0.5, 40), on 2D p1 1024^2 and 1000x777, hex 64^3 and
-             31x23x15, p2 512^2 and 250x161, f64 and f32 (the same
-             bounds); CUDA-event medians of 20 (plain: its one check call)
+             (0.5, 40), and steady with kappa = 1 + 0.5 x (2D p1 and
+             hex), on 2D p1 1024^2 and 1000x777, hex 64^3 and 31x23x15,
+             p2 512^2 and 250x161, f64 and f32 (the same bounds);
+             CUDA-event medians of 20 (plain: its one check call)
  3i kernels_quadrature   ns_elem_full and set_elem_full (NS + thermal) on
              hex 31x23x15 at quadrature 6 (Q = 64; 8 elements per block
              in f64), set_node_full (viscosity 1 + 0.1 ux^2) and
@@ -1586,7 +1587,7 @@ def hex_neumann_deck(n):
     return cfg
 
 
-def thermal_cdr_affine_deck(n, mesh="p1", transient=False):
+def thermal_cdr_affine_deck(n, mesh="p1", transient=False, kappa=None):
     """thermal + cdr with constant coefficients (an affine set: JAX's
     split path, mode "state"), steady, on n^2 p1 quads, n^3 hex or n^2 p2
     quads (quadrature 4): both fields have the true solution S (S3), cdr
@@ -1594,7 +1595,10 @@ def thermal_cdr_affine_deck(n, mesh="p1", transient=False):
     left, right and bottom (hex: front and back too), and its flux enters
     on the top wall: a Neumann condition on e, a Flux condition on c.
     `transient`: u = T S from IC 0, DIRK-2,2, 4 steps of 0.05 to t = 0.2,
-    the fluxes T times the steady ones."""
+    the fluxes T times the steady ones. `kappa`: the thermal diffusion's
+    expression instead of 1 (one that reads the coordinates keeps the
+    set affine, its state part varying by element; the true solutions
+    then no longer hold, so such a deck only feeds phase 3h)."""
     dim = 3 if mesh == "hex" else 2
     true = S3_TRUE if dim == 3 else S_TRUE
     flux = NEUMANN3_TOP if dim == 3 else NEUMANN_TOP
@@ -1635,6 +1639,8 @@ def thermal_cdr_affine_deck(n, mesh="p1", transient=False):
         cfg["Functions"]["zvel"] = "0.5"
     if transient:
         cfg["Physics"]["Initial conditions"] = {"e": "0.0", "c": "0.0"}
+    if kappa is not None:
+        cfg["Functions"]["thermal diffusion"] = kappa
     return cfg
 
 
@@ -1847,6 +1853,14 @@ STATE_KERNEL_CASES = {
     "thermal+cdr affine p2 dirk22 stage 1": (
         "p2", lambda: thermal_cdr_affine_deck(4, "p2", transient=True),
         (1.0, 1.0), DIRK22_STAGE1, 0.05),
+    # kappa = 1 + 0.5 x: the state part's linearization differs at every
+    # qp (tests/torch_port_utils.py thermal_cdr_affine_cfg's diffusion)
+    "thermal+cdr affine kappa=1+0.5x steady": (
+        "p1", lambda: thermal_cdr_affine_deck(4, kappa="1.0 + 0.5*x"),
+        (1.0, 1.0), None, 1.0),
+    "thermal+cdr affine hex kappa=1+0.5x steady": (
+        "hex", lambda: thermal_cdr_affine_deck(3, "hex", kappa="1.0 + 0.5*x"),
+        (1.0, 1.0, 1.0), None, 1.0),
 }
 STATE_SHAPES = {"p1": ((1024, 1024), (1000, 777)),
                 "hex": ((64, 64, 64), (31, 23, 15)),
@@ -2307,7 +2321,10 @@ def elem_work(kernel, grid, dims, tab, dtype, kappa, stage,
 # seeds alpha phi_c', the scalar coefficients) is element-independent and
 # free, structural zeros are never formed, the constant Jacobian rows
 # come back as floats, and the quadrature weights are folded into the
-# tables (weights of 1).
+# tables (weights of 1). Only the operations whose values reach the
+# returned rows count: in mode "lin" the primal densities feed nothing
+# but the tangents' coefficients, so a source that reads only the
+# coordinates (the decks' sin and cos) costs nothing there.
 
 class _OpCount(TorchDispatchMode):
     """Counts the distinct arithmetic operations on tensors run under it,
@@ -2316,7 +2333,10 @@ class _OpCount(TorchDispatchMode):
     ...) are one each (an FMA two); an operation on
     tensors alone (b * b, sqrt(b)) counts once however often it recurs;
     negating, multiplying or dividing by 1, -1 or 0 and adding 0 are
-    free, as are selects and copies."""
+    free, as are selects and copies. `ops` counts every operation run;
+    reaching(results) only those whose values reach the results, as a
+    compiler keeps them (a primal value that feeds no tangent of a
+    linearization is never computed)."""
     ARITH = {"add", "sub", "rsub", "mul", "div", "reciprocal", "sqrt",
              "rsqrt", "pow", "sin", "cos", "tan", "exp", "log", "sinh",
              "cosh", "tanh", "atan2", "abs", "maximum", "minimum"}
@@ -2328,6 +2348,7 @@ class _OpCount(TorchDispatchMode):
         self._num = {}     # id(tensor) -> value number
         self._live = []    # the numbered tensors: no id is reused
         self._seen = {}    # (operation, operands) -> value number
+        self._deps = []    # op number -> (its count, its operands' op numbers)
 
     def _operand(self, a):
         if isinstance(a, float):
@@ -2355,15 +2376,41 @@ class _OpCount(TorchDispatchMode):
             free = (name in ("mul", "div")
                     and any(s in (1, -1, 0) for s in scalars)) or (
                 name in ("add", "sub", "rsub") and 0 in scalars)
-            if name in self.ARITH and not free:
+            counted = name in self.ARITH and not free
+            if counted:
                 if out.numel() != 2:
                     raise ValueError(f"{func} on a {tuple(out.shape)} "
                                      "operand: not an element's stand-in")
                 self.ops += 1
+            self._deps.append((int(counted), [o[1] for o in operands
+                                              if o[0] == "op"]))
         if isinstance(out, torch.Tensor):
             self._num[id(out)] = self._seen[key]
             self._live.append(out)
         return out
+
+    def reaching(self, *results):
+        """The counted operations whose values reach the results (nested
+        lists of tensors, floats and None), each once."""
+        todo = []
+
+        def collect(x):
+            if isinstance(x, (list, tuple)):
+                for y in x:
+                    collect(y)
+            elif isinstance(x, torch.Tensor) and \
+                    self._num.get(id(x), ("",))[0] == "op":
+                todo.append(self._num[id(x)][1])
+        collect(results)
+        seen, total = set(), 0
+        while todo:
+            n = todo.pop()
+            if n not in seen:
+                seen.add(n)
+                count, operands = self._deps[n]
+                total += count
+                todo.extend(operands)
+        return total
 
 
 _NS_OPS = {}
@@ -2428,10 +2475,11 @@ def ns_ops(tab, nc, coeffs, form, stage):
 
     def ops(n):
         with _OpCount() as count:
-            fn.accumulate(ue, ud, coeff_at, _first_qps(tab, n), form,
-                          1.0 if steady else stage.alpha_u,
-                          0.0 if steady else stage.alpha_t, steady)
-        return count.ops
+            results = fn.accumulate(ue, ud, coeff_at, _first_qps(tab, n),
+                                    form, 1.0 if steady else stage.alpha_u,
+                                    0.0 if steady else stage.alpha_t,
+                                    steady)
+        return count.reaching(*results)
     _NS_OPS[key] = _ops_of_qps(ops, Q, tab.dim == 3)
     return _NS_OPS[key]
 
@@ -2476,12 +2524,12 @@ _SET_OPS = {}
 
 def set_ops(form, tab, sc, stage, mode="full"):
     """Operations per element of one set_node_full or set_elem_full call
-    (mode "lin": set_node_state or set_elem_state), as ns_ops counts
-    them: the set's accumulation (fused_set's plain version, the JAX
-    package's sparse forward AD) on one element's stand-ins (form.nc
-    local dofs per variable), with stand-ins for the coordinates of each
-    qp (a coefficient that reads x, y or z differs at every qp). Cached
-    per (form, scalars, alphas, mode)."""
+    (mode "lin": set_node_state or set_elem_state, the tangent-only
+    pass), as ns_ops counts them: the set's accumulation (fused_set's
+    plain version, the JAX package's sparse forward AD) on one element's
+    stand-ins (form.nc local dofs per variable), with stand-ins for the
+    coordinates of each qp (a coefficient that reads x, y or z differs at
+    every qp). Cached per (form, scalars, alphas, mode)."""
     from mrhyde_tpu_torch.ops import fused_set as fs
     from mrhyde_tpu_torch.ops.fused_ns import accumulate_density
     key = (form.source, form.h == 1.0, sc, tab.Q, mode, None if stage is None
@@ -2501,12 +2549,11 @@ def set_ops(form, tab, sc, stage, mode="full"):
 
     def ops(n):
         with _OpCount() as count:
-            accumulate_density(ue, ud, fs._density(form, lambda q: xy[q],
-                                                   sc),
-                               _first_qps(tab, n),
-                               1.0 if steady else stage.alpha_u,
-                               0.0 if steady else stage.alpha_t, steady, mode)
-        return count.ops
+            results = accumulate_density(
+                ue, ud, fs._density(form, lambda q: xy[q], sc),
+                _first_qps(tab, n), 1.0 if steady else stage.alpha_u,
+                0.0 if steady else stage.alpha_t, steady, mode)
+        return count.reaching(*results)
     _SET_OPS[key] = _ops_of_qps(ops, Q, form.dim == 3)
     return _SET_OPS[key]
 
@@ -2867,7 +2914,7 @@ def main():
             ("set_node_full", "set_node_full", "set_node.cuh", 1350),
             ("set_elem_full", "set_elem_full", "elem_engine.cuh", 1303),
             ("set_node_state", "set_node_state", "set_node.cuh", 1350),
-            ("set_elem_state", "set_elem_state", "elem_engine.cuh", 1303)):
+            ("set_elem_state", "set_elem_state", "set_elem.cuh", 1303)):
         rec = summary[name]
         kernels.append({"name": name, "route": "cuda", "source": csrc + src,
                         "replaces": f"mrhyde_tpu/ops/fused_p1.py:{line}",

@@ -4,9 +4,9 @@ stream arguments, the scalar-or-(E, Q) coefficient, stage and
 velocity arguments of the C entry points (ops/_build.py), the argument
 struct and tile list of the element-tile engine (csrc/elem_engine.cuh:
 `ns_elem_full`, `set_elem_*`), and the shared-memory layouts of the
-element-tile kernels, of `set_node_full`'s Jacobian blocks and of the
-node kernels `thermal_node_state`, `thermal_node_full` and
-`ns_node_full`."""
+element-tile kernels, of `set_node_full`'s Jacobian blocks, of the state
+kernels `set_node_state` and `set_elem_state` and of the node kernels
+`thermal_node_state`, `thermal_node_full` and `ns_node_full`."""
 
 from __future__ import annotations
 
@@ -17,7 +17,8 @@ import torch
 
 __all__ = ["LAUNCHES", "ptr", "stream", "check_qp", "coeff_args",
            "stage_args", "velocity_args", "SMEM_OPTIN", "elem_smem_words",
-           "node_smem_words", "state_smem_words", "full_smem_words",
+           "node_smem_words", "set_state_smem_words",
+           "elem_state_smem_words", "state_smem_words", "full_smem_words",
            "ns_node_smem_words",
            "block_elems", "check_smem", "check_err",
            "ElemArgs", "ELEM_MAX_SCALARS", "elem_tiles"]
@@ -78,6 +79,22 @@ def node_smem_words(nv, transient, Q, elems):
     nq = 3 * nv + (nv if transient else 0)
     return 13 * Q + elems * (2 if transient else 1) * 4 * nv \
         + elems * Q * nq
+
+
+def set_state_smem_words(nv, Q):
+    """Words of a set_node_state block's shared memory
+    (csrc/set_node.cuh `set_state_words`): the tables, the weights and
+    the qps' offsets in blocks of 16 per qp, and for each of the nv grids
+    twice (a tile's and the next one's) the 17 x 33 node patch of a 16 x
+    32 element tile and the four corner rows of its elements."""
+    return 16 * Q + nv * 2 * (17 * 33 + 4 * 512)
+
+
+def elem_state_smem_words(dim, nc, Q):
+    """Words of a set_elem_state block's shared memory (csrc/set_elem.cuh
+    `ElemStateQp::words`): per qp its nc values of phi, nc dim of grad,
+    the weight and the dim offsets, padded to a multiple of 4."""
+    return Q * (-(-(nc * (1 + dim) + 1 + dim) // 4) * 4)
 
 
 def state_smem_words(Q):

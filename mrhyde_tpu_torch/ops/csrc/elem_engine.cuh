@@ -4,10 +4,12 @@
 // qp density. Three files instantiate it: fused_elem_ns.cu (Navier-Stokes,
 // whose coefficients are scalars or (E, Q) tensors: ns_elem_full),
 // set_elem.cuh (the module sets that functions/codegen.py generates per
-// deck: set_elem_full, and mode "state", set_elem_state) and, at nc = 4
-// on 2D p1 quads, set_node.cuh (the Jacobian role of set_node_full, whose
-// residual is node-scattered by a role of its own). The density is
-// the template parameter `Dens`, a struct with a static
+// deck: set_elem_full) and, at nc = 4 on 2D p1 quads, set_node.cuh (the
+// Jacobian role of set_node_full, whose residual is node-scattered by a
+// role of its own). Mode "state" of the sets (set_elem_state) is a kernel
+// of its own in set_elem.cuh: it writes rows only, and the engine's
+// layout serves the Jacobian. The density is the template parameter
+// `Dens`, a struct with a static
 //   template <bool TR, typename S, typename P>
 //   at(S (&u)[NV], S (&ud)[NV], S (&g)[NV][DIM], const QpAt<P, DIM>& pt,
 //      const ElemArgs& a, S (&out)[NV * (1 + DIM)])
@@ -20,11 +22,8 @@
 // (:316-495) linearizes the density once per qp with `sparse_jacfwd` and
 // builds every column from that linearization and the basis tables): in
 // mode "full" (:1417) the nd residual rows and the element-varying
-// Jacobian rows of every element; in mode "state" (:1402, LIN) the nd
-// residual rows of an affine set's state part (the densities' derivative
-// along the state, u_eval = alpha_u u, u_dot = alpha_t u, from the u grid
-// alone) and no Jacobian. The caller scatters the residual rows to the
-// grids (pad+sum on the p1 node grid, strided adds on the p2 fine
+// Jacobian rows of every element. The caller scatters the residual rows
+// to the grids (pad+sum on the p1 node grid, strided adds on the p2 fine
 // lattice), as the JAX package does after its kernel.
 //
 // Weak form, per element e and qp q, at u_eval = alpha_u u + beta_u and
@@ -56,11 +55,10 @@
 //   1. the reference tables, the elements' corner values (u_eval and, in
 //      a stage, u_dot) and corner coordinates;
 //   2. one thread per (element, qp): the values, gradients (and u_dot) of
-//      all variables at the qp, and the primal density there (mode
-//      "state": its derivative along the state, one Dual<T, 1> pass);
+//      all variables at the qp, and the primal density there;
 //   3. the residual rows, each thread (element, slot) summing rows slot,
 //      slot + slots, ... over the qps;
-//   4. (mode "full") per chunk of qps (all of them up to kQc, else
+//   4. per chunk of qps (all of them up to kQc, else
 //      balanced chunks of at most kQcMulti): LINEARIZE, one task per
 //      (element, qp, kTan qp inputs), each a forward pass on Dual<T,
 //      kTan> seeded with unit tangents on its inputs, which stores its
@@ -93,6 +91,7 @@
 #include <cuda_runtime.h>
 
 #include "dual.cuh"
+#include "launch.cuh"
 
 namespace {
 
@@ -166,11 +165,11 @@ __device__ __forceinline__ void elem_index(const ElemGeometry& g,
 // grad (NC*Q*DIM), wts (Q); the qp state u, g[, ud] (elems x Q x NQ); the
 // elements' corner coordinates (elems x DIM); then, through the residual
 // rows (phases 1-3), the corner values (elems x NS0 x ND) and the primal
-// densities (elems x Q x NO) — mode "state" needs no more (`state`) — and
-// over them in mode "full" (phase 4) a chunk of the linearization (elems
-// x (qc (NO NQ + 1) + 1), the 1s pads that spread the qps and the
-// elements over the banks) and, where the qps take several chunks, the tiles' sums between
-// them (elems x ND x ND). ops/_launch.py `elem_smem_words` is `total`.
+// densities (elems x Q x NO), and over them (phase 4) a chunk of the
+// linearization (elems x (qc (NO NQ + 1) + 1), the 1s pads that spread
+// the qps and the elements over the banks) and, where the qps take
+// several chunks, the tiles' sums between them (elems x ND x ND).
+// ops/_launch.py `elem_smem_words` is `total`.
 template <int DIM, int NC, int NV, bool TR>
 struct ElemLayout {
   static constexpr int ND = NV * NC, NO = NV * (1 + DIM);
@@ -210,9 +209,6 @@ struct ElemLayout {
   }
   __host__ __device__ static long long jacobian(int Q, int elems) {
     return elems * dstride(Q) + (Q > kQc ? (long long)elems * ND * ND : 0);
-  }
-  __host__ __device__ static long long state(int Q, int elems) {
-    return region(Q, elems) + residual(Q, elems);
   }
   __host__ __device__ static long long total(int Q, int elems) {
     const long long r = residual(Q, elems), j = jacobian(Q, elems);
@@ -278,7 +274,7 @@ __device__ __forceinline__ void elem_linearize(
   }
 }
 
-// phase 4 of elem_body (mode "full"), per chunk of qps:
+// phase 4 of elem_body, per chunk of qps:
 // linearize, then contract the chunk into the tiles' sums; store the
 // varying rows after the last chunk. Its shared memory `dm` is that of
 // phases 1-3's corner values and densities.
@@ -382,16 +378,13 @@ __device__ __forceinline__ void elem_jacobian(const ElemArgs& a,
   }
 }
 
-// the kernel's body; mode "full" and mode "state" each have a __global__
-// of their own below, whose register limits differ
-template <typename T, bool TR, int DIM, int NC, int NV, class Dens,
-          bool LIN>
+// the kernel's body (elem_full_kernel; set_node.cuh's Jacobian role)
+template <typename T, bool TR, int DIM, int NC, int NV, class Dens>
 __device__ __forceinline__ void elem_body(const ElemArgs& a,
                                           const ElemGeometry& geo,
                                           const int elems) {
   using L = ElemLayout<DIM, NC, NV, TR>;
   constexpr int ND = L::ND, NO = L::NO, NQ = L::NQ;
-  using D1 = Dual<T, 1>;
   extern __shared__ __align__(16) unsigned char smem_raw[];
   T* s = reinterpret_cast<T*>(smem_raw);
   const int Q = a.Q;
@@ -421,8 +414,7 @@ __device__ __forceinline__ void elem_body(const ElemArgs& a,
     const long long e = e0 + le;
     T val = T(0);
     if (e < geo.E) {
-      // mode "state" reads the u grid alone, as alpha_u u [, alpha_t u]
-      const T* grid = static_cast<const T*>(which && !LIN ? a.ud : a.ue);
+      const T* grid = static_cast<const T*>(which ? a.ud : a.ue);
       int idx[3];
       elem_index(geo, e, idx);
       const int c = k % NC, p = a.stride;
@@ -430,7 +422,6 @@ __device__ __forceinline__ void elem_body(const ElemArgs& a,
                            (p * idx[1] + a.off[c][1]);
       val = grid[(k / NC) * geo.G + gi * geo.G2 + p * idx[2] +
                  a.off[c][2]];
-      if constexpr (LIN) val = T(which ? a.alpha_t : a.alpha_u) * val;
     }
     corner[i] = val;
   }
@@ -444,8 +435,7 @@ __device__ __forceinline__ void elem_body(const ElemArgs& a,
   }
   __syncthreads();
 
-  // phase 2: the qp state and the primal density (mode "state": its
-  // derivative along the state) per (element, qp)
+  // phase 2: the qp state and the primal density per (element, qp)
   for (int i = tid; i < elems * Q; i += kThreads) {
     const int le = i / Q, q = i % Q;
     const long long e = e0 + le;
@@ -490,21 +480,7 @@ __device__ __forceinline__ void elem_body(const ElemArgs& a,
                 T(a.qoff[DIM * q + d]);
     pt.e = e;
     pt.q = q;
-    if constexpr (LIN) {
-      D1 zu[NV], zud[NV], zg[NV][DIM], zo[NO];
-#pragma unroll
-      for (int v = 0; v < NV; ++v) {
-        zu[v].v = zu[v].d[0] = u[v];
-        zud[v].v = zud[v].d[0] = ud[v];
-#pragma unroll
-        for (int d = 0; d < DIM; ++d) zg[v][d].v = zg[v][d].d[0] = g[v][d];
-      }
-      Dens::template at<TR>(zu, zud, zg, pt, a, zo);
-#pragma unroll
-      for (int k = 0; k < NO; ++k) out[k] = zo[k].d[0];
-    } else {
-      Dens::template at<TR>(u, ud, g, pt, a, out);
-    }
+    Dens::template at<TR>(u, ud, g, pt, a, out);
     T* o = qout + (le * Q + q) * NO;
 #pragma unroll
     for (int k = 0; k < NO; ++k) o[k] = out[k];
@@ -534,79 +510,59 @@ __device__ __forceinline__ void elem_body(const ElemArgs& a,
       }
     }
   }
-  if constexpr (!LIN) {
-    if (a.n_tiles > 0)  // the same in every thread of the grid
-      elem_jacobian<T, TR, DIM, NC, NV, Dens>(a, geo, elems, phi, grad, wts,
-                                              qst, ecoord, corner);
-  }
+  if (a.n_tiles > 0)  // the same in every thread of the grid
+    elem_jacobian<T, TR, DIM, NC, NV, Dens>(a, geo, elems, phi, grad, wts,
+                                            qst, ecoord, corner);
 }
 
-// Mode "full": at most 168 registers, so that 3 blocks fit an SM; mode
-// "state" takes no such bound (with it the compiler gives that kernel
-// about twice the registers it needs, and an SM holds fewer blocks).
+// At most 168 registers, so that 3 blocks fit an SM.
 template <typename T, bool TR, int DIM, int NC, int NV, class Dens>
 __global__ void __launch_bounds__(kThreads, kMinBlocks)
     elem_full_kernel(const ElemArgs a, const ElemGeometry geo,
                      const int elems) {
-  elem_body<T, TR, DIM, NC, NV, Dens, false>(a, geo, elems);
-}
-template <typename T, bool TR, int DIM, int NC, int NV, class Dens>
-__global__ void __launch_bounds__(kThreads)
-    elem_state_kernel(const ElemArgs a, const ElemGeometry geo,
-                      const int elems) {
-  elem_body<T, TR, DIM, NC, NV, Dens, true>(a, geo, elems);
+  elem_body<T, TR, DIM, NC, NV, Dens>(a, geo, elems);
 }
 
 // The elements per block and their layout's bytes (0 where one element
-// does not fit the card's opt-in shared memory per block): in mode
-// "state" the most, up to `want`, that fit; in mode "full", of `want` and
+// does not fit the card's opt-in shared memory per block): of `want` and
 // the counts below it that fit, the one that keeps the most elements
 // resident on an SM (the larger at a tie). Leaves the kernel's dynamic
 // shared memory limit at the layout's bytes.
-template <typename T, int DIM, int NC, int NV, bool TR, bool LIN, class K>
+template <typename T, int DIM, int NC, int NV, bool TR, class K>
 int elem_block_elems(K kernel, int Q, int want, int optin, size_t* smem) {
   using L = ElemLayout<DIM, NC, NV, TR>;
-  if (!LIN)
-    cudaFuncSetAttribute(kernel, cudaFuncAttributeMaxDynamicSharedMemorySize,
-                         optin);
+  cudaFuncSetAttribute(kernel, cudaFuncAttributeMaxDynamicSharedMemorySize,
+                       optin);
   int best = 0, resident = 0;
   for (int elems = want; elems >= 1; --elems) {
-    const long long bytes =
-        (long long)sizeof(T) * (LIN ? L::state(Q, elems) : L::total(Q, elems));
+    const long long bytes = (long long)sizeof(T) * L::total(Q, elems);
     if (bytes > optin) continue;
     int blocks = 1;
-    if (!LIN)
-      cudaOccupancyMaxActiveBlocksPerMultiprocessor(&blocks, kernel,
-                                                    kThreads, (size_t)bytes);
+    cudaOccupancyMaxActiveBlocksPerMultiprocessor(&blocks, kernel, kThreads,
+                                                  (size_t)bytes);
     if (best == 0 || blocks * elems > resident) {
       best = elems;
       resident = blocks * elems;
       *smem = (size_t)bytes;
     }
-    if (LIN) break;
   }
-  if (best > 0 && (!LIN || *smem > 48 * 1024))
+  if (best > 0)
     cudaFuncSetAttribute(kernel, cudaFuncAttributeMaxDynamicSharedMemorySize,
                          (int)*smem);
   return best;
 }
 
-// what a launch returns where the qp state of one element does not fit
-// the card's shared memory (the wrappers raise on it)
-constexpr int kErrSharedMemory = -1;
-
-template <typename T, bool TR, int DIM, int NC, int NV, class Dens, bool LIN>
+template <typename T, bool TR, int DIM, int NC, int NV, class Dens>
 int elem_launch_case(const ElemArgs& a, const ElemGeometry& geo,
                      void* stream) {
   using L = ElemLayout<DIM, NC, NV, TR>;
   void (*kernel)(const ElemArgs, const ElemGeometry, const int) =
-      LIN ? elem_state_kernel<T, TR, DIM, NC, NV, Dens>
-          : elem_full_kernel<T, TR, DIM, NC, NV, Dens>;
-  if (!LIN && (a.n_tiles < 0 || a.n_tiles > L::NT ||
-               (a.n_tiles > 0 && a.tiles == nullptr)))
+      elem_full_kernel<T, TR, DIM, NC, NV, Dens>;
+  if (a.n_tiles < 0 || a.n_tiles > L::NT ||
+      (a.n_tiles > 0 && a.tiles == nullptr))
     return (int)cudaErrorInvalidValue;
   // at most as many elements as the tiles fill the block's threads
-  int want = LIN || a.n_tiles == 0 ? kElems : kThreads / a.n_tiles;
+  int want = a.n_tiles == 0 ? kElems : kThreads / a.n_tiles;
   want = want < 1 ? 1 : (want > kElems ? kElems : want);
   // the last choice of this kernel, reused while Q and want repeat
   static int last_q = 0, last_want = 0, last_elems = 0;
@@ -616,8 +572,8 @@ int elem_launch_case(const ElemArgs& a, const ElemGeometry& geo,
     cudaGetDevice(&dev);
     cudaDeviceGetAttribute(&optin, cudaDevAttrMaxSharedMemoryPerBlockOptin,
                            dev);
-    last_elems = elem_block_elems<T, DIM, NC, NV, TR, LIN>(
-        kernel, a.Q, want, optin, &last_smem);
+    last_elems = elem_block_elems<T, DIM, NC, NV, TR>(kernel, a.Q, want,
+                                                      optin, &last_smem);
     const cudaError_t err = cudaGetLastError();
     if (err != cudaSuccess) return (int)err;
     last_q = a.Q;
@@ -632,24 +588,30 @@ int elem_launch_case(const ElemArgs& a, const ElemGeometry& geo,
   return (int)cudaGetLastError();
 }
 
-template <typename T, int DIM, int NC, int NV, class Dens, bool LIN>
+// the element grid's geometry of a call's arguments; false where they
+// are out of range (Q, the axes, the stride, E < 2^31)
+template <int DIM>
+bool elem_geometry(const ElemArgs& a, ElemGeometry& geo) {
+  if (a.Q < 1 || a.N0 < 1 || a.N1 < 1 || a.N2 < 1 ||
+      (DIM == 2 && a.N2 != 1) || a.stride < 1 ||
+      (long long)a.N0 * a.N1 * a.N2 >= (1LL << 31))
+    return false;
+  geo.N1 = a.N1;
+  geo.N2 = DIM == 3 ? a.N2 : 1;
+  geo.G1 = a.stride * a.N1 + 1;
+  geo.G2 = DIM == 3 ? a.stride * a.N2 + 1 : 1;
+  geo.G = (long long)(a.stride * a.N0 + 1) * geo.G1 * geo.G2;
+  geo.E = (long long)a.N0 * a.N1 * geo.N2;
+  return true;
+}
+
+template <typename T, int DIM, int NC, int NV, class Dens>
 int elem_launch(const ElemArgs* a, void* stream) {
-  if (a->Q < 1 || a->N0 < 1 || a->N1 < 1 || a->N2 < 1 ||
-      (DIM == 2 && a->N2 != 1) || a->stride < 1 ||
-      (long long)a->N0 * a->N1 * a->N2 >= (1LL << 31))
-    return (int)cudaErrorInvalidValue;
   ElemGeometry geo;
-  geo.N1 = a->N1;
-  geo.N2 = DIM == 3 ? a->N2 : 1;
-  geo.G1 = a->stride * a->N1 + 1;
-  geo.G2 = DIM == 3 ? a->stride * a->N2 + 1 : 1;
-  geo.G = (long long)(a->stride * a->N0 + 1) * geo.G1 * geo.G2;
-  geo.E = (long long)a->N0 * a->N1 * geo.N2;
+  if (!elem_geometry<DIM>(*a, geo)) return (int)cudaErrorInvalidValue;
   return a->transient
-             ? elem_launch_case<T, true, DIM, NC, NV, Dens, LIN>(*a, geo,
-                                                                 stream)
-             : elem_launch_case<T, false, DIM, NC, NV, Dens, LIN>(*a, geo,
-                                                                  stream);
+             ? elem_launch_case<T, true, DIM, NC, NV, Dens>(*a, geo, stream)
+             : elem_launch_case<T, false, DIM, NC, NV, Dens>(*a, geo, stream);
 }
 
 }  // namespace

@@ -62,9 +62,9 @@ struct NsDensity {
 template <typename T>
 int launch(const ElemArgs* a, void* stream) {
   if (a->dim == 3 && a->nc == 8)
-    return elem_launch<T, 3, 8, 4, NsDensity<3>, false>(a, stream);
+    return elem_launch<T, 3, 8, 4, NsDensity<3>>(a, stream);
   if (a->dim == 2 && a->nc == 9)
-    return elem_launch<T, 2, 9, 3, NsDensity<2>, false>(a, stream);
+    return elem_launch<T, 2, 9, 3, NsDensity<2>>(a, stream);
   return (int)cudaErrorInvalidValue;
 }
 

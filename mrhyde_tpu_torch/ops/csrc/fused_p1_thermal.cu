@@ -115,13 +115,11 @@
 
 #include <initializer_list>
 
+#include "launch.cuh"
+#include "node_walk.cuh"
 #include "thermal_form.cuh"
 
 namespace {
-
-// local corner c -> offset on axis 0 / axis 1
-__device__ __forceinline__ int corner_i(int c) { return (c == 1 || c == 2); }
-__device__ __forceinline__ int corner_j(int c) { return (c >= 2); }
 
 // the advection velocity: component d is p[d][e*Q + q] or, where p[d] is
 // null, the scalar s[d] (a kernel parameter); an (E, Q) component is read
@@ -158,19 +156,10 @@ __device__ __forceinline__ void qp_grad(const T* __restrict__ grad, int Q,
   }
 }
 
-// The state kernel's tile: kEi x kEj = 16 x 32 elements (axis 0 x axis
-// 1, axis 1 contiguous), kElemsPerThread per thread (rows la and la +
-// kEi / 2), the kTi x kTj = 15 x 31 nodes whose four elements they hold,
-// and the kPi x kPj node patch those elements read: the tile's nodes and
-// a halo of one node on each side
-constexpr int kEi = 16, kEj = 32;
-constexpr int kTileElems = kEi * kEj;
-constexpr int kElemsPerThread = kTileElems / kThreads;
-constexpr int kTi = kEi - 1, kTj = kEj - 1;
-constexpr int kPi = kEi + 1, kPj = kEj + 1;
-constexpr int kPatch = kPi * kPj;
-constexpr int kPre = (kPatch + kThreads - 1) / kThreads;
-static_assert(kElemsPerThread * kThreads == kTileElems, "whole rows");
+// The tile of both modes' walk (node_walk.cuh): 16 x 32 elements, two
+// per thread (rows la and la + 8), and the 15 x 31 nodes whose four
+// elements they hold
+using NodeTile = WalkTile<16, 32, kThreads>;
 // state blocks per SM the registers must allow (__launch_bounds__): 4 (64
 // registers), but 2 with the velocity lane, whose Q = 4 instance holds
 // the element's velocity values and is faster with up to 128 (PERF.md)
@@ -183,7 +172,7 @@ constexpr int state_min_blocks() {
 // wts (Q); two node patches and two sets of the tile's elements' four
 // corner rows (a tile's and the next one's)
 __host__ __device__ inline long long state_smem_words(int Q) {
-  return 13LL * Q + 2 * (kPatch + 4 * kTileElems);
+  return 13LL * Q + NodeTile::words(1);
 }
 
 // the weak form's layout of "full" at nc = 4 (thermal_form.cuh): per qp
@@ -199,7 +188,7 @@ __host__ __device__ inline long long full_products(int Q) {
 }
 __host__ __device__ inline long long full_smem_words(int Q, bool advect) {
   const long long pq = advect ? NodeRows<true>::PQ : NodeRows<false>::PQ;
-  return full_products(Q) + Q * pq + 2 * (kPatch + 4 * kTileElems);
+  return full_products(Q) + Q * pq + NodeTile::words(1);
 }
 
 // an element's Q = 4 values of an (E, 4) coefficient at p + eq (16-byte
@@ -227,97 +216,6 @@ __device__ __forceinline__ void load_q4(const T* p, long long eq, T s,
   }
 }
 
-// patch entry k of the tile whose node (0, 0) is (i0, j0): node (i0 - 1 +
-// k / kPj, j0 - 1 + k % kPj), 0 outside the grid
-template <typename T>
-__device__ __forceinline__ T patch_node(const T* __restrict__ u, int i0,
-                                        int j0, int N0, int N1, int k) {
-  const int pi = k / kPj, pj = k - pi * kPj;
-  const int i = i0 - 1 + pi, j = j0 - 1 + pj;
-  return (i >= 0 && i <= N0 && j >= 0 && j <= N1)
-             ? __ldg(u + (long long)i * (N1 + 1) + j)
-             : T(0);
-}
-
-// The tile walk of both modes. Block b walks tiles b, b + gridDim.x, ...
-// of the node grid, tiles_j per tile row. Per tile: the next tile's patch
-// is loaded into registers; the tile's elements write their four corner
-// rows (rw[c kTileElems + la kEj + lb] for element (i0 - 1 + la, j0 - 1 +
-// lb), zeros outside the mesh) from the staged patch; the next patch
-// goes to the other buffer; one barrier; each node thread sums its
-// elements' rows. Each thread hands each of its kElemsPerThread elements
-// inside the mesh to `element(la, lb, a, b, uc, r)` (its tile position,
-// its mesh position, its corner values from the patch; r its four corner
-// rows), UNROLL at once. The block's tables (and products) are in shared
-// memory before the walk's first barrier.
-template <typename T, int UNROLL, class Element>
-__device__ __forceinline__ void node_walk(const T* __restrict__ u,
-                                          const int N0, const int N1,
-                                          const int tiles_j, const int tiles,
-                                          T* patches, T* rows,
-                                          T* __restrict__ out,
-                                          Element&& element) {
-  const int tid = threadIdx.x, G1 = N1 + 1;
-  // this thread's elements (i0 - 1 + la, j0 - 1 + lb), la = la0 + r kEi /
-  // kElemsPerThread
-  const int la0 = tid / kEj, lb = tid - la0 * kEj;
-  int t = blockIdx.x, ti = t / tiles_j;
-  int i0 = ti * kTi, j0 = (t - ti * tiles_j) * kTj;
-  for (int k = tid; k < kPatch; k += kThreads)
-    patches[k] = patch_node(u, i0, j0, N0, N1, k);
-  __syncthreads();
-  for (int cur = 0; t < tiles; cur ^= 1) {
-    // the next tile's patch, in flight while this tile's elements compute
-    const int tn = t + gridDim.x, tin = tn / tiles_j;
-    const int i0n = tin * kTi, j0n = (tn - tin * tiles_j) * kTj;
-    T pre[kPre];
-    if (tn < tiles)
-#pragma unroll
-      for (int p = 0; p < kPre; ++p)
-        if (tid + p * kThreads < kPatch)
-          pre[p] = patch_node(u, i0n, j0n, N0, N1, tid + p * kThreads);
-    const T* patch = patches + cur * kPatch;
-    T* rw = rows + cur * 4 * kTileElems;
-#pragma unroll(UNROLL)
-    for (int rr = 0; rr < kElemsPerThread; ++rr) {
-      const int la = la0 + rr * (kEi / kElemsPerThread);
-      const int a = i0 - 1 + la, b = j0 - 1 + lb;
-      T r[4] = {T(0), T(0), T(0), T(0)};
-      if (a >= 0 && a < N0 && b >= 0 && b < N1) {
-        const T* pe = patch + la * kPj + lb;
-        const T uc[4] = {pe[0], pe[kPj], pe[kPj + 1], pe[1]};
-        element(la, lb, a, b, uc, r);
-      }
-      // an element outside the mesh adds zeros
-#pragma unroll
-      for (int c = 0; c < 4; ++c) rw[c * kTileElems + la * kEj + lb] = r[c];
-    }
-    // the other buffer's patch was last read before the last barrier
-    if (tn < tiles)
-#pragma unroll
-      for (int p = 0; p < kPre; ++p)
-        if (tid + p * kThreads < kPatch)
-          patches[(cur ^ 1) * kPatch + tid + p * kThreads] = pre[p];
-    __syncthreads();
-    // node (i, j) is corner c of element (i - ci, j - cj), local (li + 1 -
-    // ci, lj + 1 - cj): the sum corner 0..3, as the plain pad+sum sums
-    for (int k = tid; k < kTi * kTj; k += kThreads) {
-      const int li = k / kTj, lj = k - li * kTj;
-      const int i = i0 + li, j = j0 + lj;
-      if (i > N0 || j > N1) continue;
-      const T* pr = rw + (li + 1) * kEj + lj + 1;
-      T acc = pr[0];
-      acc += pr[kTileElems - kEj];
-      acc += pr[2 * kTileElems - kEj - 1];
-      acc += pr[3 * kTileElems - 1];
-      out[(long long)i * G1 + j] = acc;
-    }
-    t = tn;
-    i0 = i0n;
-    j0 = j0n;
-  }
-}
-
 // Mode "state": the walk, each element's four corner rows of the state
 // part. kappa, mass and each velocity component: an (E, Q) array, or the
 // scalar where the pointer is null. QF > 0: Q = QF at compile time.
@@ -336,8 +234,8 @@ __global__ void __launch_bounds__(kThreads, state_min_blocks<ADVECT>())
   T* phi = reinterpret_cast<T*>(smem_raw);
   T* grad = phi + 4 * Q;
   T* wts = grad + 8 * Q;
-  T* patches = wts + Q;                 // 2 x kPatch
-  T* rows = patches + 2 * kPatch;       // 2 x 4 kTileElems
+  T* patches = wts + Q;                   // 2 x kPatch
+  T* rows = patches + 2 * NodeTile::kPatch;  // 2 x 4 kTileElems
   for (int k = threadIdx.x; k < 13 * Q; k += kThreads)
     phi[k] = k < 4 * Q ? phi_g[k]
                        : (k < 12 * Q ? grad_g[k - 4 * Q] : wts_g[k - 12 * Q]);
@@ -386,8 +284,8 @@ __global__ void __launch_bounds__(kThreads, state_min_blocks<ADVECT>())
       }
     }
   };
-  node_walk<T, kElemsPerThread>(u, N0, N1, tiles_j, tiles, patches, rows,
-                                out, element);
+  node_walk<T, NodeTile, 1, NodeTile::kElemsPerThread>(
+      u, 0, N0, N1, tiles_j, tiles, patches, rows, out, element);
 }
 
 // "full" blocks per SM the registers must allow: 2 (128 registers: an
@@ -447,8 +345,8 @@ __global__ void __launch_bounds__(kThreads, kFullMinBlocks)
   T* grad = phi + 4 * Q;
   T* wts = grad + 8 * Q;
   T* prod = phi + full_products(Q);   // Q x R::PQ
-  T* patches = prod + Q * R::PQ;      // 2 x kPatch
-  T* rows = patches + 2 * kPatch;     // 2 x 4 kTileElems
+  T* patches = prod + Q * R::PQ;             // 2 x kPatch
+  T* rows = patches + 2 * NodeTile::kPatch;  // 2 x 4 kTileElems
   for (int k = threadIdx.x; k < 13 * Q; k += kThreads)
     phi[k] = k < 4 * Q ? phi_g[k]
                        : (k < 12 * Q ? grad_g[k - 4 * Q] : wts_g[k - 12 * Q]);
@@ -487,8 +385,8 @@ __global__ void __launch_bounds__(kThreads, kFullMinBlocks)
                           grad[(c * Q + q) * 2 + 1] * (k * g1));
     }
   };
-  node_walk<T, kElemsPerThread>(u, N0, N1, tiles_j, tiles, patches, rows,
-                                out, element);
+  node_walk<T, NodeTile, 1, NodeTile::kElemsPerThread>(
+      u, 0, N0, N1, tiles_j, tiles, patches, rows, out, element);
   // the sweep: the Jacobian rows of this block's elements; element e =
   // (a, b) steps by kThreads elements, (da, db), with a carry
   const long long E = (long long)N0 * N1;
@@ -571,54 +469,6 @@ Velocity<T> make_velocity(const void* v0, double v0s, const void* v1,
   return b;
 }
 
-// what a launch returns where the tables of Q qps do not fit the card's
-// shared memory per block (the provider refuses such a Q first)
-constexpr int kErrSharedMemory = -1;
-
-// the blocks of one walk kernel the card holds at once, for a device and
-// a shared-memory size: each launch site keeps its own (per host thread)
-struct Resident {
-  int dev = -1;
-  long long smem = -1;
-  int blocks = 0;
-};
-
-template <class Kernel>
-int query_resident(Kernel kernel, size_t smem, Resident& r) {
-  int dev = 0;
-  cudaGetDevice(&dev);
-  if (dev == r.dev && (long long)smem == r.smem) return 0;
-  int optin = 0, sms = 0, per_sm = 0;
-  cudaDeviceGetAttribute(&optin, cudaDevAttrMaxSharedMemoryPerBlockOptin,
-                         dev);
-  if (smem > (size_t)optin) return kErrSharedMemory;
-  if (smem > 48 * 1024)
-    cudaFuncSetAttribute(kernel, cudaFuncAttributeMaxDynamicSharedMemorySize,
-                         (int)smem);
-  cudaDeviceGetAttribute(&sms, cudaDevAttrMultiProcessorCount, dev);
-  cudaOccupancyMaxActiveBlocksPerMultiprocessor(&per_sm, kernel, kThreads,
-                                                smem);
-  const cudaError_t err = (cudaError_t)cudaGetLastError();
-  if (err != cudaSuccess) return (int)err;
-  r.blocks = sms * (per_sm > 0 ? per_sm : 1);
-  r.dev = dev;
-  r.smem = (long long)smem;
-  return 0;
-}
-
-// the walk's tiles of an N0 x N1 element grid (tiles_j per tile row), and
-// its persistent grid: as many blocks as the card holds, at most one per
-// tile; false where the tile count passes 32-bit tile math
-inline bool walk_grid(int N0, int N1, int resident, int& tiles_j,
-                      int& tiles, int& blocks) {
-  tiles_j = (N1 + kTj) / kTj;  // ceil((N1 + 1) / kTj)
-  const long long n = (long long)((N0 + kTi) / kTi) * tiles_j;
-  if (n >= (1LL << 31)) return false;
-  tiles = (int)n;
-  blocks = tiles < resident ? tiles : resident;
-  return true;
-}
-
 template <typename T, bool TRANSIENT, bool ADVECT, int QF>
 int launch_state_case(const T* u, const T* kappa, T kappa0, const T* mass,
                       T mass0, T alpha_u, T alpha_t, Velocity<T> vel,
@@ -627,10 +477,10 @@ int launch_state_case(const T* u, const T* kappa, T kappa0, const T* mass,
   auto kernel = node_state_kernel<T, TRANSIENT, ADVECT, QF>;
   const size_t smem = sizeof(T) * state_smem_words(Q);
   thread_local Resident resident;
-  const int err = query_resident(kernel, smem, resident);
+  const int err = query_resident(kernel, kThreads, smem, resident);
   if (err != 0) return err;
   int tiles_j, tiles, blocks;
-  if (!walk_grid(N0, N1, resident.blocks, tiles_j, tiles, blocks))
+  if (!walk_grid<NodeTile>(N0, N1, resident.blocks, tiles_j, tiles, blocks))
     return (int)cudaErrorInvalidValue;
   kernel<<<blocks, kThreads, smem, (cudaStream_t)stream>>>(
       u, kappa, kappa0, mass, mass0, alpha_u, alpha_t, vel, phi, grad, wts, Q,
@@ -690,10 +540,10 @@ int launch_full_case(const T* u, const T* S, const T* dS, const T* K,
   auto kernel = node_full_kernel<T, TRANSIENT, ADVECT, QF>;
   const size_t smem = sizeof(T) * full_smem_words(Q, ADVECT);
   thread_local Resident resident;
-  const int err = query_resident(kernel, smem, resident);
+  const int err = query_resident(kernel, kThreads, smem, resident);
   if (err != 0) return err;
   int tiles_j, tiles, blocks;
-  if (!walk_grid(N0, N1, resident.blocks, tiles_j, tiles, blocks))
+  if (!walk_grid<NodeTile>(N0, N1, resident.blocks, tiles_j, tiles, blocks))
     return (int)cudaErrorInvalidValue;
   kernel<<<blocks, kThreads, smem, (cudaStream_t)stream>>>(
       u, S, dS, K, dK, mass, mass0, alpha_u, alpha_t, vel, phi, grad, wts, Q,

@@ -66,21 +66,34 @@
 //     contributions to itself in a fixed order: no atomics.
 // Both roles of the engine's kernel take its register bound (3 blocks of
 // 128 threads per SM; 4 at a stage, whose longer linearization gains
-// more from them than it loses to spills); the per-column kernel and mode
-// "state", the residual role alone in a kernel of its own, take the
-// plain launch bound. Mesh edges are masked by index; any N0, N1 >= 1
-// works (N0 N1 < 2^31); offsets are 64-bit.
+// more from them than it loses to spills); the per-column kernel takes
+// the plain launch bound.
+// Mode "state" is the tile walk of the thermal node kernels
+// (node_walk.cuh) over the NV u grids: a persistent grid whose blocks
+// hold the tables and the qps' offsets in shared memory once, walking
+// tiles of 16 x 32 elements (two per thread) while the next tile's node
+// patches of all NV grids are in flight; each element's qp state and
+// tangent-only density pass run once per qp, into its 4 NV corner rows in
+// shared memory (double-buffered: one barrier per tile), and each node
+// sums its four rows per variable, corner 0..3 in order. Mesh edges are
+// masked by index; any N0, N1 >= 1 works (N0 N1 < 2^31); offsets are
+// 64-bit.
 //
 // What bounds it on the H100: the writes of the Jacobian rows (up to nd^2
 // = 400 per element) against the operations of the engine's scheme, which
 // chip_smoke.py counts on the plain version (its sparse forward AD) and
-// reports as the bound.
+// reports as the bound; mode "state" reads the u grids and writes the node
+// residual (2 NV values per node), and its operations, each element's
+// tangent-only quadrature once, take within 15% of those bytes' time
+// (less when steady, more at a stage).
 
 #pragma once
 
 #include <cuda_runtime.h>
 
 #include "elem_engine.cuh"
+#include "launch.cuh"
+#include "node_walk.cuh"
 #include "ns_density.cuh"
 #include "scalar_density.cuh"
 
@@ -108,13 +121,9 @@ struct SetArgs {
   int n_tiles;
 };
 
-__device__ __forceinline__ int corner_i(int c) { return (c == 1 || c == 2); }
-__device__ __forceinline__ int corner_j(int c) { return (c >= 2); }
-
-// residual role: node n = (i, j) sums the rows of its corners; LIN: the
-// state part of mode "state" (the densities' derivative along the state,
-// from the u grid alone)
-template <typename T, bool TR, int NV, class Dens, bool LIN>
+// mode "full"'s residual role: node n = (i, j) sums the rows of its
+// corners
+template <typename T, bool TR, int NV, class Dens>
 __device__ __forceinline__ void set_residual_node(const SetArgs& a,
                                                   long long n) {
   const int N0 = a.N0, N1 = a.N1, Q = a.Q;
@@ -142,13 +151,8 @@ __device__ __forceinline__ void set_residual_node(const SetArgs& a,
         const long long p = v * nodes +
                             (long long)(ea + corner_i(k)) * (N1 + 1) + eb +
                             corner_j(k);
-        if constexpr (LIN) {
-          uc[v][k] = T(a.alpha_u) * ue[p];
-          udc[v][k] = T(a.alpha_t) * ue[p];
-        } else {
-          uc[v][k] = ue[p];
-          udc[v][k] = TR ? udg[p] : T(0);
-        }
+        uc[v][k] = ue[p];
+        udc[v][k] = TR ? udg[p] : T(0);
       }
     T r[NV];
 #pragma unroll
@@ -174,22 +178,7 @@ __device__ __forceinline__ void set_residual_node(const SetArgs& a,
           (T(a.origin[0]) + T(ea) * T(a.hax[0])) + T(a.qoff[2 * q + 0]);
       const T y =
           (T(a.origin[1]) + T(eb) * T(a.hax[1])) + T(a.qoff[2 * q + 1]);
-      if constexpr (LIN) {
-        using D = Dual<T, 1>;
-        D zu[NV], zud[NV], zg[NV][2], zo[3 * NV];
-#pragma unroll
-        for (int v = 0; v < NV; ++v) {
-          zu[v].v = zu[v].d[0] = u[v];
-          zud[v].v = zud[v].d[0] = ud[v];
-#pragma unroll
-          for (int d = 0; d < 2; ++d) zg[v][d].v = zg[v][d].d[0] = g[v][d];
-        }
-        Dens::template eval<TR, D>(zu, zud, zg, x, y, a, zo);
-#pragma unroll
-        for (int k = 0; k < 3 * NV; ++k) out[k] = zo[k].d[0];
-      } else {
-        Dens::template eval<TR, T>(u, ud, g, x, y, a, out);
-      }
+      Dens::template eval<TR, T>(u, ud, g, x, y, a, out);
       const T pc = phi[c * Q + q];
       const T g0 = grad[(c * Q + q) * 2 + 0], g1 = grad[(c * Q + q) * 2 + 1];
 #pragma unroll
@@ -390,19 +379,6 @@ struct SetLayout {
   }
 };
 
-// mode "state": the residual role alone
-template <typename T, bool TR, int NV, class Dens>
-__global__ void __launch_bounds__(kThreads)
-    set_node_state_kernel(const SetArgs a, const long long res_blocks,
-                          const int elems) {
-  extern __shared__ __align__(16) unsigned char smem_raw[];
-  if (blockIdx.x < res_blocks) {
-    set_residual_node<T, TR, NV, Dens, true>(
-        a, (long long)blockIdx.x * kThreads + threadIdx.x);
-    return;
-  }
-}
-
 // mode "full": the Jacobian role on blocks 0 .. jac_blocks - 1 (the
 // engine's phases 1, 2 and 4 on `elems` elements each), then the
 // residual role; the engine's register bound for both
@@ -412,12 +388,11 @@ __global__ void __launch_bounds__(kThreads, node_min_blocks(TR))
                          const ElemGeometry geo, const long long jac_blocks,
                          const int elems) {
   if (blockIdx.x >= jac_blocks) {
-    set_residual_node<T, TR, NV, Dens, false>(
+    set_residual_node<T, TR, NV, Dens>(
         a, (long long)(blockIdx.x - jac_blocks) * kThreads + threadIdx.x);
     return;
   }
-  elem_body<T, TR, 2, 4, NV, SetNodeDensity<Dens, NV>, false>(ea, geo,
-                                                              elems);
+  elem_body<T, TR, 2, 4, NV, SetNodeDensity<Dens, NV>>(ea, geo, elems);
 }
 
 // the same with the Jacobian role per column (node_columns)
@@ -428,7 +403,7 @@ __global__ void __launch_bounds__(kThreads)
                            const long long jac_blocks, const int elems) {
   extern __shared__ __align__(16) unsigned char smem_raw[];
   if (blockIdx.x >= jac_blocks) {
-    set_residual_node<T, TR, NV, Dens, false>(
+    set_residual_node<T, TR, NV, Dens>(
         a, (long long)(blockIdx.x - jac_blocks) * kThreads + threadIdx.x);
     return;
   }
@@ -475,17 +450,6 @@ inline ElemArgs node_elem_args(const SetArgs& a) {
     e.off[c][1] = corners[c][1];
   }
   return e;
-}
-
-template <typename T, bool TR, int NV, class Dens>
-int set_state_launch(const SetArgs& a, void* stream) {
-  auto kernel = set_node_state_kernel<T, TR, NV, Dens>;
-  const long long nodes = (long long)(a.N0 + 1) * (a.N1 + 1);
-  const long long res_blocks = (nodes + kThreads - 1) / kThreads;
-  const size_t smem = 0;
-  kernel<<<(unsigned)res_blocks, kThreads, smem, (cudaStream_t)stream>>>(
-      a, res_blocks, kElems);
-  return (int)cudaGetLastError();
 }
 
 // the per-column role's elements per block: the most (16, 8, ..., 1)
@@ -546,8 +510,8 @@ int set_full_launch(const SetArgs& a, void* stream) {
                                cudaFuncAttributeMaxDynamicSharedMemorySize,
                                (int)last_smem);
       } else {
-        last_elems = elem_block_elems<T, 2, 4, NV, TR, false>(
-            kernel, a.Q, want, optin, &last_smem);
+        last_elems = elem_block_elems<T, 2, 4, NV, TR>(kernel, a.Q, want,
+                                                       optin, &last_smem);
       }
       const cudaError_t err = cudaGetLastError();
       if (err != cudaSuccess) return (int)err;
@@ -564,12 +528,147 @@ int set_full_launch(const SetArgs& a, void* stream) {
   return (int)cudaGetLastError();
 }
 
-template <typename T, int NV, class Dens, bool LIN>
+// ---------------------------------------------------------------------
+// mode "state": the tile walk (node_walk.cuh) over the NV u grids
+// ---------------------------------------------------------------------
+
+// its tile: 16 x 32 elements, two per thread, computed one at a time;
+// the blocks per SM its registers must allow (its shared memory holds two
+// in f64; PERF.md has the measurements behind these choices)
+using StateTile = WalkTile<16, 32, 256>;
+constexpr int kStateMinBlocks = 2;
+constexpr int kStateUnroll = 1;
+
+// one qp's table values in shared memory, read in 16-byte loads: the four
+// corners' phi and grad, the weight and the qp's offsets in an element
+template <typename T>
+struct alignas(16) StateQp {
+  T phi[4], g0[4], g1[4], w, off[2], pad;
+};
+
+// shared memory of a set_node_state block, in T: a StateQp per qp (16 Q),
+// then the walk's patches and rows of the NV grids (ops/_launch.py
+// `set_state_smem_words`)
+__host__ __device__ inline long long set_state_words(int nv, int Q) {
+  return 16LL * Q + StateTile::words(nv);
+}
+
+// The state part of an affine set's residual, node-scattered: each
+// element of the walk's tiles, at each qp, forms u_eval = alpha_u u_h,
+// grad u_eval and (a stage) u_dot = alpha_t u_h of every variable from
+// its corner values, runs the generated density once on Dual<T, 1>
+// seeded along the state itself (value and tangent both the qp state:
+// its tangent is the density's derivative along the state) and adds w_q
+// (phi_c S'_v + grad phi_c . F'_v) to its row (v, c), corner c of
+// variable v's grid, as the plain version orders these operations; each
+// node sums its four elements' rows, corner 0..3 in order, as the plain
+// pad+sum version sums them. QF > 0: Q = QF at compile time (the decks'
+// Q = 4, its qp loop unrolled).
+template <typename T, bool TR, int NV, class Dens, int QF>
+__global__ void __launch_bounds__(StateTile::kThreads, kStateMinBlocks)
+    set_node_state_kernel(const SetArgs a, const int tiles_j,
+                          const int tiles) {
+  using D = Dual<T, 1>;
+  extern __shared__ __align__(16) unsigned char smem_raw[];
+  const int Q = QF > 0 ? QF : a.Q;
+  StateQp<T>* tb = reinterpret_cast<StateQp<T>*>(smem_raw);
+  T* patches = reinterpret_cast<T*>(tb + Q);
+  T* rows = patches + 2 * NV * StateTile::kPatch;
+  {
+    const T* phi_g = static_cast<const T*>(a.phi);
+    const T* grad_g = static_cast<const T*>(a.grad);
+    const T* wts_g = static_cast<const T*>(a.wts);
+    for (int q = threadIdx.x; q < Q; q += StateTile::kThreads) {
+      StateQp<T> t;
+#pragma unroll
+      for (int c = 0; c < 4; ++c) {
+        t.phi[c] = phi_g[c * Q + q];
+        t.g0[c] = grad_g[(c * Q + q) * 2 + 0];
+        t.g1[c] = grad_g[(c * Q + q) * 2 + 1];
+      }
+      t.w = wts_g[q];
+      t.off[0] = T(a.qoff[2 * q + 0]);
+      t.off[1] = T(a.qoff[2 * q + 1]);
+      t.pad = T(0);
+      tb[q] = t;
+    }
+  }
+  const T au = T(a.alpha_u), at = T(a.alpha_t);
+  auto element = [&](int, int, int ea, int eb, const T (&pu)[4 * NV],
+                     T (&r)[4 * NV]) {
+    T uc[NV][4], udc[NV][4];
+#pragma unroll
+    for (int v = 0; v < NV; ++v)
+#pragma unroll
+      for (int k = 0; k < 4; ++k) {
+        uc[v][k] = au * pu[4 * v + k];
+        udc[v][k] = TR ? at * pu[4 * v + k] : T(0);
+      }
+    const T x0 = T(a.origin[0]) + T(ea) * T(a.hax[0]);
+    const T y0 = T(a.origin[1]) + T(eb) * T(a.hax[1]);
+#pragma unroll(QF > 0 ? QF : 1)
+    for (int q = 0; q < Q; ++q) {
+      const StateQp<T> t = tb[q];
+      D zu[NV], zud[NV], zg[NV][2], zo[3 * NV];
+#pragma unroll
+      for (int v = 0; v < NV; ++v) {
+        T s = T(0), s_t = T(0), g0 = T(0), g1 = T(0);
+#pragma unroll
+        for (int k = 0; k < 4; ++k) {
+          s += t.phi[k] * uc[v][k];
+          if constexpr (TR) s_t += t.phi[k] * udc[v][k];
+          g0 += t.g0[k] * uc[v][k];
+          g1 += t.g1[k] * uc[v][k];
+        }
+        zu[v].v = zu[v].d[0] = s;
+        zud[v].v = zud[v].d[0] = s_t;
+        zg[v][0].v = zg[v][0].d[0] = g0;
+        zg[v][1].v = zg[v][1].d[0] = g1;
+      }
+      Dens::template eval<TR, D>(zu, zud, zg, x0 + t.off[0], y0 + t.off[1],
+                                 a, zo);
+#pragma unroll
+      for (int c = 0; c < 4; ++c)
+#pragma unroll
+        for (int v = 0; v < NV; ++v)
+          r[4 * v + c] +=
+              t.w * (t.phi[c] * zo[v].d[0] + t.g0[c] * zo[NV + 2 * v].d[0] +
+                     t.g1[c] * zo[NV + 2 * v + 1].d[0]);
+    }
+  };
+  node_walk<T, StateTile, NV, kStateUnroll>(
+      static_cast<const T*>(a.ue), (long long)(a.N0 + 1) * (a.N1 + 1), a.N0,
+      a.N1, tiles_j, tiles, patches, rows, static_cast<T*>(a.res), element);
+}
+
+template <typename T, bool TR, int NV, class Dens, int QF>
+int set_state_case(const SetArgs& a, void* stream) {
+  auto kernel = set_node_state_kernel<T, TR, NV, Dens, QF>;
+  const size_t smem = sizeof(T) * set_state_words(NV, a.Q);
+  thread_local Resident resident;
+  const int err = query_resident(kernel, StateTile::kThreads, smem, resident);
+  if (err != 0) return err;
+  int tiles_j, tiles, blocks;
+  if (!walk_grid<StateTile>(a.N0, a.N1, resident.blocks, tiles_j, tiles,
+                            blocks))
+    return (int)cudaErrorInvalidValue;
+  kernel<<<blocks, StateTile::kThreads, smem, (cudaStream_t)stream>>>(
+      a, tiles_j, tiles);
+  return (int)cudaGetLastError();
+}
+
+template <typename T, bool TR, int NV, class Dens>
+int set_state_launch(const SetArgs& a, void* stream) {
+  return a.Q == 4 ? set_state_case<T, TR, NV, Dens, 4>(a, stream)
+                  : set_state_case<T, TR, NV, Dens, 0>(a, stream);
+}
+
+template <typename T, int NV, class Dens, bool STATE>
 int set_launch(const SetArgs* a, void* stream) {
   if (a->Q < 1 || a->N0 < 1 || a->N1 < 1 ||
       (long long)a->N0 * a->N1 >= (1LL << 31))
     return (int)cudaErrorInvalidValue;
-  if constexpr (LIN)
+  if constexpr (STATE)
     return a->transient ? set_state_launch<T, true, NV, Dens>(*a, stream)
                         : set_state_launch<T, false, NV, Dens>(*a, stream);
   else

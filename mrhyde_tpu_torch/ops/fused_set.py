@@ -75,7 +75,8 @@ from mrhyde_tpu_torch.functions import codegen
 from mrhyde_tpu_torch.ops import fused_elem as fe
 from mrhyde_tpu_torch.ops._launch import (
     ELEM_MAX_SCALARS, LAUNCHES, ElemArgs, check_err, check_smem,
-    elem_smem_words, elem_tiles, node_smem_words, stream)
+    elem_smem_words, elem_state_smem_words, elem_tiles, node_smem_words,
+    set_state_smem_words, stream)
 from mrhyde_tpu_torch.ops.fused_ns import (
     StageCache, _check_classes, _check_grid_stacks, _dummy, _row_pos,
     _stack_rows, accumulate_density, classify_probes, rows_of)
@@ -180,6 +181,8 @@ class SetForm:
         self.source = codegen.density_source(self.modules, self.variables,
                                              self.params, fm, self.dim,
                                              self.nc)
+        # the bound entry points of the source's library, by (name, dtype)
+        self.entries = {}
 
     def tau_dt2(self, deltat):
         """(C3/dt)^2 of tau: C3 = 2 in a transient deck, else 0."""
@@ -335,13 +338,18 @@ def _node_args(form, ue, ud, sc, tab, geo, jac_idx, stage, lin):
     a.ud = None if ud is None else ud.data_ptr()
     a.phi, a.grad, a.wts = (tab.t_phi.data_ptr(), tab.t_grad.data_ptr(),
                             tab.t_wts.data_ptr())
-    pos = _row_pos(jac_idx, 4 * nv, ue.device)
-    a.row_pos = pos.data_ptr()
-    tiles = elem_tiles(jac_idx, nv, 4, ue.device)
-    a.tiles, a.n_tiles = tiles.data_ptr(), tiles.numel()
     out = torch.empty_like(ue)
-    jac = torch.empty((len(jac_idx), E), dtype=ue.dtype, device=ue.device)
-    a.res, a.jac = out.data_ptr(), jac.data_ptr()
+    a.res = out.data_ptr()
+    pos = tiles = jac = None
+    if not lin:
+        # mode "state" reads no Jacobian fields: they stay null
+        pos = _row_pos(jac_idx, 4 * nv, ue.device)
+        a.row_pos = pos.data_ptr()
+        tiles = elem_tiles(jac_idx, nv, 4, ue.device)
+        a.tiles, a.n_tiles = tiles.data_ptr(), tiles.numel()
+        jac = torch.empty((len(jac_idx), E), dtype=ue.dtype,
+                          device=ue.device)
+        a.jac = jac.data_ptr()
     a.alpha_u = 1.0 if steady else float(stage.alpha_u)
     a.alpha_t = 0.0 if steady else float(stage.alpha_t)
     a.h, a.tau_dt2 = form.h, form.tau_dt2(float(sc.deltat))
@@ -361,13 +369,16 @@ def _node_args(form, ue, ud, sc, tab, geo, jac_idx, stage, lin):
 
 def _launch(name, form, a, like):
     """One launch of a generated entry point on like's dtype and stream,
-    counted."""
-    from mrhyde_tpu_torch.ops._build import load_generated
-    lib = load_generated(form.source)
-    fn = getattr(lib, f"{name}_f64" if like.dtype == torch.float64
-                 else f"{name}_f32")
-    check_err(name, fn(ctypes.c_void_p(ctypes.addressof(a)), stream(like)),
-              a.Q)
+    counted; the entry point is bound once per (form, name, dtype)."""
+    key = (name, like.dtype)
+    fn = form.entries.get(key)
+    if fn is None:
+        from mrhyde_tpu_torch.ops._build import load_generated
+        lib = load_generated(form.source)
+        fn = form.entries[key] = getattr(
+            lib, f"{name}_f64" if like.dtype == torch.float64
+            else f"{name}_f32")
+    check_err(name, fn(ctypes.addressof(a), stream(like)), a.Q)
     LAUNCHES[name] += 1
 
 
@@ -432,6 +443,21 @@ def set_node_state(form, u, sc, tab, geo, stage=None):
     return out
 
 
+_OFFSETS = {}
+
+
+def _offsets(lat):
+    """The lattice's local dof offsets as ElemArgs.off holds them, built
+    once per lattice."""
+    arr = _OFFSETS.get(lat)
+    if arr is None:
+        arr = _OFFSETS[lat] = type(ElemArgs().off)()
+        for c, off in enumerate(lat.offsets):
+            for ax, o in enumerate(off):
+                arr[c][ax] = int(o)
+    return arr
+
+
 def _elem_args(form, ue, ud, sc, tab, lat, geo, jac_idx, stage,
                lin=False):
     """(ElemArgs, residual rows, Jacobian rows, keep-alive) of one
@@ -462,13 +488,18 @@ def _elem_args(form, ue, ud, sc, tab, lat, geo, jac_idx, stage,
     a.ud = None if ud is None else ud.data_ptr()
     a.phi, a.grad, a.wts = (tab.t_phi.data_ptr(), tab.t_grad.data_ptr(),
                             tab.t_wts.data_ptr())
-    pos = _row_pos(jac_idx, nd, ue.device)
-    a.row_pos = pos.data_ptr()
-    tiles = elem_tiles(jac_idx, nv, nc, ue.device)
-    a.tiles, a.n_tiles = tiles.data_ptr(), tiles.numel()
     res = torch.empty((nd, E), dtype=ue.dtype, device=ue.device)
-    jac = torch.empty((len(jac_idx), E), dtype=ue.dtype, device=ue.device)
-    a.res, a.jac = res.data_ptr(), jac.data_ptr()
+    a.res = res.data_ptr()
+    pos = tiles = jac = None
+    if not lin:
+        # mode "state" reads no Jacobian fields: they stay null
+        pos = _row_pos(jac_idx, nd, ue.device)
+        a.row_pos = pos.data_ptr()
+        tiles = elem_tiles(jac_idx, nv, nc, ue.device)
+        a.tiles, a.n_tiles = tiles.data_ptr(), tiles.numel()
+        jac = torch.empty((len(jac_idx), E), dtype=ue.dtype,
+                          device=ue.device)
+        a.jac = jac.data_ptr()
     a.alpha_u = 1.0 if steady else float(stage.alpha_u)
     a.alpha_t = 0.0 if steady else float(stage.alpha_t)
     a.h, a.tau_dt2 = form.h, form.tau_dt2(float(sc.deltat))
@@ -480,9 +511,7 @@ def _elem_args(form, ue, ud, sc, tab, lat, geo, jac_idx, stage,
         a.sc[i] = v
     a.Q, a.nc, a.dim, a.stride = tab.Q, nc, dim, lat.stride
     a.N0, a.N1, a.N2 = dims
-    for c, off in enumerate(lat.offsets):
-        for ax, o in enumerate(off):
-            a.off[c][ax] = int(o)
+    a.off = _offsets(lat)
     ns = form.ns
     a.pspg = int(bool(ns and ns.use_pspg))
     a.supg = int(bool(ns and ns.use_supg))
@@ -602,12 +631,19 @@ class FusedSetAssembly:
             return None
         wts = np.asarray(asm.disc.wts[0])
         nv, Q, tr = len(s["plan"]), wts.size, asm.is_transient
+        # both modes' layouts (an affine set takes mode "state")
         if nc == 4:
             check_smem("set_node_full", lambda el: node_smem_words(
                 nv, tr, Q, el), asm.dtype.itemsize, Q)
+            check_smem("set_node_state",
+                       lambda el: set_state_smem_words(nv, Q),
+                       asm.dtype.itemsize, Q)
         else:
             check_smem("set_elem_full", lambda el: elem_smem_words(
                 dim, nc, nv, tr, Q, el), asm.dtype.itemsize, Q)
+            check_smem("set_elem_state",
+                       lambda el: elem_state_smem_words(dim, nc, Q),
+                       asm.dtype.itemsize, Q)
         scalars = sorted(k for k, v in asm.params.items()
                          if np.ndim(v) == 0)
         try:

@@ -624,23 +624,28 @@ void host_launch(K kernel, unsigned blocks, int threads, size_t smem,
 HOST_SMEM = (re.compile(r"extern __shared__ (?:__align__\(16\) )?"
                         r"unsigned char smem_raw\[\];"),
              "unsigned char* smem_raw = host_smem;")
-HOST_LAUNCH = re.compile(r"kernel<<<(.*?), kThreads, (.*?),\s*"
+HOST_LAUNCH = re.compile(r"kernel<<<(.*?), ((?:\w+::)?kThreads), (.*?),\s*"
                          r"\(cudaStream_t\)stream>>>\((.*?)\);", re.S)
 
 
 # the kernel files the host builds, each with its counts of shared-memory
 # declarations and of launch sites: the element-tile engine holds the
-# kernel body of set_elem.cuh and fused_elem_ns.cu, which instantiate it,
-# and of set_node.cuh's Jacobian role; fused_elem_thermal.cu's one tile
+# kernel body of set_elem_full and ns_elem_full (set_elem.cuh and
+# fused_elem_ns.cu instantiate it) and of set_node.cuh's Jacobian role;
+# set_elem.cuh holds set_elem_state's kernel, set_node.cuh
+# set_node_state's and set_node_full's; fused_elem_thermal.cu's one tile
 # kernel holds both thermal element modes; the B2 node kernels
 # (fused_p1_thermal.cu: thermal_node_state's and thermal_node_full's tile
-# walk; fused_p1_ns.cu: ns_node_full's tiles); thermal_form.cuh the
-# thermal weak form's qp scalars and products that both thermal files
+# walk; fused_p1_ns.cu: ns_node_full's tiles); node_walk.cuh the tile walk
+# that fused_p1_thermal.cu and set_node.cuh include; launch.cuh the
+# launchers' shared-memory error and persistent grid size; thermal_form.cuh
+# the thermal weak form's qp scalars and products that both thermal files
 # include
 HOST_FILES = {"set_node.cuh": (2, 2), "elem_engine.cuh": (1, 1),
-              "set_elem.cuh": (0, 0), "fused_elem_ns.cu": (0, 0),
+              "set_elem.cuh": (1, 1), "fused_elem_ns.cu": (0, 0),
               "fused_elem_thermal.cu": (1, 1),
               "fused_p1_thermal.cu": (2, 2), "fused_p1_ns.cu": (1, 1),
+              "node_walk.cuh": (0, 0), "launch.cuh": (0, 0),
               "thermal_form.cuh": (0, 0)}
 
 
@@ -651,7 +656,7 @@ def _host_header(name, tmp_path):
     text, n = HOST_SMEM[0].subn(HOST_SMEM[1], text)
     assert n == smem, name
     text, n = HOST_LAUNCH.subn(
-        r"host_launch(kernel, \1, kThreads, \2, \3);", text)
+        r"host_launch(kernel, \1, \2, \3, \4);", text)
     assert n == launches, name
     (tmp_path / name).write_text(text)
 
@@ -859,39 +864,119 @@ def test_set_elem_kernel_at_quadrature_6_in_blocks_of_fewer_elements(
         _assert_close(got, want, dtype)
 
 
-@pytest.mark.parametrize("mesh", ["p1", "hex", "p2"])
-@pytest.mark.parametrize("stage", [False, True])
-@pytest.mark.parametrize("dtype", [torch.float64, torch.float32])
-def test_state_kernels_on_the_host(mesh, stage, dtype, tmp_path):
-    """set_node_state (2D p1) and set_elem_state (hex, p2), mode "state"
-    of an affine thermal + cdr set (the densities' derivative along the
-    state, from the u grid alone), on the host against their plain
-    versions, steady and at a DIRK-2,2 stage: f64 to 1e-12, f32 to 1e-5
-    of max |plain|."""
+@pytest.fixture(scope="module")
+def state_sets(tmp_path_factory):
+    """(mesh, stage) -> (the provider of thermal_cdr_affine_cfg's affine
+    set on its own small grid, the set's generated library built once for
+    the host): the form and its source do not depend on the grid or the
+    quadrature."""
+    from torch_port_utils import thermal_cdr_affine_cfg
+    cache = {}
+
+    def get(mesh, stage):
+        if (mesh, stage) not in cache:
+            f = _host_provider(thermal_cdr_affine_cfg(mesh, stage))
+            assert f._detect_affine(not stage)
+            lib = _host_build(f.form.source, tmp_path_factory.mktemp(
+                f"state_{mesh}_{int(stage)}"))
+            cache[mesh, stage] = (f, lib)
+        return cache[mesh, stage]
+    return get
+
+
+def _state_geometry(mesh, dims, dtype, quadrature):
+    """(QuadTables, Lattice, (origin, h_axes, q_off)) of a uniform grid of
+    `dims` elements on the unit box: 2D p1 or p2 quads, or hex."""
+    from mrhyde_tpu_torch.assembly.discretization import Discretization
+    from mrhyde_tpu_torch.mesh.structured import box_mesh
+    from mrhyde_tpu_torch.ops.fused_elem import basis_lattice
+    from mrhyde_tpu_torch.ops.fused_p1 import QuadTables
+    cell, order = {"p1": ("quad", 1), "hex": ("hex", 1),
+                   "p2": ("quad", 2)}[mesh]
+    h = tuple(1.0 / n for n in dims)
+    disc = Discretization(box_mesh(cell, **dict(zip(("xmax", "ymax",
+                                                      "zmax"), h))),
+                          [("e", "HGRAD", order)], quadrature)
+    key = ("HGRAD", order)
+    tab = QuadTables(disc.basis_vals[key], disc.basis_grads[key][0],
+                     disc.wts[0], "cpu", dtype)
+    return tab, basis_lattice(cell, order), ((0.0,) * len(dims), h,
+                                             np.asarray(disc.ip[0]))
+
+
+# set_node_state's and set_elem_state's cases: (mesh, element grid or
+# None for the provider's own, stage, dtype, quadrature or None for the
+# deck's): the provider's grid (4x4, hex 3x2x2, p2 3x3), grids of several
+# tiles or blocks whose last ones are partial (2D p1 37 x 70 and 70 x 37:
+# 3 x 3 and 5 x 2 walk tiles of 15 x 31 nodes; hex 9x7x5 and p2 19x15:
+# 315 and 285 elements, three blocks of 128 on two resident blocks) and a
+# 1-element grid, steady and at a stage, both precisions, at the decks'
+# quadrature; at quadrature 4 (2D p1 Q = 9, hex Q = 27) the largest grid
+# in f64
+_STATE_GRIDS = {"p1": (None, (37, 70), (70, 37), (1, 1)),
+                "hex": (None, (9, 7, 5), (1, 1, 1)),
+                "p2": (None, (19, 15), (1, 1))}
+STATE_HOST = [(m, g, s, d, None) for m in ("p1", "hex", "p2")
+              for g in _STATE_GRIDS[m] for s in (False, True)
+              for d in (torch.float64, torch.float32)] \
+    + [(m, _STATE_GRIDS[m][1], s, torch.float64, 4) for m in ("p1", "hex")
+       for s in (False, True)]
+
+
+def _state_id(case):
+    mesh, dims, stage, dtype, quadrature = case
+    d = int(dtype == torch.float32)
+    if dims is None:  # the provider's own grid
+        return f"dtype{d}-{stage}-{mesh}"
+    q = "" if quadrature is None else f"-q{quadrature}"
+    return f"dtype{d}-{stage}-{mesh}-{'x'.join(map(str, dims))}{q}"
+
+
+@pytest.mark.parametrize("mesh,dims,stage,dtype,quadrature", STATE_HOST,
+                         ids=[_state_id(c) for c in STATE_HOST])
+def test_state_kernels_on_the_host(state_sets, mesh, dims, stage, dtype,
+                                   quadrature):
+    """set_node_state (2D p1: the tile walk over both variables' grids)
+    and set_elem_state (hex, p2: a thread per element on a persistent
+    grid of 2 blocks), mode "state" of an affine thermal + cdr set whose
+    kappa = 1 + 0.5 x makes the state part vary by element (the
+    densities' derivative along the state, from the u grid alone), on the
+    host against their plain versions: the provider's grid, grids of
+    several tiles or blocks with a partial last one on each axis, a
+    1-element grid, steady and at a DIRK-2,2 stage, at the decks'
+    quadrature and at quadrature 4: f64 to 1e-12, f32 to 1e-5 of max
+    |plain|."""
     from mrhyde_tpu_torch.ops import fused_set as fs
     from mrhyde_tpu_torch.ops.fused_p1 import Stage
-    from torch_port_utils import thermal_cdr_affine_cfg
-    f = _host_provider(thermal_cdr_affine_cfg(mesh, stage))
-    assert f._detect_affine(not stage)
+    f, lib = state_sets(mesh, stage)
     st = Stage(0.5, 20.0, None) if stage else None
     sc = fs.SetScalars(0.1, 0.05, ())
-    u, _ = _host_grids(f, dtype, False)
-    tab = _host_tables(f, dtype)
-    geo = (f.origin, f.h_axes, f.q_off)
-    lib = _host_build(f.form.source, tmp_path)
+    if dims is None:
+        u, _ = _host_grids(f, dtype, False)
+        tab, lat = _host_tables(f, dtype), f.lattice
+        geo = (f.origin, f.h_axes, f.q_off)
+    else:
+        tab, lat, geo = _state_geometry(
+            mesh, dims, dtype, quadrature or (4 if mesh == "p2" else 2))
+        rng = np.random.RandomState(23)
+        u = torch.as_tensor(rng.rand(f.nv, *(lat.stride * n + 1
+                                             for n in dims)) - 0.5,
+                            dtype=dtype)
+    if quadrature is not None:
+        assert tab.Q == {"p1": 9, "hex": 27}[mesh]
     if mesh == "p1":
         want = fs.set_node_state_plain(f.form, u, sc, tab, geo, st)
         a, got, _jac, _keep = fs._node_args(f.form, u, None, sc, tab, geo,
                                             (), st, True)
         name = "set_node_state"
     else:
-        want = fs.set_elem_state_plain(f.form, u, sc, tab, f.lattice, geo,
-                                       st)
-        a, got, _jac, _keep = fs._elem_args(f.form, u, None, sc, tab,
-                                            f.lattice, geo, (), st,
-                                            lin=True)
+        want = fs.set_elem_state_plain(f.form, u, sc, tab, lat, geo, st)
+        a, got, _jac, _keep = fs._elem_args(f.form, u, None, sc, tab, lat,
+                                            geo, (), st, lin=True)
         name = "set_elem_state"
+    got.fill_(float("nan"))
     assert _entry(lib, name, dtype)(ctypes.addressof(a), None) == 0
+    assert bool(torch.isfinite(got).all())
     _assert_close(got, want, dtype)
 
 
@@ -1415,6 +1500,9 @@ extern "C" long long words(int dim, int nc, int nv, int tr, int Q, int el) {
     default: return w<5>(tr, Q, el);
   }
 }
+extern "C" long long state_words(int dim, int nc, int nv, int Q) {
+  return set_state_words(nv, Q);
+}
 """,
     "set_elem.cuh": """
 #include "set_elem.cuh"
@@ -1433,6 +1521,9 @@ template <int D, int C> long long wn(int nv, int tr, int Q, int el) {
 }
 extern "C" long long words(int dim, int nc, int nv, int tr, int Q, int el) {
   return dim == 3 ? wn<3, 8>(nv, tr, Q, el) : wn<2, 9>(nv, tr, Q, el);
+}
+extern "C" long long state_words(int dim, int nc, int nv, int Q) {
+  return dim == 3 ? ElemStateQp<3, 8>::words(Q) : ElemStateQp<2, 9>::words(Q);
 }
 """,
     "fused_elem_ns.cu": """
@@ -1464,14 +1555,19 @@ def test_layout_formulas_are_the_kernels(header, tmp_path):
     """ops/_launch.py's shared-memory formulas, which the providers check
     a deck's quadrature against, equal the kernels' own layouts (the
     headers built on the host) at every element count, quadrature and
-    set size."""
+    set size; so do those of the sets' state kernels (set_node_state,
+    set_elem_state)."""
     from mrhyde_tpu_torch.ops._launch import (elem_smem_words,
+                                              elem_state_smem_words,
                                               full_smem_words,
                                               node_smem_words,
                                               ns_node_smem_words,
+                                              set_state_smem_words,
                                               state_smem_words)
     lib = _host_build(LAYOUT_TU[header], tmp_path)
     lib.words.restype = ctypes.c_longlong
+    if header in ("set_node.cuh", "set_elem.cuh"):
+        lib.state_words.restype = ctypes.c_longlong
     cases = {"set_node.cuh": [(2, 4, nv) for nv in (1, 2, 3, 4, 5)],
              "set_elem.cuh": [(d, c, nv) for d, c in ((3, 8), (2, 9))
                               for nv in (1, 2, 4, 5, 6)],
@@ -1495,18 +1591,27 @@ def test_layout_formulas_are_the_kernels(header, tmp_path):
                     else:
                         want = elem_smem_words(dim, nc, nv, tr, Q, el)
                     assert lib.words(dim, nc, nv, tr, Q, el) == want
+                if header == "set_node.cuh":
+                    assert lib.state_words(dim, nc, nv, Q) == \
+                        set_state_smem_words(nv, Q)
+                elif header == "set_elem.cuh":
+                    assert lib.state_words(dim, nc, nv, Q) == \
+                        elem_state_smem_words(dim, nc, Q)
 
 
 @pytest.mark.parametrize("kind", ["ns_hex", "ns_p2", "set_node",
                                   "set_hex"])
 def test_every_accepted_quadrature_fits_the_card(kind):
     """The NS and set providers accept a deck's quadrature only where one
-    element's layout fits the H100's shared memory per block, so the
-    kernels never fail to launch for it; past that they raise a clear
+    element's layout fits the H100's shared memory per block (for a set,
+    that of mode "full" and that of its state kernel), so the kernels
+    never fail to launch for it; past that they raise a clear
     ValueError, never taking the general path in silence."""
     from mrhyde_tpu_torch.ops._launch import (SMEM_OPTIN, block_elems,
                                               elem_smem_words,
-                                              node_smem_words)
+                                              elem_state_smem_words,
+                                              node_smem_words,
+                                              set_state_smem_words)
     from torch_port_utils import channel_cfg, ns_elem_cfg, \
         ns_thermal_elem_cfg
     build = {"ns_hex": lambda: ns_elem_cfg("hex", (2, 1, 1)),
@@ -1526,8 +1631,11 @@ def test_every_accepted_quadrature_fits_the_card(kind):
             if kind == "set_node":
                 words = lambda el: node_smem_words(  # noqa: E731
                     f.nv, tr, Q, el)
+                assert set_state_smem_words(f.nv, Q) * 8 <= SMEM_OPTIN
             else:
                 words = lambda el: elem_smem_words(  # noqa: E731
                     len(f.dims), f.nc, f.nv, tr, Q, el)
+                if kind == "set_hex":
+                    assert elem_state_smem_words(3, 8, Q) * 8 <= SMEM_OPTIN
             assert block_elems(words, 8, SMEM_OPTIN) >= 1
     assert 4 <= accepted < 22

@@ -1096,14 +1096,28 @@ def test_set_elem_wrapper_checks_inputs_on_card():
 # mode "state" of affine module sets, and the kernels at any quadrature
 # ----------------------------------------------------------------------
 
+# the state kernels' grids beyond the odd ones (a partial last block):
+# several of set_node_state's walk tiles (15 x 31 nodes) with a partial
+# last one on each axis (2D p1 47 x 97: 4 x 4 tiles), several of
+# set_elem_state's blocks of 128 elements with a partial last one (hex
+# 19x11x9, p2 37x29), and a single element
+STATE_GRIDS = {"p1": {"tiles": (47, 97, None), "one": (1, 1, None)},
+               "hex": {"tiles": (19, 11, 9), "one": (1, 1, 1)},
+               "p2": {"tiles": (37, 29, None), "one": (1, 1, None)}}
+
+
 @pytest.mark.cuda
+@pytest.mark.parametrize("grid", ["odd", "tiles", "one"])
 @pytest.mark.parametrize("dtype", [torch.float64, torch.float32])
 @pytest.mark.parametrize("stage", [False, True])
 @pytest.mark.parametrize("mesh", ["p1", "hex", "p2"])
-def test_state_kernel_matches_plain(mesh, stage, dtype):
+def test_state_kernel_matches_plain(mesh, stage, dtype, grid):
     """set_node_state (2D p1) and set_elem_state (hex, p2) of an affine
-    thermal + cdr set against their plain versions on the card, steady
-    and at a DIRK-2,2 stage, at odd grids (a partial last block)."""
+    thermal + cdr set (kappa = 1 + 0.5 x: the state part varies by
+    element) against their plain versions on the card, steady and at a
+    DIRK-2,2 stage, at odd grids (a partial last block), at grids of
+    several tiles or blocks with a partial last one on each axis, and on
+    a single element."""
     from mrhyde_tpu_torch.ops import fused_set as fs
     from mrhyde_tpu_torch.ops._launch import LAUNCHES
     from mrhyde_tpu_torch.ops.fused_p1 import Stage
@@ -1112,9 +1126,13 @@ def test_state_kernel_matches_plain(mesh, stage, dtype):
     dev = _card()
     cfg = thermal_cdr_affine_cfg(mesh, stage)
     nx, ny, nz = AFFINE_MESHES[mesh]
-    cfg["Mesh"].update({"NX": 5 * nx + 2, "NY": 3 * ny + 1})
+    if grid == "odd":
+        nx, ny, nz = 5 * nx + 2, 3 * ny + 1, nz and 3 * nz + 1
+    else:
+        nx, ny, nz = STATE_GRIDS[mesh][grid]
+    cfg["Mesh"].update({"NX": nx, "NY": ny})
     if nz:
-        cfg["Mesh"]["NZ"] = 3 * nz + 1
+        cfg["Mesh"]["NZ"] = nz
     f = Problem(cfg, device=dev, dtype=dtype).assembler.fused_provider()
     assert f._detect_affine(not stage)
     g = torch.Generator(device=dev).manual_seed(91)

@@ -36,6 +36,52 @@ def test_rules():
     assert _count(lambda: 2.0 * 3.0) == 0
 
 
+def test_reaching_counts_what_the_results_need():
+    gen = torch.Generator().manual_seed(5)
+    a, b = (torch.rand(2, generator=gen, dtype=torch.float64)
+            for _ in range(2))
+    with cs._OpCount() as c:
+        dead = torch.sin(a) * b
+        live = a * b + a
+        shared = live * live
+    assert c.ops == 5
+    assert c.reaching(live) == 2
+    assert c.reaching([shared, None, 1.0], (live,)) == 3
+    assert c.reaching(dead, shared) == 5
+
+
+@pytest.mark.parametrize("stage", [False, True])
+def test_lin_counts_no_coordinate_only_source(stage):
+    """Mode "lin" (the state kernels' tangent-only pass) counts no
+    operation of a source that reads only the coordinates: a density
+    with sin(x) cos(y) counts as one without it, in mode "full" it
+    costs its operations at every qp."""
+    from mrhyde_tpu_torch.ops.fused_ns import accumulate_density
+    tab = cs.quad_tables(4, 4, "cpu", torch.float64, 1.0, 1.0)[0]
+    gen = torch.Generator().manual_seed(11)
+
+    def standin():
+        return torch.rand(2, generator=gen, dtype=torch.float64) + 0.5
+    ue = [[standin() for _ in range(4)]]
+    ud = [[standin() if stage else 0.0 for _ in range(4)]]
+    xy = [[standin(), standin()] for _ in range(tab.Q)]
+
+    def count(mode, source):
+        def density(q, u, u_dot, g):
+            s = 2.0 * u[0] * u[0] + u_dot[0]
+            if source:
+                s = s + torch.sin(xy[q][0]) * torch.cos(xy[q][1])
+            return [s] + [(1.0 + 0.5 * xy[q][0]) * g[0][d]
+                          for d in range(2)]
+        with cs._OpCount() as c:
+            results = accumulate_density(ue, ud, density, tab, 0.5,
+                                         200.0 if stage else 0.0,
+                                         not stage, mode)
+        return c.reaching(*results)
+    assert count("lin", True) == count("lin", False) > 0
+    assert count("full", True) == count("full", False) + 4 * tab.Q
+
+
 def _p1_ops(n0, n1, visc, stage):
     tab = cs.quad_tables(n0, n1, "cpu", torch.float64, 5.0, 1.0)[0]
     form = fn.NSForm(True, stage is not None, math.sqrt(sum(tab.wts)),
@@ -48,7 +94,8 @@ def _p1_ops(n0, n1, visc, stage):
 def test_p1_counts(n0, n1):
     stage = Stage(*cs.NS_STAGE1, None)
     assert _p1_ops(n0, n1, 1.0, None) == 2736
-    assert _p1_ops(n0, n1, 1.0, stage) == 4952
+    # the pressure's u_dot, which no density reads, is not interpolated
+    assert _p1_ops(n0, n1, 1.0, stage) == 4924
     # a viscosity that reads x costs its products at every qp
     assert _p1_ops(n0, n1, torch.zeros(1, 4), None) > 2736
 
@@ -93,4 +140,23 @@ def test_hex_set_counts_extrapolate_exactly_from_two_qps(monkeypatch):
         monkeypatch.setattr(cs, "_ops_of_qps", rule)
         cs._SET_OPS.clear()
         counts.append(cs.set_ops(form, tab, sc, stage))
+    assert counts[0] == counts[1] > 0
+
+
+@pytest.mark.parametrize("name", ["thermal+cdr affine hex dirk22 stage 1",
+                                  "thermal+cdr affine hex kappa=1+0.5x "
+                                  "steady"])
+def test_hex_state_counts_extrapolate_exactly_from_two_qps(name,
+                                                           monkeypatch):
+    """The same of an affine set's tangent-only pass (set_ops in mode
+    "lin", set_elem_state's bound) at 8 qps."""
+    tab = cs.elem_tables("hex", (2, 2, 2), "cpu", torch.float64,
+                         (1.0, 1.0, 1.0))[0]
+    form, sc, stage = cs.state_case(name, 0.5)
+    counts = []
+    for rule in (lambda ops, Q, _hex: ops(Q),
+                 lambda ops, Q, _hex: ops(1) + (Q - 1) * (ops(2) - ops(1))):
+        monkeypatch.setattr(cs, "_ops_of_qps", rule)
+        cs._SET_OPS.clear()
+        counts.append(cs.set_ops(form, tab, sc, stage, "lin"))
     assert counts[0] == counts[1] > 0

@@ -1,38 +1,42 @@
 """Where the time of the scalar element kernels `thermal_elem_full` and
 `thermal_elem_state` (csrc/fused_elem_thermal.cu) and of the module-set
-node kernel `set_node_full` (csrc/set_node.cuh) goes, on one card:
-builds patched copies of a tree's csrc/, each with a part of a kernel
-cut, and times each on the cases of chip_smoke.py's phases 3c, 3d, 3f
-and 3i (f64, the divisible shapes; thermal_elem_state f64 and f32).
+node kernels `set_node_full` and `set_node_state` (csrc/set_node.cuh)
+goes, on one card: builds patched copies of a tree's csrc/, each with a
+part of a kernel cut, and times each on the cases of chip_smoke.py's
+phases 3c, 3d, 3f, 3h (set_node_state's 2D p1 cases, at both shapes)
+and 3i (f64, the divisible shapes; thermal_elem_state and set_node_state
+f64 and f32).
 
-    python tools/full_ablate.py [--csrc DIR] [--design NAME] [--out DIR]
-                                [VARIANT ...]
+    python tools/full_ablate.py [--csrc DIR] [--kinds K,...] [--out DIR]
+                                [--ptx] [VARIANT ...]
 
-`--csrc` (default: this tree's) is the csrc/ directory to patch, such as
-that of an unpacked `git archive` of an earlier commit; `--design` names
-the variant table that matches it: `current` (this tree's kernels),
-`column` (the per-column designs they replaced: one thread per element
-walking the Jacobian a column c' per pass in thermal_elem_full, one
-Dual<T, 1> density pass per column in set_node_full's Jacobian blocks)
-or `thread` (the thread per element of thermal_elem_state before its
-tile design). The C interfaces of all designs are the same, so this
-tree's wrappers fill the arguments. Variants (default: all of the
-design's) are listed in VARIANTS; `base` is the kernel as it is, timed
-on the kernels that the chosen variants cut (on all where only `base`
-is named). Each variant builds into
-DIR/<design>/<variant> (default tree_copies/ablate, listed in
-.gitignore) with the flags of ops/_build.py, all nvcc at once; ptxas's
-report goes to DIR/<design>/ptxas.txt. Prints one JSON line per (case,
-variant): the median of 3 batches of 10 back-to-back launches (CUDA
-events; thermal_elem_state: `ms` the median of 5 batches of 20 and
-`single_ms` the median of 20 single launches, as tools/node_ablate.py
-times them, and with the default `--csrc` the Python wrapper's
-`wrapper_ms` and `wrapper_single_ms` beside `base`: its host time before
-the launch is `wrapper_single_ms - single_ms`), and the largest
-difference of its outputs from `base`'s relative to max |base| (the cut
-variants change them). First it prints the cuBLAS time of the
-contraction alone (torch.matmul of the same GEMM shapes, f64), a
-yardstick that no path of the port calls."""
+`--ptx` instead reports, for each kernel of phase 3h's 2D p1 generated
+sources, whether its PTX evaluates a sin or a cos
+(tools/engine_ablate.py `ptx_trig`).
+`--csrc` (default: this tree's) is the csrc/ directory to build, such as
+that of an unpacked `git archive` of an earlier commit; another tree's
+kernels are timed as they are (`base` only: the patches match this
+tree's sources; `--kinds` chooses its kernels), and since the C
+interfaces are the same, this tree's wrappers fill the arguments.
+Variants (default: all, or `base` alone with `--kinds`) are listed in
+VARIANTS; `base` is the kernel as it is, timed on the kernels that the
+chosen variants cut (on all where only `base` is named). Each variant
+builds into DIR/<tree>/<variant> (default tree_copies/ablate, listed in
+.gitignore; <tree> is `current`, or `other` for another tree's csrc/)
+with the flags of ops/_build.py, all nvcc at once; ptxas's report goes
+to DIR/<tree>/ptxas.txt. Prints one JSON line per (case, variant): the
+median of 3 batches of 10 back-to-back launches (CUDA events;
+thermal_elem_state and set_node_state: `ms` the median of 5 batches of
+20 and `single_ms` the median of 20 single launches, as
+tools/node_ablate.py times them; with the default `--csrc` the Python
+wrapper's `wrapper_ms` and `wrapper_single_ms` beside `base`, its host
+time before the launch being `wrapper_single_ms - single_ms`; beside
+set_node_state's `base` its bound, chip_smoke.py's `state_work` and
+`bound`, and `share`, the bound over `ms`), and the largest difference
+of its outputs from `base`'s relative to max |base| (the cut variants
+change them). First it prints the cuBLAS time of the contraction alone
+(torch.matmul of the same GEMM shapes, f64), a yardstick that no path of
+the port calls."""
 
 import argparse
 import ctypes
@@ -59,194 +63,180 @@ from mrhyde_tpu_torch.ops._launch import (coeff_args, stage_args,  # noqa
 from mrhyde_tpu_torch.ops.fused_p1 import QUAD_P1, Stage  # noqa: E402
 
 THERMAL, SET_NODE = "fused_elem_thermal.cu", "set_node.cuh"
+WALK = "node_walk.cuh"
 FORM = "thermal_form.cuh"
 ENGINE = engine_ablate.ENGINE
 _NEVER = "T(1.2345e30)"
 CSRC = os.path.join(REPO, "mrhyde_tpu_torch", "ops", "csrc")
-# design -> variant -> [(file, text of the file, its replacement)]
+# the tile walk with one set of rows: a second barrier after the sums
+_SINGLE_ROWS = [
+    (WALK, "    T* rw = rows + cur * NV * 4 * kTileElems;",
+     "    T* rw = rows;"),
+    (WALK, "    t = tn;\n    i0 = i0n;", "    __syncthreads();\n    t = tn;\n"
+     "    i0 = i0n;"),
+    (WALK, "return 2LL * nv * kPatch + 2LL * nv * 4 * kTileElems;",
+     "return 2LL * nv * kPatch + 1LL * nv * 4 * kTileElems;")]
+# variant -> [(file, text of the file, its replacement)]
 VARIANTS = {
-    "current": {
-        "base": [],
-        # thermal_elem_full: f64 on FMA (each lane's form of the m8n8k4
-        # step, as f32) instead of DMMA
-        "thermal_fma": [(FORM, "  static constexpr bool value = "
-                         "std::is_same<T, double>::value;",
-                         "  static constexpr bool value = false;")],
-        # no Jacobian contraction (its rows stored as zeros)
-        "thermal_no_jac_contract": [(
-            THERMAL, "        for (int k = 0; k < NKJ; ++k) {\n",
-            "        for (int k = 0; k < 0; ++k) {\n")],
-        # no Jacobian stores
-        "thermal_no_jac_store": [(
-            THERMAL,
-            "          if (k < NC * NC) a.jac[(long long)k * geo.E + e] = "
-            "cj[n][i];",
-            f"          if (k < NC * NC && cj[n][i] == {_NEVER})\n"
-            "            a.jac[(long long)k * geo.E + e] = cj[n][i];")],
-        # thermal_elem_state (f64 octets, f32 a thread per element, two
-        # per thread): the gathers, the (E, Q) reads and the row stores
-        # only, no qp arithmetic
-        "state_loads_stores": [
-            (THERMAL, "        const T* tq = tb + (long long)qq * L::PQ;\n",
-             "        const T* tq = tb + (long long)qq * L::PQ;\n"
-             "        if (Q > 0) {\n#pragma unroll\n"
-             "          for (int j = 0; j < EL; ++j) {\n"
-             "            res[j][0] += cur[j].k + cur[j].m + cur[j].b[0] + "
-             "uc[j][0] + uc[j][NC - 1];\n"
-             "            cur[j] = load_state<T, DIM, TRANSIENT, ADVECT>(\n"
-             "                a, valid[j] && qq + 1 < nq,\n"
-             "                (e0 + j * kThreads) * Q + q0 + qq + 1);\n"
-             "          }\n          continue;\n        }\n"),
-            (THERMAL, "          const T* fq = fr + (long long)qq * L::NF * "
-             "32;\n          // linearize: pair p's C fragment",
-             "          const T* fq = fr + (long long)qq * L::NF * 32;\n"
-             "          if (Q > 0) {\n            cr[0][0] += cur.k + cur.m + "
-             "cur.b[0] + ua[0];\n            cur = nxt;\n            "
-             "continue;\n          }\n          // linearize: pair p's C "
-             "fragment")],
-        # f64 on FMA (each lane's form of the m8n8k4 step) instead of DMMA
-        "state_fma": [(FORM, "  static constexpr bool value = "
-                       "std::is_same<T, double>::value;",
-                       "  static constexpr bool value = false;")],
-        # hex f64 octets at 2 blocks per SM (128 registers) instead of 4
-        "state_octets_min2": [(
-            THERMAL, "  static constexpr int kMinBlocks = kOctets || sizeof(T) "
-            "== 4 ? 4 : 2;", "  static constexpr int kMinBlocks = kOctets ? 2"
-            " : (sizeof(T) == 4 ? 4 : 2);")],
-        # f64 by the thread per element everywhere (hex too), two per
-        # thread
-        "state_rows_f64": [(
-            THERMAL, "  static constexpr bool kOctets = std::is_same<T, "
-            "double>::value && NC == 8;", "  static constexpr bool kOctets = "
-            "false;")],
-        # the thread per element with one element per thread in f64 too
-        "state_one_element": [(
-            THERMAL, "  static constexpr int kElems =\n      sizeof(T) == 8 && "
-            "!(TRANSIENT && ADVECT) ? 2 : 1;",
-            "  static constexpr int kElems = 1;")],
-        # the largest L1 the card's shared memory leaves (the state
-        # kernels' per-qp loads are L1 hits)
-        "state_max_l1": [(
-            THERMAL, "    cudaOccupancyMaxActiveBlocksPerMultiprocessor(&per_sm,"
-            " kernel, kThreads,\n                                          "
-            "        smem);",
-            "    if (!JAC)\n      cudaFuncSetAttribute(kernel, "
-            "cudaFuncAttributePreferredSharedMemoryCarveout, 0);\n"
-            "    cudaOccupancyMaxActiveBlocksPerMultiprocessor(&per_sm, kernel,"
-            " kThreads,\n                                                  "
-            "smem);")],
-        # set_node_full: no Jacobian blocks launched
-        "set_residual_blocks": [(
-            SET_NODE, "    jac_blocks = (E + elems - 1) / elems;",
-            "    jac_blocks = 0;")],
-        # the residual blocks return at once
-        "set_jacobian_blocks": [(
-            SET_NODE, "  if (blockIdx.x >= jac_blocks) {\n",
-            "  if (blockIdx.x >= jac_blocks) {\n    if (a.Q > 0) return;\n")],
-        # the Jacobian role's pass width (kTanNode: 0 is one pass per
-        # variable), element cap and blocks per SM at a stage
-        "set_tan2": [(ENGINE, "constexpr int kTanNode = 0;",
-                      "constexpr int kTanNode = 2;")],
-        "set_tan3": [(ENGINE, "constexpr int kTanNode = 0;",
-                      "constexpr int kTanNode = 3;")],
-        "set_tan4": [(ENGINE, "constexpr int kTanNode = 0;",
-                      "constexpr int kTanNode = 4;")],
-        "set_elems16": [(SET_NODE, "constexpr int kNodeElems = 32;",
-                         "constexpr int kNodeElems = 16;")],
-        "set_blocks3": [(SET_NODE, "return transient ? 4 : kMinBlocks;",
-                         "return transient ? 3 : kMinBlocks;")],
-        # the per-column Jacobian role at every Q, or the engine at every Q
-        "set_columns": [(SET_NODE, "return NV == 1 || Q > kQc;",
-                         "return Q > 0;")],
-        "set_engine": [(SET_NODE, "return NV == 1 || Q > kQc;",
-                        "return Q < 0;")],
-        # the engine's linearization with its density replaced by a copy
-        # of its inputs, or without the contraction and its stores
-        # (tools/engine_ablate.py's `nodensity`, `nocontract`)
-        "set_no_density": [(ENGINE, *engine_ablate.VARIANTS["nodensity"][0])],
-        "set_no_contract": [(ENGINE,
-                             *engine_ablate.VARIANTS["nocontract"][0])],
-    },
-    "column": {
-        "base": [],
-        # thermal_elem_full: return after the residual rows
-        "thermal_residual": [(
-            THERMAL, "  // Jacobian, one column c' per pass\n",
-            "  if (Q > 0) return;\n")],
-        # one column pass instead of nc (its column stored)
-        "thermal_one_column": [(
-            THERMAL, "  for (int cp = 0; cp < NC; ++cp) {",
-            "  for (int cp = 0; cp < 1; ++cp) {")],
-        # every pass, no Jacobian stores
-        "thermal_no_jac_store": [(
-            THERMAL, "      jac[(long long)(c * NC + cp) * geo.E + e] = J[c];",
-            f"      if (J[c] == {_NEVER})\n"
-            "        jac[(long long)(c * NC + cp) * geo.E + e] = J[c];")],
-        # the column passes read no (E, Q) input: K, dK, dS from the
-        # weights in shared memory (each input read once, by the
-        # residual rows)
-        "thermal_inputs_once": [(
-            THERMAL,
-            "      const T kq = K[e * Q + q], dkq = dK[e * Q + q], "
-            "dsq = dS[e * Q + q];",
-            "      const T kq = T(1) + wts[q], dkq = T(0.5) * wts[q], "
-            "dsq = wts[q];")],
-        # set_node_full: no Jacobian blocks launched
-        "set_residual_blocks": [(
-            SET_NODE, "    jac_blocks = (E + elems - 1) / elems;",
-            "    jac_blocks = 0;")],
-        # the residual blocks return at once
-        "set_jacobian_blocks": [(
-            SET_NODE, "  if (blockIdx.x < res_blocks) {\n",
-            "  if (blockIdx.x < res_blocks) {\n    if (a.Q > 0) return;\n")],
-    },
-    "thread": {
-        "base": [],
-        # thermal_elem_state: the corner gathers, the (E, Q) coefficient
-        # reads and the row stores only (no qp arithmetic)
-        "state_loads_stores": [
-            (THERMAL, "  for (int q = 0; q < Q; ++q) {\n    T gq[DIM];\n",
-             "  for (int q = 0; q < Q; ++q) {\n    if (Q > 0) {\n"
-             "      r[0] += kappa_is_scalar ? kappa0 : kappa[e * Q + q];\n"
-             "      if constexpr (TRANSIENT)\n"
-             "        r[1] += mass_is_scalar ? mass0 : mass[e * Q + q];\n"
-             "      if constexpr (ADVECT)\n"
-             "        for (int d = 0; d < DIM; ++d) r[2] += vel.at(d, e * Q"
-             " + q);\n      continue;\n    }\n    T gq[DIM];\n"),
-            (THERMAL, "  for (int c = 0; c < NC; ++c) rows[c * geo.E + e] = "
-             "r[c];", "  for (int c = 0; c < NC; ++c) rows[c * geo.E + e] = "
-             "r[c] + uc[c];")],
-        # no table reads: each entry of phi and grad the qp's index plus a
-        # constant of (c, d), each weight its index plus 1 (one add per
-        # entry and qp instead of a shared-memory read)
-        "state_no_tables": [
-            (THERMAL, "      for (int c = 0; c < NC; ++c) v += grad[(c * Q +"
-             " q) * DIM + d] * uc[c];",
-             "      for (int c = 0; c < NC; ++c) v += (T(q) + T(0.125 * (c *"
-             " DIM + d))) * uc[c];"),
-            (THERMAL, "      for (int c = 0; c < NC; ++c) uh += phi[c * Q + q]"
-             " * uc[c];", "      for (int c = 0; c < NC; ++c) uh += (T(q) + "
-             "T(0.125 * c)) * uc[c];"),
-            (THERMAL, "      for (int d = 0; d < DIM; ++d) a += grad[(c * Q +"
-             " q) * DIM + d] * flux[d];\n      if constexpr (TRANSIENT || "
-             "ADVECT) a = phi[c * Q + q] * mu + a;",
-             "      for (int d = 0; d < DIM; ++d) a += (T(q) + T(0.125 * (c * "
-             "DIM + d))) * flux[d];\n      if constexpr (TRANSIENT || ADVECT)"
-             " a = (T(q) + T(0.125 * c)) * mu + a;"),
-            (THERMAL, "    const T w = wts[q];\n#pragma unroll\n    for (int c"
-             " = 0; c < NC; ++c) {\n      T a = T(0);",
-             "    const T w = T(q + 1);\n#pragma unroll\n    for (int c = 0;"
-             " c < NC; ++c) {\n      T a = T(0);")],
-    },
+    "base": [],
+    # thermal_elem_full: f64 on FMA (each lane's form of the m8n8k4
+    # step, as f32) instead of DMMA
+    "thermal_fma": [(FORM, "  static constexpr bool value = "
+                     "std::is_same<T, double>::value;",
+                     "  static constexpr bool value = false;")],
+    # no Jacobian contraction (its rows stored as zeros)
+    "thermal_no_jac_contract": [(
+        THERMAL, "        for (int k = 0; k < NKJ; ++k) {\n",
+        "        for (int k = 0; k < 0; ++k) {\n")],
+    # no Jacobian stores
+    "thermal_no_jac_store": [(
+        THERMAL,
+        "          if (k < NC * NC) a.jac[(long long)k * geo.E + e] = "
+        "cj[n][i];",
+        f"          if (k < NC * NC && cj[n][i] == {_NEVER})\n"
+        "            a.jac[(long long)k * geo.E + e] = cj[n][i];")],
+    # thermal_elem_state (f64 octets, f32 a thread per element, two
+    # per thread): the gathers, the (E, Q) reads and the row stores
+    # only, no qp arithmetic
+    "state_loads_stores": [
+        (THERMAL, "        const T* tq = tb + (long long)qq * L::PQ;\n",
+         "        const T* tq = tb + (long long)qq * L::PQ;\n"
+         "        if (Q > 0) {\n#pragma unroll\n"
+         "          for (int j = 0; j < EL; ++j) {\n"
+         "            res[j][0] += cur[j].k + cur[j].m + cur[j].b[0] + "
+         "uc[j][0] + uc[j][NC - 1];\n"
+         "            cur[j] = load_state<T, DIM, TRANSIENT, ADVECT>(\n"
+         "                a, valid[j] && qq + 1 < nq,\n"
+         "                (e0 + j * kThreads) * Q + q0 + qq + 1);\n"
+         "          }\n          continue;\n        }\n"),
+        (THERMAL, "          const T* fq = fr + (long long)qq * L::NF * "
+         "32;\n          // linearize: pair p's C fragment",
+         "          const T* fq = fr + (long long)qq * L::NF * 32;\n"
+         "          if (Q > 0) {\n            cr[0][0] += cur.k + cur.m + "
+         "cur.b[0] + ua[0];\n            cur = nxt;\n            "
+         "continue;\n          }\n          // linearize: pair p's C "
+         "fragment")],
+    # f64 on FMA (each lane's form of the m8n8k4 step) instead of DMMA
+    "state_fma": [(FORM, "  static constexpr bool value = "
+                   "std::is_same<T, double>::value;",
+                   "  static constexpr bool value = false;")],
+    # hex f64 octets at 2 blocks per SM (128 registers) instead of 4
+    "state_octets_min2": [(
+        THERMAL, "  static constexpr int kMinBlocks = kOctets || sizeof(T) "
+        "== 4 ? 4 : 2;", "  static constexpr int kMinBlocks = kOctets ? 2"
+        " : (sizeof(T) == 4 ? 4 : 2);")],
+    # f64 by the thread per element everywhere (hex too), two per
+    # thread
+    "state_rows_f64": [(
+        THERMAL, "  static constexpr bool kOctets = std::is_same<T, "
+        "double>::value && NC == 8;", "  static constexpr bool kOctets = "
+        "false;")],
+    # the thread per element with one element per thread in f64 too
+    "state_one_element": [(
+        THERMAL, "  static constexpr int kElems =\n      sizeof(T) == 8 && "
+        "!(TRANSIENT && ADVECT) ? 2 : 1;",
+        "  static constexpr int kElems = 1;")],
+    # the largest L1 the card's shared memory leaves (the state
+    # kernels' per-qp loads are L1 hits)
+    "state_max_l1": [(
+        THERMAL, "    cudaOccupancyMaxActiveBlocksPerMultiprocessor(&per_sm,"
+        " kernel, kThreads,\n                                          "
+        "        smem);",
+        "    if (!JAC)\n      cudaFuncSetAttribute(kernel, "
+        "cudaFuncAttributePreferredSharedMemoryCarveout, 0);\n"
+        "    cudaOccupancyMaxActiveBlocksPerMultiprocessor(&per_sm, kernel,"
+        " kThreads,\n                                                  "
+        "smem);")],
+    # set_node_full: no Jacobian blocks launched
+    "set_residual_blocks": [(
+        SET_NODE, "    jac_blocks = (E + elems - 1) / elems;",
+        "    jac_blocks = 0;")],
+    # the residual blocks return at once
+    "set_jacobian_blocks": [(
+        SET_NODE, "  if (blockIdx.x >= jac_blocks) {\n",
+        "  if (blockIdx.x >= jac_blocks) {\n    if (a.Q > 0) return;\n")],
+    # the Jacobian role's pass width (kTanNode: 0 is one pass per
+    # variable), element cap and blocks per SM at a stage
+    "set_tan2": [(ENGINE, "constexpr int kTanNode = 0;",
+                  "constexpr int kTanNode = 2;")],
+    "set_tan3": [(ENGINE, "constexpr int kTanNode = 0;",
+                  "constexpr int kTanNode = 3;")],
+    "set_tan4": [(ENGINE, "constexpr int kTanNode = 0;",
+                  "constexpr int kTanNode = 4;")],
+    "set_elems16": [(SET_NODE, "constexpr int kNodeElems = 32;",
+                     "constexpr int kNodeElems = 16;")],
+    "set_blocks3": [(SET_NODE, "return transient ? 4 : kMinBlocks;",
+                     "return transient ? 3 : kMinBlocks;")],
+    # the per-column Jacobian role at every Q, or the engine at every Q
+    "set_columns": [(SET_NODE, "return NV == 1 || Q > kQc;",
+                     "return Q > 0;")],
+    "set_engine": [(SET_NODE, "return NV == 1 || Q > kQc;",
+                    "return Q < 0;")],
+    # the engine's linearization with its density replaced by a copy
+    # of its inputs, or without the contraction and its stores
+    # (tools/engine_ablate.py's `nodensity`, `nocontract`)
+    "set_no_density": engine_ablate.VARIANTS["nodensity"],
+    "set_no_contract": engine_ablate.VARIANTS["nocontract"],
+    # set_node_state (the tile walk): the tables, the patches, the
+    # rows and the sums, no element's quadrature (its rows zeros)
+    "setstate_loads_stores": [(
+        WALK, "      if (a >= 0 && a < N0 && b >= 0 && b < N1) {\n"
+        "        T uc[4 * NV];",
+        "      if (N0 < 0 && a >= 0 && a < N0 && b >= 0 && b < N1) {\n"
+        "        T uc[4 * NV];")],
+    # the tangent-only density pass replaced by a copy of its inputs
+    "setstate_no_density": [(
+        SET_NODE, "      Dens::template eval<TR, D>(zu, zud, zg, x0 + "
+        "t.off[0], y0 + t.off[1],\n                                 a, "
+        "zo);",
+        "#pragma unroll\n      for (int k = 0; k < 3 * NV; ++k)\n"
+        "        zo[k] = k < NV ? zu[k] : zg[(k - NV) / 2]"
+        "[(k - NV) % 2];")],
+    # the runtime-Q instance at Q = 4 (its qp loop rolled)
+    "setstate_no_q4": [(SET_NODE, "  return a.Q == 4 ? set_state_case",
+                        "  return a.Q == -4 ? set_state_case")],
+    # a thread's two elements computed at once
+    "setstate_unroll2": [(SET_NODE, "constexpr int kStateUnroll = 1;",
+                          "constexpr int kStateUnroll = 2;")],
+    # one set of rows (two barriers per tile, 51 KB a block in f64),
+    # at 2, 3 or 4 blocks per SM (the registers' bound)
+    "setstate_single": _SINGLE_ROWS,
+    "setstate_single_min3": _SINGLE_ROWS + [
+        (SET_NODE, "constexpr int kStateMinBlocks = 2;",
+         "constexpr int kStateMinBlocks = 3;")],
+    "setstate_single_min4": _SINGLE_ROWS + [
+        (SET_NODE, "constexpr int kStateMinBlocks = 2;",
+         "constexpr int kStateMinBlocks = 4;")],
+    # tiles of 8 x 32 elements, one per thread (42 KB a block in f64)
+    "setstate_tile8x32": [(SET_NODE, "using StateTile = WalkTile<16, 32,"
+                           " 256>;", "using StateTile = WalkTile<8, 32, "
+                           "256>;")],
+    "setstate_tile8x32_min4": [
+        (SET_NODE, "using StateTile = WalkTile<16, 32, 256>;",
+         "using StateTile = WalkTile<8, 32, 256>;"),
+        (SET_NODE, "constexpr int kStateMinBlocks = 2;",
+         "constexpr int kStateMinBlocks = 4;")],
 }
 THERMAL_CASES = (("hex", 0), ("p2", 2))  # chip_smoke.ELEM_SHAPES index
+# (label, dtype) -> chip_smoke.bound of a set_node_state case
+BOUNDS = {}
 SET_CASES = tuple(cs.SET_KERNEL_CASES)
 
 
 def _kind(key):
     """The variant prefix of a case key: 'thermal' (thermal_elem_full),
-    'state' (thermal_elem_state) or a generated source (set_node_full)."""
+    'state' (thermal_elem_state), a generated source (set_node_full) or
+    ('setstate', a generated source) (set_node_state)."""
+    if isinstance(key, tuple):
+        return key[0]
     return key if key in ("thermal", "state") else "set"
+
+
+def _text(key):
+    """The generated source a case key runs, or None."""
+    if isinstance(key, tuple):
+        return key[1]
+    return None if key in ("thermal", "state") else key
 
 
 def _runs(variant, key, kinds):
@@ -384,6 +374,33 @@ def set_cases(dev):
     return out
 
 
+def set_state_cases(dev, dtype):
+    """[(label, ('setstate', generated source), C arguments, outputs,
+    wrapper call)]: set_node_state on phase 3h's 2D p1 cases at both its
+    shapes (1024^2, 1000x777)."""
+    out = []
+    for (name, (mesh, _b, box, _al, _dt)), dims in (
+            (c, dims) for c in cs.STATE_KERNEL_CASES.items()
+            for dims in cs.STATE_SHAPES["p1"]):
+        if mesh != "p1":
+            continue
+        gen = torch.Generator(device=dev).manual_seed(1357)
+        tab, q_off = cs.quad_tables(*dims, dev, dtype, *box)
+        form, sc, stage = cs.state_case(name, math.fsum(tab.wts) ** 0.5)
+        geo = ((0.0, 0.0), tuple(b / n for b, n in zip(box, dims)), q_off)
+        u, _ = cs.set_inputs(len(form.variables), dims, QUAD_P1, dev, dtype,
+                             gen, None)
+        args = (form, u, sc, tab, geo, stage)
+        a, res, _jac, keep = fs._node_args(form, u, None, sc, tab, geo, (),
+                                           stage, True)
+        label = f"set_node_state {name} {dims[0]}x{dims[1]}"
+        BOUNDS[label, dtype] = cs.bound(*cs.state_work(
+            dims, dtype, form, u, sc, tab, QUAD_P1, stage, True), dtype)
+        out.append((label, ("setstate", form.source), (a, keep, u, tab),
+                    (res,), lambda x=args: fs.set_node_state(*x)))
+    return out
+
+
 def matmul_yardstick(dev):
     """The cuBLAS time (torch.matmul, f64, CUDA events, median of 3
     batches of 10) of the contraction alone at phase 3c's and 3d's
@@ -440,17 +457,36 @@ def batched(call, reps=20, n=5):
 def main():
     p = argparse.ArgumentParser(description=__doc__.splitlines()[0])
     p.add_argument("--csrc", default=CSRC)
-    p.add_argument("--design", default="current", choices=list(VARIANTS))
+    p.add_argument("--kinds", help="the kernels to time, of "
+                   "thermal,state,set,setstate (default: those the named "
+                   "variants cut; all where none is named)")
     p.add_argument("--out", default=os.path.join(REPO, "tree_copies",
                                                  "ablate"))
+    p.add_argument("--ptx", action="store_true",
+                   help="only report which kernels of phase 3h's 2D p1 "
+                   "sources evaluate a sin or a cos (engine_ablate.ptx_trig)")
     p.add_argument("variants", nargs="*")
     opts = p.parse_args()
-    table = VARIANTS[opts.design]
-    names = ["base"] + [v for v in (opts.variants or table) if v != "base"]
-    kinds = {v.split("_")[0] for v in names if v != "base"} or {
-        "thermal", "state", "set"}
+    if opts.ptx:
+        dev = torch.device("cuda", 0)
+        texts = sorted({c[1][1] for c in set_state_cases(dev,
+                                                          torch.float64)})
+        for (i, kernel, name), hit in engine_ablate.ptx_trig(
+                texts, opts.csrc, os.path.join(opts.out, "ptx")).items():
+            print(json.dumps({"source": i, "kernel": kernel, "entry": name,
+                              "sin_cos": hit}), flush=True)
+        return
     own = os.path.abspath(opts.csrc) == CSRC
-    out_dir = os.path.join(opts.out, opts.design)
+    # all variants by default; `base` alone with --kinds or another tree
+    default = () if opts.kinds or not own else VARIANTS
+    names = ["base"] + [v for v in (opts.variants or default)
+                        if v != "base"]
+    if not own and names != ["base"]:
+        raise SystemExit("another tree's csrc/ is timed with `base` only")
+    kinds = set(opts.kinds.split(",")) if opts.kinds else {
+        v.split("_")[0] for v in names if v != "base"} or {
+        "thermal", "state", "set"}
+    out_dir = os.path.join(opts.out, "current" if own else "other")
     os.makedirs(out_dir, exist_ok=True)
     print(cs.nvidia_smi(), flush=True)
     dev = torch.device("cuda", 0)
@@ -465,26 +501,30 @@ def main():
             todo += [(dtype, *c) for c in state_cases(dev, dtype)]
     if "set" in kinds:
         todo += [(torch.float64, *c, None) for c in set_cases(dev)]
+    if "setstate" in kinds:
+        for dtype in (torch.float64, torch.float32):
+            todo += [(dtype, *c) for c in set_state_cases(dev, dtype)]
     nvcc = _build._nvcc()
-    texts = sorted({key for _d, _l, key, _a, _o, _w in todo
-                    if _kind(key) == "set"})
+    keys = {key for _d, _l, key, _a, _o, _w in todo}
+    texts = sorted({_text(k) for k in keys} - {None})
     jobs = {}
     for name in names:
-        d = patched(opts.csrc, out_dir, name, table[name])
+        d = patched(opts.csrc, out_dir, name, VARIANTS[name])
         srcs = {"thermal": os.path.join(d, THERMAL)}
         for i, text in enumerate(texts):
             srcs[text] = os.path.join(d, f"gen{i}.cu")
             open(srcs[text], "w").write(text)
         for key, src in srcs.items():
             if not any(_runs(name, k, kinds) for k in
-                       (("thermal", "state") if key == "thermal" else (key,))):
+                       (("thermal", "state") if key == "thermal" else
+                        [k for k in keys if _text(k) == key])):
                 continue
             lib = src[:-3] + ".so"
             cmd = [nvcc, *_build.NVCC_FLAGS, "-I", d, "-o", lib, src]
             jobs[name, key] = (lib, subprocess.Popen(
                 cmd, stdout=subprocess.PIPE, stderr=subprocess.STDOUT,
                 text=True))
-    if own and "state" in kinds:
+    if own and ("state" in kinds or "setstate" in kinds):
         _build.load_library()
     libs = {}
     with open(os.path.join(out_dir, "ptxas.txt"), "w") as log:
@@ -512,7 +552,10 @@ def main():
                 fnc.argtypes = _build._SIGNATURES[entry]
                 cargs = args + (stream,)
             else:
-                fnc = libs[name, key].set_node_full_f64
+                fnc = getattr(libs[name, _text(key)],
+                              f"set_node_state_{suffix}"
+                              if _kind(key) == "setstate"
+                              else "set_node_full_f64")
                 fnc.argtypes = [ctypes.c_void_p, ctypes.c_void_p]
                 cargs = (ctypes.addressof(args[0]), stream)
             fnc.restype = ctypes.c_int
@@ -531,12 +574,15 @@ def main():
                        max(float(b.abs().max()), 1e-300)
                        for o, b in zip(got, base))
             rec = {"case": label, "variant": name, "rel_diff_from_base": diff}
-            if key == "state":
+            if _kind(key) in ("state", "setstate"):
                 rec.update(dtype=suffix, ms=batched(call),
                            single_ms=cs.cuda_ms(call))
                 if name == "base" and own:
                     rec["wrapper_ms"] = batched(wrapper)
                     rec["wrapper_single_ms"] = cs.cuda_ms(wrapper)
+                if name == "base" and (label, dtype) in BOUNDS:
+                    rec.update(BOUNDS[label, dtype])
+                    rec["share"] = rec["bound_ms"] / rec["ms"]
             else:
                 rec["ms"] = batched(call, 10, 3)
             print(json.dumps(rec), flush=True)

@@ -7,26 +7,21 @@ its C entry point on the cases of chip_smoke.py's phases 3, 3b, 3d and
 `--state-shape`; ns_node_full also at quadrature 8, Q = 25, on
 1000x243).
 
-    python tools/node_ablate.py [--csrc DIR] [--design NAME] [--out DIR]
+    python tools/node_ablate.py [--csrc DIR] [--kinds K,...] [--out DIR]
                                 [--state-shape N0,N1] [VARIANT ...]
 
-`--csrc` (default: this tree's) is the csrc/ directory to patch, such as
-that of an unpacked `git archive` of an earlier commit; `--design` names
-the variant table that matches its kernels: `tile` (this tree's: node
-tiles whose elements compute their quadrature once) or `node` (the
-designs they replaced: a thread per node recomputing its four elements
-in thermal_node_state and in thermal_node_full's residual, beside
-thermal_node_full's Jacobian role of the node's element; a residual
-role of a thread per node beside a Jacobian role of a thread per
-(element, column variable) in ns_node_full). The C interfaces of both
-designs are the same, so this tree's argument code (`_launch.py`,
-`fused_ns._ns_node_args`) fills them. Variants (default: all of the
-design's) are listed in VARIANTS; `base` is the kernel as it is, timed
-on the kernels that the chosen variants cut (on all where only `base`
-is named). Each
-variant builds into DIR/<design>/<variant> (default tree_copies/ablate,
-listed in .gitignore) with the flags of ops/_build.py, all nvcc at once;
-ptxas's report goes to DIR/<design>/ptxas.txt.
+`--csrc` (default: this tree's) is the csrc/ directory to build, such as
+that of an unpacked `git archive` of an earlier commit; another tree's
+kernels are timed as they are (`base` only: the patches match this
+tree's sources; `--kinds` chooses its kernels), and since the C
+interfaces are the same, this tree's argument code (`_launch.py`,
+`fused_ns._ns_node_args`) fills them. Variants (default: all, or `base`
+alone with `--kinds`) are listed in VARIANTS; `base` is the kernel as it
+is, timed on the kernels that the chosen variants cut (on all where only
+`base` is named). Each variant builds into DIR/<tree>/<variant> (default
+tree_copies/ablate, listed in .gitignore; <tree> is `current`, or
+`other` for another tree's csrc/) with the flags of ops/_build.py, all
+nvcc at once; ptxas's report goes to DIR/<tree>/ptxas.txt.
 
 Prints one JSON line per (case, variant): `ms`, the median of 5 batches
 of 20 back-to-back launches of the C entry point (CUDA events);
@@ -62,6 +57,7 @@ from mrhyde_tpu_torch.ops._launch import (coeff_args, stage_args,  # noqa
                                           velocity_args)
 
 THERMAL, NS = "fused_p1_thermal.cu", "fused_p1_ns.cu"
+WALK = "node_walk.cuh"
 CSRC = os.path.join(REPO, "mrhyde_tpu_torch", "ops", "csrc")
 _NEVER = "T(1.2345e30)"
 # ns_node_full at quadrature 8 (phase 3i's case)
@@ -71,179 +67,82 @@ NS_Q25 = (8, (1000, 243))
 _COPY = ("#pragma unroll\n    for (int o = 0; o < kOuts; ++o)\n"
          "      out[o] = o < kVars ? u[o] : g[(o - kVars) / 2]"
          "[(o - kVars) % 2];\n    if (Q < 0) ")
-# design -> variant -> [(file, text of the file, its replacement)]
+# variant -> [(file, text of the file, its replacement)]
 VARIANTS = {
-    "node": {
-        "base": [],
-        # thermal_node_state: the node patch's loads and the store only
-        "state_loads_stores": [(
-            THERMAL, "    // node (i, j) is corner c of element (a, b)\n",
-            "    if (Q > 0) break;\n")],
-        # one element per node instead of four
-        "state_one_element": [(
-            THERMAL, "  for (int c = 0; c < 4; ++c) {\n"
-            "    // node (i, j) is corner c of element (a, b)",
-            "  for (int c = 0; c < 1; ++c) {\n"
-            "    // node (i, j) is corner c of element (a, b)")],
-        # ns_node_full: the Jacobian role's dual density a copy of its
-        # inputs
-        "ns_no_density": [(
-            NS, "    ns_density<TR, 2, D>(u, ud, g, coef_at<T>(a, 0, e, q),",
-            _COPY + "ns_density<TR, 2, D>(u, ud, g, coef_at<T>(a, 0, e, q),")],
-        # no contraction: the density's tangents summed into the block
-        "ns_no_contract": [(
-            NS, "#pragma unroll\n    for (int cp = 0; cp < 4; ++cp) {\n"
-            "      const T pcp = phi[cp * Q + q];",
-            "#pragma unroll\n    for (int o = 0; o < kOuts; ++o)\n"
-            "      J[o][0] += out[o].d[0] + out[o].d[1] + out[o].d[2];\n"
-            "#pragma unroll\n    for (int cp = 0; cp < 0; ++cp) {\n"
-            "      const T pcp = phi[cp * Q + q];")],
-        # no residual role: its blocks return at once
-        "ns_no_residual": [(
-            NS, "  if ((int)blockIdx.x < res_blocks) {\n",
-            "  if ((int)blockIdx.x < res_blocks) {\n    if (a.Q > 0) return;"
-            "\n")],
-        # no Jacobian stores
-        "ns_no_jac_store": [(
-            NS, "      if (pos >= 0) jac[pos * E + e] = J[r][cp];",
-            f"      if (pos >= 0 && J[r][cp] == {_NEVER})\n"
-            "        jac[pos * E + e] = J[r][cp];")],
-        # thermal_node_full (a thread per node): the node patch, the (E, Q)
-        # reads of both roles and the stores only, no qp arithmetic
-        "full_loads_stores": [
-            (THERMAL, "    for (int q = 0; q < Q; ++q) {\n      T g0, g1;\n"
-             "      qp_grad(grad, Q, q, uc, g0, g1);\n      const T k = "
-             "K[e * Q + q];\n",
-             "    for (int q = 0; q < Q; ++q) {\n      if (Q > 0) {\n"
-             "        r += S[e * Q + q] + K[e * Q + q] + uc[0];\n"
-             "        if constexpr (ADVECT)\n          r += vel.at(0, e * Q +"
-             " q) + vel.at(1, e * Q + q);\n        continue;\n      }\n"
-             "      T g0, g1;\n      qp_grad(grad, Q, q, uc, g0, g1);\n"
-             "      const T k = K[e * Q + q];\n"),
-            (THERMAL, "  for (int q = 0; q < Q; ++q) {\n    T g0, g1;\n"
-             "    qp_grad(grad, Q, q, uc, g0, g1);\n    const T kq = "
-             "K[e * Q + q], dkq = dK[e * Q + q], dsq = dS[e * Q + q];\n",
-             "  for (int q = 0; q < Q; ++q) {\n    if (Q > 0) {\n"
-             "      J[0] += dS[e * Q + q] + dK[e * Q + q] + K[e * Q + q] + "
-             "uc[0];\n      if constexpr (TRANSIENT)\n        J[1] += "
-             "mass_is_scalar ? mass0 : mass[e * Q + q];\n"
-             "      if constexpr (ADVECT)\n        J[2] += vel.at(0, e * Q +"
-             " q) + vel.at(1, e * Q + q);\n      continue;\n    }\n"
-             "    T g0, g1;\n    qp_grad(grad, Q, q, uc, g0, g1);\n"
-             "    const T kq = K[e * Q + q], dkq = dK[e * Q + q], dsq = "
-             "dS[e * Q + q];\n")],
-        # no table reads: each entry of phi and grad the qp's index plus a
-        # constant of (c, d), each weight its index plus 1 (one add per
-        # entry and qp instead of a read)
-        "full_no_tables": [
-            (THERMAL, "    g0 += grad[(c * Q + q) * 2 + 0] * uc[c];\n"
-             "    g1 += grad[(c * Q + q) * 2 + 1] * uc[c];",
-             "    g0 += (T(q) + T(0.5 * c)) * uc[c];\n"
-             "    g1 += (T(q) + T(0.5 * c + 0.25)) * uc[c];"),
-            (THERMAL, "      r += wts[q] * (phi[c * Q + q] * sq +\n"
-             "                     grad[(c * Q + q) * 2 + 0] * (k * g0) +\n"
-             "                     grad[(c * Q + q) * 2 + 1] * (k * g1));",
-             "      r += T(q + 1) * ((T(q) + T(0.25 * c)) * sq +\n"
-             "                       (T(q) + T(0.5 * c)) * (k * g0) +\n"
-             "                       (T(q) + T(0.5 * c + 0.25)) * (k * g1));"),
-            (THERMAL, "    const T w = wts[q];\n#pragma unroll\n    for (int c"
-             " = 0; c < 4; ++c) {\n      const T pc = phi[c * Q + q];\n"
-             "      const T gc0 = grad[(c * Q + q) * 2 + 0];\n"
-             "      const T gc1 = grad[(c * Q + q) * 2 + 1];",
-             "    const T w = T(q + 1);\n#pragma unroll\n    for (int c = 0;"
-             " c < 4; ++c) {\n      const T pc = T(q) + T(0.25 * c);\n"
-             "      const T gc0 = T(q) + T(0.5 * c);\n"
-             "      const T gc1 = T(q) + T(0.5 * c + 0.25);"),
-            (THERMAL, "phi[cp * Q + q]", "(T(q) + T(0.25 * cp))"),
-            (THERMAL, "grad[(cp * Q + q) * 2 + 0]", "(T(q) + T(0.5 * cp))"),
-            (THERMAL, "grad[(cp * Q + q) * 2 + 1]",
-             "(T(q) + T(0.5 * cp + 0.25))")],
-        # one element per node instead of four (the residual role)
-        "full_one_element": [(
-            THERMAL, "  for (int c = 0; c < 4; ++c) {\n    const int a = i - "
-            "corner_i(c), b = j - corner_j(c);",
-            "  for (int c = 0; c < 1; ++c) {\n    const int a = i - "
-            "corner_i(c), b = j - corner_j(c);")],
-        # no Jacobian role
-        "full_no_jacobian": [(
-            THERMAL, "  if (i >= N0 || j >= N1) return;\n",
-            "  if (Q > 0) return;\n")],
-    },
-    "tile": {
-        "base": [],
-        # thermal_node_state: the tables, the patch and the stores only (no
-        # element's quadrature: its rows are zeros)
-        "state_loads_stores": [(
-            THERMAL, "      if (a >= 0 && a < N0 && b >= 0 && b < N1) {\n"
-            "        const T* pe = patch",
-            "      if (N0 < 0 && a >= 0 && a < N0 && b >= 0 && b < N1) {\n"
-            "        const T* pe = patch")],
-        # the runtime-Q instance at Q = 4 (its loop rolled, the (E, Q)
-        # coefficients in 8- or 4-byte loads at each qp)
-        "state_no_q4": [(THERMAL, "  auto launch = Q == 4 ?",
-                         "  auto launch = Q == -4 ?")],
-        # blocks per SM for the registers: 4 everywhere (with the velocity
-        # lane too), 2 everywhere
-        "state_min4": [(THERMAL, "return ADVECT ? 2 : 4;",
-                        "return ADVECT ? 4 : 4;")],
-        "state_min2": [(THERMAL, "return ADVECT ? 2 : 4;",
-                        "return ADVECT ? 2 : 2;")],
-        # thermal_node_full (the walk's residual, then the Jacobian
-        # sweep): the sweep's reads and stores only, no qp arithmetic
-        "full_loads_stores": [(
-            THERMAL, "      T aj[NKJ], ar[NKR];\n      qp_scalars<T, 2, 4, "
-            "TRANSIENT, ADVECT>(in, uc, grad, Q, q, alpha_u,",
-            "      if (Q > 0) {\n        J[0] += in.ds + in.k + in.dk + in.m +"
-            " in.b[0] + in.b[1] + uc[0];\n        continue;\n      }\n"
-            "      T aj[NKJ], ar[NKR];\n      qp_scalars<T, 2, 4, TRANSIENT, "
-            "ADVECT>(in, uc, grad, Q, q, alpha_u,")],
-        # no Jacobian sweep (the walk's residual alone)
-        "full_no_jacobian": [(THERMAL, "  for (; e < e1; e += kThreads) {",
-                              "  for (; Q < 0 && e < e1; e += kThreads) {")],
-        # the Jacobian rows written with streaming stores
-        "full_stream": [(THERMAL, "    for (int k = 0; k < 16; ++k) jac[k * E "
-                         "+ e] = J[k];", "    for (int k = 0; k < 16; ++k) "
-                         "__stcs(&jac[k * E + e], J[k]);")],
-        # tiles of 8 x 64 elements (7 x 63 nodes) instead of 16 x 32
-        # (thermal_node_state takes the same tiles in this build, and is
-        # not timed)
-        "full_tile8x64": [(THERMAL, "constexpr int kEi = 16, kEj = 32;",
-                           "constexpr int kEi = 8, kEj = 64;")],
-        # blocks per SM for the registers: 1 (255 registers) or 3 (85)
-        "full_min1": [(THERMAL, "constexpr int kFullMinBlocks = 2;",
-                       "constexpr int kFullMinBlocks = 1;")],
-        "full_min3": [(THERMAL, "constexpr int kFullMinBlocks = 2;",
-                       "constexpr int kFullMinBlocks = 3;")],
-        # ns_node_full: no halo densities (the first row and column of a
-        # tile's nodes miss them)
-        "ns_no_halo": [(NS, "for (int k = tid; k < kHalo * Q; k += kThreads)",
-                        "for (int k = tid; k < 0; k += kThreads)")],
-        # no residual rows from the w = 0 pass
-        "ns_no_rows": [(NS, "column_block<T, TR, true>(a, 0,",
-                        "column_block<T, TR, false>(a, 0,")],
-        # the Jacobian passes' dual density a copy of its inputs
-        "ns_no_density": [(
-            NS, "    ns_density<TR, 2, D, T, false, true>(\n",
-            _COPY + "ns_density<TR, 2, D, T, false, true>(\n")],
-        # no contraction: the density's tangents summed into the block
-        "ns_no_contract": [(
-            NS, "#pragma unroll\n    for (int cp = 0; cp < 4; ++cp) {\n"
-            "      const T pcp = phi[cp * Q + q];",
-            "#pragma unroll\n    for (int o = 0; o < kOuts; ++o)\n"
-            "      J[o][0] += out[o].d[0] + out[o].d[1] + out[o].d[2];\n"
-            "#pragma unroll\n    for (int cp = 0; cp < 0; ++cp) {\n"
-            "      const T pcp = phi[cp * Q + q];")],
-        # no Jacobian stores
-        "ns_no_jac_store": [(
-            NS, "      if (pos >= 0) jac[pos * E + e] = J[r][cp];",
-            f"      if (pos >= 0 && J[r][cp] == {_NEVER})\n"
-            "        jac[pos * E + e] = J[r][cp];")],
-        # ns_density's quotients as written (no reciprocals)
-        "ns_no_recip": [(NS, "T, false, true>(", "T, false, false>(")],
-        # f64 at 3 blocks per SM (170 registers)
-        "ns_f64_blocks3": [(NS, "return sizeof(T) == 8 ? 1 :",
-                            "return sizeof(T) == 8 ? 3 :")],
-    },
+    "base": [],
+    # thermal_node_state: the tables, the patch and the stores only (no
+    # element's quadrature: its rows are zeros)
+    "state_loads_stores": [(
+        WALK, "      if (a >= 0 && a < N0 && b >= 0 && b < N1) {\n"
+        "        T uc[4 * NV];",
+        "      if (N0 < 0 && a >= 0 && a < N0 && b >= 0 && b < N1) {\n"
+        "        T uc[4 * NV];")],
+    # the runtime-Q instance at Q = 4 (its loop rolled, the (E, Q)
+    # coefficients in 8- or 4-byte loads at each qp)
+    "state_no_q4": [(THERMAL, "  auto launch = Q == 4 ?",
+                     "  auto launch = Q == -4 ?")],
+    # blocks per SM for the registers: 4 everywhere (with the velocity
+    # lane too), 2 everywhere
+    "state_min4": [(THERMAL, "return ADVECT ? 2 : 4;",
+                    "return ADVECT ? 4 : 4;")],
+    "state_min2": [(THERMAL, "return ADVECT ? 2 : 4;",
+                    "return ADVECT ? 2 : 2;")],
+    # thermal_node_full (the walk's residual, then the Jacobian
+    # sweep): the sweep's reads and stores only, no qp arithmetic
+    "full_loads_stores": [(
+        THERMAL, "      T aj[NKJ], ar[NKR];\n      qp_scalars<T, 2, 4, "
+        "TRANSIENT, ADVECT>(in, uc, grad, Q, q, alpha_u,",
+        "      if (Q > 0) {\n        J[0] += in.ds + in.k + in.dk + in.m +"
+        " in.b[0] + in.b[1] + uc[0];\n        continue;\n      }\n"
+        "      T aj[NKJ], ar[NKR];\n      qp_scalars<T, 2, 4, TRANSIENT, "
+        "ADVECT>(in, uc, grad, Q, q, alpha_u,")],
+    # no Jacobian sweep (the walk's residual alone)
+    "full_no_jacobian": [(THERMAL, "  for (; e < e1; e += kThreads) {",
+                          "  for (; Q < 0 && e < e1; e += kThreads) {")],
+    # the Jacobian rows written with streaming stores
+    "full_stream": [(THERMAL, "    for (int k = 0; k < 16; ++k) jac[k * E "
+                     "+ e] = J[k];", "    for (int k = 0; k < 16; ++k) "
+                     "__stcs(&jac[k * E + e], J[k]);")],
+    # tiles of 8 x 64 elements (7 x 63 nodes) instead of 16 x 32
+    # (thermal_node_state takes the same tiles in this build, and is
+    # not timed)
+    "full_tile8x64": [(THERMAL, "using NodeTile = WalkTile<16, 32, "
+                       "kThreads>;", "using NodeTile = WalkTile<8, 64, "
+                       "kThreads>;")],
+    # blocks per SM for the registers: 1 (255 registers) or 3 (85)
+    "full_min1": [(THERMAL, "constexpr int kFullMinBlocks = 2;",
+                   "constexpr int kFullMinBlocks = 1;")],
+    "full_min3": [(THERMAL, "constexpr int kFullMinBlocks = 2;",
+                   "constexpr int kFullMinBlocks = 3;")],
+    # ns_node_full: no halo densities (the first row and column of a
+    # tile's nodes miss them)
+    "ns_no_halo": [(NS, "for (int k = tid; k < kHalo * Q; k += kThreads)",
+                    "for (int k = tid; k < 0; k += kThreads)")],
+    # no residual rows from the w = 0 pass
+    "ns_no_rows": [(NS, "column_block<T, TR, true>(a, 0,",
+                    "column_block<T, TR, false>(a, 0,")],
+    # the Jacobian passes' dual density a copy of its inputs
+    "ns_no_density": [(
+        NS, "    ns_density<TR, 2, D, T, false, true>(\n",
+        _COPY + "ns_density<TR, 2, D, T, false, true>(\n")],
+    # no contraction: the density's tangents summed into the block
+    "ns_no_contract": [(
+        NS, "#pragma unroll\n    for (int cp = 0; cp < 4; ++cp) {\n"
+        "      const T pcp = phi[cp * Q + q];",
+        "#pragma unroll\n    for (int o = 0; o < kOuts; ++o)\n"
+        "      J[o][0] += out[o].d[0] + out[o].d[1] + out[o].d[2];\n"
+        "#pragma unroll\n    for (int cp = 0; cp < 0; ++cp) {\n"
+        "      const T pcp = phi[cp * Q + q];")],
+    # no Jacobian stores
+    "ns_no_jac_store": [(
+        NS, "      if (pos >= 0) jac[pos * E + e] = J[r][cp];",
+        f"      if (pos >= 0 && J[r][cp] == {_NEVER})\n"
+        "        jac[pos * E + e] = J[r][cp];")],
+    # ns_density's quotients as written (no reciprocals)
+    "ns_no_recip": [(NS, "T, false, true>(", "T, false, false>(")],
+    # f64 at 3 blocks per SM (170 registers)
+    "ns_f64_blocks3": [(NS, "return sizeof(T) == 8 ? 1 :",
+                        "return sizeof(T) == 8 ? 3 :")],
 }
 
 
@@ -388,7 +287,9 @@ def _runs(variant, kind, kinds):
 def main():
     p = argparse.ArgumentParser(description=__doc__.splitlines()[0])
     p.add_argument("--csrc", default=CSRC)
-    p.add_argument("--design", default="tile", choices=list(VARIANTS))
+    p.add_argument("--kinds", help="the kernels to time, of "
+                   "state,full,ns (default: those the named variants "
+                   "cut; all where none is named)")
     p.add_argument("--out", default=os.path.join(REPO, "tree_copies",
                                                  "ablate"))
     p.add_argument("--state-shape", default="1024,1024",
@@ -396,19 +297,24 @@ def main():
     p.add_argument("variants", nargs="*")
     opts = p.parse_args()
     shape = tuple(int(n) for n in opts.state_shape.split(","))
-    table = VARIANTS[opts.design]
-    names = ["base"] + [v for v in (opts.variants or table) if v != "base"]
-    kinds = {v.split("_")[0] for v in names if v != "base"} or {
-        "state", "full", "ns"}
     own = os.path.abspath(opts.csrc) == CSRC
-    out_dir = os.path.join(opts.out, opts.design)
+    # all variants by default; `base` alone with --kinds or another tree
+    default = () if opts.kinds or not own else VARIANTS
+    names = ["base"] + [v for v in (opts.variants or default)
+                        if v != "base"]
+    if not own and names != ["base"]:
+        raise SystemExit("another tree's csrc/ is timed with `base` only")
+    kinds = set(opts.kinds.split(",")) if opts.kinds else {
+        v.split("_")[0] for v in names if v != "base"} or {
+        "state", "full", "ns"}
+    out_dir = os.path.join(opts.out, "current" if own else "other")
     os.makedirs(out_dir, exist_ok=True)
     print(cs.nvidia_smi(), flush=True)
     dev = torch.device("cuda", 0)
     nvcc = _build._nvcc()
     jobs = {}
     for name in names:
-        d = patched(opts.csrc, out_dir, name, table[name])
+        d = patched(opts.csrc, out_dir, name, VARIANTS[name])
         for kinds_of, src in ((("state", "full"), THERMAL), (("ns",), NS)):
             if not any(_runs(name, k, kinds) for k in kinds_of):
                 continue
