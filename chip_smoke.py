@@ -8,7 +8,8 @@ module sets (NS + thermal with the Boussinesq term, NS + cdr, thermal +
 cdr, coefficients that read the state; 2D p1 quads, 3D hex, 2D p2
 quads; affine sets through mode "state"), with Neumann, Flux and
 weak-Dirichlet boundary terms and at quadratures up to 6 (hex) and 8
-(2D p1), steady and transient,
+(2D p1), steady and transient, and its solver layer (multigrid, AMG,
+Chebyshev, element-Schwarz, BiCGStab),
 through
 `Problem(cfg).run()` on the card, after building
 its CUDA kernels from the sources in this checkout (one nvcc per source,
@@ -190,6 +191,26 @@ each):
  52-54 QUADRATURE_DECKS   the hex channel 20x5x5 and mixed convection on
              it at quadrature 6, the 128x32 channel with viscosity 1 +
              0.1 ux^2 at quadrature 8: the JAX package's L2 (rtol 1e-6)
+ 3j precond  the solver layer's preconditioners (Jacobi, Chebyshev,
+             element-Schwarz, SIMPLE with the pressure dofs masked,
+             StructuredMG's and AggregationAMG's V-cycles) on the card
+             against the host, from the same Jacobian (assembled on the
+             card at a seeded state, copied to the host) and the same
+             seeded v: kappa = 1 + e*e at 64^2 (thermal_node_full's SoA
+             rows) and the channel start-up at 128x32 (ns_node_full's,
+             at a BWE stage), f64, max |card - host| <= 1e-12 max |host|;
+             each variant's build and apply ms, the hierarchies' set-up s
+ 55-61 SOLVER_DECKS   decks of the earlier phases with the reference's
+             solver keys: thermal + cdr 512^2 (deck 48) and cdr 256^2
+             with the ILUT smoother (StructuredMG), cdr hex 32^3 with it
+             (StructuredMG in 3D), cdr p2 128^2 with it (StructuredMG
+             refuses p2: AggregationAMG), kappa = 1 + e*e 256^2 (deck 6)
+             with CHEBYSHEV inside CG, the channel start-up 128x32 (deck
+             13) with SCHWARZ, cdr 256^2 with Belos BiCGStab: the JAX
+             package's L2 for the same deck (rtol 1e-6); the multigrid
+             hierarchy is built in set-up (hierarchy_s), and the phase
+             `solvers` lists each deck beside the Jacobi deck of the
+             same problem
 
 The reference L2 values are the JAX package's, computed in f64 on the
 CPU, or the reference's golds. Each deck runs one assembly before its
@@ -212,8 +233,11 @@ boundary deck launches the kernel of its deck without boundary terms
 thermal_elem_state; the boundary terms are the general path's), each
 affine set deck its state kernel once per fused res_and_jac call and no
 "full" kernel (48 and 49 set_node_state, 50 and 51 set_elem_state; their
-coord part is plain torch, once per stage), and 52-54 ns_elem_full,
-set_elem_full and set_node_full at Q = 64, 64 and 25. The
+coord part is plain torch, once per stage), 52-54 ns_elem_full,
+set_elem_full and set_node_full at Q = 64, 64 and 25, and each solver
+deck the kernel of the deck it comes from (55 set_node_state, 56 and 61
+thermal_node_state, 57 and 58 thermal_elem_state, 59 thermal_node_full,
+60 ns_node_full). The
 `kernels` line
 reports the sums over the decks (ten kernels: the eight of the earlier
 phases and set_node_state, set_elem_state), each kernel's error, times
@@ -1706,6 +1730,162 @@ QUADRATURE_DECKS = {
 }
 
 
+def with_solver(cfg, **keys):
+    """The deck with more Solver keys."""
+    cfg["Solver"].update(keys)
+    return cfg
+
+
+def smoother(kind):
+    """The reference's Ifpack2 smoother key, which Problem maps onto a
+    preconditioner (ILU* -> multigrid, CHEBYSHEV, SCHWARZ)."""
+    return {"Preconditioner Settings": {"smoother: type": kind}}
+
+
+# the solver decks, as BOUNDARY_DECKS plus the name of the deck of an
+# earlier phase that runs the same problem with GMRES + Jacobi (CG for
+# nonlinear_nx256): decks with a preconditioner or Krylov key of the
+# reference's, each held to the JAX package's f64 CPU L2 for the same
+# deck (tools/jax_references.py)
+SOLVER_DECKS = {
+    # StructuredMG, 2 variables, the Neumann / Flux blocks folded
+    "thermal_cdr_affine_mg_nx512": (
+        lambda n: with_solver(thermal_cdr_affine_deck(n),
+                              **smoother("ILUT")),
+        512, 1e-6,
+        {0.0: {"e": 6.274905950879487e-06, "c": 6.278257538157226e-06}},
+        "set_node_state", "thermal_cdr_affine_nx512"),
+    # StructuredMG on a nonsymmetric operator
+    "cdr_mg_nx256": (
+        lambda n: with_solver(cdr_deck(n), **smoother("ILUT")),
+        256, 1e-6, {0.0: {"c": 2.4843363967623844e-05}}, "state",
+        "cdr_nx256"),
+    # StructuredMG in 3D
+    "cdr_hex_mg_nx32": (
+        lambda n: with_solver(cdr_deck(n, CDR3_SOURCE,
+                                       vel=("2.0", "1.0", "0.5"),
+                                       mesh="hex"), **smoother("ILUT")),
+        32, 1e-6, {0.0: {"c": 0.0011298217972563996}}, "elem_state",
+        "cdr_hex_nx32"),
+    # StructuredMG refuses p2: AggregationAMG
+    "cdr_p2_amg_nx128": (
+        lambda n: with_solver(cdr_deck(n, mesh="p2"), **smoother("ILUT")),
+        128, 1e-6, {0.0: {"c": 4.023602971614953e-07}}, "elem_state",
+        "cdr_p2_nx128"),
+    # Chebyshev inside CG
+    "nonlinear_chebyshev_nx256": (
+        lambda n: with_solver(nonlinear_deck(n), **smoother("CHEBYSHEV")),
+        256, 1e-6, {0.0: {"e": 2.5099635930037346e-05}}, "full",
+        "nonlinear_nx256"),
+    # element-Schwarz on the nd = 12 saddle blocks
+    "ns_startup_schwarz_nx128": (
+        lambda n: with_solver(ns_startup_deck(n), **smoother("SCHWARZ")),
+        128, 1e-6,
+        {0.02: {"ux": 0.16743894056347847, "pr": 0.0018524455771878642,
+                "uy": 2.161978007459451e-05}}, "ns_full",
+        "ns_startup_dirk22_nx128"),
+    # BiCGStab with Jacobi
+    "cdr_bicgstab_nx256": (
+        lambda n: with_solver(cdr_deck(n), **{"Belos solver": "BiCGStab"}),
+        256, 1e-6, {0.0: {"c": 2.484336399365614e-05}}, "state",
+        "cdr_nx256"),
+}
+
+# phase precond: the Jacobians whose preconditioners the card and the host
+# evaluate from the same numbers (kappa = 1 + e*e at 64^2: the SoA rows of
+# thermal_node_full; the channel start-up at 128x32: ns_node_full's saddle
+# blocks at a BWE stage of dt 0.01)
+PRECOND_DECKS = {"nonlinear_nx64": lambda: nonlinear_deck(64),
+                 "ns_startup_nx128": lambda: ns_startup_deck(128)}
+PRECOND_RTOL = 1e-12
+
+
+def _jacobian_on(J, device):
+    """The BlockJacobian J with its tensors on `device`: the same numbers
+    (the phase's Jacobians have no boundary groups)."""
+    import dataclasses
+    assert not J.bnd
+
+    def to(t):
+        return None if t is None else t.to(device)
+    return dataclasses.replace(
+        J, vol=to(J.vol), vol_lids=to(J.vol_lids), fixed=to(J.fixed),
+        inc=to(J.inc), _aos_cache=None,
+        vol_soa=None if J.vol_soa is None else [to(r) for r in J.vol_soa])
+
+
+def preconditioners(problem):
+    """{variant: J -> M} of the solver layer on the problem's assembler:
+    the precond.py builders, SIMPLE on a deck with a pressure (its dofs
+    masked), and the V-cycles of StructuredMG and AggregationAMG (each
+    hierarchy built here, once; its seconds in the second value)."""
+    from mrhyde_tpu_torch.solvers import precond
+    from mrhyde_tpu_torch.solvers.amg import AggregationAMG
+    from mrhyde_tpu_torch.solvers.multigrid import StructuredMG
+    asm = problem.assembler
+    out = {"jacobi": precond.jacobi_precond,
+           "chebyshev": precond.chebyshev_precond,
+           "schwarz": precond.element_schwarz_precond}
+    if "pr" in problem.disc.var_names:
+        mask = torch.zeros(problem.n_dof, dtype=torch.bool,
+                           device=asm.device)
+        mask[torch.as_tensor(problem.disc.dofmap.all_dofs("pr"),
+                             device=asm.device)] = True
+        out["simple"] = lambda J: precond.fieldsplit_simple_precond(J, mask)
+    setup = {}
+    for name, cls in (("structured_mg", StructuredMG),
+                      ("amg", AggregationAMG)):
+        t0 = time.perf_counter()
+        out[name] = cls(asm).preconditioner
+        setup[name] = time.perf_counter() - t0
+    return out, setup
+
+
+def phase_precond(device):
+    """Each preconditioner's M(v) on the card against the host's, from
+    the same Jacobian (assembled on the card at a seeded state, copied to
+    the host) and the same seeded v, in f64: max |card - host| <=
+    PRECOND_RTOL max |host|. Records each variant's build (one call) and
+    apply (CUDA-event median of 10) ms on the card, and the hierarchies'
+    host set-up s. Returns {deck: record}."""
+    import numpy as np
+    from mrhyde_tpu_torch.problem import Problem
+    out = {}
+    for name, build in PRECOND_DECKS.items():
+        card = Problem(build(), device=device)
+        host = Problem(build(), device="cpu")
+        rng = np.random.RandomState(7)
+        u = torch.as_tensor(0.3 * rng.randn(card.n_dof), dtype=card.dtype,
+                            device=device)
+        _r, J = card.assembler.res_and_jac(u, assembly_tc(card, u, 0.01))
+        Jh = _jacobian_on(J, "cpu")
+        vh = torch.as_tensor(rng.randn(card.n_dof), dtype=card.dtype)
+        v = vh.to(device)
+        on_card, setup = preconditioners(card)
+        on_host, _ = preconditioners(host)
+        rec = {"phase": "precond", "deck": name, "n_dof": card.n_dof,
+               "nd": J.vol_lids.shape[1], "soa": J.vol is None,
+               "hierarchy_setup_s": setup, "variants": {}}
+        ok = True
+        for variant, make in on_card.items():
+            M, build_ms = timed(lambda: make(J))
+            z = M(v)
+            zh = on_host[variant](Jh)(vh)
+            err, scale = max_err(z.cpu(), zh)
+            good = bool(torch.isfinite(z).all()) and err <= PRECOND_RTOL * scale
+            ok = ok and good
+            rec["variants"][variant] = {
+                "max_abs_err": err, "max_abs_host": scale,
+                "rel_err": err / scale, "build_ms": build_ms,
+                "apply_ms": cuda_ms(lambda: M(v), reps=10), "ok": good}
+        rec["ok"] = ok
+        emit(rec)
+        if not ok:
+            raise SystemExit(f"phase precond failed: {rec}")
+        out[name] = rec
+    return out
+
+
 def _small(cfg, mesh):
     """The deck on 4x2x2 hex or 4x4 p2 quads: where a phase 3g case takes
     its weak form and row classes from."""
@@ -2613,6 +2793,10 @@ def assembly_tc(problem, u, time):
                       float(time), dt)
 
 
+# every deck's record, by its phase name
+RECORDS = {}
+
+
 def run_deck(name, cfg, device, checks, mode, post=None):
     """Runs one deck through Problem(cfg).run() and checks its L2 errors:
     `checks` lists (time, var, reference, rtol). One assembly at the zero
@@ -2636,11 +2820,19 @@ def run_deck(name, cfg, device, checks, mode, post=None):
     deck's."""
     from mrhyde_tpu_torch.ops import fused_p1 as fp
     from mrhyde_tpu_torch.problem import Problem
+    from mrhyde_tpu_torch.solvers.nonlinear import MG_VARIANTS, mg_hierarchy
     torch.cuda.synchronize()
     t0 = time.perf_counter()
     problem = Problem(cfg, device=device)
     asm = problem.assembler
     fused = asm.fused_provider()
+    variant = problem._precond_variant()
+    hier = {"precond_variant": variant}
+    if variant in MG_VARIANTS:
+        # the multigrid hierarchy is set-up: built here, once per assembler
+        th = time.perf_counter()
+        hier["hierarchy"] = type(mg_hierarchy(asm, variant)).__name__
+        hier["hierarchy_s"] = time.perf_counter() - th
     t1 = time.perf_counter()
     u0 = torch.zeros(problem.n_dof, dtype=problem.dtype, device=device)
     asm.res_and_jac(u0, assembly_tc(problem, u0, 0.0))
@@ -2683,12 +2875,14 @@ def run_deck(name, cfg, device, checks, mode, post=None):
           and u.shape == (problem.n_dof,) and bool(torch.isfinite(u).all())
           and u.device.type == torch.device(device).type)
     rec = {"phase": name, "n_dof": problem.n_dof, **extra,
-           "linear_method": problem._linear_method(), "errors": errors,
+           "linear_method": problem._linear_method(), **hier,
+           "errors": errors,
            "recorded_times": len(result.error_history), **result.counts,
            "setup_s": t1 - t0, "warmup_s": t2 - t1, "solve_s": t3 - t2,
            "wall_s": t3 - t0, "assembly_ms": statistics.median(asm_ms),
            "fused_calls": fused_calls, "launches": launches, "ok": ok}
     emit(rec)
+    RECORDS[name] = rec
     if not ok:
         raise SystemExit(f"phase {name} failed: {rec}")
     if mode is None:
@@ -2878,6 +3072,24 @@ def main():
         for name, (build, n, rtol, refs, mode) in {
             **BOUNDARY_DECKS, **AFFINE_SET_DECKS,
             **QUADRATURE_DECKS}.items()]
+    phase_precond(device)
+    solver_decks = [
+        run_deck(name, build(n), device,
+                 [(t, v, g, rtol) for t, ref in refs.items()
+                  for v, g in ref.items()], mode)
+        for name, (build, n, rtol, refs, mode, _jacobi) in
+        SOLVER_DECKS.items()]
+    per_deck += solver_decks
+    # each solver deck beside the deck of an earlier phase that runs the
+    # same problem with Jacobi
+    keys = ("linear_method", "setup_s", "solve_s", "stages", "newton_iters",
+            "linear_iters")
+    emit({"phase": "solvers", "decks": {
+        name: {**{k: RECORDS[name].get(k) for k in (
+            "precond_variant", "hierarchy", "hierarchy_s") + keys},
+            "jacobi_deck": jacobi,
+            "jacobi": {k: RECORDS[jacobi][k] for k in keys}}
+        for name, (*_deck, jacobi) in SOLVER_DECKS.items()}})
     launches = {k: sum(d[k] for d in per_deck) for k in fp.LAUNCHES}
     advect_launches = {k: sum(d[k] for d in advect_decks)
                        for k in fp.LAUNCHES}

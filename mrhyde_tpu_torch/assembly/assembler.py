@@ -111,17 +111,20 @@ class BlockJacobian:
 
     def aos(self):
         """(E, nd, nd) volume blocks, materializing constant/zero rows
-        from SoA if needed (cold paths only: dense)."""
+        from SoA once per Jacobian where needed (the products of varying
+        rows, the preconditioners' element blocks, dense)."""
         if self.vol is not None:
             return self.vol
-        nd = self.vol_lids.shape[1]
-        E = self._n_elem
-        dt = self._soa_dtype()
-        dev = self.vol_lids.device
-        rows = torch.stack([
-            torch.zeros(E, dtype=dt, device=dev) if r is None
-            else torch.broadcast_to(r, (E,)) for r in self.vol_soa])
-        return rows.T.reshape(-1, nd, nd)
+        if self._aos_cache is None:
+            nd = self.vol_lids.shape[1]
+            E = self._n_elem
+            dt = self._soa_dtype()
+            dev = self.vol_lids.device
+            rows = torch.stack([
+                torch.zeros(E, dtype=dt, device=dev) if r is None
+                else torch.broadcast_to(r, (E,)) for r in self.vol_soa])
+            self._aos_cache = rows.T.reshape(-1, nd, nd)
+        return self._aos_cache
 
     def _soa_mv(self, vm):
         """(E, nd) element products sum_j J[e,i,j]*vm[lids[e,j]] from
@@ -154,9 +157,7 @@ class BlockJacobian:
         if self._soa_only:
             if not self.soa_varies and self.vol_lids.shape[1] <= 4:
                 return self._soa_mv(vm)
-            if self._aos_cache is None:
-                self._aos_cache = self.aos()
-            return torch.einsum("eij,ej->ei", self._aos_cache,
+            return torch.einsum("eij,ej->ei", self.aos(),
                                 vm[self.vol_lids])
         return torch.einsum("eij,ej->ei", self.vol, vm[self.vol_lids])
 

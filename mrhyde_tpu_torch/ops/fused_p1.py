@@ -397,10 +397,11 @@ class FusedP1Assembly:
             check_smem("thermal_node_state", lambda _el: state_smem_words(Q),
                        asm.dtype.itemsize, Q)
         elif self.node:
-            # thermal_node_full's: its tables and products (with
-            # advection's, the larger)
+            # thermal_node_full's: its tables and products, of the
+            # instance the module launches (ADVECT or not)
+            advect = bool(self.module.fused_names()["velocity"])
             check_smem("thermal_node_full",
-                       lambda _el: full_smem_words(Q, True),
+                       lambda _el: full_smem_words(Q, advect),
                        asm.dtype.itemsize, Q)
         self.stats = self._stats(True)
         self._coords = None

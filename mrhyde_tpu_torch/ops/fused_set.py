@@ -602,6 +602,7 @@ class FusedSetAssembly:
         self.nd = self.nc * self.nv
         self._probes = {}
         self._affine = {}
+        self._state_checked = False
         self._stage = StageCache()
         self._stage_cache = None
         self._coords = None
@@ -615,7 +616,8 @@ class FusedSetAssembly:
         or None (the general path) where the mesh does not qualify or a
         coefficient has no generated form. A quadrature whose one
         element's qp state exceeds the card's shared memory per block
-        raises ValueError."""
+        raises ValueError (here for mode "full"; for mode "state" at an
+        affine set's first state launch, `_check_state_layout`)."""
         s = asm._structured
         if s is None or not asm.uniform \
                 or any(m.name not in _KINDS for m in asm.modules):
@@ -631,19 +633,13 @@ class FusedSetAssembly:
             return None
         wts = np.asarray(asm.disc.wts[0])
         nv, Q, tr = len(s["plan"]), wts.size, asm.is_transient
-        # both modes' layouts (an affine set takes mode "state")
+        # mode "full"'s layout for every set
         if nc == 4:
             check_smem("set_node_full", lambda el: node_smem_words(
                 nv, tr, Q, el), asm.dtype.itemsize, Q)
-            check_smem("set_node_state",
-                       lambda el: set_state_smem_words(nv, Q),
-                       asm.dtype.itemsize, Q)
         else:
             check_smem("set_elem_full", lambda el: elem_smem_words(
                 dim, nc, nv, tr, Q, el), asm.dtype.itemsize, Q)
-            check_smem("set_elem_state",
-                       lambda el: elem_state_smem_words(dim, nc, Q),
-                       asm.dtype.itemsize, Q)
         scalars = sorted(k for k, v in asm.params.items()
                          if np.ndim(v) == 0)
         try:
@@ -654,6 +650,22 @@ class FusedSetAssembly:
         except codegen.Unsupported:
             return None
         return FusedSetAssembly(asm, form)
+
+    def _check_state_layout(self):
+        """Mode "state"'s layout, checked at the first state launch: only
+        an affine set launches the state kernel (ValueError past the
+        card's shared memory, as `build` for mode "full")."""
+        if self._state_checked:
+            return
+        Q, itemsize = self.tables.Q, self.asm.dtype.itemsize
+        if self.node:
+            check_smem("set_node_state",
+                       lambda el: set_state_smem_words(self.nv, Q),
+                       itemsize, Q)
+        else:
+            check_smem("set_elem_state", lambda el: elem_state_smem_words(
+                len(self.dims), self.nc, Q), itemsize, Q)
+        self._state_checked = True
 
     # ------------------------------------------------------------------
 
@@ -844,6 +856,7 @@ class FusedSetAssembly:
         stage = None if steady else Stage(alpha_u, alpha_t, None)
         geo = (self.origin, self.h_axes, self.q_off)
         if split:
+            self._check_state_layout()
             n_lin = self._classify(sc, alpha_u, alpha_t, steady, "lin")[2]
             self.stats = {"steady": steady, "split": True,
                           "n_res_rows": n_lin, "n_jac_rows": 0,

@@ -15,6 +15,11 @@ package's `solve_cg` calls), with its stopping rule
 
 `pcg_reference` is the JAX package's reference-rule diagonal PCG of the
 fully explicit mass solve.
+
+`gmres_fixed` and `bicgstab_fixed` run a fixed iteration count with no
+data-dependent exit (the JAX package's `lax.scan` loops as Python loops):
+their scalars stay 0-d tensors on the device, so no iteration waits for
+the host.
 """
 
 from __future__ import annotations
@@ -24,7 +29,8 @@ from typing import NamedTuple
 
 import torch
 
-__all__ = ["gmres", "pcg", "pcg_reference", "KrylovInfo"]
+__all__ = ["gmres", "gmres_fixed", "bicgstab_fixed", "pcg",
+           "pcg_reference", "KrylovInfo"]
 
 
 class KrylovInfo(NamedTuple):
@@ -103,6 +109,60 @@ def gmres(matvec, b, *, m=40, tol=1e-8, atol=0.0, max_restarts=5,
         cyc += 1
         steps += k
     return x, KrylovInfo(steps, res, res <= target)
+
+
+def gmres_fixed(matvec, b, *, m=40, precond=None, x0=None):
+    """GMRES(m), one fixed-length cycle: m Arnoldi steps (classical
+    Gram-Schmidt against the whole basis, the rows not yet built being
+    zero), then the minimal-norm least-squares solution of the (m+1, m)
+    Hessenberg system (the SVD one of jnp.linalg.lstsq). No convergence
+    check: use `gmres` for one."""
+    M = precond if precond is not None else _identity
+    x0 = torch.zeros_like(b) if x0 is None else x0
+    r0 = b - matvec(x0)
+    beta = torch.linalg.norm(r0)
+    V = b.new_zeros((m + 1, b.shape[0]))
+    V[0] = r0 / torch.where(beta > 0, beta, 1.0)
+    H = b.new_zeros((m + 1, m))
+    for j in range(m):
+        w = matvec(M(V[j]))
+        hcol = V @ w
+        w = w - hcol @ V
+        hnorm = torch.linalg.norm(w)
+        V[j + 1] = w / torch.where(hnorm > 0, hnorm, 1.0)
+        hcol[j + 1] = hnorm
+        H[:, j] = hcol
+    g = b.new_zeros(m + 1)
+    g[0] = beta
+    y = torch.linalg.pinv(H) @ g
+    return x0 + M(y @ V[:m])
+
+
+def bicgstab_fixed(matvec, b, *, iters=20, precond=None, x0=None):
+    """BiCGStab with a fixed iteration count and right preconditioner."""
+    M = precond if precond is not None else _identity
+    x = torch.zeros_like(b) if x0 is None else x0
+    r = b - matvec(x)
+    rhat = r
+    eps = 1e-30
+    p = torch.zeros_like(b)
+    v = torch.zeros_like(b)
+    rho = alpha = omega = torch.ones((), dtype=b.dtype, device=b.device)
+    for _ in range(iters):
+        rho1 = torch.dot(rhat, r)
+        beta = (rho1 / (rho + eps)) * (alpha / (omega + eps))
+        p = r + beta * (p - omega * v)
+        ph = M(p)
+        v = matvec(ph)
+        alpha = rho1 / (torch.dot(rhat, v) + eps)
+        s = r - alpha * v
+        sh = M(s)
+        t = matvec(sh)
+        omega = torch.dot(t, s) / (torch.dot(t, t) + eps)
+        x = x + alpha * ph + omega * sh
+        r = s - omega * t
+        rho = rho1
+    return x
 
 
 def pcg(matvec, b, *, tol=1e-5, atol=0.0, maxiter=None, M=None):

@@ -1456,28 +1456,37 @@ def test_ns_node_kernel_on_the_host(node_libs, case, quadrature, dims,
         _assert_close(got, ref, dtype)
 
 
-@pytest.mark.parametrize("kernel", ["thermal_node_state",
-                                    "thermal_node_full", "ns_node_full"])
-def test_node_kernels_refuse_a_quadrature_past_the_card(kernel):
+@pytest.mark.parametrize("case", ["thermal_node_state",
+                                  "thermal_node_full",
+                                  "thermal_node_full without advection",
+                                  "ns_node_full"])
+def test_node_kernels_refuse_a_quadrature_past_the_card(case):
     """The providers of the B2 node kernels accept a 2D p1 deck's
     quadrature only where the kernel's block fits the H100's shared
     memory per block (ns_node_full: the halo's densities, f64 up to 122
     qps; thermal_node_state: its tables, f64 up to 1,833 qps;
-    thermal_node_full: its tables and products, with advection's layout,
-    f64 up to 196 qps), and past that raise a ValueError that names the
-    limit."""
+    thermal_node_full: its tables and products, of the instance the deck
+    launches: f64 up to 196 qps with advection, 256 without), and past
+    that raise a ValueError that names the limit."""
     from mrhyde_tpu_torch.ops._launch import (SMEM_OPTIN, full_smem_words,
                                               ns_node_smem_words,
                                               state_smem_words)
-    cfg, words, (fits, past) = {
+    kernel = case.split()[0]
+    cfg, words, fits, past = {
         "thermal_node_state": (lambda: thermal_cfg(2), state_smem_words,
-                               (83, 85)),
-        "thermal_node_full": (lambda: thermal_cfg(2, kappa="1.0 + e*e"),
+                               (83,), 85),
+        "thermal_node_full": (lambda: cdr_cfg(2, reaction="0.5*c*c"),
                               lambda Q: full_smem_words(Q, True),
-                              (27, 29)),
+                              (27,), 29),
+        "thermal_node_full without advection": (
+            lambda: thermal_cfg(2, kappa="1.0 + e*e"),
+            lambda Q: full_smem_words(Q, False), (28, 30), 32),
         "ns_node_full": (lambda: channel_cfg(2, 1), ns_node_smem_words,
-                         (21, 23))}[kernel]
-    f = _host_provider(cfg(), fits)
+                         (21,), 23)}[case]
+    for quadrature in fits:
+        f = _host_provider(cfg(), quadrature)
+        assert words(f.tables.Q) * 8 <= SMEM_OPTIN
+    # the last quadrature that fits, then the first one past the card
     assert words(f.tables.Q) * 8 <= SMEM_OPTIN < words(
         (f.tables.Q ** 0.5 + 1) ** 2) * 8
     with pytest.raises(ValueError, match=f"{kernel} at .* shared memory"):
@@ -1604,14 +1613,14 @@ def test_layout_formulas_are_the_kernels(header, tmp_path):
 def test_every_accepted_quadrature_fits_the_card(kind):
     """The NS and set providers accept a deck's quadrature only where one
     element's layout fits the H100's shared memory per block (for a set,
-    that of mode "full" and that of its state kernel), so the kernels
-    never fail to launch for it; past that they raise a clear
-    ValueError, never taking the general path in silence."""
+    that of mode "full"; these sets are not affine, so they never launch
+    a state kernel, whose layout an affine set's first state launch
+    checks: tests/test_torch_fused_set_ns.py), so the kernels never fail
+    to launch for it; past that they raise a clear ValueError, never
+    taking the general path in silence."""
     from mrhyde_tpu_torch.ops._launch import (SMEM_OPTIN, block_elems,
                                               elem_smem_words,
-                                              elem_state_smem_words,
-                                              node_smem_words,
-                                              set_state_smem_words)
+                                              node_smem_words)
     from torch_port_utils import channel_cfg, ns_elem_cfg, \
         ns_thermal_elem_cfg
     build = {"ns_hex": lambda: ns_elem_cfg("hex", (2, 1, 1)),
@@ -1631,11 +1640,8 @@ def test_every_accepted_quadrature_fits_the_card(kind):
             if kind == "set_node":
                 words = lambda el: node_smem_words(  # noqa: E731
                     f.nv, tr, Q, el)
-                assert set_state_smem_words(f.nv, Q) * 8 <= SMEM_OPTIN
             else:
                 words = lambda el: elem_smem_words(  # noqa: E731
                     len(f.dims), f.nc, f.nv, tr, Q, el)
-                if kind == "set_hex":
-                    assert elem_state_smem_words(3, 8, Q) * 8 <= SMEM_OPTIN
             assert block_elems(words, 8, SMEM_OPTIN) >= 1
     assert 4 <= accepted < 22

@@ -20,7 +20,8 @@ from torch_port_utils import (NS_STAGE1, both_problems,  # noqa: E402
                               check_fused_against_jax, ns_cdr_cfg,
                               ns_elem_cfg, ns_thermal_cfg,
                               ns_thermal_elem_cfg, seeded,
-                              stage_coeffs, steady_coeffs, thermal_cfg)
+                              stage_coeffs, steady_coeffs, thermal_cfg,
+                              thermal_cdr_affine_cfg)
 
 torch.set_num_threads(1)
 
@@ -160,7 +161,7 @@ def test_b1_decks_without_a_generated_form(mesh):
 
 
 @pytest.mark.parametrize("mesh,quad,n_qp,fused", [
-    ("p1", 6, 16, True), ("p1", 8, 25, True),
+    ("p1", 6, 16, True), ("p1", 8, 25, True), ("p1", 44, 529, True),
     ("hex", 4, 27, True), ("hex", 6, 64, True)])
 def test_set_decks_past_the_kernels_qp_limit_take_the_general_path(
         mesh, quad, n_qp, fused):
@@ -180,6 +181,44 @@ def test_set_decks_past_the_kernels_qp_limit_take_the_general_path(
     assert fused
     f = asm.fused_provider()
     assert isinstance(f, FusedSetAssembly) and f.tables.Q == n_qp
+
+
+def test_affine_set_past_the_state_kernels_limit_raises():
+    """Only an affine set launches set_node_state, so only an affine set
+    is held to its layout, at its first state launch (an NS + thermal set
+    at 529 qps builds, above, and never checks it): thermal + cdr with
+    constant coefficients fits at 34 points per direction and is refused
+    at 35, where set_node_full's layout, checked when the provider is
+    built, still fits."""
+    from mrhyde_tpu_torch.assembly.assembler import TimeCoeffs
+    from mrhyde_tpu_torch.ops.fused_set import FusedSetAssembly
+    from mrhyde_tpu_torch.problem import Problem
+
+    def provider(cfg, quad=None):
+        if quad is not None:
+            cfg["Discretization"]["quadrature"] = quad
+        f = Problem(cfg, device="cpu", dtype=torch.float64) \
+            .assembler.fused_provider()
+        assert isinstance(f, FusedSetAssembly)
+        return f
+
+    def assemble(f):
+        f.jacobian(torch.zeros(f.asm.n_dof, dtype=torch.float64),
+                   TimeCoeffs.steady(f.asm.n_dof))
+    # the first assembly checks the layout of a split set alone
+    f = provider(thermal_cdr_affine_cfg("p1", flux=False))
+    assemble(f)
+    assert f.stats["split"] and f._state_checked
+    f = provider(ns_thermal_cfg())
+    assemble(f)
+    assert not f.stats["split"] and not f._state_checked
+    provider(thermal_cdr_affine_cfg("p1", flux=False), 66) \
+        ._check_state_layout()
+    f = provider(thermal_cdr_affine_cfg("p1", flux=False), 68)
+    assert f.tables.Q == 35 * 35 and f._detect_affine(True)
+    with pytest.raises(ValueError,
+                       match="set_node_state at 1225 .* shared memory"):
+        f._check_state_layout()
 
 
 def test_coefficients_without_a_generated_form_take_the_general_path():

@@ -64,10 +64,37 @@ def test_gmres_restarts_and_reports_its_residual():
     assert abs(true - info.resnorm) < 1e-12
 
 
-def test_unported_variants_raise():
-    _Jj, Jt, b = _systems("1.0")
-    with pytest.raises(NotImplementedError):
-        solve_linear_info(Jt, torch.as_tensor(b), method="gmres",
-                          precond_variant="chebyshev")
-    with pytest.raises(NotImplementedError):
-        solve_linear_info(Jt, torch.as_tensor(b), method="bicgstab")
+@pytest.mark.parametrize("method,variant", [
+    ("cg", "multigrid"), ("gmres", "ilu"), ("bicgstab", "amg")])
+def test_variants_raise_where_jax_raises(method, variant):
+    """CG builds its preconditioner by name, and the multigrid variants
+    are no name there (the Newton step hands their V-cycle to GMRES and
+    BiCGStab): both packages raise ValueError, as for an unknown
+    variant, and so does an unknown linear method."""
+    Jj, Jt, b = _systems("1.0")
+    with pytest.raises(ValueError, match="preconditioner variant"):
+        jax_solve(Jj, jnp.asarray(b), method=method,
+                  precond_variant=variant)
+    with pytest.raises(ValueError, match="preconditioner variant"):
+        solve_linear_info(Jt, torch.as_tensor(b), method=method,
+                          precond_variant=variant)
+    with pytest.raises(ValueError, match="linear solver"):
+        solve_linear_info(Jt, torch.as_tensor(b), method="minres")
+
+
+@pytest.mark.parametrize("solver", [
+    {}, {"use direct solver": True, "Belos solver": "CG"},
+    {"Belos solver": "Pseudo Block CG", "preconditioner variant": "amg",
+     "linear TOL": 1e-8, "max linear iters": 300, "Belos block size": 20},
+    {"use preconditioner": False, "state solver settings": {
+        "Belos solver": "Block CG", "restart": 25}},
+    {"param solver settings": {"Belos solver": "Block CG"}}])
+def test_linear_options_match_jax(solver):
+    """LinearOptions.from_config reads the Solver sublist (and its
+    per-system overrides) as the JAX package does."""
+    from mrhyde_tpu.solvers.linear import LinearOptions as JaxOptions
+    from mrhyde_tpu_torch.solvers.linear import LinearOptions
+    for system in ("state", "param"):
+        oj = JaxOptions.from_config(solver, system)
+        ot = LinearOptions.from_config(solver, system)
+        assert vars(ot) == vars(oj)

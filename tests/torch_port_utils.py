@@ -554,3 +554,42 @@ def thermal_cdr_affine_cfg(mesh="p1", transient=False, flux=True):
                              "thermal source": "sin(pi*x)*y"})
     cfg["Postprocess"]["True solutions"]["e"] = "0.0"
     return cfg
+
+
+# the solver layer (tests/test_torch_precond.py, _multigrid.py, _amg.py)
+def same_jacobians(cfg, seed=3, soa=False):
+    """(JAX Problem, torch Problem, JAX J, torch J) holding the same
+    numbers: the JAX package's general-path Jacobian at a seeded state
+    (its boundary-group blocks included), handed to the port's
+    BlockJacobian of the same deck. soa: both as SoA rows (the fused
+    providers' layout), row 1 a structural zero and row 2 the constant
+    0.25, the rest one value per element."""
+    import dataclasses
+
+    import jax.numpy as jnp
+    from mrhyde_tpu_torch.interop import state_from_numpy
+    pj, pt = both_problems(cfg)
+    tj, tt = steady_coeffs(pj, pt)
+    u = seeded(pj.n_dof, seed=seed)
+    Jj = pj.assembler.jacobian(jnp.asarray(u), tj)
+    Jt = pt.assembler.jacobian(state_from_numpy(u, pt), tt)
+    assert len(Jj.bnd) == len(Jt.bnd)
+    vol = np.asarray(Jj.vol)
+    Jt = dataclasses.replace(
+        Jt, vol=torch.tensor(vol),
+        bnd=[torch.tensor(np.asarray(b)) for b in Jj.bnd])
+    if soa:
+        nd = vol.shape[1]
+        rows = [vol[:, k // nd, k % nd] for k in range(nd * nd)]
+        rows[1], rows[2] = None, np.float64(0.25)
+        Jj = dataclasses.replace(Jj, vol=None, vol_soa=[
+            None if r is None else jnp.asarray(r) for r in rows])
+        Jt = dataclasses.replace(Jt, vol=None, vol_soa=[
+            None if r is None else torch.as_tensor(r) for r in rows])
+    return pj, pt, Jj, Jt
+
+
+def rel_diff(a, b):
+    """max |a - b| / max |b|."""
+    b = np.asarray(b)
+    return max_diff(a, b) / float(np.max(np.abs(b)))

@@ -1,12 +1,12 @@
 """Reference L2 errors of chip_smoke.py's cdr / thermal-advection decks,
-its hex decks, its B1 Navier-Stokes decks and its module-set decks from
-the JAX package, in f64 on the CPU.
+its hex decks, its B1 Navier-Stokes decks, its module-set decks and its
+solver decks from the JAX package, in f64 on the CPU.
 
     python tools/jax_references.py DECK [N[:STEPS] ...]
 
 DECK is a key of chip_smoke.py's CDR_DECKS, HEX_DECKS, NS_ELEM_DECKS,
-SET_DECKS, SET_ELEM_DECKS, BOUNDARY_DECKS, AFFINE_SET_DECKS or
-QUADRATURE_DECKS, or `boussinesq_gold_nx8` (max |ux| of its
+SET_DECKS, SET_ELEM_DECKS, BOUNDARY_DECKS, AFFINE_SET_DECKS,
+QUADRATURE_DECKS or SOLVER_DECKS, or `boussinesq_gold_nx8` (max |ux| of its
 Boussinesq deck at beta = 1 and 0); each N builds the deck at that mesh
 size (default: the size the card runs), and STEPS, for a transient deck,
 sets its number of steps (to refine h and dt together). Prints one JSON
@@ -42,7 +42,8 @@ def main(argv):
              {**chip_smoke.NS_ELEM_DECKS, **chip_smoke.SET_DECKS,
               **chip_smoke.SET_ELEM_DECKS, **chip_smoke.BOUNDARY_DECKS,
               **chip_smoke.AFFINE_SET_DECKS,
-              **chip_smoke.QUADRATURE_DECKS}.items()}
+              **chip_smoke.QUADRATURE_DECKS,
+              **chip_smoke.SOLVER_DECKS}.items()}
     decks.update(chip_smoke.CDR_DECKS, **chip_smoke.HEX_DECKS)
     build, n_card, t_held, var = decks[name][:4]
     for size in sizes or [str(n_card)]:
