@@ -347,6 +347,14 @@ class Assembler:
         self._fused_built = False
         # set by the Problem for 'solver: transient' decks
         self.is_transient = False
+        # static per-element data from mesh data files (reference
+        # importMeshData: element centers take the value of the closest
+        # data point), name -> (E, ...), read by the physics as the
+        # workset's extra fields (crystal elasticity's rotated "crystal_C")
+        self.extra_elem_fields: dict = {}
+        # per-block physics masks (E, n_modules), or None (one physics
+        # list for every block)
+        self.module_masks = None
 
     def _boundary_group(self, bg):
         """A boundary group's side data as tensors on the device."""
@@ -355,6 +363,7 @@ class Assembler:
         def t(a):
             return torch.as_tensor(a, dtype=dt, device=dev)
         return {"sideset": bg.sideset, "side": bg.side,
+                "elems": torch.as_tensor(bg.elems, device=dev),
                 "lids": torch.as_tensor(bg.lids, device=dev),
                 "scatter": BoundaryScatter(bg.lids, dev),
                 "wts": t(bg.wts), "ip": t(bg.ip), "normals": t(bg.normals),
@@ -434,23 +443,45 @@ class Assembler:
     # element kernels
     # ------------------------------------------------------------------
 
-    def _elem_residual(self, u_st, beta_u, beta_t, wts, ip, bg, *,
-                       alpha_u, alpha_t, time, params, deltat=1.0):
+    def set_module_masks(self, masks):
+        """Per-block physics (reference physicsInterface.cpp:38-54):
+        masks is (E, n_modules), 1 where module k owns the element's
+        block. Each module's volume and boundary contribution is scaled
+        by its mask, over one batched element array."""
+        self.module_masks = torch.as_tensor(np.asarray(masks),
+                                            dtype=self.dtype,
+                                            device=self.device)
+
+    def _elem_residual(self, u_st, beta_u, beta_t, wts, ip, bg, extra=None,
+                       *, alpha_u, alpha_t, time, params, deltat=1.0):
         return self._elem_residual_uv(alpha_u * u_st + beta_u,
                                       alpha_t * u_st + beta_t, wts, ip, bg,
-                                      time, params, deltat)
+                                      time, params, deltat, extra)
 
     def _elem_residual_uv(self, u_eval, u_dot, wts, ip, bg, time, params,
-                          deltat=1.0):
+                          deltat=1.0, extra=None):
+        bm = None
+        if extra is not None and "__blockmask" in extra:
+            extra = dict(extra)
+            bm = extra.pop("__blockmask")
         wk = Workset(
             dim=self.disc.mesh.dim, wts=wts, ip=ip, basis_vals=self.g_bv,
             basis_grads=bg, offsets=self.disc.offsets,
             var_keys=self.disc.basis_keys, u_eval=u_eval, u_dot=u_dot,
             time=time, fm=self.fm, params=params, deltat=deltat,
-            is_transient=self.is_transient)
-        for m in self.modules:
-            m.volume_residual(wk)
+            is_transient=self.is_transient, extra_fields=extra)
+        _masked_modules(wk, self.modules, bm, "volume_residual")
         return wk.res
+
+    def _elem_extra(self):
+        """The per-element fields the volume worksets read: the block
+        masks (under "__blockmask") and the mesh-data fields; None
+        without any."""
+        out = {}
+        if self.module_masks is not None:
+            out["__blockmask"] = self.module_masks
+        out.update(self.extra_elem_fields)
+        return out or None
 
     def _params(self, pvec):
         params = dict(self.params)
@@ -460,15 +491,16 @@ class Assembler:
     def _elem_fn(self, tc: TimeCoeffs, pvec):
         params = self._params(pvec)
 
-        def fn(u_st, beta_u, beta_t, wts, ip, bg):
+        def fn(u_st, beta_u, beta_t, wts, ip, bg, extra):
             return self._elem_residual(
-                u_st, beta_u, beta_t, wts, ip, bg, alpha_u=tc.alpha_u,
-                alpha_t=tc.alpha_t, time=tc.time, params=params,
-                deltat=tc.deltat)
+                u_st, beta_u, beta_t, wts, ip, bg, extra,
+                alpha_u=tc.alpha_u, alpha_t=tc.alpha_t, time=tc.time,
+                params=params, deltat=tc.deltat)
         return fn
 
-    def _in_dims(self):
-        return (0, 0, 0, self._geo_ax, 0, self._geo_ax)
+    def _in_dims(self, extra):
+        return (0, 0, 0, self._geo_ax, 0, self._geo_ax,
+                None if extra is None else 0)
 
     def _gathered(self, u_st, tc: TimeCoeffs):
         if self._slices:
@@ -480,9 +512,10 @@ class Assembler:
     def residual(self, u_st, tc: TimeCoeffs, pvec=None):
         """Global residual (n_dof,) with Dirichlet rows zeroed."""
         u_e, bu_e, bt_e = self._gathered(u_st, tc)
+        extra = self._elem_extra()
         res_e = torch.func.vmap(self._elem_fn(tc, pvec),
-                                in_dims=self._in_dims())(
-            u_e, bu_e, bt_e, self.g_wts, self.g_ip, self.g_bg)
+                                in_dims=self._in_dims(extra))(
+            u_e, bu_e, bt_e, self.g_wts, self.g_ip, self.g_bg, extra)
         if self._slices:
             r = self._scatter_structured(res_e)
         else:
@@ -495,10 +528,11 @@ class Assembler:
     def jacobian(self, u_st, tc: TimeCoeffs, pvec=None) -> BlockJacobian:
         """Element-block Jacobian d(residual)/d(u_stage), general path."""
         u_e, bu_e, bt_e = self._gathered(u_st, tc)
+        extra = self._elem_extra()
         jac_e = torch.func.vmap(
             torch.func.jacfwd(self._elem_fn(tc, pvec), argnums=0),
-            in_dims=self._in_dims())(
-            u_e, bu_e, bt_e, self.g_wts, self.g_ip, self.g_bg)
+            in_dims=self._in_dims(extra))(
+            u_e, bu_e, bt_e, self.g_wts, self.g_ip, self.g_bg, extra)
         return BlockJacobian(vol=jac_e, vol_lids=self.lids,
                              fixed=self.fixed, inc=self.inc,
                              **self._bnd_jac_parts(u_st, tc, pvec))
@@ -531,10 +565,11 @@ class Assembler:
         return out
 
     def _belem_residual(self, group, u_st, beta_u, beta_t, wts, ip,
-                        normals, bg, *, alpha_u, alpha_t, time, params,
-                        deltat):
+                        normals, bg, bmask=None, *, alpha_u, alpha_t, time,
+                        params, deltat):
         """One side's residual (ndof_total,): the modules'
-        boundary_residual and the physics-agnostic Flux conditions
+        boundary_residual, each masked to its own blocks' elements under
+        per-block physics, and the physics-agnostic Flux conditions
         (reference physicsInterface.cpp fluxConditions: res += -(g, v)
         for any module)."""
         ss = group["sideset"]
@@ -548,8 +583,7 @@ class Assembler:
             time=time, fm=self.fm, params=params, deltat=deltat,
             is_transient=self.is_transient, normals=normals, side_name=ss,
             bcs=bcs)
-        for m in self.modules:
-            m.boundary_residual(wk)
+        _masked_modules(wk, self.modules, bmask, "boundary_residual")
         for v in self.disc.var_names:
             if bcs.get(v) == "Flux":
                 g = wk.f(f"Flux {v} {ss}", "side ip")
@@ -559,24 +593,30 @@ class Assembler:
     def _bnd_fn(self, group, tc: TimeCoeffs, pvec):
         params = self._params(pvec)
 
-        def fn(u_st, beta_u, beta_t, wts, ip, normals, bg):
+        def fn(u_st, beta_u, beta_t, wts, ip, normals, bg, bmask):
             return self._belem_residual(
-                group, u_st, beta_u, beta_t, wts, ip, normals, bg,
+                group, u_st, beta_u, beta_t, wts, ip, normals, bg, bmask,
                 alpha_u=tc.alpha_u, alpha_t=tc.alpha_t, time=tc.time,
                 params=params, deltat=tc.deltat)
         return fn
 
     def _bnd_args(self, group, u_st, tc: TimeCoeffs):
         lids = group["lids"]
+        bmask = None if self.module_masks is None \
+            else self.module_masks[group["elems"]]
         return (u_st[lids], tc.beta_u[lids], tc.beta_t[lids], group["wts"],
-                group["ip"], group["normals"], group["bg"])
+                group["ip"], group["normals"], group["bg"], bmask)
+
+    def _bnd_in_dims(self):
+        return (0,) * 7 + (None if self.module_masks is None else 0,)
 
     def _bnd_res_scatter(self, u_st, tc: TimeCoeffs, pvec=None):
         """The summed boundary-group residual (n_dof,): additive to the
         volume residual, so the fused providers compose with it."""
         r = torch.zeros(self.n_dof, dtype=u_st.dtype, device=u_st.device)
         for group in self._active_bnd_groups():
-            res_b = torch.func.vmap(self._bnd_fn(group, tc, pvec))(
+            res_b = torch.func.vmap(self._bnd_fn(group, tc, pvec),
+                                    in_dims=self._bnd_in_dims())(
                 *self._bnd_args(group, u_st, tc))
             r = group["scatter"].add(r, res_b)
         return r
@@ -588,7 +628,8 @@ class Assembler:
         parts = {"bnd": [], "bnd_lids": [], "bnd_scatter": []}
         for group in self._active_bnd_groups():
             parts["bnd"].append(torch.func.vmap(torch.func.jacfwd(
-                self._bnd_fn(group, tc, pvec), argnums=0))(
+                self._bnd_fn(group, tc, pvec), argnums=0),
+                in_dims=self._bnd_in_dims())(
                 *self._bnd_args(group, u_st, tc)))
             parts["bnd_lids"].append(group["lids"])
             parts["bnd_scatter"].append(group["scatter"])
@@ -712,6 +753,22 @@ class Assembler:
                 "iq,eq->ei", self.g_bv[key], vals * wtsE)
         flat = torch.cat([contrib.reshape(-1), contrib.new_zeros(1)])
         return flat[self.inc].sum(dim=1)
+
+
+def _masked_modules(wk, modules, bm, hook):
+    """Runs each module's `hook` on the workset; with per-block masks bm
+    (n_modules,), module k's contribution is kept on its own blocks
+    only, accumulated in module order as the JAX package does: res =
+    prev + bm[k] (res - prev)."""
+    if bm is None:
+        for m in modules:
+            getattr(m, hook)(wk)
+        return
+    prev = wk.res
+    for k, m in enumerate(modules):
+        getattr(m, hook)(wk)
+        wk.set_res(prev + bm[k] * (wk.res - prev))
+        prev = wk.res
 
 
 def pad_to(a, offset, shape):

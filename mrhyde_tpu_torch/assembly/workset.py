@@ -26,7 +26,7 @@ class Workset:
     def __init__(self, *, dim, wts, ip, basis_vals, basis_grads, offsets,
                  var_keys, u_eval, u_dot=None, time=0.0, fm=None,
                  params=None, deltat=1.0, is_transient=False, normals=None,
-                 side_name=None, bcs=None):
+                 side_name=None, bcs=None, extra_fields=None):
         self.dim = dim
         self.wts = wts                      # (Q,)
         self.ip = ip                        # (Q, dim)
@@ -44,6 +44,9 @@ class Workset:
         self.normals = normals              # (Q, dim) on side worksets
         self.side_name = side_name
         self.bcs = bcs or {}                # var -> condition type
+        # per-element fields from mesh data files (name -> this
+        # element's value), resolvable as expression leaves
+        self.extra_fields = extra_fields or {}
         self._res = {}                      # var -> (ndof,) contribution
         self._sol_cache = {}
 
@@ -108,6 +111,8 @@ class Workset:
             return self.normals[:, _AXES[leaf[1]]]
         if leaf in self.params:
             return self.params[leaf]
+        if leaf in self.extra_fields:
+            return self.extra_fields[leaf]
         raise KeyError(f"cannot resolve expression leaf {leaf!r}")
 
     def qp(self, v):
@@ -149,6 +154,12 @@ class Workset:
         """res_i += sum_q f(q,:) . grad(phi_i)(q,:) * w(q)  ((F, grad v))."""
         self._accumulate(var, torch.einsum(
             "iqd,qd->i", self.basis_grad(var), fvals * self.wts[:, None]))
+
+    def set_res(self, res):
+        """Replaces the accumulated residual by a (ndof_total,) vector in
+        offset order."""
+        self._res = {var: res[st:st + nd]
+                     for var, (st, nd) in self.offsets.items()}
 
     @property
     def res(self):

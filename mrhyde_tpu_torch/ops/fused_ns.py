@@ -54,7 +54,7 @@ from mrhyde_tpu_torch.ops.fused_p1 import (
     QUAD_P1, QpCtx, Stage, _check_grid, _scalar, qp_coords, steady_check,
     structured_geometry)
 from mrhyde_tpu_torch.ops.sparse_dual import sparse_jacfwd
-from mrhyde_tpu_torch.physics.navierstokes import NS_REMAINDER, ns_density
+from mrhyde_tpu_torch.physics.navierstokes import ns_density
 
 __all__ = ["FusedNSAssembly", "NSForm", "ns_node_full", "ns_node_full_plain",
            "ns_elem_full", "ns_elem_full_plain", "accumulate", "COEFFS"]
@@ -604,9 +604,9 @@ class FusedNSAssembly:
     def build(asm):
         """The NS provider of a qualifying deck; the module-set provider
         (ops/fused_set.py) for NS in a set or with a coefficient that
-        reads the state; None where the deck takes the general path. An
-        NS coefficient that reads a gradient, a time derivative or z in
-        2D raises NotImplementedError."""
+        reads the state; None where the deck takes the general path, as
+        an NS coefficient that reads a gradient, a time derivative or z
+        in 2D does (the JAX package's default path)."""
         disc = asm.disc
         cell = disc.mesh.cell_type
         s = asm._structured
@@ -625,11 +625,7 @@ class FusedNSAssembly:
                 if leaf.startswith("grad(") or (
                         leaf.endswith("_t") and leaf[:-2] in disc.var_names) \
                         or (leaf == "z" and cell == "quad"):
-                    raise NotImplementedError(
-                        f"the NS coefficient {name!r} reads {leaf!r}: "
-                        "NS coefficients that read the state's gradient or "
-                        "time derivative (and z in 2D) are not ported to "
-                        f"mrhyde_tpu_torch yet (ROADMAP {NS_REMAINDER})")
+                    return None
                 in_set = in_set or leaf in disc.var_names
         if not in_set:
             return FusedNSAssembly(asm)

@@ -446,12 +446,15 @@ class FusedP1Assembly:
         one thermal or cdr module, the Navier-Stokes one (ops/fused_ns.py)
         for an NS deck, and the module-set one (ops/fused_set.py) for a
         set of thermal and cdr modules or a velocity that reads the
-        state; None where the problem takes the general path. A velocity
-        that reads a gradient or a time derivative raises
-        NotImplementedError."""
+        state; None where the problem takes the general path, as a
+        velocity that reads a gradient, a time derivative or z in 2D
+        does (the JAX package's default path)."""
         from mrhyde_tpu_torch.physics.cdr import CDR
         from mrhyde_tpu_torch.physics.navierstokes import NavierStokes
         from mrhyde_tpu_torch.physics.thermal import Thermal
+        if asm.module_masks is not None:
+            # per-block physics: the general path, as in the JAX package
+            return None
         if any(isinstance(m, NavierStokes) for m in asm.modules):
             from mrhyde_tpu_torch.ops.fused_ns import FusedNSAssembly
             return FusedNSAssembly.build(asm)
@@ -472,12 +475,9 @@ class FusedP1Assembly:
         leaves = {k: set().union(*(asm.fm.terminal_leaves(n) for n in names))
                   for k, names in module.fused_names().items()}
         if any(lf.startswith("grad(") or lf.endswith("_t")
+               or (lf == "z" and cell == "quad")
                for lf in leaves["velocity"]):
-            raise NotImplementedError(
-                f"an advection velocity that reads the state's gradient or "
-                f"time derivative ({sorted(leaves['velocity'])}) is not "
-                f"ported to mrhyde_tpu_torch yet (ROADMAP A10, CDR "
-                f"remainder)")
+            return None
         if var in leaves["velocity"]:
             return FusedSetAssembly.build(asm)
         for ls in leaves.values():

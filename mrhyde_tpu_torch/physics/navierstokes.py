@@ -32,9 +32,6 @@ __all__ = ["NavierStokes", "ns_density", "tau"]
 
 _VELS = ["ux", "uy", "uz"]
 
-# the ROADMAP item that brings the NS parts not ported yet
-NS_REMAINDER = "A9, remainder"
-
 
 def tau(visc, u2, h, deltat, is_transient):
     """The SUPG/PSPG stabilisation parameter. |u| takes the u2 branch

@@ -1,8 +1,9 @@
 """Physics module registry: input-deck name -> module class.
 
-`thermal`, `cdr`, `ODE`, `navier stokes` and `Stokes` are ported so
-far. Every other module name the JAX package registers raises
-NotImplementedError naming the ROADMAP item that ports it.
+`thermal`, `cdr`, `ODE`, `navier stokes`, `Stokes`, `linearelasticity`
+and `crystal elasticity` are ported so far. Every other module name the
+JAX package registers raises NotImplementedError naming the ROADMAP item
+that ports it.
 """
 
 from __future__ import annotations
@@ -13,8 +14,7 @@ _REGISTRY: dict[str, type] = {}
 
 # deck name -> ROADMAP item of the port that brings it
 _NOT_PORTED = {
-    "Burgers": "A10", "linearelasticity": "A10",
-    "crystal elasticity": "A10", "shallow water": "A10",
+    "Burgers": "A10", "shallow water": "A10",
     "shallow ice": "A10", "helmholtz": "A10", "hartmann": "A10",
     "Kuramoto-Sivashinsky": "A10", "llamas": "A10",
     "msphasefield": "A10", "phasesolidification": "A10", "VDNS": "A10",
@@ -60,6 +60,8 @@ def import_physics(names, settings=None, dim=2):
 def _ensure_imported():
     # import the module files so their @register decorators run
     import mrhyde_tpu_torch.physics.cdr  # noqa: F401
+    import mrhyde_tpu_torch.physics.crystal_elasticity  # noqa: F401
+    import mrhyde_tpu_torch.physics.linearelasticity  # noqa: F401
     import mrhyde_tpu_torch.physics.navierstokes  # noqa: F401
     import mrhyde_tpu_torch.physics.ode  # noqa: F401
     import mrhyde_tpu_torch.physics.stokes  # noqa: F401

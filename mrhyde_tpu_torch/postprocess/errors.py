@@ -10,6 +10,11 @@ PostprocessManager::computeError):
 - 'var face':      L2-face norm accumulated over EVERY element side with
                    weight 0.5/facemeasure
 
+A mesh of several element blocks reports each norm once per block, keyed
+(kind, var) for block 0 and (f"{kind}@{b}", var) for block b (the
+reference's per-block computeError; its gold files repeat the line per
+block).
+
 Vector-basis norms (div, curl, components) are not ported yet
 (ROADMAP A11) and raise.
 """
@@ -29,10 +34,6 @@ _GRAD_RE = re.compile(r"^grad\((\w+)\)\[([xyz])\]$")
 _VECTOR_RE = re.compile(r"^(curl\(\w+\)\[[xyz]\]|\w+\[[xyz]\]|"
                         r"div\(.*\)|curl\(.*\))$")
 _AX = {"x": 0, "y": 1, "z": 2}
-
-
-def _norm(e2_per_elem):
-    return float(torch.sqrt(torch.sum(e2_per_elem)))
 
 
 class ErrorCalculator:
@@ -70,6 +71,20 @@ class ErrorCalculator:
         return torch.broadcast_to(
             torch.as_tensor(v, dtype=self.dtype, device=self.device), shape)
 
+    def _emit(self, out, kind, var, e2_per_elem):
+        """The norm of the error from its per-element squares: one entry,
+        or one per element block of a multi-block mesh."""
+        mesh = self.disc.mesh
+        bids = getattr(mesh, "block_ids", None)
+        if bids is None or len(getattr(mesh, "block_names", [])) <= 1:
+            out[(kind, var)] = float(torch.sqrt(torch.sum(e2_per_elem)))
+            return
+        bids = torch.as_tensor(np.asarray(bids), device=e2_per_elem.device)
+        for b in range(len(mesh.block_names)):
+            mask = (bids == b).to(e2_per_elem.dtype)
+            key = (kind, var) if b == 0 else (f"{kind}@{b}", var)
+            out[key] = float(torch.sqrt(torch.sum(e2_per_elem * mask)))
+
     def compute(self, u, time=0.0) -> dict:
         """{(kind, var): error} with kind in L2 / L2-grad / L2-face."""
         disc = self.disc
@@ -84,7 +99,7 @@ class ErrorCalculator:
             phi = self._t(disc.basis_vals[disc.basis_keys[var]])
             uh = u_e[:, st:st + nd] @ phi                     # (E, Q)
             tru = self._true(expr, disc.ip, time, uh.shape)
-            out[("L2", var)] = _norm(torch.sum(wts * (uh - tru) ** 2, dim=1))
+            self._emit(out, "L2", var, torch.sum(wts * (uh - tru) ** 2, dim=1))
 
         for var, comps in self.grad_exprs.items():
             if var not in disc.offsets:
@@ -96,7 +111,7 @@ class ErrorCalculator:
             for ax, expr in comps.items():
                 tru = self._true(expr, disc.ip, time, duh.shape[:2])
                 e2 = e2 + torch.sum(wts * (duh[:, :, ax] - tru) ** 2, dim=1)
-            out[("L2-grad", var)] = _norm(e2)
+            self._emit(out, "L2-grad", var, e2)
 
         for var, expr in self.face_exprs.items():
             if var not in disc.offsets:
@@ -113,7 +128,7 @@ class ErrorCalculator:
                 fmeas = torch.sum(fw, dim=1, keepdim=True)
                 e2 = e2 + torch.sum(0.5 / fmeas * (uh - tru) ** 2 * fw,
                                     dim=1)
-            out[("L2-face", var)] = _norm(e2)
+            self._emit(out, "L2-face", var, e2)
         return out
 
     @staticmethod
@@ -123,6 +138,8 @@ class ErrorCalculator:
                  "***** Computing errors ******", ""]
         for time, errs in history:
             for (kind, var), val in errs.items():
+                # per-block entries repeat the label
+                kind = kind.split("@")[0]
                 label = {
                     "L2": f"L2 norm of the error for {var}",
                     "L2-grad": f"L2 norm of the error for grad({var})",

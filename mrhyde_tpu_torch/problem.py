@@ -11,6 +11,7 @@ ROADMAP item that brings them.
 
 from __future__ import annotations
 
+import os
 from dataclasses import dataclass, field
 
 import numpy as np
@@ -71,13 +72,6 @@ def _reject_unported(cfg):
     solver = cfg.get("Solver", {}) or {}
     if solver.get("shards"):
         _not_ported("DOF sharding (Solver: shards)", "A14")
-    mesh = cfg.get("Mesh", {}) or {}
-    if str(mesh.get("source", mesh.get("Source", "Internal"))).lower() \
-            == "exodus":
-        _not_ported("Exodus meshes", "A10")
-    if mesh.get("Periodic BCs") or str(mesh.get("data file",
-                                                "none")) != "none":
-        _not_ported("periodic meshes and mesh data files", "A10")
     pp = cfg.get("Postprocess", {}) or {}
     for key, item in (("write solution", "A12"),
                       ("compute objective", "A12"),
@@ -88,7 +82,7 @@ def _reject_unported(cfg):
 
 
 class Problem:
-    def __init__(self, cfg: dict, device=None, dtype=None):
+    def __init__(self, cfg: dict, device=None, dtype=None, mesh=None):
         self.cfg = cfg
         self.device = resolve_device(device)
         self.dtype = resolve_dtype(dtype)
@@ -101,15 +95,55 @@ class Problem:
                 "tetrahedron": "tet"}.get(cell, cell)
         if dim == 1:
             cell = "line"
-        self.mesh = self._internal_mesh(mesh_cfg, cell)
+        if mesh is not None:
+            self.mesh = mesh
+        elif str(mesh_cfg.get("source", mesh_cfg.get(
+                "Source", "Internal"))).lower() == "exodus":
+            from mrhyde_tpu_torch.mesh.exodus import read_exodus
+            path = mesh_cfg.get("mesh file", "mesh.exo")
+            if not os.path.isabs(path):
+                path = os.path.join(cfg.get("_deck_dir", "."), path)
+            self.mesh, minfo = read_exodus(path)
+            self.mesh_elem_vars = minfo.get("elem_vars", {})
+        else:
+            self.mesh = self._internal_mesh(mesh_cfg, cell)
+        pbc = mesh_cfg.get("Periodic BCs", {}) or {}
+        conds = [v for k, v in pbc.items()
+                 if str(k).lower().startswith("periodic condition")]
+        if conds:
+            from mrhyde_tpu_torch.mesh.structured import apply_periodic
+            self.mesh = apply_periodic(self.mesh, conds)
 
-        phys_cfg = _unwrap_block(cfg.get("Physics", {}) or {}, "modules")
+        raw_phys = cfg.get("Physics", {}) or {}
+        phys_cfg = _unwrap_block(raw_phys, "modules")
         self.phys_cfg = phys_cfg
         if phys_cfg.get("Extra variables") or phys_cfg.get(
                 "Active variables"):
             _not_ported("'Extra variables'/'Active variables'", "A11")
-        self.modules = import_physics(phys_cfg.get("modules", ""),
-                                      phys_cfg, dim)
+        # per-block physics (reference physicsInterface.cpp:38-54: each
+        # element block owns its module list): several block sublists
+        # naming different modules
+        block_sub = {k: v for k, v in raw_phys.items()
+                     if isinstance(v, dict) and "modules" in v}
+        bnames = list(getattr(self.mesh, "block_names", []))
+        self._module_block = None
+        if (len(block_sub) > 1 and all(k in bnames for k in block_sub)
+                and len({str(v.get("modules"))
+                         for v in block_sub.values()}) > 1):
+            self.modules, self._module_block = [], []
+            shared = {k: v for k, v in raw_phys.items()
+                      if not isinstance(v, dict) or "modules" not in v}
+            for bi, bn in enumerate(bnames):
+                sub = block_sub.get(bn)
+                if sub is None:
+                    continue
+                for m in import_physics(sub.get("modules", ""),
+                                        dict(shared, **sub), dim):
+                    self.modules.append(m)
+                    self._module_block.append(bi)
+        else:
+            self.modules = import_physics(phys_cfg.get("modules", ""),
+                                          phys_cfg, dim)
 
         disc_cfg = _unwrap_block(cfg.get("Discretization", {}), "order")
         orders = disc_cfg.get("order", {}) or {}
@@ -132,7 +166,10 @@ class Problem:
                              "'modules'")
         self.variables = variables
 
-        # functions; per-block sublists flatten, later blocks overriding
+        # functions; per-block sublists flatten. The reference keeps one
+        # function manager per block; one physics set holds one
+        # definition of each name, so a name defined differently across
+        # blocks raises, as in the JAX package
         self.fm = FunctionManager()
         fs = {}
         for name, expr in (cfg.get("Functions", {}) or {}).items():
@@ -142,9 +179,8 @@ class Problem:
                         raise NotImplementedError(
                             f"per-block Functions define {k!r} "
                             f"differently across blocks ({fs[k]!r} vs "
-                            f"{v!r}): per-block functions are not ported "
-                            "to mrhyde_tpu_torch yet (ROADMAP A10, "
-                            "meshes)")
+                            f"{v!r}); per-block function expressions are "
+                            "not supported in one physics set")
                 fs.update(expr)
             else:
                 fs[name] = expr
@@ -168,6 +204,12 @@ class Problem:
                                    self.params,
                                    fixed_dofs=self.bcs.fixed_dofs,
                                    dtype=self.dtype, device=self.device)
+        self._import_mesh_data(mesh_cfg, dim)
+        if self._module_block is not None:
+            bids = np.asarray(self.mesh.block_ids)
+            self.assembler.set_module_masks(np.stack(
+                [(bids == b).astype(float) for b in self._module_block],
+                axis=1))
         self.assembler.var_bcs = self.bcs.var_bcs
         self.assembler.is_transient = (
             (cfg.get("Solver", {}) or {}).get("solver") == "transient")
@@ -183,25 +225,76 @@ class Problem:
             self.params, device=self.device, dtype=self.dtype)
         self.solver_cfg = cfg.get("Solver", {}) or {}
 
+    def _import_mesh_data(self, mesh_cfg, dim):
+        """'data file' (reference importMeshData): each element center
+        takes the row of the closest data point. With 'have mesh data
+        rotations' a row is a grain's 3x3 rotation, and each crystal
+        elasticity module's stiffness is rotated per element into the
+        extra field "crystal_C" (reference CrystalElasticity.cpp:412-450);
+        otherwise column 0 is the extra field "mesh_data"."""
+        data_tag = str(mesh_cfg.get("data file", "none"))
+        if data_tag == "none":
+            return
+        from mrhyde_tpu_torch.native import nearest_point
+        base = self.cfg.get("_deck_dir", ".")
+        pts_tag = str(mesh_cfg.get("data points file", "mesh_data_pts"))
+        pts = np.loadtxt(os.path.join(base, pts_tag + ".dat"), ndmin=2)
+        vals = np.loadtxt(os.path.join(base, data_tag + ".dat"), ndmin=2)
+        cents = self.mesh.nodes[self.mesh.conn].mean(axis=1)
+        nearest = nearest_point(pts[:, :dim], cents)
+        fields = self.assembler.extra_elem_fields
+        if not mesh_cfg.get("have mesh data rotations", False):
+            fields["mesh_data"] = torch.as_tensor(
+                vals[nearest, 0], dtype=self.dtype, device=self.device)
+            return
+        from mrhyde_tpu_torch.physics.crystal_elasticity import (
+            CrystalElasticity)
+        R = vals[nearest].reshape(-1, 3, 3)[:, :dim, :dim]
+        for m in self.modules:
+            if isinstance(m, CrystalElasticity):
+                Ce = np.einsum("eia,ejb,ekc,eld,abcd->eijkl", R, R, R, R,
+                               m.C_ref)
+                fields["crystal_C"] = torch.as_tensor(
+                    Ce.reshape(Ce.shape[0], -1), dtype=self.dtype,
+                    device=self.device)
+
     @staticmethod
     def _internal_mesh(mesh_cfg, cell):
         # NX is elements per block in each direction (Panzer inline-mesh
-        # convention)
+        # convention, reference meshInterface.cpp:138-139)
         xb = int(mesh_cfg.get("Xblocks", 1))
         yb = int(mesh_cfg.get("Yblocks", 1))
         zb = int(mesh_cfg.get("Zblocks", 1))
-        if xb * yb * zb > 1:
-            _not_ported("multi-block internal meshes", "A10")
-        return box_mesh(
+        mesh = box_mesh(
             cell,
-            nx=int(mesh_cfg.get("NX", 1)), ny=int(mesh_cfg.get("NY", 1)),
-            nz=int(mesh_cfg.get("NZ", 1)),
+            nx=int(mesh_cfg.get("NX", 1)) * xb,
+            ny=int(mesh_cfg.get("NY", 1)) * yb,
+            nz=int(mesh_cfg.get("NZ", 1)) * zb,
             xmin=float(mesh_cfg.get("xmin", 0.0)),
             xmax=float(mesh_cfg.get("xmax", 1.0)),
             ymin=float(mesh_cfg.get("ymin", 0.0)),
             ymax=float(mesh_cfg.get("ymax", 1.0)),
             zmin=float(mesh_cfg.get("zmin", 0.0)),
             zmax=float(mesh_cfg.get("zmax", 1.0)))
+        if xb * yb * zb > 1 and cell in ("quad", "hex"):
+            # Panzer's eblock-i_j(_k) element-block labels
+            cents = mesh.nodes[mesh.conn].mean(axis=1)
+            nbs = (xb, yb, zb)
+            idx = []
+            for d, (lo, hi, _n) in enumerate(mesh.box_info["bounds"]):
+                bw = (hi - lo) / nbs[d]
+                idx.append(np.clip(((cents[:, d] - lo) / bw).astype(int),
+                                   0, nbs[d] - 1))
+            if len(idx) == 2:
+                mesh.block_ids = idx[0] + xb * idx[1]
+                mesh.block_names = [f"eblock-{i}_{j}" for j in range(yb)
+                                    for i in range(xb)]
+            else:
+                mesh.block_ids = idx[0] + xb * idx[1] + xb * yb * idx[2]
+                mesh.block_names = [f"eblock-{i}_{j}_{k}"
+                                    for k in range(zb) for j in range(yb)
+                                    for i in range(xb)]
+        return mesh
 
     @property
     def n_dof(self):

@@ -10,8 +10,10 @@ boundary, the reference's projectDirichlet); every other type registers
 its data as the function '<type> <var> <sideset>' at "side ip", which
 the modules' `boundary_residual` (and the assembler's physics-agnostic
 Flux term) read on the boundary groups. `use weak Dirichlet` turns each
-Dirichlet entry into a 'weak Dirichlet' one. Point Dirichlet conditions
-live on Exodus nodesets and raise (ROADMAP A10).
+Dirichlet entry into a 'weak Dirichlet' one. Point Dirichlet conditions,
+'<var>_point_DBCs: <nodeset names>', pin the variable's nodal dofs on
+those Exodus nodesets to zero (reference
+discretizationInterface.cpp:2637-2672).
 """
 
 from __future__ import annotations
@@ -69,12 +71,6 @@ class BoundaryConditions:
     def from_config(cls, disc, fm, physics_cfg: dict, params=None,
                     use_weak_dirichlet=False):
         """physics_cfg: the 'Physics' sublist of the input deck."""
-        if any(isinstance(k, str) and k.endswith("_point_DBCs")
-               for k in physics_cfg):
-            raise NotImplementedError(
-                "point Dirichlet conditions (on Exodus nodesets) are not "
-                "ported to mrhyde_tpu_torch yet (ROADMAP A10, Exodus "
-                "input)")
         self = cls(disc=disc, fm=fm, params=params or {})
         dofmap = disc.dofmap
         mesh = dofmap.mesh
@@ -96,6 +92,17 @@ class BoundaryConditions:
                         if ss not in mesh.sidesets:
                             continue
                         self._add(var, ss, expr, bctype, use_weak_dirichlet)
+        for key, names in physics_cfg.items():
+            if not (isinstance(key, str) and key.endswith("_point_DBCs")):
+                continue
+            var = key[:-len("_point_DBCs")]
+            for ns, node_ids in mesh.nodesets.items():
+                # a nodeset whose name the entry's text contains, as the
+                # JAX package matches them
+                if ns and ns in str(names):
+                    self.strong.append(_DirichletEntry(
+                        var, f"point:{ns}", 0.0, dofmap.global_dofs(
+                            var, np.asarray(node_ids, dtype=np.int64))))
         return self
 
     def _add(self, var, ss, expr, bctype, use_weak_dirichlet):

@@ -247,13 +247,29 @@ def test_mixed_dirichlet_neumann_gold():
 
 
 def test_point_dirichlet_conditions_name_their_roadmap_item():
-    """Point Dirichlet conditions live on Exodus nodesets: they raise,
-    naming ROADMAP A10."""
+    """Point Dirichlet conditions live on nodesets (of an Exodus mesh,
+    here one handed in as `mesh=`): they pin the variable's dofs there
+    to 0, as the JAX package's do, and a name no nodeset carries pins
+    nothing (tests/test_torch_exodus.py runs them from a file)."""
+    from mrhyde_tpu.mesh.structured import box_mesh as jax_box
+    from mrhyde_tpu.problem import Problem as JaxProblem
+    from mrhyde_tpu_torch.mesh.structured import box_mesh
     from mrhyde_tpu_torch.problem import Problem
     cfg = thermal_cfg(4)
     cfg["Physics"]["e_point_DBCs"] = "corner"
-    with pytest.raises(NotImplementedError, match="A10"):
-        Problem(cfg, device="cpu")
+    plain = Problem(thermal_cfg(4), device="cpu").bcs.fixed_dofs
+    assert np.array_equal(Problem(cfg, device="cpu").bcs.fixed_dofs, plain)
+    cfg["Physics"]["Dirichlet conditions"] = {"e": {"left": 0.0}}
+    meshes = [box_mesh("quad", nx=4, ny=4), jax_box("quad", nx=4, ny=4)]
+    for m in meshes:
+        m.nodesets["corner"] = np.array([24], dtype=np.int32)
+    pt = Problem(cfg, device="cpu", mesh=meshes[0])
+    pj = JaxProblem(cfg, mesh=meshes[1])
+    assert np.array_equal(pt.bcs.fixed_dofs, pj.bcs.fixed_dofs)
+    # node 24, the corner (1, 1), is off the left side: the point
+    # condition alone pins it
+    left = Problem(cfg, device="cpu").bcs.fixed_dofs
+    assert 24 in pt.bcs.fixed_dofs and 24 not in left
 
 
 def test_interface_term_names_its_roadmap_item():

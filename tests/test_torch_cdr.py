@@ -213,16 +213,23 @@ def test_cdr_defaults_and_coefficients():
                                       "c_t"])
 def test_velocity_reading_the_state_raises(velocity):
     """A velocity that reads the state's gradient or time derivative
-    raises (A10, CDR remainder) on hex and on 2D p1 quads; one that reads
-    the state itself takes the module-set provider on both
+    takes the general path on hex and on 2D p1 quads, as the JAX
+    package's default path does (its kernel cannot resolve such a leaf),
+    with JAX's general-path residual; one that reads the state itself
+    takes the module-set provider on both
     (tests/test_torch_fused_set_scalar.py, _set_elem.py)."""
     from mrhyde_tpu_torch.ops.fused_set import FusedSetAssembly
     from mrhyde_tpu_torch.problem import Problem
     for cfg in (cdr_cfg(2, 2, 2), cdr_cfg(4)):
         cfg["Functions"]["xvel"] = velocity
         if "grad" in velocity or "_t" in velocity:
-            with pytest.raises(NotImplementedError, match="CDR remainder"):
-                Problem(cfg, device="cpu")
+            pj, pt = both_problems(cfg)
+            assert pt.assembler.fused_provider() is None
+            tj, tt = stage_coeffs(pj, pt, *DIRK22_STAGE1, seed=3)
+            u = seeded(pt.n_dof, seed=4)
+            rj = pj.assembler.residual(jnp.asarray(u), tj)
+            rt = pt.assembler.residual(state_from_numpy(u, pt), tt)
+            assert max_diff(rt, rj) < 1e-11
         else:
             assert isinstance(Problem(cfg, device="cpu").assembler
                               .fused_provider(), FusedSetAssembly)

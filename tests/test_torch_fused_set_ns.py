@@ -8,6 +8,7 @@ p2 quads reach the element-tile set kernel, and a coefficient without a
 generated form leaves the deck to the general path."""
 
 import jax
+import numpy as np
 import pytest
 import torch
 
@@ -138,26 +139,21 @@ def test_sets_on_hex_and_p2(monkeypatch):
 @pytest.mark.parametrize("mesh", ["hex", "p2"])
 def test_b1_decks_without_a_generated_form(mesh):
     """On hex and p2 as in 2D: a set whose coefficient has no C++ form
-    (emax) takes the general path; an NS coefficient that reads a
-    gradient, or z in 2D, raises (A9, remainder), and so does a velocity
-    that reads a gradient (A10, CDR remainder)."""
-    from mrhyde_tpu_torch.problem import Problem
+    (emax) takes the general path, and so do an NS coefficient that
+    reads a gradient, or z in 2D, and a velocity that reads a gradient,
+    as on the JAX package's default path."""
     dims = (2, 2, 2) if mesh == "hex" else (2, 2)
     cfg = ns_elem_cfg(mesh, dims)
     cfg["Physics"]["modules"] = "navier stokes,thermal"
     cfg["Functions"]["thermal source"] = "emax(x)"
     assert _provider(cfg) is None
-    cfg = ns_elem_cfg(mesh, dims, visc="1.0 + grad(ux)[y]")
-    with pytest.raises(NotImplementedError, match="A9, remainder"):
-        Problem(cfg, device="cpu")
+    assert _provider(ns_elem_cfg(mesh, dims,
+                                 visc="1.0 + grad(ux)[y]")) is None
     if mesh == "p2":
-        cfg = ns_elem_cfg(mesh, dims, visc="1.0 + z*ux")
-        with pytest.raises(NotImplementedError, match="A9, remainder"):
-            Problem(cfg, device="cpu")
+        assert _provider(ns_elem_cfg(mesh, dims, visc="1.0 + z*ux")) is None
     cfg = cdr_cfg(*dims) if mesh == "hex" else cdr_cfg(2, order=2)
     cfg["Functions"]["xvel"] = "grad(c)[x]"
-    with pytest.raises(NotImplementedError, match="A10, CDR remainder"):
-        Problem(cfg, device="cpu")
+    assert _provider(cfg) is None
 
 
 @pytest.mark.parametrize("mesh,quad,n_qp,fused", [
@@ -221,17 +217,37 @@ def test_affine_set_past_the_state_kernels_limit_raises():
         f._check_state_layout()
 
 
-def test_coefficients_without_a_generated_form_take_the_general_path():
+REMAINDER_DECKS = {
+    # an advection velocity that reads the state's gradient
+    "cdr_xvel_grad_c_nx8": lambda: dict(
+        cdr_cfg(8), Functions=dict(cdr_cfg(8)["Functions"],
+                                   xvel="grad(c)[x]")),
+    # an NS viscosity that reads a velocity gradient
+    "ns_visc_grad_ux_10x4": lambda: channel_cfg(
+        10, 4, visc="1 + 0.1*(grad(ux)[y])^2"),
+}
+
+
+@pytest.mark.parametrize("deck", ["emax", *REMAINDER_DECKS])
+def test_coefficients_without_a_generated_form_take_the_general_path(deck):
     """An element reduction (emax) has no C++ form: the set takes the
-    general path, as JAX's would on a deck its kernel cannot trace; an
-    NS coefficient that reads a gradient still raises."""
-    cfg = ns_thermal_cfg()
-    cfg["Functions"]["thermal source"] = "emax(x)"
-    assert _provider(cfg) is None
-    cfg = channel_cfg(4, 2, visc="1.0 + grad(ux)[y]")
-    from mrhyde_tpu_torch.problem import Problem
-    with pytest.raises(NotImplementedError, match="A9, remainder"):
-        Problem(cfg, device="cpu")
+    general path, as JAX's would on a deck its kernel cannot trace. A
+    velocity or NS coefficient that reads a gradient takes the general
+    path too, as the JAX package's default path does (its kernel raises
+    KeyError there), and solves to JAX's numbers."""
+    if deck == "emax":
+        cfg = ns_thermal_cfg()
+        cfg["Functions"]["thermal source"] = "emax(x)"
+        assert _provider(cfg) is None
+        return
+    cfg = REMAINDER_DECKS[deck]()
+    pj, pt = both_problems(cfg)
+    assert pt.assembler.fused_provider() is None
+    rj, rt = pj.run(), pt.run()
+    uj = np.asarray(rj.u)
+    assert np.max(np.abs(rt.u.numpy() - uj)) <= 1e-11 * np.max(np.abs(uj))
+    for key, val in rj.errors.items():
+        assert abs(rt.errors[key] - val) <= 1e-11 * abs(val), key
 
 
 def test_time_and_parameters_are_kernel_arguments():

@@ -179,18 +179,10 @@ HEX = {"dimension": 3, "element type": "hex", "NX": 2, "NY": 2, "NZ": 2}
     {"Parameters": {"kp": {"type": "scalar", "value": 1.0}}},
     {"Analysis": {"analysis type": "ROL"}},
     {"Physics": {"modules": "Burgers"}},
-    # on hex (the element-tile kernels B1; a velocity or NS coefficient
-    # that reads the state itself, and an NS + thermal set, run on the
-    # module-set kernels, tests/test_torch_fused_set*.py): an advection
-    # velocity that reads the state's gradient (A10, CDR remainder)
-    {"Mesh": HEX, "Physics": {"modules": "cdr", "Dirichlet conditions": {
-        "c": {"all boundaries": 0.0}}}, "Functions": {"xvel": "grad(c)[x]"}},
-    # an NS + thermal set whose viscosity reads a gradient (A9, remainder)
-    {"Mesh": HEX, "Physics": {"modules": "navier stokes,thermal"},
-     "Functions": {"viscosity": "1.0 + grad(e)[x]"}},
-    # an NS coefficient that reads a time derivative (A9, remainder)
-    {"Mesh": HEX, "Physics": {"modules": "navier stokes"},
-     "Functions": {"viscosity": "1.0 + ux_t"}},
+    # multiscale, multi-set decks, the solution writer (A13, A12)
+    {"Subgrid": {"Mesh": {"NX": 2}}},
+    {"Physics": {"physics set names": "a, b"}},
+    {"Postprocess": {"write solution": True}},
 ])
 def test_unported_deck_features_raise(cfg_patch):
     from mrhyde_tpu_torch.problem import Problem
@@ -199,6 +191,42 @@ def test_unported_deck_features_raise(cfg_patch):
         cfg[k] = dict(cfg.get(k, {}), **v)
     with pytest.raises(NotImplementedError):
         Problem(cfg, device="cpu")
+
+
+@pytest.mark.parametrize("cfg_patch", [
+    # on hex (the element-tile kernels B1; a velocity or NS coefficient
+    # that reads the state itself, and an NS + thermal set, run on the
+    # module-set kernels, tests/test_torch_fused_set*.py): an advection
+    # velocity that reads the state's gradient
+    {"Mesh": HEX, "Physics": {"modules": "cdr", "Dirichlet conditions": {
+        "c": {"all boundaries": 0.0}}}, "Functions": {"xvel": "grad(c)[x]"}},
+    # an NS + thermal set whose viscosity reads a gradient
+    {"Mesh": HEX, "Physics": {"modules": "navier stokes,thermal"},
+     "Functions": {"viscosity": "1.0 + grad(e)[x]"}},
+    # an NS coefficient that reads a time derivative
+    {"Mesh": HEX, "Physics": {"modules": "navier stokes"},
+     "Functions": {"viscosity": "1.0 + ux_t"}},
+])
+def test_gradient_and_rate_coefficients_take_the_general_path(cfg_patch):
+    """Coefficients that read a gradient or a time derivative have no
+    kernel form in either package: the port takes the general path, as
+    the JAX package's default path does, with its residual."""
+    from mrhyde_tpu.assembly.assembler import TimeCoeffs as JaxTC
+    from mrhyde_tpu_torch.assembly.assembler import TimeCoeffs
+    cfg = thermal_cfg(4)
+    for k, v in cfg_patch.items():
+        cfg[k] = dict(cfg.get(k, {}), **v)
+    pj, pt = both_problems(cfg)
+    assert pt.assembler.fused_provider() is None
+    rng = np.random.RandomState(2)
+    u, bt = rng.randn(pt.n_dof), rng.randn(pt.n_dof)
+    rj = pj.assembler.residual(jnp.asarray(u), JaxTC(
+        1.0, jnp.zeros(pt.n_dof), 10.0, jnp.asarray(bt), 0.1, 0.1))
+    rt = pt.assembler.residual(state_from_numpy(u, pt), TimeCoeffs(
+        1.0, torch.zeros(pt.n_dof, dtype=torch.float64), 10.0,
+        state_from_numpy(bt, pt), 0.1, 0.1))
+    assert np.max(np.abs(state_to_numpy(rt) - np.asarray(rj))) <= \
+        1e-12 * np.max(np.abs(np.asarray(rj)))
 
 
 def test_default_device_is_the_card(monkeypatch, tmp_path):

@@ -593,3 +593,139 @@ def rel_diff(a, b):
     """max |a - b| / max |b|."""
     b = np.asarray(b)
     return max_diff(a, b) / float(np.max(np.abs(b)))
+
+
+# element blocks, periodic and Exodus meshes, elasticity
+# (tests/test_torch_multiblock.py, _periodic.py, _exodus.py,
+# _elasticity.py)
+def multiblock_cfg(nx, blocks=(2, 2)):
+    """The reference's thermal/2D_multiblock: nx x nx elements in each of
+    the blocks (Xblocks x Yblocks) of the unit square, u = sin(pi x)
+    sin(pi y); its gold is 0.000513878 per block at nx = 10
+    (tests/test_thermal_family.py:130-157)."""
+    return {
+        "Mesh": {"dimension": 2, "element type": "quad", "NX": nx,
+                 "NY": nx, "Xblocks": blocks[0], "Yblocks": blocks[1]},
+        "Functions": {"thermal source": "2*(pi*pi)*sin(pi*x)*sin(pi*y)"},
+        "Physics": {"modules": "thermal",
+                    "Dirichlet conditions": {
+                        "scalar data": True,
+                        "e": {"top": 0.0, "bottom": 0.0, "left": 0.0,
+                              "right": 0.0}},
+                    "Initial conditions": {"scalar data": True, "e": 0.0}},
+        "Discretization": {"order": {"e": 1}, "quadrature": 2},
+        "Solver": {"solver": "steady-state", "use strong DBCs": True},
+        "Postprocess": {"compute errors": True,
+                        "True solutions": {"e": "sin(pi*x)*sin(pi*y)"}},
+    }
+
+
+def per_block_cfg(nx, neumann=False):
+    """The JAX package's two-block deck (tests/test_per_block_physics.py):
+    [0,2]x[0,1] split at x = 1, thermal on eblock-0_0 and cdr on
+    eblock-1_0, nx x nx/2 elements; neumann: e's top Dirichlet replaced
+    by the true solution's flux."""
+    cfg = {
+        "Mesh": {"dimension": 2, "element type": "quad",
+                 "xmin": 0.0, "xmax": 2.0, "ymin": 0.0, "ymax": 1.0,
+                 "NX": nx, "NY": nx // 2, "Xblocks": 2},
+        "Physics": {
+            "eblock-0_0": {
+                "modules": "thermal",
+                "Dirichlet conditions": {
+                    "e": {"all boundaries": 0.0},
+                    "c": {"all boundaries": 0.0}}},
+            "eblock-1_0": {"modules": "cdr"},
+        },
+        "Functions": {
+            "thermal source": "(5.0*pi*pi/4.0)*sin(pi*x/2)*sin(pi*y)"
+                              "*(x<1.0)",
+            "source": "(5.0*pi*pi/4.0)*cos(pi*(x-1.0)/2)*sin(pi*y)"
+                      "*(x>1.0)",
+            "diffusion": "1.0", "xvel": "0.0", "yvel": "0.0",
+            "reaction": "0.0"},
+        "Discretization": {"order": {"e": 1, "c": 1}, "quadrature": 2},
+        "Solver": {"solver": "steady-state", "nonlinear TOL": 1e-10,
+                   "max nonlinear iters": 3, "use direct solver": True},
+        "Postprocess": {"compute errors": True,
+                        "True solutions": {
+                            "e": "sin(pi*x/2)*sin(pi*y)*(x<1.0)",
+                            "c": "cos(pi*(x-1.0)/2)*sin(pi*y)*(x>1.0)"}},
+    }
+    if neumann:
+        blk = cfg["Physics"]["eblock-0_0"]
+        blk["Dirichlet conditions"]["e"] = {"left": 0.0, "right": 0.0,
+                                            "bottom": 0.0}
+        blk["Neumann conditions"] = {
+            "e": {"top": "pi*sin(pi*x/2)*cos(pi*1.0)"}}
+    return cfg
+
+
+# the reference's le/2D_manufactured (tests/test_solid_sw_porous.py:11-45)
+LE_FUNCTIONS = {
+    "lambda": "1.0", "mu": "1.0", "A": "1.0", "B": "2.0",
+    "dxxx": "(A*pi)*(A*pi)*sin(A*pi*x)*sin(A*pi*y)",
+    "dxxy": "-1.0*(A*pi)*(A*pi)*cos(A*pi*x)*cos(A*pi*y)",
+    "dxyy": "(A*pi)*(A*pi)*sin(A*pi*x)*sin(A*pi*y)",
+    "dyxx": "(B*pi)*(B*pi)*sin(B*pi*x)*sin(B*pi*y)",
+    "dyxy": "-1.0*(B*pi)*(B*pi)*cos(B*pi*x)*cos(B*pi*y)",
+    "dyyy": "(B*pi)*(B*pi)*sin(B*pi*x)*sin(B*pi*y)",
+    "source dx": "(lambda+2.0*mu)*dxxx + mu*(dxyy+dyxy) + lambda*dyxy",
+    "source dy": "(lambda+2.0*mu)*dyyy + mu*(dyxx+dxxy) + lambda*dxxy",
+}
+
+
+def le_cfg(nx, solver=None):
+    """le/2D_manufactured on nx x nx quads: dx = sin(pi x) sin(pi y), dy =
+    sin(2 pi x) sin(2 pi y), both 0 on the boundary; its gold is L2(dx)
+    0.000770252, L2(dy) 0.00121848 at nx = 40."""
+    return {
+        "Mesh": {"dimension": 2, "element type": "quad", "NX": nx,
+                 "NY": nx},
+        "Physics": {"modules": "linearelasticity",
+                    "Dirichlet conditions": {
+                        "scalar data": True,
+                        "dx": {"all boundaries": 0.0},
+                        "dy": {"all boundaries": 0.0}},
+                    "Initial conditions": {"scalar data": True,
+                                           "dx": 0.0, "dy": 0.0}},
+        "Functions": dict(LE_FUNCTIONS),
+        "Discretization": {"order": {"dx": 1, "dy": 1}, "quadrature": 2},
+        "Solver": dict({"solver": "steady-state", "max nonlinear iters": 2},
+                       **(solver or {})),
+        "Postprocess": {"compute errors": True,
+                        "True solutions": {
+                            "dx": "sin(A*pi*x)*sin(A*pi*y)",
+                            "dy": "sin(B*pi*x)*sin(B*pi*y)"}},
+    }
+
+
+def rotations(n, dim, seed):
+    """n rotation matrices (n, 3, 3) from a numpy seed: in 3D the QR of
+    Gaussian matrices, each made proper (det +1); in 2D rotations about
+    z (uniform angles), whose 2x2 block the 2D decks read."""
+    rng = np.random.RandomState(seed)
+    if dim == 2:
+        th = 2.0 * np.pi * rng.rand(n)
+        q = np.zeros((n, 3, 3))
+        q[:, 0, 0] = q[:, 1, 1] = np.cos(th)
+        q[:, 1, 0], q[:, 0, 1] = np.sin(th), -np.sin(th)
+        q[:, 2, 2] = 1.0
+        return q
+    q, r = np.linalg.qr(rng.randn(n, 3, 3))
+    q = q * np.sign(np.diagonal(r, axis1=1, axis2=2))[:, None, :]
+    q[np.linalg.det(q) < 0, :, 0] *= -1.0
+    return q
+
+
+def write_grain_files(directory, n_grains, dim, seed):
+    """The mesh data files of a crystal deck in `directory`: grain
+    centers (mesh_data_pts.dat, uniform in the unit square / cube) and
+    one 3x3 rotation per grain (mesh_data.dat, 9 columns)."""
+    import os
+    rng = np.random.RandomState(seed)
+    pts = np.zeros((n_grains, 3))
+    pts[:, :dim] = rng.rand(n_grains, dim)
+    np.savetxt(os.path.join(directory, "mesh_data_pts.dat"), pts)
+    np.savetxt(os.path.join(directory, "mesh_data.dat"),
+               rotations(n_grains, dim, seed + 1).reshape(n_grains, 9))

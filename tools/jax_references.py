@@ -1,17 +1,22 @@
 """Reference L2 errors of chip_smoke.py's cdr / thermal-advection decks,
-its hex decks, its B1 Navier-Stokes decks, its module-set decks and its
-solver decks from the JAX package, in f64 on the CPU.
+its hex decks, its B1 Navier-Stokes decks, its module-set decks, its
+solver decks and its mesh and solid decks from the JAX package, in f64
+on the CPU.
 
-    python tools/jax_references.py DECK [N[:STEPS] ...]
+    python tools/jax_references.py [--seed S] DECK [N[:STEPS] ...]
 
 DECK is a key of chip_smoke.py's CDR_DECKS, HEX_DECKS, NS_ELEM_DECKS,
 SET_DECKS, SET_ELEM_DECKS, BOUNDARY_DECKS, AFFINE_SET_DECKS,
-QUADRATURE_DECKS or SOLVER_DECKS, or `boussinesq_gold_nx8` (max |ux| of its
+QUADRATURE_DECKS, SOLVER_DECKS, MESH_DECKS or SOLID_DECKS (whose files,
+an Exodus mesh and grain rotations, the deck functions write from
+--seed, default 0, into a temporary directory, as chip_smoke.py does),
+or `boussinesq_gold_nx8` (max |ux| of its
 Boussinesq deck at beta = 1 and 0); each N builds the deck at that mesh
 size (default: the size the card runs), and STEPS, for a transient deck,
 sets its number of steps (to refine h and dt together). Prints one JSON
 line per run: the L2 error of the deck's variable at its held time (an
-NS deck: of every variable at every recorded time), the DOF count, and
+NS, mesh or solid deck: of every variable at every recorded time, a
+multi-block mesh's per block as "var@b"), the DOF count, and
 the set-up and solve seconds. Run it from the repo root; it imports
 chip_smoke.py for the deck functions, so both packages see the same
 config.
@@ -34,6 +39,9 @@ def main(argv):
     import chip_smoke
     from mrhyde_tpu.problem import Problem
 
+    if argv[0] == "--seed":
+        chip_smoke.SEED = int(argv[1])
+        argv = argv[2:]
     name, sizes = argv[0], argv[1:]
     if name == "boussinesq_gold_nx8":
         return boussinesq(chip_smoke, Problem)
@@ -44,6 +52,9 @@ def main(argv):
               **chip_smoke.AFFINE_SET_DECKS,
               **chip_smoke.QUADRATURE_DECKS,
               **chip_smoke.SOLVER_DECKS}.items()}
+    decks.update({k: (build, n, None, None) for k, (build, n, *_rest) in
+                  {**chip_smoke.MESH_DECKS,
+                   **chip_smoke.SOLID_DECKS}.items()})
     decks.update(chip_smoke.CDR_DECKS, **chip_smoke.HEX_DECKS)
     build, n_card, t_held, var = decks[name][:4]
     for size in sizes or [str(n_card)]:
@@ -59,9 +70,7 @@ def main(argv):
         hist = {round(float(t), 10): errs
                 for t, errs in result.error_history}
         if var is None:
-            names = cfg["Postprocess"]["True solutions"]
-            l2 = {t: {v: float(errs[("L2", v)]) for v in names}
-                  for t, errs in hist.items()}
+            l2 = {t: chip_smoke.l2_labels(errs) for t, errs in hist.items()}
         else:
             l2 = float(hist[round(t_held, 10)][("L2", var)])
         print(json.dumps({"deck": name, "n": int(n), "steps":
