@@ -5,7 +5,8 @@
 Drives mrhyde_tpu_torch's thermal, cdr, thermal-advection, linear and
 crystal elasticity and Navier-Stokes main paths (2D p1 quads, 3D hex,
 2D p2 quads; element blocks, per-block physics, periodic and Exodus
-meshes) and its
+meshes), the rest of its physics modules, decks whose coefficients read
+the Parameters sublist, and its
 module sets (NS + thermal with the Boussinesq term, NS + cdr, thermal +
 cdr, coefficients that read the state; 2D p1 quads, 3D hex, 2D p2
 quads; affine sets through mode "state"), with Neumann, Flux and
@@ -184,7 +185,8 @@ each):
              Neumann flux of the true solution top and bottom), direct:
              its gold 0.00102733 (rtol 2e-5)
  45-47 BOUNDARY_DECKS   the same at 512^2 (CG), kappa = 1 + e*e with
-             `use weak Dirichlet` at 512^2 (GMRES), hex 40^3 with Neumann
+             `use weak Dirichlet` at 256^2 (GMRES; 512^2 before PR 18),
+             hex 40^3 with Neumann
              on the top and bottom faces: the JAX package's L2 (rtol 1e-6)
  48-51 AFFINE_SET_DECKS   thermal + cdr with constant coefficients, a
              Neumann flux on e and a Flux condition on c at the top:
@@ -215,8 +217,8 @@ each):
              same problem
  62-67 MESH_DECKS   multiblock_gold_nx10 (the reference's
              thermal/2D_multiblock: 2x2 blocks of 10x10, one L2 per block,
-             gold 0.000513878 each) and multiblock_nx512 (512 per block
-             per direction, 1,050,625 DOFs, GMRES), both on
+             gold 0.000513878 each) and multiblock_nx256 (256 per block
+             per direction, 263,169 DOFs, GMRES; 512 before PR 18), both on
              thermal_node_state; per_block_thermal_cdr_nx128 (the JAX
              package's per-block physics deck, thermal and cdr on two
              blocks of 128x64, direct, 33,410 DOFs); cdr_periodic_gold_nx40
@@ -224,7 +226,7 @@ each):
              cdr_periodic_nx256 (2 steps); exodus_hex_nx32 (hex thermal
              read from an Exodus file that write_exodus writes, point
              Dirichlet conditions on two nodesets): the JAX package's L2
-             of every label at rtol 1e-6 (multiblock_nx512 1e-4: the
+             of every label at rtol 1e-6 (multiblock_nx256 1e-4: the
              solves' f64 floor), the golds at 2e-5; all but the multi-block decks on the general
              path, no kernel
  68-72 SOLID_DECKS   le_manufactured_gold_nx40 (the reference's
@@ -236,6 +238,43 @@ each):
              (thermal and linear elasticity in one set, 4 BWE steps):
              the JAX package's L2 (rtol 1e-6; le_manufactured_nx512
              1e-5, the f64 floor), general path
+ 73-96 PHYSICS_DECKS   the rest of the physics modules, on the general
+             path as in the JAX package, each held to the JAX package's
+             L2 of every label at every recorded time (rtol 1e-6; a
+             field exact to round-off, |L2| <= 1e-12) and to its gold:
+             73-80 the reference decks at the reference's size:
+             burgers_backtracking_gold_nx100 (1D, L2(u) 0.354012 /
+             0.329584 / 0.313885 / 0.291375 at t = 0 / 0.001 / 0.002 /
+             0.004), helmholtz_gold_nx100 (0.000517267 / 0.000222348),
+             ks_wave_nx10 (1D periodic, 20 BWE steps),
+             shallowwater_droptest_gold_nx40 (L2(H) 1.00321, L2(Hv)
+             0.0121219 at rtol 2e-4),
+             phasefield_3phi_gold_nx100 (the legacy first-qp sampling,
+             six golds), vdns_channel_gold_nx50 (ux / pr / uy 0.0019421
+             / 0.0128887 / 8.18291e-05), porous_verification_gold_nx40
+             (L2 0.00102776, L2-grad 0.201394, L2-face 0.0017603 at
+             2e-4) and hartmann_analytic_nx500 (the analytic solution's
+             1.126126e-06 / 1.062206e-06 at 1e-4); golds at 2e-5 where
+             not said;
+             81-94 full width: burgers_2d_evisc_supg_nx256 (entropy
+             viscosity and SUPG, v = (1, 0.5), 4 BWE steps),
+             helmholtz_nx512 (GMRES + StructuredMG, 526,338 DOFs),
+             shallowwater_droptest_nx256 (5 DIRK-1,2 steps),
+             phasefield_consistent_nx256 (legacy sampling off, 198,147),
+             vdns_channel_stab_nx128x32 (PSPG + SUPG + GRADDIV, 4 BWE
+             steps from rest, direct: 128x32, not 256x64, see
+             vdns_deck), porous_compressible_nx512 (compressibility
+             0.1, permeability 1 + 0.5 sin(2 pi x), 4 steps, multigrid),
+             ks_periodic_2d_nx64 (periodic in x and y, 4 steps, direct:
+             64^2, not 128^2, see ks_deck), shallowice_nx256,
+             hartmann_channel_nx256x64 (Neumann on b), llamas_nx256,
+             phasesolidification_3d_nx32, inc_sat_wells_nx256x64 (a rate
+             well, DIRK-2,2), physics_test_nx256, cns_pulse_2d_nx128
+             (slip walls, DIRK-1,2); no fused provider, no launch;
+             95 params_thermal_nonlinear_nx256   kappa = k0 + k1 e e from
+             two inactive parameters: thermal_node_full;
+             96 params_ns_channel_nx128   viscosity and source ux the
+             active parameter nu = 0.5, direct: ns_node_full
 
 The reference L2 values are the JAX package's, computed in f64 on the
 CPU, or the reference's golds. Each deck runs one assembly before its
@@ -262,7 +301,8 @@ coord part is plain torch, once per stage), 52-54 ns_elem_full,
 set_elem_full and set_node_full at Q = 64, 64 and 25, and each solver
 deck the kernel of the deck it comes from (55 set_node_state, 56 and 61
 thermal_node_state, 57 and 58 thermal_elem_state, 59 thermal_node_full,
-60 ns_node_full), 62 and 63 thermal_node_state, and 64-72 none. The
+60 ns_node_full), 62 and 63 thermal_node_state, 64-72 none, 73-94 none,
+95 thermal_node_full and 96 ns_node_full. The
 `kernels` line
 reports the sums over the decks (ten kernels: the eight of the earlier
 phases and set_node_state, set_elem_state), each kernel's error, times
@@ -1712,8 +1752,9 @@ BOUNDARY_DECKS = {
         lambda n: mixed_neumann_deck(n, {"nonlinear TOL": 1e-10,
                                          "Belos solver": "CG"}),
         512, 1e-6, {0.0: {"e": 6.274898128026548e-06}}, "state"),
-    "thermal_weak_dirichlet_nx512": (
-        weak_dirichlet_deck, 512, 1e-6, {0.0: {"e": 6.2749174247023914e-06}},
+    # 256^2, not 512^2, since PR 18 (the script's time)
+    "thermal_weak_dirichlet_nx256": (
+        weak_dirichlet_deck, 256, 1e-6, {0.0: {"e": 2.5099623024602037e-05}},
         "full"),
     "hex_neumann_nx40": (hex_neumann_deck, 40, 1e-6,
                          {0.0: {"e": 0.0007267746494363886}}, "elem_state"),
@@ -2119,9 +2160,10 @@ def thermoelastic_deck(n, steps=4):
 # "var@b", the norm on element block b of a multi-block mesh.
 # Two full-width decks are held looser, at the f64 floor of their
 # iterative solves: the card's and JAX's L2 differ by 2-3e-12 (a few
-# 1e-12 of |u|), which is 1.5e-5 of multiblock_nx512's error (1.96e-7,
-# held at 1e-4 as default_nx1024) and 4.6e-7 of le_manufactured_nx512's
-# (4.7e-6, held at 1e-5; on an NVIDIA H100 80GB HBM3 at 700 W).
+# 1e-12 of |u|), which was 1.5e-5 of the 512-per-block deck's error
+# (1.96e-7; multiblock_nx256's is 7.8e-7; held at 1e-4 as default_nx1024)
+# and 4.6e-7 of le_manufactured_nx512's (4.7e-6, held at 1e-5; on an
+# NVIDIA H100 80GB HBM3 at 700 W).
 MULTIBLOCK_GOLD = 0.000513878
 MESH_DECKS = {
     # one physics list over 2x2 blocks: B2 thermal_node_state, as JAX's
@@ -2132,11 +2174,12 @@ MESH_DECKS = {
                "e@2": 0.000513878383438497, "e@3": 0.0005138783834384703}},
         "state",
         {0.0: {f"e{b}": MULTIBLOCK_GOLD for b in ("", "@1", "@2", "@3")}}),
-    "multiblock_nx512": (
-        lambda n: multiblock_deck(n, {"nonlinear TOL": 1e-10}), 512, 1e-4,
-        {0.0: {"e": 1.9608864117976945e-07, "e@1": 1.9608864122612878e-07,
-               "e@2": 1.9608864137359494e-07,
-               "e@3": 1.960886412548911e-07}}, "state", {}),
+    # 256 per block, not 512, since PR 18 (the script's time)
+    "multiblock_nx256": (
+        lambda n: multiblock_deck(n, {"nonlinear TOL": 1e-10}), 256, 1e-4,
+        {0.0: {"e": 7.8436645572254e-07, "e@1": 7.843664557239546e-07,
+               "e@2": 7.843664557226628e-07,
+               "e@3": 7.843664557238905e-07}}, "state", {}),
     # per-block physics (module masks): the general path in both packages
     "per_block_thermal_cdr_nx128": (
         per_block_deck, 128, 1e-6,
@@ -2184,6 +2227,736 @@ SOLID_DECKS = {
                "dy": 0.021206353963688716}}, None, {}),
 }
 
+
+# the rest of A10's physics (the general path; none of these modules has
+# a kernel in either package) and two decks whose coefficients read the
+# Parameters sublist (on the B2 kernels)
+def _steps(dt, steps, tableau="BWE", **keys):
+    return dict({"solver": "transient", "transient Butcher tableau": tableau,
+                 "delta t": dt, "final time": dt * steps}, **keys)
+
+
+def burgers_deck(n, evisc=False, supg=False, steps=4, dim=2):
+    """Burgers. In 1D the reference's
+    burgers/1D_Nonlinear_Backtracking (tests/test_cdr_burgers.py:36-77:
+    xvel 100, eps 1e-3, BWE steps of 1e-3 to t = 0.004, direct; gold L2(u)
+    0.354012 / 0.329584 / 0.313885 / 0.291375 at t = 0 / 0.001 / 0.002 /
+    0.004 at n = 100). In 2D a bump advected by v = (1, 0.5) on n x n
+    quads, u = 0 on the boundary, eps 1e-3, BWE steps of 0.01, with the
+    entropy viscosity (C1 = C2 = 1) and SUPG (supg C = 1) switched by
+    `evisc`, `supg`; GMRES + Jacobi."""
+    if dim == 1:
+        return {
+            "Mesh": {"dimension": 1, "element type": "interval", "NX": n},
+            "Physics": {"modules": "Burgers",
+                        "Dirichlet conditions": {
+                            "scalar data": True,
+                            "u": {"left": 0.0, "right": 0.0}},
+                        "Initial conditions": {"u": "exp(bubble)"}},
+            "Discretization": {"order": {"u": 1}, "quadrature": 2},
+            "Functions": {"Burgers source": "0.0", "xvel": "100.0",
+                          "yvel": "0.0", "diffusion": "1.0e-3",
+                          "bubble": "-100.0*(x-0.2)*(x-0.2)"},
+            "Solver": {"solver": "transient",
+                       "transient Butcher tableau": "BWE",
+                       "nonlinear TOL": 1e-7, "max nonlinear iters": 10,
+                       "final time": 0.004, "delta t": 1.0e-3,
+                       "allow backtracking": True,
+                       "use direct solver": True},
+            "Postprocess": {"compute errors": True,
+                            "True solutions": {"u": "0.0"}},
+        }
+    return {
+        "Mesh": {"dimension": 2, "element type": "quad", "NX": n, "NY": n},
+        "Physics": {"modules": "Burgers", "entropy viscosity": evisc,
+                    "use SUPG": supg,
+                    "Dirichlet conditions": {
+                        "scalar data": True, "u": {"all boundaries": 0.0}},
+                    "Initial conditions": {"u": "exp(bubble)"}},
+        "Discretization": {"order": {"u": 1}, "quadrature": 2},
+        "Functions": {"Burgers source": "0.0", "xvel": "1.0",
+                      "yvel": "0.5", "diffusion": "1.0e-3",
+                      "bubble": "-50.0*((x-0.3)*(x-0.3)+(y-0.3)*(y-0.3))",
+                      "C1": "1.0", "C2": "1.0", "supg C": "1.0",
+                      "supg C1": "1.0", "supg C2": "1.0"},
+        "Solver": _steps(0.01, steps, **{"nonlinear TOL": 1e-10}),
+        "Postprocess": {"compute errors": True,
+                        "True solutions": {"u": "0.0"}},
+    }
+
+
+def helmholtz_deck(n, robin=False, solver=None):
+    """The reference's helmholtz/manufactured_solution
+    (tests/test_helmholtz_gold.py: complex c2 = (x^2-1) + 2x i, Neumann
+    impedance data on the right side; gold L2(ureal) 0.000517267,
+    L2(uimag) 0.000222348 at n = 100) on n x n quads, GMRES +
+    StructuredMG; robin: the impedance robin_alpha = 0.5 + 0.25 i on the
+    Neumann side too."""
+    funcs = {
+        "source_r_side": "2.0*pi*cos(2*pi*x)*sin(2*pi*y)",
+        "source_i_side": "2.0*pi*cos(2*pi*x)*sin(2*pi*y)",
+        "scoeff": "8*pi*pi*(x*x-2*x-1)-1.0",
+        "scoeffi": "8*pi*pi*(x*x+2*x-1)-1.0",
+        "srcoeff": "2.0-2*x", "sicoeff": "-2.0-2*x",
+        "source_r": "scoeff*sin(2*pi*x)*sin(2*pi*y) + "
+                    "srcoeff*2*pi*cos(2*pi*x)*sin(2*pi*y)",
+        "source_i": "scoeffi*sin(2*pi*x)*sin(2*pi*y) + "
+                    "sicoeff*2*pi*cos(2*pi*x)*sin(2*pi*y)",
+        "c2r_x": "x*x-1.0", "c2i_x": "2.0*x",
+        "c2r_y": "x*x-1.0", "c2i_y": "2.0*x",
+        "omega2r": "1.0", "omega2i": "0.0"}
+    if robin:
+        funcs.update({"robin_alpha_r": "0.5", "robin_alpha_i": "0.25"})
+    walls = {"left": 0.0, "top": 0.0, "bottom": 0.0}
+    return {
+        "Mesh": {"dimension": 2, "element type": "quad", "NX": n, "NY": n},
+        "Physics": {"modules": "helmholtz",
+                    "Dirichlet conditions": {"scalar data": True,
+                                             "ureal": dict(walls),
+                                             "uimag": dict(walls)},
+                    "Neumann conditions": {"ureal": {"right": "0.0"},
+                                           "uimag": {"right": "0.0"}}},
+        "Functions": funcs,
+        "Discretization": {"order": {"ureal": 1, "uimag": 1},
+                           "quadrature": 2},
+        "Solver": dict({"solver": "steady-state", "nonlinear TOL": 1e-8,
+                        "preconditioner variant": "multigrid",
+                        "linear TOL": 1e-11}, **(solver or {})),
+        "Postprocess": {"compute errors": True,
+                        "True solutions": {
+                            "ureal": "sin(2*pi*x)*sin(2*pi*y)",
+                            "uimag": "sin(2*pi*x)*sin(2*pi*y)"}},
+    }
+
+
+def ks_deck(n, dim=1, steps=20):
+    """Kuramoto-Sivashinsky. dim 1: the reference's ks/1D_wave
+    (tests/test_ks_gold.py: 10 elements periodic in x, u = sin(2 pi x),
+    BWE steps of 1e-3 to t = 0.02, direct; the norms of u and w at every
+    step, true solutions 0). dim 2: n x n quads periodic in x and y, u =
+    sin(2 pi x) sin(2 pi y), `steps` BWE steps of 1e-3, direct (the
+    mixed system's condition grows as dt/h^4: at 128^2 GMRES with Jacobi
+    or element-Schwarz stops at its cap, and the two runs' L2(u) at t =
+    0.004 differ 30-fold in the JAX package)."""
+    conds = {"Periodic Condition 1": "x-all 1e-8: left;right"} if dim == 1 \
+        else {"Periodic Condition 1": "y-all 1e-8: left;right",
+              "Periodic Condition 2": "x-all 1e-8: bottom;top"}
+    mesh = {"dimension": dim, "NX": n,
+            "Periodic BCs": dict({"Count": len(conds)}, **conds)}
+    mesh.update({"element type": "interval"} if dim == 1 else
+                {"element type": "quad", "NY": n})
+    return {
+        "Mesh": mesh,
+        "Physics": {"modules": "Kuramoto-Sivashinsky",
+                    "Initial conditions": {
+                        "u": "sin(2*pi*x)" if dim == 1
+                        else "sin(2*pi*x)*sin(2*pi*y)"}},
+        "Discretization": {"order": {"u": 1, "w": 1}, "quadrature": 2},
+        "Solver": _steps(1.0e-3, steps, **(
+            {"nonlinear TOL": 1e-7, "max nonlinear iters": 10,
+             "use direct solver": True} if dim == 1
+            else {"nonlinear TOL": 1e-10, "use direct solver": True})),
+        "Postprocess": {"compute errors": True,
+                        "True solutions": {"u": "0.0", "w": "0.0"}},
+    }
+
+
+def shallowwater_deck(n, steps=5):
+    """The reference's shallowwater/droptest (tests/test_solid_sw_porous.py
+    :45-77): a Gaussian hump of water on n x n quads, DIRK-1,2 steps of
+    1e-3; gold L2(H) 1.00321 (rtol 2e-5) and L2(Hv) 0.0121219 (2e-4) at
+    t = 0.005 at n = 40."""
+    return {
+        "Mesh": {"dimension": 2, "element type": "quad", "NX": n, "NY": n},
+        "Physics": {"modules": "shallow water",
+                    "Dirichlet conditions": {
+                        "scalar data": True,
+                        "Hu": {"left": 0.0, "right": 0.0},
+                        "Hv": {"top": 0.0, "bottom": 0.0}},
+                    "Initial conditions": {"H": "1.0 + 0.1*exp(hump)",
+                                           "Hu": "0.0", "Hv": "0.0"}},
+        "Discretization": {"order": {"H": 1, "Hu": 1, "Hv": 1},
+                           "quadrature": 2},
+        "Solver": _steps(1.0e-3, steps, "DIRK-1,2"),
+        "Postprocess": {"compute errors": True,
+                        "True solutions": {"H": "0.0", "Hu": "0.0",
+                                           "Hv": "0.0"}},
+        "Functions": {"hump":
+                      "-100.0*(x-0.5)*(x-0.5) - 100*(y-0.5)*(y-0.5)"},
+    }
+
+
+def phasefield_deck(n, legacy=True, dim=2, module="msphasefield"):
+    """The reference's phasefield/2d-3phi (tests/test_phasefield_gold.py:
+    three disks on [0,100]^2, n x n quads, L = 2 (active), A = 0.2,
+    thermal_diff = 2 as parameters, one BWE step to t = 0.5, initial
+    values interpolated; golds at n = 100 with the legacy first-qp
+    sampling). dim 3: the disks as balls on n^3 hex."""
+    rs = {"rone": (37.5, 50.0, 50.0), "rtwo": (61.5, 50.0, 50.0),
+          "rthree": (50.0, 75.0, 50.0)}
+    funcs = {k: "(" + " + ".join(f"({a}-{c})*({a}-{c})" for a, c in
+                                 zip("xyz"[:dim], ctr)) + ")^(0.5)"
+             for k, ctr in rs.items()}
+    mesh = {"dimension": dim, "element type": "quad" if dim == 2 else "hex",
+            "xmin": 0.0, "xmax": 100.0, "ymin": 0.0, "ymax": 100.0,
+            "NX": n, "NY": n}
+    if dim == 3:
+        mesh.update({"zmin": 0.0, "zmax": 100.0, "NZ": n})
+    return {
+        "Mesh": mesh,
+        "Physics": {"number_phases": 3, "modules": module,
+                    "legacy first-qp sampling": legacy,
+                    "Initial conditions": {
+                        "phi1": "1.0*(rone<12.5)", "phi2": "1.0*(rtwo<12.5)",
+                        "phi3": "1.0*(rthree<12.5)"}},
+        "Functions": funcs,
+        "Parameters": {
+            "thermal_diff": {"type": "scalar", "value": 2.0,
+                             "usage": "inactive"},
+            "L": {"type": "scalar", "value": 2.0, "usage": "active"},
+            "A": {"type": "scalar", "value": 0.2, "usage": "inactive"}},
+        "Discretization": {"order": {"phi1": 1, "phi2": 1, "phi3": 1},
+                           "quadrature": 2},
+        "Solver": {"solver": "transient", "initial type": "interpolation",
+                   "nonlinear TOL": 1e-7, "max nonlinear iters": 10,
+                   "final time": 0.5, "delta t": 0.5},
+        "Postprocess": {"compute errors": True,
+                        "True solutions": {
+                            p: "sin(2*pi*x)*sin(2*pi*y)"
+                            for p in ("phi1", "phi2", "phi3")}},
+    }
+
+
+def phasesolidification_deck(n, dim=3, module="phasesolidification",
+                             legacy=False):
+    """Two phases on n^dim (hex in 3D) decaying from sine bumps, L = 1, A
+    = 0.25, diff = 0.8 as functions, 0 on the boundary, two BWE steps of
+    0.01 (tests/test_phasesolidification.py), nonlinear TOL 1e-10; the
+    norms of phi1, phi2 (true solutions 0). module "msphasefield": its
+    form, with its first-qp sampling if `legacy`."""
+    bump = "*".join(f"sin(pi*{a})" for a in "xyz"[:dim])
+    mesh = {"dimension": dim, "element type": "quad" if dim == 2 else "hex",
+            "NX": n, "NY": n}
+    if dim == 3:
+        mesh["NZ"] = n
+    return {
+        "Mesh": mesh,
+        "Physics": {"modules": module, "number_phases": 2,
+                    "legacy first-qp sampling": legacy,
+                    "Dirichlet conditions": {
+                        "scalar data": True,
+                        "phi1": {"all boundaries": 0.0},
+                        "phi2": {"all boundaries": 0.0}},
+                    "Initial conditions": {"phi1": bump,
+                                           "phi2": f"0.5*{bump}"}},
+        "Functions": {"L": "1.0", "A": "0.25", "diff": "0.8"},
+        "Discretization": {"order": {"phi1": 1, "phi2": 1},
+                           "quadrature": 2},
+        "Solver": _steps(0.01, 2, **{"nonlinear TOL": 1e-10}),
+        "Postprocess": {"compute errors": True,
+                        "True solutions": {"phi1": "0.0", "phi2": "0.0"}},
+    }
+
+
+VDNS_TRUE = {"ux": "0.5*y*(1.0-y)", "uy": "0.0", "pr": "0.0", "T": "1.0"}
+
+
+def vdns_deck(nx, ny, pspg=True, supg=False, graddiv=False, steps=0,
+              solver=None):
+    """The reference's vdns/channel (tests/test_vdns_gold.py): the
+    channel [0,5]x[0,1] on nx x ny quads, T = 1 on the walls, traction
+    data in and out, rho = mu = cp = lambda = 1 as functions, p0 = 1 and
+    dp0dt = 0 as parameters; gold L2 ux / pr / uy 0.0019421 / 0.0128887 /
+    8.18291e-05 and T 0 at 50x10 (PSPG, steady, direct). steps > 0: the
+    start-up from rest, BWE steps of 0.01, direct: with PSPG + SUPG +
+    GRADDIV, GMRES + Jacobi stops at its cap in every solve and Newton at
+    its 10 iterations at 128x32 and 256x64 (32 and 40 Newton iterations
+    for 4 steps), and GMRES + StructuredMG at 256x64 outlasts 15 minutes
+    on the card."""
+    sol = {"solver": "steady-state", "use direct solver": True}
+    if steps:
+        sol = _steps(0.01, steps, **{"nonlinear TOL": 1e-8,
+                                     "use direct solver": True})
+    return {
+        "Mesh": {"dimension": 2, "element type": "quad", "xmin": 0.0,
+                 "xmax": 5.0, "ymin": 0.0, "ymax": 1.0, "NX": nx,
+                 "NY": ny},
+        "Physics": {"modules": "VDNS", "usePSPG": pspg, "useSUPG": supg,
+                    "useGRADDIV": graddiv,
+                    "Dirichlet conditions": {
+                        "scalar data": True,
+                        "ux": {"bottom": 0.0, "top": 0.0},
+                        "uy": {"bottom": 0.0, "top": 0.0},
+                        "T": {"bottom": 1.0, "top": 1.0},
+                        "pr": {"left": 0.0}},
+                    "Neumann conditions": {
+                        "ux": {"left": "0.0", "right": "0.0"},
+                        "uy": {"left": "-.5*(1.-2.*y)",
+                               "right": ".5*(1.-2.*y)"}},
+                    "Initial conditions": {
+                        "scalar data": False, "ux": "0.0", "uy": "0.0",
+                        "pr": "0.0", "T": "1.0"}},
+        "Functions": {"source ux": "1.0", "rho": "1.0", "mu": "1.0",
+                      "cp": "1.0", "lambda": "1.0"},
+        "Parameters": {
+            "p0": {"type": "scalar", "value": 1.0, "usage": "inactive"},
+            "dp0dt": {"type": "scalar", "value": 0.0, "usage": "inactive"}},
+        "Discretization": {"order": {"ux": 1, "uy": 1, "pr": 1, "T": 1},
+                           "quadrature": 2},
+        "Solver": dict(sol, **(solver or {})),
+        "Postprocess": {"compute errors": True,
+                        "True solutions": dict(VDNS_TRUE)},
+    }
+
+
+def porous_deck(n, compressible=False, steps=4):
+    """The reference's porous/2D_verification (tests/test_solid_sw_porous.py
+    :79-103: p = sin(2 pi x) sin(2 pi y) on n x n quads, steady; gold L2
+    0.00102776, L2-grad 0.201394, L2-face 0.0017603 at n = 40).
+    compressible: compressibility 0.1 and permeability 1 + 0.5 sin(2 pi
+    x), `steps` BWE steps of 0.05 from p = 0, GMRES + StructuredMG."""
+    cfg = {
+        "Mesh": {"dimension": 2, "element type": "quad", "NX": n, "NY": n},
+        "Functions": {"porous source": SOURCE},
+        "Physics": {"modules": "porous",
+                    "Dirichlet conditions": {"scalar data": True,
+                                             "p": {"all boundaries": 0.0}},
+                    "Initial conditions": {"scalar data": True, "p": 0.0}},
+        "Discretization": {"order": {"p": 1}, "quadrature": 2},
+        "Solver": {"solver": "steady-state", "nonlinear TOL": 1e-7,
+                   "max nonlinear iters": 2},
+        "Postprocess": {"compute errors": True,
+                        "True solutions": {
+                            "p": S_TRUE, "p face": S_TRUE,
+                            "grad(p)[x]": "2*pi*cos(2*pi*x)*sin(2*pi*y)",
+                            "grad(p)[y]": "2*pi*sin(2*pi*x)*cos(2*pi*y)"}},
+    }
+    if compressible:
+        cfg["Functions"].update({"compressibility": "0.1",
+                                 "permeability": "1.0 + 0.5*sin(2*pi*x)"})
+        cfg["Solver"] = dict(_steps(0.05, steps, **{"nonlinear TOL": 1e-10}),
+                             **MG)
+    return cfg
+
+
+def manufactured_deck(n, module, var, funcs, transient=False):
+    """A steady manufactured deck of a scalar module on n x n quads: u =
+    sin(2 pi x) sin(2 pi y), 0 on the boundary, CG + Jacobi (transient:
+    4 BWE steps of 0.05 from 0 towards it)."""
+    cfg = {
+        "Mesh": {"dimension": 2, "element type": "quad", "NX": n, "NY": n},
+        "Functions": funcs,
+        "Physics": {"modules": module,
+                    "Dirichlet conditions": {"scalar data": True,
+                                             var: {"all boundaries": 0.0}},
+                    "Initial conditions": {"scalar data": True, var: 0.0}},
+        "Discretization": {"order": {var: 1}, "quadrature": 2},
+        "Solver": {"solver": "steady-state", "nonlinear TOL": 1e-10,
+                   "Belos solver": "CG"},
+        "Postprocess": {"compute errors": True,
+                        "True solutions": {var: S_TRUE}},
+    }
+    if transient:
+        cfg["Solver"] = _steps(0.05, 4, **{"nonlinear TOL": 1e-10,
+                                           "Belos solver": "CG"})
+    return cfg
+
+
+def shallowice_deck(n):
+    """Shallow ice with the diffusion 1 + 0.5 x y: its manufactured
+    source (tests/test_shallowice_llamas.py), CG."""
+    kx = "2*pi*cos(2*pi*x)*sin(2*pi*y)"
+    ky = "2*pi*sin(2*pi*x)*cos(2*pi*y)"
+    return manufactured_deck(n, "shallow ice", "s", {
+        "diffusion": "1.0 + 0.5*x*y",
+        "source": f"(1.0 + 0.5*x*y)*8*(pi*pi)*{S_TRUE}"
+                  f" - 0.5*y*{kx} - 0.5*x*{ky}"})
+
+
+def llamas_deck(n):
+    """llamas, -lap u + c u = f with c = 1 (tests/test_shallowice_llamas.py
+    :91-105), CG."""
+    return manufactured_deck(n, "llamas", "llama", {
+        "whatever": f"(8*(pi*pi)+1.0)*{S_TRUE}", "c": "1.0"})
+
+
+def physics_test_deck(n):
+    """physicsTest (plain diffusion) towards the manufactured solution,
+    4 BWE steps of 0.05 from 0, CG."""
+    return manufactured_deck(n, "physicsTest", "e",
+                             {"test source": SOURCE}, transient=True)
+
+
+def hartmann_deck(n, ny=None, ha=None):
+    """The reference's hartmann/analytical_solve (tests/test_hartmann_gold.py:
+    [-1, 1] in n elements, u = 0 at the walls, the Neumann data
+    -resistivity b on b, resistivity and hartmannNum as parameters 1.0,
+    direct; its analytic solution's L2 1.126126e-06 (u) and 1.062206e-06
+    (b) at n = 500, rtol 1e-4). ny: the same channel on n x ny quads of
+    [-1,1]x[0,0.25] (its solution does not vary in y), GMRES +
+    StructuredMG (GMRES + Jacobi stops at its cap).
+    ha: the parameter hartmannNum's value (the function of that name,
+    1.0 by default, is what the module reads)."""
+    mesh = {"dimension": 1, "element type": "interval", "xmin": -1.0,
+            "xmax": 1.0, "NX": n}
+    if ny:
+        mesh.update({"dimension": 2, "element type": "quad", "NY": ny,
+                     "ymin": 0.0, "ymax": 0.25})
+    return {
+        "Mesh": mesh,
+        "Physics": {"modules": "hartmann",
+                    "Dirichlet conditions": {
+                        "scalar data": True, "u": {"left": 0.0,
+                                                   "right": 0.0}},
+                    "Neumann conditions": {
+                        "b": {"left": "-resistivity*b",
+                              "right": "-resistivity*b"}}},
+        "Functions": {
+            "uhat": "(resistivity+1)/(hartmannNum*(hartmannNum+"
+                    "resistivity*sinh_Ha/cosh_Ha))",
+            "cosh_Ha": "cosh(hartmannNum)", "sinh_Ha": "sinh(hartmannNum)",
+            "cosh_xHa": "cosh(x*hartmannNum)",
+            "sinh_xHa": "sinh(x*hartmannNum)"},
+        "Parameters": {
+            "resistivity": {"type": "scalar", "value": 1.0,
+                            "usage": "inactive"},
+            "hartmannNum": {"type": "scalar",
+                            "value": 1.0 if ha is None else ha,
+                            "usage": "inactive"}},
+        "Discretization": {"order": {"u": 1, "b": 1}, "quadrature": 2},
+        "Solver": dict({"solver": "steady-state", "nonlinear TOL": 1e-10,
+                        "max nonlinear iters": 2},
+                       **(MG if ny else {"use direct solver": True})),
+        "Postprocess": {"compute errors": True,
+                        "True solutions": {
+                            "u": "uhat*(1-cosh_xHa/cosh_Ha)",
+                            "b": "-x/hartmannNum+uhat*sinh_xHa/cosh_Ha"}},
+    }
+
+
+def inc_sat_deck(nx, ny, wells=True, steps=4):
+    """Incompressible saturation (tests/test_inc_sat.py): S = 0.5 + 0.25
+    sin(2 pi (x - t)) carried by u = (1, 0), f_w = S, porosity 0.5, on nx
+    x ny quads periodic in x, DIRK-2,2 steps of 0.005; wells: a rate well
+    (0.3 at (0.5, 0.5)) through 'use well source'. GMRES + Jacobi."""
+    cfg = {
+        "Mesh": {"dimension": 2, "element type": "quad", "NX": nx, "NY": ny,
+                 "Periodic BCs": {
+                     "periodic condition 1": "y-all 1e-8: left;right"}},
+        "Physics": {"modules": "inc sat", "porosity": 0.5,
+                    "Initial conditions": {"S": "0.5 + 0.25*sin(2*pi*x)"}},
+        "Functions": {"f_w": "S", "ux": "1.0", "uy": "0.0",
+                      "source_S": "(-0.5)*0.25*2*pi*cos(2*pi*(x-t))"
+                                  " + 0.25*2*pi*cos(2*pi*(x-t))"},
+        "Discretization": {"order": {"S": 1}, "quadrature": 3},
+        "Solver": _steps(0.005, steps, "DIRK-2,2",
+                         **{"nonlinear TOL": 1e-10}),
+        "Postprocess": {"compute errors": True,
+                        "True solutions": {
+                            "S": "0.5 + 0.25*sin(2*pi*(x-t))"}},
+    }
+    if wells:
+        cfg["Physics"]["use well source"] = True
+        cfg["Physics"]["Wells"] = {
+            "w1": {"type": "rate", "rate": 0.3, "location": [0.5, 0.5],
+                   "radius": 0.05}}
+    return cfg
+
+
+CNS_FAR = {"rho": "1.0", "rhoux": "0.1", "rhouy": "0.0", "rhouz": "0.0",
+           "rhoE": "2.505"}
+
+
+def cns_deck(n, dim=2, bc="Slip", steps=4):
+    """Compressible Navier-Stokes (mu = 0.05): a pressure pulse at the
+    center of n^dim cells (tests/test_euler_unit.py:65-98's in 1D), DIRK-1,2
+    steps of 0.005; bc "Slip": slip walls on every side, "Far-field": the
+    free stream (1, 0.1, 0, 2.505) on every side. GMRES + Jacobi."""
+    names = ["rho", "rhoux", "rhouy", "rhouz"][:1 + dim] + ["rhoE"]
+    bump = "exp(-200*(" + "+".join(f"({a}-0.5)*({a}-0.5)"
+                                   for a in "xyz"[:dim]) + "))"
+    mesh = {"dimension": dim, "element type": ("interval", "quad", "hex")[
+        dim - 1], "NX": n, "NY": n, "NZ": n}
+    ics = {v: "0.0" for v in names}
+    ics.update({"rho": f"1.0 + 0.01*{bump}",
+                "rhoE": f"(1.0/0.4) + 0.01*{bump}"})
+    bcs = {"Slip conditions": {"rho": {"all boundaries": "0"}}} \
+        if bc == "Slip" else {"Far-field conditions": {
+            v: {"all boundaries": CNS_FAR[v]} for v in names}}
+    return {
+        "Mesh": mesh,
+        "Physics": dict({"modules": "cns", "gamma": 1.4, "mu": 0.05,
+                         "Initial conditions": ics}, **bcs),
+        "Discretization": {"order": {v: 1 for v in names}, "quadrature": 2},
+        "Solver": _steps(0.005, steps, "DIRK-1,2",
+                         **{"nonlinear TOL": 1e-10}),
+        "Postprocess": {"compute errors": True,
+                        "True solutions": {v: "0.0" for v in names}},
+    }
+
+
+def params_thermal_deck(n):
+    """The nonlinear thermal deck (kappa = 1 + e e) with kappa = k0 + k1
+    e e read from two inactive parameters k0 = k1 = 1: B2
+    thermal_node_full."""
+    cfg = nonlinear_deck(n)
+    cfg["Functions"]["thermal diffusion"] = "k0 + k1*e*e"
+    cfg["Parameters"] = {
+        "k0": {"type": "scalar", "value": 1.0, "usage": "inactive"},
+        "k1": {"type": "scalar", "value": 1.0, "usage": "inactive"}}
+    return cfg
+
+
+def params_ns_deck(nx):
+    """The 128x32 NS channel (PSPG, direct) with the viscosity and the
+    source ux both the active parameter nu = 0.5 (the same Poiseuille
+    flow): ns_node_full."""
+    cfg = ns_deck(nx, nx // 4, {"use direct solver": True,
+                                "nonlinear TOL": 1e-8})
+    cfg["Functions"].update({"viscosity": "nu", "source ux": "nu"})
+    cfg["Parameters"] = {"nu": {"type": "scalar", "value": 0.5,
+                                "usage": "active"}}
+    return cfg
+
+
+
+# the JAX package's f64 CPU L2 of every label at every recorded time of
+# each PHYSICS_DECKS deck (tools/jax_references.py DECK, the same deck
+# functions)
+PHYSICS_REFS = {}
+PHYSICS_REFS["burgers_backtracking_gold_nx100"] = {
+    0.0: {"u": 0.3540123425295318},
+    0.001: {"u": 0.32958352143011943},
+    0.002: {"u": 0.31388475411765393},
+    0.003: {"u": 0.30161904608698376},
+    0.004: {"u": 0.2913753642128912},
+}
+PHYSICS_REFS["helmholtz_gold_nx100"] = {
+    0.0: {"uimag": 0.00022234821846722628, "ureal": 0.0005172667182451912},
+}
+PHYSICS_REFS["ks_wave_nx10"] = {
+    0.0: {"u": 0.7071016787322177, "w": 0.0},
+    0.001: {"u": 0.5522612526660605, "w": 6.474842315933968},
+    0.002: {"u": 0.5060358319079303, "w": 5.047004012521376},
+    0.003: {"u": 0.4646432459184302, "w": 4.623686460519792},
+    0.004: {"u": 0.4266509178210092, "w": 4.245385482904524},
+    0.005: {"u": 0.3917692317768597, "w": 3.898142509993867},
+    0.006: {"u": 0.35974342401669984, "w": 3.5793057354039526},
+    0.007: {"u": 0.3303397730960832, "w": 3.286549802456974},
+    0.008: {"u": 0.30334375095366595, "w": 3.0177407791262834},
+    0.009: {"u": 0.27855844066194824, "w": 2.7709194149252894},
+    0.01: {"u": 0.25580308642162436, "w": 2.5442868420069846},
+    0.011: {"u": 0.23491176427041957, "w": 2.3361914370251022},
+    0.012: {"u": 0.2157321634633338, "w": 2.145116755150408},
+    0.013: {"u": 0.19812446916249707, "w": 1.9696704536790433},
+    0.014: {"u": 0.18196033784585225, "w": 1.808574125304784},
+    0.015: {"u": 0.1671219575927691, "w": 1.6606539663777722},
+    0.016: {"u": 0.15350118609611846, "w": 1.5248322112724657},
+    0.017: {"u": 0.1409987598782262, "w": 1.4001192696235176},
+    0.018: {"u": 0.12952356875555082, "w": 1.2856065084469819},
+    0.019: {"u": 0.11899199010931458, "w": 1.1804596260028453},
+    0.02: {"u": 0.10932727798220371, "w": 1.0839125686863174},
+}
+PHYSICS_REFS["shallowwater_droptest_gold_nx40"] = {
+    0.0: {"H": 1.0032149643175396, "Hu": 0.0, "Hv": 0.0},
+    0.001: {"H": 1.0032146521014367, "Hu": 0.0025051809155073185,
+        "Hv": 0.002505180915507317},
+    0.002: {"H": 1.0032137255377083, "Hu": 0.004989718501959955,
+        "Hv": 0.004989718501959952},
+    0.003: {"H": 1.0032122143767668, "Hu": 0.007433395727817461,
+        "Hv": 0.007433395727817455},
+    0.004: {"H": 1.0032101665600885, "Hu": 0.009816833593219325,
+        "Hv": 0.00981683359321932},
+    0.005: {"H": 1.0032076458763286, "Hu": 0.012121874560241636,
+        "Hv": 0.012121874560241634},
+}
+PHYSICS_REFS["phasefield_3phi_gold_nx100"] = {
+    0.0: {"phi1": 96.66791949095791, "phi2": 96.66791949095793,
+        "phi3": 96.69320321304497},
+    0.5: {"phi1": 96.77267328309175, "phi2": 96.78157608300222,
+        "phi3": 96.94318102413511},
+}
+PHYSICS_REFS["vdns_channel_gold_nx50"] = {
+    0.0: {"T": 1.75541673428835e-17, "pr": 0.01288871923600609,
+        "ux": 0.001942096392967426, "uy": 8.182912618944312e-05},
+}
+PHYSICS_REFS["porous_verification_gold_nx40"] = {
+    0.0: {"p": 0.0010277567668694498, "p#L2-face": 0.0017603025427893988,
+        "p#L2-grad": 0.20139361265266592},
+}
+PHYSICS_REFS["hartmann_analytic_nx500"] = {
+    0.0: {"b": 1.0622054296577546e-06, "u": 1.1261260633082536e-06},
+}
+PHYSICS_REFS["burgers_2d_evisc_supg_nx256"] = {
+    0.0: {"u": 0.1772430868478512},
+    0.01: {"u": 0.17693008660328272},
+    0.02: {"u": 0.1766203488394884},
+    0.03: {"u": 0.17631255645150776},
+    0.04: {"u": 0.17600552884684828},
+}
+PHYSICS_REFS["helmholtz_nx512"] = {
+    0.0: {"uimag": 7.806613100245951e-06, "ureal": 1.9737512449473583e-05},
+}
+PHYSICS_REFS["shallowwater_droptest_nx256"] = {
+    0.0: {"H": 1.0032149644716406, "Hu": 0.0, "Hv": 0.0},
+    0.001: {"H": 1.0032146520389829, "Hu": 0.0025060607502248623,
+        "Hv": 0.0025060607502248606},
+    0.002: {"H": 1.0032137248542359, "Hu": 0.004991426132077918,
+        "Hv": 0.004991426132077916},
+    0.003: {"H": 1.0032122127500391, "Hu": 0.00743583076889016,
+        "Hv": 0.007435830768890156},
+    0.004: {"H": 1.003210163793105, "Hu": 0.009819854372964103,
+        "Hv": 0.009819854372964093},
+    0.005: {"H": 1.003207641924439, "Hu": 0.012125307917392698,
+        "Hv": 0.012125307917392686},
+}
+PHYSICS_REFS["phasefield_consistent_nx256"] = {
+    0.0: {"phi1": 54.61894264263382, "phi2": 54.625771213250424,
+        "phi3": 54.61894264263382},
+    0.5: {"phi1": 54.7137514530592, "phi2": 54.7122465231369,
+        "phi3": 54.827131514160115},
+}
+PHYSICS_REFS["vdns_channel_stab_nx128x32"] = {
+    0.0: {"T": 2.608726512002472e-16, "pr": 0.0, "ux": 0.20412412900960128,
+        "uy": 0.0},
+    0.01: {"T": 1.4600302995332557e-16, "pr": 0.19140050205468634,
+        "ux": 0.18602680606227548, "uy": 0.003342467826609561},
+    0.02: {"T": 1.670656693217502e-16, "pr": 0.21532826618994613,
+        "ux": 0.16965373962199878, "uy": 0.004025593619397677},
+    0.03: {"T": 1.7828451207616058e-16, "pr": 0.21076055113566516,
+        "ux": 0.1547580996237502, "uy": 0.004045183926213728},
+    0.04: {"T": 1.880595470498099e-16, "pr": 0.1983439162797259,
+        "ux": 0.14118315971702938, "uy": 0.003853502484884268},
+}
+PHYSICS_REFS["porous_compressible_nx512"] = {
+    0.0: {"p": 0.49999999999999917, "p#L2-face": 362.03867196751236,
+        "p#L2-grad": 4.442882938158359},
+    0.05: {"p": 0.24592921249293254, "p#L2-face": 178.07620054998364,
+        "p#L2-grad": 2.232839041521854},
+    0.1: {"p": 0.2711511798805548, "p#L2-face": 196.33923890479116,
+        "p#L2-grad": 2.4473114440562176},
+    0.15: {"p": 0.2725242226412772, "p#L2-face": 197.3334420554747,
+        "p#L2-grad": 2.458367575686994},
+    0.2: {"p": 0.2726038574253501, "p#L2-face": 197.39110440580504,
+        "p#L2-grad": 2.4589773724043633},
+}
+PHYSICS_REFS["ks_periodic_2d_nx64"] = {
+    0.0: {"u": 0.49999999988474475, "w": 0.0},
+    0.001: {"u": 0.06978215026461776, "w": 5.5141836098317585},
+    0.002: {"u": 0.009740997999655276, "w": 0.7695802602941801},
+    0.003: {"u": 0.0013733045474953836, "w": 0.10740552363186387},
+    0.004: {"u": 0.00027292141834839745, "w": 0.01498991996367471},
+}
+PHYSICS_REFS["shallowice_nx256"] = {
+    0.0: {"s": 2.5105023284455436e-05},
+}
+PHYSICS_REFS["hartmann_channel_nx256x64"] = {
+    0.0: {"b": 2.025996888807249e-06, "u": 2.1479173156145356e-06},
+}
+PHYSICS_REFS["llamas_nx256"] = {
+    0.0: {"llama": 2.4785622266313283e-05},
+}
+PHYSICS_REFS["phasesolidification_3d_nx32"] = {
+    0.0: {"phi1": 0.3535533575349766, "phi2": 0.1767766787674883},
+    0.01: {"phi1": 0.28357851143682916, "phi2": 0.1406746310091262},
+    0.02: {"phi1": 0.22762739919500607, "phi2": 0.11219983390417093},
+}
+PHYSICS_REFS["inc_sat_wells_nx256x64"] = {
+    0.0: {"S": 4.1917432401208256e-08},
+    0.005: {"S": 0.0008082030030670742},
+    0.01: {"S": 0.0016044849944451497},
+    0.015: {"S": 0.0023891928750955226},
+    0.02: {"S": 0.0031621878796920045},
+}
+PHYSICS_REFS["physics_test_nx256"] = {
+    0.0: {"e": 0.4999999999999998},
+    0.05: {"e": 0.10107014036458759},
+    0.1: {"e": 0.02044632483965424},
+    0.15: {"e": 0.004152233355124118},
+    0.2: {"e": 0.000859193766044875},
+}
+PHYSICS_REFS["cns_pulse_2d_nx128"] = {
+    0.0: {"rho": 1.0001574599349403, "rhoE": 2.500157231767945, "rhoux": 0.0,
+        "rhouy": 0.0},
+    0.005: {"rho": 1.0001574585346722, "rhoE": 2.5001572335594306,
+        "rhoux": 2.2442757591318166e-05, "rhouy": 2.2442757591318526e-05},
+    0.01: {"rho": 1.0001574546545327, "rhoE": 2.500157231786658,
+        "rhoux": 4.04014720576086e-05, "rhouy": 4.040147205760727e-05},
+    0.015: {"rho": 1.0001574488736458, "rhoE": 2.5001572272773016,
+        "rhoux": 5.4968106209905284e-05, "rhouy": 5.496810620990538e-05},
+    0.02: {"rho": 1.0001574416623464, "rhoE": 2.500157220770904,
+        "rhoux": 6.685097130552392e-05, "rhouy": 6.685097130552448e-05},
+}
+PHYSICS_REFS["params_thermal_nonlinear_nx256"] = {
+    0.0: {"e": 2.5099636346396307e-05},
+}
+PHYSICS_REFS["params_ns_channel_nx128"] = {
+    0.0: {"pr": 0.0014361471164863364, "ux": 0.00018842896243938227,
+        "uy": 1.225088645125545e-05},
+}
+
+# name -> (deck function of n, n on the card, the kernel each fused
+# res_and_jac call launches (None: the general path), {time: the golds
+# per label, each (value, rtol)}); PHYSICS_DECKS adds rtol 1e-6 and the
+# JAX package's L2 (PHYSICS_REFS) as MESH_DECKS holds them. A label
+# "var#L2-grad" is the norm of that kind (l2_key). A reference below
+# ZERO_L2 (a field exact to round-off) is held as |L2| <= ZERO_L2.
+_PHYSICS = {
+    # the reference decks at the reference's size
+    "burgers_backtracking_gold_nx100": (
+        lambda n: burgers_deck(n, dim=1), 100, None, {
+        t: {"u": (g, 2e-5)} for t, g in ((0.0, 0.354012), (0.001, 0.329584),
+                                         (0.002, 0.313885),
+                                         (0.004, 0.291375))}),
+    "helmholtz_gold_nx100": (helmholtz_deck, 100, None, {0.0: {
+        "ureal": (0.000517267, 2e-5), "uimag": (0.000222348, 2e-5)}}),
+    "ks_wave_nx10": (ks_deck, 10, None, {}),
+    "shallowwater_droptest_gold_nx40": (shallowwater_deck, 40, None, {
+        0.005: {"H": (1.00321, 2e-5), "Hv": (0.0121219, 2e-4)}}),
+    "phasefield_3phi_gold_nx100": (phasefield_deck, 100, None, {
+        0.0: {"phi1": (96.6679, 2e-5), "phi2": (96.6679, 2e-5),
+              "phi3": (96.6932, 2e-5)},
+        0.5: {"phi1": (96.7726, 2e-5), "phi2": (96.7815, 2e-5),
+              "phi3": (96.9442, 2e-5)}}),
+    "vdns_channel_gold_nx50": (lambda n: vdns_deck(n, n // 5), 50, None, {
+        0.0: {"ux": (0.0019421, 2e-5), "pr": (0.0128887, 2e-5),
+              "uy": (8.18291e-05, 2e-5)}}),
+    "porous_verification_gold_nx40": (porous_deck, 40, None, {0.0: {
+        "p": (0.00102776, 2e-5), "p#L2-grad": (0.201394, 2e-5),
+        "p#L2-face": (0.0017603, 2e-4)}}),
+    "hartmann_analytic_nx500": (hartmann_deck, 500, None, {0.0: {
+        "u": (1.126126e-06, 1e-4), "b": (1.062206e-06, 1e-4)}}),
+    # full width
+    "burgers_2d_evisc_supg_nx256": (
+        lambda n: burgers_deck(n, evisc=True, supg=True), 256, None, {}),
+    "helmholtz_nx512": (helmholtz_deck, 512, None, {}),
+    "shallowwater_droptest_nx256": (shallowwater_deck, 256, None, {}),
+    "phasefield_consistent_nx256": (
+        lambda n: phasefield_deck(n, legacy=False), 256, None, {}),
+    # 128x32, not 256x64: a dense solve (vdns_deck)
+    "vdns_channel_stab_nx128x32": (
+        lambda n: vdns_deck(n, n // 4, True, True, True, steps=4), 128,
+        None, {}),
+    "porous_compressible_nx512": (
+        lambda n: porous_deck(n, compressible=True), 512, None, {}),
+    # 64^2, not 128^2: a dense solve (ks_deck)
+    "ks_periodic_2d_nx64": (lambda n: ks_deck(n, dim=2, steps=4), 64, None,
+                            {}),
+    "shallowice_nx256": (shallowice_deck, 256, None, {}),
+    "hartmann_channel_nx256x64": (lambda n: hartmann_deck(n, n // 4), 256,
+                                  None, {}),
+    "llamas_nx256": (llamas_deck, 256, None, {}),
+    "phasesolidification_3d_nx32": (phasesolidification_deck, 32, None, {}),
+    "inc_sat_wells_nx256x64": (lambda n: inc_sat_deck(n, n // 4), 256, None,
+                               {}),
+    "physics_test_nx256": (physics_test_deck, 256, None, {}),
+    "cns_pulse_2d_nx128": (cns_deck, 128, None, {}),
+    # coefficients that read parameters, on the B2 kernels
+    "params_thermal_nonlinear_nx256": (params_thermal_deck, 256, "full", {}),
+    "params_ns_channel_nx128": (params_ns_deck, 128, "ns_full", {}),
+}
+PHYSICS_DECKS = {name: (build, n, 1e-6, PHYSICS_REFS[name], mode, golds)
+                 for name, (build, n, mode, golds) in _PHYSICS.items()}
 
 def _jacobian_on(J, device):
     """The BlockJacobian J with its tensors on `device`: the same numbers
@@ -3185,19 +3958,23 @@ RECORDS = {}
 
 def l2_key(label):
     """The error calculator's key of a label: "e" -> ("L2", "e"), "e@1"
-    (the norm on element block 1) -> ("L2@1", "e")."""
+    (the norm on element block 1) -> ("L2@1", "e"), "p#L2-grad" (a norm
+    of another kind) -> ("L2-grad", "p")."""
+    label, _, kind = label.partition("#")
     var, _, block = label.partition("@")
-    return (f"L2@{block}" if block else "L2", var)
+    return (kind or (f"L2@{block}" if block else "L2"), var)
 
 
 def l2_labels(errs):
     """{label: L2} of one recorded time's errors, the inverse of l2_key
-    over the L2 norms."""
+    over the L2 norms (and the L2-grad and L2-face norms)."""
     out = {}
     for (kind, var), val in errs.items():
         if kind == "L2" or kind.startswith("L2@"):
             block = kind.partition("@")[2]
             out[f"{var}@{block}" if block else var] = float(val)
+        elif kind in ("L2-grad", "L2-face"):
+            out[f"{var}#{kind}"] = float(val)
     return out
 
 
@@ -3340,6 +4117,36 @@ def mesh_solid_decks(device):
                     for v, g in ref.items()], mode)
         for name, (build, n, rtol, refs, mode, golds) in {
             **MESH_DECKS, **SOLID_DECKS}.items()]
+
+
+# a label whose JAX L2 is below this is a field exact to round-off (T of
+# the VDNS channel, w at t = 0, a momentum at rest): held as |L2| <= it
+ZERO_L2 = 1e-12
+
+
+def physics_decks(device):
+    """Runs PHYSICS_DECKS, each held to its JAX L2 (ZERO_L2 for a field
+    exact to round-off) and its golds; returns each deck's launches.
+    Alone on the card: python3 -c 'import torch, chip_smoke;
+    chip_smoke.physics_decks(torch.device("cuda"))' (the node kernels
+    build at first use)."""
+    out = []
+    for name, (build, n, rtol, refs, mode, golds) in PHYSICS_DECKS.items():
+        checks = [(t, v, g, rtol) for t, ref in refs.items()
+                  for v, g in ref.items() if abs(g) >= ZERO_L2]
+        checks += [(t, v, g, r) for t, ref in golds.items()
+                   for v, (g, r) in ref.items()]
+        zeros = [(t, v) for t, ref in refs.items() for v, g in ref.items()
+                 if abs(g) < ZERO_L2]
+
+        def post(problem, result, zeros=zeros):
+            hist = {round(t, 10): errs for t, errs in result.error_history}
+            worst = max((abs(float(hist[round(t, 10)][l2_key(v)]))
+                         for t, v in zeros), default=0.0)
+            return {"zero_labels": len(zeros), "zero_max": worst,
+                    "ok": worst <= ZERO_L2}
+        out.append(run_deck(name, build(n), device, checks, mode, post))
+    return out
 
 
 def set_sources():
@@ -3513,6 +4320,7 @@ def main(argv=()):
             "jacobi": {k: RECORDS[jacobi][k] for k in keys}}
         for name, (*_deck, jacobi) in SOLVER_DECKS.items()}})
     per_deck += mesh_solid_decks(device)
+    per_deck += physics_decks(device)
     launches = {k: sum(d[k] for d in per_deck) for k in fp.LAUNCHES}
     advect_launches = {k: sum(d[k] for d in advect_decks)
                        for k in fp.LAUNCHES}

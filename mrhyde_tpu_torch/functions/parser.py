@@ -22,7 +22,7 @@ from dataclasses import dataclass
 import numpy as np
 import torch
 
-from mrhyde_tpu_torch.ops.sparse_dual import BINARY, UNARY, SDual, value
+from mrhyde_tpu_torch.ops.sparse_dual import BINARY, UNARY, SDual, abs_, value
 
 __all__ = ["parse_expression", "Expr"]
 
@@ -79,6 +79,8 @@ def _ereduce(tfn):
 _FUNCS = {name: _unary(getattr(torch, name), getattr(np, name), name)
           for name in ("sin", "cos", "tan", "exp", "log", "sqrt", "abs",
                        "sinh", "cosh", "tanh")}
+# |x| with jnp.abs's tangent at 0 (sparse_dual.abs_)
+_FUNCS["abs"] = _unary(abs_, np.abs, "abs")
 _FUNCS.update({
     "emax": _ereduce(torch.amax), "emin": _ereduce(torch.amin),
     "emean": _ereduce(torch.mean),

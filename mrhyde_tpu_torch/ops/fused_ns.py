@@ -51,8 +51,8 @@ from mrhyde_tpu_torch.ops._launch import (
     LAUNCHES, ElemArgs, check_err, check_smem, elem_smem_words, elem_tiles,
     ns_node_smem_words, stream)
 from mrhyde_tpu_torch.ops.fused_p1 import (
-    QUAD_P1, QpCtx, Stage, _check_grid, _scalar, qp_coords, steady_check,
-    structured_geometry)
+    QUAD_P1, QpCtx, Stage, _check_grid, _scalar, params_key, qp_coords,
+    steady_check, structured_geometry)
 from mrhyde_tpu_torch.ops.sparse_dual import sparse_jacfwd
 from mrhyde_tpu_torch.physics.navierstokes import ns_density
 
@@ -653,8 +653,7 @@ class FusedNSAssembly:
         """(density, viscosity, source ux, source uy[, source uz]): Python
         floats, or (E, Q) tensors for the ones that read the coordinates;
         cached per (time, params)."""
-        key = (float(time), tuple(sorted((k, float(v))
-                                         for k, v in params.items())))
+        key = (float(time), params_key(params))
         if self._coef_cache is not None and self._coef_cache[0] == key:
             return self._coef_cache[1]
         coords = None

@@ -558,7 +558,7 @@ class FusedP1Assembly:
         iterations, and two stages at the same time (Crank-Nicolson's
         stage 1 and the next step's stage 0, a retried step) never share
         it. A steady call reads no beta."""
-        pkey = tuple(sorted((k, float(v)) for k, v in params.items()))
+        pkey = params_key(params)
         if tc.is_steady:
             key, held = ("steady", float(tc.time), pkey), ()
         else:
@@ -721,6 +721,16 @@ class FusedP1Assembly:
         return r, BlockJacobian(vol=None, vol_lids=self.asm.lids,
                                 fixed=self.asm.fixed, inc=self.asm.inc,
                                 vol_soa=rows)
+
+
+def params_key(params):
+    """A cache key of a parameter dict: each scalar by its value, each
+    vector (a tensor or an array) by the tuple of its values."""
+    return tuple(sorted(
+        (k, float(v) if np.ndim(v) == 0 else tuple(
+            (v.detach().cpu() if isinstance(v, torch.Tensor)
+             else np.asarray(v)).reshape(-1).tolist()))
+        for k, v in params.items()))
 
 
 def _scalar(v):

@@ -156,6 +156,18 @@ def sqrt_(x):
     return math.sqrt(x)
 
 
+def abs_(x):
+    """|x| of a tensor or a float with jnp.abs's tangent under
+    torch.func: +1 at x = 0, where torch.abs's is 0 (a state at rest sits
+    on that kink: cns's eigenvalue u.n = 0); an SDual takes the sparse
+    rule's sign(x), as `UNARY["abs"]`."""
+    if isinstance(x, SDual):
+        return UNARY["abs"](x)
+    if isinstance(x, torch.Tensor):
+        return torch.where(x >= 0, x, -x)
+    return abs(x)
+
+
 def value(x):
     """The primal value of an SDual, or x itself."""
     return x.val if isinstance(x, SDual) else x

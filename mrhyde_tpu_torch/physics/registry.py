@@ -1,9 +1,9 @@
 """Physics module registry: input-deck name -> module class.
 
-`thermal`, `cdr`, `ODE`, `navier stokes`, `Stokes`, `linearelasticity`
-and `crystal elasticity` are ported so far. Every other module name the
-JAX package registers raises NotImplementedError naming the ROADMAP item
-that ports it.
+Every module the JAX package registers is ported but those of vector and
+trace bases (maxwell, the mixed and hybridized porous and shallow-water
+forms, Euler's HDG form), which raise NotImplementedError naming the
+ROADMAP item that ports them (A11).
 """
 
 from __future__ import annotations
@@ -14,12 +14,6 @@ _REGISTRY: dict[str, type] = {}
 
 # deck name -> ROADMAP item of the port that brings it
 _NOT_PORTED = {
-    "Burgers": "A10", "shallow water": "A10",
-    "shallow ice": "A10", "helmholtz": "A10", "hartmann": "A10",
-    "Kuramoto-Sivashinsky": "A10", "llamas": "A10",
-    "msphasefield": "A10", "phasesolidification": "A10", "VDNS": "A10",
-    "inc sat": "A10", "porous": "A10", "cns": "A10",
-    "physicsTest": "A10",
     "maxwell": "A11", "maxwell control": "A11", "maxwells_freq_pot": "A11",
     "porous mixed": "A11", "porous mixed hybridized": "A11",
     "porous weak Galerkin": "A11", "shallow water hybridized": "A11",
@@ -59,10 +53,24 @@ def import_physics(names, settings=None, dim=2):
 
 def _ensure_imported():
     # import the module files so their @register decorators run
+    import mrhyde_tpu_torch.physics.burgers  # noqa: F401
     import mrhyde_tpu_torch.physics.cdr  # noqa: F401
+    import mrhyde_tpu_torch.physics.cns  # noqa: F401
     import mrhyde_tpu_torch.physics.crystal_elasticity  # noqa: F401
+    import mrhyde_tpu_torch.physics.hartmann  # noqa: F401
+    import mrhyde_tpu_torch.physics.helmholtz  # noqa: F401
+    import mrhyde_tpu_torch.physics.incompressible_saturation  # noqa: F401
+    import mrhyde_tpu_torch.physics.kuramoto_sivashinsky  # noqa: F401
     import mrhyde_tpu_torch.physics.linearelasticity  # noqa: F401
+    import mrhyde_tpu_torch.physics.llamas  # noqa: F401
+    import mrhyde_tpu_torch.physics.msphasefield  # noqa: F401
     import mrhyde_tpu_torch.physics.navierstokes  # noqa: F401
     import mrhyde_tpu_torch.physics.ode  # noqa: F401
+    import mrhyde_tpu_torch.physics.phasesolidification  # noqa: F401
+    import mrhyde_tpu_torch.physics.physics_test  # noqa: F401
+    import mrhyde_tpu_torch.physics.porous  # noqa: F401
+    import mrhyde_tpu_torch.physics.shallowice  # noqa: F401
+    import mrhyde_tpu_torch.physics.shallowwater  # noqa: F401
     import mrhyde_tpu_torch.physics.stokes  # noqa: F401
     import mrhyde_tpu_torch.physics.thermal  # noqa: F401
+    import mrhyde_tpu_torch.physics.variable_density_ns  # noqa: F401

@@ -58,8 +58,10 @@ def _not_ported(what, item):
 
 def _reject_unported(cfg):
     """Raise on the deck features this port does not run yet."""
-    if cfg.get("Parameters"):
-        _not_ported("the Parameters sublist", "A12")
+    for name, sub in (cfg.get("Parameters", {}) or {}).items():
+        if isinstance(sub, dict) and sub.get("usage") == "discretized":
+            _not_ported(f"the discretized (field) parameter {name!r}",
+                        "A12")
     analysis = (cfg.get("Analysis", {}) or {}).get("analysis type",
                                                    "forward")
     if analysis != "forward":
@@ -189,7 +191,12 @@ class Problem:
             self.fm.add_function(name, expr, "side ip")
         for m in self.modules:
             m.define_functions(self.fm, fs)
-        self.params = {}
+        # the Parameters sublist: scalar and vector parameters resolve as
+        # expression leaves (a function of the same name comes first)
+        from mrhyde_tpu_torch.analysis.parameters import ParameterManager
+        self.param_manager = ParameterManager(cfg.get("Parameters"))
+        self.params = self.param_manager.all_values(self.device,
+                                                    self.dtype)
 
         qdeg = disc_cfg.get("quadrature")
         sqdeg = disc_cfg.get("side quadrature")

@@ -176,9 +176,12 @@ HEX = {"dimension": 3, "element type": "hex", "NX": 2, "NY": 2, "NZ": 2}
 
 @pytest.mark.parametrize("cfg_patch", [
     {"Solver": {"shards": 2}},
-    {"Parameters": {"kp": {"type": "scalar", "value": 1.0}}},
+    # a discretized (field) parameter (A12); scalars and vectors run
+    {"Parameters": {"kp": {"type": "HGRAD", "usage": "discretized",
+                           "initial_value": 1.0}}},
     {"Analysis": {"analysis type": "ROL"}},
-    {"Physics": {"modules": "Burgers"}},
+    # a module of A11 (vector and trace bases)
+    {"Physics": {"modules": "maxwell"}},
     # multiscale, multi-set decks, the solution writer (A13, A12)
     {"Subgrid": {"Mesh": {"NX": 2}}},
     {"Physics": {"physics set names": "a, b"}},

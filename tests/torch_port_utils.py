@@ -729,3 +729,80 @@ def write_grain_files(directory, n_grains, dim, seed):
     np.savetxt(os.path.join(directory, "mesh_data_pts.dat"), pts)
     np.savetxt(os.path.join(directory, "mesh_data.dat"),
                rotations(n_grains, dim, seed + 1).reshape(n_grains, 9))
+
+
+# the rest of A10's physics (tests/test_torch_physics_a10.py, _forms.py)
+def a10_decks():
+    """name -> deck of chip_smoke.py at a CPU size, one per module and
+    option: Burgers plain / entropy viscosity / SUPG, VDNS PSPG / SUPG /
+    GRADDIV steady and transient, msphasefield legacy on and off in 2D and
+    3D, phasesolidification 3D, inc sat with and without wells, Helmholtz
+    Neumann and Robin, cns Far-field and Slip, and the other modules."""
+    import chip_smoke as cs
+    return {
+        "burgers_1d": lambda: cs.burgers_deck(20, dim=1),
+        "burgers_plain": lambda: cs.burgers_deck(6, steps=2),
+        "burgers_evisc": lambda: cs.burgers_deck(6, evisc=True, steps=2),
+        "burgers_supg": lambda: cs.burgers_deck(6, supg=True, steps=2),
+        "helmholtz_neumann": lambda: cs.helmholtz_deck(
+            8, solver={"use direct solver": True}),
+        "helmholtz_robin": lambda: cs.helmholtz_deck(
+            8, robin=True, solver={"use direct solver": True}),
+        "ks_1d_periodic": lambda: cs.ks_deck(10, steps=4),
+        "ks_2d_periodic": lambda: cs.ks_deck(6, dim=2, steps=2),
+        "shallowwater": lambda: cs.shallowwater_deck(8, steps=2),
+        "msphasefield_2d_legacy": lambda: cs.phasesolidification_deck(
+            6, 2, "msphasefield", legacy=True),
+        "msphasefield_2d_consistent": lambda: cs.phasesolidification_deck(
+            6, 2, "msphasefield"),
+        "msphasefield_3d_legacy": lambda: cs.phasesolidification_deck(
+            3, 3, "msphasefield", legacy=True),
+        "msphasefield_3d_consistent": lambda: cs.phasesolidification_deck(
+            3, 3, "msphasefield"),
+        "msphasefield_3phi_consistent": lambda: cs.phasefield_deck(
+            8, legacy=False),
+        "phasesolidification_3d": lambda: cs.phasesolidification_deck(3),
+        "vdns_pspg_steady": lambda: cs.vdns_deck(10, 4),
+        "vdns_supg_steady": lambda: cs.vdns_deck(10, 4, pspg=True, supg=True),
+        "vdns_graddiv_steady": lambda: cs.vdns_deck(10, 4, pspg=True,
+                                                    graddiv=True),
+        "vdns_all_transient": lambda: cs.vdns_deck(
+            10, 4, True, True, True, steps=2,
+            solver={"use direct solver": True}),
+        "porous": lambda: cs.porous_deck(8),
+        "porous_compressible": lambda: cs.porous_deck(8, True, steps=2),
+        "shallowice": lambda: cs.shallowice_deck(8),
+        "llamas": lambda: cs.llamas_deck(8),
+        "physics_test": lambda: cs.physics_test_deck(8),
+        "hartmann_1d": lambda: cs.hartmann_deck(20),
+        "hartmann_2d": lambda: cs.hartmann_deck(8, ny=4),
+        "inc_sat": lambda: cs.inc_sat_deck(8, 4, wells=False, steps=2),
+        "inc_sat_wells": lambda: cs.inc_sat_deck(8, 4, wells=True, steps=2),
+        "cns_slip": lambda: cs.cns_deck(6, steps=2),
+        "cns_far_field": lambda: cs.cns_deck(6, bc="Far-field", steps=2),
+        "cns_1d": lambda: cs.cns_deck(16, dim=1, steps=2),
+    }
+
+
+# norms that are 0 to round-off (T of the VDNS channel, w at t = 0) are
+# held to this absolute bound instead of a relative one
+NORM_FLOOR = 1e-13
+
+
+def solve_both(cfg, rtol=1e-11):
+    """Both packages' runs of cfg: solutions within rtol of each other
+    (relative to max |u|), every norm at every recorded time within rtol
+    (or NORM_FLOOR); returns (JAX result, port result, port Problem)."""
+    import copy
+    pj, pt = both_problems(copy.deepcopy(cfg))
+    rj, rt = pj.run(), pt.run()
+    uj = np.asarray(rj.u)
+    assert np.max(np.abs(rt.u.numpy() - uj)) <= rtol * np.max(np.abs(uj))
+    assert len(rt.error_history) == len(rj.error_history)
+    for (tj, ej), (tt, et) in zip(rj.error_history, rt.error_history):
+        assert abs(tt - tj) <= 1e-14
+        assert set(et) == set(ej)
+        for key, val in ej.items():
+            assert abs(et[key] - val) <= max(rtol * abs(val), NORM_FLOOR), \
+                (tj, key, et[key], val)
+    return rj, rt, pt

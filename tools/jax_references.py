@@ -1,22 +1,23 @@
 """Reference L2 errors of chip_smoke.py's cdr / thermal-advection decks,
 its hex decks, its B1 Navier-Stokes decks, its module-set decks, its
-solver decks and its mesh and solid decks from the JAX package, in f64
-on the CPU.
+solver decks, its mesh and solid decks and its physics decks from the
+JAX package, in f64 on the CPU.
 
     python tools/jax_references.py [--seed S] DECK [N[:STEPS] ...]
 
 DECK is a key of chip_smoke.py's CDR_DECKS, HEX_DECKS, NS_ELEM_DECKS,
 SET_DECKS, SET_ELEM_DECKS, BOUNDARY_DECKS, AFFINE_SET_DECKS,
-QUADRATURE_DECKS, SOLVER_DECKS, MESH_DECKS or SOLID_DECKS (whose files,
+QUADRATURE_DECKS, SOLVER_DECKS, MESH_DECKS, SOLID_DECKS (whose files,
 an Exodus mesh and grain rotations, the deck functions write from
---seed, default 0, into a temporary directory, as chip_smoke.py does),
-or `boussinesq_gold_nx8` (max |ux| of its
+--seed, default 0, into a temporary directory, as chip_smoke.py does)
+or PHYSICS_DECKS, or `boussinesq_gold_nx8` (max |ux| of its
 Boussinesq deck at beta = 1 and 0); each N builds the deck at that mesh
 size (default: the size the card runs), and STEPS, for a transient deck,
 sets its number of steps (to refine h and dt together). Prints one JSON
 line per run: the L2 error of the deck's variable at its held time (an
-NS, mesh or solid deck: of every variable at every recorded time, a
-multi-block mesh's per block as "var@b"), the DOF count, and
+NS, mesh, solid or physics deck: of every variable at every recorded
+time, a multi-block mesh's per block as "var@b", an L2-grad or L2-face
+norm as "var#L2-grad"), the DOF count, and
 the set-up and solve seconds. Run it from the repo root; it imports
 chip_smoke.py for the deck functions, so both packages see the same
 config.
@@ -53,8 +54,8 @@ def main(argv):
               **chip_smoke.QUADRATURE_DECKS,
               **chip_smoke.SOLVER_DECKS}.items()}
     decks.update({k: (build, n, None, None) for k, (build, n, *_rest) in
-                  {**chip_smoke.MESH_DECKS,
-                   **chip_smoke.SOLID_DECKS}.items()})
+                  {**chip_smoke.MESH_DECKS, **chip_smoke.SOLID_DECKS,
+                   **chip_smoke.PHYSICS_DECKS}.items()})
     decks.update(chip_smoke.CDR_DECKS, **chip_smoke.HEX_DECKS)
     build, n_card, t_held, var = decks[name][:4]
     for size in sizes or [str(n_card)]:
