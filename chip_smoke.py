@@ -5,8 +5,10 @@
 Drives mrhyde_tpu_torch's thermal, cdr, thermal-advection, linear and
 crystal elasticity and Navier-Stokes main paths (2D p1 quads, 3D hex,
 2D p2 quads; element blocks, per-block physics, periodic and Exodus
-meshes), the rest of its physics modules, decks whose coefficients read
-the Parameters sublist, and its
+meshes), the rest of its physics modules, those of vector and trace
+bases (mixed, hybridized and weak Galerkin porous flow, maxwell,
+maxwells_fp, hybridized shallow water, Euler's HDG form), decks whose
+coefficients read the Parameters sublist, and its
 module sets (NS + thermal with the Boussinesq term, NS + cdr, thermal +
 cdr, coefficients that read the state; 2D p1 quads, 3D hex, 2D p2
 quads; affine sets through mode "state"), with Neumann, Flux and
@@ -263,8 +265,9 @@ each):
              phasefield_consistent_nx256 (legacy sampling off, 198,147),
              vdns_channel_stab_nx128x32 (PSPG + SUPG + GRADDIV, 4 BWE
              steps from rest, direct: 128x32, not 256x64, see
-             vdns_deck), porous_compressible_nx512 (compressibility
-             0.1, permeability 1 + 0.5 sin(2 pi x), 4 steps, multigrid),
+             vdns_deck), porous_compressible_nx256 (compressibility
+             0.1, permeability 1 + 0.5 sin(2 pi x), 4 steps, multigrid;
+             256^2, not 512^2, for the script's time),
              ks_periodic_2d_nx64 (periodic in x and y, 4 steps, direct:
              64^2, not 128^2, see ks_deck), shallowice_nx256,
              hartmann_channel_nx256x64 (Neumann on b), llamas_nx256,
@@ -275,6 +278,39 @@ each):
              two inactive parameters: thermal_node_full;
              96 params_ns_channel_nx128   viscosity and source ux the
              active parameter nu = 0.5, direct: ns_node_full
+ 97-108 VECTOR_DECKS (phase `vector_decks`)   the modules of vector and
+             trace bases, on the general path as in the JAX package (no
+             fused provider, no launch), each held to the JAX package's
+             L2 of every label at every recorded time (rtol 1e-6; 1e-4
+             where each Krylov solve stops at its cap) and to its golds:
+             97-101 the reference decks at the reference's size, direct:
+             porous_mixed_gold_nx8 (RT0 u, p0 p: L2(p) 0.158697, L2(u)
+             1.02259 at 2e-5, L2-div(u) 12.390539 at 1e-4),
+             porous_mixed_hybrid_gold_nx8 (broken RT0 u, HFACE lambda:
+             the same L2(p), L2(u)), porous_weak_galerkin_gold_nx10 (pint
+             0.127469, L2-face(pbndry) 1.2962, u and t 0.814028),
+             maxwell_nonzero_ic_hex_nx8 (HCURL E, HDIV B, L2-projected
+             initial state, one DIRK-1,2 step: L2(E) 0.0692758 / 0.0743729,
+             L2(B) 0.0976523 / 0.101339 at t = 0 / 0.01) and
+             maxwells_fp_3d_gold_nx5 (the eight L2 of 'test: 2'), all at
+             2e-5 where not said;
+             102-108 full width: porous_mixed_schwarz_nx256 (131,584 RT0
+             plus 65,536 p0 DOFs, GMRES + element-Schwarz, Newton to 1e-9
+             over capped solves, rtol 1e-4),
+             porous_mixed_hybrid_direct_nx64 (a dense solve of 28,800
+             DOFs: no Krylov solve converges it in the JAX package beyond
+             64^2), porous_weak_galerkin_gmres_nx256 (721,408 DOFs,
+             GMRES without a preconditioner),
+             maxwell_hex_gmres_nx32 (104,544 edge plus 101,376
+             face DOFs, 4 DIRK-1,2 steps, GMRES + Jacobi),
+             maxwells_fp_hex_direct_nx14 (a dense solve of 27,000 DOFs:
+             GMRES stalls on it with Jacobi and with element-Schwarz),
+             swe_hybridized_nx512 (789,507 DOFs, Far-field sides, 5
+             DIRK-1,2 steps) and euler_hdg_maxev_nx128 (the
+             contact-advection pulse on 128x32, 132,352 DOFs, max-EV
+             stabilization, 4 DIRK-1,2 steps); the line `vector_decks`
+             lists each deck's set-up, solve and assembly times and its
+             stages, Newton and Krylov iterations
 
 The reference L2 values are the JAX package's, computed in f64 on the
 CPU, or the reference's golds. Each deck runs one assembly before its
@@ -302,7 +338,7 @@ set_elem_full and set_node_full at Q = 64, 64 and 25, and each solver
 deck the kernel of the deck it comes from (55 set_node_state, 56 and 61
 thermal_node_state, 57 and 58 thermal_elem_state, 59 thermal_node_full,
 60 ns_node_full), 62 and 63 thermal_node_state, 64-72 none, 73-94 none,
-95 thermal_node_full and 96 ns_node_full. The
+95 thermal_node_full, 96 ns_node_full and 97-108 none. The
 `kernels` line
 reports the sums over the decks (ten kernels: the eight of the earlier
 phases and set_node_state, set_elem_state), each kernel's error, times
@@ -2720,6 +2756,185 @@ def params_ns_deck(nx):
 
 
 
+
+# the manufactured Darcy flow of the reference's porous/Mixed and
+# porous/WeakGalerkin_2D decks: p = 1 + S or S (S = sin 2 pi x sin 2 pi y),
+# velocity -grad p
+DARCY_U = ("-2*pi*cos(2*pi*x)*sin(2*pi*y)", "-2*pi*sin(2*pi*x)*cos(2*pi*y)")
+
+
+def porous_mixed_deck(n, solver=None, hybrid=False):
+    """The reference's porous/Mixed (tests/test_mixed_porous.py): HDIV
+    (RT0) velocity u and HVOL pressure p on n x n quads, the pressure 1
+    on every side through the natural boundary integral, direct; gold
+    L2(p) 0.158697, L2(u) 1.02259 (rtol 2e-5) and L2-div(u) 12.390539
+    (1e-4) at n = 8. hybrid: its hybridized form (broken HDIV u, HFACE
+    trace lambda carrying the Dirichlet data; tests/test_hybridized.py),
+    the same golds. `solver` replaces the direct solve's keys."""
+    trues = {"p": f"1.0+{S_TRUE}", "u[x]": DARCY_U[0], "u[y]": DARCY_U[1]}
+    if not hybrid:
+        trues["div(u)"] = SOURCE
+    return {
+        "Mesh": {"dimension": 2, "element type": "quad", "NX": n, "NY": n},
+        "Physics": {"modules": "porous mixed hybridized" if hybrid
+                    else "porous mixed",
+                    "Dirichlet conditions": {
+                        "lambda" if hybrid else "p": {
+                            s: "1.0" for s in ("left", "right", "top",
+                                               "bottom")}}},
+        "Functions": {"source": SOURCE},
+        "Solver": dict({"solver": "steady-state", "nonlinear TOL": 1e-7,
+                        "max nonlinear iters": 2, "initial type": "none"},
+                       **(solver or {"use direct solver": True})),
+        "Discretization": {"order": {"p": 0, "u": 1, "lambda": 0},
+                           "quadrature": 2},
+        "Postprocess": {"compute errors": True, "True solutions": trues},
+    }
+
+
+def weak_galerkin_deck(n, solver=None):
+    """The reference's porous/WeakGalerkin_2D (tests/test_hybridized.py
+    :37-72): HVOL pint, HFACE pbndry (0 on every side), broken RT0 weak
+    gradient u and flux t on n x n quads, direct; gold L2(pint) 0.127469,
+    L2-face(pbndry) 1.2962, L2(u) = L2(t) 0.814028 (rtol 2e-5) at n =
+    10."""
+    return {
+        "Mesh": {"dimension": 2, "element type": "quad", "NX": n, "NY": n},
+        "Physics": {"modules": "porous weak Galerkin",
+                    "assemble face terms": True,
+                    "Dirichlet conditions": {"pbndry": {
+                        s: "0.0" for s in ("left", "right", "top",
+                                           "bottom")}}},
+        "Functions": {"source": SOURCE},
+        "Solver": dict({"solver": "steady-state", "initial type": "none"},
+                       **(solver or {"use direct solver": True,
+                                     "use preconditioner": False})),
+        "Discretization": {"order": {"pint": 0, "pbndry": 0, "u": 1,
+                                     "t": 1}, "quadrature": 2},
+        "Postprocess": {"compute errors": True, "True solutions": {
+            "pint": S_TRUE, "pbndry face": S_TRUE,
+            "u[x]": DARCY_U[0][1:], "u[y]": DARCY_U[1][1:],
+            "t[x]": DARCY_U[0], "t[y]": DARCY_U[1]}},
+    }
+
+
+SINES3 = "sin(pi*x)*sin(pi*y)*sin(pi*z)"
+
+
+def maxwell_deck(n, steps=1, solver=None):
+    """The reference's maxwell/NonzeroIC (tests/test_maxwell.py:17-56):
+    HCURL E and HDIV B on n^3 hex, both projected from sin sin sin in
+    every component (L2 projection), DIRK-1,2 steps of 0.01, direct;
+    gold L2(E) 0.0692758 / 0.0743729 and L2(B) 0.0976523 / 0.101339 at t
+    = 0 / 0.01 (rtol 2e-5) at n = 8, one step."""
+    trues = {f"{v}[{c}]": SINES3 for v in ("E", "B") for c in "xyz"}
+    return {
+        "Mesh": {"dimension": 3, "shape": "hex", "NX": n, "NY": n, "NZ": n},
+        "Physics": {"modules": "maxwell", "Initial conditions": trues},
+        "Functions": {"current x": "0.0", "permittivity": "1.0",
+                      "permeability": "1.0"},
+        "Discretization": {"order": {"E": 1, "B": 1}, "quadrature": 2},
+        "Solver": dict({"solver": "transient", "transient BDF order": 1,
+                        "transient Butcher tableau": "DIRK-1,2",
+                        "nonlinear TOL": 1e-7, "max nonlinear iters": 1,
+                        "final time": 0.01 * steps, "number of steps": steps,
+                        "initial type": "L2-projection",
+                        "allow backtracking": False},
+                       **(solver or {"use direct solver": True})),
+        "Postprocess": {"compute errors": True, "True solutions": trues},
+    }
+
+
+MAXWELL_FP_VARS = ("Arx", "Aix", "Ary", "Aiy", "Arz", "Aiz", "phir", "phii")
+
+
+def maxwells_fp_deck(n, solver=None):
+    """The reference's maxwell_fp/3D_verfication
+    (tests/test_maxwell_fp_gold.py:44-77): the complex potentials' eight
+    HGRAD components on n^3 hex, 'test: 2' (the reference's manufactured
+    coefficients and sources), zero on every side, direct; gold the
+    eight L2 at n = 5."""
+    sol = {"Arx": SINES3, "Aix": SINES3, "Ary": f"-1.0*{SINES3}",
+           "Aiy": f"-1.0*{SINES3}", "Arz": f"2.0*{SINES3}",
+           "Aiz": f"2.0*{SINES3}", "phir": SINES3, "phii": SINES3}
+    return {
+        "Mesh": {"dimension": 3, "element type": "hex", "NX": n, "NY": n,
+                 "NZ": n},
+        "Physics": {"modules": "maxwells_freq_pot", "test": 2,
+                    "Dirichlet conditions": {
+                        v: {"all boundaries": "0.0"}
+                        for v in MAXWELL_FP_VARS}},
+        "Discretization": {"order": {v: 1 for v in MAXWELL_FP_VARS},
+                           "quadrature": 2},
+        "Solver": dict({"solver": "steady-state", "nonlinear TOL": 1e-12,
+                        "max nonlinear iters": 10},
+                       **(solver or {"use direct solver": True})),
+        "Postprocess": {"compute errors": True, "True solutions": sol},
+    }
+
+
+def swe_hybridized_deck(n, steps=5, solver=None):
+    """Hybridized shallow water: a Gaussian hump of water (the droptest's)
+    on n x n quads under the far-field state (H, Hux, Huy) = (1, 0, 0) on
+    every side (the characteristic boundary flux), DIRK-1,2 steps of
+    1e-3."""
+    names = ("H", "Hux", "Huy")
+    return {
+        "Mesh": {"dimension": 2, "element type": "quad", "NX": n, "NY": n},
+        "Physics": {"modules": "shallow water hybridized",
+                    "Far-field conditions": {
+                        v: {"all boundaries": "1.0" if v == "H" else "0.0"}
+                        for v in names},
+                    "Initial conditions": {"H": "1.0 + 0.1*exp(hump)",
+                                           "Hux": "0.0", "Huy": "0.0"}},
+        "Discretization": {"order": {v: 1 for v in names}, "quadrature": 2},
+        "Solver": _steps(1.0e-3, steps, "DIRK-1,2", **(solver or {})),
+        "Postprocess": {"compute errors": True,
+                        "True solutions": {v: "0.0" for v in names}},
+        "Functions": {"hump":
+                      "-100.0*(x-0.5)*(x-0.5) - 100*(y-0.5)*(y-0.5)"},
+    }
+
+
+PULSE = "(1.0 + 0.2*exp(-50*(x-0.5)*(x-0.5)))"
+
+
+def euler_hdg_deck(n, steps=4, stab="max EV stabilization", solver=None):
+    """Euler's HDG form (tests/test_euler_hdg.py:95-108): a density pulse
+    carried by a uniform stream (u, p) = (0.5, 1) on [0,2]x[0,0.5] with
+    n x n/4 quads (an exact solution rho(x - u t)), Far-field sides left
+    and right, Slip top and bottom, broken p1 states with p1 traces,
+    DIRK-1,2 steps of 0.05 (0.2 / 4 at n = 8); the L2 norms of the
+    state against the exact pulse. Quadrature 4, not the test's 3: at 3
+    the 2x2 Gauss points of a broken p1 element make the projected
+    initial state exact there, so its L2 at t = 0 would be round-off."""
+    return {
+        "Mesh": {"dimension": 2, "element type": "quad", "NX": n,
+                 "NY": max(n // 4, 1), "xmin": 0.0, "xmax": 2.0,
+                 "ymin": 0.0, "ymax": 0.5},
+        "Physics": {
+            "modules": "Euler", "gamma": 1.4, stab: True,
+            "Initial conditions": {
+                "rho": PULSE, "rhoux": f"0.5*{PULSE}", "rhouy": "0.0",
+                "rhoE": f"2.5 + 0.125*{PULSE}"},
+            "Far-field conditions": {
+                "rho": {"left": "1.0", "right": "1.0"},
+                "rhoux": {"left": "0.5", "right": "0.5"},
+                "rhouy": {"left": "0.0", "right": "0.0"},
+                "rhoE": {"left": "2.625", "right": "2.625"}},
+            "Slip conditions": {"rho": {"top": "0", "bottom": "0"}}},
+        "Discretization": {"order": {"rho": 1}, "quadrature": 4},
+        "Solver": _steps(0.05, steps, "DIRK-1,2",
+                         **dict({"max nonlinear iters": 10,
+                                 "nonlinear TOL": 1e-10}, **(solver or {}))),
+        "Postprocess": {"compute errors": True, "True solutions": {
+            "rho": PULSE.replace("x-0.5", "x-0.5-0.5*t"),
+            "rhoux": "0.5*" + PULSE.replace("x-0.5", "x-0.5-0.5*t"),
+            "rhouy": "0.0",
+            "rhoE": "2.5 + 0.125*" + PULSE.replace("x-0.5", "x-0.5-0.5*t")}},
+    }
+
+
 # the JAX package's f64 CPU L2 of every label at every recorded time of
 # each PHYSICS_DECKS deck (tools/jax_references.py DECK, the same deck
 # functions)
@@ -2828,17 +3043,17 @@ PHYSICS_REFS["vdns_channel_stab_nx128x32"] = {
     0.04: {"T": 1.880595470498099e-16, "pr": 0.1983439162797259,
         "ux": 0.14118315971702938, "uy": 0.003853502484884268},
 }
-PHYSICS_REFS["porous_compressible_nx512"] = {
-    0.0: {"p": 0.49999999999999917, "p#L2-face": 362.03867196751236,
-        "p#L2-grad": 4.442882938158359},
-    0.05: {"p": 0.24592921249293254, "p#L2-face": 178.07620054998364,
-        "p#L2-grad": 2.232839041521854},
-    0.1: {"p": 0.2711511798805548, "p#L2-face": 196.33923890479116,
-        "p#L2-grad": 2.4473114440562176},
-    0.15: {"p": 0.2725242226412772, "p#L2-face": 197.3334420554747,
-        "p#L2-grad": 2.458367575686994},
-    0.2: {"p": 0.2726038574253501, "p#L2-face": 197.39110440580504,
-        "p#L2-grad": 2.4589773724043633},
+PHYSICS_REFS["porous_compressible_nx256"] = {
+    0.0: {"p": 0.4999999999999998, "p#L2-face": 181.01933598375618,
+        "p#L2-grad": 4.442882938158364},
+    0.05: {"p": 0.2459090700618107, "p#L2-face": 89.03745176655606,
+        "p#L2-grad": 2.232930808326233},
+    0.1: {"p": 0.2711282060529655, "p#L2-face": 98.16852065453052,
+        "p#L2-grad": 2.447372740052618},
+    0.15: {"p": 0.2725010627867254, "p#L2-face": 98.66557587202486,
+        "p#L2-grad": 2.4584268586537292},
+    0.2: {"p": 0.27258068440225386, "p#L2-face": 98.69440319061539,
+        "p#L2-grad": 2.4590365191507013},
 }
 PHYSICS_REFS["ks_periodic_2d_nx64"] = {
     0.0: {"u": 0.49999999988474475, "w": 0.0},
@@ -2937,8 +3152,9 @@ _PHYSICS = {
     "vdns_channel_stab_nx128x32": (
         lambda n: vdns_deck(n, n // 4, True, True, True, steps=4), 128,
         None, {}),
-    "porous_compressible_nx512": (
-        lambda n: porous_deck(n, compressible=True), 512, None, {}),
+    # 256^2, not 512^2, for the script's time
+    "porous_compressible_nx256": (
+        lambda n: porous_deck(n, compressible=True), 256, None, {}),
     # 64^2, not 128^2: a dense solve (ks_deck)
     "ks_periodic_2d_nx64": (lambda n: ks_deck(n, dim=2, steps=4), 64, None,
                             {}),
@@ -2957,6 +3173,138 @@ _PHYSICS = {
 }
 PHYSICS_DECKS = {name: (build, n, 1e-6, PHYSICS_REFS[name], mode, golds)
                  for name, (build, n, mode, golds) in _PHYSICS.items()}
+
+
+# the JAX package's f64 CPU L2 of every label at every recorded time of
+# each VECTOR_DECKS deck (tools/jax_references.py DECK, the same deck
+# functions)
+VECTOR_REFS = {}
+VECTOR_REFS["porous_mixed_gold_nx8"] = {
+    0.0: {"p": 0.15869740005830424, "u": 1.022593580038641,
+        "u#L2-div": 12.39053856029592},
+}
+VECTOR_REFS["porous_mixed_hybrid_gold_nx8"] = {
+    0.0: {"p": 0.15869740005830418, "u": 1.022593580038641},
+}
+VECTOR_REFS["porous_weak_galerkin_gold_nx10"] = {
+    0.0: {"pbndry#L2-face": 1.2962023735951775, "pint": 0.12746858948238862,
+        "t": 0.8140281011029156, "u": 0.8140281011029157},
+}
+VECTOR_REFS["maxwell_nonzero_ic_hex_nx8"] = {
+    0.0: {"B": 0.09765226378404308, "E": 0.0692758156978673},
+    0.01: {"B": 0.10133940908450413, "E": 0.07437289413974678},
+}
+VECTOR_REFS["maxwells_fp_3d_gold_nx5"] = {
+    0.0: {"Aix": 0.013503027766972282, "Aiy": 0.012692267532182581,
+        "Aiz": 0.025372822180136916, "Arx": 0.011541704498905682,
+        "Ary": 0.010486532011249149, "Arz": 0.02096444751934515,
+        "phii": 0.012406712223715107, "phir": 0.010816167091434096},
+}
+VECTOR_REFS["porous_mixed_schwarz_nx256"] = {
+    0.0: {"p": 0.0050099183541630204, "u": 0.031479035469070236,
+        "u#L2-div": 0.3955623339646647},
+}
+VECTOR_REFS["porous_mixed_hybrid_direct_nx64"] = {
+    0.0: {"p": 0.020037150389791824, "u": 0.1259476829859878},
+}
+VECTOR_REFS["porous_weak_galerkin_gmres_nx256"] = {
+    0.0: {"pbndry#L2-face": 1.2825712902689628, "pint": 0.005009918350005274,
+        "t": 0.03147903545596277, "u": 0.03147903545596281},
+}
+VECTOR_REFS["maxwell_hex_gmres_nx32"] = {
+    0.0: {"B": 0.02453548205930803, "E": 0.017352693138087405},
+    0.01: {"B": 0.03644378137803634, "E": 0.03234985809943746},
+    0.02: {"B": 0.05851422516223817, "E": 0.05775637303809612},
+    0.03: {"B": 0.08212835756734131, "E": 0.08506246596613935},
+    0.04: {"B": 0.1057575046243367, "E": 0.11293170703904293},
+}
+VECTOR_REFS["maxwells_fp_hex_direct_nx14"] = {
+    0.0: {"Aix": 0.001736552605516885, "Aiy": 0.0016246007448365218,
+        "Aiz": 0.0032473470170727202, "Arx": 0.0014677851137412101,
+        "Ary": 0.0013233887617844495, "Arz": 0.0026454387734226852,
+        "phii": 0.001585170370982942, "phir": 0.001368439761994528},
+}
+VECTOR_REFS["swe_hybridized_nx512"] = {
+    0.0: {"H": 1.0032149644716413, "Hux": 0.0, "Huy": 0.0},
+    0.001: {"H": 1.0032148045475324, "Hux": 0.0012817460556244717,
+        "Huy": 0.001281746055624472},
+    0.002: {"H": 1.0032143274777048, "Hux": 0.0025578717625337555,
+        "Huy": 0.0025578717625337555},
+    0.003: {"H": 1.0032135412962022, "Hux": 0.0038228235291552794,
+        "Huy": 0.003822823529155278},
+    0.004: {"H": 1.0032124591512588, "Hux": 0.005071179775560772,
+        "Huy": 0.0050711797755607696},
+    0.005: {"H": 1.003211098952772, "Hux": 0.006297713246743657,
+        "Huy": 0.006297713246743652},
+}
+VECTOR_REFS["euler_hdg_maxev_nx128"] = {
+    0.0: {"rho": 4.6878707234167606e-05, "rhoE": 5.859838404294546e-06,
+        "rhoux": 2.3439353617083803e-05, "rhouy": 0.0},
+    0.05: {"rho": 0.00011887681847271158, "rhoE": 1.4859602305318958e-05,
+        "rhoux": 5.943840923503488e-05, "rhouy": 6.37558619871526e-16},
+    0.1: {"rho": 0.0002117544700219644, "rhoE": 2.646930873128963e-05,
+        "rhoux": 0.00010587723500465827, "rhouy": 3.5991310232875757e-16},
+    0.15: {"rho": 0.0003138515852530989, "rhoE": 3.923144809407252e-05,
+        "rhoux": 0.0001569257926084482, "rhouy": 6.280583663684748e-16},
+    0.2: {"rho": 0.00041528361426353757, "rhoE": 5.191045165429306e-05,
+        "rhoux": 0.0002076418070949012, "rhouy": 4.659858140136251e-16},
+}
+
+# GMRES with the element-Schwarz preconditioner: the Krylov solve that
+# converges the mixed saddle point in the JAX package (Jacobi divides by
+# its zero pressure diagonal); every Newton step stops at the 2,000
+# iteration cap, so Newton iterates to 1e-9 as iterative refinement
+MIXED_SCHWARZ = {"Belos solver": "Block GMRES",
+                 "preconditioner variant": "schwarz",
+                 "max nonlinear iters": 10, "nonlinear TOL": 1e-9}
+GMRES = {"Belos solver": "Block GMRES"}
+# weak Galerkin: GMRES without a preconditioner converges it in the JAX
+# package (Jacobi divides by its zero trace diagonal, element-Schwarz and
+# AggregationAMG stall)
+WG_GMRES = {"Belos solver": "Block GMRES", "use preconditioner": False}
+
+# name -> (deck function of n, n on the card, rtol of the JAX L2, {time:
+# the golds per label, each (value, rtol)}); no deck has a fused
+# provider or launches a kernel: the general path, as in the JAX package
+_VECTOR = {
+    # the reference decks at the reference's size, direct
+    "porous_mixed_gold_nx8": (porous_mixed_deck, 8, 1e-6, {0.0: {
+        "p": (0.158697, 2e-5), "u": (1.02259, 2e-5),
+        "u#L2-div": (12.390539, 1e-4)}}),
+    "porous_mixed_hybrid_gold_nx8": (
+        lambda n: porous_mixed_deck(n, hybrid=True), 8, 1e-6, {0.0: {
+            "p": (0.158697, 2e-5), "u": (1.02259, 2e-5)}}),
+    "porous_weak_galerkin_gold_nx10": (weak_galerkin_deck, 10, 1e-6, {0.0: {
+        "pint": (0.127469, 2e-5), "pbndry#L2-face": (1.2962, 2e-5),
+        "u": (0.814028, 2e-5), "t": (0.814028, 2e-5)}}),
+    "maxwell_nonzero_ic_hex_nx8": (maxwell_deck, 8, 1e-6, {
+        0.0: {"E": (0.0692758, 2e-5), "B": (0.0976523, 2e-5)},
+        0.01: {"E": (0.0743729, 2e-5), "B": (0.101339, 2e-5)}}),
+    "maxwells_fp_3d_gold_nx5": (maxwells_fp_deck, 5, 1e-6, {0.0: {
+        v: (g, 2e-5) for v, g in (
+            ("Arx", 0.0115417), ("Aix", 0.013503), ("phir", 0.0108162),
+            ("phii", 0.0124067), ("Ary", 0.0104865), ("Aiy", 0.0126923),
+            ("Arz", 0.0209644), ("Aiz", 0.0253728))}}),
+    # full width
+    "porous_mixed_schwarz_nx256": (
+        lambda n: porous_mixed_deck(n, MIXED_SCHWARZ), 256, 1e-4, {}),
+    # 64^2, not 256^2: no Krylov solve converges it in the JAX package
+    # beyond 64^2, so a dense solve (28,800 DOFs)
+    "porous_mixed_hybrid_direct_nx64": (
+        lambda n: porous_mixed_deck(n, hybrid=True), 64, 1e-6, {}),
+    "porous_weak_galerkin_gmres_nx256": (
+        lambda n: weak_galerkin_deck(n, WG_GMRES), 256, 1e-6, {}),
+    "maxwell_hex_gmres_nx32": (
+        lambda n: maxwell_deck(n, steps=4, solver=GMRES), 32, 1e-6, {}),
+    # 14^3, not 24^3: GMRES with Jacobi or element-Schwarz stalls on the
+    # complex-shifted system (16^3 and 24^3), so a dense solve (27,000 DOFs)
+    "maxwells_fp_hex_direct_nx14": (maxwells_fp_deck, 14, 1e-6, {}),
+    "swe_hybridized_nx512": (swe_hybridized_deck, 512, 1e-6, {}),
+    "euler_hdg_maxev_nx128": (euler_hdg_deck, 128, 1e-6, {}),
+}
+VECTOR_DECKS = {name: (build, n, rtol, VECTOR_REFS.get(name, {}), None,
+                       golds)
+                for name, (build, n, rtol, golds) in _VECTOR.items()}
 
 def _jacobian_on(J, device):
     """The BlockJacobian J with its tensors on `device`: the same numbers
@@ -3973,7 +4321,7 @@ def l2_labels(errs):
         if kind == "L2" or kind.startswith("L2@"):
             block = kind.partition("@")[2]
             out[f"{var}@{block}" if block else var] = float(val)
-        elif kind in ("L2-grad", "L2-face"):
+        elif kind in ("L2-grad", "L2-face", "L2-div", "L2-curl"):
             out[f"{var}#{kind}"] = float(val)
     return out
 
@@ -4061,7 +4409,9 @@ def run_deck(name, cfg, device, checks, mode, post=None):
            "recorded_times": len(result.error_history), **result.counts,
            "setup_s": t1 - t0, "warmup_s": t2 - t1, "solve_s": t3 - t2,
            "wall_s": t3 - t0, "assembly_ms": statistics.median(asm_ms),
-           "fused_calls": fused_calls, "launches": launches, "ok": ok}
+           "fused_calls": fused_calls, "launches": launches,
+           "fused_provider": None if fused is None
+           else type(fused).__name__, "ok": ok}
     emit(rec)
     RECORDS[name] = rec
     if not ok:
@@ -4124,14 +4474,15 @@ def mesh_solid_decks(device):
 ZERO_L2 = 1e-12
 
 
-def physics_decks(device):
-    """Runs PHYSICS_DECKS, each held to its JAX L2 (ZERO_L2 for a field
-    exact to round-off) and its golds; returns each deck's launches.
-    Alone on the card: python3 -c 'import torch, chip_smoke;
-    chip_smoke.physics_decks(torch.device("cuda"))' (the node kernels
-    build at first use)."""
+def physics_decks(device, decks=None):
+    """Runs PHYSICS_DECKS (or `decks`, a table of the same form), each
+    held to its JAX L2 (ZERO_L2 for a field exact to round-off) and its
+    golds; returns each deck's launches. Alone on the card: python3 -c
+    'import torch, chip_smoke; chip_smoke.physics_decks(
+    torch.device("cuda"))' (the node kernels build at first use)."""
     out = []
-    for name, (build, n, rtol, refs, mode, golds) in PHYSICS_DECKS.items():
+    for name, (build, n, rtol, refs, mode, golds) in (
+            decks or PHYSICS_DECKS).items():
         checks = [(t, v, g, rtol) for t, ref in refs.items()
                   for v, g in ref.items() if abs(g) >= ZERO_L2]
         checks += [(t, v, g, r) for t, ref in golds.items()
@@ -4146,6 +4497,26 @@ def physics_decks(device):
             return {"zero_labels": len(zeros), "zero_max": worst,
                     "ok": worst <= ZERO_L2}
         out.append(run_deck(name, build(n), device, checks, mode, post))
+    return out
+
+
+def vector_decks(device):
+    """Runs VECTOR_DECKS (phase `vector_decks`), each held to its JAX L2
+    and its golds, on the general path with no fused provider; then one
+    line `vector_decks` with each deck's set-up, solve and assembly
+    times and its stages, Newton and Krylov iterations. Alone on the
+    card: python3 -c 'import torch, chip_smoke;
+    chip_smoke.vector_decks(torch.device("cuda"))'."""
+    missing = [n for n in VECTOR_DECKS if not VECTOR_REFS.get(n)]
+    if missing:
+        raise SystemExit(f"vector decks without a JAX reference: {missing}")
+    out = physics_decks(device, VECTOR_DECKS)
+    keys = ("n_dof", "linear_method", "precond_variant", "setup_s",
+            "solve_s", "assembly_ms", "stages", "newton_iters",
+            "linear_iters", "fused_provider")
+    emit({"phase": "vector_decks", "decks": {
+        name: {k: RECORDS[name].get(k) for k in keys}
+        for name in VECTOR_DECKS}})
     return out
 
 
@@ -4321,6 +4692,7 @@ def main(argv=()):
         for name, (*_deck, jacobi) in SOLVER_DECKS.items()}})
     per_deck += mesh_solid_decks(device)
     per_deck += physics_decks(device)
+    per_deck += vector_decks(device)
     launches = {k: sum(d[k] for d in per_deck) for k in fp.LAUNCHES}
     advect_launches = {k: sum(d[k] for d in advect_decks)
                        for k in fp.LAUNCHES}

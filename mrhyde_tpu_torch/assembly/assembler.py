@@ -12,14 +12,21 @@ The port of `mrhyde_tpu/assembly/assembler.py`:
              (deterministic; no atomics, no index_add_)
 
 Dirichlet rows use symmetric elimination: residual rows masked, unit
-diagonal in operators. Scalar variables (HGRAD, HVOL) are ported, with
-the mass and L2-projection helpers the transient path needs. Boundary
-integrals (Neumann, Flux, weak Dirichlet, ...) run over the boundary
-groups, torch.func.vmap'd per side: the modules' `boundary_residual` and
-the physics-agnostic Flux term; they are additive, so `res_and_jac`
-attaches them to the fused providers' volume result as the JAX package
-does (`BlockJacobian.bnd`). Oriented vector bases are not ported yet
-(ROADMAP A11): the Assembler rejects decks that need them.
+diagonal in operators. Boundary integrals (Neumann, Flux, weak
+Dirichlet, ...) run over the boundary groups, torch.func.vmap'd per
+side: the modules' `boundary_residual` and the physics-agnostic Flux
+term; they are additive, so `res_and_jac` attaches them to the fused
+providers' volume result as the JAX package does (`BlockJacobian.bnd`).
+
+Vector bases (HDIV, HCURL) carry oriented dofs: the gather folds the
+global coefficients into each element's local frame, u_loc = W g, with
+W the dof signs plus, for tet HCURL of order >= 2, a 2x2 mixing of each
+face-dof pair (`_fold_W`); residuals scatter through W^T and Jacobian
+blocks become W^T J W (`_fold_WT`, `_fold_jac_WT_W`). Modules that
+define `face_residual` (and decks with `assemble face terms`) get the
+per-side face loop inside the same vmapped element residual; HFACE and
+broken-HDIV variables read the per-side face tables of the element's
+geometry bundle.
 """
 
 from __future__ import annotations
@@ -35,7 +42,8 @@ from mrhyde_tpu_torch.assembly.workset import Workset
 __all__ = ["Assembler", "TimeCoeffs", "BlockJacobian", "PointContext",
            "build_incidence"]
 
-_SCALAR_SPACES = ("HGRAD", "HVOL")
+_VECTOR_KEYS = ("HDIV", "HCURL")
+_FACE_SPACES = ("HFACE", "HDIV-DG", "HDIV_AC-DG")
 
 
 @dataclass
@@ -242,6 +250,39 @@ class BoundaryScatter:
         return out
 
 
+def _fold_W(g, signs, mixp, mixw):
+    """Gather-side orientation fold u_loc = W g per element (E, nd):
+    diagonal signs plus the optional 2x2 face-pair mixing channel (tet
+    HCURL order >= 2; mixp None: pure signs)."""
+    out = g * signs
+    if mixp is not None:
+        out = out + mixw * torch.take_along_dim(g, mixp, dim=1)
+    return out
+
+
+def _fold_WT(r, signs, mixp, mixwT):
+    """Scatter-side fold W^T r (signs are their own transpose; the
+    mixing channel uses mixwT[j] = mixw[pair[j]])."""
+    out = r * signs
+    if mixp is not None:
+        out = out + mixwT * torch.take_along_dim(r, mixp, dim=1)
+    return out
+
+
+def _fold_jac_WT_W(J, signs, mixp, mixwT):
+    """Element-block Jacobian fold W^T J W (E, nd, nd): rows and columns
+    from the element's local frame to the global canonical frame."""
+    A = J * signs[:, :, None]
+    if mixp is not None:
+        A = A + mixwT[:, :, None] * torch.take_along_dim(
+            J, mixp[:, :, None].expand(J.shape), dim=1)
+    B = A * signs[:, None, :]
+    if mixp is not None:
+        B = B + mixwT[:, None, :] * torch.take_along_dim(
+            A, mixp[:, None, :].expand(A.shape), dim=2)
+    return B
+
+
 def build_incidence(lids: np.ndarray, n_dof: int) -> np.ndarray:
     """dof -> positions in lids.ravel() (padded with E*nd = zero slot).
 
@@ -283,10 +324,11 @@ class PointContext:
 
 
 class Assembler:
-    """Owns the volume element kernels for one block."""
+    """Owns the volume and boundary element kernels for one block."""
 
     def __init__(self, disc: Discretization, modules, fm, params=None,
-                 fixed_dofs=None, dtype=torch.float64, device="cpu"):
+                 fixed_dofs=None, dtype=torch.float64, device="cpu",
+                 assemble_face_terms=None):
         self.disc = disc
         self.modules = modules
         self.fm = fm
@@ -294,16 +336,6 @@ class Assembler:
         self.dtype = dtype
         self.device = torch.device(device)
         dt, dev = dtype, self.device
-        if any(k[0] not in _SCALAR_SPACES
-               for k in disc.basis_keys.values()):
-            raise NotImplementedError(
-                "only scalar (HGRAD, HVOL) variables are ported to "
-                "mrhyde_tpu_torch (ROADMAP A11 brings vector and trace "
-                "bases)")
-        if np.any(disc.dofmap.signs != 1.0) \
-                or disc.dofmap.mix_pair is not None:
-            raise NotImplementedError(
-                "oriented dofs are not ported yet (ROADMAP A11)")
 
         self.lids = torch.as_tensor(disc.lids, device=dev)
         self.n_dof = disc.n_dof
@@ -316,26 +348,52 @@ class Assembler:
             fixed[np.asarray(fixed_dofs)] = True
         self.fixed = torch.as_tensor(fixed, device=dev)
 
+        # modules overriding face_residual get the per-side face loop
+        # inside the same vmapped element residual (the reference's
+        # 'assemble face terms' per-side sweep, assemblyManager.cpp:
+        # 2414-2425); the deck key overrides the default
+        from mrhyde_tpu_torch.physics.base import PhysicsModule
+        self.face_modules = [
+            m for m in modules
+            if type(m).face_residual is not PhysicsModule.face_residual]
+        self.assemble_face_terms = bool(self.face_modules) \
+            if assemble_face_terms is None else bool(assemble_face_terms)
+        needs_faces = self.assemble_face_terms or any(
+            k[0] in _FACE_SPACES for k in disc.basis_keys.values())
+
         # Basis-database compression: on affine-uniform meshes every
-        # element shares ONE geometry, so quadrature weights and physical
-        # basis gradients are stored once and broadcast (vmap in_dims
-        # None). rtol 1e-9: linspace node rounding accumulates ~1e-13
-        # relative deviations at NX=512.
+        # element shares ONE geometry, so quadrature weights and the
+        # physical basis tables are stored once and broadcast (vmap
+        # in_dims None). rtol 1e-9: linspace node rounding accumulates
+        # ~1e-13 relative deviations at NX=512.
         wts0 = disc.wts[0]
         self.uniform = bool(
             np.allclose(disc.wts, wts0[None, :], rtol=1e-9, atol=1e-12)
             and all(np.allclose(v, v[0][None], rtol=1e-9, atol=1e-9)
-                    for v in disc.basis_grads.values()))
-        if self.uniform:
-            self.g_wts = torch.as_tensor(wts0, dtype=dt, device=dev)
-            self.g_bg = {k: torch.as_tensor(v[0], dtype=dt, device=dev)
-                         for k, v in disc.basis_grads.items()}
-            self._geo_ax = None
-        else:
-            self.g_wts = torch.as_tensor(disc.wts, dtype=dt, device=dev)
-            self.g_bg = {k: torch.as_tensor(v, dtype=dt, device=dev)
-                         for k, v in disc.basis_grads.items()}
-            self._geo_ax = 0
+                    for d in (disc.basis_grads, disc.vec_vals,
+                              disc.div_vals, disc.curl_vals)
+                    for v in d.values()))
+        if needs_faces and self.uniform:
+            self.uniform = all(
+                np.allclose(v, v[0][None]) for v in
+                [disc.face_wts_all, disc.face_normals_all]
+                + list(disc.face_vec_all.values()))
+        self.g_wts = torch.as_tensor(wts0 if self.uniform else disc.wts,
+                                     dtype=dt, device=dev)
+        self.g_bg = self._geometry_bundle(needs_faces)
+        self._geo_ax = None if self.uniform else 0
+        # orientation: u_loc = signs*g + mixw*g[mixp]; the scatter and
+        # Jacobian folds use the transposed weight mixwT[j] = mixw[pair[j]]
+        dm = disc.dofmap
+        self.signs = torch.as_tensor(dm.signs, dtype=dt, device=dev)
+        self.mixp = self.mixw = self.mixwT = None
+        if dm.mix_pair is not None:
+            self.mixp = torch.as_tensor(dm.mix_pair, dtype=torch.int64,
+                                        device=dev)
+            self.mixw = torch.as_tensor(dm.mix_w, dtype=dt, device=dev)
+            self.mixwT = torch.take_along_dim(self.mixw, self.mixp, dim=1)
+        self.has_signs = bool(np.any(dm.signs != 1.0)) \
+            or self.mixp is not None
         self.g_ip = torch.as_tensor(disc.ip, dtype=dt, device=dev)
         self.g_bv = {k: torch.as_tensor(v, dtype=dt, device=dev)
                      for k, v in disc.basis_vals.items()}
@@ -356,19 +414,91 @@ class Assembler:
         # list for every block)
         self.module_masks = None
 
-    def _boundary_group(self, bg):
-        """A boundary group's side data as tensors on the device."""
-        dt, dev = self.dtype, self.device
+    @property
+    def general_only(self):
+        """Whether the deck takes the general path whatever its modules:
+        oriented dofs (signs or a mixing channel), face terms, or an
+        HFACE / broken-HDIV variable. The fused providers' `build`
+        returns None for it, as the JAX package's FusedP1Assembly.build
+        does (`mrhyde_tpu/ops/fused_p1.py:217` and its face check)."""
+        return self.has_signs or self.assemble_face_terms \
+            or bool(self.face_modules) or any(
+                k[0] in _FACE_SPACES for k in self.disc.basis_keys.values())
+
+    def _geometry_bundle(self, needs_faces):
+        """The element geometry tables the volume workset reads, one
+        element's (uniform meshes) or every element's: basis gradients,
+        the oriented vector tables ("vec", "div", "curl"), and with face
+        terms or face spaces the per-side weights, normals, vector and
+        scalar face tables and the HFACE trace tables."""
+        disc = self.disc
+        E = disc.mesh.n_elem
 
         def t(a):
-            return torch.as_tensor(a, dtype=dt, device=dev)
+            return torch.as_tensor(np.asarray(a), dtype=self.dtype,
+                                   device=self.device)
+
+        def per_elem(a):
+            return t(a[0] if self.uniform else a)
+
+        def shared(a):
+            # element-independent tables ride the same vmap axis
+            return t(a if self.uniform else np.broadcast_to(
+                a, (E,) + np.shape(a)))
+        out = {name: {k: per_elem(v) for k, v in tbl.items()}
+               for name, tbl in (("grad", disc.basis_grads),
+                                 ("vec", disc.vec_vals),
+                                 ("div", disc.div_vals),
+                                 ("curl", disc.curl_vals))}
+        if not needs_faces:
+            return out
+        out["fwts"] = per_elem(disc.face_wts_all)
+        out["fnorm"] = per_elem(disc.face_normals_all)
+        out["fvec"] = {k: per_elem(v) for k, v in disc.face_vec_all.items()}
+        out["fscal"] = {k: shared(v) for k, v in disc.face_scal_all.items()}
+        # HFACE trace basis at side qps: element-independent (the flips
+        # are folded into the dof numbering)
+        hkeys = [k for k in set(disc.basis_keys.values())
+                 if k[0] == "HFACE" and k[1] >= 1]
+        if hkeys:
+            from mrhyde_tpu_torch.fem.vector_basis import (hface_face_vals,
+                                                           hface_side_vals)
+            out["hface"] = {
+                k: shared(hface_side_vals(k[1], disc.side_pts[:, 0])
+                          if disc.mesh.dim == 2 else
+                          hface_face_vals(disc.mesh.cell_type, k[1],
+                                          disc.side_pts))
+                for k in hkeys}
+        return out
+
+    def _boundary_group(self, bg):
+        """A boundary group's side data as tensors on the device: the
+        vector face tables are per element (Piola), sliced to the group's
+        elements, as are the orientation signs and mixing weights."""
+        dt, dev = self.dtype, self.device
+        dm = self.disc.dofmap
+
+        def t(a):
+            return torch.as_tensor(np.asarray(a), dtype=dt, device=dev)
+        mixp = mixw = mixwT = None
+        if dm.mix_pair is not None:
+            mixp = torch.as_tensor(dm.mix_pair[bg.elems], dtype=torch.int64,
+                                   device=dev)
+            mixw = t(dm.mix_w[bg.elems])
+            mixwT = torch.take_along_dim(mixw, mixp, dim=1)
         return {"sideset": bg.sideset, "side": bg.side,
                 "elems": torch.as_tensor(bg.elems, device=dev),
                 "lids": torch.as_tensor(bg.lids, device=dev),
                 "scatter": BoundaryScatter(bg.lids, dev),
+                "signs": t(dm.signs[bg.elems]), "mixp": mixp, "mixw": mixw,
+                "mixwT": mixwT,
                 "wts": t(bg.wts), "ip": t(bg.ip), "normals": t(bg.normals),
-                "bv": {k: t(v) for k, v in bg.basis_vals.items()},
-                "bg": {k: t(v) for k, v in bg.basis_grads.items()}}
+                "bv": {k: t(v) for k, v in bg.basis_vals.items()
+                       if k[0] not in _VECTOR_KEYS},
+                "bg": {"grad": {k: t(v) for k, v in bg.basis_grads.items()},
+                       "vec": {k: t(np.asarray(v)[bg.elems])
+                               for k, v in bg.basis_vals.items()
+                               if k[0] in _VECTOR_KEYS}}}
 
     # ------------------------------------------------------------------
     # structured-mesh fast path: on uniform box meshes with nodal p1
@@ -464,14 +594,33 @@ class Assembler:
         if extra is not None and "__blockmask" in extra:
             extra = dict(extra)
             bm = extra.pop("__blockmask")
-        wk = Workset(
-            dim=self.disc.mesh.dim, wts=wts, ip=ip, basis_vals=self.g_bv,
-            basis_grads=bg, offsets=self.disc.offsets,
+        wk = self._workset(wts, ip, self.g_bv, bg, u_eval, u_dot, time,
+                           params, deltat, extra_fields=extra)
+        _masked_modules(wk, self.modules, bm, self._volume_terms)
+        return wk.res
+
+    def _volume_terms(self, m, wk):
+        """Module m's element terms: its volume residual, and its face
+        residual where the deck assembles face terms."""
+        m.volume_residual(wk)
+        if self.assemble_face_terms and m in self.face_modules:
+            m.face_residual(wk)
+
+    def _workset(self, wts, ip, bv, bg, u_eval, u_dot, time, params,
+                 deltat, **side):
+        """A Workset over one element's (or side's) tables: bg is the
+        geometry bundle (basis gradients, vector tables and, on volume
+        worksets with face terms, the per-side tables)."""
+        return Workset(
+            dim=self.disc.mesh.dim, wts=wts, ip=ip, basis_vals=bv,
+            basis_grads=bg["grad"], basis_vecs=bg.get("vec"),
+            basis_divs=bg.get("div"), basis_curls=bg.get("curl"),
+            face_wts=bg.get("fwts"), face_normals=bg.get("fnorm"),
+            face_vecs=bg.get("fvec"), face_scals=bg.get("fscal"),
+            hface_vals=bg.get("hface"), offsets=self.disc.offsets,
             var_keys=self.disc.basis_keys, u_eval=u_eval, u_dot=u_dot,
             time=time, fm=self.fm, params=params, deltat=deltat,
-            is_transient=self.is_transient, extra_fields=extra)
-        _masked_modules(wk, self.modules, bm, "volume_residual")
-        return wk.res
+            is_transient=self.is_transient, **side)
 
     def _elem_extra(self):
         """The per-element fields the volume worksets read: the block
@@ -502,12 +651,41 @@ class Assembler:
         return (0, 0, 0, self._geo_ax, 0, self._geo_ax,
                 None if extra is None else 0)
 
-    def _gathered(self, u_st, tc: TimeCoeffs):
-        if self._slices:
+    def _orientation(self, group=None):
+        """(signs, mixp, mixw, mixwT) of the elements, or of a boundary
+        group's elements."""
+        o = self.__dict__ if group is None else group
+        return o["signs"], o["mixp"], o["mixw"], o["mixwT"]
+
+    def _gathered(self, u_st, tc: TimeCoeffs, group=None):
+        """The element (or a boundary group's side) coefficients of u_st,
+        beta_u and beta_t, folded into the local frames of oriented
+        dofs."""
+        if group is None and self._slices:
             return (self._gather_structured(u_st),
                     self._gather_structured(tc.beta_u),
                     self._gather_structured(tc.beta_t))
-        return u_st[self.lids], tc.beta_u[self.lids], tc.beta_t[self.lids]
+        lids = self.lids if group is None else group["lids"]
+        vals = (u_st[lids], tc.beta_u[lids], tc.beta_t[lids])
+        if not self.has_signs:
+            return vals
+        signs, mixp, mixw, _ = self._orientation(group)
+        return tuple(_fold_W(v, signs, mixp, mixw) for v in vals)
+
+    def _fold_res(self, res_e, group=None):
+        """W^T of element (or side) residuals; as they are without
+        oriented dofs."""
+        if not self.has_signs:
+            return res_e
+        signs, mixp, _, mixwT = self._orientation(group)
+        return _fold_WT(res_e, signs, mixp, mixwT)
+
+    def _fold_jac(self, jac_e, group=None):
+        """W^T J W of element (or side) Jacobian blocks."""
+        if not self.has_signs:
+            return jac_e
+        signs, mixp, _, mixwT = self._orientation(group)
+        return _fold_jac_WT_W(jac_e, signs, mixp, mixwT)
 
     def residual(self, u_st, tc: TimeCoeffs, pvec=None):
         """Global residual (n_dof,) with Dirichlet rows zeroed."""
@@ -516,6 +694,7 @@ class Assembler:
         res_e = torch.func.vmap(self._elem_fn(tc, pvec),
                                 in_dims=self._in_dims(extra))(
             u_e, bu_e, bt_e, self.g_wts, self.g_ip, self.g_bg, extra)
+        res_e = self._fold_res(res_e)
         if self._slices:
             r = self._scatter_structured(res_e)
         else:
@@ -533,7 +712,7 @@ class Assembler:
             torch.func.jacfwd(self._elem_fn(tc, pvec), argnums=0),
             in_dims=self._in_dims(extra))(
             u_e, bu_e, bt_e, self.g_wts, self.g_ip, self.g_bg, extra)
-        return BlockJacobian(vol=jac_e, vol_lids=self.lids,
+        return BlockJacobian(vol=self._fold_jac(jac_e), vol_lids=self.lids,
                              fixed=self.fixed, inc=self.inc,
                              **self._bnd_jac_parts(u_st, tc, pvec))
 
@@ -575,15 +754,11 @@ class Assembler:
         ss = group["sideset"]
         bcs = {v: self.var_bcs.get(v, {}).get(ss)
                for v in self.disc.var_names}
-        wk = Workset(
-            dim=self.disc.mesh.dim, wts=wts, ip=ip, basis_vals=group["bv"],
-            basis_grads=bg, offsets=self.disc.offsets,
-            var_keys=self.disc.basis_keys,
-            u_eval=alpha_u * u_st + beta_u, u_dot=alpha_t * u_st + beta_t,
-            time=time, fm=self.fm, params=params, deltat=deltat,
-            is_transient=self.is_transient, normals=normals, side_name=ss,
-            bcs=bcs)
-        _masked_modules(wk, self.modules, bmask, "boundary_residual")
+        wk = self._workset(wts, ip, group["bv"], bg, alpha_u * u_st + beta_u,
+                           alpha_t * u_st + beta_t, time, params, deltat,
+                           normals=normals, side_name=ss, bcs=bcs)
+        _masked_modules(wk, self.modules, bmask,
+                        lambda m, w: m.boundary_residual(w))
         for v in self.disc.var_names:
             if bcs.get(v) == "Flux":
                 g = wk.f(f"Flux {v} {ss}", "side ip")
@@ -601,10 +776,9 @@ class Assembler:
         return fn
 
     def _bnd_args(self, group, u_st, tc: TimeCoeffs):
-        lids = group["lids"]
         bmask = None if self.module_masks is None \
             else self.module_masks[group["elems"]]
-        return (u_st[lids], tc.beta_u[lids], tc.beta_t[lids], group["wts"],
+        return (*self._gathered(u_st, tc, group), group["wts"],
                 group["ip"], group["normals"], group["bg"], bmask)
 
     def _bnd_in_dims(self):
@@ -618,7 +792,7 @@ class Assembler:
             res_b = torch.func.vmap(self._bnd_fn(group, tc, pvec),
                                     in_dims=self._bnd_in_dims())(
                 *self._bnd_args(group, u_st, tc))
-            r = group["scatter"].add(r, res_b)
+            r = group["scatter"].add(r, self._fold_res(res_b, group))
         return r
 
     def _bnd_jac_parts(self, u_st, tc: TimeCoeffs, pvec=None):
@@ -627,10 +801,10 @@ class Assembler:
         blocks."""
         parts = {"bnd": [], "bnd_lids": [], "bnd_scatter": []}
         for group in self._active_bnd_groups():
-            parts["bnd"].append(torch.func.vmap(torch.func.jacfwd(
-                self._bnd_fn(group, tc, pvec), argnums=0),
+            parts["bnd"].append(self._fold_jac(torch.func.vmap(
+                torch.func.jacfwd(self._bnd_fn(group, tc, pvec), argnums=0),
                 in_dims=self._bnd_in_dims())(
-                *self._bnd_args(group, u_st, tc)))
+                *self._bnd_args(group, u_st, tc)), group))
             parts["bnd_lids"].append(group["lids"])
             parts["bnd_scatter"].append(group["scatter"])
         return parts
@@ -699,7 +873,8 @@ class Assembler:
         Dirichlet rows)."""
         M = torch.as_tensor(self.disc.mass_blocks(), dtype=self.dtype,
                             device=self.device)
-        return BlockJacobian(vol=M, vol_lids=self.lids, inc=self.inc,
+        return BlockJacobian(vol=self._fold_jac(M), vol_lids=self.lids,
+                             inc=self.inc,
                              fixed=torch.zeros(self.n_dof, dtype=torch.bool,
                                                device=self.device))
 
@@ -714,11 +889,11 @@ class Assembler:
             return self._elem_residual_uv(ueval_e, udot_e, wts, ip, bg,
                                           tc.time, params, tc.deltat)
 
-        return torch.func.vmap(
+        return self._fold_jac(torch.func.vmap(
             torch.func.jacfwd(fn, argnums=0),
             in_dims=(0, 0, self._geo_ax, 0, self._geo_ax))(
             tc.alpha_t * u_e + bt_e, tc.alpha_u * u_e + bu_e, self.g_wts,
-            self.g_ip, self.g_bg)
+            self.g_ip, self.g_bg))
 
     def lumped_mass(self, u_st, tc: TimeCoeffs, pvec=None):
         """Row-sum lumped weighted mass vector (n_dof,)."""
@@ -728,45 +903,79 @@ class Assembler:
         return torch.where(self.fixed, 1.0, torch.where(d == 0, 1.0, d))
 
     def l2_rhs(self, exprs: dict, time=0.0):
-        """RHS of the global L2 projection, b_i = sum_q f(x_q) phi_i w_q,
-        for scalar variables. exprs: var -> expression (missing vars
-        get 0)."""
+        """RHS of the global L2 projection, b_i = sum_q f(x_q) phi_i w_q.
+        exprs: var -> expression (missing vars get 0); a vector variable
+        takes component expressions 'E[x]', 'E[y]'..., through its
+        oriented vector table (folded by W^T); an HFACE variable the
+        facet integral over every element side (which pairs with the
+        facet mass of Discretization.mass_blocks)."""
         disc = self.disc
+        dt, dev = self.dtype, self.device
         ctx = PointContext(self.g_ip, time=time, params=self.params)
-        wtsE = torch.as_tensor(disc.wts, dtype=self.dtype,
-                               device=self.device)                # (E, Q)
-        contrib = torch.zeros(self.lids.shape, dtype=self.dtype,
-                              device=self.device)
+        wtsE = torch.as_tensor(disc.wts, dtype=dt, device=dev)   # (E, Q)
+        contrib = torch.zeros(self.lids.shape, dtype=dt, device=dev)
+
+        def values(expr, c, shape):
+            return torch.broadcast_to(torch.as_tensor(
+                self.fm.evaluate_expr(expr, c), dtype=dt, device=dev),
+                shape)
         for var in disc.var_names:
             key = disc.basis_keys[var]
-            if key[0] not in _SCALAR_SPACES:
-                raise NotImplementedError(
-                    f"L2 projection onto {key[0]} is not ported to "
-                    "mrhyde_tpu_torch yet (ROADMAP A11)")
+            st, nd = disc.offsets[var]
+            if key[0] in _VECTOR_KEYS:
+                comps = {ax: exprs[f"{var}[{lbl}]"]
+                         for ax, lbl in enumerate("xyz"[:disc.mesh.dim])
+                         if f"{var}[{lbl}]" in exprs}
+                if not comps:
+                    continue
+                f = torch.zeros(wtsE.shape + (disc.mesh.dim,), dtype=dt,
+                                device=dev)
+                for ax, expr in comps.items():
+                    f[:, :, ax] = values(expr, ctx, wtsE.shape)
+                vv = torch.as_tensor(disc.vec_vals[key], dtype=dt,
+                                     device=dev)
+                c = torch.einsum("eiqd,eqd->ei", vv, f * wtsE[:, :, None])
+                if self.has_signs:
+                    mp = None if self.mixp is None \
+                        else self.mixp[:, st:st + nd] - st
+                    mwT = None if self.mixwT is None \
+                        else self.mixwT[:, st:st + nd]
+                    c = _fold_WT(c, self.signs[:, st:st + nd], mp, mwT)
+                contrib[:, st:st + nd] += c
+                continue
             if var not in exprs:
                 continue
-            st, nd = disc.offsets[var]
-            vals = torch.broadcast_to(torch.as_tensor(
-                self.fm.evaluate_expr(exprs[var], ctx), dtype=self.dtype,
-                device=self.device), wtsE.shape)
+            if key[0] == "HFACE":
+                for s, fg in enumerate(disc.faces):
+                    psi = torch.as_tensor(disc.face_basis_vals[s][key],
+                                          dtype=dt, device=dev)  # (nd, Qf)
+                    fw = torch.as_tensor(fg.wts, dtype=dt, device=dev)
+                    ctxf = PointContext(torch.as_tensor(
+                        fg.ip, dtype=dt, device=dev), time=time,
+                        params=self.params)
+                    contrib[:, st:st + nd] += torch.einsum(
+                        "iq,eq->ei", psi,
+                        values(exprs[var], ctxf, fw.shape) * fw)
+                continue
             contrib[:, st:st + nd] += torch.einsum(
-                "iq,eq->ei", self.g_bv[key], vals * wtsE)
+                "iq,eq->ei", self.g_bv[key],
+                values(exprs[var], ctx, wtsE.shape) * wtsE)
         flat = torch.cat([contrib.reshape(-1), contrib.new_zeros(1)])
         return flat[self.inc].sum(dim=1)
 
 
-def _masked_modules(wk, modules, bm, hook):
-    """Runs each module's `hook` on the workset; with per-block masks bm
+def _masked_modules(wk, modules, bm, terms):
+    """Runs terms(m, wk) for each module m; with per-block masks bm
     (n_modules,), module k's contribution is kept on its own blocks
     only, accumulated in module order as the JAX package does: res =
     prev + bm[k] (res - prev)."""
     if bm is None:
         for m in modules:
-            getattr(m, hook)(wk)
+            terms(m, wk)
         return
     prev = wk.res
     for k, m in enumerate(modules):
-        getattr(m, hook)(wk)
+        terms(m, wk)
         wk.set_res(prev + bm[k] * (wk.res - prev))
         prev = wk.res
 

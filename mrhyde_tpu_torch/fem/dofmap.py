@@ -61,21 +61,26 @@ class DofMap:
         """Gather-side orientation fold of element coefficient arrays
         g (..., n_elem, nd_slice): u_loc = signs * g + mix_w * g[pair].
         st/nd select a within-element dof slice (one variable); pairs
-        never cross variables. Numpy arrays (the dof axis is last, the
-        element axis second-to-last)."""
+        never cross variables. Numpy arrays or torch tensors (the dof
+        axis is last, the element axis second-to-last); a tensor's fold
+        runs on its own device and dtype."""
         sl = slice(st, (st + nd) if nd is not None else None)
         s = self.signs[:, sl]
-        if self.mix_pair is None:
-            return g * s
-        pr = self.mix_pair[:, sl] - st
-        w = self.mix_w[:, sl]
-        if not isinstance(g, np.ndarray):
-            raise NotImplementedError(
-                "the orientation fold of device arrays (HDIV/HCURL on "
-                "simplices) is not ported to mrhyde_tpu_torch yet "
-                "(ROADMAP A11)")
-        gp = np.take_along_axis(g, np.broadcast_to(pr, g.shape), axis=-1)
-        return g * s + w * gp
+        pr = None if self.mix_pair is None else self.mix_pair[:, sl] - st
+        if isinstance(g, np.ndarray):
+            if pr is None:
+                return g * s
+            gp = np.take_along_axis(g, np.broadcast_to(pr, g.shape),
+                                    axis=-1)
+            return g * s + self.mix_w[:, sl] * gp
+        import torch
+        out = g * torch.as_tensor(s, dtype=g.dtype, device=g.device)
+        if pr is None:
+            return out
+        pr = torch.as_tensor(pr, device=g.device).expand(g.shape)
+        w = torch.as_tensor(self.mix_w[:, sl], dtype=g.dtype,
+                            device=g.device)
+        return out + w * torch.take_along_dim(g, pr, dim=-1)
 
     def var(self, name: str) -> VarDofMap:
         for v in self.vars:

@@ -610,7 +610,7 @@ class FusedNSAssembly:
         disc = asm.disc
         cell = disc.mesh.cell_type
         s = asm._structured
-        if s is None or not asm.uniform:
+        if s is None or not asm.uniform or asm.general_only:
             return None             # the JAX package's general path too
         # all-p1 quads or hex, or all-p2 quads (the uniform row layout)
         kinds = {k for (k, _n, _st) in s["plan"]}

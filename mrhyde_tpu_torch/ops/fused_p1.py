@@ -452,8 +452,9 @@ class FusedP1Assembly:
         from mrhyde_tpu_torch.physics.cdr import CDR
         from mrhyde_tpu_torch.physics.navierstokes import NavierStokes
         from mrhyde_tpu_torch.physics.thermal import Thermal
-        if asm.module_masks is not None:
-            # per-block physics: the general path, as in the JAX package
+        if asm.module_masks is not None or asm.general_only:
+            # per-block physics, oriented dofs, face terms or face
+            # spaces: the general path, as in the JAX package
             return None
         if any(isinstance(m, NavierStokes) for m in asm.modules):
             from mrhyde_tpu_torch.ops.fused_ns import FusedNSAssembly

@@ -619,7 +619,7 @@ class FusedSetAssembly:
         raises ValueError (here for mode "full"; for mode "state" at an
         affine set's first state launch, `_check_state_layout`)."""
         s = asm._structured
-        if s is None or not asm.uniform \
+        if s is None or not asm.uniform or asm.general_only \
                 or any(m.name not in _KINDS for m in asm.modules):
             return None
         cell = asm.disc.mesh.cell_type

@@ -17,6 +17,7 @@ from __future__ import annotations
 import torch
 
 from mrhyde_tpu_torch.ops.sparse_dual import abs_
+from mrhyde_tpu_torch.physics.base import PhysicsModule
 from mrhyde_tpu_torch.physics.euler import Euler, eig, flux_n
 from mrhyde_tpu_torch.physics.registry import register
 
@@ -37,6 +38,13 @@ class CNS(Euler):
 
     def variables(self):
         return [(v, "HGRAD", 1) for v in self._names()]
+
+    def augment_initial_conditions(self, ics):
+        pass                                # no trace variables
+
+    # CG: no interface fluxes; the base no-op keeps cns out of the
+    # assembler's face modules
+    face_residual = PhysicsModule.face_residual
 
     def boundary_residual(self, wk):
         """Far-field: F_hat.n = F(S).n + A-(S)(S_inf - S), the HDG trace

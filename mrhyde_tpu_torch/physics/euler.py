@@ -1,13 +1,29 @@
-"""Compressible Euler: the part that the cns module reads.
+"""Compressible Euler equations, hybridized (HDG) conservative form.
 
-From the JAX package's `mrhyde_tpu/physics/euler.py` (reference
-euler.cpp): the settings and the nondimensional thermodynamics
-(`Euler.__init__`), the conservative variables' names, the inviscid
-volume terms (v, S_t) - (grad v, F(S)) - (v, source), the normal flux
-F(S).n (`flux_n`) and the eigendecomposition of its Jacobian (`eig`),
-both over a batch of quadrature points. The `Euler` deck name itself
-(HDG: trace variables, interface fluxes, the trace boundary operator)
-comes with ROADMAP A11, so the class is not registered here.
+The port of the JAX package's `mrhyde_tpu/physics/euler.py` (reference
+euler.cpp; Peraire 2011): state variables S = (rho, rhoux[, rhouy,
+rhouz], rhoE) on a broken space (HGRAD-DG) coupled through facet trace
+variables S_hat (HFACE), with the numerical flux on every interface
+    F_hat . n = F(S_hat) . n + Stab(S, S_hat) (S - S_hat)
+where Stab is one of the two Peraire stabilization matrices built from
+the flux-Jacobian eigendecomposition (euler.cpp
+computeStabilizationTerm, :965-1085):
+    "Roe-like stabilization":  Stab = R |Lambda| L   at S_hat
+    "max EV stabilization":    Stab = lambda_max I   at S_hat
+The reference refuses to run without one (euler.cpp:61-65); so does the
+port. The volume terms (v, S_t) - (grad v, F(S)) - (v, source), the
+per-side numerical fluxes (`face_residual`, into the state equations and
+the trace continuity equation sum_{e in f} F_hat . n_e = 0) and the
+boundary operators assemble inside one vmapped element residual.
+
+Boundary conditions (euler.cpp computeBoundaryTerm, :1091-1285) replace
+the trace-continuity equation on boundary facets:
+  Far-field: B = A+(S_hat)(S - S_hat) - A-(S_hat)(S_inf - S_hat)
+  Slip:      the trace matches the interior density and energy, with
+             zero normal velocity
+The cns module (physics/cns.py) reads the settings, the volume terms,
+`flux_n` and `eig` as a CG form without trace variables. No fused
+kernel: the general path.
 
 Nondimensional thermodynamics (euler.cpp computeThermoProps):
   p0 = (gamma-1)(rhoE - 0.5 |rhou|^2 / rho)
@@ -20,11 +36,14 @@ import math
 
 import torch
 
+from mrhyde_tpu_torch.ops.sparse_dual import abs_
 from mrhyde_tpu_torch.physics.base import PhysicsModule
+from mrhyde_tpu_torch.physics.registry import register
 
 __all__ = ["Euler", "flux_n", "eig"]
 
 
+@register("Euler")
 class Euler(PhysicsModule):
     name = "euler"
     # subclasses with their own dissipation (cns's viscous fluxes) run
@@ -50,6 +69,19 @@ class Euler(PhysicsModule):
                 "Euler: no stabilization method chosen! Set "
                 "'Roe-like stabilization: true' or "
                 "'max EV stabilization: true' in the Physics sublist.")
+
+    def variables(self):
+        trace_order = 0 if self.dim == 1 else 1
+        return [(v, "HGRAD-DG", 1) for v in self._names()] \
+            + [(v + "_hat", "HFACE", trace_order) for v in self._names()]
+
+    def augment_initial_conditions(self, ics: dict):
+        """Default each trace IC to its state IC (the facet trace of the
+        initial field): a zero trace would make the first Newton
+        linearization divide by rho_hat = 0."""
+        for v in self._names():
+            if v + "_hat" not in ics and v in ics:
+                ics[v + "_hat"] = ics[v]
 
     def define_functions(self, fm, fs):
         for v in ("rho", "rhoux", "rhouy", "rhouz", "rhoE"):
@@ -86,6 +118,85 @@ class Euler(PhysicsModule):
         wk.add_source("rhoE", wk.sol_dot("rhoE")
                       - wk.qp(wk.f("source rhoE")))
         wk.add_flux("rhoE", -FE)
+
+    def _fhat(self, S, Sh, n):
+        """The stabilized numerical flux (Q, neq) at states S and traces
+        Sh (Q, neq) along normals n (Q, dim)."""
+        g = self.gamma
+        dim = self.dim
+        dS = S - Sh
+        if self.roestab:
+            # exactly the reference's R|Lambda|L: on a face where the
+            # flow is tangential (u.n = 0) the entropy and shear
+            # eigenvalues vanish and the trace equation is
+            # underdetermined along them, a property of the scheme
+            L, lam, R = eig(Sh, n, g, dim)
+            stab = _matvec(R, abs_(lam) * _matvec(L, dS))
+        elif self.maxEVstab:
+            _rho, _mom, _rhoE, vel, p0 = _state(Sh, g, dim)
+            a = torch.sqrt(g * p0 / Sh[:, 0])
+            vn = (vel * n).sum(dim=1)
+            stab = torch.maximum(abs_(vn + a), abs_(vn - a))[:, None] * dS
+        else:
+            stab = 0.0 * dS     # test-only: demonstrates the singularity
+        return flux_n(Sh, n, g) + stab
+
+    def face_residual(self, wk):
+        """Per-side numerical flux into both the state equations ((F_hat.n,
+        v), euler.cpp boundaryResidual's form on every side) and the
+        trace continuity equation ((F_hat.n, mu), euler.cpp computeFlux
+        'interface' branch: the two elements' contributions sum through
+        the shared HFACE dofs)."""
+        names = self._names()
+        for s in range(wk.n_sides()):
+            S = torch.stack([wk.face_sol(v, s) for v in names], dim=1)
+            Qf = S.shape[0]
+            Sh = torch.stack([torch.broadcast_to(wk.trace(v + "_hat", s),
+                                                 (Qf,)) for v in names],
+                             dim=1)
+            fhat = self._fhat(S, Sh, wk.face_normals[s])   # (Qf, neq)
+            for i, v in enumerate(names):
+                wk.add_face_source(v, s, fhat[:, i])
+                wk.add_trace_source(v + "_hat", s, fhat[:, i])
+
+    def boundary_residual(self, wk):
+        """On a Far-field or Slip side the trace equation's interior form
+        (already added by face_residual) is replaced by the boundary
+        operator B."""
+        bct = wk.bcs.get("rho") or wk.bcs.get("rhoux")
+        if bct not in ("Far-field", "Slip"):
+            return
+        dim = self.dim
+        g = self.gamma
+        names = self._names()
+        S = torch.stack([wk.sol(v) for v in names], dim=1)      # (Qf, neq)
+        Sh = torch.stack([wk.sol(v + "_hat") for v in names], dim=1)
+        n = wk.normals
+        interior = self._fhat(S, Sh, n)
+        if bct == "Slip":
+            rho, rhoh = S[:, 0], Sh[:, 0]
+            vn = ((S[:, 1:1 + dim] / rho[:, None]) * n).sum(dim=1)
+            bound = torch.stack(
+                [rho - rhoh]
+                + [(S[:, 1 + d] / rho - vn * n[:, d]) - Sh[:, 1 + d] / rhoh
+                   for d in range(dim)]
+                + [S[:, 1 + dim] - Sh[:, 1 + dim]], dim=1)
+        else:
+            Sinf = torch.stack([
+                wk.qp(wk.f(f"Far-field {v} {wk.side_name}", "side ip"))
+                for v in names], dim=1)
+            L, lam, R = eig(Sh, n, g, dim)
+            lam_p = 0.5 * (lam + abs_(lam))
+            lam_m = 0.5 * (lam - abs_(lam))
+            bound = _matvec(R, lam_p * _matvec(L, S - Sh)) \
+                - _matvec(R, lam_m * _matvec(L, Sinf - Sh))
+        for i, v in enumerate(names):
+            wk.add_source(v + "_hat", bound[:, i] - interior[:, i])
+
+
+def _matvec(A, x):
+    """A[q] @ x[q] over a batch of quadrature points."""
+    return torch.einsum("qij,qj->qi", A, x)
 
 
 def _state(U, gamma, dim):

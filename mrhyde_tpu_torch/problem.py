@@ -119,9 +119,6 @@ class Problem:
         raw_phys = cfg.get("Physics", {}) or {}
         phys_cfg = _unwrap_block(raw_phys, "modules")
         self.phys_cfg = phys_cfg
-        if phys_cfg.get("Extra variables") or phys_cfg.get(
-                "Active variables"):
-            _not_ported("'Extra variables'/'Active variables'", "A11")
         # per-block physics (reference physicsInterface.cpp:38-54: each
         # element block owns its module list): several block sublists
         # naming different modules
@@ -149,6 +146,10 @@ class Problem:
 
         disc_cfg = _unwrap_block(cfg.get("Discretization", {}), "order")
         orders = disc_cfg.get("order", {}) or {}
+        # 'Active variables' restricts the modules' variables to those
+        # it lists (reference porousMixed.cpp:21-30) and may override a
+        # variable's space (an HGRAD-DG pressure, an HFACE trace)
+        active = phys_cfg.get("Active variables", {}) or {}
         variables = []
         seen = set()
         for m in self.modules:
@@ -156,16 +157,27 @@ class Problem:
                 if name in seen:
                     continue
                 seen.add(name)
+                if active and name not in active:
+                    continue
+                space = active.get(name, space)
                 order = int(orders.get(name, default_order))
                 if space == "HVOL":
                     # the reference's HVOL is always piecewise constant,
                     # whatever order the deck gives
-                    variables.append((name, space, 0))
-                else:
-                    variables.append((name, space, max(order, 1)))
+                    order = 0
+                variables.append((name, space, max(order, 0)
+                                  if space in ("HVOL", "HFACE")
+                                  else max(order, 1)))
+        # 'Extra variables': name -> space, orders under the order
+        # sublist's own 'Extra variables' (else the variable's, else 1)
+        extra_orders = orders.get("Extra variables", {}) or {}
+        for name, space in (phys_cfg.get("Extra variables", {})
+                            or {}).items():
+            variables.append((name, space, int(extra_orders.get(
+                name, orders.get(name, 1)))))
         if not variables:
             raise ValueError("no variables: the Physics sublist needs "
-                             "'modules'")
+                             "'modules' (or 'Extra variables')")
         self.variables = variables
 
         # functions; per-block sublists flatten. The reference keeps one
@@ -207,10 +219,16 @@ class Problem:
             self.disc, self.fm, phys_cfg, self.params,
             use_weak_dirichlet=bool(phys_cfg.get("use weak Dirichlet",
                                                  False)))
+        # 'assemble face terms' (reference: physicsInterface reads it per
+        # set or block; assemblyManager.cpp:2414-2425 runs the per-side
+        # faceResidual sweep): default on iff a module defines face terms
+        aft = phys_cfg.get("assemble face terms",
+                           phys_cfg.get("build face terms"))
         self.assembler = Assembler(self.disc, self.modules, self.fm,
                                    self.params,
                                    fixed_dofs=self.bcs.fixed_dofs,
-                                   dtype=self.dtype, device=self.device)
+                                   dtype=self.dtype, device=self.device,
+                                   assemble_face_terms=aft)
         self._import_mesh_data(mesh_cfg, dim)
         if self._module_block is not None:
             bids = np.asarray(self.mesh.block_ids)
@@ -312,10 +330,15 @@ class Problem:
         SolverManager::setInitial) or nodal interpolation, with the
         strong Dirichlet values written in; zero where the deck gives
         none."""
-        ics = self.phys_cfg.get("Initial conditions", {}) or {}
+        ics = {k: v for k, v in (self.phys_cfg.get(
+            "Initial conditions", {}) or {}).items() if k != "scalar data"}
+        for m in self.modules:
+            if hasattr(m, "augment_initial_conditions"):
+                m.augment_initial_conditions(ics)
+        # keys may be components ('E[x]'); a module-augmented trace IC
+        # may name a variable 'Active variables' left out
         ics = {k: v for k, v in ics.items()
-               if k != "scalar data"
-               and k.split("[")[0] in self.disc.dofmap.offsets}
+               if k.split("[")[0] in self.disc.dofmap.offsets}
         ic_type = self.solver_cfg.get("initial type", "L2-projection")
         u = torch.zeros(self.n_dof, dtype=self.dtype, device=self.device)
         if ics and ic_type.startswith("L2-projection"):

@@ -192,7 +192,6 @@ def test_thermoelastic_transient_matches_jax():
 
 
 def test_elasticity_modules_are_registered():
-    from mrhyde_tpu_torch.physics.registry import _NOT_PORTED, \
-        available_modules
+    from mrhyde_tpu_torch.physics.registry import available_modules
     for name in ("linearelasticity", "crystal elasticity"):
-        assert name in available_modules() and name not in _NOT_PORTED
+        assert name in available_modules()

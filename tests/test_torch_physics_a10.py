@@ -137,12 +137,10 @@ def test_a10_modules_build(name):
 
 
 def test_only_a11_modules_are_left():
-    """The modules still refused are those of vector and trace bases
-    (A11), the Euler deck name among them."""
-    from mrhyde_tpu_torch.physics.registry import (_NOT_PORTED,
-                                                   import_physics)
-    assert set(_NOT_PORTED.values()) == {"A11"}
-    assert "Euler" in _NOT_PORTED
-    for name in _NOT_PORTED:
-        with pytest.raises(NotImplementedError, match="A11"):
-            import_physics(name, {}, 2)
+    """No module is left: with those of vector and trace bases (A11),
+    the Euler deck name among them, every deck name the JAX package
+    registers is one of the port's."""
+    from mrhyde_tpu.physics.registry import available_modules as jax_names
+    from mrhyde_tpu_torch.physics.registry import available_modules
+    assert "Euler" in available_modules()
+    assert set(jax_names()) == set(available_modules())

@@ -180,8 +180,8 @@ HEX = {"dimension": 3, "element type": "hex", "NX": 2, "NY": 2, "NZ": 2}
     {"Parameters": {"kp": {"type": "HGRAD", "usage": "discretized",
                            "initial_value": 1.0}}},
     {"Analysis": {"analysis type": "ROL"}},
-    # a module of A11 (vector and trace bases)
-    {"Physics": {"modules": "maxwell"}},
+    # integrated quantities (A12)
+    {"Postprocess": {"compute integrated quantities": True}},
     # multiscale, multi-set decks, the solution writer (A13, A12)
     {"Subgrid": {"Mesh": {"NX": 2}}},
     {"Physics": {"physics set names": "a, b"}},

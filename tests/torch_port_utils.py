@@ -806,3 +806,196 @@ def solve_both(cfg, rtol=1e-11):
             assert abs(et[key] - val) <= max(rtol * abs(val), NORM_FLOOR), \
                 (tj, key, et[key], val)
     return rj, rt, pt
+
+
+def _on_mesh(cfg, cell, n, nz=None):
+    """cfg on an n^dim mesh of another cell type."""
+    dim = 2 if cell in ("quad", "tri") else 3
+    cfg["Mesh"] = dict({"dimension": dim, "element type": cell, "NX": n,
+                        "NY": n}, **({"NZ": nz or n} if dim == 3 else {}))
+    return cfg
+
+
+def _sides(cfg, var, value):
+    """Dirichlet data `value` on every side for var (3D-safe)."""
+    cfg["Physics"]["Dirichlet conditions"] = {var: {"all boundaries": value}}
+    return cfg
+
+
+def perm_data_files(directory, n_pts, seed):
+    """Writes a permeability field sampled at n_pts x n_pts points
+    (perm.dat, perm_xy.dat) from seed: 1 + 0.5 U(0, 1)."""
+    import os
+    rng = np.random.RandomState(seed)
+    g = (np.arange(n_pts) + 0.5) / n_pts
+    xy = np.stack(np.meshgrid(g, g, indexing="ij"), axis=-1).reshape(-1, 2)
+    np.savetxt(os.path.join(directory, "perm_xy.dat"), xy)
+    np.savetxt(os.path.join(directory, "perm.dat"),
+               1.0 + 0.5 * rng.rand(xy.shape[0]))
+
+
+def a11_decks(data_dir=None):
+    """name -> deck of chip_smoke.py's A11 decks at a CPU size, one per
+    module, option and cell type: mixed porous (quads, triangles, hex,
+    tets; the KL log-permeability; mesh-data permeability when data_dir
+    is given), its hybridized form (quads, hex with an order-1 trace),
+    weak Galerkin (HDIV-DG and Arbogast-Correa), maxwell (2D HCURL / HVOL
+    with conductivity, hex, tet Nedelec of order 2 through the mixing
+    channel, the 'maxwell control' name), maxwells_fp (hex 'test: 2', 2D
+    quads), hybridized shallow water (Far-field and Slip) and Euler's HDG
+    form (max-EV and Roe-like stabilization, 2D and hex)."""
+    import chip_smoke as cs
+
+    def kl():
+        c = cs.porous_mixed_deck(6)
+        c["Physics"].update({"use KL expansion": True, "KL parameters": {
+            "x-direction": {"N": 3, "eta": 0.3, "L": 1.0, "sigma": 0.5},
+            "y-direction": {"N": 2, "eta": 0.2, "L": 1.0, "sigma": 0.5}}})
+        c["Parameters"] = {"KLStochcoeffs": {
+            "type": "vector", "value": [0.3, -0.2, 0.5, 0.1, -0.4],
+            "usage": "inactive"}}
+        return c
+
+    def perm():
+        perm_data_files(data_dir, 7, seed=3)
+        c = cs.porous_mixed_deck(5)
+        c["_deck_dir"] = data_dir
+        c["Mesh"].update({"data file": "perm",
+                          "data points file": "perm_xy"})
+        c["Physics"]["use permeability data"] = True
+        return c
+
+    def wg_perm():
+        perm_data_files(data_dir, 7, seed=4)
+        c = cs.weak_galerkin_deck(4)
+        c["_deck_dir"] = data_dir
+        c["Mesh"].update({"data file": "perm",
+                          "data points file": "perm_xy"})
+        c["Physics"]["use permeability data"] = True
+        return c
+
+    def wg_ac():
+        c = cs.weak_galerkin_deck(4)
+        c["Physics"]["useAC"] = True
+        return c
+
+    def hybrid_hex():
+        c = _sides(_on_mesh(cs.porous_mixed_deck(2, hybrid=True), "hex", 2),
+                   "lambda", "1.0")
+        c["Postprocess"]["True solutions"].update({"u[z]": "x",
+                                                   "lambda face": "x*y"})
+        return c
+
+    def maxwell2d():
+        return {
+            "Mesh": {"dimension": 2, "element type": "quad", "NX": 4,
+                     "NY": 3},
+            "Physics": {"modules": "maxwell", "Initial conditions": {
+                "E[x]": "sin(pi*y)", "E[y]": "x*y", "B": "cos(pi*x)"}},
+            "Functions": {"current x": "0.1*x", "permittivity": "1.5",
+                          "permeability": "1.2", "conductivity": "0.3",
+                          "refractive index": "1.1"},
+            "Discretization": {"order": {"E": 1, "B": 0}, "quadrature": 2},
+            "Solver": {"solver": "transient", "final time": 0.02,
+                       "number of steps": 2, "use direct solver": True,
+                       "transient Butcher tableau": "DIRK-1,2",
+                       "initial type": "L2-projection"},
+            "Postprocess": {"compute errors": True, "True solutions": {
+                "E[x]": "sin(pi*y)", "E[y]": "x*y", "B": "0.0",
+                "curl(E)": "y"}}}
+
+    def maxwell_tet2():
+        c = _on_mesh(cs.maxwell_deck(1), "tet", 1)
+        c["Discretization"] = {"order": {"E": 2, "B": 1}, "quadrature": 4}
+        c["Functions"].update({"current y": "x*z", "conductivity": "0.5"})
+        c["Postprocess"]["True solutions"]["curl(E)[y]"] = "x"
+        return c
+
+    def maxwell_control():
+        c = cs.maxwell_deck(2)
+        c["Physics"]["modules"] = "maxwell control"
+        c["Functions"]["current z"] = "jz"
+        c["Parameters"] = {"jz": {"type": "scalar", "value": 0.7,
+                                  "usage": "active"}}
+        return c
+
+    def mfp2d():
+        vs = ("Arx", "Aix", "Ary", "Aiy", "phir", "phii")
+        return {
+            "Mesh": {"dimension": 2, "element type": "quad", "NX": 5,
+                     "NY": 4},
+            "Physics": {"modules": "maxwells_freq_pot",
+                        "Dirichlet conditions": {
+                            v: {"all boundaries": "0.0"} for v in vs}},
+            "Functions": {"mur": "2.0", "mui": "1.0", "epsr": "1.0+x",
+                          "epsi": "0.5", "omega": "1.3", "Jxr": "x*y",
+                          "Jyi": "1.0", "rhor": "y", "rhoi": "x"},
+            "Discretization": {"order": {v: 1 for v in vs},
+                               "quadrature": 2},
+            "Solver": {"solver": "steady-state", "nonlinear TOL": 1e-12,
+                       "use direct solver": True},
+            "Postprocess": {"compute errors": True,
+                            "True solutions": {v: "0.0" for v in vs}}}
+
+    def swe_slip():
+        c = cs.swe_hybridized_deck(4, steps=2)
+        c["Physics"].pop("Far-field conditions")
+        c["Physics"]["Slip conditions"] = {"H": {"all boundaries": "0"}}
+        return c
+
+    def euler_roe_angled():
+        vx, vy = 0.5, 0.25
+        c = cs.euler_hdg_deck(4, steps=2, stab="Roe-like stabilization")
+        bump = "(1.0 + 0.1*exp(-50*((x-0.5)*(x-0.5)+(y-0.25)*(y-0.25))))"
+        c["Physics"]["Initial conditions"] = {
+            "rho": bump, "rhoux": f"{vx}*{bump}", "rhouy": f"{vy}*{bump}",
+            "rhoE": f"2.5 + {0.5 * (vx * vx + vy * vy)}*{bump}"}
+        far = {"rho": 1.0, "rhoux": vx, "rhouy": vy,
+               "rhoE": 2.5 + 0.5 * (vx * vx + vy * vy)}
+        c["Physics"]["Far-field conditions"] = {
+            v: {"all boundaries": str(val)} for v, val in far.items()}
+        c["Physics"].pop("Slip conditions")
+        return c
+
+    def euler_hex():
+        c = cs.euler_hdg_deck(4, steps=1)
+        c["Mesh"] = {"dimension": 3, "element type": "hex", "NX": 2,
+                     "NY": 1, "NZ": 1, "xmax": 2.0, "ymax": 0.5,
+                     "zmax": 0.5}
+        ph = c["Physics"]
+        ph["Initial conditions"]["rhouz"] = "0.0"
+        ph["Far-field conditions"]["rhouz"] = {"left": "0.0",
+                                               "right": "0.0"}
+        ph["Slip conditions"] = {"rho": {s: "0" for s in (
+            "top", "bottom", "front", "back")}}
+        c["Postprocess"]["True solutions"]["rhouz"] = "0.0"
+        return c
+
+    decks = {
+        "mixed_quad": lambda: cs.porous_mixed_deck(4),
+        "mixed_tri": lambda: _on_mesh(cs.porous_mixed_deck(3), "tri", 3),
+        "mixed_hex": lambda: _sides(_on_mesh(cs.porous_mixed_deck(2),
+                                             "hex", 2), "p", "1.0 + x"),
+        "mixed_tet": lambda: _sides(_on_mesh(cs.porous_mixed_deck(2),
+                                             "tet", 1), "p", "x*y"),
+        "mixed_kl": kl,
+        "hybrid_quad": lambda: cs.porous_mixed_deck(4, hybrid=True),
+        "hybrid_hex": hybrid_hex,
+        "weak_galerkin": lambda: cs.weak_galerkin_deck(4),
+        "weak_galerkin_ac": wg_ac,
+        "maxwell_2d": maxwell2d,
+        "maxwell_hex": lambda: cs.maxwell_deck(3),
+        "maxwell_tet_order2": maxwell_tet2,
+        "maxwell_control": maxwell_control,
+        "maxwells_fp_hex": lambda: cs.maxwells_fp_deck(2),
+        "maxwells_fp_2d": mfp2d,
+        "swe_far_field": lambda: cs.swe_hybridized_deck(4, steps=2),
+        "swe_slip": swe_slip,
+        "euler_maxev": lambda: cs.euler_hdg_deck(8, steps=2),
+        "euler_roe_angled": euler_roe_angled,
+        "euler_hex": euler_hex,
+    }
+    if data_dir is not None:
+        decks["mixed_perm_data"] = perm
+        decks["weak_galerkin_perm_data"] = wg_perm
+    return decks

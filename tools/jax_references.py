@@ -1,24 +1,28 @@
 """Reference L2 errors of chip_smoke.py's cdr / thermal-advection decks,
 its hex decks, its B1 Navier-Stokes decks, its module-set decks, its
-solver decks, its mesh and solid decks and its physics decks from the
-JAX package, in f64 on the CPU.
+solver decks, its mesh and solid decks, its physics decks and its vector
+decks from the JAX package, in f64 on the CPU.
 
-    python tools/jax_references.py [--seed S] DECK [N[:STEPS] ...]
+    python tools/jax_references.py [--seed S] [--solver JSON] DECK \
+        [N[:STEPS] ...]
 
 DECK is a key of chip_smoke.py's CDR_DECKS, HEX_DECKS, NS_ELEM_DECKS,
 SET_DECKS, SET_ELEM_DECKS, BOUNDARY_DECKS, AFFINE_SET_DECKS,
 QUADRATURE_DECKS, SOLVER_DECKS, MESH_DECKS, SOLID_DECKS (whose files,
 an Exodus mesh and grain rotations, the deck functions write from
---seed, default 0, into a temporary directory, as chip_smoke.py does)
-or PHYSICS_DECKS, or `boussinesq_gold_nx8` (max |ux| of its
+--seed, default 0, into a temporary directory, as chip_smoke.py does),
+PHYSICS_DECKS or VECTOR_DECKS, or `boussinesq_gold_nx8` (max |ux| of its
 Boussinesq deck at beta = 1 and 0); each N builds the deck at that mesh
 size (default: the size the card runs), and STEPS, for a transient deck,
-sets its number of steps (to refine h and dt together). Prints one JSON
-line per run: the L2 error of the deck's variable at its held time (an
-NS, mesh, solid or physics deck: of every variable at every recorded
-time, a multi-block mesh's per block as "var@b", an L2-grad or L2-face
-norm as "var#L2-grad"), the DOF count, and
-the set-up and solve seconds. Run it from the repo root; it imports
+sets its number of steps (to refine h and dt together); --solver merges
+the JSON object's keys into the deck's Solver sublist (e.g. '{"use
+direct solver": false, "preconditioner variant": "schwarz"}', to see
+which Krylov solve converges a deck: its L2 against the dense solve's).
+Prints one JSON line per run: the L2 error of the deck's variable at its
+held time (an NS, mesh, solid, physics or vector deck: of every variable
+at every recorded time, a multi-block mesh's per block as "var@b", an
+L2-grad, L2-face, L2-div or L2-curl norm as "var#L2-grad"), the DOF
+count, and the set-up and solve seconds. Run it from the repo root; it imports
 chip_smoke.py for the deck functions, so both packages see the same
 config.
 """
@@ -43,6 +47,10 @@ def main(argv):
     if argv[0] == "--seed":
         chip_smoke.SEED = int(argv[1])
         argv = argv[2:]
+    solver = {}
+    if argv[0] == "--solver":
+        solver = json.loads(argv[1])
+        argv = argv[2:]
     name, sizes = argv[0], argv[1:]
     if name == "boussinesq_gold_nx8":
         return boussinesq(chip_smoke, Problem)
@@ -55,7 +63,8 @@ def main(argv):
               **chip_smoke.SOLVER_DECKS}.items()}
     decks.update({k: (build, n, None, None) for k, (build, n, *_rest) in
                   {**chip_smoke.MESH_DECKS, **chip_smoke.SOLID_DECKS,
-                   **chip_smoke.PHYSICS_DECKS}.items()})
+                   **chip_smoke.PHYSICS_DECKS,
+                   **chip_smoke.VECTOR_DECKS}.items()})
     decks.update(chip_smoke.CDR_DECKS, **chip_smoke.HEX_DECKS)
     build, n_card, t_held, var = decks[name][:4]
     for size in sizes or [str(n_card)]:
@@ -63,6 +72,7 @@ def main(argv):
         cfg = build(int(n))
         if steps:
             cfg["Solver"]["number of steps"] = int(steps)
+        cfg["Solver"].update(solver)
         t0 = time.perf_counter()
         problem = Problem(cfg)
         t1 = time.perf_counter()
@@ -76,6 +86,7 @@ def main(argv):
             l2 = float(hist[round(t_held, 10)][("L2", var)])
         print(json.dumps({"deck": name, "n": int(n), "steps":
                           cfg["Solver"].get("number of steps"),
+                          "solver": solver,
                           "time": t_held,
                           "var": var, "L2": l2, "n_dof": problem.n_dof,
                           "setup_s": t1 - t0, "solve_s": t2 - t1}),
