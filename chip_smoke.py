@@ -362,6 +362,7 @@ import subprocess
 import sys
 import time
 
+import numpy as np
 import torch
 from torch.utils._python_dispatch import TorchDispatchMode
 
@@ -4520,6 +4521,390 @@ def vector_decks(device):
     return out
 
 
+# ----------------------------------------------------------------------
+# phase analysis_decks (ROADMAP A12): forward + adjoint, the trust
+# region, a discretized field, UQ + DCI and a multi-set deck on the card
+# ----------------------------------------------------------------------
+
+# four sensors inside the unit square, and a second source shape
+SENSOR_PTS = [[0.3, 0.3], [0.7, 0.45], [0.55, 0.8], [0.2, 0.65]]
+S2 = "x*(1.0-x)*y*(1.0-y)"
+# the solver keys of the analysis decks: CG to 1e-12, so that central
+# differences of the objective hold the adjoint to 1e-6
+ADJ_SOLVER = {"Belos solver": "CG", "linear TOL": 1e-12,
+              "nonlinear TOL": 1e-10}
+
+
+def objectives(times=(0.0,)):
+    """An integrated response (e^2 against 0.05 on 4 virtual ranks) and
+    four sensors of e with data at each of `times` (the objective's
+    record times)."""
+    data = (0.5, 0.2, -0.3, 0.1)
+    return {"resp": {"type": "integrated response", "response": "e*e",
+                     "target": 0.05, "weight": 10.0},
+            "sens": {"type": "sensors", "response": "e",
+                     "sensor points": SENSOR_PTS,
+                     "sensor times": list(times),
+                     "sensor data": [[d * (1.0 + 0.1 * k)
+                                      for k in range(len(times))]
+                                     for d in data]}}
+
+
+def active(**values):
+    return {k: {"type": "scalar", "value": v, "usage": "active"}
+            for k, v in values.items()}
+
+
+def adjoint_deck(n):
+    """forward+adjoint, steady: kappa = k0, source amp 8 pi^2 S (u = S at
+    k0 = amp = 1), the objectives of `objectives`: thermal_node_state."""
+    cfg = deck(n, "k0", f"amp*{SOURCE}", dict(ADJ_SOLVER))
+    cfg["Parameters"] = active(k0=1.0, amp=1.0)
+    cfg["Analysis"] = {"analysis type": "forward+adjoint"}
+    cfg["Postprocess"]["Objective functions"] = objectives()
+    return cfg
+
+
+def adjoint_nonlinear_deck(n):
+    """forward+adjoint of kappa = k0 + k1 e^2 (k0 = k1 = 1, the
+    nonlinear deck's source): thermal_node_full."""
+    cfg = adjoint_deck(n)
+    cfg["Functions"].update({"thermal diffusion": "k0 + k1*e*e",
+                             "thermal source": SOURCE_NL})
+    cfg["Parameters"] = active(k0=1.0, k1=1.0)
+    return cfg
+
+
+def adjoint_dirk_deck(n, steps=8):
+    """forward+adjoint of the DIRK-2,2 deck (dt = 0.05, kappa = k0,
+    source amp S_T): thermal_node_state. The sensors' data times are the
+    objective's record times t_n + c_last dt (the reference's quirk)."""
+    cfg = transient_deck(n, dict(ADJ_SOLVER, **{
+        "transient Butcher tableau": "DIRK-2,2", "final time": 0.05 * steps,
+        "number of steps": steps}), "k0", f"amp*{SOURCE_T}")
+    cfg["Parameters"] = active(k0=1.0, amp=1.0)
+    cfg["Analysis"] = {"analysis type": "forward+adjoint"}
+    cfg["Postprocess"]["Objective functions"] = objectives(
+        [0.05 * k + 0.0375 for k in range(steps)])
+    return cfg
+
+
+def rol_deck(n, iters=10):
+    """A trust-region source inversion: 'Generate data' runs the source
+    2 S + 0.5 S2 (datagen = 1), then ROL fits a1 S + a2 S2 from (0.2,
+    -1) against the stored state (discrete control): thermal_node_state."""
+    src = (f"datagen*(2.0*{S_TRUE} + 0.5*{S2}) "
+           f"+ (1.0-datagen)*(a1*{S_TRUE} + a2*{S2})")
+    cfg = deck(n, "1.0", src, dict(ADJ_SOLVER))
+    cfg["Parameters"] = dict(
+        {"datagen": {"type": "scalar", "value": 0.0, "usage": "inactive"}},
+        **active(a1=0.2, a2=-1.0))
+    cfg["Analysis"] = {"analysis type": "ROL", "ROL": {
+        "General": {"Generate data": True, "Write Final Parameters": True,
+                    "Secant": {"Maximum Storage": 5}},
+        "Step": {"Trust Region": {"Initial Radius": 0.5}},
+        "Status Test": {"Iteration Limit": iters,
+                        "Gradient Tolerance": 1e-12,
+                        "Step Tolerance": 1e-14}}}
+    cfg["Postprocess"] = {"Objective functions": {
+        "misfit": {"type": "discrete control", "weight": 1.0}}}
+    return cfg
+
+
+def field_inversion_deck(n, iters=8):
+    """A discretized-field inversion on the general path: the HGRAD p1
+    field src_field (start 1.0) fitted by ROL against the state of the
+    source 10 sin(pi x) sin(pi y) ('Generate data')."""
+    cfg = rol_deck(n, iters)
+    # 'Write Final Parameters' would print one line per field DOF
+    cfg["Analysis"]["ROL"]["General"]["Write Final Parameters"] = False
+    cfg["Functions"]["thermal source"] = (
+        "datagen*10.0*sin(pi*x)*sin(pi*y) + (1.0-datagen)*src_field")
+    cfg["Parameters"] = {
+        "datagen": {"type": "scalar", "value": 0.0, "usage": "inactive"},
+        "src_field": {"type": "HGRAD", "usage": "discretized", "order": 1,
+                      "initial_value": 1.0}}
+    return cfg
+
+
+def uq_deck(n, samples=64):
+    """UQ + DCI: kappa ~ U(1, 2), amp ~ N(1, 0.04) (numpy RandomState,
+    seed 1234), objective int e^2 = (amp / kappa)^2 int u_1^2:
+    thermal_node_state per sample."""
+    cfg = deck(n, "kappa", f"amp*{SOURCE}", dict(ADJ_SOLVER))
+    cfg["Parameters"] = {
+        "kappa": {"type": "scalar", "value": 1.0, "usage": "stochastic",
+                  "distribution": "uniform", "min": 1.0, "max": 2.0},
+        "amp": {"type": "scalar", "value": 1.0, "usage": "stochastic",
+                "distribution": "Gaussian", "mean": 1.0, "variance": 0.04}}
+    cfg["Analysis"] = {"analysis type": "DCI",
+                       "UQ": {"samples": samples, "seed": 1234},
+                       "DCI": {"observed type": "Gaussian",
+                               "observed mean": 0.15,
+                               "observed variance": 0.0025}}
+    cfg["Postprocess"] = {"Objective functions": {
+        "energy": {"type": "integrated control", "response": "e*e"}}}
+    return cfg
+
+
+def ns_cdr_multiset_deck(nx):
+    """The NS + cdr start-up of SET_DECKS (ns_cdr_deck) as two physics
+    sets coupled iteratively, the reference's Multiphysics/
+    NavierStokes-CDR/Iteratively-Coupled: set NS reads c, set CDR reads
+    ux and uy as the other set's fields. NS runs ns_node_full and cdr
+    the thermal state kernel."""
+    cfg = ns_cdr_deck(nx)
+    phys = cfg["Physics"]
+    dbc = phys["Dirichlet conditions"]
+    ns = {k: v for k, v in phys.items()
+          if k not in ("modules", "Dirichlet conditions",
+                       "Initial conditions")}
+    cfg["Physics"] = {
+        "physics set names": "NS, CDR",
+        "NS": dict(ns, **{
+            "modules": "navier stokes",
+            "Dirichlet conditions": {"scalar data": True, "ux": dbc["ux"],
+                                     "uy": dbc["uy"]},
+            "Initial conditions": {"scalar data": True, "ux": 0.0,
+                                   "uy": 0.0, "pr": 0.0}}),
+        "CDR": {"modules": "cdr",
+                "Dirichlet conditions": {"scalar data": True,
+                                         "c": dbc["c"]},
+                "Initial conditions": {"scalar data": True, "c": 0.0}}}
+    cfg["Discretization"] = {
+        "NS": {"order": {"ux": 1, "uy": 1, "pr": 1}, "quadrature": 2},
+        "CDR": {"order": {"c": 1}, "quadrature": 2}}
+    return cfg
+
+
+# the multi-set decks (tools/jax_references.py takes their keys): name ->
+# (deck function, n on the card, {var: rtol}, {time: the JAX package's f64
+# CPU L2 per variable}). The NS + cdr start-up: 66,820 DOFs in two sets,
+# 248 s of JAX CPU solve (its general path). Every GMRES solve of the NS
+# set stops at its 2,000 cap, as in SET_DECKS' ns_cdr_startup_nx256, and
+# L2(pr), the least determined field, moves with the Krylov path's
+# rounding: on the card 7.5e-7 from JAX's at t = 0.01 and 1.06e-3 at t =
+# 0.02, against 2e-8 for ux, uy and c (at 16x4, where the solves
+# converge, the packages agree to 1e-9: tests/test_torch_multiset.py)
+MULTISET_DECKS = {
+    "ns_cdr_multiset_startup_nx256": (
+        ns_cdr_multiset_deck, 256,
+        {"ux": 1e-4, "uy": 1e-4, "c": 1e-4, "pr": 2e-3},
+        {0.01: {"ux": 0.18482592112053609, "uy": 3.6844922235663287e-06,
+                "pr": 0.00031242768365478095, "c": 0.09618419651329362},
+         0.02: {"ux": 0.16743084657706891, "uy": 4.616012217321733e-06,
+                "pr": 0.00041310571679065947, "c": 0.1070492894176814}}),
+}
+# the JAX package's f64 CPU L2(e) of the DIRK-2,2 deck at 256^2, 8 steps
+# to t = 0.4 (GMRES + Jacobi), and of the steady deck at 512^2 (CG, TOL
+# 1e-10): ROADMAP's reference tables
+DIRK_256_L2 = 0.000954757
+REF_512_CG = 6.27491e-06
+ADJ_RTOL = 1e-6
+
+
+def fd_check(dfwd, pvec, h=1e-4):
+    """The adjoint gradient against central differences of the
+    objective, (J(p + h e_i) - J(p - h e_i)) / 2h with h relative to
+    p_i: {name: (adjoint, fd, rel)}."""
+    _v, grad = dfwd.value_and_gradient(pvec)
+    out = {}
+    for k, v in pvec.items():
+        step = h * max(1.0, abs(float(v)))
+        vals = []
+        for sgn in (1.0, -1.0):
+            pp = dict(pvec)
+            pp[k] = v + sgn * step
+            with torch.no_grad():
+                vals.append(float(dfwd.objective(pp)))
+        fd = (vals[0] - vals[1]) / (2 * step)
+        g = float(grad[k])
+        out[k] = (g, fd, abs(g - fd) / max(abs(fd), 1e-300))
+    return out
+
+
+def adjoint_timing(dfwd, pvec):
+    """(forward s, forward + adjoint s) of the differentiable objective
+    at pvec: one forward through the stage solves alone, then one
+    value_and_gradient."""
+    torch.cuda.synchronize()
+    t0 = time.perf_counter()
+    with torch.no_grad():
+        dfwd.objective(pvec)
+    torch.cuda.synchronize()
+    t1 = time.perf_counter()
+    dfwd.value_and_gradient(pvec)
+    torch.cuda.synchronize()
+    return t1 - t0, time.perf_counter() - t1
+
+
+def analysis_run(name, cfg, device, kernels, check):
+    """Builds the deck through make_problem, resets the launch counts,
+    runs its analysis (Problem.run(): the main path), reads the counts,
+    then check(problem, result) -> dict with "ok". Every kernel named in
+    `kernels` must have launched, and no other. Returns the launches."""
+    from mrhyde_tpu_torch.ops import fused_p1 as fp
+    from mrhyde_tpu_torch.problem import make_problem
+    torch.cuda.synchronize()
+    t0 = time.perf_counter()
+    problem = make_problem(cfg, device=device)
+    t1 = time.perf_counter()
+    for k in fp.LAUNCHES:
+        fp.LAUNCHES[k] = 0
+    result = problem.run()
+    torch.cuda.synchronize()
+    t2 = time.perf_counter()
+    launches = dict(fp.LAUNCHES)
+    rec = {"phase": "analysis_decks", "deck": name,
+           "n_dof": problem.n_dof, "setup_s": t1 - t0, "run_s": t2 - t1,
+           "launches": launches, **check(problem, result)}
+    bad = sorted(k for k, n in launches.items() if (n > 0) != (k in kernels))
+    rec["ok"] = bool(rec["ok"]) and not bad
+    emit(rec)
+    RECORDS[name] = rec
+    if not rec["ok"]:
+        raise SystemExit(f"phase analysis_decks, deck {name} failed "
+                         f"(kernels launched or missing: {bad}): {rec}")
+    return launches
+
+
+def _l2(result, t, var="e"):
+    hist = {round(tt, 10): errs for tt, errs in result.error_history}
+    return float(hist[round(t, 10)][("L2", var)])
+
+
+def adjoint_check(l2_time, l2_ref):
+    """The check of a forward+adjoint deck: the forward's L2(e) against
+    the JAX reference, the gradient against central differences (rel <=
+    ADJ_RTOL), and the adjoint's cost against its forward."""
+    def check(problem, result):
+        from mrhyde_tpu_torch.analysis.forward_ad import DifferentiableForward
+        dfwd = DifferentiableForward(problem,
+                                     problem.objective_manager.value)
+        pvec = problem.param_manager.pvec(problem.device, problem.dtype)
+        fd = fd_check(dfwd, pvec)
+        fwd_s, vag_s = adjoint_timing(dfwd, pvec)
+        l2 = _l2(result, l2_time)
+        grads_ok = all(np.isfinite(result.gradient[k]).all()
+                       and abs(float(result.gradient[k]) - g)
+                       <= 1e-9 * abs(g) and rel <= ADJ_RTOL
+                       for k, (g, _fd, rel) in fd.items())
+        return {"objective": result.objective,
+                "gradient": {k: float(v) for k, v in
+                             result.gradient.items()},
+                "fd": {k: {"adjoint": g, "fd": f, "rel": r}
+                       for k, (g, f, r) in fd.items()},
+                "L2": l2, "L2_ref": l2_ref,
+                "objective_forward_s": fwd_s, "value_and_gradient_s": vag_s,
+                "adjoint_over_forward": (vag_s - fwd_s) / fwd_s,
+                "stage_counts": dict(dfwd.stage_solve.counts),
+                "ok": grads_ok and abs(l2 - l2_ref) <= 1e-4 * l2_ref}
+    return check
+
+
+def rol_check(want):
+    """The check of a trust-region deck: the parameters it recovers."""
+    def check(problem, result):
+        x = np.asarray(result.x, dtype=float)
+        return {"x": x.tolist(), "x_ref": list(want), "value": result.value,
+                "iterations": result.iterations, "status": result.status,
+                "ok": bool(np.all(np.abs(x - np.asarray(want))
+                                  <= 1e-6 * np.abs(want)))}
+    return check
+
+
+def field_check(problem, result):
+    """The check of the field inversion: its misfit falls 100-fold, and
+    the adjoint gradient along a seeded direction equals central
+    differences (the objective is quadratic in the field) to ADJ_RTOL."""
+    from mrhyde_tpu_torch.analysis.forward_ad import DifferentiableForward
+    pm = problem.param_manager
+    dfwd = DifferentiableForward(problem, problem.objective_manager.value)
+    extra = {"datagen": torch.zeros((), dtype=problem.dtype,
+                                    device=problem.device)}
+    f = torch.as_tensor(np.asarray(pm.specs["src_field"].value),
+                        dtype=problem.dtype, device=problem.device)
+    d = torch.as_tensor(np.random.RandomState(SEED).uniform(
+        -1.0, 1.0, f.shape[0]), dtype=f.dtype, device=f.device)
+    _v, g = dfwd.value_and_gradient({"src_field": f, **extra})
+    h = 1e-3
+    with torch.no_grad():
+        jp = float(dfwd.objective({"src_field": f + h * d, **extra}))
+        jm = float(dfwd.objective({"src_field": f - h * d, **extra}))
+    fd = (jp - jm) / (2 * h)
+    ad = float(torch.dot(g["src_field"], d))
+    rel = abs(ad - fd) / abs(fd)
+    v0, v1 = result.history[0][0], result.value
+    return {"value0": v0, "value": v1, "iterations": result.iterations,
+            "fd": {"adjoint": ad, "fd": fd, "rel": rel},
+            "ok": v1 <= 1e-2 * v0 and rel <= ADJ_RTOL}
+
+
+def uq_check(problem, result):
+    """The check of the UQ + DCI deck: each response equals (amp /
+    kappa)^2 C for one C (the deck is linear in amp / kappa) to 1e-9,
+    C = int u_1^2 ~ 1/4, and DCI accepted some samples."""
+    s, r = result["samples"], np.asarray(result["responses"], dtype=float)
+    c = r * s["kappa"] ** 2 / s["amp"] ** 2
+    spread = float(np.max(np.abs(c - c[0])) / c[0])
+    return {"samples": int(r.shape[0]), "mean": float(result["stats"]["mean"]),
+            "variance": float(result["stats"]["variance"]),
+            "C": float(c[0]), "C_spread": spread,
+            "acceptance_rate": result["dci"]["acceptance_rate"],
+            "ok": spread <= 1e-9 and abs(c[0] - 0.25) <= 1e-3
+            and 0 < result["dci"]["acceptance_rate"] <= 1}
+
+
+def multiset_check(refs, rtol):
+    """The check of a multi-set deck: every variable's L2 at each held
+    time against the JAX package's, to its rtol."""
+    def check(problem, result):
+        errs = [{"time": t, "var": v, "L2": _l2(result, t, v),
+                 "L2_ref": g, "rtol": rtol[v]} for t, ref in refs.items()
+                for v, g in ref.items()]
+        return {"errors": errs, "counts": result.counts,
+                "ok": bool(errs) and all(
+                    abs(e["L2"] - e["L2_ref"]) <= e["rtol"] * abs(e["L2_ref"])
+                    for e in errs)}
+    return check
+
+
+def analysis_decks(device):
+    """Phase analysis_decks: the steady forward+adjoint at 512^2
+    (thermal_node_state), kappa = k0 + k1 e^2 at 256^2
+    (thermal_node_full), the DIRK-2,2 adjoint at 256^2, the trust-region
+    source inversion at 256^2, the discretized-field inversion at 128^2
+    (general path), UQ + DCI with 64 samples at 512^2 and the NS + cdr
+    multi-set start-up at 256x64 (ns_node_full and the cdr set's state
+    kernel); returns each deck's launches. Alone on the card: python3 -c
+    'import torch, chip_smoke; chip_smoke.analysis_decks(
+    torch.device("cuda"))'. Rehearse a deck on the CPU with
+    analysis_run at 16^2."""
+    out = [
+        analysis_run("adjoint_steady_nx512", adjoint_deck(512), device,
+                     {"state"}, adjoint_check(0.0, REF_512_CG)),
+        analysis_run("adjoint_nonlinear_nx256", adjoint_nonlinear_deck(256),
+                     device, {"full"}, adjoint_check(0.0, NONLINEAR_L2)),
+        analysis_run("adjoint_dirk22_nx256", adjoint_dirk_deck(256), device,
+                     {"state"}, adjoint_check(0.4, DIRK_256_L2)),
+        analysis_run("rol_source_nx256", rol_deck(256), device, {"state"},
+                     rol_check((2.0, 0.5))),
+        analysis_run("field_inversion_nx128", field_inversion_deck(128),
+                     device, set(), field_check),
+        analysis_run("uq_dci_nx512", uq_deck(512, 64), device, {"state"},
+                     uq_check),
+    ]
+    for name, (build, n, rtol, refs) in MULTISET_DECKS.items():
+        out.append(analysis_run(name, build(n), device, {"ns_full", "state"},
+                                multiset_check(refs, rtol)))
+    keys = ("n_dof", "setup_s", "run_s", "objective_forward_s",
+            "value_and_gradient_s", "adjoint_over_forward")
+    emit({"phase": "analysis_times", "decks": {
+        rec["deck"]: {k: rec.get(k) for k in keys}
+        for rec in RECORDS.values() if rec.get("phase") == "analysis_decks"}})
+    return out
+
+
 def set_sources():
     """The generated kernel sources of phases 3f and 3g's cases and the
     module-set decks (each deck's weak form at its size 4 on the CPU: the
@@ -4693,6 +5078,7 @@ def main(argv=()):
     per_deck += mesh_solid_decks(device)
     per_deck += physics_decks(device)
     per_deck += vector_decks(device)
+    per_deck += analysis_decks(device)
     launches = {k: sum(d[k] for d in per_deck) for k in fp.LAUNCHES}
     advect_launches = {k: sum(d[k] for d in advect_decks)
                        for k in fp.LAUNCHES}

@@ -10,10 +10,13 @@ numpy-only host modules (mesh, fem, discretization, native) are copies,
 so both packages number DOFs identically and state passes across index
 by index (`interop.py`).
 
-Ported so far: thermal (with or without advection), cdr and
-Navier-Stokes (PSPG/SUPG) on 2D p1 quads, 3D hex and 2D p2 quads,
-Stokes, and the ODE module, steady and transient; everything else
-raises NotImplementedError naming its ROADMAP item.
+Ported: every physics module, mesh, basis and solver of the JAX package
+on the fused kernels or the general path, steady and transient, and the
+postprocessing and analyses (objectives, the Exodus writer, the adjoint
+as a torch.autograd.Function, the ROL trust region, UQ / DCI,
+discretized parameters, multi-set decks through `make_problem`);
+multiscale (ROADMAP A13) and DOF sharding (A14) raise
+NotImplementedError naming their item.
 """
 
 __version__ = "0.1.0"

@@ -6,8 +6,9 @@ Each entry is a scalar or a vector parameter of usage inactive, active,
 stochastic, discrete or discretized; its values come from `value`
 (`initial_value`) or, for a vector, from a text file named by `source`.
 A forward run reads every scalar and vector through `all_values()` as
-expression leaves; discretized (field) parameters and the analyses that
-read `pvec`, `flatten`, `unflatten` and `bounds` come with ROADMAP A12.
+expression leaves; discretized (field) parameters get their own DOF map
+in the Problem (the assembler's field-parameter registry); the analyses
+read `pvec`, `flatten`, `unflatten` and `bounds`.
 """
 
 from __future__ import annotations

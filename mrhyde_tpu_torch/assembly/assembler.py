@@ -185,6 +185,58 @@ class BlockJacobian:
             out = sc.add(out, torch.einsum("eij,ej->ei", blocks, vm[lids]))
         return torch.where(self.fixed, v, out)
 
+    def _apply_raw(self, v):
+        """The assembled operator times v, Dirichlet rows and columns
+        untouched."""
+        out = self._gather_sum(self._vol_mv(v))
+        for blocks, lids, sc in self._bnd_parts():
+            out = sc.add(out, torch.einsum("eij,ej->ei", blocks, v[lids]))
+        return out
+
+    def transposed(self):
+        """The BlockJacobian of the element blocks transposed: SoA entry
+        (i, j) reads entry (j, i), AoS and boundary blocks swap their
+        axes. Its `apply` is the transpose of this one's (identity
+        Dirichlet rows and columns), so a Krylov solver and any
+        preconditioner built from it serve a transposed solve."""
+        nd = self.vol_lids.shape[1]
+        soa = None if self.vol_soa is None else [
+            self.vol_soa[j * nd + i] for i in range(nd) for j in range(nd)]
+        return BlockJacobian(
+            vol=None if self.vol is None else self.vol.transpose(1, 2),
+            vol_lids=self.vol_lids, fixed=self.fixed, inc=self.inc,
+            vol_soa=soa, bnd=[b.transpose(1, 2) for b in self.bnd],
+            bnd_lids=list(self.bnd_lids), bnd_scatter=list(self.bnd_scatter))
+
+    def apply_rowfix(self, v):
+        """A v with A = identity Dirichlet ROWS but live columns: the
+        adjoint-consistent operator (a free row keeps its dependence on
+        the fixed dofs; see analysis/adjoint.py)."""
+        return torch.where(self.fixed, v, self._apply_raw(v))
+
+    def apply_rowfix_T(self, v):
+        """A^T v for the row-fixed operator above."""
+        vm = torch.where(self.fixed, 0.0, v)
+        return self.transposed()._apply_raw(vm) + torch.where(self.fixed, v,
+                                                              0.0)
+
+    def dense_rowfix(self):
+        """Dense A with identity Dirichlet rows and live columns (the JAX
+        package's `_dense_rowfix`; `dense` also zeroes the columns, the
+        symmetric elimination of the forward solve). Accumulated with
+        index_put, so it stays differentiable in the blocks."""
+        n = self.n_dof
+        vol = self.aos()
+        A = torch.zeros((n, n), dtype=vol.dtype, device=vol.device)
+        parts = [(vol, self.vol_lids)] + list(zip(self.bnd, self.bnd_lids))
+        for blocks, lids in parts:
+            k = lids.shape[1]
+            A = A.index_put((lids[:, :, None].expand(-1, k, k),
+                             lids[:, None, :].expand(-1, k, k)), blocks,
+                            accumulate=True)
+        A = torch.where(self.fixed[:, None], 0.0, A)
+        return A + torch.diag(self.fixed.to(A.dtype))
+
     def diag(self):
         if self._soa_only:
             nd = self.vol_lids.shape[1]
@@ -413,16 +465,28 @@ class Assembler:
         # per-block physics masks (E, n_modules), or None (one physics
         # list for every block)
         self.module_masks = None
+        # discretized (field) parameters, name -> {"eldofs" (E, ndp),
+        # "phi" (ndp, Q), "gphi" (E, ndp, Q, dim), "key", "dof_coords",
+        # "n_dof", "value" (the dof vector a call without it in pvec
+        # reads)}, set by the Problem (reference parameterManager.cpp:
+        # 272 setupDiscretizedParameters)
+        self.field_params: dict = {}
+        # the leaves that arrive as per-qp '__field:<leaf>' entries of
+        # pvec (a multi-set deck's other sets' variables), set by
+        # MultiSetProblem; the fused providers read them as coefficients
+        # that vary by element
+        self.field_leaves: set = set()
 
     @property
     def general_only(self):
         """Whether the deck takes the general path whatever its modules:
-        oriented dofs (signs or a mixing channel), face terms, or an
-        HFACE / broken-HDIV variable. The fused providers' `build`
-        returns None for it, as the JAX package's FusedP1Assembly.build
-        does (`mrhyde_tpu/ops/fused_p1.py:217` and its face check)."""
+        oriented dofs (signs or a mixing channel), face terms, an HFACE /
+        broken-HDIV variable, or a discretized parameter. The fused
+        providers' `build` returns None for it, as the JAX package's
+        FusedP1Assembly.build does (`mrhyde_tpu/ops/fused_p1.py:217-219`
+        and its face check)."""
         return self.has_signs or self.assemble_face_terms \
-            or bool(self.face_modules) or any(
+            or bool(self.face_modules) or bool(self.field_params) or any(
                 k[0] in _FACE_SPACES for k in self.disc.basis_keys.values())
 
     def _geometry_bundle(self, needs_faces):
@@ -622,19 +686,67 @@ class Assembler:
             time=time, fm=self.fm, params=params, deltat=deltat,
             is_transient=self.is_transient, **side)
 
-    def _elem_extra(self):
-        """The per-element fields the volume worksets read: the block
-        masks (under "__blockmask") and the mesh-data fields; None
-        without any."""
+    def _field_value(self, name, pvec):
+        """The dof vector of a discretized parameter: pvec's, else the
+        registry's value (on the assembler's device and dtype)."""
+        v = (pvec or {}).get(name, self.field_params[name]["value"])
+        return torch.as_tensor(v, dtype=self.dtype, device=self.device)
+
+    def _elem_extra(self, pvec=None):
+        """The per-element fields the volume worksets read (the JAX
+        package's `_field_param_values`): the discretized parameters and
+        their gradients at the qps, the block masks (under
+        "__blockmask"), the mesh-data fields, and last pvec's
+        '__field:<leaf>' (E, Q) entries (a multi-set deck's other sets,
+        a UQ sample's regenerated grains), which override a static
+        field of the same name; None without any."""
         out = {}
+        axes = "xyz"[:self.disc.mesh.dim]
+        for name, fp in self.field_params.items():
+            pe = self._field_value(name, pvec)[fp["eldofs"]]   # (E, ndp)
+            out[name] = torch.einsum("ei,iq->eq", pe, fp["phi"])
+            g = torch.einsum("ei,eiqd->eqd", pe, fp["gphi"])
+            for ax, c in enumerate(axes):
+                out[f"grad({name})[{c}]"] = g[..., ax]
         if self.module_masks is not None:
             out["__blockmask"] = self.module_masks
         out.update(self.extra_elem_fields)
+        for name, val in (pvec or {}).items():
+            if str(name).startswith("__field:"):
+                out[name[8:]] = val
+        return out or None
+
+    def _bnd_extra(self, group, pvec=None):
+        """The discretized parameters and their gradients at a boundary
+        group's side qps, (B, Qf) (the JAX package's
+        `_field_param_boundary_values`); None without any."""
+        out = {}
+        axes = "xyz"[:self.disc.mesh.dim]
+        for name, fp in self.field_params.items():
+            phi = group["bv"].get(fp["key"])
+            if phi is None:
+                raise NotImplementedError(
+                    f"no face basis table for field param {name!r} "
+                    f"({fp['key']}) on sideset {group['sideset']!r}")
+            pe = self._field_value(name, pvec)[fp["eldofs"][group["elems"]]]
+            out[name] = torch.einsum("bi,iq->bq", pe, phi)
+            gph = group["bg"]["grad"].get(fp["key"])
+            if gph is not None:
+                g = torch.einsum("bi,biqd->bqd", pe, gph)
+                for ax, c in enumerate(axes):
+                    out[f"grad({name})[{c}]"] = g[..., ax]
         return out or None
 
     def _params(self, pvec):
+        """The expression-leaf parameters of a call: the deck's, updated
+        by pvec, without the discretized parameters and '__field:'
+        entries (they reach the worksets as per-qp extra fields)."""
         params = dict(self.params)
         params.update(pvec or {})
+        for name in self.field_params:
+            params.pop(name, None)
+        for k in [k for k in params if str(k).startswith("__field:")]:
+            params.pop(k)
         return params
 
     def _elem_fn(self, tc: TimeCoeffs, pvec):
@@ -690,7 +802,7 @@ class Assembler:
     def residual(self, u_st, tc: TimeCoeffs, pvec=None):
         """Global residual (n_dof,) with Dirichlet rows zeroed."""
         u_e, bu_e, bt_e = self._gathered(u_st, tc)
-        extra = self._elem_extra()
+        extra = self._elem_extra(pvec)
         res_e = torch.func.vmap(self._elem_fn(tc, pvec),
                                 in_dims=self._in_dims(extra))(
             u_e, bu_e, bt_e, self.g_wts, self.g_ip, self.g_bg, extra)
@@ -707,7 +819,7 @@ class Assembler:
     def jacobian(self, u_st, tc: TimeCoeffs, pvec=None) -> BlockJacobian:
         """Element-block Jacobian d(residual)/d(u_stage), general path."""
         u_e, bu_e, bt_e = self._gathered(u_st, tc)
-        extra = self._elem_extra()
+        extra = self._elem_extra(pvec)
         jac_e = torch.func.vmap(
             torch.func.jacfwd(self._elem_fn(tc, pvec), argnums=0),
             in_dims=self._in_dims(extra))(
@@ -744,8 +856,8 @@ class Assembler:
         return out
 
     def _belem_residual(self, group, u_st, beta_u, beta_t, wts, ip,
-                        normals, bg, bmask=None, *, alpha_u, alpha_t, time,
-                        params, deltat):
+                        normals, bg, bmask=None, bex=None, *, alpha_u,
+                        alpha_t, time, params, deltat):
         """One side's residual (ndof_total,): the modules'
         boundary_residual, each masked to its own blocks' elements under
         per-block physics, and the physics-agnostic Flux conditions
@@ -756,7 +868,8 @@ class Assembler:
                for v in self.disc.var_names}
         wk = self._workset(wts, ip, group["bv"], bg, alpha_u * u_st + beta_u,
                            alpha_t * u_st + beta_t, time, params, deltat,
-                           normals=normals, side_name=ss, bcs=bcs)
+                           normals=normals, side_name=ss, bcs=bcs,
+                           extra_fields=bex)
         _masked_modules(wk, self.modules, bmask,
                         lambda m, w: m.boundary_residual(w))
         for v in self.disc.var_names:
@@ -768,21 +881,23 @@ class Assembler:
     def _bnd_fn(self, group, tc: TimeCoeffs, pvec):
         params = self._params(pvec)
 
-        def fn(u_st, beta_u, beta_t, wts, ip, normals, bg, bmask):
+        def fn(u_st, beta_u, beta_t, wts, ip, normals, bg, bmask, bex):
             return self._belem_residual(
                 group, u_st, beta_u, beta_t, wts, ip, normals, bg, bmask,
-                alpha_u=tc.alpha_u, alpha_t=tc.alpha_t, time=tc.time,
+                bex, alpha_u=tc.alpha_u, alpha_t=tc.alpha_t, time=tc.time,
                 params=params, deltat=tc.deltat)
         return fn
 
-    def _bnd_args(self, group, u_st, tc: TimeCoeffs):
+    def _bnd_args(self, group, u_st, tc: TimeCoeffs, pvec=None):
         bmask = None if self.module_masks is None \
             else self.module_masks[group["elems"]]
         return (*self._gathered(u_st, tc, group), group["wts"],
-                group["ip"], group["normals"], group["bg"], bmask)
+                group["ip"], group["normals"], group["bg"], bmask,
+                self._bnd_extra(group, pvec))
 
     def _bnd_in_dims(self):
-        return (0,) * 7 + (None if self.module_masks is None else 0,)
+        return (0,) * 7 + (None if self.module_masks is None else 0,
+                           0 if self.field_params else None)
 
     def _bnd_res_scatter(self, u_st, tc: TimeCoeffs, pvec=None):
         """The summed boundary-group residual (n_dof,): additive to the
@@ -791,7 +906,7 @@ class Assembler:
         for group in self._active_bnd_groups():
             res_b = torch.func.vmap(self._bnd_fn(group, tc, pvec),
                                     in_dims=self._bnd_in_dims())(
-                *self._bnd_args(group, u_st, tc))
+                *self._bnd_args(group, u_st, tc, pvec))
             r = group["scatter"].add(r, self._fold_res(res_b, group))
         return r
 
@@ -804,10 +919,18 @@ class Assembler:
             parts["bnd"].append(self._fold_jac(torch.func.vmap(
                 torch.func.jacfwd(self._bnd_fn(group, tc, pvec), argnums=0),
                 in_dims=self._bnd_in_dims())(
-                *self._bnd_args(group, u_st, tc)), group))
+                *self._bnd_args(group, u_st, tc, pvec)), group))
             parts["bnd_lids"].append(group["lids"])
             parts["bnd_scatter"].append(group["scatter"])
         return parts
+
+    def set_field_leaves(self, leaves):
+        """Name the leaves that arrive as per-qp '__field:<leaf>' pvec
+        entries (MultiSetProblem: the other sets' variables); the fused
+        provider is built again at its next use, reading them as
+        coefficients that vary by element."""
+        self.field_leaves = set(leaves)
+        self._fused, self._fused_built = None, False
 
     def fused_provider(self):
         """The fused provider (ops/fused_p1.py), built on
@@ -825,15 +948,18 @@ class Assembler:
         point. Uses the fused provider when the problem qualifies
         (uniform structured meshes: thermal, with or without advection,
         and cdr on 2D p1 quads, 3D p1 hex and 2D p2 quads; Navier-Stokes
-        on 2D p1 quads) and the params are scalars, steady or transient
-        alike, else the general vmapped path. Active boundary groups
+        on 2D p1 quads) and the params are scalars (or a multi-set deck's
+        '__field:' entries of the leaves in `field_leaves`), steady or
+        transient alike, else the general vmapped path. Active boundary groups
         (Neumann, Flux, weak Dirichlet, ...) are additive: their residual
         and blocks from the general path join the fused result, as the
         JAX package attaches them."""
         fused = self.fused_provider()
         if fused is not None and all(
                 not isinstance(v, torch.Tensor) or v.dim() == 0
-                for v in (pvec or {}).values()):
+                or (str(k).startswith("__field:")
+                    and k[8:] in self.field_leaves)
+                for k, v in (pvec or {}).items()):
             r, J = fused.jacobian(u_st, tc, pvec)
             if self._active_bnd_groups():
                 r = torch.where(self.fixed, 0.0,

@@ -111,25 +111,27 @@ def main(argv=None):
     args = ap.parse_args(argv)
 
     import torch
-    from mrhyde_tpu_torch.problem import Problem
+    from mrhyde_tpu_torch.problem import make_problem
     from mrhyde_tpu_torch.utils.profiling import timed, timer_report
 
     cfg = load_input_deck(args.deck)
     with timed("driver::total"):
         with timed("driver::setup"):
-            problem = Problem(cfg, device=args.device,
-                              dtype=torch.float32 if args.fp32
-                              else torch.float64)
+            problem = make_problem(cfg, device=args.device,
+                                   dtype=torch.float32 if args.fp32
+                                   else torch.float64)
         with timed("driver::run"):
+            # an analysis deck prints its own tables (the ROL
+            # trust-region table, 'param i = ...', the dry-run summary)
             result = problem.run()
-    if problem.compute_errors:
+    if problem.compute_errors and hasattr(result, "report"):
         print(result.report())
     if args.profile or cfg.get("profile", False):
         report = timer_report()
         print(report)
         with open("mrhyde_tpu.profile", "w") as f:
             f.write(report)
-    if int(cfg.get("verbosity", 0)) > 0:
+    if int(cfg.get("verbosity", 0)) > 0 and hasattr(result, "time"):
         print(f"n_dof = {problem.n_dof}, final time = {result.time}")
     return 0
 

@@ -592,8 +592,11 @@ class FusedNSAssembly:
         # package's h_elem and the workset's h
         self.h = float(np.sum(self.tables.wts) ** (1.0 / self.dim))
         self.coeff_names = COEFFS[:2 + self.dim]
-        self.varying = tuple(bool(asm.fm.terminal_leaves(n) & _COORD)
-                             for n in self.coeff_names)
+        # a coefficient varies by element where it reads the
+        # coordinates or another set's field (a multi-set deck)
+        self.varying = tuple(
+            bool(asm.fm.terminal_leaves(n) & (_COORD | asm.field_leaves))
+            for n in self.coeff_names)
         self._probes = {}
         self._coef_cache = None
         self._stage = StageCache()
@@ -674,7 +677,8 @@ class FusedNSAssembly:
                 ctx = QpCtx(None, 0.0, None, float(time), params,
                             self.asm.fm)
                 out.append(_scalar(ctx.f(name)))
-        self._coef_cache = (key, tuple(out))
+        # params are held too: a field's key is its identity
+        self._coef_cache = (key, tuple(out), params)
         return self._coef_cache[1]
 
     def _probe(self, coeffs, form, alpha_u, alpha_t, steady, salt):
@@ -718,7 +722,8 @@ class FusedNSAssembly:
         None, a 0-d tensor or an (E,) tensor)."""
         asm = self.asm
         params = dict(asm.params)
-        params.update({k: float(v) for k, v in (pvec or {}).items()})
+        params.update({k: v if str(k).startswith("__field:") else float(v)
+                       for k, v in (pvec or {}).items()})
         steady = self._stage.is_steady(tc)
         alpha_u = 1.0 if steady else float(tc.alpha_u)
         alpha_t = 0.0 if steady else float(tc.alpha_t)

@@ -347,6 +347,11 @@ class QpCtx:
             return self.params[leaf]
         if leaf == self.var:
             return self._u
+        fld = self.params.get(f"__field:{leaf}")
+        if fld is not None:
+            # a multi-set deck's field of another set: (E, Q) in the
+            # mesh's element order, which is the grid's C order
+            return fld.reshape(self.coords[0].shape)
         raise KeyError(f"fused assembly cannot resolve {leaf!r}")
 
 
@@ -387,10 +392,13 @@ class FusedP1Assembly:
         # affine split iff no coefficient reads the state (a velocity
         # that does is refused by `build`)
         self.split = self.var not in kap | src
-        self._varying = {"kappa": bool(kap & _COORD),
-                         "mass": bool(mass & _COORD),
-                         "velocity": bool(vel & _COORD),
-                         "coeffs": bool((kap | src | vel) & _COORD)}
+        # a coefficient varies by element where it reads the coordinates
+        # or another set's field
+        vary = _COORD | asm.field_leaves
+        self._varying = {"kappa": bool(kap & vary),
+                         "mass": bool(mass & vary),
+                         "velocity": bool(vel & vary),
+                         "coeffs": bool((kap | src | vel) & vary)}
         Q = self.tables.Q
         if self.node and self.split:
             # thermal_node_state's block at this quadrature: its tables
@@ -574,7 +582,8 @@ class FusedP1Assembly:
         vel = self._velocity(tc.time, params)
         coord = self._coord_eval(tc, params, steady, vel) if self.split \
             else None
-        self._stage_cache = (key, held, (steady, coord, vel))
+        # params are held too: a field's key is its identity
+        self._stage_cache = (key, (held, params), (steady, coord, vel))
         return steady, coord, vel
 
     def _coord_eval(self, tc, params, steady, vel):
@@ -726,12 +735,17 @@ class FusedP1Assembly:
 
 def params_key(params):
     """A cache key of a parameter dict: each scalar by its value, each
-    vector (a tensor or an array) by the tuple of its values."""
-    return tuple(sorted(
-        (k, float(v) if np.ndim(v) == 0 else tuple(
-            (v.detach().cpu() if isinstance(v, torch.Tensor)
-             else np.asarray(v)).reshape(-1).tolist()))
-        for k, v in params.items()))
+    vector (a tensor or an array) by the tuple of its values, and each
+    per-qp '__field:' tensor by its identity and version (a cache that
+    keys by it holds the dict, so the identity stays its own)."""
+    def one(k, v):
+        if np.ndim(v) == 0:
+            return float(v)
+        if str(k).startswith("__field:") and isinstance(v, torch.Tensor):
+            return ("field", id(v), v._version)
+        return tuple((v.detach().cpu() if isinstance(v, torch.Tensor)
+                      else np.asarray(v)).reshape(-1).tolist())
+    return tuple(sorted((k, one(k, v)) for k, v in params.items()))
 
 
 def _scalar(v):

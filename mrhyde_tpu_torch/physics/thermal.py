@@ -99,6 +99,16 @@ class Thermal(PhysicsModule):
                 "velocity": _VELOCITY[:self.dim] if self.have_advection
                 else ()}
 
+    def setup_integrated_quantities(self, dim):
+        """The module's test integrated quantities (reference
+        thermal.cpp:422), with 'test integrated quantities'."""
+        if not self.settings.get("test integrated quantities", False):
+            return []
+        flux = " + ".join(f"n[{c}]*grad(e)[{c}]" for c in "xyz"[:dim])
+        return [("e", "thermal vol total e", "volume"),
+                ("e", "thermal bnd total e", "boundary"),
+                (f"({flux})", "thermal bnd heat flux", "boundary")]
+
     def kernel_coefficients(self):
         """The functions behind each coefficient of the generated
         module-set kernel (functions/codegen.py, scalar_density.cuh

@@ -17,9 +17,10 @@ transientSolver; the seeding formulas of workset.cpp):
   Newton failure => halve dt, revert, retry (max_cuts).
 
 The step and stage loops run on the host in plain torch; every vector
-keeps the device and dtype of the state it is given. Multiscale
-(synchronous subgrid models, ROADMAP A13) and dynamic discretized
-parameters (A12) are not ported: `Problem` rejects such decks.
+keeps the device and dtype of the state it is given. A dynamic
+discretized parameter carries one field per step ((n_steps, n_dof) in
+pvec): step k reads row k. Multiscale (synchronous subgrid models,
+ROADMAP A13) is not ported: `Problem` rejects such decks.
 """
 
 from __future__ import annotations
@@ -126,6 +127,7 @@ class TransientIntegrator:
     backtracking: bool = True
     pvec: dict | None = None
     set_dirichlet: object = None   # callable (u, time) -> u with DBCs set
+    dynamic_params: tuple = ()     # discretized params with a row per step
     fully_explicit: bool = False   # reference: explicitSolver
     lump_mass: bool = True
     mass_cg_iters: int = 100   # reference 'max linear iters' default
@@ -173,12 +175,26 @@ class TransientIntegrator:
                                 maxiter=self.mass_cg_iters) / tc.alpha_t
         return torch.where(asm.fixed, z0, z0 + du)
 
+    def _pvec_at_step(self, step_index):
+        """pvec as step `step_index` sees it: a dynamic discretized
+        parameter's (n_steps, n_dof) field gives its row (reference
+        dynamic_Psol with updateDynamicParams, solverManager.cpp:1276)."""
+        pvec = self.pvec
+        if pvec and self.dynamic_params:
+            pvec = dict(pvec)
+            for name in self.dynamic_params:
+                v = pvec.get(name)
+                if v is not None and getattr(v, "ndim", 1) == 2:
+                    pvec[name] = v[min(step_index, v.shape[0] - 1)]
+        return pvec
+
     def step_once(self, u, u_prev, t, dt, step_index):
         """One time step. Returns (u_new, u_prev_new, ok).
 
         u_prev: (hist, n) BDF history; updated in the return value.
         """
         asm = self.assembler
+        step_pvec = self._pvec_at_step(step_index)
         A, b, c, w = self._tables(step_index)
         nstage = len(b)
         # shift history, current solution into slot 0
@@ -208,10 +224,10 @@ class TransientIntegrator:
                 z0 = self.set_dirichlet(z0, t_stage)
             self.counts["stages"] += 1
             if self.fully_explicit:
-                z = self._explicit_stage(z0, tc, self.pvec)
+                z = self._explicit_stage(z0, tc, step_pvec)
             else:
                 result = newton_solve(
-                    asm, z0, tc, self.pvec, tol=self.nonlinear_tol,
+                    asm, z0, tc, step_pvec, tol=self.nonlinear_tol,
                     abstol=self.abs_tol,
                     maxiter=self.max_nonlinear_iters,
                     linear_method=self.linear_method,

@@ -1,8 +1,8 @@
 """The Parameters sublist in mrhyde_tpu_torch (`analysis/parameters.py`)
 against the JAX package on the CPU in f64: the ParameterManager's specs
 and views for scalar, vector, active, stochastic and file-sourced
-parameters; discretized parameters and the other analyses still refused
-(ROADMAP A12); decks whose coefficients read parameters on the fused
+parameters; discretized parameters and the analyses, which build since
+ROADMAP A12 was ported; decks whose coefficients read parameters on the fused
 providers (the B2 thermal kernel's plain version, the NS node kernel's,
 the module-set path) and on the general path; a vector parameter read
 by index; and the lookup order that puts a function before a parameter
@@ -109,11 +109,24 @@ def test_pvec_flatten_unflatten_match_jax(tmp_path):
     ({"Analysis": {"analysis type": "dry run"}}, "analysis type"),
 ])
 def test_a12_features_still_raise(cfg_patch, what):
+    """ROADMAP A12 is ported: the decks that raised naming it build in
+    both packages (the field parameter gets its own DOF map and start
+    value), and the analyses dispatch through AnalysisManager."""
+    from mrhyde_tpu.problem import Problem as JaxProblem
+    from mrhyde_tpu_torch.analysis.manager import AnalysisManager
     from mrhyde_tpu_torch.problem import Problem
     cfg = thermal_cfg(4)
     cfg.update(cfg_patch)
-    with pytest.raises(NotImplementedError, match=f"{what}.*A12"):
-        Problem(cfg, device="cpu")
+    pj, pt = JaxProblem(copy.deepcopy(cfg)), Problem(cfg, device="cpu")
+    assert sorted(pt.assembler.field_params) == \
+        sorted(pj.assembler.field_params)
+    for name, fp in pt.assembler.field_params.items():
+        assert fp["n_dof"] == pj.assembler.field_params[name]["n_dof"]
+        np.testing.assert_array_equal(pt.param_manager.specs[name].value,
+                                      pj.param_manager.specs[name].value)
+    assert AnalysisManager(pt).mode == (cfg.get("Analysis") or {}).get(
+        "analysis type", "forward")
+    assert what in ("discretized", "analysis type")
 
 
 def test_thermal_coefficients_read_parameters():

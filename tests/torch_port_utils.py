@@ -999,3 +999,147 @@ def a11_decks(data_dir=None):
         decks["mixed_perm_data"] = perm
         decks["weak_galerkin_perm_data"] = wg_perm
     return decks
+
+
+# ----------------------------------------------------------------------
+# ROADMAP A12: postprocess and analysis decks
+# ----------------------------------------------------------------------
+
+SENSOR_PTS = [[0.3, 0.3], [0.7, 0.45], [0.55, 0.8], [0.2, 0.65]]
+
+
+def a12_objectives(times=(0.0,), field=True):
+    """Every objective type the adjoint reads: an integrated response on
+    4 virtual ranks, an integrated control, sensors with data at `times`,
+    and with the field a volume regularization of its gradient and a
+    boundary one of its values on the top side."""
+    data = (0.05, 0.02, -0.03, 0.01)
+    obj = {"resp": {"type": "integrated response", "response": "e*e",
+                    "target": 0.002, "weight": 10.0},
+           "ctrl": {"type": "integrated control", "function": "0.5*e"},
+           "sens": {"type": "sensors", "response": "e", "weight": 2.0,
+                    "sensor points": SENSOR_PTS,
+                    "sensor times": list(times),
+                    "sensor data": [[d * (1.0 + 0.1 * k)
+                                     for k in range(len(times))]
+                                    for d in data]}}
+    if field:
+        obj["resp"]["Regularization functions"] = {
+            "r1": {"function": "1e-3*(grad(src_field)[x]*grad(src_field)[x]"
+                               " + grad(src_field)[y]*grad(src_field)[y])",
+                   "weight": 0.5},
+            "r2": {"function": "src_field*src_field", "location": "boundary",
+                   "boundary name": "top", "weight": 0.25}}
+    return obj
+
+
+def adjoint_cfg(n=5, transient=False, field=True, dynamic=False, steps=3):
+    """Thermal with kappa = k0 + k1 e^2 + kv(1) x and source kv(0) sin(pi
+    x) sin(pi y) (+ the field src_field): active scalars k0, k1, the
+    active vector kv and the discretized HGRAD p1 field; the objectives
+    of a12_objectives. Transient: DIRK-2,2 with `steps` steps of 0.05,
+    the sensors at the objective's record times t + 0.75 dt."""
+    src = "kv(0)*sin(pi*x)*sin(pi*y)" + (" + src_field" if field else "")
+    cfg = thermal_cfg(n, kappa="k0 + k1*e*e + kv(1)*x", source=src)
+    cfg["Physics"]["Initial conditions"] = {"e": "0.0"}
+    cfg["Solver"] = {"solver": "steady-state", "max nonlinear iters": 10}
+    times = (0.0,)
+    if transient:
+        cfg["Solver"].update({"solver": "transient",
+                              "transient Butcher tableau": "DIRK-2,2",
+                              "final time": 0.05 * steps,
+                              "number of steps": steps})
+        times = tuple(0.05 * k + 0.0375 for k in range(steps))
+    cfg["Parameters"] = {
+        "k0": {"type": "scalar", "value": 1.0, "usage": "active"},
+        "k1": {"type": "scalar", "value": 0.5, "usage": "active"},
+        "kv": {"type": "vector", "value": [1.0, 0.25], "usage": "active"}}
+    if field:
+        cfg["Parameters"]["src_field"] = {
+            "type": "HGRAD", "usage": "discretized", "order": 1,
+            "initial_value": 1.0, "dynamic": dynamic}
+    cfg["Postprocess"] = {"compute errors": False,
+                          "Objective functions": a12_objectives(times, field)}
+    return cfg
+
+
+def a12_pvec(pt, seed=0):
+    """(JAX pvec, torch pvec) of the same seeded values: the deck's
+    scalars and vectors perturbed, each field 1 + 0.3 U(0, 1) per DOF
+    (per step and DOF when dynamic)."""
+    import jax.numpy as jnp
+    from mrhyde_tpu_torch.interop import field_from_numpy
+    rng = np.random.RandomState(seed)
+    pm = pt.param_manager
+    pj, ptt = {}, {}
+    for name in pm.active_names():
+        v = np.asarray(pm.specs[name].value, dtype=float)
+        if pm.specs[name].usage == "discretized":
+            v = 1.0 + 0.3 * rng.rand(*v.shape)
+            ptt[name] = field_from_numpy(v, pt, name)
+        else:
+            v = v * (1.0 + 0.1 * rng.rand(*v.shape))
+            ptt[name] = torch.as_tensor(v, dtype=torch.float64)
+        pj[name] = jnp.asarray(v)
+    return pj, ptt
+
+
+def rol_cfg(n=4, bounded=False, iters=4, fd_check=True):
+    """The trust-region source inversion: 'Generate data' runs the
+    source 2 S + 0.5 x (datagen = 1), then ROL fits a1 S + a2 x from
+    (0.2, -1) against the stored state (discrete control). Unbounded,
+    its table has boundary steps (flagCG 3) and secant steps; bounded
+    (a1 <= 1.5 below the data's 2), the Kelley-Sachs model with a
+    rejected step (tr_flag 3)."""
+    return {
+        "Mesh": {"dimension": 2, "element type": "quad", "NX": n, "NY": n},
+        "Functions": {"thermal diffusion": "k0", "thermal source":
+                      "datagen*(2.0*sin(pi*x)*sin(pi*y) + 0.5*x) "
+                      "+ (1.0-datagen)*(a1*sin(pi*x)*sin(pi*y) + a2*x)"},
+        "Physics": {"modules": "thermal",
+                    "Dirichlet conditions": {"scalar data": True,
+                                             "e": {"all boundaries": 0.0}},
+                    "Initial conditions": {"scalar data": True, "e": 0.0}},
+        "Discretization": {"order": {"e": 1}, "quadrature": 2},
+        "Solver": {"solver": "steady-state", "max nonlinear iters": 4},
+        "Parameters": {
+            "k0": {"type": "scalar", "value": 1.0, "usage": "inactive"},
+            "datagen": {"type": "scalar", "value": 0.0, "usage": "inactive"},
+            "a1": {"type": "scalar", "value": 0.2, "usage": "active",
+                   "min": 0.0, "max": 1.5},
+            "a2": {"type": "scalar", "value": -1.0, "usage": "active",
+                   "min": -0.5, "max": 3.0}},
+        "Analysis": {"analysis type": "ROL", "ROL": {
+            "General": {"Generate data": True,
+                        "Do grad+hessvec check": fd_check,
+                        "Write Final Parameters": True,
+                        "Bound Optimization Variables": bounded,
+                        "Secant": {"Maximum Storage": 5}},
+            "Step": {"Trust Region": {"Initial Radius": 0.5}},
+            "Status Test": {"Iteration Limit": iters,
+                            "Gradient Tolerance": 1e-10,
+                            "Step Tolerance": 1e-14}}},
+        "Postprocess": {"Objective functions": {
+            "misfit": {"type": "discrete control", "weight": 1e4}}},
+    }
+
+
+def uq_cfg(n=4, samples=6, analysis="UQ", user_file=None):
+    """UQ (or DCI) of thermal with kappa ~ U(1, 2) and the source
+    amplitude ~ N(1, 0.04); objective int e^2 (an integrated control)."""
+    cfg = thermal_cfg(n, kappa="kappa", source=f"amp*{SOURCE}")
+    cfg["Parameters"] = {
+        "kappa": {"type": "scalar", "value": 1.0, "usage": "stochastic",
+                  "distribution": "uniform", "min": 1.0, "max": 2.0},
+        "amp": {"type": "scalar", "value": 1.0, "usage": "stochastic",
+                "distribution": "Gaussian", "mean": 1.0, "variance": 0.04}}
+    uq = {"samples": samples, "seed": 1234}
+    if user_file is not None:
+        uq.update({"use user defined": True, "source": str(user_file)})
+    cfg["Analysis"] = {"analysis type": analysis, "UQ": uq,
+                       "DCI": {"observed type": "Gaussian",
+                               "observed mean": 0.15,
+                               "observed variance": 0.0025}}
+    cfg["Postprocess"] = {"Objective functions": {
+        "energy": {"type": "integrated control", "response": "e*e"}}}
+    return cfg

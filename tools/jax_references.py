@@ -8,7 +8,8 @@ decks from the JAX package, in f64 on the CPU.
 
 DECK is a key of chip_smoke.py's CDR_DECKS, HEX_DECKS, NS_ELEM_DECKS,
 SET_DECKS, SET_ELEM_DECKS, BOUNDARY_DECKS, AFFINE_SET_DECKS,
-QUADRATURE_DECKS, SOLVER_DECKS, MESH_DECKS, SOLID_DECKS (whose files,
+QUADRATURE_DECKS, SOLVER_DECKS, MULTISET_DECKS, MESH_DECKS, SOLID_DECKS
+(whose files,
 an Exodus mesh and grain rotations, the deck functions write from
 --seed, default 0, into a temporary directory, as chip_smoke.py does),
 PHYSICS_DECKS or VECTOR_DECKS, or `boussinesq_gold_nx8` (max |ux| of its
@@ -42,7 +43,7 @@ def main(argv):
     jax.config.update("jax_platforms", "cpu")
     jax.config.update("jax_enable_x64", True)
     import chip_smoke
-    from mrhyde_tpu.problem import Problem
+    from mrhyde_tpu.problem import make_problem
 
     if argv[0] == "--seed":
         chip_smoke.SEED = int(argv[1])
@@ -53,14 +54,15 @@ def main(argv):
         argv = argv[2:]
     name, sizes = argv[0], argv[1:]
     if name == "boussinesq_gold_nx8":
-        return boussinesq(chip_smoke, Problem)
+        return boussinesq(chip_smoke, make_problem)
     decks = {k: (build, n, None, None)
              for k, (build, n, _rtol, _refs, *_mode) in
              {**chip_smoke.NS_ELEM_DECKS, **chip_smoke.SET_DECKS,
               **chip_smoke.SET_ELEM_DECKS, **chip_smoke.BOUNDARY_DECKS,
               **chip_smoke.AFFINE_SET_DECKS,
               **chip_smoke.QUADRATURE_DECKS,
-              **chip_smoke.SOLVER_DECKS}.items()}
+              **chip_smoke.SOLVER_DECKS,
+              **chip_smoke.MULTISET_DECKS}.items()}
     decks.update({k: (build, n, None, None) for k, (build, n, *_rest) in
                   {**chip_smoke.MESH_DECKS, **chip_smoke.SOLID_DECKS,
                    **chip_smoke.PHYSICS_DECKS,
@@ -74,7 +76,7 @@ def main(argv):
             cfg["Solver"]["number of steps"] = int(steps)
         cfg["Solver"].update(solver)
         t0 = time.perf_counter()
-        problem = Problem(cfg)
+        problem = make_problem(cfg)
         t1 = time.perf_counter()
         result = problem.run()
         t2 = time.perf_counter()
@@ -88,7 +90,9 @@ def main(argv):
                           cfg["Solver"].get("number of steps"),
                           "solver": solver,
                           "time": t_held,
-                          "var": var, "L2": l2, "n_dof": problem.n_dof,
+                          "var": var, "L2": l2,
+                          "n_dof": getattr(problem, "n_dof", None) or sum(
+                              p.n_dof for p in problem.sets),
                           "setup_s": t1 - t0, "solve_s": t2 - t1}),
               flush=True)
 
