@@ -8,7 +8,9 @@ crystal elasticity and Navier-Stokes main paths (2D p1 quads, 3D hex,
 meshes), the rest of its physics modules, those of vector and trace
 bases (mixed, hybridized and weak Galerkin porous flow, maxwell,
 maxwells_fp, hybridized shallow water, Euler's HDG form), decks whose
-coefficients read the Parameters sublist, and its
+coefficients read the Parameters sublist, the analyses, the multiscale
+subgrid method (the Subgrid sublist: batched Dirichlet-to-Neumann fine
+solves on the card), and its
 module sets (NS + thermal with the Boussinesq term, NS + cdr, thermal +
 cdr, coefficients that read the state; 2D p1 quads, 3D hex, 2D p2
 quads; affine sets through mode "state"), with Neumann, Flux and
@@ -138,10 +140,10 @@ each):
  34 boussinesq_gold_nx8_beta1, _beta0   the JAX package's Boussinesq deck
              (tests/test_flow.py:63-98), direct: max |ux| equals JAX's to
              rtol 1e-8 at beta = 1 and is below 1e-3 of it at beta = 0
- 35-37 SET_DECKS   boussinesq_cavity_startup_nx128 (the differentially
+ 35-37 SET_DECKS   boussinesq_cavity_startup_nx64 (the differentially
              heated cavity from rest, Ra = 1e3, Pr = 0.71, DIRK-2,2, 1
-             step of 0.01 (cut from 4, then 2), GMRES + Jacobi: L2 of ux,
-             uy and e),
+             step of 0.01 (cut from 4, then 2; at 64^2 since PR 21, 128^2
+             before), GMRES + Jacobi: L2 of ux, uy and e),
              ns_cdr_startup_nx256 (the channel start-up with cdr
              advected by (ux, uy) and source ux 1 + 0.1 c^2: ux, uy, pr,
              c) and ns_channel_visc_nonlinear_direct_nx128 (viscosity 1 +
@@ -311,6 +313,21 @@ each):
              stabilization, 4 DIRK-1,2 steps); the line `vector_decks`
              lists each deck's set-up, solve and assembly times and its
              stages, Newton and Krylov iterations
+    analysis_decks   forward + adjoint, ROL, a discretized field, UQ +
+             DCI and the NS + cdr multi-set start-up (128x32 since PR 21)
+109-115 MULTISCALE_DECKS (phase `multiscale_decks`)   Subgrid decks
+             through make_problem(cfg).run(), no fused provider and no
+             launch: the reference's 2D_verification_multiscale gold
+             deck (4x4, refinements 2: golds 0.198706 / 0.042848 at their
+             printed precision, JAX at 1e-9), the same at 256^2 and
+             refinements 3 (65,536 fine problems of 81 DOFs, JAX at
+             1e-6), its transient DIRK-3,3 twin at 128^2 and refinements
+             2 (4 steps, JAX at 1e-6), the BWE gold (10x10, 5 steps), the
+             multimodel gold (40x40), the 3D hex gold (10^3) and the
+             asynchronous regression (10x10, 4 substeps): each deck's
+             set-up and solve s, peak device memory, and at full width
+             the ms per residual_contribution and jacobian_contribution
+             (CUDA events, median of 5)
 
 The reference L2 values are the JAX package's, computed in f64 on the
 CPU, or the reference's golds. Each deck runs one assembly before its
@@ -338,7 +355,7 @@ set_elem_full and set_node_full at Q = 64, 64 and 25, and each solver
 deck the kernel of the deck it comes from (55 set_node_state, 56 and 61
 thermal_node_state, 57 and 58 thermal_elem_state, 59 thermal_node_full,
 60 ns_node_full), 62 and 63 thermal_node_state, 64-72 none, 73-94 none,
-95 thermal_node_full, 96 ns_node_full and 97-108 none. The
+95 thermal_node_full, 96 ns_node_full, 97-108 none and 109-115 none. The
 `kernels` line
 reports the sums over the decks (ten kernels: the eight of the earlier
 phases and set_node_state, set_elem_state), each kernel's error, times
@@ -361,6 +378,7 @@ import statistics
 import subprocess
 import sys
 import time
+from functools import partial
 
 import numpy as np
 import torch
@@ -861,17 +879,16 @@ BOUSSINESQ_MAXU = 0.0037584716736223547
 # determined up to a constant (no-slip on every wall), which each
 # package's Krylov solves pick: its L2 is no check.
 SET_DECKS = {
-    # cut from 256^2 (264,196 DOFs): the JAX CPU reference ran over 30
-    # minutes there and was stopped; 66,564 DOFs; 1 step, cut from 4,
-    # then 2 (CAVITY_SOLVER; 822 s of JAX CPU solve for 4 steps, whose t =
-    # 0.01 numbers are these). Its stages do not all converge (at Ra
-    # = 1e3, the lowest of the benchmark's range): Newton runs to its cap
-    # of 10 with every GMRES solve at its 2,000 cap, in both packages
-    # alike; they agree to 9e-10
-    "boussinesq_cavity_startup_nx128": (
-        cavity_deck, 128, 1e-6,
-        {0.01: {"ux": 0.2093494809197624, "uy": 0.3393436708148743,
-                "e": 0.2298320688295235}}),
+    # 16,900 DOFs, 1 step (CAVITY_SOLVER), 26 s of JAX CPU solve; cut in
+    # PR 21 from 128^2 (66,564 DOFs; 11.9 s on the card, where Newton ran
+    # to its cap of 10 with every GMRES solve at its 2,000 cap in both
+    # packages) for the script's time; here the stages converge (4 Newton
+    # steps, 4,411 GMRES iterations on the CPU) and the packages agree to
+    # 2e-16 on the CPU
+    "boussinesq_cavity_startup_nx64": (
+        cavity_deck, 64, 1e-6,
+        {0.01: {"ux": 0.21035198500862695, "uy": 0.339908966048016,
+                "e": 0.23604467525209932}}),
     # 66,820 DOFs; 316 s of JAX CPU solve. Each stage's Newton solve
     # meets its TOL in two steps, but every GMRES solve stops at its
     # 2,000 cap, and L2(pr), the least determined field, agrees to 6e-5
@@ -4687,13 +4704,15 @@ def ns_cdr_multiset_deck(nx):
 # 0.02, against 2e-8 for ux, uy and c (at 16x4, where the solves
 # converge, the packages agree to 1e-9: tests/test_torch_multiset.py)
 MULTISET_DECKS = {
-    "ns_cdr_multiset_startup_nx256": (
-        ns_cdr_multiset_deck, 256,
+    # at 128x32 since PR 21 (256x64 before, 25.4 s on the card), for the
+    # script's time
+    "ns_cdr_multiset_startup_nx128": (
+        ns_cdr_multiset_deck, 128,
         {"ux": 1e-4, "uy": 1e-4, "c": 1e-4, "pr": 2e-3},
-        {0.01: {"ux": 0.18482592112053609, "uy": 3.6844922235663287e-06,
-                "pr": 0.00031242768365478095, "c": 0.09618419651329362},
-         0.02: {"ux": 0.16743084657706891, "uy": 4.616012217321733e-06,
-                "pr": 0.00041310571679065947, "c": 0.1070492894176814}}),
+        {0.01: {"ux": 0.18482414125039143, "uy": 1.7175423399442538e-05,
+                "pr": 0.001156707541885479, "c": 0.12023567559159513},
+         0.02: {"ux": 0.16742885925186757, "uy": 2.1591553782719958e-05,
+                "pr": 0.0017450345796906435, "c": 0.12611054050546017}}),
 }
 # the JAX package's f64 CPU L2(e) of the DIRK-2,2 deck at 256^2, 8 steps
 # to t = 0.4 (GMRES + Jacobi), and of the steady deck at 512^2 (CG, TOL
@@ -4875,7 +4894,7 @@ def analysis_decks(device):
     (thermal_node_full), the DIRK-2,2 adjoint at 256^2, the trust-region
     source inversion at 256^2, the discretized-field inversion at 128^2
     (general path), UQ + DCI with 64 samples at 512^2 and the NS + cdr
-    multi-set start-up at 256x64 (ns_node_full and the cdr set's state
+    multi-set start-up at 128x32 (ns_node_full and the cdr set's state
     kernel); returns each deck's launches. Alone on the card: python3 -c
     'import torch, chip_smoke; chip_smoke.analysis_decks(
     torch.device("cuda"))'. Rehearse a deck on the CPU with
@@ -4903,6 +4922,360 @@ def analysis_decks(device):
         rec["deck"]: {k: rec.get(k) for k in keys}
         for rec in RECORDS.values() if rec.get("phase") == "analysis_decks"}})
     return out
+
+
+# ----------------------------------------------------------------------
+# phase multiscale_decks: the Subgrid sublist's Dirichlet-to-Neumann fine
+# solves (mrhyde_tpu_torch/multiscale/), batched on the card; no kernel
+# ----------------------------------------------------------------------
+
+MS_TRUE_T = "sin(2*pi*t)*sin(2.0*pi*x)*sin(2.0*pi*y)"
+MS_SOURCE_T = ("(8*(pi*pi)*sin(2*pi*t)+2*pi*cos(2*pi*t))"
+               "*sin(2*pi*x)*sin(2*pi*y)")
+MS_TRUE_3 = "sin(2*pi*x)*sin(2*pi*y)*sin(2*pi*z)"
+
+
+def multiscale_deck(n, refine=2, cell="quad", trace=None):
+    """The reference's thermal/2D_verification_multiscale (the JAX
+    package's tests/test_multiscale.py deck): an HGRAD macro trace e (no
+    macro module) on n x n cells, e = 0 on the boundary, a DtN2 thermal
+    subgrid of 2^refine per side (direct fine solves); gold at n = 4,
+    refinements 2: L2-face(e) 0.198706, Subgrid 0 L2(e) 0.042848.
+    trace = 0 / 1: an HFACE macro trace of that order instead (the
+    reference's 2D_verification_multiscale_HFACE at order 1); cell "tri":
+    triangles, the subgrid the macro cell itself (refinements 0)."""
+    phys = {"Extra variables": {"e": "HGRAD"}, "assemble face terms": True,
+            "Dirichlet conditions": {"e": {"all boundaries": "0.0"}}}
+    order = {"Extra variables": {"e": 1}}
+    solver = {"solver": "steady-state"}
+    if trace is not None:
+        phys = {"modules": "thermal", "assemble face terms": True,
+                "Active variables": {"e": "HFACE"},
+                "Dirichlet conditions": {"e": {"all boundaries": "0.0"}}}
+        order = {"e": trace}
+        solver["initial type"] = "none"
+    return {
+        "Mesh": {"dimension": 2, "element type": cell, "NX": n, "NY": n},
+        "Functions": {"thermal source": SOURCE},
+        "Physics": phys,
+        "Discretization": {"order": order, "quadrature": 2},
+        "Solver": solver,
+        "Postprocess": {"compute errors": True,
+                        "True solutions": {"e face": S_TRUE}},
+        "Subgrid": {
+            "subgrid model": "DtN2",
+            "Mesh": {"element type": cell, "refinements": refine,
+                     "dimension": 2},
+            "Physics": {"modules": "thermal",
+                        "Neumann conditions": {"e": {"top": "0.0",
+                                                     "bottom": "0.0"}}},
+            "Solver": {"solver": "steady-state", "use direct solver": True},
+            "Functions": {"thermal source": SOURCE},
+            "Discretization": {"order": {"e": 1}, "quadrature": 2},
+            "Postprocess": {"True solutions": {"e": S_TRUE}}},
+    }
+
+
+def multiscale_transient_deck(n, solver, refine=0, substeps=None):
+    """The reference's thermal/2D_verification_multiscale_transient (the
+    JAX package's tests/test_multiscale_transient.py `_cfg`): macro
+    thermal on n x n, e = 0 on the boundary, u = sin(2 pi t) S, a
+    synchronous thermal subgrid of 2^refine per side; `solver` the macro
+    Solver keys (steps, tableau, BDF order). substeps: an asynchronous
+    subgrid ('synchronous time stepping: false', BWE substeps) of that
+    many fine steps per macro step."""
+    sub = {"usage": "1.0",
+           "Mesh": {"shape": "quad", "refinements": refine, "dim": 2},
+           "Physics": {"modules": "thermal"},
+           "Discretization": {"order": {"e": 1}, "quadrature": 2},
+           "Solver": {"solver": "transient",
+                      "synchronous time stepping": True},
+           "Postprocess": {"True solutions": {"e": MS_TRUE_T}},
+           "Functions": {"thermal source": MS_SOURCE_T}}
+    if substeps is not None:
+        sub.pop("usage")
+        sub["subgrid model"] = "DtN"
+        sub["Solver"] = {"solver": "transient",
+                         "synchronous time stepping": False,
+                         "number of steps": substeps}
+    return {
+        "Mesh": {"dimension": 2, "element type": "quad", "NX": n, "NY": n},
+        "Functions": {"thermal source": MS_SOURCE_T},
+        "Physics": {"modules": "thermal",
+                    "Dirichlet conditions": {"e": {"all boundaries": "0.0"}}},
+        "Discretization": {"order": {"e": 1}, "quadrature": 2},
+        "Solver": {"solver": "transient", "final time": 1.0,
+                   "allow backtracking": False, **solver},
+        "Postprocess": {"compute errors": True,
+                        "True solutions": {"e": MS_TRUE_T}},
+        "Subgrid": sub,
+    }
+
+
+def multiscale_hex_deck(n, refine=0):
+    """The reference's thermal/3D_verification_multiscale: macro thermal
+    on n^3 hex with face terms, e = 0 on the boundary, a thermal subgrid
+    of 2^refine per side; gold at n = 10, refinements 0: L2-face(e)
+    0.111135, Subgrid 0 L2(e) 0.00496611."""
+    src = f"12*(pi*pi)*{MS_TRUE_3}"
+    return {
+        "Mesh": {"dimension": 3, "element type": "hex", "NX": n, "NY": n,
+                 "NZ": n},
+        "Physics": {"modules": "thermal", "assemble face terms": True,
+                    "Dirichlet conditions": {"e": {"all boundaries": "0.0"}}},
+        "Discretization": {"order": {"e": 1}, "quadrature": 2},
+        "Solver": {"solver": "steady-state"},
+        "Postprocess": {"compute errors": True,
+                        "True solutions": {"e face": MS_TRUE_3}},
+        "Subgrid": {
+            "Mesh": {"element type": "hex", "refinements": refine,
+                     "dimension": 3},
+            "Physics": {"modules": "thermal"},
+            "Solver": {"solver": "steady-state"},
+            "Functions": {"thermal source": src},
+            "Discretization": {"order": {"e": 1}, "quadrature": 2},
+            "Postprocess": {"True solutions": {"e": MS_TRUE_3}}},
+        "Functions": {"thermal source": src},
+    }
+
+
+def _ms_model(refine, usage, transient=False):
+    """One thermal subgrid model of a multimodel deck."""
+    true, src = (MS_TRUE_T, MS_SOURCE_T) if transient \
+        else (S_TRUE, SOURCE)
+    return {"usage": usage,
+            "Mesh": {"element type": "quad", "refinements": refine,
+                     "dimension": 2},
+            "Physics": {"modules": "thermal"},
+            "Solver": {"solver": "transient" if transient
+                       else "steady-state"},
+            "Functions": {"thermal source": src},
+            "Discretization": {"order": {"e": 1}, "quadrature": 2},
+            "Postprocess": {"True solutions": {"e": true}}}
+
+
+def multimodel_deck(n, workset=100):
+    """The reference's thermal/2D_verification_multiscale_multimodel:
+    two static subgrid models chosen by usage votes per (virtual rank x
+    workset group) with 'assembly partitioning: subgrid-preserving',
+    refinements 0 everywhere and 1 in the x < 0.5, y > 0.5 quarter; gold
+    at n = 40: L2-face(e) 0.00176029, Subgrid 0 / 1 L2(e) 0.00035747 /
+    0.000197984."""
+    return {
+        "Mesh": {"dimension": 2, "element type": "quad", "NX": n, "NY": n},
+        "Physics": {"modules": "thermal", "assemble face terms": True,
+                    "Dirichlet conditions": {"e": {"all boundaries": "0.0"}}},
+        "Discretization": {"order": {"e": 1}, "quadrature": 2},
+        "Solver": {"solver": "steady-state",
+                   "assembly partitioning": "subgrid-preserving",
+                   "workset size": workset},
+        "Postprocess": {"compute errors": True,
+                        "True solutions": {"e face": S_TRUE}},
+        "Subgrid": {"static subgrids": True,
+                    "SG-R0": _ms_model(0, "1.0"),
+                    "SG-R1": _ms_model(1, "(x<0.5)*(y>0.5)")},
+    }
+
+
+def dynamic_multimodel_deck(n, steps=4, ml=False, workset=4):
+    """Three subgrid models whose usage moves with time (refinements 0,
+    1 and 2 where x - t > 0.25 and x - 2 t > 0.5), re-voted at every
+    step with the fine state L2-projected onto the new owner (the
+    reference's thermal/2D_verification_multiscale_dynamicmultimodel
+    mechanics); ml: 'subgrid model selection: ML' after 2 training
+    steps."""
+    cfg = multiscale_transient_deck(n, {"final time": 0.1 * steps,
+                                        "number of steps": steps,
+                                        "workset size": workset})
+    cfg["Subgrid"] = {"static subgrids": False,
+                      "SG0": _ms_model(0, "1.0", True),
+                      "SG1": _ms_model(1, "(x-t>0.25)", True),
+                      "SG2": _ms_model(2, "(x-2*t>0.5)", True)}
+    if ml:
+        cfg["Solver"].update({"subgrid model selection": "ML",
+                              "max subgrid ML training steps": 2})
+    return cfg
+
+
+ms_gold_deck = partial(multiscale_deck, refine=2)
+ms_full_deck = partial(multiscale_deck, refine=3)
+ms_dirk33_deck = partial(multiscale_transient_deck, solver={
+    "number of steps": 4, "transient BDF order": 1,
+    "transient Butcher tableau": "DIRK-3,3", "max nonlinear iters": 4},
+    refine=2)
+ms_bwe_deck = partial(multiscale_transient_deck, solver={
+    "number of steps": 5})
+ms_async_deck = partial(multiscale_transient_deck, solver={
+    "number of steps": 2, "final time": 0.2}, substeps=4)
+
+
+def _ms_lines(lines):
+    """{time: {label: value}} of (time, macro kind, macro value,
+    Subgrid-L2 value) lines."""
+    return {t: {f"e#{kind}" if kind != "L2" else "e": macro,
+                "e#Subgrid-L2": sub} for t, kind, macro, sub in lines}
+
+
+# name -> (builder, size, rtol vs JAX, JAX references {time: {label:
+# L2}}, gold rtol, golds {time: {label: value}}). The JAX package's f64
+# CPU numbers from tools/jax_references.py; labels as l2_labels, a
+# subgrid model's as "e#Subgrid-L2[:k]". A gold's rtol is half a unit of
+# its last printed digit unless it says otherwise.
+MULTISCALE_DECKS = {
+    "multiscale_dtn2_gold_nx4": (
+        ms_gold_deck, 4, 1e-9,
+        _ms_lines([(0.0, "L2-face", 0.19870638029295146,
+                    0.04284802910601944)]),
+        None, _ms_lines([(0.0, "L2-face", 0.198706, 0.042848)])),
+    "multiscale_dtn2_nx256_r3": (
+        ms_full_deck, 256, 1e-6,
+        _ms_lines([(0.0, "L2-face", 4.29234752165103e-05,
+                    6.784905577846628e-06)]), None, {}),
+    "multiscale_dirk33_nx128_r2": (
+        ms_dirk33_deck, 128, 1e-6,
+        _ms_lines([(0.25, "L2", 0.0006899224375844061, 0.0007698086401325742),
+                   (0.5, "L2", 0.014012389798517448, 0.01401461701528958),
+                   (0.75, "L2", 0.00204294982482748, 0.002122860341866385),
+                   (1.0, "L2", 0.013881742172795364, 0.013883948622911667)]),
+        None, {}),
+    "multiscale_bwe_gold_nx10": (
+        ms_bwe_deck, 10, 1e-9,
+        _ms_lines([(0.2, "L2", 0.03132062391700057, 0.022453546448544387),
+                   (0.4, "L2", 0.029435745156898722, 0.02416440912483977),
+                   (0.6, "L2", 0.012558512168752735, 0.00694295270330515),
+                   (0.8, "L2", 0.037144088460347606, 0.028398151999801103),
+                   (1.0, "L2", 0.010447452618891254, 0.01065500640248645)]),
+        None,
+        _ms_lines([(0.2, "L2", 0.0313206, 0.0224535),
+                   (0.4, "L2", 0.0294357, 0.0241644),
+                   (0.6, "L2", 0.0125585, 0.00694295),
+                   (0.8, "L2", 0.0371441, 0.0283982),
+                   (1.0, "L2", 0.0104475, 0.010655)])),
+    "multiscale_multimodel_gold_nx40": (
+        multimodel_deck, 40, 1e-9,
+        {0.0: {"e#L2-face": 0.001760292308931635,
+               "e#Subgrid-L2": 0.00035747028039020165,
+               "e#Subgrid-L2:1": 0.00019798423306144903}}, None,
+        {0.0: {"e#L2-face": 0.00176029, "e#Subgrid-L2": 0.00035747,
+               "e#Subgrid-L2:1": 0.000197984}}),
+    "multiscale_hex_gold_nx10": (
+        multiscale_hex_deck, 10, 1e-9,
+        _ms_lines([(0.0, "L2-face", 0.11113483299704692,
+                    0.00496611245199939)]), None,
+        _ms_lines([(0.0, "L2-face", 0.111135, 0.00496611)])),
+    "multiscale_async_nx10": (
+        ms_async_deck, 10, 1e-9,
+        _ms_lines([(0.1, "L2", 0.013418905500332355, 0.007818713001550213),
+                   (0.2, "L2", 0.024697594662211827, 0.01569463943775601)]),
+        1e-8,
+        _ms_lines([(0.1, "L2", 0.0134189055, 0.007818713002),
+                   (0.2, "L2", 0.02469759466, 0.01569463944)])),
+}
+
+
+def ms_labels(errs):
+    """l2_labels plus the subgrid models' norms ("e#Subgrid-L2:1")."""
+    out = l2_labels(errs)
+    out.update({f"{var}#{kind}": float(val)
+                for (kind, var), val in errs.items()
+                if kind.startswith("Subgrid-L2")})
+    return out
+
+
+def _printed_rtol(value):
+    """Half a unit of the last digit of a 6-significant-digit gold,
+    relative to it."""
+    return 0.5 * 10.0 ** (np.floor(np.log10(abs(value))) - 5) / abs(value)
+
+
+# the decks at full width, whose contributions are timed
+MS_TIMED = ("multiscale_dtn2_nx256_r3", "multiscale_dirk33_nx128_r2")
+
+
+def multiscale_run(name, cfg, device, refs, rtol, golds, gold_rtol):
+    """One multiscale deck through make_problem(cfg).run() on the card:
+    every label at every held time against the JAX reference (rtol) and
+    the gold (gold_rtol, or its printed precision), no fused provider and
+    no kernel launch, the peak device memory; then for the MS_TIMED decks
+    the ms per residual_contribution and per jacobian_contribution at the
+    solution (CUDA events, median of 5). Returns the launches (all
+    zero)."""
+    from mrhyde_tpu_torch.ops import fused_p1 as fp
+    from mrhyde_tpu_torch.problem import make_problem
+    torch.cuda.synchronize()
+    torch.cuda.reset_peak_memory_stats()
+    t0 = time.perf_counter()
+    problem = make_problem(cfg, device=device)
+    t1 = time.perf_counter()
+    for k in fp.LAUNCHES:
+        fp.LAUNCHES[k] = 0
+    result = problem.run()
+    torch.cuda.synchronize()
+    t2 = time.perf_counter()
+    launches = dict(fp.LAUNCHES)
+    peak = torch.cuda.max_memory_allocated()
+    hist = {round(t, 10): ms_labels(errs) for t, errs in result.error_history}
+    checks = []
+    for table, tol in ((refs, rtol), (golds, gold_rtol)):
+        for t, labels in table.items():
+            for label, want in labels.items():
+                got = hist[round(t, 10)][label]
+                r = float(tol if tol is not None else _printed_rtol(want))
+                checks.append({"time": t, "label": label, "value": got,
+                               "ref": want, "rtol": r,
+                               "ok": bool(abs(got - want) <= r * abs(want))})
+    ms = problem.multiscale
+    u = result.u
+    tc = assembly_tc(problem, u, result.time)
+    pvec = None
+    if ms.fine_prev is not None:
+        # a transient deck: the stage entry of a BWE stage from the
+        # committed fine state (the form its Newton steps read)
+        A, b, w = np.ones((1, 1)), np.ones(1), np.array([1.0, -1.0])
+        pvec = {"__ms": ms.stage_ms_entry(
+            ms.blank_stages(1, u.dtype), 0, A, b, w, tc.alpha_t, u.dtype,
+            t=result.time, dt=tc.deltat, u_prev=u[None])}
+    # jacobian_blocks: the blocks and the residual from one jacfwd pass
+    timing = {k: cuda_ms(lambda f=f: f(u, tc, pvec), reps=5, warm=False)
+              if name in MS_TIMED else None
+              for k, f in (("residual_contribution_ms",
+                            ms.residual_contribution),
+                           ("jacobian_contribution_ms", ms.jacobian_blocks))}
+    ok = all(c["ok"] for c in checks) \
+        and not any(launches.values()) \
+        and problem.assembler.fused_provider() is None \
+        and bool(torch.isfinite(u).all()) \
+        and u.device.type == torch.device(device).type
+    sub = ms.models if hasattr(ms, "models") else [ms]
+    rec = {"phase": "multiscale_decks", "deck": name, "n_dof": problem.n_dof,
+           "macro_elems": int(problem.mesh.n_elem),
+           "fine_dofs": [m.n_fine_dof for m in sub],
+           "fine_elems_per_macro": [int(m.fine_disc.mesh.n_elem)
+                                    for m in sub],
+           "linear_method": problem._linear_method(),
+           "checks": checks, "recorded_times": len(result.error_history),
+           **result.counts, "setup_s": t1 - t0, "solve_s": t2 - t1,
+           **timing, "max_memory_allocated": peak,
+           "launches": launches, "ok": ok}
+    emit(rec)
+    RECORDS[name] = rec
+    if not ok:
+        raise SystemExit(f"phase multiscale_decks, deck {name} failed: "
+                         f"{rec}")
+    return launches
+
+
+def multiscale_decks(device, decks=None):
+    """Phase multiscale_decks: MULTISCALE_DECKS (or `decks`, a table of
+    the same form), each through make_problem(cfg).run() on the card and
+    held to its JAX reference and gold; returns each deck's launches (no
+    kernel is on this path: all zero). Alone on the card: python3 -c
+    'import torch, chip_smoke; chip_smoke.multiscale_decks(
+    torch.device("cuda"))'."""
+    return [multiscale_run(name, build(n), device, refs, rtol, golds,
+                           gold_rtol)
+            for name, (build, n, rtol, refs, gold_rtol, golds) in
+            (decks or MULTISCALE_DECKS).items()]
 
 
 def set_sources():
@@ -5079,6 +5452,7 @@ def main(argv=()):
     per_deck += physics_decks(device)
     per_deck += vector_decks(device)
     per_deck += analysis_decks(device)
+    per_deck += multiscale_decks(device)
     launches = {k: sum(d[k] for d in per_deck) for k in fp.LAUNCHES}
     advect_launches = {k: sum(d[k] for d in advect_decks)
                        for k in fp.LAUNCHES}

@@ -14,9 +14,11 @@ Ported: every physics module, mesh, basis and solver of the JAX package
 on the fused kernels or the general path, steady and transient, and the
 postprocessing and analyses (objectives, the Exodus writer, the adjoint
 as a torch.autograd.Function, the ROL trust region, UQ / DCI,
-discretized parameters, multi-set decks through `make_problem`);
-multiscale (ROADMAP A13) and DOF sharding (A14) raise
-NotImplementedError naming their item.
+discretized parameters, multi-set decks through `make_problem`), and
+the multiscale subgrid method (`multiscale/`: the Subgrid sublist's
+batched Dirichlet-to-Neumann fine solves, steady and transient, one model
+or several); DOF sharding (ROADMAP A14) raises NotImplementedError
+naming its item.
 """
 
 __version__ = "0.1.0"

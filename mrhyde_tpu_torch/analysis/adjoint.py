@@ -27,18 +27,23 @@ general path and solves densely.
 At or below `dense_cutoff` DOFs both solves are dense, as in the JAX
 package. Above it the port solves with the deck's own Krylov method and
 preconditioner to its linear tolerance, the transposed system on
-`BlockJacobian.transposed()`, and raises where the solve does not
-converge; JAX runs a fixed-trip Jacobi GMRES(m) x restarts without a
-convergence test (ROADMAP, deliberate divergences).
+`BlockJacobian.transposed()`. Where that solve stops unconverged, the
+port solves J~^T densely if the dense system fits in a quarter of the
+device's free memory, and past that returns the Krylov result with a
+warning that gives its residual; JAX runs a fixed-trip Jacobi GMRES(m)
+x restarts without a convergence test and returns what it reached
+(ROADMAP, deliberate divergences).
 """
 
 from __future__ import annotations
 
+import warnings
 from dataclasses import dataclass, field
 
 import torch
 
 from mrhyde_tpu_torch.assembly.assembler import TimeCoeffs
+from mrhyde_tpu_torch.runtime import free_bytes
 
 __all__ = ["make_stage_solver", "StageSolver"]
 
@@ -104,8 +109,8 @@ class _StageSolve(torch.autograd.Function):
 class StageSolver:
     """stage_solve(z0, tc, pvec, g) -> z with the implicit-function
     derivative (see the module docstring). `counts` adds up the forward
-    solves, their Newton iterations, the adjoint solves and their
-    Krylov iterations."""
+    solves, their Newton iterations, the adjoint solves, their Krylov
+    iterations and the unconverged Krylov solves finished densely."""
     assembler: object
     tol: float = 1e-10
     maxiter: int = 10
@@ -116,7 +121,8 @@ class StageSolver:
     linear_maxiter: int = 2000
     precond_variant: str = "jacobi"
     counts: dict = field(default_factory=lambda: {
-        "forward": 0, "newton_iters": 0, "adjoint": 0, "adjoint_iters": 0})
+        "forward": 0, "newton_iters": 0, "adjoint": 0, "adjoint_iters": 0,
+        "adjoint_dense_fallback": 0})
 
     @property
     def dense(self):
@@ -177,11 +183,19 @@ class StageSolver:
             x, info = self._krylov(JT, torch.where(asm.fixed, 0.0, zbar))
             self.counts["adjoint_iters"] += int(info.iters)
             if not info.converged:
-                raise RuntimeError(
+                # the dense matrix, its transpose and the LU factors
+                n = asm.n_dof
+                need = 3 * n * n * zbar.element_size()
+                if need <= free_bytes(zbar.device) // 4:
+                    self.counts["adjoint_dense_fallback"] += 1
+                    return torch.linalg.solve(J.dense_rowfix().T, zbar)
+                warnings.warn(
                     f"the adjoint's transposed {self.linear_method} solve "
                     f"did not converge: residual {info.resnorm:.3e} after "
                     f"{info.iters} iterations (linear TOL "
-                    f"{self.linear_tol:g})")
+                    f"{self.linear_tol:g}); its dense form ({need:,} "
+                    "bytes) does not fit, the Krylov result is used",
+                    RuntimeWarning, stacklevel=2)
             x = torch.where(asm.fixed, 0.0, x)
             return torch.where(asm.fixed, zbar - JT._apply_raw(x), x)
 

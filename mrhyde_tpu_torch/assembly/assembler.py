@@ -476,17 +476,24 @@ class Assembler:
         # MultiSetProblem; the fused providers read them as coefficients
         # that vary by element
         self.field_leaves: set = set()
+        # the multiscale subgrid model (multiscale/subgrid.py), set by the
+        # Problem for a deck with a Subgrid sublist; its upscaled flux
+        # REPLACES the macro volume terms (reference: a multiscale group
+        # skips them, assemblyManager; JAX assembler.py:508-512)
+        self.multiscale = None
+        self.volume_off = False
 
     @property
     def general_only(self):
         """Whether the deck takes the general path whatever its modules:
         oriented dofs (signs or a mixing channel), face terms, an HFACE /
-        broken-HDIV variable, or a discretized parameter. The fused
-        providers' `build` returns None for it, as the JAX package's
-        FusedP1Assembly.build does (`mrhyde_tpu/ops/fused_p1.py:217-219`
-        and its face check)."""
+        broken-HDIV variable, a discretized parameter or a multiscale
+        model. The fused providers' `build` returns None for it, as the
+        JAX package's FusedP1Assembly.build does
+        (`mrhyde_tpu/ops/fused_p1.py:217-219` and its face check)."""
         return self.has_signs or self.assemble_face_terms \
-            or bool(self.face_modules) or bool(self.field_params) or any(
+            or bool(self.face_modules) or bool(self.field_params) \
+            or self.multiscale is not None or any(
                 k[0] in _FACE_SPACES for k in self.disc.basis_keys.values())
 
     def _geometry_bundle(self, needs_faces):
@@ -660,7 +667,8 @@ class Assembler:
             bm = extra.pop("__blockmask")
         wk = self._workset(wts, ip, self.g_bv, bg, u_eval, u_dot, time,
                            params, deltat, extra_fields=extra)
-        _masked_modules(wk, self.modules, bm, self._volume_terms)
+        if not self.volume_off:
+            _masked_modules(wk, self.modules, bm, self._volume_terms)
         return wk.res
 
     def _volume_terms(self, m, wk):
@@ -740,9 +748,11 @@ class Assembler:
     def _params(self, pvec):
         """The expression-leaf parameters of a call: the deck's, updated
         by pvec, without the discretized parameters and '__field:'
-        entries (they reach the worksets as per-qp extra fields)."""
+        entries (they reach the worksets as per-qp extra fields), and
+        without a multiscale model's fine state ('__ms')."""
         params = dict(self.params)
         params.update(pvec or {})
+        params.pop("__ms", None)
         for name in self.field_params:
             params.pop(name, None)
         for k in [k for k in params if str(k).startswith("__field:")]:
@@ -801,6 +811,14 @@ class Assembler:
 
     def residual(self, u_st, tc: TimeCoeffs, pvec=None):
         """Global residual (n_dof,) with Dirichlet rows zeroed."""
+        r = self._residual_free(u_st, tc, pvec)
+        if self.multiscale is not None:
+            r = r + self.multiscale.residual_contribution(u_st, tc, pvec)
+        return torch.where(self.fixed, 0.0, r)
+
+    def _residual_free(self, u_st, tc: TimeCoeffs, pvec=None):
+        """The volume and boundary-group residual (n_dof,), Dirichlet
+        rows as they are."""
         u_e, bu_e, bt_e = self._gathered(u_st, tc)
         extra = self._elem_extra(pvec)
         res_e = torch.func.vmap(self._elem_fn(tc, pvec),
@@ -814,10 +832,17 @@ class Assembler:
             r = flat[self.inc].sum(dim=1)
         if self._active_bnd_groups():
             r = r + self._bnd_res_scatter(u_st, tc, pvec)
-        return torch.where(self.fixed, 0.0, r)
+        return r
 
     def jacobian(self, u_st, tc: TimeCoeffs, pvec=None) -> BlockJacobian:
         """Element-block Jacobian d(residual)/d(u_stage), general path."""
+        J = self._jacobian_general(u_st, tc, pvec)
+        if self.multiscale is None:
+            return J
+        return _with_blocks(J, self.multiscale.jacobian_blocks(u_st, tc,
+                                                               pvec))
+
+    def _jacobian_general(self, u_st, tc: TimeCoeffs, pvec=None):
         u_e, bu_e, bt_e = self._gathered(u_st, tc)
         extra = self._elem_extra(pvec)
         jac_e = torch.func.vmap(
@@ -953,7 +978,15 @@ class Assembler:
         transient alike, else the general vmapped path. Active boundary groups
         (Neumann, Flux, weak Dirichlet, ...) are additive: their residual
         and blocks from the general path join the fused result, as the
-        JAX package attaches them."""
+        JAX package attaches them. A multiscale deck adds its upscaled
+        residual and macro blocks from one pass of the fine solves."""
+        if self.multiscale is not None:
+            r_ms, blocks = self.multiscale.residual_and_blocks(u_st, tc,
+                                                               pvec)
+            r = self._residual_free(u_st, tc, pvec) + r_ms
+            return (torch.where(self.fixed, 0.0, r),
+                    _with_blocks(self._jacobian_general(u_st, tc, pvec),
+                                 blocks))
         fused = self.fused_provider()
         if fused is not None and all(
                 not isinstance(v, torch.Tensor) or v.dim() == 0
@@ -1088,6 +1121,14 @@ class Assembler:
                 values(exprs[var], ctx, wtsE.shape) * wtsE)
         flat = torch.cat([contrib.reshape(-1), contrib.new_zeros(1)])
         return flat[self.inc].sum(dim=1)
+
+
+def _with_blocks(J, blocks):
+    """J with more additive element blocks: (blocks, lids, scatter)
+    triples (a multiscale model's macro blocks)."""
+    return replace(J, bnd=J.bnd + [b for b, _l, _s in blocks],
+                   bnd_lids=J.bnd_lids + [lids for _b, lids, _s in blocks],
+                   bnd_scatter=J.bnd_scatter + [s for _b, _l, s in blocks])
 
 
 def _masked_modules(wk, modules, bm, terms):

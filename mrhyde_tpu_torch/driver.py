@@ -2,9 +2,11 @@
 mrhyde_tpu_torch.driver input.yaml`).
 
 Parse the input deck (the JAX package's YAML schema and split-deck
-`<Sublist> input file` convention), build the problem on the chosen
+`<Sublist> input file` convention; a multiscale deck's `Subgrid` sublist,
+often in its own `Subgrid input file`), build the problem on the chosen
 device, run it and print the error report: the JAX CLI's lines, one per
-norm and recorded time (every step of a transient deck).
+norm and recorded time (every step of a transient deck), the subgrid
+models' 'Subgrid k:' lines among them.
 
   --device {cuda,cpu}   where to run (default: cuda; without a usable
                         card that raises, so a CPU run asks for cpu)
@@ -103,7 +105,11 @@ def load_input_deck(path: str) -> dict:
 
 
 def main(argv=None):
-    ap = argparse.ArgumentParser(prog="mrhyde-tpu-torch")
+    ap = argparse.ArgumentParser(
+        prog="mrhyde-tpu-torch",
+        description="Run an input deck: its sublists "
+        + ", ".join(_SUBLISTS) + " (Subgrid: the multiscale subgrid "
+        "models), each also from a '<Sublist> input file'.")
     ap.add_argument("deck")
     ap.add_argument("--device", choices=("cuda", "cpu"), default="cuda")
     ap.add_argument("--fp32", action="store_true")

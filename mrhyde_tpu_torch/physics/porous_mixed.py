@@ -104,6 +104,17 @@ class PorousMixed(PhysicsModule):
         if wk.bcs.get("p") == "Dirichlet":
             pD = wk.qp(wk.f(f"Dirichlet p {wk.side_name}", "side ip"))
             wk.add_vec_source("u", pD[:, None] * wk.normals)
+        elif wk.bcs.get("p") == "interface":
+            # the multiscale coupling: the macro trace acts as the
+            # boundary pressure (reference porousMixed.cpp:410-430,
+            # res_u += <lambda, v.n>)
+            lam = wk.qp(wk.resolve("aux p"))
+            wk.add_vec_source("u", lam[:, None] * wk.normals)
+
+    def compute_flux(self, wk):
+        """The upscaled flux of the multiscale coupling, u.n (reference
+        porousMixed.cpp:440-500 computeFlux)."""
+        return {"p": (wk.sol("u") * wk.normals).sum(dim=1)}
 
 
 def _total_order(nterms):

@@ -9,7 +9,9 @@ The port of the JAX package's `mrhyde_tpu/physics/porous_weak_galerkin.py`
   pint-eq: (div t - source, q)
   pbndry-eq: -sum_sides <t.n, mu>                          [continuity]
 The permeability is the function 'permeability', or the mesh data file's
-column under 'use permeability data'. No fused kernel: the general path.
+column under 'use permeability data'. As a multiscale fine problem the
+"interface" sides couple u to the macro trace and t.n is the upscaled
+flux. No fused kernel: the general path.
 """
 
 from __future__ import annotations
@@ -57,3 +59,16 @@ class PorousWeakGalerkin(PhysicsModule):
             wk.add_face_vec_source("u", s, -pb[..., None] * n)
             wk.add_trace_source("pbndry", s,
                                 -(wk.face_sol_vec("t", s) * n).sum(dim=1))
+
+    def boundary_residual(self, wk):
+        if wk.bcs.get("pint") == "interface":
+            # the multiscale coupling: the macro trace acts as the
+            # boundary pressure of the weak gradient (reference
+            # porousWeakGalerkin.cpp:393-415, res_u -= <lambda, v.n>)
+            lam = wk.qp(wk.resolve("aux pint"))
+            wk.add_vec_source("u", -lam[:, None] * wk.normals)
+
+    def compute_flux(self, wk):
+        """The upscaled flux of the multiscale coupling, t.n (reference
+        porousWeakGalerkin.cpp:515-553 computeFlux)."""
+        return {"pint": (wk.sol("t") * wk.normals).sum(dim=1)}

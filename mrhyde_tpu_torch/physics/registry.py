@@ -1,7 +1,8 @@
 """Physics module registry: input-deck name -> module class.
 
 Every module the JAX package registers is ported, under the same deck
-names.
+names; a deck's `Subgrid` sublist names its fine physics from the same
+registry (multiscale/subgrid.py).
 """
 
 from __future__ import annotations

@@ -5,8 +5,9 @@ thermal.cpp:71-166):  (rho cp dT/dt - f, v) + (kappa grad T, grad v),
 plus (b . grad T, v) with 'include advection' (b = the functions bx, by,
 bz: deck keys 'advection x|y|z', default 0). Boundary terms
 (`boundary_residual`, reference thermal.cpp boundaryResidual): Neumann
--(g, v)_Gamma and the Nitsche-type weak Dirichlet terms; the multiscale
-interface term comes with ROADMAP A13.
+-(g, v)_Gamma, the Nitsche-type weak Dirichlet terms and the multiscale
+"interface" coupling to the macro trace, whose upscaled flux is
+`compute_flux` (multiscale/subgrid.py).
 """
 
 from __future__ import annotations
@@ -73,9 +74,18 @@ class Thermal(PhysicsModule):
             g = wk.f(f"Neumann e {wk.side_name}", "side ip")
             wk.add_source("e", -wk.qp(g))
         elif bctype == "interface":
-            raise NotImplementedError(
-                "the multiscale interface term is not ported to "
-                "mrhyde_tpu_torch yet (ROADMAP A13)")
+            # the multiscale coupling to the macro trace lambda ("aux
+            # e"): Nitsche terms with epen = 10 (reference
+            # thermal.cpp:227-286)
+            kappa = wk.qp(wk.f("thermal diffusion", "side ip"))
+            lam = wk.qp(wk.resolve("aux e"))
+            T = wk.sol("e")
+            n = wk.normals
+            fluxn = kappa * (wk.grad("e") * n).sum(dim=1)
+            wk.add_source("e", 10.0 / wk.side_h * kappa * (T - lam) - fluxn)
+            dgn = (wk.basis_grad("e") * n[None, :, :]).sum(dim=2)
+            wk.add("e", -self.form_param
+                   * (dgn * (kappa * (T - lam) * wk.wts)[None, :]).sum(dim=1))
         elif bctype == "weak Dirichlet":
             kappa = wk.f("thermal diffusion", "side ip")
             g = wk.f(f"Dirichlet e {wk.side_name}", "side ip")
@@ -87,6 +97,15 @@ class Thermal(PhysicsModule):
             wk.add("e", -self.form_param
                    * (dgn * (kappa * (T - g) * wk.wts)[None, :]).sum(dim=1))
             wk.add_source("e", 10.0 / wk.side_h * wk.qp(kappa) * (T - g))
+
+    def compute_flux(self, wk):
+        """The upscaled flux of the multiscale coupling (reference
+        thermal.cpp:288-345 computeFlux): epen/h kappa (lambda - T) + sf
+        kappa grad T . n, with epen = 10 and sf = 1."""
+        kappa = wk.qp(wk.f("thermal diffusion", "side ip"))
+        lam = wk.qp(wk.resolve("aux e"))
+        return {"e": 10.0 / wk.side_h * kappa * (lam - wk.sol("e"))
+                + kappa * (wk.grad("e") * wk.normals).sum(dim=1)}
 
     # -- the fused provider's hooks (ops/fused_p1.py) ---------------------
 

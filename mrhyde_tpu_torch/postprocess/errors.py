@@ -210,11 +210,16 @@ class ErrorCalculator:
             for (kind, var), val in errs.items():
                 # per-block entries repeat the label
                 kind = kind.split("@")[0]
-                label = {
-                    "L2": f"L2 norm of the error for {var}",
-                    "L2-grad": f"L2 norm of the error for grad({var})",
-                    "L2-div": f"L2 norm of the error for div({var})",
-                    "L2-curl": f"L2 norm of the error for curl({var})",
-                    "L2-face": f"L2-face norm of the error for {var}"}[kind]
+                if kind.startswith("Subgrid-L2"):
+                    idx = kind.split(":")[1] if ":" in kind else "0"
+                    label = f"Subgrid {idx}: L2 norm of the error for {var}"
+                else:
+                    label = {
+                        "L2": f"L2 norm of the error for {var}",
+                        "L2-grad": f"L2 norm of the error for grad({var})",
+                        "L2-div": f"L2 norm of the error for div({var})",
+                        "L2-curl": f"L2 norm of the error for curl({var})",
+                        "L2-face": f"L2-face norm of the error for {var}"
+                    }[kind]
                 lines.append(f"***** {label} = {val:.6g}  (time = {time:g})")
         return "\n".join(lines)

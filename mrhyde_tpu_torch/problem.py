@@ -71,8 +71,6 @@ def _not_ported(what, item):
 
 def _reject_unported(cfg):
     """Raise on the deck features this port does not run yet."""
-    if cfg.get("Subgrid"):
-        _not_ported("the Subgrid (multiscale) sublist", "A13")
     solver = cfg.get("Solver", {}) or {}
     if solver.get("shards"):
         _not_ported("DOF sharding (Solver: shards)", "A14")
@@ -235,6 +233,7 @@ class Problem:
             (cfg.get("Solver", {}) or {}).get("solver") == "transient")
         self.solver_cfg = cfg.get("Solver", {}) or {}
         self._setup_field_params()
+        self._setup_multiscale(cfg)
         # build the fused provider now: a deck it would have to refuse
         # (a coupling or coefficient not ported yet) raises here
         self.assembler.fused_provider()
@@ -246,6 +245,24 @@ class Problem:
             self.disc, self.fm, pp_cfg.get("True solutions", {}) or {},
             self.params, device=self.device, dtype=self.dtype)
         self._setup_postprocess(pp_cfg, phys_cfg)
+
+    def _setup_multiscale(self, cfg):
+        """The Subgrid sublist's models (JAX `problem.py:387-403`): one
+        SubgridDtN, or MultiscaleModels for several model sublists with
+        usage expressions. Every macro element gets a subgrid model (the
+        reference's winner defaults even with zero votes,
+        assemblyManager.cpp:8101-8108), so the upscaled flux REPLACES the
+        macro volume terms everywhere."""
+        self.multiscale = None
+        if not cfg.get("Subgrid"):
+            return
+        from mrhyde_tpu_torch.multiscale.subgrid import (MultiscaleModels,
+                                                         SubgridDtN)
+        sub = cfg["Subgrid"].get("Subgrid", cfg["Subgrid"])
+        self.multiscale = SubgridDtN(self, sub) if "Mesh" in sub \
+            else MultiscaleModels(self, sub)
+        self.assembler.multiscale = self.multiscale
+        self.assembler.volume_off = True
 
     def _setup_postprocess(self, pp_cfg, phys_cfg):
         """The writer, the solution storage, the objectives and the
@@ -402,6 +419,13 @@ class Problem:
                     np.asarray(pm.specs[name].value, dtype=float),
                     dtype=self.dtype, device=self.device)
         return out or None
+
+    def _errors(self, u, time):
+        """The deck's error norms at u, the subgrid models' beside."""
+        errs = self.error_calc.compute(u, time)
+        if self.multiscale is not None:
+            errs.update(self.multiscale.compute_errors(u, time))
+        return errs
 
     def _record(self, u, time):
         self.solution_storage.store(u, time)
@@ -570,8 +594,7 @@ class Problem:
                                     "newton_iters": result.iterations,
                                     "linear_iters": result.linear_iters})
         if record and self.compute_errors:
-            out.error_history.append(
-                (0.0, self.error_calc.compute(result.u, 0.0)))
+            out.error_history.append((0.0, self._errors(result.u, 0.0)))
         if record and self.integrated_quantities is not None:
             out.integrated = self.integrated_quantities.compute(result.u,
                                                                 0.0)
@@ -630,11 +653,13 @@ class Problem:
             mass_cg_tol=float(sc.get("linear TOL", 1e-2)))
 
         out = ForwardResult(u=None, time=t0)
+        if self.multiscale is not None:
+            self.multiscale.init_history(integ.max_history(), self.dtype,
+                                         t0=t0)
 
         def observer(u, time, step):
             if record and self.compute_errors:
-                out.error_history.append(
-                    (time, self.error_calc.compute(u, time)))
+                out.error_history.append((time, self._errors(u, time)))
             if record:
                 self._record(u, time)
 

@@ -9,9 +9,11 @@ decks are double precision, so f64 is the default; f32 is an option.
 
 from __future__ import annotations
 
+import os
+
 import torch
 
-__all__ = ["resolve_device", "resolve_dtype"]
+__all__ = ["resolve_device", "resolve_dtype", "free_bytes"]
 
 
 def resolve_device(device=None) -> torch.device:
@@ -33,3 +35,15 @@ def resolve_dtype(dtype=None) -> torch.dtype:
     if dtype not in (torch.float32, torch.float64):
         raise ValueError(f"unsupported dtype {dtype!r}")
     return dtype
+
+
+def free_bytes(device) -> int:
+    """The memory a computation on `device` can still take: the card's
+    free bytes plus what PyTorch's allocator holds unused, or the host's
+    available pages."""
+    dev = torch.device(device)
+    if dev.type == "cuda":
+        free, _total = torch.cuda.mem_get_info(dev)
+        return free + torch.cuda.memory_reserved(dev) \
+            - torch.cuda.memory_allocated(dev)
+    return os.sysconf("SC_AVPHYS_PAGES") * os.sysconf("SC_PAGE_SIZE")

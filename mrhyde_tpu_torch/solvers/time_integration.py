@@ -19,8 +19,12 @@ transientSolver; the seeding formulas of workset.cpp):
 The step and stage loops run on the host in plain torch; every vector
 keeps the device and dtype of the state it is given. A dynamic
 discretized parameter carries one field per step ((n_steps, n_dof) in
-pvec): step k reads row k. Multiscale (synchronous subgrid models,
-ROADMAP A13) is not ported: `Problem` rejects such decks.
+pvec): step k reads row k. A multiscale model (multiscale/subgrid.py)
+steps with the macro stages: its fine history and each stage's seeding
+weights ride pvec["__ms"], each accepted stage records the fine stage
+solutions, and an accepted step commits them (reference
+subgridDtN_solver.cpp:280-330 copies the macro tableau and BDF weights
+into the fine workset).
 """
 
 from __future__ import annotations
@@ -204,6 +208,14 @@ class TransientIntegrator:
         u_stages = []
         ok = True
         u_new = u
+        ms = getattr(asm, "multiscale", None)
+        if ms is not None and ms.fine_prev is None:
+            ms.init_history(self.max_history(), u.dtype, t0=t)
+        if ms is not None and hasattr(ms, "update_masks"):
+            # dynamic multimodel: ownership re-voted at the step start
+            # (reference solverManager.cpp:1316 identifySubgridModels)
+            ms.update_masks(t)
+        ms_stages = None if ms is None else ms.blank_stages(nstage, u.dtype)
         for s in range(nstage):
             z0 = u_step_start
             alpha_u = float(A[s, s] / b[s])
@@ -220,6 +232,11 @@ class TransientIntegrator:
             t_stage = float(t + c[s] * dt)
             tc = TimeCoeffs(alpha_u, beta_u, alpha_t, beta_t, t_stage,
                             float(dt))
+            pvec_stage = step_pvec
+            if ms is not None:
+                pvec_stage = {**(step_pvec or {}), "__ms": ms.stage_ms_entry(
+                    ms_stages, s, A, b, w, timewt, u.dtype, t=t, dt=dt,
+                    u_prev=u_prev)}
             if self.set_dirichlet is not None:
                 z0 = self.set_dirichlet(z0, t_stage)
             self.counts["stages"] += 1
@@ -227,7 +244,7 @@ class TransientIntegrator:
                 z = self._explicit_stage(z0, tc, step_pvec)
             else:
                 result = newton_solve(
-                    asm, z0, tc, step_pvec, tol=self.nonlinear_tol,
+                    asm, z0, tc, pvec_stage, tol=self.nonlinear_tol,
                     abstol=self.abs_tol,
                     maxiter=self.max_nonlinear_iters,
                     linear_method=self.linear_method,
@@ -241,10 +258,14 @@ class TransientIntegrator:
                     break
                 z = result.u
             u_stages.append(z)
+            if ms is not None:
+                ms_stages = ms.record_stage(ms_stages, s, z, tc, pvec_stage)
             if nstage > 1:
                 u_new = u_new + z - u_prev[0]
             else:
                 u_new = z
+        if ok and ms is not None:
+            ms.commit_step(ms_stages, nstage)
         return u_new, u_prev, ok
 
     def run(self, u0, *, t0=0.0, t_end=1.0, dt=None, num_steps=None,

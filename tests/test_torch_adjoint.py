@@ -189,3 +189,63 @@ def test_forward_runs_the_fused_kernels(monkeypatch):
     fd = f.fd_gradient(pvec, eps=1e-6)
     for k in g:
         assert abs(float(g[k]) - fd[k]) <= 1e-6 * abs(fd[k]), k
+
+
+
+def _ns_gradient(cutoff, maxiter=2000):
+    """value_and_gradient of int ux^2 in the active viscosity nu on a
+    steady 48x12 NS channel (PSPG, GMRES + Jacobi; 1,911 DOFs), the
+    forward Newton dense and the adjoint's transposed solve with the dense
+    cutoff `cutoff` and at most `maxiter` Krylov iterations."""
+    from mrhyde_tpu_torch.analysis.forward_ad import DifferentiableForward
+    from mrhyde_tpu_torch.problem import Problem
+    cfg = cs.ns_deck(48, 12, {"nonlinear TOL": 1e-10,
+                              "Belos solver": "Block GMRES"})
+    cfg["Functions"].update({"viscosity": "nu"})
+    cfg["Parameters"] = {"nu": {"type": "scalar", "value": 0.5,
+                                "usage": "active"}}
+    cfg["Postprocess"] = {"compute errors": False, "Objective functions": {
+        "ux2": {"type": "integrated response", "response": "ux*ux"}}}
+    p = Problem(cfg, device="cpu")
+    f = DifferentiableForward(p, p.objective_manager.value)
+    sv = f.stage_solve
+    sv.linear_maxiter = maxiter
+    newton = sv.newton
+
+    def dense_newton(*args):
+        sv.dense_cutoff = 10 ** 6
+        try:
+            return newton(*args)
+        finally:
+            sv.dense_cutoff = cutoff
+    sv.newton = dense_newton
+    sv.dense_cutoff = cutoff
+    value, grad = f.value_and_gradient(
+        {"nu": torch.tensor(0.5, dtype=torch.float64)})
+    return value, grad["nu"], sv.counts
+
+
+def test_unconverged_krylov_adjoint_takes_the_dense_solve(monkeypatch):
+    """C-6: where the transposed GMRES + Jacobi solve stops unconverged
+    (2,000 iterations on the NS channel's saddle point) the adjoint
+    solves J~^T densely, as it fits in memory: the gradient equals the
+    dense one to 1e-9 (the port raised there before). Past the memory it
+    returns the Krylov result with a warning giving the residual."""
+    import warnings
+
+    from mrhyde_tpu_torch.analysis import adjoint
+    v_dense, g_dense, c_dense = _ns_gradient(10 ** 6)
+    assert c_dense["adjoint_iters"] == 0
+    v_kry, g_kry, c_kry = _ns_gradient(0)
+    assert c_kry["adjoint_iters"] == 2000
+    assert c_kry["adjoint_dense_fallback"] == 1
+    assert float(v_kry) == float(v_dense)
+    assert abs(float(g_kry - g_dense)) <= 1e-9 * abs(float(g_dense))
+    monkeypatch.setattr(adjoint, "free_bytes", lambda device: 0)
+    with warnings.catch_warnings(record=True) as caught:
+        warnings.simplefilter("always")
+        _v, g_warn, c_warn = _ns_gradient(0, maxiter=50)
+    assert c_warn["adjoint_dense_fallback"] == 0
+    assert any("did not converge: residual" in str(w.message)
+               for w in caught)
+    assert bool(torch.isfinite(g_warn))

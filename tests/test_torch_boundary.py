@@ -273,11 +273,38 @@ def test_point_dirichlet_conditions_name_their_roadmap_item():
 
 
 def test_interface_term_names_its_roadmap_item():
-    """Thermal's multiscale interface term raises, naming ROADMAP A13;
-    the base module's boundary_residual adds nothing."""
-    from types import SimpleNamespace
+    """Thermal's multiscale interface term (ROADMAP A13, ported): the
+    Nitsche coupling of a fine problem's sides to the macro trace "aux e"
+    and the upscaled flux of compute_flux equal the JAX package's at a
+    seeded fine state and trace (one macro element of the DtN2 deck,
+    1e-13); the base module's boundary_residual adds nothing."""
+    import chip_smoke as cs
+    from mrhyde_tpu.assembly.assembler import TimeCoeffs as JTC
+    from mrhyde_tpu.problem import Problem as JaxProblem
+    from mrhyde_tpu_torch.assembly.assembler import TimeCoeffs
     from mrhyde_tpu_torch.physics.base import PhysicsModule
-    from mrhyde_tpu_torch.physics.thermal import Thermal
-    with pytest.raises(NotImplementedError, match="A13"):
-        Thermal().boundary_residual(SimpleNamespace(bcs={"e": "interface"}))
+    from mrhyde_tpu_torch.problem import Problem
+    cfg = cs.multiscale_deck(2, 1)
+    mj = JaxProblem(cfg).multiscale
+    mt = Problem(cfg, device="cpu").multiscale
+    nfd = mt.n_fine_dof
+    uf, lam = seeded(nfd, seed=5, scale=1.0), seeded(4, seed=6, scale=1.0)
+    z = np.zeros(nfd)
+    tj = JTC.steady(9)
+    geo_j = {k: v[1] for k, v in mj._percell(jnp.float64).items()}
+    geo_t = {k: v[1] for k, v in mt._percell(torch.float64).items()}
+    aux_j, aux_t = mj._make_aux(jnp.asarray(lam)), mt._make_aux(
+        torch.tensor(lam))
+    rj = mj._fine_residual(jnp.asarray(uf), jnp.asarray(z), jnp.asarray(z),
+                           geo_j, aux_j, tj, None)
+    t = torch.tensor
+    rt = mt._fine_residual(t(uf), t(z), t(z), geo_t, aux_t,
+                           (1.0, 0.0, 0.0, 1.0), mt.fa._params(None))
+    fj = mj._flux_upscale(jnp.asarray(uf), jnp.asarray(z), geo_j, aux_j, tj,
+                          None, jnp.zeros(4))
+    ft = mt._flux_upscale(t(uf), t(z), geo_t, aux_t,
+                          TimeCoeffs.steady(9), mt.fa._params(None))
+    for a, b in ((rj, rt), (fj, ft)):
+        a = np.asarray(a)
+        assert np.abs(b.numpy() - a).max() <= 1e-13 * np.abs(a).max()
     assert PhysicsModule().boundary_residual(None) is None

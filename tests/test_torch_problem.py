@@ -182,14 +182,17 @@ HEX = {"dimension": 3, "element type": "hex", "NX": 2, "NY": 2, "NZ": 2}
                             "initial_value": 1.0}}}, None),
     ({"Analysis": {"analysis type": "ROL"}}, None),
     ({"Postprocess": {"compute integrated quantities": True}}, None),
-    ({"Subgrid": {"Mesh": {"NX": 2}}}, "A13"),
+    # a Subgrid sublist (A13, ported): builds; the case keeps its id
+    pytest.param({"Subgrid": {"Mesh": {"refinements": 1},
+                              "Physics": {"modules": "thermal"}}}, None,
+                 id="cfg_patch4-A13"),
     ({"Physics": {"physics set names": "a, b"}}, None),
     ({"Postprocess": {"write solution": True}}, None),
 ])
 def test_unported_deck_features_raise(cfg_patch, item):
-    """The deck features left unported raise naming their ROADMAP item
-    (A13 multiscale, A14 sharding); A12's build (a Problem ignores a
-    multi-set key, which make_problem reads)."""
+    """The deck feature left unported raises naming its ROADMAP item
+    (A14 sharding); A12's and A13's build (a Problem ignores a multi-set
+    key, which make_problem reads)."""
     from mrhyde_tpu_torch.problem import Problem
     cfg = thermal_cfg(4)
     for k, v in cfg_patch.items():

@@ -1143,3 +1143,80 @@ def uq_cfg(n=4, samples=6, analysis="UQ", user_file=None):
     cfg["Postprocess"] = {"Objective functions": {
         "energy": {"type": "integrated control", "response": "e*e"}}}
     return cfg
+
+
+# ----------------------------------------------------------------------
+# the multiscale subgrid method: decks at CPU sizes
+# ----------------------------------------------------------------------
+
+def porous_subgrid_cfg(kind="mixed", n=4, refine=1, data_dir=None):
+    """An HFACE p0 macro pressure trace on n x n quads (0 on the
+    boundary; the reference's porous/*_hybrid_multiscale layout) over a
+    porous subgrid of 2^refine per side: kind "mixed" the mixed RT0 / p0
+    form (the trace 'lambda' aliased to the fine 'p'), "wg" weak Galerkin
+    on conforming HDIV u and t (the trace 'pbndry' aliased to 'pint').
+    data_dir: the fine permeability from a mesh data file written there
+    (the subgrid Mesh sublist's 'data file')."""
+    from chip_smoke import DARCY_U, S_TRUE, SOURCE
+    if kind == "mixed":
+        macro = {"modules": "porous mixed hybridized",
+                 "Active variables": {"lambda": "HFACE"}}
+        trace, fine = "lambda", {"modules": "porous mixed"}
+        orders = {"u": 1, "p": 0}
+        trues = {"p": S_TRUE, "u[x]": DARCY_U[0], "u[y]": DARCY_U[1]}
+    else:
+        macro = {"modules": "porous weak Galerkin",
+                 "Active variables": {"pbndry": "HFACE"}}
+        trace = "pbndry"
+        fine = {"modules": "porous weak Galerkin", "Active variables": {
+            "pint": "HVOL", "u": "HDIV", "t": "HDIV"}}
+        orders = {"pint": 0, "u": 1, "t": 1}
+        trues = {"pint": S_TRUE, "t[x]": DARCY_U[0], "t[y]": DARCY_U[1]}
+    macro["Dirichlet conditions"] = {trace: {"all boundaries": "0.0"}}
+    cfg = {
+        "Mesh": {"dimension": 2, "element type": "quad", "NX": n, "NY": n},
+        "Physics": macro, "Functions": {"source": SOURCE},
+        "Discretization": {"order": {trace: 0}, "quadrature": 2},
+        "Solver": {"solver": "steady-state", "initial type": "none"},
+        "Postprocess": {"compute errors": True,
+                        "True solutions": {f"{trace} face": S_TRUE}},
+        "Subgrid": {
+            "Mesh": {"element type": "quad", "refinements": refine,
+                     "dimension": 2},
+            "Physics": fine, "Solver": {"solver": "steady-state"},
+            "Functions": {"source": SOURCE},
+            "Discretization": {"order": orders, "quadrature": 2},
+            "Postprocess": {"True solutions": trues}}}
+    if data_dir is not None:
+        perm_data_files(data_dir, 9, seed=5)
+        cfg["_deck_dir"] = data_dir
+        cfg["Subgrid"]["Mesh"].update({"data file": "perm",
+                                       "data points file": "perm_xy"})
+        cfg["Subgrid"]["Physics"]["use permeability data"] = True
+    return cfg
+
+
+def elasticity_subgrid_cfg(n=3, refine=1):
+    """Linear elasticity on both scales: the displacement (dx, dy) fixed
+    on the macro boundary, a subgrid of 2^refine per side with a varying
+    shear modulus and a body force, coupled through the Nitsche traction
+    interface."""
+    return {
+        "Mesh": {"dimension": 2, "element type": "quad", "NX": n, "NY": n},
+        "Physics": {"modules": "linearelasticity", "Dirichlet conditions": {
+            "dx": {"all boundaries": "0.0"}, "dy": {"all boundaries": "0.0"}}},
+        "Functions": {},
+        "Discretization": {"order": {"dx": 1, "dy": 1}, "quadrature": 2},
+        "Solver": {"solver": "steady-state"},
+        "Postprocess": {"compute errors": True,
+                        "True solutions": {"dx": "0.0", "dy": "0.0"}},
+        "Subgrid": {
+            "Mesh": {"element type": "quad", "refinements": refine,
+                     "dimension": 2},
+            "Physics": {"modules": "linearelasticity"},
+            "Solver": {"solver": "steady-state"},
+            "Functions": {"source dx": "1.0 + x", "source dy": "x*y",
+                          "lambda": "2.0", "mu": "0.5 + 0.5*x"},
+            "Discretization": {"order": {"dx": 1, "dy": 1}, "quadrature": 2},
+            "Postprocess": {"True solutions": {"dx": "0.0",
+                                               "dy": "0.01*x"}}}}

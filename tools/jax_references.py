@@ -12,7 +12,8 @@ QUADRATURE_DECKS, SOLVER_DECKS, MULTISET_DECKS, MESH_DECKS, SOLID_DECKS
 (whose files,
 an Exodus mesh and grain rotations, the deck functions write from
 --seed, default 0, into a temporary directory, as chip_smoke.py does),
-PHYSICS_DECKS or VECTOR_DECKS, or `boussinesq_gold_nx8` (max |ux| of its
+PHYSICS_DECKS, VECTOR_DECKS or MULTISCALE_DECKS, or `boussinesq_gold_nx8`
+(max |ux| of its
 Boussinesq deck at beta = 1 and 0); each N builds the deck at that mesh
 size (default: the size the card runs), and STEPS, for a transient deck,
 sets its number of steps (to refine h and dt together); --solver merges
@@ -22,7 +23,8 @@ which Krylov solve converges a deck: its L2 against the dense solve's).
 Prints one JSON line per run: the L2 error of the deck's variable at its
 held time (an NS, mesh, solid, physics or vector deck: of every variable
 at every recorded time, a multi-block mesh's per block as "var@b", an
-L2-grad, L2-face, L2-div or L2-curl norm as "var#L2-grad"), the DOF
+L2-grad, L2-face, L2-div or L2-curl norm as "var#L2-grad", a subgrid
+model's L2 as "var#Subgrid-L2" or "var#Subgrid-L2:k"), the DOF
 count, and the set-up and solve seconds. Run it from the repo root; it imports
 chip_smoke.py for the deck functions, so both packages see the same
 config.
@@ -65,8 +67,8 @@ def main(argv):
               **chip_smoke.MULTISET_DECKS}.items()}
     decks.update({k: (build, n, None, None) for k, (build, n, *_rest) in
                   {**chip_smoke.MESH_DECKS, **chip_smoke.SOLID_DECKS,
-                   **chip_smoke.PHYSICS_DECKS,
-                   **chip_smoke.VECTOR_DECKS}.items()})
+                   **chip_smoke.PHYSICS_DECKS, **chip_smoke.VECTOR_DECKS,
+                   **chip_smoke.MULTISCALE_DECKS}.items()})
     decks.update(chip_smoke.CDR_DECKS, **chip_smoke.HEX_DECKS)
     build, n_card, t_held, var = decks[name][:4]
     for size in sizes or [str(n_card)]:
@@ -83,7 +85,7 @@ def main(argv):
         hist = {round(float(t), 10): errs
                 for t, errs in result.error_history}
         if var is None:
-            l2 = {t: chip_smoke.l2_labels(errs) for t, errs in hist.items()}
+            l2 = {t: chip_smoke.ms_labels(errs) for t, errs in hist.items()}
         else:
             l2 = float(hist[round(t_held, 10)][("L2", var)])
         print(json.dumps({"deck": name, "n": int(n), "steps":
