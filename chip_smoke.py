@@ -10,7 +10,8 @@ bases (mixed, hybridized and weak Galerkin porous flow, maxwell,
 maxwells_fp, hybridized shallow water, Euler's HDG form), decks whose
 coefficients read the Parameters sublist, the analyses, the multiscale
 subgrid method (the Subgrid sublist: batched Dirichlet-to-Neumann fine
-solves on the card), and its
+solves on the card), decks with `Solver: shards` (DOF- and
+element-sharded Newton solves, all shards stacked on the card), and its
 module sets (NS + thermal with the Boussinesq term, NS + cdr, thermal +
 cdr, coefficients that read the state; 2D p1 quads, 3D hex, 2D p2
 quads; affine sets through mode "state"), with Neumann, Flux and
@@ -108,7 +109,9 @@ each):
  21 cdr_gold_nx40   the reference's cdr/2D_manufactured (v = (2, 1),
              reaction 0.5 c^2), direct: L2(c) = 0.00101714 (rtol 2e-5)
  22-29 CDR_DECKS   cdr 256^2 (512^2 before; v = (2, 1), reaction 0),
-             its nonlinear twin (reaction 0.5 c^2), the rotating-field
+             the same with reaction 2 c (linear in c: JAX's affine split,
+             thermal_node_state), its nonlinear twin
+             (reaction 0.5 c^2), the rotating-field
              DIRK-2,2 deck at 512^2 (density 2, 4 steps to t = 0.2; 8 to
              0.4 before), thermal 'include advection' 256^2, cdr hex 32^3
              and nonlinear 32^3 (40^3 before), cdr p2 128^2 and
@@ -327,7 +330,20 @@ each):
              asynchronous regression (10x10, 4 substeps): each deck's
              set-up and solve s, peak device memory, and at full width
              the ms per residual_contribution and jacobian_contribution
-             (CUDA events, median of 5)
+             (CUDA events, median of 3)
+    sharded_decks   SHARDED_DECKS, each through make_problem(cfg).run()
+             unsharded and with `Solver: shards` (every shard stacked on
+             the card, StackedComm; the sharded path is the general
+             path's vmap(jacfwd), no launch): kappa = 1 + e*e at 256^2 on
+             4 shards (CG), the NS start-up at 256x64 on 8 (GMRES(60) x
+             4), the 2x2-block deck at 256 per block on 4 (CG), the
+             multiscale gold deck on 4 (DOF scheme) and on 8 (the
+             element-sharded scheme), the field-parameter boundary-group
+             deck at 128^2 on 8 (CG); each label of the sharded run
+             against the unsharded run's (1e-10; the NS start-up: ux
+             1e-8, uy 1e-6, pr 2e-3) and against the JAX package's
+             (sharded for NS and the field deck) or the golds; both runs'
+             set-up and solve s and counts
 
 The reference L2 values are the JAX package's, computed in f64 on the
 CPU, or the reference's golds. Each deck runs one assembly before its
@@ -355,7 +371,8 @@ set_elem_full and set_node_full at Q = 64, 64 and 25, and each solver
 deck the kernel of the deck it comes from (55 set_node_state, 56 and 61
 thermal_node_state, 57 and 58 thermal_elem_state, 59 thermal_node_full,
 60 ns_node_full), 62 and 63 thermal_node_state, 64-72 none, 73-94 none,
-95 thermal_node_full, 96 ns_node_full, 97-108 none and 109-115 none. The
+95 thermal_node_full, 96 ns_node_full, 97-108 none, 109-115 none and
+the sharded runs of phase sharded_decks none. The
 `kernels` line
 reports the sums over the decks (ten kernels: the eight of the earlier
 phases and set_node_state, set_elem_state), each kernel's error, times
@@ -1280,11 +1297,20 @@ def thermal_advection_deck(n):
     return cfg
 
 
+# the source of c = S_TRUE with the reaction 2 c, linear in c: the affine
+# split (JAX's _detect_affine) on thermal_node_state
+CDR_SOURCE_AFFINE = f"{CDR_SOURCE} + 2.0*{S_TRUE}"
+
+
 # name -> (deck builder of the mesh size, size on the card, time of the
 # held L2, variable, kernel mode, the JAX package's f64 CPU L2 there).
 # tools/jax_references.py runs the same builders through the JAX package
 # for those references.
 CDR_DECKS = {
+    # a reaction linear in c: mode "state", the coord part plain torch
+    "cdr_affine_reaction_nx256": (
+        lambda n: cdr_deck(n, CDR_SOURCE_AFFINE, "2.0*c"), 256, 0.0, "c",
+        "state", 2.4237378117849184e-05),
     # cut from 1024^2 (the JAX CPU reference ran over 20 minutes there),
     # then from 512^2 (with thermal_advection) when the boundary and
     # affine-set decks came in; 23 / 31 / 23 s of JAX CPU solve at 256^2
@@ -4320,6 +4346,9 @@ def assembly_tc(problem, u, time):
 
 # every deck's record, by its phase name
 RECORDS = {}
+# name -> {time: {label: L2}} of every run_deck deck (phase sharded_decks
+# holds a sharded deck to an earlier phase's run of the same deck)
+LABELS = {}
 
 
 def l2_key(label):
@@ -4403,6 +4432,7 @@ def run_deck(name, cfg, device, checks, mode, post=None):
     launches = dict(fp.LAUNCHES)
     fused_calls = calls[0]
     hist = {round(t, 10): errs for t, errs in result.error_history}
+    LABELS[name] = {t: ms_labels(errs) for t, errs in hist.items()}
     errors = [{"time": t, "var": v, "L2": hist[round(t, 10)][l2_key(v)],
                "L2_ref": want, "rtol": rtol}
               for t, v, want, rtol in checks]
@@ -5198,7 +5228,7 @@ def multiscale_run(name, cfg, device, refs, rtol, golds, gold_rtol):
     the gold (gold_rtol, or its printed precision), no fused provider and
     no kernel launch, the peak device memory; then for the MS_TIMED decks
     the ms per residual_contribution and per jacobian_contribution at the
-    solution (CUDA events, median of 5). Returns the launches (all
+    solution (CUDA events, median of 3). Returns the launches (all
     zero)."""
     from mrhyde_tpu_torch.ops import fused_p1 as fp
     from mrhyde_tpu_torch.problem import make_problem
@@ -5236,7 +5266,9 @@ def multiscale_run(name, cfg, device, refs, rtol, golds, gold_rtol):
             ms.blank_stages(1, u.dtype), 0, A, b, w, tc.alpha_t, u.dtype,
             t=result.time, dt=tc.deltat, u_prev=u[None])}
     # jacobian_blocks: the blocks and the residual from one jacfwd pass
-    timing = {k: cuda_ms(lambda f=f: f(u, tc, pvec), reps=5, warm=False)
+    # a median of 3, for the script's time: the 256^2 deck's 2.6 s
+    # jacobian_contribution takes ~8 s of timing
+    timing = {k: cuda_ms(lambda f=f: f(u, tc, pvec), reps=3, warm=False)
               if name in MS_TIMED else None
               for k, f in (("residual_contribution_ms",
                             ms.residual_contribution),
@@ -5276,6 +5308,174 @@ def multiscale_decks(device, decks=None):
                            gold_rtol)
             for name, (build, n, rtol, refs, gold_rtol, golds) in
             (decks or MULTISCALE_DECKS).items()]
+
+
+def field_boundary_deck(n):
+    """The JAX package's field-parameter boundary-group deck
+    (tests/test_deck_sharded.py): thermal with source 1 + x y, e = 0 on
+    the left and bottom sides, Neumann fluxes 2 bflux on the right and
+    bflux^2 - y on the top, which read the discretized parameter bflux
+    (HGRAD order 1, value 1) at side quadrature points; its L2 against 0
+    is ||e||."""
+    cfg = deck(n, source="1.0 + x*y")
+    cfg["Physics"]["Dirichlet conditions"] = {
+        "scalar data": True, "e": {"left": 0.0, "bottom": 0.0}}
+    cfg["Physics"]["Neumann conditions"] = {
+        "e": {"right": "2.0*bflux", "top": "bflux*bflux - y"}}
+    cfg["Parameters"] = {"bflux": {"usage": "discretized", "basis": "HGRAD",
+                                   "order": 1, "value": 1.0}}
+    cfg["Postprocess"]["True solutions"] = {"e": "0.0"}
+    return cfg
+
+
+# the keys that take a symmetric deck's Newton solves to the f64 floor in
+# both runs of a sharded_decks pair (the sharded CG's fixed count of
+# iterations, `max linear iters`, set per deck): a sharded and an
+# unsharded run stopped at 1e-10 agree to ~1e-9 in L2 on a 128^2 mesh,
+# at these keys to ~4e-12 (the L2 error is ~1e-4 of |e| there)
+FLOOR = {"Belos solver": "CG", "nonlinear TOL": 1e-13, "linear TOL": 1e-14}
+
+
+def ms_replicated_deck(n):
+    """The multiscale gold deck under the element-sharded scheme."""
+    cfg = ms_gold_deck(n)
+    cfg["Solver"]["sharded scheme"] = "replicated"
+    return cfg
+
+
+MS_GOLDS = _ms_lines([(0.0, "L2-face", 0.198706, 0.042848)])
+# name -> (deck function of the mesh size, size, shards, rtol against the
+# same deck unsharded on the card, [(references {time: {label: L2}},
+# rtol)]): the JAX package's f64 CPU L2 (tools/jax_references.py; NS and
+# the field-parameter deck with --shards, on 8 virtual CPU devices) or
+# the reference's golds
+SHARDED_DECKS = {
+    # Newton to 1e-12: at 1e-13 both runs take all 10 steps (28.1 s of
+    # sharded solve on an NVIDIA H100 80GB HBM3 at 700 W)
+    "nonlinear_nx256_shards4": (
+        lambda n: with_solver(nonlinear_deck(n), **dict(FLOOR, **{
+            "nonlinear TOL": 1e-12, "max linear iters": 2000})),
+        256, 4, 1e-10, [({0.0: {"e": NONLINEAR_L2}}, 1e-4)]),
+    # the start-up's pressure (and uy) is held looser against the
+    # unsharded run: GMRES(60) x 4 and the unsharded GMRES (at its
+    # 2,000-iteration cap here) stop at the Newton tolerance with
+    # different pressures, whose rows weigh ~h^2 of the momentum rows; the
+    # JAX package's sharded run differs from its unsharded one (NS_STARTUP)
+    # by 5.7e-4 in L2(pr) and 1.0e-7 in L2(uy) on this deck
+    # the unsharded run: deck 13's, the same deck (when the phase runs
+    # alone, its own)
+    "ns_startup_dirk22_nx256_shards8": (
+        ns_startup_deck, 256, 8, {"ux": 1e-8, "uy": 1e-6, "pr": 2e-3},
+        [({0.01: {"pr": 0.0003158922457459171, "ux": 0.18482842715870781,
+                  "uy": 3.690301193713985e-06},
+           0.02: {"pr": 0.0004176389528159997, "ux": 0.1674366653372132,
+                  "uy": 4.619296039154203e-06}}, 1e-6)]),
+    "multiblock_nx256_shards4": (
+        lambda n: multiblock_deck(n, dict(FLOOR, **{
+            "max linear iters": 2500, "max nonlinear iters": 3})),
+        256, 4, 1e-10, [(MESH_DECKS["multiblock_nx256"][3], 1e-4)]),
+    "multiscale_dtn2_gold_nx4_shards4": (
+        ms_gold_deck, 4, 4, 1e-10,
+        [(MULTISCALE_DECKS["multiscale_dtn2_gold_nx4"][3], 1e-9),
+         (MS_GOLDS, 1e-3)]),
+    "multiscale_dtn2_gold_nx4_shards8_replicated": (
+        ms_replicated_deck, 4, 8, 1e-10,
+        [(MULTISCALE_DECKS["multiscale_dtn2_gold_nx4"][3], 1e-9),
+         (MS_GOLDS, 1e-3)]),
+    "field_boundary_nx128_shards8": (
+        lambda n: with_solver(field_boundary_deck(n), **FLOOR, **{
+            "max linear iters": 1000, "max nonlinear iters": 2}),
+        128, 8, 1e-10, [({0.0: {"e": 0.7561182026743986}}, 1e-9)]),
+}
+
+
+SHARDED_BASES = {"ns_startup_dirk22_nx256_shards8": "ns_startup_dirk22_nx256"}
+
+
+def sharded_run(name, cfg, shards, device, rtol, refs):
+    """One deck through make_problem(cfg).run() on the card unsharded and
+    with `Solver: shards` (all shards stacked on the one card,
+    StackedComm): every label at every recorded time of the sharded run
+    against the unsharded run's (rtol) and against each reference table
+    (its rtol); the sharded run launches no kernel (its assembly is the
+    general path's vmap(jacfwd)). The unsharded run of a deck that an
+    earlier phase ran as it is (SHARDED_BASES) is that phase's. Records
+    both runs' set-up and solve s and their stage, Newton and Krylov
+    counts; returns the sharded run's launches (all zero)."""
+    import copy
+    from mrhyde_tpu_torch.ops import fused_p1 as fp
+    from mrhyde_tpu_torch.problem import make_problem
+    runs = {}
+    base = SHARDED_BASES.get(name)
+    if base in LABELS:
+        r = RECORDS[base]
+        runs[0] = {"from": base, "labels": LABELS[base], "finite": True,
+                   **{k: r[k] for k in ("setup_s", "solve_s", "launches",
+                                        "stages", "newton_iters",
+                                        "linear_iters")}}
+    for s in [shards] if 0 in runs else [0, shards]:
+        c = copy.deepcopy(cfg)
+        if s:
+            c["Solver"]["shards"] = s
+        torch.cuda.synchronize()
+        t0 = time.perf_counter()
+        problem = make_problem(c, device=device)
+        t1 = time.perf_counter()
+        for k in fp.LAUNCHES:
+            fp.LAUNCHES[k] = 0
+        result = problem.run()
+        torch.cuda.synchronize()
+        t2 = time.perf_counter()
+        u = result.u
+        runs[s] = {"setup_s": t1 - t0, "solve_s": t2 - t1,
+                   "launches": dict(fp.LAUNCHES), **result.counts,
+                   "labels": {round(t, 10): ms_labels(errs)
+                              for t, errs in result.error_history},
+                   "finite": bool(torch.isfinite(u).all())
+                   and u.device.type == torch.device(device).type,
+                   "scheme": type(problem._newton_fn()).__name__}
+    got, base = runs[shards]["labels"], runs[0]["labels"]
+    checks = []
+    tables = [({t: {k: v for k, v in lb.items()} for t, lb in base.items()},
+               rtol, "unsharded")] + [(tb, tol, "reference")
+                                      for tb, tol in refs]
+    for table, tol, kind in tables:
+        for t, labels in table.items():
+            for label, want in labels.items():
+                r = tol[label] if isinstance(tol, dict) else tol
+                value = got[round(t, 10)][label]
+                # a norm exact to round-off (the initial state's) is held
+                # absolutely
+                checks.append({"against": kind, "time": t, "label": label,
+                               "value": value, "ref": want, "rtol": r,
+                               "ok": bool(abs(value - want) <= max(
+                                   r * abs(want), 1e-13))})
+    sharded = runs[shards]
+    ok = all(c["ok"] for c in checks) and sharded["finite"] \
+        and runs[0]["finite"] and not any(sharded["launches"].values()) \
+        and sharded["scheme"] != "function"
+    rec = {"phase": "sharded_decks", "deck": name, "shards": shards,
+           "checks": checks, "ok": ok,
+           **{("sharded" if s else "unsharded"): {
+               k: v for k, v in r.items() if k != "labels"}
+              for s, r in runs.items()}}
+    emit(rec)
+    RECORDS[name] = rec
+    if not ok:
+        raise SystemExit(f"phase sharded_decks, deck {name} failed: {rec}")
+    return sharded["launches"]
+
+
+def sharded_decks(device, decks=None):
+    """Phase sharded_decks: SHARDED_DECKS (or `decks`, a table of the same
+    form), each unsharded and sharded on the card, held to each other and
+    to the JAX package's references; returns each sharded run's launches
+    (no kernel is on this path: all zero). Alone on the card: python3 -c
+    'import torch, chip_smoke; chip_smoke.sharded_decks(
+    torch.device("cuda"))'."""
+    return [sharded_run(name, build(n), shards, device, rtol, refs)
+            for name, (build, n, shards, rtol, refs) in
+            (decks or SHARDED_DECKS).items()]
 
 
 def set_sources():
@@ -5453,6 +5653,7 @@ def main(argv=()):
     per_deck += vector_decks(device)
     per_deck += analysis_decks(device)
     per_deck += multiscale_decks(device)
+    per_deck += sharded_decks(device)
     launches = {k: sum(d[k] for d in per_deck) for k in fp.LAUNCHES}
     advect_launches = {k: sum(d[k] for d in advect_decks)
                        for k in fp.LAUNCHES}

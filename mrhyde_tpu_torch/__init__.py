@@ -17,8 +17,10 @@ as a torch.autograd.Function, the ROL trust region, UQ / DCI,
 discretized parameters, multi-set decks through `make_problem`), and
 the multiscale subgrid method (`multiscale/`: the Subgrid sublist's
 batched Dirichlet-to-Neumann fine solves, steady and transient, one model
-or several); DOF sharding (ROADMAP A14) raises NotImplementedError
-naming its item.
+or several), and distribution (`parallel/`: `Solver: shards` and the
+CLI's `--shards` run the Newton solves DOF-sharded, or element-sharded
+for a multiscale deck, over a shard communicator: every shard stacked on
+one card, or one per torch.distributed rank).
 """
 
 __version__ = "0.1.0"

@@ -6,12 +6,14 @@ sampling hpp:147; the UQSolve loop, analysisManager.cpp:269-415).
 Samples are drawn per distribution with numpy's RandomState from the
 deck's seed, so both packages draw the same numbers, or read from a
 user-defined sample file. The ensemble runs as a plain loop over
-samples: the JAX package's vmapped batch (`run_vmapped`) is not ported.
+samples (`run`) or as one batched call over the sample axis
+(`run_vmapped`, torch.func.vmap: the ensemble-parallel path).
 """
 
 from __future__ import annotations
 
 import numpy as np
+import torch
 
 __all__ = ["UQManager", "kde", "rejection_sampling"]
 
@@ -88,6 +90,22 @@ class UQManager:
                 print(f"Finished evaluating sample number: {j + 1} "
                       f"out of {self.n_samples}")
         return samples, np.stack(responses)
+
+    def run_vmapped(self, forward_fn, device=None, dtype=torch.float64):
+        """The batched ensemble: forward_fn torch.func.vmap'd over the
+        sample axis of the same seeded samples, as tensors on `device`
+        (the card unless the caller asks for the CPU). forward_fn maps
+        one sample's {name: 0-d (or (k,)) tensor} to its response, in
+        torch operations vmap can batch. Returns (samples, responses)
+        like `run`."""
+        from mrhyde_tpu_torch.runtime import resolve_device
+        dev = resolve_device(device)
+        samples = self.generate_samples()
+        batched = {k: torch.as_tensor(np.asarray(v), dtype=dtype,
+                                      device=dev)
+                   for k, v in samples.items()}
+        out = torch.func.vmap(forward_fn)(batched)
+        return samples, out.detach().cpu().numpy()
 
 
 def kde(points: np.ndarray, data: np.ndarray) -> np.ndarray:

@@ -13,6 +13,12 @@ models' 'Subgrid k:' lines among them.
   --fp32                single precision (default: double)
   --profile             print the set-up and run timers and write them to
                         mrhyde_tpu.profile (as the deck's `profile: true`)
+  --shards N            run the Newton solves sharded over N shards (the
+                        deck's `Solver: shards`): under a torchrun of N
+                        processes one shard per rank (cuda:LOCAL_RANK, or
+                        the CPU with --device cpu; NCCL or gloo), only
+                        rank 0 printing; otherwise all N shards stacked in
+                        one process on the chosen device
 """
 
 from __future__ import annotations
@@ -114,6 +120,7 @@ def main(argv=None):
     ap.add_argument("--device", choices=("cuda", "cpu"), default="cuda")
     ap.add_argument("--fp32", action="store_true")
     ap.add_argument("--profile", action="store_true")
+    ap.add_argument("--shards", type=int, default=0)
     args = ap.parse_args(argv)
 
     import torch
@@ -121,15 +128,37 @@ def main(argv=None):
     from mrhyde_tpu_torch.utils.profiling import timed, timer_report
 
     cfg = load_input_deck(args.deck)
-    with timed("driver::total"):
-        with timed("driver::setup"):
-            problem = make_problem(cfg, device=args.device,
-                                   dtype=torch.float32 if args.fp32
-                                   else torch.float64)
-        with timed("driver::run"):
-            # an analysis deck prints its own tables (the ROL
-            # trust-region table, 'param i = ...', the dry-run summary)
-            result = problem.run()
+    device, comm, rank = args.device, None, 0
+    if args.shards:
+        cfg.setdefault("Solver", {})["shards"] = args.shards
+    if args.shards > 1 and int(os.environ.get("WORLD_SIZE", 1)) \
+            == args.shards:
+        # a torchrun of N processes: one shard per rank
+        import torch.distributed as dist
+        from mrhyde_tpu_torch.parallel.sharding import make_comm
+        if device == "cuda":
+            local = int(os.environ.get("LOCAL_RANK", 0))
+            torch.cuda.set_device(local)
+            device = f"cuda:{local}"
+        dist.init_process_group("nccl" if device != "cpu" else "gloo")
+        comm = make_comm(args.shards, distributed=True)
+        rank = comm.rank
+    try:
+        with timed("driver::total"):
+            with timed("driver::setup"):
+                problem = make_problem(cfg, device=device,
+                                       dtype=torch.float32 if args.fp32
+                                       else torch.float64, comm=comm)
+            with timed("driver::run"):
+                # an analysis deck prints its own tables (the ROL
+                # trust-region table, 'param i = ...', the dry-run
+                # summary)
+                result = problem.run()
+    finally:
+        if comm is not None:
+            torch.distributed.destroy_process_group()
+    if rank != 0:
+        return 0
     if problem.compute_errors and hasattr(result, "report"):
         print(result.report())
     if args.profile or cfg.get("profile", False):

@@ -223,6 +223,9 @@ class SubgridDtN:
         # dynamic multimodel: (E,) 0/1 ownership mask (None = static)
         self.mask = None
         self._sub_cache = None
+        # the process-group communicator the fine solves are spread over
+        # (enable_device_sharding), or None: every macro element here
+        self._comm = None
 
     # ------------------------------------------------------------------
     # set-up helpers
@@ -715,12 +718,34 @@ class SubgridDtN:
         E = self.n_macro_elems()
         return max(1, min(E, int(free_bytes(self.device) // 4 // per)))
 
+    def enable_device_sharding(self, comm):
+        """Spread the fine solves over the shards of `comm` (the
+        reference's 'multiscale split comm' dedicates MPI ranks to subgrid
+        solves, split_mpi_communicators.cpp:31-41, multiscaleManager.cpp:
+        92-140; JAX `_constrain_macro` pins the macro batch axis to the
+        device mesh): under a ProcessGroupComm each rank runs its chunk of
+        macro elements and all-gathers the upscaled residuals, blocks and
+        fine solutions. A no-op under StackedComm, whose one process holds
+        every shard."""
+        from mrhyde_tpu_torch.parallel.comm import StackedComm
+        self._comm = None if isinstance(comm, StackedComm) else comm
+
     def _batched(self, u_macro, tc, pvec, mode):
         """mode "res": (E, ndm) upscaled residuals; "jac": (residuals,
         (E, ndm, ndm) d res / d lam_eval); "fine": (E, nfd) fine
-        solutions; chunked over the macro elements."""
+        solutions; chunked over the macro elements (over this rank's
+        chunk of them under enable_device_sharding, then gathered)."""
         fn, args = self._elem_fn(u_macro, tc, pvec)
         E = self.n_macro_elems()
+        if self._comm is not None:
+            # this rank's rows of the padded macro axis (the pad repeats
+            # the last element; its rows are cut after the gather)
+            per = -(-E // self._comm.n_shards)
+            idx = torch.arange(self._comm.rank * per,
+                               (self._comm.rank + 1) * per,
+                               device=self.device).clamp(max=E - 1)
+            args = [tree_map(lambda x: x[idx], a) for a in args]
+            E = per
         k = 1 if mode == "fine" else 0
         batched = torch.func.vmap(lambda *a: fn(*a)[k])
         if mode == "jac":
@@ -745,9 +770,14 @@ class SubgridDtN:
             sl = slice(lo, min(lo + C, E))
             outs.append(call(*[tree_map(lambda x: x[sl], a) for a in args]))
         if mode == "jac":
-            return (torch.cat([o[1] for o in outs]),
+            outs = (torch.cat([o[1] for o in outs]),
                     torch.cat([o[0] for o in outs]))
-        return torch.cat(outs)
+        else:
+            outs = torch.cat(outs)
+        if self._comm is None:
+            return outs
+        E = self.n_macro_elems()
+        return tree_map(lambda x: self._comm.all_gather(x)[:E], outs)
 
     def _apply_mask(self, arr, pvec):
         """Per-element contributions scaled by the dynamic-model mask
@@ -1265,6 +1295,10 @@ class MultiscaleModels:
         if not pvec or "__ms" not in pvec:
             return pvec
         return {**pvec, "__ms": pvec["__ms"][i]}
+
+    def enable_device_sharding(self, comm):
+        for m in self.models:
+            m.enable_device_sharding(comm)
 
     def residual_contribution(self, u_macro, tc, pvec=None):
         r = 0.0

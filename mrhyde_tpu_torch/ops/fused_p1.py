@@ -390,14 +390,21 @@ class FusedP1Assembly:
         kap, src, mass, vel = (leaves[k] for k in ("kappa", "source",
                                                    "mass", "velocity"))
         # affine split iff no coefficient reads the state (a velocity
-        # that does is refused by `build`)
+        # that does is refused by `build`), or only the source S does and
+        # affinely (JAX's `_detect_affine`): the state kernel then takes
+        # S's linear part s1 u_eval on its mass lane
         self.split = self.var not in kap | src
+        self.affine_source, s1_varies = False, False
+        if not self.split and self.var not in kap | mass:
+            self.affine_source, s1_varies = self._affine_probe()
+            self.split = self.affine_source
         # a coefficient varies by element where it reads the coordinates
         # or another set's field
         vary = _COORD | asm.field_leaves
         self._varying = {"kappa": bool(kap & vary),
                          "mass": bool(mass & vary),
                          "velocity": bool(vel & vary),
+                         "source": s1_varies,
                          "coeffs": bool((kap | src | vel) & vary)}
         Q = self.tables.Q
         if self.node and self.split:
@@ -436,17 +443,73 @@ class FusedP1Assembly:
         v = self._varying
         if steady:
             res0 = nc if v["coeffs"] else 0
-            jac0 = nc * nc if v["kappa"] or v["velocity"] else 0
+            jac0 = nc * nc if v["kappa"] or v["velocity"] or v["source"] \
+                else 0
         else:
             # the beta grids make the coord residual vary; the Jacobian
-            # alpha_u (K_kappa + A_b) + alpha_t M_m varies with kappa, b
-            # or m
+            # alpha_u (K_kappa + A_b + M_s1) + alpha_t M_m varies with
+            # kappa, b, s1 or m
             res0 = nc
             jac0 = nc * nc if v["kappa"] or v["mass"] or v["velocity"] \
-                else 0
+                or v["source"] else 0
         return {"steady": steady, "split": True, "n_res_rows": nc,
                 "n_jac_rows": 0, "coord_res_rows": res0,
                 "coord_jac_rows": jac0, "node_scatter": self.node}
+
+    def _linear_source(self, coords, t, params):
+        """dS/du at u = 0 (u_dot = 0) on the given coordinates: the
+        linear part s1 of an affine source S = S0 + s1 u, like coords[0]."""
+        def S_of(u):
+            S = self.module.qp_coefficients(QpCtx(self.var, u, coords, t,
+                                                  params, self.fm))[0]
+            return torch.broadcast_to(torch.as_tensor(
+                S, dtype=u.dtype, device=u.device), u.shape)
+        u0 = torch.zeros_like(coords[0])
+        return torch.func.jvp(S_of, (u0,), (torch.ones_like(u0),))[1]
+
+    def _affine_probe(self):
+        """JAX's `_detect_affine` for one module whose source S reads
+        its variable: randomized probing in f64 with stand-ins for the
+        coordinates, the time and the state. S is affine iff its
+        derivative in the variable is the same at two states and S(u) =
+        S(0) + dS/du u at both, on two coordinate stand-ins. Returns
+        (affine, whether dS/du moves with the coordinates); any failure
+        of the probes says (False, False): the one-kernel path is always
+        right."""
+        rng = np.random.RandomState(1234)
+        t = float(rng.uniform(0.1, 0.9))
+        params = dict(self.asm.params)
+
+        def draw(lo, hi):
+            return torch.as_tensor(rng.uniform(lo, hi, 2),
+                                   dtype=torch.float64)
+        try:
+            slopes = []
+            for _ in range(2):
+                coords = [draw(0.1, 0.9) for _d in range(self.dim)]
+                s0 = self._linear_source(coords, t, params)
+                S0 = self.module.qp_coefficients(QpCtx(
+                    self.var, torch.zeros(2, dtype=torch.float64), coords,
+                    t, params, self.fm))[0]
+                for u in (draw(-1.5, 1.5), draw(-1.5, 1.5)):
+                    su = self.module.qp_coefficients(QpCtx(
+                        self.var, u, coords, t, params, self.fm))[0]
+                    dS = torch.func.jvp(
+                        lambda x, c=coords: torch.broadcast_to(
+                            torch.as_tensor(self.module.qp_coefficients(
+                                QpCtx(self.var, x, c, t, params,
+                                      self.fm))[0], dtype=x.dtype),
+                            x.shape), (u,), (torch.ones_like(u),))[1]
+                    if not (torch.allclose(dS, s0, rtol=1e-9, atol=1e-12)
+                            and torch.allclose(
+                                torch.as_tensor(su, dtype=torch.float64),
+                                S0 + s0 * u, rtol=1e-9, atol=1e-12)):
+                        return False, False
+                slopes.append(s0)
+        except Exception:  # noqa: BLE001 - unsupported: no split
+            return False, False
+        return True, not torch.allclose(slopes[0], slopes[1], rtol=1e-9,
+                                        atol=1e-12)
 
     @staticmethod
     def build(asm):
@@ -596,7 +659,11 @@ class FusedP1Assembly:
         phi_c + phi_c b . grad beta_u,h + kappa grad beta_u,h . grad
         phi_c], as two launches of the state kernel (on beta_u with alpha
         = (1, 0) and the velocity, on beta_t with alpha = (0, 1)), and its
-        Jacobian is alpha_u (K_kappa + A_b) + alpha_t M_m."""
+        Jacobian is alpha_u (K_kappa + A_b) + alpha_t M_m. A source affine
+        in the variable, S = S0 + s1 u_eval, adds s1 to the state kernel's
+        mass lane (m alpha_t + s1 alpha_u, with alpha_t 1; the beta_u
+        launch takes s1 there at alpha = (1, 1)) and alpha_u M_s1 to the
+        Jacobian."""
         tab, nc, dim = self.tables, self.nc, self.dim
         E = math.prod(self.dims)
         coords = self._qp_coords()
@@ -604,6 +671,14 @@ class FusedP1Assembly:
         ctx = QpCtx(self.var, 0.0, coords, tc.time, params, self.fm)
         S0, kap = self.module.qp_coefficients(ctx)
         kap = _scalar(kap)
+        # an affine source's linear part s1: its own rows on the state
+        # kernel's mass lane, s1 alpha_u u phi_c
+        s1 = s1k = None
+        if self.affine_source:
+            s1 = self._linear_source(list(coords), tc.time, params)
+            if not self._varying["source"]:
+                s1 = float(s1.reshape(-1)[0])
+            s1k = self._kernel_coeff(s1)
         rows = []
         for c in range(nc):
             acc = None
@@ -620,7 +695,8 @@ class FusedP1Assembly:
             mk = self._kernel_coeff(mass)
             res0 = (res0
                     + self._state_part(self._grid(tc.beta_u), kk,
-                                       Stage(1.0, 0.0, mk), vel)
+                                       Stage(1.0, 0.0, mk) if s1 is None
+                                       else Stage(1.0, 1.0, s1k), vel)
                     + self._state_part(self._grid(tc.beta_t), kk,
                                        Stage(0.0, 1.0, mk), None))
         # the velocity on the element grid, (*dims, Q) like kap
@@ -651,6 +727,10 @@ class FusedP1Assembly:
                         adv = sum(tg[d] * _qslice(bq[d], q)
                                   for d in range(dim))
                         ts = adv if ts is None else ts + adv
+                    if s1 is not None:
+                        lin = ((1.0 if steady else tc.alpha_u)
+                               * tab.phi[cp][q]) * _qslice(s1, q)
+                        ts = lin if ts is None else ts + lin
                     if ts is not None:
                         a = tab.phi[c][q] * ts + a
                     acc = tab.wts[q] * a if acc is None \
@@ -661,6 +741,10 @@ class FusedP1Assembly:
             # constant rows: one host-to-device copy, not nc*nc
             jac = list(torch.tensor(jac, dtype=like.dtype,
                                     device=like.device).unbind(0))
+        if s1 is not None:
+            # the state kernel's mass lane: m alpha_t + s1 alpha_u, its
+            # alpha_t 1
+            mk = s1k if steady else mk * tc.alpha_t + s1k * tc.alpha_u
         return res0, jac, kk, mk
 
     def _qp_coefficients(self, ue_grid, ud_grid, tc, params):
@@ -703,6 +787,8 @@ class FusedP1Assembly:
         if self.split:
             res0, rows, kappa, mass = coord
             stage = None if steady else Stage(tc.alpha_u, tc.alpha_t, mass)
+            if self.affine_source:
+                stage = Stage(1.0 if steady else tc.alpha_u, 1.0, mass)
             node = res0 + self._state_part(u_grid, kappa, stage, vel)
         else:
             ue, ud = u_grid, None

@@ -6,10 +6,10 @@ AnalysisManager::run): initial conditions by L2 projection or
 interpolation, the steady Newton solve and the transient integrator,
 the postprocessing (solution storage, the Exodus writer, objectives,
 integrated quantities), discretized (field) parameters, and the
-analysis modes through `run()`. `make_problem` gives a multi-set deck
-its MultiSetProblem. The config is the same nested dict as the
-reference input deck. Sublists and keys this port does not cover yet
-raise NotImplementedError naming the ROADMAP item that brings them.
+analysis modes through `run()`, and the sharded Newton solves of
+`Solver: shards` (parallel/). `make_problem` gives a multi-set deck its
+MultiSetProblem. The config is the same nested dict as the reference
+input deck.
 """
 
 from __future__ import annotations
@@ -36,13 +36,14 @@ from mrhyde_tpu_torch.solvers.time_integration import TransientIntegrator
 __all__ = ["Problem", "ForwardResult", "make_problem"]
 
 
-def make_problem(cfg: dict, device=None, dtype=None):
+def make_problem(cfg: dict, device=None, dtype=None, comm=None):
     """The problem of a deck: a MultiSetProblem for a multi-set deck
-    ('physics set names'), else a Problem."""
+    ('physics set names'), else a Problem (whose sharded Newton solves
+    run over `comm`, when given)."""
     if "physics set names" in (cfg.get("Physics", {}) or {}):
         from mrhyde_tpu_torch.multiset import MultiSetProblem
         return MultiSetProblem(cfg, device=device, dtype=dtype)
-    return Problem(cfg, device=device, dtype=dtype)
+    return Problem(cfg, device=device, dtype=dtype, comm=comm)
 
 
 @dataclass
@@ -64,24 +65,12 @@ class ForwardResult:
         return ErrorCalculator.format_report(self.error_history)
 
 
-def _not_ported(what, item):
-    raise NotImplementedError(
-        f"{what} is not ported to mrhyde_tpu_torch yet (ROADMAP {item})")
-
-
-def _reject_unported(cfg):
-    """Raise on the deck features this port does not run yet."""
-    solver = cfg.get("Solver", {}) or {}
-    if solver.get("shards"):
-        _not_ported("DOF sharding (Solver: shards)", "A14")
-
-
 class Problem:
-    def __init__(self, cfg: dict, device=None, dtype=None, mesh=None):
+    def __init__(self, cfg: dict, device=None, dtype=None, mesh=None,
+                 comm=None):
         self.cfg = cfg
         self.device = resolve_device(device)
         self.dtype = resolve_dtype(dtype)
-        _reject_unported(cfg)
         mesh_cfg = cfg.get("Mesh", {}) or {}
         dim = int(mesh_cfg.get("dimension", 2))
         cell = mesh_cfg.get("element type", mesh_cfg.get("shape", "quad"))
@@ -232,6 +221,16 @@ class Problem:
         self.assembler.is_transient = (
             (cfg.get("Solver", {}) or {}).get("solver") == "transient")
         self.solver_cfg = cfg.get("Solver", {}) or {}
+        # deck-level sharding (Solver: shards, the CLI's --shards,
+        # MRHYDE_SHARDS): the Newton solves run sharded over `comm`
+        # (parallel/comm.py; a StackedComm of that many shards when the
+        # caller gives none), the mpiexec -n N analog
+        self.comm = comm
+        self.shards = int(self.solver_cfg.get(
+            "shards", os.environ.get("MRHYDE_SHARDS", 0)) or 0)
+        if comm is not None and self.shards <= 1:
+            self.shards = comm.n_shards
+        self._sharded_newton = None
         self._setup_field_params()
         self._setup_multiscale(cfg)
         # build the fused provider now: a deck it would have to refuse
@@ -574,13 +573,66 @@ class Problem:
             return "schwarz"
         return "jacobi"
 
+    def _newton_fn(self):
+        """newton_solve, or its sharded drop-in when shards > 1:
+        DOF-sharded (the v2 halo scheme) for every deck, multiscale decks
+        composing both parallelism axes (macro DOFs sharded with halo
+        rings, the fine DtN solves outside the sharded step); `sharded
+        scheme: replicated` takes a multiscale deck through the v1
+        element-sharded scheme. On a mesh too small for the +-1 halo ring
+        the shard count halves until the partition is valid, and a line
+        says so (JAX `problem.py:580-625`); 1 shard is the ordinary
+        newton_solve. A given communicator's shard count cannot change:
+        such a mesh raises."""
+        if self.shards <= 1:
+            return newton_solve
+        if self._sharded_newton is None:
+            from mrhyde_tpu_torch.parallel.deck_sharded import (
+                ReplicatedShardedNewton, ShardedNewton)
+            from mrhyde_tpu_torch.parallel.sharding import make_comm
+            scheme = str(self.solver_cfg.get("sharded scheme", "dof"))
+            cls = (ReplicatedShardedNewton
+                   if (scheme == "replicated"
+                       and self.assembler.multiscale is not None)
+                   else ShardedNewton)
+            shards = self.shards
+            while True:
+                comm = self.comm
+                if comm is None:
+                    comm = make_comm(shards)
+                elif comm.n_shards != shards:
+                    raise ValueError(
+                        f"the mesh needs {shards} shards or fewer for the "
+                        f"halo ring; the communicator holds "
+                        f"{comm.n_shards}")
+                try:
+                    self._sharded_newton = cls(
+                        self.assembler, comm,
+                        cg_iters=int(self.solver_cfg.get(
+                            "max linear iters", 200)),
+                        gmres_m=int(self.solver_cfg.get(
+                            "gmres restart length", 60)),
+                        gmres_restarts=int(self.solver_cfg.get(
+                            "linear solver restarts", 4)))
+                    break
+                except ValueError as e:
+                    if "non-neighbor shards" not in str(e):
+                        raise
+                    shards //= 2
+                    print(f"[mrhyde] mesh too small for the halo ring "
+                          f"at {shards * 2} shards; using {shards}")
+                    if shards <= 1 and self.comm is None:
+                        self.shards = 1
+                        return newton_solve
+        return self._sharded_newton
+
     def solve_steady(self, record=True, pvec=None, u0=None) -> ForwardResult:
         u0 = self.initial_state() if u0 is None else u0
         pvec = self._with_fields(pvec)
         tc = TimeCoeffs.steady(self.n_dof, dtype=self.dtype,
                                device=self.device)
         sc = self.solver_cfg
-        result = newton_solve(
+        result = self._newton_fn()(
             self.assembler, u0, tc, pvec,
             tol=float(sc.get("nonlinear TOL", 1e-6)),
             abstol=float(sc.get("absolute nonlinear TOL", 1e-100)),
@@ -627,6 +679,7 @@ class Problem:
         bdf = int(sc.get("transient BDF order", 1))
         integ = TransientIntegrator(
             assembler=self.assembler,
+            newton_fn=None if self.shards <= 1 else self._newton_fn(),
             tableau=tab,
             bdf_order=bdf,
             startup_tableau=sc.get("transient startup Butcher tableau",

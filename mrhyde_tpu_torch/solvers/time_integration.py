@@ -115,6 +115,9 @@ class TransientIntegrator:
     """Drives one physics set through the transient solve."""
 
     assembler: object
+    # the stage solve: newton_solve, or a drop-in with its signature (the
+    # sharded Newton of parallel/deck_sharded.py); None: newton_solve
+    newton_fn: object = None
     tableau: str = "BWE"
     bdf_order: int = 1
     startup_tableau: str | None = None
@@ -243,7 +246,7 @@ class TransientIntegrator:
             if self.fully_explicit:
                 z = self._explicit_stage(z0, tc, step_pvec)
             else:
-                result = newton_solve(
+                result = (self.newton_fn or newton_solve)(
                     asm, z0, tc, pvec_stage, tol=self.nonlinear_tol,
                     abstol=self.abs_tol,
                     maxiter=self.max_nonlinear_iters,

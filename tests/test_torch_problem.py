@@ -175,7 +175,8 @@ HEX = {"dimension": 3, "element type": "hex", "NX": 2, "NY": 2, "NZ": 2}
 
 
 @pytest.mark.parametrize("cfg_patch,item", [
-    ({"Solver": {"shards": 2}}, "A14"),
+    # sharding (A14, ported): builds; the case keeps its id
+    pytest.param({"Solver": {"shards": 2}}, None, id="cfg_patch0-A14"),
     # a discretized (field) parameter, an analysis, integrated
     # quantities, a multi-set key and the solution writer: A12, ported
     ({"Parameters": {"kp": {"type": "HGRAD", "usage": "discretized",
@@ -190,9 +191,9 @@ HEX = {"dimension": 3, "element type": "hex", "NX": 2, "NY": 2, "NZ": 2}
     ({"Postprocess": {"write solution": True}}, None),
 ])
 def test_unported_deck_features_raise(cfg_patch, item):
-    """The deck feature left unported raises naming its ROADMAP item
-    (A14 sharding); A12's and A13's build (a Problem ignores a multi-set
-    key, which make_problem reads)."""
+    """A deck feature left unported raises naming its ROADMAP item; none
+    is left: A12's, A13's and A14's (`Solver: shards`) build (a Problem
+    ignores a multi-set key, which make_problem reads)."""
     from mrhyde_tpu_torch.problem import Problem
     cfg = thermal_cfg(4)
     for k, v in cfg_patch.items():

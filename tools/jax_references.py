@@ -3,8 +3,8 @@ its hex decks, its B1 Navier-Stokes decks, its module-set decks, its
 solver decks, its mesh and solid decks, its physics decks and its vector
 decks from the JAX package, in f64 on the CPU.
 
-    python tools/jax_references.py [--seed S] [--solver JSON] DECK \
-        [N[:STEPS] ...]
+    python tools/jax_references.py [--shards S] [--seed S] \
+        [--solver JSON] DECK [N[:STEPS] ...]
 
 DECK is a key of chip_smoke.py's CDR_DECKS, HEX_DECKS, NS_ELEM_DECKS,
 SET_DECKS, SET_ELEM_DECKS, BOUNDARY_DECKS, AFFINE_SET_DECKS,
@@ -19,7 +19,11 @@ size (default: the size the card runs), and STEPS, for a transient deck,
 sets its number of steps (to refine h and dt together); --solver merges
 the JSON object's keys into the deck's Solver sublist (e.g. '{"use
 direct solver": false, "preconditioner variant": "schwarz"}', to see
-which Krylov solve converges a deck: its L2 against the dense solve's).
+which Krylov solve converges a deck: its L2 against the dense solve's);
+--shards S runs the deck's Newton solves sharded (`Solver: shards: S`)
+over S virtual CPU devices (S <= 8), as the JAX package's sharded tests
+do; a SHARDED_DECKS key is the deck of chip_smoke.py's phase
+sharded_decks, whose sharded references come from this option.
 Prints one JSON line per run: the L2 error of the deck's variable at its
 held time (an NS, mesh, solid, physics or vector deck: of every variable
 at every recorded time, a multi-block mesh's per block as "var@b", an
@@ -41,6 +45,14 @@ sys.path.insert(0, os.path.dirname(os.path.dirname(os.path.abspath(
 
 
 def main(argv):
+    shards = 0
+    if argv[0] == "--shards":
+        shards = int(argv[1])
+        argv = argv[2:]
+        # the virtual devices exist only if asked for before jax starts
+        os.environ["XLA_FLAGS"] = (os.environ.get("XLA_FLAGS", "")
+                                   + " --xla_force_host_platform_device"
+                                   "_count=8")
     import jax
     jax.config.update("jax_platforms", "cpu")
     jax.config.update("jax_enable_x64", True)
@@ -68,7 +80,8 @@ def main(argv):
     decks.update({k: (build, n, None, None) for k, (build, n, *_rest) in
                   {**chip_smoke.MESH_DECKS, **chip_smoke.SOLID_DECKS,
                    **chip_smoke.PHYSICS_DECKS, **chip_smoke.VECTOR_DECKS,
-                   **chip_smoke.MULTISCALE_DECKS}.items()})
+                   **chip_smoke.MULTISCALE_DECKS,
+                   **chip_smoke.SHARDED_DECKS}.items()})
     decks.update(chip_smoke.CDR_DECKS, **chip_smoke.HEX_DECKS)
     build, n_card, t_held, var = decks[name][:4]
     for size in sizes or [str(n_card)]:
@@ -77,10 +90,20 @@ def main(argv):
         if steps:
             cfg["Solver"]["number of steps"] = int(steps)
         cfg["Solver"].update(solver)
+        if shards:
+            cfg["Solver"]["shards"] = shards
         t0 = time.perf_counter()
         problem = make_problem(cfg)
         t1 = time.perf_counter()
-        result = problem.run()
+        # a discretized parameter's field rides pvec at its deck value
+        # (the JAX package's run() passes none, and a boundary condition
+        # that reads the field cannot resolve it; the port's run() passes
+        # every field at its current value)
+        pm = getattr(problem, "param_manager", None)
+        fields = {} if pm is None else {
+            n: jax.numpy.asarray(pm.specs[n].value, dtype=float)
+            for n in pm.discretized_names()}
+        result = problem.forward(pvec=fields) if fields else problem.run()
         t2 = time.perf_counter()
         hist = {round(float(t), 10): errs
                 for t, errs in result.error_history}
@@ -90,7 +113,7 @@ def main(argv):
             l2 = float(hist[round(t_held, 10)][("L2", var)])
         print(json.dumps({"deck": name, "n": int(n), "steps":
                           cfg["Solver"].get("number of steps"),
-                          "solver": solver,
+                          "solver": solver, "shards": shards,
                           "time": t_held,
                           "var": var, "L2": l2,
                           "n_dof": getattr(problem, "n_dof", None) or sum(
