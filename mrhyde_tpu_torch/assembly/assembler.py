@@ -38,6 +38,7 @@ import torch
 
 from mrhyde_tpu_torch.assembly.discretization import Discretization
 from mrhyde_tpu_torch.assembly.workset import Workset
+from mrhyde_tpu_torch.utils.profiling import timed
 
 __all__ = ["Assembler", "TimeCoeffs", "BlockJacobian", "PointContext",
            "build_incidence"]
@@ -968,6 +969,7 @@ class Assembler:
             self._fused_built = True
         return self._fused
 
+    @timed("assembly")
     def res_and_jac(self, u_st, tc: TimeCoeffs, pvec=None):
         """(residual, BlockJacobian) in one pass — the Newton-loop entry
         point. Uses the fused provider when the problem qualifies

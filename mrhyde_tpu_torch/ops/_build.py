@@ -30,6 +30,8 @@ import subprocess
 import threading
 import types
 
+from mrhyde_tpu_torch.utils.profiling import timed
+
 __all__ = ["load_library", "build_log", "NVCC_FLAGS", "load_generated",
            "build_generated"]
 
@@ -120,6 +122,11 @@ def _build(srcs, lib_of=_lib_of):
     output (ptxas register and spill report) of each of them."""
     if not srcs:
         return {}
+    return _nvcc_batch(srcs, lib_of)
+
+
+@timed("ops::build")
+def _nvcc_batch(srcs, lib_of):
     os.makedirs(_BUILD_DIR, exist_ok=True)
     nvcc = _nvcc()
     jobs = []

@@ -55,6 +55,7 @@ from mrhyde_tpu_torch.ops.fused_p1 import (
     steady_check, structured_geometry)
 from mrhyde_tpu_torch.ops.sparse_dual import sparse_jacfwd
 from mrhyde_tpu_torch.physics.navierstokes import ns_density
+from mrhyde_tpu_torch.utils.profiling import timed
 
 __all__ = ["FusedNSAssembly", "NSForm", "ns_node_full", "ns_node_full_plain",
            "ns_elem_full", "ns_elem_full_plain", "accumulate", "COEFFS"]
@@ -728,9 +729,11 @@ class FusedNSAssembly:
         alpha_u = 1.0 if steady else float(tc.alpha_u)
         alpha_t = 0.0 if steady else float(tc.alpha_t)
         form = self._form(tc)
-        coeffs = self._coefficients(tc.time, params)
-        jac_idx, consts, n_res = self._classify(coeffs, form, alpha_u,
-                                                alpha_t, steady)
+        # the coefficients at the quadrature points and the rows' classes
+        with timed("assembly::coefficients"):
+            coeffs = self._coefficients(tc.time, params)
+            jac_idx, consts, n_res = self._classify(coeffs, form, alpha_u,
+                                                    alpha_t, steady)
         self.stats = {"steady": steady, "split": False, "n_res_rows": n_res,
                       "n_jac_rows": len(jac_idx), "node_scatter": self.node}
         if steady:
@@ -742,16 +745,20 @@ class FusedNSAssembly:
         ue = ue.contiguous()
         ud = ud if ud is None else ud.contiguous()
         r = torch.zeros(asm.n_dof, dtype=u.dtype, device=u.device)
-        if self.node:
-            node, jac = ns_node_full(ue, ud, coeffs, self.tables, form,
-                                     jac_idx, stage)
-            r[self.start:self.start + node.numel()] = node.reshape(-1)
-        else:
-            res, jac = ns_elem_full(ue, ud, coeffs, self.tables,
-                                    self.lattice, form, jac_idx, stage)
-            fe.scatter_dofs(res, r, self.starts, self.lattice, self.dims,
-                            ue[0], self.dof2fine)
-        rows = rows_of(jac_idx, consts, jac, self.nd, asm.dtype, asm.device)
+        with timed("assembly::kernel"):
+            if self.node:
+                node, jac = ns_node_full(ue, ud, coeffs, self.tables, form,
+                                         jac_idx, stage)
+                r[self.start:self.start + node.numel()] = node.reshape(-1)
+            else:
+                res, jac = ns_elem_full(ue, ud, coeffs, self.tables,
+                                        self.lattice, form, jac_idx, stage)
+                fe.scatter_dofs(res, r, self.starts, self.lattice,
+                                self.dims, ue[0], self.dof2fine)
+        # the Jacobian's SoA rows: the kernel's, and the constant ones
+        with timed("assembly::jacobian"):
+            rows = rows_of(jac_idx, consts, jac, self.nd, asm.dtype,
+                           asm.device)
         return torch.where(asm.fixed, 0.0, r), rows
 
     def jacobian(self, u, tc, pvec=None):

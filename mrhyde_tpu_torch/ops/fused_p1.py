@@ -86,6 +86,7 @@ from mrhyde_tpu_torch.ops._launch import (LAUNCHES, check_err, check_qp,
                                           full_smem_words, stage_args,
                                           state_smem_words, stream,
                                           velocity_args)
+from mrhyde_tpu_torch.utils.profiling import timed
 
 __all__ = ["FusedP1Assembly", "QuadTables", "Stage", "LAUNCHES",
            "thermal_node_state", "thermal_node_full",
@@ -781,31 +782,38 @@ class FusedP1Assembly:
         asm = self.asm
         params = dict(asm.params)
         params.update(pvec or {})
-        steady, coord, vel = self._stage(tc, params)
-        self.stats = self._stats(steady)
         u_grid = self._grid(u)
+        # the torch pre-pass: the stage's coordinate part (the split), or
+        # the coefficients at the state's quadrature points
+        with timed("assembly::coefficients"):
+            steady, coord, vel = self._stage(tc, params)
+            if not self.split:
+                ue, ud = u_grid, None
+                if not steady:
+                    ue = tc.alpha_u * u_grid + self._grid(tc.beta_u)
+                    ud = tc.alpha_t * u_grid + self._grid(tc.beta_t)
+                (S, dS, K, dK), mass = self._qp_coefficients(ue, ud, tc,
+                                                             params)
+        self.stats = self._stats(steady)
         if self.split:
             res0, rows, kappa, mass = coord
             stage = None if steady else Stage(tc.alpha_u, tc.alpha_t, mass)
             if self.affine_source:
                 stage = Stage(1.0 if steady else tc.alpha_u, 1.0, mass)
-            node = res0 + self._state_part(u_grid, kappa, stage, vel)
+            with timed("assembly::kernel"):
+                node = res0 + self._state_part(u_grid, kappa, stage, vel)
         else:
-            ue, ud = u_grid, None
-            if not steady:
-                ue = tc.alpha_u * u_grid + self._grid(tc.beta_u)
-                ud = tc.alpha_t * u_grid + self._grid(tc.beta_t)
-            (S, dS, K, dK), mass = self._qp_coefficients(ue, ud, tc, params)
             stage = None if steady else Stage(tc.alpha_u, tc.alpha_t, mass)
-            if self.node:
-                node, jac = thermal_node_full(ue, S, dS, K, dK, self.tables,
-                                              stage, vel)
-                node = node.reshape(-1)
-            else:
-                res, jac = fe.thermal_elem_full(ue, S, dS, K, dK,
-                                                self.tables, self.lattice,
-                                                stage, vel)
-                node = self._scatter(res, ue)
+            with timed("assembly::kernel"):
+                if self.node:
+                    node, jac = thermal_node_full(ue, S, dS, K, dK,
+                                                  self.tables, stage, vel)
+                    node = node.reshape(-1)
+                else:
+                    res, jac = fe.thermal_elem_full(ue, S, dS, K, dK,
+                                                    self.tables,
+                                                    self.lattice, stage, vel)
+                    node = self._scatter(res, ue)
             rows = list(jac.unbind(0))
         r = torch.zeros(asm.n_dof, dtype=u.dtype, device=u.device)
         r[self.start:self.start + node.numel()] = node
@@ -814,9 +822,10 @@ class FusedP1Assembly:
     def jacobian(self, u, tc, pvec=None):
         """(residual, BlockJacobian) with the kernel's SoA row layout."""
         r, rows = self.res_jac(u, tc, pvec)
-        return r, BlockJacobian(vol=None, vol_lids=self.asm.lids,
-                                fixed=self.asm.fixed, inc=self.asm.inc,
-                                vol_soa=rows)
+        with timed("assembly::jacobian"):
+            return r, BlockJacobian(vol=None, vol_lids=self.asm.lids,
+                                    fixed=self.asm.fixed, inc=self.asm.inc,
+                                    vol_soa=rows)
 
 
 def params_key(params):

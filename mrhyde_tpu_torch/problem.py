@@ -14,6 +14,7 @@ input deck.
 
 from __future__ import annotations
 
+import itertools
 import os
 from dataclasses import dataclass, field
 
@@ -32,8 +33,13 @@ from mrhyde_tpu_torch.solvers.bcs import BoundaryConditions
 from mrhyde_tpu_torch.solvers.linear import solve_linear
 from mrhyde_tpu_torch.solvers.nonlinear import newton_solve
 from mrhyde_tpu_torch.solvers.time_integration import TransientIntegrator
+from mrhyde_tpu_torch.utils import profiling
+from mrhyde_tpu_torch.utils.profiling import timed
 
 __all__ = ["Problem", "ForwardResult", "make_problem"]
+
+# the ordinal of a forward, in its profiler range: mrhyde::forward#<n>
+_FORWARDS = itertools.count(1)
 
 
 def make_problem(cfg: dict, device=None, dtype=None, comm=None):
@@ -54,6 +60,7 @@ class ForwardResult:
     solution_history: list = field(default_factory=list)
     newton: object = None           # NewtonResult of a steady solve
     # stage solves, Newton and Krylov iterations over the whole run
+    # and the host syncs of the forward (utils/profiling.host_value)
     counts: dict = field(default_factory=dict)
 
     @property
@@ -79,24 +86,8 @@ class Problem:
                 "tetrahedron": "tet"}.get(cell, cell)
         if dim == 1:
             cell = "line"
-        if mesh is not None:
-            self.mesh = mesh
-        elif str(mesh_cfg.get("source", mesh_cfg.get(
-                "Source", "Internal"))).lower() == "exodus":
-            from mrhyde_tpu_torch.mesh.exodus import read_exodus
-            path = mesh_cfg.get("mesh file", "mesh.exo")
-            if not os.path.isabs(path):
-                path = os.path.join(cfg.get("_deck_dir", "."), path)
-            self.mesh, minfo = read_exodus(path)
-            self.mesh_elem_vars = minfo.get("elem_vars", {})
-        else:
-            self.mesh = self._internal_mesh(mesh_cfg, cell)
-        pbc = mesh_cfg.get("Periodic BCs", {}) or {}
-        conds = [v for k, v in pbc.items()
-                 if str(k).lower().startswith("periodic condition")]
-        if conds:
-            from mrhyde_tpu_torch.mesh.structured import apply_periodic
-            self.mesh = apply_periodic(self.mesh, conds)
+        with timed("problem::mesh"):
+            self._setup_mesh(cfg, mesh_cfg, cell, mesh)
 
         raw_phys = cfg.get("Physics", {}) or {}
         phys_cfg = _unwrap_block(raw_phys, "modules")
@@ -194,18 +185,63 @@ class Problem:
 
         qdeg = disc_cfg.get("quadrature")
         sqdeg = disc_cfg.get("side quadrature")
-        self.disc = Discretization(self.mesh, variables,
-                                   None if qdeg is None else int(qdeg),
-                                   None if sqdeg is None else int(sqdeg))
-        self.bcs = BoundaryConditions.from_config(
-            self.disc, self.fm, phys_cfg, self.params,
-            use_weak_dirichlet=bool(phys_cfg.get("use weak Dirichlet",
-                                                 False)))
+        with timed("problem::discretization"):
+            self.disc = Discretization(self.mesh, variables,
+                                       None if qdeg is None else int(qdeg),
+                                       None if sqdeg is None
+                                       else int(sqdeg))
+        with timed("problem::boundary_conditions"):
+            self.bcs = BoundaryConditions.from_config(
+                self.disc, self.fm, phys_cfg, self.params,
+                use_weak_dirichlet=bool(phys_cfg.get("use weak Dirichlet",
+                                                     False)))
         # 'assemble face terms' (reference: physicsInterface reads it per
         # set or block; assemblyManager.cpp:2414-2425 runs the per-side
         # faceResidual sweep): default on iff a module defines face terms
         aft = phys_cfg.get("assemble face terms",
                            phys_cfg.get("build face terms"))
+        with timed("problem::assembler"):
+            self._setup_assembler(cfg, mesh_cfg, dim, aft, comm)
+        # build the fused provider now: a deck it would have to refuse
+        # (a coupling or coefficient not ported yet) raises here
+        with timed("problem::fused_provider"):
+            self.assembler.fused_provider()
+
+        with timed("problem::postprocess"):
+            pp_cfg = _unwrap_block(cfg.get("Postprocess", {}) or {},
+                                   "True solutions")
+            self.compute_errors = bool(pp_cfg.get("compute errors", False))
+            self.error_calc = ErrorCalculator(
+                self.disc, self.fm, pp_cfg.get("True solutions", {}) or {},
+                self.params, device=self.device, dtype=self.dtype)
+            self._setup_postprocess(pp_cfg, phys_cfg)
+
+    def _setup_mesh(self, cfg, mesh_cfg, cell, mesh):
+        """The mesh: the given one, an Exodus file's or the inline box
+        mesh, with its periodic pairs."""
+        if mesh is not None:
+            self.mesh = mesh
+        elif str(mesh_cfg.get("source", mesh_cfg.get(
+                "Source", "Internal"))).lower() == "exodus":
+            from mrhyde_tpu_torch.mesh.exodus import read_exodus
+            path = mesh_cfg.get("mesh file", "mesh.exo")
+            if not os.path.isabs(path):
+                path = os.path.join(cfg.get("_deck_dir", "."), path)
+            self.mesh, minfo = read_exodus(path)
+            self.mesh_elem_vars = minfo.get("elem_vars", {})
+        else:
+            self.mesh = self._internal_mesh(mesh_cfg, cell)
+        pbc = mesh_cfg.get("Periodic BCs", {}) or {}
+        conds = [v for k, v in pbc.items()
+                 if str(k).lower().startswith("periodic condition")]
+        if conds:
+            from mrhyde_tpu_torch.mesh.structured import apply_periodic
+            self.mesh = apply_periodic(self.mesh, conds)
+
+    def _setup_assembler(self, cfg, mesh_cfg, dim, aft, comm):
+        """The assembler with the mesh data, per-block module masks,
+        the solver settings, sharding, discretized parameters and the
+        subgrid models."""
         self.assembler = Assembler(self.disc, self.modules, self.fm,
                                    self.params,
                                    fixed_dofs=self.bcs.fixed_dofs,
@@ -233,17 +269,6 @@ class Problem:
         self._sharded_newton = None
         self._setup_field_params()
         self._setup_multiscale(cfg)
-        # build the fused provider now: a deck it would have to refuse
-        # (a coupling or coefficient not ported yet) raises here
-        self.assembler.fused_provider()
-
-        pp_cfg = _unwrap_block(cfg.get("Postprocess", {}) or {},
-                               "True solutions")
-        self.compute_errors = bool(pp_cfg.get("compute errors", False))
-        self.error_calc = ErrorCalculator(
-            self.disc, self.fm, pp_cfg.get("True solutions", {}) or {},
-            self.params, device=self.device, dtype=self.dtype)
-        self._setup_postprocess(pp_cfg, phys_cfg)
 
     def _setup_multiscale(self, cfg):
         """The Subgrid sublist's models (JAX `problem.py:387-403`): one
@@ -506,6 +531,7 @@ class Problem:
     def n_dof(self):
         return self.disc.n_dof
 
+    @timed("forward::initial_state")
     def initial_state(self, time=0.0):
         """Initial condition by L2 projection (the reference default,
         SolverManager::setInitial) or nodal interpolation, with the
@@ -523,9 +549,12 @@ class Problem:
         ic_type = self.solver_cfg.get("initial type", "L2-projection")
         u = torch.zeros(self.n_dof, dtype=self.dtype, device=self.device)
         if ics and ic_type.startswith("L2-projection"):
-            M = self.assembler.mass_jacobian()
-            b = self.assembler.l2_rhs(ics, time=time)
-            u = solve_linear(M, b, method=self._proj_method())
+            with timed("initial_state::mass"):
+                M = self.assembler.mass_jacobian()
+            with timed("initial_state::rhs"):
+                b = self.assembler.l2_rhs(ics, time=time)
+            with timed("initial_state::solve"):
+                u = solve_linear(M, b, method=self._proj_method())
         elif ics:
             for var, expr in ics.items():
                 vdm = self.disc.dofmap.var(var)
@@ -645,12 +674,15 @@ class Problem:
                             counts={"stages": 1,
                                     "newton_iters": result.iterations,
                                     "linear_iters": result.linear_iters})
-        if record and self.compute_errors:
-            out.error_history.append((0.0, self._errors(result.u, 0.0)))
-        if record and self.integrated_quantities is not None:
-            out.integrated = self.integrated_quantities.compute(result.u,
-                                                                0.0)
-        if record:
+        if not record:
+            return out
+        with timed("forward::record"):
+            if self.compute_errors:
+                out.error_history.append((0.0,
+                                          self._errors(result.u, 0.0)))
+            if self.integrated_quantities is not None:
+                out.integrated = self.integrated_quantities.compute(
+                    result.u, 0.0)
             self._record(result.u, 0.0)
             if self.solution_writer is not None:
                 self.solution_writer.write_exodus()
@@ -711,9 +743,11 @@ class Problem:
                                          t0=t0)
 
         def observer(u, time, step):
-            if record and self.compute_errors:
-                out.error_history.append((time, self._errors(u, time)))
-            if record:
+            if not record:
+                return
+            with timed("forward::record"):
+                if self.compute_errors:
+                    out.error_history.append((time, self._errors(u, time)))
                 self._record(u, time)
 
         u0 = self.initial_state(time=t0) if u0 is None else u0
@@ -721,13 +755,21 @@ class Problem:
                                     num_steps=nsteps, observer=observer)
         out.counts = dict(integ.counts)
         if record and self.solution_writer is not None:
-            self.solution_writer.write_exodus()
+            with timed("forward::record"):
+                self.solution_writer.write_exodus()
         return out
 
     def forward(self, pvec=None, u0=None) -> ForwardResult:
-        if self.solver_cfg.get("solver", "steady-state") == "transient":
-            return self.solve_transient(pvec=pvec, u0=u0)
-        return self.solve_steady(pvec=pvec, u0=u0)
+        """A steady solve or a transient run from the deck's initial
+        state (or u0), with its host syncs in `counts`."""
+        syncs = profiling.counter("host_syncs")
+        with timed("forward", f"forward#{next(_FORWARDS)}"):
+            if self.solver_cfg.get("solver", "steady-state") == "transient":
+                out = self.solve_transient(pvec=pvec, u0=u0)
+            else:
+                out = self.solve_steady(pvec=pvec, u0=u0)
+        out.counts["host_syncs"] = profiling.counter("host_syncs") - syncs
+        return out
 
     def run(self):
         analysis = (self.cfg.get("Analysis", {}) or {}).get(

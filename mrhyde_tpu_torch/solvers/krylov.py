@@ -29,6 +29,8 @@ from typing import NamedTuple
 
 import torch
 
+from mrhyde_tpu_torch.utils.profiling import count, host_value, timed
+
 __all__ = ["gmres", "gmres_fixed", "bicgstab_fixed", "pcg",
            "pcg_reference", "KrylovInfo"]
 
@@ -49,7 +51,7 @@ def _gmres_cycle(matvec, M, x0, r0, target, m):
     estimate drops below `target` or m steps elapse.
     Returns (x1, resnorm, steps)."""
     n = r0.shape[0]
-    beta = float(torch.linalg.norm(r0))
+    beta = host_value(torch.linalg.norm(r0))
     scale = beta if beta > 0 else 1.0
     V = torch.empty((m + 1, n), dtype=r0.dtype, device=r0.device)
     V[0] = r0 / scale
@@ -64,7 +66,7 @@ def _gmres_cycle(matvec, M, x0, r0, target, m):
         h = V[:j + 1] @ w
         w = w - h @ V[:j + 1]
         nrm = torch.linalg.norm(w)
-        hcol = torch.cat([h, nrm[None]]).tolist()
+        hcol = host_value(torch.cat([h, nrm[None]]))
         V[j + 1] = w / (hcol[j + 1] if hcol[j + 1] > 0 else 1.0)
         # apply the j previous rotations to the new column
         for i in range(j):
@@ -99,13 +101,15 @@ def gmres(matvec, b, *, m=40, tol=1e-8, atol=0.0, max_restarts=5,
     Returns (x, KrylovInfo)."""
     M = precond if precond is not None else _identity
     x = torch.zeros_like(b) if x0 is None else x0
-    bnorm = float(torch.linalg.norm(b))
+    bnorm = host_value(torch.linalg.norm(b))
     target = max(tol * (bnorm if bnorm > 0 else 1.0), atol)
-    res = float(torch.linalg.norm(b - matvec(x)))
+    res = host_value(torch.linalg.norm(b - matvec(x)))
     cyc = steps = 0
     while res > target and cyc < max_restarts:
-        r = b - matvec(x)
-        x, res, k = _gmres_cycle(matvec, M, x, r, target, m)
+        with timed("krylov::cycle"):
+            r = b - matvec(x)
+            x, res, k = _gmres_cycle(matvec, M, x, r, target, m)
+        count("krylov::arnoldi_steps", k)
         cyc += 1
         steps += k
     return x, KrylovInfo(steps, res, res <= target)
@@ -165,20 +169,21 @@ def bicgstab_fixed(matvec, b, *, iters=20, precond=None, x0=None):
     return x
 
 
+@timed("krylov::cg")
 def pcg(matvec, b, *, tol=1e-5, atol=0.0, maxiter=None, M=None):
     """Preconditioned CG from x0 = 0, stopping when ||r|| <=
     max(tol*||b||, atol) or after maxiter steps (jax.scipy's cg).
     Returns (x, steps)."""
     M = M if M is not None else _identity
     maxiter = 10 * b.shape[0] if maxiter is None else maxiter
-    atol2 = max(tol * tol * float(torch.dot(b, b)), atol * atol)
+    atol2 = max(tol * tol * host_value(torch.dot(b, b)), atol * atol)
     x = torch.zeros_like(b)
     r = b - matvec(x)
     z = M(r)
     p = z
     gamma = torch.dot(r, z)
     k = 0
-    while k < maxiter and float(torch.dot(r, r)) > atol2:
+    while k < maxiter and host_value(torch.dot(r, r)) > atol2:
         Ap = matvec(p)
         alpha = gamma / torch.dot(p, Ap)
         x = x + alpha * p
@@ -188,9 +193,11 @@ def pcg(matvec, b, *, tol=1e-5, atol=0.0, maxiter=None, M=None):
         p = z + (gamma_new / gamma) * p
         gamma = gamma_new
         k += 1
+    count("krylov::cg_iters", k)
     return x, k
 
 
+@timed("krylov::cg")
 def pcg_reference(matvec, b, diag, *, tol=1e-2, maxiter=100):
     """Diagonal-preconditioned CG with the reference's exact stopping
     rule (SolverManager::PCG: x0 = 0, iterate while ||r|| / ||r0|| > tol
@@ -201,7 +208,7 @@ def pcg_reference(matvec, b, diag, *, tol=1e-2, maxiter=100):
     d = torch.where(diag != 0, diag, torch.ones_like(diag))
     x = torch.zeros_like(b)
     r = b
-    r0n = float(torch.linalg.norm(r))
+    r0n = host_value(torch.linalg.norm(r))
     target = tol * (r0n if r0n > 0 else 1.0)
     p = torch.zeros_like(b)
     rho = 1.0
@@ -217,6 +224,7 @@ def pcg_reference(matvec, b, diag, *, tol=1e-2, maxiter=100):
         x = x + alpha * p
         r = r - alpha * q
         rho = rho_n
-        rnorm = float(torch.linalg.norm(r))
+        rnorm = host_value(torch.linalg.norm(r))
         it += 1
+    count("krylov::cg_iters", it)
     return x

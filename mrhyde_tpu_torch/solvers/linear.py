@@ -19,6 +19,7 @@ import torch
 from mrhyde_tpu_torch.solvers.krylov import (KrylovInfo, bicgstab_fixed,
                                              gmres, pcg)
 from mrhyde_tpu_torch.solvers.precond import build_preconditioner
+from mrhyde_tpu_torch.utils.profiling import host_value, timed
 
 __all__ = ["solve_linear", "solve_linear_info", "solve_dense", "solve_cg",
            "LinearOptions"]
@@ -61,7 +62,10 @@ class LinearOptions:
 
 
 def solve_dense(J, b):
-    return torch.linalg.solve(J.dense(), b)
+    with timed("linear::dense_build"):
+        A = J.dense()
+    with timed("linear::lu"):
+        return torch.linalg.solve(A, b)
 
 
 def solve_cg(J, b, tol=1e-12, maxiter=1000, precond_variant="jacobi"):
@@ -71,9 +75,10 @@ def solve_cg(J, b, tol=1e-12, maxiter=1000, precond_variant="jacobi"):
 
 
 def _norm(v):
-    return float(torch.linalg.norm(v))
+    return host_value(torch.linalg.norm(v))
 
 
+@timed("linear::solve")
 def solve_linear_info(J, b, method="gmres", tol=1e-10, maxiter=500,
                       restart=40, precond_variant="jacobi",
                       precond_fn=None):
@@ -83,7 +88,8 @@ def solve_linear_info(J, b, method="gmres", tol=1e-10, maxiter=500,
     preconditioners); CG builds its own from the variant."""
     if method == "direct":
         x = solve_dense(J, b)
-        res, bn = _norm(b - J.apply(x)), _norm(b)
+        with timed("linear::check"):
+            res, bn = _norm(b - J.apply(x)), _norm(b)
         ok = res <= max(1e-8 * (bn if bn > 0 else 1.0), 1e-30)
         return x, KrylovInfo(1, res, ok)
     if method == "cg":

@@ -30,6 +30,7 @@ import numpy as np
 import torch
 
 from mrhyde_tpu_torch.solvers.precond import dense_blocks, segment_sum
+from mrhyde_tpu_torch.utils.profiling import count, timed
 
 __all__ = ["StructuredMG", "build_mg_preconditioner"]
 
@@ -270,37 +271,47 @@ class StructuredMG:
 
     def preconditioner(self, J, nu1=2, nu2=2, omega=0.8, cycles=1):
         """v -> MG-V(v), a closure over the current Jacobian's
-        operators."""
-        blocks = self.operators(J)
-        dinvs = [self._node_block_inv(li, blocks[li])
-                 for li in range(self.n_levels)]
-        lu, piv, _info = torch.linalg.lu_factor_ex(
-            self._coarse_dense(blocks[-1]))
+        operators. Spans: mg::setup here, mg::vcycle per call of the
+        closure, mg::level<i> around level i's smoothing, residual and
+        transfers (0 the finest; the coarser levels nest inside),
+        mg::coarse around the coarse LU solve; the counter
+        mg::smoother_sweeps."""
+        with timed("mg::setup"):
+            blocks = self.operators(J)
+            dinvs = [self._node_block_inv(li, blocks[li])
+                     for li in range(self.n_levels)]
+            lu, piv, _info = torch.linalg.lu_factor_ex(
+                self._coarse_dense(blocks[-1]))
+        levels = [f"mg::level{li}" for li in range(self.n_levels)]
 
         def smooth(li, x, b, nu):
             for _ in range(nu):
                 r = b - self._apply(li, blocks[li], x)
                 x = x + omega * self._block_smooth_apply(li, dinvs[li], r)
+            count("mg::smoother_sweeps", nu)
             return x
 
         def vcycle(li, b):
             if li == self.n_levels - 1:
-                return torch.linalg.lu_solve(lu, piv, b[:, None])[:, 0]
-            x = smooth(li, torch.zeros_like(b), b, nu1)
-            r = b - self._apply(li, blocks[li], x)
-            r = torch.where(self.fixed_j[li], 0.0, r)
-            rc = self.restrict(li, r)
-            rc = torch.where(self.fixed_j[li + 1], 0.0, rc)
-            ec = vcycle(li + 1, rc)
-            ec = torch.where(self.fixed_j[li + 1], 0.0, ec)
-            x = x + self.prolong(li, ec)
-            return smooth(li, x, b, nu2)
+                with timed("mg::coarse"):
+                    return torch.linalg.lu_solve(lu, piv, b[:, None])[:, 0]
+            with timed(levels[li]):
+                x = smooth(li, torch.zeros_like(b), b, nu1)
+                r = b - self._apply(li, blocks[li], x)
+                r = torch.where(self.fixed_j[li], 0.0, r)
+                rc = self.restrict(li, r)
+                rc = torch.where(self.fixed_j[li + 1], 0.0, rc)
+                ec = vcycle(li + 1, rc)
+                ec = torch.where(self.fixed_j[li + 1], 0.0, ec)
+                x = x + self.prolong(li, ec)
+                return smooth(li, x, b, nu2)
 
         def M(v):
-            x = vcycle(0, v)
-            for _ in range(cycles - 1):
-                x = x + vcycle(0, v - self._apply(0, blocks[0], x))
-            return x
+            with timed("mg::vcycle"):
+                x = vcycle(0, v)
+                for _ in range(cycles - 1):
+                    x = x + vcycle(0, v - self._apply(0, blocks[0], x))
+                return x
 
         return M
 

@@ -20,6 +20,7 @@ import torch
 from mrhyde_tpu_torch.solvers.amg import AggregationAMG
 from mrhyde_tpu_torch.solvers.linear import solve_linear_info
 from mrhyde_tpu_torch.solvers.multigrid import StructuredMG
+from mrhyde_tpu_torch.utils.profiling import host_value, timed
 
 __all__ = ["newton_solve", "NewtonResult", "mg_hierarchy", "MG_VARIANTS"]
 
@@ -45,17 +46,18 @@ def mg_hierarchy(assembler, variant):
     aggregation AMG, else None (the caller takes element-Schwarz). Each
     constructor refuses a mesh it does not take with ValueError."""
     if "_mg_hierarchy" not in assembler.__dict__:
-        hier = None
-        if variant != "amg":
-            try:
-                hier = StructuredMG(assembler)
-            except ValueError:
-                hier = None
-        if hier is None:
-            try:
-                hier = AggregationAMG(assembler)
-            except ValueError:
-                hier = None
+        with timed("mg::hierarchy"):
+            hier = None
+            if variant != "amg":
+                try:
+                    hier = StructuredMG(assembler)
+                except ValueError:
+                    hier = None
+            if hier is None:
+                try:
+                    hier = AggregationAMG(assembler)
+                except ValueError:
+                    hier = None
         assembler.__dict__["_mg_hierarchy"] = hier
     return assembler.__dict__["_mg_hierarchy"]
 
@@ -76,38 +78,43 @@ def newton_solve(assembler, u0, tc, pvec=None, *, tol=1e-6, abstol=1e-100,
     lin_res = 0.0
     lin_iters = 0
     while it < maxiter:
-        r, J = assembler.res_and_jac(u, tc, pvec)
-        norm = float(torch.linalg.norm(r))
-        if norm0 is None:
-            norm0 = norm if norm > 0 else 1.0
-        if norm < max(tol * norm0, abstol):
-            return NewtonResult(u, it, norm0, norm, True, lin_ok, lin_res,
-                                lin_iters)
-        # only GMRES and BiCGStab read precond_fn (the JAX package's
-        # jitted step drops the V-cycle's set-up for the others)
-        pfn = hier.preconditioner(J) if hier is not None \
-            and linear_method in ("gmres", "bicgstab") else None
-        du, info = solve_linear_info(
-            J, -r, method=linear_method, tol=linear_tol,
-            maxiter=linear_maxiter, precond_variant=precond_variant,
-            precond_fn=pfn)
-        if verbose > 1:
-            print(f"  Newton iter {it}: ||r|| = {norm:.6e} "
-                  f"(linear: {info.iters} its, res {info.resnorm:.2e})")
-        lin_ok = lin_ok and info.converged
-        lin_res = info.resnorm
-        lin_iters += info.iters
-        if backtracking:
-            alpha = 1.0
-            for _cut in range(8):
-                rn = assembler.residual(u + alpha * du, tc, pvec)
-                if float(torch.linalg.norm(rn)) <= norm or alpha < 1e-3:
-                    break
-                alpha *= 0.5
-            u = u + alpha * du
-        else:
-            u = u + du
-        it += 1
-    norm = float(torch.linalg.norm(assembler.residual(u, tc, pvec)))
+        # a step: the assembly and its norm, then, short of convergence,
+        # the linear solve and the update (the last step only checks)
+        with timed("newton::step"):
+            r, J = assembler.res_and_jac(u, tc, pvec)
+            norm = host_value(torch.linalg.norm(r))
+            if norm0 is None:
+                norm0 = norm if norm > 0 else 1.0
+            if norm < max(tol * norm0, abstol):
+                return NewtonResult(u, it, norm0, norm, True, lin_ok,
+                                    lin_res, lin_iters)
+            # only GMRES and BiCGStab read precond_fn (the JAX package's
+            # jitted step drops the V-cycle's set-up for the others)
+            pfn = hier.preconditioner(J) if hier is not None \
+                and linear_method in ("gmres", "bicgstab") else None
+            du, info = solve_linear_info(
+                J, -r, method=linear_method, tol=linear_tol,
+                maxiter=linear_maxiter, precond_variant=precond_variant,
+                precond_fn=pfn)
+            if verbose > 1:
+                print(f"  Newton iter {it}: ||r|| = {norm:.6e} "
+                      f"(linear: {info.iters} its, res {info.resnorm:.2e})")
+            lin_ok = lin_ok and info.converged
+            lin_res = info.resnorm
+            lin_iters += info.iters
+            if backtracking:
+                with timed("newton::line_search"):
+                    alpha = 1.0
+                    for _cut in range(8):
+                        rn = assembler.residual(u + alpha * du, tc, pvec)
+                        if host_value(torch.linalg.norm(rn)) <= norm \
+                                or alpha < 1e-3:
+                            break
+                        alpha *= 0.5
+                    u = u + alpha * du
+            else:
+                u = u + du
+            it += 1
+    norm = host_value(torch.linalg.norm(assembler.residual(u, tc, pvec)))
     return NewtonResult(u, it, norm0, norm, norm < max(tol * norm0, abstol),
                         lin_ok, lin_res, lin_iters)
